@@ -45,3 +45,9 @@ def _clear_jax_caches_between_modules():
     yield
     if not os.environ.get("KK_NO_CLEAR_CACHES"):
         jax.clear_caches()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skipped where CUDA is unavailable"
+    )
