@@ -1,10 +1,13 @@
 """krylovkit_tpu_torch — the PyTorch/CUDA port of ``krylovkit_tpu``.
 
-This slice covers the Hermitian Lanczos eigsolve, with the fused one-stream
-expansion and the in-place restart rotation as hand-written CUDA kernels
-(``csrc/``).  Entry points run where their inputs live: ``eigsolve`` on the
-device of ``x0``, the operator builders check ``device`` (default
-``"cuda"``).  CPU tensors run the kernels' plain PyTorch versions.
+It covers the Hermitian Lanczos eigsolve and the linear solvers (CG, GMRES,
+MINRES, BiCGStab), with four hand-written CUDA kernels (``csrc/``): the fused
+one-stream expansion, the in-place restart rotation, the banded SpMV of
+:class:`BandedOperator` and the 1-D Laplacian of ``laplacian_1d_pallas``.
+Entry points run where their inputs live: ``eigsolve`` on the device of
+``x0``, ``linsolve`` on the device of ``b``; the operator builders check
+``device`` (default ``"cuda"``).  CPU tensors run the kernels' plain
+PyTorch versions.
 
 Importing the package turns TF32 off for float32 matrix products and
 convolutions: the JAX package pins full float32 precision, and iterated
@@ -17,7 +20,11 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 from .algorithms import (  # noqa: E402
+    CG,
+    GMRES,
+    MINRES,
     Arnoldi,
+    BiCGStab,
     BlockLanczos,
     EigSorter,
     KrylovDefaults,
@@ -37,14 +44,21 @@ from .ops.operator import (  # noqa: E402
     StencilOperator,
     as_operator,
 )
+from .ops.banded import BandedOperator, banded_from_coo, banded_from_dense  # noqa: E402
+from .ops.stencil_1d import laplacian_1d_pallas  # noqa: E402
 from .ops.vector import REAL, STANDARD, VectorSpace  # noqa: E402
 from .parallel.operators import laplacian_1d, poisson_2d  # noqa: E402
 from .solvers.eigsolve import eigsolve  # noqa: E402
 from .solvers.lanczos import eigsolve_lanczos  # noqa: E402
+from .solvers.linsolve import linsolve, reallinsolve  # noqa: E402
 
 __all__ = [
     "Arnoldi",
+    "BiCGStab",
     "BlockLanczos",
+    "CG",
+    "GMRES",
+    "MINRES",
     "EigSorter",
     "KrylovDefaults",
     "Lanczos",
@@ -63,6 +77,10 @@ __all__ = [
     "StencilOperator",
     "GridStencilOperator",
     "MatrixOperator",
+    "BandedOperator",
+    "banded_from_coo",
+    "banded_from_dense",
+    "laplacian_1d_pallas",
     "as_operator",
     "VectorSpace",
     "STANDARD",
@@ -71,4 +89,6 @@ __all__ = [
     "poisson_2d",
     "eigsolve",
     "eigsolve_lanczos",
+    "linsolve",
+    "reallinsolve",
 ]

@@ -14,16 +14,22 @@ import dataclasses
 import numpy as np
 import torch
 
-from .algorithms import Lanczos
+from .algorithms import CG, GMRES, MINRES, BiCGStab, Lanczos
 from .ops import orthonormal as on
+from .ops.banded import BandedOperator
 from .ops.operator import GridStencilOperator, MatrixOperator, StencilOperator, resolve_device
 
 __all__ = [
     "stencil_from_arrays",
     "grid_stencil_from_arrays",
+    "banded_from_arrays",
     "matrix_from_numpy",
     "vector_from_numpy",
     "lanczos_from_dict",
+    "cg_from_dict",
+    "gmres_from_dict",
+    "minres_from_dict",
+    "bicgstab_from_dict",
 ]
 
 _ORTH_BY_NAME = {
@@ -51,6 +57,19 @@ def grid_stencil_from_arrays(grid, offsets2, coeffs, device="cuda") -> GridStenc
     return GridStencilOperator(tuple(grid), tuple(tuple(o) for o in offsets2), tuple(coeffs))
 
 
+def banded_from_arrays(offsets, diags, n, adj_offsets=None, adj_diags=None,
+                       device="cuda") -> BandedOperator:
+    """A :class:`BandedOperator` from a banded operator's offsets and
+    ``(nδ, R, 128)`` diagonal planes (e.g. the numpy planes of the JAX
+    package's ``BandedOperator``), with its adjoint when ``adj_offsets`` and
+    ``adj_diags`` are given."""
+    dev = resolve_device(device)
+    adj = None
+    if adj_offsets is not None:
+        adj = BandedOperator(adj_offsets, torch.as_tensor(np.array(adj_diags), device=dev), n)
+    return BandedOperator(offsets, torch.as_tensor(np.array(diags), device=dev), n, adj=adj)
+
+
 def matrix_from_numpy(A, device="cuda") -> MatrixOperator:
     """A :class:`MatrixOperator` holding ``A`` on ``device``."""
     return MatrixOperator(torch.as_tensor(np.asarray(A), device=resolve_device(device)))
@@ -61,14 +80,12 @@ def vector_from_numpy(x, device="cuda") -> torch.Tensor:
     return torch.as_tensor(np.asarray(x), device=resolve_device(device))
 
 
-def lanczos_from_dict(fields: dict) -> Lanczos:
-    """A :class:`Lanczos` from its fields.  ``orth`` is a name (``"cgs2"``,
-    ``"ClassicalGramSchmidt2"``, ...; the IR variants with their default
-    ``eta``/``maxiter``) or an orthogonalizer of this package."""
+def _alg_from_dict(cls, fields: dict):
+    """An algorithm struct from its fields; ``orth`` may be given by name."""
     fields = dict(fields)
-    extra = set(fields) - {f.name for f in dataclasses.fields(Lanczos)}
+    extra = set(fields) - {f.name for f in dataclasses.fields(cls)}
     if extra:
-        raise ValueError(f"unknown Lanczos fields: {sorted(extra)}")
+        raise ValueError(f"unknown {cls.__name__} fields: {sorted(extra)}")
     orth = fields.get("orth")
     if isinstance(orth, str):
         if orth not in _ORTH_BY_NAME:
@@ -79,4 +96,31 @@ def lanczos_from_dict(fields: dict) -> Lanczos:
             "orth must be an orthogonalizer name such as 'cgs2' or an "
             f"Orthogonalizer, got {orth!r}"
         )
-    return Lanczos(**fields)
+    return cls(**fields)
+
+
+def lanczos_from_dict(fields: dict) -> Lanczos:
+    """A :class:`Lanczos` from its fields.  ``orth`` is a name (``"cgs2"``,
+    ``"ClassicalGramSchmidt2"``, ...; the IR variants with their default
+    ``eta``/``maxiter``) or an orthogonalizer of this package."""
+    return _alg_from_dict(Lanczos, fields)
+
+
+def cg_from_dict(fields: dict) -> CG:
+    """A :class:`CG` from its fields (``maxiter``, ``tol``, ``verbosity``)."""
+    return _alg_from_dict(CG, fields)
+
+
+def gmres_from_dict(fields: dict) -> GMRES:
+    """A :class:`GMRES` from its fields; ``orth`` as in :func:`lanczos_from_dict`."""
+    return _alg_from_dict(GMRES, fields)
+
+
+def minres_from_dict(fields: dict) -> MINRES:
+    """A :class:`MINRES` from its fields (``maxiter``, ``tol``, ``verbosity``)."""
+    return _alg_from_dict(MINRES, fields)
+
+
+def bicgstab_from_dict(fields: dict) -> BiCGStab:
+    """A :class:`BiCGStab` from its fields (``maxiter``, ``tol``, ``verbosity``)."""
+    return _alg_from_dict(BiCGStab, fields)

@@ -275,9 +275,11 @@ def make_fused_stepper(op, kmax: int, dgks: bool, space: VectorSpace):
 
     def advance(c: FusedCarry):
         """One fused step (scalar front half + kernel + bookkeeping).
-        Returns ``(carry', alpha, beta_new)``."""
+        Returns ``(carry', alpha, beta_new, hcol)``: ``hcol`` is the full
+        normalized-units projection column (``j <= k``; callers add ``β`` at
+        ``k+1``)."""
         k = c.k
-        csub, lam, _, alpha, sc = _step_coeffs(c.r, c.d, c.rp, c.q, c.sc, k, dgks)
+        csub, lam, h, alpha, sc = _step_coeffs(c.r, c.d, c.rp, c.q, c.sc, k, dgks)
         g = torch.cat([csub, lam[None]])
         B = k + 1  # live rows: row k+1 (written) is never read
         yn, raw = fl.fused_step(c.V, c.y, g, k + 1, B, spec, with_drift=dgks)
@@ -291,7 +293,7 @@ def make_fused_stepper(op, kmax: int, dgks: bool, space: VectorSpace):
             rpn, qn = raw[B], raw[B + 1]
         beta = torch.sqrt(qn)
         sc = _append_row(sc, k, beta, csub, lam, dgks)
-        return FusedCarry(c.V, yn, rn, dn, rpn, qn, sc, k + 1), alpha, beta
+        return FusedCarry(c.V, yn, rn, dn, rpn, qn, sc, k + 1), alpha, beta, h
 
     def _append_row(sc: FusedScales, k: int, beta, csub, lam, with_hs: bool):
         idx = torch.arange(kmax, device=beta.device)
@@ -310,16 +312,16 @@ def make_fused_stepper(op, kmax: int, dgks: bool, space: VectorSpace):
 
     def tail(c: FusedCarry, go: bool):
         """Final append WITHOUT the next operator apply, only when ``go``.
-        Returns ``(V, scales', alpha, beta)``; with ``go`` false the basis
-        and scales are unchanged and ``alpha``/``beta`` are ``None``."""
+        Returns ``(V, scales', alpha, beta, hcol)``; with ``go`` false the
+        basis and scales are unchanged and the rest is ``None``."""
         if not go:
-            return c.V, c.sc, None, None
+            return c.V, c.sc, None, None, None
         k = c.k
-        csub, lam, _, alpha, sc = _step_coeffs(c.r, c.d, c.rp, c.q, c.sc, k, dgks)
+        csub, lam, h, alpha, sc = _step_coeffs(c.r, c.d, c.rp, c.q, c.sc, k, dgks)
         W = lam * c.y - bs.unproject_bucketed(c.V, csub, k + 1)
         beta = torch.sqrt(torch.sum(W * W))
         c.V[k + 1] = W
-        return c.V, _append_row(sc, k, beta, csub, lam, False), alpha, beta
+        return c.V, _append_row(sc, k, beta, csub, lam, False), alpha, beta, h
 
     return prime, advance, tail
 
@@ -354,12 +356,12 @@ def fused_expansions(op, state: KrylovState, scales: FusedScales, m: int, btol: 
 
     while c.k < m - 1 and going(c):
         k = c.k
-        c, alpha, beta_k = advance(c)
+        c, alpha, beta_k, _ = advance(c)
         H = _h_column(H, k, alpha, beta_k)
 
     k = c.k
     go = k == m - 1 and going(c)
-    V, sc, alpha, beta_m = tail(c, go)
+    V, sc, alpha, beta_m, _ = tail(c, go)
     if go:
         H = _h_column(H, k, alpha, beta_m)
         beta_out = beta_m

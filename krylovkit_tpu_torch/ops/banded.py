@@ -1,0 +1,211 @@
+"""Offset-decomposed ("generalized banded") sparse operator — the counterpart
+of ``krylovkit_tpu/ops/pallas_spmv.py``, named for what it holds rather than
+for the TPU kernel language:
+
+    A = Σ_δ diag(d_δ) · S_δ          (S_δ x)[i] = x[i + δ]
+
+with one dense diagonal plane ``d_δ`` per distinct column offset; the column
+indices disappear into static metadata (``offsets``).
+
+:func:`banded_spmv` is the wrapper of the hand-written CUDA kernel
+``csrc/banded_spmv.cu`` (the port of the TPU kernel
+``krylovkit_tpu/ops/pallas_spmv.py:_spmv_pallas``); its plain version
+:func:`banded_spmv_reference` (the semantics of the JAX package's
+``_spmv_xla``) sits beside it and serves CPU tensors.  The JAX package's
+size-based choice between its kernel and XLA (``_prefer_pallas``, tuned to a
+TPU's VMEM) and its tile-fit limit on the band are not ported: the CUDA
+kernel reads ``x`` from global memory and takes any offset in ``(-n, n)``,
+any ``n``, float32 or float64.  ``ell_to_banded`` waits for
+``ops/sparse.py``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import math
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import _build
+from .operator import LinearOperator, _shift_flat, resolve_device
+
+__all__ = [
+    "BandedOperator",
+    "banded_from_coo",
+    "banded_from_dense",
+    "banded_spmv",
+    "banded_spmv_reference",
+]
+
+LANES = 128
+# offsets the kernel takes (csrc/banded_spmv.cu kMaxOffsets), the default
+# ``max_offsets`` of banded_from_coo
+MAX_OFFSETS = 128
+
+
+def banded_spmv_reference(x: torch.Tensor, diags: torch.Tensor, offsets, n: int) -> torch.Tensor:
+    """Plain version of the banded SpMV: ``y[i] = Σ_p diags[p][i]·x[i + δ_p]``
+    on the flattening of ``x``, zero outside ``[0, n)``, terms added in
+    offset order; ``y`` has ``x``'s shape."""
+    xf = x.reshape(n)
+    planes = diags.reshape(len(offsets), -1)
+    y = torch.zeros(n, dtype=torch.promote_types(diags.dtype, x.dtype), device=x.device)
+    for p, d in enumerate(offsets):
+        y = y + planes[p, :n] * _shift_flat(xf, d)
+    return y.reshape(x.shape)
+
+
+_spmv_lib = None
+
+
+def _lib():
+    global _spmv_lib
+    if _spmv_lib is None:
+        lib = _build.library("banded_spmv")
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.kk_banded_spmv.argtypes = [p, p, p, ll, ll, i, p, i, p]
+        lib.kk_banded_spmv.restype = i
+        _spmv_lib = lib
+    return _spmv_lib
+
+
+def banded_spmv(x: torch.Tensor, diags: torch.Tensor, offsets: Tuple[int, ...],
+                n: int) -> torch.Tensor:
+    """``y[i] = Σ_p diags[p][i]·x[i + δ_p]`` with ``x`` read as zero outside
+    ``[0, n)``; ``y`` has ``x``'s shape.  ``diags`` holds one plane of at least
+    ``n`` entries per offset (``(nδ, R, 128)`` in :class:`BandedOperator`).
+
+    A CUDA tensor runs the kernel of ``csrc/banded_spmv.cu`` (``x`` and
+    ``diags`` both float32 or both float64); a CPU tensor (or a ``meta`` one,
+    to infer the result type) runs :func:`banded_spmv_reference`."""
+    offsets = tuple(int(d) for d in offsets)
+    if x.numel() != n:
+        raise ValueError(f"vector of {x.numel()} entries for an n={n} banded operator")
+    if x.device.type in ("cpu", "meta"):
+        return banded_spmv_reference(x, diags, offsets, n)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if torch.is_complex(x) or torch.is_complex(diags):
+        raise ValueError("the CUDA banded SpMV takes real float32/float64 planes; "
+                         "complex planes run only on the CPU")
+    if x.dtype not in (torch.float32, torch.float64) or diags.dtype != x.dtype:
+        raise ValueError(f"the CUDA banded SpMV needs x and diags both float32 or both "
+                         f"float64, got {x.dtype} and {diags.dtype}")
+    nd = len(offsets)
+    ld = math.prod(diags.shape[1:])
+    vec = 16 // x.element_size()
+    if (diags.device != x.device or diags.shape[0] != nd or not diags.is_contiguous()
+            or ld < n or ld % vec or diags.data_ptr() % 16 or nd > MAX_OFFSETS):
+        raise ValueError(
+            f"the CUDA banded SpMV needs contiguous, 16-byte aligned planes on {x.device}, "
+            f"one per offset (at most {MAX_OFFSETS}), each of at least n entries and a "
+            f"multiple of {vec}; got {tuple(diags.shape)} for {nd} offsets, n={n}"
+        )
+    xf = x.reshape(n)
+    if not xf.is_contiguous() or xf.data_ptr() % 16:
+        xf = xf.clone(memory_format=torch.contiguous_format)
+    y = torch.empty(n, dtype=x.dtype, device=x.device)
+    # the launch copies the offsets into its kernel argument
+    offs = np.asarray(offsets, np.int32)
+    lib = _lib()
+    status = lib.kk_banded_spmv(
+        xf.data_ptr(), diags.data_ptr(), y.data_ptr(), n, ld, nd,
+        offs.ctypes.data, int(x.dtype == torch.float64),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(lib, status, "banded_spmv")
+    _build.launches["banded_spmv"] += 1
+    return y.reshape(x.shape)
+
+
+@dataclasses.dataclass(frozen=True)
+class BandedOperator(LinearOperator):
+    """Square sparse operator in offset-decomposed form.
+
+    ``diags`` has shape ``(nδ, R, 128)`` with ``R = ceil(n/128)`` and
+    ``diags[p]`` flattened over rows: ``diags[p][i] = A[i, i + offsets[p]]``
+    (zero where absent or out of range).  ``adj`` is ``Aᴴ`` as a second
+    banded operator (or ``None``).  ``nnz`` counts the nonzero plane entries,
+    once, at construction."""
+
+    offsets: Tuple[int, ...] = ()
+    diags: torch.Tensor = None
+    n: int = 0
+    adj: Optional["BandedOperator"] = None
+    nnz: int = 0
+
+    def __init__(self, offsets, diags: torch.Tensor, n: int, adj=None):
+        offsets = tuple(int(d) for d in offsets)
+        if diags.shape[0] != len(offsets) or math.prod(diags.shape[1:]) < n:
+            raise ValueError(
+                f"diags {tuple(diags.shape)} must hold one plane of >= n={n} entries "
+                f"per offset ({len(offsets)})"
+            )
+        object.__setattr__(self, "offsets", offsets)
+        object.__setattr__(self, "diags", diags)
+        object.__setattr__(self, "n", int(n))
+        object.__setattr__(self, "adj", adj)
+        object.__setattr__(self, "nnz", int(torch.count_nonzero(diags)))
+        object.__setattr__(self, "normal", self._matvec)
+        object.__setattr__(self, "adjoint", adj._matvec if adj is not None else None)
+
+    @property
+    def shape(self):
+        return (self.n, self.n)
+
+    def _matvec(self, x: torch.Tensor) -> torch.Tensor:
+        # mixed precisions compute in the wider type, as the plain version does
+        dt = torch.promote_types(self.diags.dtype, x.dtype)
+        return banded_spmv(x.to(dt), self.diags.to(dt), self.offsets, self.n)
+
+
+def _plan(rows, cols, vals, n):
+    """COO → (offsets, planes (nδ, n)) with duplicate entries summed."""
+    rows = np.asarray(rows, np.int64)
+    cols = np.asarray(cols, np.int64)
+    vals = np.asarray(vals)
+    deltas = cols - rows
+    offs = np.unique(deltas)
+    p = np.searchsorted(offs, deltas)
+    planes = np.zeros((len(offs), n), vals.dtype)
+    np.add.at(planes, (p, rows), vals)
+    return tuple(int(d) for d in offs), planes
+
+
+def banded_from_coo(rows, cols, vals, n: int, max_offsets: Optional[int] = MAX_OFFSETS,
+                    with_adjoint: bool = True, device="cuda") -> BandedOperator:
+    """A :class:`BandedOperator` on ``device`` from COO triplets of a square
+    ``n×n`` matrix; the planes keep ``vals``' dtype.  With ``with_adjoint``
+    the adjoint is the banded operator of the transposed, conjugated COO.
+
+    Raises ``ValueError`` if the matrix has more than ``max_offsets``
+    distinct column offsets (it is then not banded-like)."""
+    dev = resolve_device(device)
+    offs, planes = _plan(rows, cols, vals, n)
+    if max_offsets is not None and len(offs) > max_offsets:
+        raise ValueError(
+            f"{len(offs)} distinct offsets exceed max_offsets={max_offsets}; "
+            "matrix is not banded-like — use ELLOperator instead"
+        )
+    R = -(-n // LANES)
+    planes3 = np.pad(planes, ((0, 0), (0, R * LANES - n))).reshape(len(offs), R, LANES)
+    adj = None
+    if with_adjoint:
+        adj = banded_from_coo(
+            np.asarray(cols), np.asarray(rows), np.conj(np.asarray(vals)), n,
+            max_offsets=None, with_adjoint=False, device=dev,
+        )
+    return BandedOperator(offs, torch.as_tensor(planes3, device=dev), n, adj=adj)
+
+
+def banded_from_dense(A, tol: float = 0.0, **kw) -> BandedOperator:
+    """A :class:`BandedOperator` of the entries of the square matrix ``A``
+    with ``|a| > tol`` (keywords go to :func:`banded_from_coo`)."""
+    A = np.asarray(A)
+    if A.ndim != 2 or A.shape[0] != A.shape[1]:
+        raise ValueError("BandedOperator requires a square matrix")
+    rows, cols = np.nonzero(np.abs(A) > tol)
+    return banded_from_coo(rows, cols, A[rows, cols], A.shape[0], **kw)

@@ -22,6 +22,7 @@ __all__ = [
     "GridStencilOperator",
     "MatrixOperator",
     "as_operator",
+    "apply_shifted",
     "probe_dtype",
     "resolve_device",
 ]
@@ -214,12 +215,30 @@ def as_operator(A, device=None) -> LinearOperator:
     raise TypeError(f"cannot make an operator of {type(A).__name__}")
 
 
+def apply_shifted(op: LinearOperator, x: torch.Tensor, a0, a1) -> torch.Tensor:
+    """``a0·x + a1·A(x)`` (reference ``src/apply.jl:5-11``).  ``a0``/``a1``
+    are Python numbers or 0-d tensors; as 0-d operands they never widen a
+    vector's precision (a float64 shift on a float32 vector stays float32),
+    only its kind (a complex shift makes a real vector complex)."""
+    return a0 * x + a1 * op(x)
+
+
 def probe_dtype(op: LinearOperator, x0: torch.Tensor) -> torch.dtype:
     """Scalar type of the problem (reference ``apply_scalartype``,
     ``src/apply.jl:26-36``), from one application to a ``meta`` copy of
-    ``x0``: no arithmetic, and no count in ``numops``."""
+    ``x0``: no arithmetic, and no count in ``numops``.  Operators that hold
+    their data (a matrix, banded planes) answer from its dtype.  A callable
+    that mixes the meta copy with tensors it holds cannot run on it; it is
+    applied once to a zero vector instead (still not counted)."""
+    from .banded import BandedOperator
+
     if isinstance(op, MatrixOperator):
         out = torch.promote_types(op.A.dtype, x0.dtype)
+    elif isinstance(op, BandedOperator):
+        out = torch.promote_types(op.diags.dtype, x0.dtype)
     else:
-        out = op.normal(torch.empty_like(x0, device="meta")).dtype
+        try:
+            out = op.normal(torch.empty_like(x0, device="meta")).dtype
+        except (RuntimeError, NotImplementedError):
+            out = op.normal(torch.zeros_like(x0)).dtype
     return torch.promote_types(out, x0.dtype)

@@ -25,6 +25,7 @@ __all__ = [
     "scale",
     "add",
     "zerovector",
+    "rounded",
 ]
 
 
@@ -82,3 +83,10 @@ def add(y: torch.Tensor, x: torch.Tensor, a=1, b=1) -> torch.Tensor:
 
 def zerovector(x: torch.Tensor, dtype=None) -> torch.Tensor:
     return torch.zeros_like(x, dtype=dtype or x.dtype)
+
+
+def rounded(v: float, dtype: torch.dtype) -> float:
+    """``v`` rounded to the real type ``dtype``, as a Python float.  A host
+    test ``float(t) <= rounded(tol, t.dtype)`` then decides as the JAX
+    package's device comparison in ``dtype`` does."""
+    return float(torch.tensor(v, dtype=dtype))

@@ -183,3 +183,37 @@ def test_fused_gate_matches_jax():
     grid = convert.grid_stencil_from_arrays((32, 128), POISSON_OFF, POISSON_CF, "cpu")
     assert tkf.fused_available(grid, torch.ones((32, 128)), STANDARD)
     assert not tkf.fused_available(grid, torch.ones((16, 128)), STANDARD)
+
+
+@pytest.mark.parametrize("dgks", [False, True])
+def test_stepper_returns_projection_column(dgks):
+    # advance and tail hand back the full projection column h (j <= k), the
+    # column the fused GMRES cycle builds its shifted Hessenberg from
+    import jax
+
+    kmax, R = 8, 16
+    jop = JGrid((16, 128), POISSON_OFF, POISSON_CF)
+    top_ = convert.grid_stencil_from_arrays((16, 128), POISSON_OFF, POISSON_CF, "cpu")
+    x = np.random.default_rng(3).standard_normal((R, 128)).astype(np.float32)
+    V = np.zeros((kmax, R, 128), np.float32)
+    V[0] = x / np.linalg.norm(x)
+    jprime, jadvance, jtail = jkf.make_fused_stepper(jop, kmax, dgks, JSTANDARD)
+    tprime, tadvance, ttail = tkf.make_fused_stepper(top_, kmax, dgks, STANDARD)
+    old = jkf.fused_interpret
+    jkf.fused_interpret = True
+    try:
+        jc = jprime(jnp.asarray(V), jnp.int32(0), jkf.fused_scales_init(kmax))
+        tc = tprime(torch.from_numpy(V.copy()), 0, tkf.fused_scales_init(kmax))
+        for k in range(kmax - 2):
+            jc, ja, jb, jh = jadvance(jc)
+            tc, ta, tb, th = tadvance(tc)
+            assert th.shape == (kmax,) and not torch.any(th[k + 1:])
+            np.testing.assert_allclose(th.numpy(), np.asarray(jh), rtol=2e-4, atol=2e-5)
+            np.testing.assert_allclose(float(ta), float(ja), rtol=2e-4)
+            assert float(th[k]) == float(ta)
+        _, _, _, _, jh = jtail(jc, jax.tree_util.tree_structure(jnp.asarray(V)), jnp.bool_(True))
+        _, _, ta, _, th = ttail(tc, True)
+        np.testing.assert_allclose(th.numpy(), np.asarray(jh), rtol=2e-4, atol=2e-5)
+        assert ttail(tc, False)[4] is None
+    finally:
+        jkf.fused_interpret = old

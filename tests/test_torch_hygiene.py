@@ -31,7 +31,11 @@ def test_port_file_imports_no_jax(path):
 
 def test_port_has_files():
     names = {p.name for p in PORT_FILES}
-    assert {"fused_lanczos.cu", "transform.cu", "chip_smoke.py", "lanczos.py"} <= names
+    assert {
+        "fused_lanczos.cu", "transform.cu", "banded_spmv.cu", "laplacian_1d.cu",
+        "chip_smoke.py", "lanczos.py", "linsolve.py", "cg.py", "gmres.py", "minres.py",
+        "bicgstab.py", "banded.py", "stencil_1d.py", "givens.py", "triangular.py",
+    } <= names
 
 
 def test_importing_the_port_loads_no_jax():

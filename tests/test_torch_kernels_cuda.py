@@ -5,12 +5,16 @@ Needs an NVIDIA GPU (marker ``cuda``; skipped elsewhere).  Imports no JAX.
     python -m pytest tests/test_torch_kernels_cuda.py -q     # on a machine with a card
 """
 
+import numpy as np
 import pytest
 import torch
 
+import krylovkit_tpu_torch as kt
 from krylovkit_tpu_torch import _build
+from krylovkit_tpu_torch.ops import banded as bd
 from krylovkit_tpu_torch.ops import basis as bs
 from krylovkit_tpu_torch.ops import fused_lanczos as fl
+from krylovkit_tpu_torch.ops import stencil_1d as s1
 from krylovkit_tpu_torch.ops.operator import GridStencilOperator, StencilOperator
 
 torch.set_num_threads(2)
@@ -102,3 +106,89 @@ def test_wrappers_raise_instead_of_falling_back():
         fl.fused_step(V, y, g, 3, 5, spec)  # kp1 < B would read the row it writes
     with pytest.raises(ValueError):
         fl.fused_step(V.double(), y.double(), g.double(), 5, 5, spec)
+
+
+# (n, offsets, dtype): banded Poisson at the config-2 size, halfband 8,
+# float64, ragged n (not a multiple of 4 or 128), offsets that straddle lanes,
+# and the widest offsets an n allows
+BANDED_CASES = [
+    (1 << 20, (-1024, -1, 0, 1, 1024), torch.float32),
+    (1 << 21, tuple(range(-8, 9)), torch.float32),
+    (1 << 20, (-1024, -1, 0, 1, 1024), torch.float64),
+    (300, (-2, 0, 5), torch.float32),
+    (301, (-2, 0, 5), torch.float64),
+    (2048, (-130, -127, -1, 0, 1, 3, 127, 129, 256), torch.float32),
+    (1000, (-999, -1, 0, 999), torch.float32),
+]
+
+
+@pytest.mark.parametrize("n,offsets,dtype", BANDED_CASES)
+def test_banded_spmv_kernel_matches_plain(n, offsets, dtype):
+    gen = _gen(n + len(offsets))
+    R = -(-n // 128)
+    D = torch.randn((len(offsets), R, 128), generator=gen, device="cuda", dtype=dtype)
+    x = torch.randn(n, generator=gen, device="cuda", dtype=dtype)
+    before = _build.launches["banded_spmv"]
+    y = bd.banded_spmv(x, D, offsets, n)
+    assert _build.launches["banded_spmv"] == before + 1
+    yr = bd.banded_spmv_reference(x, D, offsets, n)
+    torch.cuda.synchronize()
+    # float32 FMAs against separate multiply and add, both in offset order
+    scale = bd.banded_spmv_reference(x.abs(), D.abs(), offsets, n)
+    tol = 1e-6 if dtype == torch.float32 else 1e-15
+    assert float(((y - yr).abs() - tol * scale).max()) <= 0
+    assert torch.equal(y, bd.banded_spmv(x, D, offsets, n))  # deterministic
+
+
+@pytest.mark.parametrize("n,dtype", [(1 << 21, torch.float32), (1 << 21, torch.float64),
+                                     (1000, torch.float32), (999, torch.float64)])
+def test_laplacian_1d_kernel_matches_plain(n, dtype):
+    x = torch.randn(n, generator=_gen(n), device="cuda", dtype=dtype)
+    before = _build.launches["laplacian_1d"]
+    y = s1.laplacian_1d_flat(x)
+    assert _build.launches["laplacian_1d"] == before + 1
+    # the same operations in the same order: bit-equal
+    assert torch.equal(y, s1.laplacian_1d_flat_reference(x))
+    if n % 128 == 0:
+        op = kt.laplacian_1d_pallas(n, dtype)
+        assert torch.equal(op.normal(x.reshape(n // 128, 128)), y)
+
+
+def test_banded_wrappers_raise_instead_of_falling_back():
+    D = torch.ones((3, 2, 128), device="cuda")
+    x = torch.ones(256, device="cuda")
+    with pytest.raises(ValueError, match="complex"):
+        bd.banded_spmv(x.to(torch.complex64), D.to(torch.complex64), (-1, 0, 1), 256)
+    with pytest.raises(ValueError, match="float64"):
+        bd.banded_spmv(x, D.double(), (-1, 0, 1), 256)
+    with pytest.raises(ValueError, match="planes"):
+        bd.banded_spmv(x, D[:, :1], (-1, 0, 1), 256)  # planes shorter than n
+    with pytest.raises(ValueError, match="float32 or float64"):
+        s1.laplacian_1d_flat(x.half())
+
+
+def _poisson_coo(nx):
+    i = np.arange(nx * nx)
+    iy, ix = i // nx, i % nx
+    rows, cols, vals = [i], [i], [np.full(i.size, 4.0)]
+    for mask, d in ((iy > 0, -nx), (ix > 0, -1), (ix < nx - 1, 1), (iy < nx - 1, nx)):
+        rows.append(i[mask])
+        cols.append(i[mask] + d)
+        vals.append(np.full(int(mask.sum()), -1.0))
+    return tuple(np.concatenate(a) for a in (rows, cols, vals))
+
+
+@pytest.mark.parametrize("alg", [kt.CG(tol=1e-8, maxiter=300),
+                                 kt.GMRES(krylovdim=30, tol=1e-8, maxiter=50),
+                                 kt.BiCGStab(tol=1e-8, maxiter=300)],
+                         ids=["cg", "gmres", "bicgstab"])
+def test_banded_linsolve_on_card_matches_cpu(alg):
+    nx = 64
+    coo = _poisson_coo(nx)
+    b = torch.ones((nx * nx // 128, 128), dtype=torch.float64)
+    before = _build.launches["banded_spmv"]
+    xc, ic = kt.linsolve(kt.banded_from_coo(*coo, nx * nx), b.cuda(), a0=0.5, alg=alg)
+    assert _build.launches["banded_spmv"] - before == ic.numops
+    xh, ih = kt.linsolve(kt.banded_from_coo(*coo, nx * nx, device="cpu"), b, a0=0.5, alg=alg)
+    assert (ic.numops, ic.numiter, ic.converged) == (ih.numops, ih.numiter, 1)
+    torch.testing.assert_close(xc.cpu(), xh, rtol=1e-8, atol=1e-8 * float(xh.abs().max()))
