@@ -10,8 +10,8 @@ without the final ``ok`` line:
    (``nvidia-smi``), the TF32 flags (must be off);
 2. build   — compiles every kernel of ``krylovkit_tpu_torch/csrc`` with
    ``nvcc`` (one process per source, in parallel);
-3. kernels — each kernel against its plain PyTorch version on the card at
-   the shapes of the paths below, with its tolerance or bit-identity
+3. kernels — each of the six kernels against its plain PyTorch version on
+   the card at the shapes of the paths below, with its tolerance or bit-identity
    contract, its time (CUDA events), the plain version's time, a yardstick
    PyTorch call where one computes the same function, and its bound on the
    card;
@@ -29,11 +29,23 @@ without the final ``ok`` line:
    solves, two of them again on the same matrix as a ``BandedOperator``, and
    BiCGStab on ``laplacian_1d_pallas(2**21)``): per solve, launch counts of
    one solve, then 3 timed solves, one JSON line each;
-8. profile (only with ``--profile``) — one more main-path solve under
-   ``torch.profiler``: device busy time and idle share, device ops, host
+8. small_arnoldi — the Krylov-Schur Arnoldi solvers on a small
+   non-symmetric stencil, on the card against the same solve on the CPU:
+   ``schursolve`` fused, the same matrix as a ``BandedOperator`` with the
+   projection kernels on, ``eigsolve`` on it, and a complex64 ``schursolve``
+   on a dense matrix;
+9. config4_arnoldi — ``benchmarks/run_all.py``'s config-4 Arnoldi solve at
+   full size (transport-diffusion stencil, n = 2^20, f32 ``(8192, 128)``
+   vectors, ``schursolve`` 4 "LM", krylovdim 30, maxiter 8, default cgs2):
+   the stencil (fused), the same matrix as a ``BandedOperator`` with the
+   projection kernels on, and with them off; per solve, launch counts of one
+   solve, then timed solves, one JSON line each; then the time of each
+   dense Schur processing round of one more fused solve;
+10. profile (only with ``--profile``) — one more config-1 solve and one
+   more fused config-4 solve under ``torch.profiler``: device busy time and idle share, device ops, host
    reads of device scalars, device time by kernel name.
 
-Each path (phases 5 and 7, one solve at a time) is driven with the launch
+Each path (phases 5, 7 and 9, one solve at a time) is driven with the launch
 counts set to 0 just before it and read just after.  Then the kernel
 summary line, the ``nvidia-smi`` name/power line, and as the last line
 ``{"ok": true, "device": {...}}``.
@@ -303,13 +315,144 @@ def drive_solve(torch, kt, _build, fl, op, b, a0, alg, reps=3, **kw):
     return x, info, launches, Bs, first_ms, (time.perf_counter() - t0) / reps * 1e3
 
 
-def profile_solve(torch, kt, op, x0, alg):
-    """One main-path solve under ``torch.profiler`` (after the timed ones)."""
+def check_projections(torch, pb, kmax, R, ks, gen, timed=()):
+    """K5 (project) and K6 (unproject) against their plain versions on the
+    card for each live length in ``ks``, with ``k`` passed as a host int and
+    as a device tensor, the rows ``>= k`` filled with NaN (they must never
+    be read) and K5 run twice (bit-equal).  Returns ``(K5 cases, K6 cases)``;
+    the lengths in ``timed`` also carry times, bounds and the cuBLAS
+    yardsticks ``torch.mv(V[:k], w)`` and ``c[:k] @ V[:k]``."""
+    n = R * 128
+    V = torch.randn((kmax, R, 128), generator=gen, device="cuda")
+    w = torch.randn((R, 128), generator=gen, device="cuda")
+    c0 = torch.randn(kmax, generator=gen, device="cuda")
+    nw = torch.linalg.vector_norm(w)
+    tol = 1e-6
+    p_cases, u_cases = [], []
+    for k in ks:
+        Vn = V.clone()
+        Vn[k:] = float("nan")
+        c = c0.clone()
+        c[k:] = 0
+        kdev = torch.tensor([k], dtype=torch.int32, device="cuda")
+        want_c, want_y = pb.project_reference(Vn, w, k), pb.unproject_reference(Vn, c, k)
+        Vk = V[:k].reshape(k, n)
+        scale_c = torch.linalg.vector_norm(Vk, dim=1) * nw
+        scale_y = (c[:k].abs()[:, None] * Vk.abs()).sum(0).reshape(R, 128)
+        err_c = err_y = rel_c = rel_y = 0.0
+        for kk in (k, kdev):
+            got_c, again = pb.project_pallas(Vn, w, kk), pb.project_pallas(Vn, w, kk)
+            got_y = pb.unproject_pallas(Vn, c, kk)
+            torch.cuda.synchronize()
+            label = f"kmax={kmax} R={R} k={k} ({'device' if kk is kdev else 'host'} k)"
+            require(bool(torch.isfinite(got_c).all()) and bool(torch.isfinite(got_y).all()),
+                    f"projections {label}: rows >= k never read (no NaN)")
+            require(torch.equal(got_c, again), f"project {label}: two runs bit-equal")
+            require(not bool(got_c[k:].any()), f"project {label}: zero beyond k")
+            d_c, d_y = (got_c - want_c)[:k].abs(), (got_y - want_y).abs()
+            require(bool((d_c <= tol * scale_c).all()),
+                    f"project {label}: within {tol}*|V_j||w|")
+            require(bool((d_y <= tol * scale_y).all()),
+                    f"unproject {label}: within {tol}*sum_j|c_j||V_j|")
+            if k:
+                err_c, err_y = max(err_c, float(d_c.max())), max(err_y, float(d_y.max()))
+                rel_c = max(rel_c, float((d_c / scale_c).max()))
+                rel_y = max(rel_y, float((d_y / scale_y.clamp_min(1e-30)).max()))
+            else:
+                require(not bool(got_y.any()), f"unproject {label}: k = 0 gives zeros")
+        pc = {"kmax": kmax, "n": n, "k": k, "max_abs_err": err_c, "max_rel_err": rel_c,
+              "tolerance": f"{tol}*|V_j||w|", "bit_equal_twice": True, "rows_ge_k_nan": True}
+        uc = {"kmax": kmax, "n": n, "k": k, "max_abs_err": err_y, "max_rel_err": rel_y,
+              "tolerance": f"{tol}*sum_j|c_j||V_j|", "rows_ge_k_nan": True}
+        if k in timed:
+            pc.update(time_project(torch, pb, V, w, k, kdev))
+            uc.update(time_unproject(torch, pb, V, c, k, kdev))
+        p_cases.append(pc)
+        u_cases.append(uc)
+    return p_cases, u_cases
+
+
+def time_project(torch, pb, V, w, k, kdev, plain_reps=3):
+    """K5's time at live length ``k`` beside its bound (``V[:k]`` and ``w``
+    read once, ``c`` written), its plain version and the cuBLAS gemv."""
+    kmax, n = V.shape[0], V[0].numel()
+    Vk, wf = V[:k].reshape(k, -1), w.reshape(-1)
+    t_bound, by = bound((k + 1) * n * 4 + kmax * 4, 2 * k * n)
+    return {
+        "ms": device_ms(torch, lambda: pb.project_pallas(V, w, kdev)),
+        "plain_ms": device_ms(torch, lambda: pb.project_reference(V, w, k), reps=plain_reps),
+        "library_ms": device_ms(torch, lambda: torch.mv(Vk, wf)),
+        "library": "torch.mv(V[:k].view(k, -1), w.view(-1)) (cuBLAS gemv)",
+        "bound_ms": t_bound, "bound_by": by,
+    }
+
+
+def time_unproject(torch, pb, V, c, k, kdev, plain_reps=3):
+    """K6's time at live length ``k`` beside its bound (``V[:k]`` and ``c``
+    read once, ``y`` written), its plain version and the cuBLAS gemv."""
+    kmax, n = V.shape[0], V[0].numel()
+    Vk, ck = V[:k].reshape(k, -1), c[:k]
+    t_bound, by = bound((k + 1) * n * 4 + kmax * 4, 2 * k * n)
+    return {
+        "ms": device_ms(torch, lambda: pb.unproject_pallas(V, c, kdev)),
+        "plain_ms": device_ms(torch, lambda: pb.unproject_reference(V, c, k), reps=plain_reps),
+        "library_ms": device_ms(torch, lambda: ck @ Vk),
+        "library": "c[:k] @ V[:k].view(k, -1) (cuBLAS gemv)",
+        "bound_ms": t_bound, "bound_by": by,
+    }
+
+
+def drive_schursolve(torch, kt, _build, fl, pb, op, x0, alg, reps=2):
+    """One ``kt.schursolve(op, x0, 4, "LM", alg)`` with the launch counts
+    set to 0 just before it and read just after (the B of each fused step
+    and the k of each projection are recorded too), then ``reps`` timed
+    solves.  Returns ``(re, im, info, launches, Bs, ks, first_ms, ms)``."""
+    Bs, ks = [], []
+    fused_step, project = fl.fused_step, pb.project_pallas
+
+    def rec_step(V, y, g, kp1, B, spec, with_drift=False):
+        Bs.append((B, with_drift))
+        return fused_step(V, y, g, kp1, B, spec, with_drift)
+
+    def rec_project(V, w, k):
+        ks.append(int(k))
+        return project(V, w, k)
+
+    fl.fused_step, pb.project_pallas = rec_step, rec_project
+    try:
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, (re, im), info = kt.schursolve(op, x0, 4, "LM", alg)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(_build.launches)
+    finally:
+        fl.fused_step, pb.project_pallas = fused_step, project
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        _, _, (re, im), info = kt.schursolve(op, x0, 4, "LM", alg)
+    torch.cuda.synchronize()
+    return re, im, info, launches, Bs, ks, first_ms, (time.perf_counter() - t0) / reps * 1e3
+
+
+def tridiagonal_coo(np, n, lower, diag, upper, dtype):
+    """COO triplets of the Toeplitz tridiagonal matrix that the stencil
+    ``((-1, 0, 1), (lower, diag, upper))`` applies."""
+    i = np.arange(n)
+    rows = np.concatenate([i[1:], i, i[:-1]])
+    cols = np.concatenate([i[1:] - 1, i, i[:-1] + 1])
+    vals = np.concatenate([np.full(n - 1, lower), np.full(n, diag), np.full(n - 1, upper)])
+    return rows, cols, vals.astype(dtype)
+
+
+def profile_solve(torch, label, solve):
+    """One solve (``solve()``) under ``torch.profiler``, after the timed ones."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        kt.eigsolve_lanczos(op, x0, 4, "LM", alg)
+        solve()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels, launches, syncs = {}, 0, 0
@@ -325,7 +468,7 @@ def profile_solve(torch, kt, op, x0, alg):
     busy_ms = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
     return {
-        "phase": "profile", "wall_ms_profiled": wall_ms,
+        "phase": "profile", "solve": label, "wall_ms_profiled": wall_ms,
         "device_busy_ms": busy_ms if launches else "not measured",
         "device_idle_share": (1 - busy_ms / wall_ms) if launches else "not measured",
         "device_ops": launches, "host_scalar_reads": syncs,
@@ -336,7 +479,7 @@ def profile_solve(torch, kt, op, x0, alg):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one main-path solve (phase 8)")
+                    help="also profile one config-1 and one config-4 solve (phase 10)")
     args = ap.parse_args()
     import torch
 
@@ -351,7 +494,12 @@ def main():
     from krylovkit_tpu_torch.ops import banded as bd
     from krylovkit_tpu_torch.ops import basis as bs
     from krylovkit_tpu_torch.ops import fused_lanczos as fl
+    from krylovkit_tpu_torch.ops import projections as pb
     from krylovkit_tpu_torch.ops import stencil_1d as s1
+    from krylovkit_tpu_torch.solvers import arnoldi as arn
+
+    def mean(xs):
+        return sum(xs) / len(xs)
 
     # 1. device
     smi = nvidia_smi_line()
@@ -408,9 +556,29 @@ def main():
     ]
     del xh8, D8
     k4_cases = [check_laplacian(torch, s1, n, dt, gen, flush) for dt in (torch.float32, torch.float64)]
-    del flush
+    # config 4's matrix (n = 2^20) as a stencil and as a banded operator; K1
+    # on its chain spec, K2 at the Krylov-Schur restart's m_out = keep_max + 1
+    # = 21, K3 on its three offsets, K5/K6 at its (31, 8192, 128) basis
+    n4 = 1 << 20
+    R4 = n4 // 128
+    nonsym = kt.StencilOperator((-1, 0, 1), (-1.3, 2.0, -0.7))
+    k1_cases.append(check_fused_step(torch, fl, nonsym, R4, kmax, 18, 18, True, gen))
+    k2_cases.append(check_transform(torch, bs, kmax, R4, 21, gen))
+    banded4 = kt.banded_from_coo(*tridiagonal_coo(np, n4, -1.3, 2.0, -0.7, np.float32), n4)
+    require(banded4.offsets == (-1, 0, 1) and banded4.nnz == 3 * n4 - 2,
+            f"banded transport-diffusion: offsets {banded4.offsets}, nnz {banded4.nnz}")
+    x4 = torch.randn((R4, 128), generator=gen, device="cuda")
+    k3_cases.append(check_banded(torch, bd, "transport-diffusion banded f32", x4, banded4.diags,
+                                 banded4.offsets, n4, flush))
+    k5_cases, k6_cases = check_projections(torch, pb, kmax, R4, (0, 1, 18, 30, 31), gen,
+                                           timed=(18, 30))
+    k5_small, k6_small = check_projections(torch, pb, 13, 16, (0, 5, 13), gen)
+    k5_cases += k5_small
+    k6_cases += k6_small
+    del flush, x4
     emit({"phase": "kernels", "fused_step": k1_cases, "transform_partial": k2_cases,
           "banded_spmv": k3_cases, "laplacian_1d": k4_cases,
+          "project": k5_cases, "unproject": k6_cases,
           "fused_step_library": "none: no single PyTorch call computes the fused step"})
 
     # per-launch times over the main path's schedule: the first cycle appends
@@ -432,7 +600,7 @@ def main():
             "bound_ms": t_bound,
         }
     del V, y, g
-    t2 = {c["m_out"]: c for c in k2_cases}
+    t2 = {c["m_out"]: c for c in k2_cases if c["n"] == n}
     k2_schedule = [20] * 10 + [4]
 
     # 4. small solve: card vs CPU (plain versions)
@@ -618,11 +786,184 @@ def main():
         require(rel <= 1e-4, f"{banded_metric}: x agrees with {stencil_metric} to 1e-4")
     del Vg, yg, gg
 
-    if args.profile:
-        emit(profile_solve(torch, kt, op, x0, alg))
+    # 8. small Arnoldi solves: card vs CPU (plain versions)
+    ns = 4096
+    coeffs = (-1.3, 2.0, -0.7)
+    xa = torch.randn((ns // 128, 128), generator=torch.Generator().manual_seed(2))
+    alg_a = kt.Arnoldi(krylovdim=18, maxiter=5, tol=1e-5, **quiet)
+    coo_a = tridiagonal_coo(np, ns, *coeffs, np.float32)
 
-    def mean(xs):
-        return sum(xs) / len(xs)
+    def small_pair(label, make_op, flag, solve):
+        """``solve(op, x0)`` → ``(values, info)`` on the card and on the CPU
+        with the projection flag set to ``flag``; values to 2e-4 of the
+        largest, counts equal."""
+        bs.use_pallas_projections = flag
+        try:
+            _build.reset_launches()
+            vc, ic = solve(make_op("cuda"), xa.cuda())
+            counted = dict(_build.launches)
+            vh, ih = solve(make_op("cpu"), xa)
+        finally:
+            bs.use_pallas_projections = False
+        err = float((vc.cpu() - vh).abs().max() / vh.abs().max())
+        rec = {"solve": label, "n": ns, "max_rel_err": err, "tolerance": 2e-4,
+               "numops": [ic.numops, ih.numops], "numiter": [ic.numiter, ih.numiter],
+               "launches": counted}
+        require(err <= 2e-4, f"small {label}: card vs CPU values within 2e-4")
+        require((ic.numops, ic.numiter) == (ih.numops, ih.numiter), f"small {label}: counts equal")
+        return rec, counted, ic
+
+    def schur_abs(op, x):
+        _, _, (re, im), info = kt.schursolve(op, x, 4, "LM", alg_a)
+        return torch.hypot(re, im), info
+
+    def eig_abs(op, x):
+        vals, vecs, info = kt.eigsolve(op, x, 4, "LM", alg=alg_a)
+        require(vals.dtype == torch.complex64 and tuple(vecs.shape) == (4,) + tuple(x.shape),
+                "small eigsolve: complex64 values, (4, R, 128) vectors")
+        return vals.abs(), info
+
+    small_a = []
+    rec, counted, ic = small_pair(
+        "schursolve stencil fused", lambda d: kt.StencilOperator((-1, 0, 1), coeffs), False,
+        schur_abs)
+    require(counted.get("fused_step", 0) == ic.numops - ic.numiter
+            and counted.get("transform_partial", 0) == ic.numiter,
+            f"small fused schursolve: K1 per in-stream apply, K2 per round ({counted})")
+    small_a.append(rec)
+    for label, solve in (("schursolve banded, projection kernels", schur_abs),
+                         ("eigsolve banded, projection kernels", eig_abs)):
+        rec, counted, ic = small_pair(
+            label, lambda d: kt.banded_from_coo(*coo_a, ns, device=d), True, solve)
+        require(counted.get("banded_spmv", 0) == ic.numops
+                and counted.get("project", 0) == counted.get("unproject", 0) == 2 * ic.numops
+                and counted.get("fused_step", 0) == 0,
+                f"small {label}: K3 per apply, K5 and K6 twice per expansion ({counted})")
+        small_a.append(rec)
+    # complex64 schursolve on a small dense operator
+    rng_c = np.random.default_rng(3)
+    Ac = ((rng_c.standard_normal((96, 96)) + 1j * rng_c.standard_normal((96, 96))) / 96 ** 0.5
+          ).astype(np.complex64)
+    xc0 = torch.from_numpy((rng_c.standard_normal(96) + 1j * rng_c.standard_normal(96))
+                           .astype(np.complex64))
+    alg_c = kt.Arnoldi(krylovdim=20, maxiter=40, tol=2e-5, **quiet)
+    outs = []
+    for dev in ("cuda", "cpu"):
+        Tc, Vc, valsc, infc = kt.schursolve(torch.from_numpy(Ac).to(dev), xc0.to(dev), 3, "LM", alg_c)
+        Vm = Vc.cpu().numpy().T
+        outs.append((valsc.cpu(), infc, float(np.linalg.norm(Ac @ Vm - Vm @ Tc.cpu().numpy()))))
+    (vc, ic, res_c), (vh, ih, _) = outs
+    err = float((vc - vh).abs().max() / vh.abs().max())
+    small_a.append({"solve": "schursolve dense complex64", "n": 96, "max_rel_err": err,
+                    "tolerance": 2e-4, "converged": [ic.converged, ih.converged],
+                    "numiter": [ic.numiter, ih.numiter], "schur_residual": res_c})
+    emit({"phase": "small_arnoldi", "solves": small_a})
+    require(vc.dtype == torch.complex64 and err <= 2e-4 and ic.converged == ih.converged == 3,
+            "small complex schursolve: 3 converged, card vs CPU values within 2e-4")
+    require(res_c <= 1e-3, f"small complex schursolve: |A V - V T| = {res_c} within 1e-3")
+
+    # 9. config 4's Arnoldi solve at full size, three ways
+    x04 = torch.from_numpy(np.random.default_rng(1).standard_normal((R4, 128)).astype(np.float32)).cuda()
+    alg4 = kt.Arnoldi(krylovdim=m, maxiter=8, tol=1e-30, **quiet)
+    k3_c4 = next(c for c in k3_cases if c["case"] == "transport-diffusion banded f32")
+    k2_c4 = next(c for c in k2_cases if c["n"] == n4)
+    spec4 = fl.spec_for(nonsym)
+    V4 = torch.randn((kmax, R4, 128), generator=gen, device="cuda")
+    y4 = torch.randn((R4, 128), generator=gen, device="cuda")
+    g4 = torch.randn(kmax + 1, generator=gen, device="cuda")
+    k1_ms4, proj_ms4 = {}, {}
+    c4 = {}
+    for metric, op4, flag in (("arnoldi_realschur_nonsym", nonsym, False),
+                              ("arnoldi_realschur_nonsym_banded_proj", banded4, True),
+                              ("arnoldi_realschur_nonsym_banded", banded4, False)):
+        bs.use_pallas_projections = flag
+        try:
+            re4, im4, info4, launches4, Bs, ks, first_ms, ms = drive_schursolve(
+                torch, kt, _build, fl, pb, op4, x04, alg4)
+        finally:
+            bs.use_pallas_projections = False
+        lam = torch.hypot(re4, im4).cpu()
+        kernel_ms = {}
+        if Bs:
+            for key in set(Bs):
+                if key not in k1_ms4:
+                    k1_ms4[key] = device_ms(
+                        torch, lambda: fl.fused_step(V4, y4, g4, key[0], key[0], spec4, key[1]), reps=5)
+            kernel_ms["fused_step"] = sum(k1_ms4[key] for key in Bs)
+        if ks:
+            for k in set(ks):
+                if k not in proj_ms4:
+                    kdev = torch.tensor([k], dtype=torch.int32, device="cuda")
+                    proj_ms4[k] = (time_project(torch, pb, V4, y4, k, kdev, plain_reps=2),
+                                   time_unproject(torch, pb, V4, g4[:kmax], k, kdev, plain_reps=2))
+            kernel_ms["project"] = sum(proj_ms4[k][0]["ms"] for k in ks)
+            kernel_ms["unproject"] = sum(proj_ms4[k][1]["ms"] for k in ks)
+        if launches4.get("banded_spmv"):
+            kernel_ms["banded_spmv"] = launches4["banded_spmv"] * k3_c4["ms"]
+        kernel_ms["transform_partial"] = launches4.get("transform_partial", 0) * k2_c4["ms"]
+        c4[metric] = {"lam": lam, "info": info4, "launches": launches4, "ks": ks, "Bs": Bs}
+        emit({
+            "metric": metric, "value": info4.numops * 3 * n4 / ms / 1e6, "unit": "Gnnz/s",
+            "formula": "numops * 3n / t (benchmarks/run_all.py)", "projection_kernels": flag,
+            "numops": info4.numops, "numiter": info4.numiter, "converged": info4.converged,
+            "ms_per_solve": ms, "first_solve_ms": first_ms, "abs_vals": lam.tolist(),
+            "im": im4.cpu().tolist(), "normres": info4.normres.cpu().tolist(),
+            "launches_per_solve": launches4,
+            "projection_k_mean": sum(ks) / len(ks) if ks else None,
+            "fused_step_B_mean": sum(B for B, _ in Bs) / len(Bs) if Bs else None,
+            "kernel_ms_per_solve": kernel_ms,
+            "outside_kernels_ms_per_solve": ms - sum(kernel_ms.values()),
+            "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+        })
+        require(bool(torch.isfinite(lam).all()) and bool((lam <= 4.0 + 1e-3).all()),
+                f"{metric}: |lambda| inside the Gershgorin disc (<= 1.3 + 2.0 + 0.7): {lam.tolist()}")
+        require(info4.numiter == 8 and 100 <= info4.numops <= 114,
+                f"{metric}: 8 iterations, numops in 100..114 (got {info4.numiter}, {info4.numops})")
+    fused4, proj4, plain4 = (c4[key] for key in ("arnoldi_realschur_nonsym",
+                                                 "arnoldi_realschur_nonsym_banded_proj",
+                                                 "arnoldi_realschur_nonsym_banded"))
+    nops4, nit4 = fused4["info"].numops, fused4["info"].numiter
+    require(fused4["launches"] == {"fused_step": nops4 - nit4, "transform_partial": nit4},
+            f"config-4 fused solve: K1 per in-stream apply, K2 per round ({fused4['launches']})")
+    require(proj4["launches"] == {"banded_spmv": nops4, "project": 2 * nops4,
+                                  "unproject": 2 * nops4, "transform_partial": nit4},
+            f"config-4 banded solve, projection kernels: K3 per apply, K5 and K6 twice per "
+            f"expansion, K2 per round, no K1 ({proj4['launches']})")
+    require(plain4["launches"] == {"banded_spmv": nops4, "transform_partial": nit4},
+            f"config-4 banded solve, kernels off: K3 and K2 only ({plain4['launches']})")
+    require(proj4["info"].numops == plain4["info"].numops == nops4, "config-4: numops equal across the three")
+    agree = max(float(((c["lam"] - fused4["lam"]).abs() / fused4["lam"]).max()) for c in (proj4, plain4))
+    emit({"phase": "config4_agreement", "abs_vals_max_rel_diff": agree, "tolerance": 1e-3,
+          "numops": nops4})
+    require(agree <= 1e-3, "config-4: the four leading |lambda| of the three solves agree to 1e-3")
+    # the dense Schur layer: each processing round of one more fused solve
+    rounds = []
+    process_real = arn._process_real
+
+    def timed_process(H, k, beta, which, tol):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = process_real(H, k, beta, which, tol)
+        torch.cuda.synchronize()
+        rounds.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    arn._process_real = timed_process
+    try:
+        kt.schursolve(nonsym, x04, 4, "LM", alg4)
+    finally:
+        arn._process_real = process_real
+    emit({"phase": "config4_process_real", "m": m, "rounds": len(rounds),
+          "ms_per_round": rounds, "ms_per_round_mean": mean(rounds), "ms_per_solve": sum(rounds)})
+    require(len(rounds) == nit4, "config-4: one _process_real per round")
+    ks4 = proj4["ks"]
+    del V4, y4, g4
+
+    if args.profile:
+        emit(profile_solve(torch, "config 1 Lanczos eigsolve",
+                           lambda: kt.eigsolve_lanczos(op, x0, 4, "LM", alg)))
+        emit(profile_solve(torch, "config 4 Arnoldi schursolve, fused",
+                           lambda: kt.schursolve(nonsym, x04, 4, "LM", alg4)))
 
     emit({"kernels": [
         {
@@ -637,6 +978,7 @@ def main():
             "bound_by": "bytes", "library_ms": None,
             "shapes": "mean per launch over the main path's 128 steps, B = 1..29",
             "launches_config2": config2_launches.get("fused_step", 0),
+            "launches_config4_arnoldi": fused4["launches"]["fused_step"],
         },
         {
             "name": "transform_partial", "route": "cuda",
@@ -650,6 +992,8 @@ def main():
             "bound_by": t2[20]["bound_by"],
             "library_ms": mean([t2[mo]["library_ms"] for mo in k2_schedule]),
             "shapes": "mean per launch over the main path's 11 calls: m_out 20 x10, 4 x1",
+            "launches_config4_arnoldi": fused4["launches"]["transform_partial"],
+            "ms_config4_arnoldi": k2_c4["ms"],
         },
         {
             "name": "banded_spmv", "route": "cuda",
@@ -662,6 +1006,8 @@ def main():
             "library_ms": k3_main["library_ms"],
             "shapes": "banded poisson_2d(1024, 1024) f32, n = 2^20, 5 offsets; launches "
                       "over the two banded config-2 solves",
+            "launches_config4_arnoldi": proj4["launches"]["banded_spmv"],
+            "ms_config4_arnoldi": k3_c4["ms"],
         },
         {
             "name": "laplacian_1d", "route": "cuda",
@@ -673,6 +1019,34 @@ def main():
             "bound_ms": k4_main["bound_ms"], "bound_by": k4_main["bound_by"],
             "library_ms": k4_main["library_ms"],
             "shapes": "n = 2^21 f32; launches over the config-2 BiCGStab solve",
+        },
+        {
+            "name": "project", "route": "cuda",
+            "source": "krylovkit_tpu_torch/csrc/projections.cu",
+            "replaces": "krylovkit_tpu/ops/pallas_basis.py:59",
+            "launches": proj4["launches"]["project"],
+            "max_abs_err": max(c["max_abs_err"] for c in k5_cases),
+            "ms": mean([proj_ms4[k][0]["ms"] for k in ks4]),
+            "plain_ms": mean([proj_ms4[k][0]["plain_ms"] for k in ks4]),
+            "bound_ms": mean([proj_ms4[k][0]["bound_ms"] for k in ks4]),
+            "bound_by": "bytes",
+            "library_ms": mean([proj_ms4[k][0]["library_ms"] for k in ks4]),
+            "shapes": "mean per launch over the config-4 banded Arnoldi solve's sweeps, "
+                      "(31, 8192, 128) f32 basis, k = 1..30",
+        },
+        {
+            "name": "unproject", "route": "cuda",
+            "source": "krylovkit_tpu_torch/csrc/projections.cu",
+            "replaces": "krylovkit_tpu/ops/pallas_basis.py:118",
+            "launches": proj4["launches"]["unproject"],
+            "max_abs_err": max(c["max_abs_err"] for c in k6_cases),
+            "ms": mean([proj_ms4[k][1]["ms"] for k in ks4]),
+            "plain_ms": mean([proj_ms4[k][1]["plain_ms"] for k in ks4]),
+            "bound_ms": mean([proj_ms4[k][1]["bound_ms"] for k in ks4]),
+            "bound_by": "bytes",
+            "library_ms": mean([proj_ms4[k][1]["library_ms"] for k in ks4]),
+            "shapes": "mean per launch over the config-4 banded Arnoldi solve's sweeps, "
+                      "(31, 8192, 128) f32 basis, k = 1..30",
         },
     ]})
     print(nvidia_smi_line(), flush=True)

@@ -1,9 +1,12 @@
 """krylovkit_tpu_torch — the PyTorch/CUDA port of ``krylovkit_tpu``.
 
-It covers the Hermitian Lanczos eigsolve and the linear solvers (CG, GMRES,
-MINRES, BiCGStab), with four hand-written CUDA kernels (``csrc/``): the fused
-one-stream expansion, the in-place restart rotation, the banded SpMV of
-:class:`BandedOperator` and the 1-D Laplacian of ``laplacian_1d_pallas``.
+It covers the Hermitian Lanczos eigsolve, the Krylov-Schur Arnoldi solvers
+(``schursolve``, non-Hermitian ``eigsolve``, ``realeigsolve``) and the linear
+solvers (CG, GMRES, MINRES, BiCGStab), with six hand-written CUDA kernels
+(``csrc/``): the fused one-stream expansion, the in-place restart rotation,
+the banded SpMV of :class:`BandedOperator`, the 1-D Laplacian of
+``laplacian_1d_pallas`` and the two live-row basis projections
+(``ops/projections.py``, off unless ``ops.basis.use_pallas_projections``).
 Entry points run where their inputs live: ``eigsolve`` on the device of
 ``x0``, ``linsolve`` on the device of ``b``; the operator builders check
 ``device`` (default ``"cuda"``).  CPU tensors run the kernels' plain
@@ -48,7 +51,8 @@ from .ops.banded import BandedOperator, banded_from_coo, banded_from_dense  # no
 from .ops.stencil_1d import laplacian_1d_pallas  # noqa: E402
 from .ops.vector import REAL, STANDARD, VectorSpace  # noqa: E402
 from .parallel.operators import laplacian_1d, poisson_2d  # noqa: E402
-from .solvers.eigsolve import eigsolve  # noqa: E402
+from .solvers.arnoldi import eigsolve_arnoldi  # noqa: E402
+from .solvers.eigsolve import eigsolve, realeigsolve, schursolve  # noqa: E402
 from .solvers.lanczos import eigsolve_lanczos  # noqa: E402
 from .solvers.linsolve import linsolve, reallinsolve  # noqa: E402
 
@@ -88,7 +92,10 @@ __all__ = [
     "laplacian_1d",
     "poisson_2d",
     "eigsolve",
+    "eigsolve_arnoldi",
     "eigsolve_lanczos",
+    "schursolve",
+    "realeigsolve",
     "linsolve",
     "reallinsolve",
 ]

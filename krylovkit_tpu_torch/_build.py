@@ -27,7 +27,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "launches", "reset_launches", "build",
 PKG = Path(__file__).resolve().parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("fused_lanczos", "transform", "banded_spmv", "laplacian_1d")
+SOURCES = ("fused_lanczos", "transform", "banded_spmv", "laplacian_1d", "projections")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -14,7 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .algorithms import CG, GMRES, MINRES, BiCGStab, Lanczos
+from .algorithms import CG, GMRES, MINRES, Arnoldi, BiCGStab, Lanczos
 from .ops import orthonormal as on
 from .ops.banded import BandedOperator
 from .ops.operator import GridStencilOperator, MatrixOperator, StencilOperator, resolve_device
@@ -25,7 +25,9 @@ __all__ = [
     "banded_from_arrays",
     "matrix_from_numpy",
     "vector_from_numpy",
+    "eig_problem_from_numpy",
     "lanczos_from_dict",
+    "arnoldi_from_dict",
     "cg_from_dict",
     "gmres_from_dict",
     "minres_from_dict",
@@ -80,6 +82,18 @@ def vector_from_numpy(x, device="cuda") -> torch.Tensor:
     return torch.as_tensor(np.asarray(x), device=resolve_device(device))
 
 
+def eig_problem_from_numpy(A, x0, device="cuda"):
+    """``(operator, x0)`` of an eigenproblem on ``device``: ``A`` is a dense
+    numpy matrix (a :class:`MatrixOperator`) or a stencil's
+    ``(offsets, coeffs)`` pair (a :class:`StencilOperator`); ``x0`` keeps
+    its shape and dtype."""
+    if isinstance(A, tuple):
+        op = stencil_from_arrays(*A, device=device)
+    else:
+        op = matrix_from_numpy(A, device)
+    return op, vector_from_numpy(x0, device)
+
+
 def _alg_from_dict(cls, fields: dict):
     """An algorithm struct from its fields; ``orth`` may be given by name."""
     fields = dict(fields)
@@ -104,6 +118,11 @@ def lanczos_from_dict(fields: dict) -> Lanczos:
     ``"ClassicalGramSchmidt2"``, ...; the IR variants with their default
     ``eta``/``maxiter``) or an orthogonalizer of this package."""
     return _alg_from_dict(Lanczos, fields)
+
+
+def arnoldi_from_dict(fields: dict) -> Arnoldi:
+    """An :class:`Arnoldi` from its fields; ``orth`` as in :func:`lanczos_from_dict`."""
+    return _alg_from_dict(Arnoldi, fields)
 
 
 def cg_from_dict(fields: dict) -> CG:

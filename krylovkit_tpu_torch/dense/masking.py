@@ -21,6 +21,7 @@ __all__ = [
     "spectrum_sentinel",
     "active_support",
     "which_key",
+    "which_key_ri",
     "sort_perm",
 ]
 
@@ -72,13 +73,39 @@ def which_key(vals: torch.Tensor, which) -> torch.Tensor:
         "SM": lambda v: torch.abs(v),
         "LR": lambda v: -torch.real(v),
         "SR": lambda v: torch.real(v),
-        "LI": lambda v: -torch.imag(v),
-        "SI": lambda v: torch.imag(v),
+        "LI": lambda v: -_imag(v),
+        "SI": lambda v: _imag(v),
     }
     w = which.upper() if isinstance(which, str) else which
     if w not in table:
         raise ValueError(f"unknown which={which!r}; expected one of {list(table)} or EigSorter")
     return table[w](vals)
+
+
+def _imag(v: torch.Tensor) -> torch.Tensor:
+    """``imag`` that is zero for real tensors (``torch.imag`` raises there)."""
+    return torch.imag(v) if torch.is_complex(v) else torch.zeros_like(v)
+
+
+def which_key_ri(re: torch.Tensor, im: torch.Tensor, which) -> torch.Tensor:
+    """:func:`which_key` on eigenvalues given as ``(re, im)`` real pairs, the
+    form the real Schur path keeps them in.  An ``EigSorter`` callback
+    receives the complex values."""
+    if isinstance(which, EigSorter):
+        key = torch.real(which.by(torch.complex(re, im)))
+        return -key if which.rev else key
+    table = {
+        "LM": lambda r, i: -torch.hypot(r, i),
+        "SM": lambda r, i: torch.hypot(r, i),
+        "LR": lambda r, i: -r,
+        "SR": lambda r, i: r,
+        "LI": lambda r, i: -i,
+        "SI": lambda r, i: i,
+    }
+    w = which.upper() if isinstance(which, str) else which
+    if w not in table:
+        raise ValueError(f"unknown which={which!r}; expected one of {list(table)} or EigSorter")
+    return table[w](re, im)
 
 
 def sort_perm(vals: torch.Tensor, valid: torch.Tensor, which) -> torch.Tensor:

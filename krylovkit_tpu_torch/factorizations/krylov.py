@@ -326,15 +326,20 @@ def make_fused_stepper(op, kmax: int, dgks: bool, space: VectorSpace):
     return prime, advance, tail
 
 
-def _h_column(H, k: int, alpha, beta):
-    """Column ``k`` of ``H``: ``α`` at ``k`` and ``β`` at ``k+1``."""
-    H[k, k] = alpha.to(H.dtype)
+def _h_column(H, k: int, alpha, beta, c=None):
+    """Column ``k`` of ``H``: ``α`` at ``k`` and ``β`` at ``k+1``; other
+    entries stay.  With ``c`` (the full projection coefficients of the
+    normalized basis) the Arnoldi column: ``c[:k+1]`` above ``β``."""
+    if c is None:
+        H[k, k] = alpha.to(H.dtype)
+    else:
+        H[: k + 1, k] = c[: k + 1].to(H.dtype)
     H[k + 1, k] = beta.to(H.dtype)
     return H
 
 
 def fused_expansions(op, state: KrylovState, scales: FusedScales, m: int, btol: float,
-                     space: VectorSpace, dgks: bool = False):
+                     space: VectorSpace, hermitian: bool = True, dgks: bool = False):
     """Expand ``state`` from ``k`` to ``m`` with the one-stream fused kernel.
 
     Rows appended here are stored unnormalized; the returned
@@ -342,8 +347,13 @@ def fused_expansions(op, state: KrylovState, scales: FusedScales, m: int, btol: 
     restart cycle this makes exactly ``m - k`` operator applications (one
     priming apply + one in-kernel apply per fused step, none in the tail),
     the unfused loop's ``numops``.  The loop test ``‖R_k‖ > btol`` reads one
-    scalar from the device per step.  (The JAX package's Arnoldi column
-    writes and ``min_one`` re-entry serve drivers not ported yet.)
+    scalar from the device per step.
+
+    ``hermitian=False`` is the Arnoldi variant: the same stream, but the
+    ``H`` column keeps the full projection coefficients (upper Hessenberg)
+    instead of the tridiagonal ``(α, β)`` pair.  The JAX package's
+    ``min_one`` re-entry (a forced first step) serves only its
+    expintegrator, which is not ported yet, and is left out.
 
     Returns ``(state_new, scales_new, numops_increment)``."""
     V, H, k0 = state.V, state.H, state.k
@@ -356,14 +366,14 @@ def fused_expansions(op, state: KrylovState, scales: FusedScales, m: int, btol: 
 
     while c.k < m - 1 and going(c):
         k = c.k
-        c, alpha, beta_k, _ = advance(c)
-        H = _h_column(H, k, alpha, beta_k)
+        c, alpha, beta_k, h = advance(c)
+        H = _h_column(H, k, alpha, beta_k, None if hermitian else h)
 
     k = c.k
     go = k == m - 1 and going(c)
-    V, sc, alpha, beta_m, _ = tail(c, go)
+    V, sc, alpha, beta_m, h = tail(c, go)
     if go:
-        H = _h_column(H, k, alpha, beta_m)
+        H = _h_column(H, k, alpha, beta_m, None if hermitian else h)
         beta_out = beta_m
     else:
         beta_out = torch.sqrt(c.q)

@@ -11,6 +11,10 @@ kernel ``csrc/transform.cu`` (the port of the TPU kernel
 ``krylovkit_tpu/ops/basis.py:_pallas_transform_inplace``); its plain version
 :func:`transform_partial_inplace_reference` sits beside it and serves CPU
 tensors.
+
+With the module flag :data:`use_pallas_projections` on, :func:`project` and
+:func:`unproject` (given ``k``) send an eligible basis to the live-row
+kernels of ``ops/projections.py``; any other basis keeps the ``@`` path.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import ctypes
 import torch
 
 from .. import _build
+from . import projections as pb
 from .vector import STANDARD, VectorSpace
 
 __all__ = [
@@ -44,6 +49,33 @@ __all__ = [
 LANES = 128
 # widest basis the transform kernel keeps in registers (csrc/transform.cu)
 TRANSFORM_MAX_KMAX = 128
+
+# Toggle for the live-row projection kernels (ops/projections.py).  Off by
+# default, as the JAX package's flag of the same name is; PERF.md holds the
+# card's times for both settings.  The flag is process-global: it reaches
+# every unfused cgs-family sweep (ops/orthonormal.py).
+use_pallas_projections = False
+
+
+def _pallas_basis(V: torch.Tensor) -> bool:
+    """True if the flag is on and ``V`` is a basis the projection kernels
+    take (``projections.supported_leaf``, contiguous) on a CUDA device (the
+    kernels) or on the CPU (their plain versions)."""
+    return (
+        use_pallas_projections
+        and V.device.type in ("cuda", "cpu")
+        and pb.supported_leaf(V)
+        and V.is_contiguous()
+    )
+
+
+def _pallas_proj_leaf(V: torch.Tensor, x: torch.Tensor, space: VectorSpace) -> bool:
+    """True if the project kernel applies to ``(V, x)``: an eligible basis
+    (:func:`_pallas_basis`), the standard inner product, and ``x`` one of its
+    rows in shape, dtype and device."""
+    if space.inner_fn is not None or not _pallas_basis(V):
+        return False
+    return x.dtype == V.dtype and x.shape == V.shape[1:] and x.device == V.device
 
 
 def alloc(template: torch.Tensor, kmax: int, dtype=None) -> torch.Tensor:
@@ -92,6 +124,9 @@ def project(V: torch.Tensor, x: torch.Tensor, k: int,
     (reference ``project!!``, ``src/orthonormal.jl:88-118``)."""
     kb = V.shape[0]
     if space.inner_fn is None:
+        if _pallas_proj_leaf(V, x, space):
+            # the kernel masks j >= k and reads only the first k rows
+            return pb.project_pallas(V, x.contiguous(), k)
         dt = torch.promote_types(V.dtype, x.dtype)
         c = V.reshape(kb, -1).to(dt).conj() @ x.reshape(-1).to(dt)
         if space.real_inner:
@@ -113,9 +148,15 @@ def project_bucketed(V: torch.Tensor, x: torch.Tensor, k: int,
     return torch.nn.functional.pad(project(V[:B], x, k, space), (0, kmax - B))
 
 
-def unproject(V: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+def unproject(V: torch.Tensor, c: torch.Tensor, k=None) -> torch.Tensor:
     """``y = Σ_j c[j] V[j]`` — the ``V c`` kernel (reference ``unproject!!``,
-    ``src/orthonormal.jl:132-196``).  The caller masks ``c``."""
+    ``src/orthonormal.jl:132-196``).  The caller masks ``c``.
+
+    Given the active length ``k``, a real ``c`` and an eligible basis (see
+    :func:`_pallas_basis`), the kernel of ``ops/projections.py`` reads only
+    the first ``k`` rows."""
+    if k is not None and not torch.is_complex(c) and _pallas_basis(V) and c.device == V.device:
+        return pb.unproject_pallas(V, c, k)
     kb = V.shape[0]
     dt = torch.promote_types(c.dtype, V.dtype)
     return (c.to(dt) @ V.reshape(kb, -1).to(dt)).reshape(V.shape[1:])

@@ -189,10 +189,17 @@ class MatrixOperator(LinearOperator):
         object.__setattr__(self, "adjoint", self._adjoint)
 
     def _normal(self, x):
-        return self.A @ x
+        return _promoted_matmul(self.A, x)
 
     def _adjoint(self, y):
-        return self.A.conj().T @ y
+        return _promoted_matmul(self.A.conj().T, y)
+
+
+def _promoted_matmul(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``A @ x`` in the promoted type of the two (a real matrix applied to a
+    complex vector, as ``jnp.matmul`` promotes; ``torch.matmul`` raises)."""
+    dt = torch.promote_types(A.dtype, x.dtype)
+    return A.to(dt) @ x.to(dt)
 
 
 def as_operator(A, device=None) -> LinearOperator:

@@ -5,7 +5,9 @@ Six strategies as in the reference (``src/algorithms.jl:17-80``, kernels in
 ``src/orthonormal.jl:370-489``): cgs, mgs, cgs2, mgs2, cgsir, mgsir, with the
 DGKS criterion ``η = 1/sqrt(2)``.  The active length ``k`` is a host ``int``;
 the CGS sweep reads the same bucketed row prefix of the basis as the JAX
-package (``basis.buckets_for``), so both contract over the same rows.
+package (``basis.buckets_for``), so both contract over the same rows.  With
+``basis.use_pallas_projections`` on, the sweep is unbucketed: the live-row
+kernels take the whole basis and the active length.
 """
 
 from __future__ import annotations
@@ -94,6 +96,9 @@ def _coeff_dtype(V, w, space):
 
 def _cgs_sweep(w, V, k: int, space):
     kmax = V.shape[0]
+    if bs.use_pallas_projections:
+        c = bs.project(V, w, k, space)
+        return w - bs.unproject(V, c, k), c.to(_coeff_dtype(V, w, space))
     B = bs.bucket_for(k, kmax) if space.inner_fn is None else kmax
     Vb = bs.prefix(V, B)
     c = bs.project(Vb, w, k, space)

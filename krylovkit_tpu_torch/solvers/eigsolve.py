@@ -1,11 +1,11 @@
-"""``eigsolve`` front-end (counterpart of ``krylovkit_tpu/solvers/eigsolve.py``),
-Lanczos branch only.
+"""``eigsolve``, ``schursolve`` and ``realeigsolve`` front-ends (counterpart
+of ``krylovkit_tpu/solvers/eigsolve.py``).
 
 The ``eigselector`` picks Lanczos for Hermitian problems (``ishermitian=True``
 or a concrete matrix that is Hermitian by a numerical probe) and Arnoldi
-otherwise; Arnoldi, BlockLanczos and differentiation through the solve are
-not ported yet and raise ``NotImplementedError``.  The solve runs on the
-device of ``x0``.
+otherwise; BlockLanczos and differentiation through the solve are not ported
+yet and raise ``NotImplementedError``.  The solve runs on the device of
+``x0``.
 """
 
 from __future__ import annotations
@@ -16,11 +16,13 @@ import numpy as np
 import torch
 
 from ..algorithms import Arnoldi, BlockLanczos, Lanczos
-from ..ops.operator import as_operator, resolve_device
+from ..ops.operator import as_operator, probe_dtype, resolve_device
 from ..ops.vector import STANDARD, VectorSpace
+from .arnoldi import eigsolve_arnoldi, realeigsolve_arnoldi
+from .arnoldi import schursolve as _schursolve_arnoldi
 from .lanczos import eigsolve_lanczos
 
-__all__ = ["eigsolve", "eigsolve_vjp"]
+__all__ = ["eigsolve", "eigsolve_vjp", "schursolve", "realeigsolve"]
 
 
 def _is_concrete(A) -> bool:
@@ -86,7 +88,7 @@ def eigsolve(
     eager: Optional[bool] = None,
     verbosity: Optional[int] = None,
 ):
-    """Find ``howmany`` extremal eigenvalues of a Hermitian linear map.
+    """Find ``howmany`` extremal eigenvalues of a linear map.
 
     Returns ``(vals, vecs, info)``: ``vals`` of length ``howmany``, ``vecs``
     stacked along a leading axis, ``info`` a :class:`ConvergenceInfo`
@@ -107,11 +109,82 @@ def eigsolve(
         A, ishermitian, alg, tol=tol, krylovdim=krylovdim, maxiter=maxiter,
         orth=orth, eager=eager, verbosity=verbosity,
     )
-    if not isinstance(alg, Lanczos):
-        raise NotImplementedError(
-            f"{type(alg).__name__} eigsolve is not ported yet (ROADMAP.md queue 1, "
-            "item 8: Arnoldi); pass ishermitian=True for a Hermitian map"
-        )
     if isinstance(which, str) and which.upper() in ("LI", "SI"):
-        raise ValueError("which=LI/SI invalid for Hermitian problems")
-    return eigsolve_lanczos(op, x0, howmany, which, alg, space)
+        if isinstance(alg, Lanczos):
+            raise ValueError("which=LI/SI invalid for Hermitian problems")
+        # real maps have conjugate-symmetric spectra: selecting by imaginary
+        # part cannot separate a conjugate pair (reference requires a
+        # conj-symmetric `by`, src/eigsolve/eigsolve.jl:209-236)
+        try:
+            pdt = probe_dtype(op, x0)
+        except Exception:
+            pdt = None
+        if pdt is not None and not pdt.is_complex:
+            raise ValueError(
+                "which=LI/SI invalid for real linear maps (conjugate-symmetric "
+                "spectrum) — reference src/eigsolve/eigsolve.jl:209-236"
+            )
+    if isinstance(alg, Lanczos):
+        return eigsolve_lanczos(op, x0, howmany, which, alg, space)
+    return eigsolve_arnoldi(op, x0, howmany, which, alg, space)
+
+
+def _arnoldi_alg(alg, kw):
+    if alg is None:
+        alg = Arnoldi(**{k: v for k, v in kw.items() if v is not None})
+    return alg
+
+
+def schursolve(
+    A,
+    x0: Optional[torch.Tensor] = None,
+    howmany: int = 1,
+    which="LM",
+    alg: Optional[Arnoldi] = None,
+    *,
+    space: VectorSpace = STANDARD,
+    **kw,
+):
+    """Partial Schur decomposition ``(T, vecs, vals, info)`` (reference
+    ``schursolve``, ``src/eigsolve/arnoldi.jl:1-150``).  Keywords other than
+    ``space`` are the fields of :class:`Arnoldi`."""
+    x0 = _default_x0(A, x0)
+    op = as_operator(A, device=x0.device)
+    return _schursolve_arnoldi(op, x0, howmany, which, _arnoldi_alg(alg, kw), space)
+
+
+def realeigsolve(
+    A,
+    x0: Optional[torch.Tensor] = None,
+    howmany: int = 1,
+    which="LM",
+    alg: Optional[Arnoldi] = None,
+    *,
+    imag_tol: Optional[float] = None,
+    space: VectorSpace = STANDARD,
+    **kw,
+):
+    """Eigsolve for real linear maps asserting real eigenvalues (reference
+    ``realeigsolve``, ``src/eigsolve/arnoldi.jl:293-349``).
+
+    Runs the fully REAL Arnoldi solver (real basis, real Schur form with 2x2
+    blocks, real eigenvectors).  If a complex conjugate pair enters the
+    wanted window the result is invalid and this raises, like the
+    reference: ``max |imag|`` above ``imag_tol`` (default ``sqrt(eps)``)
+    times ``max(1, max |vals|)``."""
+    kw.pop("ishermitian", None)
+    x0 = _default_x0(A, x0)
+    op = as_operator(A, device=x0.device)
+    vals, vecs, info, maximag = realeigsolve_arnoldi(
+        op, x0, howmany, which, _arnoldi_alg(alg, kw), space
+    )
+    tol = imag_tol
+    if tol is None:
+        tol = float(torch.finfo(vals.dtype).eps ** 0.5)
+    scalemax = max(1.0, float(torch.max(torch.abs(vals))))
+    if float(maximag) > tol * scalemax:
+        raise ValueError(
+            f"realeigsolve: requested eigenvalues are not real "
+            f"(max |imag| = {float(maximag):.3e}); use eigsolve instead"
+        )
+    return vals, vecs, info

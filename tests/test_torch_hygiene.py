@@ -35,6 +35,7 @@ def test_port_has_files():
         "fused_lanczos.cu", "transform.cu", "banded_spmv.cu", "laplacian_1d.cu",
         "chip_smoke.py", "lanczos.py", "linsolve.py", "cg.py", "gmres.py", "minres.py",
         "bicgstab.py", "banded.py", "stencil_1d.py", "givens.py", "triangular.py",
+        "projections.cu", "projections.py", "arnoldi.py", "schur.py", "realschur.py",
     } <= names
 
 

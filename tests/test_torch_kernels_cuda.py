@@ -14,6 +14,7 @@ from krylovkit_tpu_torch import _build
 from krylovkit_tpu_torch.ops import banded as bd
 from krylovkit_tpu_torch.ops import basis as bs
 from krylovkit_tpu_torch.ops import fused_lanczos as fl
+from krylovkit_tpu_torch.ops import projections as pb
 from krylovkit_tpu_torch.ops import stencil_1d as s1
 from krylovkit_tpu_torch.ops.operator import GridStencilOperator, StencilOperator
 
@@ -192,3 +193,93 @@ def test_banded_linsolve_on_card_matches_cpu(alg):
     xh, ih = kt.linsolve(kt.banded_from_coo(*coo, nx * nx, device="cpu"), b, a0=0.5, alg=alg)
     assert (ic.numops, ic.numiter, ic.converged) == (ih.numops, ih.numiter, 1)
     torch.testing.assert_close(xc.cpu(), xh, rtol=1e-8, atol=1e-8 * float(xh.abs().max()))
+
+
+# (kmax, R, k): the config-4 basis at its live lengths, the JAX package's test
+# shape, the widest basis, and a single row block
+PROJECTION_CASES = [(31, 8192, k) for k in (0, 1, 18, 30, 31)] + [
+    (13, 16, 0), (13, 16, 5), (13, 16, 13), (128, 8, 128), (128, 8, 77), (5, 8, 3)]
+
+
+@pytest.mark.parametrize("kmax,R,k", PROJECTION_CASES)
+@pytest.mark.parametrize("device_k", [False, True])
+def test_projection_kernels_match_plain(kmax, R, k, device_k):
+    gen = _gen(kmax + R + k)
+    V = torch.randn((kmax, R, 128), generator=gen, device="cuda")
+    w = torch.randn((R, 128), generator=gen, device="cuda")
+    c = torch.randn(kmax, generator=gen, device="cuda")
+    c[k:] = 0
+    V[k:] = float("nan")  # rows >= k must never be read
+    kk = torch.tensor([k], dtype=torch.int32, device="cuda") if device_k else k
+    before = dict(_build.launches)
+    got_c = pb.project_pallas(V, w, kk)
+    got_y = pb.unproject_pallas(V, c, kk)
+    assert _build.launches["project"] == before.get("project", 0) + 1
+    assert _build.launches["unproject"] == before.get("unproject", 0) + 1
+    want_c, want_y = pb.project_reference(V, w, k), pb.unproject_reference(V, c, k)
+    torch.cuda.synchronize()
+    assert got_c.shape == (kmax,) and got_y.shape == (R, 128)
+    assert bool(torch.isfinite(got_c).all()) and bool(torch.isfinite(got_y).all())
+    assert not got_c[k:].any()
+    Vk = V[:k].reshape(k, R * 128)
+    # float32 sums in another order: 1e-6 of |V_j||w|, and of sum_j |c_j||V_j|
+    tol_c = 1e-6 * torch.linalg.vector_norm(Vk, dim=1) * torch.linalg.vector_norm(w)
+    assert bool(((got_c - want_c)[:k].abs() <= tol_c).all())
+    tol_y = 1e-6 * (c[:k].abs()[:, None] * Vk.abs()).sum(0).reshape(R, 128)
+    assert bool(((got_y - want_y).abs() <= tol_y).all())
+    if k == 0:
+        assert not got_y.any()
+    # fixed-order reductions: the same launch gives the same bits
+    assert torch.equal(got_c, pb.project_pallas(V, w, kk))
+    assert torch.equal(got_y, pb.unproject_pallas(V, c, kk))
+
+
+def test_projection_wrappers_raise_instead_of_falling_back():
+    V = torch.zeros((8, 16, 128), device="cuda")
+    w = torch.zeros((16, 128), device="cuda")
+    c = torch.zeros(8, device="cuda")
+    with pytest.raises(ValueError, match="float32"):
+        pb.project_pallas(V.double(), w.double(), 3)
+    with pytest.raises(ValueError, match="basis"):
+        pb.project_pallas(V[:, :12], w[:12], 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        pb.project_pallas(V.transpose(0, 1).contiguous().transpose(0, 1), w, 3)
+    with pytest.raises(ValueError, match="k <= kmax"):
+        pb.unproject_pallas(V, c, 9)
+    with pytest.raises(ValueError, match="int32"):
+        pb.project_pallas(V, w, torch.tensor([3], dtype=torch.int32))  # k on the CPU
+    with pytest.raises(ValueError, match="real"):
+        pb.unproject_pallas(V, c.to(torch.complex64), 3)
+    wide = torch.zeros((pb.MAX_KMAX + 1, 8, 128), device="cuda")
+    with pytest.raises(ValueError, match="kmax"):
+        pb.project_pallas(wide, torch.zeros((8, 128), device="cuda"), 3)
+
+
+def test_banded_schursolve_with_projection_kernels_matches_cpu():
+    # the unfused Arnoldi loop through K3, K5, K6 and K2, against the same
+    # solve on the CPU (plain versions)
+    n = 4096
+    i = np.arange(n)
+    rows = np.concatenate([i[1:], i, i[:-1]])
+    cols = np.concatenate([i[1:] - 1, i, i[:-1] + 1])
+    vals = np.concatenate([np.full(n - 1, -1.3), np.full(n, 2.0), np.full(n - 1, -0.7)]
+                          ).astype(np.float32)
+    x0 = torch.from_numpy(np.random.default_rng(1).standard_normal((n // 128, 128))
+                          .astype(np.float32))
+    kw = dict(krylovdim=18, maxiter=5, tol=1e-5, verbosity=kt.SILENT)
+    old = bs.use_pallas_projections
+    bs.use_pallas_projections = True
+    try:
+        _build.reset_launches()
+        _, _, (rc, ic_), info_c = kt.schursolve(kt.banded_from_coo(rows, cols, vals, n), x0.cuda(),
+                                                4, "LM", **kw)
+        counted = dict(_build.launches)
+        _, _, (rh, ih_), info_h = kt.schursolve(kt.banded_from_coo(rows, cols, vals, n, device="cpu"),
+                                                x0, 4, "LM", **kw)
+    finally:
+        bs.use_pallas_projections = old
+    assert counted["banded_spmv"] == info_c.numops
+    assert counted["project"] == counted["unproject"] == 2 * info_c.numops
+    assert counted["transform_partial"] == info_c.numiter and "fused_step" not in counted
+    assert (info_c.numops, info_c.numiter) == (info_h.numops, info_h.numiter)
+    torch.testing.assert_close(torch.hypot(rc, ic_).cpu(), torch.hypot(rh, ih_), rtol=2e-4, atol=0)
