@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``krylovkit_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile] [--parent DIR]
+    python3 chip_smoke.py --kernel-times [--root DIR]
 
 Phases, each printing one JSON line; any failure raises and exits non-zero
 without the final ``ok`` line:
@@ -14,7 +15,11 @@ without the final ``ok`` line:
    the card at the shapes of the paths below, with its tolerance or bit-identity
    contract, its time (CUDA events), the plain version's time, a yardstick
    PyTorch call where one computes the same function, and its bound on the
-   card;
+   card; K1 also at the edges of its plan (B = 1, 2, the wide-B
+   instantiations, ragged and tiny R, kp1 > B, the re-reading plan) and
+   twice (bit-equal), K2 on every rung of its ladder and in bfloat16; then
+   `kernel_times`: K1 over the main path's schedule of B, each time beside
+   the parent tree's where ``--parent`` is given;
 4. small   — the port's eigsolve on a small Laplacian, on the card against
    the same solve on the CPU (plain versions);
 5. main    — the port's Lanczos eigsolve at the bench configuration
@@ -44,6 +49,13 @@ without the final ``ok`` line:
 10. profile (only with ``--profile``) — one more config-1 solve and one
    more fused config-4 solve under ``torch.profiler``: device busy time and idle share, device ops, host
    reads of device scalars, device time by kernel name.
+
+``--parent DIR`` names an unpacked earlier tree of this repository: its K1
+and K2 are then built and timed on the same card at the same shapes, in a
+process of their own before and after this tree's kernels phase, and
+printed as ``parent_ms`` beside ``ms`` (without it ``parent_ms`` is null).
+``--kernel-times`` is that process: it times K1 and K2 of the package under
+``--root`` (default: this tree) and prints one JSON line.
 
 Each path (phases 5, 7 and 9, one solve at a time) is driven with the launch
 counts set to 0 just before it and read just after.  Then the kernel
@@ -125,8 +137,10 @@ def k1_flops(n, B, ntaps, with_drift):
     return n * (2 * B + 2 + 2 * ntaps + (4 * B if with_drift else 2 * B) + 4)
 
 
-def check_fused_step(torch, fl, op, R, kmax, B, kp1, with_drift, gen):
-    """K1 against its plain version on the card; returns the case record."""
+def check_fused_step(torch, fl, op, R, kmax, B, kp1, with_drift, gen, timed=True):
+    """K1 against its plain version on the card, and against itself on a
+    second launch (bit-equal); returns the case record, with times and the
+    bound where ``timed``."""
     dev = "cuda"
     spec = fl.spec_for(op)
     V = torch.randn((kmax, R, 128), generator=gen, device=dev)
@@ -139,6 +153,11 @@ def check_fused_step(torch, fl, op, R, kmax, B, kp1, with_drift, gen):
     torch.cuda.synchronize()
     others = torch.equal(Vk[:kp1], V[:kp1]) and torch.equal(Vk[kp1 + 1:], V[kp1 + 1:])
     require(others, f"fused_step B={B}: rows other than kp1 bit-identical")
+    V2 = V.clone()
+    y2, raw2 = fl.fused_step(V2, y, g, kp1, B, spec, with_drift)
+    twice = torch.equal(y2, yk) and torch.equal(raw2, rawk) and torch.equal(V2[kp1], Vk[kp1])
+    require(twice, f"fused_step B={B} R={R}: two launches bit-equal (y', raw, row kp1)")
+    del V2, y2
     sc = float(torch.max(torch.abs(yr)))
     err_w = float(torch.max(torch.abs(Vk[kp1] - Vr[kp1])))
     err_y = float(torch.max(torch.abs(yk - yr)))
@@ -155,47 +174,156 @@ def check_fused_step(torch, fl, op, R, kmax, B, kp1, with_drift, gen):
     n = R * 128
     t_bound, by = bound((B + 3) * n * 4, k1_flops(n, B, len(spec.taps), with_drift))
     case = {
-        "op": "grid" if spec.gc else "chain", "n": n, "kmax": kmax, "B": B, "kp1": kp1,
+        "op": "grid" if spec.gc else "chain", "n": n, "R": R, "kmax": kmax, "B": B, "kp1": kp1,
         "h": spec.h, "with_drift": with_drift,
         "max_abs_err": max(err_w, err_y), "scale": sc, "raw_rel_err": rel_raw,
         "tolerance": f"{tol}*scale (w', y'); {tol_raw}*norm products (raw)",
-        "rows_other_than_kp1_bit_identical": others,
-        "ms": device_ms(torch, lambda: fl.fused_step(Vk, y, g, kp1, B, spec, with_drift)),
-        "plain_ms": device_ms(
-            torch, lambda: fl.fused_step_reference(Vr, y, g, kp1, B, spec, with_drift), reps=3
-        ),
-        "bound_ms": t_bound, "bound_by": by,
+        "rows_other_than_kp1_bit_identical": others, "bit_equal_twice": twice,
     }
+    if timed:
+        case.update({
+            "ms": device_ms(torch, lambda: fl.fused_step(Vk, y, g, kp1, B, spec, with_drift)),
+            "parent_ms": None,
+            "plain_ms": device_ms(
+                torch, lambda: fl.fused_step_reference(Vr, y, g, kp1, B, spec, with_drift), reps=3
+            ),
+            "bound_ms": t_bound, "bound_by": by,
+        })
     return case
 
 
-def check_transform(torch, bs, kmax, R, m_out, gen):
-    """K2 against its plain version on the card; returns the case record."""
-    V = torch.randn((kmax, R, 128), generator=gen, device="cuda")
+def check_transform(torch, bs, kmax, R, m_out, gen, dtype=None, timed=True):
+    """K2 against its plain version on the card (float32, or bfloat16 with
+    ``dtype``); returns the case record, with times and the bound where
+    ``timed``."""
+    dtype = dtype or torch.float32
+    V = torch.randn((kmax, R, 128), generator=gen, device="cuda").to(dtype)
     U = torch.randn((kmax, kmax), generator=gen, device="cuda") / kmax ** 0.5
     Vk = bs.transform_partial_inplace(V.clone(), U, m_out)
     Vr = bs.transform_partial_inplace_reference(V.clone(), U, m_out)
     torch.cuda.synchronize()
+    label = f"transform kmax={kmax} m_out={m_out} {dtype}"
     tail = torch.equal(Vk[m_out:], V[m_out:])
-    require(tail, f"transform m_out={m_out}: rows >= m_out bit-identical")
+    require(tail, f"{label}: rows >= m_out bit-identical")
     ident = torch.equal(bs.transform_partial_inplace(V.clone(), torch.eye(kmax, device="cuda"), m_out), V)
-    require(ident, f"transform m_out={m_out}: identity rotation bit-identical")
+    require(ident, f"{label}: identity rotation bit-identical")
+    twice = torch.equal(bs.transform_partial_inplace(V.clone(), U, m_out), Vk)
+    require(twice, f"{label}: two launches bit-equal")
     sc = float(torch.max(torch.abs(Vr[:m_out])))
-    err = float(torch.max(torch.abs(Vk[:m_out] - Vr[:m_out])))
-    tol = 1e-5
-    require(err <= tol * sc, f"transform m_out={m_out}: rows < m_out within {tol}*scale")
+    err = float(torch.max(torch.abs(Vk[:m_out].float() - Vr[:m_out].float())))
+    if dtype == torch.float32:
+        tol, tol_text = 1e-5, "1e-5*scale"
+    else:
+        # both round a float32 sum of the same bfloat16 products once
+        tol, tol_text = 2 * 2.0 ** -7, "2 bfloat16 ulps (2^-7 each) of the scale"
+    require(err <= tol * sc, f"{label}: rows < m_out within {tol_text}")
     n = R * 128
-    t_bound, by = bound((kmax + m_out) * n * 4, 2 * kmax * m_out * n)
-    Vf = V.reshape(kmax, -1)
-    return {
-        "kmax": kmax, "n": n, "m_out": m_out, "max_abs_err": err, "scale": sc,
-        "tolerance": f"{tol}*scale", "tail_bit_identical": tail,
-        "identity_bit_identical": ident,
-        "ms": device_ms(torch, lambda: bs.transform_partial_inplace(Vk, U, m_out)),
-        "plain_ms": device_ms(torch, lambda: bs.transform_partial_inplace_reference(Vr, U, m_out)),
-        "library_ms": device_ms(torch, lambda: torch.matmul(U[:, :m_out].T, Vf)),
-        "bound_ms": t_bound, "bound_by": by,
+    case = {
+        "kmax": kmax, "n": n, "m_out": m_out, "dtype": str(dtype), "max_abs_err": err, "scale": sc,
+        "tolerance": tol_text, "tail_bit_identical": tail,
+        "identity_bit_identical": ident, "bit_equal_twice": twice,
     }
+    if timed:
+        t_bound, by = bound((kmax + m_out) * n * V.element_size(), 2 * kmax * m_out * n)
+        Vf = V.reshape(kmax, -1)
+        Um = U[:, :m_out].T.to(dtype)
+        case.update({
+            "ms": device_ms(torch, lambda: bs.transform_partial_inplace(Vk, U, m_out)),
+            "parent_ms": None,
+            "plain_ms": device_ms(torch, lambda: bs.transform_partial_inplace_reference(Vr, U, m_out)),
+            "library_ms": device_ms(torch, lambda: torch.matmul(Um, Vf)),
+            "bound_ms": t_bound, "bound_by": by,
+        })
+    return case
+
+
+# K1 and K2 shapes that are timed, here and on a parent tree: (operator, n, B,
+# with_drift) at kmax 31, then (kmax, n, m_out)
+K1_TIMED = [("chain", 1 << 21, 4, True), ("chain", 1 << 21, 16, True), ("chain", 1 << 21, 30, True),
+            ("chain", 1 << 21, 16, False), ("grid", 1 << 20, 16, True), ("nonsym", 1 << 20, 18, True)]
+K2_TIMED = [(31, 1 << 21, 20), (31, 1 << 21, 4), (31, 1 << 20, 21)]
+K1_SCHEDULE_N = 1 << 21
+KRYLOVDIM = 30
+
+
+def k1_schedule():
+    """B of each fused step of the main path: the first cycle appends rows
+    1..29 (B = 1..29), the 9 restarted cycles rows 19..29 (B = 19..29)."""
+    return list(range(1, KRYLOVDIM)) + 9 * list(range(19, KRYLOVDIM))
+
+
+def stencil_op(kt, kind):
+    if kind == "chain":
+        return kt.laplacian_1d(1 << 21)
+    if kind == "grid":
+        return kt.poisson_2d(1024, 1024)
+    return kt.StencilOperator((-1, 0, 1), (-1.3, 2.0, -0.7))
+
+
+def k1_key(kind, n, B, with_drift):
+    return f"{kind} n={n} B={B} drift={int(with_drift)}"
+
+
+def k2_key(kmax, n, m_out):
+    return f"kmax={kmax} n={n} m_out={m_out}"
+
+
+def kernel_times(root):
+    """Per-launch times of K1 and K2 of the package under ``root`` at
+    ``K1_TIMED``, over the main path's schedule, and at ``K2_TIMED``: the
+    ``--kernel-times`` mode.  Prints one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.abspath(root))
+    import krylovkit_tpu_torch as kt
+    from krylovkit_tpu_torch import _build
+    from krylovkit_tpu_torch.ops import basis as bs
+    from krylovkit_tpu_torch.ops import fused_lanczos as fl
+
+    _build.build(("fused_lanczos", "transform"))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    kmax = KRYLOVDIM + 1
+    out = {"k1": {}, "k1_schedule": {}, "k2": {}}
+    bufs = {}
+    for n in sorted({c[1] for c in K1_TIMED} | {K1_SCHEDULE_N}):
+        bufs[n] = (torch.randn((kmax, n // 128, 128), generator=gen, device="cuda"),
+                   torch.randn((n // 128, 128), generator=gen, device="cuda"),
+                   torch.randn(kmax + 1, generator=gen, device="cuda"))
+    for kind, n, B, drift in K1_TIMED:
+        spec = fl.spec_for(stencil_op(kt, kind))
+        V, y, g = bufs[n]
+        out["k1"][k1_key(kind, n, B, drift)] = device_ms(
+            torch, lambda: fl.fused_step(V, y, g, B, B, spec, drift))
+    spec = fl.spec_for(stencil_op(kt, "chain"))
+    V, y, g = bufs[K1_SCHEDULE_N]
+    for B in sorted(set(k1_schedule())):
+        out["k1_schedule"][B] = device_ms(torch, lambda: fl.fused_step(V, y, g, B, B, spec, True), reps=5)
+    for kmax2, n, m_out in K2_TIMED:
+        V = bufs[n][0][:kmax2]
+        U = torch.randn((kmax2, kmax2), generator=gen, device="cuda") / kmax2 ** 0.5
+        out["k2"][k2_key(kmax2, n, m_out)] = device_ms(
+            torch, lambda: bs.transform_partial_inplace(V, U, m_out))
+    sched = k1_schedule()
+    emit({"kernel_times": out, "root": os.path.abspath(root),
+          "k1_schedule_sum_ms": sum(out["k1_schedule"][B] for B in sched),
+          "nvidia_smi": nvidia_smi_line(), "device": torch.cuda.get_device_name(0)})
+    return 0
+
+
+def parent_kernel_times(parent):
+    """``--kernel-times`` of the tree under ``parent``, in a process of its
+    own (the two trees' packages share a name)."""
+    out = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--kernel-times", "--root", parent],
+        capture_output=True, text=True, timeout=600,
+    )
+    if out.returncode != 0:
+        raise RuntimeError(f"--kernel-times on {parent} failed:\n{out.stdout}\n{out.stderr}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
 
 
 def poisson_coo(np, nx, dtype):
@@ -480,7 +608,14 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile one config-1 and one config-4 solve (phase 10)")
+    ap.add_argument("--parent", metavar="DIR",
+                    help="an unpacked earlier tree: time its K1 and K2 on this card as parent_ms")
+    ap.add_argument("--kernel-times", action="store_true",
+                    help="only time K1 and K2 of the package under --root; one JSON line")
+    ap.add_argument("--root", default=ROOT, help="tree whose package --kernel-times loads")
     args = ap.parse_args()
+    if args.kernel_times:
+        return kernel_times(args.root)
     import torch
 
     if not torch.cuda.is_available():
@@ -521,7 +656,9 @@ def main():
         report[name] = [ln.strip() for ln in lines if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": secs, "ptxas": report})
 
-    # 3. kernels at the shapes of the paths below
+    # 3. kernels at the shapes of the paths below (the parent tree's K1 and
+    # K2, where one is given, before and after)
+    parent_runs = [parent_kernel_times(args.parent)] if args.parent else []
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     n, kmax = 1 << 21, 31
@@ -531,7 +668,21 @@ def main():
     k1_cases.append(check_fused_step(torch, fl, chain, R, kmax, 16, 16, False, gen))
     grid = kt.poisson_2d(1024, 1024)
     k1_cases.append(check_fused_step(torch, fl, grid, (1024 * 1024) // 128, kmax, 16, 16, True, gen))
+    # K1 beyond the paths' shapes, untimed: the smallest B, the wide-B
+    # instantiations, a run that ends inside a tile, R below one tile, kp1 > B,
+    # and on the grid a B whose staged rows do not fit with the halo lag
+    for op_x, R_x, kmax_x, B_x, kp1_x, drift_x in (
+            (chain, R, kmax, 1, 1, True), (chain, R, kmax, 2, 2, True),
+            (chain, 2048, 64, 40, 40, True), (chain, 2048, 127, 100, 100, False),
+            (chain, 8200, kmax, 16, 16, True), (chain, 3, kmax, 4, 4, True),
+            (chain, R, kmax, 5, 9, True), (grid, 8192, 64, 63, 63, True)):
+        k1_cases.append(check_fused_step(torch, fl, op_x, R_x, kmax_x, B_x, kp1_x, drift_x, gen,
+                                         timed=False))
     k2_cases = [check_transform(torch, bs, kmax, R, m, gen) for m in (20, 4)]
+    # K2 on every rung of its ladder (kmax <= 16, 32, 64, 128) and in bfloat16
+    for kmax_x, m_x in ((16, 9), (33, 20), (64, 40), (128, 70)):
+        k2_cases.append(check_transform(torch, bs, kmax_x, 64, m_x, gen, timed=False))
+    k2_bf16 = check_transform(torch, bs, kmax, R, 20, gen, dtype=torch.bfloat16)
     # K3: the config-2 matrix as a banded operator (built from numpy COO),
     # halfband 8 at n = 2^21, float64, and a ragged n
     nx = 1024
@@ -576,15 +727,16 @@ def main():
     k5_cases += k5_small
     k6_cases += k6_small
     del flush, x4
+    k2_cases.append(k2_bf16)
     emit({"phase": "kernels", "fused_step": k1_cases, "transform_partial": k2_cases,
           "banded_spmv": k3_cases, "laplacian_1d": k4_cases,
           "project": k5_cases, "unproject": k6_cases,
           "fused_step_library": "none: no single PyTorch call computes the fused step"})
 
-    # per-launch times over the main path's schedule: the first cycle appends
-    # rows 1..29 (B = 1..29), the 9 restarted cycles rows 19..29 (B = 19..29)
-    m = 30
-    schedule = list(range(1, m)) + 9 * list(range(19, m))
+    # per-launch times over the main path's schedule; the plain version at
+    # three B only
+    m = KRYLOVDIM
+    schedule = k1_schedule()
     spec = fl.spec_for(chain)
     V = torch.randn((kmax, R, 128), generator=gen, device="cuda")
     y = torch.randn((R, 128), generator=gen, device="cuda")
@@ -594,13 +746,42 @@ def main():
         t_bound, _ = bound((B + 3) * n * 4, k1_flops(n, B, 3, True))
         per_B[B] = {
             "ms": device_ms(torch, lambda: fl.fused_step(V, y, g, B, B, spec, True), reps=5),
-            "plain_ms": device_ms(
-                torch, lambda: fl.fused_step_reference(V, y, g, B, B, spec, True), reps=2, batches=1
-            ),
             "bound_ms": t_bound,
         }
+    plain_B = {B: device_ms(torch, lambda: fl.fused_step_reference(V, y, g, B, B, spec, True),
+                            reps=2, batches=1) for B in (4, 16, 29)}
     del V, y, g
-    t2 = {c["m_out"]: c for c in k2_cases if c["n"] == n}
+    if args.parent:
+        parent_runs.append(parent_kernel_times(args.parent))
+
+    def parent_mean(table, key):
+        return mean([run["kernel_times"][table][key] for run in parent_runs]) if parent_runs else None
+
+    for case in k1_cases:
+        if "ms" in case:
+            kind = "grid" if case["op"] == "grid" else ("chain" if case["n"] == n else "nonsym")
+            case["parent_ms"] = parent_mean("k1", k1_key(kind, case["n"], case["B"], case["with_drift"]))
+    for case in k2_cases:
+        if "ms" in case and case["dtype"] == "torch.float32":
+            case["parent_ms"] = parent_mean("k2", k2_key(case["kmax"], case["n"], case["m_out"]))
+    for B in per_B:
+        per_B[B]["parent_ms"] = parent_mean("k1_schedule", str(B))
+    k1_sum = sum(per_B[B]["ms"] for B in schedule)
+    emit({"phase": "kernel_times", "nvidia_smi": smi,
+          "fused_step": [{k: c[k] for k in ("op", "n", "B", "with_drift", "ms", "parent_ms",
+                                            "bound_ms", "plain_ms")}
+                         for c in k1_cases if "ms" in c],
+          "fused_step_schedule": {"per_B": per_B, "sum_ms": k1_sum,
+                                  "mean_ms": k1_sum / len(schedule),
+                                  "bound_mean_ms": mean([per_B[B]["bound_ms"] for B in schedule]),
+                                  "parent_sum_ms": (sum(per_B[B]["parent_ms"] for B in schedule)
+                                                    if parent_runs else None),
+                                  "plain_ms": plain_B},
+          "transform_partial": [{k: c[k] for k in ("kmax", "n", "m_out", "dtype", "ms", "parent_ms",
+                                                   "bound_ms", "plain_ms", "library_ms")}
+                                for c in k2_cases if "ms" in c],
+          "parent": os.path.abspath(args.parent) if args.parent else None})
+    t2 = {c["m_out"]: c for c in k2_cases if c["n"] == n and c["dtype"] == "torch.float32" and "ms" in c}
     k2_schedule = [20] * 10 + [4]
 
     # 4. small solve: card vs CPU (plain versions)
@@ -866,7 +1047,7 @@ def main():
     x04 = torch.from_numpy(np.random.default_rng(1).standard_normal((R4, 128)).astype(np.float32)).cuda()
     alg4 = kt.Arnoldi(krylovdim=m, maxiter=8, tol=1e-30, **quiet)
     k3_c4 = next(c for c in k3_cases if c["case"] == "transport-diffusion banded f32")
-    k2_c4 = next(c for c in k2_cases if c["n"] == n4)
+    k2_c4 = next(c for c in k2_cases if c["n"] == n4 and "ms" in c)
     spec4 = fl.spec_for(nonsym)
     V4 = torch.randn((kmax, R4, 128), generator=gen, device="cuda")
     y4 = torch.randn((R4, 128), generator=gen, device="cuda")
@@ -973,10 +1154,12 @@ def main():
             "launches": launches["fused_step"],
             "max_abs_err": max(c["max_abs_err"] for c in k1_cases),
             "ms": mean([per_B[B]["ms"] for B in schedule]),
-            "plain_ms": mean([per_B[B]["plain_ms"] for B in schedule]),
+            "parent_ms": (mean([per_B[B]["parent_ms"] for B in schedule]) if parent_runs else None),
+            "plain_ms": mean(list(plain_B.values())),
             "bound_ms": mean([per_B[B]["bound_ms"] for B in schedule]),
             "bound_by": "bytes", "library_ms": None,
-            "shapes": "mean per launch over the main path's 128 steps, B = 1..29",
+            "shapes": "mean per launch over the main path's 128 steps, B = 1..29; plain_ms: "
+                      "mean of B = 4, 16, 29",
             "launches_config2": config2_launches.get("fused_step", 0),
             "launches_config4_arnoldi": fused4["launches"]["fused_step"],
         },
@@ -985,8 +1168,10 @@ def main():
             "source": "krylovkit_tpu_torch/csrc/transform.cu",
             "replaces": "krylovkit_tpu/ops/basis.py:289",
             "launches": launches["transform_partial"],
-            "max_abs_err": max(c["max_abs_err"] for c in k2_cases),
+            "max_abs_err": max(c["max_abs_err"] for c in k2_cases if c["dtype"] == "torch.float32"),
+            "max_abs_err_bfloat16": k2_bf16["max_abs_err"], "ms_bfloat16": k2_bf16["ms"],
             "ms": mean([t2[mo]["ms"] for mo in k2_schedule]),
+            "parent_ms": (mean([t2[mo]["parent_ms"] for mo in k2_schedule]) if parent_runs else None),
             "plain_ms": mean([t2[mo]["plain_ms"] for mo in k2_schedule]),
             "bound_ms": mean([t2[mo]["bound_ms"] for mo in k2_schedule]),
             "bound_by": t2[20]["bound_by"],

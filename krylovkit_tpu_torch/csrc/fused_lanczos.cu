@@ -13,41 +13,63 @@
 // Bound on an H100: memory.  The step must read B basis rows and y and write
 // row kp1 and y': (B + 3) * n * 4 bytes, 285 MB at B = 31, n = 2^21, which is
 // 85 us at 3.35 TB/s; its ~(6B + 2 taps + 4) flops per element take 6 us at
-// the 67 TFLOP/s float32 rate.
+// the 67 TFLOP/s float32 rate.  What a simple kernel loses is latency: a
+// block that loads, waits at a barrier, computes and only then loads again
+// has nothing in flight most of the time, and short runs per block multiply
+// the halo work and leave SMs idle at small R.
 //
-// Design.  The TPU walks row tiles in order and carries the reductions across
-// grid steps; CUDA blocks run in no order, so:
-//   * each block walks a contiguous run of kRunRows = 64 layout rows (256
-//     blocks at R = 16384, all resident at once), two rows per step, one
-//     thread per (row, lane).  A ring of 2h + 2 rows of w' in shared memory
-//     takes the place of the TPU's (T + 2h)-row window: a step computes w'
-//     for the two rows h ahead (reading V[:B] and y from global memory once,
-//     writing row kp1), then y' for its own two rows from the ring;
-//   * halo rows of w' (h above and below the run) are recomputed from global
-//     V and y: no halo caches, a 2h/64 overhead that neighbouring blocks
-//     mostly serve from L2;
-//   * the reductions need V[:B] of a row again after its y' is known, h rows
-//     after the row was first read; that re-read hits L1/L2, so the basis
-//     crosses HBM once per step.  Each thread keeps its slot sums in
-//     registers over the whole run (KACC-wide arrays, a template bound on B);
-//   * at the end of the run each block sums its threads (warp shuffles, then
-//     its warps in a fixed order) into one partial per slot, and a second
-//     kernel sums the partials of each slot in a fixed order, so the result
-//     does not vary from run to run (no float atomics).
-// Rows outside [0, R) are zero in the ring, which is the Dirichlet
-// truncation.  All arithmetic is float32 FMAs; nothing uses tensor cores.
+// Design (the host plans the sizes: ops/fused_lanczos.py:plan_step).
+//   * Persistent grid: one or two blocks of 256 threads per SM, each walking
+//     one contiguous run of `run` layout rows [r0, r1) plus h halo rows on
+//     either side, so every SM is busy at any R and the halo work is 2h rows
+//     per run.
+//   * A ring of staged rows in shared memory, filled with cp.async (16 bytes
+//     a thread, one commit group per tile of T rows, P tiles in flight): a
+//     staged row is y and V[0..B) of one layout row, (B + 1) * 512 bytes.
+//     Rows outside [0, R) are never fetched; their w' is zero, which is the
+//     Dirichlet truncation.
+//   * Both passes read the staged row.  Pass A forms w' of tile k from it,
+//     writes it to V[kp1] (rows of the run only) and into a ring of T + 2h
+//     rows of w'.  Pass B, h rows behind, forms y' from the w' ring and the
+//     reductions from the staged V: the ring of staged rows holds
+//     (P + 1) * T + h rows, so a row stays until its y' is known and the
+//     basis crosses HBM once by construction.  Where (h + 1) staged rows do
+//     not fit shared memory (wide B with a deep halo) the plan sets `reread`:
+//     a row is released after pass A and pass B reads V[:B] again from
+//     global memory (L2).
+//   * A thread owns LPT = T / 2 consecutive lanes of one row of the tile
+//     (4, 2 or 1; at T = 1 half of the threads only copy), and keeps its slot
+//     sums in registers over the whole run (KACC-wide arrays, a template
+//     bound on B).  Two barriers per tile.  Ring rows advance by T with a
+//     compare and a subtract: an integer division per copy made the loop
+//     three times slower.
+//   * The time of a tile is the latency of its two passes, not its bytes
+//     (measured: deeper prefetch changes nothing, taller tiles and a second
+//     block on the SM do).  So the plan takes the tallest tile that fits
+//     and, up to B = 22 at h = 1, two blocks of 4-row tiles per SM; the
+//     32-slot kernels are held to 128 registers for that.
+//   * One launch: each block sums its threads (warp shuffles, then its warps
+//     in a fixed order) into one partial per slot, publishes it, and adds one
+//     to an integer counter; the block that arrives last sums the partials
+//     of each slot over the blocks in a fixed order and resets the counter.
+//     No float atomics: two runs agree to the bit.  The counter belongs to
+//     one stream at a time.
+// Halo rows of w' are recomputed by the neighbouring blocks from the same
+// inputs with the same instructions, so they agree to the bit.  All
+// arithmetic is float32 FMAs; nothing uses tensor cores.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kLanes = 128;
-constexpr int kThreads = 2 * kLanes;  // two rows per step
+constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRunRows = 64;
 constexpr int kMaxTaps = 16;
 constexpr int kMaxSlots = 128;
 constexpr int kMaxHalo = 32;
+constexpr int kMaxInFlight = 8;  // cp.async.wait_group 0..7
+constexpr int kSmemLimit = 232448;  // dynamic shared memory a block may take
 
 struct Taps {
   int n;
@@ -56,168 +78,370 @@ struct Taps {
   int dx[kMaxTaps];  // grid-column offset for the lane mask (grid specs)
 };
 
+// What the host planned: tile rows, tiles in flight, rows of the staged ring
+// and of the w' ring, whether pass B re-reads V from global memory, rows per
+// block.
+struct Plan {
+  int T, P, NSR, NR, reread, run;
+};
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
 }
 
-__device__ __forceinline__ int ring_slot(int row, int nr) {
-  const int s = row % nr;
-  return s < 0 ? s + nr : s;
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src) : "memory");
 }
 
-// KACC: register bound on B; DRIFT: also reduce <V_j, w'>.
-template <int KACC, bool DRIFT>
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Wait until at most `pending` of this thread's commit groups are in flight.
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  switch (pending) {
+    case 0: asm volatile("cp.async.wait_group 0;" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;" ::: "memory"); break;
+    case 3: asm volatile("cp.async.wait_group 3;" ::: "memory"); break;
+    case 4: asm volatile("cp.async.wait_group 4;" ::: "memory"); break;
+    case 5: asm volatile("cp.async.wait_group 5;" ::: "memory"); break;
+    case 6: asm volatile("cp.async.wait_group 6;" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 7;" ::: "memory"); break;
+  }
+}
+
+// N consecutive floats with one load or store (N = 1, 2, 4).
+template <int N>
+__device__ __forceinline__ void ld(const float* p, float (&v)[N]) {
+  if constexpr (N == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else if constexpr (N == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x; v[1] = t.y;
+  } else {
+    v[0] = *p;
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void st(float* p, const float (&v)[N]) {
+  if constexpr (N == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (N == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    *p = v[0];
+  }
+}
+
+// KACC: register bound on B; DRIFT: also reduce <V_j, w'>; LPT: lanes a thread
+// owns (the tile has 2 * LPT rows, or 1 row where plan.T == 1).
+template <int KACC, bool DRIFT, int LPT>
 __global__ void __launch_bounds__(kThreads, KACC <= 32 ? 2 : 1)
 fused_step_kernel(float* V, const float* __restrict__ y,
                   float* __restrict__ ynext, const float* __restrict__ g,
-                  float* __restrict__ partials, int kmax, int R, int B, int kp1,
-                  int h, int gc, int mrow, Taps taps) {
-  extern __shared__ float smem[];
-  const int nr = 2 * h + 2;
-  float* sRing = smem;                 // (nr, 128): w' of rows i-h .. i+1+h
-  float* sG = sRing + nr * kLanes;     // g[:B], gamma at [B]
-  float* sRed = sG + kMaxSlots;        // (kWarps, nslots) warp sums
+                  float* partials, float* __restrict__ raw, int* counter,
+                  int kmax, int R, int B, int kp1, int h, int gc, int mrow,
+                  Plan plan, Taps taps) {
+  extern __shared__ __align__(16) float smem[];
+  const int T = plan.T, P = plan.P, NSR = plan.NSR, NR = plan.NR;
+  const int rowf = (B + 1) * kLanes;           // floats of a staged row: y, V[0..B)
+  float* sStage = smem;                        // (NSR, B + 1, 128)
+  float* sRing = sStage + (size_t)NSR * rowf;  // (NR, 128): w' of the rows in reach
+  float* sG = sRing + NR * kLanes;             // g[:B], gamma at [127]
+  float* sRed = sG + kMaxSlots;                // (kWarps, kMaxSlots) warp sums
+  int* sLast = reinterpret_cast<int*>(sRed + kWarps * kMaxSlots);  // 16 bytes
   const long long N = (long long)R * kLanes;
-  const int lane = threadIdx.x % kLanes, half = threadIdx.x / kLanes;
-  const int r0 = blockIdx.x * kRunRows;
-  const int r1 = min(r0 + kRunRows, R);
+  const int tid = threadIdx.x, warp = tid / 32, lane32 = tid % 32;
+  const int r0 = blockIdx.x * plan.run;
+  const int r1 = min(r0 + plan.run, R);
+  const int s0 = r0 - h, s1 = r1 + h;  // rows whose w' this block forms
+  const int ntiles = (s1 - s0 + T - 1) / T;
   const int nslots = DRIFT ? 2 * B + 2 : B + 2;
 
-  for (int t = threadIdx.x; t < B; t += kThreads) sG[t] = g[t];
-  if (threadIdx.x == 0) sG[B] = g[kmax];
-  __syncthreads();
+  // g[:B], zeros up to [126] (pass A reads g four at a time), gamma at [127]
+  for (int t = tid; t < kMaxSlots; t += kThreads)
+    sG[t] = t < B ? g[t] : (t == kMaxSlots - 1 ? g[kmax] : 0.f);
 
-  // w' of one element; rows of this run also go to V[kp1]
-  auto w_at = [&](int row) -> float {
-    if (row < 0 || row >= R) return 0.f;
-    const long long e = (long long)row * kLanes + lane;
-    float acc = 0.f;
-#pragma unroll
-    for (int j = 0; j < KACC; ++j)
-      if (j < B) acc = fmaf(sG[j], V[j * N + e], acc);
-    const float w = sG[B] * y[e] - acc;
-    if (row >= r0 && row < r1) V[kp1 * N + e] = w;
-    return w;
+  constexpr int TPR = kLanes / LPT;  // threads per row
+  const int ti = tid / TPR;          // this thread's row of the tile
+  const int lane0 = (tid % TPR) * LPT;
+  const bool active = ti < T;
+
+  // The T rows from `base` on, whose first has ring row `slot0`: warp w
+  // copies the 512-byte runs j = w, w + 8, ... (y, then V[j - 1]) of each.
+  auto load_tile = [&](int base, int slot0) {
+    for (int i = 0; i < T; ++i) {
+      const int row = base + i;
+      if (row < 0 || row >= R || row >= s1) continue;
+      int slot = slot0 + i;
+      if (slot >= NSR) slot -= NSR;
+      float* dst = sStage + (size_t)slot * rowf + lane32 * 4;
+      const long long off = (long long)row * kLanes + lane32 * 4;
+      for (int j = warp; j <= B; j += kWarps)
+        cp_async16(dst + j * kLanes, (j == 0 ? y : V + (long long)(j - 1) * N) + off);
+    }
   };
 
-  for (int p = 0; p < 2 * h; p += 2) {  // rows r0-h .. r0+h-1
-    const int row = r0 - h + p + half;
-    sRing[ring_slot(row, nr) * kLanes + lane] = w_at(row);
+  // Rows and ring rows advance by T a tile; no division inside the loop.
+  auto advance = [](int& x, int step, int size) {
+    x += step;
+    if (x >= size) x -= size;
+  };
+  auto modulo = [](int x, int size) {
+    x %= size;
+    return x < 0 ? x + size : x;
+  };
+  for (int k = 0; k < P; ++k) {
+    load_tile(s0 + k * T, k * T);
+    cp_async_commit();
   }
+  int ldRow = s0 + P * T, ldSlot = P * T;            // next tile to copy
+  int aRow = s0 + ti, aSlot = ti, aRing = ti;         // pass A: tile k
+  int bRow = s0 - h + ti;                             // pass B: h rows behind
+  int bSlot = modulo(ti - h, NSR), bRing = modulo(ti - h, NR);
+  int bMod = gc ? modulo(bRow, mrow) : 0;             // bRow % mrow
+  const int stepMod = gc ? T % mrow : 0;
 
-  float acc_r[KACC], acc_d[KACC];
+  float acc_r[KACC], acc_d[DRIFT ? KACC : 1];
 #pragma unroll
-  for (int j = 0; j < KACC; ++j) acc_r[j] = acc_d[j] = 0.f;
+  for (int j = 0; j < KACC; ++j) acc_r[j] = 0.f;
+#pragma unroll
+  for (int j = 0; j < (DRIFT ? KACC : 1); ++j) acc_d[j] = 0.f;
   float rp = 0.f, qq = 0.f;
 
-  for (int i = r0; i < r1; i += 2) {
-    const int ahead = i + h + half;
-    sRing[ring_slot(ahead, nr) * kLanes + lane] = w_at(ahead);
-    __syncthreads();
-    const int row = i + half;
-    if (row < r1) {
-      const int ix = gc ? (row % mrow) * kLanes + lane : 0;
-      float yv = 0.f;
-      for (int p = 0; p < taps.n; ++p) {
-        const int t = lane + taps.d[p];
-        const int dq = t >= 0 ? t / kLanes : -((kLanes - 1 - t) / kLanes);
-        float v = sRing[ring_slot(row + dq, nr) * kLanes + (t - dq * kLanes)];
-        const int dx = taps.dx[p];
-        if (gc && dx && (ix + dx < 0 || ix + dx >= gc)) v = 0.f;
-        yv = fmaf(taps.coef[p], v, yv);
-      }
-      const long long e = (long long)row * kLanes + lane;
-      ynext[e] = yv;
-      const float wv = sRing[ring_slot(row, nr) * kLanes + lane];
+  for (int k = 0; k < ntiles; ++k) {
+    cp_async_wait(P - 1);  // this thread's copies of tile k have landed
+    __syncthreads();       // ... and everyone's; pass B of tile k - 1 is over
+    load_tile(ldRow, ldSlot);  // into the rows that pass B of tile k - 1 released
+    cp_async_commit();
+    ldRow += T;
+    advance(ldSlot, T, NSR);
+
+    // pass A: w' of tile k
+    if (active) {
+      const int row = aRow;
+      float w[LPT];
 #pragma unroll
-      for (int j = 0; j < KACC; ++j) {
-        if (j < B) {
-          const float v = V[j * N + e];
-          acc_r[j] = fmaf(v, yv, acc_r[j]);
-          if (DRIFT) acc_d[j] = fmaf(v, wv, acc_d[j]);
+      for (int l = 0; l < LPT; ++l) w[l] = 0.f;
+      if (row >= 0 && row < R && row < s1) {
+        const float* sv = sStage + (size_t)aSlot * rowf + lane0;
+        float acc[LPT];
+#pragma unroll
+        for (int l = 0; l < LPT; ++l) acc[l] = 0.f;
+#pragma unroll 2
+        for (int j = 0; j < B; j += 4) {
+          const float4 g4 = *reinterpret_cast<const float4*>(sG + j);
+          const float gq[4] = {g4.x, g4.y, g4.z, g4.w};
+          float v[4][LPT];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            if (j + q < B) {
+              ld<LPT>(sv + (j + q + 1) * kLanes, v[q]);
+            } else {
+#pragma unroll
+              for (int l = 0; l < LPT; ++l) v[q][l] = 0.f;
+            }
+          }
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+#pragma unroll
+            for (int l = 0; l < LPT; ++l) acc[l] = fmaf(gq[q], v[q][l], acc[l]);
+        }
+        float yv[LPT];
+        ld<LPT>(sv, yv);
+        const float gamma = sG[kMaxSlots - 1];
+#pragma unroll
+        for (int l = 0; l < LPT; ++l) w[l] = gamma * yv[l] - acc[l];
+        if (row >= r0 && row < r1)
+          st<LPT>(V + (long long)kp1 * N + (long long)row * kLanes + lane0, w);
+      }
+      if (row < s1) st<LPT>(sRing + aRing * kLanes + lane0, w);
+    }
+    aRow += T;
+    advance(aSlot, T, NSR);
+    advance(aRing, T, NR);
+    __syncthreads();
+
+    // pass B: y' and the reductions of the T rows that lie h behind tile k
+    if (active) {
+      const int row = bRow;
+      if (row >= r0 && row < r1) {
+        const int rb = bRing;
+        const int ix0 = bMod * kLanes + lane0;
+        float yv[LPT];
+#pragma unroll
+        for (int l = 0; l < LPT; ++l) yv[l] = 0.f;
+        for (int p = 0; p < taps.n; ++p) {
+          const int d = taps.d[p], dx = taps.dx[p];
+          const float c = taps.coef[p];
+#pragma unroll
+          for (int l = 0; l < LPT; ++l) {
+            const int t = lane0 + l + d;
+            const int dq = t >= 0 ? t / kLanes : -((kLanes - 1 - t) / kLanes);
+            int slot = rb + dq;
+            if (slot < 0) slot += NR;
+            else if (slot >= NR) slot -= NR;
+            float v = sRing[slot * kLanes + (t - dq * kLanes)];
+            if (gc && dx) {
+              const int ix = ix0 + l + dx;
+              if (ix < 0 || ix >= gc) v = 0.f;
+            }
+            yv[l] = fmaf(c, v, yv[l]);
+          }
+        }
+        st<LPT>(ynext + (long long)row * kLanes + lane0, yv);
+        float wv[LPT];
+        ld<LPT>(sRing + rb * kLanes + lane0, wv);
+        // slot sums over V[j] of this row, read from `vb` with row stride `vs`
+        auto reduce = [&](const float* vb, long long vs) {
+#pragma unroll
+          for (int j0 = 0; j0 < KACC; j0 += 8) {
+            if (j0 < B) {
+#pragma unroll
+              for (int j = j0; j < j0 + 8; ++j) {
+                if (j < B) {
+                  float v[LPT];
+                  ld<LPT>(vb + j * vs, v);
+#pragma unroll
+                  for (int l = 0; l < LPT; ++l) {
+                    acc_r[j] = fmaf(v[l], yv[l], acc_r[j]);
+                    if constexpr (DRIFT) acc_d[j] = fmaf(v[l], wv[l], acc_d[j]);
+                  }
+                }
+              }
+            }
+          }
+        };
+        if (plan.reread)
+          reduce(V + (long long)row * kLanes + lane0, N);
+        else
+          reduce(sStage + (size_t)bSlot * rowf + kLanes + lane0, kLanes);
+#pragma unroll
+        for (int l = 0; l < LPT; ++l) {
+          rp = fmaf(wv[l], yv[l], rp);
+          qq = fmaf(wv[l], wv[l], qq);
         }
       }
-      rp = fmaf(wv, yv, rp);
-      qq = fmaf(wv, wv, qq);
     }
-    __syncthreads();
+    bRow += T;
+    advance(bSlot, T, NSR);
+    advance(bRing, T, NR);
+    advance(bMod, stepMod, mrow);
   }
+  cp_async_wait(0);
 
-  const int warp = threadIdx.x / 32, lane32 = threadIdx.x % 32;
+  // this block's partial of each slot: threads by shuffles, warps in order
 #pragma unroll
   for (int j = 0; j < KACC; ++j) {
     if (j < B) {
       const float sr = warp_sum(acc_r[j]);
-      if (lane32 == 0) sRed[warp * nslots + j] = sr;
-      if (DRIFT) {
+      if (lane32 == 0) sRed[warp * kMaxSlots + j] = sr;
+      if constexpr (DRIFT) {
         const float sd = warp_sum(acc_d[j]);
-        if (lane32 == 0) sRed[warp * nslots + B + j] = sd;
+        if (lane32 == 0) sRed[warp * kMaxSlots + B + j] = sd;
       }
     }
   }
   rp = warp_sum(rp);
   qq = warp_sum(qq);
   if (lane32 == 0) {
-    sRed[warp * nslots + nslots - 2] = rp;
-    sRed[warp * nslots + nslots - 1] = qq;
+    sRed[warp * kMaxSlots + nslots - 2] = rp;
+    sRed[warp * kMaxSlots + nslots - 1] = qq;
   }
   __syncthreads();
-  for (int s = threadIdx.x; s < nslots; s += kThreads) {
+  for (int s = tid; s < nslots; s += kThreads) {
     float acc = 0.f;
-    for (int w = 0; w < kWarps; ++w) acc += sRed[w * nslots + s];
+    for (int w = 0; w < kWarps; ++w) acc += sRed[w * kMaxSlots + s];
     partials[(long long)blockIdx.x * nslots + s] = acc;
   }
-}
 
-// raw[s] = sum over blocks of partials[b, s], in a fixed order
-__global__ void __launch_bounds__(256)
-reduce_partials(const float* __restrict__ partials, float* __restrict__ raw,
-                int nblocks, int nslots) {
-  __shared__ float s[256];
-  const int slot = blockIdx.x;
-  float acc = 0.f;
-  for (int b = threadIdx.x; b < nblocks; b += blockDim.x)
-    acc += partials[(long long)b * nslots + slot];
-  s[threadIdx.x] = acc;
+  // the block that arrives last sums the partials of every block
+  __threadfence();
   __syncthreads();
-  for (int off = blockDim.x / 2; off > 0; off >>= 1) {
-    if (threadIdx.x < off) s[threadIdx.x] += s[threadIdx.x + off];
-    __syncthreads();
+  if (tid == 0) *sLast = atomicAdd(counter, 1) == (int)gridDim.x - 1;
+  __syncthreads();
+  if (!*sLast) return;
+  __threadfence();
+  int pad = 4;  // nslots rounded up to a power of two, <= 128
+  while (pad < nslots) pad <<= 1;
+  const int C = kThreads / pad;  // chunks of blocks, summed side by side
+  const int s = tid % pad, c = tid / pad;
+  const int nb = (int)gridDim.x, per = (nb + C - 1) / C;
+  float acc = 0.f;
+  if (s < nslots) {
+    const int b1 = min(nb, (c + 1) * per);
+#pragma unroll 8
+    for (int b = c * per; b < b1; ++b) acc += __ldcg(partials + (long long)b * nslots + s);
   }
-  if (threadIdx.x == 0) raw[slot] = s[0];
+  sRed[c * pad + s] = acc;
+  __syncthreads();
+  if (tid < nslots) {
+    float t = 0.f;
+    for (int cc = 0; cc < C; ++cc) t += sRed[cc * pad + tid];
+    raw[tid] = t;
+  }
+  if (tid == 0) *counter = 0;
 }
 
-template <int KACC, bool DRIFT>
-void launch_step(int nblocks, size_t smem, cudaStream_t s, float* V,
-                 const float* y, float* ynext, const float* g, float* partials,
-                 int kmax, int R, int B, int kp1, int h, int gc, int mrow,
-                 const Taps& taps) {
-  fused_step_kernel<KACC, DRIFT><<<nblocks, kThreads, smem, s>>>(
-      V, y, ynext, g, partials, kmax, R, B, kp1, h, gc, mrow, taps);
+template <int KACC, bool DRIFT, int LPT>
+cudaError_t launch_step(int nblocks, size_t smem, cudaStream_t s, float* V,
+                        const float* y, float* ynext, const float* g,
+                        float* partials, float* raw, int* counter, int kmax,
+                        int R, int B, int kp1, int h, int gc, int mrow,
+                        const Plan& plan, const Taps& taps) {
+  // per instantiation and device: allow the full shared memory, once
+  static bool raised[64] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64 || !raised[dev]) {
+    cudaError_t err = cudaFuncSetAttribute(
+        fused_step_kernel<KACC, DRIFT, LPT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+    if (err != cudaSuccess) return err;
+    if (dev >= 0 && dev < 64) raised[dev] = true;
+  }
+  fused_step_kernel<KACC, DRIFT, LPT><<<nblocks, kThreads, smem, s>>>(
+      V, y, ynext, g, partials, raw, counter, kmax, R, B, kp1, h, gc, mrow, plan,
+      taps);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Number of blocks (and rows of the partials scratch) for R layout rows.
-int kk_fused_step_blocks(int R) { return (R + kRunRows - 1) / kRunRows; }
-
 // V (kmax, R, 128) float32, row kp1 written in place; y, ynext (R, 128);
-// g (kmax + 1); partials (kk_fused_step_blocks(R), nslots) scratch;
-// raw (nslots) out.  coef/d/dx are HOST arrays of ntaps entries.
-// Returns cudaGetLastError() after the launches.
+// g (kmax + 1); partials (nblocks, nslots) scratch; raw (nslots) out; counter
+// one int32 that is 0 before the first launch (the kernel leaves it 0).
+// coef/d/dx are HOST arrays of ntaps entries.  T, P, NSR, NR, reread, run,
+// nblocks and smem_bytes are the host's plan (ops/fused_lanczos.py:plan_step),
+// checked here.  Returns cudaGetLastError() after the launch.
 int kk_fused_step(float* V, const float* y, float* ynext, const float* g,
-                  float* partials, float* raw, int kmax, int R, int B, int kp1,
-                  int with_drift, int h, int gc, int mrow, int ntaps,
-                  const float* coef, const int* d, const int* dx,
-                  void* stream) {
+                  float* partials, float* raw, int* counter, int kmax, int R,
+                  int B, int kp1, int with_drift, int h, int gc, int mrow,
+                  int ntaps, const float* coef, const int* d, const int* dx,
+                  int T, int P, int NSR, int NR, int reread, int run,
+                  int nblocks, int smem_bytes, void* stream) {
   const int nslots = with_drift ? 2 * B + 2 : B + 2;
   if (ntaps < 1 || ntaps > kMaxTaps || h < 1 || h > kMaxHalo || B < 1 ||
       kp1 < B || kp1 >= kmax || nslots > kMaxSlots || R < 1 ||
       (gc && mrow < 1))
+    return (int)cudaErrorInvalidValue;
+  const int lpt = T == 8 ? 4 : T == 4 ? 2 : 1;
+  const long long need =
+      4LL * ((long long)NSR * (B + 1) * kLanes + (long long)NR * kLanes +
+             kMaxSlots + kWarps * kMaxSlots + 4);
+  if (!(T == 1 || T == 2 || T == 4 || T == 8) || P < 1 || P > kMaxInFlight ||
+      NR < T + 2 * h || NSR < (P + 1) * T + (reread ? 0 : h) || run < 1 ||
+      nblocks < 1 || (long long)nblocks * run < R ||
+      (long long)(nblocks - 1) * run >= R || smem_bytes < need ||
+      smem_bytes > kSmemLimit || (lpt > 1 && B > 32))
     return (int)cudaErrorInvalidValue;
   Taps taps;
   taps.n = ntaps;
@@ -226,28 +450,29 @@ int kk_fused_step(float* V, const float* y, float* ynext, const float* g,
     taps.d[p] = d[p];
     taps.dx[p] = dx[p];
   }
-  const int nblocks = kk_fused_step_blocks(R);
-  const size_t smem =
-      sizeof(float) * ((size_t)(2 * h + 2) * kLanes + kMaxSlots +
-                       (size_t)kWarps * kMaxSlots);
+  const Plan plan = {T, P, NSR, NR, reread, run};
   cudaStream_t s = (cudaStream_t)stream;
+#define KK_STEP(KACC, DRIFT, LPT)                                              \
+  return (int)launch_step<KACC, DRIFT, LPT>(nblocks, (size_t)smem_bytes, s, V, \
+                                            y, ynext, g, partials, raw,        \
+                                            counter, kmax, R, B, kp1, h, gc,   \
+                                            mrow, plan, taps)
   if (with_drift) {
-    if (B <= 32)
-      launch_step<32, true>(nblocks, smem, s, V, y, ynext, g, partials, kmax, R, B, kp1, h, gc, mrow, taps);
-    else
-      launch_step<64, true>(nblocks, smem, s, V, y, ynext, g, partials, kmax, R, B, kp1, h, gc, mrow, taps);
-  } else {
-    if (B <= 32)
-      launch_step<32, false>(nblocks, smem, s, V, y, ynext, g, partials, kmax, R, B, kp1, h, gc, mrow, taps);
-    else if (B <= 64)
-      launch_step<64, false>(nblocks, smem, s, V, y, ynext, g, partials, kmax, R, B, kp1, h, gc, mrow, taps);
-    else
-      launch_step<128, false>(nblocks, smem, s, V, y, ynext, g, partials, kmax, R, B, kp1, h, gc, mrow, taps);
+    if (B <= 32) {
+      if (lpt == 4) KK_STEP(32, true, 4);
+      if (lpt == 2) KK_STEP(32, true, 2);
+      KK_STEP(32, true, 1);
+    }
+    KK_STEP(64, true, 1);
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  reduce_partials<<<nslots, 256, 0, s>>>(partials, raw, nblocks, nslots);
-  return (int)cudaGetLastError();
+  if (B <= 32) {
+    if (lpt == 4) KK_STEP(32, false, 4);
+    if (lpt == 2) KK_STEP(32, false, 2);
+    KK_STEP(32, false, 1);
+  }
+  if (B <= 64) KK_STEP(64, false, 1);
+  KK_STEP(128, false, 1);
+#undef KK_STEP
 }
 
 const char* kk_error_string(int status) {

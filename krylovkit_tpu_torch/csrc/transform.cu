@@ -3,91 +3,224 @@
 //
 // Replaces the TPU kernel krylovkit_tpu/ops/basis.py:_pallas_transform_inplace
 // (the thick-restart rotation and the Ritz-vector extraction of the Lanczos
-// eigsolve).
+// and Arnoldi eigensolvers).
 //
 // Bound on an H100: memory.  Each call reads kmax basis rows and writes m_out
-// rows of n floats, (kmax + m_out) * n * 4 bytes; at kmax = 31, m_out = 20,
-// n = 2^21 that is 428 MB, 128 us at 3.35 TB/s.  The arithmetic,
+// rows of n values, (kmax + m_out) * n * 4 bytes in float32; at kmax = 31,
+// m_out = 20, n = 2^21 that is 428 MB, 128 us at 3.35 TB/s.  The arithmetic,
 // 2 * kmax * m_out * n = 2.6 GFLOP, is 39 us at the 67 TFLOP/s float32 rate.
+// What keeps a simple kernel from the memory bound is neither: an FMA that
+// reads its U entry with a 4-byte shared-memory load of its own makes the
+// kernel wait on shared-memory issue (about one load per SM and clock), and
+// a thread that loads, then computes, then stores overlaps nothing by
+// itself, so the SM needs many independent warps in different phases.
 //
-// Design: one thread owns one column e of the flattened (kmax, n) basis.  It
-// loads all kmax values V[j, e] into registers (a KREG-wide array, KREG a
-// template bound), then writes out[i, e] = sum_j U[j, i] V[j, e] for
-// i < m_out.  Every column is read completely before any of it is written and
-// no column depends on another, so the rotation is safe in place without a
-// second buffer; rows >= m_out are never written and stay bit-identical (the
-// gated identity restarts of the Lanczos driver read them).  U[:, :m_out]
-// sits in shared memory, transposed so that a thread reads one contiguous
-// row per output.  Loads and stores are coalesced across a warp.  The sums
-// are float32 FMAs in a fixed order.
+// Design.  A thread owns COLS consecutive columns of the flattened (kmax, n)
+// basis and keeps all kmax values of each in registers (a KREG x COLS array,
+// KREG a template bound on kmax).  It then writes, for every i < m_out,
+//   out[i, e] = sum_j U[j, i] V[j, e]
+// as one float32 FMA chain per column, in ascending j, starting from 0.
+//   * U[:, i] lies in shared memory as a row of KREG floats, zero beyond
+//     kmax, so it is read 16 bytes at a time: one shared-memory load per
+//     4 * COLS FMAs.
+//   * The block reads U[:, :m_out] straight from the caller's matrix through
+//     its two strides (any view) while the basis loads are in flight: the
+//     transpose and the padding cost no launch of their own.
+//   * Few registers, many warps: a thread moves one 4-byte word per row
+//     (1 float32 column, 2 bfloat16 columns) and takes ~64 registers at
+//     kmax <= 32, so 8 blocks of 4 warps share an SM and the loads of some
+//     hide the FMAs and stores of others.  Measured on the card, this beats
+//     4 columns a thread (16-byte loads, 152 registers, 3 blocks an SM) by
+//     3% at n = 2^21 and 9% at n = 2^20; a warp's load is still one
+//     contiguous 128-byte run.
+//   * One block per 128 * COLS columns, no grid-stride loop: the hardware
+//     hands out blocks as SMs come free, so the last wave is short.
+//   * In place: a thread reads all kmax values of its columns before it writes
+//     any, and no column depends on another; rows >= m_out are never
+//     addressed and stay bit-identical (the gated identity restarts of the
+//     eigensolvers read them).  An identity U gives back V to the bit.
+// The rungs, float32 (bfloat16): columns a thread, by kmax:
+//   kmax <= 16: KREG 16, 2 (4) columns    kmax <= 64:  KREG 64, 1 (2) columns
+//   kmax <= 32: KREG 32, 1 (2) columns    kmax <= 128: KREG 128, 1 (1) column
+// A bfloat16 basis is widened to float32 in registers, accumulated in float32
+// and rounded once at the store.  Nothing uses tensor cores.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 128;
 
-template <int KREG>
-__global__ void __launch_bounds__(kThreads)
-transform_kernel(float* V, const float* __restrict__ Ut, int kmax,
-                 long long ncols, int m_out) {
-  extern __shared__ float sU[];  // (m_out, kmax): row i holds U[:, i]
-  for (int t = threadIdx.x; t < m_out * kmax; t += blockDim.x) sU[t] = Ut[t];
-  __syncthreads();
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       e < ncols; e += stride) {
-    float v[KREG];
+__device__ __forceinline__ float bf16_lo(unsigned w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(unsigned w) { return __uint_as_float(w & 0xffff0000u); }
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);  // .x = lo (low half)
+  return *reinterpret_cast<const unsigned*>(&p);
+}
+
+// COLS consecutive values of type T at p, as floats, with one load or store.
+template <typename T, int COLS>
+struct Cols;
+
+template <>
+struct Cols<float, 2> {
+  static __device__ __forceinline__ void load(const float* p, float (&v)[2]) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x; v[1] = t.y;
+  }
+  static __device__ __forceinline__ void store(float* p, const float (&v)[2]) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  }
+};
+
+template <>
+struct Cols<float, 1> {
+  static __device__ __forceinline__ void load(const float* p, float (&v)[1]) { v[0] = *p; }
+  static __device__ __forceinline__ void store(float* p, const float (&v)[1]) { *p = v[0]; }
+};
+
+template <>
+struct Cols<__nv_bfloat16, 4> {
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float (&v)[4]) {
+    const uint2 t = *reinterpret_cast<const uint2*>(p);
+    v[0] = bf16_lo(t.x); v[1] = bf16_hi(t.x); v[2] = bf16_lo(t.y); v[3] = bf16_hi(t.y);
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p, const float (&v)[4]) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
+  }
+};
+
+template <>
+struct Cols<__nv_bfloat16, 2> {
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float (&v)[2]) {
+    const unsigned t = *reinterpret_cast<const unsigned*>(p);
+    v[0] = bf16_lo(t); v[1] = bf16_hi(t);
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p, const float (&v)[2]) {
+    *reinterpret_cast<unsigned*>(p) = pack_bf16(v[0], v[1]);
+  }
+};
+
+template <>
+struct Cols<__nv_bfloat16, 1> {
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float (&v)[1]) {
+    v[0] = __bfloat162float(*p);
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p, const float (&v)[1]) {
+    *p = __float2bfloat16_rn(v[0]);
+  }
+};
+
+// MINB: blocks an SM must hold (bounds the registers a thread may take).
+template <typename T, int KREG, int COLS, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB)
+transform_kernel(T* V, const float* __restrict__ U, long long u_rs,
+                 long long u_cs, int kmax, long long ncols, int m_out) {
+  extern __shared__ __align__(16) float sU[];  // (m_out, KREG): row i = U[:, i], 0 beyond kmax
+  const long long e = ((long long)blockIdx.x * kThreads + threadIdx.x) * COLS;
+  const bool live = e < ncols;
+  float v[KREG][COLS];
 #pragma unroll
-    for (int j = 0; j < KREG; ++j) v[j] = (j < kmax) ? V[j * ncols + e] : 0.f;
-    for (int i = 0; i < m_out; ++i) {
-      const float* u = sU + i * kmax;
-      float acc = 0.f;
+  for (int j = 0; j < KREG; ++j) {
+    if (live && j < kmax) {
+      Cols<T, COLS>::load(V + j * ncols + e, v[j]);
+    } else {
 #pragma unroll
-      for (int j = 0; j < KREG; ++j)
-        if (j < kmax) acc = fmaf(u[j], v[j], acc);
-      V[i * ncols + e] = acc;
+      for (int c = 0; c < COLS; ++c) v[j][c] = 0.f;
     }
+  }
+  for (int t = threadIdx.x; t < m_out * KREG; t += kThreads) {
+    const int i = t / KREG, j = t % KREG;
+    sU[t] = j < kmax ? U[j * u_rs + i * u_cs] : 0.f;
+  }
+  __syncthreads();
+  if (!live) return;
+  for (int i = 0; i < m_out; ++i) {
+    const float4* u4 = reinterpret_cast<const float4*>(sU + i * KREG);
+    float acc[COLS];
+#pragma unroll
+    for (int c = 0; c < COLS; ++c) acc[c] = 0.f;
+#pragma unroll
+    for (int q = 0; q < KREG / 4; ++q) {
+      if (4 * q < kmax) {
+        const float4 u = u4[q];
+#pragma unroll
+        for (int c = 0; c < COLS; ++c) acc[c] = fmaf(u.x, v[4 * q][c], acc[c]);
+#pragma unroll
+        for (int c = 0; c < COLS; ++c) acc[c] = fmaf(u.y, v[4 * q + 1][c], acc[c]);
+#pragma unroll
+        for (int c = 0; c < COLS; ++c) acc[c] = fmaf(u.z, v[4 * q + 2][c], acc[c]);
+#pragma unroll
+        for (int c = 0; c < COLS; ++c) acc[c] = fmaf(u.w, v[4 * q + 3][c], acc[c]);
+      }
+    }
+    Cols<T, COLS>::store(V + i * ncols + e, acc);
   }
 }
 
-template <int KREG>
-cudaError_t launch(float* V, const float* Ut, int kmax, long long ncols,
-                   int m_out, cudaStream_t stream) {
-  size_t smem = sizeof(float) * (size_t)m_out * kmax;
+template <typename T, int KREG, int COLS, int MINB>
+cudaError_t launch(T* V, const float* U, long long u_rs, long long u_cs,
+                   int kmax, long long ncols, int m_out, cudaStream_t stream) {
+  if (ncols % COLS != 0) return cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * (size_t)m_out * KREG;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        transform_kernel<KREG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        transform_kernel<T, KREG, COLS, MINB>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  long long want = (ncols + kThreads - 1) / kThreads;
-  long long cap = (long long)sms * 16;
-  int blocks = (int)(want < cap ? want : cap);
-  transform_kernel<KREG><<<blocks, kThreads, smem, stream>>>(V, Ut, kmax, ncols,
-                                                             m_out);
+  const long long per_block = (long long)kThreads * COLS;
+  const long long blocks = (ncols + per_block - 1) / per_block;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  transform_kernel<T, KREG, COLS, MINB><<<(unsigned)blocks, kThreads, smem, stream>>>(
+      V, U, u_rs, u_cs, kmax, ncols, m_out);
   return cudaGetLastError();
+}
+
+// The ladder: (KREG, COLS, MINB) by kmax.  A thread moves 4 bytes per row
+// where that keeps it near 64 registers, so 8 blocks of 4 warps share an SM.
+template <typename T>
+cudaError_t dispatch(T* V, const float* U, long long u_rs, long long u_cs,
+                     int kmax, long long ncols, int m_out, cudaStream_t s) {
+  constexpr bool kHalf = sizeof(T) == 2;  // bfloat16: twice the columns per word
+  if (kmax <= 16)
+    return launch<T, 16, kHalf ? 4 : 2, kHalf ? 5 : 8>(V, U, u_rs, u_cs, kmax, ncols, m_out, s);
+  if (kmax <= 32)
+    return launch<T, 32, kHalf ? 2 : 1, kHalf ? 6 : 8>(V, U, u_rs, u_cs, kmax, ncols, m_out, s);
+  if (kmax <= 64)
+    return launch<T, 64, kHalf ? 2 : 1, kHalf ? 3 : 4>(V, U, u_rs, u_cs, kmax, ncols, m_out, s);
+  return launch<T, 128, 1, 3>(V, U, u_rs, u_cs, kmax, ncols, m_out, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// V: (kmax, ncols) float32 on the device, rotated in place.
-// Ut: (m_out, kmax) float32 on the device, Ut[i, j] = U[j, i].
-// Returns cudaGetLastError() after the launch.
-int kk_transform_partial(float* V, const float* Ut, int kmax, long long ncols,
-                         int m_out, void* stream) {
-  if (kmax < 1 || kmax > 128 || m_out < 1 || m_out > kmax || ncols < 1)
+// The rung that serves kmax: registers per column (= the padded length of a
+// row of U in shared memory) and columns per thread.
+void kk_transform_rung(int kmax, int bf16, int* kreg, int* cols) {
+  const int w = bf16 ? 2 : 1;
+  if (kmax <= 16) { *kreg = 16; *cols = 2 * w; }
+  else if (kmax <= 32) { *kreg = 32; *cols = w; }
+  else if (kmax <= 64) { *kreg = 64; *cols = w; }
+  else { *kreg = 128; *cols = 1; }
+}
+
+// V: (kmax, ncols) on the device, float32 (bf16 == 0) or bfloat16 (bf16 == 1),
+// rotated in place; its rows start on 16-byte boundaries (ncols % 4 == 0).
+// U: float32 on the device, U[j, i] at U[j * u_rs + i * u_cs]; only its first
+// m_out columns are read.  Returns cudaGetLastError() after the launch.
+int kk_transform_partial(void* V, const float* U, long long u_rs, long long u_cs,
+                         int kmax, long long ncols, int m_out, int bf16,
+                         void* stream) {
+  if (kmax < 1 || kmax > 128 || m_out < 1 || m_out > kmax || ncols < 1 ||
+      ncols % 4 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (kmax <= 16) return (int)launch<16>(V, Ut, kmax, ncols, m_out, s);
-  if (kmax <= 32) return (int)launch<32>(V, Ut, kmax, ncols, m_out, s);
-  if (kmax <= 64) return (int)launch<64>(V, Ut, kmax, ncols, m_out, s);
-  return (int)launch<128>(V, Ut, kmax, ncols, m_out, s);
+  if (bf16)
+    return (int)dispatch((__nv_bfloat16*)V, U, u_rs, u_cs, kmax, ncols, m_out, s);
+  return (int)dispatch((float*)V, U, u_rs, u_cs, kmax, ncols, m_out, s);
 }
 
 const char* kk_error_string(int status) {

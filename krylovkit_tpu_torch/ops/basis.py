@@ -40,6 +40,7 @@ __all__ = [
     "unproject_bucketed",
     "transform",
     "transform_partial",
+    "transform_rung",
     "transform_partial_inplace",
     "transform_partial_inplace_reference",
     "gram",
@@ -49,6 +50,8 @@ __all__ = [
 LANES = 128
 # widest basis the transform kernel keeps in registers (csrc/transform.cu)
 TRANSFORM_MAX_KMAX = 128
+# (kreg, float32 cols, bfloat16 cols) rungs of csrc/transform.cu, by kmax <= kreg
+TRANSFORM_RUNGS = ((16, 2, 4), (32, 1, 2), (64, 1, 2), (128, 1, 1))
 
 # Toggle for the live-row projection kernels (ops/projections.py).  Off by
 # default, as the JAX package's flag of the same name is; PERF.md holds the
@@ -207,11 +210,26 @@ def _lib():
     global _transform_lib
     if _transform_lib is None:
         lib = _build.library("transform")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.kk_transform_partial.argtypes = [p, p, i, ctypes.c_longlong, i, p]
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.kk_transform_partial.argtypes = [p, p, ll, ll, i, ll, i, i, p]
         lib.kk_transform_partial.restype = i
+        lib.kk_transform_rung.argtypes = [i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
+        lib.kk_transform_rung.restype = None
         _transform_lib = lib
     return _transform_lib
+
+
+def transform_rung(kmax: int, dtype: torch.dtype = torch.float32):
+    """``(kreg, cols)`` of the kernel rung that serves ``kmax`` (the ladder
+    of ``csrc/transform.cu``): a thread keeps ``kreg`` values of each of
+    ``cols`` consecutive columns in registers, ``kreg * cols <= 128``, and a
+    row of ``U`` lies in shared memory padded to ``kreg`` floats.  ``cols``
+    is what one 4-byte word holds (8 bytes on the narrowest rung), so a
+    bfloat16 basis has twice the columns of a float32 one."""
+    if not 1 <= kmax <= TRANSFORM_MAX_KMAX:
+        raise ValueError(f"kmax {kmax} outside 1..{TRANSFORM_MAX_KMAX}")
+    kreg, cols32, cols16 = next(rung for rung in TRANSFORM_RUNGS if kmax <= rung[0])
+    return kreg, cols16 if dtype == torch.bfloat16 else cols32
 
 
 def transform_partial_inplace(V: torch.Tensor, U: torch.Tensor,
@@ -220,8 +238,11 @@ def transform_partial_inplace(V: torch.Tensor, U: torch.Tensor,
     bit-identical.  Port of the TPU kernel
     ``krylovkit_tpu/ops/basis.py:_pallas_transform_inplace``.
 
-    A CUDA tensor runs the kernel of ``csrc/transform.cu`` (float32 only);
-    a CPU tensor runs :func:`transform_partial_inplace_reference`."""
+    A CUDA tensor runs the kernel of ``csrc/transform.cu`` (float32, or
+    bfloat16 with float32 accumulation and ``U`` rounded to bfloat16 as the
+    plain version rounds it); a CPU tensor runs
+    :func:`transform_partial_inplace_reference`.  ``U`` may be any view: the
+    kernel reads ``U[:, :m_out]`` through its strides."""
     kmax = V.shape[0]
     if not (0 < m_out <= kmax) or U.shape != (kmax, kmax):
         raise ValueError(f"bad shapes: V {tuple(V.shape)}, U {tuple(U.shape)}, m_out {m_out}")
@@ -231,16 +252,25 @@ def transform_partial_inplace(V: torch.Tensor, U: torch.Tensor,
         return transform_partial_inplace_reference(V, U, m_out)
     if V.device.type != "cuda":
         raise ValueError(f"unsupported device {V.device}")
-    if V.dtype != torch.float32:
-        raise ValueError(f"the CUDA transform kernel takes float32, got {V.dtype}")
+    if V.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"the CUDA transform kernel takes float32 or bfloat16, got {V.dtype}")
     if not V.is_contiguous() or not _leaf_ok(V):
         raise ValueError(f"the CUDA transform kernel needs a contiguous (kmax <= "
                          f"{TRANSFORM_MAX_KMAX}, R % 8 == 0, 128) basis, got {tuple(V.shape)}")
-    Ut = U[:, :m_out].T.to(device=V.device, dtype=torch.float32).contiguous()
     ncols = V[0].numel()
+    _, cols = transform_rung(kmax, V.dtype)
+    # R % 8 == 0 makes every row start 16-byte aligned, and so every group of
+    # `cols` columns a thread loads as one word
+    if ncols % 4 != 0 or ncols % cols != 0 or V.data_ptr() % 16 != 0:
+        raise ValueError(f"the CUDA transform kernel needs 16-byte aligned rows, got ncols {ncols}")
+    if V.dtype == torch.bfloat16:
+        U = U.to(device=V.device, dtype=torch.bfloat16)
+    if U.device != V.device or U.dtype != torch.float32:
+        U = U.to(device=V.device, dtype=torch.float32)
     lib = _lib()
     status = lib.kk_transform_partial(
-        V.data_ptr(), Ut.data_ptr(), kmax, ncols, m_out,
+        V.data_ptr(), U.data_ptr(), U.stride(0), U.stride(1), kmax, ncols, m_out,
+        int(V.dtype == torch.bfloat16),
         torch.cuda.current_stream(V.device).cuda_stream,
     )
     _build.check(lib, status, "transform_partial")

@@ -11,8 +11,8 @@ One step, at live rows ``B = k + 1`` and new row ``kp1 = k + 1``:
 :func:`fused_step` is the wrapper of the hand-written CUDA kernel
 ``csrc/fused_lanczos.cu``; :func:`fused_step_reference` is its plain
 PyTorch version, run for CPU tensors.  Unlike the TPU kernel, neither takes
-halo caches: the CUDA kernel reads halo rows of ``V`` and ``y`` directly, so
-the driver carries no boundary planes.  ``y`` and ``y'`` are separate
+halo caches: each block of the CUDA kernel stages the halo rows of ``V`` and
+``y`` itself, so the solver loop carries no boundary planes.  ``y`` and ``y'`` are separate
 buffers.  Stored basis rows are raw residuals; their scales are carried by
 the driver (``factorizations/krylov.py:FusedScales``).
 """
@@ -20,6 +20,7 @@ the driver (``factorizations/krylov.py:FusedScales``).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -37,6 +38,8 @@ __all__ = [
     "supported_stencil",
     "choose_tile",
     "stencil_apply_spec",
+    "StepPlan",
+    "plan_step",
     "fused_step",
     "fused_step_reference",
 ]
@@ -216,8 +219,78 @@ def fused_step_reference(V, y, g, kp1: int, B: int, spec: StencilSpec,
     return yn, torch.cat(parts)
 
 
+# Shared-memory planning of the CUDA kernel (csrc/fused_lanczos.cu)
+SMEM_LIMIT = 232448         # dynamic shared memory one block may take on an H100
+SMEM_LIMIT_TWO = 115712     # ... where two blocks share an SM
+STEP_THREADS = 256
+TILE_ROWS = (8, 4, 2, 1)    # T: rows a tile may have; a thread owns max(1, T/2) lanes
+TILE_CAP = 80 * 1024        # a tile of more than one row stays under this
+PAIR_TILE_ROWS = 4          # the tile of the two-blocks-per-SM plan
+PAIR_MAX_B = 32             # ... which needs the 32-slot kernels (<= 128 registers)
+MAX_IN_FLIGHT = 2           # tiles of copies in flight: more measured no faster
+
+
+class StepPlan(NamedTuple):
+    """Sizes of one launch of the fused-step kernel.
+
+    A block walks ``run`` layout rows plus ``h`` halo rows on either side in
+    tiles of ``T`` rows, with ``P`` tiles of copies in flight.  The ring of
+    staged rows (``y`` and ``V[:B]`` of a row, ``(B + 1)·512`` bytes) has
+    ``NSR`` rows, the ring of ``w'`` rows ``NR``.  With ``reread`` a staged
+    row is released before its reductions, which then read ``V`` from global
+    memory; otherwise it stays for the ``h`` rows the reductions lag."""
+
+    T: int
+    P: int
+    NSR: int
+    NR: int
+    reread: bool
+    run: int
+    nblocks: int
+    smem_bytes: int
+
+
+def _step_smem(B: int, NSR: int, NR: int) -> int:
+    # staged rows, w' ring, g (128 floats), warp sums (8 warps x 128 slots),
+    # the last-block flag (16 bytes)
+    return 4 * (NSR * (B + 1) * LANES + NR * LANES + LANES + (STEP_THREADS // 32) * LANES + 4)
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_step(R: int, B: int, h: int, with_drift: bool, sms: int) -> StepPlan:
+    """Plan the kernel for ``R`` layout rows, ``B`` live basis rows, halo
+    ``h`` on a card with ``sms`` multiprocessors.
+
+    The time of a tile is mostly the latency of its two passes, so the plan
+    first tries what hides it: two blocks on every SM, each with tiles of
+    ``PAIR_TILE_ROWS`` rows, where both fit the SM's shared memory
+    (``B <= 22`` at ``h = 1``).  Else one block per SM with the tallest tile
+    that fits with the ``h``-row lag; ``reread`` only where none does.  The
+    runs have at least ``max(8, 4h)`` rows and cover ``[0, R)`` once."""
+    if not (R >= 1 and 1 <= h <= MAX_HALO and B >= 1 and _raw_len(B, with_drift) <= LANES):
+        raise ValueError(f"plan_step: R={R}, B={B}, h={h}, with_drift={with_drift}")
+    row = (B + 1) * 4 * LANES
+    # (tile rows, rows of lag kept staged, shared-memory limit, blocks per SM)
+    candidates = [(PAIR_TILE_ROWS, h, SMEM_LIMIT_TWO, 2)] if B <= PAIR_MAX_B else []
+    candidates += [(T, lag, SMEM_LIMIT, 1) for lag in (h, 0) for T in TILE_ROWS
+                   if T == 1 or (T * row <= TILE_CAP and (T == 2 or B <= 32))]
+    for T, lag, limit, per_sm in candidates:
+        P = next((P for P in range(MAX_IN_FLIGHT, 0, -1)
+                  if _step_smem(B, (P + 1) * T + lag, T + 2 * h) <= limit), 0)
+        if P:
+            break
+    else:
+        raise ValueError(f"plan_step: no tile fits shared memory at B={B}, h={h}")
+    NSR, NR = (P + 1) * T + lag, T + 2 * h
+    nblocks = max(1, min(sms * per_sm, R // max(8, 4 * h)))
+    run = -(-R // nblocks)
+    nblocks = -(-R // run)
+    return StepPlan(T, P, NSR, NR, lag == 0, run, nblocks, _step_smem(B, NSR, NR))
+
+
 _fused_lib = None
 _taps_cache: dict = {}
+_scratch: dict = {}
 
 
 def _lib():
@@ -225,10 +298,8 @@ def _lib():
     if _fused_lib is None:
         lib = _build.library("fused_lanczos")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.kk_fused_step.argtypes = [p, p, p, p, p, p] + [i] * 9 + [p, p, p, p]
+        lib.kk_fused_step.argtypes = [p] * 7 + [i] * 9 + [p, p, p] + [i] * 8 + [p]
         lib.kk_fused_step.restype = i
-        lib.kk_fused_step_blocks.argtypes = [i]
-        lib.kk_fused_step_blocks.restype = i
         _fused_lib = lib
     return _fused_lib
 
@@ -246,6 +317,22 @@ def _host_taps(spec: StencilSpec):
     return taps
 
 
+def _device_scratch(device: torch.device):
+    """Per device: the multiprocessor count, the per-block partials and the
+    arrival counter of the kernel's last-block reduction (zeroed once; every
+    launch leaves it zero).  One stream at a time may use them."""
+    entry = _scratch.get(device)
+    if entry is None:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        entry = (
+            sms,
+            torch.empty(2 * sms * LANES, dtype=torch.float32, device=device),
+            torch.zeros(1, dtype=torch.int32, device=device),
+        )
+        _scratch[device] = entry
+    return entry
+
+
 def fused_step(V, y, g, kp1: int, B: int, spec: StencilSpec,
                with_drift: bool = False):
     """One fused expansion step.  Returns ``(y_next, raw)`` and writes
@@ -254,7 +341,9 @@ def fused_step(V, y, g, kp1: int, B: int, spec: StencilSpec,
     ``[r(B) | rp | q]``.  Needs ``B <= kp1``: the new row is never read.
 
     A CUDA tensor runs the kernel of ``csrc/fused_lanczos.cu`` (float32,
-    contiguous); a CPU tensor runs :func:`fused_step_reference`."""
+    contiguous) with the sizes of :func:`plan_step`; its scratch is kept per
+    device, so calls for one device go to one stream at a time.  A CPU
+    tensor runs :func:`fused_step_reference`."""
     if V.device.type == "cpu":
         return fused_step_reference(V, y, g, kp1, B, spec, with_drift)
     if V.device.type != "cuda":
@@ -265,20 +354,23 @@ def fused_step(V, y, g, kp1: int, B: int, spec: StencilSpec,
     for name, t in (("V", V), ("y", y), ("g", g)):
         if t.device != V.device or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"fused_step needs {name} as contiguous float32 on {V.device}")
+    if V.data_ptr() % 16 or y.data_ptr() % 16:
+        raise ValueError("fused_step needs V and y on 16-byte boundaries")
     kmax, R, _ = V.shape
     lib = _lib()
-    nslots = _raw_len(B, with_drift)
+    sms, partials, counter = _device_scratch(V.device)
+    plan = plan_step(R, B, spec.h, bool(with_drift), sms)
     ynext = torch.empty_like(y)
-    raw = torch.empty(nslots, dtype=torch.float32, device=V.device)
-    partials = torch.empty(
-        lib.kk_fused_step_blocks(R) * nslots, dtype=torch.float32, device=V.device
-    )
+    raw = torch.empty(_raw_len(B, with_drift), dtype=torch.float32, device=V.device)
     coef, offs, dxs = _host_taps(spec)
     status = lib.kk_fused_step(
         V.data_ptr(), y.data_ptr(), ynext.data_ptr(), g.data_ptr(),
-        partials.data_ptr(), raw.data_ptr(), kmax, R, B, kp1, int(with_drift),
+        partials.data_ptr(), raw.data_ptr(), counter.data_ptr(),
+        kmax, R, B, kp1, int(with_drift),
         spec.h, spec.gc, spec.mrow, len(spec.taps),
         coef.ctypes.data, offs.ctypes.data, dxs.ctypes.data,
+        plan.T, plan.P, plan.NSR, plan.NR, int(plan.reread), plan.run,
+        plan.nblocks, plan.smem_bytes,
         torch.cuda.current_stream(V.device).cuda_stream,
     )
     _build.check(lib, status, "fused_step")

@@ -40,25 +40,37 @@ def _gen(seed):
 
 # B > 32 reaches the kernel's wider register instantiations: KACC 64 with
 # drift (B <= 63), KACC 64 and 128 without (B <= 126)
-WIDE = [(64, 40, True), (64, 50, False), (127, 100, False)]
+WIDE = [(64, 40, True), (64, 50, False), (127, 100, False), (64, 63, True), (127, 126, False)]
 
-
-@pytest.mark.parametrize(
-    "kind,B,with_drift,kmax",
-    [(kind, B, drift, 31)
-     for kind, B in [("chain", 1), ("chain", 4), ("chain", 29), ("chain_multirow", 8), ("grid", 16)]
+# (kind, B, kp1, with_drift, kmax, R): every tile height of the plan (B = 1..4
+# eight rows, 8 four, 16..29 two, wide B one), a run that ends inside a tile
+# (R = 1000, 8200), R below one tile and a single row, kp1 > B, a chain whose
+# taps reach three rows (h = 3), the grid spec (h = 8), and with B = 63 on
+# the grid the plan that re-reads V for the reductions
+FUSED_CASES = (
+    [(kind, B, B, drift, 31, None)
+     for kind, B in [("chain", 1), ("chain", 2), ("chain", 4), ("chain", 8), ("chain", 29),
+                     ("chain_multirow", 8), ("grid", 16), ("grid", 30)]
      for drift in (False, True)]
-    + [("chain", B, drift, kmax) for kmax, B, drift in WIDE],
+    + [("chain", B, B, drift, kmax, None) for kmax, B, drift in WIDE]
+    + [("chain", 16, 16, True, 31, 8200), ("chain", 4, 4, True, 31, 3), ("chain", 4, 4, True, 8, 1),
+       ("chain", 30, 30, True, 31, 9), ("chain", 5, 9, True, 31, None), ("grid", 16, 20, False, 31, None),
+       ("grid", 63, 63, True, 64, None), ("chain_multirow", 40, 45, True, 64, None)]
 )
-def test_fused_step_kernel_matches_plain(kind, B, with_drift, kmax):
+
+
+def _fused_case(kind, R):
     if kind == "chain":
-        op, R = StencilOperator((-1, 0, 1), (-1.0, 2.0, -1.0)), 1000  # ragged last block
-    elif kind == "chain_multirow":
-        op, R = StencilOperator((-300, -1, 0, 1, 300), (0.1, -1.0, 2.0, -1.0, 0.2)), 256
-    else:
-        op, R = GridStencilOperator((256, 1024), POISSON_OFF, POISSON_CF), 2048
+        return StencilOperator((-1, 0, 1), (-1.0, 2.0, -1.0)), R or 1000  # ragged last block
+    if kind == "chain_multirow":
+        return StencilOperator((-300, -1, 0, 1, 300), (0.1, -1.0, 2.0, -1.0, 0.2)), R or 256
+    return GridStencilOperator((256, 1024), POISSON_OFF, POISSON_CF), 2048
+
+
+@pytest.mark.parametrize("kind,B,kp1,with_drift,kmax,R", FUSED_CASES)
+def test_fused_step_kernel_matches_plain(kind, B, kp1, with_drift, kmax, R):
+    op, R = _fused_case(kind, R)
     spec = fl.spec_for(op)
-    kp1 = B
     gen = _gen(B)
     V = torch.randn((kmax, R, 128), generator=gen, device="cuda")
     y = torch.randn((R, 128), generator=gen, device="cuda")
@@ -69,36 +81,88 @@ def test_fused_step_kernel_matches_plain(kind, B, with_drift, kmax):
     assert _build.launches["fused_step"] == before + 1
     yr, rr = fl.fused_step_reference(Vr, y, g, kp1, B, spec, with_drift)
     torch.cuda.synchronize()
+    # in place: the rows it reads (< B) and every other row but kp1 keep their bits
     assert torch.equal(Vk[:kp1], V[:kp1]) and torch.equal(Vk[kp1 + 1:], V[kp1 + 1:])
     sc = float(yr.abs().max())
     assert float((Vk[kp1] - Vr[kp1]).abs().max()) <= 2e-4 * sc
     assert float((yk - yr).abs().max()) <= 2e-4 * sc
     torch.testing.assert_close(rk, rr, rtol=2e-4, atol=2e-3 * R ** 0.5)
     # deterministic: the same launch gives the same bits
-    yk2, rk2 = fl.fused_step(Vk, y, g, kp1, B, spec, with_drift)
-    assert torch.equal(yk, yk2) and torch.equal(rk, rk2)
+    Vk2 = V.clone()
+    yk2, rk2 = fl.fused_step(Vk2, y, g, kp1, B, spec, with_drift)
+    assert torch.equal(yk, yk2) and torch.equal(rk, rk2) and torch.equal(Vk, Vk2)
 
 
-@pytest.mark.parametrize("kmax,m_out", [(31, 20), (31, 4), (31, 31), (8, 3), (70, 40)])
-def test_transform_kernel_matches_plain(kmax, m_out):
+def test_fused_step_plan_of_the_card_fits_it():
+    props = torch.cuda.get_device_properties(0)
+    for R, B, h in [(16384, 30, 1), (8192, 16, 8), (8192, 63, 8), (1000, 126, 1)]:
+        plan = fl.plan_step(R, B, h, False, props.multi_processor_count)
+        assert plan.smem_bytes <= props.shared_memory_per_block_optin
+        assert plan.nblocks <= props.multi_processor_count
+
+
+# every rung of the kernel's ladder (kmax <= 16, 32, 64, 128) at its edges
+TRANSFORM_CASES = [(31, 20), (31, 4), (31, 31), (8, 3), (16, 16), (17, 9), (32, 21), (33, 20),
+                   (64, 40), (70, 40), (128, 128), (128, 5)]
+
+
+@pytest.mark.parametrize("kmax,m_out", TRANSFORM_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_transform_kernel_matches_plain(kmax, m_out, dtype):
     gen = _gen(kmax + m_out)
-    V = torch.randn((kmax, 64, 128), generator=gen, device="cuda")
+    V = torch.randn((kmax, 64, 128), generator=gen, device="cuda").to(dtype)
     U = torch.randn((kmax, kmax), generator=gen, device="cuda") / kmax ** 0.5
     before = _build.launches["transform_partial"]
     Vk = bs.transform_partial_inplace(V.clone(), U, m_out)
     assert _build.launches["transform_partial"] == before + 1
     Vr = bs.transform_partial_inplace_reference(V.clone(), U, m_out)
     torch.cuda.synchronize()
-    assert torch.equal(Vk[m_out:], V[m_out:])
-    torch.testing.assert_close(Vk[:m_out], Vr[:m_out], rtol=1e-5, atol=1e-5)
+    assert Vk.dtype == dtype and torch.equal(Vk[m_out:], V[m_out:])
+    if dtype == torch.float32:
+        torch.testing.assert_close(Vk[:m_out], Vr[:m_out], rtol=1e-5, atol=1e-5)
+    else:
+        # both round a float32 sum of the same bfloat16 products once: 2 ulps
+        # (2^-7 each) of the row's largest entry
+        scale = Vr[:m_out].float().abs().amax(dim=(1, 2), keepdim=True)
+        assert bool(((Vk[:m_out].float() - Vr[:m_out].float()).abs() <= 2 * 2.0 ** -7 * scale).all())
     eye = torch.eye(kmax, device="cuda")
     assert torch.equal(bs.transform_partial_inplace(V.clone(), eye, m_out), V)
+    # deterministic
+    assert torch.equal(bs.transform_partial_inplace(V.clone(), U, m_out), Vk)
+
+
+@pytest.mark.parametrize("kmax,m_out", [(31, 20), (64, 7), (100, 33)])
+def test_transform_kernel_reads_any_view_of_U(kmax, m_out):
+    gen = _gen(kmax)
+    V = torch.randn((kmax, 16, 128), generator=gen, device="cuda")
+    big = torch.randn((2 * kmax, 3 * kmax), generator=gen, device="cuda", dtype=torch.float64)
+    views = [big[::2, 1::3][:kmax, :kmax],                       # strided both ways
+             big[:kmax, :kmax].T,                                # transposed
+             big[:kmax, :kmax].float().T.contiguous().T]         # float32, column-major
+    for U in views:
+        assert not U.is_contiguous()
+        Vk = bs.transform_partial_inplace(V.clone(), U, m_out)
+        Vr = bs.transform_partial_inplace_reference(V.clone(), U.contiguous(), m_out)
+        torch.testing.assert_close(Vk, Vr, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("kmax", [1, 16, 17, 32, 33, 64, 65, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_transform_rungs_agree_with_the_kernel(kmax, dtype):
+    import ctypes
+    kreg, cols = ctypes.c_int(), ctypes.c_int()
+    bs._lib().kk_transform_rung(kmax, int(dtype == torch.bfloat16), ctypes.byref(kreg),
+                                ctypes.byref(cols))
+    assert (kreg.value, cols.value) == bs.transform_rung(kmax, dtype)
 
 
 def test_wrappers_raise_instead_of_falling_back():
-    V = torch.zeros((8, 16, 128), device="cuda", dtype=torch.bfloat16)
+    V = torch.zeros((8, 16, 128), device="cuda", dtype=torch.float16)
     with pytest.raises(ValueError):
         bs.transform_partial_inplace(V, torch.eye(8, device="cuda"), 4)
+    with pytest.raises(ValueError):  # rows of 12 * 128 values: R % 8 != 0
+        bs.transform_partial_inplace(torch.zeros((8, 12, 128), device="cuda"),
+                                     torch.eye(8, device="cuda"), 4)
     spec = fl.spec_for(StencilOperator((-1, 0, 1), (-1.0, 2.0, -1.0)))
     V = torch.zeros((8, 16, 128), device="cuda")
     y = torch.zeros((16, 128), device="cuda")
