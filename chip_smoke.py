@@ -46,7 +46,22 @@ without the final ``ok`` line:
    projection kernels on, and with them off; per solve, launch counts of one
    solve, then timed solves, one JSON line each; then the time of each
    dense Schur processing round of one more fused solve;
-10. profile (only with ``--profile``) — one more config-1 solve and one
+10. small_svd_exp — ``svdsolve`` (fused on a chain and on a grid stencil,
+   unfused on a dense float64 matrix), ``lssolve`` and ``exponentiate``
+   (fused and unfused) at small sizes, on the card against the same solve
+   on the CPU;
+11. config3 — ``benchmarks/run_all.py``'s two GKL ``svdsolve`` solves at
+   full size (8 triplets "LR", krylovdim 30, maxiter 12): the rectangular
+   ``(A, Ah)`` map (rows 2^20, cols 2^19; unfused, K2 only; once more with
+   the projection kernels on) and the 1024×1024 advection-diffusion grid
+   stencil (fused: K1 with the normal spec over V and the adjoint spec over
+   U, K2), held against an unfused solve of the same stencil; then the time
+   of each projected-SVD round;
+12. config4_expm — ``benchmarks/run_all.py``'s ``exponentiate`` step
+   (−Laplacian stencil, n = 2^20, t = 0.1, krylovdim 30, tol 1e-4; fused:
+   K1 in Lanczos mode), held against an unfused solve; then the time of
+   each evaluation of the augmented exponential;
+13. profile (only with ``--profile``) — one more config-1 solve and one
    more fused config-4 solve under ``torch.profiler``: device busy time and idle share, device ops, host
    reads of device scalars, device time by kernel name.
 
@@ -57,7 +72,7 @@ printed as ``parent_ms`` beside ``ms`` (without it ``parent_ms`` is null).
 ``--kernel-times`` is that process: it times K1 and K2 of the package under
 ``--root`` (default: this tree) and prints one JSON line.
 
-Each path (phases 5, 7 and 9, one solve at a time) is driven with the launch
+Each path (phases 5, 7, 9, 11 and 12, one solve at a time) is driven with the launch
 counts set to 0 just before it and read just after.  Then the kernel
 summary line, the ``nvidia-smi`` name/power line, and as the last line
 ``{"ok": true, "device": {...}}``.
@@ -137,12 +152,12 @@ def k1_flops(n, B, ntaps, with_drift):
     return n * (2 * B + 2 + 2 * ntaps + (4 * B if with_drift else 2 * B) + 4)
 
 
-def check_fused_step(torch, fl, op, R, kmax, B, kp1, with_drift, gen, timed=True):
+def check_fused_step(torch, fl, op, R, kmax, B, kp1, with_drift, gen, timed=True, adjoint=False):
     """K1 against its plain version on the card, and against itself on a
     second launch (bit-equal); returns the case record, with times and the
-    bound where ``timed``."""
+    bound where ``timed``.  ``adjoint`` takes the spec of ``op``'s adjoint."""
     dev = "cuda"
-    spec = fl.spec_for(op)
+    spec = fl.adjoint_spec(op) if adjoint else fl.spec_for(op)
     V = torch.randn((kmax, R, 128), generator=gen, device=dev)
     y = torch.randn((R, 128), generator=gen, device=dev)
     g = torch.randn(kmax + 1, generator=gen, device=dev)
@@ -162,7 +177,7 @@ def check_fused_step(torch, fl, op, R, kmax, B, kp1, with_drift, gen, timed=True
     err_w = float(torch.max(torch.abs(Vk[kp1] - Vr[kp1])))
     err_y = float(torch.max(torch.abs(yk - yr)))
     # each reduction against the product of the norms it contracts
-    nV = torch.linalg.vector_norm(V[:B].reshape(B, -1), dim=1)
+    nV = torch.linalg.vector_norm(V[:B].reshape(B, R * 128), dim=1)
     nw, ny = torch.linalg.vector_norm(Vr[kp1]), torch.linalg.vector_norm(yr)
     scales = [nV * ny] + ([nV * nw] if with_drift else []) + [(nw * ny)[None], (nw * nw)[None]]
     rel_raw = float(torch.max(torch.abs(rawk - rawr) / torch.cat(scales)))
@@ -174,8 +189,8 @@ def check_fused_step(torch, fl, op, R, kmax, B, kp1, with_drift, gen, timed=True
     n = R * 128
     t_bound, by = bound((B + 3) * n * 4, k1_flops(n, B, len(spec.taps), with_drift))
     case = {
-        "op": "grid" if spec.gc else "chain", "n": n, "R": R, "kmax": kmax, "B": B, "kp1": kp1,
-        "h": spec.h, "with_drift": with_drift,
+        "op": "grid" if spec.gc else "chain", "adjoint_spec": adjoint, "n": n, "R": R, "kmax": kmax,
+        "B": B, "kp1": kp1, "h": spec.h, "with_drift": with_drift,
         "max_abs_err": max(err_w, err_y), "scale": sc, "raw_rel_err": rel_raw,
         "tolerance": f"{tol}*scale (w', y'); {tol_raw}*norm products (raw)",
         "rows_other_than_kp1_bit_identical": others, "bit_equal_twice": twice,
@@ -415,34 +430,6 @@ def check_laplacian(torch, s1, n, dtype, gen, flush):
     }
 
 
-def drive_solve(torch, kt, _build, fl, op, b, a0, alg, reps=3, **kw):
-    """One ``kt.linsolve`` with the launch counts set to 0 just before it
-    and read just after (the B of each fused step is recorded too), then
-    ``reps`` timed solves.  Returns ``(x, info, launches, Bs, first_ms,
-    ms_per_solve)``."""
-    Bs = []
-    fused_step = fl.fused_step
-
-    def recording(V, y, g, kp1, B, spec, with_drift=False):
-        Bs.append((B, with_drift))
-        return fused_step(V, y, g, kp1, B, spec, with_drift)
-
-    fl.fused_step = recording
-    _build.reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    x, info = kt.linsolve(op, b, a0=a0, alg=alg, **kw)
-    torch.cuda.synchronize()
-    first_ms = (time.perf_counter() - t0) * 1e3
-    launches = dict(_build.launches)
-    fl.fused_step = fused_step
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        x, info = kt.linsolve(op, b, a0=a0, alg=alg, **kw)
-    torch.cuda.synchronize()
-    return x, info, launches, Bs, first_ms, (time.perf_counter() - t0) / reps * 1e3
-
-
 def check_projections(torch, pb, kmax, R, ks, gen, timed=()):
     """K5 (project) and K6 (unproject) against their plain versions on the
     card for each live length in ``ks``, with ``k`` passed as a host int and
@@ -530,38 +517,61 @@ def time_unproject(torch, pb, V, c, k, kdev, plain_reps=3):
     }
 
 
-def drive_schursolve(torch, kt, _build, fl, pb, op, x0, alg, reps=2):
-    """One ``kt.schursolve(op, x0, 4, "LM", alg)`` with the launch counts
-    set to 0 just before it and read just after (the B of each fused step
-    and the k of each projection are recorded too), then ``reps`` timed
-    solves.  Returns ``(re, im, info, launches, Bs, ks, first_ms, ms)``."""
-    Bs, ks = [], []
+def drive_counted(torch, _build, fl, pb, solve, reps=2):
+    """One ``solve()`` with the launch counts set to 0 just before it and
+    read just after (the ``(B, with_drift, spec)`` of each fused step and the
+    ``(R, k)`` of each projection are recorded too), then ``reps`` timed
+    ones.  Returns ``(result, launches, steps, sweeps, first_ms,
+    ms_per_solve)``."""
+    steps, sweeps = [], []
     fused_step, project = fl.fused_step, pb.project_pallas
 
-    def rec_step(V, y, g, kp1, B, spec, with_drift=False):
-        Bs.append((B, with_drift))
+    def recording(V, y, g, kp1, B, spec, with_drift=False):
+        steps.append((B, with_drift, spec))
         return fused_step(V, y, g, kp1, B, spec, with_drift)
 
     def rec_project(V, w, k):
-        ks.append(int(k))
+        sweeps.append((V.shape[1], int(k)))
         return project(V, w, k)
 
-    fl.fused_step, pb.project_pallas = rec_step, rec_project
+    fl.fused_step, pb.project_pallas = recording, rec_project
     try:
         _build.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _, _, (re, im), info = kt.schursolve(op, x0, 4, "LM", alg)
+        out = solve()
         torch.cuda.synchronize()
         first_ms = (time.perf_counter() - t0) * 1e3
-        launches = dict(_build.launches)
+        launches = {k: v for k, v in _build.launches.items() if v}
     finally:
         fl.fused_step, pb.project_pallas = fused_step, project
     t0 = time.perf_counter()
     for _ in range(reps):
-        _, _, (re, im), info = kt.schursolve(op, x0, 4, "LM", alg)
+        out = solve()
     torch.cuda.synchronize()
-    return re, im, info, launches, Bs, ks, first_ms, (time.perf_counter() - t0) / reps * 1e3
+    return out, launches, steps, sweeps, first_ms, (time.perf_counter() - t0) / reps * 1e3
+
+
+def timed_calls(torch, module, name, solve):
+    """The wall time of each call of ``module.name`` during one ``solve()``,
+    synchronised before and after; returns the list in ms."""
+    times = []
+    inner = getattr(module, name)
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*a, **kw)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    setattr(module, name, timed)
+    try:
+        solve()
+    finally:
+        setattr(module, name, inner)
+    return times
 
 
 def tridiagonal_coo(np, n, lower, diag, upper, dtype):
@@ -631,7 +641,10 @@ def main():
     from krylovkit_tpu_torch.ops import fused_lanczos as fl
     from krylovkit_tpu_torch.ops import projections as pb
     from krylovkit_tpu_torch.ops import stencil_1d as s1
+    from krylovkit_tpu_torch.factorizations import krylov as kf
     from krylovkit_tpu_torch.solvers import arnoldi as arn
+    from krylovkit_tpu_torch.solvers import expintegrator as expi
+    from krylovkit_tpu_torch.solvers import svdsolve as svds
 
     def mean(xs):
         return sum(xs) / len(xs)
@@ -678,7 +691,25 @@ def main():
             (chain, R, kmax, 5, 9, True), (grid, 8192, 64, 63, 63, True)):
         k1_cases.append(check_fused_step(torch, fl, op_x, R_x, kmax_x, B_x, kp1_x, drift_x, gen,
                                          timed=False))
+    # config 3's fused GKL solve: the adjoint spec of its non-symmetric grid
+    # stencil (the codomain half-steps), drift on, kp1 = B.  With krylovdim 30
+    # the solve launches B <= 29 over U; B = 31 needs a 32-row basis (untimed)
+    advect = kt.GridStencilOperator((1024, 1024), ((0, 0), (-1, 0), (1, 0), (0, -1), (0, 1)),
+                                    (4.0, -1.5, -0.5, -1.2, -0.8))
+    for B_x in (1, 12, 23, 29):
+        k1_cases.append(check_fused_step(torch, fl, advect, 8192, kmax, B_x, B_x, True, gen,
+                                         adjoint=True))
+    k1_cases.append(check_fused_step(torch, fl, advect, 8192, 32, 31, 31, True, gen, timed=False,
+                                     adjoint=True))
+    k1_cases.append(check_fused_step(torch, fl, advect, 8192, kmax, 28, 28, True, gen))
+    # the first domain half-step of that solve: no live row, kp1 = 0
+    k1_cases.append(check_fused_step(torch, fl, advect, 8192, kmax, 0, 0, True, gen))
+    k1_cases.append(check_fused_step(torch, fl, chain, 3, kmax, 0, 2, False, gen, timed=False))
     k2_cases = [check_transform(torch, bs, kmax, R, m, gen) for m in (20, 4)]
+    # the two rotations of a GKL restart in config 3's rectangular solve:
+    # (31, 8192, 128) over U (timed below as config 4's shape) and (31, 4096,
+    # 128) over V, m_out = keep_max + 1 = 21
+    k2_cases.append(check_transform(torch, bs, kmax, 4096, 21, gen))
     # K2 on every rung of its ladder (kmax <= 16, 32, 64, 128) and in bfloat16
     for kmax_x, m_x in ((16, 9), (33, 20), (64, 40), (128, 70)):
         k2_cases.append(check_transform(torch, bs, kmax_x, 64, m_x, gen, timed=False))
@@ -755,10 +786,13 @@ def main():
         parent_runs.append(parent_kernel_times(args.parent))
 
     def parent_mean(table, key):
-        return mean([run["kernel_times"][table][key] for run in parent_runs]) if parent_runs else None
+        """Mean of the parent tree's time at ``key``; null without a parent
+        or where it did not time that shape."""
+        times = [run["kernel_times"][table].get(key) for run in parent_runs]
+        return mean(times) if times and None not in times else None
 
     for case in k1_cases:
-        if "ms" in case:
+        if "ms" in case and not case["adjoint_spec"]:
             kind = "grid" if case["op"] == "grid" else ("chain" if case["n"] == n else "nonsym")
             case["parent_ms"] = parent_mean("k1", k1_key(kind, case["n"], case["B"], case["with_drift"]))
     for case in k2_cases:
@@ -768,8 +802,8 @@ def main():
         per_B[B]["parent_ms"] = parent_mean("k1_schedule", str(B))
     k1_sum = sum(per_B[B]["ms"] for B in schedule)
     emit({"phase": "kernel_times", "nvidia_smi": smi,
-          "fused_step": [{k: c[k] for k in ("op", "n", "B", "with_drift", "ms", "parent_ms",
-                                            "bound_ms", "plain_ms")}
+          "fused_step": [{k: c[k] for k in ("op", "adjoint_spec", "n", "B", "with_drift", "ms",
+                                            "parent_ms", "bound_ms", "plain_ms")}
                          for c in k1_cases if "ms" in c],
           "fused_step_schedule": {"per_B": per_B, "sum_ms": k1_sum,
                                   "mean_ms": k1_sum / len(schedule),
@@ -916,8 +950,9 @@ def main():
     config2_launches = {}
     xs_by_metric = {}
     for metric, op2, b, a0, alg2, kw, nnz, must_converge in solves:
-        x, info2, launches2, Bs, first_ms, ms = drive_solve(torch, kt, _build, fl, op2, b, a0,
-                                                            alg2, **kw)
+        (x, info2), launches2, steps2, _, first_ms, ms = drive_counted(
+            torch, _build, fl, pb, lambda: kt.linsolve(op2, b, a0=a0, alg=alg2, **kw), reps=3)
+        Bs = [(B, drift) for B, drift, _ in steps2]
         for key, count in launches2.items():
             config2_launches[key] = config2_launches.get(key, 0) + count
         xs_by_metric[metric] = x
@@ -1059,10 +1094,11 @@ def main():
                               ("arnoldi_realschur_nonsym_banded", banded4, False)):
         bs.use_pallas_projections = flag
         try:
-            re4, im4, info4, launches4, Bs, ks, first_ms, ms = drive_schursolve(
-                torch, kt, _build, fl, pb, op4, x04, alg4)
+            (_, _, (re4, im4), info4), launches4, steps4, sweeps4, first_ms, ms = drive_counted(
+                torch, _build, fl, pb, lambda: kt.schursolve(op4, x04, 4, "LM", alg4))
         finally:
             bs.use_pallas_projections = False
+        Bs, ks = [(B, drift) for B, drift, _ in steps4], [k for _, k in sweeps4]
         lam = torch.hypot(re4, im4).cpu()
         kernel_ms = {}
         if Bs:
@@ -1118,27 +1154,282 @@ def main():
           "numops": nops4})
     require(agree <= 1e-3, "config-4: the four leading |lambda| of the three solves agree to 1e-3")
     # the dense Schur layer: each processing round of one more fused solve
-    rounds = []
-    process_real = arn._process_real
-
-    def timed_process(H, k, beta, which, tol):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = process_real(H, k, beta, which, tol)
-        torch.cuda.synchronize()
-        rounds.append((time.perf_counter() - t0) * 1e3)
-        return out
-
-    arn._process_real = timed_process
-    try:
-        kt.schursolve(nonsym, x04, 4, "LM", alg4)
-    finally:
-        arn._process_real = process_real
+    rounds = timed_calls(torch, arn, "_process_real", lambda: kt.schursolve(nonsym, x04, 4, "LM", alg4))
     emit({"phase": "config4_process_real", "m": m, "rounds": len(rounds),
           "ms_per_round": rounds, "ms_per_round_mean": mean(rounds), "ms_per_solve": sum(rounds)})
     require(len(rounds) == nit4, "config-4: one _process_real per round")
     ks4 = proj4["ks"]
     del V4, y4, g4
+
+    # 10. small svdsolve / lssolve / exponentiate: card vs CPU (plain versions)
+    small_se = []
+
+    def pair(label, solve, tol, counts_equal=True):
+        """``solve(dev)`` → ``(values, info)`` on the card and on the CPU."""
+        _build.reset_launches()
+        vc, ic = solve("cuda")
+        torch.cuda.synchronize()
+        counted = {k: v for k, v in _build.launches.items() if v}
+        vh, ih = solve("cpu")
+        err = float((vc.cpu() - vh).abs().max() / vh.abs().max())
+        small_se.append({"solve": label, "max_rel_err": err, "tolerance": tol,
+                         "numops": [ic.numops, ih.numops], "numiter": [ic.numiter, ih.numiter],
+                         "converged": [ic.converged, ih.converged], "launches": counted})
+        require(err <= tol, f"small {label}: card vs CPU within {tol}")
+        if counts_equal:
+            require((ic.numops, ic.numiter, ic.converged) == (ih.numops, ih.numiter, ih.converged),
+                    f"small {label}: counts equal")
+        return counted, ic
+
+    advect_off = ((0, 0), (-1, 0), (1, 0), (0, -1), (0, 1))
+    advect_cf = (4.0, -1.5, -0.5, -1.2, -0.8)
+    xg = torch.from_numpy(np.random.default_rng(51).standard_normal((32, 128)).astype(np.float32))
+    for label, op_s in (("svdsolve chain stencil fused", kt.StencilOperator((-2, 0, 1), (0.4, 1.0, -0.8))),
+                        ("svdsolve grid stencil fused",
+                         kt.GridStencilOperator((32, 128), advect_off, advect_cf))):
+        def svd_small(dev, op_s=op_s, **kw):
+            vals, _, _, info = kt.svdsolve(op_s, xg.to(dev), 4, "LR", krylovdim=18, maxiter=5,
+                                           tol=1e-6, verbosity=kt.SILENT, **kw)
+            return vals, info
+
+        counted, ic = pair(label, svd_small, 2e-4)
+        # one launch per half-step but each tail's two
+        require(counted == {"fused_step": ic.numops - 2 * ic.numiter,
+                            "transform_partial": 2 * ic.numiter},
+                f"small {label}: K1 per in-stream half-step, K2 twice per round ({counted})")
+        vu, iu = svd_small("cuda", orth=kt.mgs2)
+        require((iu.numops, iu.numiter) == (ic.numops, ic.numiter)
+                and float((vu - svd_small("cuda")[0]).abs().max() / vu.abs().max()) <= 1e-3,
+                f"small {label}: agrees with the unfused solve (mgs2) to 1e-3, counts equal")
+    rng_s = np.random.default_rng(13)
+    As = rng_s.standard_normal((200, 100)) / 200 ** 0.5
+    xs0, bs0 = rng_s.standard_normal(200), rng_s.standard_normal(200)
+
+    def svd_dense(dev):
+        vals, _, _, info = kt.svdsolve(torch.from_numpy(As).to(dev), torch.from_numpy(xs0).to(dev), 4,
+                                       "LR", krylovdim=25, tol=1e-10, maxiter=100, **quiet)
+        return vals, info
+
+    def ls_dense(dev):
+        return kt.lssolve(torch.from_numpy(As).to(dev), torch.from_numpy(bs0).to(dev), tol=1e-10,
+                          maxiter=400, **quiet)
+
+    pair("svdsolve dense float64", svd_dense, 1e-8)
+    # LSMR without reorthogonalization beyond its ring: the iteration at
+    # which |zeta| passes tol may differ by one between two roundings
+    _, il = pair("lssolve dense float64", ls_dense, 1e-7, counts_equal=False)
+    require(il.converged == 1, "small lssolve: converged on the card")
+    neg_lap = kt.StencilOperator((-1, 0, 1), (1.0, -2.0, 1.0))
+    xe = torch.from_numpy(np.random.default_rng(7).standard_normal((32, 128)).astype(np.float32))
+    for label, orth_e in (("exponentiate fused", kt.cgs2), ("exponentiate unfused (mgs2)", kt.mgs2)):
+        counted, ic = pair(label, lambda dev: kt.exponentiate(
+            neg_lap, 0.1, xe.to(dev), krylovdim=30, tol=1e-4, ishermitian=True, orth=orth_e,
+            **quiet), 2e-4)
+        require(("fused_step" in counted) == (orth_e is kt.cgs2) and ic.converged == 1,
+                f"small {label}: converged; K1 launched by the fused solve only ({counted})")
+    emit({"phase": "small_svd_exp", "solves": small_se})
+
+    # 11. config 3 at full size: the rectangular map and the square stencil
+    C3, R3 = 1 << 19, 1 << 20
+    wr = torch.from_numpy(np.linspace(1.0, 3.0, C3, dtype=np.float32).reshape(C3 // 128, 128)).cuda()
+
+    def rect(x):  # (C/128, 128) -> (R/128, 128): upsample with banded mixing
+        wx = wr * x
+        return torch.cat([wx, 0.5 * torch.roll(wx, 1, dims=0)], dim=0)
+
+    def rect_adj(y):
+        y0, y1 = y[: C3 // 128], y[C3 // 128:]
+        return wr * y0 + 0.5 * wr * torch.roll(y1, -1, dims=0)
+
+    x0r = torch.from_numpy(np.random.default_rng(0).standard_normal((R3 // 128, 128))
+                           .astype(np.float32)).cuda()
+    x0q = torch.from_numpy(np.random.default_rng(2).standard_normal((8192, 128))
+                           .astype(np.float32)).cuda()
+    kw3 = dict(krylovdim=m, maxiter=12, tol=1e-30, **quiet)
+    k2_by_R = {c["n"] // 128: c for c in k2_cases if c["m_out"] == 21 and "ms" in c}
+    Vq = torch.randn((kmax, 8192, 128), generator=gen, device="cuda")
+    yq = torch.randn((8192, 128), generator=gen, device="cuda")
+    gq = torch.randn(kmax + 1, generator=gen, device="cuda")
+    step_ms = {}
+
+    def steps_ms(steps):
+        """Summed per-launch time of the recorded fused steps at their (B, spec)."""
+        for key in set(steps):
+            if key not in step_ms:
+                step_ms[key] = device_ms(
+                    torch, lambda: fl.fused_step(Vq, yq, gq, key[0], key[0], key[2], key[1]), reps=5)
+        return sum(step_ms[key] for key in steps)
+
+    sweep_ms = {}
+
+    def sweeps_ms(sweeps):
+        """Summed per-launch times of K5 and K6 over the recorded ``(R, k)``."""
+        for R_s, k_s in set(sweeps):
+            if (R_s, k_s) not in sweep_ms:
+                Vs, ws, cs = Vq[:, :R_s], yq[:R_s], gq[:kmax]
+                Vs = Vs.contiguous() if R_s != Vq.shape[1] else Vs
+                sweep_ms[(R_s, k_s)] = (
+                    device_ms(torch, lambda: pb.project_pallas(Vs, ws, k_s), reps=5),
+                    device_ms(torch, lambda: pb.unproject_pallas(Vs, cs, k_s), reps=5))
+        return (sum(sweep_ms[key][0] for key in sweeps), sum(sweep_ms[key][1] for key in sweeps))
+
+    c3 = {}
+    for metric, A3, x03, nnz, flag, kw in (
+            ("gkl_svdsolve_rect", (rect, rect_adj), x0r, 3 * C3, False, {}),
+            ("gkl_svdsolve_rect_proj", (rect, rect_adj), x0r, 3 * C3, True, {}),
+            ("gkl_svdsolve_square_stencil_fused", advect, x0q, 5 * n2, False, {}),
+            ("gkl_svdsolve_square_stencil_unfused", advect, x0q, 5 * n2, False, {"orth": kt.mgs2})):
+        bs.use_pallas_projections = flag
+        try:
+            (S3, U3, W3, info3), launches3, steps3, sweeps3, first_ms, ms = drive_counted(
+                torch, _build, fl, pb, lambda: kt.svdsolve(A3, x03, 8, "LR", **kw3, **kw),
+                reps=1 if kw else 2)
+        finally:
+            bs.use_pallas_projections = False
+        op3 = kt.as_operator(A3)
+        true_res = [float(torch.linalg.vector_norm(op3.normal(W3[i]) - S3[i] * U3[i])) for i in range(3)]
+        kernel_ms = {}
+        if steps3:
+            kernel_ms["fused_step"] = steps_ms(steps3)
+        if sweeps3:
+            kernel_ms["project"], kernel_ms["unproject"] = sweeps_ms(sweeps3)
+        if launches3.get("transform_partial"):
+            rows = (U3.shape[1], W3.shape[1])
+            kernel_ms["transform_partial"] = launches3["transform_partial"] / 2 * sum(
+                k2_by_R[r]["ms"] for r in rows)
+        S3h = S3.cpu()
+        c3[metric] = {"S": S3h, "info": info3, "launches": launches3, "steps": steps3}
+        emit({
+            "metric": metric, "value": info3.numops * nnz / ms / 1e6, "unit": "Gnnz/s",
+            "formula": f"numops * {nnz} / t (benchmarks/run_all.py)", "projection_kernels": flag,
+            "numops": info3.numops, "numiter": info3.numiter, "converged": info3.converged,
+            "ms_per_solve": ms, "first_solve_ms": first_ms, "svals": S3h.tolist(),
+            "normres": info3.normres.cpu().tolist(), "true_residual_leading_3": true_res,
+            "launches_per_solve": launches3,
+            "fused_step_B_max": max((B for B, _, _ in steps3), default=None),
+            "kernel_ms_per_solve": kernel_ms,
+            "outside_kernels_ms_per_solve": ms - sum(kernel_ms.values()),
+            "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+        })
+        # |A| <= 3 * 1.5 (rectangular: weights <= 3, two bands 1 and 0.5),
+        # <= the sum of |coefficients| = 8 (stencil); float32 slack 1e-5
+        smax = (3 * 1.5 if nnz == 3 * C3 else 8.0) * (1 + 1e-5)
+        require(bool(torch.isfinite(S3h).all()) and bool((S3h[:-1] >= S3h[1:]).all())
+                and 0 < float(S3h[0]) <= smax,
+                f"{metric}: singular values finite, descending, sigma_0 <= |A| bound {smax}: {S3h.tolist()}")
+        require(tuple(U3.shape) == (8,) + tuple(x03.shape) and bool(torch.isfinite(U3).all())
+                and bool(torch.isfinite(W3).all()), f"{metric}: finite triplet vectors of the expected shape")
+        nr = info3.normres.cpu()
+        require(all(true_res[i] <= float(nr[i]) + 1e-3 * float(S3h[0]) for i in range(3)),
+                f"{metric}: |A v - sigma u| of the leading triplets within normres + 1e-3 sigma_0 "
+                f"({true_res} vs {nr[:3].tolist()})")
+        require(info3.numiter == 12 and info3.numops == 2 * (m + 11 * (m - 18)),
+                f"{metric}: 12 rounds, numops 2*(30 + 11*12) (got {info3.numiter}, {info3.numops})")
+    rect3, proj3, fused3, unfused3 = (c3[k] for k in (
+        "gkl_svdsolve_rect", "gkl_svdsolve_rect_proj", "gkl_svdsolve_square_stencil_fused",
+        "gkl_svdsolve_square_stencil_unfused"))
+    nops3, nit3 = fused3["info"].numops, fused3["info"].numiter
+    # K2: both bases at every processing round (the last round's rotations are
+    # the identity).  K1: every half-step (the first of the solve with no
+    # live row) but the two of each round's tail
+    require(rect3["launches"] == {"transform_partial": 2 * nit3},
+            f"config-3 rectangular solve: K2 twice per round, no other kernel ({rect3['launches']})")
+    require(proj3["launches"] == {"transform_partial": 2 * nit3, "project": nops3, "unproject": nops3},
+            f"config-3 rectangular solve, projection kernels: K5 and K6 once per half-step "
+            f"({proj3['launches']})")
+    require(fused3["launches"] == {"fused_step": nops3 - 2 * nit3, "transform_partial": 2 * nit3},
+            f"config-3 fused solve: K1 = numops - 2*numiter, K2 = 2*numiter ({fused3['launches']})")
+    require(min(B for B, _, _ in fused3["steps"]) == 0,
+            "config-3 fused solve: the first domain half-step launched K1 with no live row")
+    specs3 = {spec for _, _, spec in fused3["steps"]}
+    require(specs3 == {fl.spec_for(advect), fl.adjoint_spec(advect)},
+            "config-3 fused solve: K1 ran the normal and the adjoint spec")
+    require(unfused3["launches"] == {"transform_partial": 2 * nit3},
+            f"config-3 unfused stencil solve: K2 only ({unfused3['launches']})")
+    k1_mean3 = steps_ms(fused3["steps"]) / len(fused3["steps"])
+    agree3 = float(((fused3["S"] - unfused3["S"]).abs() / unfused3["S"]).max())
+    agree3p = float(((proj3["S"] - rect3["S"]).abs() / rect3["S"]).max())
+    emit({"phase": "config3_agreement", "fused_vs_unfused_max_rel_diff": agree3,
+          "rect_proj_vs_plain_max_rel_diff": agree3p, "tolerance": 1e-3, "numops": nops3})
+    require(agree3 <= 1e-3 and unfused3["info"].numops == nops3,
+            "config-3: fused and unfused square solves agree to 1e-3 with equal numops")
+    require(agree3p <= 1e-3, "config-3: rectangular solve with and without projection kernels agree to 1e-3")
+    svd_rounds = timed_calls(torch, svds, "_process",
+                             lambda: kt.svdsolve(advect, x0q, 8, "LR", **kw3))
+    emit({"phase": "config3_process", "m": m, "rounds": len(svd_rounds), "ms_per_round": svd_rounds,
+          "ms_per_round_mean": mean(svd_rounds)})
+    require(len(svd_rounds) == nit3, "config-3: one projected SVD per round")
+
+    # 12. config 4's exponentiate step at full size
+    x0e = x04
+    kwe = dict(krylovdim=m, tol=1e-4, ishermitian=True, **quiet)
+    calls = []
+    fused_expansions = kf.fused_expansions
+
+    def counting(*a, **kw):
+        calls.append(1)
+        return fused_expansions(*a, **kw)
+
+    kf.fused_expansions = counting
+    try:
+        (ye, infoe), launchese, stepse, _, first_ms, ms = drive_counted(
+            torch, _build, fl, pb, lambda: kt.exponentiate(neg_lap, 0.1, x0e, **kwe), reps=2)
+    finally:
+        kf.fused_expansions = fused_expansions
+    ncalls = len(calls) // 3  # the counted solve and the two timed ones
+    (yu, infou), launchesu, _, _, _, ms_u = drive_counted(
+        torch, _build, fl, pb, lambda: kt.exponentiate(neg_lap, 0.1, x0e, orth=kt.mgs2, **kwe), reps=1)
+    k1_ms_e = steps_ms(stepse)
+    rel_e = float(torch.linalg.vector_norm(ye - yu) / torch.linalg.vector_norm(yu))
+    # exp(tA) x0 by its Taylor series in float64 with a plain three-point
+    # apply: |tA| <= 0.4, so 20 terms leave ~1e-27.  Shares no code with the
+    # solver
+    term = x0e.reshape(-1).double()
+    taylor = term.clone()
+    for j in range(1, 21):
+        lap = -2.0 * term
+        lap[1:] += term[:-1]
+        lap[:-1] += term[1:]
+        term = (0.1 / j) * lap
+        taylor += term
+    rel_taylor = float(torch.linalg.vector_norm(ye.reshape(-1).double() - taylor)
+                       / torch.linalg.vector_norm(taylor))
+    rel_taylor_u = float(torch.linalg.vector_norm(yu.reshape(-1).double() - taylor)
+                         / torch.linalg.vector_norm(taylor))
+    del term, taylor, lap
+    ny, nx0 = float(torch.linalg.vector_norm(ye)), float(torch.linalg.vector_norm(x0e))
+    emit({
+        "metric": "exponentiate_step", "value": infoe.numops * 3 * n4 / ms / 1e6, "unit": "Gnnz/s",
+        "formula": "numops * 3n / t (benchmarks/run_all.py)",
+        "numops": infoe.numops, "numiter": infoe.numiter, "converged": infoe.converged,
+        "normres": float(infoe.normres), "ms_per_solve": ms, "first_solve_ms": first_ms,
+        "launches_per_solve": launchese, "fused_expansions_calls": ncalls,
+        "fused_step_B_max": max(B for B, _, _ in stepse),
+        "kernel_ms_per_solve": {"fused_step": k1_ms_e},
+        "outside_kernels_ms_per_solve": ms - k1_ms_e,
+        "unfused": {"orth": "mgs2", "numops": infou.numops, "numiter": infou.numiter,
+                    "ms_per_solve": ms_u, "launches_per_solve": launchesu},
+        "rel_diff_fused_vs_unfused": rel_e, "norm_y_over_norm_x0": ny / nx0,
+        "rel_diff_vs_taylor_float64": {"fused": rel_taylor, "unfused": rel_taylor_u},
+        "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+    })
+    require(infoe.converged == 1 and float(infoe.normres) <= 0.1 * 1e-4,
+            f"exponentiate_step: converged, total error {float(infoe.normres)} within t*tol")
+    require(bool(torch.isfinite(ye).all()) and ny <= (1 + 1e-4) * nx0,
+            f"exponentiate_step: |y| <= (1 + 1e-4)|x0| (negative semidefinite operator): {ny / nx0}")
+    require(rel_e <= 1e-4 and launchesu == {},
+            f"exponentiate_step: agrees with the unfused solve to 1e-4 ({rel_e}), which launches nothing")
+    require(rel_taylor <= 1e-4 and rel_taylor_u <= 1e-4,
+            f"exponentiate_step: within 1e-4 of the float64 Taylor series of exp(tA) x0 "
+            f"(fused {rel_taylor}, unfused {rel_taylor_u})")
+    # numops = one build apply per cycle + per fused call one priming apply and
+    # one in-kernel apply per launch
+    require(launchese == {"fused_step": infoe.numops - infoe.numiter - ncalls},
+            f"exponentiate_step: K1 = numops - numiter - fused calls ({launchese}, {ncalls} calls)")
+    phi_ms = timed_calls(torch, expi, "_phi_step", lambda: kt.exponentiate(neg_lap, 0.1, x0e, **kwe))
+    emit({"phase": "config4_phi_step", "calls": len(phi_ms), "ms_per_call": phi_ms,
+          "ms_per_call_mean": mean(phi_ms)})
+    del Vq, yq, gq
 
     if args.profile:
         emit(profile_solve(torch, "config 1 Lanczos eigsolve",
@@ -1162,6 +1453,10 @@ def main():
                       "mean of B = 4, 16, 29",
             "launches_config2": config2_launches.get("fused_step", 0),
             "launches_config4_arnoldi": fused4["launches"]["fused_step"],
+            "launches_config3_square_fused": fused3["launches"]["fused_step"],
+            "ms_config3_square_fused": k1_mean3,
+            "launches_config4_exponentiate": launchese["fused_step"],
+            "ms_config4_exponentiate": k1_ms_e / len(stepse),
         },
         {
             "name": "transform_partial", "route": "cuda",
@@ -1179,6 +1474,9 @@ def main():
             "shapes": "mean per launch over the main path's 11 calls: m_out 20 x10, 4 x1",
             "launches_config4_arnoldi": fused4["launches"]["transform_partial"],
             "ms_config4_arnoldi": k2_c4["ms"],
+            "launches_config3_rect": rect3["launches"]["transform_partial"],
+            "launches_config3_square_fused": fused3["launches"]["transform_partial"],
+            "ms_config3_R4096": k2_by_R[4096]["ms"],
         },
         {
             "name": "banded_spmv", "route": "cuda",
@@ -1218,6 +1516,7 @@ def main():
             "library_ms": mean([proj_ms4[k][0]["library_ms"] for k in ks4]),
             "shapes": "mean per launch over the config-4 banded Arnoldi solve's sweeps, "
                       "(31, 8192, 128) f32 basis, k = 1..30",
+            "launches_config3_rect_proj": proj3["launches"]["project"],
         },
         {
             "name": "unproject", "route": "cuda",
@@ -1232,6 +1531,7 @@ def main():
             "library_ms": mean([proj_ms4[k][1]["library_ms"] for k in ks4]),
             "shapes": "mean per launch over the config-4 banded Arnoldi solve's sweeps, "
                       "(31, 8192, 128) f32 basis, k = 1..30",
+            "launches_config3_rect_proj": proj3["launches"]["unproject"],
         },
     ]})
     print(nvidia_smi_line(), flush=True)

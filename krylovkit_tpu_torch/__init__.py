@@ -1,14 +1,18 @@
 """krylovkit_tpu_torch — the PyTorch/CUDA port of ``krylovkit_tpu``.
 
 It covers the Hermitian Lanczos eigsolve, the Krylov-Schur Arnoldi solvers
-(``schursolve``, non-Hermitian ``eigsolve``, ``realeigsolve``) and the linear
-solvers (CG, GMRES, MINRES, BiCGStab), with six hand-written CUDA kernels
+(``schursolve``, non-Hermitian ``eigsolve``, ``realeigsolve``), the linear
+solvers (CG, GMRES, MINRES, BiCGStab), the GKL singular-value solver
+(``svdsolve``, ``realsvdsolve``), LSMR least squares (``lssolve``,
+``reallssolve``) and the matrix functions (``exponentiate``,
+``expintegrator``), with six hand-written CUDA kernels
 (``csrc/``): the fused one-stream expansion, the in-place restart rotation,
 the banded SpMV of :class:`BandedOperator`, the 1-D Laplacian of
 ``laplacian_1d_pallas`` and the two live-row basis projections
 (``ops/projections.py``, off unless ``ops.basis.use_pallas_projections``).
-Entry points run where their inputs live: ``eigsolve`` on the device of
-``x0``, ``linsolve`` on the device of ``b``; the operator builders check
+Entry points run where their inputs live: ``eigsolve`` and ``svdsolve`` on
+the device of ``x0``, ``linsolve`` and ``lssolve`` on the device of ``b``,
+``exponentiate`` on the device of its vector; the operator constructors check
 ``device`` (default ``"cuda"``).  CPU tensors run the kernels' plain
 PyTorch versions.
 
@@ -24,7 +28,9 @@ torch.backends.cudnn.allow_tf32 = False
 
 from .algorithms import (  # noqa: E402
     CG,
+    GKL,
     GMRES,
+    LSMR,
     MINRES,
     Arnoldi,
     BiCGStab,
@@ -53,15 +59,20 @@ from .ops.vector import REAL, STANDARD, VectorSpace  # noqa: E402
 from .parallel.operators import laplacian_1d, poisson_2d  # noqa: E402
 from .solvers.arnoldi import eigsolve_arnoldi  # noqa: E402
 from .solvers.eigsolve import eigsolve, realeigsolve, schursolve  # noqa: E402
+from .solvers.expintegrator import expintegrator, exponentiate  # noqa: E402
 from .solvers.lanczos import eigsolve_lanczos  # noqa: E402
 from .solvers.linsolve import linsolve, reallinsolve  # noqa: E402
+from .solvers.lssolve import lssolve, reallssolve  # noqa: E402
+from .solvers.svdsolve import realsvdsolve, svdsolve, svdsolve_gkl  # noqa: E402
 
 __all__ = [
     "Arnoldi",
     "BiCGStab",
     "BlockLanczos",
     "CG",
+    "GKL",
     "GMRES",
+    "LSMR",
     "MINRES",
     "EigSorter",
     "KrylovDefaults",
@@ -98,4 +109,11 @@ __all__ = [
     "realeigsolve",
     "linsolve",
     "reallinsolve",
+    "svdsolve",
+    "realsvdsolve",
+    "svdsolve_gkl",
+    "lssolve",
+    "reallssolve",
+    "exponentiate",
+    "expintegrator",
 ]

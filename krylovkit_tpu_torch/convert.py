@@ -14,7 +14,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from .algorithms import CG, GMRES, MINRES, Arnoldi, BiCGStab, Lanczos
+from .algorithms import CG, GKL, GMRES, LSMR, MINRES, Arnoldi, BiCGStab, Lanczos
+from .factorizations.gkl import GKLState
+from .factorizations.krylov import FusedScales, KrylovState
 from .ops import orthonormal as on
 from .ops.banded import BandedOperator
 from .ops.operator import GridStencilOperator, MatrixOperator, StencilOperator, resolve_device
@@ -32,6 +34,11 @@ __all__ = [
     "gmres_from_dict",
     "minres_from_dict",
     "bicgstab_from_dict",
+    "gkl_from_dict",
+    "lsmr_from_dict",
+    "krylov_state_from_numpy",
+    "gkl_state_from_numpy",
+    "fused_scales_from_numpy",
 ]
 
 _ORTH_BY_NAME = {
@@ -143,3 +150,41 @@ def minres_from_dict(fields: dict) -> MINRES:
 def bicgstab_from_dict(fields: dict) -> BiCGStab:
     """A :class:`BiCGStab` from its fields (``maxiter``, ``tol``, ``verbosity``)."""
     return _alg_from_dict(BiCGStab, fields)
+
+
+def gkl_from_dict(fields: dict) -> GKL:
+    """A :class:`GKL` from its fields; ``orth`` as in :func:`lanczos_from_dict`."""
+    return _alg_from_dict(GKL, fields)
+
+
+def lsmr_from_dict(fields: dict) -> LSMR:
+    """An :class:`LSMR` from its fields; ``orth`` as in :func:`lanczos_from_dict`."""
+    return _alg_from_dict(LSMR, fields)
+
+
+def krylov_state_from_numpy(V, H, k, beta, device="cuda") -> KrylovState:
+    """A :class:`KrylovState` from the arrays of a factorization (e.g. the
+    fields of the JAX package's state): basis ``V``, projected matrix ``H``,
+    size ``k`` and residual norm ``beta``.  The arrays are copied, since the
+    port's expansions write into them."""
+    dev = resolve_device(device)
+    return KrylovState(_copied(V, dev), _copied(H, dev), int(k), _copied(beta, dev))
+
+
+def gkl_state_from_numpy(U, V, B, k, beta, device="cuda") -> GKLState:
+    """A :class:`GKLState` from the arrays of a factorization: codomain basis
+    ``U``, domain basis ``V``, projected matrix ``B``, size ``k`` and
+    residual norm ``beta`` (copied, as in :func:`krylov_state_from_numpy`)."""
+    dev = resolve_device(device)
+    return GKLState(_copied(U, dev), _copied(V, dev), _copied(B, dev), int(k), _copied(beta, dev))
+
+
+def fused_scales_from_numpy(L, s, Hs, M, device="cuda") -> FusedScales:
+    """The fused expansion's :class:`FusedScales` (float32) from its four
+    arrays; the GKL solver carries one such bundle per basis."""
+    dev = resolve_device(device)
+    return FusedScales(*(_copied(a, dev).to(torch.float32) for a in (L, s, Hs, M)))
+
+
+def _copied(a, dev) -> torch.Tensor:
+    return torch.tensor(np.array(a), device=dev)

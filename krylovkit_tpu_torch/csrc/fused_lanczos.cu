@@ -8,7 +8,8 @@
 //   3. applies y' = A w' with the stencil: flat chains, or 2-D grids with a
 //      per-lane grid-column mask for dx taps; zero outside [0, n)
 //   4. reduces <V_j, y'> (j < B), with_drift: <V_j, w'>, then <w', y'>, |w'|^2
-// into raw = [r(B) | d(B) | rp | q] (without drift: [r(B) | rp | q]).
+// into raw = [r(B) | d(B) | rp | q] (without drift: [r(B) | rp | q]).  With no
+// live row (B = 0) a staged row is y alone, w' = gamma * y and raw = [rp | q].
 //
 // Bound on an H100: memory.  The step must read B basis rows and y and write
 // row kp1 and y': (B + 3) * n * 4 bytes, 285 MB at B = 31, n = 2^21, which is
@@ -429,7 +430,7 @@ int kk_fused_step(float* V, const float* y, float* ynext, const float* g,
                   int T, int P, int NSR, int NR, int reread, int run,
                   int nblocks, int smem_bytes, void* stream) {
   const int nslots = with_drift ? 2 * B + 2 : B + 2;
-  if (ntaps < 1 || ntaps > kMaxTaps || h < 1 || h > kMaxHalo || B < 1 ||
+  if (ntaps < 1 || ntaps > kMaxTaps || h < 1 || h > kMaxHalo || B < 0 ||
       kp1 < B || kp1 >= kmax || nslots > kMaxSlots || R < 1 ||
       (gc && mrow < 1))
     return (int)cudaErrorInvalidValue;

@@ -16,9 +16,10 @@ from .realschur import block_starts, lanv2_rotation, real_schur_active, real_sch
 from .reorder import partition_schur, sort_schur
 from .reorder_real import sort_schur_real
 from .schur import schur_active, schur_eigvals
+from .svd import svd_active
 from .trevc import triangular_eigvecs
 from .trevc_real import triangular_eigvecs_real
-from .triangular import solve_upper_active
+from .triangular import expm_active, solve_upper_active
 
 __all__ = [
     "eigh_active",
@@ -40,6 +41,8 @@ __all__ = [
     "active_support",
     "embed_active",
     "solve_upper_active",
+    "expm_active",
+    "svd_active",
     "sort_perm",
     "spectrum_sentinel",
     "which_key",

@@ -339,7 +339,8 @@ def _h_column(H, k: int, alpha, beta, c=None):
 
 
 def fused_expansions(op, state: KrylovState, scales: FusedScales, m: int, btol: float,
-                     space: VectorSpace, hermitian: bool = True, dgks: bool = False):
+                     space: VectorSpace, hermitian: bool = True, min_one: bool = False,
+                     dgks: bool = False):
     """Expand ``state`` from ``k`` to ``m`` with the one-stream fused kernel.
 
     Rows appended here are stored unnormalized; the returned
@@ -351,9 +352,14 @@ def fused_expansions(op, state: KrylovState, scales: FusedScales, m: int, btol: 
 
     ``hermitian=False`` is the Arnoldi variant: the same stream, but the
     ``H`` column keeps the full projection coefficients (upper Hessenberg)
-    instead of the tridiagonal ``(α, β)`` pair.  The JAX package's
-    ``min_one`` re-entry (a forced first step) serves only its
-    expintegrator, which is not ported yet, and is left out.
+    instead of the tridiagonal ``(α, β)`` pair.
+
+    ``min_one=True`` forces one step even when the entry residual is already
+    within ``btol``: the expintegrator's outer loop must make progress after
+    a rejected partial attempt, as the reference expands once per outer
+    iteration while ``K < krylovdim``
+    (``src/matrixfun/expintegrator.jl:285-287``).  The entry row may then be
+    unnormalized; its norm comes from ``scales.s``.
 
     Returns ``(state_new, scales_new, numops_increment)``."""
     V, H, k0 = state.V, state.H, state.k
@@ -362,7 +368,7 @@ def fused_expansions(op, state: KrylovState, scales: FusedScales, m: int, btol: 
     c = prime(V, k0, scales)
 
     def going(c):
-        return float(torch.sqrt(c.q)) > btol
+        return (min_one and c.k == k0) or float(torch.sqrt(c.q)) > btol
 
     while c.k < m - 1 and going(c):
         k = c.k

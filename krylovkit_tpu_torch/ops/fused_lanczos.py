@@ -191,8 +191,8 @@ def _check(V, y, g, kp1, B, with_drift):
         raise ValueError(
             f"fused_step shapes: V {tuple(V.shape)}, y {tuple(y.shape)}, g {tuple(g.shape)}"
         )
-    if not (1 <= B <= kmax and 0 <= kp1 < kmax):
-        raise ValueError(f"fused_step needs 1 <= B <= kmax, 0 <= kp1 < kmax; got B={B}, kp1={kp1}")
+    if not (0 <= B <= kmax and 0 <= kp1 < kmax):
+        raise ValueError(f"fused_step needs 0 <= B <= kmax, 0 <= kp1 < kmax; got B={B}, kp1={kp1}")
     if _raw_len(B, with_drift) > LANES:
         raise ValueError(
             f"fused_step packs {_raw_len(B, with_drift)} reductions; the "
@@ -204,10 +204,11 @@ def fused_step_reference(V, y, g, kp1: int, B: int, spec: StencilSpec,
                          with_drift: bool = False):
     """Plain version of the fused step.  Returns ``(y_next, raw)``; writes
     ``V[kp1] = w'`` in place after the reductions (so ``raw`` never sees the
-    new row, even for ``kp1 < B``) and leaves every other row untouched."""
+    new row, even for ``kp1 < B``) and leaves every other row untouched.
+    With no live row (``B = 0``) ``w' = γ·y`` and ``raw = [rp | q]``."""
     _check(V, y, g, kp1, B, with_drift)
     kmax = V.shape[0]
-    VB = V[:B].reshape(B, -1)
+    VB = V[:B].reshape(B, y.numel())
     W = g[kmax] * y - (g[:B] @ VB).reshape(y.shape)
     yn = stencil_apply_spec(W, spec)
     wf, ynf = W.reshape(-1), yn.reshape(-1)
@@ -267,7 +268,7 @@ def plan_step(R: int, B: int, h: int, with_drift: bool, sms: int) -> StepPlan:
     (``B <= 22`` at ``h = 1``).  Else one block per SM with the tallest tile
     that fits with the ``h``-row lag; ``reread`` only where none does.  The
     runs have at least ``max(8, 4h)`` rows and cover ``[0, R)`` once."""
-    if not (R >= 1 and 1 <= h <= MAX_HALO and B >= 1 and _raw_len(B, with_drift) <= LANES):
+    if not (R >= 1 and 1 <= h <= MAX_HALO and B >= 0 and _raw_len(B, with_drift) <= LANES):
         raise ValueError(f"plan_step: R={R}, B={B}, h={h}, with_drift={with_drift}")
     row = (B + 1) * 4 * LANES
     # (tile rows, rows of lag kept staged, shared-memory limit, blocks per SM)
@@ -339,6 +340,8 @@ def fused_step(V, y, g, kp1: int, B: int, spec: StencilSpec,
     ``V[kp1] = w'`` in place; every other row of ``V`` stays bit-identical.
     ``raw`` is ``[r(B) | d(B) | rp | q]`` with ``with_drift``, else
     ``[r(B) | rp | q]``.  Needs ``B <= kp1``: the new row is never read.
+    ``B = 0`` (no live row: the first domain half-step of a fused GKL solve)
+    stages ``y`` alone and gives ``w' = γ·y``, ``raw = [rp | q]``.
 
     A CUDA tensor runs the kernel of ``csrc/fused_lanczos.cu`` (float32,
     contiguous) with the sizes of :func:`plan_step`; its scratch is kept per

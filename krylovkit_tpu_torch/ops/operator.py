@@ -24,6 +24,9 @@ __all__ = [
     "as_operator",
     "apply_shifted",
     "probe_dtype",
+    "probe_adjoint",
+    "require_adjoint",
+    "check_adjoint_compatibility",
     "resolve_device",
 ]
 
@@ -244,8 +247,67 @@ def probe_dtype(op: LinearOperator, x0: torch.Tensor) -> torch.dtype:
     elif isinstance(op, BandedOperator):
         out = torch.promote_types(op.diags.dtype, x0.dtype)
     else:
-        try:
-            out = op.normal(torch.empty_like(x0, device="meta")).dtype
-        except (RuntimeError, NotImplementedError):
-            out = op.normal(torch.zeros_like(x0)).dtype
+        out = _probe_apply(op.normal, x0).dtype
     return torch.promote_types(out, x0.dtype)
+
+
+def _probe_apply(fn, x0: torch.Tensor) -> torch.Tensor:
+    """``fn(x0)`` as a ``meta`` tensor (shape and dtype, no data): ``fn`` runs
+    on a meta copy of ``x0``, or, when it holds tensors of its own, once on a
+    zero vector."""
+    try:
+        return fn(torch.empty_like(x0, device="meta"))
+    except (RuntimeError, NotImplementedError):
+        return fn(torch.zeros_like(x0)).to("meta")
+
+
+def probe_adjoint(op: LinearOperator, y0: torch.Tensor) -> torch.Tensor:
+    """Shape and dtype of ``Aᴴ y0`` as a ``meta`` tensor, the domain template
+    of a map whose start vector lives in the codomain (the JAX package asks
+    ``jax.eval_shape(op.apply_adjoint, y0)``).  Not counted in ``numops``."""
+    from .banded import BandedOperator
+
+    if isinstance(op, MatrixOperator):
+        dt = torch.promote_types(op.A.dtype, y0.dtype)
+        return torch.empty((op.A.shape[1],) + tuple(y0.shape[1:]), dtype=dt, device="meta")
+    if isinstance(op, BandedOperator):
+        dt = torch.promote_types(op.diags.dtype, y0.dtype)
+        return torch.empty(y0.shape, dtype=dt, device="meta")
+    return _probe_apply(op.apply_adjoint, y0)
+
+
+def require_adjoint(op: LinearOperator) -> LinearOperator:
+    """``op`` if it has an adjoint.  The JAX package derives the adjoint of a
+    bare callable by linear transposition; that needs differentiation through
+    the callable, which is not ported."""
+    if op.adjoint is None:
+        raise NotImplementedError(
+            "a bare callable has no adjoint: deriving one by linear "
+            "transposition (with_adjoint_from) is not ported yet (ROADMAP.md "
+            "queue 1, item 11); pass a (f, fadjoint) tuple or a matrix"
+        )
+    return op
+
+
+def check_adjoint_compatibility(op: LinearOperator, x0: torch.Tensor, space=None) -> None:
+    """Adjoint-consistency guard for ``(f, fadjoint)`` pairs given by the
+    caller (reference GKL initialization, ``src/factorizations/gkl.jl:188-192``):
+    with ``β₀ = ‖u₀‖``, ``α = ‖Aᴴu₀‖/β₀`` and ``α² = ⟨u₀, A(Aᴴu₀)⟩/β₀²`` must
+    agree, else the pair is not an operator and its adjoint and GKL/LSMR
+    would return wrong answers silently.  Two applies, not counted."""
+    from .vector import STANDARD
+
+    space = space or STANDARD
+    b0 = float(space.norm(x0))
+    if b0 == 0.0:
+        raise ValueError("initial vector should not have norm zero")
+    v = op.apply_adjoint(x0)
+    aa = (float(space.norm(v)) / b0) ** 2
+    a2 = complex(space.inner(x0, op.normal(v))) / (b0 * b0)
+    eps = torch.finfo(x0.dtype).eps
+    if abs(a2 - aa) > (eps ** 0.5) * max(abs(a2), aa, 1e-30):
+        raise ValueError(
+            f"operator and its adjoint are not compatible: <u0, A A^H u0>/|u0|^2 "
+            f"= {a2} but |A^H u0|^2/|u0|^2 = {aa} "
+            "(reference src/factorizations/gkl.jl:192)"
+        )

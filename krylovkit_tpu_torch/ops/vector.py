@@ -25,6 +25,7 @@ __all__ = [
     "scale",
     "add",
     "zerovector",
+    "scalartype",
     "rounded",
 ]
 
@@ -83,6 +84,15 @@ def add(y: torch.Tensor, x: torch.Tensor, a=1, b=1) -> torch.Tensor:
 
 def zerovector(x: torch.Tensor, dtype=None) -> torch.Tensor:
     return torch.zeros_like(x, dtype=dtype or x.dtype)
+
+
+def scalartype(*tensors) -> torch.dtype:
+    """Joint scalar dtype of one or more tensors (the value-domain part of
+    the reference's ``apply_scalartype``, ``src/apply.jl:26-36``)."""
+    out = tensors[0].dtype
+    for t in tensors[1:]:
+        out = torch.promote_types(out, t.dtype)
+    return out
 
 
 def rounded(v: float, dtype: torch.dtype) -> float:

@@ -1,0 +1,205 @@
+"""Least-squares solver: LSMR on GKL bidiagonalization (counterpart of
+``krylovkit_tpu/solvers/lssolve.py``).
+
+The reference solver (``src/lssolve/lsmr.jl``): Fong & Saunders LSMR with the
+double plane-rotation recurrence, Tikhonov regularization ``λ`` (rotation
+``P̂``, ``src/lssolve/lsmr.jl:93-113``), reorthogonalization of each new
+``v`` against a ring buffer of the last ``krylovdim`` vectors
+(``src/lssolve/lsmr.jl:76-89``), and a running residual vector ``r`` kept
+through ``Ah̄`` updates (``src/lssolve/lsmr.jl:117-120``): no operator
+application is spent on the residual.
+
+Convergence measure: ``‖Aᴴ(b − A x) − λ² x‖ = |ζ̄|``, the gradient of the
+regularized objective (``src/lssolve/lsmr.jl:123-141``).
+
+The loop is eager Python on the host; the rotations stay 0-d device tensors
+and each iteration reads two scalars for its tests (``β`` and ``|ζ̄|``; ``α``
+too when ``β`` passes).  It runs no hand-written kernel unless
+``ops.basis.use_pallas_projections`` routes the ring sweep to the projection
+kernels.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from ..algorithms import LSMR
+from ..info import STARTSTOP, ConvergenceInfo, log_if, warn_if
+from ..ops import basis as bs
+from ..ops import orthonormal as on
+from ..ops.operator import (
+    LinearOperator,
+    as_operator,
+    check_adjoint_compatibility,
+    probe_adjoint,
+    require_adjoint,
+)
+from ..ops.vector import REAL, STANDARD, VectorSpace, add, rounded, scalartype, zerovector
+from .linsolve import _resolve_tol
+
+__all__ = ["lssolve", "reallssolve", "lssolve_lsmr"]
+
+
+def lssolve_lsmr(op: LinearOperator, b: torch.Tensor, alg: LSMR, lam=0.0,
+                 space: VectorSpace = STANDARD):
+    """Returns ``(x, info)`` minimizing ``‖b − A x‖² + λ²‖x‖²``, on ``b``'s
+    device."""
+    K = alg.krylovdim
+    cdt = scalartype(probe_adjoint(op, b), b)
+    rdt = cdt.to_real()
+    dev = b.device
+    tol = rounded(alg.tol, rdt)
+    lamr = torch.as_tensor(lam, device=dev).to(rdt)
+
+    u = b.to(cdt)
+    beta = space.norm(u)
+    u = u / torch.where(beta > 0, beta, torch.ones_like(beta)).to(cdt)
+    v = op.apply_adjoint(u)
+    alpha = space.norm(v)
+    v = v / torch.where(alpha > 0, alpha, torch.ones_like(alpha)).to(cdt)
+
+    V = bs.alloc(v, K)  # ring buffer of the last K v's
+    V[0] = v
+
+    one = torch.ones((), dtype=rdt, device=dev)
+    x = zerovector(v)
+    h, hbar = v, zerovector(v)
+    r = beta.to(cdt) * u
+    Ah, Ahbar = zerovector(u), zerovector(u)
+    alphabar = alpha
+    zetabar = alpha * beta
+    rho, rhobar, cbar = one, one, one
+    theta, sbar = torch.zeros_like(one), torch.zeros_like(one)
+    normres = torch.abs(zetabar)
+    numiter, numops = 0, 1
+    done = float(normres) <= tol
+
+    while not done:
+        numiter += 1
+        Av = op.normal(v)
+        numops += 1
+        # Ah_k = A v_k − (θ_k/ρ_{k−1}) Ah_{k−1}  (the h update of the last step)
+        Ah = add(Av, Ah, a=-(theta / rho).to(cdt))
+
+        # β_{k+1} u_{k+1} = A v_k − α_k u_k
+        u = add(Av, u, a=-alpha.to(cdt))
+        beta = space.norm(u)
+        if float(beta) > tol:
+            u = u / beta.to(cdt)
+            # α_{k+1} v_{k+1} = Aᴴ u_{k+1} − β_{k+1} v_k  (+ ring reorthogonalization)
+            w = add(op.apply_adjoint(u), v, a=-beta.to(cdt))
+            numops += 1
+            if K > 1:
+                w, _ = on.orthogonalize(w, V, min(K, numiter), alg.orth, space)
+            alpha = space.norm(w)
+            if float(alpha) > tol:
+                w = w / alpha.to(cdt)
+                V[numiter % K] = w
+            v = w
+        else:
+            alpha = torch.zeros_like(one)
+
+        # rotation P̂ (λ-regularization)
+        alphahat = torch.hypot(alphabar, lamr)
+        # rotation P: bidiagonal → R
+        rho_old = rho
+        rho = torch.hypot(alphahat, beta)
+        c = alphahat / rho
+        s = beta / rho
+        theta = s * alpha
+        alphabar = c * alpha
+        # rotation P̄: Rᵀ → R̄
+        rhobar_old = rhobar
+        thetabar = sbar * rho
+        crho = cbar * rho
+        rhobar = torch.hypot(crho, theta)
+        cbar = crho / rhobar
+        sbar = theta / rhobar
+        zeta = cbar * zetabar
+        zetabar = -sbar * zetabar
+
+        # vector updates
+        coef1 = (thetabar * rho / (rho_old * rhobar_old)).to(cdt)
+        hbar = add(h, hbar, a=-coef1)
+        Ahbar = add(Ah, Ahbar, a=-coef1)
+        coef2 = (zeta / (rho * rhobar)).to(cdt)
+        x = add(x, hbar, a=coef2)
+        r = add(r, Ahbar, a=-coef2)
+        h = add(v, h, a=-(theta / rho).to(cdt))
+
+        normres = torch.abs(zetabar)
+        done = float(normres) <= tol or numiter >= alg.maxiter
+
+    conv = int(float(normres) <= tol)
+    log_if(
+        alg.verbosity, STARTSTOP,
+        "LSMR lssolve finished at iteration {it}: converged = {c}, "
+        "|| A^H(b - A x) - lam^2 x || = {nr}",
+        it=numiter, c=conv, nr=normres,
+    )
+    warn_if(
+        alg.verbosity, conv == 0,
+        "LSMR lssolve finished without converging after {it} iterations: "
+        "normres = {nr}", it=numiter, nr=normres,
+    )
+    info = ConvergenceInfo(
+        converged=conv, residual=r, normres=normres, numiter=numiter, numops=numops,
+    )
+    return x, info
+
+
+def lssolve(
+    A,
+    b: torch.Tensor,
+    lam=0.0,
+    *,
+    alg: Optional[LSMR] = None,
+    space: VectorSpace = STANDARD,
+    atol: Optional[float] = None,
+    rtol: Optional[float] = None,
+    tol: Optional[float] = None,
+    krylovdim: Optional[int] = None,
+    maxiter: Optional[int] = None,
+    orth=None,
+    verbosity: Optional[int] = None,
+):
+    """Least-squares solve ``min ‖b − A x‖`` (optionally ``+ λ²‖x‖²``) on
+    ``b``'s device.
+
+    Returns ``(x, info)``; ``info.normres`` is the normal-equation residual
+    ``‖Aᴴ(b − A x) − λ² x‖`` (reference ``lssolve``,
+    ``src/lssolve/lssolve.jl:101-110``; tolerance ``max(atol, rtol·‖b‖)``).
+    ``A`` as in ``svdsolve``: a bare callable without adjoint raises
+    ``NotImplementedError``."""
+    op = require_adjoint(as_operator(A, device=b.device))
+    if type(op) is LinearOperator:
+        # an (f, fadjoint) pair from the caller: the GKL adjoint-consistency
+        # guard (reference src/factorizations/gkl.jl:192)
+        check_adjoint_compatibility(op, b, space)
+    if tol is None and alg is not None and atol is None and rtol is None:
+        # an explicit algorithm carries its own tol (see the linsolve front-end)
+        tol = alg.tol
+    tol = _resolve_tol(b, atol, rtol, tol)
+    if alg is None:
+        kw = dict(
+            tol=tol, krylovdim=krylovdim, maxiter=maxiter, orth=orth,
+            verbosity=verbosity,
+        )
+        alg = LSMR(**{k: v for k, v in kw.items() if v is not None})
+    elif alg.tol != tol:
+        alg = dataclasses.replace(alg, tol=tol)
+    return lssolve_lsmr(op, b, alg, lam, space)
+
+
+def reallssolve(A, b: torch.Tensor, lam=0.0, **kw):
+    """``lssolve`` over the real inner product, for R-linear maps on complex
+    vectors (reference ``reallssolve``, ``src/lssolve/lssolve.jl:190-197``)."""
+    space = kw.pop("space", None)
+    if space is None:
+        space = REAL
+    elif not space.real_inner:
+        space = dataclasses.replace(space, real_inner=True)
+    return lssolve(A, b, lam, space=space, **kw)

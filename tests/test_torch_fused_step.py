@@ -103,6 +103,117 @@ def test_stencil_apply_spec_matches_operator(kind):
     )
 
 
+ADVECTION_CF = (4.0, -1.5, -0.5, -1.2, -0.8)  # non-symmetric: A != Aᵀ
+
+
+def _dense_of(apply, shape):
+    n = shape[0] * shape[1]
+    eye = torch.eye(n, dtype=torch.float32)
+    return torch.stack([apply(eye[i].reshape(shape)).reshape(n) for i in range(n)], dim=1).numpy()
+
+
+@pytest.mark.parametrize("kind", ["chain", "chain_far", "grid", "grid_wide"])
+def test_adjoint_spec_is_the_transpose(kind):
+    """``stencil_apply_spec`` of ``adjoint_spec(op)`` against the dense
+    transpose of the operator, against the port's ``op.adjoint`` and against
+    the JAX package's adjoint spec (entries are sums of at most two float32
+    products: exact to 1e-6)."""
+    if kind == "chain":
+        args, shape, jcls = ((-2, 0, 1), (0.4, 1.0, -0.8)), (4, 128), JStencil
+        top = convert.stencil_from_arrays(*args, "cpu")
+    elif kind == "chain_far":
+        args, shape, jcls = ((-130, -1, 0, 3), (0.5, -1.0, 2.0, 0.25)), (4, 128), JStencil
+        top = convert.stencil_from_arrays(*args, "cpu")
+    elif kind == "grid":
+        args, shape, jcls = ((4, 128), POISSON_OFF, ADVECTION_CF), (4, 128), JGrid
+        top = convert.grid_stencil_from_arrays(*args, "cpu")
+    else:
+        args, shape, jcls = ((2, 256), POISSON_OFF, ADVECTION_CF), (4, 128), JGrid
+        top = convert.grid_stencil_from_arrays(*args, "cpu")
+    spec_n, spec_a = tfl.spec_for(top), tfl.adjoint_spec(top)
+    assert tuple(spec_a) == tuple(jpf.adjoint_spec(jcls(*args)))
+    A = _dense_of(top.normal, shape)
+    assert np.abs(A - A.T).max() > 0.1
+    np.testing.assert_allclose(_dense_of(lambda x: tfl.stencil_apply_spec(x, spec_n), shape), A,
+                               atol=1e-6)
+    At = _dense_of(lambda x: tfl.stencil_apply_spec(x, spec_a), shape)
+    np.testing.assert_allclose(At, A.T, atol=1e-6)
+    np.testing.assert_allclose(_dense_of(top.adjoint, shape), A.T, atol=1e-6)
+
+
+@pytest.mark.parametrize("B", [1, 12, 23])
+def test_fused_step_reference_matches_pallas_adjoint_grid(B):
+    """The codomain half-step of fused GKL: the adjoint spec of a
+    non-symmetric grid stencil, drift on, ``kp1 = B``."""
+    grid = (32, 256)
+    jop = JGrid(grid, POISSON_OFF, ADVECTION_CF)
+    top_ = convert.grid_stencil_from_arrays(grid, POISSON_OFF, ADVECTION_CF, "cpu")
+    V, y, g = _inputs(25, 64, 31 + B)
+    jspec, tspec = jpf.adjoint_spec(jop), tfl.adjoint_spec(top_)
+    assert tuple(jspec) == tuple(tspec)
+    T = jpf.choose_tile(64, 16, jspec.h)
+    # the JAX kernel launches a bucket of rows; rows past kp1 carry zero
+    # coefficients, as in its GKL expansion
+    Bj = next(b for b in (4, 8, 12, 16, 20, 24, 25) if b >= B)
+    gj = g.copy()
+    gj[B:25] = 0
+    Vn, yn, raw, _, _ = jpf.fused_step(
+        jnp.asarray(V), jnp.asarray(y), jpf.boundary_cache(jnp.asarray(V), T, jspec.h),
+        jpf.boundary_cache(jnp.asarray(y), T, jspec.h), jnp.asarray(gj), jnp.int32(B),
+        Bj, jspec, tile_rows=16, interpret=True, with_drift=True,
+    )
+    Vt = torch.from_numpy(V.copy())
+    ynt, rawt = tfl.fused_step_reference(Vt, torch.from_numpy(y), torch.from_numpy(g), B, B,
+                                         tspec, True)
+    sc = float(np.max(np.abs(np.asarray(yn))))
+    np.testing.assert_allclose(Vt[B].numpy(), np.asarray(Vn)[B], atol=2e-4 * sc)
+    np.testing.assert_allclose(ynt.numpy(), np.asarray(yn), atol=2e-4 * sc)
+    raw = np.asarray(raw)
+    np.testing.assert_allclose(rawt[:B].numpy(), raw[:B], rtol=2e-4, atol=2e-3)
+    np.testing.assert_allclose(rawt[B:2 * B].numpy(), raw[Bj:Bj + B], rtol=2e-4, atol=2e-3)
+    np.testing.assert_allclose(rawt[2 * B:].numpy(), raw[2 * Bj:2 * Bj + 2], rtol=2e-4)
+
+
+@pytest.mark.parametrize("kind", ["chain", "grid"])
+def test_fused_step_reference_no_live_row_matches_pallas(kind):
+    """The first domain half-step of fused GKL: no live row (``B = 0``,
+    ``kp1 = 0``), so ``w' = γ·y`` and ``raw = [rp | q]``.  The JAX kernel runs
+    its smallest bucket there with zero coefficients.  Tolerances as the
+    other steps: 2e-4·scale on vectors, 2e-4 relative on the two sums."""
+    if kind == "chain":
+        offs, cf = (-2, 0, 1), (0.4, 1.0, -0.8)
+        jop, top_ = JStencil(offs, cf), convert.stencil_from_arrays(offs, cf, "cpu")
+    else:
+        grid = (32, 256)
+        jop = JGrid(grid, POISSON_OFF, ADVECTION_CF)
+        top_ = convert.grid_stencil_from_arrays(grid, POISSON_OFF, ADVECTION_CF, "cpu")
+    V, y, g = _inputs(13, 64, 77)
+    jspec, tspec = jpf.spec_for(jop), tfl.spec_for(top_)
+    assert tuple(jspec) == tuple(tspec)
+    T = jpf.choose_tile(64, 16, jspec.h)
+    gj = g.copy()
+    gj[:13] = 0
+    Vn, yn, raw, _, _ = jpf.fused_step(
+        jnp.asarray(V), jnp.asarray(y), jpf.boundary_cache(jnp.asarray(V), T, jspec.h),
+        jpf.boundary_cache(jnp.asarray(y), T, jspec.h), jnp.asarray(gj), jnp.int32(0),
+        4, jspec, tile_rows=16, interpret=True, with_drift=True,
+    )
+    Vt = torch.from_numpy(V.copy())
+    # the port's coefficients are not read at B = 0: leave them non-zero
+    ynt, rawt = tfl.fused_step(Vt, torch.from_numpy(y), torch.from_numpy(g), 0, 0, tspec, True)
+    assert rawt.shape == (2,)
+    assert np.array_equal(Vt[1:].numpy(), V[1:])
+    sc = float(np.max(np.abs(np.asarray(yn))))
+    np.testing.assert_allclose(Vt[0].numpy(), g[13] * y, rtol=1e-6)
+    np.testing.assert_allclose(Vt[0].numpy(), np.asarray(Vn)[0], atol=2e-4 * sc)
+    np.testing.assert_allclose(ynt.numpy(), np.asarray(yn), atol=2e-4 * sc)
+    np.testing.assert_allclose(rawt.numpy(), np.asarray(raw)[8:10], rtol=2e-4)
+    # without drift the packing is the same two sums
+    _, raw_nd = tfl.fused_step_reference(torch.from_numpy(V.copy()), torch.from_numpy(y),
+                                         torch.from_numpy(g), 0, 0, tspec, False)
+    assert torch.equal(raw_nd, rawt)
+
+
 def test_fused_step_wrapper_uses_plain_version_on_cpu():
     V, y, g = _inputs(9, 16, 3)
     spec = tfl.spec_for(laplacian_1d(16 * 128, device="cpu"))

@@ -36,6 +36,7 @@ def test_port_has_files():
         "chip_smoke.py", "lanczos.py", "linsolve.py", "cg.py", "gmres.py", "minres.py",
         "bicgstab.py", "banded.py", "stencil_1d.py", "givens.py", "triangular.py",
         "projections.cu", "projections.py", "arnoldi.py", "schur.py", "realschur.py",
+        "expintegrator.py", "gkl.py", "svd.py", "svdsolve.py", "lssolve.py",
     } <= names
 
 

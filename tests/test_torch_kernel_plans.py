@@ -180,6 +180,43 @@ def test_plan_step_pairs_blocks_where_two_fit_an_sm():
         fl.plan_step(8192, 4, fl.MAX_HALO + 1, False, 132)
 
 
+@pytest.mark.parametrize("B", range(0, 32))
+def test_plan_step_fused_gkl_grid(B):
+    """The fused GKL solve on the 1024×1024 grid (h = 8, drift on) launches
+    with B = k over V (B = 0 at the first step of a solve: ``y`` alone is
+    staged) and B = k + 1 over U, up to 31: every plan fits one
+    block's shared memory without re-reading, the pair plan holds up to
+    B = 11, and the tile loop visits every row."""
+    R, h = 8192, 8
+    plan = fl.plan_step(R, B, h, True, 132)
+    assert plan.smem_bytes <= H100_SMEM and not plan.reread
+    assert (plan.nblocks > 132) == (B <= 11)
+    if B <= 11:
+        assert plan.T == fl.PAIR_TILE_ROWS and 2 * (plan.smem_bytes + 1024) <= H100_SMEM_PER_SM
+    assert fl._raw_len(B, True) <= fl.LANES
+    for block in {0, plan.nblocks - 1}:
+        r0 = block * plan.run
+        assert _simulate_block(plan, R, h, block) == list(range(r0, min(r0 + plan.run, R)))
+
+
+@pytest.mark.parametrize("with_drift", [False, True], ids=["nodrift", "drift"])
+@pytest.mark.parametrize("h", HALOS)
+def test_plan_step_without_a_live_row(h, with_drift):
+    # B = 0 (the first domain half-step of a fused GKL solve): a staged row is
+    # y alone, 512 bytes; two blocks share an SM and the loop visits every row
+    for R in ROWS:
+        plan = fl.plan_step(R, 0, h, with_drift, 132)
+        assert plan.T == fl.PAIR_TILE_ROWS and not plan.reread
+        assert plan.smem_bytes == fl._step_smem(0, plan.NSR, plan.NR)
+        assert 2 * (plan.smem_bytes + 1024) <= H100_SMEM_PER_SM
+        assert (plan.nblocks - 1) * plan.run < R <= plan.nblocks * plan.run
+        for block in {0, plan.nblocks - 1}:
+            r0 = block * plan.run
+            assert _simulate_block(plan, R, h, block) == list(range(r0, min(r0 + plan.run, R)))
+    with pytest.raises(ValueError):
+        fl.plan_step(8192, -1, h, with_drift, 132)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("kmax", [1, 2, 15, 16, 17, 31, 32, 33, 63, 64, 65, 127, 128])
 def test_transform_rung(kmax, dtype):

@@ -56,10 +56,34 @@ FUSED_CASES = (
     + [("chain", 16, 16, True, 31, 8200), ("chain", 4, 4, True, 31, 3), ("chain", 4, 4, True, 8, 1),
        ("chain", 30, 30, True, 31, 9), ("chain", 5, 9, True, 31, None), ("grid", 16, 20, False, 31, None),
        ("grid", 63, 63, True, 64, None), ("chain_multirow", 40, 45, True, 64, None)]
+    # the codomain half-step of fused GKL: the adjoint spec of a non-symmetric
+    # grid stencil with drift, up to the 31 live rows of krylovdim 30; and its
+    # domain half-step on the non-symmetric stencil itself
+    + [("grid_adjoint", B, B, True, 31, None) for B in (1, 12, 23, 30)]
+    + [("grid_adjoint", 31, 31, True, 32, None), ("grid_nonsym", 22, 22, True, 31, None),
+       ("chain_adjoint", 9, 9, True, 31, None)]
+    # no live row: the first domain half-step of a fused GKL solve (kp1 = 0),
+    # and the same with a later new row
+    + [("grid_nonsym", 0, 0, True, 31, None), ("chain", 0, 0, True, 31, None),
+       ("chain", 0, 0, False, 31, None), ("chain_multirow", 0, 3, True, 31, None),
+       ("chain", 0, 0, True, 8, 1)]
 )
+
+ADVECTION_CF = (4.0, -1.5, -0.5, -1.2, -0.8)
 
 
 def _fused_case(kind, R):
+    """``(spec, R)`` of a case."""
+    if kind.startswith("grid_"):
+        op = GridStencilOperator((256, 1024), POISSON_OFF, ADVECTION_CF)
+        return (fl.adjoint_spec(op) if kind == "grid_adjoint" else fl.spec_for(op)), 2048
+    if kind == "chain_adjoint":
+        return fl.adjoint_spec(StencilOperator((-2, 0, 1), (0.4, 1.0, -0.8))), R or 1000
+    op, R = _fused_op(kind, R)
+    return fl.spec_for(op), R
+
+
+def _fused_op(kind, R):
     if kind == "chain":
         return StencilOperator((-1, 0, 1), (-1.0, 2.0, -1.0)), R or 1000  # ragged last block
     if kind == "chain_multirow":
@@ -69,8 +93,7 @@ def _fused_case(kind, R):
 
 @pytest.mark.parametrize("kind,B,kp1,with_drift,kmax,R", FUSED_CASES)
 def test_fused_step_kernel_matches_plain(kind, B, kp1, with_drift, kmax, R):
-    op, R = _fused_case(kind, R)
-    spec = fl.spec_for(op)
+    spec, R = _fused_case(kind, R)
     gen = _gen(B)
     V = torch.randn((kmax, R, 128), generator=gen, device="cuda")
     y = torch.randn((R, 128), generator=gen, device="cuda")
@@ -99,6 +122,36 @@ def test_fused_step_plan_of_the_card_fits_it():
         plan = fl.plan_step(R, B, h, False, props.multi_processor_count)
         assert plan.smem_bytes <= props.shared_memory_per_block_optin
         assert plan.nblocks <= props.multi_processor_count
+
+
+def test_fused_step_without_a_live_row_scales_y():
+    # B = 0 launches the kernel: w' = gamma * y whatever g[:kmax] holds
+    spec = fl.spec_for(StencilOperator((-1, 0, 1), (-1.0, 2.0, -1.0)))
+    gen = _gen(0)
+    V = torch.randn((5, 16, 128), generator=gen, device="cuda")
+    y = torch.randn((16, 128), generator=gen, device="cuda")
+    g = torch.randn(6, generator=gen, device="cuda")
+    before = _build.launches["fused_step"]
+    Vk = V.clone()
+    yn, raw = fl.fused_step(Vk, y, g, 0, 0, spec, True)
+    assert _build.launches["fused_step"] == before + 1
+    assert raw.shape == (2,) and torch.equal(Vk[1:], V[1:])
+    assert torch.equal(Vk[0], g[5] * y)
+    torch.testing.assert_close(yn, fl.stencil_apply_spec(Vk[0], spec), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("R", [4096, 8192])
+def test_transform_kernel_at_the_svd_restart_shapes(R):
+    """The two rotations of a GKL thick restart: ``(31, R, 128)`` bases,
+    ``keep_max + 1 = 21`` rows written, the tail bit-identical."""
+    gen = _gen(R)
+    V = torch.randn((31, R, 128), generator=gen, device="cuda")
+    U = torch.randn((31, 31), generator=gen, device="cuda") / 31 ** 0.5
+    Vk = bs.transform_partial_inplace(V.clone(), U, 21)
+    Vr = bs.transform_partial_inplace_reference(V.clone(), U, 21)
+    torch.cuda.synchronize()
+    assert torch.equal(Vk[21:], V[21:])
+    torch.testing.assert_close(Vk[:21], Vr[:21], rtol=1e-5, atol=1e-5)
 
 
 # every rung of the kernel's ladder (kmax <= 16, 32, 64, 128) at its edges
@@ -347,3 +400,68 @@ def test_banded_schursolve_with_projection_kernels_matches_cpu():
     assert counted["transform_partial"] == info_c.numiter and "fused_step" not in counted
     assert (info_c.numops, info_c.numiter) == (info_h.numops, info_h.numiter)
     torch.testing.assert_close(torch.hypot(rc, ic_).cpu(), torch.hypot(rh, ih_), rtol=2e-4, atol=0)
+
+
+def _launches():
+    return dict(_build.launches)
+
+
+def _delta(before):
+    return {k: v - before.get(k, 0) for k, v in _build.launches.items() if v != before.get(k, 0)}
+
+
+@pytest.mark.parametrize("kind", ["chain", "grid"])
+def test_fused_svdsolve_on_card_matches_cpu(kind):
+    """Fused GKL: K1 steps both bases (normal spec over V, adjoint over U), K2
+    rotates both at every processing round; values and counts as on the CPU."""
+    if kind == "chain":
+        op, shape = StencilOperator((-2, 0, 1), (0.4, 1.0, -0.8)), (32, 128)
+    else:
+        op, shape = GridStencilOperator((32, 128), POISSON_OFF, ADVECTION_CF), (32, 128)
+    x = np.random.default_rng(51).standard_normal(shape).astype(np.float32)
+    kw = dict(krylovdim=18, maxiter=5, tol=1e-6)
+    vc, _, _, ic = kt.svdsolve(op, torch.from_numpy(x), 4, "LR", **kw)
+    before = _launches()
+    vg, lg, rg, ig = kt.svdsolve(op, torch.from_numpy(x).cuda(), 4, "LR", **kw)
+    torch.cuda.synchronize()
+    got = _delta(before)
+    assert (ig.numops, ig.numiter, ig.converged) == (ic.numops, ic.numiter, ic.converged)
+    torch.testing.assert_close(vg.cpu(), vc, rtol=5e-5, atol=0)
+    # one launch per half-step but the two of each tail
+    assert got == {"fused_step": ig.numops - 2 * ig.numiter, "transform_partial": 2 * ig.numiter}
+    for i in range(ig.converged):
+        r = op.normal(rg[i]) - vg[i] * lg[i]
+        assert float(torch.linalg.norm(r)) < 5e-3 * float(vg[0])
+
+
+def test_unfused_svdsolve_and_lssolve_on_card_match_cpu():
+    rng = np.random.default_rng(13)
+    A = rng.standard_normal((200, 100)) / 200 ** 0.5
+    x0, b = rng.standard_normal(200), rng.standard_normal(200)
+    kw = dict(krylovdim=25, tol=1e-10, maxiter=100)
+    vc, _, _, ic = kt.svdsolve(torch.from_numpy(A), torch.from_numpy(x0), 4, "LR", **kw)
+    vg, lg, rg, ig = kt.svdsolve(torch.from_numpy(A).cuda(), torch.from_numpy(x0).cuda(), 4, "LR", **kw)
+    assert (ig.numops, ig.numiter, ig.converged) == (ic.numops, ic.numiter, ic.converged)
+    torch.testing.assert_close(vg.cpu(), vc, rtol=1e-10, atol=1e-12)
+    assert lg.device.type == rg.device.type == "cuda"
+    xc, jc = kt.lssolve(torch.from_numpy(A), torch.from_numpy(b), tol=1e-10, maxiter=400)
+    xg, jg = kt.lssolve(torch.from_numpy(A).cuda(), torch.from_numpy(b).cuda(), tol=1e-10, maxiter=400)
+    assert jg.converged == jc.converged == 1 and abs(jg.numiter - jc.numiter) <= 1
+    torch.testing.assert_close(xg.cpu(), xc, rtol=0, atol=1e-8)
+
+
+@pytest.mark.parametrize("orth", ["cgs", "cgs2", "mgs2"])
+def test_exponentiate_on_card_matches_cpu(orth):
+    """cgs and cgs2 run the fused expansion (K1, Lanczos mode, ``min_one``),
+    mgs2 the unfused loop: no launch."""
+    op = StencilOperator((-1, 0, 1), (1.0, -2.0, 1.0))
+    x = np.random.default_rng(7).standard_normal((32, 128)).astype(np.float32)
+    kw = dict(krylovdim=30, tol=1e-4, ishermitian=True, orth=getattr(kt, orth))
+    yc, ic = kt.exponentiate(op, 0.1, torch.from_numpy(x), **kw)
+    before = _launches()
+    yg, ig = kt.exponentiate(op, 0.1, torch.from_numpy(x).cuda(), **kw)
+    torch.cuda.synchronize()
+    got = _delta(before)
+    assert (ig.numops, ig.numiter, ig.converged) == (ic.numops, ic.numiter, ic.converged)
+    torch.testing.assert_close(yg.cpu(), yc, rtol=1e-4, atol=1e-5)
+    assert ("fused_step" in got) == (orth != "mgs2")
