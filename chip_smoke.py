@@ -50,18 +50,37 @@ without the final ``ok`` line:
    unfused on a dense float64 matrix), ``lssolve`` and ``exponentiate``
    (fused and unfused) at small sizes, on the card against the same solve
    on the CPU;
-11. config3 — ``benchmarks/run_all.py``'s two GKL ``svdsolve`` solves at
+11. small_geneig_block — ``geneigsolve`` on the banded Q1 finite-element
+   pencil (32×32 grid, float64, "SR" and "LR", the projection flag off and
+   on; a 16×64 grid whose counts must match; float32 with the projection
+   kernels) and on a callable dense pencil, Block Lanczos on the banded
+   32×32 Poisson matrix (block of 4), each on the card against the same
+   solve on the CPU; the ELL operator of the 1024×1024 Q1 stiffness (card
+   against CPU, ``ell_to_banded`` against ``banded_from_coo``); complex64
+   and complex128 ``BandedOperator`` applies (the plain version, no K3);
+12. config3 — ``benchmarks/run_all.py``'s two GKL ``svdsolve`` solves at
    full size (8 triplets "LR", krylovdim 30, maxiter 12): the rectangular
    ``(A, Ah)`` map (rows 2^20, cols 2^19; unfused, K2 only; once more with
    the projection kernels on) and the 1024×1024 advection-diffusion grid
    stencil (fused: K1 with the normal spec over V and the adjoint spec over
    U, K2), held against an unfused solve of the same stencil; then the time
    of each projected-SVD round;
-12. config4_expm — ``benchmarks/run_all.py``'s ``exponentiate`` step
+13. config4_expm — ``benchmarks/run_all.py``'s ``exponentiate`` step
    (−Laplacian stencil, n = 2^20, t = 0.1, krylovdim 30, tol 1e-4; fused:
    K1 in Lanczos mode), held against an unfused solve; then the time of
    each evaluation of the augmented exponential;
-13. profile (only with ``--profile``) — one more config-1 solve and one
+14. geneig — ``geneigsolve`` on the Q1 pencil of the 1024×1024 grid (n =
+   2^20, nine offsets each, float32 ``(8192, 128)`` vectors, 4 "SR",
+   krylovdim 30, maxiter 8): first K3 on both operators and K5/K6 on the
+   solve's (37, 8192, 128) basis against their plain versions (line
+   ``kernels_geneig``); then K3 twice per counted apply, with the
+   projection kernels off and on (K5 and K6 once per cgs2 sweep); one
+   metric line each, held against the analytic spectrum, the vectors'
+   Rayleigh quotients and fresh residuals;
+15. block_lanczos — Block Lanczos (block of 4, 4 "LR", krylovdim 30,
+   maxiter 8) on config 2's Poisson matrix, banded (K3 per apply) and as
+   the grid stencil; one metric line each;
+16. profile (only with ``--profile``) — one more config-1 solve and one
    more fused config-4 solve under ``torch.profiler``: device busy time and idle share, device ops, host
    reads of device scalars, device time by kernel name.
 
@@ -72,7 +91,7 @@ printed as ``parent_ms`` beside ``ms`` (without it ``parent_ms`` is null).
 ``--kernel-times`` is that process: it times K1 and K2 of the package under
 ``--root`` (default: this tree) and prints one JSON line.
 
-Each path (phases 5, 7, 9, 11 and 12, one solve at a time) is driven with the launch
+Each path (phases 5, 7, 9, 12, 13, 14 and 15, one solve at a time) is driven with the launch
 counts set to 0 just before it and read just after.  Then the kernel
 summary line, the ``nvidia-smi`` name/power line, and as the last line
 ``{"ok": true, "device": {...}}``.
@@ -355,6 +374,411 @@ def poisson_coo(np, nx, dtype):
     return tuple(np.concatenate(a) for a in (rows, cols, vals))
 
 
+def q1_coo(np, ny, nx, dtype):
+    """COO triplets of the Q1 finite-element pencil on an ``ny × nx`` grid,
+    ``K = k⊗m + m⊗k`` and ``M = m⊗m`` with ``k = tridiag(−1, 2, −1)`` and
+    ``m = tridiag(1, 4, 1)/6``: one entry per position (nine offsets)."""
+    def tri(m, lo, d, up):
+        i = np.arange(m)
+        return (np.concatenate([i[1:], i, i[:-1]]), np.concatenate([i[1:] - 1, i, i[:-1] + 1]),
+                np.concatenate([np.full(m - 1, lo), np.full(m, d), np.full(m - 1, up)]))
+
+    def kron(a, b):  # the two factors share their pattern, so their entries align
+        (r1, c1, v1), (r2, c2, v2) = a, b
+        return ((r1[:, None] * nx + r2[None, :]).ravel(), (c1[:, None] * nx + c2[None, :]).ravel(),
+                (v1[:, None] * v2[None, :]).ravel())
+
+    ky, my = tri(ny, -1.0, 2.0, -1.0), tri(ny, 1 / 6, 4 / 6, 1 / 6)
+    kx, mx = tri(nx, -1.0, 2.0, -1.0), tri(nx, 1 / 6, 4 / 6, 1 / 6)
+    (rows, cols, kvm), (_, _, mvk), (_, _, mvm) = kron(ky, mx), kron(my, kx), kron(my, mx)
+    return (rows, cols, (kvm + mvk).astype(dtype)), (rows, cols, mvm.astype(dtype))
+
+
+def q1_bounds(np, N):
+    """``(2μ₁, 2μ_N)``: the extreme eigenvalues of the Q1 pencil on an
+    ``N × N`` grid, ``μ_i = 6(1 − cos θ_i)/(2 + cos θ_i)``, ``θ_i = iπ/(N+1)``."""
+    th = np.array([1, N]) * np.pi / (N + 1)
+    mu = 6 * (1 - np.cos(th)) / (2 + np.cos(th))
+    return 2 * float(mu[0]), 2 * float(mu[1])
+
+
+def poisson_top(np, N, k):
+    """The ``k`` largest eigenvalues of the 5-point Poisson matrix on an
+    ``N × N`` grid, ``4 − 2cos θ_i − 2cos θ_j``, with repeats."""
+    c = np.cos(np.arange(1, N + 1) * np.pi / (N + 1))
+    return np.sort((4 - 2 * c[:, None] - 2 * c[None, :]).ravel())[::-1][:k].copy()
+
+
+def golubye_sweeps(numops, numiter):
+    """cgs2 sweeps of a Golub-Ye solve of ``numiter`` cycles: one
+    orthonormalization per counted apply pair (the start's residual, each
+    Lanczos step, each append) and one per restart (``numiter − 1``; the
+    last cycle ends the solve), two sweeps each."""
+    return 2 * (numops + numiter - 1)
+
+
+# the leading value of the full-width geneig solve with the projection
+# kernels on and off, and of the banded and stencil Block Lanczos solves,
+# agree to these (relative); the geneig routes measured 1.9e-5 apart on an
+# H100 (float32 sweeps in two orders)
+GENEIG_ROUTE_TOL = 1e-3
+BLOCK_ROUTE_TOL = 1e-4
+
+
+def card_vs_cpu(torch, _build, label, solve, tol, dev, counts_equal=True):
+    """``solve(device)`` → ``(values, info)`` on ``dev`` with the launch
+    counts set to 0 just before, then on the CPU: values within ``tol`` of
+    each other (absolute), and with ``counts_equal`` equal ``numops``,
+    ``numiter``, ``converged``.  Returns ``(record, launches, card info,
+    card values)``."""
+    _build.reset_launches()
+    vc, ic = solve(dev)
+    if dev != "cpu":
+        torch.cuda.synchronize()
+    counted = {k: v for k, v in _build.launches.items() if v}
+    vh, ih = solve("cpu")
+    err = float((vc.cpu() - vh).abs().max())
+    rec = {"solve": label, "max_abs_err": err, "tolerance": tol, "vals": vc.cpu().tolist(),
+           "vals_cpu": vh.tolist(), "numops": [ic.numops, ih.numops], "numiter": [ic.numiter, ih.numiter],
+           "converged": [ic.converged, ih.converged], "launches": counted}
+    require(err <= tol, f"small {label}: card vs CPU values within {tol}")
+    if counts_equal:
+        require((ic.numops, ic.numiter, ic.converged) == (ih.numops, ih.numiter, ih.converged),
+                f"small {label}: counts equal ({rec['numops']}, {rec['numiter']}, {rec['converged']})")
+    return rec, counted, ic, vc.cpu()
+
+
+def small_geneig_block(torch, np, kt, _build, bs, q1_full, dev="cuda"):
+    """Phase ``small_geneig_block``: ``geneigsolve`` on banded Q1 pencils and
+    on a callable dense pencil, Block Lanczos on the banded 2-D Poisson,
+    each on ``dev`` against the same solve on the CPU; the ELL operator of
+    the full-width Q1 stiffness ``q1_full`` (card against CPU apply,
+    ``ell_to_banded`` against ``banded_from_coo``); complex
+    ``BandedOperator`` applies.  Returns the phase record."""
+    t_phase = time.perf_counter()
+    quiet = {"verbosity": kt.SILENT}
+    solves = []
+
+    def geneig(coo, nn, x, which, flag, **kw):
+        def solve(d):
+            bs.use_pallas_projections = flag
+            try:
+                ops = tuple(kt.banded_from_coo(*c, nn, device=d) for c in coo)
+                vals, _, info = kt.geneigsolve(ops, x.to(d), 4, which, krylovdim=30, **kw, **quiet)
+            finally:
+                bs.use_pallas_projections = False
+            return vals, info
+        return solve
+
+    # the square N = 32 pencil repeats eigenvalues (μ_i + μ_j = μ_j + μ_i):
+    # which restart resolves the second copy follows the rounding, so its
+    # counts are not compared (the JAX package and this port, both on one
+    # CPU, take 1470/49 and 1350/45 for "LR"); the 16×64 pencil repeats none
+    # and its counts must be equal
+    N = 32
+    lo, hi = q1_bounds(np, N)
+    x32 = torch.from_numpy(np.random.default_rng(0).standard_normal((N * N // 128, 128)))
+    for which, flag in (("SR", False), ("SR", True), ("LR", False), ("LR", True)):
+        rec, counted, ic, vals = card_vs_cpu(
+            torch, _build, f"geneigsolve Q1 32x32 {which} float64 projections={flag}",
+            geneig((q1_coo(np, N, N, np.float64)), N * N, x32, which, flag, tol=1e-8, maxiter=300),
+            1e-10, dev, counts_equal=False)
+        want = lo if which == "SR" else hi
+        rec["analytic_leading"] = want
+        solves.append(rec)
+        require(rec["converged"] == [4, 4], f"small {rec['solve']}: 4 of 4 converged on both")
+        require(abs(float(vals[0]) - want) <= 1e-8, f"small {rec['solve']}: leading value "
+                f"{float(vals[0])} within 1e-8 of the analytic {want}")
+        require(counted == {"banded_spmv": 2 * ic.numops},
+                f"small {rec['solve']}: K3 twice per counted apply, nothing else ({counted})")
+    x16 = torch.from_numpy(np.random.default_rng(0).standard_normal((8, 128)))
+    for which in ("SR", "LR"):
+        rec, counted, ic, _ = card_vs_cpu(
+            torch, _build, f"geneigsolve Q1 16x64 {which} float64",
+            geneig(q1_coo(np, 16, 64, np.float64), 1024, x16, which, False, tol=1e-8, maxiter=300),
+            1e-10, dev)
+        solves.append(rec)
+        require(ic.converged == 4 and counted == {"banded_spmv": 2 * ic.numops},
+                f"small {rec['solve']}: converged, K3 twice per counted apply ({counted})")
+    # float32, two cycles: the sweeps run the projection kernels; the
+    # unconverged trailing values of two float32 runs part by ~1e-4
+    rec, counted, ic, vals = card_vs_cpu(
+        torch, _build, "geneigsolve Q1 16x64 SR float32 projections=True",
+        geneig(q1_coo(np, 16, 64, np.float32), 1024, x16.float(), "SR", True, tol=1e-30, maxiter=2),
+        2e-4, dev)  # 1e-3 of the values (< 0.2)
+    rec["leading_rel_err"] = abs(rec["vals"][0] - rec["vals_cpu"][0]) / abs(rec["vals_cpu"][0])
+    solves.append(rec)
+    require(rec["leading_rel_err"] <= 1e-5, f"small {rec['solve']}: leading value within 1e-5")
+    sweeps = golubye_sweeps(ic.numops, ic.numiter)
+    require(counted == {"banded_spmv": 2 * ic.numops, "project": sweeps, "unproject": sweeps},
+            f"small {rec['solve']}: K3 twice per counted apply, K5 = K6 = 2(numops + numiter - 1) "
+            f"= {sweeps} ({counted})")
+    # a callable pencil of dense float64 matrices
+    rng = np.random.default_rng(44)
+    G = rng.standard_normal((200, 200)) / 200 ** 0.5
+    C = rng.standard_normal((200, 200)) / 200 ** 0.5
+    A, B, xg = (G + G.T) / 2, C @ C.T + 2 * np.eye(200), rng.standard_normal(200)
+
+    def callable_pencil(d):
+        At, Bt = torch.from_numpy(A).to(d), torch.from_numpy(B).to(d)
+        vals, _, info = kt.geneigsolve((lambda v: At @ v, lambda v: Bt @ v), torch.from_numpy(xg).to(d),
+                                       2, "SR", krylovdim=30, tol=1e-10, maxiter=100, **quiet)
+        return vals, info
+
+    rec, counted, ic, _ = card_vs_cpu(torch, _build, "geneigsolve callable dense pencil float64",
+                                      callable_pencil, 1e-10, dev)
+    solves.append(rec)
+    require(ic.converged == 2 and counted == {}, "small callable pencil: converged, no kernel")
+    # Block Lanczos on the banded Poisson, block of 4 from default_rng(5)
+    rng = np.random.default_rng(5)
+    xs = [torch.from_numpy(rng.standard_normal((N * N // 128, 128))) for _ in range(4)]
+    pcoo = poisson_coo(np, N, np.float64)
+
+    def block(d):
+        vals, _, info = kt.eigsolve(kt.banded_from_coo(*pcoo, N * N, device=d),
+                                    kt.Block([x.to(d) for x in xs]), 4, "LR", krylovdim=30, tol=1e-8,
+                                    maxiter=300, **quiet)
+        return vals, info
+
+    rec, counted, ic, vals = card_vs_cpu(torch, _build, "block lanczos poisson 32x32 LR float64",
+                                         block, 1e-10, dev)
+    want = poisson_top(np, N, 4)
+    rec["analytic"] = want.tolist()
+    solves.append(rec)
+    require(ic.converged == 4 and counted == {"banded_spmv": ic.numops},
+            f"small block lanczos: converged, K3 once per apply ({counted})")
+    require(float((vals - torch.from_numpy(want)).abs().max()) <= 1e-8,
+            f"small block lanczos: the top four {vals.tolist()} within 1e-8 of {want.tolist()} "
+            "(the repeated pair resolved)")
+
+    # the ELL operator of the Q1 stiffness at full width, card against CPU
+    coo_k, n_q = q1_full
+    ell = kt.sparse.from_coo(*coo_k, (n_q, n_q), device=dev)
+    ell_h = kt.sparse.from_coo(*coo_k, (n_q, n_q), with_adjoint=False, device="cpu")
+    xq = torch.from_numpy(np.random.default_rng(8).standard_normal(n_q).astype(np.float32))
+    y, y_adj = ell.normal(xq.to(dev)), ell.apply_adjoint(xq.to(dev))
+    yh = ell_h.normal(xq)
+    scale = kt.sparse.ELLOperator(ell_h.cols, ell_h.vals.abs(), n_q).normal(xq.abs())
+    rel = float(((y.cpu() - yh).abs() / scale.clamp_min(1e-30)).max())
+    rel_adj = float(((y_adj.cpu() - yh).abs() / scale.clamp_min(1e-30)).max())
+    kb = kt.banded_from_coo(*coo_k, n_q, device=dev)
+    eb = kt.ell_to_banded(ell)
+    ell_rec = {"n": n_q, "width": ell.cols.shape[1], "stored": int((ell.vals != 0).sum()),
+               "max_rel_err": rel, "adjoint_max_rel_err": rel_adj, "tolerance": "1e-6*sum|a||x|",
+               "ell_to_banded_offsets": list(eb.offsets)}
+    require(rel <= 1e-6 and rel_adj <= 1e-6,
+            f"ELL Q1 stiffness: card apply (and its adjoint, K symmetric) within 1e-6 of the CPU's")
+    require(eb.offsets == kb.offsets and torch.equal(eb.diags, kb.diags),
+            "ELL Q1 stiffness: ell_to_banded gives the offsets and planes of banded_from_coo")
+    del ell, ell_h, kb, eb
+
+    # complex planes: the plain version on the card too, no K3 launch
+    cplx = []
+    for dt, tol in ((np.complex64, 1e-6), (np.complex128, 1e-12)):
+        rng = np.random.default_rng(9)
+        n_c, offs = 1000, (-7, -1, 0, 2)
+        rows = np.concatenate([np.arange(max(0, -d), min(n_c, n_c - d)) for d in offs])
+        cols = np.concatenate([np.arange(max(0, -d), min(n_c, n_c - d)) + d for d in offs])
+        vals = (rng.standard_normal(rows.size) + 1j * rng.standard_normal(rows.size)).astype(dt)
+        xc = torch.from_numpy((rng.standard_normal(n_c) + 1j * rng.standard_normal(n_c)).astype(dt))
+        opc, oph = (kt.banded_from_coo(rows, cols, vals, n_c, device=d) for d in (dev, "cpu"))
+        absop = kt.banded_from_coo(rows, cols, np.abs(vals), n_c, device="cpu")
+        pairs = [(opc.normal, oph.normal(xc), absop.normal(xc.abs())),
+                 (opc.apply_adjoint, oph.apply_adjoint(xc), absop.apply_adjoint(xc.abs()))]
+        _build.reset_launches()
+        errs = [float(((fc(xc.to(dev)).cpu() - yh).abs() / sc).max()) for fc, yh, sc in pairs]
+        k3 = _build.launches["banded_spmv"]
+        cplx.append({"dtype": str(dt.__name__), "n": n_c, "max_rel_err": errs, "tolerance": tol,
+                     "banded_spmv_launches": k3})
+        require(max(errs) <= tol and k3 == 0,
+                f"complex BandedOperator {dt.__name__}: card within {tol} of the CPU, no K3 launch")
+    return {"phase": "small_geneig_block", "solves": solves, "ell": ell_rec, "complex_banded": cplx,
+            "phase_seconds": time.perf_counter() - t_phase}
+
+
+def geneig_kernel(cases):
+    """The ``geneig`` shapes' fields of a kernel's entry in the ``kernels``
+    line: the largest error over ``cases`` and the times of the timed ones,
+    each case labelled by its operator or live length."""
+    out = {"max_abs_err_geneig": max(c["max_abs_err"] for c in cases)}
+    for c in cases:
+        if "ms" in c:
+            tag = c["case"].split()[1] if "case" in c else f"k{c['k']}"
+            out.update({f"{key}_geneig_{tag}": c[key]
+                        for key in ("ms", "plain_ms", "bound_ms", "library_ms")})
+    return out
+
+
+def sweep_times(torch, pb, V, w, c, ks):
+    """Per-launch times of K5 and K6 at each live length in ``ks`` over the
+    basis ``V``: ``{k: (project ms, unproject ms)}``."""
+    return {k: (device_ms(torch, lambda: pb.project_pallas(V, w, k), reps=5),
+                device_ms(torch, lambda: pb.unproject_pallas(V, c, k), reps=5)) for k in set(ks)}
+
+
+def geneig_full(torch, np, kt, _build, bd, bs, fl, pb, q1_full, N, smi, dev="cuda"):
+    """Phase ``geneig``: the Q1 pencil on the ``N × N`` grid in float32,
+    ``geneigsolve((K, M), x0, 4, "SR", krylovdim=30, maxiter=8, tol=1e-30)``
+    with the projection kernels off, then on; per route the launch counts of
+    one solve, then 2 timed solves, one metric line each (printed before its
+    checks).  Before the solves, K3 on both nine-offset operators and K5/K6
+    on the solve's ``(37, R, 128)`` basis are held against their plain
+    versions, K5/K6 at the live lengths the sweeps reach (1 to 30, mean
+    15.9) and beyond, up to all 37 rows.  Returns the launches by route and
+    the kernel records."""
+    (coo_k, coo_m), n = q1_full, N * N
+    Kb, Mb = kt.banded_from_coo(*coo_k, n, device=dev), kt.banded_from_coo(*coo_m, n, device=dev)
+    require(len(Kb.offsets) == len(Mb.offsets) == 9 and Kb.diags.dtype == torch.float32,
+            f"Q1 pencil: nine offsets each, float32 ({Kb.offsets}, {Mb.offsets})")
+    nnz = Kb.nnz + Mb.nnz
+    x0 = torch.from_numpy(np.random.default_rng(4).standard_normal((n // 128, 128))
+                          .astype(np.float32)).to(dev)
+    lo, hi = q1_bounds(np, N)
+    kw = dict(krylovdim=30, maxiter=8, tol=1e-30, verbosity=kt.SILENT)
+    flush = torch.empty(32 << 20, device=dev)  # 128 MB, written to clear L2
+    k3_cases = [check_banded(torch, bd, f"Q1 {name} f32, 9 offsets", x0, op.diags, op.offsets, n, flush)
+                for name, op in (("K", Kb), ("M", Mb))]
+    del flush
+    k3_ms = [case["ms"] for case in k3_cases]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    mcap = 30 + 4 + 3
+    k5_cases, k6_cases = check_projections(torch, pb, mcap, n // 128, (0, 1, 16, 30, 31, 33, 36, mcap),
+                                           gen, timed=(16,))
+    kernels = {"phase": "kernels_geneig", "banded_spmv": k3_cases, "project": k5_cases,
+               "unproject": k6_cases}
+    emit(kernels)
+    V = torch.randn((mcap, n // 128, 128), generator=gen, device=dev)
+    c = torch.randn(V.shape[0], generator=gen, device=dev)
+    t_phase = time.perf_counter()
+    launches_by, lead = {}, {}
+    for metric, flag in (("geneigsolve_golubye_q1", False), ("geneigsolve_golubye_q1_proj", True)):
+        bs.use_pallas_projections = flag
+        try:
+            (vals, vecs, info), launches, _, sweeps, first_ms, ms = drive_counted(
+                torch, _build, fl, pb, lambda: kt.geneigsolve((Kb, Mb), x0, 4, "SR", **kw), reps=2)
+        finally:
+            bs.use_pallas_projections = False
+        ks = [k for _, k in sweeps]
+        kernel_ms = {"banded_spmv": info.numops * sum(k3_ms)}
+        if ks:
+            per_k = sweep_times(torch, pb, V, x0, c, ks)
+            kernel_ms["project"] = sum(per_k[k][0] for k in ks)
+            kernel_ms["unproject"] = sum(per_k[k][1] for k in ks)
+        # each returned pair against plain float64 applies of K and M on the card
+        rq, fresh = [], []
+        for i in range(4):
+            v = vecs[i].double()
+            kv = bd.banded_spmv_reference(v, Kb.diags.double(), Kb.offsets, n)
+            mv = bd.banded_spmv_reference(v, Mb.diags.double(), Mb.offsets, n)
+            rq.append(float(torch.sum(v * kv) / torch.sum(v * mv)))
+            fresh.append((float(torch.linalg.vector_norm(kv - float(vals[i]) * mv)),
+                          float(torch.linalg.vector_norm(kv))))
+        vh = vals.cpu().double()
+        nr = info.normres.cpu().tolist()
+        rq_err = [abs(rq[i] - float(vh[i])) / abs(float(vh[i])) for i in range(4)]
+        launches_by[metric] = launches
+        lead[metric] = float(vh[0])
+        emit({
+            "metric": metric, "value": info.numops * nnz / ms / 1e6, "unit": "Gnnz/s",
+            "formula": "numops * (nnz(K) + nnz(M)) / t", "nnz_K": Kb.nnz, "nnz_M": Mb.nnz,
+            "projection_kernels": flag, "numops": info.numops, "numiter": info.numiter,
+            "converged": info.converged, "ms_per_solve": ms, "first_solve_ms": first_ms,
+            "vals": vh.tolist(), "analytic_range": [lo, hi], "normres": nr,
+            "fresh_residual": [f for f, _ in fresh], "rayleigh_rel_err": rq_err,
+            "launches_per_solve": launches, "projection_k_mean": sum(ks) / len(ks) if ks else None,
+            "kernel_ms_per_solve": kernel_ms, "kernel_ms_per_launch": {"banded_spmv_K": k3_ms[0],
+                                                                       "banded_spmv_M": k3_ms[1]},
+            "outside_kernels_ms_per_solve": ms - sum(kernel_ms.values()),
+            "device": torch.cuda.get_device_name(0) if dev != "cpu" else "cpu", "nvidia_smi": smi,
+        })
+        require(info.numiter == 8 and info.numops == 1 + 29 + 7 * 30,
+                f"{metric}: 8 cycles, numops 1 + 29 + 7*30 = 240 (got {info.numiter}, {info.numops})")
+        sw = golubye_sweeps(info.numops, info.numiter)
+        want = {"banded_spmv": 2 * info.numops}
+        if flag:
+            want.update(project=sw, unproject=sw)
+        require(launches == want, f"{metric}: launches {launches}, expected {want} (K3 twice per "
+                "counted apply; with the flag K5 = K6 = 2(numops + numiter - 1))")
+        require(bool(torch.isfinite(vecs).all()) and tuple(vecs.shape) == (4, n // 128, 128),
+                f"{metric}: finite (4, R, 128) vectors")
+        require(bool((vh[1:] >= vh[:-1]).all()) and lo * (1 - 1e-4) <= float(vh[0])
+                and float(vh[-1]) <= hi * (1 + 1e-4),
+                f"{metric}: values ascending within [2mu_1, 2mu_N] = [{lo}, {hi}]: {vh.tolist()}")
+        require(max(rq_err) <= 1e-4, f"{metric}: each value within 1e-4 of its vector's Rayleigh "
+                f"quotient <v, Kv>/<v, Mv> ({rq_err})")
+        require(all(abs(fresh[i][0] - nr[i]) <= 1e-3 * fresh[i][1] for i in range(4)),
+                f"{metric}: normres {nr} within 1e-3 |Kv| of |Kv - rho Mv| {fresh}")
+    agree = abs(lead["geneigsolve_golubye_q1_proj"] - lead["geneigsolve_golubye_q1"]) / abs(
+        lead["geneigsolve_golubye_q1"])
+    emit({"phase": "geneig_agreement", "leading_rel_diff": agree, "tolerance": GENEIG_ROUTE_TOL,
+          "phase_seconds": time.perf_counter() - t_phase})
+    require(agree <= GENEIG_ROUTE_TOL, f"geneig: leading values of the two routes within "
+            f"{GENEIG_ROUTE_TOL} ({agree})")
+    return launches_by, kernels
+
+
+def block_full(torch, np, kt, _build, bd, fl, pb, banded, grid, N, smi, dev="cuda"):
+    """Phase ``block_lanczos``: Block Lanczos on the 5-point Poisson matrix
+    of the ``N × N`` grid in float32, ``eigsolve(P, Block([x1..x4]), 4,
+    "LR", krylovdim=30, maxiter=8, tol=1e-30)``, on the banded operator
+    ``banded`` and on the grid stencil ``grid``; per route the launch
+    counts of one solve, then 2 timed solves, one metric line each (printed
+    before its checks).  Returns the launches of the banded route."""
+    n = N * N
+    rng = np.random.default_rng(5)
+    X0 = kt.Block([torch.from_numpy(rng.standard_normal((n // 128, 128)).astype(np.float32)).to(dev)
+                   for _ in range(4)])
+    kw = dict(krylovdim=30, maxiter=8, tol=1e-30, verbosity=kt.SILENT)
+    k3 = device_ms(torch, lambda: bd.banded_spmv(X0[0], banded.diags, banded.offsets, n))
+    t_phase = time.perf_counter()
+    out = {}
+    Pd = banded.diags.double()
+    for metric, op in (("block_lanczos_poisson_2d_banded", banded), ("block_lanczos_poisson_2d", grid)):
+        (vals, vecs, info), launches, _, _, first_ms, ms = drive_counted(
+            torch, _build, fl, pb, lambda: kt.eigsolve(op, X0, 4, "LR", **kw), reps=2)
+        kernel_ms = {"banded_spmv": launches.get("banded_spmv", 0) * k3}
+        W = vecs.reshape(4, -1).double()
+        ortho = float((W @ W.T - torch.eye(4, dtype=W.dtype, device=W.device)).abs().max())
+        rq = [float(torch.sum(W[i] * bd.banded_spmv_reference(W[i], Pd, banded.offsets, n))
+                    / torch.sum(W[i] * W[i])) for i in range(4)]
+        vh = vals.cpu().double()
+        rq_err = [abs(rq[i] - float(vh[i])) / abs(float(vh[i])) for i in range(4)]
+        out[metric] = (info, launches, float(vh[0]))
+        emit({
+            "metric": metric, "value": info.numops * 5 * n / ms / 1e6, "unit": "Gnnz/s",
+            "formula": "numops * 5n / t", "numops": info.numops, "numiter": info.numiter,
+            "converged": info.converged, "ms_per_solve": ms, "first_solve_ms": first_ms,
+            "vals": vh.tolist(), "normres": info.normres.cpu().tolist(), "orthonormality_err": ortho,
+            "rayleigh_rel_err": rq_err, "launches_per_solve": launches,
+            "kernel_ms_per_solve": kernel_ms, "kernel_ms_per_launch": {"banded_spmv": k3},
+            "outside_kernels_ms_per_solve": ms - sum(kernel_ms.values()),
+            "device": torch.cuda.get_device_name(0) if dev != "cpu" else "cpu", "nvidia_smi": smi,
+        })
+        require(info.numiter == 8, f"{metric}: 8 iterations (got {info.numiter})")
+        require(bool(torch.isfinite(vecs).all()) and tuple(vecs.shape) == (4, n // 128, 128),
+                f"{metric}: finite (4, R, 128) vectors")
+        require(bool((vh[:-1] >= vh[1:]).all()) and 0 <= float(vh[-1]) and float(vh[0]) <= 8,
+                f"{metric}: values descending within [0, 8]: {vh.tolist()}")
+        require(ortho <= 1e-4, f"{metric}: vectors orthonormal to 1e-4 ({ortho})")
+        require(max(rq_err) <= 1e-4, f"{metric}: each value within 1e-4 (relative) of its vector's "
+                f"Rayleigh quotient ({rq_err})")
+    (ib, lb, vb), (ig, lg, vg) = (out[k] for k in ("block_lanczos_poisson_2d_banded",
+                                                   "block_lanczos_poisson_2d"))
+    # 7 block steps fill the first cycle (k = 0..28), 3 refill each of the 7
+    # restarted ones (keep 18 → 30), 4 applies a step
+    require(ib.numops == ig.numops == 4 * (7 + 7 * 3),
+            f"block lanczos: numops 4*(7 + 7*3) = 112 on both routes ({ib.numops}, {ig.numops})")
+    require(lb == {"banded_spmv": ib.numops} and lg == {},
+            f"block lanczos: K3 once per apply on the banded route, nothing on the stencil ({lb}, {lg})")
+    agree = abs(vb - vg) / abs(vg)
+    emit({"phase": "block_lanczos_agreement", "leading_rel_diff": agree, "tolerance": BLOCK_ROUTE_TOL,
+          "numops": ib.numops, "phase_seconds": time.perf_counter() - t_phase})
+    require(agree <= BLOCK_ROUTE_TOL, f"block lanczos: leading values of the two routes within "
+            f"{BLOCK_ROUTE_TOL} ({agree})")
+    return lb
+
+
 def banded_csr(torch, D, offsets, n):
     """The banded matrix as a ``torch.sparse_csr_tensor`` of its nonzero
     entries: the cuSPARSE yardstick, never called by the port."""
@@ -617,7 +1041,7 @@ def profile_solve(torch, label, solve):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one config-1 and one config-4 solve (phase 10)")
+                    help="also profile one config-1 and one config-4 solve (phase 16)")
     ap.add_argument("--parent", metavar="DIR",
                     help="an unpacked earlier tree: time its K1 and K2 on this card as parent_ms")
     ap.add_argument("--kernel-times", action="store_true",
@@ -1229,7 +1653,13 @@ def main():
                 f"small {label}: converged; K1 launched by the fused solve only ({counted})")
     emit({"phase": "small_svd_exp", "solves": small_se})
 
-    # 11. config 3 at full size: the rectangular map and the square stencil
+    # 11. small generalized and block eigensolves, ELL and complex banded:
+    # card vs CPU (plain versions)
+    nq = 1024
+    q1_full = q1_coo(np, nq, nq, np.float32)
+    emit(small_geneig_block(torch, np, kt, _build, bs, (q1_full[0], nq * nq)))
+
+    # 12. config 3 at full size: the rectangular map and the square stencil
     C3, R3 = 1 << 19, 1 << 20
     wr = torch.from_numpy(np.linspace(1.0, 3.0, C3, dtype=np.float32).reshape(C3 // 128, 128)).cuda()
 
@@ -1360,7 +1790,7 @@ def main():
           "ms_per_round_mean": mean(svd_rounds)})
     require(len(svd_rounds) == nit3, "config-3: one projected SVD per round")
 
-    # 12. config 4's exponentiate step at full size
+    # 13. config 4's exponentiate step at full size
     x0e = x04
     kwe = dict(krylovdim=m, tol=1e-4, ishermitian=True, **quiet)
     calls = []
@@ -1431,6 +1861,16 @@ def main():
           "ms_per_call_mean": mean(phi_ms)})
     del Vq, yq, gq
 
+    # 14. the Q1 pencil at full width through geneigsolve, the projection
+    # kernels off and on
+    geneig_launches, kg = geneig_full(torch, np, kt, _build, bd, bs, fl, pb, q1_full, nq, smi)
+    del q1_full
+
+    # 15. Block Lanczos on the config-2 Poisson matrix, banded and stencil
+    block_launches = block_full(torch, np, kt, _build, bd, fl, pb, banded, grid, nx, smi)
+    geneig_off, geneig_on = (geneig_launches[k] for k in ("geneigsolve_golubye_q1",
+                                                          "geneigsolve_golubye_q1_proj"))
+
     if args.profile:
         emit(profile_solve(torch, "config 1 Lanczos eigsolve",
                            lambda: kt.eigsolve_lanczos(op, x0, 4, "LM", alg)))
@@ -1483,7 +1923,7 @@ def main():
             "source": "krylovkit_tpu_torch/csrc/banded_spmv.cu",
             "replaces": "krylovkit_tpu/ops/pallas_spmv.py:44",
             "launches": config2_launches.get("banded_spmv", 0),
-            "max_abs_err": max(c["max_abs_err"] for c in k3_cases),
+            "max_abs_err": max(c["max_abs_err"] for c in k3_cases + kg["banded_spmv"]),
             "ms": k3_main["ms"], "cold_ms": k3_main["cold_ms"], "plain_ms": k3_main["plain_ms"],
             "bound_ms": k3_main["bound_ms"], "bound_by": k3_main["bound_by"],
             "library_ms": k3_main["library_ms"],
@@ -1491,6 +1931,10 @@ def main():
                       "over the two banded config-2 solves",
             "launches_config4_arnoldi": proj4["launches"]["banded_spmv"],
             "ms_config4_arnoldi": k3_c4["ms"],
+            "launches_geneig": geneig_off["banded_spmv"],
+            "launches_geneig_proj": geneig_on["banded_spmv"],
+            "launches_block": block_launches["banded_spmv"],
+            **geneig_kernel(kg["banded_spmv"]),
         },
         {
             "name": "laplacian_1d", "route": "cuda",
@@ -1508,7 +1952,7 @@ def main():
             "source": "krylovkit_tpu_torch/csrc/projections.cu",
             "replaces": "krylovkit_tpu/ops/pallas_basis.py:59",
             "launches": proj4["launches"]["project"],
-            "max_abs_err": max(c["max_abs_err"] for c in k5_cases),
+            "max_abs_err": max(c["max_abs_err"] for c in k5_cases + kg["project"]),
             "ms": mean([proj_ms4[k][0]["ms"] for k in ks4]),
             "plain_ms": mean([proj_ms4[k][0]["plain_ms"] for k in ks4]),
             "bound_ms": mean([proj_ms4[k][0]["bound_ms"] for k in ks4]),
@@ -1517,13 +1961,17 @@ def main():
             "shapes": "mean per launch over the config-4 banded Arnoldi solve's sweeps, "
                       "(31, 8192, 128) f32 basis, k = 1..30",
             "launches_config3_rect_proj": proj3["launches"]["project"],
+            "launches_geneig": geneig_off.get("project", 0),
+            "launches_geneig_proj": geneig_on["project"],
+            "launches_block": block_launches.get("project", 0),
+            **geneig_kernel(kg["project"]),
         },
         {
             "name": "unproject", "route": "cuda",
             "source": "krylovkit_tpu_torch/csrc/projections.cu",
             "replaces": "krylovkit_tpu/ops/pallas_basis.py:118",
             "launches": proj4["launches"]["unproject"],
-            "max_abs_err": max(c["max_abs_err"] for c in k6_cases),
+            "max_abs_err": max(c["max_abs_err"] for c in k6_cases + kg["unproject"]),
             "ms": mean([proj_ms4[k][1]["ms"] for k in ks4]),
             "plain_ms": mean([proj_ms4[k][1]["plain_ms"] for k in ks4]),
             "bound_ms": mean([proj_ms4[k][1]["bound_ms"] for k in ks4]),
@@ -1532,6 +1980,10 @@ def main():
             "shapes": "mean per launch over the config-4 banded Arnoldi solve's sweeps, "
                       "(31, 8192, 128) f32 basis, k = 1..30",
             "launches_config3_rect_proj": proj3["launches"]["unproject"],
+            "launches_geneig": geneig_off.get("unproject", 0),
+            "launches_geneig_proj": geneig_on["unproject"],
+            "launches_block": block_launches.get("unproject", 0),
+            **geneig_kernel(kg["unproject"]),
         },
     ]})
     print(nvidia_smi_line(), flush=True)

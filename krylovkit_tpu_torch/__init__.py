@@ -1,11 +1,13 @@
 """krylovkit_tpu_torch — the PyTorch/CUDA port of ``krylovkit_tpu``.
 
-It covers the Hermitian Lanczos eigsolve, the Krylov-Schur Arnoldi solvers
-(``schursolve``, non-Hermitian ``eigsolve``, ``realeigsolve``), the linear
-solvers (CG, GMRES, MINRES, BiCGStab), the GKL singular-value solver
-(``svdsolve``, ``realsvdsolve``), LSMR least squares (``lssolve``,
-``reallssolve``) and the matrix functions (``exponentiate``,
-``expintegrator``), with six hand-written CUDA kernels
+It covers the Hermitian Lanczos eigsolve, Block Lanczos (``eigsolve`` with
+a :class:`Block` start), the Krylov-Schur Arnoldi solvers (``schursolve``,
+non-Hermitian ``eigsolve``, ``realeigsolve``), the Golub-Ye generalized
+eigensolver (``geneigsolve``), the linear solvers (CG, GMRES, MINRES,
+BiCGStab), the GKL singular-value solver (``svdsolve``, ``realsvdsolve``),
+LSMR least squares (``lssolve``, ``reallssolve``) and the matrix functions
+(``exponentiate``, ``expintegrator``), on dense, stencil, banded and ELL
+(``sparse``) operators, with six hand-written CUDA kernels
 (``csrc/``): the fused one-stream expansion, the in-place restart rotation,
 the banded SpMV of :class:`BandedOperator`, the 1-D Laplacian of
 ``laplacian_1d_pallas`` and the two live-row basis projections
@@ -36,6 +38,7 @@ from .algorithms import (  # noqa: E402
     BiCGStab,
     BlockLanczos,
     EigSorter,
+    GolubYe,
     KrylovDefaults,
     Lanczos,
     cgs,
@@ -53,13 +56,16 @@ from .ops.operator import (  # noqa: E402
     StencilOperator,
     as_operator,
 )
-from .ops.banded import BandedOperator, banded_from_coo, banded_from_dense  # noqa: E402
+from .ops import sparse  # noqa: E402
+from .ops.banded import BandedOperator, banded_from_coo, banded_from_dense, ell_to_banded  # noqa: E402
+from .ops.block import Block  # noqa: E402
 from .ops.stencil_1d import laplacian_1d_pallas  # noqa: E402
 from .ops.vector import REAL, STANDARD, VectorSpace  # noqa: E402
 from .parallel.operators import laplacian_1d, poisson_2d  # noqa: E402
 from .solvers.arnoldi import eigsolve_arnoldi  # noqa: E402
 from .solvers.eigsolve import eigsolve, realeigsolve, schursolve  # noqa: E402
 from .solvers.expintegrator import expintegrator, exponentiate  # noqa: E402
+from .solvers.golubye import geneigsolve  # noqa: E402
 from .solvers.lanczos import eigsolve_lanczos  # noqa: E402
 from .solvers.linsolve import linsolve, reallinsolve  # noqa: E402
 from .solvers.lssolve import lssolve, reallssolve  # noqa: E402
@@ -75,6 +81,7 @@ __all__ = [
     "LSMR",
     "MINRES",
     "EigSorter",
+    "GolubYe",
     "KrylovDefaults",
     "Lanczos",
     "cgs",
@@ -95,6 +102,9 @@ __all__ = [
     "BandedOperator",
     "banded_from_coo",
     "banded_from_dense",
+    "ell_to_banded",
+    "sparse",
+    "Block",
     "laplacian_1d_pallas",
     "as_operator",
     "VectorSpace",
@@ -107,6 +117,7 @@ __all__ = [
     "eigsolve_lanczos",
     "schursolve",
     "realeigsolve",
+    "geneigsolve",
     "linsolve",
     "reallinsolve",
     "svdsolve",

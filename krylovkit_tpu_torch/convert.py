@@ -14,19 +14,25 @@ import dataclasses
 import numpy as np
 import torch
 
-from .algorithms import CG, GKL, GMRES, LSMR, MINRES, Arnoldi, BiCGStab, Lanczos
+from .algorithms import (
+    CG, GKL, GMRES, LSMR, MINRES, Arnoldi, BiCGStab, BlockLanczos, GolubYe, Lanczos,
+)
 from .factorizations.gkl import GKLState
 from .factorizations.krylov import FusedScales, KrylovState
 from .ops import orthonormal as on
 from .ops.banded import BandedOperator
+from .ops.block import Block
 from .ops.operator import GridStencilOperator, MatrixOperator, StencilOperator, resolve_device
+from .ops.sparse import ELLOperator
 
 __all__ = [
     "stencil_from_arrays",
     "grid_stencil_from_arrays",
     "banded_from_arrays",
+    "ell_from_arrays",
     "matrix_from_numpy",
     "vector_from_numpy",
+    "block_from_numpy",
     "eig_problem_from_numpy",
     "lanczos_from_dict",
     "arnoldi_from_dict",
@@ -36,6 +42,8 @@ __all__ = [
     "bicgstab_from_dict",
     "gkl_from_dict",
     "lsmr_from_dict",
+    "golubye_from_dict",
+    "blocklanczos_from_dict",
     "krylov_state_from_numpy",
     "gkl_state_from_numpy",
     "fused_scales_from_numpy",
@@ -79,6 +87,21 @@ def banded_from_arrays(offsets, diags, n, adj_offsets=None, adj_diags=None,
     return BandedOperator(offsets, torch.as_tensor(np.array(diags), device=dev), n, adj=adj)
 
 
+def ell_from_arrays(cols, vals, n_cols, adj_cols=None, adj_vals=None,
+                    device="cuda") -> ELLOperator:
+    """An :class:`ELLOperator` from an ELL operator's ``(n_rows, width)``
+    column-index and value planes (e.g. the numpy planes of the JAX
+    package's ``ELLOperator``), with its adjoint when ``adj_cols`` and
+    ``adj_vals`` are given."""
+    dev = resolve_device(device)
+    cols = torch.as_tensor(np.array(cols), device=dev)
+    adj = None
+    if adj_cols is not None:
+        adj = ELLOperator(torch.as_tensor(np.array(adj_cols), device=dev),
+                          torch.as_tensor(np.array(adj_vals), device=dev), cols.shape[0])
+    return ELLOperator(cols, torch.as_tensor(np.array(vals), device=dev), n_cols, adj=adj)
+
+
 def matrix_from_numpy(A, device="cuda") -> MatrixOperator:
     """A :class:`MatrixOperator` holding ``A`` on ``device``."""
     return MatrixOperator(torch.as_tensor(np.asarray(A), device=resolve_device(device)))
@@ -87,6 +110,11 @@ def matrix_from_numpy(A, device="cuda") -> MatrixOperator:
 def vector_from_numpy(x, device="cuda") -> torch.Tensor:
     """``x`` as a tensor on ``device``, same shape and dtype."""
     return torch.as_tensor(np.asarray(x), device=resolve_device(device))
+
+
+def block_from_numpy(vectors, device="cuda") -> Block:
+    """A :class:`Block` of the numpy vectors ``vectors`` on ``device``."""
+    return Block([vector_from_numpy(v, device) for v in vectors])
 
 
 def eig_problem_from_numpy(A, x0, device="cuda"):
@@ -160,6 +188,17 @@ def gkl_from_dict(fields: dict) -> GKL:
 def lsmr_from_dict(fields: dict) -> LSMR:
     """An :class:`LSMR` from its fields; ``orth`` as in :func:`lanczos_from_dict`."""
     return _alg_from_dict(LSMR, fields)
+
+
+def golubye_from_dict(fields: dict) -> GolubYe:
+    """A :class:`GolubYe` from its fields; ``orth`` as in :func:`lanczos_from_dict`."""
+    return _alg_from_dict(GolubYe, fields)
+
+
+def blocklanczos_from_dict(fields: dict) -> BlockLanczos:
+    """A :class:`BlockLanczos` from its fields (``qr_tol`` among them);
+    ``orth`` as in :func:`lanczos_from_dict`."""
+    return _alg_from_dict(BlockLanczos, fields)
 
 
 def krylov_state_from_numpy(V, H, k, beta, device="cuda") -> KrylovState:

@@ -15,8 +15,9 @@ indices disappear into static metadata (``offsets``).
 size-based choice between its kernel and XLA (``_prefer_pallas``, tuned to a
 TPU's VMEM) and its tile-fit limit on the band are not ported: the CUDA
 kernel reads ``x`` from global memory and takes any offset in ``(-n, n)``,
-any ``n``, float32 or float64.  ``ell_to_banded`` waits for
-``ops/sparse.py``.
+any ``n``, float32 or float64.  Complex planes or vectors are outside the
+TPU kernel, and :class:`BandedOperator` applies them with the plain version
+on every device, as the JAX package sends them to XLA.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ __all__ = [
     "banded_from_dense",
     "banded_spmv",
     "banded_spmv_reference",
+    "ell_to_banded",
 ]
 
 LANES = 128
@@ -90,7 +92,7 @@ def banded_spmv(x: torch.Tensor, diags: torch.Tensor, offsets: Tuple[int, ...],
         raise ValueError(f"unsupported device {x.device}")
     if torch.is_complex(x) or torch.is_complex(diags):
         raise ValueError("the CUDA banded SpMV takes real float32/float64 planes; "
-                         "complex planes run only on the CPU")
+                         "BandedOperator applies complex ones with banded_spmv_reference")
     if x.dtype not in (torch.float32, torch.float64) or diags.dtype != x.dtype:
         raise ValueError(f"the CUDA banded SpMV needs x and diags both float32 or both "
                          f"float64, got {x.dtype} and {diags.dtype}")
@@ -159,6 +161,13 @@ class BandedOperator(LinearOperator):
     def _matvec(self, x: torch.Tensor) -> torch.Tensor:
         # mixed precisions compute in the wider type, as the plain version does
         dt = torch.promote_types(self.diags.dtype, x.dtype)
+        if dt.is_complex:
+            # the TPU kernel takes no complex planes: the JAX package applies
+            # them by XLA's shift-and-add (``_pallas_ok`` is false), whose
+            # semantics the plain version has
+            if x.numel() != self.n:
+                raise ValueError(f"vector of {x.numel()} entries for an n={self.n} banded operator")
+            return banded_spmv_reference(x.to(dt), self.diags.to(dt), self.offsets, self.n)
         return banded_spmv(x.to(dt), self.diags.to(dt), self.offsets, self.n)
 
 
@@ -209,3 +218,19 @@ def banded_from_dense(A, tol: float = 0.0, **kw) -> BandedOperator:
         raise ValueError("BandedOperator requires a square matrix")
     rows, cols = np.nonzero(np.abs(A) > tol)
     return banded_from_coo(rows, cols, A[rows, cols], A.shape[0], **kw)
+
+
+def ell_to_banded(op, max_offsets: Optional[int] = MAX_OFFSETS) -> BandedOperator:
+    """The :class:`BandedOperator` of a square ELL operator
+    (``ops/sparse.py``), on the ELL operator's device; its stored zeros are
+    dropped.  Raises ``ValueError`` for a rectangular operator or one with
+    more than ``max_offsets`` distinct column offsets."""
+    n_rows, n_cols = op.shape
+    if n_rows != n_cols:
+        raise ValueError("offset decomposition requires a square matrix")
+    cols = op.cols.cpu().numpy()
+    vals = op.vals.cpu().numpy()
+    rows = np.broadcast_to(np.arange(n_rows)[:, None], cols.shape)
+    mask = vals != 0
+    return banded_from_coo(rows[mask], cols[mask], vals[mask], n_rows,
+                           max_offsets=max_offsets, device=op.cols.device)

@@ -22,6 +22,8 @@ __all__ = [
     "GridStencilOperator",
     "MatrixOperator",
     "as_operator",
+    "as_generalized_pair",
+    "concrete_start",
     "apply_shifted",
     "probe_dtype",
     "probe_adjoint",
@@ -225,6 +227,29 @@ def as_operator(A, device=None) -> LinearOperator:
     raise TypeError(f"cannot make an operator of {type(A).__name__}")
 
 
+def concrete_start(A) -> torch.Tensor:
+    """The JAX package's start vector for a concrete matrix ``A``:
+    ``default_rng(42)`` normals over ``A.shape[1]`` in ``A``'s type, on
+    ``A``'s device (a numpy matrix: the card)."""
+    if isinstance(A, torch.Tensor):
+        dt, dev = A.dtype, A.device
+    else:
+        dt, dev = torch.from_numpy(np.asarray(A)).dtype, resolve_device("cuda")
+    x = np.random.default_rng(42).standard_normal(A.shape[1])
+    return torch.as_tensor(x, device=dev).to(dt.to_real()).to(dt)
+
+
+def as_generalized_pair(AB, device=None) -> Tuple[LinearOperator, Optional[LinearOperator]]:
+    """Normalize the ``(A, B)`` encoding of a generalized eigenproblem
+    (reference ``genapply``, ``src/apply.jl:22-23``): ``(A, B)``, ``(A,
+    None)`` or a bare ``A``, each by :func:`as_operator`; ``B`` ``None``
+    means the identity."""
+    if isinstance(AB, tuple) and len(AB) == 2:
+        A, B = AB
+        return as_operator(A, device), (as_operator(B, device) if B is not None else None)
+    return as_operator(AB, device), None
+
+
 def apply_shifted(op: LinearOperator, x: torch.Tensor, a0, a1) -> torch.Tensor:
     """``a0·x + a1·A(x)`` (reference ``src/apply.jl:5-11``).  ``a0``/``a1``
     are Python numbers or 0-d tensors; as 0-d operands they never widen a
@@ -237,15 +262,18 @@ def probe_dtype(op: LinearOperator, x0: torch.Tensor) -> torch.dtype:
     """Scalar type of the problem (reference ``apply_scalartype``,
     ``src/apply.jl:26-36``), from one application to a ``meta`` copy of
     ``x0``: no arithmetic, and no count in ``numops``.  Operators that hold
-    their data (a matrix, banded planes) answer from its dtype.  A callable
+    their data (a matrix, banded or ELL planes) answer from its dtype.  A callable
     that mixes the meta copy with tensors it holds cannot run on it; it is
     applied once to a zero vector instead (still not counted)."""
     from .banded import BandedOperator
+    from .sparse import ELLOperator
 
     if isinstance(op, MatrixOperator):
         out = torch.promote_types(op.A.dtype, x0.dtype)
     elif isinstance(op, BandedOperator):
         out = torch.promote_types(op.diags.dtype, x0.dtype)
+    elif isinstance(op, ELLOperator):
+        out = torch.promote_types(op.vals.dtype, x0.dtype)
     else:
         out = _probe_apply(op.normal, x0).dtype
     return torch.promote_types(out, x0.dtype)
@@ -284,7 +312,7 @@ def require_adjoint(op: LinearOperator) -> LinearOperator:
         raise NotImplementedError(
             "a bare callable has no adjoint: deriving one by linear "
             "transposition (with_adjoint_from) is not ported yet (ROADMAP.md "
-            "queue 1, item 11); pass a (f, fadjoint) tuple or a matrix"
+            "queue 1, item 7); pass a (f, fadjoint) tuple or a matrix"
         )
     return op
 

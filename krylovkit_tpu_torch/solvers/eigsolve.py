@@ -3,9 +3,9 @@ of ``krylovkit_tpu/solvers/eigsolve.py``).
 
 The ``eigselector`` picks Lanczos for Hermitian problems (``ishermitian=True``
 or a concrete matrix that is Hermitian by a numerical probe) and Arnoldi
-otherwise; BlockLanczos and differentiation through the solve are not ported
-yet and raise ``NotImplementedError``.  The solve runs on the device of
-``x0``.
+otherwise; a :class:`Block` start (or a ``BlockLanczos`` algorithm) runs
+Block Lanczos.  Differentiation through the solve is not ported yet and
+raises ``NotImplementedError``.  The solve runs on the device of ``x0``.
 """
 
 from __future__ import annotations
@@ -16,10 +16,12 @@ import numpy as np
 import torch
 
 from ..algorithms import Arnoldi, BlockLanczos, Lanczos
-from ..ops.operator import as_operator, probe_dtype, resolve_device
+from ..ops.block import Block
+from ..ops.operator import as_operator, concrete_start, probe_dtype
 from ..ops.vector import STANDARD, VectorSpace
 from .arnoldi import eigsolve_arnoldi, realeigsolve_arnoldi
 from .arnoldi import schursolve as _schursolve_arnoldi
+from .blocklanczos import eigsolve_blocklanczos
 from .lanczos import eigsolve_lanczos
 
 __all__ = ["eigsolve", "eigsolve_vjp", "schursolve", "realeigsolve"]
@@ -44,13 +46,7 @@ def _default_x0(A, x0):
             raise ValueError("starting vector x0 has zero norm")
         return x0
     if _is_concrete(A) and A.ndim == 2:
-        n = A.shape[1]
-        if isinstance(A, torch.Tensor):
-            dt, dev = A.dtype, A.device
-        else:
-            dt, dev = torch.from_numpy(np.asarray(A)).dtype, resolve_device("cuda")
-        x = np.random.default_rng(42).standard_normal(n)
-        return torch.as_tensor(x, device=dev).to(dt.to_real()).to(dt)
+        return concrete_start(A)
     raise ValueError("x0 is required unless the operator is a concrete matrix")
 
 
@@ -67,7 +63,7 @@ def _select_alg(A, ishermitian, alg, **kw):
 def eigsolve_vjp(*args, **kwargs):
     """Differentiation through ``eigsolve`` (the JAX package's custom VJP)."""
     raise NotImplementedError(
-        "eigsolve_vjp is not ported yet (ROADMAP.md queue 1, item 11: AD as "
+        "eigsolve_vjp is not ported yet (ROADMAP.md queue 1, item 7: AD as "
         "torch.autograd.Function)"
     )
 
@@ -94,11 +90,18 @@ def eigsolve(
     stacked along a leading axis, ``info`` a :class:`ConvergenceInfo`
     (reference ``eigsolve``, ``src/eigsolve/eigsolve.jl:1-185``).  ``A`` is
     a matrix (tensor or numpy array), a callable or a ``LinearOperator``;
-    a numpy matrix is moved to ``x0``'s device."""
-    if isinstance(alg, BlockLanczos):
-        raise NotImplementedError(
-            "BlockLanczos is not ported yet (ROADMAP.md queue 1, item 10)"
-        )
+    a numpy matrix is moved to ``x0``'s device.  A :class:`Block` ``x0``
+    runs Block Lanczos (reference ``eigselector``,
+    ``src/eigsolve/eigsolve.jl:238-283``) and needs no Hermitian probe."""
+    if isinstance(x0, Block) or isinstance(alg, BlockLanczos):
+        if not isinstance(x0, Block):
+            raise ValueError("BlockLanczos requires a Block starting value x0")
+        if not isinstance(alg, BlockLanczos):
+            kw = dict(tol=tol, krylovdim=krylovdim, maxiter=maxiter, orth=orth,
+                      eager=eager, verbosity=verbosity)
+            alg = BlockLanczos(**{k: v for k, v in kw.items() if v is not None})
+        op = as_operator(A, device=x0.stacked.device)
+        return eigsolve_blocklanczos(op, x0.stacked, howmany, which, alg, space)
     if (x0 is not None and x0.requires_grad) or (
         isinstance(A, torch.Tensor) and A.requires_grad
     ):

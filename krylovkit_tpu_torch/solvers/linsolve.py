@@ -11,7 +11,7 @@ solved (``:250-258``).
 
 The JAX front-end wraps the drivers in a custom VJP and derives an adjoint
 for the pullback; both exist for differentiation, which is not ported yet
-(ROADMAP queue 1 item 11).  This front-end calls :func:`_linsolve_impl`
+(ROADMAP queue 1 item 7).  This front-end calls :func:`_linsolve_impl`
 directly, and takes no ``alg_rrule``.
 """
 

@@ -82,7 +82,8 @@ def test_unported_branches_raise():
     x0 = torch.ones(20, dtype=torch.float64)
     vals, _, _ = kt.eigsolve(A, x0, 2)  # not Hermitian → Arnoldi, ported
     assert vals.dtype == torch.complex128 and bool(torch.isfinite(vals.abs()).all())
-    with pytest.raises(NotImplementedError, match="BlockLanczos"):
+    # BlockLanczos is ported: without a Block start it raises the reference's error
+    with pytest.raises(ValueError, match="BlockLanczos requires a Block starting value x0"):
         kt.eigsolve(A + A.T, x0, 2, alg=kt.BlockLanczos())
     with pytest.raises(NotImplementedError, match="selective"):
         kt.eigsolve(A + A.T, x0, 2, alg=kt.Lanczos(reorth="selective"))

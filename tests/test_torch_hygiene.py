@@ -37,6 +37,7 @@ def test_port_has_files():
         "bicgstab.py", "banded.py", "stencil_1d.py", "givens.py", "triangular.py",
         "projections.cu", "projections.py", "arnoldi.py", "schur.py", "realschur.py",
         "expintegrator.py", "gkl.py", "svd.py", "svdsolve.py", "lssolve.py",
+        "golubye.py", "blocklanczos.py", "block.py", "sparse.py",
     } <= names
 
 

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 import krylovkit_tpu_torch as kt
+from chip_smoke import poisson_coo, q1_coo
 from krylovkit_tpu_torch import _build
 from krylovkit_tpu_torch.ops import banded as bd
 from krylovkit_tpu_torch.ops import basis as bs
@@ -285,24 +286,13 @@ def test_banded_wrappers_raise_instead_of_falling_back():
         s1.laplacian_1d_flat(x.half())
 
 
-def _poisson_coo(nx):
-    i = np.arange(nx * nx)
-    iy, ix = i // nx, i % nx
-    rows, cols, vals = [i], [i], [np.full(i.size, 4.0)]
-    for mask, d in ((iy > 0, -nx), (ix > 0, -1), (ix < nx - 1, 1), (iy < nx - 1, nx)):
-        rows.append(i[mask])
-        cols.append(i[mask] + d)
-        vals.append(np.full(int(mask.sum()), -1.0))
-    return tuple(np.concatenate(a) for a in (rows, cols, vals))
-
-
 @pytest.mark.parametrize("alg", [kt.CG(tol=1e-8, maxiter=300),
                                  kt.GMRES(krylovdim=30, tol=1e-8, maxiter=50),
                                  kt.BiCGStab(tol=1e-8, maxiter=300)],
                          ids=["cg", "gmres", "bicgstab"])
 def test_banded_linsolve_on_card_matches_cpu(alg):
     nx = 64
-    coo = _poisson_coo(nx)
+    coo = poisson_coo(np, nx, np.float64)
     b = torch.ones((nx * nx // 128, 128), dtype=torch.float64)
     before = _build.launches["banded_spmv"]
     xc, ic = kt.linsolve(kt.banded_from_coo(*coo, nx * nx), b.cuda(), a0=0.5, alg=alg)
@@ -465,3 +455,93 @@ def test_exponentiate_on_card_matches_cpu(orth):
     assert (ig.numops, ig.numiter, ig.converged) == (ic.numops, ic.numiter, ic.converged)
     torch.testing.assert_close(yg.cpu(), yc, rtol=1e-4, atol=1e-5)
     assert ("fused_step" in got) == (orth != "mgs2")
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128], ids=["c64", "c128"])
+def test_complex_banded_operator_on_card_matches_cpu(dtype):
+    """Complex planes are outside the TPU kernel: ``BandedOperator`` applies
+    them with the plain version on the card too (no K3 launch), as the JAX
+    package sends them to XLA."""
+    rng = np.random.default_rng(9)
+    n, offsets = 1000, (-130, -1, 0, 3)
+    rows = np.concatenate([np.arange(max(0, -d), min(n, n - d)) for d in offsets])
+    cols = np.concatenate([np.arange(max(0, -d), min(n, n - d)) + d for d in offsets])
+    vals = (rng.standard_normal(rows.size) + 1j * rng.standard_normal(rows.size))
+    vals = torch.from_numpy(vals).to(dtype).numpy()
+    x = torch.from_numpy(rng.standard_normal(n) + 1j * rng.standard_normal(n)).to(dtype)
+    card, host = (kt.banded_from_coo(rows, cols, vals, n, device=d) for d in ("cuda", "cpu"))
+    tol = 1e-6 if dtype == torch.complex64 else 1e-13
+    before = _launches()
+    for fc, fh in ((card.normal, host.normal), (card.apply_adjoint, host.apply_adjoint)):
+        yc = fc(x.cuda())
+        assert yc.dtype == dtype and yc.device.type == "cuda"
+        torch.testing.assert_close(yc.cpu(), fh(x), rtol=tol, atol=tol * float(x.abs().max()))
+    torch.cuda.synchronize()
+    assert _delta(before) == {}
+
+
+def _q1_ops(ny, nx, dtype, device):
+    return tuple(kt.banded_from_coo(*coo, ny * nx, device=device) for coo in q1_coo(np, ny, nx, dtype))
+
+
+@pytest.mark.parametrize("dtype,flag,maxiter", [(np.float64, False, 300), (np.float32, False, 2),
+                                                (np.float32, True, 2)],
+                         ids=["f64-converged", "f32-sweeps", "f32-projection_kernels"])
+def test_geneigsolve_banded_pencil_on_card_matches_cpu(dtype, flag, maxiter):
+    """The Q1 pencil on a 16×64 grid (no repeated eigenvalue): K3 twice per
+    counted apply; with the flag on a float32 basis, K5 and K6 once per cgs2
+    sweep, 2·(numops + numiter − 1)."""
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((8, 128)).astype(dtype))
+    kw = dict(krylovdim=30, maxiter=maxiter, tol=1e-8 if maxiter > 2 else 1e-30)
+    try:
+        bs.use_pallas_projections = flag
+        vh, _, ih = kt.geneigsolve(_q1_ops(16, 64, dtype, "cpu"), x, 4, "SR", **kw)
+        ops = _q1_ops(16, 64, dtype, "cuda")
+        before = _launches()
+        vc, ec, ic = kt.geneigsolve(ops, x.cuda(), 4, "SR", **kw)
+        torch.cuda.synchronize()
+        got = _delta(before)
+    finally:
+        bs.use_pallas_projections = False
+    assert (ic.numops, ic.numiter, ic.converged) == (ih.numops, ih.numiter, ih.converged)
+    rtol = 1e-10 if dtype == np.float64 else 1e-3
+    torch.testing.assert_close(vc.cpu(), vh, rtol=rtol, atol=0)
+    sweeps = 2 * (ic.numops + ic.numiter - 1)
+    want = {"banded_spmv": 2 * ic.numops}
+    if flag:
+        want.update(project=sweeps, unproject=sweeps)
+    assert got == want
+    assert ec.shape == (4, 8, 128) and ec.device.type == "cuda"
+
+
+def test_block_lanczos_banded_on_card_matches_cpu():
+    """The banded 2-D Poisson on a 16×16 grid, a block of 4, ``"LR"``: K3
+    once per apply (one per row of each block step)."""
+    coo = poisson_coo(np, 16, np.float64)
+    rng = np.random.default_rng(5)
+    xs = [torch.from_numpy(rng.standard_normal((2, 128))) for _ in range(4)]
+    kw = dict(krylovdim=30, tol=1e-8, maxiter=300)
+    vh, _, ih = kt.eigsolve(kt.banded_from_coo(*coo, 256, device="cpu"), kt.Block(xs), 4, "LR", **kw)
+    op = kt.banded_from_coo(*coo, 256)
+    before = _launches()
+    vc, ec, ic = kt.eigsolve(op, kt.Block([x.cuda() for x in xs]), 4, "LR", **kw)
+    torch.cuda.synchronize()
+    assert _delta(before) == {"banded_spmv": ic.numops}
+    assert (ic.numops, ic.numiter, ic.converged) == (ih.numops, ih.numiter, ih.converged) and ic.converged == 4
+    torch.testing.assert_close(vc.cpu(), vh, rtol=1e-10, atol=0)
+
+
+def test_ell_apply_on_card_matches_cpu():
+    """The ELL operator of the Q1 stiffness on a 64×64 grid (plain gather and
+    sum on every device) and its conversion to banded planes."""
+    coo, _ = q1_coo(np, 64, 64, np.float32)
+    card = kt.sparse.from_coo(*coo, (4096, 4096))
+    host = kt.sparse.from_coo(*coo, (4096, 4096), device="cpu")
+    x = torch.from_numpy(np.random.default_rng(8).standard_normal(4096).astype(np.float32))
+    scale = kt.sparse.ELLOperator(host.cols, host.vals.abs(), 4096).normal(x.abs())
+    for yc, yh in ((card.normal(x.cuda()), host.normal(x)),
+                   (card.apply_adjoint(x.cuda()), host.apply_adjoint(x))):
+        assert bool(((yc.cpu() - yh).abs() <= 1e-6 * scale).all())
+    banded = kt.ell_to_banded(card)
+    ref = kt.banded_from_coo(*coo, 4096)
+    assert banded.offsets == ref.offsets and torch.equal(banded.diags, ref.diags)
