@@ -80,7 +80,26 @@ without the final ``ok`` line:
 15. block_lanczos — Block Lanczos (block of 4, 4 "LR", krylovdim 30,
    maxiter 8) on config 2's Poisson matrix, banded (K3 per apply) and as
    the grid stencil; one metric line each;
-16. profile (only with ``--profile``) — one more config-1 solve and one
+16. small_ad — every AD route (``linsolve`` with a GMRES and a CG rule;
+   ``eigsolve`` Lanczos and Arnoldi with a GMRES rule and with the
+   Sylvester rule; ``svdsolve`` with both; a ``ParametricOperator``; bare
+   callables in ``svdsolve``/``lssolve`` through ``with_adjoint_from``; the
+   dict-vector eigsolve of the reference's ``test/issues.jl``) in float64
+   and complex128 at the sizes of ``tests/test_ad.py``, on the card against
+   the CPU: gradients within 1e-8 (relative), counts equal;
+17. ad_impurity — the four bound states of config 2's banded Poisson matrix
+   plus four wells (n = 2^20, float32 ``(8192, 128)`` vectors, 4 "SR",
+   krylovdim 30, maxiter 10, tol 1e-5) as a ``ParametricOperator`` of the
+   potential, and the gradient of their sum through the GMRES rule: forward
+   and backward ms and launches (K3 = numops + 1 in the forward, K2 per
+   round and extraction; no K1, K5, K6), Hellmann–Feynman and a central
+   difference; again with the projection kernels on (K5/K6 in the forward's
+   single-leaf sweeps, none in the backward's tuple sweeps), and K2 once on
+   a ``((31, 8192, 128), (31, n))`` tuple basis;
+18. ad_potential — ``linsolve`` of ``(0.5 + P + diag g) x = 1`` by CG at the
+   same width and the gradient of ``⟨c, x⟩`` in ``b`` and ``g``: held
+   against an independent solve for ``c``; K3 once per apply;
+19. profile (only with ``--profile``) — one more config-1 solve and one
    more fused config-4 solve under ``torch.profiler``: device busy time and idle share, device ops, host
    reads of device scalars, device time by kernel name.
 
@@ -91,7 +110,8 @@ printed as ``parent_ms`` beside ``ms`` (without it ``parent_ms`` is null).
 ``--kernel-times`` is that process: it times K1 and K2 of the package under
 ``--root`` (default: this tree) and prints one JSON line.
 
-Each path (phases 5, 7, 9, 12, 13, 14 and 15, one solve at a time) is driven with the launch
+Each path (phases 5, 7, 9, 12, 13, 14, 15, 17 and 18, one solve at a time, the
+forward and the backward of a differentiable solve apart) is driven with the launch
 counts set to 0 just before it and read just after.  Then the kernel
 summary line, the ``nvidia-smi`` name/power line, and as the last line
 ``{"ok": true, "device": {...}}``.
@@ -779,6 +799,456 @@ def block_full(torch, np, kt, _build, bd, fl, pb, banded, grid, N, smi, dev="cud
     return lb
 
 
+# the AD phases: card-against-CPU gradients agree to this (relative to the
+# largest entry, float64 and complex128)
+AD_TOL = 1e-8
+
+
+def _rel_err(torch, a, b):
+    """``max|a − b| / max(1, max|b|)`` over two gradients (host)."""
+    a, b = a.detach().cpu(), b.detach().cpu()
+    return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+
+
+def small_ad_routes(np, kt, torch):
+    """``{label: run}`` of the AD routes of ``small_ad``: ``run(dev)`` builds
+    its numpy-seeded inputs on ``dev``, differentiates one solve and returns
+    ``(gradients, infos)``.  The sizes of ``tests/test_ad.py``."""
+    n = 10
+    routes = {}
+
+    def rand(rng, shape, dtype):
+        a = rng.standard_normal(shape)
+        if np.dtype(dtype).kind == "c":
+            a = a + 1j * rng.standard_normal(shape)
+        return (a / np.sqrt(shape[0] if len(shape) > 1 else 1)).astype(dtype)
+
+    def on(dev, x, grad=False):
+        t = torch.as_tensor(np.asarray(x), device=dev)
+        return t.requires_grad_(True) if grad else t
+
+    for dt in (np.float64, np.complex128):
+        rng = np.random.default_rng(71)
+        A = rand(rng, (n, n), dt) + 2 * np.eye(n, dtype=dt)
+        b, c = rand(rng, (n,), dt), rand(rng, (n,), dt)
+
+        def lin(dev, A=A, b=b, c=c, dt=dt):
+            At, bt = on(dev, A, True), on(dev, b, True)
+            a0, a1 = on(dev, np.asarray(0.4, dt), True), on(dev, np.asarray(1.3, dt), True)
+            x, info = kt.linsolve(At, bt, a0=a0, a1=a1, tol=1e-12, krylovdim=n)
+            torch.real(torch.vdot(on(dev, c), x)).backward()
+            return [At.grad, bt.grad, a0.grad, a1.grad], [info]
+
+        routes[f"linsolve GMRES rule {np.dtype(dt).name}"] = lin
+
+        rng = np.random.default_rng(73)
+        H = rand(rng, (n, n), dt)
+        H = (H + H.conj().T) / 2
+        x0, cv = rand(rng, (n,), dt), rand(rng, (n,), dt)
+
+        def lanczos(dev, H=H, x0=x0, cv=cv, rr=None):
+            Ht = on(dev, H, True)
+            vals, vecs, info = kt.eigsolve(Ht, on(dev, x0), 2, "SR", ishermitian=True, tol=1e-12,
+                                           krylovdim=n, alg_rrule=rr)
+            (vals[0] + 0.5 * vals[1] + torch.abs(torch.vdot(on(dev, cv), vecs[0])) ** 2).backward()
+            return [Ht.grad], [info]
+
+        routes[f"eigsolve Lanczos, GMRES rule {np.dtype(dt).name}"] = lanczos
+
+        rng = np.random.default_rng(76)
+        R = rand(rng, (2 * n, n), dt)
+        u0, cu, dv = R @ rand(rng, (n,), dt), rand(rng, (2 * n,), dt), rand(rng, (n,), dt)
+
+        def svd(dev, R=R, u0=u0, cu=cu, dv=dv, rr=None):
+            Rt = on(dev, R, True)
+            s, U, V, info = kt.svdsolve(Rt, on(dev, u0), 2, "LR", tol=1e-12, krylovdim=n,
+                                        maxiter=100, alg_rrule=rr)
+            pair = torch.vdot(on(dev, cu), U[0]) * torch.vdot(V[0], on(dev, dv))
+            (s.sum() + torch.real(pair)).backward()
+            return [Rt.grad], [info]
+
+        routes[f"svdsolve GMRES rule {np.dtype(dt).name}"] = svd
+
+        rng = np.random.default_rng(75)
+        G = rand(rng, (n, n), dt) + np.diag(np.linspace(1, 2, n))
+        xg, cg_ = rand(rng, (n,), dt), rand(rng, (n,), dt)
+
+        def arnoldi(dev, G=G, xg=xg, cg_=cg_, rr=None):
+            Gt = on(dev, G, True)
+            vals, vecs, info = kt.eigsolve(Gt, on(dev, xg), 1, "LR", tol=1e-12, krylovdim=n,
+                                           alg_rrule=rr)
+            v0 = vecs[0]
+            (torch.real(vals[0]) + 0.7 * torch.imag(vals[0])
+             + torch.abs(torch.vdot(on(dev, cg_).to(v0.dtype), v0)) ** 2).backward()
+            return [Gt.grad], [info]
+
+        routes[f"eigsolve Arnoldi, GMRES rule {np.dtype(dt).name}"] = arnoldi
+        # the Sylvester rules: an Arnoldi alg_rrule on the same problems
+        rr = kt.Arnoldi(tol=1e-12, krylovdim=30, maxiter=100)
+        name = np.dtype(dt).name
+        routes[f"eigsolve Lanczos, Sylvester rule {name}"] = (
+            lambda dev, f=lanczos, rr=rr: f(dev, rr=rr))
+        routes[f"eigsolve Arnoldi, Sylvester rule {name}"] = (
+            lambda dev, f=arnoldi, rr=rr: f(dev, rr=rr))
+        routes[f"svdsolve Sylvester rule {name}"] = (
+            lambda dev, f=svd: f(dev, rr=kt.Arnoldi(tol=1e-12, krylovdim=40, maxiter=200)))
+
+    rng = np.random.default_rng(72)
+    B = rng.standard_normal((n, n)) / np.sqrt(n)
+    S, bs_, cs = B @ B.T + 2 * np.eye(n), rng.standard_normal(n), rng.standard_normal(n)
+
+    def cg(dev):
+        St, bt = on(dev, S, True), on(dev, bs_, True)
+        x, info = kt.linsolve(St, bt, alg=kt.CG(tol=1e-12, maxiter=200))
+        torch.vdot(on(dev, cs), x).backward()
+        return [St.grad, bt.grad], [info]
+
+    routes["linsolve CG rule float64"] = cg
+
+    rng = np.random.default_rng(20)
+    m = 24
+    Sp = rng.standard_normal((m, m))
+    Sp, Dp, xp = (Sp + Sp.T) / 2, rng.standard_normal(m), rng.standard_normal(m)
+
+    def parametric(dev):
+        St, Dt = on(dev, Sp), on(dev, Dp)
+        g = on(dev, np.float64(0.3), True)
+        op = kt.ParametricOperator(lambda g, x: St @ x + g * Dt * x, g)
+        vals, _, info = kt.eigsolve(op, on(dev, xp), 1, "SR", ishermitian=True, krylovdim=24,
+                                    maxiter=100, tol=1e-12)
+        vals[0].backward()
+        return [g.grad], [info]
+
+    routes["ParametricOperator eigsolve float64"] = parametric
+
+    rng = np.random.default_rng(300)
+    Q = rng.standard_normal((20, 20))
+    q0 = rng.standard_normal(20)
+
+    def callables(dev):
+        Qt = on(dev, Q)
+        s, _, _, info_s = kt.svdsolve(lambda x: Qt @ x, on(dev, q0), 2, "LR", tol=1e-10)
+        x, info_l = kt.lssolve(lambda x: Qt @ x, on(dev, q0), tol=1e-10)
+        M = on(dev, Q, True)
+        sp, _, _, info_p = kt.svdsolve(kt.ParametricOperator(lambda M, x: M @ x, M), on(dev, q0),
+                                       2, "LR", tol=1e-12)
+        sp.sum().backward()
+        return [s, x, M.grad], [info_s, info_l, info_p]
+
+    routes["bare callable svdsolve/lssolve (with_adjoint_from) float64"] = callables
+
+    N = 32
+    rng = np.random.default_rng(100)
+    A100 = rng.standard_normal((N, N))
+    A100 = A100 + A100.T
+    h = N // 2
+    va, vb = rng.standard_normal(h), rng.standard_normal(h)
+
+    def dict_vector(dev):
+        At = on(dev, A100)
+
+        def f(v):
+            y = At @ torch.cat([v["a"], v["b"]])
+            return {"a": y[:h], "b": y[h:]}
+
+        vals, vecs, info = kt.eigsolve(f, {"a": on(dev, va), "b": on(dev, vb)}, 4, "LM",
+                                       ishermitian=True, krylovdim=12, maxiter=100, tol=1e-12)
+        return [vals], [info]
+
+    routes["dict-vector eigsolve (reference test/issues.jl) float64"] = dict_vector
+    return routes
+
+
+def small_ad(torch, np, kt, _build, dev="cuda"):
+    """Phase ``small_ad``: every AD route (linsolve with a GMRES and a CG
+    rule; eigsolve Lanczos and Arnoldi with a GMRES rule and with the
+    Sylvester rule; svdsolve with both; a ParametricOperator; bare callables
+    in svdsolve/lssolve; the dict-vector eigsolve of the reference's
+    ``test/issues.jl``) in float64
+    and complex128, each on ``dev`` against the same on the CPU: gradients
+    within ``AD_TOL`` relative, ``numops``/``numiter``/``converged`` equal.
+    Returns the launches of the ``dev`` runs."""
+    t0 = time.perf_counter()
+    cases, launches = [], {}
+    for label, run in small_ad_routes(np, kt, torch).items():
+        _build.reset_launches()
+        gc, ic = run(dev)
+        for k, v in _build.launches.items():
+            launches[k] = launches.get(k, 0) + v
+        gh, ih = run("cpu")
+        err = max(_rel_err(torch, a, b) for a, b in zip(gc, gh))
+        cc = [(i.numops, i.numiter, int(i.converged)) for i in ic]
+        ch = [(i.numops, i.numiter, int(i.converged)) for i in ih]
+        cases.append({"route": label, "max_rel_err": err, "counts": cc, "counts_cpu": ch})
+        require(err <= AD_TOL, f"small_ad {label}: card vs CPU gradients within {AD_TOL} ({err})")
+        require(cc == ch, f"small_ad {label}: counts equal ({cc}, {ch})")
+    emit({"phase": "small_ad", "tolerance": AD_TOL, "routes": cases, "launches": launches,
+          "phase_seconds": time.perf_counter() - t0})
+    return launches
+
+
+def _sync_ms(torch, _build, fn, dev):
+    """``fn()`` with the launch counts set to 0 just before it and read just
+    after; returns ``(result, ms, launches)``, synchronised."""
+    if dev != "cpu":
+        torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    if dev != "cpu":
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return out, ms, {k: v for k, v in _build.launches.items() if v}
+
+
+def _kernel_share(ms, launches, per_launch):
+    """The share of ``ms`` outside the kernels: launches × per-launch time
+    (``per_launch``, measured alone) subtracted."""
+    inside = sum(launches.get(k, 0) * t for k, t in per_launch.items())
+    return {"kernel_ms": inside, "outside_kernels_ms": ms - inside,
+            "outside_kernels_share": (ms - inside) / ms if ms > 0 else None}
+
+
+def _impurity_op(torch, np, kt, N, dev):
+    """``(P, op, g, x0)`` of the impurity problem on an ``N × N`` grid:
+    ``P`` the banded 5-point Poisson matrix, ``g`` zero but at four wells
+    (depths −5, −6, −7, −8 at the grid's quarter points), ``op`` the
+    ParametricOperator ``x ↦ P x + g ⊙ x`` with its adjoint, ``x0`` from
+    ``default_rng(6)``; vectors ``(N²/128, 128)`` float32."""
+    n = N * N
+    P = kt.banded_from_coo(*poisson_coo(np, N, np.float32), n, device=dev)
+    gn = np.zeros(n, np.float32)
+    for (i, j), depth in zip(((N // 4, N // 4), (N // 4, 3 * N // 4), (3 * N // 4, N // 4),
+                              (3 * N // 4, 3 * N // 4)), (-5.0, -6.0, -7.0, -8.0)):
+        gn[i * N + j] = depth
+    g = torch.as_tensor(gn.reshape(n // 128, 128), device=dev).requires_grad_(True)
+    x0 = torch.as_tensor(np.random.default_rng(6).standard_normal((n // 128, 128))
+                         .astype(np.float32), device=dev)
+    return P, g, x0
+
+
+def ad_impurity(torch, np, kt, _build, bs, bd, N=1024, dev="cuda", smi=None):
+    """Phase ``ad_impurity``: the bound states of ``P + diag(g)`` (``P``
+    config 2's banded Poisson, four wells in ``g``) and the gradient of the
+    sum of the four lowest with respect to ``g``, through the GMRES rule
+    (bordered systems on ``(vector, scalar)`` tuples).  Guards: four
+    converged values ascending, distinct and below the continuum's 0;
+    ``g.grad`` within 1e-3 (relative ∞-norm) of ``Σᵢ vᵢ²``
+    (Hellmann–Feynman), its sum within 1e-3 of 4, and within 1e-2 of a
+    central difference in one well's depth (ε = 1e-2); no K1, K5 or K6
+    launch.  Then the same with the projection kernels on: the forward's
+    single-leaf sweeps launch K5/K6, the backward's tuple sweeps none; the
+    Sylvester rule (an Arnoldi ``alg_rrule``: one eigensolve on ``(w, x)``
+    pytrees) within 1e-3 of Hellmann–Feynman, K2 once per rotation of its
+    tuple basis (the first leaf only); and K2 on a ``((31, R, 128), (31,
+    n))`` float32 tuple basis once.  Returns the launch counts."""
+    t_phase = time.perf_counter()
+    n = N * N
+    P, g, x0 = _impurity_op(torch, np, kt, N, dev)
+
+    def apply(g, x):
+        return P(x) + g * x
+
+    kw = dict(ishermitian=True, krylovdim=30, maxiter=10, tol=1e-5)
+
+    def forward(g, alg_rrule=None):
+        return kt.eigsolve(kt.ParametricOperator(apply, g, adjoint_fn=apply), x0, 4, "SR",
+                           alg_rrule=alg_rrule, **kw)
+
+    (vals, vecs, info), fwd_ms, fwd_l = _sync_ms(torch, _build, lambda: forward(g), dev)
+    _, bwd_ms, bwd_l = _sync_ms(torch, _build, lambda: vals.sum().backward(), dev)
+    grad = g.grad.double()
+    reps = []  # three more forward/backward pairs, timed alone
+    for _ in range(3):
+        g.grad = None
+        (v_r, _, _), f_ms, _ = _sync_ms(torch, _build, lambda: forward(g), dev)
+        reps.append((f_ms, _sync_ms(torch, _build, lambda: v_r.sum().backward(), dev)[1]))
+    vh = vals.detach().cpu().double()
+    hf = (vecs.detach().double() ** 2).sum(0)
+    hf_err = float((grad - hf).abs().max() / hf.abs().max())
+    gsum = float(grad.sum())
+    site = (N // 4) * N + N // 4  # the first well, depth −5
+    eps = 1e-2
+    with torch.no_grad():
+        fd = []
+        for s in (1, -1):
+            gp = g.detach().clone()
+            gp.view(-1)[site] += s * eps
+            fd.append(float(forward(gp)[0].double().sum()))
+    fd = (fd[0] - fd[1]) / (2 * eps)
+    g_site = float(grad.view(-1)[site])
+    fd_err = abs(fd - g_site) / abs(g_site)
+    # per-launch times of the two kernels at this shape, measured alone
+    k3_ms = device_ms(torch, lambda: bd.banded_spmv(x0, P.diags, P.offsets, n)) if dev != "cpu" else 0
+    V = torch.randn((31, n // 128, 128), device=dev)
+    U = torch.eye(31, device=dev)
+    k2_ms = (device_ms(torch, lambda: bs.transform_partial_inplace(V, U, 20))
+             if dev != "cpu" else 0)
+    per = {"banded_spmv": k3_ms, "transform_partial": k2_ms}
+    rec = {
+        "phase": "ad_impurity", "n": n, "vals": vh.tolist(), "converged": int(info.converged),
+        "numops": info.numops, "numiter": info.numiter, "forward_ms": fwd_ms, "backward_ms": bwd_ms,
+        "forward_ms_reps": [r[0] for r in reps], "backward_ms_reps": [r[1] for r in reps],
+        "launches_forward": fwd_l, "launches_backward": bwd_l,
+        "forward": _kernel_share(fwd_ms, fwd_l, per), "backward": _kernel_share(bwd_ms, bwd_l, per),
+        "kernel_ms_per_launch": per, "hellmann_feynman_rel_err": hf_err, "grad_sum": gsum,
+        "fd": fd, "grad_at_well": g_site, "fd_rel_err": fd_err, "nvidia_smi": smi,
+    }
+    emit(rec)
+    require(info.converged >= 4, f"ad_impurity: 4 values converged ({info.converged})")
+    require(bool((vh[1:] > vh[:-1]).all()) and float(vh[-1]) < 0,
+            f"ad_impurity: values ascending, distinct, below 0 ({vh.tolist()})")
+    require(hf_err <= 1e-3, f"ad_impurity: g.grad within 1e-3 of sum v_i^2 ({hf_err})")
+    require(abs(gsum - 4) <= 1e-3, f"ad_impurity: g.grad sums to 4 within 1e-3 ({gsum})")
+    require(fd_err <= 1e-2, f"ad_impurity: central difference within 1e-2 ({fd}, {g_site})")
+    for launches in (fwd_l, bwd_l):
+        require(not {"fused_step", "project", "unproject"} & set(launches),
+                f"ad_impurity: no K1, K5 or K6 launch ({launches})")
+    card = dev != "cpu"  # the plain versions count no launch
+    # K3 once per counted apply, once for the forward's dtype probe of the
+    # callable; K2 once per processing round and once for the extraction
+    require(not card or fwd_l.get("banded_spmv", 0) == info.numops + 1,
+            f"ad_impurity: forward K3 = numops + 1 ({fwd_l}, {info.numops})")
+    require(not card or (fwd_l.get("transform_partial", 0) >= 2
+                         and bwd_l.get("banded_spmv", 0) >= 4),
+            f"ad_impurity: K2 in the forward, K3 in the backward ({fwd_l}, {bwd_l})")
+    require(bwd_l.get("transform_partial", 0) == 0, "ad_impurity: no K2 in the GMRES rule")
+
+    # the projection kernels on: single-leaf forward sweeps take them, the
+    # backward's (vector, scalar) tuple sweeps must not
+    g.grad = None
+    bs.use_pallas_projections = True
+    try:
+        (vals_p, _, info_p), _, fwd_lp = _sync_ms(torch, _build, lambda: forward(g), dev)
+        _, _, bwd_lp = _sync_ms(torch, _build, lambda: vals_p.sum().backward(), dev)
+    finally:
+        bs.use_pallas_projections = False
+    proj_err = float((g.grad.double() - grad).abs().max() / grad.abs().max())
+    # the Sylvester rule: one Arnoldi eigensolve on (w, x) pytrees, whose
+    # restart rotation takes K2 for the (31, R, 128) leaf only
+    g.grad = None
+    tuple_calls, transform_partial = [], bs.transform_partial
+
+    def recording(V, U, m_out):
+        tuple_calls.append(not isinstance(V, torch.Tensor))
+        return transform_partial(V, U, m_out)
+
+    vals_s, _, _ = forward(g, kt.Arnoldi(tol=1e-5, krylovdim=30, maxiter=10))
+    bs.transform_partial = recording
+    try:
+        _, syl_ms, bwd_ls = _sync_ms(torch, _build, lambda: vals_s.sum().backward(), dev)
+    finally:
+        bs.transform_partial = transform_partial
+    syl_err = float((g.grad.double() - hf).abs().max() / hf.abs().max())
+    # K2 leaf by leaf on a tuple basis at this width
+    Vt = (torch.randn((31, n // 128, 128), device=dev), torch.randn((31, n), device=dev))
+    Ut = torch.randn((31, 31), device=dev) / 31 ** 0.5
+    want = [bs.transform_partial_inplace_reference(v.clone(), Ut, 20) for v in Vt]
+    _build.reset_launches()
+    got = bs.transform_partial(Vt, Ut, 20)
+    k2_tuple = {k: v for k, v in _build.launches.items() if v}
+    k2_err = max(float((a[:20] - b[:20]).abs().max()) for a, b in zip(got, want))
+    emit({"phase": "ad_impurity_gates", "launches_forward_proj": fwd_lp,
+          "launches_backward_proj": bwd_lp, "grad_rel_diff_proj": proj_err,
+          "sylvester_backward_ms": syl_ms, "launches_backward_sylvester": bwd_ls,
+          "sylvester_tuple_rotations": sum(tuple_calls), "sylvester_rotations": len(tuple_calls),
+          "sylvester_hellmann_feynman_rel_err": syl_err,
+          "numops_proj": info_p.numops, "k2_tuple_basis_launches": k2_tuple,
+          "k2_tuple_max_abs_err": k2_err, "phase_seconds": time.perf_counter() - t_phase})
+    require(not card or (fwd_lp.get("project", 0) > 0 and fwd_lp.get("unproject", 0) > 0),
+            f"ad_impurity: the forward's sweeps take K5/K6 with the flag on ({fwd_lp})")
+    require(not {"fused_step", "project", "unproject"} & set(bwd_lp),
+            f"ad_impurity: no K1/K5/K6 on the backward's tuple solves ({bwd_lp})")
+    require(proj_err <= 1e-3, f"ad_impurity: gradients with the flag on within 1e-3 ({proj_err})")
+    require(syl_err <= 1e-3, f"ad_impurity: the Sylvester rule within 1e-3 of sum v_i^2 ({syl_err})")
+    require(sum(tuple_calls) >= 1 and not {"fused_step", "project", "unproject"} & set(bwd_ls)
+            and (not card or bwd_ls.get("transform_partial", 0) == sum(tuple_calls)),
+            f"ad_impurity: K2 once per rotation of the (w, x) basis, for its first leaf, no "
+            f"K1/K5/K6 ({bwd_ls}, {tuple_calls})")
+    require((not card or k2_tuple == {"transform_partial": 1}) and k2_err <= 1e-4,
+            f"ad_impurity: K2 once on the tuple basis, first leaf only ({k2_tuple}, {k2_err})")
+    return {"forward": fwd_l, "backward": bwd_l, "forward_proj": fwd_lp, "backward_proj": bwd_lp,
+            "backward_sylvester": bwd_ls, "tuple_basis": k2_tuple}
+
+
+def ad_potential(torch, np, kt, _build, bd, N=1024, dev="cuda", smi=None):
+    """Phase ``ad_potential``: ``x`` solves ``(0.5 + P + diag g) x = b`` by
+    CG (relative tolerance 5e-5), ``b = 1``, ``g = 0.5·uniform`` from
+    ``default_rng(7)``; the gradient of ``⟨c, x⟩`` (``c`` from
+    ``default_rng(8)``) with respect to ``b`` and ``g`` through the CG rule.
+    Guards: both solves converge (the backward's by its residual); with
+    ``w`` an independent solve of the same system for ``c``, ``b.grad``
+    within 1e-3 of ``w`` and ``g.grad`` of ``−w ⊙ x`` (relative ∞-norm).
+    Returns the launch counts."""
+    t_phase = time.perf_counter()
+    n = N * N
+    R = n // 128
+    P = kt.banded_from_coo(*poisson_coo(np, N, np.float32), n, device=dev)
+
+    def apply(g, x):
+        return P(x) + g * x
+
+    g = torch.as_tensor(0.5 * np.random.default_rng(7).uniform(size=(R, 128)).astype(np.float32),
+                        device=dev).requires_grad_(True)
+    b = torch.ones((R, 128), device=dev).requires_grad_(True)
+    c = torch.as_tensor(np.random.default_rng(8).standard_normal((R, 128)).astype(np.float32),
+                        device=dev)
+    kw = dict(a0=0.5, alg=kt.CG(maxiter=400), rtol=5e-5, atol=0.0)
+    op = kt.ParametricOperator(apply, g, adjoint_fn=apply)
+    (x, info), fwd_ms, fwd_l = _sync_ms(torch, _build, lambda: kt.linsolve(op, b, **kw), dev)
+    _, bwd_ms, bwd_l = _sync_ms(torch, _build, lambda: torch.sum(c * x).backward(), dev)
+    grads = (b.grad.clone(), g.grad.clone())
+    reps = []  # three more forward/backward pairs, timed alone
+    for _ in range(3):
+        (x_r, _), f_ms, _ = _sync_ms(torch, _build, lambda: kt.linsolve(op, b, **kw), dev)
+        reps.append((f_ms, _sync_ms(torch, _build, lambda: torch.sum(c * x_r).backward(), dev)[1]))
+    b.grad, g.grad = grads
+    with torch.no_grad():
+        opd = kt.ParametricOperator(apply, g.detach(), adjoint_fn=apply)
+        w, info_w = kt.linsolve(opd, c, **kw)
+        xd = x.detach()
+        tol_b = 5e-5 * float(torch.linalg.vector_norm(c))
+        res_b = float(torch.linalg.vector_norm(0.5 * b.grad + apply(g.detach(), b.grad) - c))
+        wmax = float(w.abs().max())
+        err_b = float((b.grad - w).abs().max()) / wmax
+        gw = -w * xd
+        err_g = float((g.grad - gw).abs().max()) / float(gw.abs().max())
+        # a float64 solve of the same system at rtol 1e-10: how far the float32
+        # gradient is from the exact one (reported, not held)
+        P64 = kt.BandedOperator(P.offsets, P.diags.double(), n)
+        g64 = g.detach().double()
+        w64, _ = kt.linsolve(lambda y: P64(y) + g64 * y, c.double(), a0=0.5,
+                             alg=kt.CG(maxiter=2000), rtol=1e-10, atol=0.0)
+        err_b64 = float((b.grad.double() - w64).abs().max() / w64.abs().max())
+    per = {"banded_spmv": device_ms(torch, lambda: bd.banded_spmv(c, P.diags, P.offsets, n))
+           if dev != "cpu" else 0}
+    rec = {"phase": "ad_potential", "n": n, "numops": info.numops, "numiter": info.numiter,
+           "converged": int(info.converged), "numops_independent": info_w.numops,
+           "backward_residual": res_b, "backward_tol": tol_b, "forward_ms": fwd_ms,
+           "backward_ms": bwd_ms, "forward_ms_reps": [r[0] for r in reps],
+           "backward_ms_reps": [r[1] for r in reps], "launches_forward": fwd_l,
+           "launches_backward": bwd_l, "forward": _kernel_share(fwd_ms, fwd_l, per),
+           "backward": _kernel_share(bwd_ms, bwd_l, per), "kernel_ms_per_launch": per,
+           "b_grad_rel_err": err_b, "g_grad_rel_err": err_g,
+           "b_grad_vs_float64_rel_err": err_b64, "nvidia_smi": smi,
+           "phase_seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    require(info.converged == 1 and info_w.converged == 1, "ad_potential: CG solves converge")
+    # the backward's CG stops on its recurrence's residual; its true one may
+    # sit a float32 rounding above tol
+    require(res_b <= 2 * tol_b, f"ad_potential: the backward solve converged ({res_b}, {tol_b})")
+    require(err_b <= 1e-3, f"ad_potential: b.grad within 1e-3 of w ({err_b})")
+    require(err_g <= 1e-3, f"ad_potential: g.grad within 1e-3 of -w*x ({err_g})")
+    for launches in (fwd_l, bwd_l):
+        require(set(launches) <= {"banded_spmv"}, f"ad_potential: K3 only ({launches})")
+    card = dev != "cpu"  # the plain versions count no launch
+    require(not card or fwd_l.get("banded_spmv", 0) == info.numops,
+            f"ad_potential: forward K3 = numops ({fwd_l}, {info.numops})")
+    require(not card or bwd_l.get("banded_spmv", 0) >= 2,
+            f"ad_potential: K3 in the backward ({bwd_l})")
+    return {"forward": fwd_l, "backward": bwd_l}, (fwd_ms, bwd_ms)
+
+
 def banded_csr(torch, D, offsets, n):
     """The banded matrix as a ``torch.sparse_csr_tensor`` of its nonzero
     entries: the cuSPARSE yardstick, never called by the port."""
@@ -1041,7 +1511,7 @@ def profile_solve(torch, label, solve):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one config-1 and one config-4 solve (phase 16)")
+                    help="also profile one config-1 and one config-4 solve (phase 19)")
     ap.add_argument("--parent", metavar="DIR",
                     help="an unpacked earlier tree: time its K1 and K2 on this card as parent_ms")
     ap.add_argument("--kernel-times", action="store_true",
@@ -1871,6 +2341,12 @@ def main():
     geneig_off, geneig_on = (geneig_launches[k] for k in ("geneigsolve_golubye_q1",
                                                           "geneigsolve_golubye_q1_proj"))
 
+    # 16-18. differentiable solves: every AD route card vs CPU, then the
+    # eigenvalue and linear-solve gradients at config 2's width
+    ad_small_launches = small_ad(torch, np, kt, _build)
+    ad_imp = ad_impurity(torch, np, kt, _build, bs, bd, N=nx, smi=smi)
+    ad_pot, _ = ad_potential(torch, np, kt, _build, bd, N=nx, smi=smi)
+
     if args.profile:
         emit(profile_solve(torch, "config 1 Lanczos eigsolve",
                            lambda: kt.eigsolve_lanczos(op, x0, 4, "LM", alg)))
@@ -1896,6 +2372,8 @@ def main():
             "launches_config3_square_fused": fused3["launches"]["fused_step"],
             "ms_config3_square_fused": k1_mean3,
             "launches_config4_exponentiate": launchese["fused_step"],
+            "launches_ad": sum(ad_imp[k].get("fused_step", 0) for k in ad_imp)
+            + ad_pot["forward"].get("fused_step", 0) + ad_pot["backward"].get("fused_step", 0),
             "ms_config4_exponentiate": k1_ms_e / len(stepse),
         },
         {
@@ -1917,6 +2395,10 @@ def main():
             "launches_config3_rect": rect3["launches"]["transform_partial"],
             "launches_config3_square_fused": fused3["launches"]["transform_partial"],
             "ms_config3_R4096": k2_by_R[4096]["ms"],
+            "launches_ad_impurity_forward": ad_imp["forward"].get("transform_partial", 0),
+            "launches_ad_impurity_backward": ad_imp["backward"].get("transform_partial", 0),
+            "launches_ad_tuple_basis": ad_imp["tuple_basis"].get("transform_partial", 0),
+            "launches_ad_small": ad_small_launches.get("transform_partial", 0),
         },
         {
             "name": "banded_spmv", "route": "cuda",
@@ -1934,6 +2416,10 @@ def main():
             "launches_geneig": geneig_off["banded_spmv"],
             "launches_geneig_proj": geneig_on["banded_spmv"],
             "launches_block": block_launches["banded_spmv"],
+            "launches_ad_impurity_forward": ad_imp["forward"].get("banded_spmv", 0),
+            "launches_ad_impurity_backward": ad_imp["backward"].get("banded_spmv", 0),
+            "launches_ad_potential_forward": ad_pot["forward"].get("banded_spmv", 0),
+            "launches_ad_potential_backward": ad_pot["backward"].get("banded_spmv", 0),
             **geneig_kernel(kg["banded_spmv"]),
         },
         {
@@ -1964,6 +2450,8 @@ def main():
             "launches_geneig": geneig_off.get("project", 0),
             "launches_geneig_proj": geneig_on["project"],
             "launches_block": block_launches.get("project", 0),
+            "launches_ad_impurity_forward_proj": ad_imp["forward_proj"].get("project", 0),
+            "launches_ad_impurity_backward_proj": ad_imp["backward_proj"].get("project", 0),
             **geneig_kernel(kg["project"]),
         },
         {
@@ -1983,6 +2471,8 @@ def main():
             "launches_geneig": geneig_off.get("unproject", 0),
             "launches_geneig_proj": geneig_on["unproject"],
             "launches_block": block_launches.get("unproject", 0),
+            "launches_ad_impurity_forward_proj": ad_imp["forward_proj"].get("unproject", 0),
+            "launches_ad_impurity_backward_proj": ad_imp["backward_proj"].get("unproject", 0),
             **geneig_kernel(kg["unproject"]),
         },
     ]})

@@ -7,7 +7,11 @@ eigensolver (``geneigsolve``), the linear solvers (CG, GMRES, MINRES,
 BiCGStab), the GKL singular-value solver (``svdsolve``, ``realsvdsolve``),
 LSMR least squares (``lssolve``, ``reallssolve``) and the matrix functions
 (``exponentiate``, ``expintegrator``), on dense, stencil, banded and ELL
-(``sparse``) operators, with six hand-written CUDA kernels
+(``sparse``) operators and :class:`ParametricOperator`, with reverse-mode
+differentiation of ``linsolve``, ``eigsolve`` and ``svdsolve`` (``ad``:
+one ``torch.autograd.Function`` each) and pytree vectors (tuples, lists and
+dicts of tensors) in the Krylov, Lanczos, Arnoldi and linear solvers, with
+six hand-written CUDA kernels
 (``csrc/``): the fused one-stream expansion, the in-place restart rotation,
 the banded SpMV of :class:`BandedOperator`, the 1-D Laplacian of
 ``laplacian_1d_pallas`` and the two live-row basis projections
@@ -53,6 +57,7 @@ from .ops.operator import (  # noqa: E402
     GridStencilOperator,
     LinearOperator,
     MatrixOperator,
+    ParametricOperator,
     StencilOperator,
     as_operator,
 )
@@ -70,6 +75,7 @@ from .solvers.lanczos import eigsolve_lanczos  # noqa: E402
 from .solvers.linsolve import linsolve, reallinsolve  # noqa: E402
 from .solvers.lssolve import lssolve, reallssolve  # noqa: E402
 from .solvers.svdsolve import realsvdsolve, svdsolve, svdsolve_gkl  # noqa: E402
+from . import ad  # noqa: E402
 
 __all__ = [
     "Arnoldi",
@@ -99,6 +105,7 @@ __all__ = [
     "StencilOperator",
     "GridStencilOperator",
     "MatrixOperator",
+    "ParametricOperator",
     "BandedOperator",
     "banded_from_coo",
     "banded_from_dense",
@@ -127,4 +134,5 @@ __all__ = [
     "reallssolve",
     "exponentiate",
     "expintegrator",
+    "ad",
 ]

@@ -7,7 +7,9 @@ source is rebuilt.  ``build()`` starts one ``nvcc`` per source, all at once.
 
 ``launches`` counts kernel launches by wrapper name: each wrapper adds one
 where it launches its kernel, so a run can show which kernels it went
-through.
+through.  ``refuse_autograd`` is each wrapper's first check: a launch
+through ``data_ptr()`` records no graph, so a wrapper refuses a tensor that
+requires grad or that ``torch.func`` has wrapped, on every device.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from collections import Counter
 from pathlib import Path
 
 __all__ = ["SOURCES", "BUILD_DIR", "launches", "reset_launches", "build",
-           "library", "check"]
+           "library", "check", "refuse_autograd"]
 
 PKG = Path(__file__).resolve().parent
 CSRC = PKG / "csrc"
@@ -104,3 +106,22 @@ def check(lib: ctypes.CDLL, status: int, what: str) -> None:
     if status != 0:
         msg = lib.kk_error_string(status).decode()
         raise RuntimeError(f"{what}: CUDA error {status} ({msg})")
+
+
+def refuse_autograd(what: str, *tensors) -> None:
+    """Raise ``RuntimeError`` when one of ``tensors`` requires grad or is a
+    ``torch.func`` wrapper (``vjp``, ``grad``, ``vmap``): the kernel named
+    ``what`` has no derivative, and a launch on such a tensor would return a
+    result with no graph, a zero gradient nothing would catch (the JAX
+    package's ``pallas_call`` has no transpose rule either)."""
+    import torch
+
+    for t in tensors:
+        if isinstance(t, torch.Tensor) and (
+                t.requires_grad or torch._C._functorch.is_functorch_wrapped_tensor(t)):
+            raise RuntimeError(
+                f"{what}: the kernel is not differentiable and refuses a tensor that "
+                "requires grad or is wrapped by torch.func; give the operator an adjoint "
+                "(adjoint_fn, a (f, fadjoint) tuple) instead of deriving one, or apply the "
+                "kernel's plain version"
+            )

@@ -1,0 +1,115 @@
+"""What the three differentiable solves share: the routing test, the
+detached operator of a forward solve, and the operator cotangent.
+
+An operator's differentiable inputs are the tensors it holds
+(``LinearOperator.tensors``).  Its cotangent is ``torch.autograd.grad`` of
+its applies with respect to fresh copies of those tensors, with the
+operator rebuilt in its plain form (``with_tensors(..., plain=True)``): a
+hand-written kernel's launch records no graph, so an operator whose apply is
+a kernel is differentiated through the kernel's plain version, which is
+what XLA computes for the JAX package off the TPU.  The solves themselves
+run on the detached operator and still launch the kernels.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops.vector import tree_leaves
+
+__all__ = ["Call", "needs_grad", "refuse_grad", "detached", "operator_cotangent", "real_safe",
+           "row"]
+
+
+class Call:
+    """The non-tensor arguments of one differentiable solve, and what its
+    forward learns (output structure, ``info``).  ``info`` is not
+    differentiable, so it leaves the ``torch.autograd.Function`` outside
+    its outputs."""
+
+    def __init__(self, **kw):
+        self.__dict__.update(kw)
+
+
+def _requires_grad(op, vectors) -> bool:
+    tensors = list(op.tensors() if op is not None else ())
+    tensors += [l for v in vectors for l in tree_leaves(v)]
+    return any(isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
+def needs_grad(op, *vectors) -> bool:
+    """True when gradients are enabled and a tensor of ``op`` or a leaf of
+    one of ``vectors`` requires grad: the solve then goes through its
+    ``torch.autograd.Function``."""
+    return torch.is_grad_enabled() and _requires_grad(op, vectors)
+
+
+def refuse_grad(what: str, op, *vectors) -> None:
+    """Raise ``NotImplementedError`` when :func:`needs_grad` holds for a
+    front-end with no differentiation rule: the JAX package cannot
+    reverse-differentiate it either (its ``lax.while_loop`` has no
+    transpose), and an unrolled autograd graph through every apply is not a
+    substitute."""
+    if needs_grad(op, *vectors):
+        raise NotImplementedError(
+            f"{what} has no differentiation rule (nor has the JAX package's): an input "
+            "requires grad; differentiate eigsolve, linsolve or svdsolve, or detach the "
+            "inputs or run under torch.no_grad()"
+        )
+
+
+def detached(op, tensors=None):
+    """``op`` on detached copies of its tensors (or of ``tensors``): the
+    operator of a forward or backward solve, which records no graph and
+    which the kernel wrappers accept."""
+    ts = op.tensors() if tensors is None else tensors
+    if not ts:
+        return op
+    return op.with_tensors([t.detach() for t in ts])
+
+
+def operator_cotangent(op, terms):
+    """Gradients of the tensors of ``op`` that require grad, ``None`` for the
+    others: the sum over ``terms`` of the vector-Jacobian products of
+    ``t ↦ op_t.normal(v)`` (``side == "normal"``) or ``t ↦
+    op_t.apply_adjoint(v)`` (``"adjoint"``) at the cotangent ``cot``, for
+    ``(side, v, cot)`` in ``terms``, in torch's (conjugate) convention."""
+    ts = op.tensors()
+    want = [t.requires_grad for t in ts]
+    if not any(want):
+        return [None] * len(ts)
+    with torch.enable_grad():
+        fresh = [t.detach().requires_grad_(w) for t, w in zip(ts, want)]
+        opg = op.with_tensors(fresh, plain=True)
+        outs, cots = [], []
+        for side, v, cot in terms:
+            y = opg.normal(v) if side == "normal" else opg.apply_adjoint(v)
+            for ly, lc in zip(tree_leaves(y), tree_leaves(cot)):
+                if ly.requires_grad:
+                    outs.append(ly)
+                    cots.append(real_safe(lc, ly.dtype))
+        inputs = [t for t, w in zip(fresh, want) if w]
+        grads = (torch.autograd.grad(outs, inputs, cots, allow_unused=True)
+                 if outs else [None] * len(inputs))
+    it = iter(grads)
+    out = []
+    for t, w in zip(ts, want):
+        g = next(it) if w else None
+        out.append(torch.zeros_like(t) if w and g is None else g)
+    return out
+
+
+def real_safe(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` in ``dtype``, the complex → real truncation made explicit (the
+    JAX package's ``_astype_real_safe``: the imaginary parts cancel for a
+    real primal)."""
+    if torch.is_complex(x) and not dtype.is_complex:
+        x = torch.real(x)
+    return x.to(dtype)
+
+
+def row(stacked, i: int):
+    """Row ``i`` of every leaf of a stacked pytree."""
+    from ..ops.vector import tree_map
+
+    return tree_map(lambda l: l[i], stacked)

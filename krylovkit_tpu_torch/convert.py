@@ -32,6 +32,7 @@ __all__ = [
     "ell_from_arrays",
     "matrix_from_numpy",
     "vector_from_numpy",
+    "tree_from_numpy",
     "block_from_numpy",
     "eig_problem_from_numpy",
     "lanczos_from_dict",
@@ -110,6 +111,27 @@ def matrix_from_numpy(A, device="cuda") -> MatrixOperator:
 def vector_from_numpy(x, device="cuda") -> torch.Tensor:
     """``x`` as a tensor on ``device``, same shape and dtype."""
     return torch.as_tensor(np.asarray(x), device=resolve_device(device))
+
+
+def tree_from_numpy(tree, device="cuda"):
+    """A pytree vector (or a :class:`ParametricOperator`'s ``params``) on
+    ``device``: every numpy array of the tuple, list or dict ``tree``
+    (nested) becomes a tensor of the same shape and dtype.  A JAX pytree
+    passes through ``jax.tree_util.tree_map(np.asarray, ...)`` first."""
+    import numbers
+
+    dev = resolve_device(device)
+
+    def leaf(x):
+        if isinstance(x, (np.ndarray, np.generic, numbers.Number)):
+            return torch.as_tensor(np.asarray(x), device=dev)
+        if isinstance(x, dict):
+            return {k: leaf(v) for k, v in x.items()}
+        if isinstance(x, (tuple, list)):
+            return type(x)(leaf(v) for v in x)
+        raise TypeError(f"cannot make a tensor of {type(x).__name__}")
+
+    return leaf(tree)
 
 
 def block_from_numpy(vectors, device="cuda") -> Block:

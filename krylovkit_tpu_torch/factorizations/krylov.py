@@ -5,7 +5,8 @@ Contract (reference ``src/factorizations/krylov.jl:30-62``): after ``k``
 steps ``A V[:, :k] = V[:, :k+1] @ H[:k+1, :k]`` with ``H[k, k-1] = β``.  The
 basis is a static ``(m+1,) + x.shape`` buffer and ``H`` a static
 ``(m+1, m+1)`` buffer, as in the JAX package; ``k`` is a host ``int`` and the
-loops are plain Python.  Buffers are updated in place.
+loops are plain Python.  Buffers are updated in place.  The unfused steps
+take pytree vectors (``ops/vector.py``); the fused ones take one tensor.
 
 The fused section drives the one-stream expansion kernel
 (``ops/fused_lanczos.py``): stored basis rows are raw residuals and the
@@ -25,7 +26,7 @@ from ..info import EACHITERATION, log_if, warn_if
 from ..ops import basis as bs
 from ..ops import fused_lanczos as fl
 from ..ops import orthonormal as on
-from ..ops.vector import STANDARD, VectorSpace
+from ..ops.vector import STANDARD, VectorSpace, astype, device_of, tree_map
 
 __all__ = [
     "KrylovState",
@@ -45,31 +46,31 @@ __all__ = [
 class KrylovState:
     """Factorization state: basis buffer, projected matrix, size, ``‖r‖``."""
 
-    V: torch.Tensor  # (m+1,) + x.shape
+    V: object  # (m+1,) + x.shape, leaf by leaf
     H: torch.Tensor  # (m+1, m+1)
     k: int
     beta: torch.Tensor  # 0-d, real
 
 
-def initialize(x0: torch.Tensor, m: int, coeff_dtype, space: VectorSpace = STANDARD,
+def initialize(x0, m: int, coeff_dtype, space: VectorSpace = STANDARD,
                vec_dtype=None, verbosity: int = 0) -> KrylovState:
     """``V[0] = x0/‖x0‖`` in a fresh ``(m+1)``-row basis (reference
     ``initialize``, ``src/factorizations/lanczos.jl:180-249``).  A zero-norm
     ``x0`` gives a NaN row, so every residual test fails and
     ``converged == 0``; a WARN-level message says so."""
     if vec_dtype is not None:
-        x0 = x0.to(vec_dtype)
+        x0 = astype(x0, vec_dtype)
     nrm = space.norm(x0)
     warn_if(
         verbosity, nrm == 0,
         "[krylovkit_tpu] starting vector x0 has zero norm: results are NaN "
         "and converged = 0",
     )
-    v0 = x0 / nrm.to(x0.dtype)
-    V = bs.alloc(v0, m + 1)
-    V[0] = v0
-    H = torch.zeros((m + 1, m + 1), dtype=coeff_dtype, device=x0.device)
-    beta = torch.ones((), dtype=coeff_dtype.to_real(), device=x0.device)
+    v0 = tree_map(lambda l: l / nrm.to(l.dtype), x0)
+    V = bs.set(bs.alloc(v0, m + 1), 0, v0)
+    dev = device_of(x0)
+    H = torch.zeros((m + 1, m + 1), dtype=coeff_dtype, device=dev)
+    beta = torch.ones((), dtype=coeff_dtype.to_real(), device=dev)
     return KrylovState(V, H, 0, beta)
 
 
@@ -78,9 +79,9 @@ def expand(op_apply, state: KrylovState, orth: on.Orthogonalizer,
     """One Krylov step: ``w = A V[k]``, orthonormalize against ``V[:k+1]``,
     append (reference ``expand!``, ``src/factorizations/arnoldi.jl:199-219``)."""
     V, H, k = state.V, state.H, state.k
-    w = op_apply(V[k])
+    w = op_apply(bs.get(V, k))
     v_new, beta, c = on.orthonormalize(w, V, k + 1, orth, space)
-    V[k + 1] = v_new
+    bs.set(V, k + 1, v_new)
     H[:, k] = c.to(H.dtype)
     H[k + 1, k] = beta.to(H.dtype)
     log_if(
@@ -102,14 +103,14 @@ def expand_hermitian(op_apply, state: KrylovState, orth: on.Orthogonalizer,
     itself).  Column ``k`` of ``H`` gets ``α`` at ``k`` and ``β`` at
     ``k+1``; its other entries (the restart's arrowhead couplings) stay."""
     V, H, k, beta_prev = state.V, state.H, state.k, state.beta
-    vk = V[k]
+    vk = bs.get(V, k)
     w = op_apply(vk)
     if isinstance(orth, on.ClassicalGramSchmidt):
         v_new, beta, c = on.orthonormalize(w, V, k + 1, on.cgs, space)
         alpha = c[k]
     else:
         if k > 0:
-            w = w - beta_prev.to(w.dtype) * V[k - 1]
+            w = tree_map(lambda a, b: a - beta_prev.to(a.dtype) * b, w, bs.get(V, k - 1))
         alpha = space.inner(vk, w)
         if torch.is_complex(alpha):
             # hermiticity check (reference src/factorizations/lanczos.jl:172-178)
@@ -122,7 +123,7 @@ def expand_hermitian(op_apply, state: KrylovState, orth: on.Orthogonalizer,
                 "imag(alpha) = {ia}",
                 ia=alpha.imag,
             )
-        w = w - alpha.to(w.dtype) * vk
+        w = tree_map(lambda a, b: a - alpha.to(a.dtype) * b, w, vk)
         if isinstance(orth, (on.ClassicalGramSchmidt, on.ClassicalGramSchmidt2)):
             sweep_orth = on.cgs
         elif isinstance(orth, (on.ModifiedGramSchmidt, on.ModifiedGramSchmidt2)):
@@ -130,7 +131,7 @@ def expand_hermitian(op_apply, state: KrylovState, orth: on.Orthogonalizer,
         else:
             sweep_orth = orth
         v_new, beta, _ = on.orthonormalize(w, V, k + 1, sweep_orth, space)
-    V[k + 1] = v_new
+    bs.set(V, k + 1, v_new)
     H[k, k] = alpha.to(H.dtype)
     H[k + 1, k] = beta.to(H.dtype)
     log_if(
@@ -145,13 +146,16 @@ def expand_hermitian(op_apply, state: KrylovState, orth: on.Orthogonalizer,
 # Fused expansion loop (stencil operators, single (R, 128) float32 vectors)
 # --------------------------------------------------------------------------
 
-def fused_available(op, x0: torch.Tensor, space: VectorSpace, kmax=None) -> bool:
+def fused_available(op, x0, space: VectorSpace, kmax=None) -> bool:
     """Eligibility of the one-stream fused expansion: a fusable stencil
-    operator (``fl.spec_for``), an ``(R, 128)`` float32 vector with
+    operator (``fl.spec_for``), one ``(R, 128)`` float32 tensor (never a
+    pytree vector, as in the JAX package) with
     ``R % 8 == 0`` and ``R >= 16`` (a grid vector covers its grid exactly),
     the standard inner product, ``kmax + 2 <= 128``, and a vector on a CUDA
     device (the kernel) or on the CPU (its plain version)."""
     if kmax is not None and kmax + 2 > fl.LANES:
+        return False
+    if not isinstance(x0, torch.Tensor):
         return False
     spec = fl.spec_for(op)
     if spec is None or space.inner_fn is not None:

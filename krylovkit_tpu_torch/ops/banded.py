@@ -82,7 +82,11 @@ def banded_spmv(x: torch.Tensor, diags: torch.Tensor, offsets: Tuple[int, ...],
 
     A CUDA tensor runs the kernel of ``csrc/banded_spmv.cu`` (``x`` and
     ``diags`` both float32 or both float64); a CPU tensor (or a ``meta`` one,
-    to infer the result type) runs :func:`banded_spmv_reference`."""
+    to infer the result type) runs :func:`banded_spmv_reference`.  A tensor
+    that requires grad or is wrapped by ``torch.func`` is refused
+    (``_build.refuse_autograd``): :class:`BandedOperator` differentiates its
+    planes through the plain version (``with_tensors(..., plain=True)``)."""
+    _build.refuse_autograd("banded_spmv", x, diags)
     offsets = tuple(int(d) for d in offsets)
     if x.numel() != n:
         raise ValueError(f"vector of {x.numel()} entries for an n={n} banded operator")
@@ -131,15 +135,19 @@ class BandedOperator(LinearOperator):
     ``diags[p]`` flattened over rows: ``diags[p][i] = A[i, i + offsets[p]]``
     (zero where absent or out of range).  ``adj`` is ``Aᴴ`` as a second
     banded operator (or ``None``).  ``nnz`` counts the nonzero plane entries,
-    once, at construction."""
+    once, at construction (or is given).  ``plain`` applies the plain
+    version on every device: the differentiable form that
+    :meth:`with_tensors` builds for a gradient of the planes."""
 
     offsets: Tuple[int, ...] = ()
     diags: torch.Tensor = None
     n: int = 0
     adj: Optional["BandedOperator"] = None
     nnz: int = 0
+    plain: bool = False
 
-    def __init__(self, offsets, diags: torch.Tensor, n: int, adj=None):
+    def __init__(self, offsets, diags: torch.Tensor, n: int, adj=None, nnz=None,
+                 plain: bool = False):
         offsets = tuple(int(d) for d in offsets)
         if diags.shape[0] != len(offsets) or math.prod(diags.shape[1:]) < n:
             raise ValueError(
@@ -150,7 +158,8 @@ class BandedOperator(LinearOperator):
         object.__setattr__(self, "diags", diags)
         object.__setattr__(self, "n", int(n))
         object.__setattr__(self, "adj", adj)
-        object.__setattr__(self, "nnz", int(torch.count_nonzero(diags)))
+        object.__setattr__(self, "nnz", int(torch.count_nonzero(diags)) if nnz is None else nnz)
+        object.__setattr__(self, "plain", bool(plain))
         object.__setattr__(self, "normal", self._matvec)
         object.__setattr__(self, "adjoint", adj._matvec if adj is not None else None)
 
@@ -158,10 +167,23 @@ class BandedOperator(LinearOperator):
     def shape(self):
         return (self.n, self.n)
 
+    def tensors(self) -> tuple:
+        """The planes, then the adjoint's planes (the JAX package's pytree
+        leaves)."""
+        return (self.diags,) + ((self.adj.diags,) if self.adj is not None else ())
+
+    def with_tensors(self, tensors, plain: bool = False) -> "BandedOperator":
+        adj = None
+        if self.adj is not None:
+            adj = BandedOperator(self.adj.offsets, tensors[1], self.n, nnz=self.adj.nnz,
+                                 plain=plain)
+        return BandedOperator(self.offsets, tensors[0], self.n, adj=adj, nnz=self.nnz,
+                              plain=plain)
+
     def _matvec(self, x: torch.Tensor) -> torch.Tensor:
         # mixed precisions compute in the wider type, as the plain version does
         dt = torch.promote_types(self.diags.dtype, x.dtype)
-        if dt.is_complex:
+        if dt.is_complex or self.plain:
             # the TPU kernel takes no complex planes: the JAX package applies
             # them by XLA's shift-and-add (``_pallas_ok`` is false), whose
             # semantics the plain version has

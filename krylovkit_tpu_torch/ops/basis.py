@@ -1,8 +1,10 @@
 """Stacked Krylov basis (counterpart of ``krylovkit_tpu/ops/basis.py``).
 
-The basis is one tensor ``V`` of shape ``(kmax,) + vector.shape``; on the
-main path ``(kmax, R, 128)`` float32.  The active length ``k`` is a host
-``int``.  Unlike the JAX package, updates are in place (``set`` writes
+The basis of a tensor vector is one tensor ``V`` of shape ``(kmax,) +
+vector.shape``; on the main path ``(kmax, R, 128)`` float32.  The basis of a
+pytree vector is the same pytree with every leaf stacked so, and every
+operation here runs leaf by leaf (the contractions sum their per-leaf
+parts).  The active length ``k`` is a host ``int``.  Unlike the JAX package, updates are in place (``set`` writes
 ``V[j]``; :func:`transform_partial` rotates the leading rows in place), which
 keeps one basis buffer alive per solve.
 
@@ -10,11 +12,13 @@ keeps one basis buffer alive per solve.
 kernel ``csrc/transform.cu`` (the port of the TPU kernel
 ``krylovkit_tpu/ops/basis.py:_pallas_transform_inplace``); its plain version
 :func:`transform_partial_inplace_reference` sits beside it and serves CPU
-tensors.
+tensors.  :func:`transform_partial` decides per leaf: an eligible leaf
+runs the kernel, any other the plain product.
 
 With the module flag :data:`use_pallas_projections` on, :func:`project` and
 :func:`unproject` (given ``k``) send an eligible basis to the live-row
-kernels of ``ops/projections.py``; any other basis keeps the ``@`` path.
+kernels of ``ops/projections.py``; any other basis, a pytree basis
+included, keeps the ``@`` path.
 """
 
 from __future__ import annotations
@@ -25,10 +29,11 @@ import torch
 
 from .. import _build
 from . import projections as pb
-from .vector import STANDARD, VectorSpace
+from .vector import STANDARD, VectorSpace, tree_leaves, tree_map
 
 __all__ = [
     "alloc",
+    "capacity",
     "get",
     "set",
     "prefix",
@@ -60,49 +65,60 @@ TRANSFORM_RUNGS = ((16, 2, 4), (32, 1, 2), (64, 1, 2), (128, 1, 1))
 use_pallas_projections = False
 
 
-def _pallas_basis(V: torch.Tensor) -> bool:
-    """True if the flag is on and ``V`` is a basis the projection kernels
-    take (``projections.supported_leaf``, contiguous) on a CUDA device (the
-    kernels) or on the CPU (their plain versions)."""
+def _pallas_basis(V) -> bool:
+    """True if the flag is on and ``V`` is a single-tensor basis the
+    projection kernels take (``projections.supported_leaf``, contiguous) on
+    a CUDA device (the kernels) or on the CPU (their plain versions)."""
     return (
         use_pallas_projections
+        and isinstance(V, torch.Tensor)
         and V.device.type in ("cuda", "cpu")
         and pb.supported_leaf(V)
         and V.is_contiguous()
     )
 
 
-def _pallas_proj_leaf(V: torch.Tensor, x: torch.Tensor, space: VectorSpace) -> bool:
+def _pallas_proj_leaf(V, x, space: VectorSpace) -> bool:
     """True if the project kernel applies to ``(V, x)``: an eligible basis
-    (:func:`_pallas_basis`), the standard inner product, and ``x`` one of its
-    rows in shape, dtype and device."""
-    if space.inner_fn is not None or not _pallas_basis(V):
+    (:func:`_pallas_basis`, one leaf only, as the JAX package's
+    ``_pallas_proj_leaf``), the standard inner product, and ``x`` one tensor,
+    a row of ``V`` in shape, dtype and device."""
+    if space.inner_fn is not None or not _pallas_basis(V) or not isinstance(x, torch.Tensor):
         return False
     return x.dtype == V.dtype and x.shape == V.shape[1:] and x.device == V.device
 
 
-def alloc(template: torch.Tensor, kmax: int, dtype=None) -> torch.Tensor:
+def alloc(template, kmax: int, dtype=None):
     """A zeroed basis of capacity ``kmax`` shaped like ``template``."""
-    return torch.zeros(
-        (kmax,) + tuple(template.shape), dtype=dtype or template.dtype,
-        device=template.device,
+    return tree_map(
+        lambda l: torch.zeros((kmax,) + tuple(l.shape), dtype=dtype or l.dtype, device=l.device),
+        template,
     )
 
 
-def get(V: torch.Tensor, j: int) -> torch.Tensor:
-    """Basis vector ``V[j]`` (a view)."""
-    return V[j]
+def capacity(V) -> int:
+    """``kmax``: the leading size of the basis' leaves."""
+    return tree_leaves(V)[0].shape[0]
 
 
-def set(V: torch.Tensor, j: int, v: torch.Tensor) -> torch.Tensor:
+def get(V, j: int):
+    """Basis vector ``V[j]`` (a view of each leaf)."""
+    return tree_map(lambda l: l[j], V)
+
+
+def set(V, j: int, v):
     """``V[j] = v`` in place; returns ``V``."""
-    V[j] = v.to(V.dtype)
+    if isinstance(V, torch.Tensor):
+        V[j] = v.to(V.dtype)
+        return V
+    for lV, lv in zip(tree_leaves(V), tree_leaves(v)):
+        lV[j] = lv.to(lV.dtype)
     return V
 
 
-def prefix(V: torch.Tensor, B: int) -> torch.Tensor:
-    """The first ``B`` rows of the basis (a view)."""
-    return V[:B]
+def prefix(V, B: int):
+    """The first ``B`` rows of the basis (views)."""
+    return tree_map(lambda l: l[:B], V)
 
 
 def buckets_for(kmax: int):
@@ -121,64 +137,77 @@ def bucket_for(k: int, kmax: int) -> int:
     return next((b for b in buckets if b >= k), buckets[-1])
 
 
-def project(V: torch.Tensor, x: torch.Tensor, k: int,
-            space: VectorSpace = STANDARD) -> torch.Tensor:
+def _project_leaf(V: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    dt = torch.promote_types(V.dtype, x.dtype)
+    return V.reshape(V.shape[0], -1).to(dt).conj() @ x.reshape(-1).to(dt)
+
+
+def project(V, x, k: int, space: VectorSpace = STANDARD) -> torch.Tensor:
     """``c[j] = <V[j], x>`` for ``j < k``, zero beyond — the ``Vᴴx`` kernel
-    (reference ``project!!``, ``src/orthonormal.jl:88-118``)."""
-    kb = V.shape[0]
+    (reference ``project!!``, ``src/orthonormal.jl:88-118``); a pytree sums
+    its per-leaf contractions."""
+    kb = capacity(V)
     if space.inner_fn is None:
         if _pallas_proj_leaf(V, x, space):
             # the kernel masks j >= k and reads only the first k rows
             return pb.project_pallas(V, x.contiguous(), k)
-        dt = torch.promote_types(V.dtype, x.dtype)
-        c = V.reshape(kb, -1).to(dt).conj() @ x.reshape(-1).to(dt)
+        if isinstance(V, torch.Tensor):
+            c = _project_leaf(V, x)
+        else:
+            parts = [_project_leaf(lV, lx) for lV, lx in zip(tree_leaves(V), tree_leaves(x))]
+            c = sum(parts[1:], parts[0])
         if space.real_inner:
             c = torch.real(c)
     else:
-        c = torch.stack([space.inner(V[j], x) for j in range(kb)])
+        c = torch.stack([space.inner(get(V, j), x) for j in range(kb)])
     idx = torch.arange(kb, device=c.device)
     return torch.where(idx < k, c, torch.zeros((), dtype=c.dtype, device=c.device))
 
 
-def project_bucketed(V: torch.Tensor, x: torch.Tensor, k: int,
-                     space: VectorSpace = STANDARD) -> torch.Tensor:
+def project_bucketed(V, x, k: int, space: VectorSpace = STANDARD) -> torch.Tensor:
     """:func:`project` over the smallest bucket prefix ``B >= k``, padded
     back to ``kmax`` entries."""
-    kmax = V.shape[0]
+    kmax = capacity(V)
     if space.inner_fn is not None:
         return project(V, x, k, space)
     B = bucket_for(k, kmax)
-    return torch.nn.functional.pad(project(V[:B], x, k, space), (0, kmax - B))
+    return torch.nn.functional.pad(project(prefix(V, B), x, k, space), (0, kmax - B))
 
 
-def unproject(V: torch.Tensor, c: torch.Tensor, k=None) -> torch.Tensor:
+def _unproject_leaf(V: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    dt = torch.promote_types(c.dtype, V.dtype)
+    return (c.to(dt) @ V.reshape(V.shape[0], -1).to(dt)).reshape(V.shape[1:])
+
+
+def unproject(V, c: torch.Tensor, k=None):
     """``y = Σ_j c[j] V[j]`` — the ``V c`` kernel (reference ``unproject!!``,
-    ``src/orthonormal.jl:132-196``).  The caller masks ``c``.
+    ``src/orthonormal.jl:132-196``), leaf by leaf.  The caller masks ``c``.
 
     Given the active length ``k``, a real ``c`` and an eligible basis (see
     :func:`_pallas_basis`), the kernel of ``ops/projections.py`` reads only
     the first ``k`` rows."""
     if k is not None and not torch.is_complex(c) and _pallas_basis(V) and c.device == V.device:
         return pb.unproject_pallas(V, c, k)
-    kb = V.shape[0]
-    dt = torch.promote_types(c.dtype, V.dtype)
-    return (c.to(dt) @ V.reshape(kb, -1).to(dt)).reshape(V.shape[1:])
+    return tree_map(lambda l: _unproject_leaf(l, c), V)
 
 
-def unproject_bucketed(V: torch.Tensor, c: torch.Tensor, k: int) -> torch.Tensor:
+def unproject_bucketed(V, c: torch.Tensor, k: int):
     """``V c`` over the smallest bucket prefix ``B >= k`` (``c`` must be zero
     beyond ``k``)."""
-    B = bucket_for(k, V.shape[0])
-    return unproject(V[:B], c[:B])
+    B = bucket_for(k, capacity(V))
+    return unproject(prefix(V, B), c[:B])
 
 
-def transform(V: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
-    """``V @ U`` as a new basis: row ``m`` is ``Σ_j U[j, m] V[j]`` (reference
-    ``basistransform!``, ``src/orthonormal.jl:291-354``)."""
-    kmax = V.shape[0]
+def _transform_leaf(V: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
     dt = torch.promote_types(U.dtype, V.dtype)
-    out = U.to(dt).T @ V.reshape(kmax, -1).to(dt)
+    out = U.to(dt).T @ V.reshape(V.shape[0], -1).to(dt)
     return out.reshape(V.shape).to(V.dtype)
+
+
+def transform(V, U: torch.Tensor):
+    """``V @ U`` as a new basis: row ``m`` is ``Σ_j U[j, m] V[j]`` (reference
+    ``basistransform!``, ``src/orthonormal.jl:291-354``), leaf by leaf."""
+    return tree_map(lambda l: _transform_leaf(l, U), V)
 
 
 def _leaf_ok(V: torch.Tensor) -> bool:
@@ -242,7 +271,10 @@ def transform_partial_inplace(V: torch.Tensor, U: torch.Tensor,
     bfloat16 with float32 accumulation and ``U`` rounded to bfloat16 as the
     plain version rounds it); a CPU tensor runs
     :func:`transform_partial_inplace_reference`.  ``U`` may be any view: the
-    kernel reads ``U[:, :m_out]`` through its strides."""
+    kernel reads ``U[:, :m_out]`` through its strides.  A tensor that
+    requires grad or is wrapped by ``torch.func`` is refused
+    (``_build.refuse_autograd``)."""
+    _build.refuse_autograd("transform_partial", V, U)
     kmax = V.shape[0]
     if not (0 < m_out <= kmax) or U.shape != (kmax, kmax):
         raise ValueError(f"bad shapes: V {tuple(V.shape)}, U {tuple(U.shape)}, m_out {m_out}")
@@ -278,33 +310,51 @@ def transform_partial_inplace(V: torch.Tensor, U: torch.Tensor,
     return V
 
 
-def transform_partial(V: torch.Tensor, U: torch.Tensor, m_out: int) -> torch.Tensor:
-    """``V[:m_out] ← (V @ U)[:m_out]``.  For a ``(kmax, R, 128)`` float32 or
-    bfloat16 basis with ``R % 8 == 0`` and a real ``U`` (the JAX package's
-    in-place kernel conditions) this runs :func:`transform_partial_inplace`
-    and rows ``>= m_out`` keep their contents; any other basis gets the full
-    product :func:`transform` (the JAX fallback), whose tail rows are the
+def transform_partial(V, U: torch.Tensor, m_out: int):
+    """``V[:m_out] ← (V @ U)[:m_out]``, decided leaf by leaf (the JAX
+    package's ``transform_partial``).  A ``(kmax, R, 128)`` float32 or
+    bfloat16 leaf with ``R % 8 == 0`` under a real ``U`` (the JAX package's
+    in-place kernel conditions) runs :func:`transform_partial_inplace` and
+    its rows ``>= m_out`` keep their contents; any other leaf gets the full
+    product of :func:`transform` (the JAX fallback), whose tail rows are the
     full rotation.  The two agree whenever ``U`` is the identity on the tail
     — the gated-off restart; otherwise the tail is dead by masking."""
-    if _leaf_ok(V) and not torch.is_complex(U):
-        return transform_partial_inplace(V, U, m_out)
-    return transform(V, U)
+    real = not torch.is_complex(U)
+
+    def leaf(l):
+        if real and _leaf_ok(l):
+            return transform_partial_inplace(l, U, m_out)
+        return _transform_leaf(l, U)
+
+    return tree_map(leaf, V)
 
 
-def gram(X: torch.Tensor, Y: torch.Tensor, space: VectorSpace = STANDARD) -> torch.Tensor:
-    """``G[i, j] = <X[i], Y[j]>`` between two stacked bases."""
-    if space.inner_fn is not None:
-        return torch.stack([torch.stack([space.inner(x, y) for y in Y]) for x in X])
+def _gram_leaf(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
     dt = torch.promote_types(X.dtype, Y.dtype)
-    g = X.reshape(X.shape[0], -1).to(dt).conj() @ Y.reshape(Y.shape[0], -1).to(dt).T
+    return X.reshape(X.shape[0], -1).to(dt).conj() @ Y.reshape(Y.shape[0], -1).to(dt).T
+
+
+def gram(X, Y, space: VectorSpace = STANDARD) -> torch.Tensor:
+    """``G[i, j] = <X[i], Y[j]>`` between two stacked bases (per-leaf GEMMs,
+    summed)."""
+    if space.inner_fn is not None:
+        nx, ny = capacity(X), capacity(Y)
+        return torch.stack([torch.stack([space.inner(get(X, i), get(Y, j)) for j in range(ny)])
+                            for i in range(nx)])
+    parts = [_gram_leaf(a, b) for a, b in zip(tree_leaves(X), tree_leaves(Y))]
+    g = sum(parts[1:], parts[0])
     return torch.real(g) if space.real_inner else g
 
 
-def batch_inner(X: torch.Tensor, Y: torch.Tensor,
-                space: VectorSpace = STANDARD) -> torch.Tensor:
+def batch_inner(X, Y, space: VectorSpace = STANDARD) -> torch.Tensor:
     """``c[i] = <X[i], Y[i]>`` row-wise between two stacked bases."""
     if space.inner_fn is not None:
-        return torch.stack([space.inner(x, y) for x, y in zip(X, Y)])
-    dt = torch.promote_types(X.dtype, Y.dtype)
-    c = (X.reshape(X.shape[0], -1).to(dt).conj() * Y.reshape(Y.shape[0], -1).to(dt)).sum(1)
+        return torch.stack([space.inner(get(X, i), get(Y, i)) for i in range(capacity(X))])
+
+    def part(a, b):
+        dt = torch.promote_types(a.dtype, b.dtype)
+        return (a.reshape(a.shape[0], -1).to(dt).conj() * b.reshape(b.shape[0], -1).to(dt)).sum(1)
+
+    parts = [part(a, b) for a, b in zip(tree_leaves(X), tree_leaves(Y))]
+    c = sum(parts[1:], parts[0])
     return torch.real(c) if space.real_inner else c

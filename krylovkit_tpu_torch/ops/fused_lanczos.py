@@ -346,7 +346,9 @@ def fused_step(V, y, g, kp1: int, B: int, spec: StencilSpec,
     A CUDA tensor runs the kernel of ``csrc/fused_lanczos.cu`` (float32,
     contiguous) with the sizes of :func:`plan_step`; its scratch is kept per
     device, so calls for one device go to one stream at a time.  A CPU
-    tensor runs :func:`fused_step_reference`."""
+    tensor runs :func:`fused_step_reference`.  A tensor that requires grad or
+    is wrapped by ``torch.func`` is refused (``_build.refuse_autograd``)."""
+    _build.refuse_autograd("fused_step", V, y, g)
     if V.device.type == "cpu":
         return fused_step_reference(V, y, g, kp1, B, spec, with_drift)
     if V.device.type != "cuda":

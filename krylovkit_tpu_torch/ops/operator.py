@@ -1,6 +1,14 @@
 """Linear-operator protocol (counterpart of ``krylovkit_tpu/ops/operator.py``).
 
-A :class:`LinearOperator` holds ``normal``/``adjoint`` callables on tensors.
+A :class:`LinearOperator` holds ``normal``/``adjoint`` callables on vectors
+(tensors or pytrees of them, ``ops/vector.py``).  The tensors an operator
+holds (:meth:`LinearOperator.tensors`: a matrix, a
+:class:`ParametricOperator`'s ``params``, banded or ELL planes; none for a
+callable or a stencil) are what the differentiable solves (``ad/``)
+differentiate, in the order of the JAX package's pytree registrations;
+:meth:`LinearOperator.with_tensors` rebuilds the operator on others.  A
+bare callable's adjoint is derived with ``torch.func.vjp``
+(:meth:`LinearOperator.with_adjoint_from`).
 :class:`StencilOperator` and :class:`GridStencilOperator` carry their
 offsets and coefficients as static metadata, which makes them *fusable*: the
 Lanczos fused expansion (``ops/fused_lanczos.py``) applies them inside its
@@ -11,13 +19,17 @@ zero (Dirichlet) boundaries, the semantics of the JAX package.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .vector import scalartype, tree_flatten, tree_leaves, tree_map, tree_unflatten, zerovector
+
 __all__ = [
     "LinearOperator",
+    "ParametricOperator",
+    "TypedOperator",
     "StencilOperator",
     "GridStencilOperator",
     "MatrixOperator",
@@ -44,23 +56,69 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def _derived_adjoint(f, x_template):
+    """``y ↦ Aᴴ y`` for the C-linear map ``f`` by ``torch.func.vjp`` at a
+    zero vector shaped like ``x_template``.  torch's vector-Jacobian product
+    of ``x ↦ A x`` is already ``Aᴴ y`` (its cotangents are conjugate
+    Wirtinger derivatives), so unlike the JAX package's
+    ``conj(fᵀ(conj y))`` no conjugation surrounds it.  Each call evaluates
+    ``f`` once more, inside the ``vjp``."""
+    zero = zerovector(x_template)
+
+    def adj(y):
+        _, vjp_fn = torch.func.vjp(f, zero)
+        return vjp_fn(y)[0]
+
+    return adj
+
+
 @dataclasses.dataclass(frozen=True)
 class LinearOperator:
-    """A linear map on tensors with an optional adjoint: ``normal(x) = A x``,
+    """A linear map on vectors with an optional adjoint: ``normal(x) = A x``,
     ``adjoint(y) = Aᴴ y``."""
 
-    normal: Callable[[torch.Tensor], torch.Tensor]
-    adjoint: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+    normal: Callable[[Any], Any]
+    adjoint: Optional[Callable[[Any], Any]] = None
 
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+    def __call__(self, x):
         return self.normal(x)
 
-    def apply_adjoint(self, y: torch.Tensor) -> torch.Tensor:
+    def apply_adjoint(self, y):
         if self.adjoint is None:
             raise ValueError(
-                "this operator has no adjoint; pass a (f, fadjoint) tuple or a matrix"
+                "this operator has no adjoint; pass a (f, fadjoint) tuple, a matrix, "
+                "or derive one with with_adjoint_from(x_template)"
             )
         return self.adjoint(y)
+
+    def tensors(self) -> tuple:
+        """The tensors the operator holds, which a differentiable solve
+        differentiates (none for a callable)."""
+        return ()
+
+    def with_tensors(self, tensors, plain: bool = False) -> "LinearOperator":
+        """The same operator on ``tensors`` (as many as :meth:`tensors`).
+        With ``plain`` its applies are differentiable PyTorch: an operator
+        whose apply is a hand-written kernel swaps in the kernel's plain
+        version."""
+        return self
+
+    def with_adjoint_from(self, x_template) -> "LinearOperator":
+        """``self`` if it has an adjoint, else an operator whose adjoint is
+        derived from ``normal`` by ``torch.func.vjp`` on vectors shaped like
+        ``x_template``.  ``normal`` must then be differentiable PyTorch: the
+        kernel wrappers refuse the wrapped tensors of ``torch.func``."""
+        if self.adjoint is not None:
+            return self
+        return LinearOperator(self.normal, _derived_adjoint(self.normal, x_template))
+
+
+@dataclasses.dataclass(frozen=True)
+class TypedOperator(LinearOperator):
+    """A callable operator whose scalar type is known: ``probe_dtype``
+    answers ``dtype`` without an apply (the pullbacks' bordered maps)."""
+
+    dtype: torch.dtype = None
 
 
 def _shift_flat(xf: torch.Tensor, d: int) -> torch.Tensor:
@@ -199,6 +257,59 @@ class MatrixOperator(LinearOperator):
     def _adjoint(self, y):
         return _promoted_matmul(self.A.conj().T, y)
 
+    def tensors(self) -> tuple:
+        return (self.A,)
+
+    def with_tensors(self, tensors, plain: bool = False) -> "MatrixOperator":
+        return MatrixOperator(tensors[0])
+
+
+@dataclasses.dataclass(frozen=True)
+class ParametricOperator(LinearOperator):
+    """Operator ``x ↦ apply_fn(params, x)`` whose parameters (a tensor or a
+    pytree of tensors) are explicit: a differentiable solve gives their
+    gradient, which a callable's closure would hide (the JAX package's
+    ``ParametricOperator``).  ``adjoint_fn(params, y)`` is ``Aᴴ y``, or
+    ``None``.
+
+    Example::
+
+        op = ParametricOperator(lambda g, x: g * x, params=g)
+        vals, vecs, info = kt.eigsolve(op, x0, 1, "SR", ishermitian=True)
+    """
+
+    apply_fn: Callable = None
+    params: Any = None
+    adjoint_fn: Optional[Callable] = None
+
+    def __init__(self, apply_fn, params, adjoint_fn=None):
+        object.__setattr__(self, "apply_fn", apply_fn)
+        object.__setattr__(self, "params", params)
+        object.__setattr__(self, "adjoint_fn", adjoint_fn)
+        object.__setattr__(self, "normal", lambda x: apply_fn(params, x))
+        object.__setattr__(
+            self, "adjoint",
+            (lambda y: adjoint_fn(params, y)) if adjoint_fn is not None else None,
+        )
+
+    def tensors(self) -> tuple:
+        return tuple(tree_leaves(self.params))
+
+    def with_tensors(self, tensors, plain: bool = False) -> "ParametricOperator":
+        _, spec = tree_flatten(self.params)
+        return ParametricOperator(self.apply_fn, tree_unflatten(tensors, spec), self.adjoint_fn)
+
+    def with_adjoint_from(self, x_template) -> "ParametricOperator":
+        # params stay explicit: the derived adjoint takes them as an argument
+        if self.adjoint is not None:
+            return self
+        f = self.apply_fn
+
+        def adjoint_fn(params, y):
+            return _derived_adjoint(lambda x: f(params, x), x_template)(y)
+
+        return ParametricOperator(f, self.params, adjoint_fn)
+
 
 def _promoted_matmul(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """``A @ x`` in the promoted type of the two (a real matrix applied to a
@@ -250,49 +361,55 @@ def as_generalized_pair(AB, device=None) -> Tuple[LinearOperator, Optional[Linea
     return as_operator(AB, device), None
 
 
-def apply_shifted(op: LinearOperator, x: torch.Tensor, a0, a1) -> torch.Tensor:
-    """``a0·x + a1·A(x)`` (reference ``src/apply.jl:5-11``).  ``a0``/``a1``
-    are Python numbers or 0-d tensors; as 0-d operands they never widen a
-    vector's precision (a float64 shift on a float32 vector stays float32),
-    only its kind (a complex shift makes a real vector complex)."""
-    return a0 * x + a1 * op(x)
+def apply_shifted(op: LinearOperator, x, a0, a1):
+    """``a0·x + a1·A(x)`` leaf by leaf (reference ``src/apply.jl:5-11``).
+    ``a0``/``a1`` are Python numbers or 0-d tensors; as 0-d operands they
+    never widen a vector's precision (a float64 shift on a float32 vector
+    stays float32), only its kind (a complex shift makes a real vector
+    complex)."""
+    return tree_map(lambda lx, la: a0 * lx + a1 * la, x, op(x))
 
 
-def probe_dtype(op: LinearOperator, x0: torch.Tensor) -> torch.dtype:
+def probe_dtype(op: LinearOperator, x0) -> torch.dtype:
     """Scalar type of the problem (reference ``apply_scalartype``,
     ``src/apply.jl:26-36``), from one application to a ``meta`` copy of
     ``x0``: no arithmetic, and no count in ``numops``.  Operators that hold
-    their data (a matrix, banded or ELL planes) answer from its dtype.  A callable
-    that mixes the meta copy with tensors it holds cannot run on it; it is
-    applied once to a zero vector instead (still not counted)."""
+    their data (a matrix, banded or ELL planes) or state their type
+    (:class:`TypedOperator`) answer without an apply.  A callable that mixes
+    the meta copy with tensors it holds cannot run on it; it is applied once
+    to a zero vector instead (still not counted)."""
     from .banded import BandedOperator
     from .sparse import ELLOperator
 
+    xdt = scalartype(x0)
     if isinstance(op, MatrixOperator):
-        out = torch.promote_types(op.A.dtype, x0.dtype)
+        out = torch.promote_types(op.A.dtype, xdt)
     elif isinstance(op, BandedOperator):
-        out = torch.promote_types(op.diags.dtype, x0.dtype)
+        out = torch.promote_types(op.diags.dtype, xdt)
     elif isinstance(op, ELLOperator):
-        out = torch.promote_types(op.vals.dtype, x0.dtype)
+        out = torch.promote_types(op.vals.dtype, xdt)
+    elif isinstance(op, TypedOperator):
+        out = op.dtype
     else:
-        out = _probe_apply(op.normal, x0).dtype
-    return torch.promote_types(out, x0.dtype)
+        out = scalartype(_probe_apply(op.normal, x0))
+    return torch.promote_types(out, xdt)
 
 
-def _probe_apply(fn, x0: torch.Tensor) -> torch.Tensor:
-    """``fn(x0)`` as a ``meta`` tensor (shape and dtype, no data): ``fn`` runs
-    on a meta copy of ``x0``, or, when it holds tensors of its own, once on a
-    zero vector."""
+def _probe_apply(fn, x0):
+    """``fn(x0)`` as ``meta`` tensors (shapes and dtypes, no data): ``fn``
+    runs on a meta copy of ``x0``, or, when it holds tensors of its own, once
+    on a zero vector."""
     try:
-        return fn(torch.empty_like(x0, device="meta"))
+        return fn(tree_map(lambda l: torch.empty_like(l, device="meta"), x0))
     except (RuntimeError, NotImplementedError):
-        return fn(torch.zeros_like(x0)).to("meta")
+        return tree_map(lambda l: l.to("meta"), fn(zerovector(x0)))
 
 
-def probe_adjoint(op: LinearOperator, y0: torch.Tensor) -> torch.Tensor:
-    """Shape and dtype of ``Aᴴ y0`` as a ``meta`` tensor, the domain template
-    of a map whose start vector lives in the codomain (the JAX package asks
-    ``jax.eval_shape(op.apply_adjoint, y0)``).  Not counted in ``numops``."""
+def probe_adjoint(op: LinearOperator, y0):
+    """Shapes and dtypes of ``Aᴴ y0`` as ``meta`` tensors, the domain
+    template of a map whose start vector lives in the codomain (the JAX
+    package asks ``jax.eval_shape(op.apply_adjoint, y0)``).  Not counted in
+    ``numops``."""
     from .banded import BandedOperator
 
     if isinstance(op, MatrixOperator):
@@ -304,16 +421,18 @@ def probe_adjoint(op: LinearOperator, y0: torch.Tensor) -> torch.Tensor:
     return _probe_apply(op.apply_adjoint, y0)
 
 
-def require_adjoint(op: LinearOperator) -> LinearOperator:
-    """``op`` if it has an adjoint.  The JAX package derives the adjoint of a
-    bare callable by linear transposition; that needs differentiation through
-    the callable, which is not ported."""
+def require_adjoint(op: LinearOperator, x_template, space=None) -> LinearOperator:
+    """``op`` with an adjoint, as the JAX front-ends of ``svdsolve`` and
+    ``lssolve`` make it: a bare callable gets ``with_adjoint_from(x_template)``
+    (exact by construction, unchecked; ``x_template`` lives in the codomain,
+    so the derived adjoint needs a square map); an ``(f, fadjoint)`` pair
+    from the caller passes :func:`check_adjoint_compatibility` in ``space``
+    (the standard inner product by default); a matrix's, a stencil's or a
+    banded operator's adjoint is exact and unchecked."""
     if op.adjoint is None:
-        raise NotImplementedError(
-            "a bare callable has no adjoint: deriving one by linear "
-            "transposition (with_adjoint_from) is not ported yet (ROADMAP.md "
-            "queue 1, item 7); pass a (f, fadjoint) tuple or a matrix"
-        )
+        return op.with_adjoint_from(x_template)
+    if type(op) is LinearOperator:
+        check_adjoint_compatibility(op, x_template, space)
     return op
 
 

@@ -7,7 +7,8 @@ DGKS criterion ``η = 1/sqrt(2)``.  The active length ``k`` is a host ``int``;
 the CGS sweep reads the same bucketed row prefix of the basis as the JAX
 package (``basis.buckets_for``), so both contract over the same rows.  With
 ``basis.use_pallas_projections`` on, the sweep is unbucketed: the live-row
-kernels take the whole basis and the active length.
+kernels take the whole basis and the active length.  Vectors and bases may
+be pytrees (``ops/vector.py``); the sweeps then run leaf by leaf.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from typing import Tuple
 import torch
 
 from . import basis as bs
-from .vector import STANDARD, VectorSpace
+from .vector import STANDARD, VectorSpace, device_of, scalartype, tree_map
 
 __all__ = [
     "Orthogonalizer",
@@ -87,41 +88,46 @@ cgsir = ClassicalGramSchmidtIR()
 mgsir = ModifiedGramSchmidtIR()
 
 
+def _sub(w, u):
+    return tree_map(lambda a, b: a - b, w, u)
+
+
 def _coeff_dtype(V, w, space):
-    dt = torch.promote_types(V.dtype, w.dtype)
+    dt = scalartype(V, w)
     if space.real_inner:
         dt = dt.to_real()
     return dt
 
 
 def _cgs_sweep(w, V, k: int, space):
-    kmax = V.shape[0]
+    kmax = bs.capacity(V)
     if bs.use_pallas_projections:
         c = bs.project(V, w, k, space)
-        return w - bs.unproject(V, c, k), c.to(_coeff_dtype(V, w, space))
+        return _sub(w, bs.unproject(V, c, k)), c.to(_coeff_dtype(V, w, space))
     B = bs.bucket_for(k, kmax) if space.inner_fn is None else kmax
     Vb = bs.prefix(V, B)
     c = bs.project(Vb, w, k, space)
-    w = w - bs.unproject(Vb, c)
+    w = _sub(w, bs.unproject(Vb, c))
     return w, torch.nn.functional.pad(c, (0, kmax - B)).to(_coeff_dtype(V, w, space))
 
 
 def _mgs_sweep(w, V, k: int, space):
-    c = torch.zeros(V.shape[0], dtype=_coeff_dtype(V, w, space), device=w.device)
+    c = torch.zeros(bs.capacity(V), dtype=_coeff_dtype(V, w, space), device=device_of(w))
     for j in range(k):
-        cj = space.inner(V[j], w)
-        w = w - cj * V[j]
+        vj = bs.get(V, j)
+        cj = space.inner(vj, w)
+        w = tree_map(lambda a, b: a - cj * b, w, vj)
         c[j] = cj
     return w, c
 
 
 def orthogonalize(
-    w: torch.Tensor,
-    V: torch.Tensor,
+    w,
+    V,
     k: int,
     orth: Orthogonalizer = cgs2,
     space: VectorSpace = STANDARD,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+) -> Tuple[object, torch.Tensor]:
     """Orthogonalize ``w`` against ``V[:k]``.  Returns ``(w_perp, c)`` with
     ``w = w_perp + V c`` (``c`` zero for ``j >= k``).  Reference:
     ``orthogonalize!!`` (``src/orthonormal.jl:370-489``)."""
@@ -152,17 +158,17 @@ def orthogonalize(
 
 
 def orthonormalize(
-    w: torch.Tensor,
-    V: torch.Tensor,
+    w,
+    V,
     k: int,
     orth: Orthogonalizer = cgs2,
     space: VectorSpace = STANDARD,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+) -> Tuple[object, torch.Tensor, torch.Tensor]:
     """Orthogonalize then normalize: ``(v, beta, c)`` with ``w = V c + beta·v``
     and ``‖v‖ = 1``; on breakdown (``beta == 0``) ``v`` is zero.  Reference:
     ``orthonormalize!!`` (``src/orthonormal.jl:520-527``)."""
     w, c = orthogonalize(w, V, k, orth, space)
     beta = space.norm(w)
     safe = torch.where(beta > 0, beta, torch.ones_like(beta))
-    v = torch.where(beta > 0, w / safe, 0 * w)
+    v = tree_map(lambda l: torch.where(beta > 0, l / safe, 0 * l), w)
     return v, beta, c

@@ -142,7 +142,9 @@ def project_pallas(V: torch.Tensor, w: torch.Tensor, k: LiveRows) -> torch.Tenso
     the same input agree to the bit (fixed-order reduction).
 
     A CUDA basis runs the kernel of ``csrc/projections.cu``; a CPU basis runs
-    :func:`project_reference`."""
+    :func:`project_reference`.  A tensor that requires grad or is wrapped by
+    ``torch.func`` is refused (``_build.refuse_autograd``)."""
+    _build.refuse_autograd("project", V, w)
     kptr, kval = _check("project_pallas", V, w, V.shape[1:], k)
     if V.device.type == "cpu":
         return project_reference(V, w, k)
@@ -169,7 +171,9 @@ def unproject_pallas(V: torch.Tensor, c: torch.Tensor, k: LiveRows) -> torch.Ten
     ``V`` are never read.
 
     A CUDA basis runs the kernel of ``csrc/projections.cu``; a CPU basis runs
-    :func:`unproject_reference`."""
+    :func:`unproject_reference`.  A tensor that requires grad or is wrapped
+    by ``torch.func`` is refused (``_build.refuse_autograd``)."""
+    _build.refuse_autograd("unproject", V, c)
     if torch.is_complex(c) or not torch.is_floating_point(c):
         raise ValueError(f"unproject_pallas needs real floating coefficients, got {c.dtype}")
     c = c.to(torch.float32).contiguous()

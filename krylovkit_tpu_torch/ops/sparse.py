@@ -47,6 +47,17 @@ class ELLOperator(LinearOperator):
     def shape(self) -> Tuple[int, int]:
         return (self.cols.shape[0], self.n_cols)
 
+    def tensors(self) -> tuple:
+        """The values, then the adjoint's values (the floating leaves of the
+        JAX package's pytree registration)."""
+        return (self.vals,) + ((self.adj.vals,) if self.adj is not None else ())
+
+    def with_tensors(self, tensors, plain: bool = False) -> "ELLOperator":
+        adj = None
+        if self.adj is not None:
+            adj = ELLOperator(self.adj.cols, tensors[1], self.adj.n_cols)
+        return ELLOperator(self.cols, tensors[0], self.n_cols, adj=adj)
+
     def _matvec(self, x: torch.Tensor) -> torch.Tensor:
         g = torch.index_select(x.reshape(-1), 0, self.cols.reshape(-1)).reshape(self.cols.shape)
         return torch.sum(self.vals * g, dim=1)

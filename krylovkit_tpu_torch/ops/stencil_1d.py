@@ -52,7 +52,9 @@ def laplacian_1d_flat(x: torch.Tensor) -> torch.Tensor:
 
     A CUDA tensor runs the kernel of ``csrc/laplacian_1d.cu`` (float32 or
     float64); a CPU tensor (or a ``meta`` one, to infer the result type) runs
-    :func:`laplacian_1d_flat_reference`."""
+    :func:`laplacian_1d_flat_reference`.  A tensor that requires grad or is
+    wrapped by ``torch.func`` is refused (``_build.refuse_autograd``)."""
+    _build.refuse_autograd("laplacian_1d", x)
     if x.device.type in ("cpu", "meta"):
         return laplacian_1d_flat_reference(x)
     if x.device.type != "cuda":

@@ -1,20 +1,28 @@
-"""Vector space of single tensors — the PyTorch counterpart of
-``krylovkit_tpu/ops/vector.py``.
+"""Vector space of tensors and pytrees of tensors — the PyTorch counterpart
+of ``krylovkit_tpu/ops/vector.py``.
 
-A vector is one tensor of any shape (real or complex).  The main path uses
-``(n/128, 128)`` float32 vectors, the layout the fused Lanczos kernel reads.
-Custom inner products (the reference's ``InnerProductVec``) and the "real
-inner product" of ``realeigsolve`` are carried by a frozen
-:class:`VectorSpace`, as in the JAX package.  Sharded spaces (``psum_axis``)
-and pytree vectors are not part of this port yet.
+A vector is one tensor of any shape (real or complex), or a tuple, list or
+dict of them, nested (the reference's "any object with ``inner``, ``norm``,
+``scale!!``, ``add!!``"; the JAX package's pytree).  The main path uses one
+``(n/128, 128)`` float32 tensor, the layout the fused Lanczos kernel reads;
+a plain tensor takes the same operations as it would without the tree
+helpers, which check for a tensor first.  Inner products are one sum of
+per-leaf ``vdot``s.  Custom inner products (the reference's
+``InnerProductVec``) and the "real inner product" of ``realeigsolve`` are
+carried by a frozen :class:`VectorSpace`, as in the JAX package.  Sharded
+spaces (``psum_axis``) are not part of this port.
+
+The tree helpers (``tree_map``, ``tree_leaves``, ``tree_flatten``,
+``tree_unflatten``) are built on ``torch.utils._pytree`` and live here only.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 import torch
+from torch.utils import _pytree as _pt
 
 __all__ = [
     "VectorSpace",
@@ -26,8 +34,53 @@ __all__ = [
     "add",
     "zerovector",
     "scalartype",
+    "real_scalartype",
+    "from_template",
+    "randn_like",
     "rounded",
+    "tree_map",
+    "tree_leaves",
+    "tree_flatten",
+    "tree_unflatten",
+    "astype",
+    "device_of",
 ]
+
+PyTree = Any
+
+
+def tree_leaves(x: PyTree) -> list:
+    """The tensors of ``x`` in flattening order (``[x]`` for a tensor)."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    return _pt.tree_leaves(x)
+
+
+def tree_flatten(x: PyTree):
+    """``(leaves, spec)``; :func:`tree_unflatten` rebuilds ``x`` from them."""
+    return _pt.tree_flatten(x)
+
+
+def tree_unflatten(leaves, spec) -> PyTree:
+    return _pt.tree_unflatten(list(leaves), spec)
+
+
+def tree_map(fn: Callable, x: PyTree, *rest: PyTree) -> PyTree:
+    """``fn`` leaf by leaf over ``x`` and trees of its structure; a tensor
+    ``x`` is one call of ``fn``."""
+    if isinstance(x, torch.Tensor):
+        return fn(x, *rest)
+    return _pt.tree_map(fn, x, *rest)
+
+
+def astype(x: PyTree, dtype: torch.dtype) -> PyTree:
+    """Every leaf of ``x`` in ``dtype``."""
+    return tree_map(lambda l: l.to(dtype), x)
+
+
+def device_of(x: PyTree) -> torch.device:
+    """The device of the first leaf (a solve runs on it)."""
+    return tree_leaves(x)[0].device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,20 +89,21 @@ class VectorSpace:
 
     Attributes:
       inner_fn: optional custom inner product ``(x, y) -> scalar tensor``,
-        conjugate-linear in ``x``.  ``None`` is the Euclidean inner product.
+        conjugate-linear in ``x``.  ``None`` is the Euclidean inner product
+        summed over all leaves.
       real_inner: use ``real(inner(x, y))`` (complex space treated as real).
     """
 
-    inner_fn: Optional[Callable[[torch.Tensor, torch.Tensor], torch.Tensor]] = None
+    inner_fn: Optional[Callable[[PyTree, PyTree], torch.Tensor]] = None
     real_inner: bool = False
 
-    def inner(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        ip = self.inner_fn(x, y) if self.inner_fn is not None else _inner(x, y)
+    def inner(self, x: PyTree, y: PyTree) -> torch.Tensor:
+        ip = self.inner_fn(x, y) if self.inner_fn is not None else _tree_inner(x, y)
         if self.real_inner:
             ip = torch.real(ip)
         return ip
 
-    def norm(self, x: torch.Tensor) -> torch.Tensor:
+    def norm(self, x: PyTree) -> torch.Tensor:
         nrm2 = torch.real(self.inner(x, x))
         return torch.sqrt(torch.clamp(nrm2, min=0))
 
@@ -59,9 +113,18 @@ REAL = VectorSpace(real_inner=True)
 
 
 def _inner(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Euclidean inner product ``Σ conj(x)·y`` as a 0-d tensor."""
+    """Euclidean inner product ``Σ conj(x)·y`` of two tensors, 0-d."""
     dt = torch.promote_types(x.dtype, y.dtype)
     return torch.vdot(x.reshape(-1).to(dt), y.reshape(-1).to(dt))
+
+
+def _tree_inner(x: PyTree, y: PyTree) -> torch.Tensor:
+    """Euclidean inner product over all leaves, conjugate-linear in ``x``:
+    one ``vdot`` per leaf, summed."""
+    if isinstance(x, torch.Tensor):
+        return _inner(x, y)
+    parts = [_inner(a, b) for a, b in zip(tree_leaves(x), tree_leaves(y))]
+    return sum(parts[1:], parts[0])
 
 
 def inner(x, y, space: VectorSpace = STANDARD) -> torch.Tensor:
@@ -72,27 +135,59 @@ def norm(x, space: VectorSpace = STANDARD) -> torch.Tensor:
     return space.norm(x)
 
 
-def scale(x: torch.Tensor, a) -> torch.Tensor:
+def scale(x: PyTree, a) -> PyTree:
     """``a * x`` (reference VectorInterface ``scale``)."""
-    return a * x
+    return tree_map(lambda l: a * l, x)
 
 
-def add(y: torch.Tensor, x: torch.Tensor, a=1, b=1) -> torch.Tensor:
+def add(y: PyTree, x: PyTree, a=1, b=1) -> PyTree:
     """``b*y + a*x`` — the reference's ``add!!(y, x, a, b)`` convention."""
-    return b * y + a * x
+    return tree_map(lambda ly, lx: b * ly + a * lx, y, x)
 
 
-def zerovector(x: torch.Tensor, dtype=None) -> torch.Tensor:
-    return torch.zeros_like(x, dtype=dtype or x.dtype)
+def zerovector(x: PyTree, dtype=None) -> PyTree:
+    return tree_map(lambda l: torch.zeros_like(l, dtype=dtype or l.dtype), x)
 
 
-def scalartype(*tensors) -> torch.dtype:
-    """Joint scalar dtype of one or more tensors (the value-domain part of
-    the reference's ``apply_scalartype``, ``src/apply.jl:26-36``)."""
-    out = tensors[0].dtype
-    for t in tensors[1:]:
+def scalartype(*trees) -> torch.dtype:
+    """Joint scalar dtype of the leaves of one or more vectors (the
+    value-domain part of the reference's ``apply_scalartype``,
+    ``src/apply.jl:26-36``)."""
+    leaves = [l for t in trees for l in tree_leaves(t)]
+    out = leaves[0].dtype
+    for t in leaves[1:]:
         out = torch.promote_types(out, t.dtype)
     return out
+
+
+def real_scalartype(dtype: torch.dtype) -> torch.dtype:
+    """Real counterpart of a (possibly complex) floating dtype."""
+    return dtype.to_real()
+
+
+def from_template(template: PyTree, flat: torch.Tensor) -> PyTree:
+    """Unravel a flat tensor into the structure, shapes and dtypes of
+    ``template``."""
+    leaves, spec = tree_flatten(template)
+    out, pos = [], 0
+    for l in leaves:
+        out.append(flat[pos: pos + l.numel()].reshape(l.shape).to(l.dtype))
+        pos += l.numel()
+    return tree_unflatten(out, spec)
+
+
+def randn_like(generator: torch.Generator, x: PyTree, dtype=None) -> PyTree:
+    """Standard normal vector with the structure of ``x``, drawn from
+    ``generator`` leaf by leaf; a complex leaf gets normal real and
+    imaginary parts."""
+
+    def leaf(l):
+        dt = dtype or l.dtype
+        draw = lambda: torch.randn(l.shape, generator=generator, dtype=dt.to_real(),  # noqa: E731
+                                   device=l.device)
+        return torch.complex(draw(), draw()) if dt.is_complex else draw()
+
+    return tree_map(leaf, x)
 
 
 def rounded(v: float, dtype: torch.dtype) -> float:

@@ -21,7 +21,8 @@ Two arithmetic modes, chosen by the problem's scalar type:
 The loops are eager Python on the host over device tensors; ``k``, ``keep``,
 ``nconv`` and the counters are host ``int``s.  Real float32 stencil operators
 with ``(R, 128)`` vectors run the one-stream fused expansion
-(``kf.fused_expansions(..., hermitian=False)``).
+(``kf.fused_expansions(..., hermitian=False)``).  Vectors may be pytrees
+(``ops/vector.py``): the basis is the same pytree of stacked leaves.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ from ..info import EACHITERATION, ConvergenceInfo, log_if, warn_if
 from ..ops import basis as bs
 from ..ops import orthonormal as on
 from ..ops.operator import LinearOperator, probe_dtype
-from ..ops.vector import STANDARD, VectorSpace, rounded
+from ..ops.vector import STANDARD, VectorSpace, device_of, rounded, tree_map
 
 __all__ = ["eigsolve_arnoldi", "schursolve", "realeigsolve_arnoldi"]
 
@@ -140,7 +141,7 @@ def _arnoldi_loop(op, x0, howmany: int, which, alg: Arnoldi, space, cdt, real=Fa
     rdt = cdt.to_real()
     tol = rounded(alg.tol, rdt)
     btol = float(torch.tensor(torch.finfo(rdt).eps, dtype=rdt) ** 0.75)
-    dev = x0.device
+    dev = device_of(x0)
 
     process = _process_real if real else _process
     fact = kf.initialize(x0, m, cdt, space, vec_dtype=None if real else cdt,
@@ -222,12 +223,16 @@ def _arnoldi_loop(op, x0, howmany: int, which, alg: Arnoldi, space, cdt, real=Fa
     return st
 
 
-def _leading_rows(V: torch.Tensor, U: torch.Tensor, howmany: int) -> torch.Tensor:
+def _leading_rows(V, U: torch.Tensor, howmany: int):
     """Rows ``< howmany`` of ``bs.transform(V, U)``: the leading rotated
     vectors, without forming the rest of the rotated basis."""
-    dt = torch.promote_types(U.dtype, V.dtype)
-    out = U[:, :howmany].to(dt).T @ V.reshape(V.shape[0], -1).to(dt)
-    return out.reshape((howmany,) + tuple(V.shape[1:])).to(V.dtype)
+
+    def leaf(lV):
+        dt = torch.promote_types(U.dtype, lV.dtype)
+        out = U[:, :howmany].to(dt).T @ lV.reshape(lV.shape[0], -1).to(dt)
+        return out.reshape((howmany,) + tuple(lV.shape[1:])).to(lV.dtype)
+
+    return tree_map(leaf, V)
 
 
 def _check(howmany: int, m: int):
@@ -240,9 +245,13 @@ def _residuals(st: _LoopState, s: torch.Tensor, howmany: int, dtype, out_dtype=N
     direction, rebuilt from the stored rows by column ``k`` of ``L``."""
     fact = st.fact
     vk = bs.unproject_bucketed(fact.V, st.sc.L[:, fact.k].to(dtype), fact.k + 1)
-    if out_dtype is not None:
-        vk = vk.to(out_dtype)
-    return s[:howmany].reshape((howmany,) + (1,) * vk.ndim) * vk[None]
+
+    def leaf(l):
+        if out_dtype is not None:
+            l = l.to(out_dtype)
+        return s[:howmany].reshape((howmany,) + (1,) * l.ndim) * l[None]
+
+    return tree_map(leaf, vk)
 
 
 def _info(st: _LoopState, residuals, normres, howmany: int) -> ConvergenceInfo:
@@ -312,7 +321,7 @@ def eigsolve_arnoldi(op: LinearOperator, x0: torch.Tensor, howmany: int, which,
         QXre, QXim = st.Q @ Xre, st.Q @ Xim
         Vre = _leading_rows(fact.V, kf.fold_scales(st.sc, _masked(QXre, fact.k, howmany)), howmany)
         Vim = _leading_rows(fact.V, kf.fold_scales(st.sc, _masked(QXim, fact.k, howmany)), howmany)
-        vecs = torch.complex(Vre, Vim).to(cdt)
+        vecs = tree_map(lambda a, b: torch.complex(a, b).to(cdt), Vre, Vim)
         QX = torch.complex(QXre, QXim).to(cdt)
     else:
         X = dense.triangular_eigvecs(st.T, fact.k)  # eigvecs of T in the Schur basis

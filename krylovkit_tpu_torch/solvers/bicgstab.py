@@ -11,6 +11,8 @@ storage, as an eager host loop.  Keeps the reference's robustness features:
   (``src/linsolve/bicgstab.jl:139-155, 172-189``);
 * breakdown guard: ``ρ ≈ 0`` or ``⟨r̃, v⟩ ≈ 0`` (below ``eps² ‖r₀‖²``) ends
   the solve with ``converged = 0`` (``src/linsolve/bicgstab.jl:39-46``).
+
+``b`` and ``x0`` may be pytree vectors (``ops/vector.py``).
 """
 
 from __future__ import annotations
@@ -20,13 +22,13 @@ import torch
 from ..algorithms import BiCGStab
 from ..info import STARTSTOP, ConvergenceInfo, log_if, warn_if
 from ..ops.operator import LinearOperator, apply_shifted, probe_dtype
-from ..ops.vector import STANDARD, VectorSpace, add, rounded, zerovector
+from ..ops.vector import STANDARD, VectorSpace, add, astype, device_of, rounded, zerovector
 
 __all__ = ["linsolve_bicgstab"]
 
 
-def linsolve_bicgstab(op: LinearOperator, b: torch.Tensor, x0: torch.Tensor, a0, a1,
-                      alg: BiCGStab, space: VectorSpace = STANDARD):
+def linsolve_bicgstab(op: LinearOperator, b, x0, a0, a1, alg: BiCGStab,
+                      space: VectorSpace = STANDARD):
     cdt = probe_dtype(op, b)
     rdt = cdt.to_real()
     tol = rounded(alg.tol, rdt)
@@ -38,13 +40,13 @@ def linsolve_bicgstab(op: LinearOperator, b: torch.Tensor, x0: torch.Tensor, a0,
     def true_residual(x):
         return add(b, shifted(x), a=-1)
 
-    x = x0.to(cdt)
-    r = true_residual(x).to(cdt)
+    x = astype(x0, cdt)
+    r = astype(true_residual(x), cdt)
     normr0 = space.norm(r)
     # breakdown threshold, formed in the working type as the JAX package does
     thr = eps_break * normr0 * normr0
     rshadow = r  # fixed shadow residual (bicgstab.jl:20)
-    one = torch.ones((), dtype=cdt, device=b.device)
+    one = torch.ones((), dtype=cdt, device=device_of(b))
     p, v = zerovector(r), zerovector(r)
     rho = alpha = omega = one
     normr = normr0

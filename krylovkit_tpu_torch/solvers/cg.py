@@ -7,6 +7,7 @@ residual norm from the device once per iteration.  Keeps the reference's
 robustness feature: on apparent convergence the *true* residual
 ``b - (a0 + a1 A)x`` is recomputed (a host ``if``) and the recurrence
 restarts from it when it fails the tolerance (``src/linsolve/cg.jl:69-75``).
+``b`` and ``x0`` may be pytree vectors (``ops/vector.py``).
 """
 
 from __future__ import annotations
@@ -16,14 +17,14 @@ import torch
 from ..algorithms import CG
 from ..info import STARTSTOP, ConvergenceInfo, log_if, warn_if
 from ..ops.operator import LinearOperator, apply_shifted
-from ..ops.vector import STANDARD, VectorSpace, add, rounded
+from ..ops.vector import STANDARD, VectorSpace, add, rounded, scalartype
 
 __all__ = ["linsolve_cg"]
 
 
-def linsolve_cg(op: LinearOperator, b: torch.Tensor, x0: torch.Tensor, a0, a1,
-                alg: CG, space: VectorSpace = STANDARD):
-    tol = rounded(alg.tol, b.dtype.to_real())
+def linsolve_cg(op: LinearOperator, b, x0, a0, a1, alg: CG,
+                space: VectorSpace = STANDARD):
+    tol = rounded(alg.tol, scalartype(b).to_real())
 
     def shifted(x):
         return apply_shifted(op, x, a0, a1)

@@ -4,8 +4,13 @@ of ``krylovkit_tpu/solvers/eigsolve.py``).
 The ``eigselector`` picks Lanczos for Hermitian problems (``ishermitian=True``
 or a concrete matrix that is Hermitian by a numerical probe) and Arnoldi
 otherwise; a :class:`Block` start (or a ``BlockLanczos`` algorithm) runs
-Block Lanczos.  Differentiation through the solve is not ported yet and
-raises ``NotImplementedError``.  The solve runs on the device of ``x0``.
+Block Lanczos.  When gradients are enabled and ``x0`` or a tensor the
+operator holds requires grad, the Lanczos or Arnoldi solve goes through the
+differentiable ``ad.eigsolve_vjp`` (backward with ``alg_rrule``); otherwise
+straight to the driver.  ``schursolve``, ``realeigsolve`` and Block Lanczos
+have no differentiation rule, as in the JAX package, and refuse an input
+that requires grad.  The solve runs on the device of ``x0``; ``x0`` may be
+a pytree vector (``ops/vector.py``), except for Block Lanczos.
 """
 
 from __future__ import annotations
@@ -17,14 +22,22 @@ import torch
 
 from ..algorithms import Arnoldi, BlockLanczos, Lanczos
 from ..ops.block import Block
+from ..ad._common import needs_grad, refuse_grad
 from ..ops.operator import as_operator, concrete_start, probe_dtype
-from ..ops.vector import STANDARD, VectorSpace
+from ..ops.vector import STANDARD, VectorSpace, device_of, tree_leaves
 from .arnoldi import eigsolve_arnoldi, realeigsolve_arnoldi
 from .arnoldi import schursolve as _schursolve_arnoldi
 from .blocklanczos import eigsolve_blocklanczos
 from .lanczos import eigsolve_lanczos
 
-__all__ = ["eigsolve", "eigsolve_vjp", "schursolve", "realeigsolve"]
+__all__ = ["eigsolve", "schursolve", "realeigsolve"]
+
+
+def _eigsolve_impl(op, x0, howmany, which, alg, space):
+    """Driver dispatch, undifferentiated (the forward of ``ad.eigsolve_vjp``)."""
+    if isinstance(alg, Lanczos):
+        return eigsolve_lanczos(op, x0, howmany, which, alg, space)
+    return eigsolve_arnoldi(op, x0, howmany, which, alg, space)
 
 
 def _is_concrete(A) -> bool:
@@ -42,7 +55,7 @@ def _default_x0(A, x0):
     if x0 is not None:
         # breakdown guard for concrete starts (reference raises on β₀ == 0,
         # src/factorizations/lanczos.jl:184)
-        if float(torch.sum(torch.abs(x0) ** 2)) == 0.0:
+        if sum(float(torch.sum(torch.abs(l.detach()) ** 2)) for l in tree_leaves(x0)) == 0.0:
             raise ValueError("starting vector x0 has zero norm")
         return x0
     if _is_concrete(A) and A.ndim == 2:
@@ -60,14 +73,6 @@ def _select_alg(A, ishermitian, alg, **kw):
     return cls(**{k: v for k, v in kw.items() if v is not None})
 
 
-def eigsolve_vjp(*args, **kwargs):
-    """Differentiation through ``eigsolve`` (the JAX package's custom VJP)."""
-    raise NotImplementedError(
-        "eigsolve_vjp is not ported yet (ROADMAP.md queue 1, item 7: AD as "
-        "torch.autograd.Function)"
-    )
-
-
 def eigsolve(
     A,
     x0: Optional[torch.Tensor] = None,
@@ -83,6 +88,7 @@ def eigsolve(
     orth=None,
     eager: Optional[bool] = None,
     verbosity: Optional[int] = None,
+    alg_rrule=None,
 ):
     """Find ``howmany`` extremal eigenvalues of a linear map.
 
@@ -92,7 +98,15 @@ def eigsolve(
     a matrix (tensor or numpy array), a callable or a ``LinearOperator``;
     a numpy matrix is moved to ``x0``'s device.  A :class:`Block` ``x0``
     runs Block Lanczos (reference ``eigselector``,
-    ``src/eigsolve/eigsolve.jl:238-283``) and needs no Hermitian probe."""
+    ``src/eigsolve/eigsolve.jl:238-283``) and needs no Hermitian probe.
+
+    Differentiable in ``x0`` (zero gradient) and in the tensors the
+    operator holds (a matrix, a :class:`ParametricOperator`'s ``params``,
+    banded or ELL planes): the backward runs ``alg_rrule``, by default
+    ``GMRES`` with the primal's ``tol``, ``krylovdim``, ``maxiter`` and
+    ``orth`` (bordered systems per eigenpair); an ``Arnoldi`` ``alg_rrule``
+    takes the Sylvester route.  A bare callable's adjoint, which the
+    backward needs, is derived by ``with_adjoint_from``."""
     if isinstance(x0, Block) or isinstance(alg, BlockLanczos):
         if not isinstance(x0, Block):
             raise ValueError("BlockLanczos requires a Block starting value x0")
@@ -101,13 +115,10 @@ def eigsolve(
                       eager=eager, verbosity=verbosity)
             alg = BlockLanczos(**{k: v for k, v in kw.items() if v is not None})
         op = as_operator(A, device=x0.stacked.device)
+        refuse_grad("eigsolve with a Block start (Block Lanczos)", op, x0.stacked)
         return eigsolve_blocklanczos(op, x0.stacked, howmany, which, alg, space)
-    if (x0 is not None and x0.requires_grad) or (
-        isinstance(A, torch.Tensor) and A.requires_grad
-    ):
-        eigsolve_vjp()
     x0 = _default_x0(A, x0)
-    op = as_operator(A, device=x0.device)
+    op = as_operator(A, device=device_of(x0))
     alg = _select_alg(
         A, ishermitian, alg, tol=tol, krylovdim=krylovdim, maxiter=maxiter,
         orth=orth, eager=eager, verbosity=verbosity,
@@ -127,9 +138,12 @@ def eigsolve(
                 "which=LI/SI invalid for real linear maps (conjugate-symmetric "
                 "spectrum) — reference src/eigsolve/eigsolve.jl:209-236"
             )
-    if isinstance(alg, Lanczos):
-        return eigsolve_lanczos(op, x0, howmany, which, alg, space)
-    return eigsolve_arnoldi(op, x0, howmany, which, alg, space)
+    if needs_grad(op, x0):
+        from ..ad.eigsolve import eigsolve_vjp
+
+        return eigsolve_vjp(howmany, which, alg, alg_rrule, space,
+                            op.with_adjoint_from(x0), x0)
+    return _eigsolve_impl(op, x0, howmany, which, alg, space)
 
 
 def _arnoldi_alg(alg, kw):
@@ -152,7 +166,8 @@ def schursolve(
     ``schursolve``, ``src/eigsolve/arnoldi.jl:1-150``).  Keywords other than
     ``space`` are the fields of :class:`Arnoldi`."""
     x0 = _default_x0(A, x0)
-    op = as_operator(A, device=x0.device)
+    op = as_operator(A, device=device_of(x0))
+    refuse_grad("schursolve", op, x0)
     return _schursolve_arnoldi(op, x0, howmany, which, _arnoldi_alg(alg, kw), space)
 
 
@@ -177,7 +192,8 @@ def realeigsolve(
     times ``max(1, max |vals|)``."""
     kw.pop("ishermitian", None)
     x0 = _default_x0(A, x0)
-    op = as_operator(A, device=x0.device)
+    op = as_operator(A, device=device_of(x0))
+    refuse_grad("realeigsolve", op, x0)
     vals, vecs, info, maximag = realeigsolve_arnoldi(
         op, x0, howmany, which, _arnoldi_alg(alg, kw), space
     )

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from .. import dense
+from ..ad._common import refuse_grad
 from ..algorithms import Arnoldi, Lanczos
 from ..factorizations import krylov as kf
 from ..info import STARTSTOP, ConvergenceInfo, log_if, warn_if
@@ -99,7 +100,12 @@ def expintegrator(
         u = (u,) + more_u
     if not isinstance(u, tuple):
         u = (u,)
+    if not all(isinstance(ui, torch.Tensor) for ui in u):
+        raise TypeError("expintegrator takes tensors as u: pytree vectors are not ported "
+                        "yet (ROADMAP.md queue 1, item 9)")
     op = as_operator(A, device=u[0].device)
+    refuse_grad("exponentiate/expintegrator", op, *u,
+                *((t,) if isinstance(t, torch.Tensor) else ()))
     if alg is None:
         herm = ishermitian
         if herm is None:

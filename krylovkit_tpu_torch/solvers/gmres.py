@@ -22,6 +22,9 @@ As in the JAX package:
   per-column convergence test is kept.  The Krylov space of ``a0 + a1·A`` is
   that of ``A``: the kernel streams the raw stencil and the shift enters only
   the small column.
+
+``b`` and ``x0`` may be pytree vectors (``ops/vector.py``); the fused cycle
+takes one tensor only.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ from ..info import STARTSTOP, ConvergenceInfo, log_if, warn_if
 from ..ops import basis as bs
 from ..ops import orthonormal as on
 from ..ops.operator import LinearOperator, apply_shifted, probe_dtype
-from ..ops.vector import STANDARD, VectorSpace, add, rounded
+from ..ops.vector import STANDARD, VectorSpace, add, astype, device_of, rounded
 
 __all__ = ["linsolve_gmres"]
 
@@ -64,10 +67,10 @@ def _qr_update(G, R, y, col, k: int):
     return G, R, y
 
 
-def linsolve_gmres(op: LinearOperator, b: torch.Tensor, x0: torch.Tensor, a0, a1,
-                   alg: GMRES, space: VectorSpace = STANDARD):
+def linsolve_gmres(op: LinearOperator, b, x0, a0, a1, alg: GMRES,
+                   space: VectorSpace = STANDARD):
     m = alg.krylovdim
-    dev = b.device
+    dev = device_of(b)
     cdt = probe_dtype(op, b)
     for a in (a0, a1):
         # a 0-d tensor promotes fully; a Python number only widens the kind
@@ -86,8 +89,8 @@ def linsolve_gmres(op: LinearOperator, b: torch.Tensor, x0: torch.Tensor, a0, a1
         return e
 
     # loop-carried vectors have the (possibly promoted) coefficient dtype
-    x = x0.to(cdt)
-    r = add(b, shifted(x), a=-1).to(cdt)
+    x = astype(x0, cdt)
+    r = astype(add(b, shifted(x), a=-1), cdt)
     normr = space.norm(r)
 
     dgks = type(alg.orth) is on.ClassicalGramSchmidt2 and 2 * (m + 1) + 2 <= 128

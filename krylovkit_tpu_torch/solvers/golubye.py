@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from .. import dense
+from ..ad._common import refuse_grad
 from ..algorithms import GolubYe
 from ..info import STARTSTOP, ConvergenceInfo, log_if, warn_if
 from ..ops import basis as bs
@@ -178,7 +179,12 @@ def geneigsolve(AB, x0: Optional[torch.Tensor] = None, howmany: int = 1, which="
             x0 = concrete_start(A0)
         else:
             raise ValueError("x0 is required unless A is a concrete matrix")
+    if not isinstance(x0, torch.Tensor):
+        raise TypeError("geneigsolve takes one tensor as x0: pytree vectors in Golub-Ye are "
+                        "not ported yet (ROADMAP.md queue 1, item 9)")
     opA, opB = as_generalized_pair(AB, device=x0.device)
+    refuse_grad("geneigsolve", opA, x0)
+    refuse_grad("geneigsolve", opB, x0)
     w = which.upper() if isinstance(which, str) else which
     if isinstance(w, str) and w in ("LI", "SI"):
         raise ValueError("which=LI/SI invalid for Hermitian pencils (real spectrum)")

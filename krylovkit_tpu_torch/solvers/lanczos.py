@@ -11,7 +11,9 @@ The reference's Krylov-Schur loop (``src/eigsolve/lanczos.jl``):
 
 as eager Python loops on the host over device tensors.  The control flow
 reads a few scalars from the device: ``β`` per expansion step and ``nconv``
-per restart.
+per restart.  Vectors may be pytrees (``ops/vector.py``): the basis is then
+the same pytree of stacked leaves, and the restart rotation runs the
+transform kernel on each eligible leaf (``bs.transform_partial``).
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from ..info import EACHITERATION, STARTSTOP, ConvergenceInfo, log_if, warn_if
 from ..ops import basis as bs
 from ..ops import orthonormal as on
 from ..ops.operator import LinearOperator, probe_dtype
-from ..ops.vector import STANDARD, VectorSpace
+from ..ops.vector import STANDARD, VectorSpace, device_of, tree_map
 
 __all__ = ["eigsolve_lanczos"]
 
@@ -97,7 +99,7 @@ class _LoopState:
     sc: kf.FusedScales  # basis bookkeeping (identity unless fused)
 
 
-def eigsolve_lanczos(op: LinearOperator, x0: torch.Tensor, howmany: int, which,
+def eigsolve_lanczos(op: LinearOperator, x0, howmany: int, which,
                      alg: Lanczos, space: VectorSpace = STANDARD, coeff_dtype=None):
     """Hermitian eigsolve on ``x0``'s device.  Returns ``(vals, vecs, info)``
     with ``howmany`` leading entries (reference ``src/eigsolve/lanczos.jl``)."""
@@ -118,7 +120,7 @@ def eigsolve_lanczos(op: LinearOperator, x0: torch.Tensor, howmany: int, which,
     rdt = cdt.to_real()
     tol = alg.tol
     btol = float(torch.tensor(torch.finfo(rdt).eps, dtype=rdt) ** 0.75)
-    dev = x0.device
+    dev = device_of(x0)
 
     fact = kf.initialize(x0, m, cdt, space, verbosity=alg.verbosity)
     st = _LoopState(
@@ -199,10 +201,10 @@ def eigsolve_lanczos(op: LinearOperator, x0: torch.Tensor, howmany: int, which,
     # V[k] (the residual direction) before the in-place rotation
     vk = bs.unproject_bucketed(fact.V, st.sc.L[:, k].to(cdt), k + 1)
     Vr = bs.transform_partial(fact.V, Umask, howmany)
-    vecs = Vr[:howmany].clone()
+    vecs = tree_map(lambda l: l[:howmany].clone(), Vr)
     # residual vectors r_i = β·U[k-1,i]·V[k] (reference src/eigsolve/lanczos.jl:127-133)
     s = fact.beta * st.U[max(k - 1, 0)]
-    residuals = s[:howmany].reshape((howmany,) + (1,) * vk.ndim) * vk[None]
+    residuals = tree_map(lambda l: s[:howmany].reshape((howmany,) + (1,) * l.ndim) * l[None], vk)
     nconv_out = min(st.nconv, howmany)
     numiter_out = max(st.numiter, 1)
     log_if(

@@ -9,10 +9,13 @@ MINRES for Hermitian indefinite ones and GMRES otherwise
 inner product to its real part, so R-linear maps on complex vectors can be
 solved (``:250-258``).
 
-The JAX front-end wraps the drivers in a custom VJP and derives an adjoint
-for the pullback; both exist for differentiation, which is not ported yet
-(ROADMAP queue 1 item 7).  This front-end calls :func:`_linsolve_impl`
-directly, and takes no ``alg_rrule``.
+When gradients are enabled and ``b``, ``x0``, a shift or a tensor the
+operator holds requires grad, the solve goes through the differentiable
+``ad.linsolve_vjp``, whose backward solves the adjoint system with
+``alg_rrule`` (default ``alg``); a bare callable's adjoint is then derived
+by ``with_adjoint_from``.  Otherwise the front-end calls
+:func:`_linsolve_impl` directly.  ``b`` and ``x0`` may be pytree vectors
+(``ops/vector.py``).
 """
 
 from __future__ import annotations
@@ -24,8 +27,9 @@ import numpy as np
 import torch
 
 from ..algorithms import CG, GMRES, MINRES, BiCGStab, KrylovDefaults
+from ..ad._common import needs_grad
 from ..ops.operator import as_operator
-from ..ops.vector import REAL, STANDARD, VectorSpace, zerovector
+from ..ops.vector import REAL, STANDARD, VectorSpace, device_of, scalartype, tree_leaves, zerovector
 from .bicgstab import linsolve_bicgstab
 from .cg import linsolve_cg
 from .gmres import linsolve_gmres
@@ -79,7 +83,7 @@ def _resolve_tol(b, atol, rtol, tol):
     atol = KrylovDefaults.tol if atol is None else atol
     rtol = KrylovDefaults.tol if rtol is None else rtol
     if rtol != 0:
-        nb = float(np.sqrt(float(np.sum(np.abs(_host(b)) ** 2))))
+        nb = float(np.sqrt(sum(float(np.sum(np.abs(_host(l)) ** 2)) for l in tree_leaves(b))))
         return max(float(atol), float(rtol) * nb)
     return float(atol)
 
@@ -114,8 +118,8 @@ def _select_alg(A, a0, a1, ishermitian, isposdef, alg, tol, **kw):
 
 def linsolve(
     A,
-    b: torch.Tensor,
-    x0: Optional[torch.Tensor] = None,
+    b,
+    x0=None,
     a0=0.0,
     a1=1.0,
     *,
@@ -130,16 +134,21 @@ def linsolve(
     maxiter: Optional[int] = None,
     orth=None,
     verbosity: Optional[int] = None,
+    alg_rrule=None,
 ):
     """Solve ``(a0 + a1·A) x = b`` on ``b``'s device; returns ``(x, info)``.
 
     Reference: ``linsolve`` (``src/linsolve/linsolve.jl:1-122``).  ``A`` may
     be a matrix (tensor, or numpy array placed on ``b``'s device), a
-    callable, an ``(f, fadjoint)`` tuple or a ``LinearOperator``; ``b`` is one
-    tensor.  ``x0`` defaults to the zero vector (reference ``:112-118``).
-    The shift scalars take ``b``'s type (complex if either shift is), so a
-    Python float never widens a float32 solve."""
-    op = as_operator(A, device=b.device)
+    callable, an ``(f, fadjoint)`` tuple or a ``LinearOperator``; ``b`` is a
+    tensor or a pytree of them.  ``x0`` defaults to the zero vector
+    (reference ``:112-118``).  The shift scalars take ``b``'s type (complex
+    if either shift is), so a Python float never widens a float32 solve.
+    Differentiable in ``b``, ``a0``, ``a1`` and the tensors the operator
+    holds (``x0`` gets a zero gradient): the backward is one solve of the
+    adjoint system with ``alg_rrule`` (default ``alg``)."""
+    dev = device_of(b)
+    op = as_operator(A, device=dev)
     if x0 is None:
         x0 = zerovector(b)
     # an explicit algorithm object carries its own tol; only re-resolve when
@@ -152,15 +161,19 @@ def linsolve(
         A, a0, a1, ishermitian, isposdef, alg, tolv,
         maxiter=maxiter, krylovdim=krylovdim, orth=orth, verbosity=verbosity,
     )
-    cdt = b.dtype
+    cdt = scalartype(b)
     if any(np.iscomplexobj(_host(a)) for a in (a0, a1)):
         cdt = torch.promote_types(cdt, torch.complex64)
-    a0 = torch.as_tensor(a0, dtype=cdt, device=b.device)
-    a1 = torch.as_tensor(a1, dtype=cdt, device=b.device)
+    a0 = torch.as_tensor(a0, dtype=cdt, device=dev)
+    a1 = torch.as_tensor(a1, dtype=cdt, device=dev)
+    if needs_grad(op, b, x0, a0, a1):
+        from ..ad.linsolve import linsolve_vjp
+
+        return linsolve_vjp(alg, alg_rrule or alg, space, op.with_adjoint_from(b), b, x0, a0, a1)
     return _linsolve_impl(op, b, x0, a0, a1, alg, space)
 
 
-def reallinsolve(A, b: torch.Tensor, x0: Optional[torch.Tensor] = None, a0=0.0, a1=1.0, **kw):
+def reallinsolve(A, b, x0=None, a0=0.0, a1=1.0, **kw):
     """``linsolve`` over the *real* inner product: the complex vector space
     is treated as a real one, so ``A`` need only be R-linear (reference
     ``reallinsolve``, ``src/linsolve/linsolve.jl:250-258``)."""

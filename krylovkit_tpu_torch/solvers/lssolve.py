@@ -16,7 +16,9 @@ The loop is eager Python on the host; the rotations stay 0-d device tensors
 and each iteration reads two scalars for its tests (``β`` and ``|ζ̄|``; ``α``
 too when ``β`` passes).  It runs no hand-written kernel unless
 ``ops.basis.use_pallas_projections`` routes the ring sweep to the projection
-kernels.
+kernels.  It has no differentiation rule (nor has the JAX package's
+``lssolve``), so it refuses an input that requires grad; its vectors are
+single tensors (pytree vectors in LSMR are ROADMAP.md queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -30,10 +32,10 @@ from ..algorithms import LSMR
 from ..info import STARTSTOP, ConvergenceInfo, log_if, warn_if
 from ..ops import basis as bs
 from ..ops import orthonormal as on
+from ..ad._common import refuse_grad
 from ..ops.operator import (
     LinearOperator,
     as_operator,
-    check_adjoint_compatibility,
     probe_adjoint,
     require_adjoint,
 )
@@ -172,13 +174,15 @@ def lssolve(
     Returns ``(x, info)``; ``info.normres`` is the normal-equation residual
     ``‖Aᴴ(b − A x) − λ² x‖`` (reference ``lssolve``,
     ``src/lssolve/lssolve.jl:101-110``; tolerance ``max(atol, rtol·‖b‖)``).
-    ``A`` as in ``svdsolve``: a bare callable without adjoint raises
-    ``NotImplementedError``."""
-    op = require_adjoint(as_operator(A, device=b.device))
-    if type(op) is LinearOperator:
-        # an (f, fadjoint) pair from the caller: the GKL adjoint-consistency
-        # guard (reference src/factorizations/gkl.jl:192)
-        check_adjoint_compatibility(op, b, space)
+    ``A`` as in ``svdsolve``: a bare callable gets its adjoint derived by
+    ``with_adjoint_from`` on ``b`` (a square map)."""
+    if not isinstance(b, torch.Tensor):
+        raise TypeError("lssolve takes one tensor as b: pytree vectors in LSMR are not "
+                        "ported yet (ROADMAP.md queue 1, item 9)")
+    # an (f, fadjoint) pair from the caller meets the GKL adjoint-consistency
+    # guard (reference src/factorizations/gkl.jl:192)
+    op = require_adjoint(as_operator(A, device=b.device), b, space)
+    refuse_grad("lssolve", op, b, *(lam,) if isinstance(lam, torch.Tensor) else ())
     if tol is None and alg is not None and atol is None and rtol is None:
         # an explicit algorithm carries its own tol (see the linsolve front-end)
         tol = alg.tol

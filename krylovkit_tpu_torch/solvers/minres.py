@@ -8,6 +8,7 @@ the JAX package provides it and this is its port.  Solves
 Paige–Saunders Lanczos + Givens-QR recurrence with O(1) vector storage, as an
 eager host loop (one read of ``(|η|, β)`` per iteration).  Apparent
 convergence is re-verified against the freshly computed true residual.
+``b`` and ``x0`` may be pytree vectors (``ops/vector.py``).
 """
 
 from __future__ import annotations
@@ -17,13 +18,15 @@ import torch
 from ..algorithms import MINRES
 from ..info import STARTSTOP, ConvergenceInfo, log_if, warn_if
 from ..ops.operator import LinearOperator, apply_shifted, probe_dtype
-from ..ops.vector import STANDARD, VectorSpace, add, rounded, scale, zerovector
+from ..ops.vector import (
+    STANDARD, VectorSpace, add, astype, device_of, rounded, scale, zerovector,
+)
 
 __all__ = ["linsolve_minres"]
 
 
-def linsolve_minres(op: LinearOperator, b: torch.Tensor, x0: torch.Tensor, a0, a1,
-                    alg: MINRES, space: VectorSpace = STANDARD):
+def linsolve_minres(op: LinearOperator, b, x0, a0, a1, alg: MINRES,
+                    space: VectorSpace = STANDARD):
     cdt = probe_dtype(op, b)
     rdt = cdt.to_real()
     tol = rounded(alg.tol, rdt)
@@ -32,13 +35,13 @@ def linsolve_minres(op: LinearOperator, b: torch.Tensor, x0: torch.Tensor, a0, a
     def shifted(x):
         return apply_shifted(op, x, a0, a1)
 
-    x = x0.to(cdt)
-    r0 = add(b, shifted(x), a=-1).to(cdt)
+    x = astype(x0, cdt)
+    r0 = astype(add(b, shifted(x), a=-1), cdt)
     beta1 = space.norm(r0)
     beta1_h = float(beta1)
     v = scale(r0, (1 / torch.where(beta1 > 0, beta1, 1)).to(cdt))
-    one = torch.ones((), dtype=rdt, device=b.device)
-    zero = torch.zeros((), dtype=rdt, device=b.device)
+    one = torch.ones((), dtype=rdt, device=device_of(b))
+    zero = torch.zeros((), dtype=rdt, device=device_of(b))
     v_prev, d, d_prev = zerovector(v), zerovector(v), zerovector(v)
     beta, eta = zero, beta1  # β entering the first step is 0 (no v_0 term)
     c1, s1, c2, s2 = one, zero, one, zero

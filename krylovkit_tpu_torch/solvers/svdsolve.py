@@ -18,6 +18,10 @@ The loops are eager Python on the host over device tensors; ``k``, ``keep``,
 once per expansion step (the loop test) and ``nconv`` once per processing
 round.  Square real float32 stencil operators with ``(R, 128)`` vectors run
 the one-stream fused expansion over both bases (``gf.fused_expansions``).
+When gradients are enabled and ``x0`` or a tensor the operator holds
+requires grad, the front-end goes through the differentiable
+``ad.svdsolve_vjp`` (backward with ``alg_rrule``).  Vectors are single
+tensors: pytree vectors in GKL are ROADMAP.md queue 1, item 9.
 """
 
 from __future__ import annotations
@@ -36,10 +40,10 @@ from ..factorizations import krylov as kf
 from ..info import STARTSTOP, ConvergenceInfo, log_if, warn_if
 from ..ops import basis as bs
 from ..ops import orthonormal as on
+from ..ad._common import needs_grad
 from ..ops.operator import (
     LinearOperator,
     as_operator,
-    check_adjoint_compatibility,
     probe_adjoint,
     require_adjoint,
     resolve_device,
@@ -238,6 +242,11 @@ def svdsolve_gkl(op: LinearOperator, x0: torch.Tensor, howmany: int, which, alg:
 
 def _default_x0(A, x0):
     if x0 is not None:
+        if not isinstance(x0, torch.Tensor):
+            raise TypeError(
+                "svdsolve takes one tensor as x0: pytree vectors in GKL are not ported "
+                "yet (ROADMAP.md queue 1, item 9)"
+            )
         return x0
     if isinstance(A, (np.ndarray, torch.Tensor)) and A.ndim == 2:
         # start in range(A): a component in the left null space can never be
@@ -265,26 +274,28 @@ def svdsolve(
     orth=None,
     eager: Optional[bool] = None,
     verbosity: Optional[int] = None,
+    alg_rrule=None,
 ):
     """Find ``howmany`` extremal singular triplets of a linear map.
 
     Returns ``(vals, lvecs, rvecs, info)`` on the device of ``x0``, which
     lives in the **codomain** (left side) of the map (reference ``svdsolve``,
     ``src/eigsolve/svdsolve.jl:1-142``).  ``A`` is a matrix (tensor, or numpy
-    array placed on ``x0``'s device), a ``LinearOperator`` with an adjoint or
-    an ``(f, fadjoint)`` tuple; a bare callable raises
-    ``NotImplementedError`` (the JAX package derives its adjoint by linear
-    transposition, which is not ported)."""
+    array placed on ``x0``'s device), a ``LinearOperator``, an ``(f,
+    fadjoint)`` tuple or a bare callable, whose adjoint is derived by
+    ``with_adjoint_from`` on ``x0`` (a square map, as in the JAX package).
+
+    Differentiable in the tensors the operator holds (``x0`` gets a zero
+    gradient): the backward runs ``alg_rrule``, by default ``GMRES`` with
+    the primal's settings; an ``Arnoldi`` ``alg_rrule`` (``which="LR"``)
+    takes the Sylvester route."""
     x0 = _default_x0(A, x0)
-    op = require_adjoint(as_operator(A, device=x0.device))
-    if type(op) is LinearOperator:
-        # an (f, fadjoint) pair from the caller: consistency guard at the
-        # start (reference src/factorizations/gkl.jl:192); a matrix's or a
-        # stencil's adjoint is exact by construction and skips the two applies.
-        # As in the JAX package the guard runs in the standard inner product,
-        # whatever the solve's: under realsvdsolve it refuses the real adjoint
-        # of an R-linear map
-        check_adjoint_compatibility(op, x0)
+    # an (f, fadjoint) pair from the caller meets the consistency guard at
+    # the start (reference src/factorizations/gkl.jl:192).  As in the JAX
+    # package the guard runs in the standard inner product, whatever the
+    # solve's: under realsvdsolve it refuses the real adjoint of an R-linear
+    # map
+    op = require_adjoint(as_operator(A, device=x0.device), x0)
     # Cap the Krylov dimension at the domain dimension: beyond it the domain
     # sweep breaks down (α → 0) with nothing left to find.  The codomain side
     # needs no cap: β → 0 there is caught by the breakdown guard.
@@ -299,6 +310,10 @@ def svdsolve(
         alg = dataclasses.replace(alg, tol=tol)
     if alg.krylovdim > domain_dim:
         alg = dataclasses.replace(alg, krylovdim=domain_dim)
+    if needs_grad(op, x0):
+        from ..ad.svdsolve import svdsolve_vjp
+
+        return svdsolve_vjp(howmany, which, alg, alg_rrule, space, op, x0)
     return svdsolve_gkl(op, x0, howmany, which, alg, space)
 
 

@@ -87,8 +87,16 @@ def test_unported_branches_raise():
         kt.eigsolve(A + A.T, x0, 2, alg=kt.BlockLanczos())
     with pytest.raises(NotImplementedError, match="selective"):
         kt.eigsolve(A + A.T, x0, 2, alg=kt.Lanczos(reorth="selective"))
-    with pytest.raises(NotImplementedError, match="AD"):
-        kt.eigsolve(A + A.T, x0.clone().requires_grad_(True), 2)
+    # an x0 that requires grad takes the differentiable route (zero gradient),
+    # with the values and counts of the plain solve; a Block start has no rule
+    xg = x0.clone().requires_grad_(True)
+    vg, _, ig = kt.eigsolve(A + A.T, xg, 2)
+    vp, _, ip = kt.eigsolve(A + A.T, x0, 2)
+    assert torch.equal(vg.detach(), vp) and (ig.numops, ig.numiter) == (ip.numops, ip.numiter)
+    vg.sum().backward()
+    assert xg.grad is None or not bool(xg.grad.any())
+    with pytest.raises(NotImplementedError, match="no differentiation rule"):
+        kt.eigsolve(A + A.T, kt.Block([xg, x0.flip(0)]), 2)
     with pytest.raises(ValueError):
         kt.eigsolve(A + A.T, x0, 2, "LI")
     with pytest.raises(ValueError):

@@ -117,8 +117,9 @@ def test_probe_adjoint_shapes_and_dtypes():
     band = kt.banded_from_dense(np.eye(256, dtype=np.float32), device="cpu")
     v = top_.probe_adjoint(band, torch.zeros((2, 128)))
     assert tuple(v.shape) == (2, 128) and v.dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="with_adjoint_from"):
-        top_.require_adjoint(kt.as_operator(lambda x: 2 * x))
+    # a bare callable gets its adjoint derived (torch.func.vjp)
+    derived = top_.require_adjoint(kt.as_operator(lambda x: 2 * x), torch.zeros(5))
+    assert torch.equal(derived.apply_adjoint(torch.arange(5.0)), 2 * torch.arange(5.0))
 
 
 def test_check_adjoint_compatibility():

@@ -38,7 +38,11 @@ def test_port_has_files():
         "projections.cu", "projections.py", "arnoldi.py", "schur.py", "realschur.py",
         "expintegrator.py", "gkl.py", "svd.py", "svdsolve.py", "lssolve.py",
         "golubye.py", "blocklanczos.py", "block.py", "sparse.py",
+        "gauge.py", "_common.py", "vector.py", "basis.py",
     } <= names
+    ad = {p.name for p in PORT_FILES if p.parent.name == "ad"}
+    assert {"__init__.py", "linsolve.py", "eigsolve.py", "svdsolve.py", "gauge.py",
+            "_common.py"} <= ad
 
 
 def test_importing_the_port_loads_no_jax():

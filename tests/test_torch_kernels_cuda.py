@@ -545,3 +545,80 @@ def test_ell_apply_on_card_matches_cpu():
     banded = kt.ell_to_banded(card)
     ref = kt.banded_from_coo(*coo, 4096)
     assert banded.offsets == ref.offsets and torch.equal(banded.diags, ref.diags)
+
+
+def _guarded_calls():
+    """Each kernel wrapper on card tensors: ``(name, fn, x)``, ``x`` the
+    argument the autograd guard must look at."""
+    g = _gen(40)
+    V = torch.randn((9, 16, 128), generator=g, device="cuda")
+    U = torch.eye(9, device="cuda")
+    D = torch.randn((3, 16, 128), generator=g, device="cuda")
+    spec = fl.spec_for(kt.laplacian_1d(2048))
+    x = torch.randn((16, 128), generator=g, device="cuda")
+    return [
+        ("banded_spmv", lambda x: bd.banded_spmv(x, D, (-1, 0, 1), 2048), x),
+        ("laplacian_1d", s1.laplacian_1d_flat, x),
+        ("transform_partial", lambda v: bs.transform_partial_inplace(v, U, 4), V.clone()),
+        ("project", lambda x: pb.project_pallas(V, x, 4), x),
+        ("unproject", lambda c: pb.unproject_pallas(V, c, 4),
+         torch.randn(9, generator=g, device="cuda")),
+        ("fused_step", lambda y: fl.fused_step(V.clone(), y, torch.ones(10, device="cuda"), 4, 4,
+                                               spec, with_drift=True), x),
+    ]
+
+
+@pytest.mark.parametrize("case", range(6))
+def test_kernel_wrappers_refuse_autograd_inputs_on_card(case):
+    """A launch through ``data_ptr()`` records no graph: each wrapper raises
+    for a tensor that requires grad or that torch.func has wrapped, and
+    launches nothing."""
+    name, fn, x = _guarded_calls()[case]
+    fn(x)
+    _build.reset_launches()
+    with pytest.raises(RuntimeError, match=f"{name}: the kernel is not differentiable"):
+        fn(x.clone().requires_grad_(True))
+    with pytest.raises(RuntimeError, match=f"{name}: the kernel is not differentiable"):
+        torch.func.vjp(fn, x.clone())
+    assert not any(_build.launches.values())
+
+
+def test_ad_routes_on_card_match_cpu():
+    """The ``small_ad`` routes of ``chip_smoke.py``: every AD route's
+    gradients on the card within 1e-8 (relative) of the CPU's, counts
+    equal."""
+    from chip_smoke import small_ad
+
+    small_ad(torch, np, kt, _build)
+
+
+def test_ad_impurity_small_grid_on_card():
+    """``ad_impurity`` on a 64 × 64 grid: Hellmann–Feynman, the central
+    difference, the launch counts and the gates of the tuple solves."""
+    from chip_smoke import ad_impurity
+
+    out = ad_impurity(torch, np, kt, _build, bs, bd, N=64)
+    assert out["tuple_basis"] == {"transform_partial": 1}
+
+
+def test_banded_planes_gradient_on_card_matches_cpu():
+    """A gradient with respect to a BandedOperator's planes: the solve
+    launches K3 once per apply, the cotangent goes through the plain
+    version; the card's gradient equals the CPU's."""
+    rng = np.random.default_rng(9)
+    n = 1024
+    A = np.diag(np.full(n, 4.0)) + np.diag(rng.standard_normal(n - 1), 1) + np.diag(
+        rng.standard_normal(n - 1), -1)
+    b = rng.standard_normal(n)
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        band = kt.banded_from_dense(A, device=dev)
+        D = band.diags.clone().requires_grad_(True)
+        _build.reset_launches()
+        x, info = kt.linsolve(band.with_tensors([D, band.adj.diags]), torch.as_tensor(b, device=dev),
+                              alg=kt.GMRES(tol=1e-12, krylovdim=40))
+        x.sum().backward()
+        if dev == "cuda":
+            assert _build.launches["banded_spmv"] >= info.numops
+        grads[dev] = D.grad.cpu()
+    torch.testing.assert_close(grads["cuda"], grads["cpu"], rtol=1e-10, atol=1e-12)

@@ -156,7 +156,7 @@ def test_svd_default_x0_and_which_validation():
 
 def test_gkl_adjoint_compatibility_check():
     """Inconsistent (f, fadjoint) pairs are rejected at the start (reference
-    src/factorizations/gkl.jl:192); a bare callable has no adjoint here."""
+    src/factorizations/gkl.jl:192); a bare callable gets a derived adjoint."""
     rng = np.random.default_rng(300)
     A, Bm = torch.from_numpy(rng.standard_normal((20, 20))), torch.from_numpy(rng.standard_normal((20, 20)))
     x0 = torch.from_numpy(rng.standard_normal(20))
@@ -166,10 +166,15 @@ def test_gkl_adjoint_compatibility_check():
         kt.lssolve((lambda x: A @ x, lambda y: Bm.T @ y), x0)
     s, _, _, info = kt.svdsolve((lambda x: A @ x, lambda y: A.T @ y), x0, 2, "LR", tol=1e-10)
     assert np.allclose(s.numpy(), np.linalg.svd(A.numpy(), compute_uv=False)[:2], atol=1e-8)
-    with pytest.raises(NotImplementedError, match="adjoint"):
-        kt.svdsolve(lambda x: A @ x, x0, 2, "LR")
-    with pytest.raises(NotImplementedError, match="adjoint"):
-        kt.lssolve(lambda x: A @ x, x0)
+    # a bare callable gets its adjoint derived by with_adjoint_from, unchecked,
+    # and solves as the matrix does
+    s2, _, _, info2 = kt.svdsolve(lambda x: A @ x, x0, 2, "LR", tol=1e-10)
+    sm, _, _, infom = kt.svdsolve(A, x0, 2, "LR", tol=1e-10)
+    assert np.allclose(s2.numpy(), sm.numpy(), atol=1e-12)
+    assert (info2.numops, info2.numiter) == (infom.numops, infom.numiter)
+    xc, _ = kt.lssolve(lambda x: A @ x, x0, tol=1e-10)
+    xm, _ = kt.lssolve(A, x0, tol=1e-10)
+    assert np.allclose(xc.numpy(), xm.numpy(), atol=1e-10)
 
 
 def test_svdsolve_numops_full_scale():
