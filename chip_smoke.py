@@ -99,7 +99,26 @@ without the final ``ok`` line:
 18. ad_potential — ``linsolve`` of ``(0.5 + P + diag g) x = 1`` by CG at the
    same width and the gradient of ``⟨c, x⟩`` in ``b`` and ``g``: held
    against an independent solve for ``c``; K3 once per apply;
-19. profile (only with ``--profile``) — one more config-1 solve and one
+19. small_bieig_iter — ``bieigsolve`` on a dense 64 × 64 matrix and a
+   banded 128-point non-symmetric tridiagonal in real and complex mode,
+   every iterator (10 expansions) and ``Lanczos(reorth="selective")``
+   against full reorthogonalization (200 × 200), float64 and complex128,
+   on the card against the CPU: within 1e-10, counts and sweeps equal;
+20. bieig — ``bieigsolve`` at config 4's width (the banded transport-
+   diffusion tridiagonal, n = 2^20, float32, 4 "LM", krylovdim 30, maxiter
+   8), the projection kernels off and on: K3 = ``numops`` (half on the
+   adjoint's planes), with the flag K5 = 3·numops + 4·numiter − 2 and K6 =
+   2·numops; then the ms of each dense round (two Schur decompositions, two
+   sorts);
+21. lanczos_variants — config 2's Poisson plus the four wells of phase 17
+   as a plain ``BandedOperator``: ``eigsolve`` with full and selective
+   reorthogonalization, the flag off and on (4 values within 1e-4 of
+   phase 17's; K3 = ``numops``, K2 = rounds + 1, with the flag K5 = K6 =
+   the drift sweeps); ``LanczosIterator`` with the full basis and the
+   3-term recurrence (peak memory of each), ``ArnoldiIterator``,
+   ``BiArnoldiIterator`` and ``GKLIterator`` on config 4's banded matrix
+   and ``BlockLanczosIterator`` on the Poisson matrix, 30 expansions each;
+22. profile (only with ``--profile``) — one more config-1 solve and one
    more fused config-4 solve under ``torch.profiler``: device busy time and idle share, device ops, host
    reads of device scalars, device time by kernel name.
 
@@ -110,7 +129,7 @@ printed as ``parent_ms`` beside ``ms`` (without it ``parent_ms`` is null).
 ``--kernel-times`` is that process: it times K1 and K2 of the package under
 ``--root`` (default: this tree) and prints one JSON line.
 
-Each path (phases 5, 7, 9, 12, 13, 14, 15, 17 and 18, one solve at a time, the
+Each path (phases 5, 7, 9, 12, 13, 14, 15, 17, 18, 20 and 21, one solve or iterator at a time, the
 forward and the backward of a differentiable solve apart) is driven with the launch
 counts set to 0 just before it and read just after.  Then the kernel
 summary line, the ``nvidia-smi`` name/power line, and as the last line
@@ -1018,9 +1037,8 @@ def _impurity_op(torch, np, kt, N, dev):
     n = N * N
     P = kt.banded_from_coo(*poisson_coo(np, N, np.float32), n, device=dev)
     gn = np.zeros(n, np.float32)
-    for (i, j), depth in zip(((N // 4, N // 4), (N // 4, 3 * N // 4), (3 * N // 4, N // 4),
-                              (3 * N // 4, 3 * N // 4)), (-5.0, -6.0, -7.0, -8.0)):
-        gn[i * N + j] = depth
+    for site, depth in impurity_wells(N):
+        gn[site] = depth
     g = torch.as_tensor(gn.reshape(n // 128, 128), device=dev).requires_grad_(True)
     x0 = torch.as_tensor(np.random.default_rng(6).standard_normal((n // 128, 128))
                          .astype(np.float32), device=dev)
@@ -1249,6 +1267,608 @@ def ad_potential(torch, np, kt, _build, bd, N=1024, dev="cuda", smi=None):
     return {"forward": fwd_l, "backward": bwd_l}, (fwd_ms, bwd_ms)
 
 
+# the small card-against-CPU phase of the two-sided and iterator slice:
+# float64 and complex128 values agree to this (relative to the largest)
+SMALL_BIEIG_TOL = 1e-10
+# the four bound states of config 2's Poisson plus the wells (phase ad_impurity)
+IMPURITY_VALS = (-4.5073, -3.5821, -2.6830, -1.8266)
+
+
+def impurity_wells(N):
+    """``(site, depth)`` of the four wells on an ``N × N`` grid: depths −5,
+    −6, −7, −8 at the grid's quarter points."""
+    q = ((N // 4, N // 4), (N // 4, 3 * N // 4), (3 * N // 4, N // 4), (3 * N // 4, 3 * N // 4))
+    return [(i * N + j, d) for (i, j), d in zip(q, (-5.0, -6.0, -7.0, -8.0))]
+
+
+def counting_sweeps(kf):
+    """Wrap ``kf.expand_hermitian_selective`` to record each step's sweep
+    decision; returns ``(flags, restore)``."""
+    flags, inner = [], kf.expand_hermitian_selective
+
+    def wrapped(*a, **kw):
+        out = inner(*a, **kw)
+        flags.append(out[3])
+        return out
+
+    kf.expand_hermitian_selective = wrapped
+    return flags, lambda: setattr(kf, "expand_hermitian_selective", inner)
+
+
+def counting_k3(bd, adj_diags):
+    """Wrap ``bd.banded_spmv`` to count the launches on the planes
+    ``adj_diags`` (an operator's adjoint); returns ``(counter, restore)``."""
+    adj, inner = [0], bd.banded_spmv
+
+    def wrapped(x, diags, offsets, n):
+        adj[0] += int(diags.data_ptr() == adj_diags.data_ptr())
+        return inner(x, diags, offsets, n)
+
+    bd.banded_spmv = wrapped
+    return adj, lambda: setattr(bd, "banded_spmv", inner)
+
+
+def small_bieig_iter(torch, np, kt, _build, dev="cuda"):
+    """Phase ``small_bieig_iter``: ``bieigsolve``, every iterator and the
+    selective Lanczos solve on ``dev`` against the same calls on the CPU
+    (plain versions), float64 and complex128.
+
+    Operators: a dense 64 × 64 matrix ``A`` (real, and complex), its
+    Hermitian part, and the banded 128-point tridiagonals with sub- and
+    superdiagonal −0.3 and −0.2 and diagonal ``linspace(0, 2)``
+    (non-symmetric; its adjoint the transposed planes) and ``(−1, 2,
+    −1)``.  ``bieigsolve`` in real mode (real matrix and starts) and
+    complex mode (complex matrix, or complex starts on the real banded
+    planes, which run the plain version: no K3): 3 "LM" to 1e-10 on the
+    dense matrix, 2 "LM" to 1e-12 on the banded one, krylovdim 24 (7, 6
+    and 8 rounds on the CPU).  Each iterator 10
+    expansions: Arnoldi, GKL, BiArnoldi on the non-symmetric operators,
+    Lanczos (both modes) and Block Lanczos (a block of 3) on the symmetric
+    ones.  ``Lanczos(reorth="selective")`` against full reorthogonalization
+    on the 200 × 200 symmetric matrix of ``tests/test_modes.py``.
+
+    Guards: values (projected matrices and residual norms for the
+    iterators) within ``SMALL_BIEIG_TOL`` (relative to ``max(1, max|x|)``,
+    as ``_rel_err``), equal ``numops``, ``numiter``,
+    ``converged`` and sweep counts; on the card K3 once per banded real
+    apply (half of it adjoint in ``bieigsolve``) and no other kernel.
+    Returns the card's launches."""
+    from krylovkit_tpu_torch.factorizations import krylov as kf
+    from krylovkit_tpu_torch.ops import banded as bd
+
+    t0 = time.perf_counter()
+    card = dev != "cpu"
+    quiet = dict(verbosity=kt.SILENT)
+    rng = np.random.default_rng(70)
+    An = rng.standard_normal((64, 64)) / 8 + np.diag(np.linspace(0, 2, 64))
+    Ac = An + 1j * rng.standard_normal((64, 64)) / 8
+    starts = {dt: [rng.standard_normal(s) + (1j * rng.standard_normal(s) if dt == "c" else 0)
+                   for s in (64, 64, 128, 128, (3, 64), (3, 128))] for dt in ("r", "c")}
+    # eigenvalue condition numbers of the leading pair 1.3 and 2.0: card and
+    # CPU roundings stay apart by ~1e-15 (a Toeplitz (−1, 2, −0.8) matrix
+    # puts them 7e-9 apart at tol 1e-9, its pairs being ill-conditioned)
+    nonsym = tridiagonal_coo(np, 128, -0.3, np.linspace(0, 2, 128), -0.2, np.float64)
+    sym = tridiagonal_coo(np, 128, -1.0, 2.0, -1.0, np.float64)
+
+    def T(a, d):
+        return torch.as_tensor(np.asarray(a), device=d)
+
+    def ops(d):
+        return {"dense_real": T(An, d), "dense_complex": T(Ac, d),
+                "herm_real": T((An + An.T) / 2, d), "herm_complex": T((Ac + Ac.conj().T) / 2, d),
+                "banded": kt.banded_from_coo(*nonsym, 128, device=d),
+                "banded_sym": kt.banded_from_coo(*sym, 128, device=d)}
+
+    all_launches, recs = {}, []
+
+    def both(label, run, want_launches):
+        """``run(device)`` → a list of tensors to compare, and a tuple of
+        counts; on ``dev`` with the counts set to 0 just before, then on the
+        CPU."""
+        _build.reset_launches()
+        out_c, counts_c = run(dev)
+        if card:
+            torch.cuda.synchronize()
+        launched = {k: v for k, v in _build.launches.items() if v}
+        out_h, counts_h = run("cpu")
+        err = max(_rel_err(torch, a, b) for a, b in zip(out_c, out_h))
+        recs.append({"call": label, "max_rel_err": err, "counts": [counts_c, counts_h],
+                     "launches": launched})
+        require(err <= SMALL_BIEIG_TOL, f"small {label}: card vs CPU within {SMALL_BIEIG_TOL} ({err})")
+        require(counts_c == counts_h, f"small {label}: counts equal ({counts_c}, {counts_h})")
+        require(not card or launched == want_launches(counts_c),
+                f"small {label}: launches {launched}")
+        for k, v in launched.items():
+            all_launches[k] = all_launches.get(k, 0) + v
+
+    def no_kernel(_):
+        return {}
+
+    # bieigsolve: dense real and complex; banded real (K3 both ways) and the
+    # same planes with complex starts (complex mode: the plain version)
+    for label, key, kind, vecs in (("bieigsolve dense real", "dense_real", "r", (0, 1)),
+                                   ("bieigsolve dense complex", "dense_complex", "c", (0, 1)),
+                                   ("bieigsolve banded real", "banded", "r", (2, 3)),
+                                   ("bieigsolve banded complex mode", "banded", "c", (2, 3))):
+        def bieig(d, key=key, kind=kind, vecs=vecs):
+            v0, w0 = (T(starts[kind][i], d) for i in vecs)
+            op = ops(d)[key]
+            adj, restore = counting_k3(bd, op.adj.diags) if key == "banded" else ([0], lambda: None)
+            hm, kw = (2, dict(krylovdim=24, tol=1e-12)) if key == "banded" else (
+                3, dict(krylovdim=24, tol=1e-10))
+            try:
+                vals, (V, W), (iV, iW) = kt.bieigsolve(op, v0, w0, hm, "LM", maxiter=50, **kw,
+                                                       **quiet)
+            finally:
+                restore()
+            return [vals], (iV.numops, iV.numiter, iV.converged, adj[0])
+
+        k3 = key == "banded" and kind == "r"
+        both(label, bieig, lambda c, k3=k3: {"banded_spmv": c[0]} if k3 else {})
+        if k3:
+            require(recs[-1]["counts"][0][3] * 2 == recs[-1]["counts"][0][0],
+                    f"small {label}: half the applies adjoint ({recs[-1]['counts'][0]})")
+
+    # iterators, 10 expansions each
+    def iterate(make, k=10):
+        def run(d):
+            it = make(ops(d), d)
+            st = it.initialize()
+            for _ in range(k):
+                st = it.expand(st)
+            sts = st if isinstance(st, tuple) else (st,)
+            return ([kt.rayleighquotient(s) for s in sts] + [kt.normres(s).reshape(1) for s in sts],
+                    tuple(s.k for s in sts))
+        return run
+
+    for kind in ("r", "c"):
+        sfx = "real" if kind == "r" else "complex"
+        S = starts[kind]
+        cases = [
+            (f"ArnoldiIterator dense {sfx}", lambda o, d: kt.ArnoldiIterator(o[f"dense_{sfx}"], T(S[0], d), krylovdim=12)),
+            (f"GKLIterator dense {sfx}", lambda o, d: kt.GKLIterator(o[f"dense_{sfx}"], T(S[0], d), krylovdim=12)),
+            (f"BiArnoldiIterator dense {sfx}", lambda o, d: kt.BiArnoldiIterator(
+                o[f"dense_{sfx}"], T(S[0], d), T(S[1], d), krylovdim=12)),
+            (f"LanczosIterator dense {sfx}", lambda o, d: kt.LanczosIterator(o[f"herm_{sfx}"], T(S[0], d), krylovdim=12)),
+            (f"LanczosIterator 3-term dense {sfx}", lambda o, d: kt.LanczosIterator(
+                o[f"herm_{sfx}"], T(S[0], d), krylovdim=12, orth=kt.cgs, keepvecs=False)),
+            (f"BlockLanczosIterator dense {sfx}", lambda o, d: kt.BlockLanczosIterator(
+                o[f"herm_{sfx}"], T(S[4], d), krylovdim=36)),
+        ]
+        for label, make in cases:
+            both(label, iterate(make), no_kernel)
+    S = starts["r"]
+    for label, make, per in (
+            ("ArnoldiIterator banded", lambda o, d: kt.ArnoldiIterator(o["banded"], T(S[2], d), krylovdim=12), 1),
+            ("GKLIterator banded", lambda o, d: kt.GKLIterator(o["banded"], T(S[2], d), krylovdim=12), 2),
+            ("BiArnoldiIterator banded", lambda o, d: kt.BiArnoldiIterator(
+                o["banded"], T(S[2], d), T(S[3], d), krylovdim=12), 2),
+            ("LanczosIterator banded", lambda o, d: kt.LanczosIterator(o["banded_sym"], T(S[2], d), krylovdim=12), 1),
+            ("LanczosIterator 3-term banded", lambda o, d: kt.LanczosIterator(
+                o["banded_sym"], T(S[2], d), krylovdim=12, orth=kt.cgs, keepvecs=False), 1),
+            ("BlockLanczosIterator banded", lambda o, d: kt.BlockLanczosIterator(
+                o["banded_sym"], T(S[5], d), krylovdim=36), 3)):
+        both(label, iterate(make), lambda c, per=per: {"banded_spmv": 10 * per})
+
+    # selective against full reorthogonalization (tests/test_modes.py's matrix)
+    r116 = np.random.default_rng(116)
+    M = r116.standard_normal((200, 200)) / np.sqrt(200)
+    M = (M + M.T) / 2
+    x0 = r116.standard_normal(200)
+    vals_by = {}
+    for reorth in ("full", "selective"):
+        def lanczos(d, reorth=reorth):
+            flags, restore = counting_sweeps(kf)
+            try:
+                vals, _, info = kt.eigsolve(T(M, d), T(x0, d), 4, "LR", ishermitian=True,
+                                            alg=kt.Lanczos(krylovdim=30, tol=1e-10, maxiter=60,
+                                                           reorth=reorth, **quiet))
+            finally:
+                restore()
+            vals_by[(reorth, d)] = vals.cpu()
+            return [vals], (info.numops, info.numiter, info.converged, sum(flags))
+
+        both(f"eigsolve Lanczos reorth={reorth}", lanczos, no_kernel)
+    agree = _rel_err(torch, vals_by[("selective", dev)], vals_by[("full", dev)])
+    require(agree <= 1e-8, f"small selective: values within 1e-8 of full reorthogonalization ({agree})")
+    emit({"phase": "small_bieig_iter", "calls": recs, "selective_vs_full_rel_diff": agree,
+          "tolerance": SMALL_BIEIG_TOL, "phase_seconds": time.perf_counter() - t0})
+    return all_launches
+
+
+def timed_rounds(torch, module, names, solve, dev):
+    """The wall time of each call of ``module.<name>`` for every name in
+    ``names`` during one ``solve()``, synchronised before and after each
+    call; returns ``{name: [ms, ...]}``."""
+    times = {name: [] for name in names}
+    inner = {name: getattr(module, name) for name in names}
+
+    def timed(name):
+        def call(*a, **kw):
+            if dev != "cpu":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = inner[name](*a, **kw)
+            if dev != "cpu":
+                torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return call
+
+    for name in names:
+        setattr(module, name, timed(name))
+    try:
+        solve()
+    finally:
+        for name in names:
+            setattr(module, name, inner[name])
+    return times
+
+
+def bieig_predicted_projections(numops, numiter):
+    """K5 and K6 launches of a real-mode ``bieigsolve`` with the projection
+    flag on (cgs2, a single-tensor basis): per expansion pair four cgs
+    sweeps (K5 and K6 each) and the two ``_update_M`` projections (K5); per
+    round the two projections of the oblique correction (K5); per restart
+    (``numiter − 1``: the last round ends the solve) the two ``_update_M``
+    projections of the residual slot (K5).  The unprojections of the
+    correction and the restart have no live length: no K6."""
+    pairs = numops // 2
+    return 6 * pairs + 2 * numiter + 2 * (numiter - 1), 4 * pairs
+
+
+def bieig_full(torch, np, kt, _build, bd, bs, fl, pb, n=1 << 20, dev="cuda", smi=None):
+    """Phase ``bieig``: ``bieigsolve`` at config 4's width — the banded
+    transport-diffusion tridiagonal ``(−1.3, 2.0, −0.7)``, n = 2^20, float32
+    ``(n/128, 128)`` vectors, its adjoint the transposed planes (K3 both
+    ways), ``v0 = default_rng(1)``, ``w0 = default_rng(10)``, 4 "LM",
+    krylovdim 30, maxiter 8, tol 1e-30 (nothing converges: fixed work) —
+    with the projection kernels off and on.  Per route the launch counts of
+    one solve (warm-up), then 2 timed solves; then the dense rounds (two
+    Schur decompositions, two sorts) of one more solve.
+
+    Guards: ``numiter`` 8 and ``numops`` equal on both routes; ``numops``
+    even and between 2·(30 + 7·12) = 228 (``keep`` 18 at every restart)
+    and 2·(30 + 7·18) = 312 (the 2×2-block adjustment lowers ``keep`` to 12
+    at most); K3 = ``numops``, half of it on the adjoint's planes; no K1, no
+    K2; with the flag K5 and K6 as :func:`bieig_predicted_projections`
+    counts; every ``|λ| <= 4 + ‖A v − λ v‖/‖v‖`` (‖A‖ <= 4 by Gershgorin;
+    an unconverged two-sided Ritz value is no Rayleigh quotient and may lie
+    outside the numerical range, but it is an eigenvalue of ``A − r
+    vᴴ/‖v‖²``); the leading |λ| of the two routes within 1e-3; finite
+    values and vectors; ``diag(WᴴV)`` nonzero.  Reported, not guarded: the
+    off-diagonal of ``WᴴV`` relative to its diagonal.  Returns the launches
+    of the two routes."""
+    t_phase = time.perf_counter()
+    R = n // 128
+    m = 30
+    card = dev != "cpu"
+    op = kt.banded_from_coo(*tridiagonal_coo(np, n, -1.3, 2.0, -0.7, np.float32), n, device=dev)
+    v0, w0 = (torch.from_numpy(np.random.default_rng(s).standard_normal((R, 128)).astype(np.float32))
+              .to(dev) for s in (1, 10))
+    kw = dict(krylovdim=m, maxiter=8, tol=1e-30, verbosity=kt.SILENT)
+
+    def solve():
+        return kt.bieigsolve(op, v0, w0, 4, "LM", **kw)
+
+    # per-launch times at this shape, measured alone: K3 on the normal and the
+    # adjoint planes, K5/K6 on a (31, R, 128) basis at every live length
+    per = {}
+    if card:
+        per["banded_spmv"] = device_ms(torch, lambda: bd.banded_spmv(v0, op.diags, op.offsets, n))
+        per["banded_spmv_adjoint"] = device_ms(
+            torch, lambda: bd.banded_spmv(v0, op.adj.diags, op.adj.offsets, n))
+    out = {}
+    for metric, flag in (("bieigsolve_nonsym_banded", False), ("bieigsolve_nonsym_banded_proj", True)):
+        bs.use_pallas_projections = flag
+        adj, restore = counting_k3(bd, op.adj.diags)
+        ks_u, unproject = [], pb.unproject_pallas
+
+        def rec_unproject(V, c, k):
+            ks_u.append(int(k))
+            return unproject(V, c, k)
+
+        pb.unproject_pallas = rec_unproject
+        try:
+            (vals, (V, W), (iV, iW)), launches, _, sweeps, first_ms, ms = drive_counted(
+                torch, _build, fl, pb, solve, reps=2) if card else _cpu_counted(solve)
+        finally:
+            bs.use_pallas_projections = False
+            pb.unproject_pallas = unproject
+            restore()
+        adj_launches = adj[0] // 3 if card else adj[0]  # the counted solve of three
+        ks_p = [k for _, k in sweeps]
+        ks_u = ks_u[: len(ks_u) // 3] if card else ks_u
+        kernel_ms = {}
+        if card:
+            kernel_ms["banded_spmv"] = ((launches.get("banded_spmv", 0) - adj_launches) * per["banded_spmv"]
+                                        + adj_launches * per["banded_spmv_adjoint"])
+            if flag:
+                Vb = torch.randn((m + 1, R, 128), device=dev)
+                wb, cb = torch.randn((R, 128), device=dev), torch.randn(m + 1, device=dev)
+                pk, uk = {}, {}
+                for k in set(ks_p):
+                    pk[k] = device_ms(torch, lambda: pb.project_pallas(Vb, wb, k), reps=5)
+                for k in set(ks_u):
+                    uk[k] = device_ms(torch, lambda: pb.unproject_pallas(Vb, cb, k), reps=5)
+                kernel_ms["project"] = sum(pk[k] for k in ks_p)
+                kernel_ms["unproject"] = sum(uk[k] for k in ks_u)
+                del Vb, wb, cb
+        lam = vals.detach().cpu()
+        # each pair's own residual (applies made after the counts were read):
+        # λ is an eigenvalue of A − r vᴴ/‖v‖², so |λ| <= ‖A‖ + ‖r‖/‖v‖ <= 4 + ‖r‖/‖v‖
+        vn = torch.linalg.vector_norm(V.reshape(4, -1), dim=1)
+        res = torch.stack([torch.linalg.vector_norm(op.normal(V[i].real) + 1j * op.normal(V[i].imag)
+                                                    - vals[i] * V[i]) for i in range(4)])
+        bound_l = (4.0 + res / vn).cpu()
+        G = torch.einsum("ixy,jxy->ij", W.conj(), V).cpu().to(torch.complex128)
+        dg = torch.diagonal(G).abs()
+        off = float((G - torch.diag(torch.diagonal(G))).abs().max() / dg.max())
+        out[metric] = {"info": iV, "launches": launches, "adjoint": adj_launches, "abs": lam.abs(),
+                       "ks_p": ks_p, "ks_u": ks_u}
+        emit({
+            "metric": metric, "value": iV.numops * 3 * n / ms / 1e6, "unit": "Gnnz/s",
+            "formula": "numops * 3n / t (both sides' applies counted)", "projection_kernels": flag,
+            "numops": iV.numops, "numiter": iV.numiter, "converged": iV.converged,
+            "ms_per_solve": ms, "first_solve_ms": first_ms,
+            "abs_vals": lam.abs().tolist(), "vals_re": lam.real.tolist(), "vals_im": lam.imag.tolist(),
+            "normres_right": iV.normres.cpu().tolist(), "normres_left": iW.normres.cpu().tolist(),
+            "launches_per_solve": launches, "banded_spmv_adjoint_launches": adj_launches,
+            "projection_k_mean": sum(ks_p) / len(ks_p) if ks_p else None,
+            "WhV_diag_abs": dg.tolist(), "WhV_offdiag_rel": off,
+            "true_residual_over_norm": (res / vn).cpu().tolist(),
+            "kernel_ms_per_solve": kernel_ms, "kernel_ms_per_launch": per,
+            "outside_kernels_ms_per_solve": ms - sum(kernel_ms.values()),
+            "outside_kernels_share": (ms - sum(kernel_ms.values())) / ms,
+            "device": torch.cuda.get_device_name(0) if card else "cpu", "nvidia_smi": smi,
+        })
+        require(iV.numiter == 8 and iW.numiter == 8, f"{metric}: 8 iterations ({iV.numiter})")
+        require(iV.numops % 2 == 0 and 228 <= iV.numops <= 312,
+                f"{metric}: numops even, in 2*(30 + 7*12)..2*(30 + 7*18) ({iV.numops})")
+        require(bool(torch.isfinite(lam.abs()).all()) and bool((lam.abs() <= bound_l + 1e-3).all()),
+                f"{metric}: |lambda| <= 4 + |A v - lambda v|/|v| (Gershgorin, widened by the pair's "
+                f"residual): {lam.abs().tolist()} vs {bound_l.tolist()}")
+        require(tuple(V.shape) == tuple(W.shape) == (4, R, 128) and bool(torch.isfinite(V).all())
+                and bool(torch.isfinite(W).all()), f"{metric}: finite (4, R, 128) vectors")
+        require(bool((dg > 0).all()), f"{metric}: diag(W^H V) nonzero ({dg.tolist()})")
+        if card:
+            want = {"banded_spmv": iV.numops}
+            if flag:
+                want["project"], want["unproject"] = bieig_predicted_projections(iV.numops, iV.numiter)
+            require(launches == want, f"{metric}: launches {launches}, predicted {want}")
+            require(2 * adj_launches == iV.numops, f"{metric}: half of K3 on the adjoint's planes "
+                    f"({adj_launches} of {iV.numops})")
+    off_r, on_r = (out[k] for k in ("bieigsolve_nonsym_banded", "bieigsolve_nonsym_banded_proj"))
+    require(off_r["info"].numops == on_r["info"].numops,
+            f"bieig: numops equal on both routes ({off_r['info'].numops}, {on_r['info'].numops})")
+    agree = float((on_r["abs"][0] - off_r["abs"][0]).abs() / off_r["abs"][0])
+    # the dense layer: each round's two Schur decompositions and two sorts
+    rounds = timed_rounds(torch, kt.dense, ("real_schur_active", "sort_schur_real"), solve, dev)
+    nr = len(rounds["real_schur_active"]) // 2
+    per_round = [sum(rounds[k][2 * r] + rounds[k][2 * r + 1] for k in rounds) for r in range(nr)]
+    emit({"phase": "bieig_agreement", "leading_abs_rel_diff": agree, "tolerance": 1e-3,
+          "numops": off_r["info"].numops, "dense_rounds": nr, "dense_ms_per_round": per_round,
+          "dense_ms_per_round_mean": sum(per_round) / nr,
+          "dense_ms_by_call": {k: sum(v) for k, v in rounds.items()},
+          "phase_seconds": time.perf_counter() - t_phase})
+    require(agree <= 1e-3, f"bieig: leading |lambda| of the two routes within 1e-3 ({agree})")
+    require(nr == 8, f"bieig: one dense round per iteration ({nr})")
+    return {"bieig": off_r["launches"], "bieig_proj": on_r["launches"]}
+
+
+def _cpu_counted(solve):
+    """CPU rehearsal of ``drive_counted``: one solve, no launches, no times."""
+    return solve(), {}, [], [], 0.0, 1.0
+
+
+def impurity_banded(np, kt, N, dev):
+    """Config 2's 5-point Poisson matrix on the ``N × N`` grid with the four
+    wells of :func:`impurity_wells` on its main plane, as a plain
+    ``BandedOperator`` (float32; K3 per apply)."""
+    rows, cols, vals = poisson_coo(np, N, np.float32)
+    sites, depths = zip(*impurity_wells(N))
+    return kt.banded_from_coo(np.concatenate([rows, sites]), np.concatenate([cols, sites]),
+                              np.concatenate([vals, np.asarray(depths, np.float32)]), N * N,
+                              device=dev)
+
+
+def _ortho_err(torch, X):
+    """``max|XᴴX − I|`` of the rows of ``X`` (float64)."""
+    X = X.reshape(X.shape[0], -1).to(torch.float64)
+    return float((X @ X.T - torch.eye(X.shape[0], dtype=X.dtype, device=X.device)).abs().max())
+
+
+def _rel_norm(torch, a, b):
+    """``‖a − b‖_F / ‖a‖_F`` in float64."""
+    a, b = a.to(torch.float64), b.to(torch.float64)
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(a))
+
+
+def lanczos_variants(torch, np, kt, _build, bd, bs, fl, pb, N=1024, dev="cuda", smi=None):
+    """Phase ``lanczos_variants``: the Lanczos variants and the iterators at
+    config 2's width (the ``N × N`` grid, float32 ``(N²/128, 128)``
+    vectors).
+
+    1. ``eigsolve(P + wells, x0, 4, "SR", ishermitian=True,
+       alg=Lanczos(krylovdim=30, maxiter=10, tol=1e-5))``, ``x0 =
+       default_rng(6)``, with full and with selective reorthogonalization,
+       each with the projection kernels off and on: 4 converged values on
+       every route within 1e-4 of each other and of ``IMPURITY_VALS``; K3 =
+       ``numops``; K2 = processing rounds + 1 (each round's rotation, the
+       last one the identity, and the extraction); with the flag K5 = K6 =
+       ``numops`` (full: one drift sweep a step) or the number of sweeps
+       (selective, at most ``numops``); no K1.
+    2. ``LanczosIterator`` with ``keepvecs=True`` (cgs2) and
+       ``keepvecs=False`` (cgs), 30 expansions each: K3 30 each, the basis
+       orthonormal to 1e-4, the leading 8 × 8 of the two tridiagonals within
+       1e-3 relative, the lowest Ritz value of the full one within 1e-4 of
+       the eigsolve's; the peak memory each allocates.
+    3. ``ArnoldiIterator``, ``BiArnoldiIterator`` and ``GKLIterator`` on
+       config 4's banded tridiagonal (n = N², K3 both ways), and
+       ``BlockLanczosIterator`` with a block of 4 from ``default_rng(5)`` on
+       the Poisson matrix, 30 expansions each: K3 exact, each basis
+       orthonormal to 1e-4, the factorization relation (as
+       ``tests/test_factorize.py`` checks it) to 1e-4 relative.
+
+    Returns the launches of the selective solves and of the iterators."""
+    from krylovkit_tpu_torch.factorizations import krylov as kf
+
+    t_phase = time.perf_counter()
+    card = dev != "cpu"
+    n = N * N
+    R = n // 128
+    op = impurity_banded(np, kt, N, dev)
+    x0 = torch.from_numpy(np.random.default_rng(6).standard_normal((R, 128)).astype(np.float32)).to(dev)
+    want = torch.tensor(IMPURITY_VALS, dtype=torch.float64)
+    k3 = device_ms(torch, lambda: bd.banded_spmv(x0, op.diags, op.offsets, n)) if card else 0.0
+    out, vals_by = {}, {}
+    for reorth in ("full", "selective"):
+        for flag in (False, True):
+            metric = f"lanczos_{reorth}_impurity" + ("_proj" if flag else "")
+            alg = kt.Lanczos(krylovdim=30, maxiter=10, tol=1e-5, reorth=reorth, verbosity=kt.SILENT)
+            flags, restore = counting_sweeps(kf)
+            bs.use_pallas_projections = flag
+            try:
+                (vals, vecs, info), launches, _, _, first_ms, ms = drive_counted(
+                    torch, _build, fl, pb,
+                    lambda: kt.eigsolve(op, x0, 4, "SR", ishermitian=True, alg=alg), reps=2
+                ) if card else _cpu_counted(
+                    lambda: kt.eigsolve(op, x0, 4, "SR", ishermitian=True, alg=alg))
+            finally:
+                bs.use_pallas_projections = False
+                restore()
+            sweeps = sum(flags[: info.numops])  # the counted solve's steps come first
+            vh = vals.detach().cpu().double()
+            vals_by[metric] = vh
+            kernel_ms = {"banded_spmv": launches.get("banded_spmv", 0) * k3}
+            out[metric] = {"info": info, "launches": launches, "sweeps": sweeps}
+            emit({
+                "metric": metric, "value": info.numops * 5 * n / ms / 1e6, "unit": "Gnnz/s",
+                "formula": "numops * 5n / t", "reorth": reorth, "projection_kernels": flag,
+                "numops": info.numops, "numiter": info.numiter, "converged": info.converged,
+                "sweeps": sweeps if reorth == "selective" else info.numops,
+                "ms_per_solve": ms, "first_solve_ms": first_ms, "vals": vh.tolist(),
+                "normres": info.normres.cpu().tolist(), "launches_per_solve": launches,
+                "kernel_ms_per_solve": kernel_ms,
+                "outside_kernels_ms_per_solve": ms - sum(kernel_ms.values()),
+                "device": torch.cuda.get_device_name(0) if card else "cpu", "nvidia_smi": smi,
+            })
+            require(info.converged >= 4, f"{metric}: 4 values converged ({info.converged})")
+            if N == 1024:
+                require(float((vh - want).abs().max()) <= 1e-4,
+                        f"{metric}: values within 1e-4 of {IMPURITY_VALS} ({vh.tolist()})")
+            require(reorth == "full" or sweeps <= info.numops,
+                    f"{metric}: at most one sweep a step ({sweeps}, {info.numops})")
+            if card:
+                # one K2 per processing round (the last one the identity) and
+                # one for the extraction; rounds = numiter when every round fills
+                w = {"banded_spmv": info.numops, "transform_partial": info.numiter + 1}
+                if flag:
+                    w["project"] = w["unproject"] = info.numops if reorth == "full" else sweeps
+                require(launches == w, f"{metric}: launches {launches}, predicted {w}")
+    ref = vals_by["lanczos_full_impurity"]
+    agree = max(float((v - ref).abs().max()) for v in vals_by.values())
+    require(agree <= 1e-4, f"lanczos_variants: the four routes' values within 1e-4 ({agree})")
+
+    # the Lanczos iterators: full basis (cgs2) and the 3-term recurrence
+    its = {}
+    for label, it in (("full", kt.LanczosIterator(op, x0, krylovdim=30)),
+                      ("3term", kt.LanczosIterator(op, x0, krylovdim=30, orth=kt.cgs, keepvecs=False))):
+        if card:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        st = it.initialize()
+        for _ in range(30):
+            st = it.expand(st)
+        if card:
+            torch.cuda.synchronize()
+        its[label] = {"state": st, "ms": (time.perf_counter() - t0) * 1e3,
+                      "launches": {k: v for k, v in _build.launches.items() if v},
+                      "peak_mib": ((torch.cuda.max_memory_allocated() - base) / 2 ** 20) if card
+                      else "not measured"}
+    Tf, T3 = (its[k]["state"].H.cpu().double() for k in ("full", "3term"))
+    Tf, T3 = (torch.tril(T) + torch.tril(T, -1).T for T in (Tf, T3))
+    tri_err = float((T3[:8, :8] - Tf[:8, :8]).abs().max() / Tf[:8, :8].abs().max())
+    ritz = float(torch.linalg.eigvalsh(Tf[:30, :30])[0])
+    ortho_l = _ortho_err(torch, its["full"]["state"].V[:31])
+    recs = [{"iterator": f"LanczosIterator {k}", "expansions": 30, "ms": v["ms"],
+             "launches": v["launches"], "peak_memory_mib": v["peak_mib"]} for k, v in its.items()]
+    iter_launches = {}
+    for v in its.values():
+        for k, c in v["launches"].items():
+            iter_launches[k] = iter_launches.get(k, 0) + c
+    require(all(not card or v["launches"] == {"banded_spmv": 30} for v in its.values()),
+            f"lanczos iterators: K3 30 each ({[v['launches'] for v in its.values()]})")
+    require(ortho_l <= 1e-4, f"LanczosIterator: basis orthonormal to 1e-4 ({ortho_l})")
+    require(tri_err <= 1e-3, f"LanczosIterator: 3-term and full tridiagonals within 1e-3 ({tri_err})")
+    require(abs(ritz - float(vals_by["lanczos_full_impurity"][0])) <= 1e-4,
+            f"LanczosIterator: lowest Ritz value within 1e-4 of the eigsolve's ({ritz})")
+    del its
+
+    # Arnoldi, BiArnoldi and GKL on config 4's banded tridiagonal; Block
+    # Lanczos on the Poisson matrix
+    A4 = kt.banded_from_coo(*tridiagonal_coo(np, n, -1.3, 2.0, -0.7, np.float32), n, device=dev)
+    P = kt.banded_from_coo(*poisson_coo(np, N, np.float32), n, device=dev)
+    v0, w0 = (torch.from_numpy(np.random.default_rng(s).standard_normal((R, 128)).astype(np.float32))
+              .to(dev) for s in (1, 10))
+    rng5 = np.random.default_rng(5)
+    X0 = torch.stack([torch.from_numpy(rng5.standard_normal((R, 128)).astype(np.float32))
+                      for _ in range(4)]).to(dev)
+    for label, it, per in (("ArnoldiIterator", kt.ArnoldiIterator(A4, v0, krylovdim=30), 1),
+                           ("BiArnoldiIterator", kt.BiArnoldiIterator(A4, v0, w0, krylovdim=30), 2),
+                           ("GKLIterator", kt.GKLIterator(A4, v0, krylovdim=30), 2),
+                           ("BlockLanczosIterator", kt.BlockLanczosIterator(P, X0, krylovdim=120), 4)):
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        st = it.initialize()
+        for _ in range(30):
+            st = it.expand(st)
+        if card:
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = {k: v for k, v in _build.launches.items() if v}
+        for k, c in launches.items():
+            iter_launches[k] = iter_launches.get(k, 0) + c
+        # the invariants (their applies come after the counts were read)
+        if label == "GKLIterator":
+            k = st.k
+            ortho = max(_ortho_err(torch, st.U[: k + 1]), _ortho_err(torch, st.V[:k]))
+            AV = torch.stack([A4.normal(x) for x in st.V[:k]]).reshape(k, -1)
+            AhU = torch.stack([A4.apply_adjoint(x) for x in st.U[:k]]).reshape(k, -1)
+            B = st.B.to(torch.float64)
+            rel = max(_rel_norm(torch, AV, B[: k + 1, :k].T @ st.U[: k + 1].reshape(k + 1, -1).double()),
+                      _rel_norm(torch, AhU, B[:k, :k] @ st.V[:k].reshape(k, -1).double()))
+        elif label == "BlockLanczosIterator":
+            ortho, rel = _ortho_err(torch, st.V[: st.k]), None
+        else:
+            sides = st if isinstance(st, tuple) else (st,)
+            ortho, rel = 0.0, 0.0
+            for s, apply in zip(sides, (A4.normal, A4.apply_adjoint)):
+                k = s.k
+                ortho = max(ortho, _ortho_err(torch, s.V[: k + 1]))
+                AV = torch.stack([apply(x) for x in s.V[:k]]).reshape(k, -1)
+                VH = s.H[: k + 1, :k].double().T @ s.V[: k + 1].reshape(k + 1, -1).double()
+                rel = max(rel, _rel_norm(torch, AV, VH))
+        recs.append({"iterator": label, "expansions": 30, "ms": ms, "launches": launches,
+                     "orthonormality_err": ortho, "factorization_rel_err": rel})
+        require(not card or launches == {"banded_spmv": 30 * per},
+                f"{label}: K3 {30 * per} ({launches})")
+        require(ortho <= 1e-4, f"{label}: basis orthonormal to 1e-4 ({ortho})")
+        require(rel is None or rel <= 1e-4, f"{label}: factorization relation to 1e-4 ({rel})")
+        del st, it
+    emit({"phase": "lanczos_variants_iterators", "iterators": recs,
+          "tridiagonal_3term_vs_full_rel": tri_err, "lowest_ritz_full": ritz,
+          "lanczos_basis_orthonormality_err": ortho_l, "values_agreement": agree,
+          "device": torch.cuda.get_device_name(0) if card else "cpu", "nvidia_smi": smi,
+          "phase_seconds": time.perf_counter() - t_phase})
+    return {"selective": out["lanczos_selective_impurity"]["launches"],
+            "selective_proj": out["lanczos_selective_impurity_proj"]["launches"],
+            "iterators": iter_launches}
+
+
 def banded_csr(torch, D, offsets, n):
     """The banded matrix as a ``torch.sparse_csr_tensor`` of its nonzero
     entries: the cuSPARSE yardstick, never called by the port."""
@@ -1449,23 +2069,7 @@ def drive_counted(torch, _build, fl, pb, solve, reps=2):
 def timed_calls(torch, module, name, solve):
     """The wall time of each call of ``module.name`` during one ``solve()``,
     synchronised before and after; returns the list in ms."""
-    times = []
-    inner = getattr(module, name)
-
-    def timed(*a, **kw):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = inner(*a, **kw)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-        return out
-
-    setattr(module, name, timed)
-    try:
-        solve()
-    finally:
-        setattr(module, name, inner)
-    return times
+    return timed_rounds(torch, module, (name,), solve, "cuda")[name]
 
 
 def tridiagonal_coo(np, n, lower, diag, upper, dtype):
@@ -1511,7 +2115,7 @@ def profile_solve(torch, label, solve):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one config-1 and one config-4 solve (phase 19)")
+                    help="also profile one config-1 and one config-4 solve (phase 22)")
     ap.add_argument("--parent", metavar="DIR",
                     help="an unpacked earlier tree: time its K1 and K2 on this card as parent_ms")
     ap.add_argument("--kernel-times", action="store_true",
@@ -2347,6 +2951,21 @@ def main():
     ad_imp = ad_impurity(torch, np, kt, _build, bs, bd, N=nx, smi=smi)
     ad_pot, _ = ad_potential(torch, np, kt, _build, bd, N=nx, smi=smi)
 
+    # 19-21. two-sided eigenproblems, the iterators and the Lanczos variants:
+    # card vs CPU, then bieigsolve at config 4's width and the variants at
+    # config 2's
+    small_bieig_iter(torch, np, kt, _build)
+    bieig_l = bieig_full(torch, np, kt, _build, bd, bs, fl, pb, n=n4, smi=smi)
+    lanczos_l = lanczos_variants(torch, np, kt, _build, bd, bs, fl, pb, N=nx, smi=smi)
+
+    def slice8(name):
+        """The launches of ``name`` on the paths of phases 20 and 21."""
+        return {"launches_bieig": bieig_l["bieig"].get(name, 0),
+                "launches_bieig_proj": bieig_l["bieig_proj"].get(name, 0),
+                "launches_lanczos_selective": lanczos_l["selective"].get(name, 0),
+                "launches_lanczos_selective_proj": lanczos_l["selective_proj"].get(name, 0),
+                "launches_iterators": lanczos_l["iterators"].get(name, 0)}
+
     if args.profile:
         emit(profile_solve(torch, "config 1 Lanczos eigsolve",
                            lambda: kt.eigsolve_lanczos(op, x0, 4, "LM", alg)))
@@ -2399,6 +3018,7 @@ def main():
             "launches_ad_impurity_backward": ad_imp["backward"].get("transform_partial", 0),
             "launches_ad_tuple_basis": ad_imp["tuple_basis"].get("transform_partial", 0),
             "launches_ad_small": ad_small_launches.get("transform_partial", 0),
+            **slice8("transform_partial"),
         },
         {
             "name": "banded_spmv", "route": "cuda",
@@ -2421,6 +3041,7 @@ def main():
             "launches_ad_potential_forward": ad_pot["forward"].get("banded_spmv", 0),
             "launches_ad_potential_backward": ad_pot["backward"].get("banded_spmv", 0),
             **geneig_kernel(kg["banded_spmv"]),
+            **slice8("banded_spmv"),
         },
         {
             "name": "laplacian_1d", "route": "cuda",
@@ -2453,6 +3074,7 @@ def main():
             "launches_ad_impurity_forward_proj": ad_imp["forward_proj"].get("project", 0),
             "launches_ad_impurity_backward_proj": ad_imp["backward_proj"].get("project", 0),
             **geneig_kernel(kg["project"]),
+            **slice8("project"),
         },
         {
             "name": "unproject", "route": "cuda",
@@ -2474,6 +3096,7 @@ def main():
             "launches_ad_impurity_forward_proj": ad_imp["forward_proj"].get("unproject", 0),
             "launches_ad_impurity_backward_proj": ad_imp["backward_proj"].get("unproject", 0),
             **geneig_kernel(kg["unproject"]),
+            **slice8("unproject"),
         },
     ]})
     print(nvidia_smi_line(), flush=True)

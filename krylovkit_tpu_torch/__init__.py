@@ -1,9 +1,14 @@
 """krylovkit_tpu_torch — the PyTorch/CUDA port of ``krylovkit_tpu``.
 
-It covers the Hermitian Lanczos eigsolve, Block Lanczos (``eigsolve`` with
-a :class:`Block` start), the Krylov-Schur Arnoldi solvers (``schursolve``,
-non-Hermitian ``eigsolve``, ``realeigsolve``), the Golub-Ye generalized
-eigensolver (``geneigsolve``), the linear solvers (CG, GMRES, MINRES,
+It covers the Hermitian Lanczos eigsolve (full or selective
+reorthogonalization), Block Lanczos (``eigsolve`` with a :class:`Block`
+start), the Krylov-Schur Arnoldi solvers (``schursolve``, non-Hermitian
+``eigsolve``, ``realeigsolve``), the two-sided BiArnoldi eigensolver
+(``bieigsolve``), the Golub-Ye generalized eigensolver (``geneigsolve``), the
+iterator API (``LanczosIterator`` with its O(1)-memory 3-term mode,
+``ArnoldiIterator``, ``GKLIterator``, ``BlockLanczosIterator``,
+``BiArnoldiIterator`` and the accessors ``basis``, ``rayleighquotient``,
+``residual``, ``normres``), the linear solvers (CG, GMRES, MINRES,
 BiCGStab), the GKL singular-value solver (``svdsolve``, ``realsvdsolve``),
 LSMR least squares (``lssolve``, ``reallssolve``) and the matrix functions
 (``exponentiate``, ``expintegrator``), on dense, stencil, banded and ELL
@@ -39,6 +44,7 @@ from .algorithms import (  # noqa: E402
     LSMR,
     MINRES,
     Arnoldi,
+    BiArnoldi,
     BiCGStab,
     BlockLanczos,
     EigSorter,
@@ -53,6 +59,17 @@ from .algorithms import (  # noqa: E402
     mgsir,
 )
 from .info import EACHITERATION, SILENT, STARTSTOP, WARN, ConvergenceInfo  # noqa: E402
+from .factorizations.iterators import (  # noqa: E402
+    ArnoldiIterator,
+    BiArnoldiIterator,
+    BlockLanczosIterator,
+    GKLIterator,
+    LanczosIterator,
+    basis,
+    normres,
+    rayleighquotient,
+    residual,
+)
 from .ops.operator import (  # noqa: E402
     GridStencilOperator,
     LinearOperator,
@@ -68,6 +85,7 @@ from .ops.stencil_1d import laplacian_1d_pallas  # noqa: E402
 from .ops.vector import REAL, STANDARD, VectorSpace  # noqa: E402
 from .parallel.operators import laplacian_1d, poisson_2d  # noqa: E402
 from .solvers.arnoldi import eigsolve_arnoldi  # noqa: E402
+from .solvers.biarnoldi import bieigsolve  # noqa: E402
 from .solvers.eigsolve import eigsolve, realeigsolve, schursolve  # noqa: E402
 from .solvers.expintegrator import expintegrator, exponentiate  # noqa: E402
 from .solvers.golubye import geneigsolve  # noqa: E402
@@ -79,6 +97,7 @@ from . import ad  # noqa: E402
 
 __all__ = [
     "Arnoldi",
+    "BiArnoldi",
     "BiCGStab",
     "BlockLanczos",
     "CG",
@@ -101,6 +120,15 @@ __all__ = [
     "STARTSTOP",
     "EACHITERATION",
     "ConvergenceInfo",
+    "LanczosIterator",
+    "ArnoldiIterator",
+    "GKLIterator",
+    "BlockLanczosIterator",
+    "BiArnoldiIterator",
+    "basis",
+    "rayleighquotient",
+    "residual",
+    "normres",
     "LinearOperator",
     "StencilOperator",
     "GridStencilOperator",
@@ -125,6 +153,7 @@ __all__ = [
     "schursolve",
     "realeigsolve",
     "geneigsolve",
+    "bieigsolve",
     "linsolve",
     "reallinsolve",
     "svdsolve",

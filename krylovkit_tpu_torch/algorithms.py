@@ -95,7 +95,9 @@ class Lanczos(_KrylovAlgorithm):
     """Lanczos for Hermitian eigenproblems (reference ``src/algorithms.jl:119-170``).
 
     ``reorth``: ``"full"`` (one full drift sweep per step) or ``"selective"``
-    (Simon's ω-recurrence; not ported yet — ``eigsolve_lanczos`` raises)."""
+    (Simon's ω-recurrence partial reorthogonalization: the sweep runs only
+    when the estimated loss of orthogonality exceeds ``sqrt(eps)``; not with
+    ``eager=True``)."""
 
     reorth: str = "full"
 

@@ -15,10 +15,10 @@ import numpy as np
 import torch
 
 from .algorithms import (
-    CG, GKL, GMRES, LSMR, MINRES, Arnoldi, BiCGStab, BlockLanczos, GolubYe, Lanczos,
+    CG, GKL, GMRES, LSMR, MINRES, Arnoldi, BiArnoldi, BiCGStab, BlockLanczos, GolubYe, Lanczos,
 )
 from .factorizations.gkl import GKLState
-from .factorizations.krylov import FusedScales, KrylovState
+from .factorizations.krylov import FusedScales, KrylovState, Lanczos3State
 from .ops import orthonormal as on
 from .ops.banded import BandedOperator
 from .ops.block import Block
@@ -37,6 +37,7 @@ __all__ = [
     "eig_problem_from_numpy",
     "lanczos_from_dict",
     "arnoldi_from_dict",
+    "biarnoldi_from_dict",
     "cg_from_dict",
     "gmres_from_dict",
     "minres_from_dict",
@@ -46,6 +47,7 @@ __all__ = [
     "golubye_from_dict",
     "blocklanczos_from_dict",
     "krylov_state_from_numpy",
+    "lanczos3_state_from_numpy",
     "gkl_state_from_numpy",
     "fused_scales_from_numpy",
 ]
@@ -182,6 +184,11 @@ def arnoldi_from_dict(fields: dict) -> Arnoldi:
     return _alg_from_dict(Arnoldi, fields)
 
 
+def biarnoldi_from_dict(fields: dict) -> BiArnoldi:
+    """A :class:`BiArnoldi` from its fields; ``orth`` as in :func:`lanczos_from_dict`."""
+    return _alg_from_dict(BiArnoldi, fields)
+
+
 def cg_from_dict(fields: dict) -> CG:
     """A :class:`CG` from its fields (``maxiter``, ``tol``, ``verbosity``)."""
     return _alg_from_dict(CG, fields)
@@ -230,6 +237,16 @@ def krylov_state_from_numpy(V, H, k, beta, device="cuda") -> KrylovState:
     port's expansions write into them."""
     dev = resolve_device(device)
     return KrylovState(_copied(V, dev), _copied(H, dev), int(k), _copied(beta, dev))
+
+
+def lanczos3_state_from_numpy(v_prev, v_cur, H, k, beta, device="cuda") -> Lanczos3State:
+    """A 3-term :class:`Lanczos3State` from the arrays of a ``keepvecs=False``
+    factorization: the rolling pair ``v_prev``/``v_cur``, projected matrix
+    ``H``, size ``k`` and residual norm ``beta`` (copied, as in
+    :func:`krylov_state_from_numpy`)."""
+    dev = resolve_device(device)
+    return Lanczos3State(_copied(v_prev, dev), _copied(v_cur, dev), _copied(H, dev), int(k),
+                         _copied(beta, dev))
 
 
 def gkl_state_from_numpy(U, V, B, k, beta, device="cuda") -> GKLState:

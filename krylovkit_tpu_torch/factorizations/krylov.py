@@ -30,9 +30,13 @@ from ..ops.vector import STANDARD, VectorSpace, astype, device_of, tree_map
 
 __all__ = [
     "KrylovState",
+    "Lanczos3State",
     "initialize",
+    "initialize_3term",
     "expand",
     "expand_hermitian",
+    "expand_hermitian_selective",
+    "expand_3term",
     "fused_available",
     "FusedScales",
     "fused_scales_init",
@@ -140,6 +144,135 @@ def expand_hermitian(op_apply, state: KrylovState, orth: on.Orthogonalizer,
         k=k + 1, b=beta,
     )
     return KrylovState(V, H, k + 1, beta)
+
+
+def _normalized(w, beta):
+    """``w/β``, or zero where ``β == 0`` (breakdown)."""
+    safe = torch.where(beta > 0, beta, torch.ones_like(beta))
+    return tree_map(lambda l: torch.where(beta > 0, l / safe.to(l.dtype), 0 * l), w)
+
+
+@dataclasses.dataclass
+class Lanczos3State:
+    """O(1)-vector-memory pure 3-term Lanczos state (``keepvecs=false``).
+
+    The reference's ``keepvecs=false`` mode keeps only the rolling pair
+    ``(v_{k-1}, v_k)`` (``src/factorizations/lanczos.jl:133-144``); it is
+    legal only without reorthogonalization (``lanczos.jl:137-141``).  The
+    tridiagonal coefficients still fill the ``(m+1, m+1)`` buffer ``H``."""
+
+    v_prev: object  # v_{k-1}
+    v_cur: object  # v_k (the residual direction)
+    H: torch.Tensor  # (m+1, m+1), tridiagonal in the lower triangle
+    k: int
+    beta: torch.Tensor  # 0-d, real: ‖residual‖ of the last step
+
+
+def initialize_3term(x0, m: int, coeff_dtype, space: VectorSpace = STANDARD,
+                     verbosity: int = 0) -> Lanczos3State:
+    """``v_0 = x0/‖x0‖`` with no stored basis (reference ``keepvecs=false``
+    initialize, ``src/factorizations/lanczos.jl:184-207``)."""
+    nrm = space.norm(x0)
+    warn_if(
+        verbosity, nrm == 0,
+        "[krylovkit_tpu] starting vector x0 has zero norm: results are NaN "
+        "and converged = 0",
+    )
+    v0 = tree_map(lambda l: l / nrm.to(l.dtype), x0)
+    dev = device_of(x0)
+    H = torch.zeros((m + 1, m + 1), dtype=coeff_dtype, device=dev)
+    beta = torch.ones((), dtype=coeff_dtype.to_real(), device=dev)
+    return Lanczos3State(tree_map(torch.zeros_like, v0), v0, H, 0, beta)
+
+
+def expand_3term(op_apply, state: Lanczos3State, space: VectorSpace = STANDARD) -> Lanczos3State:
+    """One pure 3-term step ``w = A v_k − β_{k-1} v_{k-1} − α_k v_k`` with no
+    reorthogonalization (reference ``lanczosrecurrence`` for plain cgs/mgs,
+    ``src/factorizations/lanczos.jl:295-328``).  ``H`` gets ``α`` at
+    ``[k, k]`` and ``β`` at ``[k+1, k]``, the lower-triangle convention of
+    :func:`expand_hermitian`."""
+    v_prev, v_cur, H, k = state.v_prev, state.v_cur, state.H, state.k
+    w = op_apply(v_cur)
+    if k > 0:
+        w = tree_map(lambda a, b: a - state.beta.to(a.dtype) * b, w, v_prev)
+    alpha = space.inner(v_cur, w)
+    w = tree_map(lambda a, b: a - alpha.to(a.dtype) * b, w, v_cur)
+    beta = space.norm(w)
+    H[k, k] = alpha.to(H.dtype)
+    H[k + 1, k] = beta.to(H.dtype)
+    return Lanczos3State(v_cur, _normalized(w, beta), H, k + 1, beta)
+
+
+def expand_hermitian_selective(op_apply, state: KrylovState, omega: torch.Tensor,
+                               omega_prev: torch.Tensor, orth: on.Orthogonalizer,
+                               space: VectorSpace = STANDARD, force_sweep: bool = False):
+    """Hermitian Lanczos step with partial reorthogonalization.
+
+    Simon's ω-recurrence (H. D. Simon, *The Lanczos algorithm with partial
+    reorthogonalization*, Math. Comp. 42 (1984)) estimates ``|⟨v_j,
+    v_{k+1}⟩|`` from the tridiagonal coefficients alone; the drift sweep (one
+    plain cgs sweep against ``V[:k+1]``) runs only when ``max_{j<k} ω_j >
+    sqrt(eps)`` or ``force_sweep``.  The test is one host read per step.  No
+    reference counterpart: the JAX package's opt-in
+    ``Lanczos(reorth="selective")``.  ``omega``/``omega_prev`` are real
+    ``(m+1,)`` tensors on the vectors' device.
+
+    Returns ``(state, omega_new, omega, swept)``."""
+    V, H, k, beta_prev = state.V, state.H, state.k, state.beta
+    m1 = H.shape[0]
+    rdt = omega.dtype
+    dev = omega.device
+    eps = torch.finfo(rdt).eps
+    thresh = eps ** 0.5
+
+    vk = bs.get(V, k)
+    w = op_apply(vk)
+    bcoef = beta_prev.to(rdt) if k > 0 else torch.zeros((), dtype=rdt, device=dev)
+    if k > 0:
+        w = tree_map(lambda a, b: a - beta_prev.to(a.dtype) * b, w, bs.get(V, k - 1))
+    alpha = space.inner(vk, w)
+    w = tree_map(lambda a, b: a - alpha.to(a.dtype) * b, w, vk)
+    beta_raw = space.norm(w)
+
+    # ω-recurrence for the would-be v_{k+1} against v_j, j <= k
+    alphas = torch.real(torch.diagonal(H)).to(rdt)  # α_j at [j, j]
+    betas = torch.abs(torch.cat([torch.diagonal(H, -1), H.new_zeros(1)])).to(rdt)  # β_j at [j+1, j]
+    a_k = torch.real(alpha).to(rdt)
+    b_k = torch.clamp(beta_raw.to(rdt), min=eps)
+    idx = torch.arange(m1, device=dev)
+    scale_n = torch.clamp(torch.abs(a_k) + b_k + bcoef, min=1.0)
+    theta = eps * (betas + b_k) / b_k + eps * scale_n / b_k
+    om_new = (
+        betas * torch.roll(omega, -1)
+        + (alphas - a_k) * omega
+        + torch.roll(betas, 1) * torch.roll(omega, 1)
+        - bcoef * omega_prev
+    ) / b_k + theta
+    om_new = torch.abs(om_new)
+    # boundary values: ω_{k+1,k} at the eps level, ω_{k+1,k+1} = 1, zero beyond
+    om_new = torch.where(idx == k, eps * scale_n / b_k, om_new)
+    om_new = torch.where(idx == k + 1, torch.ones_like(om_new), om_new)
+    om_new = torch.where(idx > k + 1, torch.zeros_like(om_new), om_new)
+
+    # forced on the first expansion after a thick restart: the arrowhead
+    # spike gives A·v_keep components along every kept Ritz vector, which the
+    # 3-term recurrence does not remove and the ω-recurrence does not model
+    swept = bool(force_sweep) or bool(
+        torch.max(torch.where(idx < k, om_new, torch.zeros_like(om_new))) > thresh)
+    if swept:
+        w, _ = on.orthogonalize(w, V, k + 1, on.cgs, space)
+        # after a sweep the basis is orthogonal to the eps level again
+        eps_row = torch.where(idx <= k, torch.full_like(omega, eps), torch.zeros_like(omega))
+        om_out, om_cur = eps_row.clone(), eps_row
+    else:
+        om_out, om_cur = om_new, omega
+    om_out[k + 1] = 1.0
+
+    beta = space.norm(w)
+    bs.set(V, k + 1, _normalized(w, beta))
+    H[k, k] = alpha.to(H.dtype)
+    H[k + 1, k] = beta.to(H.dtype)
+    return KrylovState(V, H, k + 1, beta), om_out, om_cur, swept
 
 
 # --------------------------------------------------------------------------

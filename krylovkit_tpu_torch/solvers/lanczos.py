@@ -10,10 +10,12 @@ The reference's Krylov-Schur loop (``src/eigsolve/lanczos.jl``):
         in-place basis rotation, arrowhead projected matrix
 
 as eager Python loops on the host over device tensors.  The control flow
-reads a few scalars from the device: ``β`` per expansion step and ``nconv``
-per restart.  Vectors may be pytrees (``ops/vector.py``): the basis is then
-the same pytree of stacked leaves, and the restart rotation runs the
-transform kernel on each eligible leaf (``bs.transform_partial``).
+reads a few scalars from the device: ``β`` per expansion step (and, with
+``Lanczos(reorth="selective")``, the ω-recurrence's sweep test of
+``kf.expand_hermitian_selective``) and ``nconv`` per restart.  Vectors may
+be pytrees (``ops/vector.py``): the basis is then the same pytree of
+stacked leaves, and the restart rotation runs the transform kernel on each
+eligible leaf (``bs.transform_partial``).
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from ..info import EACHITERATION, STARTSTOP, ConvergenceInfo, log_if, warn_if
 from ..ops import basis as bs
 from ..ops import orthonormal as on
 from ..ops.operator import LinearOperator, probe_dtype
-from ..ops.vector import STANDARD, VectorSpace, device_of, tree_map
+from ..ops.vector import STANDARD, VectorSpace, device_of, scalartype, tree_map
 
 __all__ = ["eigsolve_lanczos"]
 
@@ -111,10 +113,11 @@ def eigsolve_lanczos(op: LinearOperator, x0, howmany: int, which,
             "which=:LI/:SI invalid for Hermitian eigsolve (real spectrum) — "
             "reference src/eigsolve/eigsolve.jl:209-236"
         )
-    if getattr(alg, "reorth", "full") == "selective":
-        raise NotImplementedError(
-            "Lanczos(reorth='selective') is not ported yet (ROADMAP.md queue 1, "
-            "item 4: expand_hermitian_selective)"
+    selective = getattr(alg, "reorth", "full") == "selective"
+    if selective and alg.eager:
+        raise ValueError(
+            "reorth='selective' is incompatible with eager=True (the "
+            "omega-recurrence state does not persist across eager processings)"
         )
     cdt = coeff_dtype or probe_dtype(op, x0)
     rdt = cdt.to_real()
@@ -122,7 +125,12 @@ def eigsolve_lanczos(op: LinearOperator, x0, howmany: int, which,
     btol = float(torch.tensor(torch.finfo(rdt).eps, dtype=rdt) ** 0.75)
     dev = device_of(x0)
 
-    fact = kf.initialize(x0, m, cdt, space, verbosity=alg.verbosity)
+    # a complex operator and a real x0: the basis takes the operator's type,
+    # as in the Arnoldi solver (the JAX package's Lanczos keeps x0's type and
+    # drops the imaginary part of A v at the basis write)
+    promote = cdt.is_complex and not scalartype(x0).is_complex
+    fact = kf.initialize(x0, m, cdt, space, vec_dtype=cdt if promote else None,
+                         verbosity=alg.verbosity)
     st = _LoopState(
         fact=fact, numiter=0, numops=0, nconv=0,
         vals=torch.zeros(m + 1, dtype=rdt, device=dev),
@@ -136,6 +144,7 @@ def eigsolve_lanczos(op: LinearOperator, x0, howmany: int, which,
     dgks = type(alg.orth) is on.ClassicalGramSchmidt2 and 2 * (m + 1) + 2 <= 128
     fused = (
         not alg.eager
+        and not selective
         and (type(alg.orth) is on.ClassicalGramSchmidt or dgks)
         and cdt == torch.float32
         and kf.fused_available(op, x0, space, kmax=m + 1)
@@ -150,12 +159,23 @@ def eigsolve_lanczos(op: LinearOperator, x0, howmany: int, which,
             )
             numops += dops
         else:
+            if selective:
+                # the ω-recurrence's state, at the eps level after every
+                # restart (the kept Ritz vectors are orthonormal)
+                om = torch.full((m + 1,), torch.finfo(rdt).eps, dtype=rdt, device=dev)
+                omp = om.clone()
             j = 0
             while fact.k < m and float(fact.beta) > btol:
                 if alg.eager and not (j == 0 or fact.k < max(howmany, 1)):
                     break
-                fact = kf.expand_hermitian(op.normal, fact, alg.orth, space,
-                                           verbosity=alg.verbosity)
+                if selective:
+                    # the first expansion after a restart sweeps
+                    fact, om, omp, _ = kf.expand_hermitian_selective(
+                        op.normal, fact, om, omp, alg.orth, space,
+                        force_sweep=j == 0 and st.numiter > 0)
+                else:
+                    fact = kf.expand_hermitian(op.normal, fact, alg.orth, space,
+                                               verbosity=alg.verbosity)
                 numops += 1
                 j += 1
 

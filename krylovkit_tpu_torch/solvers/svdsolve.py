@@ -142,7 +142,11 @@ def svdsolve_gkl(op: LinearOperator, x0: torch.Tensor, howmany: int, which, alg:
     btol = float(torch.tensor(torch.finfo(rdt).eps, dtype=rdt) ** 0.75)
     dev = x0.device
 
-    fact = gf.initialize(op, x0, m, cdt, space, verbosity=alg.verbosity)
+    # a complex map and a real x0: the bases take the map's type (the JAX
+    # package keeps x0's and drops the imaginary part of Aᴴ u)
+    promote = cdt.is_complex and not x0.is_complex()
+    fact = gf.initialize(op, x0, m, cdt, space, vec_dtype=cdt if promote else None,
+                         verbosity=alg.verbosity)
     m1 = m + 1
     # fused one-stream GKL kernels (factorizations/gkl.py): square fusable
     # stencils under either cgs-family orthogonalizer (the kernel path always

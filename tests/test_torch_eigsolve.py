@@ -85,8 +85,10 @@ def test_unported_branches_raise():
     # BlockLanczos is ported: without a Block start it raises the reference's error
     with pytest.raises(ValueError, match="BlockLanczos requires a Block starting value x0"):
         kt.eigsolve(A + A.T, x0, 2, alg=kt.BlockLanczos())
-    with pytest.raises(NotImplementedError, match="selective"):
-        kt.eigsolve(A + A.T, x0, 2, alg=kt.Lanczos(reorth="selective"))
+    # selective reorthogonalization is ported; with eager=True it raises the
+    # reference's error
+    with pytest.raises(ValueError, match="reorth='selective' is incompatible with eager=True"):
+        kt.eigsolve(A + A.T, x0, 2, alg=kt.Lanczos(reorth="selective", eager=True))
     # an x0 that requires grad takes the differentiable route (zero gradient),
     # with the values and counts of the plain solve; a Block start has no rule
     xg = x0.clone().requires_grad_(True)

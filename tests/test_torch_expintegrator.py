@@ -425,3 +425,23 @@ def test_fused_reentry_with_unnormalized_rows(interpret_mode):
     np.testing.assert_allclose(torch.tril(t2.H).numpy(), torch.tril(tA.H).numpy(),
                                rtol=5e-4, atol=5e-5)
     np.testing.assert_allclose(t2.V.numpy(), tA.V.numpy(), rtol=5e-4, atol=5e-5)
+
+
+@pytest.mark.parametrize("herm", [True, False])
+def test_exponentiate_complex_map_with_real_start_matches_expm(herm):
+    """A complex matrix and a real float64 start: both packages already
+    promote (the probe found no imaginary part dropped); the port matches
+    ``exp(tA) x0`` and the JAX package's counts."""
+    r = np.random.default_rng(0)
+    A = (r.standard_normal((100, 100)) + 1j * r.standard_normal((100, 100))) / 10
+    if herm:
+        A = (A + A.conj().T) / 2
+    x0 = np.random.default_rng(0).standard_normal(100)
+    want = dense_expm(0.3 * A) @ x0
+    yt, it = kt.exponentiate(torch.from_numpy(A), 0.3, torch.from_numpy(x0), tol=1e-10)
+    yj, ij = kk.exponentiate(jnp.asarray(A), 0.3, jnp.asarray(x0), tol=1e-10)
+    assert yt.dtype == torch.complex128
+    assert np.linalg.norm(yt.numpy() - want) <= 1e-12 * np.linalg.norm(want)
+    np.testing.assert_allclose(yt.numpy(), np.asarray(yj), atol=1e-12)
+    assert (it.numops, it.numiter, it.converged) == (
+        int(ij.numops), int(ij.numiter), int(ij.converged))

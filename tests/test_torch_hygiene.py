@@ -39,7 +39,11 @@ def test_port_has_files():
         "expintegrator.py", "gkl.py", "svd.py", "svdsolve.py", "lssolve.py",
         "golubye.py", "blocklanczos.py", "block.py", "sparse.py",
         "gauge.py", "_common.py", "vector.py", "basis.py",
+        "biarnoldi.py", "iterators.py",
     } <= names
+    solvers = {p.name for p in PORT_FILES if p.parent.name == "solvers"}
+    factorizations = {p.name for p in PORT_FILES if p.parent.name == "factorizations"}
+    assert "biarnoldi.py" in solvers and "iterators.py" in factorizations
     ad = {p.name for p in PORT_FILES if p.parent.name == "ad"}
     assert {"__init__.py", "linsolve.py", "eigsolve.py", "svdsolve.py", "gauge.py",
             "_common.py"} <= ad

@@ -622,3 +622,27 @@ def test_banded_planes_gradient_on_card_matches_cpu():
             assert _build.launches["banded_spmv"] >= info.numops
         grads[dev] = D.grad.cpu()
     torch.testing.assert_close(grads["cuda"], grads["cpu"], rtol=1e-10, atol=1e-12)
+
+
+def test_bieigsolve_iterators_and_selective_on_card_match_cpu():
+    """The ``small_bieig_iter`` phase of ``chip_smoke.py``: ``bieigsolve``
+    (dense and banded, real and complex mode), every iterator and
+    ``Lanczos(reorth="selective")`` on the card within 1e-10 of the CPU,
+    counts and sweeps equal; K3 once per banded real apply, half of
+    ``bieigsolve``'s on the adjoint's planes."""
+    from chip_smoke import small_bieig_iter
+
+    small_bieig_iter(torch, np, kt, _build)
+
+
+def test_bieig_and_lanczos_variants_small_width_on_card():
+    """The ``bieig`` and ``lanczos_variants`` phases at n = 2^14 and on a
+    64 × 64 grid: exact launch counts (K3 both ways, the predicted K5/K6
+    with the flag; K2 per round and extraction), the sweep counts, the
+    iterators' invariants."""
+    from chip_smoke import bieig_full, lanczos_variants
+
+    out = bieig_full(torch, np, kt, _build, bd, bs, fl, pb, n=1 << 14)
+    assert set(out["bieig"]) == {"banded_spmv"}
+    got = lanczos_variants(torch, np, kt, _build, bd, bs, fl, pb, N=64)
+    assert set(got["iterators"]) == {"banded_spmv"}

@@ -322,3 +322,28 @@ def test_unfused_paths_of_a_stencil_match_jax():
     vt, _, _, it = kt.svdsolve(top, torch.from_numpy(x), 2, "LR", **kw)
     assert counts(it) == counts(ij)
     np.testing.assert_allclose(vt.numpy(), np.asarray(vj), atol=1e-10)
+
+
+def test_svd_complex_map_with_real_start_promotes():
+    """A complex matrix and a real float64 start: the port's bases take the
+    map's type and the singular values are ``numpy.linalg.svd``'s, with the
+    counts of the same solve from a complex start.  Deviation: the JAX
+    package keeps the start's type, drops the imaginary part of ``Aᴴ u`` and
+    returns other values (its GKL is frozen)."""
+    r = np.random.default_rng(0)
+    A = r.standard_normal((100, 100)) + 1j * r.standard_normal((100, 100))
+    x0 = np.random.default_rng(0).standard_normal(100)
+    want = np.linalg.svd(A, compute_uv=False)[:3]
+    S, U, V, info = kt.svdsolve(torch.from_numpy(A), torch.from_numpy(x0), 3, "LR", tol=1e-10)
+    np.testing.assert_allclose(S.numpy(), want, rtol=1e-12)
+    assert U.dtype == V.dtype == torch.complex128 and info.converged == 3
+    res = A @ V.numpy().T - U.numpy().T * S.numpy()
+    assert np.linalg.norm(res) < 1e-10
+    Sc, _, _, ic = kt.svdsolve(torch.from_numpy(A), torch.from_numpy(x0.astype(complex)), 3, "LR",
+                               tol=1e-10)
+    Sj, _, _, ij = kk.svdsolve(jnp.asarray(A), jnp.asarray(x0.astype(complex)), 3, "LR", tol=1e-10)
+    np.testing.assert_allclose(S.numpy(), np.asarray(Sj), rtol=1e-12)
+    assert (info.numops, info.numiter) == (ic.numops, ic.numiter) == (
+        int(ij.numops), int(ij.numiter))
+    Sr, _, _, _ = kk.svdsolve(jnp.asarray(A), jnp.asarray(x0), 3, "LR", tol=1e-10)
+    assert np.max(np.abs(np.asarray(Sr) - want)) > 1.0
