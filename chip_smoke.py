@@ -17,7 +17,8 @@ without the final ``ok`` line:
    PyTorch call where one computes the same function, and its bound on the
    card; K1 also at the edges of its plan (B = 1, 2, the wide-B
    instantiations, ragged and tiny R, kp1 > B, the re-reading plan) and
-   twice (bit-equal), K2 on every rung of its ladder and in bfloat16; then
+   twice (bit-equal), and with non-zero external halos (a rank's block:
+   chain and grid, timed beside the launch without them), K2 on every rung of its ladder and in bfloat16; then
    `kernel_times`: K1 over the main path's schedule of B, each time beside
    the parent tree's where ``--parent`` is given;
 4. small   — the port's eigsolve on a small Laplacian, on the card against
@@ -118,9 +119,38 @@ without the final ``ok`` line:
    3-term recurrence (peak memory of each), ``ArnoldiIterator``,
    ``BiArnoldiIterator`` and ``GKLIterator`` on config 4's banded matrix
    and ``BlockLanczosIterator`` on the Poisson matrix, 30 expansions each;
-22. profile (only with ``--profile``) — one more config-1 solve and one
+22. small_sharded — the distribution layer's scenarios (``SMALL_SHARDED``
+   of ``sharded_cases``: the sharded ELL apply, Lanczos, LSMR, GKL, the
+   fused Lanczos and GMRES on ``shard_local_stencil``, batched GMRES on a
+   ``batch 2 × vec 1`` mesh, the sharded K5 projection) on two ranks of one
+   gloo group with CUDA tensors, against the same on two CPU ranks run at
+   the same time: float64 within 1e-12, counts equal, K1/K2/K5 launched on
+   every card rank;
+23. nccl_mesh1 — one rank over NCCL, ``make_mesh(1)``: the halo plan is
+   communication-free and the sharded ELL apply equals ``sparse.from_coo``'s
+   bit for bit;
+24. config5 — BASELINE config 5 on two gloo ranks: the 1.07e8-nnz banded SPD
+   matrix of ``tools/bench_planner.py`` (n = 2^21, float32, ``tile=128``)
+   through Lanczos (4 "LM", krylovdim 30, maxiter 8, tol 1e-30) with the
+   projection kernels off and on, and LSMR on ``rect_sparse_coo(2^21, 2^20,
+   8)`` (40 iterations), each against the one-rank ``sparse.from_coo`` solve
+   on the card: counts equal, values within 1e-4, K2 (and K5/K6) launches
+   per rank equal to the one-rank solve's; planning seconds, the halo plan,
+   collectives and their ms in the timed solve, the slowest rank's ms;
+25. sharded_fused — config 1 on ``shard_local_stencil(laplacian_1d(2^21))``
+   and config 2's ``gmres30_poisson_2d`` on the sharded 1024² grid, two gloo
+   ranks: K1 per rank with the neighbours' edge rows as external halos
+   (138 / K1 128 / K2 11 and 421 / K1 406 per rank, values within 1e-4 of
+   phase main's, true residual within 1e-3 of phase config2's);
+26. profile (only with ``--profile``) — one more config-1 solve and one
    more fused config-4 solve under ``torch.profiler``: device busy time and idle share, device ops, host
    reads of device scalars, device time by kernel name.
+
+The ranks of phases 22-25 are spawned processes (``start_ranks``) joined
+through a ``FileStore`` in a temporary directory, each collective bounded
+by a 120 s timeout; a failed rank fails the script.  One card serves every
+rank, so these phases measure correctness and the cost of the collectives,
+not scaling.
 
 ``--parent DIR`` names an unpacked earlier tree of this repository: its K1
 and K2 are then built and timed on the same card at the same shapes, in a
@@ -129,9 +159,9 @@ printed as ``parent_ms`` beside ``ms`` (without it ``parent_ms`` is null).
 ``--kernel-times`` is that process: it times K1 and K2 of the package under
 ``--root`` (default: this tree) and prints one JSON line.
 
-Each path (phases 5, 7, 9, 12, 13, 14, 15, 17, 18, 20 and 21, one solve or iterator at a time, the
-forward and the backward of a differentiable solve apart) is driven with the launch
-counts set to 0 just before it and read just after.  Then the kernel
+Each path (phases 5, 7, 9, 12, 13, 14, 15, 17, 18, 20, 21, 24 and 25, one solve or iterator at
+a time, the forward and the backward of a differentiable solve apart; in 24 and 25 in every
+rank) is driven with the launch counts set to 0 just before it and read just after.  Then the kernel
 summary line, the ``nvidia-smi`` name/power line, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -210,24 +240,32 @@ def k1_flops(n, B, ntaps, with_drift):
     return n * (2 * B + 2 + 2 * ntaps + (4 * B if with_drift else 2 * B) + 4)
 
 
-def check_fused_step(torch, fl, op, R, kmax, B, kp1, with_drift, gen, timed=True, adjoint=False):
+def check_fused_step(torch, fl, op, R, kmax, B, kp1, with_drift, gen, timed=True, adjoint=False,
+                     ext=False):
     """K1 against its plain version on the card, and against itself on a
     second launch (bit-equal); returns the case record, with times and the
-    bound where ``timed``.  ``adjoint`` takes the spec of ``op``'s adjoint."""
+    bound where ``timed``.  ``adjoint`` takes the spec of ``op``'s adjoint.
+    ``ext`` gives both non-zero external halos (``Vext``, ``yext``: a shard
+    of a split vector) and, timed, also times the launch without them on the
+    same inputs (``ms_null``)."""
     dev = "cuda"
     spec = fl.adjoint_spec(op) if adjoint else fl.spec_for(op)
     V = torch.randn((kmax, R, 128), generator=gen, device=dev)
     y = torch.randn((R, 128), generator=gen, device=dev)
     g = torch.randn(kmax + 1, generator=gen, device=dev)
+    halos = {}
+    if ext:
+        halos = {"Vext": torch.randn((kmax, 2, spec.h, 128), generator=gen, device=dev),
+                 "yext": torch.randn((2, spec.h, 128), generator=gen, device=dev)}
     Vk = V.clone()
-    yk, rawk = fl.fused_step(Vk, y, g, kp1, B, spec, with_drift)
+    yk, rawk = fl.fused_step(Vk, y, g, kp1, B, spec, with_drift, **halos)
     Vr = V.clone()
-    yr, rawr = fl.fused_step_reference(Vr, y, g, kp1, B, spec, with_drift)
+    yr, rawr = fl.fused_step_reference(Vr, y, g, kp1, B, spec, with_drift, **halos)
     torch.cuda.synchronize()
     others = torch.equal(Vk[:kp1], V[:kp1]) and torch.equal(Vk[kp1 + 1:], V[kp1 + 1:])
     require(others, f"fused_step B={B}: rows other than kp1 bit-identical")
     V2 = V.clone()
-    y2, raw2 = fl.fused_step(V2, y, g, kp1, B, spec, with_drift)
+    y2, raw2 = fl.fused_step(V2, y, g, kp1, B, spec, with_drift, **halos)
     twice = torch.equal(y2, yk) and torch.equal(raw2, rawk) and torch.equal(V2[kp1], Vk[kp1])
     require(twice, f"fused_step B={B} R={R}: two launches bit-equal (y', raw, row kp1)")
     del V2, y2
@@ -248,20 +286,28 @@ def check_fused_step(torch, fl, op, R, kmax, B, kp1, with_drift, gen, timed=True
     t_bound, by = bound((B + 3) * n * 4, k1_flops(n, B, len(spec.taps), with_drift))
     case = {
         "op": "grid" if spec.gc else "chain", "adjoint_spec": adjoint, "n": n, "R": R, "kmax": kmax,
-        "B": B, "kp1": kp1, "h": spec.h, "with_drift": with_drift,
+        "B": B, "kp1": kp1, "h": spec.h, "with_drift": with_drift, "external_halos": ext,
         "max_abs_err": max(err_w, err_y), "scale": sc, "raw_rel_err": rel_raw,
         "tolerance": f"{tol}*scale (w', y'); {tol_raw}*norm products (raw)",
         "rows_other_than_kp1_bit_identical": others, "bit_equal_twice": twice,
     }
     if timed:
         case.update({
-            "ms": device_ms(torch, lambda: fl.fused_step(Vk, y, g, kp1, B, spec, with_drift)),
+            "ms": device_ms(torch, lambda: fl.fused_step(Vk, y, g, kp1, B, spec, with_drift,
+                                                         **halos)),
             "parent_ms": None,
             "plain_ms": device_ms(
-                torch, lambda: fl.fused_step_reference(Vr, y, g, kp1, B, spec, with_drift), reps=3
+                torch, lambda: fl.fused_step_reference(Vr, y, g, kp1, B, spec, with_drift,
+                                                       **halos), reps=3
             ),
             "bound_ms": t_bound, "bound_by": by,
         })
+        if ext:
+            # the halo rows add 2h rows per basis row to the bytes moved
+            t_bound, by = bound((B + 3) * n * 4 + (B + 1) * 2 * spec.h * 128 * 4,
+                                k1_flops(n, B, len(spec.taps), with_drift))
+            case.update({"bound_ms": t_bound, "bound_by": by, "ms_null": device_ms(
+                torch, lambda: fl.fused_step(Vk, y, g, kp1, B, spec, with_drift))})
     return case
 
 
@@ -2040,9 +2086,9 @@ def drive_counted(torch, _build, fl, pb, solve, reps=2):
     steps, sweeps = [], []
     fused_step, project = fl.fused_step, pb.project_pallas
 
-    def recording(V, y, g, kp1, B, spec, with_drift=False):
+    def recording(V, y, g, kp1, B, spec, with_drift=False, **halos):
         steps.append((B, with_drift, spec))
-        return fused_step(V, y, g, kp1, B, spec, with_drift)
+        return fused_step(V, y, g, kp1, B, spec, with_drift, **halos)
 
     def rec_project(V, w, k):
         sweeps.append((V.shape[1], int(k)))
@@ -2112,10 +2158,798 @@ def profile_solve(torch, label, solve):
     }
 
 
+# ---------------------------------------------------------------------------
+# sharded runs: ranks of one torch.distributed group (the distribution layer)
+# ---------------------------------------------------------------------------
+
+SHARD_TIMEOUT_S = 120  # collective timeout of every rank group: a divergence fails
+
+
+def _rank_entry(rank, world, store_path, backend, dev, threads, fn_name, kwargs, queue):
+    """One rank: joins the group through a ``FileStore``, runs
+    ``<fn_name>(torch, np, kt, dev=dev, **kwargs)`` of this module and puts
+    ``(rank, result, error)`` on ``queue``."""
+    import datetime
+    import traceback
+
+    try:
+        import numpy as np
+        import torch
+
+        sys.path.insert(0, ROOT)
+        import krylovkit_tpu_torch as kt
+
+        torch.set_num_threads(threads)
+        if dev == "cuda":
+            torch.cuda.set_device(0)
+        torch.distributed.init_process_group(
+            backend, store=torch.distributed.FileStore(store_path, world), rank=rank,
+            world_size=world, timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S))
+        try:
+            out = globals()[fn_name](torch, np, kt, dev=dev, **kwargs)
+        finally:
+            torch.distributed.destroy_process_group()
+        queue.put((rank, out, None))
+    except Exception:  # noqa: BLE001 - reported to the parent, which raises
+        queue.put((rank, None, traceback.format_exc()))
+
+
+def start_ranks(world, fn_name, dev="cpu", backend="gloo", threads=1, timeout=600, **kwargs):
+    """Start ``world`` spawned ranks of one group (``backend``, vectors on
+    ``dev``) that run ``<fn_name>`` of this module; :func:`collect_ranks`
+    waits for them.  The caller may work meanwhile."""
+    import tempfile
+
+    import torch.multiprocessing as tmp
+
+    ctx = tmp.get_context("spawn")
+    tmpdir = tempfile.TemporaryDirectory()
+    q = ctx.Queue()
+    procs = [ctx.Process(target=_rank_entry, daemon=True,
+                         args=(r, world, os.path.join(tmpdir.name, "store"), backend, dev,
+                               threads, fn_name, kwargs, q))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    return {"procs": procs, "queue": q, "tmpdir": tmpdir, "fn": fn_name, "world": world,
+            "deadline": time.time() + timeout, "timeout": timeout}
+
+
+def collect_ranks(handle):
+    """The results of :func:`start_ranks`' ranks, by rank.  Raises when a
+    rank fails or the run outlasts its timeout; every rank process is ended
+    before it returns."""
+    import queue as queue_mod
+
+    world, fn_name, results = handle["world"], handle["fn"], {}
+    try:
+        while len(results) < world:
+            try:
+                rank, out, err = handle["queue"].get(
+                    timeout=max(1.0, handle["deadline"] - time.time()))
+            except queue_mod.Empty:
+                raise RuntimeError(f"{fn_name}: ranks {sorted(set(range(world)) - set(results))} "
+                                   f"gave no result within {handle['timeout']} s") from None
+            if err is not None:
+                raise RuntimeError(f"{fn_name}: rank {rank} failed:\n{err}")
+            results[rank] = out
+    finally:
+        for p in handle["procs"]:
+            p.join(timeout=10)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        handle["tmpdir"].cleanup()
+    return [results[r] for r in range(world)]
+
+
+def run_ranks(world, fn_name, dev="cpu", backend="gloo", threads=1, timeout=600, **kwargs):
+    """Run ``<fn_name>`` of this module on ``world`` spawned ranks of one
+    group (``backend``, vectors on ``dev``) and return their results by
+    rank (:func:`start_ranks`, then :func:`collect_ranks`)."""
+    return collect_ranks(start_ranks(world, fn_name, dev, backend, threads, timeout, **kwargs))
+
+
+def same_on_every_rank(np, results):
+    """``results[0]`` after checking that every rank returned the same
+    values, bit for bit (replicated scalars, gathered vectors, counts)."""
+    def equal(a, b):
+        if isinstance(a, dict):
+            return a.keys() == b.keys() and all(equal(a[k], b[k]) for k in a)
+        if isinstance(a, (list, tuple)):
+            return len(a) == len(b) and all(equal(x, y) for x, y in zip(a, b))
+        if isinstance(a, np.ndarray):
+            return a.shape == b.shape and np.array_equal(a, b, equal_nan=True)
+        return a == b or (a != a and b != b)
+
+    for r, res in enumerate(results[1:], 1):
+        require(equal(results[0], res), f"rank {r} returned what rank 0 did")
+    return results[0]
+
+
+def gather(torch, ax, x, dim=0):
+    """The blocks ``x`` of every rank of the mesh axis ``ax``, concatenated
+    along ``dim`` on every rank (one all-reduce of a zero-filled buffer)."""
+    slots = torch.zeros((ax.size,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+    slots[ax.index] = x
+    return torch.cat(list(ax.psum(slots)), dim=dim)
+
+
+def _infos(info):
+    return {"numops": int(info.numops), "numiter": int(info.numiter),
+            "converged": int(info.converged)}
+
+
+SHARDED_FUSED = {"chain_cgs": "cgs", "chain_cgs2": "cgs2", "grid": "cgs2"}
+
+
+def sharded_cases(torch, np, kt, dev="cpu", names=None):
+    """The sharded scenarios of the JAX package's tests at their sizes, on
+    this rank (called on every rank of a group, ``run_ranks``): the ELL
+    apply (banded, rectangular tiled, long-range couplings, a one-rank
+    mesh), Lanczos on the sharded ELL operator and on ``sharded_laplacian_1d``,
+    CG, LSMR, GKL ``svdsolve``, the real Arnoldi ``schursolve``, the fused
+    Lanczos on ``shard_local_stencil`` (chain with cgs and cgs2, grid) and
+    its apply, batched GMRES on a ``(2, world/2)`` mesh, the sharded K5
+    projection, a start vector that is zero on rank 0's block, the ELL
+    operator's applies per ``numops``, the collective counters, and
+    ``make_mesh``'s refusals.  Each
+    returns global values (vectors gathered from every rank) and counts, or
+    ``{"error": traceback}``; ``names`` picks some."""
+    import traceback
+
+    import torch.distributed as dist
+
+    from krylovkit_tpu_torch import _build
+    from krylovkit_tpu_torch.factorizations import krylov as kf
+    from krylovkit_tpu_torch.ops import basis as bs
+    from krylovkit_tpu_torch.ops.vector import VectorSpace
+    from krylovkit_tpu_torch.parallel import sparse as psp
+
+    P = kt.parallel
+    mesh = P.make_mesh(device=dev)
+    ax = mesh.axis(P.VECTOR_AXIS)
+    space = VectorSpace(psum_axis=ax)
+    f64 = torch.float64
+
+    def sv(a, m=mesh):
+        return P.shard_vector(torch.as_tensor(np.asarray(a)), m)
+
+    def host(t, dim=0, a=ax):
+        return gather(torch, a, t, dim).cpu().numpy()
+
+    def spmv_dense():
+        n = 264 * 8
+        r, c, v = P.banded_coo(n, halfband=5, seed=1, spd=False)
+        op = P.sharded_ell_from_coo(r, c, v, (n, n), mesh)
+        x = sv(np.random.default_rng(2).standard_normal(n))
+        return {"y": host(op.normal(x)), "z": host(op.adjoint(x)),
+                "deltas": list(op.fwd_plan.deltas)}
+
+    def spmv_rect_tiled():
+        m, n = 128 * 8, 64 * 8
+        r, c, v = P.rect_sparse_coo(m, n, nnz_per_row=7, seed=3)
+        op = P.sharded_ell_from_coo(r, c, v, (m, n), mesh, tile=8)
+        rng = np.random.default_rng(4)
+        x = sv(rng.standard_normal((n // 8, 8)))
+        u = sv(rng.standard_normal((m // 8, 8)))
+        y, w = op.normal(x), op.adjoint(u)
+        return {"y": host(y), "v": host(w), "y_local_shape": list(y.shape)}
+
+    def spmv_long_range():
+        n = 64 * 8
+        i = np.arange(n)
+        k = 3 * (n // 8)
+        rows = np.concatenate([i, i[:-k], i[k:]])
+        cols = np.concatenate([i, i[:-k] + k, i[k:] - k])
+        vals = np.concatenate([np.full(n, 2.0), np.full(n - k, -1.0), np.full(n - k, -1.0)])
+        op = P.sharded_ell_from_coo(rows, cols, vals, (n, n), mesh)
+        x = sv(np.random.default_rng(5).standard_normal(n))
+        return {"y": host(op.normal(x)), "deltas": list(op.fwd_plan.deltas)}
+
+    def eigsolve_ell():
+        n = 104 * 8
+        r, c, v = P.banded_coo(n, halfband=4, seed=11, spd=True)
+        op = P.sharded_ell_from_coo(r, c, v, (n, n), mesh)
+        x0 = sv(np.random.default_rng(12).standard_normal(n))
+        applies = []
+        spmv = psp._spmv
+        psp._spmv = lambda *a: applies.append(1) or spmv(*a)
+        try:
+            vals, vecs, info = kt.eigsolve(op, x0, 4, "LM", ishermitian=True, tol=1e-10,
+                                           krylovdim=30, maxiter=200, space=space)
+        finally:
+            psp._spmv = spmv
+        return {"vals": vals.cpu().numpy(), "applies": len(applies), **_infos(info)}
+
+    def lssolve_lsmr():
+        m, n = 96 * 8, 48 * 8
+        r, c, v = P.rect_sparse_coo(m, n, nnz_per_row=6, seed=21)
+        op = P.sharded_ell_from_coo(r, c, v, (m, n), mesh)
+        b = sv(np.random.default_rng(22).standard_normal(m))
+        x, info = kt.lssolve(op, b, tol=1e-12, maxiter=3 * n, space=space)
+        return {"x": host(x), **_infos(info)}
+
+    def svdsolve_gkl():
+        m, n = 64 * 8, 40 * 8
+        r, c, v = P.rect_sparse_coo(m, n, nnz_per_row=5, seed=31)
+        op = P.sharded_ell_from_coo(r, c, v, (m, n), mesh)
+        x0 = sv(np.random.default_rng(32).standard_normal(m))
+        S, U, V, info = kt.svdsolve(op, x0, 3, "LR", tol=1e-10, krylovdim=30, maxiter=100,
+                                    space=space)
+        return {"vals": S.cpu().numpy(), **_infos(info)}
+
+    def mesh1():
+        m1 = P.make_mesh(devices=[dist.get_rank()], device=dev)
+        n = 512
+        r, c, v = P.banded_coo(n, halfband=3, seed=41)
+        op = P.sharded_ell_from_coo(r, c, v, (n, n), m1)
+        x = torch.as_tensor(np.random.default_rng(42).standard_normal(n), device=dev)
+        return {"y": op.normal(x).cpu().numpy(), "deltas": list(op.fwd_plan.deltas)}
+
+    def eigsolve_laplacian():
+        n = 256
+        op = P.sharded_laplacian_1d(n, mesh)
+        x0 = sv(np.random.default_rng(105).standard_normal(n))
+        vals, _, info = kt.eigsolve(op, x0, 2, "LM", ishermitian=True, tol=1e-8, krylovdim=30,
+                                    maxiter=300, space=space)
+        return {"vals": vals.cpu().numpy(), **_infos(info)}
+
+    def cg_laplacian():
+        n = 512
+        op = P.sharded_laplacian_1d(n, mesh)
+        b = sv(np.random.default_rng(104).standard_normal(n))
+        x, info = kt.linsolve(op, b, alg=kt.CG(tol=1e-10, maxiter=3000), space=space)
+        return {"x": host(x), **_infos(info)}
+
+    def schursolve_real():
+        n = 256
+        d = np.linspace(1.0, 5.0, n)
+        i = np.arange(n)
+        rows = np.concatenate([i, i[:-1]])
+        cols = np.concatenate([i, i[:-1] + 1])
+        vals = np.concatenate([d, np.full(n - 1, 0.02)])
+        op = P.sharded_ell_from_coo(rows, cols, vals, (n, n), mesh)
+        x0 = sv(np.random.default_rng(106).standard_normal(n))
+        T, vecs, (re, im), info = kt.schursolve(op, x0, 2, "LM", krylovdim=25, maxiter=150,
+                                                tol=1e-9, space=space)
+        return {"re": re.cpu().numpy(), "im": im.cpu().numpy(), **_infos(info)}
+
+    def fused(kind):
+        orth = SHARDED_FUSED[kind]
+        if kind == "grid":
+            gr, gc = 64, 256
+            glob = kt.poisson_2d(gr, gc, device=dev)
+            x = np.random.default_rng(62).standard_normal((gr * gc // 128, 128))
+            alg = kt.Lanczos(krylovdim=16, maxiter=3, tol=1e-6)
+        else:
+            n = 1 << 15
+            glob = kt.laplacian_1d(n, device=dev)
+            x = np.random.default_rng(61).standard_normal((n // 128, 128))
+            alg = kt.Lanczos(krylovdim=16, maxiter=4, tol=1e-6, orth=getattr(kt, orth))
+        op = P.shard_local_stencil(glob, ax)
+        x0 = sv(x.astype(np.float32))
+        _build.reset_launches()
+        eligible = kf.fused_available(op, x0, space, kmax=alg.krylovdim + 1)
+        vals, vecs, info = kt.eigsolve_lanczos(op, x0, 4, "LM", alg, space=space)
+        return {"vals": vals.cpu().numpy(), "vecs": host(vecs, dim=1), "fused": eligible,
+                "launches": dict(_build.launches), **_infos(info)}
+
+    def fused_gmres():
+        gr, gc = 64, 256
+        op = P.shard_local_stencil(kt.poisson_2d(gr, gc, device=dev), ax)
+        b = sv(np.random.default_rng(63).standard_normal((gr * gc // 128, 128))
+               .astype(np.float32))
+        alg = kt.GMRES(krylovdim=16, maxiter=3, tol=1e-6, verbosity=kt.SILENT)
+        _build.reset_launches()
+        eligible = kf.fused_available(op, b, space, kmax=alg.krylovdim + 1)
+        x, info = kt.linsolve(op, b, torch.zeros_like(b), 0.5, 1.0, alg=alg, space=space)
+        return {"x": host(x), "fused": eligible, "launches": dict(_build.launches),
+                **_infos(info)}
+
+    def replicate_and_groups():
+        # each rank holds other data; replicate gives every rank the root's
+        mine = torch.full((3,), float(dist.get_rank() + 1), dtype=f64)
+        rep = P.replicate({"a": mine, "b": (mine * 2,)}, mesh)
+        # a space on the axis's process group reduces as one on the axis
+        x = sv(np.arange(64 * ax.size, dtype=np.float64))
+        by_group = VectorSpace(psum_axis=ax.group).inner(x, x)
+        return {"a": rep["a"].cpu().numpy(), "b": rep["b"][0].cpu().numpy(),
+                "inner_axis": float(space.inner(x, x)), "inner_group": float(by_group)}
+
+    def stencil_apply():
+        n = 1 << 14
+        op = kt.StencilOperator((-200, 0, 200), (0.3, 1.0, -0.4))
+        x = np.random.default_rng(71).standard_normal((n // 128, 128)).astype(np.float32)
+        loc = P.shard_local_stencil(op, ax)
+        return {"y": host(loc.normal(sv(x))), "z": host(loc.adjoint(sv(x)))}
+
+    def gmres_batched():
+        mb = P.make_mesh(batch=2, device=dev)
+        axv = mb.axis(P.VECTOR_AXIS)
+        n3 = 32 * axv.size
+        op = P.sharded_laplacian_1d(n3, mb)
+        B = P.shard_vector(torch.ones((4, n3), dtype=f64), mb, batched=True)
+        alg = kt.GMRES(krylovdim=16, maxiter=50, tol=1e-9)
+        sp = VectorSpace(psum_axis=axv)
+        xs, infos = [], []
+        for b in B:
+            x, info = kt.linsolve(op, b, torch.zeros_like(b), 1.0, 1.0, alg=alg, space=sp)
+            xs.append(gather(torch, axv, x))
+            infos.append(_infos(info))
+        X = gather(torch, mb.axis(P.BATCH_AXIS), torch.stack(xs))
+        return {"X": X.cpu().numpy(), "infos": infos}
+
+    def project_k5():
+        R, kmax, k = 32, 9, 6
+        rng = np.random.default_rng(81)
+        V = rng.standard_normal((kmax, R * ax.size, 128)).astype(np.float32)
+        w = rng.standard_normal((R * ax.size, 128)).astype(np.float32)
+        Vl = P.shard_vector(torch.as_tensor(V).transpose(0, 1).contiguous(), mesh)
+        old = bs.use_pallas_projections
+        bs.use_pallas_projections = True
+        try:
+            _build.reset_launches()
+            c = bs.project(Vl.transpose(0, 1).contiguous(), sv(w), k, space)
+        finally:
+            bs.use_pallas_projections = old
+        return {"c": c.cpu().numpy(), "launches": dict(_build.launches)}
+
+    def zero_block_x0():
+        n = 104 * 8
+        r, c, v = P.banded_coo(n, halfband=4, seed=11, spd=True)
+        op = P.sharded_ell_from_coo(r, c, v, (n, n), mesh)
+        x = np.random.default_rng(13).standard_normal(n)
+        x[: n // ax.size] = 0.0
+        vals, _, info = kt.eigsolve(op, sv(x), 2, "LM", ishermitian=True, tol=1e-10,
+                                    krylovdim=30, maxiter=200, space=space)
+        return {"vals": vals.cpu().numpy(), **_infos(info)}
+
+    def collective_stats():
+        # an ELL apply starts one all-reduce (every halo round) and waits
+        # for it after its interior rows; a norm is one more.  Both are
+        # counted, and timed only with time_collectives on
+        from krylovkit_tpu_torch.ops import collectives as pc
+
+        n = 264 * 8
+        r, c, v = P.banded_coo(n, halfband=5, seed=1, spd=False)
+        op = P.sharded_ell_from_coo(r, c, v, (n, n), mesh)
+        x = sv(np.random.default_rng(2).standard_normal(n))
+        out = {"halo_elems": op.fwd_plan.halo_elems}
+        for timed in (False, True):
+            pc.reset_stats()
+            pc.time_collectives = timed
+            try:
+                space.norm(op.normal(x))
+            finally:
+                pc.time_collectives = False
+            out["timed" if timed else "untimed"] = {
+                "collectives": pc.stats["collectives"], "bytes": pc.stats["bytes"],
+                "seconds_positive": pc.stats["seconds"] > 0}
+        pc.reset_stats()
+        return out
+
+    def mesh_refusals():
+        out = {}
+        if not torch.cuda.is_available():
+            try:
+                P.make_mesh()
+                out["default_device"] = "no error"
+            except RuntimeError as e:
+                out["default_device"] = str(e)
+        return out
+
+    scenarios = {
+        "spmv_dense": spmv_dense, "spmv_rect_tiled": spmv_rect_tiled,
+        "spmv_long_range": spmv_long_range, "eigsolve_ell": eigsolve_ell,
+        "lssolve_lsmr": lssolve_lsmr, "svdsolve_gkl": svdsolve_gkl, "mesh1": mesh1,
+        "eigsolve_laplacian": eigsolve_laplacian, "cg_laplacian": cg_laplacian,
+        "schursolve_real": schursolve_real, "fused_chain_cgs": lambda: fused("chain_cgs"),
+        "fused_chain_cgs2": lambda: fused("chain_cgs2"), "fused_grid": lambda: fused("grid"),
+        "stencil_apply": stencil_apply, "gmres_batched": gmres_batched,
+        "fused_gmres": fused_gmres, "replicate_and_groups": replicate_and_groups,
+        "project_k5": project_k5, "zero_block_x0": zero_block_x0,
+        "collective_stats": collective_stats, "mesh_refusals": mesh_refusals,
+    }
+    out = {}
+    for name, fn in scenarios.items():
+        if names is not None and name not in names:
+            continue
+        try:
+            out[name] = fn()
+        except Exception:  # noqa: BLE001 - the same on every rank; reported per scenario
+            out[name] = {"error": traceback.format_exc()}
+    return out
+
+
+# the scenarios on the card: the ELL apply and the solves of the main
+# sharded front-ends, and every one that launches a kernel (K1, K2, K5);
+# the rest run in the CPU tests only
+SMALL_SHARDED = ("spmv_rect_tiled", "eigsolve_ell", "lssolve_lsmr", "svdsolve_gkl",
+                 "fused_chain_cgs2", "fused_grid", "gmres_batched", "fused_gmres", "project_k5")
+SMALL_SHARDED_TOL = 1e-12  # float64: card ranks against CPU ranks, relative to the largest entry
+SMALL_SHARDED_TOL32 = 2e-4  # float32 (the fused Lanczos and K5): kernel against plain version
+
+
+def compare_sharded(np, card, cpu):
+    """Each scenario of ``sharded_cases`` on the card's ranks against the
+    CPU's: arrays within :data:`SMALL_SHARDED_TOL` of the largest entry
+    (float32 ones within :data:`SMALL_SHARDED_TOL32`), everything else
+    (counts, plans, flags) equal; fused eigenvectors by ``|<a, b>| ≈ 1``.
+    Returns one record per scenario."""
+    records = []
+    for name, want in cpu.items():
+        got = card[name]
+        require("error" not in got and "error" not in want,
+                f"small_sharded {name}: ran on both ({got.get('error') or want.get('error')})")
+        worst = 0.0
+        for key, w in want.items():
+            g = got[key]
+            if key == "launches":
+                continue
+            if key == "vecs":
+                dots = [abs(float(np.dot(a.ravel(), b.ravel()))) for a, b in zip(g, w)]
+                require(all(abs(d - 1) <= 1e-3 for d in dots), f"small_sharded {name}: vectors")
+                continue
+            if isinstance(w, np.ndarray):
+                tol = SMALL_SHARDED_TOL32 if w.dtype == np.float32 else SMALL_SHARDED_TOL
+                err = float(np.max(np.abs(g - w)) / max(float(np.max(np.abs(w))), 1e-300))
+                require(g.shape == w.shape and err <= tol,
+                        f"small_sharded {name}.{key}: card within {tol} of CPU ({err})")
+                worst = max(worst, err)
+            else:
+                require(g == w, f"small_sharded {name}.{key}: card {g} == CPU {w}")
+        records.append({"scenario": name, "max_rel_err": worst,
+                        "launches_per_rank": got.get("launches", {}),
+                        **{k: got[k] for k in ("numops", "numiter", "converged") if k in got}})
+    return records
+
+
+def small_sharded(torch, np, world=2):
+    """Phase ``small_sharded``: :func:`sharded_cases` on ``world`` ranks of
+    one gloo group with CUDA tensors and, at the same time, on ``world`` CPU
+    ranks of another; the card within 1e-12 of the CPU (float64), counts
+    equal, and the kernels of the fused and K5 scenarios launched on every
+    card rank."""
+    t0 = time.perf_counter()
+    on_card = start_ranks(world, "sharded_cases", dev="cuda", threads=2, timeout=600,
+                          names=SMALL_SHARDED)
+    on_cpu = start_ranks(world, "sharded_cases", dev="cpu", threads=2, timeout=600,
+                         names=SMALL_SHARDED)
+    try:
+        card = same_on_every_rank(np, collect_ranks(on_card))
+    finally:
+        cpu = same_on_every_rank(np, collect_ranks(on_cpu))
+    records = compare_sharded(np, card, cpu)
+    for name, kernel in (("fused_chain_cgs2", "fused_step"), ("fused_grid", "fused_step"),
+                         ("fused_gmres", "fused_step"),
+                         ("fused_chain_cgs2", "transform_partial"), ("project_k5", "project")):
+        require(card[name]["launches"].get(kernel, 0) > 0,
+                f"small_sharded {name}: {kernel} launched on every card rank")
+        require(card[name].get("fused", True),
+                f"small_sharded {name}: the sharded space kept the fused path")
+    launches = {}
+    for name in card:
+        for key, count in card[name].get("launches", {}).items():
+            launches[key] = launches.get(key, 0) + count
+    emit({"phase": "small_sharded", "ranks": world, "backend": "gloo", "scenarios": records,
+          "tolerance": SMALL_SHARDED_TOL, "tolerance_float32": SMALL_SHARDED_TOL32,
+          "launches_per_rank": launches, "seconds": time.perf_counter() - t0})
+    return launches
+
+
+def nccl_mesh1(torch, np, kt, dev="cuda", n=1 << 16):
+    """One rank over NCCL (``make_mesh(1)``): the halo plan is
+    communication-free and the sharded ELL apply equals ``sparse.from_coo``'s
+    bit for bit on the same row- and column-sorted COO (both then sum a
+    row's entries in one order)."""
+    P = kt.parallel
+    mesh = P.make_mesh(1, device=dev)
+    rows, cols, vals = P.banded_coo(n, halfband=25, dtype=np.float32, seed=7, spd=True)
+    order = np.lexsort((cols, rows))
+    rows, cols, vals = rows[order], cols[order], vals[order]
+    op = P.sharded_ell_from_coo(rows, cols, vals, (n, n), mesh, with_adjoint=False)
+    ref = kt.sparse.from_coo(rows, cols, vals, (n, n), with_adjoint=False, device=dev)
+    x = torch.as_tensor(np.random.default_rng(3).standard_normal(n).astype(np.float32), device=dev)
+    y, y_ref = op.normal(P.shard_vector(x, mesh)), ref.normal(x)
+    return {"deltas": list(op.fwd_plan.deltas), "bit_equal": bool(torch.equal(y, y_ref)),
+            "max_abs_diff": float((y - y_ref).abs().max()), "backend": torch.distributed.get_backend(),
+            "comm": op.comm_summary()}
+
+
+def rank_solve(torch, ax, solve):
+    """``solve()`` on this rank once to warm up (library loads, the first
+    launch of each kernel), then once more, timed, with the launch counts
+    and the collective counters set to 0 just before it and read just
+    after (``time_collectives`` on: each all-reduce is timed from its start
+    to its wait, less the work it overlaps); each rank's times are gathered
+    to every rank.  Returns ``(result, record)``."""
+    from krylovkit_tpu_torch import _build
+    from krylovkit_tpu_torch.ops import collectives as pc
+
+    dev = torch.device(f"cuda:{torch.cuda.current_device()}") if torch.cuda.is_available() \
+        else torch.device("cpu")
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    solve()
+    sync()
+    _build.reset_launches()
+    pc.reset_stats()
+    pc.time_collectives = True
+    try:
+        t0 = time.perf_counter()
+        out = solve()
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        pc.time_collectives = False
+    launches = {k: v for k, v in _build.launches.items() if v}
+    coll = dict(pc.stats)
+    per_rank = gather(torch, ax, torch.tensor([[ms, coll["seconds"] * 1e3]],
+                                              dtype=torch.float64, device=dev)).cpu().tolist()
+    return out, {"launches_per_rank": launches, "collectives_per_solve": coll["collectives"],
+                 "collective_bytes_per_solve": coll["bytes"],
+                 "ms_per_solve_by_rank": [r[0] for r in per_rank],
+                 "collective_ms_by_rank": [r[1] for r in per_rank]}
+
+
+def sharded_fused_rank(torch, np, kt, dev="cuda", n1=1 << 21, nx=1024):
+    """Phase ``sharded_fused`` on this rank: config 1 (the main path's
+    Lanczos eigsolve) on ``shard_local_stencil(laplacian_1d(n1))`` and
+    config 2's ``gmres30_poisson_2d`` on the sharded grid stencil, float32
+    ``(R/D, 128)`` blocks of ``VectorSpace(psum_axis=...)``: K1 per rank with
+    the neighbours' edge rows as external halos."""
+    from krylovkit_tpu_torch.ops.vector import VectorSpace
+
+    P = kt.parallel
+    mesh = P.make_mesh(device=dev)
+    ax = mesh.axis(P.VECTOR_AXIS)
+    space = VectorSpace(psum_axis=ax)
+    out = {}
+    op = P.shard_local_stencil(kt.laplacian_1d(n1, device=dev), ax)
+    x0 = P.shard_vector(torch.ones((n1 // 128, 128), dtype=torch.float32), mesh)
+    alg = kt.Lanczos(krylovdim=KRYLOVDIM, maxiter=10, tol=1e-30, verbosity=kt.SILENT)
+    (vals, vecs, info), rec = rank_solve(
+        torch, ax, lambda: kt.eigsolve_lanczos(op, x0, 4, "LM", alg, space=space))
+    norms = torch.sqrt(space.inner(vecs[0], vecs[0]))
+    out["config1"] = {"vals": vals.cpu().numpy(), "vec0_norm": float(norms), **_infos(info),
+                      "comm_per_step": "1 all-reduce of (raw | 2 x 2 x h x 128) floats", **rec}
+    grid = P.shard_local_stencil(kt.poisson_2d(nx, nx, device=dev), ax)
+    b = P.shard_vector(torch.ones((nx * nx // 128, 128), dtype=torch.float32), mesh)
+    alg2 = kt.GMRES(krylovdim=30, tol=1e-4, maxiter=14, verbosity=kt.SILENT)
+    (x, info2), rec2 = rank_solve(
+        torch, ax, lambda: kt.linsolve(grid, b, a0=0.0, alg=alg2, space=space))
+    res = float(space.norm(b - grid.normal(x)))
+    out["gmres30_poisson_2d"] = {"true_residual": res, "normres": float(info2.normres),
+                                 **_infos(info2), **rec2}
+    return out
+
+
+def config5_rank(torch, np, kt, dev="cuda", n=1 << 21, halfband=25, ls_m=1 << 21, ls_n=1 << 20,
+                 ls_nnz_row=8, ls_iters=40, go=None):
+    """Phase ``config5`` on this rank (BASELINE config 5, row-partitioned
+    over the group): the banded SPD matrix of ``tools/bench_planner.py``
+    (n = 2^21, halfband 25, 1.07e8 nnz, float32, ``tile=128``) through a
+    Lanczos eigsolve with the projection kernels off and on, and LSMR on
+    ``rect_sparse_coo(ls_m, ls_n, ls_nnz_row)`` (both halo plans) with a
+    fixed count; every rank plans the whole COO and keeps its block.  With
+    ``go`` (an event of the spawning process) the solves wait for it after
+    the planning, so no other work of that process shares their time."""
+    from krylovkit_tpu_torch.ops import basis as bs
+    from krylovkit_tpu_torch.ops.vector import VectorSpace
+
+    P = kt.parallel
+    mesh = P.make_mesh(device=dev)
+    ax = mesh.axis(P.VECTOR_AXIS)
+    space = VectorSpace(psum_axis=ax)
+    out = {}
+    t0 = time.perf_counter()
+    rows, cols, vals = P.banded_coo(n, halfband, dtype=np.float32, seed=7, spd=True)
+    gen_s = time.perf_counter() - t0
+    nnz = len(rows)
+    op = P.sharded_ell_from_coo(rows, cols, vals, (n, n), mesh, tile=128, with_adjoint=False)
+    del rows, cols, vals
+    x0 = P.shard_vector(np.random.default_rng(8).standard_normal(n).astype(np.float32)
+                        .reshape(-1, 128), mesh)
+    t0 = time.perf_counter()
+    rows, cols, vals = P.rect_sparse_coo(ls_m, ls_n, ls_nnz_row, dtype=np.float32, seed=9)
+    ls_gen_s = time.perf_counter() - t0
+    ls_nnz = len(rows)
+    op2 = P.sharded_ell_from_coo(rows, cols, vals, (ls_m, ls_n), mesh, tile=128)
+    del rows, cols, vals
+    b = P.shard_vector(np.random.default_rng(10).standard_normal(ls_m).astype(np.float32)
+                       .reshape(-1, 128), mesh)
+    if go is not None:
+        require(go.wait(SHARD_TIMEOUT_S * 5), "config5: the spawning process gave the go")
+    alg = kt.Lanczos(krylovdim=KRYLOVDIM, maxiter=8, tol=1e-30, verbosity=kt.SILENT)
+    for flag in (False, True):
+        old = bs.use_pallas_projections
+        bs.use_pallas_projections = flag
+        try:
+            (ev, _, info), rec = rank_solve(
+                torch, ax, lambda: kt.eigsolve(op, x0, 4, "LM", alg=alg, space=space))
+        finally:
+            bs.use_pallas_projections = old
+        out["eigsolve_proj" if flag else "eigsolve"] = {
+            "vals": ev.cpu().numpy(), **_infos(info), "nnz": nnz, "generate_s": gen_s,
+            "plan_s": op.plan_seconds, "comm": op.comm_summary(), **rec}
+    del op, x0
+    lalg = kt.LSMR(tol=1e-30, maxiter=ls_iters, verbosity=kt.SILENT)
+    (x, info), rec = rank_solve(torch, ax, lambda: kt.lssolve(op2, b, alg=lalg, space=space))
+    out["lssolve"] = {"x": gather(torch, ax, x).cpu().numpy().reshape(-1), **_infos(info),
+                      "nnz": ls_nnz, "generate_s": ls_gen_s, "plan_s": op2.plan_seconds,
+                      "comm": op2.comm_summary(), **rec}
+    return out
+
+
+def config5_reference(torch, np, kt, dev="cuda", n=1 << 21, halfband=25, ls_m=1 << 21,
+                      ls_n=1 << 20, ls_nnz_row=8):
+    """The one-rank operators of phase ``config5``: ``sparse.from_coo`` of
+    the same matrices on ``dev``, applied to ``(R, 128)`` vectors (the
+    layout of the sharded solves, so the restart and projection kernels see
+    the same bases).  Returns ``(eig_op, ls_op, seconds)``."""
+    from krylovkit_tpu_torch.ops.operator import TypedOperator
+
+    t0 = time.perf_counter()
+    rows, cols, vals = kt.parallel.banded_coo(n, halfband, dtype=np.float32, seed=7, spd=True)
+    ell = kt.sparse.from_coo(rows, cols, vals, (n, n), with_adjoint=False, device=dev)
+    del rows, cols, vals
+    eig = TypedOperator(lambda x: ell.normal(x).reshape(x.shape), dtype=torch.float32)
+    rows, cols, vals = kt.parallel.rect_sparse_coo(ls_m, ls_n, ls_nnz_row, dtype=np.float32,
+                                                   seed=9)
+    rect = kt.sparse.from_coo(rows, cols, vals, (ls_m, ls_n), device=dev)
+    ls = TypedOperator(lambda x: rect.normal(x).reshape(-1, 128),
+                       lambda y: rect.adjoint(y).reshape(-1, 128), dtype=torch.float32)
+    return eig, ls, time.perf_counter() - t0
+
+
+def _rel(np, a, b):
+    a, b = np.asarray(a, np.float64).ravel(), np.asarray(b, np.float64).ravel()
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-300))
+
+
+def _agree_on_counts(results, key):
+    """The record of ``key`` from rank 0 after checking that every rank
+    counted the same launches and collectives (the times may differ)."""
+    first = results[0][key]
+    for r, res in enumerate(results[1:], 1):
+        for field in ("launches_per_rank", "collectives_per_solve", "numops", "numiter"):
+            require(res[key].get(field) == first.get(field),
+                    f"{key}: rank {r} counted {field} as rank 0 did")
+    return first
+
+
+def _solve_line(metric, rec, nnz_per_apply, extra):
+    """One metric line of a sharded solve: ``numops · nnz / t`` with ``t``
+    the slowest rank's ms per solve."""
+    ms = max(rec["ms_per_solve_by_rank"])
+    return {"metric": metric, "value": rec["numops"] * nnz_per_apply / ms / 1e6,
+            "unit": "Gnnz/s", "formula": "numops * nnz / t, t the slowest rank",
+            "ms_per_solve": ms, "collective_ms_per_solve": max(rec["collective_ms_by_rank"]),
+            "collectives_per_solve": rec["collectives_per_solve"],
+            "ms_per_collective": max(rec["collective_ms_by_rank"]) / max(rec["collectives_per_solve"], 1),
+            **{k: v for k, v in rec.items() if k not in ("vals", "x")}, **extra}
+
+
+def distribution_phases(torch, np, kt, _build, fl, pb, smi, config1_vals, config2, world=2):
+    """Phases 22-25 (module docstring).  ``config1_vals`` are phase main's
+    values; ``config2`` is ``(grid, b, x)`` of phase config2's
+    ``gmres30_poisson_2d``.  Returns the launches per rank of each path for
+    the kernels line."""
+    card = torch.cuda.get_device_name(0)
+    # 22. small scenarios: card ranks against CPU ranks
+    small = small_sharded(torch, np, world)
+
+    # 23. one rank over NCCL
+    t0 = time.perf_counter()
+    m1 = same_on_every_rank(np, run_ranks(1, "nccl_mesh1", dev="cuda", backend="nccl", threads=2,
+                                          timeout=300))
+    emit({"phase": "nccl_mesh1", **m1, "seconds": time.perf_counter() - t0})
+    require(m1["backend"] == "nccl" and m1["deltas"] == [], "nccl_mesh1: communication-free plan")
+    require(m1["bit_equal"], f"nccl_mesh1: sharded apply equals from_coo's to 0 ulp ({m1})")
+
+    # 24. config 5: the ranks plan while this process builds the one-rank
+    # operators; the ranks solve once it is done; then the one-rank solves
+    import torch.multiprocessing as tmp
+
+    t0 = time.perf_counter()
+    go = tmp.get_context("spawn").Event()
+    handle = start_ranks(world, "config5_rank", dev="cuda", threads=3, timeout=900, go=go)
+    try:
+        eig_op, ls_op, ref_s = config5_reference(torch, np, kt)
+    finally:
+        go.set()
+    c5 = collect_ranks(handle)
+    n = 1 << 21
+    x0 = torch.as_tensor(np.random.default_rng(8).standard_normal(n).astype(np.float32)
+                         .reshape(-1, 128), device="cuda")
+    alg = kt.Lanczos(krylovdim=KRYLOVDIM, maxiter=8, tol=1e-30, verbosity=kt.SILENT)
+    from krylovkit_tpu_torch.ops import basis as bs
+
+    c5_launches = {}
+    for key, flag in (("eigsolve", False), ("eigsolve_proj", True)):
+        rec = _agree_on_counts(c5, key)
+        old = bs.use_pallas_projections
+        bs.use_pallas_projections = flag
+        try:
+            (vals1, _, info1), l1, _, _, _, ms1 = drive_counted(
+                torch, _build, fl, pb, lambda: kt.eigsolve(eig_op, x0, 4, "LM", alg=alg), reps=1)
+        finally:
+            bs.use_pallas_projections = old
+        err = _rel(np, rec["vals"], vals1.cpu().numpy())
+        emit(_solve_line(f"config5_{key}", rec, rec["nnz"], {
+            "ranks": world, "vals": rec["vals"].tolist(), "one_rank": {
+                "vals": vals1.cpu().tolist(), "numops": info1.numops, "numiter": info1.numiter,
+                "launches": l1, "ms_per_solve": ms1}, "vals_rel_err": err, "tolerance": 1e-4,
+            "device": card, "nvidia_smi": smi}))
+        require((rec["numops"], rec["numiter"]) == (info1.numops, info1.numiter),
+                f"config5 {key}: counts equal to the one-rank solve's")
+        require(err <= 1e-4, f"config5 {key}: values within 1e-4 of the one-rank solve's ({err})")
+        kernels = ("transform_partial", "project", "unproject") if flag else ("transform_partial",)
+        for kname in kernels:
+            require(rec["launches_per_rank"].get(kname, 0) == l1.get(kname, 0) > 0,
+                    f"config5 {key}: {kname} launches per rank equal to the one-rank solve's")
+        c5_launches[key] = rec["launches_per_rank"]
+    rec = _agree_on_counts(c5, "lssolve")
+    b = torch.as_tensor(np.random.default_rng(10).standard_normal(1 << 21).astype(np.float32)
+                        .reshape(-1, 128), device="cuda")
+    lalg = kt.LSMR(tol=1e-30, maxiter=40, verbosity=kt.SILENT)
+    (x1, info1), l1, _, _, _, ms1 = drive_counted(
+        torch, _build, fl, pb, lambda: kt.lssolve(ls_op, b, alg=lalg), reps=1)
+    err = _rel(np, c5[0]["lssolve"]["x"], x1.cpu().numpy())
+    emit(_solve_line("config5_lssolve", rec, rec["nnz"], {
+        "ranks": world, "cut": "rect_sparse_coo(2^21, 2^20, 8 per row): ~1.9e7 of config 5's 1e8 nnz",
+        "one_rank": {"numops": info1.numops, "numiter": info1.numiter, "ms_per_solve": ms1},
+        "x_rel_err": err, "tolerance": 1e-4, "device": card, "nvidia_smi": smi}))
+    require(rec["numops"] == info1.numops, "config5 lssolve: numops equal to the one-rank solve's")
+    require(err <= 1e-4, f"config5 lssolve: x within 1e-4 of the one-rank solve's ({err})")
+    c5_launches["lssolve"] = rec["launches_per_rank"]
+    emit({"phase": "config5", "seconds": time.perf_counter() - t0,
+          "one_rank_build_s": ref_s, "note": "one card: ranks share it; no scaling measured"})
+    del eig_op, ls_op, x0, b
+
+    # 25. the fused paths sharded: config 1 and config 2's gmres30_poisson_2d
+    t0 = time.perf_counter()
+    sf = run_ranks(world, "sharded_fused_rank", dev="cuda", threads=2, timeout=600)
+    rec = _agree_on_counts(sf, "config1")
+    err = _rel(np, rec["vals"], config1_vals.numpy())
+    emit(_solve_line("sharded_config1_eigsolve", rec, 3 * (1 << 21), {
+        "ranks": world, "vals": rec["vals"].tolist(), "vals_rel_err_vs_main": err,
+        "tolerance": 1e-4, "device": card, "nvidia_smi": smi}))
+    require(rec["numops"] == 138, f"sharded config 1: numops 138 (got {rec['numops']})")
+    require(rec["launches_per_rank"] == {"fused_step": 128, "transform_partial": 11},
+            f"sharded config 1: K1 128 and K2 11 per rank ({rec['launches_per_rank']})")
+    require(err <= 1e-4, f"sharded config 1: values within 1e-4 of phase main's ({err})")
+    require(abs(rec["vec0_norm"] - 1) < 1e-3, "sharded config 1: unit eigenvector")
+    grid, b2, x2 = config2
+    res1 = float(torch.linalg.vector_norm(b2 - grid.normal(x2)))
+    rec2 = _agree_on_counts(sf, "gmres30_poisson_2d")
+    res_err = abs(rec2["true_residual"] - res1) / res1
+    emit(_solve_line("sharded_gmres30_poisson_2d", rec2, 5 * (1 << 20), {
+        "ranks": world, "true_residual_one_rank": res1, "true_residual_rel_err": res_err,
+        "tolerance": 1e-3, "device": card, "nvidia_smi": smi}))
+    require(rec2["numops"] == 421, f"sharded gmres30_poisson_2d: numops 421 (got {rec2['numops']})")
+    require(rec2["launches_per_rank"].get("fused_step") == 406,
+            f"sharded gmres30_poisson_2d: K1 406 per rank ({rec2['launches_per_rank']})")
+    require(res_err <= 1e-3, f"sharded gmres30_poisson_2d: true residual within 1e-3 ({res_err})")
+    emit({"phase": "sharded_fused", "seconds": time.perf_counter() - t0})
+    return {"small": small, "config5": c5_launches,
+            "fused_config1": rec["launches_per_rank"], "fused_gmres": rec2["launches_per_rank"]}
+
+
+def slice9(sharded, name):
+    """The launches per rank of ``name`` on the sharded paths of phases
+    22, 24 and 25."""
+    return {"launches_sharded_config1_per_rank": sharded["fused_config1"].get(name, 0),
+            "launches_config5_eigsolve_per_rank": sharded["config5"]["eigsolve"].get(name, 0),
+            "launches_config5_eigsolve_proj_per_rank":
+                sharded["config5"]["eigsolve_proj"].get(name, 0),
+            "launches_small_sharded_per_rank": sharded["small"].get(name, 0)}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one config-1 and one config-4 solve (phase 22)")
+                    help="also profile one config-1 and one config-4 solve (phase 26)")
     ap.add_argument("--parent", metavar="DIR",
                     help="an unpacked earlier tree: time its K1 and K2 on this card as parent_ms")
     ap.add_argument("--kernel-times", action="store_true",
@@ -2203,6 +3037,23 @@ def main():
     # the first domain half-step of that solve: no live row, kp1 = 0
     k1_cases.append(check_fused_step(torch, fl, advect, 8192, kmax, 0, 0, True, gen))
     k1_cases.append(check_fused_step(torch, fl, chain, 3, kmax, 0, 2, False, gen, timed=False))
+    # K1 with non-zero external halos (a rank's block of a split vector): the
+    # chain and grid specs at config 1's and config 2's shapes, timed beside
+    # the launch without them on the same inputs (ms_null), and at the block
+    # shapes of phase sharded_fused (two ranks: R/2 rows each)
+    k1_ext = [check_fused_step(torch, fl, chain, R, kmax, B, B, True, gen, ext=True)
+              for B in (1, 12, 30)]
+    k1_ext += [check_fused_step(torch, fl, grid, (1024 * 1024) // 128, kmax, B, B, True, gen,
+                                ext=True) for B in (16, 30)]
+    k1_ext += [check_fused_step(torch, fl, chain, R // 2, kmax, 16, 16, True, gen, ext=True),
+               check_fused_step(torch, fl, grid, (1024 * 1024) // 256, kmax, 16, 16, True, gen,
+                                ext=True)]
+    k1_ext += [check_fused_step(torch, fl, op_x, R_x, kmax_x, B_x, kp1_x, drift_x, gen,
+                                timed=False, ext=True)
+               for op_x, R_x, kmax_x, B_x, kp1_x, drift_x in (
+                   (chain, R, kmax, 0, 1, False), (chain, 16, kmax, 12, 12, False),
+                   (chain, 2048, 64, 40, 40, True), (grid, 8192, 64, 63, 63, True),
+                   (kt.StencilOperator((-200, 0, 200), (0.3, 1.0, -0.4)), 64, kmax, 5, 9, True))]
     k2_cases = [check_transform(torch, bs, kmax, R, m, gen) for m in (20, 4)]
     # the two rotations of a GKL restart in config 3's rectangular solve:
     # (31, 8192, 128) over U (timed below as config 4's shape) and (31, 4096,
@@ -2257,7 +3108,8 @@ def main():
     k6_cases += k6_small
     del flush, x4
     k2_cases.append(k2_bf16)
-    emit({"phase": "kernels", "fused_step": k1_cases, "transform_partial": k2_cases,
+    emit({"phase": "kernels", "fused_step": k1_cases, "fused_step_external_halos": k1_ext,
+          "transform_partial": k2_cases,
           "banded_spmv": k3_cases, "laplacian_1d": k4_cases,
           "project": k5_cases, "unproject": k6_cases,
           "fused_step_library": "none: no single PyTorch call computes the fused step"})
@@ -2958,6 +3810,11 @@ def main():
     bieig_l = bieig_full(torch, np, kt, _build, bd, bs, fl, pb, n=n4, smi=smi)
     lanczos_l = lanczos_variants(torch, np, kt, _build, bd, bs, fl, pb, N=nx, smi=smi)
 
+    # 22-25. the distribution layer: ranks of one torch.distributed group on
+    # this card (gloo with CUDA tensors; NCCL takes one rank per card)
+    sharded = distribution_phases(torch, np, kt, _build, fl, pb, smi, vals_h,
+                                  (grid, b2, xs_by_metric["gmres30_poisson_2d"]))
+
     def slice8(name):
         """The launches of ``name`` on the paths of phases 20 and 21."""
         return {"launches_bieig": bieig_l["bieig"].get(name, 0),
@@ -2978,7 +3835,7 @@ def main():
             "source": "krylovkit_tpu_torch/csrc/fused_lanczos.cu",
             "replaces": "krylovkit_tpu/ops/pallas_fused_lanczos.py:253",
             "launches": launches["fused_step"],
-            "max_abs_err": max(c["max_abs_err"] for c in k1_cases),
+            "max_abs_err": max(c["max_abs_err"] for c in k1_cases + k1_ext),
             "ms": mean([per_B[B]["ms"] for B in schedule]),
             "parent_ms": (mean([per_B[B]["parent_ms"] for B in schedule]) if parent_runs else None),
             "plain_ms": mean(list(plain_B.values())),
@@ -2994,6 +3851,12 @@ def main():
             "launches_ad": sum(ad_imp[k].get("fused_step", 0) for k in ad_imp)
             + ad_pot["forward"].get("fused_step", 0) + ad_pot["backward"].get("fused_step", 0),
             "ms_config4_exponentiate": k1_ms_e / len(stepse),
+            "ms_external_halos": mean([c["ms"] for c in k1_ext if "ms" in c]),
+            "ms_null_same_inputs": mean([c["ms_null"] for c in k1_ext if "ms_null" in c]),
+            "max_abs_err_external_halos": max(c["max_abs_err"] for c in k1_ext),
+            "launches_sharded_config1_per_rank": sharded["fused_config1"].get("fused_step", 0),
+            "launches_sharded_gmres30_poisson_2d_per_rank": sharded["fused_gmres"].get("fused_step", 0),
+            "launches_small_sharded_per_rank": sharded["small"].get("fused_step", 0),
         },
         {
             "name": "transform_partial", "route": "cuda",
@@ -3019,6 +3882,7 @@ def main():
             "launches_ad_tuple_basis": ad_imp["tuple_basis"].get("transform_partial", 0),
             "launches_ad_small": ad_small_launches.get("transform_partial", 0),
             **slice8("transform_partial"),
+            **slice9(sharded, "transform_partial"),
         },
         {
             "name": "banded_spmv", "route": "cuda",
@@ -3075,6 +3939,7 @@ def main():
             "launches_ad_impurity_backward_proj": ad_imp["backward_proj"].get("project", 0),
             **geneig_kernel(kg["project"]),
             **slice8("project"),
+            **slice9(sharded, "project"),
         },
         {
             "name": "unproject", "route": "cuda",
@@ -3097,6 +3962,7 @@ def main():
             "launches_ad_impurity_backward_proj": ad_imp["backward_proj"].get("unproject", 0),
             **geneig_kernel(kg["unproject"]),
             **slice8("unproject"),
+            **slice9(sharded, "unproject"),
         },
     ]})
     print(nvidia_smi_line(), flush=True)

@@ -12,7 +12,10 @@ iterator API (``LanczosIterator`` with its O(1)-memory 3-term mode,
 BiCGStab), the GKL singular-value solver (``svdsolve``, ``realsvdsolve``),
 LSMR least squares (``lssolve``, ``reallssolve``) and the matrix functions
 (``exponentiate``, ``expintegrator``), on dense, stencil, banded and ELL
-(``sparse``) operators and :class:`ParametricOperator`, with reverse-mode
+(``sparse``) operators and :class:`ParametricOperator`, sharded over the
+ranks of a ``torch.distributed`` group (``parallel``: process-group meshes,
+sharded stencil and ELL operators, ``VectorSpace(psum_axis=...)``) in the
+Lanczos, Arnoldi, CG, GMRES, LSMR and GKL solvers, with reverse-mode
 differentiation of ``linsolve``, ``eigsolve`` and ``svdsolve`` (``ad``:
 one ``torch.autograd.Function`` each) and pytree vectors (tuples, lists and
 dicts of tensors) in the Krylov, Lanczos, Arnoldi and linear solvers, with
@@ -94,6 +97,7 @@ from .solvers.linsolve import linsolve, reallinsolve  # noqa: E402
 from .solvers.lssolve import lssolve, reallssolve  # noqa: E402
 from .solvers.svdsolve import realsvdsolve, svdsolve, svdsolve_gkl  # noqa: E402
 from . import ad  # noqa: E402
+from . import parallel  # noqa: E402
 
 __all__ = [
     "Arnoldi",
@@ -164,4 +168,5 @@ __all__ = [
     "exponentiate",
     "expintegrator",
     "ad",
+    "parallel",
 ]

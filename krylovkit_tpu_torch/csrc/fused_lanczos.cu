@@ -27,7 +27,13 @@
 //   * A ring of staged rows in shared memory, filled with cp.async (16 bytes
 //     a thread, one commit group per tile of T rows, P tiles in flight): a
 //     staged row is y and V[0..B) of one layout row, (B + 1) * 512 bytes.
-//     Rows outside [0, R) are never fetched; their w' is zero, which is the
+//     Rows outside [0, R) are taken from the external halos when the
+//     caller gives them (a shard of a vector split over ranks: Vext
+//     (kmax, 2, h, 128) holds the h rows above and below the shard of every
+//     basis row, yext (2, h, 128) those of y; the caller exchanges them
+//     with the neighbouring ranks, zero at the ends of the chain); their w'
+//     is then the same linear combination.  Without them (null pointers)
+//     such rows are never fetched and their w' is zero, which is the
 //     Dirichlet truncation.
 //   * Both passes read the staged row.  Pass A forms w' of tile k from it,
 //     writes it to V[kp1] (rows of the run only) and into a ring of T + 2h
@@ -147,6 +153,7 @@ __global__ void __launch_bounds__(kThreads, KACC <= 32 ? 2 : 1)
 fused_step_kernel(float* V, const float* __restrict__ y,
                   float* __restrict__ ynext, const float* __restrict__ g,
                   float* partials, float* __restrict__ raw, int* counter,
+                  const float* __restrict__ Vext, const float* __restrict__ yext,
                   int kmax, int R, int B, int kp1, int h, int gc, int mrow,
                   Plan plan, Taps taps) {
   extern __shared__ __align__(16) float smem[];
@@ -164,6 +171,8 @@ fused_step_kernel(float* V, const float* __restrict__ y,
   const int s0 = r0 - h, s1 = r1 + h;  // rows whose w' this block forms
   const int ntiles = (s1 - s0 + T - 1) / T;
   const int nslots = DRIFT ? 2 * B + 2 : B + 2;
+  const bool ext = Vext != nullptr;  // rows outside [0, R) come from the halos
+  const long long extRow = 2LL * h * kLanes;  // floats of one basis row's halos
 
   // g[:B], zeros up to [126] (pass A reads g four at a time), gamma at [127]
   for (int t = tid; t < kMaxSlots; t += kThreads)
@@ -175,17 +184,27 @@ fused_step_kernel(float* V, const float* __restrict__ y,
   const bool active = ti < T;
 
   // The T rows from `base` on, whose first has ring row `slot0`: warp w
-  // copies the 512-byte runs j = w, w + 8, ... (y, then V[j - 1]) of each.
+  // copies the 512-byte runs j = w, w + 8, ... (y, then V[j - 1]) of each;
+  // a row outside [0, R) from the external halos (side 0 above, 1 below).
   auto load_tile = [&](int base, int slot0) {
     for (int i = 0; i < T; ++i) {
       const int row = base + i;
-      if (row < 0 || row >= R || row >= s1) continue;
+      if (row >= s1) continue;
+      const bool inside = row >= 0 && row < R;
+      if (!inside && !ext) continue;
       int slot = slot0 + i;
       if (slot >= NSR) slot -= NSR;
       float* dst = sStage + (size_t)slot * rowf + lane32 * 4;
-      const long long off = (long long)row * kLanes + lane32 * 4;
-      for (int j = warp; j <= B; j += kWarps)
-        cp_async16(dst + j * kLanes, (j == 0 ? y : V + (long long)(j - 1) * N) + off);
+      if (inside) {
+        const long long off = (long long)row * kLanes + lane32 * 4;
+        for (int j = warp; j <= B; j += kWarps)
+          cp_async16(dst + j * kLanes, (j == 0 ? y : V + (long long)(j - 1) * N) + off);
+      } else {
+        const long long off =
+            (long long)(row < 0 ? row + h : h + row - R) * kLanes + lane32 * 4;
+        for (int j = warp; j <= B; j += kWarps)
+          cp_async16(dst + j * kLanes, (j == 0 ? yext : Vext + (long long)(j - 1) * extRow) + off);
+      }
     }
   };
 
@@ -230,7 +249,7 @@ fused_step_kernel(float* V, const float* __restrict__ y,
       float w[LPT];
 #pragma unroll
       for (int l = 0; l < LPT; ++l) w[l] = 0.f;
-      if (row >= 0 && row < R && row < s1) {
+      if (row < s1 && (ext || (row >= 0 && row < R))) {
         const float* sv = sStage + (size_t)aSlot * rowf + lane0;
         float acc[LPT];
 #pragma unroll
@@ -393,7 +412,8 @@ fused_step_kernel(float* V, const float* __restrict__ y,
 template <int KACC, bool DRIFT, int LPT>
 cudaError_t launch_step(int nblocks, size_t smem, cudaStream_t s, float* V,
                         const float* y, float* ynext, const float* g,
-                        float* partials, float* raw, int* counter, int kmax,
+                        float* partials, float* raw, int* counter,
+                        const float* Vext, const float* yext, int kmax,
                         int R, int B, int kp1, int h, int gc, int mrow,
                         const Plan& plan, const Taps& taps) {
   // per instantiation and device: allow the full shared memory, once
@@ -408,8 +428,8 @@ cudaError_t launch_step(int nblocks, size_t smem, cudaStream_t s, float* V,
     if (dev >= 0 && dev < 64) raised[dev] = true;
   }
   fused_step_kernel<KACC, DRIFT, LPT><<<nblocks, kThreads, smem, s>>>(
-      V, y, ynext, g, partials, raw, counter, kmax, R, B, kp1, h, gc, mrow, plan,
-      taps);
+      V, y, ynext, g, partials, raw, counter, Vext, yext, kmax, R, B, kp1, h,
+      gc, mrow, plan, taps);
   return cudaGetLastError();
 }
 
@@ -420,11 +440,15 @@ extern "C" {
 // V (kmax, R, 128) float32, row kp1 written in place; y, ynext (R, 128);
 // g (kmax + 1); partials (nblocks, nslots) scratch; raw (nslots) out; counter
 // one int32 that is 0 before the first launch (the kernel leaves it 0).
+// Vext (kmax, 2, h, 128) and yext (2, h, 128): the rows above (side 0) and
+// below (side 1) the shard of each basis row and of y, 16-byte aligned; both
+// null for an unsplit vector (zero beyond [0, R)), or both given.
 // coef/d/dx are HOST arrays of ntaps entries.  T, P, NSR, NR, reread, run,
 // nblocks and smem_bytes are the host's plan (ops/fused_lanczos.py:plan_step),
 // checked here.  Returns cudaGetLastError() after the launch.
 int kk_fused_step(float* V, const float* y, float* ynext, const float* g,
-                  float* partials, float* raw, int* counter, int kmax, int R,
+                  float* partials, float* raw, int* counter, const float* Vext,
+                  const float* yext, int kmax, int R,
                   int B, int kp1, int with_drift, int h, int gc, int mrow,
                   int ntaps, const float* coef, const int* d, const int* dx,
                   int T, int P, int NSR, int NR, int reread, int run,
@@ -432,7 +456,7 @@ int kk_fused_step(float* V, const float* y, float* ynext, const float* g,
   const int nslots = with_drift ? 2 * B + 2 : B + 2;
   if (ntaps < 1 || ntaps > kMaxTaps || h < 1 || h > kMaxHalo || B < 0 ||
       kp1 < B || kp1 >= kmax || nslots > kMaxSlots || R < 1 ||
-      (gc && mrow < 1))
+      (gc && mrow < 1) || ((Vext == nullptr) != (yext == nullptr)))
     return (int)cudaErrorInvalidValue;
   const int lpt = T == 8 ? 4 : T == 4 ? 2 : 1;
   const long long need =
@@ -456,8 +480,8 @@ int kk_fused_step(float* V, const float* y, float* ynext, const float* g,
 #define KK_STEP(KACC, DRIFT, LPT)                                              \
   return (int)launch_step<KACC, DRIFT, LPT>(nblocks, (size_t)smem_bytes, s, V, \
                                             y, ynext, g, partials, raw,        \
-                                            counter, kmax, R, B, kp1, h, gc,   \
-                                            mrow, plan, taps)
+                                            counter, Vext, yext, kmax, R, B,   \
+                                            kp1, h, gc, mrow, plan, taps)
   if (with_drift) {
     if (B <= 32) {
       if (lpt == 4) KK_STEP(32, true, 4);

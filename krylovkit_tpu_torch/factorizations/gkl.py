@@ -134,11 +134,12 @@ def fused_kernel_available(op, x0: torch.Tensor, space: VectorSpace, kmax: int) 
     ``2·kmax + 2 <= 128`` (the drift packing), and a vector on a CUDA device
     (the kernel) or on the CPU (its plain version).
 
-    The JAX package's gate does not look at ``space.psum_axis``, which would
-    give wrong singular values inside a sharded solve.  This port has no
-    sharded spaces yet; when ``VectorSpace`` gains ``psum_axis`` this gate
-    must refuse a space that sets it."""
-    if 2 * kmax + 2 > fl.LANES:
+    A sharded space (``psum_axis``) is refused: the two-basis stream has no
+    cross-shard halos or all-reduced reductions, so a sharded ``svdsolve``
+    runs unfused.  The JAX package's gate does not look at
+    ``space.psum_axis`` and gives wrong singular values inside a sharded
+    solve."""
+    if 2 * kmax + 2 > fl.LANES or space.psum_axis is not None:
         return False
     spec, spec_a = fl.spec_for(op), fl.adjoint_spec(op)
     if spec is None or spec_a is None or space.inner_fn is not None:

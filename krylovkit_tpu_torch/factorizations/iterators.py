@@ -26,7 +26,8 @@ import torch
 from ..ops import basis as bs
 from ..ops import orthonormal as on
 from ..ops.operator import as_operator, probe_adjoint, probe_dtype
-from ..ops.vector import STANDARD, VectorSpace, astype, device_of, rounded, scalartype
+from ..ops.vector import (STANDARD, VectorSpace, astype, device_of, refuse_sharded, rounded,
+                          scalartype)
 from . import blocklanczos as bf
 from . import gkl as gf
 from . import krylov as kf
@@ -66,6 +67,9 @@ class _KrylovIterator:
     space: VectorSpace = STANDARD
     hermitian_expand: bool = False
 
+    def __post_init__(self):
+        refuse_sharded(type(self).__name__, self.space)
+
     def _cdt(self):
         return probe_dtype(_operator(self.op, self.x0), self.x0)
 
@@ -103,6 +107,7 @@ class LanczosIterator(_KrylovIterator):
     keepvecs: bool = True
 
     def __post_init__(self):
+        super().__post_init__()
         if not self.keepvecs and not isinstance(
             self.orth, (on.ClassicalGramSchmidt, on.ModifiedGramSchmidt)
         ):
@@ -151,6 +156,9 @@ class GKLIterator:
     orth: on.Orthogonalizer = on.cgs2
     space: VectorSpace = STANDARD
 
+    def __post_init__(self):
+        refuse_sharded(type(self).__name__, self.space)
+
     def _op(self):
         return _operator(self.op, self.x0).with_adjoint_from(self.x0)
 
@@ -172,6 +180,9 @@ class BlockLanczosIterator:
     krylovdim: int = 30
     qr_tol: float = -1.0  # < 0: eps**(3/4) of the problem's real type
     space: VectorSpace = STANDARD
+
+    def __post_init__(self):
+        refuse_sharded(type(self).__name__, self.space)
 
     def _qr_tol(self, cdt):
         rdt = cdt.to_real()
@@ -201,6 +212,9 @@ class BiArnoldiIterator:
     krylovdim: int = 30
     orth: on.Orthogonalizer = on.cgs2
     space: VectorSpace = STANDARD
+
+    def __post_init__(self):
+        refuse_sharded(type(self).__name__, self.space)
 
     def _op(self):
         return _operator(self.op, self.v0).with_adjoint_from(self.v0)

@@ -13,6 +13,10 @@ The fused section drives the one-stream expansion kernel
 true basis is ``v_j = Σ_i L[i, j] R_i`` (:class:`FusedScales`).  Its
 ``dgks`` mode is the one-reduce CGS2 of the JAX package: the second
 Gram-Schmidt sweep is deferred and applied in scalar space one step later.
+On a sharded space (``psum_axis``) each rank runs the kernel on its block of
+rows with the neighbours' edge rows as external halos, and one all-reduce
+per step finishes the kernel's reductions and brings the new row's and
+``y'``'s edge rows (the JAX package's ``psum`` and ``_edge_fix``).
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ from ..info import EACHITERATION, log_if, warn_if
 from ..ops import basis as bs
 from ..ops import fused_lanczos as fl
 from ..ops import orthonormal as on
-from ..ops.vector import STANDARD, VectorSpace, astype, device_of, tree_map
+from ..ops.vector import STANDARD, VectorSpace, astype, device_of, psum, tree_map
 
 __all__ = [
     "KrylovState",
@@ -285,7 +289,11 @@ def fused_available(op, x0, space: VectorSpace, kmax=None) -> bool:
     pytree vector, as in the JAX package) with
     ``R % 8 == 0`` and ``R >= 16`` (a grid vector covers its grid exactly),
     the standard inner product, ``kmax + 2 <= 128``, and a vector on a CUDA
-    device (the kernel) or on the CPU (its plain version)."""
+    device (the kernel) or on the CPU (its plain version).  On a sharded
+    space ``x0`` is this rank's block: it must hold at least ``h`` rows (its
+    halos come from the next rank alone), and a grid's blocks must cut whole
+    grid rows, with the global row count (``R`` times the axis size)
+    covering the grid."""
     if kmax is not None and kmax + 2 > fl.LANES:
         return False
     if not isinstance(x0, torch.Tensor):
@@ -298,7 +306,12 @@ def fused_available(op, x0, space: VectorSpace, kmax=None) -> bool:
     R = x0.shape[0]
     if R % 8 != 0 or R < 16:
         return False
-    if spec.gc and R * fl.LANES != spec.gr * spec.gc:
+    nloc = R * fl.LANES
+    if space.psum_axis is not None:
+        if R < spec.h or (spec.gc and nloc % spec.gc != 0):
+            return False
+        nloc *= space.psum_axis.size
+    if spec.gc and nloc != spec.gr * spec.gc:
         return False
     try:
         fl.choose_tile(R, h=spec.h)
@@ -392,6 +405,8 @@ class FusedCarry(NamedTuple):
     q: torch.Tensor  # ‖R_k‖²
     sc: FusedScales
     k: int
+    Vext: Optional[torch.Tensor] = None  # (kmax, 2, h, 128) neighbours' edge rows
+    yext: Optional[torch.Tensor] = None  # (2, h, 128), sharded spaces only
 
 
 def make_fused_stepper(op, kmax: int, dgks: bool, space: VectorSpace):
@@ -400,15 +415,42 @@ def make_fused_stepper(op, kmax: int, dgks: bool, space: VectorSpace):
     spec = fl.spec_for(op)
     if spec is None:
         raise ValueError("make_fused_stepper requires a fusable stencil operator")
+    ax = space.psum_axis
+    h = spec.h
 
     def prime(V, k0: int, sc: FusedScales) -> FusedCarry:
         """``y = A R_{k0}`` and its projections; the priming norm comes from
-        the scale vector."""
+        the scale vector.  Sharded: the edge rows of the live basis rows and
+        of ``y`` from the neighbours, in one all-reduce (after a restart
+        rotation they are all new)."""
         y = op.normal(V[k0])
         r = bs.project_bucketed(V, y, k0 + 1, space).to(torch.float32)
         q = _safe_inv(sc.s[k0]) ** 2
         d = torch.zeros(kmax, dtype=torch.float32, device=V.device)
-        return FusedCarry(V, y, r, d, r[k0], q, sc, k0)
+        Vext = yext = None
+        if ax is not None:
+            first = torch.cat([V[:k0 + 1, :h], y[None, :h]])
+            last = torch.cat([V[:k0 + 1, -h:], y[None, -h:]])
+            above, below = ax.edges(first, last)
+            Vext = torch.zeros((kmax, 2, h, fl.LANES), dtype=torch.float32, device=V.device)
+            Vext[:k0 + 1, 0] = above[:k0 + 1]
+            Vext[:k0 + 1, 1] = below[:k0 + 1]
+            yext = torch.stack([above[k0 + 1], below[k0 + 1]])
+        return FusedCarry(V, y, r, d, r[k0], q, sc, k0, Vext, yext)
+
+    def exchange(raw, V, kp1: int, yn):
+        """Sharded: one all-reduce sums the kernel's partial reductions and
+        brings the neighbours' edge rows of the new row ``V[kp1]`` and of
+        ``y'``.  Returns ``(raw, Vext row kp1, yext)``."""
+        D, i = ax.size, ax.index
+        slots = torch.zeros((D, 2, 2, h, fl.LANES), dtype=torch.float32, device=raw.device)
+        if i + 1 < D:
+            slots[i + 1, 0, 0], slots[i + 1, 0, 1] = V[kp1, -h:], yn[-h:]
+        if i > 0:
+            slots[i - 1, 1, 0], slots[i - 1, 1, 1] = V[kp1, :h], yn[:h]
+        total = ax.psum(torch.cat([raw, slots.reshape(-1)]))
+        mine = total[raw.numel():].reshape(slots.shape)[i]
+        return total[:raw.numel()], mine[:, 0], mine[:, 1].contiguous()
 
     def advance(c: FusedCarry):
         """One fused step (scalar front half + kernel + bookkeeping).
@@ -416,10 +458,14 @@ def make_fused_stepper(op, kmax: int, dgks: bool, space: VectorSpace):
         normalized-units projection column (``j <= k``; callers add ``β`` at
         ``k+1``)."""
         k = c.k
-        csub, lam, h, alpha, sc = _step_coeffs(c.r, c.d, c.rp, c.q, c.sc, k, dgks)
+        csub, lam, hcol, alpha, sc = _step_coeffs(c.r, c.d, c.rp, c.q, c.sc, k, dgks)
         g = torch.cat([csub, lam[None]])
         B = k + 1  # live rows: row k+1 (written) is never read
-        yn, raw = fl.fused_step(c.V, c.y, g, k + 1, B, spec, with_drift=dgks)
+        yn, raw = fl.fused_step(c.V, c.y, g, k + 1, B, spec, with_drift=dgks,
+                                Vext=c.Vext, yext=c.yext)
+        Vext, yext = c.Vext, c.yext
+        if ax is not None:
+            raw, Vext[k + 1], yext = exchange(raw, c.V, k + 1, yn)
         pad = (0, kmax - B)
         rn = torch.nn.functional.pad(raw[:B], pad)
         if dgks:
@@ -430,7 +476,7 @@ def make_fused_stepper(op, kmax: int, dgks: bool, space: VectorSpace):
             rpn, qn = raw[B], raw[B + 1]
         beta = torch.sqrt(qn)
         sc = _append_row(sc, k, beta, csub, lam, dgks)
-        return FusedCarry(c.V, yn, rn, dn, rpn, qn, sc, k + 1), alpha, beta, h
+        return FusedCarry(c.V, yn, rn, dn, rpn, qn, sc, k + 1, Vext, yext), alpha, beta, hcol
 
     def _append_row(sc: FusedScales, k: int, beta, csub, lam, with_hs: bool):
         idx = torch.arange(kmax, device=beta.device)
@@ -454,11 +500,11 @@ def make_fused_stepper(op, kmax: int, dgks: bool, space: VectorSpace):
         if not go:
             return c.V, c.sc, None, None, None
         k = c.k
-        csub, lam, h, alpha, sc = _step_coeffs(c.r, c.d, c.rp, c.q, c.sc, k, dgks)
+        csub, lam, hcol, alpha, sc = _step_coeffs(c.r, c.d, c.rp, c.q, c.sc, k, dgks)
         W = lam * c.y - bs.unproject_bucketed(c.V, csub, k + 1)
-        beta = torch.sqrt(torch.sum(W * W))
+        beta = torch.sqrt(psum(torch.sum(W * W), space.psum_axis))
         c.V[k + 1] = W
-        return c.V, _append_row(sc, k, beta, csub, lam, False), alpha, beta, h
+        return c.V, _append_row(sc, k, beta, csub, lam, False), alpha, beta, hcol
 
     return prime, advance, tail
 

@@ -29,7 +29,7 @@ import torch
 
 from .. import _build
 from . import projections as pb
-from .vector import STANDARD, VectorSpace, tree_leaves, tree_map
+from .vector import STANDARD, VectorSpace, psum, tree_leaves, tree_map
 
 __all__ = [
     "alloc",
@@ -145,17 +145,20 @@ def _project_leaf(V: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 def project(V, x, k: int, space: VectorSpace = STANDARD) -> torch.Tensor:
     """``c[j] = <V[j], x>`` for ``j < k``, zero beyond — the ``Vᴴx`` kernel
     (reference ``project!!``, ``src/orthonormal.jl:88-118``); a pytree sums
-    its per-leaf contractions."""
+    its per-leaf contractions.  On a sharded space one all-reduce finishes
+    the batch of local partials, on the kernel's route too (the JAX
+    package's kernel route returns before its ``psum``)."""
     kb = capacity(V)
     if space.inner_fn is None:
         if _pallas_proj_leaf(V, x, space):
             # the kernel masks j >= k and reads only the first k rows
-            return pb.project_pallas(V, x.contiguous(), k)
+            return psum(pb.project_pallas(V, x.contiguous(), k), space.psum_axis)
         if isinstance(V, torch.Tensor):
             c = _project_leaf(V, x)
         else:
             parts = [_project_leaf(lV, lx) for lV, lx in zip(tree_leaves(V), tree_leaves(x))]
             c = sum(parts[1:], parts[0])
+        c = psum(c, space.psum_axis)
         if space.real_inner:
             c = torch.real(c)
     else:
@@ -336,13 +339,13 @@ def _gram_leaf(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
 
 def gram(X, Y, space: VectorSpace = STANDARD) -> torch.Tensor:
     """``G[i, j] = <X[i], Y[j]>`` between two stacked bases (per-leaf GEMMs,
-    summed)."""
+    summed; all-reduced on a sharded space)."""
     if space.inner_fn is not None:
         nx, ny = capacity(X), capacity(Y)
         return torch.stack([torch.stack([space.inner(get(X, i), get(Y, j)) for j in range(ny)])
                             for i in range(nx)])
     parts = [_gram_leaf(a, b) for a, b in zip(tree_leaves(X), tree_leaves(Y))]
-    g = sum(parts[1:], parts[0])
+    g = psum(sum(parts[1:], parts[0]), space.psum_axis)
     return torch.real(g) if space.real_inner else g
 
 
@@ -356,5 +359,5 @@ def batch_inner(X, Y, space: VectorSpace = STANDARD) -> torch.Tensor:
         return (a.reshape(a.shape[0], -1).to(dt).conj() * b.reshape(b.shape[0], -1).to(dt)).sum(1)
 
     parts = [part(a, b) for a, b in zip(tree_leaves(X), tree_leaves(Y))]
-    c = sum(parts[1:], parts[0])
+    c = psum(sum(parts[1:], parts[0]), space.psum_axis)
     return torch.real(c) if space.real_inner else c

@@ -12,9 +12,13 @@ One step, at live rows ``B = k + 1`` and new row ``kp1 = k + 1``:
 ``csrc/fused_lanczos.cu``; :func:`fused_step_reference` is its plain
 PyTorch version, run for CPU tensors.  Unlike the TPU kernel, neither takes
 halo caches: each block of the CUDA kernel stages the halo rows of ``V`` and
-``y`` itself, so the solver loop carries no boundary planes.  ``y`` and ``y'`` are separate
-buffers.  Stored basis rows are raw residuals; their scales are carried by
-the driver (``factorizations/krylov.py:FusedScales``).
+``y`` itself, so the solver loop carries no boundary planes.  A vector split
+over ranks (``parallel/``) gives both the rows beyond its shard instead:
+``Vext (kmax, 2, h, 128)`` for every basis row and ``yext (2, h, 128)``
+(side 0 the ``h`` rows above row 0, side 1 those below row ``R - 1``, zero
+at the ends of the chain), where the unsplit vector has zeros.  ``y`` and
+``y'`` are separate buffers.  Stored basis rows are raw residuals; their
+scales are carried by the driver (``factorizations/krylov.py:FusedScales``).
 """
 
 from __future__ import annotations
@@ -155,24 +159,33 @@ def _flat_offset(tap) -> int:
     return qrow * LANES + r
 
 
-def stencil_apply_spec(x: torch.Tensor, spec: StencilSpec) -> torch.Tensor:
+def stencil_apply_spec(x: torch.Tensor, spec: StencilSpec,
+                       halo: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain apply of a spec to an ``(R, 128)`` vector in float32: each tap
     reads the row-major flattening at its flat offset, zero outside
-    ``[0, n)``; grid taps with ``dx != 0`` also zero the lanes whose grid
+    ``[0, n)`` (or, given ``halo (2, h, 128)``, the rows above and below
+    there); grid taps with ``dx != 0`` also zero the lanes whose grid
     column ``ix + dx`` leaves ``[0, gc)``."""
     R, C = x.shape
     n = R * C
     xf = x.reshape(n).to(torch.float32)
     acc = torch.zeros(n, dtype=torch.float32, device=x.device)
+    if halo is not None:
+        hn = halo.shape[1] * C
+        strip = torch.cat([halo[0].reshape(-1).to(torch.float32), xf,
+                           halo[1].reshape(-1).to(torch.float32)])
     if spec.gc:
         ix = torch.arange(n, device=x.device) % spec.gc
     for coef, tap in zip(spec.coeffs, spec.taps):
         d = _flat_offset(tap)
-        sh = torch.zeros_like(xf)
-        if d >= 0:
-            sh[: n - d] = xf[d:]
+        if halo is not None:
+            sh = strip[hn + d: hn + d + n]
         else:
-            sh[-d:] = xf[: n + d]
+            sh = torch.zeros_like(xf)
+            if d >= 0:
+                sh[: n - d] = xf[d:]
+            else:
+                sh[-d:] = xf[: n + d]
         dx = tap[2]
         if spec.gc and dx:
             valid = (ix + dx < spec.gc) if dx > 0 else (ix >= -dx)
@@ -185,11 +198,19 @@ def _raw_len(B: int, with_drift: bool) -> int:
     return (2 * B if with_drift else B) + 2
 
 
-def _check(V, y, g, kp1, B, with_drift):
+def _check(V, y, g, kp1, B, with_drift, spec=None, Vext=None, yext=None):
     kmax, R, C = V.shape
     if C != LANES or y.shape != (R, C) or g.shape != (kmax + 1,):
         raise ValueError(
             f"fused_step shapes: V {tuple(V.shape)}, y {tuple(y.shape)}, g {tuple(g.shape)}"
+        )
+    if (Vext is None) != (yext is None):
+        raise ValueError("fused_step takes both external halos (Vext, yext) or neither")
+    if Vext is not None and (Vext.shape != (kmax, 2, spec.h, C)
+                             or yext.shape != (2, spec.h, C)):
+        raise ValueError(
+            f"fused_step halos: Vext {tuple(Vext.shape)}, yext {tuple(yext.shape)}; "
+            f"want ({kmax}, 2, {spec.h}, {C}) and (2, {spec.h}, {C})"
         )
     if not (0 <= B <= kmax and 0 <= kp1 < kmax):
         raise ValueError(f"fused_step needs 0 <= B <= kmax, 0 <= kp1 < kmax; got B={B}, kp1={kp1}")
@@ -201,16 +222,22 @@ def _check(V, y, g, kp1, B, with_drift):
 
 
 def fused_step_reference(V, y, g, kp1: int, B: int, spec: StencilSpec,
-                         with_drift: bool = False):
+                         with_drift: bool = False, Vext=None, yext=None):
     """Plain version of the fused step.  Returns ``(y_next, raw)``; writes
     ``V[kp1] = w'`` in place after the reductions (so ``raw`` never sees the
     new row, even for ``kp1 < B``) and leaves every other row untouched.
-    With no live row (``B = 0``) ``w' = γ·y`` and ``raw = [rp | q]``."""
-    _check(V, y, g, kp1, B, with_drift)
+    With no live row (``B = 0``) ``w' = γ·y`` and ``raw = [rp | q]``.  Given
+    the external halos, ``w'`` of the rows beyond the shard is the same
+    combination of ``yext`` and ``Vext[:B]``, and the stencil reads it there;
+    the reductions cover the shard's own rows."""
+    _check(V, y, g, kp1, B, with_drift, spec, Vext, yext)
     kmax = V.shape[0]
     VB = V[:B].reshape(B, y.numel())
     W = g[kmax] * y - (g[:B] @ VB).reshape(y.shape)
-    yn = stencil_apply_spec(W, spec)
+    halo = None
+    if Vext is not None:
+        halo = g[kmax] * yext - (g[:B] @ Vext[:B].reshape(B, yext.numel())).reshape(yext.shape)
+    yn = stencil_apply_spec(W, spec, halo)
     wf, ynf = W.reshape(-1), yn.reshape(-1)
     parts = [VB @ ynf]
     if with_drift:
@@ -299,7 +326,7 @@ def _lib():
     if _fused_lib is None:
         lib = _build.library("fused_lanczos")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.kk_fused_step.argtypes = [p] * 7 + [i] * 9 + [p, p, p] + [i] * 8 + [p]
+        lib.kk_fused_step.argtypes = [p] * 9 + [i] * 9 + [p, p, p] + [i] * 8 + [p]
         lib.kk_fused_step.restype = i
         _fused_lib = lib
     return _fused_lib
@@ -335,32 +362,37 @@ def _device_scratch(device: torch.device):
 
 
 def fused_step(V, y, g, kp1: int, B: int, spec: StencilSpec,
-               with_drift: bool = False):
+               with_drift: bool = False, Vext=None, yext=None):
     """One fused expansion step.  Returns ``(y_next, raw)`` and writes
     ``V[kp1] = w'`` in place; every other row of ``V`` stays bit-identical.
     ``raw`` is ``[r(B) | d(B) | rp | q]`` with ``with_drift``, else
     ``[r(B) | rp | q]``.  Needs ``B <= kp1``: the new row is never read.
     ``B = 0`` (no live row: the first domain half-step of a fused GKL solve)
-    stages ``y`` alone and gives ``w' = γ·y``, ``raw = [rp | q]``.
+    stages ``y`` alone and gives ``w' = γ·y``, ``raw = [rp | q]``.  A shard
+    of a split vector passes its external halos ``Vext``/``yext`` (module
+    docstring); ``raw`` then holds this shard's partial sums.
 
     A CUDA tensor runs the kernel of ``csrc/fused_lanczos.cu`` (float32,
     contiguous) with the sizes of :func:`plan_step`; its scratch is kept per
     device, so calls for one device go to one stream at a time.  A CPU
     tensor runs :func:`fused_step_reference`.  A tensor that requires grad or
     is wrapped by ``torch.func`` is refused (``_build.refuse_autograd``)."""
-    _build.refuse_autograd("fused_step", V, y, g)
+    _build.refuse_autograd("fused_step", V, y, g, Vext, yext)
     if V.device.type == "cpu":
-        return fused_step_reference(V, y, g, kp1, B, spec, with_drift)
+        return fused_step_reference(V, y, g, kp1, B, spec, with_drift, Vext, yext)
     if V.device.type != "cuda":
         raise ValueError(f"unsupported device {V.device}")
-    _check(V, y, g, kp1, B, with_drift)
+    _check(V, y, g, kp1, B, with_drift, spec, Vext, yext)
     if kp1 < B:
         raise ValueError(f"the CUDA fused step needs kp1 >= B (got B={B}, kp1={kp1})")
-    for name, t in (("V", V), ("y", y), ("g", g)):
+    named = [("V", V), ("y", y), ("g", g)]
+    if Vext is not None:
+        named += [("Vext", Vext), ("yext", yext)]
+    for name, t in named:
         if t.device != V.device or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"fused_step needs {name} as contiguous float32 on {V.device}")
-    if V.data_ptr() % 16 or y.data_ptr() % 16:
-        raise ValueError("fused_step needs V and y on 16-byte boundaries")
+    if any(t.data_ptr() % 16 for _, t in named if t is not g):
+        raise ValueError("fused_step needs V, y and the halos on 16-byte boundaries")
     kmax, R, _ = V.shape
     lib = _lib()
     sms, partials, counter = _device_scratch(V.device)
@@ -371,6 +403,8 @@ def fused_step(V, y, g, kp1: int, B: int, spec: StencilSpec,
     status = lib.kk_fused_step(
         V.data_ptr(), y.data_ptr(), ynext.data_ptr(), g.data_ptr(),
         partials.data_ptr(), raw.data_ptr(), counter.data_ptr(),
+        Vext.data_ptr() if Vext is not None else None,
+        yext.data_ptr() if yext is not None else None,
         kmax, R, B, kp1, int(with_drift),
         spec.h, spec.gc, spec.mrow, len(spec.taps),
         coef.ctypes.data, offs.ctypes.data, dxs.ctypes.data,

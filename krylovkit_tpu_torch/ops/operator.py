@@ -116,9 +116,12 @@ class LinearOperator:
 @dataclasses.dataclass(frozen=True)
 class TypedOperator(LinearOperator):
     """A callable operator whose scalar type is known: ``probe_dtype``
-    answers ``dtype`` without an apply (the pullbacks' bordered maps)."""
+    answers ``dtype`` without an apply (the pullbacks' bordered maps).  With
+    ``domain`` (the shape of a domain vector) ``probe_adjoint`` needs no
+    apply either."""
 
     dtype: torch.dtype = None
+    domain: Optional[Tuple[int, ...]] = None
 
 
 def _shift_flat(xf: torch.Tensor, d: int) -> torch.Tensor:
@@ -415,6 +418,9 @@ def probe_adjoint(op: LinearOperator, y0):
     if isinstance(op, MatrixOperator):
         dt = torch.promote_types(op.A.dtype, y0.dtype)
         return torch.empty((op.A.shape[1],) + tuple(y0.shape[1:]), dtype=dt, device="meta")
+    if isinstance(op, TypedOperator) and op.domain is not None:
+        dt = torch.promote_types(op.dtype, y0.dtype)
+        return torch.empty(op.domain, dtype=dt, device="meta")
     if isinstance(op, BandedOperator):
         dt = torch.promote_types(op.diags.dtype, y0.dtype)
         return torch.empty(y0.shape, dtype=dt, device="meta")

@@ -9,8 +9,10 @@ a plain tensor takes the same operations as it would without the tree
 helpers, which check for a tensor first.  Inner products are one sum of
 per-leaf ``vdot``s.  Custom inner products (the reference's
 ``InnerProductVec``) and the "real inner product" of ``realeigsolve`` are
-carried by a frozen :class:`VectorSpace`, as in the JAX package.  Sharded
-spaces (``psum_axis``) are not part of this port.
+carried by a frozen :class:`VectorSpace`, as in the JAX package.  A sharded
+space (``psum_axis``, a :class:`~.collectives.MeshAxis`) finishes every
+inner product with one all-reduce over the ranks that hold the vector's
+blocks.
 
 The tree helpers (``tree_map``, ``tree_leaves``, ``tree_flatten``,
 ``tree_unflatten``) are built on ``torch.utils._pytree`` and live here only.
@@ -23,6 +25,8 @@ from typing import Any, Callable, Optional
 
 import torch
 from torch.utils import _pytree as _pt
+
+from .collectives import as_axis
 
 __all__ = [
     "VectorSpace",
@@ -44,6 +48,8 @@ __all__ = [
     "tree_unflatten",
     "astype",
     "device_of",
+    "psum",
+    "refuse_sharded",
 ]
 
 PyTree = Any
@@ -92,13 +98,24 @@ class VectorSpace:
         conjugate-linear in ``x``.  ``None`` is the Euclidean inner product
         summed over all leaves.
       real_inner: use ``real(inner(x, y))`` (complex space treated as real).
+      psum_axis: the mesh axis (``parallel.make_mesh(...).axis("vec")``, or a
+        process group, made a :class:`~.collectives.MeshAxis` here) over
+        which every rank holds a block of the vector's rows (SPMD): inner
+        products, and the batched projections of ``ops.basis``, compute
+        local partials and finish with one all-reduce over it.
     """
 
     inner_fn: Optional[Callable[[PyTree, PyTree], torch.Tensor]] = None
     real_inner: bool = False
+    psum_axis: Any = None
+
+    def __post_init__(self):
+        if self.psum_axis is not None:
+            object.__setattr__(self, "psum_axis", as_axis(self.psum_axis))
 
     def inner(self, x: PyTree, y: PyTree) -> torch.Tensor:
         ip = self.inner_fn(x, y) if self.inner_fn is not None else _tree_inner(x, y)
+        ip = psum(ip, self.psum_axis)
         if self.real_inner:
             ip = torch.real(ip)
         return ip
@@ -110,6 +127,23 @@ class VectorSpace:
 
 STANDARD = VectorSpace()
 REAL = VectorSpace(real_inner=True)
+
+
+def psum(t: torch.Tensor, axis) -> torch.Tensor:
+    """The sum of the local partial ``t`` over the :class:`MeshAxis`
+    ``axis`` (one all-reduce; ``t`` itself when ``axis`` is ``None``)."""
+    return t if axis is None else axis.psum(t)
+
+
+def refuse_sharded(what: str, space) -> None:
+    """Raise ``NotImplementedError`` for a sharded ``space``: ``what`` has
+    not been audited for SPMD runs, where a rank-local reduction would give
+    ranks different answers or leave them waiting in a collective."""
+    if space is not None and getattr(space, "psum_axis", None) is not None:
+        raise NotImplementedError(
+            f"{what} does not run on a sharded space (psum_axis) in this port yet: "
+            "ROADMAP.md queue 1, item 8"
+        )
 
 
 def _inner(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

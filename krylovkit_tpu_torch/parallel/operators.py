@@ -1,19 +1,27 @@
-"""Benchmark operators (counterpart of ``krylovkit_tpu/parallel/operators.py``).
+"""Benchmark operators and their sharded forms (counterpart of
+``krylovkit_tpu/parallel/operators.py``).
 
-Both return fusable stencil operators: with ``(n/128, 128)`` float32
-vectors the Lanczos driver runs the fused expansion kernel.  An operator
-holds no data, so unlike the JAX builders these take no ``dtype``.  ``device``
-(default ``"cuda"``) is checked here, so asking for a card that is not
-there fails at construction.
+``laplacian_1d`` and ``poisson_2d`` return fusable stencil operators: with
+``(n/128, 128)`` float32 vectors the Lanczos driver runs the fused expansion
+kernel.  An operator holds no data, so unlike the JAX builders these take no
+``dtype``.  ``device`` (default ``"cuda"``) is checked here, so asking for a
+card that is not there fails at construction.
+
+The sharded forms apply to this rank's block of a vector split over a mesh
+axis (``parallel/mesh.py``): they exchange edge rows with the neighbouring
+ranks (zeros at the ends: the Dirichlet boundary), apply on the haloed
+strip and keep its interior.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..ops.collectives import as_axis
 from ..ops.operator import GridStencilOperator, LinearOperator, StencilOperator, resolve_device
+from .mesh import VECTOR_AXIS
 
-__all__ = ["laplacian_1d", "poisson_2d"]
+__all__ = ["laplacian_1d", "poisson_2d", "shard_local_stencil", "sharded_laplacian_1d"]
 
 
 def laplacian_1d(n: int, dirichlet: bool = True, device="cuda") -> LinearOperator:
@@ -40,3 +48,81 @@ def poisson_2d(nx: int, ny: int, device="cuda") -> LinearOperator:
         ((0, 0), (-1, 0), (1, 0), (0, -1), (0, 1)),
         (4.0, -1.0, -1.0, -1.0, -1.0),
     )
+
+
+def sharded_laplacian_1d(n: int, mesh, axis: str = VECTOR_AXIS) -> LinearOperator:
+    """``tridiag(-1, 2, -1)`` of length ``n`` on this rank's block of a
+    vector split over ``mesh``'s axis ``axis`` (any layout: the row-major
+    flattening of the block is its part of the chain).  Each apply brings
+    one element from either neighbour in one all-reduce.  A plain
+    (non-fusable) operator, as the JAX package's."""
+    ax = mesh.axis(axis)
+
+    def apply(x):
+        xf = x.reshape(-1)
+        if x.device.type != "meta" and xf.numel() * ax.size != n:
+            raise ValueError(f"a block of {xf.numel()} entries over {ax.size} ranks is not "
+                             f"a chain of {n}")
+        left, right = ax.edges(xf[:1], xf[-1:])
+        strip = torch.cat([left, xf, right])
+        return (2 * xf - strip[:-2] - strip[2:]).reshape(x.shape)
+
+    return LinearOperator(apply, apply)
+
+
+def shard_local_stencil(op, axis):
+    """Shard-local form of a fusable stencil operator for a vector whose
+    ``(R, 128)`` rows are split in blocks over the mesh axis ``axis`` (a
+    :class:`~.mesh.MeshAxis` or a process group): the apply brings ``h``
+    edge rows from either neighbour in one all-reduce (zeros at the global
+    ends), applies the stencil on the haloed strip and keeps the interior.
+    The static stencil metadata is kept, so the fused expansion stays
+    eligible on a space with ``psum_axis=axis``; its kernel takes the
+    neighbours' rows as external halos (``factorizations/krylov.py``).
+
+    Chains (:class:`StencilOperator`) and grids (:class:`GridStencilOperator`,
+    whose blocks must cut whole grid rows: the halo is rounded up to whole
+    grid rows) are supported; the adjoint is the reversed stencil, sharded
+    the same way."""
+    from ..ops import fused_lanczos as fl
+
+    spec = fl.spec_for(op)
+    if spec is None:
+        raise ValueError("shard_local_stencil requires a fusable stencil op")
+    ax = as_axis(axis)
+    h = spec.h
+    if spec.mrow:
+        # whole grid rows, so the haloed strip keeps the grid-column phase
+        h = -(-h // spec.mrow) * spec.mrow
+
+    def _mk(inner):
+        def apply(x):
+            above, below = ax.edges(x[:h], x[-h:])
+            return inner(torch.cat([above, x, below]))[h:-h]
+
+        return apply
+
+    if isinstance(op, GridStencilOperator):
+        gc = op.grid[1]
+        adj_off = tuple((-dy, -dx) for dy, dx in reversed(op.offsets2))
+        adj_cf = tuple(reversed(op.coeffs))
+
+        def grid_inner(offsets2, coeffs):
+            # the strip is a sub-grid of its own: dy reaches at most h rows
+            # and the dx masks are row-local
+            def inner(strip):
+                rows = strip.shape[0] * strip.shape[1] // gc
+                return GridStencilOperator((rows, gc), offsets2, coeffs).normal(strip)
+
+            return inner
+
+        return GridStencilOperator(
+            op.grid, op.offsets2, op.coeffs,
+            normal=_mk(grid_inner(op.offsets2, op.coeffs)),
+            adjoint=_mk(grid_inner(adj_off, adj_cf)),
+        )
+
+    normal = StencilOperator(op.offsets, op.coeffs).normal
+    adj_off = tuple(-d for d in reversed(op.offsets))
+    adjoint = StencilOperator(adj_off, tuple(reversed(op.coeffs))).normal
+    return StencilOperator(op.offsets, op.coeffs, normal=_mk(normal), adjoint=_mk(adjoint))

@@ -41,7 +41,7 @@ from ..factorizations import krylov as kf
 from ..info import STARTSTOP, ConvergenceInfo, log_if, warn_if
 from ..ops import basis as bs
 from ..ops.operator import as_operator, probe_dtype, resolve_device
-from ..ops.vector import STANDARD, VectorSpace, add, device_of, rounded, scale, tree_map
+from ..ops.vector import STANDARD, VectorSpace, refuse_sharded, add, device_of, rounded, scale, tree_map
 from .arnoldi import _leading_rows
 
 __all__ = ["bieigsolve"]
@@ -326,6 +326,7 @@ def bieigsolve(
     the JAX package's start vectors.  The solve runs on the device of
     ``v0``.  No differentiation rule, as in the JAX package: an input that
     requires grad raises ``NotImplementedError``."""
+    refuse_sharded("bieigsolve", space)
     if v0 is None or w0 is None:
         if isinstance(A, (np.ndarray, torch.Tensor)) and A.ndim == 2:
             v0, w0 = _default_starts(A, v0, w0)

@@ -24,7 +24,7 @@ from ..algorithms import Arnoldi, BlockLanczos, Lanczos
 from ..ops.block import Block
 from ..ad._common import needs_grad, refuse_grad
 from ..ops.operator import as_operator, concrete_start, probe_dtype
-from ..ops.vector import STANDARD, VectorSpace, device_of, tree_leaves
+from ..ops.vector import STANDARD, VectorSpace, device_of, refuse_sharded, tree_leaves
 from .arnoldi import eigsolve_arnoldi, realeigsolve_arnoldi
 from .arnoldi import schursolve as _schursolve_arnoldi
 from .blocklanczos import eigsolve_blocklanczos
@@ -51,11 +51,17 @@ def _probe_hermitian(A) -> bool:
     )
 
 
-def _default_x0(A, x0):
+def _default_x0(A, x0, space: VectorSpace = STANDARD):
     if x0 is not None:
         # breakdown guard for concrete starts (reference raises on β₀ == 0,
-        # src/factorizations/lanczos.jl:184)
-        if sum(float(torch.sum(torch.abs(l.detach()) ** 2)) for l in tree_leaves(x0)) == 0.0:
+        # src/factorizations/lanczos.jl:184).  On a sharded space x0 is this
+        # rank's block: the norm comes through the space (one all-reduce),
+        # so every rank raises or none does
+        if space.psum_axis is not None:
+            zero = float(space.norm(x0)) == 0.0
+        else:
+            zero = sum(float(torch.sum(torch.abs(l.detach()) ** 2)) for l in tree_leaves(x0)) == 0.0
+        if zero:
             raise ValueError("starting vector x0 has zero norm")
         return x0
     if _is_concrete(A) and A.ndim == 2:
@@ -114,10 +120,11 @@ def eigsolve(
             kw = dict(tol=tol, krylovdim=krylovdim, maxiter=maxiter, orth=orth,
                       eager=eager, verbosity=verbosity)
             alg = BlockLanczos(**{k: v for k, v in kw.items() if v is not None})
+        refuse_sharded("eigsolve with a Block start (Block Lanczos)", space)
         op = as_operator(A, device=x0.stacked.device)
         refuse_grad("eigsolve with a Block start (Block Lanczos)", op, x0.stacked)
         return eigsolve_blocklanczos(op, x0.stacked, howmany, which, alg, space)
-    x0 = _default_x0(A, x0)
+    x0 = _default_x0(A, x0, space)
     op = as_operator(A, device=device_of(x0))
     alg = _select_alg(
         A, ishermitian, alg, tol=tol, krylovdim=krylovdim, maxiter=maxiter,
@@ -140,6 +147,8 @@ def eigsolve(
             )
     if needs_grad(op, x0):
         from ..ad.eigsolve import eigsolve_vjp
+
+        refuse_sharded("a differentiable eigsolve", space)
 
         return eigsolve_vjp(howmany, which, alg, alg_rrule, space,
                             op.with_adjoint_from(x0), x0)
@@ -165,7 +174,7 @@ def schursolve(
     """Partial Schur decomposition ``(T, vecs, vals, info)`` (reference
     ``schursolve``, ``src/eigsolve/arnoldi.jl:1-150``).  Keywords other than
     ``space`` are the fields of :class:`Arnoldi`."""
-    x0 = _default_x0(A, x0)
+    x0 = _default_x0(A, x0, space)
     op = as_operator(A, device=device_of(x0))
     refuse_grad("schursolve", op, x0)
     return _schursolve_arnoldi(op, x0, howmany, which, _arnoldi_alg(alg, kw), space)
@@ -191,7 +200,7 @@ def realeigsolve(
     reference: ``max |imag|`` above ``imag_tol`` (default ``sqrt(eps)``)
     times ``max(1, max |vals|)``."""
     kw.pop("ishermitian", None)
-    x0 = _default_x0(A, x0)
+    x0 = _default_x0(A, x0, space)
     op = as_operator(A, device=device_of(x0))
     refuse_grad("realeigsolve", op, x0)
     vals, vecs, info, maximag = realeigsolve_arnoldi(

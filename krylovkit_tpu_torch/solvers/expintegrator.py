@@ -47,7 +47,7 @@ from ..info import STARTSTOP, ConvergenceInfo, log_if, warn_if
 from ..ops import basis as bs
 from ..ops import orthonormal as on
 from ..ops.operator import LinearOperator, as_operator, probe_dtype
-from ..ops.vector import STANDARD, VectorSpace, add, zerovector
+from ..ops.vector import STANDARD, VectorSpace, refuse_sharded, add, zerovector
 
 __all__ = ["expintegrator", "exponentiate"]
 
@@ -96,6 +96,7 @@ def expintegrator(
     """``y, info = expintegrator(A, t, (u₀, u₁, …))`` on the device of ``u₀``
     (reference ``src/matrixfun/expintegrator.jl:94-101``).  ``info.normres``
     is the accumulated error estimate; ``info.residual`` is ``None``."""
+    refuse_sharded("exponentiate/expintegrator", space)
     if more_u:
         u = (u,) + more_u
     if not isinstance(u, tuple):

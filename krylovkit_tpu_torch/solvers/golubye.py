@@ -34,7 +34,7 @@ from ..info import STARTSTOP, ConvergenceInfo, log_if, warn_if
 from ..ops import basis as bs
 from ..ops import orthonormal as on
 from ..ops.operator import LinearOperator, as_generalized_pair, concrete_start, probe_dtype
-from ..ops.vector import STANDARD, VectorSpace, rounded
+from ..ops.vector import STANDARD, VectorSpace, refuse_sharded, rounded
 
 __all__ = ["geneigsolve", "geneigsolve_golubye"]
 
@@ -173,6 +173,7 @@ def geneigsolve(AB, x0: Optional[torch.Tensor] = None, howmany: int = 1, which="
     positive definite.  The solve runs on ``x0``'s device, where numpy
     matrices are moved.  Reference: ``geneigsolve``
     (``src/eigsolve/geneigsolve.jl``), driver GolubYe."""
+    refuse_sharded("geneigsolve", space)
     if x0 is None:
         A0 = AB[0] if isinstance(AB, tuple) else AB
         if isinstance(A0, (np.ndarray, torch.Tensor)) and A0.ndim == 2:

@@ -29,7 +29,8 @@ import torch
 from ..algorithms import CG, GMRES, MINRES, BiCGStab, KrylovDefaults
 from ..ad._common import needs_grad
 from ..ops.operator import as_operator
-from ..ops.vector import REAL, STANDARD, VectorSpace, device_of, scalartype, tree_leaves, zerovector
+from ..ops.vector import (REAL, STANDARD, VectorSpace, device_of, refuse_sharded, scalartype,
+                          tree_leaves, zerovector)
 from .bicgstab import linsolve_bicgstab
 from .cg import linsolve_cg
 from .gmres import linsolve_gmres
@@ -42,6 +43,8 @@ def _linsolve_impl(op, b, x0, a0, a1, alg, space):
     """Driver dispatch."""
     if isinstance(alg, CG):
         return linsolve_cg(op, b, x0, a0, a1, alg, space)
+    if isinstance(alg, (MINRES, BiCGStab)):
+        refuse_sharded(f"linsolve with {type(alg).__name__}", space)
     if isinstance(alg, MINRES):
         return linsolve_minres(op, b, x0, a0, a1, alg, space)
     if isinstance(alg, BiCGStab):
@@ -77,13 +80,17 @@ def _probe_matrix(A):
     return herm, posdef
 
 
-def _resolve_tol(b, atol, rtol, tol):
+def _resolve_tol(b, atol, rtol, tol, space: VectorSpace = STANDARD):
     if tol is not None:
         return float(tol)
     atol = KrylovDefaults.tol if atol is None else atol
     rtol = KrylovDefaults.tol if rtol is None else rtol
     if rtol != 0:
-        nb = float(np.sqrt(sum(float(np.sum(np.abs(_host(l)) ** 2)) for l in tree_leaves(b))))
+        if space.psum_axis is not None:
+            # b is this rank's block: ‖b‖ through the space, the same on every rank
+            nb = float(space.norm(b))
+        else:
+            nb = float(np.sqrt(sum(float(np.sum(np.abs(_host(l)) ** 2)) for l in tree_leaves(b))))
         return max(float(atol), float(rtol) * nb)
     return float(atol)
 
@@ -156,7 +163,7 @@ def linsolve(
     if alg is not None and atol is None and rtol is None and tol is None:
         tolv = None
     else:
-        tolv = _resolve_tol(b, atol, rtol, tol)
+        tolv = _resolve_tol(b, atol, rtol, tol, space)
     alg = _select_alg(
         A, a0, a1, ishermitian, isposdef, alg, tolv,
         maxiter=maxiter, krylovdim=krylovdim, orth=orth, verbosity=verbosity,
@@ -168,6 +175,8 @@ def linsolve(
     a1 = torch.as_tensor(a1, dtype=cdt, device=dev)
     if needs_grad(op, b, x0, a0, a1):
         from ..ad.linsolve import linsolve_vjp
+
+        refuse_sharded("a differentiable linsolve", space)
 
         return linsolve_vjp(alg, alg_rrule or alg, space, op.with_adjoint_from(b), b, x0, a0, a1)
     return _linsolve_impl(op, b, x0, a0, a1, alg, space)

@@ -186,7 +186,7 @@ def lssolve(
     if tol is None and alg is not None and atol is None and rtol is None:
         # an explicit algorithm carries its own tol (see the linsolve front-end)
         tol = alg.tol
-    tol = _resolve_tol(b, atol, rtol, tol)
+    tol = _resolve_tol(b, atol, rtol, tol, space)
     if alg is None:
         kw = dict(
             tol=tol, krylovdim=krylovdim, maxiter=maxiter, orth=orth,

@@ -48,7 +48,7 @@ from ..ops.operator import (
     require_adjoint,
     resolve_device,
 )
-from ..ops.vector import REAL, STANDARD, VectorSpace, rounded, scalartype
+from ..ops.vector import REAL, STANDARD, VectorSpace, refuse_sharded, rounded, scalartype
 
 __all__ = ["svdsolve", "realsvdsolve", "svdsolve_gkl"]
 
@@ -304,6 +304,9 @@ def svdsolve(
     # sweep breaks down (α → 0) with nothing left to find.  The codomain side
     # needs no cap: β → 0 there is caught by the breakdown guard.
     domain_dim = probe_adjoint(op, x0).numel()
+    if space.psum_axis is not None:
+        # x0 is this rank's block: the domain is split over the axis too
+        domain_dim *= space.psum_axis.size
     if alg is None:
         kw = dict(
             tol=tol, krylovdim=krylovdim, maxiter=maxiter, orth=orth,
@@ -316,6 +319,8 @@ def svdsolve(
         alg = dataclasses.replace(alg, krylovdim=domain_dim)
     if needs_grad(op, x0):
         from ..ad.svdsolve import svdsolve_vjp
+
+        refuse_sharded("a differentiable svdsolve", space)
 
         return svdsolve_vjp(howmany, which, alg, alg_rrule, space, op, x0)
     return svdsolve_gkl(op, x0, howmany, which, alg, space)

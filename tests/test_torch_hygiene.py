@@ -39,8 +39,10 @@ def test_port_has_files():
         "expintegrator.py", "gkl.py", "svd.py", "svdsolve.py", "lssolve.py",
         "golubye.py", "blocklanczos.py", "block.py", "sparse.py",
         "gauge.py", "_common.py", "vector.py", "basis.py",
-        "biarnoldi.py", "iterators.py",
+        "biarnoldi.py", "iterators.py", "mesh.py", "operators.py",
     } <= names
+    parallel = {p.name for p in PORT_FILES if p.parent.name == "parallel"}
+    assert {"__init__.py", "mesh.py", "operators.py", "sparse.py"} <= parallel
     solvers = {p.name for p in PORT_FILES if p.parent.name == "solvers"}
     factorizations = {p.name for p in PORT_FILES if p.parent.name == "factorizations"}
     assert "biarnoldi.py" in solvers and "iterators.py" in factorizations
@@ -59,3 +61,17 @@ def test_importing_the_port_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+OPS_FILES = sorted((ROOT / "krylovkit_tpu_torch" / "ops").glob("*.py"))
+UPWARD = re.compile(r"^\s*(from\s+(\.\.|krylovkit_tpu_torch\.)parallel|import\s+krylovkit_tpu_torch"
+                    r"\.parallel)", re.M)
+
+
+@pytest.mark.parametrize("path", OPS_FILES, ids=lambda p: p.name)
+def test_ops_layer_imports_no_distribution_layer(path):
+    """The vector, basis and operator layer sits below ``parallel/``: a
+    sharded space holds a ``MeshAxis`` of ``ops/collectives.py``, and a
+    sharded operator states its domain through ``TypedOperator``."""
+    bad = [m.group(0) for m in UPWARD.finditer(path.read_text())]
+    assert not bad, f"{path.name} imports the distribution layer: {bad}"

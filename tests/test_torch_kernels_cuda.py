@@ -646,3 +646,66 @@ def test_bieig_and_lanczos_variants_small_width_on_card():
     assert set(out["bieig"]) == {"banded_spmv"}
     got = lanczos_variants(torch, np, kt, _build, bd, bs, fl, pb, N=64)
     assert set(got["iterators"]) == {"banded_spmv"}
+
+
+# K1 with external halos (a rank's block of a vector split over ranks): the
+# chain and grid specs, B in {0, 1, 12, 30}, with and without drift
+EXT_CASES = [(kind, B, drift) for kind in ("chain", "chain_multirow", "grid")
+             for B in (0, 1, 12, 30) for drift in (False, True)]
+
+
+@pytest.mark.parametrize("kind,B,with_drift", EXT_CASES)
+def test_fused_step_with_external_halos_matches_plain(kind, B, with_drift):
+    spec, R = _fused_case(kind, None)
+    kmax, kp1 = 31, max(B, 1)
+    gen = _gen(100 + B)
+    V = torch.randn((kmax, R, 128), generator=gen, device="cuda")
+    y = torch.randn((R, 128), generator=gen, device="cuda")
+    g = torch.randn(kmax + 1, generator=gen, device="cuda")
+    halos = {"Vext": torch.randn((kmax, 2, spec.h, 128), generator=gen, device="cuda"),
+             "yext": torch.randn((2, spec.h, 128), generator=gen, device="cuda")}
+    Vk, Vr = V.clone(), V.clone()
+    before = _build.launches["fused_step"]
+    yk, rk = fl.fused_step(Vk, y, g, kp1, B, spec, with_drift, **halos)
+    assert _build.launches["fused_step"] == before + 1
+    yr, rr = fl.fused_step_reference(Vr, y, g, kp1, B, spec, with_drift, **halos)
+    torch.cuda.synchronize()
+    assert torch.equal(Vk[:kp1], V[:kp1]) and torch.equal(Vk[kp1 + 1:], V[kp1 + 1:])
+    sc = float(yr.abs().max())
+    assert float((Vk[kp1] - Vr[kp1]).abs().max()) <= 2e-4 * sc
+    assert float((yk - yr).abs().max()) <= 2e-4 * sc
+    torch.testing.assert_close(rk, rr, rtol=2e-4, atol=2e-3 * R ** 0.5)
+    # the halos change the result (the rows beyond the block are read)
+    Vn = V.clone()
+    yn, _ = fl.fused_step(Vn, y, g, kp1, B, spec, with_drift)
+    assert not torch.equal(yn, yk)
+    Vk2 = V.clone()
+    yk2, rk2 = fl.fused_step(Vk2, y, g, kp1, B, spec, with_drift, **halos)
+    assert torch.equal(yk, yk2) and torch.equal(rk, rk2) and torch.equal(Vk, Vk2)
+
+
+@pytest.mark.parametrize("kind", ["chain", "grid"])
+def test_fused_step_null_halos_are_the_dirichlet_launch(kind):
+    """Without halos (null pointers) the kernel takes zeros beyond the block,
+    as before the halos existed: bit-equal to a launch with zero halos, and
+    to the plain version within the usual tolerance."""
+    spec, R = _fused_case(kind, None)
+    gen = _gen(7)
+    V = torch.randn((31, R, 128), generator=gen, device="cuda")
+    y = torch.randn((R, 128), generator=gen, device="cuda")
+    g = torch.randn(32, generator=gen, device="cuda")
+    zero = {"Vext": torch.zeros((31, 2, spec.h, 128), device="cuda"),
+            "yext": torch.zeros((2, spec.h, 128), device="cuda")}
+    V1, V2 = V.clone(), V.clone()
+    a = fl.fused_step(V1, y, g, 13, 12, spec, True)
+    b = fl.fused_step(V2, y, g, 13, 12, spec, True, **zero)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) and torch.equal(V1, V2)
+
+
+def test_small_sharded_scenarios_on_card_match_cpu():
+    """The ``small_sharded`` phase of ``chip_smoke.py``: the sharded
+    scenarios on two gloo ranks with CUDA tensors against two CPU ranks."""
+    from chip_smoke import small_sharded
+
+    launches = small_sharded(torch, np, world=2)
+    assert launches.get("fused_step", 0) > 0 and launches.get("project", 0) > 0

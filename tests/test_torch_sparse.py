@@ -7,9 +7,9 @@ the packing (``_coo_to_ell``) and the banded planes of ``ell_to_banded``
 bit for bit; applies 1e-12 of ``Σ|a_ij||x_j|`` in float64/complex128 and
 1e-6 in float32/complex64 (the two sum a row's products in different
 orders); solves as in the other parity files (values rtol 1e-10, counts
-equal).  The dict-vector and sharded-mesh cases are not mirrored: pytree
-vectors and distribution are not ported yet (ROADMAP queue 1, items 6 and
-8).
+equal).  The dict-vector and sharded-mesh cases are not mirrored here:
+pytree vectors are ROADMAP queue 1, item 9; the sharded ones are in
+``tests/test_torch_parallel_sparse.py`` and ``tests/test_torch_sharded.py``.
 """
 
 import jax.numpy as jnp
