@@ -142,11 +142,40 @@ without the final ``ok`` line:
    ranks: K1 per rank with the neighbours' edge rows as external halos
    (138 / K1 128 / K2 11 and 421 / K1 406 per rank, values within 1e-4 of
    phase main's, true residual within 1e-3 of phase config2's);
-26. profile (only with ``--profile``) — one more config-1 solve and one
+26. small_front_ends — the front-ends of ``front_end_cases`` on a sharded
+   space (MINRES, BiCGStab, ``exponentiate`` unfused and fused,
+   ``expintegrator``, ``geneigsolve``, ``bieigsolve``, Block Lanczos,
+   MINRES on a dict vector, the five iterators; float64 at n = 832, the
+   fused ``exponentiate`` float32 at 2^15) on two card ranks against two
+   CPU ranks run at the same time: within 1e-12 (float32 2e-4), counts
+   equal, every rank the same bits, K1 launched per card rank;
+27. sharded_front_ends — at full width on two ranks, each solve against the
+   same solve on one rank, the projection kernels on in both: config 5's
+   operator (planned once a rank) through Block Lanczos (4 "LM", b = 4,
+   krylovdim 30, maxiter 8), MINRES and BiCGStab (b = ones, tol 1e-6,
+   maxiter 10 and 5), ``geneigsolve`` with a diagonal SPD ``B`` (4 "SR",
+   krylovdim 30, maxiter 4, tol 1e-30) and 30 ``LanczosIterator``
+   expansions; ``bieigsolve`` on config
+   4's tridiagonal (n = 2^20, the parameters of phase 20; the adjoint
+   plan); the fused ``exponentiate`` of config 4 on ``shard_local_stencil``
+   (K1 per rank).  Counts, launches per rank and every rank's bits equal,
+   values within 1e-4, the linear solves' true residuals within 1e-3; the
+   slowest rank's ms, the collectives and their ms, the one-rank ms;
+28. pytree_drivers — small float64 tree solves (``svdsolve`` from a dict
+   domain to a tuple codomain, ``lssolve`` with λ, ``geneigsolve``,
+   ``expintegrator`` with three vectors, Block Lanczos on a ``Block`` of
+   dicts) on the card against the CPU within 1e-12; then at full width,
+   every vector cut into two leaves by rows: config 3's rectangular map
+   through ``svdsolve`` (K2 per leaf) and config 4's ``exponentiate``
+   against phases 12 and 13, the 1024² Q1 pencil through ``geneigsolve``
+   and config 2's banded Poisson through Block Lanczos (float64, K3)
+   against single-tensor solves: within 1e-4, counts equal where the
+   solves run to ``maxiter``;
+29. profile (only with ``--profile``) — one more config-1 solve and one
    more fused config-4 solve under ``torch.profiler``: device busy time and idle share, device ops, host
    reads of device scalars, device time by kernel name.
 
-The ranks of phases 22-25 are spawned processes (``start_ranks``) joined
+The ranks of phases 22-27 are spawned processes (``start_ranks``) joined
 through a ``FileStore`` in a temporary directory, each collective bounded
 by a 120 s timeout; a failed rank fails the script.  One card serves every
 rank, so these phases measure correctness and the cost of the collectives,
@@ -159,9 +188,9 @@ printed as ``parent_ms`` beside ``ms`` (without it ``parent_ms`` is null).
 ``--kernel-times`` is that process: it times K1 and K2 of the package under
 ``--root`` (default: this tree) and prints one JSON line.
 
-Each path (phases 5, 7, 9, 12, 13, 14, 15, 17, 18, 20, 21, 24 and 25, one solve or iterator at
-a time, the forward and the backward of a differentiable solve apart; in 24 and 25 in every
-rank) is driven with the launch counts set to 0 just before it and read just after.  Then the kernel
+Each path (phases 5, 7, 9, 12, 13, 14, 15, 17, 18, 20, 21, 24, 25, 27 and 28, one solve or
+iterator at a time, the forward and the backward of a differentiable solve apart; in 24, 25 and
+27 in every rank) is driven with the launch counts set to 0 just before it and read just after.  Then the kernel
 summary line, the ``nvidia-smi`` name/power line, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -2571,17 +2600,17 @@ SMALL_SHARDED_TOL = 1e-12  # float64: card ranks against CPU ranks, relative to 
 SMALL_SHARDED_TOL32 = 2e-4  # float32 (the fused Lanczos and K5): kernel against plain version
 
 
-def compare_sharded(np, card, cpu):
-    """Each scenario of ``sharded_cases`` on the card's ranks against the
-    CPU's: arrays within :data:`SMALL_SHARDED_TOL` of the largest entry
-    (float32 ones within :data:`SMALL_SHARDED_TOL32`), everything else
-    (counts, plans, flags) equal; fused eigenvectors by ``|<a, b>| ≈ 1``.
-    Returns one record per scenario."""
+def compare_sharded(np, card, cpu, phase="small_sharded"):
+    """Each scenario of ``sharded_cases`` (or ``front_end_cases``) on the
+    card's ranks against the CPU's: arrays within :data:`SMALL_SHARDED_TOL`
+    of the largest entry (float32 ones within :data:`SMALL_SHARDED_TOL32`),
+    everything else (counts, plans, flags) equal; fused eigenvectors by
+    ``|<a, b>| ≈ 1``.  Returns one record per scenario."""
     records = []
     for name, want in cpu.items():
         got = card[name]
         require("error" not in got and "error" not in want,
-                f"small_sharded {name}: ran on both ({got.get('error') or want.get('error')})")
+                f"{phase} {name}: ran on both ({got.get('error') or want.get('error')})")
         worst = 0.0
         for key, w in want.items():
             g = got[key]
@@ -2589,16 +2618,16 @@ def compare_sharded(np, card, cpu):
                 continue
             if key == "vecs":
                 dots = [abs(float(np.dot(a.ravel(), b.ravel()))) for a, b in zip(g, w)]
-                require(all(abs(d - 1) <= 1e-3 for d in dots), f"small_sharded {name}: vectors")
+                require(all(abs(d - 1) <= 1e-3 for d in dots), f"{phase} {name}: vectors")
                 continue
             if isinstance(w, np.ndarray):
                 tol = SMALL_SHARDED_TOL32 if w.dtype == np.float32 else SMALL_SHARDED_TOL
                 err = float(np.max(np.abs(g - w)) / max(float(np.max(np.abs(w))), 1e-300))
                 require(g.shape == w.shape and err <= tol,
-                        f"small_sharded {name}.{key}: card within {tol} of CPU ({err})")
+                        f"{phase} {name}.{key}: card within {tol} of CPU ({err})")
                 worst = max(worst, err)
             else:
-                require(g == w, f"small_sharded {name}.{key}: card {g} == CPU {w}")
+                require(g == w, f"{phase} {name}.{key}: card {g} == CPU {w}")
         records.append({"scenario": name, "max_rel_err": worst,
                         "launches_per_rank": got.get("launches", {}),
                         **{k: got[k] for k in ("numops", "numiter", "converged") if k in got}})
@@ -2636,6 +2665,201 @@ def small_sharded(torch, np, world=2):
           "tolerance": SMALL_SHARDED_TOL, "tolerance_float32": SMALL_SHARDED_TOL32,
           "launches_per_rank": launches, "seconds": time.perf_counter() - t0})
     return launches
+
+
+# ---------------------------------------------------------------------------
+# the remaining front-ends on a sharded space
+# ---------------------------------------------------------------------------
+
+FRONT_END_N = 104 * 8  # whole blocks over 2 and 4 ranks
+FRONT_END_TRI = (-1.3, 2.0, -0.7)  # config 4's transport-diffusion tridiagonal
+FRONT_END_NEG_LAP = ((-1, 0, 1), (1.0, -2.0, 1.0))  # the operator config 4's exponentiate takes
+FRONT_END_ITERATORS = ("lanczos_iterator", "arnoldi_iterator", "gkl_iterator",
+                       "block_lanczos_iterator", "biarnoldi_iterator")
+FRONT_END_STEPS = 10  # expansions of each iterator
+
+
+def front_end_problem(np, P, name):
+    """The global data of scenario ``name`` of :func:`front_end_cases`:
+    COO triplets (``coo``, and ``coo_b`` for a pencil; shape ``shape``) and
+    start vectors from numpy seeds.  ``P`` is a ``parallel`` module (this
+    port's, or the JAX package's for the other side of a comparison: their
+    ``banded_coo`` and ``rect_sparse_coo`` make the same triplets)."""
+    n = FRONT_END_N
+    rng = np.random.default_rng(sum(map(ord, name)))
+    if name == "exponentiate_fused":
+        n = 1 << 15
+        return {"n": n, "x": rng.standard_normal((n // 128, 128)).astype(np.float32)}
+    out = {"shape": (n, n)}
+    if name in ("bicgstab", "arnoldi_iterator", "biarnoldi_iterator"):
+        out["coo"] = tridiagonal_coo(np, n, *FRONT_END_TRI, np.float64)
+    elif name == "bieigsolve":
+        # random non-symmetric couplings on a graded diagonal: well separated,
+        # well conditioned eigenvalues of largest modulus
+        rows, cols, vals = tridiagonal_coo(np, n, *FRONT_END_TRI, np.float64)
+        off = rows != cols
+        vals[off] = 0.1 * rng.standard_normal(int(off.sum()))
+        vals[~off] = 4 * np.linspace(0, 1, n) ** 8
+        out["coo"] = (rows, cols, vals)
+    elif name == "gkl_iterator":
+        out["shape"] = (96 * 8, 48 * 8)
+        out["coo"] = P.rect_sparse_coo(*out["shape"], nnz_per_row=6, seed=21)
+    else:
+        out["coo"] = P.banded_coo(n, halfband=4, seed=11, spd=True)
+    if name == "geneigsolve":
+        i = np.arange(n)
+        out["coo_b"] = (i, i, 1.0 + rng.random(n))
+    rows = out["shape"][0]
+    out["x"], out["y"], out["z"] = rng.standard_normal((3, rows))
+    out["block"] = rng.standard_normal((3, rows))
+    return out
+
+
+def front_end_cases(torch, np, kt, dev="cpu", names=None):
+    """The scenarios of the tenth slice on this rank (called on every rank
+    of a group, ``run_ranks``): MINRES, BiCGStab, ``exponentiate`` unfused
+    (float64, the sharded ELL operator) and fused (float32,
+    ``shard_local_stencil``: K1 per rank with external halos),
+    ``expintegrator`` with three vectors, ``geneigsolve`` with a sharded
+    diagonal ``B``, ``bieigsolve`` (the adjoint plan), Block Lanczos, MINRES
+    on a dict vector whose leaves are sharded, and the five iterators
+    (:data:`FRONT_END_STEPS` expansions: the projected matrix and ``β``).
+    Each returns global values and counts, or ``{"error": traceback}``;
+    ``names`` picks some."""
+    import traceback
+
+    from krylovkit_tpu_torch import _build
+    from krylovkit_tpu_torch.factorizations import krylov as kf
+    from krylovkit_tpu_torch.ops.vector import VectorSpace
+
+    P = kt.parallel
+    mesh = P.make_mesh(device=dev)
+    ax = mesh.axis(P.VECTOR_AXIS)
+    space = VectorSpace(psum_axis=ax)
+    quiet = {"verbosity": kt.SILENT}
+
+    def sv(a):
+        return P.shard_vector(torch.as_tensor(np.asarray(a)), mesh)
+
+    def host(t, dim=0):
+        return gather(torch, ax, t, dim).cpu().numpy()
+
+    def ell(prob, key="coo"):
+        return P.sharded_ell_from_coo(*prob[key], prob["shape"], mesh)
+
+    def minres():
+        prob = front_end_problem(np, P, "minres")
+        x, info = kt.linsolve(ell(prob), sv(prob["x"]), alg=kt.MINRES(tol=1e-10, maxiter=400, **quiet),
+                              space=space)
+        return {"x": host(x), **_infos(info)}
+
+    def bicgstab():
+        prob = front_end_problem(np, P, "bicgstab")
+        x, info = kt.linsolve(ell(prob), sv(prob["x"]), None, 1.0, 1.0,
+                              alg=kt.BiCGStab(tol=1e-10, maxiter=400, **quiet), space=space)
+        return {"x": host(x), **_infos(info)}
+
+    def exponentiate():
+        prob = front_end_problem(np, P, "exponentiate")
+        y, info = kt.exponentiate(ell(prob), -0.05, sv(prob["x"]), ishermitian=True, tol=1e-10,
+                                  krylovdim=20, space=space, **quiet)
+        return {"y": host(y), **_infos(info)}
+
+    def exponentiate_fused():
+        prob = front_end_problem(np, P, "exponentiate_fused")
+        op = P.shard_local_stencil(kt.StencilOperator(*FRONT_END_NEG_LAP), ax)
+        x0 = sv(prob["x"])
+        alg = kt.Lanczos(krylovdim=30, tol=1e-4, **quiet)
+        eligible = kf.fused_available(op, x0, space, kmax=alg.krylovdim + 1)
+        _build.reset_launches()
+        y, info = kt.exponentiate(op, 0.1, x0, alg=alg, space=space)
+        return {"y": host(y), "fused": eligible, "launches": dict(_build.launches),
+                **_infos(info)}
+
+    def expintegrator():
+        prob = front_end_problem(np, P, "expintegrator")
+        u = [sv(prob[k]) for k in ("x", "y", "z")]
+        y, info = kt.expintegrator(ell(prob), 0.1, *u, ishermitian=True, tol=1e-10, krylovdim=20,
+                                   space=space, **quiet)
+        return {"y": host(y), **_infos(info)}
+
+    def geneigsolve():
+        prob = front_end_problem(np, P, "geneigsolve")
+        vals, vecs, info = kt.geneigsolve((ell(prob), ell(prob, "coo_b")), sv(prob["x"]), 2, "SR",
+                                          krylovdim=25, tol=1e-8, maxiter=200, space=space,
+                                          **quiet)
+        X = host(vecs, dim=1)
+        # each vector's sign fixed by its largest entry (devices may pick either)
+        X *= np.sign(X[np.arange(len(X)), np.abs(X).argmax(1)])[:, None]
+        return {"vals": vals.cpu().numpy(), "vectors": X, **_infos(info)}
+
+    def bieigsolve():
+        prob = front_end_problem(np, P, "bieigsolve")
+        vals, (V, W), (iv, _) = kt.bieigsolve(ell(prob), sv(prob["x"]), sv(prob["y"]), 3, "LM",
+                                              krylovdim=24, tol=1e-10, maxiter=100, space=space,
+                                              **quiet)
+        return {"vals": vals.cpu().numpy(), **_infos(iv)}
+
+    def block_lanczos():
+        prob = front_end_problem(np, P, "block_lanczos")
+        X0 = kt.Block([sv(b) for b in prob["block"]])
+        vals, vecs, info = kt.eigsolve(ell(prob), X0, 3, "LM", tol=1e-10, krylovdim=30,
+                                       maxiter=100, space=space, **quiet)
+        return {"vals": vals.cpu().numpy(), **_infos(info)}
+
+    def minres_tree():
+        # a dict vector, each leaf sharded on its rows; the map is the
+        # operator on each leaf plus a coupling of the two
+        prob = front_end_problem(np, P, "minres_tree")
+        A = ell(prob)
+
+        def apply(v):
+            return {"p": A.normal(v["p"]) + 0.5 * v["q"], "q": A.normal(v["q"]) + 0.5 * v["p"]}
+
+        b = {"p": sv(prob["x"]), "q": sv(prob["y"])}
+        x, info = kt.linsolve(apply, b, alg=kt.MINRES(tol=1e-10, maxiter=400, **quiet),
+                              space=space)
+        return {"p": host(x["p"]), "q": host(x["q"]), **_infos(info)}
+
+    def iterator(name):
+        prob = front_end_problem(np, P, name)
+        A = ell(prob)
+        x0 = sv(prob["x"])
+        its = {
+            "lanczos_iterator": lambda: kt.LanczosIterator(A, x0, krylovdim=12, space=space),
+            "arnoldi_iterator": lambda: kt.ArnoldiIterator(A, x0, krylovdim=12, space=space),
+            "gkl_iterator": lambda: kt.GKLIterator(A, x0, krylovdim=12, space=space),
+            "block_lanczos_iterator": lambda: kt.BlockLanczosIterator(
+                A, kt.Block([sv(b) for b in prob["block"][:2]]).stacked, krylovdim=24,
+                space=space),
+            "biarnoldi_iterator": lambda: kt.BiArnoldiIterator(A, x0, sv(prob["y"]),
+                                                               krylovdim=12, space=space),
+        }
+        it = its[name]()
+        st = it.initialize()
+        for _ in range(FRONT_END_STEPS):
+            st = it.expand(st)
+        if name == "biarnoldi_iterator":
+            return {"H": st[0].H.cpu().numpy(), "K": st[1].H.cpu().numpy(),
+                    "beta": st[0].beta.cpu().numpy(), "beta_left": st[1].beta.cpu().numpy(),
+                    "k": st[0].k}
+        return {"H": kt.rayleighquotient(st).cpu().numpy(), "beta": kt.normres(st).cpu().numpy(),
+                "k": int(st.k)}
+
+    scenarios = {"minres": minres, "bicgstab": bicgstab, "exponentiate": exponentiate,
+                 "exponentiate_fused": exponentiate_fused, "expintegrator": expintegrator,
+                 "geneigsolve": geneigsolve, "bieigsolve": bieigsolve,
+                 "block_lanczos": block_lanczos, "minres_tree": minres_tree,
+                 **{name: (lambda name=name: iterator(name)) for name in FRONT_END_ITERATORS}}
+    out = {}
+    for name, fn in scenarios.items():
+        if names is not None and name not in names:
+            continue
+        try:
+            out[name] = fn()
+        except Exception:  # noqa: BLE001 - the same on every rank; reported per scenario
+            out[name] = {"error": traceback.format_exc()}
+    return out
 
 
 def nccl_mesh1(torch, np, kt, dev="cuda", n=1 << 16):
@@ -2946,10 +3170,524 @@ def slice9(sharded, name):
             "launches_small_sharded_per_rank": sharded["small"].get(name, 0)}
 
 
+# ---------------------------------------------------------------------------
+# phases 26-28: the remaining front-ends on a sharded space, pytree drivers
+# ---------------------------------------------------------------------------
+
+FE_TOL = 1e-4  # sharded against one rank, float32 at full width
+FE_RESIDUAL_TOL = 1e-3
+# tol 1e-6 is absolute, below the float32 floor of |b| = 1448 (b = ones at
+# n = 2^21): both linear solves run these iterations, fixed work, and end
+# with true residuals far above that floor, which two roundings agree on
+FE_MINRES_ITERS = 10
+FE_BICGSTAB_ITERS = 5
+FE_ITERATOR_STEPS = 30
+FE_GENEIG_ITERS = 4  # fixed work (tol 1e-30), as Block Lanczos and bieig
+
+
+def small_front_ends(torch, np, world=2):
+    """Phase ``small_front_ends``: :func:`front_end_cases` on ``world``
+    ranks of one gloo group with CUDA tensors and, at the same time, on
+    ``world`` CPU ranks: card within 1e-12 of the CPU (float64; the fused
+    ``exponentiate`` in float32 within 2e-4), counts equal, every rank the
+    same bits, K1 launched on every card rank by the fused ``exponentiate``.
+    Returns the launches per card rank over the scenarios."""
+    t0 = time.perf_counter()
+    on_card = start_ranks(world, "front_end_cases", dev="cuda", threads=2, timeout=600)
+    on_cpu = start_ranks(world, "front_end_cases", dev="cpu", threads=2, timeout=600)
+    try:
+        card = same_on_every_rank(np, collect_ranks(on_card))
+    finally:
+        cpu = same_on_every_rank(np, collect_ranks(on_cpu))
+    records = compare_sharded(np, card, cpu, phase="small_front_ends")
+    fused = card["exponentiate_fused"]
+    require(fused["fused"] and fused["launches"].get("fused_step", 0) > 0,
+            f"small_front_ends: the fused exponentiate launched K1 on every card rank "
+            f"({fused['launches']})")
+    launches = {}
+    for name in card:
+        for key, count in card[name].get("launches", {}).items():
+            launches[key] = launches.get(key, 0) + count
+    emit({"phase": "small_front_ends", "ranks": world, "backend": "gloo", "scenarios": records,
+          "tolerance": SMALL_SHARDED_TOL, "tolerance_float32": SMALL_SHARDED_TOL32,
+          "k1_launches_per_rank_exponentiate": fused["launches"].get("fused_step", 0),
+          "launches_per_rank": launches, "seconds": time.perf_counter() - t0})
+    return launches
+
+
+def front_ends_data(np, n, n4):
+    """The start data of phase ``sharded_front_ends``: the same on every
+    rank and in the one-rank solves."""
+    rng = np.random.default_rng(11)
+    R, R4 = n // 128, n4 // 128
+    return {
+        "block": rng.standard_normal((4, R, 128)).astype(np.float32),
+        "x0": np.random.default_rng(8).standard_normal((R, 128)).astype(np.float32),
+        "b": np.ones((R, 128), np.float32),
+        "v0": np.random.default_rng(1).standard_normal((R4, 128)).astype(np.float32),
+        "w0": np.random.default_rng(10).standard_normal((R4, 128)).astype(np.float32),
+    }
+
+
+# the four smallest values of phase sharded_front_ends' pencil, about
+FE_PENCIL_TARGETS = (1.0, 1.05, 1.1, 1.15)
+
+
+def front_ends_pencil_b(np, rows, cols, vals, n):
+    """The diagonal of phase ``sharded_front_ends``' ``B`` for config 5's
+    ``A`` (its COO): ``(1 + U(0, 1)) / 128``, but ``A_ii / t_i`` on four rows
+    spread over the ranks, ``t`` = :data:`FE_PENCIL_TARGETS`.  The pencil's
+    four smallest values are then about ``t`` and every other lies above
+    64 (``λ_min(A) >= 1`` by diagonal dominance); at the shift ``ρ ≈ 1``
+    the four are the lowest eigenvalues of ``A − ρB`` (below 0.6, the rest
+    above 0.98), so the Ritz values of a fixed count of Golub-Ye cycles
+    settle on them, the same to ~1e-6 however a reduction rounds.  (With
+    ``B`` random everywhere the smallest of 2^21 values crowd and the Ritz
+    values beyond the first move with every rounding; where the solve may
+    converge, float32 roundings converge cycles apart.)"""
+    on = rows == cols
+    dA = np.zeros(n)
+    dA[rows[on]] = vals[on]
+    dB = (1.0 + np.random.default_rng(12).random(n)) / 128
+    heavy = np.arange(1, 8, 2) * (n // 8)
+    dB[heavy] = dA[heavy] / np.asarray(FE_PENCIL_TARGETS)
+    return dB.astype(np.float32)
+
+
+def front_ends_solves(kt, A, B, tri, chain, vecs, space, host):
+    """The solves of phase ``sharded_front_ends`` by name, each a function
+    of no argument returning the values the ranks and the one-rank solve are
+    compared on: Block Lanczos, MINRES, BiCGStab, ``geneigsolve`` and a
+    ``LanczosIterator`` on config 5's operator ``A`` (``B`` diagonal SPD),
+    ``bieigsolve`` on config 4's tridiagonal ``tri`` and the fused
+    ``exponentiate`` of config 4's chain ``chain``.  ``vecs`` holds the
+    start vectors (this rank's blocks on a sharded ``space``); ``host``
+    brings a vector to one global numpy array."""
+    from krylovkit_tpu_torch.ops.vector import add
+
+    quiet = {"verbosity": kt.SILENT}
+
+    def eig(vals, info):
+        return {"vals": vals.cpu().numpy(), **_infos(info)}
+
+    def block():
+        vals, _, info = kt.eigsolve(A, kt.Block(vecs["block"]), 4, "LM", krylovdim=30, maxiter=8,
+                                    tol=1e-30, space=space, **quiet)
+        return eig(vals, info)
+
+    def linear(alg):
+        def solve():
+            x, info = kt.linsolve(A, vecs["b"], alg=alg, space=space)
+            res = float(space.norm(add(vecs["b"], A.normal(x), a=-1)))
+            return {"x": host(x), "true_residual": res, "b_norm": float(space.norm(vecs["b"])),
+                    "maxiter": alg.maxiter, **_infos(info)}
+        return solve
+
+    def geneig():
+        vals, _, info = kt.geneigsolve((A, B), vecs["x0"], 4, "SR", krylovdim=30,
+                                       maxiter=FE_GENEIG_ITERS, tol=1e-30, space=space, **quiet)
+        return eig(vals, info)
+
+    def iterator():
+        it = kt.LanczosIterator(A, vecs["x0"], krylovdim=FE_ITERATOR_STEPS, space=space)
+        st = it.initialize()
+        for _ in range(FE_ITERATOR_STEPS):
+            st = it.expand(st)
+        return {"H": st.H.cpu().numpy(), "beta": st.beta.cpu().numpy(), "k": st.k,
+                "numops": FE_ITERATOR_STEPS}
+
+    def bieig():
+        vals, _, (info, _) = kt.bieigsolve(tri, vecs["v0"], vecs["w0"], 4, "LM", krylovdim=30,
+                                           maxiter=8, tol=1e-30, space=space, **quiet)
+        return eig(vals, info)
+
+    def expo():
+        y, info = kt.exponentiate(chain, 0.1, vecs["v0"], krylovdim=30, tol=1e-4,
+                                  ishermitian=True, space=space, **quiet)
+        return {"y": host(y), **_infos(info)}
+
+    return {"block_lanczos": block,
+            "minres": linear(kt.MINRES(tol=1e-6, maxiter=FE_MINRES_ITERS, **quiet)),
+            "bicgstab": linear(kt.BiCGStab(tol=1e-6, maxiter=FE_BICGSTAB_ITERS, **quiet)),
+            "geneigsolve": geneig, "lanczos_iterator": iterator, "bieigsolve": bieig,
+            "exponentiate_fused": expo}
+
+
+def sharded_front_ends_rank(torch, np, kt, dev="cuda", n=1 << 21, halfband=25, n4=1 << 20,
+                            go=None):
+    """Phase ``sharded_front_ends`` on this rank: config 5's operator
+    generated and planned once (``tile=128``), with the diagonal ``B``,
+    config 4's tridiagonal (both plans) and chain (``shard_local_stencil``);
+    then every solve of :func:`front_ends_solves` once to warm up and once
+    timed (``rank_solve``), the projection kernels on.  With ``go`` the
+    solves wait for it after the planning."""
+    from krylovkit_tpu_torch.ops import basis as bs
+    from krylovkit_tpu_torch.ops.vector import VectorSpace
+
+    P = kt.parallel
+    mesh = P.make_mesh(device=dev)
+    ax = mesh.axis(P.VECTOR_AXIS)
+    space = VectorSpace(psum_axis=ax)
+    t0 = time.perf_counter()
+    rows, cols, vals = P.banded_coo(n, halfband, dtype=np.float32, seed=7, spd=True)
+    gen_s = time.perf_counter() - t0
+    nnz = len(rows)
+    A = P.sharded_ell_from_coo(rows, cols, vals, (n, n), mesh, tile=128, with_adjoint=False)
+    i = np.arange(n)
+    B = P.sharded_ell_from_coo(i, i, front_ends_pencil_b(np, rows, cols, vals, n), (n, n), mesh,
+                               tile=128, with_adjoint=False)
+    del rows, cols, vals
+    data = front_ends_data(np, n, n4)
+    tri = P.sharded_ell_from_coo(*tridiagonal_coo(np, n4, *FRONT_END_TRI, np.float32), (n4, n4),
+                                 mesh, tile=128)
+    chain = P.shard_local_stencil(kt.StencilOperator(*FRONT_END_NEG_LAP), ax)
+    vecs = {k: ([P.shard_vector(b, mesh) for b in v] if k == "block" else P.shard_vector(v, mesh))
+            for k, v in data.items()}
+    planned = gather(torch, ax, torch.tensor([[gen_s, A.plan_seconds["normal"],
+                                               tri.plan_seconds["adjoint"]]],
+                                             dtype=torch.float64, device=mesh.device))
+    if go is not None:
+        require(go.wait(SHARD_TIMEOUT_S * 5), "sharded_front_ends: the spawning process gave the go")
+    solves = front_ends_solves(kt, A, B, tri, chain, vecs, space,
+                               lambda t: gather(torch, ax, t).cpu().numpy())
+    out = {}
+    old = bs.use_pallas_projections
+    bs.use_pallas_projections = True
+    try:
+        for name, solve in solves.items():
+            res, rec = rank_solve(torch, ax, solve)
+            out[name] = {**res, **rec}
+    finally:
+        bs.use_pallas_projections = old
+    return {"solves": out, "nnz": nnz, "comm": A.comm_summary(),
+            "generate_plan_s_by_rank": planned.cpu().tolist()}
+
+
+def front_ends_reference(torch, np, kt, dev, n, halfband, n4):
+    """The one-rank operators of phase ``sharded_front_ends`` on ``dev``:
+    ``sparse.from_coo`` of the same matrices applied to ``(R, 128)``
+    vectors, and config 4's chain as a ``StencilOperator`` (fused).
+    Returns ``(A, B, tri, chain, seconds)``."""
+    from krylovkit_tpu_torch.ops.operator import TypedOperator
+
+    t0 = time.perf_counter()
+    rows, cols, vals = kt.parallel.banded_coo(n, halfband, dtype=np.float32, seed=7, spd=True)
+    ell = kt.sparse.from_coo(rows, cols, vals, (n, n), with_adjoint=False, device=dev)
+    i = np.arange(n)
+    diag = kt.sparse.from_coo(i, i, front_ends_pencil_b(np, rows, cols, vals, n), (n, n),
+                              with_adjoint=False, device=dev)
+    del rows, cols, vals
+    tri = kt.sparse.from_coo(*tridiagonal_coo(np, n4, *FRONT_END_TRI, np.float32), (n4, n4),
+                             device=dev)
+
+    def tiled(op, adjoint=False):
+        return lambda x: (op.adjoint if adjoint else op.normal)(x).reshape(x.shape)
+
+    f32 = torch.float32
+    return (TypedOperator(tiled(ell), dtype=f32), TypedOperator(tiled(diag), dtype=f32),
+            TypedOperator(tiled(tri), tiled(tri, True), dtype=f32),
+            kt.StencilOperator(*FRONT_END_NEG_LAP), time.perf_counter() - t0)
+
+
+def _front_end_errors(np, name, got, want):
+    """The relative errors of a sharded solve against the one-rank one,
+    each beside its tolerance."""
+    if name in ("minres", "bicgstab"):
+        return {"x_rel_err": (_rel(np, got["x"], want["x"]), FE_TOL),
+                "true_residual_rel_err": (abs(got["true_residual"] - want["true_residual"])
+                                          / want["true_residual"], FE_RESIDUAL_TOL)}
+    if name == "exponentiate_fused":
+        return {"y_rel_err": (_rel(np, got["y"], want["y"]), FE_TOL)}
+    if name == "lanczos_iterator":
+        scale = float(np.abs(want["H"]).max())
+        return {"H_rel_err": (float(np.abs(got["H"] - want["H"]).max()) / scale, FE_TOL),
+                "beta_rel_err": (abs(float(got["beta"]) - float(want["beta"]))
+                                 / float(want["beta"]), FE_TOL)}
+    scale = float(np.abs(want["vals"]).max())
+    return {"vals_rel_err": (float(np.abs(got["vals"] - want["vals"]).max()) / scale, FE_TOL)}
+
+
+def _json_values(np, a):
+    """A real array as a list, a complex one as ``{"re": [...], "im": [...]}``."""
+    a = np.asarray(a)
+    if np.iscomplexobj(a):
+        return {"re": a.real.tolist(), "im": a.imag.tolist()}
+    return a.tolist()
+
+
+# nnz of one counted apply, by solve (config 5's operator, B diagonal, config
+# 4's tridiagonal and chain)
+def _front_end_nnz(name, nnz, n, n4):
+    return {"geneigsolve": nnz + n, "bieigsolve": 3 * n4 - 2, "exponentiate_fused": 3 * n4}.get(
+        name, nnz)
+
+
+def sharded_front_ends(torch, np, kt, _build, smi, world=2, dev="cuda", n=1 << 21, halfband=25,
+                       n4=1 << 20):
+    """Phase ``sharded_front_ends``: the solves of :func:`front_ends_solves`
+    on ``world`` gloo ranks (:func:`sharded_front_ends_rank`; the ranks plan
+    while this process builds the one-rank operators) and on one rank, the
+    projection kernels on in both; each solve once to warm up and once
+    timed on either side.  Guards: every rank the same bits; counts
+    equal to the one-rank solve's; values within 1e-4, the linear solves'
+    true residuals within 1e-3; launches per rank equal to the one-rank
+    solve's (K1 launched by the fused ``exponentiate``).  One metric line
+    per solve: the slowest rank's ms, the collectives of that solve and
+    their ms, the one-rank ms.  Returns the launches per rank by solve."""
+    import torch.multiprocessing as tmp
+
+    from krylovkit_tpu_torch.ops import basis as bs
+
+    t0 = time.perf_counter()
+    go = tmp.get_context("spawn").Event()
+    handle = start_ranks(world, "sharded_front_ends_rank", dev=dev, threads=3, timeout=900, go=go,
+                         n=n, halfband=halfband, n4=n4)
+    try:
+        A, B, tri, chain, ref_s = front_ends_reference(torch, np, kt, dev, n, halfband, n4)
+        data = front_ends_data(np, n, n4)
+        vecs = {k: ([torch.from_numpy(b).to(dev) for b in v] if k == "block"
+                    else torch.from_numpy(v).to(dev)) for k, v in data.items()}
+    finally:
+        go.set()
+    ranks = collect_ranks(handle)
+    sharded = same_on_every_rank(np, [r["solves"] for r in ranks])
+    from krylovkit_tpu_torch.ops.vector import STANDARD
+
+    solves = front_ends_solves(kt, A, B, tri, chain, vecs, STANDARD, lambda t: t.cpu().numpy())
+    card = torch.cuda.get_device_name(0) if dev != "cpu" else "cpu"
+    launches = {}
+    old = bs.use_pallas_projections
+    bs.use_pallas_projections = True
+    try:
+        for name, solve in solves.items():
+            solve()  # warm-up, as the ranks' (library loads, first launches)
+            one, ms1, l1 = _sync_ms(torch, _build, solve, dev)
+            rec = sharded[name]
+            errs = _front_end_errors(np, name, rec, one)
+            counts = {k: (rec[k], one[k]) for k in ("numops", "numiter", "converged", "k")
+                      if k in one}
+            ms = max(rec["ms_per_solve_by_rank"])
+            cms = max(rec["collective_ms_by_rank"])
+            emit({"metric": f"sharded_{name}",
+                  "value": rec["numops"] * _front_end_nnz(name, ranks[0]["nnz"], n, n4) / ms / 1e6,
+                  "unit": "Gnnz/s", "formula": "numops * nnz / t, t the slowest rank",
+                  "ranks": world, "ms_per_solve": ms, "ms_per_solve_by_rank": rec["ms_per_solve_by_rank"],
+                  "collectives_per_solve": rec["collectives_per_solve"],
+                  "collective_bytes_per_solve": rec["collective_bytes_per_solve"],
+                  "collective_ms_per_solve": cms,
+                  "ms_per_collective": cms / max(rec["collectives_per_solve"], 1),
+                  "launches_per_rank": rec["launches_per_rank"],
+                  "counts_sharded_one_rank": counts,
+                  **({"vals": _json_values(np, rec["vals"])} if "vals" in rec else {}),
+                  **{k: rec[k] for k in ("maxiter", "true_residual", "b_norm") if k in rec},
+                  "one_rank": {"ms_per_solve": ms1, "launches": l1},
+                  **{k: v[0] for k, v in errs.items()},
+                  "tolerances": {k: v[1] for k, v in errs.items()},
+                  "device": card, "nvidia_smi": smi})
+            for key, (a, b) in counts.items():
+                require(a == b, f"sharded_front_ends {name}: {key} {a} equal to the one-rank "
+                        f"solve's {b}")
+            for key, (err, tol) in errs.items():
+                require(err <= tol, f"sharded_front_ends {name}: {key} {err} within {tol}")
+            require(rec["launches_per_rank"] == l1, f"sharded_front_ends {name}: launches per rank "
+                    f"{rec['launches_per_rank']} equal to the one-rank solve's {l1}")
+            launches[name] = rec["launches_per_rank"]
+    finally:
+        bs.use_pallas_projections = old
+    if dev != "cpu":
+        require(launches["exponentiate_fused"].get("fused_step", 0) > 0,
+                "sharded_front_ends: the fused exponentiate launched K1 on every rank")
+    emit({"phase": "sharded_front_ends", "seconds": time.perf_counter() - t0,
+          "one_rank_build_s": ref_s, "generate_plan_s_by_rank": [r["generate_plan_s_by_rank"]
+                                                                   for r in ranks][0],
+          "comm": ranks[0]["comm"], "note": "one card: ranks share it; no scaling measured"})
+    return launches
+
+
+def _tree_of(torch, kind, cut):
+    """``(split, join)`` of a vector cut into two leaves at row ``cut``: a
+    dict ``{"a", "b"}`` or a tuple."""
+    def split(v):
+        return {"a": v[:cut], "b": v[cut:]} if kind == "dict" else (v[:cut], v[cut:])
+
+    def join(t):
+        return torch.cat([t["a"], t["b"]] if kind == "dict" else list(t))
+
+    return split, join
+
+
+def _tree_map_of(torch, kt, apply, dom, cod, dtype, adjoint=None):
+    """``apply`` (a map on single tensors) as an operator from the tree
+    ``dom`` to the tree ``cod`` (``(split, join)`` pairs) that states its
+    type, so the solvers probe nothing."""
+    from krylovkit_tpu_torch.ops.operator import TypedOperator
+
+    def normal(t):
+        return cod[0](apply(dom[1](t)))
+
+    adj = None if adjoint is None else (lambda t: dom[0](adjoint(cod[1](t))))
+    return TypedOperator(normal, adj, dtype=dtype)
+
+
+def small_pytree_cases(torch, np, kt, dev):
+    """The small float64 pytree solves of phase ``pytree_drivers`` on
+    ``dev``, by name, each ``(values, info)``: ``svdsolve`` (a 40 × 30 map
+    from a dict domain to a tuple codomain), ``lssolve`` with λ = 0.5,
+    ``geneigsolve`` on dicts, ``expintegrator`` with three dict vectors,
+    Block Lanczos on a ``Block`` of dicts."""
+    quiet = {"verbosity": kt.SILENT}
+    rng = np.random.default_rng(206)
+    R = torch.from_numpy(rng.standard_normal((40, 30))).to(dev)
+    C = torch.from_numpy(rng.standard_normal((20, 20))).to(dev)
+    H = torch.from_numpy(rng.standard_normal((20, 20))).to(dev)
+    H, Bm = (H + H.T) / 2, C @ C.T + 2 * torch.eye(20, dtype=torch.float64, device=dev)
+    x40, x30, x20 = (torch.from_numpy(rng.standard_normal(k)).to(dev) for k in (40, 30, 20))
+    u3 = [torch.from_numpy(rng.standard_normal(20)).to(dev) for _ in range(3)]
+    cod, dom, sq = _tree_of(torch, "tuple", 17), _tree_of(torch, "dict", 12), _tree_of(
+        torch, "dict", 9)
+    f64 = torch.float64
+    rect = _tree_map_of(torch, kt, lambda v: R @ v, dom, cod, f64, lambda v: R.T @ v)
+
+    def svd():
+        S, _, _, info = kt.svdsolve(rect, cod[0](R @ x30), 3, "LR", krylovdim=20, tol=1e-10,
+                                    maxiter=200, **quiet)
+        return S, info
+
+    def ls():
+        x, info = kt.lssolve(rect, cod[0](x40), 0.5, tol=1e-10, maxiter=400, **quiet)
+        return dom[1](x), info
+
+    def geneig():
+        pencil = (_tree_map_of(torch, kt, lambda v: H @ v, sq, sq, f64),
+                  _tree_map_of(torch, kt, lambda v: Bm @ v, sq, sq, f64))
+        vals, _, info = kt.geneigsolve(pencil, sq[0](x20), 2, "SR", krylovdim=8, tol=1e-10,
+                                       maxiter=50, **quiet)
+        return vals, info
+
+    def expint():
+        op = _tree_map_of(torch, kt, lambda v: (H / 4) @ v, sq, sq, f64)
+        y, info = kt.expintegrator(op, 0.5, *(sq[0](u) for u in u3), ishermitian=True,
+                                   tol=1e-10, krylovdim=10, **quiet)
+        return sq[1](y), info
+
+    def block():
+        op = _tree_map_of(torch, kt, lambda v: H @ v, sq, sq, f64)
+        vals, _, info = kt.eigsolve(op, kt.Block([sq[0](u) for u in u3]), 3, "LR", tol=1e-10,
+                                    krylovdim=12, maxiter=100, **quiet)
+        return vals, info
+
+    return {"svdsolve": svd, "lssolve": ls, "geneigsolve": geneig, "expintegrator": expint,
+            "block_lanczos": block}
+
+
+def pytree_drivers(torch, np, kt, _build, refs, smi, dev="cuda", N=1024):
+    """Phase ``pytree_drivers``: the small pytree solves of
+    :func:`small_pytree_cases` on the card against the CPU (within 1e-12,
+    counts equal); then at full width, each vector cut into two leaves by
+    rows, one solve each held against the single-tensor solve of the same
+    problem: config 3's rectangular callables through ``svdsolve`` (a tuple
+    codomain, a dict domain) and config 4's ``exponentiate`` against phases
+    12 and 13 (``refs``), the ``N × N`` Q1 pencil through ``geneigsolve``
+    and config 2's banded Poisson through Block Lanczos on a ``Block`` of
+    dicts (float64) against single-tensor solves run here.  Values within
+    1e-4, counts equal for the solves that run to ``maxiter``, the launches
+    printed (and equal to the single-tensor solve's where it runs here).
+    Returns the launches by solve."""
+    t0 = time.perf_counter()
+    small = []
+    for name in small_pytree_cases(torch, np, kt, "cpu"):
+        rec, _, _, _ = card_vs_cpu(torch, _build, f"pytree {name}",
+                                   lambda d: small_pytree_cases(torch, np, kt, d)[name](),
+                                   SMALL_SHARDED_TOL, dev)
+        small.append(rec)
+    emit({"phase": "pytree_drivers_small", "solves": small, "tolerance": SMALL_SHARDED_TOL})
+    quiet = {"verbosity": kt.SILENT}
+    f32 = torch.float32
+    card = torch.cuda.get_device_name(0) if dev != "cpu" else "cpu"
+    out = {}
+
+    def line(metric, result, ref, info, ref_info, ms, launches, fixed, extra):
+        err = _rel(np, result, ref)
+        counts = {k: (getattr(info, k), getattr(ref_info, k)) for k in ("numops", "numiter",
+                                                                        "converged")}
+        emit({"metric": metric, "ms_per_solve": ms, "launches_per_solve": launches,
+              "counts_tree_single": counts, "rel_err_vs_single": err, "tolerance": FE_TOL,
+              "device": card, "nvidia_smi": smi, **extra})
+        require(err <= FE_TOL, f"{metric}: within {FE_TOL} of the single-tensor solve ({err})")
+        if fixed:
+            require(all(a == b for a, b in counts.values()),
+                    f"{metric}: counts equal to the single-tensor solve's ({counts})")
+        out[metric] = launches
+
+    # config 3's rectangular map: codomain (8192, 128) as a tuple, domain
+    # (4096, 128) as a dict, each cut in half by rows
+    rect, rect_adj, x0r = refs["rect"]
+    cod, dom = _tree_of(torch, "tuple", x0r.shape[0] // 2), _tree_of(torch, "dict",
+                                                                    x0r.shape[0] // 4)
+    op3 = _tree_map_of(torch, kt, rect, dom, cod, f32, rect_adj)
+    (S, U, V, info), ms, launches = _sync_ms(torch, _build, lambda: kt.svdsolve(
+        op3, cod[0](x0r), 8, "LR", krylovdim=30, maxiter=12, tol=1e-30, **quiet), dev)
+    S_ref, info_ref = refs["svdsolve"]
+    line("pytree_svdsolve_rect", S.cpu().numpy(), S_ref.numpy(), info, info_ref, ms, launches, True,
+         {"vals": S.cpu().tolist(), "leaves": {"codomain": [tuple(l.shape) for l in U],
+                                               "domain": [tuple(V[k].shape) for k in V]}})
+    # config 4's exponentiate on tuple vectors (unfused: a tree)
+    chain, x04, (ye, ie) = refs["exponentiate"]
+    te = _tree_of(torch, "tuple", x04.shape[0] // 2)
+    ope = _tree_map_of(torch, kt, chain.normal, te, te, f32)
+    (y, info), ms, launches = _sync_ms(torch, _build, lambda: kt.exponentiate(
+        ope, 0.1, te[0](x04), krylovdim=30, tol=1e-4, ishermitian=True, **quiet), dev)
+    line("pytree_exponentiate", te[1](y).cpu().numpy(), ye.cpu().numpy(), info, ie, ms, launches,
+         False, {})
+    # the Q1 pencil and config 2's banded Poisson in float64: both repeat
+    # eigenvalues (λ(i, j) = λ(j, i)), and after a fixed count the Ritz values
+    # beyond the first are unconverged and move with the order of a
+    # reduction (3e-3 between a tree and a tensor in float32 at N = 64);
+    # float64 keeps that motion far below the tolerance.  Each against its
+    # single-tensor solve, run here
+    nq = N * N
+    f64 = torch.float64
+    coo_k, coo_m = q1_coo(np, N, N, np.float64)
+    Kb, Mb = (kt.banded_from_coo(*c, nq, device=dev) for c in (coo_k, coo_m))
+    del coo_k, coo_m
+    x0q = torch.from_numpy(np.random.default_rng(4).standard_normal((nq // 128, 128))).to(dev)
+    sq = _tree_of(torch, "dict", x0q.shape[0] // 2)
+    kwq = dict(krylovdim=30, maxiter=8, tol=1e-30, **quiet)
+    (vq, _, iq), ms1, l1 = _sync_ms(torch, _build, lambda: kt.geneigsolve((Kb, Mb), x0q, 4, "SR",
+                                                                          **kwq), dev)
+    pencil = (_tree_map_of(torch, kt, Kb.normal, sq, sq, f64),
+              _tree_map_of(torch, kt, Mb.normal, sq, sq, f64))
+    (vals, _, info), ms, launches = _sync_ms(torch, _build, lambda: kt.geneigsolve(
+        pencil, sq[0](x0q), 4, "SR", **kwq), dev)
+    line("pytree_geneigsolve_q1", vals.cpu().numpy(), vq.cpu().numpy(), info, iq, ms, launches,
+         True, {"vals": vals.cpu().tolist(), "dtype": "float64",
+                "single": {"ms_per_solve": ms1, "launches": l1}})
+    require(launches == l1, f"pytree_geneigsolve_q1: launches {launches} equal to the "
+            f"single-tensor solve's {l1} (K3 twice per counted apply)")
+    del Kb, Mb, pencil
+    banded = kt.banded_from_coo(*poisson_coo(np, N, np.float64), nq, device=dev)
+    rng = np.random.default_rng(5)
+    X0 = [torch.from_numpy(rng.standard_normal((nq // 128, 128))).to(dev) for _ in range(4)]
+    tb = _tree_of(torch, "dict", X0[0].shape[0] // 2)
+    kwb = dict(krylovdim=30, maxiter=8, tol=1e-30, **quiet)
+    (vb, _, ib), ms1, l1 = _sync_ms(torch, _build, lambda: kt.eigsolve(banded, kt.Block(X0), 4,
+                                                                       "LR", **kwb), dev)
+    opb = _tree_map_of(torch, kt, banded.normal, tb, tb, f64)
+    (vals, _, info), ms, launches = _sync_ms(torch, _build, lambda: kt.eigsolve(
+        opb, kt.Block([tb[0](x) for x in X0]), 4, "LR", **kwb), dev)
+    line("pytree_block_lanczos_poisson", vals.cpu().numpy(), vb.cpu().numpy(), info, ib, ms,
+         launches, True, {"vals": vals.cpu().tolist(), "dtype": "float64",
+                          "single": {"ms_per_solve": ms1, "launches": l1}})
+    require(launches == l1, f"pytree_block_lanczos_poisson: launches {launches} equal to the "
+            f"single-tensor solve's {l1} (K3 once per apply)")
+    emit({"phase": "pytree_drivers", "seconds": time.perf_counter() - t0})
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one config-1 and one config-4 solve (phase 26)")
+                    help="also profile one config-1 and one config-4 solve (phase 29)")
     ap.add_argument("--parent", metavar="DIR",
                     help="an unpacked earlier tree: time its K1 and K2 on this card as parent_ms")
     ap.add_argument("--kernel-times", action="store_true",
@@ -3815,6 +4553,25 @@ def main():
     sharded = distribution_phases(torch, np, kt, _build, fl, pb, smi, vals_h,
                                   (grid, b2, xs_by_metric["gmres30_poisson_2d"]))
 
+    # 26-28. the remaining front-ends on a sharded space (small scenarios,
+    # card ranks against CPU ranks; then at full width against one rank) and
+    # pytree vectors in the drivers that took single tensors before
+    t_slice10 = time.perf_counter()
+    small_fe = small_front_ends(torch, np)
+    sharded_fe = sharded_front_ends(torch, np, kt, _build, smi)
+    rect3 = c3["gkl_svdsolve_rect"]
+    tree_l = pytree_drivers(torch, np, kt, _build, {
+        "rect": (rect, rect_adj, x0r), "svdsolve": (rect3["S"], rect3["info"]),
+        "exponentiate": (neg_lap, x0e, (ye, infoe))}, smi)
+    emit({"phase": "slice10", "seconds": time.perf_counter() - t_slice10})
+
+    def slice10(name):
+        """The launches of ``name`` on the paths of phases 26-28."""
+        return {"launches_small_front_ends_per_rank": small_fe.get(name, 0),
+                "launches_sharded_front_ends_per_rank": {
+                    k: v[name] for k, v in sharded_fe.items() if v.get(name)},
+                "launches_pytree_drivers": {k: v[name] for k, v in tree_l.items() if v.get(name)}}
+
     def slice8(name):
         """The launches of ``name`` on the paths of phases 20 and 21."""
         return {"launches_bieig": bieig_l["bieig"].get(name, 0),
@@ -3857,6 +4614,7 @@ def main():
             "launches_sharded_config1_per_rank": sharded["fused_config1"].get("fused_step", 0),
             "launches_sharded_gmres30_poisson_2d_per_rank": sharded["fused_gmres"].get("fused_step", 0),
             "launches_small_sharded_per_rank": sharded["small"].get("fused_step", 0),
+            **slice10("fused_step"),
         },
         {
             "name": "transform_partial", "route": "cuda",
@@ -3883,6 +4641,7 @@ def main():
             "launches_ad_small": ad_small_launches.get("transform_partial", 0),
             **slice8("transform_partial"),
             **slice9(sharded, "transform_partial"),
+            **slice10("transform_partial"),
         },
         {
             "name": "banded_spmv", "route": "cuda",
@@ -3906,6 +4665,7 @@ def main():
             "launches_ad_potential_backward": ad_pot["backward"].get("banded_spmv", 0),
             **geneig_kernel(kg["banded_spmv"]),
             **slice8("banded_spmv"),
+            **slice10("banded_spmv"),
         },
         {
             "name": "laplacian_1d", "route": "cuda",
@@ -3917,6 +4677,7 @@ def main():
             "bound_ms": k4_main["bound_ms"], "bound_by": k4_main["bound_by"],
             "library_ms": k4_main["library_ms"],
             "shapes": "n = 2^21 f32; launches over the config-2 BiCGStab solve",
+            **slice10("laplacian_1d"),
         },
         {
             "name": "project", "route": "cuda",
@@ -3940,6 +4701,7 @@ def main():
             **geneig_kernel(kg["project"]),
             **slice8("project"),
             **slice9(sharded, "project"),
+            **slice10("project"),
         },
         {
             "name": "unproject", "route": "cuda",
@@ -3963,6 +4725,7 @@ def main():
             **geneig_kernel(kg["unproject"]),
             **slice8("unproject"),
             **slice9(sharded, "unproject"),
+            **slice10("unproject"),
         },
     ]})
     print(nvidia_smi_line(), flush=True)

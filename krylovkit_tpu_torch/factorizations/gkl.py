@@ -9,7 +9,9 @@ package both bases are static ``(m+1,) + shape`` buffers and the projected
 matrix is a dense ``(m+1, m+1)`` buffer ``B[i, j] = ⟨u_i, A v_j⟩``: a thick
 restart writes a broken-arrow form (diag(σ) + spike row) and needs no
 Householder restoration of the bidiagonal form.  ``k`` is a host ``int``;
-buffers are updated in place.
+buffers are updated in place.  The unfused steps take pytree vectors
+(``ops/vector.py``), each basis with the tree of its side: ``U`` that of
+the codomain, ``V`` that of the domain, which may differ.
 
 Invariants after ``k`` steps (active sizes: ``U[0..k]``, ``V[0..k-1]``):
 
@@ -24,6 +26,7 @@ over U.
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
 
@@ -32,7 +35,7 @@ from ..ops import basis as bs
 from ..ops import fused_lanczos as fl
 from ..ops import orthonormal as on
 from ..ops.operator import probe_adjoint
-from ..ops.vector import STANDARD, VectorSpace
+from ..ops.vector import STANDARD, VectorSpace, astype, device_of, tree_map
 from . import krylov as kf
 
 __all__ = ["GKLState", "initialize", "expand", "fused_kernel_available", "fused_expansions"]
@@ -42,33 +45,33 @@ __all__ = ["GKLState", "initialize", "expand", "fused_kernel_available", "fused_
 class GKLState:
     """GKL factorization state."""
 
-    U: torch.Tensor  # codomain basis, capacity m+1
-    V: torch.Tensor  # domain basis, capacity m+1 (m used)
+    U: Any  # codomain basis, capacity m+1
+    V: Any  # domain basis, capacity m+1 (m used)
     B: torch.Tensor  # (m+1, m+1) projected matrix ⟨u_i, A v_j⟩
     k: int  # completed steps (= number of V vectors)
     beta: torch.Tensor  # 0-d, real: residual norm β_k
 
 
-def initialize(op, x0: torch.Tensor, m: int, coeff_dtype, space: VectorSpace = STANDARD,
+def initialize(op, x0, m: int, coeff_dtype, space: VectorSpace = STANDARD,
                vec_dtype=None, verbosity: int = 0) -> GKLState:
-    """``U[0] = x0/‖x0‖``; the domain basis V takes the shape and dtype of
-    ``Aᴴ x0`` from a probe that is not counted (reference ``initialize``,
-    ``src/factorizations/gkl.jl:183-215``)."""
+    """``U[0] = x0/‖x0‖``; the domain basis V takes the tree, shapes and
+    dtypes of ``Aᴴ x0`` from a probe that is not counted (reference
+    ``initialize``, ``src/factorizations/gkl.jl:183-215``)."""
     if vec_dtype is not None:
-        x0 = x0.to(vec_dtype)
+        x0 = astype(x0, vec_dtype)
     nrm = space.norm(x0)
     warn_if(
         verbosity, nrm == 0,
         "[krylovkit_tpu] starting vector x0 has zero norm: results are NaN "
         "and converged = 0",
     )
-    u0 = x0 / nrm.to(x0.dtype)
-    U = bs.alloc(u0, m + 1)
-    U[0] = u0
-    v = probe_adjoint(op, u0)
-    V = torch.zeros((m + 1,) + tuple(v.shape), dtype=v.dtype, device=x0.device)
-    B = torch.zeros((m + 1, m + 1), dtype=coeff_dtype, device=x0.device)
-    beta = torch.ones((), dtype=coeff_dtype.to_real(), device=x0.device)
+    dev = device_of(x0)
+    u0 = tree_map(lambda l: l / nrm.to(l.dtype), x0)
+    U = bs.set(bs.alloc(u0, m + 1), 0, u0)
+    V = tree_map(lambda l: torch.zeros((m + 1,) + tuple(l.shape), dtype=l.dtype, device=dev),
+                 probe_adjoint(op, u0))
+    B = torch.zeros((m + 1, m + 1), dtype=coeff_dtype, device=dev)
+    beta = torch.ones((), dtype=coeff_dtype.to_real(), device=dev)
     return GKLState(U, V, B, 0, beta)
 
 
@@ -92,25 +95,25 @@ def expand(op, state: GKLState, orth: on.Orthogonalizer, space: VectorSpace = ST
     in the buffer.  The other orthogonalizers run full sweeps and write row
     and column ``k`` of ``B`` from their coefficients."""
     U, V, B, k = state.U, state.V, state.B, state.k
-    w = op.apply_adjoint(U[k])
+    w = op.apply_adjoint(bs.get(U, k))
     if isinstance(orth, (on.ClassicalGramSchmidt2, on.ModifiedGramSchmidt2)):
         sweep = on.cgs if isinstance(orth, on.ClassicalGramSchmidt2) else on.mgs
         rowk = B[k].clone()
         rowk[k:] = 0
-        w = w - bs.unproject_bucketed(V, torch.conj(rowk), k)
+        w = tree_map(torch.sub, w, bs.unproject_bucketed(V, torch.conj(rowk), k))
         v_new, alpha, _ = on.orthonormalize(w, V, k, sweep, space)
-        V[k] = v_new
+        bs.set(V, k, v_new)
         s = op.normal(v_new)
-        s = s - alpha.to(s.dtype) * U[k]
+        s = tree_map(lambda ls, lu: ls - alpha.to(ls.dtype) * lu, s, bs.get(U, k))
         u_new, beta, _ = on.orthonormalize(s, U, k + 1, sweep, space)
-        U[k + 1] = u_new
+        bs.set(U, k + 1, u_new)
     else:
         # row k of B gets (conj(c), α), column k gets (d, β)
         v_new, alpha, c = on.orthonormalize(w, V, k, orth, space)
-        V[k] = v_new
+        bs.set(V, k, v_new)
         s = op.normal(v_new)
         u_new, beta, d = on.orthonormalize(s, U, k + 1, orth, space)
-        U[k + 1] = u_new
+        bs.set(U, k + 1, u_new)
         B[:, k] = d.to(B.dtype)
         B[k, :] = torch.conj(c).to(B.dtype)
     B[k, k] = alpha.to(B.dtype)
@@ -127,10 +130,11 @@ def expand(op, state: GKLState, orth: on.Orthogonalizer, space: VectorSpace = ST
 # Fused one-stream GKL expansion (square stencil operators, (R, 128) float32)
 # --------------------------------------------------------------------------
 
-def fused_kernel_available(op, x0: torch.Tensor, space: VectorSpace, kmax: int) -> bool:
+def fused_kernel_available(op, x0, space: VectorSpace, kmax: int) -> bool:
     """Eligibility of the fused-kernel GKL expansion: a real SQUARE fusable
-    stencil (``fl.spec_for`` and ``fl.adjoint_spec``), an ``(R, 128)``
-    float32 vector in domain and codomain, the standard inner product,
+    stencil (``fl.spec_for`` and ``fl.adjoint_spec``), one ``(R, 128)``
+    float32 tensor in domain and codomain (never a pytree vector, as in the
+    JAX package), the standard inner product,
     ``2·kmax + 2 <= 128`` (the drift packing), and a vector on a CUDA device
     (the kernel) or on the CPU (its plain version).
 
@@ -140,6 +144,8 @@ def fused_kernel_available(op, x0: torch.Tensor, space: VectorSpace, kmax: int) 
     ``space.psum_axis`` and gives wrong singular values inside a sharded
     solve."""
     if 2 * kmax + 2 > fl.LANES or space.psum_axis is not None:
+        return False
+    if not isinstance(x0, torch.Tensor):
         return False
     spec, spec_a = fl.spec_for(op), fl.adjoint_spec(op)
     if spec is None or spec_a is None or space.inner_fn is not None:

@@ -14,6 +14,8 @@ current until it, or a state made from it, is expanded.
 Where the problem is complex and the start vector real, the basis takes the
 problem's type (the solvers do the same, ``solvers/lanczos.py``); the JAX
 package keeps the start's type and drops the imaginary part of ``A v``.
+Every iterator takes pytree vectors and a sharded space (``psum_axis``), as
+its factorization does; the fused GKL expansion is not used here.
 """
 
 from __future__ import annotations
@@ -26,8 +28,7 @@ import torch
 from ..ops import basis as bs
 from ..ops import orthonormal as on
 from ..ops.operator import as_operator, probe_adjoint, probe_dtype
-from ..ops.vector import (STANDARD, VectorSpace, astype, device_of, refuse_sharded, rounded,
-                          scalartype)
+from ..ops.vector import STANDARD, VectorSpace, astype, device_of, rounded, scalartype
 from . import blocklanczos as bf
 from . import gkl as gf
 from . import krylov as kf
@@ -67,9 +68,6 @@ class _KrylovIterator:
     space: VectorSpace = STANDARD
     hermitian_expand: bool = False
 
-    def __post_init__(self):
-        refuse_sharded(type(self).__name__, self.space)
-
     def _cdt(self):
         return probe_dtype(_operator(self.op, self.x0), self.x0)
 
@@ -107,7 +105,6 @@ class LanczosIterator(_KrylovIterator):
     keepvecs: bool = True
 
     def __post_init__(self):
-        super().__post_init__()
         if not self.keepvecs and not isinstance(
             self.orth, (on.ClassicalGramSchmidt, on.ModifiedGramSchmidt)
         ):
@@ -156,9 +153,6 @@ class GKLIterator:
     orth: on.Orthogonalizer = on.cgs2
     space: VectorSpace = STANDARD
 
-    def __post_init__(self):
-        refuse_sharded(type(self).__name__, self.space)
-
     def _op(self):
         return _operator(self.op, self.x0).with_adjoint_from(self.x0)
 
@@ -176,13 +170,10 @@ class BlockLanczosIterator:
     """Block Lanczos iterator (reference ``src/factorizations/blocklanczos.jl``)."""
 
     op: Any
-    X0: Any  # stacked starting block
+    X0: Any  # stacked starting block (a pytree: every leaf stacked)
     krylovdim: int = 30
     qr_tol: float = -1.0  # < 0: eps**(3/4) of the problem's real type
     space: VectorSpace = STANDARD
-
-    def __post_init__(self):
-        refuse_sharded(type(self).__name__, self.space)
 
     def _qr_tol(self, cdt):
         rdt = cdt.to_real()
@@ -191,7 +182,7 @@ class BlockLanczosIterator:
         return float(torch.tensor(torch.finfo(rdt).eps, dtype=rdt) ** 0.75)
 
     def initialize(self) -> bf.BlockLanczosState:
-        cdt = probe_dtype(_operator(self.op, self.X0), self.X0[0])
+        cdt = probe_dtype(_operator(self.op, self.X0), bs.get(self.X0, 0))
         return bf.initialize(_start(self.X0, cdt), self.krylovdim, cdt, self._qr_tol(cdt),
                              self.space)
 
@@ -212,9 +203,6 @@ class BiArnoldiIterator:
     krylovdim: int = 30
     orth: on.Orthogonalizer = on.cgs2
     space: VectorSpace = STANDARD
-
-    def __post_init__(self):
-        refuse_sharded(type(self).__name__, self.space)
 
     def _op(self):
         return _operator(self.op, self.v0).with_adjoint_from(self.v0)

@@ -2,42 +2,52 @@
 ``krylovkit_tpu/ops/block.py``; reference ``Block``,
 ``src/factorizations/blocklanczos.jl:10-17``).
 
-The port's vectors are single tensors, so a block is one tensor of shape
-``(b,) + x.shape``: block inner products are single matrix products, and
-the Block Lanczos expansion applies the operator to its rows one by one.
+A block is a stacked vector: every leaf of the vectors' pytree (one tensor
+for a tensor vector) gains a leading axis of the block size, so block inner
+products are one matrix product per leaf, and the Block Lanczos expansion
+applies the operator to its rows one by one.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Sequence, Union
+from typing import Any, Sequence, Union
 
 import torch
+
+from .vector import tree_leaves, tree_map
+
+PyTree = Any
 
 __all__ = ["Block"]
 
 
 class Block:
-    """``Block([v1, v2, ...])`` stacks same-shaped vectors along a new
-    leading axis (in their promoted dtype); ``Block(t, stacked=True)``
-    adopts an already-stacked tensor ``t``."""
+    """``Block([v1, v2, ...])`` stacks same-structured vectors along a new
+    leading axis, leaf by leaf (each leaf in the promoted dtype of its
+    counterparts); ``Block(t, stacked=True)`` adopts an already-stacked
+    pytree ``t``."""
 
-    def __init__(self, vectors: Union[Sequence[torch.Tensor], torch.Tensor], stacked: bool = False):
+    def __init__(self, vectors: Union[Sequence[PyTree], PyTree], stacked: bool = False):
         if stacked:
             self.stacked = vectors
         else:
             vecs = list(vectors)
             if len(vecs) == 0:
                 raise ValueError("Block requires at least one vector")
-            dt = functools.reduce(torch.promote_types, (v.dtype for v in vecs))
-            self.stacked = torch.stack([v.to(dt) for v in vecs])
+
+            def stack(*ls):
+                dt = functools.reduce(torch.promote_types, (l.dtype for l in ls))
+                return torch.stack([l.to(dt) for l in ls])
+
+            self.stacked = tree_map(stack, *vecs)
 
     @property
     def size(self) -> int:
-        return self.stacked.shape[0]
+        return tree_leaves(self.stacked)[0].shape[0]
 
     def __len__(self) -> int:
         return self.size
 
-    def __getitem__(self, i: int) -> torch.Tensor:
-        return self.stacked[i]
+    def __getitem__(self, i: int) -> PyTree:
+        return tree_map(lambda l: l[i], self.stacked)

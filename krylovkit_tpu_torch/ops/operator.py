@@ -416,13 +416,13 @@ def probe_adjoint(op: LinearOperator, y0):
     from .banded import BandedOperator
 
     if isinstance(op, MatrixOperator):
-        dt = torch.promote_types(op.A.dtype, y0.dtype)
+        dt = torch.promote_types(op.A.dtype, scalartype(y0))
         return torch.empty((op.A.shape[1],) + tuple(y0.shape[1:]), dtype=dt, device="meta")
     if isinstance(op, TypedOperator) and op.domain is not None:
-        dt = torch.promote_types(op.dtype, y0.dtype)
+        dt = torch.promote_types(op.dtype, scalartype(y0))
         return torch.empty(op.domain, dtype=dt, device="meta")
     if isinstance(op, BandedOperator):
-        dt = torch.promote_types(op.diags.dtype, y0.dtype)
+        dt = torch.promote_types(op.diags.dtype, scalartype(y0))
         return torch.empty(y0.shape, dtype=dt, device="meta")
     return _probe_apply(op.apply_adjoint, y0)
 
@@ -442,7 +442,7 @@ def require_adjoint(op: LinearOperator, x_template, space=None) -> LinearOperato
     return op
 
 
-def check_adjoint_compatibility(op: LinearOperator, x0: torch.Tensor, space=None) -> None:
+def check_adjoint_compatibility(op: LinearOperator, x0, space=None) -> None:
     """Adjoint-consistency guard for ``(f, fadjoint)`` pairs given by the
     caller (reference GKL initialization, ``src/factorizations/gkl.jl:188-192``):
     with ``β₀ = ‖u₀‖``, ``α = ‖Aᴴu₀‖/β₀`` and ``α² = ⟨u₀, A(Aᴴu₀)⟩/β₀²`` must
@@ -457,7 +457,7 @@ def check_adjoint_compatibility(op: LinearOperator, x0: torch.Tensor, space=None
     v = op.apply_adjoint(x0)
     aa = (float(space.norm(v)) / b0) ** 2
     a2 = complex(space.inner(x0, op.normal(v))) / (b0 * b0)
-    eps = torch.finfo(x0.dtype).eps
+    eps = torch.finfo(scalartype(x0)).eps
     if abs(a2 - aa) > (eps ** 0.5) * max(abs(a2), aa, 1e-30):
         raise ValueError(
             f"operator and its adjoint are not compatible: <u0, A A^H u0>/|u0|^2 "

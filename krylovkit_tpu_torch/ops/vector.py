@@ -136,13 +136,13 @@ def psum(t: torch.Tensor, axis) -> torch.Tensor:
 
 
 def refuse_sharded(what: str, space) -> None:
-    """Raise ``NotImplementedError`` for a sharded ``space``: ``what`` has
-    not been audited for SPMD runs, where a rank-local reduction would give
-    ranks different answers or leave them waiting in a collective."""
+    """Raise ``NotImplementedError`` for a sharded ``space``: ``what`` (a
+    differentiable route) has no backward across the ranks of a
+    ``torch.distributed`` group yet."""
     if space is not None and getattr(space, "psum_axis", None) is not None:
         raise NotImplementedError(
             f"{what} does not run on a sharded space (psum_axis) in this port yet: "
-            "ROADMAP.md queue 1, item 8"
+            "ROADMAP.md queue 1, item 10"
         )
 
 

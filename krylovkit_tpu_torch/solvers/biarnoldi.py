@@ -41,7 +41,7 @@ from ..factorizations import krylov as kf
 from ..info import STARTSTOP, ConvergenceInfo, log_if, warn_if
 from ..ops import basis as bs
 from ..ops.operator import as_operator, probe_dtype, resolve_device
-from ..ops.vector import STANDARD, VectorSpace, refuse_sharded, add, device_of, rounded, scale, tree_map
+from ..ops.vector import STANDARD, VectorSpace, add, device_of, rounded, scale, tree_map
 from .arnoldi import _leading_rows
 
 __all__ = ["bieigsolve"]
@@ -325,8 +325,10 @@ def bieigsolve(
     (``with_adjoint_from``).  Without ``v0``/``w0`` a concrete matrix gets
     the JAX package's start vectors.  The solve runs on the device of
     ``v0``.  No differentiation rule, as in the JAX package: an input that
-    requires grad raises ``NotImplementedError``."""
-    refuse_sharded("bieigsolve", space)
+    requires grad raises ``NotImplementedError``.  On a sharded space
+    (``psum_axis``) every rank holds its block of ``v0`` and ``w0``, every
+    reduction is all-reduced, and the two dense Schur problems of a round
+    are solved on every rank from the same inputs."""
     if v0 is None or w0 is None:
         if isinstance(A, (np.ndarray, torch.Tensor)) and A.ndim == 2:
             v0, w0 = _default_starts(A, v0, w0)

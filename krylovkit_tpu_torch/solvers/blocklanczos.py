@@ -8,7 +8,9 @@ step), the dense eigendecomposition of the projected buffer
 residual block (``:50-53``), and a thick restart that rotates the basis and
 the coupling rows into the arrowhead form of the Lanczos driver (``:71-104``),
 as host loops over device tensors.  The control flow reads the block rank
-and ``β`` per step and ``nconv`` per round.
+and ``β`` per step and ``nconv`` per round.  The block may be a stacked
+pytree (``ops/block.py``), and on a sharded space (``psum_axis``) every
+reduction is all-reduced, so the projected matrix is the same on every rank.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from ..factorizations import blocklanczos as bf
 from ..info import STARTSTOP, ConvergenceInfo, log_if, warn_if
 from ..ops import basis as bs
 from ..ops.operator import LinearOperator, probe_dtype
-from ..ops.vector import STANDARD, VectorSpace, rounded
+from ..ops.vector import STANDARD, VectorSpace, astype, device_of, rounded, tree_map
 
 __all__ = ["eigsolve_blocklanczos"]
 
@@ -38,23 +40,23 @@ def _eps_pow(rdt: torch.dtype) -> float:
     return float(torch.tensor(torch.finfo(rdt).eps, dtype=rdt) ** 0.75)
 
 
-def eigsolve_blocklanczos(op: LinearOperator, X0: torch.Tensor, howmany: int, which,
+def eigsolve_blocklanczos(op: LinearOperator, X0, howmany: int, which,
                           alg: BlockLanczos, space: VectorSpace = STANDARD):
-    """Hermitian eigsolve from the stacked start block ``X0`` (leading axis
-    the block size), on ``X0``'s device.  Returns ``(vals, vecs, info)`` as
-    the Lanczos driver does."""
-    b = X0.shape[0]
+    """Hermitian eigsolve from the stacked start block ``X0`` (every leaf's
+    leading axis the block size), on ``X0``'s device.  Returns ``(vals,
+    vecs, info)`` as the Lanczos driver does."""
+    b = bs.capacity(X0)
     m = alg.krylovdim
     if howmany > m:
         raise ValueError(f"howmany={howmany} exceeds krylovdim={m}")
-    cdt = probe_dtype(op, X0[0])
+    cdt = probe_dtype(op, bs.get(X0, 0))
     rdt = cdt.to_real()
-    dev = X0.device
+    dev = device_of(X0)
     tol = rounded(alg.tol, rdt)
     qr_tol = rounded(alg.qr_tol, rdt) if alg.qr_tol >= 0 else _eps_pow(rdt)
     btol = _eps_pow(rdt)
 
-    fact = bf.initialize(X0.to(cdt), m, cdt, qr_tol, space)
+    fact = bf.initialize(astype(X0, cdt), m, cdt, qr_tol, space)
     mcapb = m + b
     numiter = numops = 0
     idx = torch.arange(mcapb, device=dev)
@@ -115,10 +117,11 @@ def eigsolve_blocklanczos(op: LinearOperator, X0: torch.Tensor, howmany: int, wh
     )
     k = fact.k
     Umask = torch.where((idx[:, None] < k) & (idx[None, :] < howmany), U, zero)
-    vecs = bs.transform(fact.V, Umask)[:howmany]
+    vecs = bs.prefix(bs.transform(fact.V, Umask), howmany)
     # residual vectors r_i = Σ_j X[j]·(S U)[j, i]
     SU = (_spike(fact.H, k, b) @ U)[:, :howmany]
-    residuals = torch.tensordot(SU.T.to(fact.X.dtype), fact.X, dims=([1], [0]))
+    residuals = tree_map(lambda lX: torch.tensordot(SU.T.to(lX.dtype), lX, dims=([1], [0])),
+                         fact.X)
     info = ConvergenceInfo(
         converged=nconv_out,
         residual=residuals,

@@ -10,7 +10,7 @@ differentiable ``ad.eigsolve_vjp`` (backward with ``alg_rrule``); otherwise
 straight to the driver.  ``schursolve``, ``realeigsolve`` and Block Lanczos
 have no differentiation rule, as in the JAX package, and refuse an input
 that requires grad.  The solve runs on the device of ``x0``; ``x0`` may be
-a pytree vector (``ops/vector.py``), except for Block Lanczos.
+a pytree vector (``ops/vector.py``), and a :class:`Block` of them.
 """
 
 from __future__ import annotations
@@ -120,8 +120,7 @@ def eigsolve(
             kw = dict(tol=tol, krylovdim=krylovdim, maxiter=maxiter, orth=orth,
                       eager=eager, verbosity=verbosity)
             alg = BlockLanczos(**{k: v for k, v in kw.items() if v is not None})
-        refuse_sharded("eigsolve with a Block start (Block Lanczos)", space)
-        op = as_operator(A, device=x0.stacked.device)
+        op = as_operator(A, device=device_of(x0.stacked))
         refuse_grad("eigsolve with a Block start (Block Lanczos)", op, x0.stacked)
         return eigsolve_blocklanczos(op, x0.stacked, howmany, which, alg, space)
     x0 = _default_x0(A, x0, space)

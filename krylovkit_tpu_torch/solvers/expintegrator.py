@@ -27,7 +27,10 @@ on the host.  Reads from the device: ``β`` once per expansion step (the
 loop test) and the pair ``(ϵ, ω)`` once per evaluation of the augmented
 exponential (at most 65 per cycle), plus ``‖w_{p+1}‖`` once per restart when
 ``p == 1``.  Real float32 Hermitian stencil problems run the one-stream
-fused expansion (``kf.fused_expansions(..., min_one=True)``).
+fused expansion (``kf.fused_expansions(..., min_one=True)``); on a sharded
+space (``psum_axis``) every rank runs it on its block of rows, with the
+neighbours' edge rows as external halos.  The vectors ``u`` may be pytrees
+(``ops/vector.py``), which take the unfused expansion.
 """
 
 from __future__ import annotations
@@ -47,7 +50,7 @@ from ..info import STARTSTOP, ConvergenceInfo, log_if, warn_if
 from ..ops import basis as bs
 from ..ops import orthonormal as on
 from ..ops.operator import LinearOperator, as_operator, probe_dtype
-from ..ops.vector import STANDARD, VectorSpace, refuse_sharded, add, zerovector
+from ..ops.vector import STANDARD, VectorSpace, add, astype, device_of, zerovector
 
 __all__ = ["expintegrator", "exponentiate"]
 
@@ -96,15 +99,11 @@ def expintegrator(
     """``y, info = expintegrator(A, t, (u₀, u₁, …))`` on the device of ``u₀``
     (reference ``src/matrixfun/expintegrator.jl:94-101``).  ``info.normres``
     is the accumulated error estimate; ``info.residual`` is ``None``."""
-    refuse_sharded("exponentiate/expintegrator", space)
     if more_u:
         u = (u,) + more_u
     if not isinstance(u, tuple):
         u = (u,)
-    if not all(isinstance(ui, torch.Tensor) for ui in u):
-        raise TypeError("expintegrator takes tensors as u: pytree vectors are not ported "
-                        "yet (ROADMAP.md queue 1, item 9)")
-    op = as_operator(A, device=u[0].device)
+    op = as_operator(A, device=device_of(u[0]))
     refuse_grad("exponentiate/expintegrator", op, *u,
                 *((t,) if isinstance(t, torch.Tensor) else ()))
     if alg is None:
@@ -137,13 +136,13 @@ def _expintegrator_core(op: LinearOperator, t, u: tuple, alg, space: VectorSpace
     p = len(u) - 1
     m = alg.krylovdim
     m1p = m + p + 1
-    dev = u[0].device
+    dev = device_of(u[0])
 
     cdt = probe_dtype(op, u[0])
     if isinstance(t, complex) and t.imag != 0:
         cdt = torch.promote_types(cdt, torch.complex64)
     rdt = cdt.to_real()
-    u = tuple(ui.to(cdt) for ui in u)
+    u = tuple(astype(ui, cdt) for ui in u)
 
     def real(v):
         return torch.tensor(v, dtype=rdt)

@@ -9,7 +9,10 @@ vectors re-appended every cycle (deflation, ``:77-91``), and the projected
 pencil solved as a dense generalized Hermitian problem
 (``dense.geneigh_active``).  As in the JAX package, stacked ``AV``/``BV``
 bases beside ``V`` make the pencil two Gram products and the Ritz data
-basis products, with no further operator applies.
+basis products, with no further operator applies.  Vectors may be pytrees
+(``ops/vector.py``; the bases work leaf by leaf), and on a sharded space
+(``psum_axis``) every reduction, the Gram matrices included, is all-reduced,
+so every rank solves the same small pencil.
 
 The JAX package's ``while_loop``\\ s are host loops over host ints here,
 reading ``β`` per step and ``nconv`` per cycle; the bases are updated in
@@ -34,9 +37,14 @@ from ..info import STARTSTOP, ConvergenceInfo, log_if, warn_if
 from ..ops import basis as bs
 from ..ops import orthonormal as on
 from ..ops.operator import LinearOperator, as_generalized_pair, concrete_start, probe_dtype
-from ..ops.vector import STANDARD, VectorSpace, refuse_sharded, rounded
+from ..ops.vector import STANDARD, VectorSpace, astype, device_of, rounded, scale, tree_map
 
 __all__ = ["geneigsolve", "geneigsolve_golubye"]
+
+
+def _shifted(av, shift, bv):
+    """``A v − ρ·B v``, leaf by leaf."""
+    return tree_map(lambda la, lb: la - shift * lb, av, bv)
 
 
 def _append(op_a, op_b, V, AV, BV, k: int, w, orth, space, numops: int):
@@ -48,12 +56,13 @@ def _append(op_a, op_b, V, AV, BV, k: int, w, orth, space, numops: int):
     av = op_a(v)
     bv = op_b(v)
     if float(beta) > 0:
-        V[k], AV[k], BV[k] = v.to(V.dtype), av.to(AV.dtype), bv.to(BV.dtype)
+        for basis, vec in ((V, v), (AV, av), (BV, bv)):
+            bs.set(basis, k, vec)
         k += 1
     return k, numops + 1
 
 
-def geneigsolve_golubye(opA: LinearOperator, opB: Optional[LinearOperator], x0: torch.Tensor,
+def geneigsolve_golubye(opA: LinearOperator, opB: Optional[LinearOperator], x0,
                         howmany: int, which, alg: GolubYe, space: VectorSpace = STANDARD):
     """Returns ``(vals, vecs, info)`` for ``A x = λ B x`` with Hermitian
     ``A`` and Hermitian positive definite ``B`` (``None``: the identity),
@@ -69,21 +78,22 @@ def geneigsolve_golubye(opA: LinearOperator, opB: Optional[LinearOperator], x0: 
     cdt = probe_dtype(opA, x0)
     rdt = cdt.to_real()
     tol = rounded(alg.tol, rdt)
-    dev = x0.device
+    dev = device_of(x0)
 
     def inv_norm(x):
         nrm = space.norm(x)
         return (1 / torch.where(nrm > 0, nrm, torch.ones_like(nrm))).to(cdt)
 
-    x0 = x0.to(cdt)
-    v0 = x0 * inv_norm(x0)
+    x0 = astype(x0, cdt)
+    v0 = scale(x0, inv_norm(x0))
     av0 = op_a(v0)
     bv0 = op_b(v0)
     rho = torch.real(space.inner(v0, av0)) / torch.real(space.inner(v0, bv0))
     V, AV, BV = bs.alloc(v0, mcap), bs.alloc(av0, mcap), bs.alloc(bv0, mcap)
-    V[0], AV[0], BV[0] = v0, av0, bv0
+    for basis, vec in ((V, v0), (AV, av0), (BV, bv0)):
+        bs.set(basis, 0, vec)
     # residual direction orthogonal to v0
-    vres, beta, _ = on.orthonormalize(av0 - rho.to(cdt) * bv0, V, 1, alg.orth, space)
+    vres, beta, _ = on.orthonormalize(_shifted(av0, rho.to(cdt), bv0), V, 1, alg.orth, space)
     vold = v0
     cvecs = None
     k, nconv, numiter, numops = 1, 0, 1, 1
@@ -93,11 +103,12 @@ def geneigsolve_golubye(opA: LinearOperator, opB: Optional[LinearOperator], x0: 
         # one Lanczos cycle on A − ρB, ρ frozen for the cycle
         shift = rho.to(cdt)
         while k < m - nconv and float(beta) > tol:
-            V[k] = vres
+            bs.set(V, k, vres)
             av = op_a(vres)
             bv = op_b(vres)
-            AV[k], BV[k] = av, bv
-            vres, beta, _ = on.orthonormalize(av - shift * bv, V, k + 1, alg.orth, space)
+            bs.set(AV, k, av)
+            bs.set(BV, k, bv)
+            vres, beta, _ = on.orthonormalize(_shifted(av, shift, bv), V, k + 1, alg.orth, space)
             k += 1
             numops += 1
 
@@ -105,7 +116,8 @@ def geneigsolve_golubye(opA: LinearOperator, opB: Optional[LinearOperator], x0: 
         if numiter > 1:
             k, numops = _append(op_a, op_b, V, AV, BV, k, vold, alg.orth, space, numops)
         for i in range(nconv):
-            k, numops = _append(op_a, op_b, V, AV, BV, k, cvecs[i], alg.orth, space, numops)
+            k, numops = _append(op_a, op_b, V, AV, BV, k, bs.get(cvecs, i), alg.orth, space,
+                                numops)
 
         # projected pencil and Ritz data: products of the bases, no applies
         D, Z, valid = dense.geneigh_active(bs.gram(V, AV, space), bs.gram(V, BV, space), k)
@@ -117,7 +129,8 @@ def geneigsolve_golubye(opA: LinearOperator, opB: Optional[LinearOperator], x0: 
         num = torch.real(bs.batch_inner(Rv, Rav, space))
         den = torch.real(bs.batch_inner(Rv, Rbv, space))
         rhos = num / torch.where(torch.abs(den) > 0, den, torch.ones_like(den))
-        Rres = Rav - rhos.reshape((-1,) + (1,) * (Rav.ndim - 1)).to(Rav.dtype) * Rbv
+        Rres = tree_map(lambda la, lb: la - rhos.reshape((-1,) + (1,) * (la.ndim - 1))
+                        .to(la.dtype) * lb, Rav, Rbv)
         betas = torch.sqrt(torch.clamp(torch.real(bs.batch_inner(Rres, Rres, space)), min=0))
         znorm = torch.sqrt(torch.sum(torch.abs(Zm) ** 2, dim=0))
         flags = betas[:howmany] <= tol * torch.clamp(znorm[:howmany], min=1e-30)
@@ -127,14 +140,14 @@ def geneigsolve_golubye(opA: LinearOperator, opB: Optional[LinearOperator], x0: 
 
         # restart from the first unconverged Ritz vector, only row 0 set
         i0 = min(nconv, hm1 - 1)
-        inv = inv_norm(Rv[i0])
-        vold = V[0].clone()
+        inv = inv_norm(bs.get(Rv, i0))
+        vold = tree_map(torch.clone, bs.get(V, 0))
         for B_, R_ in ((V, Rv), (AV, Rav), (BV, Rbv)):
-            B_.zero_()
-            B_[0] = R_[i0] * inv
+            tree_map(torch.Tensor.zero_, B_)
+            bs.set(B_, 0, scale(bs.get(R_, i0), inv))
         rho = rhos[i0]
-        vres, beta, _ = on.orthonormalize(Rres[i0] * inv, V, 1, alg.orth, space)
-        cvecs = Rv[:howmany]
+        vres, beta, _ = on.orthonormalize(scale(bs.get(Rres, i0), inv), V, 1, alg.orth, space)
+        cvecs = bs.prefix(Rv, howmany)
         k = 1
         numiter += 1
 
@@ -153,15 +166,15 @@ def geneigsolve_golubye(opA: LinearOperator, opB: Optional[LinearOperator], x0: 
     )
     info = ConvergenceInfo(
         converged=nconv_out,
-        residual=Rres[:howmany].clone(),
+        residual=tree_map(torch.clone, bs.prefix(Rres, howmany)),
         normres=betas[:howmany],
         numiter=numiter,
         numops=numops,
     )
-    return rhos[:howmany], Rv[:howmany].clone(), info
+    return rhos[:howmany], tree_map(torch.clone, bs.prefix(Rv, howmany)), info
 
 
-def geneigsolve(AB, x0: Optional[torch.Tensor] = None, howmany: int = 1, which="SR", *,
+def geneigsolve(AB, x0=None, howmany: int = 1, which="SR", *,
                 alg: Optional[GolubYe] = None, space: VectorSpace = STANDARD,
                 tol: Optional[float] = None, krylovdim: Optional[int] = None,
                 maxiter: Optional[int] = None, orth=None, verbosity: Optional[int] = None):
@@ -170,20 +183,16 @@ def geneigsolve(AB, x0: Optional[torch.Tensor] = None, howmany: int = 1, which="
     ``AB`` is ``(A, B)`` (matrices, callables or operators; ``B=None`` is
     the identity) or a bare ``A``, the reference's ``genapply`` encoding
     (``src/apply.jl:22-23``).  ``A`` must be Hermitian, ``B`` Hermitian
-    positive definite.  The solve runs on ``x0``'s device, where numpy
-    matrices are moved.  Reference: ``geneigsolve``
-    (``src/eigsolve/geneigsolve.jl``), driver GolubYe."""
-    refuse_sharded("geneigsolve", space)
+    positive definite.  ``x0`` is a tensor or a pytree of them; the solve
+    runs on its device, where numpy matrices are moved.  Reference:
+    ``geneigsolve`` (``src/eigsolve/geneigsolve.jl``), driver GolubYe."""
     if x0 is None:
         A0 = AB[0] if isinstance(AB, tuple) else AB
         if isinstance(A0, (np.ndarray, torch.Tensor)) and A0.ndim == 2:
             x0 = concrete_start(A0)
         else:
             raise ValueError("x0 is required unless A is a concrete matrix")
-    if not isinstance(x0, torch.Tensor):
-        raise TypeError("geneigsolve takes one tensor as x0: pytree vectors in Golub-Ye are "
-                        "not ported yet (ROADMAP.md queue 1, item 9)")
-    opA, opB = as_generalized_pair(AB, device=x0.device)
+    opA, opB = as_generalized_pair(AB, device=device_of(x0))
     refuse_grad("geneigsolve", opA, x0)
     refuse_grad("geneigsolve", opB, x0)
     w = which.upper() if isinstance(which, str) else which

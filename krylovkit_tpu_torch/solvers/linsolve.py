@@ -43,8 +43,6 @@ def _linsolve_impl(op, b, x0, a0, a1, alg, space):
     """Driver dispatch."""
     if isinstance(alg, CG):
         return linsolve_cg(op, b, x0, a0, a1, alg, space)
-    if isinstance(alg, (MINRES, BiCGStab)):
-        refuse_sharded(f"linsolve with {type(alg).__name__}", space)
     if isinstance(alg, MINRES):
         return linsolve_minres(op, b, x0, a0, a1, alg, space)
     if isinstance(alg, BiCGStab):

@@ -17,8 +17,9 @@ and each iteration reads two scalars for its tests (``β`` and ``|ζ̄|``; ``α`
 too when ``β`` passes).  It runs no hand-written kernel unless
 ``ops.basis.use_pallas_projections`` routes the ring sweep to the projection
 kernels.  It has no differentiation rule (nor has the JAX package's
-``lssolve``), so it refuses an input that requires grad; its vectors are
-single tensors (pytree vectors in LSMR are ROADMAP.md queue 1, item 9).
+``lssolve``), so it refuses an input that requires grad.  ``b`` and ``x``
+may be pytrees (``ops/vector.py``), each with the tree of its side of the
+map.
 """
 
 from __future__ import annotations
@@ -39,37 +40,42 @@ from ..ops.operator import (
     probe_adjoint,
     require_adjoint,
 )
-from ..ops.vector import REAL, STANDARD, VectorSpace, add, rounded, scalartype, zerovector
+from ..ops.vector import (REAL, STANDARD, VectorSpace, add, astype, device_of, rounded,
+                          scalartype, tree_map, zerovector)
 from .linsolve import _resolve_tol
 
 __all__ = ["lssolve", "reallssolve", "lssolve_lsmr"]
 
 
-def lssolve_lsmr(op: LinearOperator, b: torch.Tensor, alg: LSMR, lam=0.0,
+def _div(x, s):
+    """``x / s`` leaf by leaf."""
+    return tree_map(lambda l: l / s, x)
+
+
+def lssolve_lsmr(op: LinearOperator, b, alg: LSMR, lam=0.0,
                  space: VectorSpace = STANDARD):
     """Returns ``(x, info)`` minimizing ``‖b − A x‖² + λ²‖x‖²``, on ``b``'s
     device."""
     K = alg.krylovdim
     cdt = scalartype(probe_adjoint(op, b), b)
     rdt = cdt.to_real()
-    dev = b.device
+    dev = device_of(b)
     tol = rounded(alg.tol, rdt)
     lamr = torch.as_tensor(lam, device=dev).to(rdt)
 
-    u = b.to(cdt)
+    u = astype(b, cdt)
     beta = space.norm(u)
-    u = u / torch.where(beta > 0, beta, torch.ones_like(beta)).to(cdt)
+    u = _div(u, torch.where(beta > 0, beta, torch.ones_like(beta)).to(cdt))
     v = op.apply_adjoint(u)
     alpha = space.norm(v)
-    v = v / torch.where(alpha > 0, alpha, torch.ones_like(alpha)).to(cdt)
+    v = _div(v, torch.where(alpha > 0, alpha, torch.ones_like(alpha)).to(cdt))
 
-    V = bs.alloc(v, K)  # ring buffer of the last K v's
-    V[0] = v
+    V = bs.set(bs.alloc(v, K), 0, v)  # ring buffer of the last K v's
 
     one = torch.ones((), dtype=rdt, device=dev)
     x = zerovector(v)
     h, hbar = v, zerovector(v)
-    r = beta.to(cdt) * u
+    r = tree_map(lambda l: beta.to(cdt) * l, u)
     Ah, Ahbar = zerovector(u), zerovector(u)
     alphabar = alpha
     zetabar = alpha * beta
@@ -90,7 +96,7 @@ def lssolve_lsmr(op: LinearOperator, b: torch.Tensor, alg: LSMR, lam=0.0,
         u = add(Av, u, a=-alpha.to(cdt))
         beta = space.norm(u)
         if float(beta) > tol:
-            u = u / beta.to(cdt)
+            u = _div(u, beta.to(cdt))
             # α_{k+1} v_{k+1} = Aᴴ u_{k+1} − β_{k+1} v_k  (+ ring reorthogonalization)
             w = add(op.apply_adjoint(u), v, a=-beta.to(cdt))
             numops += 1
@@ -98,8 +104,8 @@ def lssolve_lsmr(op: LinearOperator, b: torch.Tensor, alg: LSMR, lam=0.0,
                 w, _ = on.orthogonalize(w, V, min(K, numiter), alg.orth, space)
             alpha = space.norm(w)
             if float(alpha) > tol:
-                w = w / alpha.to(cdt)
-                V[numiter % K] = w
+                w = _div(w, alpha.to(cdt))
+                bs.set(V, numiter % K, w)
             v = w
         else:
             alpha = torch.zeros_like(one)
@@ -155,7 +161,7 @@ def lssolve_lsmr(op: LinearOperator, b: torch.Tensor, alg: LSMR, lam=0.0,
 
 def lssolve(
     A,
-    b: torch.Tensor,
+    b,
     lam=0.0,
     *,
     alg: Optional[LSMR] = None,
@@ -176,12 +182,9 @@ def lssolve(
     ``src/lssolve/lssolve.jl:101-110``; tolerance ``max(atol, rtol·‖b‖)``).
     ``A`` as in ``svdsolve``: a bare callable gets its adjoint derived by
     ``with_adjoint_from`` on ``b`` (a square map)."""
-    if not isinstance(b, torch.Tensor):
-        raise TypeError("lssolve takes one tensor as b: pytree vectors in LSMR are not "
-                        "ported yet (ROADMAP.md queue 1, item 9)")
     # an (f, fadjoint) pair from the caller meets the GKL adjoint-consistency
     # guard (reference src/factorizations/gkl.jl:192)
-    op = require_adjoint(as_operator(A, device=b.device), b, space)
+    op = require_adjoint(as_operator(A, device=device_of(b)), b, space)
     refuse_grad("lssolve", op, b, *(lam,) if isinstance(lam, torch.Tensor) else ())
     if tol is None and alg is not None and atol is None and rtol is None:
         # an explicit algorithm carries its own tol (see the linsolve front-end)
@@ -198,7 +201,7 @@ def lssolve(
     return lssolve_lsmr(op, b, alg, lam, space)
 
 
-def reallssolve(A, b: torch.Tensor, lam=0.0, **kw):
+def reallssolve(A, b, lam=0.0, **kw):
     """``lssolve`` over the real inner product, for R-linear maps on complex
     vectors (reference ``reallssolve``, ``src/lssolve/lssolve.jl:190-197``)."""
     space = kw.pop("space", None)

@@ -20,8 +20,9 @@ round.  Square real float32 stencil operators with ``(R, 128)`` vectors run
 the one-stream fused expansion over both bases (``gf.fused_expansions``).
 When gradients are enabled and ``x0`` or a tensor the operator holds
 requires grad, the front-end goes through the differentiable
-``ad.svdsolve_vjp`` (backward with ``alg_rrule``).  Vectors are single
-tensors: pytree vectors in GKL are ROADMAP.md queue 1, item 9.
+``ad.svdsolve_vjp`` (backward with ``alg_rrule``).  Vectors may be
+pytrees (``ops/vector.py``), with a domain tree that differs from the
+codomain tree; they take the unfused expansion.
 """
 
 from __future__ import annotations
@@ -48,7 +49,8 @@ from ..ops.operator import (
     require_adjoint,
     resolve_device,
 )
-from ..ops.vector import REAL, STANDARD, VectorSpace, refuse_sharded, rounded, scalartype
+from ..ops.vector import (REAL, STANDARD, VectorSpace, device_of, refuse_sharded, rounded,
+                          scalartype, tree_leaves, tree_map)
 
 __all__ = ["svdsolve", "realsvdsolve", "svdsolve_gkl"]
 
@@ -122,7 +124,7 @@ def _restart(fact: gf.GKLState, svals, P, Q, beta, keep: int, keep_max: int,
     return gf.GKLState(Unew, Vnew, Bnew, keep, beta)
 
 
-def svdsolve_gkl(op: LinearOperator, x0: torch.Tensor, howmany: int, which, alg: GKL,
+def svdsolve_gkl(op: LinearOperator, x0, howmany: int, which, alg: GKL,
                  space: VectorSpace = STANDARD):
     """Partial SVD on ``x0``'s device: ``(vals, lvecs, rvecs, info)``
     (reference GKL solver, ``src/eigsolve/svdsolve.jl:144-314``)."""
@@ -140,11 +142,11 @@ def svdsolve_gkl(op: LinearOperator, x0: torch.Tensor, howmany: int, which, alg:
     rdt = cdt.to_real()
     tol = rounded(alg.tol, rdt)
     btol = float(torch.tensor(torch.finfo(rdt).eps, dtype=rdt) ** 0.75)
-    dev = x0.device
+    dev = device_of(x0)
 
     # a complex map and a real x0: the bases take the map's type (the JAX
     # package keeps x0's and drops the imaginary part of Aᴴ u)
-    promote = cdt.is_complex and not x0.is_complex()
+    promote = cdt.is_complex and not scalartype(x0).is_complex
     fact = gf.initialize(op, x0, m, cdt, space, vec_dtype=cdt if promote else None,
                          verbosity=alg.verbosity)
     m1 = m + 1
@@ -229,11 +231,13 @@ def svdsolve_gkl(op: LinearOperator, x0: torch.Tensor, howmany: int, which, alg:
     zero = torch.zeros((), dtype=cdt, device=dev)
     # u_k (the residual direction) before anything rotates U
     uk = bs.unproject_bucketed(fact.U, st.scU.L[:, k].to(cdt), k + 1)
-    lvecs = bs.transform(fact.U, kf.fold_scales(st.scU, torch.where(hm, st.P, zero)))[:howmany].clone()
-    rvecs = bs.transform(fact.V, kf.fold_scales(st.scV, torch.where(hm, st.Q, zero)))[:howmany].clone()
+    lvecs = _leading(bs.transform(fact.U, kf.fold_scales(st.scU, torch.where(hm, st.P, zero))),
+                     howmany)
+    rvecs = _leading(bs.transform(fact.V, kf.fold_scales(st.scV, torch.where(hm, st.Q, zero))),
+                     howmany)
     # residuals r_i = β·Q[k-1, i]·u_k  (= A ṽ_i − σ_i ũ_i)
     s = fact.beta * st.Q[max(k - 1, 0)]
-    residuals = s[:howmany].reshape((howmany,) + (1,) * uk.ndim) * uk[None]
+    residuals = tree_map(lambda l: s[:howmany].reshape((howmany,) + (1,) * l.ndim) * l[None], uk)
     info = ConvergenceInfo(
         converged=nconv_out,
         residual=residuals,
@@ -244,13 +248,13 @@ def svdsolve_gkl(op: LinearOperator, x0: torch.Tensor, howmany: int, which, alg:
     return st.svals[:howmany], lvecs, rvecs, info
 
 
+def _leading(V, howmany: int):
+    """The first ``howmany`` rows of a basis, as tensors of their own."""
+    return tree_map(lambda l: l[:howmany].clone(), V)
+
+
 def _default_x0(A, x0):
     if x0 is not None:
-        if not isinstance(x0, torch.Tensor):
-            raise TypeError(
-                "svdsolve takes one tensor as x0: pytree vectors in GKL are not ported "
-                "yet (ROADMAP.md queue 1, item 9)"
-            )
         return x0
     if isinstance(A, (np.ndarray, torch.Tensor)) and A.ndim == 2:
         # start in range(A): a component in the left null space can never be
@@ -266,7 +270,7 @@ def _default_x0(A, x0):
 
 def svdsolve(
     A,
-    x0: Optional[torch.Tensor] = None,
+    x0=None,
     howmany: int = 1,
     which="LR",
     *,
@@ -284,7 +288,7 @@ def svdsolve(
 
     Returns ``(vals, lvecs, rvecs, info)`` on the device of ``x0``, which
     lives in the **codomain** (left side) of the map (reference ``svdsolve``,
-    ``src/eigsolve/svdsolve.jl:1-142``).  ``A`` is a matrix (tensor, or numpy
+    ``src/eigsolve/svdsolve.jl:1-142``); it is a tensor or a pytree of them.  ``A`` is a matrix (tensor, or numpy
     array placed on ``x0``'s device), a ``LinearOperator``, an ``(f,
     fadjoint)`` tuple or a bare callable, whose adjoint is derived by
     ``with_adjoint_from`` on ``x0`` (a square map, as in the JAX package).
@@ -299,11 +303,11 @@ def svdsolve(
     # package the guard runs in the standard inner product, whatever the
     # solve's: under realsvdsolve it refuses the real adjoint of an R-linear
     # map
-    op = require_adjoint(as_operator(A, device=x0.device), x0)
+    op = require_adjoint(as_operator(A, device=device_of(x0)), x0)
     # Cap the Krylov dimension at the domain dimension: beyond it the domain
     # sweep breaks down (α → 0) with nothing left to find.  The codomain side
     # needs no cap: β → 0 there is caught by the breakdown guard.
-    domain_dim = probe_adjoint(op, x0).numel()
+    domain_dim = sum(l.numel() for l in tree_leaves(probe_adjoint(op, x0)))
     if space.psum_axis is not None:
         # x0 is this rank's block: the domain is split over the axis too
         domain_dim *= space.psum_axis.size
@@ -326,7 +330,7 @@ def svdsolve(
     return svdsolve_gkl(op, x0, howmany, which, alg, space)
 
 
-def realsvdsolve(A, x0: Optional[torch.Tensor] = None, howmany: int = 1, which="LR", **kw):
+def realsvdsolve(A, x0=None, howmany: int = 1, which="LR", **kw):
     """``svdsolve`` over the real inner product (R-linear maps on complex
     vectors; cf. reference ``reallssolve``/``RealVec``,
     ``src/KrylovKit.jl:243-256``)."""

@@ -141,3 +141,15 @@ def test_warning_text_matches_jax():
     assert lines[0].startswith("Lanczos eigsolve in iteration 1: 0 values converged, normres = ")
     assert lines[1].startswith(
         "Lanczos eigsolve finished after 1 iterations: 0 values converged, numops = 10")
+
+
+def test_issue_156_identity_eigsolve_matches_jax():
+    """``tests/test_issues.py:53`` (reference #156): the identity, a fully
+    degenerate spectrum that breaks down at once, converges to 1 in both
+    packages with equal counts."""
+    vj, _, ij = kk.eigsolve(jnp.eye(2), jnp.ones(2), howmany=1, which="LM")
+    vt, _, it = kt.eigsolve(torch.eye(2, dtype=torch.float64),
+                            torch.ones(2, dtype=torch.float64), howmany=1, which="LM")
+    np.testing.assert_allclose(vt.numpy(), np.asarray(vj), rtol=0, atol=1e-10)
+    assert (it.numops, it.numiter, it.converged) == (
+        int(ij.numops), int(ij.numiter), int(ij.converged)) == (1, 1, 1)

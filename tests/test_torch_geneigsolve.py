@@ -9,8 +9,8 @@ values rtol 1e-10 in float64/complex128 and 1e-5 in float32/complex64
 within 1e-3 of each other relative, or absolute 1e-3·tol (float64,
 complex128) and 0.1·tol (float32, complex64, whose converged residuals are
 rounding noise of ~eps·‖A‖, 3e-7 at tol 4.8e-6); ``numops``,
-``numiter`` and ``converged`` equal.  ``test_geneig_pytree_mode`` is not
-mirrored: pytree vectors are not ported yet (ROADMAP queue 1, item 6).
+``numiter`` and ``converged`` equal.  ``test_geneig_pytree_mode`` is
+mirrored in ``tests/test_torch_pytree_drivers.py``.
 """
 
 import dataclasses

@@ -709,3 +709,68 @@ def test_small_sharded_scenarios_on_card_match_cpu():
 
     launches = small_sharded(torch, np, world=2)
     assert launches.get("fused_step", 0) > 0 and launches.get("project", 0) > 0
+
+
+def test_small_front_ends_on_card_match_cpu():
+    """The ``small_front_ends`` phase of ``chip_smoke.py``: the remaining
+    front-ends on a sharded space, two gloo ranks with CUDA tensors against
+    two CPU ranks (float64 within 1e-12, counts equal, every rank the same
+    bits); the fused ``exponentiate`` launches K1 on every card rank."""
+    from chip_smoke import small_front_ends
+
+    launches = small_front_ends(torch, np, world=2)
+    assert launches.get("fused_step", 0) > 0
+
+
+def test_sharded_front_ends_small_width_on_card():
+    """Phase ``sharded_front_ends`` with config 5's operator at n = 2^14
+    (config 4's at its width, 2^20: the unconverged two-sided Ritz values of
+    its dense spectrum are held to 1e-4 there): every solve on two card
+    ranks against the one-rank solve (counts, values 1e-4, launches per
+    rank equal to the one-rank solve's)."""
+    from chip_smoke import sharded_front_ends
+
+    launches = sharded_front_ends(torch, np, kt, _build, "card test", n=1 << 14, halfband=25)
+    assert launches["exponentiate_fused"].get("fused_step", 0) > 0
+
+
+@pytest.mark.parametrize("name", ["svdsolve", "lssolve", "geneigsolve", "expintegrator",
+                                  "block_lanczos"])
+def test_small_pytree_drivers_on_card_match_cpu(name):
+    """The small float64 pytree solves of phase ``pytree_drivers``: card
+    within 1e-12 of the CPU, counts equal."""
+    from chip_smoke import card_vs_cpu, small_pytree_cases
+
+    card_vs_cpu(torch, _build, f"pytree {name}",
+                lambda d: small_pytree_cases(torch, np, kt, d)[name](), 1e-12, "cuda")
+
+
+def test_pytree_drivers_small_width_on_card():
+    """Phase ``pytree_drivers`` at a small width: config 3's rectangular map
+    at 2^14 × 2^13, config 4's exponentiate at 2^14, the Q1 pencil and the
+    Poisson matrix on the 64 × 64 grid; K3 launched by the two banded
+    trees as by their single-tensor solves."""
+    from chip_smoke import pytree_drivers
+
+    quiet = {"verbosity": kt.SILENT}
+    cols, rows = 1 << 13, 1 << 14
+    wr = torch.linspace(1.0, 3.0, cols, device="cuda").reshape(cols // 128, 128)
+
+    def rect(x):
+        wx = wr * x
+        return torch.cat([wx, 0.5 * torch.roll(wx, 1, dims=0)], dim=0)
+
+    def rect_adj(y):
+        return wr * y[: cols // 128] + 0.5 * wr * torch.roll(y[cols // 128:], -1, dims=0)
+
+    x0r = torch.randn((rows // 128, 128), generator=_gen(7), device="cuda")
+    S, _, _, info = kt.svdsolve((rect, rect_adj), x0r, 8, "LR", krylovdim=30, maxiter=12,
+                                tol=1e-30, **quiet)
+    chain = StencilOperator((-1, 0, 1), (1.0, -2.0, 1.0))
+    x04 = torch.randn((128, 128), generator=_gen(8), device="cuda")
+    ye, ie = kt.exponentiate(chain, 0.1, x04, krylovdim=30, tol=1e-4, ishermitian=True, **quiet)
+    out = pytree_drivers(torch, np, kt, _build, {
+        "rect": (rect, rect_adj, x0r), "svdsolve": (S.cpu(), info),
+        "exponentiate": (chain, x04, (ye, ie))}, "card test", N=64)
+    assert out["pytree_geneigsolve_q1"].get("banded_spmv", 0) > 0
+    assert out["pytree_block_lanczos_poisson"].get("banded_spmv", 0) > 0

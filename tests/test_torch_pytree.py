@@ -449,16 +449,3 @@ def test_front_ends_without_a_rule_refuse_grad(front_end):
     with torch.no_grad():
         fn(T(A).requires_grad_(True), T(x0))
 
-
-@pytest.mark.parametrize("front_end", ["svdsolve", "lssolve", "geneigsolve", "expintegrator"])
-def test_drivers_without_pytrees_raise_type_error(front_end):
-    A = T(np.eye(4))
-    x = (T(np.ones(2)), T(np.ones(2)))
-    calls = {
-        "svdsolve": lambda: kt.svdsolve(A, x, 1),
-        "lssolve": lambda: kt.lssolve(A, x),
-        "geneigsolve": lambda: kt.geneigsolve((A, None), x, 1),
-        "expintegrator": lambda: kt.expintegrator(A, 0.1, {"a": x[0]}),
-    }
-    with pytest.raises(TypeError, match="ROADMAP.md queue 1, item 9"):
-        calls[front_end]()

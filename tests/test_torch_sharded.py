@@ -17,7 +17,7 @@ Tolerances: float64 values within 1e-10 and ``numops``, ``numiter``,
 (two roundings of one kernel) with equal counts; the float32 stencil apply
 the JAX test's atol 1e-5.  In this process: the glued K1 twin with external
 halos against the unsharded step, the fused gates under a sharded space,
-and the front-ends that refuse a sharded space.
+and the differentiable routes, which refuse a sharded space.
 """
 
 from functools import partial
@@ -438,21 +438,7 @@ def _refused_calls():
     A = torch.eye(8, dtype=torch.float64) * 2
     x = torch.ones(8, dtype=torch.float64)
     sp = _space(1)
-    blk = kt.Block([x, x + 1])
     return {
-        "geneigsolve": lambda: kt.geneigsolve((A, A), x, 1, "SR", space=sp),
-        "bieigsolve": lambda: kt.bieigsolve(A, x, x, 1, "LM", space=sp),
-        "exponentiate": lambda: kt.exponentiate(A, 0.1, x, space=sp),
-        "expintegrator": lambda: kt.expintegrator(A, 0.1, x, x, space=sp),
-        "minres": lambda: kt.linsolve(A, x, alg=kt.MINRES(), space=sp),
-        "bicgstab": lambda: kt.linsolve(A, x, alg=kt.BiCGStab(), space=sp),
-        "block_lanczos": lambda: kt.eigsolve(A, blk, 1, "LR", space=sp),
-        "lanczos_iterator": lambda: kt.LanczosIterator(A, x, space=sp),
-        "arnoldi_iterator": lambda: kt.ArnoldiIterator(A, x, space=sp),
-        "gkl_iterator": lambda: kt.GKLIterator(A, x, space=sp),
-        "block_lanczos_iterator": lambda: kt.BlockLanczosIterator(A, torch.stack([x, x + 1]),
-                                                                  space=sp),
-        "biarnoldi_iterator": lambda: kt.BiArnoldiIterator(A, x, x, space=sp),
         "eigsolve_grad": lambda: kt.eigsolve(A.clone().requires_grad_(True), x, 1, "LR",
                                              ishermitian=True, space=sp),
         "linsolve_grad": lambda: kt.linsolve(A.clone().requires_grad_(True), x, space=sp),
@@ -462,6 +448,5 @@ def _refused_calls():
 
 @pytest.mark.parametrize("name", sorted(_refused_calls()))
 def test_unported_front_ends_refuse_a_sharded_space(name):
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 10"):
         _refused_calls()[name]()
-

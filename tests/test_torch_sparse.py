@@ -8,7 +8,8 @@ bit for bit; applies 1e-12 of ``Σ|a_ij||x_j|`` in float64/complex128 and
 1e-6 in float32/complex64 (the two sum a row's products in different
 orders); solves as in the other parity files (values rtol 1e-10, counts
 equal).  The dict-vector and sharded-mesh cases are not mirrored here:
-pytree vectors are ROADMAP queue 1, item 9; the sharded ones are in
+pytree vectors are in ``tests/test_torch_pytree.py`` and
+``tests/test_torch_pytree_drivers.py``, the sharded ones in
 ``tests/test_torch_parallel_sparse.py`` and ``tests/test_torch_sharded.py``.
 """
 
