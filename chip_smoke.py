@@ -171,11 +171,26 @@ without the final ``ok`` line:
    and config 2's banded Poisson through Block Lanczos (float64, K3)
    against single-tensor solves: within 1e-4, counts equal where the
    solves run to ``maxiter``;
-29. profile (only with ``--profile``) — one more config-1 solve and one
+29. sharded_ad — gradients of sharded solves at config 2's width: the
+   four bound states of the 1024² Poisson stencil plus the wells of phase
+   17 (a ``ParametricOperator`` around ``shard_local_stencil(poisson_2d)``,
+   the wells' block a rank's parameter) and the gradient of their sum by
+   the GMRES rule, then with the projection kernels on by the Sylvester
+   rule; fused GMRES(30) on ``(0.5 + P) x = 1`` for two cycles and the
+   gradient of ``⟨c, x⟩`` in ``b`` and ``a0``; the adjoint derived across
+   the ranks.  Two gloo ranks against one rank: Hellmann–Feynman per rank
+   and the joined gradients within 1e-3, values and the linsolve's
+   gradients within 1e-4 (``ā0`` summed over the ranks), counts equal,
+   K1 per rank in the linsolve's forward and K5/K6 per rank in the flag-on
+   forward equal to one rank's, none on the backward's tuple solves (K5 in
+   the Sylvester operator's projection on the eigenvectors, as one rank
+   launches it); forward and backward
+   ms of the slowest rank, the collectives and their ms, the one-rank ms;
+30. profile (only with ``--profile``) — one more config-1 solve and one
    more fused config-4 solve under ``torch.profiler``: device busy time and idle share, device ops, host
    reads of device scalars, device time by kernel name.
 
-The ranks of phases 22-27 are spawned processes (``start_ranks``) joined
+The ranks of phases 22-27 and 29 are spawned processes (``start_ranks``) joined
 through a ``FileStore`` in a temporary directory, each collective bounded
 by a 120 s timeout; a failed rank fails the script.  One card serves every
 rank, so these phases measure correctness and the cost of the collectives,
@@ -188,10 +203,12 @@ printed as ``parent_ms`` beside ``ms`` (without it ``parent_ms`` is null).
 ``--kernel-times`` is that process: it times K1 and K2 of the package under
 ``--root`` (default: this tree) and prints one JSON line.
 
-Each path (phases 5, 7, 9, 12, 13, 14, 15, 17, 18, 20, 21, 24, 25, 27 and 28, one solve or
-iterator at a time, the forward and the backward of a differentiable solve apart; in 24, 25 and
-27 in every rank) is driven with the launch counts set to 0 just before it and read just after.  Then the kernel
-summary line, the ``nvidia-smi`` name/power line, and as the last line
+Each path (phases 5, 7, 9, 12, 13, 14, 15, 17, 18, 20, 21, 24, 25, 27,
+28 and 29, one solve or iterator at a time, the forward and the backward of
+a differentiable solve apart; in 24, 25, 27 and 29 in every rank) is
+driven with the launch counts set to 0 just before it and read just after.
+Then the kernel summary line, the ``nvidia-smi`` name/power line, and as
+the last line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -2600,12 +2617,14 @@ SMALL_SHARDED_TOL = 1e-12  # float64: card ranks against CPU ranks, relative to 
 SMALL_SHARDED_TOL32 = 2e-4  # float32 (the fused Lanczos and K5): kernel against plain version
 
 
-def compare_sharded(np, card, cpu, phase="small_sharded"):
-    """Each scenario of ``sharded_cases`` (or ``front_end_cases``) on the
-    card's ranks against the CPU's: arrays within :data:`SMALL_SHARDED_TOL`
-    of the largest entry (float32 ones within :data:`SMALL_SHARDED_TOL32`),
+def compare_sharded(np, card, cpu, phase="small_sharded", tol64=None):
+    """Each scenario of ``sharded_cases`` (or ``front_end_cases``,
+    ``sharded_ad_cases``) on the card's ranks against the CPU's: float64
+    arrays within ``tol64`` (default :data:`SMALL_SHARDED_TOL`) of the
+    largest entry, float32 ones within :data:`SMALL_SHARDED_TOL32`,
     everything else (counts, plans, flags) equal; fused eigenvectors by
     ``|<a, b>| ≈ 1``.  Returns one record per scenario."""
+    tol64 = SMALL_SHARDED_TOL if tol64 is None else tol64
     records = []
     for name, want in cpu.items():
         got = card[name]
@@ -2621,7 +2640,7 @@ def compare_sharded(np, card, cpu, phase="small_sharded"):
                 require(all(abs(d - 1) <= 1e-3 for d in dots), f"{phase} {name}: vectors")
                 continue
             if isinstance(w, np.ndarray):
-                tol = SMALL_SHARDED_TOL32 if w.dtype == np.float32 else SMALL_SHARDED_TOL
+                tol = SMALL_SHARDED_TOL32 if w.dtype == np.float32 else tol64
                 err = float(np.max(np.abs(g - w)) / max(float(np.max(np.abs(w))), 1e-300))
                 require(g.shape == w.shape and err <= tol,
                         f"{phase} {name}.{key}: card within {tol} of CPU ({err})")
@@ -2851,6 +2870,299 @@ def front_end_cases(torch, np, kt, dev="cpu", names=None):
                  "geneigsolve": geneigsolve, "bieigsolve": bieigsolve,
                  "block_lanczos": block_lanczos, "minres_tree": minres_tree,
                  **{name: (lambda name=name: iterator(name)) for name in FRONT_END_ITERATORS}}
+    out = {}
+    for name, fn in scenarios.items():
+        if names is not None and name not in names:
+            continue
+        try:
+            out[name] = fn()
+        except Exception:  # noqa: BLE001 - the same on every rank; reported per scenario
+            out[name] = {"error": traceback.format_exc()}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# gradients of sharded solves (eleventh slice)
+# ---------------------------------------------------------------------------
+
+SHARDED_AD_N = 1 << 10  # eigsolve and svdsolve: (8, 128) vectors
+SHARDED_AD_N_LIN = 1 << 12  # linsolve: (32, 128)
+SHARDED_AD_TOL = 1e-12
+SHARDED_AD_CHAIN = ((-1, 0, 1), (-1.3, 2.0, -0.7))  # config 4's chain: A != Aᵀ
+SHARDED_AD_GRID = ((16, 256), ((0, 0), (-1, 0), (1, 0), (0, -1), (0, 1)),
+                   (4.0, -1.2, -0.8, -1.1, -0.9))  # two vector rows a grid row: h = 2
+SHARDED_AD_EIG = ("eigsolve_gmres", "eigsolve_sylvester", "eigsolve_sylvester_values",
+                  "eigsolve_general")
+SHARDED_AD_SVD = ("svdsolve_gmres", "svdsolve_sylvester", "svdsolve_sylvester_values",
+                  "svdsolve_derived", "svdsolve_derived_scaled", "svdsolve_derived_rank1")
+SHARDED_AD_DOT = ("chain", "grid", "ell", "psum")
+
+
+def sharded_ad_problem(np, name):
+    """The global data of scenario ``name`` of :func:`sharded_ad_cases`,
+    from a numpy seed: a sharded parameter ``g``, a sharded ``mask`` that a
+    replicated scalar ``s`` scales, a start ``x0``, a right-hand side ``b``
+    and the cotangent directions ``c`` and ``d``.  Stencil scenarios take
+    ``(n/128, 128)`` vectors; the ELL ones flat vectors of
+    :data:`FRONT_END_N`, with the banded matrix ``coo``."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    if name.startswith("ell"):
+        n, shape = FRONT_END_N, (FRONT_END_N,)
+    else:
+        n = SHARDED_AD_N_LIN if name.startswith("linsolve") else SHARDED_AD_N
+        shape = (n // 128, 128)
+    out = {"n": n, "s": 0.2, "a0": 0.5, "a1": 1.0}
+    out["g"] = 0.3 * rng.standard_normal(shape)
+    out["mask"] = (rng.random(shape) < 0.3).astype(np.float64)
+    for key in ("x0", "b", "c", "d"):
+        out[key] = rng.standard_normal(shape)
+    return out
+
+
+def sharded_ad_map(name, A, inner):
+    """``(apply, adjoint)`` of the ``ParametricOperator`` of an eigsolve or
+    svdsolve scenario on the sharded stencil ``A``, with parameters ``p =
+    (g, s, mask, d)``: ``x ↦ A x + g⊙x + s·mask⊙x``; for
+    ``svdsolve_derived_scaled`` ``x ↦ (1 + g)⊙(A x) + s·mask⊙x`` (the
+    halo term of the derived adjoint depends on ``g``) and for
+    ``svdsolve_derived_rank1`` ``x ↦ A x + g⊙x + s·⟨mask, x⟩·d`` (a psum
+    inside the map, ``inner`` the space's).  ``adjoint`` is ``None`` for the
+    ``_derived`` scenarios: it is derived across the ranks."""
+    if name == "svdsolve_derived_scaled":
+        def apply(p, x):
+            return (1 + p[0]) * A.normal(x) + p[1] * p[2] * x
+    elif name == "svdsolve_derived_rank1":
+        def apply(p, x):
+            return A.normal(x) + p[0] * x + p[1] * inner(p[2], x) * p[3]
+    else:
+        def apply(p, x):
+            return A.normal(x) + p[0] * x + p[1] * p[2] * x
+
+    def adjoint(p, y):
+        return A.apply_adjoint(y) + p[0] * y + p[1] * p[2] * y
+
+    return apply, (None if "_derived" in name else adjoint)
+
+
+def sharded_ad_algs(kt, name):
+    """``(alg, alg_rrule)`` of an eigsolve or svdsolve scenario."""
+    kw = dict(tol=SHARDED_AD_TOL, krylovdim=30, maxiter=100, verbosity=kt.SILENT)
+    primal = (kt.Arnoldi(**kw) if name == "eigsolve_general" else
+              kt.GKL(**kw) if name.startswith("svdsolve") else kt.Lanczos(**kw))
+    rrule = kt.Arnoldi(**kw) if "sylvester" in name or name == "eigsolve_general" else None
+    return primal, rrule
+
+
+def sharded_ad_cases(torch, np, kt, dev="cpu", names=None):
+    """Gradients of sharded solves on this rank (called on every rank of a
+    group, ``run_ranks``), float64: ``linsolve`` (GMRES on
+    ``shard_local_stencil(laplacian_1d(2**12))``, cotangents of ``b``,
+    ``a0``, ``a1``), ``eigsolve`` through the GMRES, Sylvester and general
+    Sylvester rules and ``svdsolve`` through the GMRES and Sylvester rules
+    (a ``ParametricOperator`` ``x ↦ A x + g⊙x + s·mask⊙x`` on a sharded
+    stencil: ``g`` sharded, ``s`` replicated; the ``_values`` cases take a
+    cotangent on the values only), ``svdsolve`` with an adjoint derived
+    across the ranks, ``linsolve`` and ``eigsolve`` around a
+    ``ShardedELLOperator`` (the eigsolve's adjoint derived), the adjoint
+    identity ``Σ_ranks ⟨y, A x⟩ = Σ_ranks ⟨Aᴴ y, x⟩`` of derived adjoints
+    (``dot_*``: the chain and grid stencils, the ELL operator and a map with
+    a psum), and the error of a map that calls ``torch.distributed``
+    itself.  Each returns global values: sharded gradients gathered, and
+    the partials of a replicated input by rank (``s``, ``a0``, ``a1``), with
+    the forward's counts and the backward's adjoint applies; ``names``
+    picks some."""
+    import traceback
+
+    import torch.distributed as dist
+
+    from krylovkit_tpu_torch.ops.vector import VectorSpace
+
+    P = kt.parallel
+    mesh = P.make_mesh(device=dev)
+    ax = mesh.axis(P.VECTOR_AXIS)
+    space = VectorSpace(psum_axis=ax)
+    f64 = torch.float64
+
+    def sv(a):
+        return P.shard_vector(torch.as_tensor(np.asarray(a, dtype=np.float64)), mesh)
+
+    def host(t):
+        return gather(torch, ax, t.detach()).cpu().numpy()
+
+    def by_rank(t):
+        return gather(torch, ax, t.detach().reshape(1)).cpu().numpy()
+
+    def scalar(v):
+        return torch.tensor(v, dtype=f64, device=mesh.device, requires_grad=True)
+
+    def gsum(t):
+        return ax.psum(t.detach())
+
+    counts = {"adjoint": 0}
+
+    def counted(fn):
+        def apply(*a):
+            if a[-1].device.type != "meta":
+                counts["adjoint"] += 1
+            return fn(*a)
+
+        return apply
+
+    def stencil_param(name, prob, chain):
+        """The operator of :func:`sharded_ad_map` on ``A`` the sharded
+        stencil, its adjoint counted, and its two differentiated
+        parameters ``(g, s)``."""
+        if chain:
+            A = P.shard_local_stencil(kt.StencilOperator(*SHARDED_AD_CHAIN), ax)
+        else:
+            A = P.shard_local_stencil(kt.laplacian_1d(prob["n"], device=dev), ax)
+        g, s = sv(prob["g"]).requires_grad_(True), scalar(prob["s"])
+        apply, adjoint = sharded_ad_map(name, A, space.inner)
+        op = kt.ParametricOperator(apply, (g, s, sv(prob["mask"]), sv(prob["d"])),
+                                   adjoint and counted(adjoint))
+        return (g, s), op
+
+    def eig_case(name):
+        prob = sharded_ad_problem(np, name)
+        (g, s), op = stencil_param(name, prob, chain=False)
+        alg, rrule = sharded_ad_algs(kt, name)
+        vals, vecs, info = kt.eigsolve(op, sv(prob["x0"]), 2, "SR", alg=alg, alg_rrule=rrule,
+                                       space=space)
+        c = sv(prob["c"])
+        cv = gsum((c[None] * vecs).sum((1, 2)))
+        gv = 2 * cv[:, None, None] * c[None]
+        if name.endswith("_values"):
+            gv = torch.zeros_like(gv)
+        counts["adjoint"] = 0
+        torch.autograd.backward([vals, vecs], [torch.ones_like(vals), gv])
+        return {"vals": vals.detach().cpu().numpy(), "g": host(g.grad), "s": by_rank(s.grad),
+                "adjoint_applies": counts["adjoint"], **_infos(info)}
+
+    def svd_case(name):
+        prob = sharded_ad_problem(np, name)
+        (g, s), op = stencil_param(name, prob, chain=True)
+        alg, rrule = sharded_ad_algs(kt, name)
+        vals, U, V, info = kt.svdsolve(op, sv(prob["x0"]), 2, "LR", alg=alg, alg_rrule=rrule,
+                                       space=space)
+        c, d = sv(prob["c"]), sv(prob["d"])
+        cu, dv = gsum((c[None] * U).sum((1, 2))), gsum((d[None] * V).sum((1, 2)))
+        gU, gV = dv[:, None, None] * c[None], cu[:, None, None] * d[None]
+        if name.endswith("_values"):
+            gU, gV = torch.zeros_like(gU), torch.zeros_like(gV)
+        counts["adjoint"] = 0
+        torch.autograd.backward([vals, U, V], [torch.ones_like(vals), gU, gV])
+        out = {"vals": vals.detach().cpu().numpy(), "g": host(g.grad), "s": by_rank(s.grad),
+               **_infos(info)}
+        if "_derived" not in name:
+            out["adjoint_applies"] = counts["adjoint"]
+        return out
+
+    def linsolve_case():
+        prob = sharded_ad_problem(np, "linsolve")
+        A = P.shard_local_stencil(kt.laplacian_1d(prob["n"], device=dev), ax)
+        op = kt.LinearOperator(A.normal, counted(A.apply_adjoint))
+        b = sv(prob["b"]).requires_grad_(True)
+        a0, a1 = scalar(prob["a0"]), scalar(prob["a1"])
+        alg = kt.GMRES(tol=SHARDED_AD_TOL, krylovdim=30, maxiter=200, verbosity=kt.SILENT)
+        x, info = kt.linsolve(op, b, None, a0, a1, alg=alg, space=space)
+        counts["adjoint"] = 0
+        torch.autograd.backward(x, sv(prob["c"]))
+        return {"x": host(x), "b": host(b.grad), "a0": by_rank(a0.grad), "a1": by_rank(a1.grad),
+                "adjoint_applies": counts["adjoint"], **_infos(info)}
+
+    def ell(prob):
+        return P.sharded_ell_from_coo(*P.banded_coo(prob["n"], halfband=4, seed=11, spd=True),
+                                      (prob["n"], prob["n"]), mesh)
+
+    def ell_linsolve():
+        prob = sharded_ad_problem(np, "ell_linsolve")
+        E = ell(prob)
+        g, b = sv(prob["g"]).requires_grad_(True), sv(prob["b"]).requires_grad_(True)
+        op = kt.ParametricOperator(lambda p, x: E.normal(x) + p * x, g,
+                                   counted(lambda p, y: E.apply_adjoint(y) + p * y))
+        alg = kt.GMRES(tol=SHARDED_AD_TOL, krylovdim=30, maxiter=200, verbosity=kt.SILENT)
+        x, info = kt.linsolve(op, b, alg=alg, space=space)
+        counts["adjoint"] = 0
+        torch.autograd.backward(x, sv(prob["c"]))
+        return {"x": host(x), "g": host(g.grad), "b": host(b.grad),
+                "adjoint_applies": counts["adjoint"], **_infos(info)}
+
+    def ell_eigsolve_derived():
+        prob = sharded_ad_problem(np, "ell_eigsolve_derived")
+        E = ell(prob)
+        g = sv(prob["g"]).requires_grad_(True)
+        op = kt.ParametricOperator(lambda p, x: E.normal(x) + p * x, g)
+        alg = kt.Lanczos(tol=SHARDED_AD_TOL, krylovdim=30, maxiter=100, verbosity=kt.SILENT)
+        vals, vecs, info = kt.eigsolve(op, sv(prob["x0"]), 2, "SR", alg=alg, space=space)
+        vals.sum().backward()
+        return {"vals": vals.detach().cpu().numpy(), "g": host(g.grad), **_infos(info)}
+
+    def dot_case(kind):
+        """``(⟨y, A x⟩, ⟨Aᴴ y, x⟩)`` summed over the ranks for the adjoint
+        derived by ``with_adjoint_from`` (and by ``torch.func.vjp``), and
+        the largest gap to the explicit adjoint."""
+        prob = sharded_ad_problem(np, "ell_dot" if kind == "ell" else "dot_" + kind)
+        x, y = sv(prob["x0"]), sv(prob["b"])
+        explicit = None
+        if kind == "chain":
+            A = P.shard_local_stencil(kt.StencilOperator(*SHARDED_AD_CHAIN), ax)
+            f, explicit = A.normal, A.apply_adjoint
+        elif kind == "grid":
+            A = P.shard_local_stencil(kt.GridStencilOperator(*SHARDED_AD_GRID), ax)
+            f, explicit = A.normal, A.apply_adjoint
+        elif kind == "ell":
+            E = ell(prob)
+            f, explicit = E.normal, E.apply_adjoint
+        else:
+            # a rank-one global term: x ↦ g⊙x + ⟨c, x⟩·d, its psum transposed
+            g, c, d = sv(prob["g"]), sv(prob["c"]), sv(prob["d"])
+
+            def f(v):
+                return g * v + space.inner(c, v) * d
+
+            def explicit(w):
+                return g * w + space.inner(d, w) * c
+
+        derived = kt.ParametricOperator(lambda p, v: p * f(v), scalar(1.0).detach()
+                                        ).with_adjoint_from(x)
+        ady = derived.apply_adjoint(y)
+        _, vjp = torch.func.vjp(f, torch.zeros_like(x))
+        func_ady = vjp(y)[0]
+        out = {"yAx": float(space.inner(y, f(x))), "Ayx": float(space.inner(ady, x)),
+               "func_gap": float(gsum((func_ady - ady).abs().max()))}
+        out["explicit_gap"] = float(gsum((explicit(y) - ady).abs().max()))
+        return out
+
+    def psum_loss():
+        # a replicated loss reduced through the space: each rank's cotangent
+        # of the psum's output is summed over the ranks, so b̄ = D·c
+        prob = sharded_ad_problem(np, "psum_loss")
+        b = sv(prob["b"]).requires_grad_(True)
+        space.inner(sv(prob["c"]), b).backward()
+        return {"b": host(b.grad)}
+
+    def collective_error():
+        # a map that sums over the ranks with torch.distributed itself: its
+        # derived adjoint has no transpose for that sum and must raise
+        def f(v):
+            t = v.sum().reshape(1)
+            dist.all_reduce(t, group=ax.group)
+            return v + t
+
+        x = sv(sharded_ad_problem(np, "collective_error")["x0"])
+        op = kt.LinearOperator(f).with_adjoint_from(x)
+        try:
+            op.apply_adjoint(x)
+        except RuntimeError as e:
+            return {"raised": "collective that has none" in str(e)}
+        return {"raised": False}
+
+    scenarios = {"linsolve": linsolve_case, "ell_linsolve": ell_linsolve,
+                 "ell_eigsolve_derived": ell_eigsolve_derived,
+                 "collective_error": collective_error, "psum_loss": psum_loss,
+                 **{name: (lambda name=name: eig_case(name)) for name in SHARDED_AD_EIG},
+                 **{name: (lambda name=name: svd_case(name)) for name in SHARDED_AD_SVD},
+                 **{"dot_" + k: (lambda k=k: dot_case(k)) for k in SHARDED_AD_DOT}}
     out = {}
     for name, fn in scenarios.items():
         if names is not None and name not in names:
@@ -3213,6 +3525,302 @@ def small_front_ends(torch, np, world=2):
           "k1_launches_per_rank_exponentiate": fused["launches"].get("fused_step", 0),
           "launches_per_rank": launches, "seconds": time.perf_counter() - t0})
     return launches
+
+
+SMALL_SHARDED_AD = ("linsolve", "ell_linsolve", "eigsolve_sylvester_values", "dot_chain",
+                    "dot_grid", "dot_ell", "collective_error")
+
+
+def small_sharded_ad(torch, np, world=2, names=SMALL_SHARDED_AD):
+    """:func:`sharded_ad_cases` (``names``) on ``world`` gloo ranks with
+    CUDA tensors and, at the same time, on ``world`` CPU ranks: gradients
+    within :data:`AD_TOL` of the CPU's (float64, relative to the largest
+    entry), counts and the backward's applies equal, every rank the same
+    bits; the ``dot_*`` adjoint identities hold on the card's ranks to
+    1e-12.  Returns one record per compared scenario."""
+    on_card = start_ranks(world, "sharded_ad_cases", dev="cuda", threads=2, timeout=600,
+                          names=names)
+    on_cpu = start_ranks(world, "sharded_ad_cases", dev="cpu", threads=2, timeout=600,
+                         names=names)
+    try:
+        card = same_on_every_rank(np, collect_ranks(on_card))
+    finally:
+        cpu = same_on_every_rank(np, collect_ranks(on_cpu))
+    if "collective_error" in card:
+        # the guard against a dropped term fires with CUDA tensors too
+        got, want = card.pop("collective_error"), cpu.pop("collective_error")
+        require(got.get("raised") is True and want.get("raised") is True,
+                f"small_sharded_ad collective_error: raised on the card and the CPU ({got}, "
+                f"{want})")
+    for name in [k for k in card if k.startswith("dot_")]:
+        # the adjoint identity on the card's ranks (its gaps are rounding)
+        got, want = card.pop(name), cpu.pop(name)
+        require("error" not in got, f"small_sharded_ad {name}: ran ({got.get('error')})")
+        scale = abs(got["yAx"])
+        require(abs(got["yAx"] - got["Ayx"]) <= 1e-12 * scale
+                and max(got["explicit_gap"], got["func_gap"]) <= 1e-12 * scale
+                and abs(got["yAx"] - want["yAx"]) <= AD_TOL * scale,
+                f"small_sharded_ad {name}: sum <y, A x> = sum <A^H y, x> on the card ({got})")
+    return compare_sharded(np, card, cpu, phase="small_sharded_ad", tol64=AD_TOL)
+
+
+SHARDED_AD_CYCLES = 2  # GMRES(30) cycles of the full-width linsolve (tol 1e-30: fixed work)
+SHARDED_AD_A0 = 0.5  # config 2's shifted system
+SHARDED_AD_PASSES = ("eig_gmres", "eig_sylvester_proj", "linsolve")
+
+
+def sharded_ad_width(torch, np, kt, L, N, space, put, dev):
+    """The passes of phase ``sharded_ad`` on the operator ``L`` (config 2's
+    ``N × N`` Poisson stencil, sharded or not) in ``space``; ``put`` gives
+    this rank's block of a global ``(N²/128, 128)`` array on ``dev``.  Each
+    pass is a forward and a backward, each timed with its launches and its
+    collectives (all-reduces, their seconds): ``eig_gmres`` the four lowest
+    bound states of ``L + diag(g)`` (the wells of ``ad_impurity``) and the
+    gradient of their sum by the GMRES rule; ``eig_sylvester_proj`` the same
+    with the projection kernels on and an Arnoldi ``alg_rrule`` (the
+    Sylvester rule); ``linsolve`` fused GMRES(30) on ``(0.5 + L) x = 1``
+    (:data:`SHARDED_AD_CYCLES` cycles) and the gradient of ``⟨c, x⟩`` with
+    respect to ``b`` and ``a0``.  Then the adjoint derived across the ranks
+    (no ``adjoint_fn``) against the explicit one.  Returns ``(results,
+    records)``: this rank's blocks and partials, and per pass its ms,
+    launches and collectives."""
+    from krylovkit_tpu_torch import _build
+    from krylovkit_tpu_torch.ops import basis as bs
+    from krylovkit_tpu_torch.ops import collectives as pc
+
+    n = N * N
+    sync = torch.cuda.synchronize if dev != "cpu" else (lambda: None)
+    gn = np.zeros(n, np.float32)
+    for site, depth in impurity_wells(N):
+        gn[site] = depth
+    g = put(gn.reshape(n // 128, 128)).requires_grad_(True)
+    rng = np.random.default_rng(6)
+    x0 = put(rng.standard_normal((n // 128, 128)).astype(np.float32))
+    c = put(rng.standard_normal((n // 128, 128)).astype(np.float32))
+
+    def apply(p, x):
+        return L.normal(x) + p * x
+
+    def adjoint(p, y):
+        return L.apply_adjoint(y) + p * y
+
+    kw = dict(ishermitian=True, krylovdim=30, maxiter=10, tol=1e-5, verbosity=kt.SILENT)
+
+    def timed(fn):
+        sync()
+        _build.reset_launches()
+        pc.reset_stats()
+        pc.time_collectives = True
+        try:
+            t0 = time.perf_counter()
+            out = fn()
+            sync()
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            pc.time_collectives = False
+        return out, {"ms": ms, "launches": {k: v for k, v in _build.launches.items() if v},
+                     "collectives": pc.stats["collectives"],
+                     "collective_ms": pc.stats["seconds"] * 1e3}
+
+    res, recs = {}, {}
+
+    def eig_pass(name, alg_rrule=None, proj=False):
+        g.grad = None
+        old = bs.use_pallas_projections
+        bs.use_pallas_projections = proj
+        try:
+            op = kt.ParametricOperator(apply, g, adjoint)
+            (vals, vecs, info), fwd = timed(
+                lambda: kt.eigsolve(op, x0, 4, "SR", alg_rrule=alg_rrule, space=space, **kw))
+            _, bwd = timed(lambda: vals.sum().backward())
+        finally:
+            bs.use_pallas_projections = old
+        res[name] = {"vals": vals.detach().cpu().double().numpy(),
+                     "grad": g.grad.detach().cpu().double().numpy(),
+                     "hellmann_feynman": (vecs.detach().double() ** 2).sum(0).cpu().numpy(),
+                     "numops": int(info.numops), "numiter": int(info.numiter),
+                     "converged": int(info.converged)}
+        recs[name] = {"forward": fwd, "backward": bwd}
+
+    # both rules once more untimed: libraries load (the Sylvester rule's
+    # dense eigensolvers take most of a second on their first call), first
+    # launches
+    arnoldi = kt.Arnoldi(tol=1e-5, krylovdim=30, maxiter=10, verbosity=kt.SILENT)
+    for alg_rrule in (None, arnoldi):
+        op0 = kt.ParametricOperator(apply, g, adjoint)
+        kt.eigsolve(op0, x0, 4, "SR", alg_rrule=alg_rrule, space=space, **kw)[0].sum().backward()
+    eig_pass("eig_gmres")
+    eig_pass("eig_sylvester_proj", arnoldi, proj=True)
+
+    b = put(np.ones((n // 128, 128), np.float32)).requires_grad_(True)
+    a0 = torch.tensor(SHARDED_AD_A0, dtype=torch.float32, device=dev, requires_grad=True)
+    alg = kt.GMRES(krylovdim=30, maxiter=SHARDED_AD_CYCLES, tol=1e-30, verbosity=kt.SILENT)
+    (x, info), fwd = timed(lambda: kt.linsolve(L, b, None, a0, 1.0, alg=alg, space=space))
+    _, bwd = timed(lambda: torch.autograd.backward(x, c))
+    res["linsolve"] = {"b_grad": b.grad.detach().cpu().double().numpy(),
+                       "a0_grad": float(a0.grad), "numops": int(info.numops),
+                       "numiter": int(info.numiter)}
+    recs["linsolve"] = {"forward": fwd, "backward": bwd}
+
+    # the adjoint derived across the ranks against the explicit one
+    y = put(np.random.default_rng(12).standard_normal((n // 128, 128)).astype(np.float32))
+    gd = g.detach()
+    derived = kt.ParametricOperator(apply, gd).with_adjoint_from(x0)
+    want, ms_explicit = timed(lambda: adjoint(gd, y))
+    got, ms_derived = timed(lambda: derived.apply_adjoint(y))
+    top = space.psum_axis.psum(want.abs().max().reshape(1)) if space.psum_axis else want.abs().max()
+    gap = (got - want).abs().max()
+    if space.psum_axis is not None:
+        gap = space.psum_axis.psum(gap.reshape(1))
+    res["derived_adjoint"] = {"rel_gap": float(gap.max() / top.max())}
+    recs["derived_adjoint"] = {"explicit": ms_explicit, "derived": ms_derived}
+    return res, recs
+
+
+def sharded_ad_rank(torch, np, kt, dev="cuda", N=1024):
+    """Phase ``sharded_ad`` on this rank: :func:`sharded_ad_width` on
+    ``shard_local_stencil(poisson_2d(N, N))`` over the group, each rank
+    holding ``N/D`` grid rows of float32 ``(N²/128/D, 128)`` blocks."""
+    from krylovkit_tpu_torch.ops.vector import VectorSpace
+
+    P = kt.parallel
+    mesh = P.make_mesh(device=dev)
+    ax = mesh.axis(P.VECTOR_AXIS)
+    L = P.shard_local_stencil(kt.poisson_2d(N, N, device=dev), ax)
+    res, recs = sharded_ad_width(torch, np, kt, L, N, VectorSpace(psum_axis=ax),
+                                 lambda a: P.shard_vector(torch.as_tensor(a), mesh), dev)
+    return {"results": res, "records": recs, "rank": ax.index}
+
+
+def sharded_ad(torch, np, kt, _build, smi, world=2, N=1024, dev="cuda"):
+    """Phase ``sharded_ad``: :func:`sharded_ad_width` on one rank (the
+    plain ``poisson_2d(N, N)``, first, alone on the card), then on ``world``
+    gloo ranks sharing it (:func:`sharded_ad_rank`).  Guards: each rank's
+    ``g.grad`` within 1e-3 (relative ∞-norm) of its block of ``Σᵢ vᵢ²``
+    (Hellmann–Feynman), the blocks joined within 1e-3 of the one-rank
+    gradient and the values within 1e-4 of its values, for both rules; the
+    linsolve's ``b̄`` joined within 1e-4 of the one-rank ``b̄`` and ``ā0``
+    summed over the ranks within 1e-4 of the one-rank ``ā0``; counts equal
+    on every rank and to the one-rank solve's; on the card K1 per rank in
+    the linsolve's forward equal to the one-rank forward's, K5 and K6 in
+    the forward with the projection kernels on, as many as one rank
+    launches; in the backward no K5/K6 on the tuple solves (the Sylvester
+    rule's operator projects its vector leaf on the eigenvectors: K5 as
+    many as one rank launches, no K6), no K1 outside the linsolve's
+    forward; the derived adjoint within 1e-5 of the explicit one.  Returns
+    the launches per rank of each pass."""
+    t0 = time.perf_counter()
+    card = dev != "cpu"
+    L1 = kt.poisson_2d(N, N, device=dev)
+    one, one_recs = sharded_ad_width(torch, np, kt, L1, N, kt.VectorSpace(),
+                                     lambda a: torch.as_tensor(a, device=dev), dev)
+    t_one = time.perf_counter() - t0
+    ranks = run_ranks(world, "sharded_ad_rank", dev=dev, threads=2, timeout=600, N=N)
+    ranks = sorted(ranks, key=lambda r: r["rank"])
+    res = [r["results"] for r in ranks]
+
+    def rel(a, b):
+        return float(np.max(np.abs(a - b)) / max(float(np.max(np.abs(b))), 1e-300))
+
+    def slowest(key, side):
+        return max(r["records"][key][side]["ms"] for r in ranks)
+
+    lines = {}
+    for key in SHARDED_AD_PASSES:
+        got = [r[key] for r in res]
+        counts = {k: v for k, v in got[0].items() if k in ("numops", "numiter", "converged")}
+        require(all({k: g[k] for k in counts} == counts for g in got),
+                f"sharded_ad {key}: counts equal on every rank ({[g.get('numops') for g in got]})")
+        want_counts = {k: one[key][k] for k in counts}
+        recs = [r["records"][key] for r in ranks]
+        line = {"phase": "sharded_ad", "pass": key, "ranks": world, "N": N, **counts,
+                "one_rank_counts": want_counts,
+                "forward_ms_slowest_rank": slowest(key, "forward"),
+                "backward_ms_slowest_rank": slowest(key, "backward"),
+                "one_rank_forward_ms": one_recs[key]["forward"]["ms"],
+                "one_rank_backward_ms": one_recs[key]["backward"]["ms"],
+                "collectives_per_pass": {side: recs[0][side]["collectives"]
+                                         for side in ("forward", "backward")},
+                "collective_ms_by_rank": {side: [rc[side]["collective_ms"] for rc in recs]
+                                          for side in ("forward", "backward")},
+                "launches_per_rank": {side: recs[0][side]["launches"]
+                                      for side in ("forward", "backward")},
+                "one_rank_launches": {side: one_recs[key][side]["launches"]
+                                      for side in ("forward", "backward")},
+                "device": torch.cuda.get_device_name(0) if card else "cpu", "nvidia_smi": smi}
+        if key == "linsolve":
+            joined = np.concatenate([g["b_grad"] for g in got])
+            a0_sum = sum(g["a0_grad"] for g in got)
+            line.update(b_grad_rel_err=rel(joined, one[key]["b_grad"]),
+                        a0_grad_by_rank=[g["a0_grad"] for g in got], a0_grad_sum=a0_sum,
+                        a0_grad_one_rank=one[key]["a0_grad"],
+                        a0_grad_rel_err=abs(a0_sum - one[key]["a0_grad"])
+                        / abs(one[key]["a0_grad"]))
+        else:
+            joined = np.concatenate([g["grad"] for g in got])
+            line.update(hellmann_feynman_rel_err_by_rank=[rel(g["grad"], g["hellmann_feynman"])
+                                                          for g in got],
+                        grad_rel_err_vs_one_rank=rel(joined, one[key]["grad"]),
+                        vals=got[0]["vals"].tolist(),
+                        vals_rel_err_vs_one_rank=rel(got[0]["vals"], one[key]["vals"]))
+        emit(line)
+        lines[key] = line
+        require(counts == want_counts,
+                f"sharded_ad {key}: counts equal to the one-rank solve's ({counts}, {want_counts})")
+        fl_, bl_ = line["launches_per_rank"]["forward"], line["launches_per_rank"]["backward"]
+        one_fl, one_bl = (line["one_rank_launches"][side] for side in ("forward", "backward"))
+        proj = {"project", "unproject"}
+        if key == "eig_sylvester_proj":
+            # the Sylvester operator projects its vector leaf on the primal
+            # eigenvectors (one K5 an apply); the tuple solve itself none
+            require(not card or (bl_.get("project", 0) == one_bl.get("project", 0) > 0
+                                 and "unproject" not in bl_),
+                    f"sharded_ad {key}: K5 per rank in the backward = one rank's, no K6 "
+                    f"({bl_}, {one_bl})")
+        else:
+            require(not proj & set(bl_), f"sharded_ad {key}: no K5/K6 in the backward ({bl_})")
+        if key == "linsolve":
+            require(line["b_grad_rel_err"] <= 1e-4,
+                    f"sharded_ad linsolve: b.grad joined within 1e-4 of one rank's "
+                    f"({line['b_grad_rel_err']})")
+            require(line["a0_grad_rel_err"] <= 1e-4,
+                    f"sharded_ad linsolve: a0.grad summed within 1e-4 of one rank's "
+                    f"({line['a0_grad_rel_err']})")
+            k1_one = line["one_rank_launches"]["forward"].get("fused_step", 0)
+            require(not card or fl_.get("fused_step", 0) == k1_one > 0,
+                    f"sharded_ad linsolve: K1 per rank in the forward = one rank's "
+                    f"({fl_}, {k1_one})")
+            require("fused_step" not in bl_, f"sharded_ad linsolve: no K1 in the backward ({bl_})")
+        else:
+            hf = max(line["hellmann_feynman_rel_err_by_rank"])
+            require(hf <= 1e-3, f"sharded_ad {key}: g.grad within 1e-3 of each rank's block of "
+                                f"sum v_i^2 ({hf})")
+            require(line["grad_rel_err_vs_one_rank"] <= 1e-3,
+                    f"sharded_ad {key}: blocks joined within 1e-3 of the one-rank gradient "
+                    f"({line['grad_rel_err_vs_one_rank']})")
+            require(line["vals_rel_err_vs_one_rank"] <= 1e-4,
+                    f"sharded_ad {key}: values within 1e-4 of one rank's "
+                    f"({line['vals_rel_err_vs_one_rank']})")
+            require("fused_step" not in fl_ and "fused_step" not in bl_,
+                    f"sharded_ad {key}: no K1 (the operator is not a stencil) ({fl_}, {bl_})")
+            if key == "eig_sylvester_proj":
+                require(not card or all(fl_.get(k, 0) == one_fl.get(k, 0) > 0 for k in proj),
+                        f"sharded_ad {key}: K5/K6 per rank in the forward = one rank's "
+                        f"({fl_}, {one_fl})")
+            else:
+                require(not proj & set(fl_), f"sharded_ad {key}: flag off, no K5/K6 ({fl_})")
+    gaps = [r["derived_adjoint"]["rel_gap"] for r in res]
+    dms = [r["records"]["derived_adjoint"] for r in ranks]
+    emit({"phase": "sharded_ad", "pass": "derived_adjoint", "rel_gap": max(gaps),
+          "derived_ms_by_rank": [d["derived"]["ms"] for d in dms],
+          "explicit_ms_by_rank": [d["explicit"]["ms"] for d in dms],
+          "collectives_derived": dms[0]["derived"]["collectives"],
+          "collectives_explicit": dms[0]["explicit"]["collectives"],
+          "one_rank_rel_gap": one["derived_adjoint"]["rel_gap"], "nvidia_smi": smi})
+    require(max(gaps) <= 1e-5,
+            f"sharded_ad: the derived adjoint within 1e-5 of the explicit one ({gaps})")
+    emit({"phase": "sharded_ad", "seconds": time.perf_counter() - t0, "one_rank_seconds": t_one})
+    return {key: lines[key]["launches_per_rank"] for key in SHARDED_AD_PASSES}
 
 
 def front_ends_data(np, n, n4):
@@ -3687,7 +4295,7 @@ def pytree_drivers(torch, np, kt, _build, refs, smi, dev="cuda", N=1024):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one config-1 and one config-4 solve (phase 29)")
+                    help="also profile one config-1 and one config-4 solve (phase 30)")
     ap.add_argument("--parent", metavar="DIR",
                     help="an unpacked earlier tree: time its K1 and K2 on this card as parent_ms")
     ap.add_argument("--kernel-times", action="store_true",
@@ -4565,6 +5173,16 @@ def main():
         "exponentiate": (neg_lap, x0e, (ye, infoe))}, smi)
     emit({"phase": "slice10", "seconds": time.perf_counter() - t_slice10})
 
+    # 29. gradients of sharded solves at config 2's width: two gloo ranks
+    # against one rank
+    ad_sharded = sharded_ad(torch, np, kt, _build, smi, N=nx)
+
+    def slice11(name):
+        """The launches per rank of ``name`` in phase 29's passes."""
+        return {"launches_sharded_ad_per_rank": {
+            f"{key}_{side}": n for key, sides in ad_sharded.items()
+            for side, counts in sides.items() if (n := counts.get(name, 0))}}
+
     def slice10(name):
         """The launches of ``name`` on the paths of phases 26-28."""
         return {"launches_small_front_ends_per_rank": small_fe.get(name, 0),
@@ -4615,6 +5233,7 @@ def main():
             "launches_sharded_gmres30_poisson_2d_per_rank": sharded["fused_gmres"].get("fused_step", 0),
             "launches_small_sharded_per_rank": sharded["small"].get("fused_step", 0),
             **slice10("fused_step"),
+            **slice11("fused_step"),
         },
         {
             "name": "transform_partial", "route": "cuda",
@@ -4642,6 +5261,7 @@ def main():
             **slice8("transform_partial"),
             **slice9(sharded, "transform_partial"),
             **slice10("transform_partial"),
+            **slice11("transform_partial"),
         },
         {
             "name": "banded_spmv", "route": "cuda",
@@ -4666,6 +5286,7 @@ def main():
             **geneig_kernel(kg["banded_spmv"]),
             **slice8("banded_spmv"),
             **slice10("banded_spmv"),
+            **slice11("banded_spmv"),
         },
         {
             "name": "laplacian_1d", "route": "cuda",
@@ -4678,6 +5299,7 @@ def main():
             "library_ms": k4_main["library_ms"],
             "shapes": "n = 2^21 f32; launches over the config-2 BiCGStab solve",
             **slice10("laplacian_1d"),
+            **slice11("laplacian_1d"),
         },
         {
             "name": "project", "route": "cuda",
@@ -4702,6 +5324,7 @@ def main():
             **slice8("project"),
             **slice9(sharded, "project"),
             **slice10("project"),
+            **slice11("project"),
         },
         {
             "name": "unproject", "route": "cuda",
@@ -4726,6 +5349,7 @@ def main():
             **slice8("unproject"),
             **slice9(sharded, "unproject"),
             **slice10("unproject"),
+            **slice11("unproject"),
         },
     ]})
     print(nvidia_smi_line(), flush=True)

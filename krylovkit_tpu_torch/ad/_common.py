@@ -9,16 +9,29 @@ hand-written kernel's launch records no graph, so an operator whose apply is
 a kernel is differentiated through the kernel's plain version, which is
 what XLA computes for the JAX package off the TPU.  The solves themselves
 run on the detached operator and still launch the kernels.
+
+On a sharded space (``VectorSpace(psum_axis=...)``) every rank runs the
+backward alike: the adjoint solves reduce through the space, the operator's
+collectives differentiate to their transposes (``ops/collectives.py``),
+and each rank's cotangent is the derivative of the global loss with respect
+to its own copy of each input, as each device's is in the JAX package's
+``shard_map``: a rank's block of a sharded input, and a rank's partial of a
+replicated one (``a0``, ``a1``, a replicated parameter), which the caller
+sums over the ranks (one ``dist.all_reduce``, as a JAX caller sums with
+``psum``).  The cotangents a rank gives the solve's outputs are taken as the
+global loss's; a loss reduced through the space's psum reaches them summed
+over the ranks (``MeshAxis.psum``), so ``D`` times.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops.vector import tree_leaves
+from ..ops.collectives import strict_collectives
+from ..ops.vector import STANDARD, VectorSpace, tree_leaves
 
 __all__ = ["Call", "needs_grad", "refuse_grad", "detached", "operator_cotangent", "real_safe",
-           "row"]
+           "row", "euclidean"]
 
 
 class Call:
@@ -78,7 +91,7 @@ def operator_cotangent(op, terms):
     want = [t.requires_grad for t in ts]
     if not any(want):
         return [None] * len(ts)
-    with torch.enable_grad():
+    with torch.enable_grad(), strict_collectives():
         fresh = [t.detach().requires_grad_(w) for t, w in zip(ts, want)]
         opg = op.with_tensors(fresh, plain=True)
         outs, cots = [], []
@@ -97,6 +110,15 @@ def operator_cotangent(op, terms):
         g = next(it) if w else None
         out.append(torch.zeros_like(t) if w and g is None else g)
     return out
+
+
+def euclidean(space) -> VectorSpace:
+    """The standard inner product over the ranks of ``space``: the Gram
+    matrices of the Sylvester pullbacks are Euclidean whatever the solve's
+    inner product, as in the JAX package, and on a sharded space they are
+    all-reduced (the JAX package's ``bs.gram`` sums only the local rows
+    inside ``shard_map``, ROADMAP queue 3)."""
+    return STANDARD if space.psum_axis is None else VectorSpace(psum_axis=space.psum_axis)
 
 
 def real_safe(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

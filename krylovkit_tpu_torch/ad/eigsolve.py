@@ -35,7 +35,7 @@ from ..algorithms import GMRES
 from ..ops import basis as bs
 from ..ops.operator import TypedOperator
 from ..ops.vector import tree_flatten, tree_leaves, tree_map, tree_unflatten, zerovector
-from ._common import Call, detached, operator_cotangent, real_safe, row
+from ._common import Call, detached, euclidean, operator_cotangent, real_safe, row
 from .gauge import warn_gauge_eager
 
 __all__ = ["eigsolve_vjp"]
@@ -158,7 +158,8 @@ def _bwd_sylvester(howmany, which, alg, alg_rrule, space, op, vals, vecs, gvals,
     dvals = gvals[:n].to(cdt)
     dvecs = tree_map(lambda l: l[:n], gvecs)
 
-    VdDV = bs.gram(vecs, dvecs)[:n, :n].to(cdt)
+    gspace = euclidean(space)
+    VdDV = bs.gram(vecs, dvecs, gspace)[:n, :n].to(cdt)
     a = (VdDV - VdDV.conj().T) / 2
     degmask = torch.abs(vals[None, :n] - vals[:n, None]).to(rdt) < tol
     warn_gauge_eager(
@@ -186,7 +187,7 @@ def _bwd_sylvester(howmany, which, alg, alg_rrule, space, op, vals, vecs, gvals,
     w0 = (tree_map(lambda l: torch.zeros_like(l[0]), vecs), torch.ones(n, dtype=cdt, device=dev))
     _, Ws, _ = eigsolve_arnoldi(TypedOperator(block_op, None, dtype=cdt), w0, n,
                                 _nearest_sorter(valsc), alg_rrule, space)
-    ws = _sylvester_tail(Ws, n, vecs, Z0, lambda W: bs.gram(vecs, W))
+    ws = _sylvester_tail(Ws, n, vecs, Z0, lambda W: bs.gram(vecs, W, gspace))
     if not cdt.is_complex:
         # a real Hermitian primal: the inner solve ran in complex arithmetic,
         # but a consistent cotangent has vanishing imaginary part
@@ -211,8 +212,9 @@ def _bwd_sylvester_general(howmany, which, alg, alg_rrule, space, op, vals, vecs
     dvals = gvals[:n].to(cdt)
     dvecs = tree_map(lambda l: l[:n], gvecs)
 
-    G = bs.gram(vecs, vecs)[:n, :n].to(cdt)
-    VdDV = bs.gram(vecs, dvecs)[:n, :n].to(cdt)
+    gspace = euclidean(space)
+    G = bs.gram(vecs, vecs, gspace)[:n, :n].to(cdt)
+    VdDV = bs.gram(vecs, dvecs, gspace)[:n, :n].to(cdt)
     degmask = torch.abs(vals[None, :n] - vals[:n, None]).to(rdt) < tol
     gaugepart = VdDV - torch.diag(torch.real(torch.diagonal(VdDV))).to(cdt)
     warn_gauge_eager(
@@ -251,7 +253,7 @@ def _bwd_sylvester_general(howmany, which, alg, alg_rrule, space, op, vals, vecs
     _, Ws, _ = eigsolve_arnoldi(TypedOperator(block_op, None, dtype=cdt), w0, n,
                                 _nearest_sorter(valsc), alg_rrule, space)
     ws = _sylvester_tail(Ws, n, vecs, Z0,
-                         lambda W: torch.linalg.solve(G, bs.gram(vecs, W)[:n, :].to(cdt)))
+                         lambda W: torch.linalg.solve(G, bs.gram(vecs, W, gspace)[:n, :].to(cdt)))
     if not cdt.is_complex:
         ws = tree_map(lambda l: torch.real(l).to(cdt), ws)
     return [("normal", row(vecs, i), row(ws, i)) for i in range(n)]

@@ -25,16 +25,25 @@ from ..ops.operator import TypedOperator
 from ..ops.vector import scalartype, tree_flatten, tree_leaves, tree_map, tree_unflatten, zerovector
 from ._common import Call, detached, operator_cotangent, real_safe
 
-__all__ = ["linsolve_vjp", "dot"]
+__all__ = ["linsolve_vjp", "dot", "dotu"]
 
 
 def dot(x, y) -> torch.Tensor:
     """``Σ conj(x)·y`` over all leaves (the Euclidean inner product, whatever
-    the solve's space)."""
+    the solve's space).  On a sharded space it sums this rank's rows only:
+    the shift cotangents it gives are a rank's partials, as the JAX
+    package's in-body :func:`dotu` is a device's."""
     parts = []
     for a, b in zip(tree_leaves(x), tree_leaves(y)):
         dt = torch.promote_types(a.dtype, b.dtype)
         parts.append(torch.vdot(a.reshape(-1).to(dt), b.reshape(-1).to(dt)))
+    return sum(parts[1:], parts[0])
+
+
+def dotu(x, y) -> torch.Tensor:
+    """The unconjugated ``Σ x·y`` over all leaves (the JAX package's
+    ``dotu``, with which its plain-transpose convention writes ``ā0``)."""
+    parts = [torch.sum(a * b) for a, b in zip(tree_leaves(x), tree_leaves(y))]
     return sum(parts[1:], parts[0])
 
 

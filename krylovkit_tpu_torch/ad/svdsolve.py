@@ -31,7 +31,7 @@ from ..algorithms import GMRES
 from ..ops import basis as bs
 from ..ops.operator import TypedOperator
 from ..ops.vector import tree_flatten, tree_leaves, tree_map, tree_unflatten, zerovector
-from ._common import Call, detached, operator_cotangent, real_safe, row
+from ._common import Call, detached, euclidean, operator_cotangent, real_safe, row
 from .eigsolve import _contract, _mix, _sub
 from .gauge import warn_gauge_eager
 
@@ -102,8 +102,9 @@ def _bwd_sylvester(howmany, alg, alg_rrule, space, op, vals, lvecs, rvecs, gs, g
     dlv = tree_map(lambda l: l[:n], gu)
     drv = tree_map(lambda l: l[:n], gv)
 
-    UdDU = bs.gram(lvecs, dlv)[:n, :n].to(cdt)
-    VdDV = bs.gram(rvecs, drv)[:n, :n].to(cdt)
+    gspace = euclidean(space)
+    UdDU = bs.gram(lvecs, dlv, gspace)[:n, :n].to(cdt)
+    VdDV = bs.gram(rvecs, drv, gspace)[:n, :n].to(cdt)
     aU = (UdDU - UdDU.conj().T) / 2
     aV = (VdDV - VdDV.conj().T) / 2
     degmask = torch.abs(sig[None, :] - sig[:, None]) < tol

@@ -98,8 +98,7 @@ def expand(op, state: GKLState, orth: on.Orthogonalizer, space: VectorSpace = ST
     w = op.apply_adjoint(bs.get(U, k))
     if isinstance(orth, (on.ClassicalGramSchmidt2, on.ModifiedGramSchmidt2)):
         sweep = on.cgs if isinstance(orth, on.ClassicalGramSchmidt2) else on.mgs
-        rowk = B[k].clone()
-        rowk[k:] = 0
+        rowk = bs.mask_coeffs(B[k], k)
         w = tree_map(torch.sub, w, bs.unproject_bucketed(V, torch.conj(rowk), k))
         v_new, alpha, _ = on.orthonormalize(w, V, k, sweep, space)
         bs.set(V, k, v_new)

@@ -48,6 +48,8 @@ __all__ = [
     "transform_rung",
     "transform_partial_inplace",
     "transform_partial_inplace_reference",
+    "append_scaled",
+    "mask_coeffs",
     "gram",
     "batch_inner",
 ]
@@ -142,6 +144,12 @@ def _project_leaf(V: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return V.reshape(V.shape[0], -1).to(dt).conj() @ x.reshape(-1).to(dt)
 
 
+def mask_coeffs(c: torch.Tensor, k: int) -> torch.Tensor:
+    """``c`` with its entries ``j >= k`` zeroed (a new tensor)."""
+    idx = torch.arange(c.shape[0], device=c.device)
+    return torch.where(idx < k, c, torch.zeros((), dtype=c.dtype, device=c.device))
+
+
 def project(V, x, k: int, space: VectorSpace = STANDARD) -> torch.Tensor:
     """``c[j] = <V[j], x>`` for ``j < k``, zero beyond — the ``Vᴴx`` kernel
     (reference ``project!!``, ``src/orthonormal.jl:88-118``); a pytree sums
@@ -163,8 +171,7 @@ def project(V, x, k: int, space: VectorSpace = STANDARD) -> torch.Tensor:
             c = torch.real(c)
     else:
         c = torch.stack([space.inner(get(V, j), x) for j in range(kb)])
-    idx = torch.arange(kb, device=c.device)
-    return torch.where(idx < k, c, torch.zeros((), dtype=c.dtype, device=c.device))
+    return mask_coeffs(c, k)
 
 
 def project_bucketed(V, x, k: int, space: VectorSpace = STANDARD) -> torch.Tensor:
@@ -199,6 +206,11 @@ def unproject_bucketed(V, c: torch.Tensor, k: int):
     beyond ``k``)."""
     B = bucket_for(k, capacity(V))
     return unproject(prefix(V, B), c[:B])
+
+
+def append_scaled(y, V, c: torch.Tensor, alpha=1.0):
+    """``y + alpha·(V c)`` leaf by leaf (``V c`` by :func:`unproject`)."""
+    return tree_map(lambda ly, lv: ly + alpha * lv, y, unproject(V, c))
 
 
 def _transform_leaf(V: torch.Tensor, U: torch.Tensor) -> torch.Tensor:

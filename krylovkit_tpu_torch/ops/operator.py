@@ -7,8 +7,10 @@ holds (:meth:`LinearOperator.tensors`: a matrix, a
 callable or a stencil) are what the differentiable solves (``ad/``)
 differentiate, in the order of the JAX package's pytree registrations;
 :meth:`LinearOperator.with_tensors` rebuilds the operator on others.  A
-bare callable's adjoint is derived with ``torch.func.vjp``
-(:meth:`LinearOperator.with_adjoint_from`).
+bare callable's adjoint is derived by ``torch.autograd``
+(:meth:`LinearOperator.with_adjoint_from`), across the ranks too for a
+sharded map: its edge, halo and psum collectives carry their transposes
+(``ops/collectives.py``).
 :class:`StencilOperator` and :class:`GridStencilOperator` carry their
 offsets and coefficients as static metadata, which makes them *fusable*: the
 Lanczos fused expansion (``ops/fused_lanczos.py``) applies them inside its
@@ -24,6 +26,7 @@ from typing import Any, Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from .collectives import strict_collectives
 from .vector import scalartype, tree_flatten, tree_leaves, tree_map, tree_unflatten, zerovector
 
 __all__ = [
@@ -56,18 +59,40 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _derived_adjoint(f, x_template):
-    """``y ↦ Aᴴ y`` for the C-linear map ``f`` by ``torch.func.vjp`` at a
-    zero vector shaped like ``x_template``.  torch's vector-Jacobian product
-    of ``x ↦ A x`` is already ``Aᴴ y`` (its cotangents are conjugate
-    Wirtinger derivatives), so unlike the JAX package's
-    ``conj(fᵀ(conj y))`` no conjugation surrounds it.  Each call evaluates
-    ``f`` once more, inside the ``vjp``."""
-    zero = zerovector(x_template)
+def _derived_adjoint(f, x_template, params=None):
+    """``y ↦ Aᴴ y`` for the C-linear map ``f``: the vector-Jacobian product
+    of ``f`` at a zero vector shaped like ``x_template``, by
+    ``torch.autograd.grad``.  torch's vector-Jacobian product of ``x ↦ A x``
+    is already ``Aᴴ y`` (its cotangents are conjugate Wirtinger
+    derivatives), so unlike the JAX package's ``conj(fᵀ(conj y))`` no
+    conjugation surrounds it.  Each call evaluates ``f`` once more.
+
+    On a sharded space ``f`` acts on this rank's block and its collectives
+    (``MeshAxis.psum``, ``MeshAxis.edges``, the halo round of
+    ``ShardedELLOperator``) differentiate to their transposes, so the result
+    is this rank's block of ``Aᴴ y`` across the ranks; every rank must call
+    it alike.  A collective with no derivative raises
+    (``collectives.strict_collectives``) rather than drop its term.  The
+    result records a graph only where gradients are enabled and a tensor of
+    ``params`` requires grad (a ``ParametricOperator``'s adjoint inside an
+    operator cotangent)."""
+    leaves, spec = tree_flatten(zerovector(x_template))
 
     def adj(y):
-        _, vjp_fn = torch.func.vjp(f, zero)
-        return vjp_fn(y)[0]
+        create = torch.is_grad_enabled() and any(
+            isinstance(p, torch.Tensor) and p.requires_grad for p in tree_leaves(params))
+        with torch.enable_grad(), strict_collectives():
+            xs = [l.detach().requires_grad_(True) for l in leaves]
+            out = f(tree_unflatten(xs, spec))
+            outs, cots = [], []
+            for lo, ly in zip(tree_leaves(out), tree_leaves(y)):
+                if lo.requires_grad:
+                    outs.append(lo)
+                    cots.append(ly)
+            grads = (torch.autograd.grad(outs, xs, cots, allow_unused=True, create_graph=create)
+                     if outs else [None] * len(xs))
+        return tree_unflatten([torch.zeros_like(x) if g is None else g
+                               for x, g in zip(xs, grads)], spec)
 
     return adj
 
@@ -105,9 +130,10 @@ class LinearOperator:
 
     def with_adjoint_from(self, x_template) -> "LinearOperator":
         """``self`` if it has an adjoint, else an operator whose adjoint is
-        derived from ``normal`` by ``torch.func.vjp`` on vectors shaped like
-        ``x_template``.  ``normal`` must then be differentiable PyTorch: the
-        kernel wrappers refuse the wrapped tensors of ``torch.func``."""
+        derived from ``normal`` by ``torch.autograd`` on vectors shaped like
+        ``x_template`` (``_derived_adjoint``).  ``normal`` must then be
+        differentiable PyTorch: the kernel wrappers refuse a tensor that
+        requires grad."""
         if self.adjoint is not None:
             return self
         return LinearOperator(self.normal, _derived_adjoint(self.normal, x_template))
@@ -309,7 +335,7 @@ class ParametricOperator(LinearOperator):
         f = self.apply_fn
 
         def adjoint_fn(params, y):
-            return _derived_adjoint(lambda x: f(params, x), x_template)(y)
+            return _derived_adjoint(lambda x: f(params, x), x_template, params)(y)
 
         return ParametricOperator(f, self.params, adjoint_fn)
 

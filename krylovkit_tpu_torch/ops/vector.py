@@ -49,7 +49,6 @@ __all__ = [
     "astype",
     "device_of",
     "psum",
-    "refuse_sharded",
 ]
 
 PyTree = Any
@@ -133,17 +132,6 @@ def psum(t: torch.Tensor, axis) -> torch.Tensor:
     """The sum of the local partial ``t`` over the :class:`MeshAxis`
     ``axis`` (one all-reduce; ``t`` itself when ``axis`` is ``None``)."""
     return t if axis is None else axis.psum(t)
-
-
-def refuse_sharded(what: str, space) -> None:
-    """Raise ``NotImplementedError`` for a sharded ``space``: ``what`` (a
-    differentiable route) has no backward across the ranks of a
-    ``torch.distributed`` group yet."""
-    if space is not None and getattr(space, "psum_axis", None) is not None:
-        raise NotImplementedError(
-            f"{what} does not run on a sharded space (psum_axis) in this port yet: "
-            "ROADMAP.md queue 1, item 10"
-        )
 
 
 def _inner(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

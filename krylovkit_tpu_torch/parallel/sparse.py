@@ -16,10 +16,12 @@ rank.  All communication is planned once, on the host, at construction:
   plane that addresses the halo buffer.
 
 An apply packs every round into one all-reduce (the ``ppermute`` rounds of
-the JAX package, as ``MeshAxis.permute`` writes them), started before the
-interior gather, which does not wait on it; only the boundary rows read the
-payloads.  The gathers are plain PyTorch, as the JAX package's are plain
-``jnp.take`` (no kernel on either side).  The adjoint is planned
+the JAX package), started before the interior gather, which does not wait
+on it; only the boundary rows read the payloads.  The exchange is
+differentiable: its transpose sends the cotangents back in one all-reduce,
+so a derived adjoint (``torch.autograd`` or ``torch.func.vjp``) of a map
+around the operator keeps the halo term.  The gathers are plain PyTorch,
+as the JAX package's are plain ``jnp.take`` (no kernel on either side).  The adjoint is planned
 independently from the transposed COO, so rectangular maps work and LSMR
 and GKL run sharded.
 
@@ -261,24 +263,83 @@ def _shard_data(planned, index: int, D: int, device) -> Tuple[_ShardData, _HaloP
     return data, plan
 
 
+def _pack(ax, plan: _HaloPlan, sends, v: torch.Tensor, transpose: bool) -> torch.Tensor:
+    """The zero-filled ``(D, halo_elems)`` buffer of one halo exchange: in
+    round ``δ`` this rank's entries ``v[send]`` go to the slot of the rank
+    ``δ`` before it.  Transposed, ``v`` is a halo buffer's cotangent and
+    round ``δ``'s part of it goes back to the rank ``δ`` after, which sent
+    those entries."""
+    D, i = ax.size, ax.index
+    slots = torch.zeros((D, plan.halo_elems), dtype=v.dtype, device=v.device)
+    off = 0
+    for delta, L, send in zip(plan.deltas, plan.lengths, sends):
+        if transpose:
+            slots[(i + delta) % D, off:off + L] = v[off:off + L]
+        else:
+            slots[(i - delta) % D, off:off + L] = v[send]
+        off += L
+    return slots
+
+
+def _exchange_start(ax, plan: _HaloPlan, sends, v: torch.Tensor, transpose: bool = False):
+    """Start one halo exchange of ``v`` (:func:`_pack`) in one all-reduce."""
+    return ax.psum_start(_pack(ax, plan, sends, v.detach(), transpose))
+
+
+def _exchange_finish(ax, plan: _HaloPlan, sends, v: torch.Tensor, pending,
+                     transpose: bool = False, n: int = 0) -> torch.Tensor:
+    """Wait for the exchange of ``v`` and return what this rank receives,
+    with its derivative attached (:class:`_Exchanged`): the halo buffer, or
+    transposed, the cotangent of the ``(n,)`` vector whose entries were
+    sent (each round's part added at its sent indices)."""
+    got = pending.wait()[ax.index]
+    if transpose:
+        xbar = torch.zeros(n, dtype=got.dtype, device=got.device)
+        off = 0
+        for L, send in zip(plan.lengths, sends):
+            xbar.index_add_(0, send, got[off:off + L])
+            off += L
+        got = xbar
+    return _Exchanged.apply(v, got, ax, plan, sends, transpose)
+
+
+class _Exchanged(torch.autograd.Function):
+    """The received buffer ``got`` of a halo exchange of ``v``, passed
+    through, with the exchange's derivative: its backward is the
+    transposed exchange of the cotangent (each round's part sent back to
+    the rank that sent the entries, in one all-reduce of the same layout;
+    the transpose of the JAX package's ``ppermute`` rounds), itself
+    differentiable, for a derived adjoint's graph."""
+
+    @staticmethod
+    def forward(v, got, ax, plan, sends, transpose):
+        return got
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        v, _, ctx.ax, ctx.plan, ctx.sends, ctx.transpose = inputs
+        ctx.n = v.shape[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        t = not ctx.transpose
+        pending = _exchange_start(ctx.ax, ctx.plan, ctx.sends, g, t)
+        return (_exchange_finish(ctx.ax, ctx.plan, ctx.sends, g, pending, t, ctx.n),
+                None, None, None, None, None)
+
+
 def _spmv(ax, plan: _HaloPlan, data: _ShardData, x: torch.Tensor, out_shape) -> torch.Tensor:
     """One direction's apply on this rank's block ``x``.  The halo rounds
     are packed into one all-reduce, started first; the interior gather does
     not wait on it, only the boundary rows do."""
     xf = x.reshape(-1)
     if plan.deltas:
-        D, i = ax.size, ax.index
-        slots = torch.zeros((D, plan.halo_elems), dtype=xf.dtype, device=xf.device)
-        off = 0
-        for delta, L, send in zip(plan.deltas, plan.lengths, data.sends):
-            slots[(i - delta) % D, off:off + L] = xf[send]
-            off += L
-        pending = ax.psum_start(slots)
+        pending = _exchange_start(ax, plan, data.sends, xf)
     # interior pass: independent of every payload
     g = torch.index_select(xf, 0, data.cols.reshape(-1)).reshape(data.cols.shape)
     y = torch.sum(data.vals.to(g.dtype) * g, dim=1)
     if plan.deltas:
-        halo = pending.wait()[ax.index]
+        halo = _exchange_finish(ax, plan, data.sends, xf, pending)
         gb = torch.index_select(halo, 0, data.bcols.reshape(-1)).reshape(data.bcols.shape)
         yb = torch.sum(data.bvals.to(gb.dtype) * gb, dim=1)
         y = y.index_add(0, data.brows, yb)

@@ -24,7 +24,7 @@ from ..algorithms import Arnoldi, BlockLanczos, Lanczos
 from ..ops.block import Block
 from ..ad._common import needs_grad, refuse_grad
 from ..ops.operator import as_operator, concrete_start, probe_dtype
-from ..ops.vector import STANDARD, VectorSpace, device_of, refuse_sharded, tree_leaves
+from ..ops.vector import STANDARD, VectorSpace, device_of, tree_leaves
 from .arnoldi import eigsolve_arnoldi, realeigsolve_arnoldi
 from .arnoldi import schursolve as _schursolve_arnoldi
 from .blocklanczos import eigsolve_blocklanczos
@@ -146,8 +146,6 @@ def eigsolve(
             )
     if needs_grad(op, x0):
         from ..ad.eigsolve import eigsolve_vjp
-
-        refuse_sharded("a differentiable eigsolve", space)
 
         return eigsolve_vjp(howmany, which, alg, alg_rrule, space,
                             op.with_adjoint_from(x0), x0)

@@ -29,7 +29,7 @@ import torch
 from ..algorithms import CG, GMRES, MINRES, BiCGStab, KrylovDefaults
 from ..ad._common import needs_grad
 from ..ops.operator import as_operator
-from ..ops.vector import (REAL, STANDARD, VectorSpace, device_of, refuse_sharded, scalartype,
+from ..ops.vector import (REAL, STANDARD, VectorSpace, device_of, scalartype,
                           tree_leaves, zerovector)
 from .bicgstab import linsolve_bicgstab
 from .cg import linsolve_cg
@@ -173,8 +173,6 @@ def linsolve(
     a1 = torch.as_tensor(a1, dtype=cdt, device=dev)
     if needs_grad(op, b, x0, a0, a1):
         from ..ad.linsolve import linsolve_vjp
-
-        refuse_sharded("a differentiable linsolve", space)
 
         return linsolve_vjp(alg, alg_rrule or alg, space, op.with_adjoint_from(b), b, x0, a0, a1)
     return _linsolve_impl(op, b, x0, a0, a1, alg, space)

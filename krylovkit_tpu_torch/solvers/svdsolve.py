@@ -49,7 +49,7 @@ from ..ops.operator import (
     require_adjoint,
     resolve_device,
 )
-from ..ops.vector import (REAL, STANDARD, VectorSpace, device_of, refuse_sharded, rounded,
+from ..ops.vector import (REAL, STANDARD, VectorSpace, device_of, rounded,
                           scalartype, tree_leaves, tree_map)
 
 __all__ = ["svdsolve", "realsvdsolve", "svdsolve_gkl"]
@@ -323,8 +323,6 @@ def svdsolve(
         alg = dataclasses.replace(alg, krylovdim=domain_dim)
     if needs_grad(op, x0):
         from ..ad.svdsolve import svdsolve_vjp
-
-        refuse_sharded("a differentiable svdsolve", space)
 
         return svdsolve_vjp(howmany, which, alg, alg_rrule, space, op, x0)
     return svdsolve_gkl(op, x0, howmany, which, alg, space)

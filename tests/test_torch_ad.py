@@ -628,3 +628,22 @@ def test_ad_complex_routes_match_jax(kind, rule):
             Am[i, j] -= unit * eps
             fd += unit * (float(tloss(T(Ap))) - float(tloss(T(Am)))) / (2 * eps)
         assert abs(complex(At.grad[i, j]) - fd) < 1e-5
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.complex128])
+def test_dotu_matches_jax(dtype):
+    """``ad.linsolve.dotu``, the unconjugated dot over the leaves of a
+    tree, against the JAX package's; ``dot`` conjugates its first
+    argument."""
+    from krylovkit_tpu.ad.linsolve import dotu as jdotu
+    from krylovkit_tpu_torch.ad.linsolve import dot, dotu
+
+    rng = np.random.default_rng(72)
+    x = (rand_vec(rng, n, dtype), rand_mat(rng, 3, 4, dtype))
+    y = (rand_vec(rng, n, dtype), rand_mat(rng, 3, 4, dtype))
+    got = complex(dotu(tuple(map(T, x)), tuple(map(T, y))))
+    want = complex(jdotu(tuple(map(jnp.asarray, x)), tuple(map(jnp.asarray, y))))
+    assert abs(got - want) <= 1e-12 * max(1.0, abs(want))
+    conj = complex(dot(tuple(map(T, x)), tuple(map(T, y))))
+    want = complex(jdotu(tuple(jnp.conj(jnp.asarray(a)) for a in x), tuple(map(jnp.asarray, y))))
+    assert abs(conj - want) <= 1e-12 * max(1.0, abs(want))

@@ -129,3 +129,28 @@ def test_orthonormalize_matches_jax(orth, k):
     np.testing.assert_allclose(ct.numpy(), np.asarray(cj), rtol=1e-10, atol=1e-12)
     np.testing.assert_allclose(vt.numpy(), np.asarray(vj), rtol=1e-8, atol=1e-10)
     assert np.all(ct.numpy()[k:] == 0)
+
+
+def test_mask_coeffs_and_append_scaled_match_jax():
+    """``mask_coeffs`` (zero ``c[j]`` for ``j >= k``; the masking of
+    ``tests/test_pallas.py:89-97``'s unproject check) and ``append_scaled``
+    (``y + α·(V c)``) against the JAX package's, float64 to 1e-12; the
+    masked coefficients are exact."""
+    V, y = _basis(seed=5)
+    c = np.random.default_rng(6).standard_normal(13)
+    Vt, yt, ct = map(torch.from_numpy, (V, y, c))
+    for k in (0, 1, 4, 13):
+        cm = tbs.mask_coeffs(ct, k)
+        np.testing.assert_array_equal(cm.numpy(), np.asarray(jbs.mask_coeffs(jnp.asarray(c), k)))
+        for alpha in (1.0, -0.5):
+            np.testing.assert_allclose(
+                tbs.append_scaled(yt, Vt, cm, alpha).numpy(),
+                np.asarray(jbs.append_scaled(jnp.asarray(y), jnp.asarray(V), jnp.asarray(cm),
+                                             alpha)),
+                rtol=1e-12, atol=1e-12)
+    # a pytree basis: leaf by leaf
+    tree = tbs.append_scaled((yt, yt[:2]), (Vt, Vt[:, :2]), ct, 2.0)
+    jtree = jbs.append_scaled((jnp.asarray(y), jnp.asarray(y[:2])),
+                              (jnp.asarray(V), jnp.asarray(V[:, :2])), jnp.asarray(c), 2.0)
+    for a, b in zip(tree, jtree):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-12, atol=1e-12)

@@ -75,3 +75,47 @@ def test_ops_layer_imports_no_distribution_layer(path):
     sharded operator states its domain through ``TypedOperator``."""
     bad = [m.group(0) for m in UPWARD.finditer(path.read_text())]
     assert not bad, f"{path.name} imports the distribution layer: {bad}"
+
+
+JAX_ROOT = ROOT / "krylovkit_tpu"
+# the Pallas files, whose kernels the port keeps in csrc/ behind its own
+# wrapper modules (ops/fused_lanczos.py, banded.py, stencil_1d.py, projections.py)
+PALLAS_FILES = ("ops/pallas_fused_lanczos.py", "ops/pallas_spmv.py", "ops/pallas_stencil.py",
+                "ops/pallas_basis.py")
+
+
+def _declared_all(path):
+    """The names of ``path``'s ``__all__``, read from its source with
+    ``ast`` (nothing of the module is imported), or ``None``."""
+    import ast
+
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.Assign) and any(
+                isinstance(t, ast.Name) and t.id == "__all__" for t in node.targets):
+            return [ast.literal_eval(e) for e in node.value.elts]
+    return None
+
+
+# the JAX modules that declare an __all__, by path
+JAX_MODULES = sorted(
+    p.relative_to(JAX_ROOT).as_posix() for p in JAX_ROOT.rglob("*.py")
+    if p.relative_to(JAX_ROOT).as_posix() not in PALLAS_FILES and _declared_all(p) is not None
+)
+
+
+@pytest.mark.parametrize("rel", JAX_MODULES)
+def test_port_module_exports_what_the_jax_module_does(rel):
+    """Every module of the JAX package (its four Pallas files aside) has a
+    port module at the same path whose ``__all__`` holds every name of
+    the JAX module's; the JAX side is read from the source, so the port's
+    process imports nothing of the JAX package."""
+    import importlib
+
+    want = _declared_all(JAX_ROOT / rel)
+    name = "krylovkit_tpu_torch." + rel[:-3].replace("/", ".")
+    if name.endswith(".__init__"):
+        name = name[: -len(".__init__")]
+    mod = importlib.import_module(name)
+    missing = sorted(set(want) - set(getattr(mod, "__all__", ())))
+    assert not missing, f"{name} lacks {missing} of the JAX module's __all__"
+    assert all(hasattr(mod, n) for n in want)

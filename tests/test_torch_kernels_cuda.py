@@ -774,3 +774,31 @@ def test_pytree_drivers_small_width_on_card():
         "exponentiate": (chain, x04, (ye, ie))}, "card test", N=64)
     assert out["pytree_geneigsolve_q1"].get("banded_spmv", 0) > 0
     assert out["pytree_block_lanczos_poisson"].get("banded_spmv", 0) > 0
+
+
+def test_sharded_gradients_on_card_match_cpu():
+    """Gradients of sharded solves (``chip_smoke.sharded_ad_cases``: the
+    linsolve on the sharded 1-D Laplacian for ``b``, ``a0``, ``a1``, a
+    ``ParametricOperator`` around the sharded ELL operator, the Sylvester
+    eigsolve rule and the derived adjoints across the ranks) on two gloo
+    ranks with CUDA tensors against two CPU ranks: within 1e-8, counts
+    equal; a map that calls ``torch.distributed`` itself raises on the
+    card's ranks as on the CPU's when its adjoint is derived."""
+    from chip_smoke import small_sharded_ad
+
+    records = small_sharded_ad(torch, np, world=2)
+    assert {r["scenario"] for r in records} >= {"linsolve", "ell_linsolve"}
+
+
+def test_sharded_ad_small_width_on_card():
+    """Phase ``sharded_ad`` on the 256² grid: the eigenvalue gradients by
+    both rules and the fused linsolve's gradients on two card ranks against
+    one rank (Hellmann–Feynman and the joined gradients within 1e-3, the
+    linsolve's within 1e-4, counts equal), K1 per rank in the linsolve's
+    forward and K5/K6 in the flag-on forward as one rank launches them,
+    none on the backward's tuple solves."""
+    from chip_smoke import sharded_ad
+
+    launches = sharded_ad(torch, np, kt, _build, "card test", N=256)
+    assert launches["linsolve"]["forward"].get("fused_step", 0) > 0
+    assert launches["eig_sylvester_proj"]["forward"].get("project", 0) > 0

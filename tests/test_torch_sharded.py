@@ -16,8 +16,9 @@ Tolerances: float64 values within 1e-10 and ``numops``, ``numiter``,
 ``converged`` equal; the float32 fused solves keep the JAX test's rtol 2e-4
 (two roundings of one kernel) with equal counts; the float32 stencil apply
 the JAX test's atol 1e-5.  In this process: the glued K1 twin with external
-halos against the unsharded step, the fused gates under a sharded space,
-and the differentiable routes, which refuse a sharded space.
+halos against the unsharded step and the fused gates under a sharded
+space.  The differentiable routes on a sharded space are in
+``tests/test_torch_sharded_ad.py``.
 """
 
 from functools import partial
@@ -432,21 +433,3 @@ def test_fused_gkl_gate_refuses_a_sharded_space():
     assert tgf.fused_kernel_available(op, x0, VectorSpace(), 31)
     assert not tgf.fused_kernel_available(op, x0, _space(4), 31)
     assert not tgf.fused_kernel_available(op, x0, _space(1), 31)
-
-
-def _refused_calls():
-    A = torch.eye(8, dtype=torch.float64) * 2
-    x = torch.ones(8, dtype=torch.float64)
-    sp = _space(1)
-    return {
-        "eigsolve_grad": lambda: kt.eigsolve(A.clone().requires_grad_(True), x, 1, "LR",
-                                             ishermitian=True, space=sp),
-        "linsolve_grad": lambda: kt.linsolve(A.clone().requires_grad_(True), x, space=sp),
-        "svdsolve_grad": lambda: kt.svdsolve(A.clone().requires_grad_(True), x, 1, space=sp),
-    }
-
-
-@pytest.mark.parametrize("name", sorted(_refused_calls()))
-def test_unported_front_ends_refuse_a_sharded_space(name):
-    with pytest.raises(NotImplementedError, match="queue 1, item 10"):
-        _refused_calls()[name]()
