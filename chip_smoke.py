@@ -92,7 +92,7 @@ without the final ``ok`` line:
    plus four wells (n = 2^20, float32 ``(8192, 128)`` vectors, 4 "SR",
    krylovdim 30, maxiter 10, tol 1e-5) as a ``ParametricOperator`` of the
    potential, and the gradient of their sum through the GMRES rule: forward
-   and backward ms and launches (K3 = numops + 1 in the forward, K2 per
+   and backward ms and launches (K3 = numops in the forward, K2 per
    round and extraction; no K1, K5, K6), Hellmann–Feynman and a central
    difference; again with the projection kernels on (K5/K6 in the forward's
    single-leaf sweeps, none in the backward's tuple sweeps), and K2 once on
@@ -186,7 +186,18 @@ without the final ``ok`` line:
    the Sylvester operator's projection on the eigenvectors, as one rank
    launches it); forward and backward
    ms of the slowest rank, the collectives and their ms, the one-rank ms;
-30. profile (only with ``--profile``) — one more config-1 solve and one
+30. batched — ``P`` problems in one host loop: config 1 for 8 start
+   vectors (phase 5's ``x0`` and 7 seeded) through
+   ``eigsolve_lanczos_batched`` (every problem 138 / 10, values within
+   2e-2 of 4, problems 0 and 1 within 1e-5 of their one-problem solves,
+   exactly 128 ``fused_step_batched`` and 11 ``transform_partial_batched``
+   launches, no one-problem K1/K2), config 2's shifted GMRES(30) for 4
+   right-hand sides through ``linsolve_gmres_batched`` (converged, true
+   residuals within tol, counts equal to one-problem solves), and the
+   batched K1/K2 at these widths against their plain versions and
+   bit-identical to one-problem launches, ms per launch beside the
+   one-problem launches' and the bound;
+31. profile (only with ``--profile``) — one more config-1 solve and one
    more fused config-4 solve under ``torch.profiler``: device busy time and idle share, device ops, host
    reads of device scalars, device time by kernel name.
 
@@ -204,7 +215,7 @@ printed as ``parent_ms`` beside ``ms`` (without it ``parent_ms`` is null).
 ``--root`` (default: this tree) and prints one JSON line.
 
 Each path (phases 5, 7, 9, 12, 13, 14, 15, 17, 18, 20, 21, 24, 25, 27,
-28 and 29, one solve or iterator at a time, the forward and the backward of
+28, 29 and 30, one solve or iterator at a time, the forward and the backward of
 a differentiable solve apart; in 24, 25, 27 and 29 in every rank) is
 driven with the launch counts set to 0 just before it and read just after.
 Then the kernel summary line, the ``nvidia-smi`` name/power line, and as
@@ -1215,10 +1226,11 @@ def ad_impurity(torch, np, kt, _build, bs, bd, N=1024, dev="cuda", smi=None):
         require(not {"fused_step", "project", "unproject"} & set(launches),
                 f"ad_impurity: no K1, K5 or K6 launch ({launches})")
     card = dev != "cpu"  # the plain versions count no launch
-    # K3 once per counted apply, once for the forward's dtype probe of the
-    # callable; K2 once per processing round and once for the extraction
-    require(not card or fwd_l.get("banded_spmv", 0) == info.numops + 1,
-            f"ad_impurity: forward K3 = numops + 1 ({fwd_l}, {info.numops})")
+    # K3 once per counted apply (the forward's dtype probe of the callable
+    # runs on meta tensors); K2 once per processing round and once for the
+    # extraction
+    require(not card or fwd_l.get("banded_spmv", 0) == info.numops,
+            f"ad_impurity: forward K3 = numops ({fwd_l}, {info.numops})")
     require(not card or (fwd_l.get("transform_partial", 0) >= 2
                          and bwd_l.get("banded_spmv", 0) >= 4),
             f"ad_impurity: K2 in the forward, K3 in the backward ({fwd_l}, {bwd_l})")
@@ -4292,10 +4304,300 @@ def pytree_drivers(torch, np, kt, _build, refs, smi, dev="cuda", N=1024):
     return out
 
 
+def batched_starts(torch, np, R, P, dev, seed=100):
+    """Phase ``batched``'s start vectors: phase ``main``'s ``x0`` (ones) and
+    ``P - 1`` normal vectors from ``default_rng(seed + i)``, ``(P, R, 128)``
+    float32."""
+    X = torch.empty((P, R, 128), dtype=torch.float32, device=dev)
+    X[0] = 1
+    for i in range(1, P):
+        X[i] = torch.from_numpy(np.random.default_rng(seed + i).standard_normal((R, 128))
+                                .astype(np.float32))
+    return X
+
+
+def check_batched_step(torch, fl, op, P, R, kmax, B, with_drift, gen, timed=True):
+    """Batched K1 against its plain version (the one-problem tolerance of
+    :func:`check_fused_step`) and, where every problem has the same ``B =
+    kp1`` (``B`` an int), against ``P`` one-problem launches bit for bit;
+    ``B`` a list gives each problem its own.  Timed: ms per batched launch,
+    the ``P`` one-problem launches' ms, the plain version's and the bound
+    (``P`` times the one-problem bytes and operations)."""
+    spec = fl.spec_for(op)
+    V = torch.randn((P, kmax, R, 128), generator=gen, device="cuda")
+    y = torch.randn((P, R, 128), generator=gen, device="cuda")
+    g = torch.randn((P, kmax + 1), generator=gen, device="cuda")
+    Bs = [B] * P if isinstance(B, int) else list(B)
+    Vb = V.clone()
+    yb, rb = fl.fused_step_batched(Vb, y, g, Bs, Bs, spec, with_drift)
+    Vr = V.clone()
+    yr, rr = fl.fused_step_batched_reference(Vr, y, g, Bs, Bs, spec, with_drift)
+    torch.cuda.synchronize()
+    err, rel_raw, same = 0.0, 0.0, True
+    for p in range(P):
+        k = Bs[p]
+        sc = float(yr[p].abs().max())
+        e = max(float((Vb[p, k] - Vr[p, k]).abs().max()), float((yb[p] - yr[p]).abs().max()))
+        require(e <= 2e-4 * sc, f"fused_step_batched B={k}: w', y' within 2e-4*scale")
+        require(torch.equal(Vb[p, :k], V[p, :k]) and torch.equal(Vb[p, k + 1:], V[p, k + 1:]),
+                f"fused_step_batched B={k}: rows other than kp1 bit-identical")
+        nV = torch.linalg.vector_norm(V[p, :k].reshape(k, -1), dim=1)
+        nw, ny = torch.linalg.vector_norm(Vr[p, k]), torch.linalg.vector_norm(yr[p])
+        scales = torch.cat([nV * ny] + ([nV * nw] if with_drift else [])
+                           + [(nw * ny)[None], (nw * nw)[None]])
+        n_slots = scales.numel()
+        rel = float(torch.max(torch.abs(rb[p, :n_slots] - rr[p, :n_slots]) / scales))
+        require(rel <= 1e-6, f"fused_step_batched B={k}: raw within 1e-6 of the norm products")
+        err, rel_raw = max(err, e), max(rel_raw, rel)
+        if isinstance(B, int):
+            V1 = V[p].clone()
+            y1, r1 = fl.fused_step(V1, y[p], g[p], k, k, spec, with_drift)
+            same = same and torch.equal(V1[k], Vb[p, k]) and torch.equal(y1, yb[p]) and \
+                torch.equal(r1, rb[p])
+    require(same, f"fused_step_batched B={B}: each problem bit-identical to a one-problem launch")
+    n = R * 128
+    case = {"op": "grid" if spec.gc else "chain", "P": P, "n": n, "kmax": kmax, "B": B,
+            "with_drift": with_drift, "max_abs_err": err, "raw_rel_err": rel_raw,
+            "tolerance": "2e-4*scale (w', y'); 1e-6*norm products (raw)",
+            "bit_identical_to_one_problem_launches": same if isinstance(B, int) else None}
+    if timed:
+        t_bound, by = bound(sum((k + 3) * n * 4 for k in Bs),
+                            sum(k1_flops(n, k, len(spec.taps), with_drift) for k in Bs))
+        one = [device_ms(torch, lambda p=p: fl.fused_step(V[p], y[p], g[p], Bs[p], Bs[p], spec,
+                                                           with_drift), reps=5)
+               for p in ([0] if isinstance(B, int) else range(P))]
+        case.update({
+            "ms": device_ms(torch, lambda: fl.fused_step_batched(Vb, y, g, Bs, Bs, spec,
+                                                                 with_drift), reps=5),
+            "one_problem_launches_ms": one[0] * P if isinstance(B, int) else sum(one),
+            "plain_ms": device_ms(torch, lambda: fl.fused_step_batched_reference(
+                Vr, y, g, Bs, Bs, spec, with_drift), reps=1, batches=1),
+            "bound_ms": t_bound, "bound_by": by,
+        })
+    return case
+
+
+def check_batched_transform(torch, bs, P, R, kmax, m_out, gen, dtype=None, timed=True):
+    """Batched K2 against ``P`` one-problem launches bit for bit (one
+    problem's ``U`` the identity: its basis bit-identical), rows ``>=
+    m_out`` untouched, the plain version within the one-problem tolerance.
+    Timed: ms per batched launch, ``P`` one-problem launches, the plain
+    version, ``torch.bmm`` of the same product and the bound (``P`` times
+    the one-problem bytes)."""
+    dtype = dtype or torch.float32
+    V = torch.randn((P, kmax, R, 128), generator=gen, device="cuda").to(dtype)
+    U = torch.randn((P, kmax, kmax), generator=gen, device="cuda") / kmax ** 0.5
+    U[P - 1] = torch.eye(kmax, device="cuda")
+    Vb = bs.transform_partial_inplace_batched(V.clone(), U, m_out)
+    Vr = bs.transform_partial_inplace_batched_reference(V.clone(), U, m_out)
+    torch.cuda.synchronize()
+    label = f"transform_partial_batched P={P} m_out={m_out} {dtype}"
+    same = all(torch.equal(bs.transform_partial_inplace(V[p].clone(), U[p], m_out), Vb[p])
+               for p in range(P))
+    require(same, f"{label}: each problem bit-identical to a one-problem launch")
+    require(torch.equal(Vb[P - 1], V[P - 1]), f"{label}: identity rotation bit-identical")
+    require(torch.equal(Vb[:, m_out:], V[:, m_out:]), f"{label}: rows >= m_out bit-identical")
+    sc = float(Vr[:, :m_out].float().abs().max())
+    err = float((Vb[:, :m_out].float() - Vr[:, :m_out].float()).abs().max())
+    tol = 1e-5 if dtype == torch.float32 else 2 * 2.0 ** -7
+    require(err <= tol * sc, f"{label}: rows < m_out within {tol}*scale of the plain version")
+    n = R * 128
+    case = {"P": P, "kmax": kmax, "n": n, "m_out": m_out, "dtype": str(dtype), "max_abs_err": err,
+            "scale": sc, "bit_identical_to_one_problem_launches": same}
+    if timed:
+        t_bound, by = bound(P * (kmax + m_out) * n * V.element_size(), P * 2 * kmax * m_out * n)
+        Um = U[:, :, :m_out].transpose(1, 2).to(dtype)
+        Vf = V.reshape(P, kmax, -1)
+        case.update({
+            "ms": device_ms(torch, lambda: bs.transform_partial_inplace_batched(Vb, U, m_out)),
+            "one_problem_launches_ms": P * device_ms(
+                torch, lambda: bs.transform_partial_inplace(Vb[0], U[0], m_out)),
+            "plain_ms": device_ms(torch, lambda: bs.transform_partial_inplace_batched_reference(
+                Vr, U, m_out), reps=2, batches=1),
+            "library_ms": device_ms(torch, lambda: torch.bmm(Um, Vf)),
+            "bound_ms": t_bound, "bound_by": by,
+        })
+    return case
+
+
+def batched_phase(torch, np, kt, _build, fl, bs, smi, n=1 << 21, nx=1024, P=8, PG=4,
+                  dev="cuda"):
+    """Phase ``batched``: ``P`` problems in one host loop.
+
+    (a) config 1 (``laplacian_1d(n)``, 4 "LM", krylovdim 30, maxiter 10,
+    tol 1e-30) from :func:`batched_starts` through
+    ``eigsolve_lanczos_batched``: every problem 138 / 10 with its values
+    within 2e-2 of 4, problems 0 and 1 within 1e-5 (relative) of their
+    one-problem solves, 128 ``fused_step_batched`` and 11
+    ``transform_partial_batched`` launches and no one-problem K1/K2;
+    (b) config 2's ``gmres30_poisson_2d_shifted_convergent`` (``a0 =
+    0.5``, tol 5e-5, maxiter 20) for ``PG`` right-hand sides (ones and
+    ``0.05·normal`` from ``default_rng(200 + i)``, small enough that the
+    float32 rounding of their true residual ``b − A x`` stays under tol)
+    through
+    ``linsolve_gmres_batched``: every problem converged with its true
+    residual within tol, counts equal to its one-problem solve; (c) the
+    batched K1/K2 at these widths against their plain versions and
+    one-problem launches (:func:`check_batched_step`,
+    :func:`check_batched_transform`), ms per launch beside ``P``
+    one-problem launches and the bound.  Each batched solve is driven with
+    the counts set to 0 just before it and read just after, then timed once
+    more beside the one-problem solves.  ``dev="cpu"`` with a small ``n``
+    and ``nx`` rehearses (a) and (b) with the plain versions: no launch
+    guard, no kernel checks."""
+    t0 = time.perf_counter()
+    card = dev != "cpu"
+    R = n // 128
+    op = kt.laplacian_1d(n, device=dev)
+    X = batched_starts(torch, np, R, P, dev)
+    alg = kt.Lanczos(krylovdim=KRYLOVDIM, maxiter=10, tol=1e-30, verbosity=kt.SILENT)
+    (vals, vecs, info), first_ms, launches = _sync_ms(
+        torch, _build, lambda: kt.eigsolve_lanczos_batched(op, X, 4, "LM", alg), dev)
+    _, batched_ms, _ = _sync_ms(
+        torch, _build, lambda: kt.eigsolve_lanczos_batched(op, X, 4, "LM", alg), dev)
+    ones, one_ms = [], []
+    for p in (0, 1):
+        (v1, _, i1), ms1, _ = _sync_ms(torch, _build,
+                                       lambda p=p: kt.eigsolve_lanczos(op, X[p], 4, "LM", alg), dev)
+        ones.append((v1, i1))
+        one_ms.append(ms1)
+    rel_one = max(float(((vals[p] - v1).abs() / v1.abs()).max()) for p, (v1, _) in enumerate(ones))
+    vals_h = vals.cpu()
+    rec = {
+        "phase": "batched", "path": "config1_lanczos", "P": P, "n": n,
+        "numops": info.numops.tolist(), "numiter": info.numiter.tolist(),
+        "converged": info.converged.tolist(), "vals": vals_h.tolist(),
+        "launches": launches, "first_solve_ms": first_ms, "batched_ms": batched_ms,
+        "one_problem_ms": one_ms, "P_times_one_problem_ms": P * sum(one_ms) / len(one_ms),
+        "one_problem_max_rel_diff": rel_one, "tolerance": 1e-5, "nvidia_smi": smi,
+    }
+    emit(rec)
+    require(info.numops.tolist() == [138] * P and info.numiter.tolist() == [10] * P,
+            f"batched config 1: every problem 138 / 10 ({info.numops.tolist()}, "
+            f"{info.numiter.tolist()})")
+    if n == 1 << 21:
+        require(bool((torch.abs(vals_h - 4.0) <= 2e-2).all()), f"batched config 1: vals ~ 4 "
+                f"(atol 2e-2): {vals_h.tolist()}")
+    require(tuple(vecs.shape) == (P, 4, R, 128) and bool(torch.isfinite(vecs).all()),
+            "batched config 1: finite vecs")
+    require(rel_one <= 1e-5, f"batched config 1: problems 0 and 1 within 1e-5 of their "
+            f"one-problem solves ({rel_one})")
+    require(all(i1.numops == 138 and i1.numiter == 10 for _, i1 in ones),
+            "batched config 1: one-problem solves 138 / 10")
+    if card:
+        require(launches == {"fused_step_batched": 128, "transform_partial_batched": 11},
+                f"batched config 1: 128 batched K1 and 11 batched K2 launches, no one-problem "
+                f"K1/K2 ({launches})")
+    del vecs
+
+    grid = kt.poisson_2d(nx, nx, device=dev)
+    Rg = nx * nx // 128
+    Bg = torch.empty((PG, Rg, 128), dtype=torch.float32, device=dev)
+    Bg[0] = 1
+    for i in range(1, PG):
+        Bg[i] = torch.from_numpy((0.05 * np.random.default_rng(200 + i).standard_normal((Rg, 128)))
+                                 .astype(np.float32))
+    galg = kt.GMRES(krylovdim=KRYLOVDIM, tol=5e-5, maxiter=20, verbosity=kt.SILENT)
+    (x, ginfo), gfirst_ms, glaunches = _sync_ms(
+        torch, _build, lambda: kt.linsolve_gmres_batched(grid, Bg, torch.zeros_like(Bg), 0.5,
+                                                         1.0, galg), dev)
+    _, gbatched_ms, _ = _sync_ms(
+        torch, _build, lambda: kt.linsolve_gmres_batched(grid, Bg, torch.zeros_like(Bg), 0.5,
+                                                         1.0, galg), dev)
+    from krylovkit_tpu_torch.solvers.gmres import linsolve_gmres
+
+    gone, gone_ms = [], []
+    for p in range(PG):
+        (x1, i1), ms1, l1 = _sync_ms(torch, _build, lambda p=p: linsolve_gmres(
+            grid, Bg[p], torch.zeros_like(Bg[p]), 0.5, 1.0, galg), dev)
+        gone.append((x1, i1, l1))
+        gone_ms.append(ms1)
+    true_res = [float(torch.linalg.vector_norm(Bg[p] - (0.5 * x[p] + grid.normal(x[p]))))
+                for p in range(PG)]
+    x_rel = max(float((x[p] - x1).abs().max() / x1.abs().max()) for p, (x1, _, _) in
+                enumerate(gone))
+    emit({"phase": "batched", "path": "config2_gmres30_shifted", "P": PG, "n": nx * nx,
+          "numops": ginfo.numops.tolist(), "numiter": ginfo.numiter.tolist(),
+          "converged": ginfo.converged.tolist(), "true_residual": true_res, "tol": galg.tol,
+          "one_problem_numops": [i1.numops for _, i1, _ in gone],
+          "one_problem_numiter": [i1.numiter for _, i1, _ in gone],
+          "x_max_rel_diff_one_problem": x_rel, "launches": glaunches,
+          "one_problem_launches": [l1 for _, _, l1 in gone], "first_solve_ms": gfirst_ms,
+          "batched_ms": gbatched_ms, "one_problem_ms": gone_ms,
+          "sum_one_problem_ms": sum(gone_ms), "nvidia_smi": smi})
+    require(ginfo.converged.tolist() == [1] * PG and max(true_res) <= galg.tol,
+            f"batched GMRES: every problem converged, true residual within {galg.tol} "
+            f"({true_res})")
+    require(ginfo.numops.tolist() == [i1.numops for _, i1, _ in gone]
+            and ginfo.numiter.tolist() == [i1.numiter for _, i1, _ in gone],
+            "batched GMRES: counts equal to the one-problem solves")
+    require(x_rel <= 1e-5, f"batched GMRES: x within 1e-5 of the one-problem solves ({x_rel})")
+    if card:
+        # a step launches once for every problem whose cycle goes on: at
+        # least the steps of the longest solve, at most those of all
+        k1_one = [l1.get("fused_step", 0) for _, _, l1 in gone]
+        require(set(glaunches) == {"fused_step_batched"}
+                and max(k1_one) <= glaunches["fused_step_batched"] <= sum(k1_one),
+                f"batched GMRES: batched K1 only, between the longest solve's steps and all "
+                f"solves' steps ({glaunches}, {k1_one})")
+    del x, Bg
+    out = {"launches": launches, "gmres_launches": glaunches}
+    if not card:
+        return out
+
+    # (c) the batched kernels at these widths
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    kmax = KRYLOVDIM + 1
+    chain = kt.laplacian_1d(n)
+    k1 = [check_batched_step(torch, fl, chain, P, R, kmax, B, True, gen) for B in (4, 16, 30)]
+    k1.append(check_batched_step(torch, fl, chain, P, R, kmax, [30, 19, 25, 4, 16, 29, 1, 22][:P],
+                                 True, gen))
+    k1.append(check_batched_step(torch, fl, grid, PG, Rg, kmax, 16, True, gen))
+    # the main path's schedule: every problem at the same B each step
+    spec = fl.spec_for(chain)
+    V = torch.randn((P, kmax, R, 128), generator=gen, device="cuda")
+    y = torch.randn((P, R, 128), generator=gen, device="cuda")
+    g = torch.randn((P, kmax + 1), generator=gen, device="cuda")
+    per_B = {}
+    for B in sorted(set(k1_schedule())):
+        t_bound, _ = bound(P * (B + 3) * n * 4, P * k1_flops(n, B, 3, True))
+        per_B[B] = {"ms": device_ms(torch, lambda: fl.fused_step_batched(V, y, g, B, B, spec, True),
+                                    reps=3, batches=2), "bound_ms": t_bound}
+    del V, y, g
+    k2 = [check_batched_transform(torch, bs, P, R, kmax, m, gen) for m in (20, 4)]
+    k2.append(check_batched_transform(torch, bs, P, R, kmax, 20, gen, dtype=torch.bfloat16))
+    sched = k1_schedule()
+    k2_sched = [20] * 10 + [4]
+    t2 = {c["m_out"]: c for c in k2 if c["dtype"] == "torch.float32"}
+    summary = {
+        "fused_step": {
+            "launches_batched": launches.get("fused_step_batched", 0),
+            "launches_batched_gmres": glaunches.get("fused_step_batched", 0),
+            "ms_batched": sum(per_B[B]["ms"] for B in sched) / len(sched),
+            "bound_ms_batched": sum(per_B[B]["bound_ms"] for B in sched) / len(sched),
+            "max_abs_err_batched": max(c["max_abs_err"] for c in k1),
+        },
+        "transform_partial": {
+            "launches_batched": launches.get("transform_partial_batched", 0),
+            "ms_batched": sum(t2[m]["ms"] for m in k2_sched) / len(k2_sched),
+            "bound_ms_batched": sum(t2[m]["bound_ms"] for m in k2_sched) / len(k2_sched),
+            "library_ms_batched": sum(t2[m]["library_ms"] for m in k2_sched) / len(k2_sched),
+            "max_abs_err_batched": max(c["max_abs_err"] for c in k2 if "float32" in c["dtype"]),
+            "max_abs_err_batched_bfloat16": k2[-1]["max_abs_err"],
+        },
+    }
+    emit({"phase": "batched_kernels", "P": P, "fused_step_batched": k1,
+          "fused_step_batched_schedule": per_B, "transform_partial_batched": k2,
+          "summary": summary, "nvidia_smi": smi, "seconds": time.perf_counter() - t0})
+    out["kernels"] = summary
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one config-1 and one config-4 solve (phase 30)")
+                    help="also profile one config-1 and one config-4 solve (phase 31)")
     ap.add_argument("--parent", metavar="DIR",
                     help="an unpacked earlier tree: time its K1 and K2 on this card as parent_ms")
     ap.add_argument("--kernel-times", action="store_true",
@@ -5177,6 +5479,10 @@ def main():
     # against one rank
     ad_sharded = sharded_ad(torch, np, kt, _build, smi, N=nx)
 
+    # 30. batched solves: config 1 for 8 starts and config 2's shifted
+    # GMRES for 4 right-hand sides, each in one host loop
+    batched = batched_phase(torch, np, kt, _build, fl, bs, smi)
+
     def slice11(name):
         """The launches per rank of ``name`` in phase 29's passes."""
         return {"launches_sharded_ad_per_rank": {
@@ -5234,6 +5540,7 @@ def main():
             "launches_small_sharded_per_rank": sharded["small"].get("fused_step", 0),
             **slice10("fused_step"),
             **slice11("fused_step"),
+            **batched["kernels"]["fused_step"],
         },
         {
             "name": "transform_partial", "route": "cuda",
@@ -5262,6 +5569,7 @@ def main():
             **slice9(sharded, "transform_partial"),
             **slice10("transform_partial"),
             **slice11("transform_partial"),
+            **batched["kernels"]["transform_partial"],
         },
         {
             "name": "banded_spmv", "route": "cuda",

@@ -18,7 +18,10 @@ sharded stencil and ELL operators, ``VectorSpace(psum_axis=...)``) in the
 Lanczos, Arnoldi, CG, GMRES, LSMR and GKL solvers, with reverse-mode
 differentiation of ``linsolve``, ``eigsolve`` and ``svdsolve`` (``ad``:
 one ``torch.autograd.Function`` each) and pytree vectors (tuples, lists and
-dicts of tensors) in the Krylov, Lanczos, Arnoldi and linear solvers, with
+dicts of tensors) in the Krylov, Lanczos, Arnoldi and linear solvers,
+batched Lanczos and GMRES solves of many problems in one host loop
+(``eigsolve_lanczos_batched``, ``linsolve_gmres_batched``: ``jax.vmap`` of
+the JAX drivers), with
 six hand-written CUDA kernels
 (``csrc/``): the fused one-stream expansion, the in-place restart rotation,
 the banded SpMV of :class:`BandedOperator`, the 1-D Laplacian of
@@ -88,6 +91,7 @@ from .ops.stencil_1d import laplacian_1d_pallas  # noqa: E402
 from .ops.vector import REAL, STANDARD, VectorSpace  # noqa: E402
 from .parallel.operators import laplacian_1d, poisson_2d  # noqa: E402
 from .solvers.arnoldi import eigsolve_arnoldi  # noqa: E402
+from .solvers.batched import eigsolve_lanczos_batched, linsolve_gmres_batched  # noqa: E402
 from .solvers.biarnoldi import bieigsolve  # noqa: E402
 from .solvers.eigsolve import eigsolve, realeigsolve, schursolve  # noqa: E402
 from .solvers.expintegrator import expintegrator, exponentiate  # noqa: E402
@@ -154,6 +158,8 @@ __all__ = [
     "eigsolve",
     "eigsolve_arnoldi",
     "eigsolve_lanczos",
+    "eigsolve_lanczos_batched",
+    "linsolve_gmres_batched",
     "schursolve",
     "realeigsolve",
     "geneigsolve",

@@ -31,6 +31,7 @@ __all__ = [
     "banded_from_arrays",
     "ell_from_arrays",
     "matrix_from_numpy",
+    "matrices_from_numpy",
     "vector_from_numpy",
     "tree_from_numpy",
     "block_from_numpy",
@@ -108,6 +109,12 @@ def ell_from_arrays(cols, vals, n_cols, adj_cols=None, adj_vals=None,
 def matrix_from_numpy(A, device="cuda") -> MatrixOperator:
     """A :class:`MatrixOperator` holding ``A`` on ``device``."""
     return MatrixOperator(torch.as_tensor(np.asarray(A), device=resolve_device(device)))
+
+
+def matrices_from_numpy(As, device="cuda") -> list:
+    """One :class:`MatrixOperator` per matrix of the stack ``As`` (``(P, n,
+    n)``): the batched operator of ``solvers/batched.py`` (``in_dims`` 0)."""
+    return [matrix_from_numpy(A, device) for A in np.asarray(As)]
 
 
 def vector_from_numpy(x, device="cuda") -> torch.Tensor:

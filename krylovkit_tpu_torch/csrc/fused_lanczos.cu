@@ -64,6 +64,17 @@
 // Halo rows of w' are recomputed by the neighbouring blocks from the same
 // inputs with the same instructions, so they agree to the bit.  All
 // arithmetic is float32 FMAs; nothing uses tensor cores.
+//
+// Batched step (kk_fused_step_batched; the TPU kernel under jax.vmap, which
+// pallas_call's batching rule turns into a leading grid axis): P problems,
+// each with its own basis, y, g, live rows B and new row kp1, in one launch
+// over a (nblocks, problems) grid.  Every block runs the one-problem code on
+// its problem.  Each problem has its own slab of partials and its own
+// arrival counter, so its last block sums its partials in the one-problem
+// order; KACC and the shared memory come from the plan of the largest B, and
+// a problem with a smaller B masks its rows as the loops already do.  Where
+// every problem has the plan's B, a problem's results are those of a
+// one-problem launch, bit for bit.  Bound: P times the one-problem bytes.
 
 #include <cuda_runtime.h>
 
@@ -146,16 +157,25 @@ __device__ __forceinline__ void st(float* p, const float (&v)[N]) {
   }
 }
 
-// KACC: register bound on B; DRIFT: also reduce <V_j, w'>; LPT: lanes a thread
-// owns (the tile has 2 * LPT rows, or 1 row where plan.T == 1).
+// The problems of a batched launch: blockIdx.y = i runs problem p[i] with its
+// own live rows B[i] and new row kp1[i].
+constexpr int kMaxProblems = 64;
+struct Problems {
+  int p[kMaxProblems], B[kMaxProblems], kp1[kMaxProblems];
+};
+
+// One block's share of one step: the whole of the one-problem kernel, and of
+// each problem of the batched one.  KACC: register bound on B; DRIFT: also
+// reduce <V_j, w'>; LPT: lanes a thread owns (the tile has 2 * LPT rows, or 1
+// row where plan.T == 1).  The last block writes raw[0, nslots) and zeros up
+// to rawPad.
 template <int KACC, bool DRIFT, int LPT>
-__global__ void __launch_bounds__(kThreads, KACC <= 32 ? 2 : 1)
-fused_step_kernel(float* V, const float* __restrict__ y,
-                  float* __restrict__ ynext, const float* __restrict__ g,
-                  float* partials, float* __restrict__ raw, int* counter,
-                  const float* __restrict__ Vext, const float* __restrict__ yext,
-                  int kmax, int R, int B, int kp1, int h, int gc, int mrow,
-                  Plan plan, Taps taps) {
+__device__ __forceinline__ void fused_step_body(
+    float* V, const float* __restrict__ y, float* __restrict__ ynext,
+    const float* __restrict__ g, float* partials, float* __restrict__ raw,
+    int* counter, const float* __restrict__ Vext,
+    const float* __restrict__ yext, int kmax, int R, int B, int kp1, int h,
+    int gc, int mrow, const Plan& plan, const Taps& taps, int rawPad) {
   extern __shared__ __align__(16) float smem[];
   const int T = plan.T, P = plan.P, NSR = plan.NSR, NR = plan.NR;
   const int rowf = (B + 1) * kLanes;           // floats of a staged row: y, V[0..B)
@@ -405,8 +425,54 @@ fused_step_kernel(float* V, const float* __restrict__ y,
     float t = 0.f;
     for (int cc = 0; cc < C; ++cc) t += sRed[cc * pad + tid];
     raw[tid] = t;
+  } else if (tid < rawPad) {
+    raw[tid] = 0.f;
   }
   if (tid == 0) *counter = 0;
+}
+
+template <int KACC, bool DRIFT, int LPT>
+__global__ void __launch_bounds__(kThreads, KACC <= 32 ? 2 : 1)
+fused_step_kernel(float* V, const float* __restrict__ y,
+                  float* __restrict__ ynext, const float* __restrict__ g,
+                  float* partials, float* __restrict__ raw, int* counter,
+                  const float* __restrict__ Vext, const float* __restrict__ yext,
+                  int kmax, int R, int B, int kp1, int h, int gc, int mrow,
+                  Plan plan, Taps taps) {
+  fused_step_body<KACC, DRIFT, LPT>(V, y, ynext, g, partials, raw, counter,
+                                    Vext, yext, kmax, R, B, kp1, h, gc, mrow,
+                                    plan, taps, 0);
+}
+
+// The batched step: blockIdx.y picks problem p of V (P, kmax, R, 128), y and
+// ynext (P, R, 128), g (P, kmax + 1) and raw (P, rawPad); each problem has
+// its own slab of partials (nblocks, rawPad) and its own arrival counter.
+template <int KACC, bool DRIFT, int LPT>
+__global__ void __launch_bounds__(kThreads, KACC <= 32 ? 2 : 1)
+fused_step_batched_kernel(float* V, const float* __restrict__ y,
+                          float* __restrict__ ynext, const float* __restrict__ g,
+                          float* partials, float* __restrict__ raw, int* counters,
+                          int kmax, int R, int h, int gc, int mrow, int rawPad,
+                          Plan plan, Taps taps, Problems probs) {
+  const int i = blockIdx.y, p = probs.p[i];
+  const long long N = (long long)R * kLanes;
+  fused_step_body<KACC, DRIFT, LPT>(
+      V + (long long)p * kmax * N, y + (long long)p * N, ynext + (long long)p * N,
+      g + (long long)p * (kmax + 1), partials + (long long)i * gridDim.x * rawPad,
+      raw + (long long)p * rawPad, counters + i, nullptr, nullptr, kmax, R,
+      probs.B[i], probs.kp1[i], h, gc, mrow, plan, taps, rawPad);
+}
+
+// Allow a kernel the full shared memory, once per device.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, bool (&raised)[64]) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= 0 && dev < 64 && raised[dev]) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+  if (err == cudaSuccess && dev >= 0 && dev < 64) raised[dev] = true;
+  return err;
 }
 
 template <int KACC, bool DRIFT, int LPT>
@@ -418,19 +484,52 @@ cudaError_t launch_step(int nblocks, size_t smem, cudaStream_t s, float* V,
                         const Plan& plan, const Taps& taps) {
   // per instantiation and device: allow the full shared memory, once
   static bool raised[64] = {};
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev < 0 || dev >= 64 || !raised[dev]) {
-    cudaError_t err = cudaFuncSetAttribute(
-        fused_step_kernel<KACC, DRIFT, LPT>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
-    if (err != cudaSuccess) return err;
-    if (dev >= 0 && dev < 64) raised[dev] = true;
-  }
+  cudaError_t err = allow_smem(fused_step_kernel<KACC, DRIFT, LPT>, raised);
+  if (err != cudaSuccess) return err;
   fused_step_kernel<KACC, DRIFT, LPT><<<nblocks, kThreads, smem, s>>>(
       V, y, ynext, g, partials, raw, counter, Vext, yext, kmax, R, B, kp1, h,
       gc, mrow, plan, taps);
   return cudaGetLastError();
+}
+
+template <int KACC, bool DRIFT, int LPT>
+cudaError_t launch_batched(int nblocks, int nprob, size_t smem, cudaStream_t s,
+                           float* V, const float* y, float* ynext, const float* g,
+                           float* partials, float* raw, int* counters, int kmax,
+                           int R, int h, int gc, int mrow, int rawPad,
+                           const Plan& plan, const Taps& taps, const Problems& probs) {
+  static bool raised[64] = {};
+  cudaError_t err = allow_smem(fused_step_batched_kernel<KACC, DRIFT, LPT>, raised);
+  if (err != cudaSuccess) return err;
+  fused_step_batched_kernel<KACC, DRIFT, LPT><<<dim3(nblocks, nprob), kThreads, smem, s>>>(
+      V, y, ynext, g, partials, raw, counters, kmax, R, h, gc, mrow, rawPad, plan,
+      taps, probs);
+  return cudaGetLastError();
+}
+
+// The host's plan, checked against what the kernel needs at B live rows.
+bool plan_ok(int T, int P, int NSR, int NR, int reread, int run, int nblocks,
+             int smem_bytes, int R, int B, int h) {
+  const int lpt = T == 8 ? 4 : T == 4 ? 2 : 1;
+  const long long need =
+      4LL * ((long long)NSR * (B + 1) * kLanes + (long long)NR * kLanes +
+             kMaxSlots + kWarps * kMaxSlots + 4);
+  return (T == 1 || T == 2 || T == 4 || T == 8) && P >= 1 && P <= kMaxInFlight &&
+         NR >= T + 2 * h && NSR >= (P + 1) * T + (reread ? 0 : h) && run >= 1 &&
+         nblocks >= 1 && (long long)nblocks * run >= R &&
+         (long long)(nblocks - 1) * run < R && smem_bytes >= need &&
+         smem_bytes <= kSmemLimit && !(lpt > 1 && B > 32);
+}
+
+bool taps_from_host(int ntaps, const float* coef, const int* d, const int* dx, Taps& taps) {
+  if (ntaps < 1 || ntaps > kMaxTaps) return false;
+  taps.n = ntaps;
+  for (int p = 0; p < ntaps; ++p) {
+    taps.coef[p] = coef[p];
+    taps.d[p] = d[p];
+    taps.dx[p] = dx[p];
+  }
+  return true;
 }
 
 }  // namespace
@@ -459,22 +558,10 @@ int kk_fused_step(float* V, const float* y, float* ynext, const float* g,
       (gc && mrow < 1) || ((Vext == nullptr) != (yext == nullptr)))
     return (int)cudaErrorInvalidValue;
   const int lpt = T == 8 ? 4 : T == 4 ? 2 : 1;
-  const long long need =
-      4LL * ((long long)NSR * (B + 1) * kLanes + (long long)NR * kLanes +
-             kMaxSlots + kWarps * kMaxSlots + 4);
-  if (!(T == 1 || T == 2 || T == 4 || T == 8) || P < 1 || P > kMaxInFlight ||
-      NR < T + 2 * h || NSR < (P + 1) * T + (reread ? 0 : h) || run < 1 ||
-      nblocks < 1 || (long long)nblocks * run < R ||
-      (long long)(nblocks - 1) * run >= R || smem_bytes < need ||
-      smem_bytes > kSmemLimit || (lpt > 1 && B > 32))
-    return (int)cudaErrorInvalidValue;
   Taps taps;
-  taps.n = ntaps;
-  for (int p = 0; p < ntaps; ++p) {
-    taps.coef[p] = coef[p];
-    taps.d[p] = d[p];
-    taps.dx[p] = dx[p];
-  }
+  if (!plan_ok(T, P, NSR, NR, reread, run, nblocks, smem_bytes, R, B, h) ||
+      !taps_from_host(ntaps, coef, d, dx, taps))
+    return (int)cudaErrorInvalidValue;
   const Plan plan = {T, P, NSR, NR, reread, run};
   cudaStream_t s = (cudaStream_t)stream;
 #define KK_STEP(KACC, DRIFT, LPT)                                              \
@@ -498,6 +585,64 @@ int kk_fused_step(float* V, const float* y, float* ynext, const float* g,
   if (B <= 64) KK_STEP(64, false, 1);
   KK_STEP(128, false, 1);
 #undef KK_STEP
+}
+
+// The batched step: V (P, kmax, R, 128), y and ynext (P, R, 128), g
+// (P, kmax + 1), raw (P, rawPad) out, all float32 on the device; nprob <=
+// kMaxProblems problems, HOST arrays p (which problem), B and kp1, each with
+// kp1 >= B and the slots of B within rawPad <= 128; partials (nprob, nblocks,
+// rawPad) scratch; counters nprob int32, 0 before the launch and left 0.
+// The plan is the host's for Bmax >= every B (it sets KACC and the shared
+// memory).  Rows and entries of the problems not named are not touched.
+int kk_fused_step_batched(float* V, const float* y, float* ynext, const float* g,
+                          float* partials, float* raw, int* counters, int kmax,
+                          int R, int nprob, const int* p, const int* B,
+                          const int* kp1, int Bmax, int rawPad, int with_drift,
+                          int h, int gc, int mrow, int ntaps, const float* coef,
+                          const int* d, const int* dx, int T, int P, int NSR,
+                          int NR, int reread, int run, int nblocks,
+                          int smem_bytes, void* stream) {
+  if (nprob < 1 || nprob > kMaxProblems || h < 1 || h > kMaxHalo || Bmax < 0 ||
+      rawPad > kMaxSlots || R < 1 || (gc && mrow < 1))
+    return (int)cudaErrorInvalidValue;
+  Problems probs;
+  for (int i = 0; i < nprob; ++i) {
+    const int nslots = with_drift ? 2 * B[i] + 2 : B[i] + 2;
+    if (p[i] < 0 || B[i] < 0 || B[i] > Bmax || kp1[i] < B[i] || kp1[i] >= kmax ||
+        nslots > rawPad)
+      return (int)cudaErrorInvalidValue;
+    probs.p[i] = p[i];
+    probs.B[i] = B[i];
+    probs.kp1[i] = kp1[i];
+  }
+  const int lpt = T == 8 ? 4 : T == 4 ? 2 : 1;
+  Taps taps;
+  if (!plan_ok(T, P, NSR, NR, reread, run, nblocks, smem_bytes, R, Bmax, h) ||
+      !taps_from_host(ntaps, coef, d, dx, taps))
+    return (int)cudaErrorInvalidValue;
+  const Plan plan = {T, P, NSR, NR, reread, run};
+  cudaStream_t s = (cudaStream_t)stream;
+#define KK_BATCHED(KACC, DRIFT, LPT)                                             \
+  return (int)launch_batched<KACC, DRIFT, LPT>(nblocks, nprob, (size_t)smem_bytes, \
+                                               s, V, y, ynext, g, partials, raw,   \
+                                               counters, kmax, R, h, gc, mrow,     \
+                                               rawPad, plan, taps, probs)
+  if (with_drift) {
+    if (Bmax <= 32) {
+      if (lpt == 4) KK_BATCHED(32, true, 4);
+      if (lpt == 2) KK_BATCHED(32, true, 2);
+      KK_BATCHED(32, true, 1);
+    }
+    KK_BATCHED(64, true, 1);
+  }
+  if (Bmax <= 32) {
+    if (lpt == 4) KK_BATCHED(32, false, 4);
+    if (lpt == 2) KK_BATCHED(32, false, 2);
+    KK_BATCHED(32, false, 1);
+  }
+  if (Bmax <= 64) KK_BATCHED(64, false, 1);
+  KK_BATCHED(128, false, 1);
+#undef KK_BATCHED
 }
 
 const char* kk_error_string(int status) {

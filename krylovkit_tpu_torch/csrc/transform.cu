@@ -44,6 +44,12 @@
 //   kmax <= 32: KREG 32, 1 (2) columns    kmax <= 128: KREG 128, 1 (1) column
 // A bfloat16 basis is widened to float32 in registers, accumulated in float32
 // and rounded once at the store.  Nothing uses tensor cores.
+//
+// Batched rotation (kk_transform_partial_batched; the TPU kernel under
+// jax.vmap): P bases (P, kmax, ncols), each with its own U, one launch over a
+// (column blocks, problems) grid; every block runs the one-problem code on
+// its problem, so each problem is rotated bit for bit as a one-problem launch
+// rotates it.  Bound: P times the one-problem bytes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -112,11 +118,17 @@ struct Cols<__nv_bfloat16, 1> {
   }
 };
 
-// MINB: blocks an SM must hold (bounds the registers a thread may take).
-template <typename T, int KREG, int COLS, int MINB>
-__global__ void __launch_bounds__(kThreads, MINB)
-transform_kernel(T* V, const float* __restrict__ U, long long u_rs,
-                 long long u_cs, int kmax, long long ncols, int m_out) {
+// The problems of a batched launch: blockIdx.y = i rotates problem p[i].
+constexpr int kMaxProblems = 64;
+struct Problems {
+  int p[kMaxProblems];
+};
+
+// One block's columns of one rotation.
+template <typename T, int KREG, int COLS>
+__device__ __forceinline__ void transform_body(T* V, const float* __restrict__ U,
+                                               long long u_rs, long long u_cs,
+                                               int kmax, long long ncols, int m_out) {
   extern __shared__ __align__(16) float sU[];  // (m_out, KREG): row i = U[:, i], 0 beyond kmax
   const long long e = ((long long)blockIdx.x * kThreads + threadIdx.x) * COLS;
   const bool live = e < ncols;
@@ -159,38 +171,71 @@ transform_kernel(T* V, const float* __restrict__ U, long long u_rs,
   }
 }
 
+// MINB: blocks an SM must hold (bounds the registers a thread may take).
 template <typename T, int KREG, int COLS, int MINB>
-cudaError_t launch(T* V, const float* U, long long u_rs, long long u_cs,
-                   int kmax, long long ncols, int m_out, cudaStream_t stream) {
+__global__ void __launch_bounds__(kThreads, MINB)
+transform_kernel(T* V, const float* __restrict__ U, long long u_rs,
+                 long long u_cs, int kmax, long long ncols, int m_out) {
+  transform_body<T, KREG, COLS>(V, U, u_rs, u_cs, kmax, ncols, m_out);
+}
+
+// The batched rotation: blockIdx.y picks problem p of V (P, kmax, ncols) and
+// of U, whose problem stride is u_ps.
+template <typename T, int KREG, int COLS, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB)
+transform_batched_kernel(T* V, const float* __restrict__ U, long long u_ps,
+                         long long u_rs, long long u_cs, int kmax, long long ncols,
+                         int m_out, Problems probs) {
+  const int p = probs.p[blockIdx.y];
+  transform_body<T, KREG, COLS>(V + (long long)p * kmax * ncols, U + p * u_ps, u_rs,
+                                u_cs, kmax, ncols, m_out);
+}
+
+// nprob == 0: the one-problem kernel; else the batched one over nprob problems.
+template <typename T, int KREG, int COLS, int MINB>
+cudaError_t launch(T* V, const float* U, long long u_ps, long long u_rs,
+                   long long u_cs, int kmax, long long ncols, int m_out,
+                   int nprob, const Problems& probs, cudaStream_t stream) {
   if (ncols % COLS != 0) return cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * (size_t)m_out * KREG;
   if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        transform_kernel<T, KREG, COLS, MINB>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaError_t err = nprob
+        ? cudaFuncSetAttribute(transform_batched_kernel<T, KREG, COLS, MINB>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)
+        : cudaFuncSetAttribute(transform_kernel<T, KREG, COLS, MINB>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
   const long long per_block = (long long)kThreads * COLS;
   const long long blocks = (ncols + per_block - 1) / per_block;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  transform_kernel<T, KREG, COLS, MINB><<<(unsigned)blocks, kThreads, smem, stream>>>(
-      V, U, u_rs, u_cs, kmax, ncols, m_out);
+  if (nprob)
+    transform_batched_kernel<T, KREG, COLS, MINB>
+        <<<dim3((unsigned)blocks, nprob), kThreads, smem, stream>>>(
+            V, U, u_ps, u_rs, u_cs, kmax, ncols, m_out, probs);
+  else
+    transform_kernel<T, KREG, COLS, MINB><<<(unsigned)blocks, kThreads, smem, stream>>>(
+        V, U, u_rs, u_cs, kmax, ncols, m_out);
   return cudaGetLastError();
 }
 
 // The ladder: (KREG, COLS, MINB) by kmax.  A thread moves 4 bytes per row
 // where that keeps it near 64 registers, so 8 blocks of 4 warps share an SM.
 template <typename T>
-cudaError_t dispatch(T* V, const float* U, long long u_rs, long long u_cs,
-                     int kmax, long long ncols, int m_out, cudaStream_t s) {
+cudaError_t dispatch(T* V, const float* U, long long u_ps, long long u_rs,
+                     long long u_cs, int kmax, long long ncols, int m_out,
+                     int nprob, const Problems& pr, cudaStream_t s) {
   constexpr bool kHalf = sizeof(T) == 2;  // bfloat16: twice the columns per word
   if (kmax <= 16)
-    return launch<T, 16, kHalf ? 4 : 2, kHalf ? 5 : 8>(V, U, u_rs, u_cs, kmax, ncols, m_out, s);
+    return launch<T, 16, kHalf ? 4 : 2, kHalf ? 5 : 8>(V, U, u_ps, u_rs, u_cs, kmax, ncols,
+                                                       m_out, nprob, pr, s);
   if (kmax <= 32)
-    return launch<T, 32, kHalf ? 2 : 1, kHalf ? 6 : 8>(V, U, u_rs, u_cs, kmax, ncols, m_out, s);
+    return launch<T, 32, kHalf ? 2 : 1, kHalf ? 6 : 8>(V, U, u_ps, u_rs, u_cs, kmax, ncols,
+                                                       m_out, nprob, pr, s);
   if (kmax <= 64)
-    return launch<T, 64, kHalf ? 2 : 1, kHalf ? 3 : 4>(V, U, u_rs, u_cs, kmax, ncols, m_out, s);
-  return launch<T, 128, 1, 3>(V, U, u_rs, u_cs, kmax, ncols, m_out, s);
+    return launch<T, 64, kHalf ? 2 : 1, kHalf ? 3 : 4>(V, U, u_ps, u_rs, u_cs, kmax, ncols,
+                                                       m_out, nprob, pr, s);
+  return launch<T, 128, 1, 3>(V, U, u_ps, u_rs, u_cs, kmax, ncols, m_out, nprob, pr, s);
 }
 
 }  // namespace
@@ -218,9 +263,33 @@ int kk_transform_partial(void* V, const float* U, long long u_rs, long long u_cs
       ncols % 4 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  const Problems none = {};
   if (bf16)
-    return (int)dispatch((__nv_bfloat16*)V, U, u_rs, u_cs, kmax, ncols, m_out, s);
-  return (int)dispatch((float*)V, U, u_rs, u_cs, kmax, ncols, m_out, s);
+    return (int)dispatch((__nv_bfloat16*)V, U, 0, u_rs, u_cs, kmax, ncols, m_out, 0, none, s);
+  return (int)dispatch((float*)V, U, 0, u_rs, u_cs, kmax, ncols, m_out, 0, none, s);
+}
+
+// The batched rotation: V (P, kmax, ncols) on the device; problem p[i] (a
+// HOST array of nprob <= kMaxProblems entries) is rotated by U + p[i] * u_ps
+// as kk_transform_partial rotates one basis.  The bases of the problems not
+// named are not touched.
+int kk_transform_partial_batched(void* V, const float* U, long long u_ps,
+                                 long long u_rs, long long u_cs, int kmax,
+                                 long long ncols, int m_out, int bf16, int nprob,
+                                 const int* p, void* stream) {
+  if (kmax < 1 || kmax > 128 || m_out < 1 || m_out > kmax || ncols < 1 ||
+      ncols % 4 != 0 || nprob < 1 || nprob > kMaxProblems)
+    return (int)cudaErrorInvalidValue;
+  Problems probs;
+  for (int i = 0; i < nprob; ++i) {
+    if (p[i] < 0) return (int)cudaErrorInvalidValue;
+    probs.p[i] = p[i];
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bf16)
+    return (int)dispatch((__nv_bfloat16*)V, U, u_ps, u_rs, u_cs, kmax, ncols, m_out, nprob,
+                         probs, s);
+  return (int)dispatch((float*)V, U, u_ps, u_rs, u_cs, kmax, ncols, m_out, nprob, probs, s);
 }
 
 const char* kk_error_string(int status) {

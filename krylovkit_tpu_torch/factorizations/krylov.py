@@ -47,6 +47,8 @@ __all__ = [
     "fold_scales",
     "make_fused_stepper",
     "fused_expansions",
+    "make_fused_stepper_batched",
+    "fused_expansions_batched",
 ]
 
 
@@ -394,6 +396,37 @@ def _step_coeffs(r, d, rp, q, sc: FusedScales, k: int, dgks: bool):
     return csub, lam, h, h[k], FusedScales(L, s, Hs, M)
 
 
+def _unpack_raw(raw, B: int, kmax: int, dgks: bool):
+    """The kernel's packed reductions at ``B`` live rows as ``(r, d, rp, q)``,
+    ``r`` and ``d`` padded to ``kmax`` (``d`` zero without drift)."""
+    pad = (0, kmax - B)
+    rn = torch.nn.functional.pad(raw[:B], pad)
+    if dgks:
+        dn = torch.nn.functional.pad(raw[B:2 * B], pad)
+        rpn, qn = raw[2 * B], raw[2 * B + 1]
+    else:
+        dn = torch.zeros(kmax, dtype=torch.float32, device=raw.device)
+        rpn, qn = raw[B], raw[B + 1]
+    return rn, dn, rpn, qn
+
+
+def _append_row(sc: FusedScales, k: int, beta, csub, lam, with_hs: bool) -> FusedScales:
+    """Bookkeeping of the new stored row ``k + 1`` of norm ``beta``."""
+    idx = torch.arange(sc.L.shape[0], device=beta.device)
+    ohk1 = (idx == k + 1).to(torch.float32)
+    s = torch.where(idx == k + 1, _safe_inv(beta), sc.s)
+    # placeholder L column for the new row (its deferred correction
+    # overwrites it next step)
+    L = sc.L * (1 - ohk1)[None, :] + (_safe_inv(beta) * ohk1)[:, None] * ohk1[None, :]
+    Hs = sc.Hs
+    if with_hs:
+        # stored-row image of R_k: y = (R_{k+1} + Σ csub_i R_i)/λ
+        hscol = torch.where(idx <= k + 1, (ohk1 + csub) / lam, 0.0)
+        ohk = (idx == k).to(torch.float32)
+        Hs = Hs * (1 - ohk)[None, :] + hscol[:, None] * ohk[None, :]
+    return FusedScales(L, s, Hs, sc.M)
+
+
 class FusedCarry(NamedTuple):
     """State of the fused stepper between steps."""
 
@@ -466,32 +499,10 @@ def make_fused_stepper(op, kmax: int, dgks: bool, space: VectorSpace):
         Vext, yext = c.Vext, c.yext
         if ax is not None:
             raw, Vext[k + 1], yext = exchange(raw, c.V, k + 1, yn)
-        pad = (0, kmax - B)
-        rn = torch.nn.functional.pad(raw[:B], pad)
-        if dgks:
-            dn = torch.nn.functional.pad(raw[B:2 * B], pad)
-            rpn, qn = raw[2 * B], raw[2 * B + 1]
-        else:
-            dn = torch.zeros(kmax, dtype=torch.float32, device=raw.device)
-            rpn, qn = raw[B], raw[B + 1]
+        rn, dn, rpn, qn = _unpack_raw(raw, B, kmax, dgks)
         beta = torch.sqrt(qn)
         sc = _append_row(sc, k, beta, csub, lam, dgks)
         return FusedCarry(c.V, yn, rn, dn, rpn, qn, sc, k + 1, Vext, yext), alpha, beta, hcol
-
-    def _append_row(sc: FusedScales, k: int, beta, csub, lam, with_hs: bool):
-        idx = torch.arange(kmax, device=beta.device)
-        ohk1 = (idx == k + 1).to(torch.float32)
-        s = torch.where(idx == k + 1, _safe_inv(beta), sc.s)
-        # placeholder L column for the new row (its deferred correction
-        # overwrites it next step)
-        L = sc.L * (1 - ohk1)[None, :] + (_safe_inv(beta) * ohk1)[:, None] * ohk1[None, :]
-        Hs = sc.Hs
-        if with_hs:
-            # stored-row image of R_k: y = (R_{k+1} + Σ csub_i R_i)/λ
-            hscol = torch.where(idx <= k + 1, (ohk1 + csub) / lam, 0.0)
-            ohk = (idx == k).to(torch.float32)
-            Hs = Hs * (1 - ohk)[None, :] + hscol[:, None] * ohk[None, :]
-        return FusedScales(L, s, Hs, sc.M)
 
     def tail(c: FusedCarry, go: bool):
         """Final append WITHOUT the next operator apply, only when ``go``.
@@ -568,3 +579,115 @@ def fused_expansions(op, state: KrylovState, scales: FusedScales, m: int, btol: 
         beta_out = torch.sqrt(c.q)
     state_new = KrylovState(V, H, k + int(go), beta_out.to(state.beta.dtype))
     return state_new, sc, (k - k0) + 1
+
+
+# --------------------------------------------------------------------------
+# Batched fused expansion (P problems on one stencil operator)
+# --------------------------------------------------------------------------
+
+def make_fused_stepper_batched(op, kmax: int, dgks: bool):
+    """Return ``(prime, advance, tail)`` over the :class:`FusedCarry` of each
+    of ``P`` problems on one fusable stencil operator (the counterpart of
+    :func:`make_fused_stepper` under ``jax.vmap``).  The problems share the
+    basis ``V (P, kmax, R, 128)`` and the ``y`` buffer ``Y (P, R, 128)``:
+    ``carries[p].V`` is ``V[p]`` and ``carries[p].y`` is ``Y[p]``.
+
+    * ``prime(V, Y, k0s, scs, problems)``: each problem's
+      :func:`make_fused_stepper` prime, its ``y`` copied into ``Y[p]``;
+    * ``advance(V, Y, carries, problems)``: one step of every problem in
+      ``problems``, each at its own top row, the scalar front half per
+      problem and one :func:`~..ops.fused_lanczos.fused_step_batched` launch
+      for all; returns ``(Y', {p: (carry', alpha, beta, hcol)})``, ``Y'``
+      the launch's ``y'`` (only the stepped problems' rows are defined);
+    * ``tail``: the one-problem tail of one problem's carry."""
+    spec = fl.spec_for(op)
+    if spec is None:
+        raise ValueError("make_fused_stepper_batched requires a fusable stencil operator")
+    prime1, _, tail = make_fused_stepper(op, kmax, dgks, STANDARD)
+
+    def prime(V, Y, k0s, scs, problems):
+        carries = {}
+        for p in problems:
+            c = prime1(V[p], k0s[p], scs[p])
+            Y[p].copy_(c.y)
+            carries[p] = c._replace(y=Y[p])
+        return carries
+
+    def advance(V, Y, carries, problems):
+        P = V.shape[0]
+        none = torch.zeros(kmax + 1, dtype=torch.float32, device=V.device)
+        kp1, fronts, rows = [0] * P, {}, [none] * P
+        for p in problems:
+            c = carries[p]
+            if c.y.data_ptr() != Y[p].data_ptr():
+                raise ValueError(f"problem {p}: its y is not row {p} of the batch's y buffer")
+            fronts[p] = _step_coeffs(c.r, c.d, c.rp, c.q, c.sc, c.k, dgks)
+            csub, lam = fronts[p][0], fronts[p][1]
+            rows[p] = torch.cat([csub, lam[None]])
+            kp1[p] = c.k + 1
+        G = torch.stack(rows)
+        # live rows: B = k + 1 = kp1 for every problem
+        Yn, raw = fl.fused_step_batched(V, Y, G, kp1, kp1, spec, with_drift=dgks,
+                                        active=problems)
+        out = {}
+        for p in problems:
+            c = carries[p]
+            csub, lam, hcol, alpha, sc = fronts[p]
+            rn, dn, rpn, qn = _unpack_raw(raw[p], c.k + 1, kmax, dgks)
+            beta = torch.sqrt(qn)
+            sc = _append_row(sc, c.k, beta, csub, lam, dgks)
+            out[p] = (FusedCarry(V[p], Yn[p], rn, dn, rpn, qn, sc, c.k + 1), alpha, beta, hcol)
+        return Yn, out
+
+    return prime, advance, tail
+
+
+def fused_expansions_batched(op, V, states, scales, m: int, btol: float, dgks: bool = False):
+    """:func:`fused_expansions` (Hermitian) of every problem in ``states``
+    (``{p: KrylovState}``, ``states[p].V`` the row ``V[p]`` of the batch's
+    basis ``V (P, m + 1, R, 128)``; ``scales`` ``{p: FusedScales}``) at
+    once: each problem expands from its own ``k`` to ``m`` as its own solve
+    would, and leaves the launches when its solve would stop (frozen, as a
+    vmapped ``while_loop`` selects a finished problem's old carry).  A step
+    reads one ``(problems,)`` list of ``‖R_k‖`` from the device and makes one
+    batched kernel launch.  Returns ``({p: KrylovState}, {p: FusedScales},
+    {p: numops increment})``."""
+    problems = sorted(states)
+    kmax = m + 1
+    prime, advance, tail = make_fused_stepper_batched(op, kmax, dgks)
+    Y = torch.empty((V.shape[0],) + tuple(V.shape[2:]), dtype=V.dtype, device=V.device)
+    carries = prime(V, Y, {p: states[p].k for p in problems}, scales, problems)
+    H = {p: states[p].H for p in problems}
+    go = {}
+    stepping = problems
+    while stepping:
+        qnorms = torch.stack([torch.sqrt(carries[p].q) for p in stepping]).tolist()
+        nxt = []
+        for p, qn in zip(stepping, qnorms):
+            if carries[p].k < m - 1 and qn > btol:
+                nxt.append(p)
+            else:
+                go[p] = carries[p].k == m - 1 and qn > btol
+        if not nxt:
+            break
+        Y, outs = advance(V, Y, carries, nxt)
+        for p in nxt:
+            c, alpha, beta_k, _ = outs[p]
+            H[p] = _h_column(H[p], carries[p].k, alpha, beta_k)
+            carries[p] = c
+        stepping = nxt
+    new_states, new_scales, dops = {}, {}, {}
+    for p in problems:
+        c = carries[p]
+        k = c.k
+        Vp, sc, alpha, beta_m, _ = tail(c, go[p])
+        if go[p]:
+            H[p] = _h_column(H[p], k, alpha, beta_m)
+            beta_out = beta_m
+        else:
+            beta_out = torch.sqrt(c.q)
+        new_states[p] = KrylovState(Vp, H[p], k + int(go[p]),
+                                    beta_out.to(states[p].beta.dtype))
+        new_scales[p] = sc
+        dops[p] = (k - states[p].k) + 1
+    return new_states, new_scales, dops

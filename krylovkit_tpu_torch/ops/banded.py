@@ -81,8 +81,10 @@ def banded_spmv(x: torch.Tensor, diags: torch.Tensor, offsets: Tuple[int, ...],
     ``n`` entries per offset (``(nδ, R, 128)`` in :class:`BandedOperator`).
 
     A CUDA tensor runs the kernel of ``csrc/banded_spmv.cu`` (``x`` and
-    ``diags`` both float32 or both float64); a CPU tensor (or a ``meta`` one,
-    to infer the result type) runs :func:`banded_spmv_reference`.  A tensor
+    ``diags`` both float32 or both float64); a CPU tensor runs
+    :func:`banded_spmv_reference`, and a ``meta`` one (a dtype probe) gets an
+    empty ``meta`` result of the promoted type, whatever device ``diags``
+    lies on.  A tensor
     that requires grad or is wrapped by ``torch.func`` is refused
     (``_build.refuse_autograd``): :class:`BandedOperator` differentiates its
     planes through the plain version (``with_tensors(..., plain=True)``)."""
@@ -90,7 +92,9 @@ def banded_spmv(x: torch.Tensor, diags: torch.Tensor, offsets: Tuple[int, ...],
     offsets = tuple(int(d) for d in offsets)
     if x.numel() != n:
         raise ValueError(f"vector of {x.numel()} entries for an n={n} banded operator")
-    if x.device.type in ("cpu", "meta"):
+    if x.device.type == "meta":
+        return torch.empty(x.shape, dtype=torch.promote_types(diags.dtype, x.dtype), device="meta")
+    if x.device.type == "cpu":
         return banded_spmv_reference(x, diags, offsets, n)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
@@ -183,6 +187,9 @@ class BandedOperator(LinearOperator):
     def _matvec(self, x: torch.Tensor) -> torch.Tensor:
         # mixed precisions compute in the wider type, as the plain version does
         dt = torch.promote_types(self.diags.dtype, x.dtype)
+        if x.device.type == "meta":
+            # a dtype probe: no planes are read, wherever they lie
+            return torch.empty(x.shape, dtype=dt, device="meta")
         if dt.is_complex or self.plain:
             # the TPU kernel takes no complex planes: the JAX package applies
             # them by XLA's shift-and-add (``_pallas_ok`` is false), whose

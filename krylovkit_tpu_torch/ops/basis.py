@@ -14,6 +14,9 @@ kernel ``csrc/transform.cu`` (the port of the TPU kernel
 :func:`transform_partial_inplace_reference` sits beside it and serves CPU
 tensors.  :func:`transform_partial` decides per leaf: an eligible leaf
 runs the kernel, any other the plain product.
+:func:`transform_partial_inplace_batched` rotates ``P`` bases ``(P, kmax,
+R, 128)``, each by its own ``U``, in one launch (the TPU kernel under
+``jax.vmap``); its plain version loops the one-problem one.
 
 With the module flag :data:`use_pallas_projections` on, :func:`project` and
 :func:`unproject` (given ``k``) send an eligible basis to the live-row
@@ -48,6 +51,8 @@ __all__ = [
     "transform_rung",
     "transform_partial_inplace",
     "transform_partial_inplace_reference",
+    "transform_partial_inplace_batched",
+    "transform_partial_inplace_batched_reference",
     "append_scaled",
     "mask_coeffs",
     "gram",
@@ -257,6 +262,8 @@ def _lib():
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.kk_transform_partial.argtypes = [p, p, ll, ll, i, ll, i, i, p]
         lib.kk_transform_partial.restype = i
+        lib.kk_transform_partial_batched.argtypes = [p, p, ll, ll, ll, i, ll, i, i, i, p, p]
+        lib.kk_transform_partial_batched.restype = i
         lib.kk_transform_rung.argtypes = [i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
         lib.kk_transform_rung.restype = None
         _transform_lib = lib
@@ -322,6 +329,80 @@ def transform_partial_inplace(V: torch.Tensor, U: torch.Tensor,
     )
     _build.check(lib, status, "transform_partial")
     _build.launches["transform_partial"] += 1
+    return V
+
+
+# problems one batched launch takes (csrc/transform.cu kMaxProblems); the
+# wrapper launches a longer list in chunks of this many
+TRANSFORM_MAX_BATCH = 64
+
+
+def _batched_args(V, U, m_out: int, active):
+    P, kmax = V.shape[0], V.shape[1]
+    active = list(range(P)) if active is None else [int(p) for p in active]
+    if V.ndim < 2 or U.shape != (P, kmax, kmax) or not 0 < m_out <= kmax:
+        raise ValueError(f"bad shapes: V {tuple(V.shape)}, U {tuple(U.shape)}, m_out {m_out}")
+    if not active or len({*active}) != len(active) or not all(0 <= p < P for p in active):
+        raise ValueError(f"transform_partial_inplace_batched: active problems {active} of {P}")
+    if torch.is_complex(U):
+        raise ValueError("transform_partial_inplace_batched needs real rotations U")
+    return active
+
+
+def transform_partial_inplace_batched_reference(V: torch.Tensor, U: torch.Tensor, m_out: int,
+                                                active=None) -> torch.Tensor:
+    """Plain version of the batched rotation:
+    :func:`transform_partial_inplace_reference` of ``V[p]`` by ``U[p]`` for
+    each active ``p``; the other bases are not touched."""
+    for p in _batched_args(V, U, m_out, active):
+        transform_partial_inplace_reference(V[p], U[p], m_out)
+    return V
+
+
+def transform_partial_inplace_batched(V: torch.Tensor, U: torch.Tensor, m_out: int,
+                                      active=None) -> torch.Tensor:
+    """``V[p, :m_out] ← (U[p]ᵀ V[p])[:m_out]`` in place for each ``p`` in
+    ``active`` (default: all), one launch for all (``V (P, kmax, R, 128)``,
+    ``U (P, kmax, kmax)``, one ``m_out`` for all).  Each problem is rotated
+    bit for bit as :func:`transform_partial_inplace` rotates it: rows ``>=
+    m_out`` stay bit-identical, and so does a basis whose ``U`` is the
+    identity.  The bases of inactive problems are not touched.
+
+    A CUDA tensor runs ``kk_transform_partial_batched`` of
+    ``csrc/transform.cu`` (float32 or bfloat16, :data:`TRANSFORM_MAX_BATCH`
+    problems a launch); a CPU tensor runs
+    :func:`transform_partial_inplace_batched_reference`."""
+    _build.refuse_autograd("transform_partial_batched", V, U)
+    active = _batched_args(V, U, m_out, active)
+    if V.device.type == "cpu":
+        return transform_partial_inplace_batched_reference(V, U, m_out, active)
+    if V.device.type != "cuda":
+        raise ValueError(f"unsupported device {V.device}")
+    if V.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"the CUDA transform kernel takes float32 or bfloat16, got {V.dtype}")
+    if not V.is_contiguous() or not _leaf_ok(V[0]):
+        raise ValueError(f"the CUDA transform kernel needs contiguous (P, kmax <= "
+                         f"{TRANSFORM_MAX_KMAX}, R % 8 == 0, 128) bases, got {tuple(V.shape)}")
+    kmax = V.shape[1]
+    ncols = V[0, 0].numel()
+    _, cols = transform_rung(kmax, V.dtype)
+    if ncols % 4 != 0 or ncols % cols != 0 or V.data_ptr() % 16 != 0:
+        raise ValueError(f"the CUDA transform kernel needs 16-byte aligned rows, got ncols {ncols}")
+    if V.dtype == torch.bfloat16:
+        U = U.to(device=V.device, dtype=torch.bfloat16)
+    if U.device != V.device or U.dtype != torch.float32:
+        U = U.to(device=V.device, dtype=torch.float32)
+    lib = _lib()
+    stream = torch.cuda.current_stream(V.device).cuda_stream
+    for c0 in range(0, len(active), TRANSFORM_MAX_BATCH):
+        part = (ctypes.c_int * len(active[c0:c0 + TRANSFORM_MAX_BATCH]))(
+            *active[c0:c0 + TRANSFORM_MAX_BATCH])
+        status = lib.kk_transform_partial_batched(
+            V.data_ptr(), U.data_ptr(), U.stride(0), U.stride(1), U.stride(2), kmax, ncols,
+            m_out, int(V.dtype == torch.bfloat16), len(part), part, stream,
+        )
+        _build.check(lib, status, "transform_partial_batched")
+        _build.launches["transform_partial_batched"] += 1
     return V
 
 

@@ -19,6 +19,13 @@ over ranks (``parallel/``) gives both the rows beyond its shard instead:
 at the ends of the chain), where the unsplit vector has zeros.  ``y`` and
 ``y'`` are separate buffers.  Stored basis rows are raw residuals; their
 scales are carried by the driver (``factorizations/krylov.py:FusedScales``).
+
+:func:`fused_step_batched` is the step of ``P`` problems at once (the TPU
+kernel under ``jax.vmap``): ``V (P, kmax, R, 128)``, ``y (P, R, 128)``,
+``g (P, kmax + 1)``, a ``B`` and a ``kp1`` per problem, and the list of the
+problems that step; one launch of ``kk_fused_step_batched`` runs them all.
+Its plain version :func:`fused_step_batched_reference` loops
+:func:`fused_step_reference` over them.
 """
 
 from __future__ import annotations
@@ -46,6 +53,8 @@ __all__ = [
     "plan_step",
     "fused_step",
     "fused_step_reference",
+    "fused_step_batched",
+    "fused_step_batched_reference",
 ]
 
 
@@ -319,6 +328,10 @@ def plan_step(R: int, B: int, h: int, with_drift: bool, sms: int) -> StepPlan:
 _fused_lib = None
 _taps_cache: dict = {}
 _scratch: dict = {}
+_batch_scratch: dict = {}
+# problems one batched launch takes (csrc/fused_lanczos.cu kMaxProblems); the
+# wrapper launches a longer list in chunks of this many
+MAX_BATCH = 64
 
 
 def _lib():
@@ -328,6 +341,9 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.kk_fused_step.argtypes = [p] * 9 + [i] * 9 + [p, p, p] + [i] * 8 + [p]
         lib.kk_fused_step.restype = i
+        lib.kk_fused_step_batched.argtypes = (
+            [p] * 7 + [i] * 3 + [p] * 3 + [i] * 7 + [p] * 3 + [i] * 8 + [p])
+        lib.kk_fused_step_batched.restype = i
         _fused_lib = lib
     return _fused_lib
 
@@ -414,4 +430,118 @@ def fused_step(V, y, g, kp1: int, B: int, spec: StencilSpec,
     )
     _build.check(lib, status, "fused_step")
     _build.launches["fused_step"] += 1
+    return ynext, raw
+
+
+def _batch_args(V, y, g, kp1, B, active):
+    """Problem count, per-problem ``kp1``/``B`` lists and the active list
+    of a batched step; ints broadcast over the problems."""
+    P = V.shape[0]
+    kp1 = [int(kp1)] * P if isinstance(kp1, int) else [int(v) for v in kp1]
+    B = [int(B)] * P if isinstance(B, int) else [int(v) for v in B]
+    active = list(range(P)) if active is None else [int(p) for p in active]
+    if (V.ndim != 4 or y.shape != (P,) + tuple(V.shape[2:]) or g.shape != (P, V.shape[1] + 1)
+            or len(kp1) != P or len(B) != P):
+        raise ValueError(
+            f"fused_step_batched shapes: V {tuple(V.shape)}, y {tuple(y.shape)}, "
+            f"g {tuple(g.shape)}, {len(kp1)} kp1 and {len(B)} B for {P} problems"
+        )
+    if not active or len(set(active)) != len(active) or not all(0 <= p < P for p in active):
+        raise ValueError(f"fused_step_batched: active problems {active} of {P}")
+    return P, kp1, B, active
+
+
+def fused_step_batched_reference(V, y, g, kp1, B, spec: StencilSpec,
+                                 with_drift: bool = False, active=None):
+    """Plain version of the batched step: :func:`fused_step_reference` on
+    each active problem ``p`` (``V[p]``, ``y[p]``, ``g[p]``, ``kp1[p]``,
+    ``B[p]``).  Returns ``(y_next (P, R, 128), raw (P, width))`` with
+    ``width`` the longest ``raw`` of the active problems; a problem's row is
+    zero beyond its own ``raw`` and every row of an inactive problem is
+    zero, and its basis is not touched."""
+    P, kp1, B, active = _batch_args(V, y, g, kp1, B, active)
+    width = max(_raw_len(B[p], with_drift) for p in active)
+    ynext = torch.zeros_like(y)
+    raw = torch.zeros((P, width), dtype=torch.float32, device=V.device)
+    for p in active:
+        yn, r = fused_step_reference(V[p], y[p], g[p], kp1[p], B[p], spec, with_drift)
+        ynext[p] = yn
+        raw[p, :r.numel()] = r
+    return ynext, raw
+
+
+def _batch_scratch_for(device: torch.device, floats: int):
+    """Per device: partials of a batched launch (grown to ``floats``) and
+    :data:`MAX_BATCH` arrival counters (zeroed once; every launch leaves
+    them zero).  One stream at a time may use them."""
+    entry = _batch_scratch.get(device)
+    if entry is None or entry[0].numel() < floats:
+        counters = (entry[1] if entry is not None
+                    else torch.zeros(MAX_BATCH, dtype=torch.int32, device=device))
+        entry = (torch.empty(floats, dtype=torch.float32, device=device), counters)
+        _batch_scratch[device] = entry
+    return entry
+
+
+def fused_step_batched(V, y, g, kp1, B, spec: StencilSpec, with_drift: bool = False,
+                       active=None):
+    """The fused step of the problems in ``active`` (default: all) in one
+    launch.  ``V (P, kmax, R, 128)``, ``y (P, R, 128)``, ``g (P, kmax + 1)``;
+    ``kp1`` and ``B`` are an int each per problem (or one int for all).
+    Writes ``V[p, kp1[p]] = w'_p`` in place for each active ``p`` and
+    returns ``(y_next (P, R, 128), raw (P, width))``: problem ``p``'s
+    entries are :func:`fused_step`'s at ``(kp1[p], B[p])``, ``raw`` padded
+    with zeros to the longest of the active problems; the entries of an
+    inactive problem are undefined and its rows of ``V`` are not touched.
+
+    A CUDA tensor runs ``kk_fused_step_batched`` of
+    ``csrc/fused_lanczos.cu`` with the plan of the largest ``B`` (where all
+    ``B`` are equal, each problem's results are a one-problem launch's, bit
+    for bit), :data:`MAX_BATCH` problems a launch; a CPU tensor runs
+    :func:`fused_step_batched_reference`.  No external halos: a sharded
+    space is not batched."""
+    _build.refuse_autograd("fused_step_batched", V, y, g)
+    if V.device.type == "cpu":
+        return fused_step_batched_reference(V, y, g, kp1, B, spec, with_drift, active)
+    if V.device.type != "cuda":
+        raise ValueError(f"unsupported device {V.device}")
+    P, kp1, B, active = _batch_args(V, y, g, kp1, B, active)
+    kmax, R = V.shape[1], V.shape[2]
+    for p in active:
+        _check(V[p], y[p], g[p], kp1[p], B[p], with_drift, spec)
+        if kp1[p] < B[p]:
+            raise ValueError(f"the CUDA fused step needs kp1 >= B (problem {p}: "
+                             f"B={B[p]}, kp1={kp1[p]})")
+    for name, t in (("V", V), ("y", y), ("g", g)):
+        if t.device != V.device or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"fused_step_batched needs {name} as contiguous float32 on {V.device}")
+    if V.data_ptr() % 16 or y.data_ptr() % 16:
+        raise ValueError("fused_step_batched needs V and y on 16-byte boundaries")
+    Bmax = max(B[p] for p in active)
+    width = max(_raw_len(B[p], with_drift) for p in active)
+    lib = _lib()
+    sms = _device_scratch(V.device)[0]
+    plan = plan_step(R, Bmax, spec.h, bool(with_drift), sms)
+    chunk = min(len(active), MAX_BATCH)
+    partials, counters = _batch_scratch_for(V.device, chunk * plan.nblocks * width)
+    ynext = torch.empty_like(y)
+    raw = torch.empty((P, width), dtype=torch.float32, device=V.device)
+    coef, offs, dxs = _host_taps(spec)
+    stream = torch.cuda.current_stream(V.device).cuda_stream
+    for c0 in range(0, len(active), MAX_BATCH):
+        part = active[c0:c0 + MAX_BATCH]
+        ps = np.asarray(part, np.int32)
+        Bs = np.asarray([B[p] for p in part], np.int32)
+        ks = np.asarray([kp1[p] for p in part], np.int32)
+        status = lib.kk_fused_step_batched(
+            V.data_ptr(), y.data_ptr(), ynext.data_ptr(), g.data_ptr(),
+            partials.data_ptr(), raw.data_ptr(), counters.data_ptr(), kmax, R, len(part),
+            ps.ctypes.data, Bs.ctypes.data, ks.ctypes.data, Bmax, width, int(with_drift),
+            spec.h, spec.gc, spec.mrow, len(spec.taps),
+            coef.ctypes.data, offs.ctypes.data, dxs.ctypes.data,
+            plan.T, plan.P, plan.NSR, plan.NR, int(plan.reread), plan.run,
+            plan.nblocks, plan.smem_bytes, stream,
+        )
+        _build.check(lib, status, "fused_step_batched")
+        _build.launches["fused_step_batched"] += 1
     return ynext, raw

@@ -404,9 +404,10 @@ def probe_dtype(op: LinearOperator, x0) -> torch.dtype:
     ``src/apply.jl:26-36``), from one application to a ``meta`` copy of
     ``x0``: no arithmetic, and no count in ``numops``.  Operators that hold
     their data (a matrix, banded or ELL planes) or state their type
-    (:class:`TypedOperator`) answer without an apply.  A callable that mixes
-    the meta copy with tensors it holds cannot run on it; it is applied once
-    to a zero vector instead (still not counted)."""
+    (:class:`TypedOperator`) answer without an apply, and a
+    :class:`ParametricOperator` runs on meta copies of its parameters too.
+    A callable that mixes the meta copy with tensors it holds cannot run on
+    it; it is applied once to a zero vector instead (still not counted)."""
     from .banded import BandedOperator
     from .sparse import ELLOperator
 
@@ -419,9 +420,26 @@ def probe_dtype(op: LinearOperator, x0) -> torch.dtype:
         out = torch.promote_types(op.vals.dtype, xdt)
     elif isinstance(op, TypedOperator):
         out = op.dtype
+    elif isinstance(op, ParametricOperator):
+        out = scalartype(_probe_parametric(op, x0))
     else:
         out = scalartype(_probe_apply(op.normal, x0))
     return torch.promote_types(out, xdt)
+
+
+def _meta(l):
+    return torch.empty_like(l, device="meta") if isinstance(l, torch.Tensor) else l
+
+
+def _probe_parametric(op: "ParametricOperator", x0):
+    """``apply_fn`` on ``meta`` copies of both the parameters and ``x0``:
+    the parameters are the tensors a :class:`ParametricOperator` mixes with
+    the vector, so the probe runs no arithmetic.  A function that still
+    cannot run on meta tensors takes :func:`_probe_apply`."""
+    try:
+        return op.apply_fn(tree_map(_meta, op.params), tree_map(_meta, x0))
+    except (RuntimeError, NotImplementedError):
+        return _probe_apply(op.normal, x0)
 
 
 def _probe_apply(fn, x0):
@@ -429,7 +447,7 @@ def _probe_apply(fn, x0):
     runs on a meta copy of ``x0``, or, when it holds tensors of its own, once
     on a zero vector."""
     try:
-        return fn(tree_map(lambda l: torch.empty_like(l, device="meta"), x0))
+        return fn(tree_map(_meta, x0))
     except (RuntimeError, NotImplementedError):
         return tree_map(lambda l: l.to("meta"), fn(zerovector(x0)))
 

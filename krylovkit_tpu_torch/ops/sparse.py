@@ -59,6 +59,10 @@ class ELLOperator(LinearOperator):
         return ELLOperator(self.cols, tensors[0], self.n_cols, adj=adj)
 
     def _matvec(self, x: torch.Tensor) -> torch.Tensor:
+        if x.device.type == "meta":
+            # a dtype probe: no planes are read, wherever they lie
+            dt = torch.promote_types(self.vals.dtype, x.dtype)
+            return torch.empty(self.cols.shape[0], dtype=dt, device="meta")
         g = torch.index_select(x.reshape(-1), 0, self.cols.reshape(-1)).reshape(self.cols.shape)
         return torch.sum(self.vals * g, dim=1)
 

@@ -1,0 +1,516 @@
+"""Batched solves: ``P`` problems in one host loop (the counterpart of
+``jax.vmap`` over the JAX package's ``eigsolve_lanczos`` and
+``linsolve_gmres``).
+
+The JAX drivers are single ``lax.while_loop`` nests, so ``jax.vmap`` batches
+them: every problem runs its own solve, a problem that has stopped keeps its
+carry (the vmapped loop selects the old one) while the others go on, and the
+fused Lanczos step and the restart rotation run as one batched kernel
+launch.  The port's one-problem drivers are host loops over ``int`` counts,
+which ``torch.func.vmap`` cannot batch, so the loops here are written out
+with a problem axis:
+
+* each problem carries its own ``k``, counts, convergence state and
+  :class:`~..factorizations.krylov.FusedScales`, and gives the counts and the
+  values of its own one-problem solve (to float rounding);
+* a stopped problem is frozen: its basis, projected matrix and counts never
+  change again;
+* the host reads one list of the active problems' loop scalars per step;
+* the projected problems (``_process``, the Givens QR, the triangular
+  solve) run per problem through the one-problem functions;
+* on a fusable stencil operator with ``(R, 128)`` float32 vectors, each
+  step is one batched K1 launch for every problem that steps
+  (``ops/fused_lanczos.py:fused_step_batched``), and each Lanczos restart
+  and the extraction one batched K2 launch
+  (``ops/basis.py:transform_partial_inplace_batched``), a problem that is
+  not restarting taking the identity.
+
+Which arguments carry the problem axis is stated by ``in_dims`` (``0`` or
+``None`` per argument, as ``vmap``'s ``in_dims``), never guessed from
+shapes: an ``(R, 128)`` vector is 2-D itself.  A batched operator is a
+sequence of ``P`` operators; ``P`` :class:`~..ops.operator.MatrixOperator`
+of one shape apply as one ``torch.matmul`` over their ``(P, n, n)`` stack.
+Pytree vectors, sharded spaces, ``eager``, selective reorthogonalization and
+differentiation are not batched (``ValueError``).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from ..algorithms import GMRES, Lanczos
+from ..dense.triangular import solve_upper_active
+from ..factorizations import krylov as kf
+from ..info import EACHITERATION, STARTSTOP, ConvergenceInfo, log_if, warn_if
+from ..ops import basis as bs
+from ..ops import orthonormal as on
+from ..ops.operator import LinearOperator, MatrixOperator, as_operator, probe_dtype
+from ..ops.vector import STANDARD, VectorSpace, add, astype, device_of, rounded, scalartype
+from .gmres import _qr_update
+from .lanczos import _LoopState, _arrowhead, _process, _restart_rotation
+
+__all__ = ["eigsolve_lanczos_batched", "linsolve_gmres_batched"]
+
+
+def _in_dims(in_dims, names):
+    dims = tuple(in_dims)
+    if len(dims) != len(names) or any(d not in (0, None) for d in dims) or 0 not in dims:
+        raise ValueError(
+            f"in_dims must give 0 or None for each of {names}, at least one 0; got {in_dims}")
+    return dims
+
+
+def _tensors_only(what: str, vectors):
+    for v in vectors:
+        if not isinstance(v, torch.Tensor):
+            raise ValueError(f"{what}: pytree vectors are not batched; give tensors with a "
+                             "leading problem axis")
+
+
+def _refuse(what: str, vectors, ops, space: VectorSpace, scalars=()):
+    """The pieces this module does not batch, each named."""
+    _tensors_only(what, vectors)
+    if space.psum_axis is not None:
+        raise ValueError(f"{what}: a sharded space (VectorSpace(psum_axis=...)) is not batched")
+    tensors = list(vectors) + [t for op in ops for t in op.tensors()]
+    tensors += [a for a in scalars if isinstance(a, torch.Tensor)]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise ValueError(f"{what}: differentiation through a batched solve is not batched; "
+                         "solve the problems one by one")
+
+
+class _Operators:
+    """The operator of each of ``P`` problems, applied to the vectors of a
+    set of problems at once: one shared operator, or one per problem (``P``
+    matrices of one shape as one ``torch.matmul`` over their stack)."""
+
+    def __init__(self, op, P: int, batched: bool):
+        if batched:
+            if isinstance(op, (LinearOperator, torch.Tensor)) or len(op) != P:
+                raise ValueError(f"a batched operator is a sequence of {P} operators")
+            self.ops = [as_operator(o) for o in op]
+        else:
+            self.ops = [as_operator(op)] * P
+        self.stack = None
+        As = [o.A for o in self.ops] if batched else []
+        if As and all(type(o) is MatrixOperator for o in self.ops) and all(
+                A.shape == As[0].shape and A.dtype == As[0].dtype and A.device == As[0].device
+                for A in As):
+            self.stack = torch.stack(As)
+
+    def distinct(self):
+        return list({id(o): o for o in self.ops}.values())
+
+    def __call__(self, xs: dict) -> dict:
+        """``{p: A_p x_p}`` for the vectors ``xs = {p: x_p}``."""
+        if self.stack is not None and all(x.ndim == 1 for x in xs.values()):
+            x0 = next(iter(xs.values()))
+            dt = torch.promote_types(self.stack.dtype, x0.dtype)
+            none = torch.zeros(self.stack.shape[2], dtype=dt, device=x0.device)
+            X = torch.stack([xs[p].to(dt) if p in xs else none for p in range(len(self.ops))])
+            Y = torch.matmul(self.stack.to(dt), X[:, :, None])[:, :, 0]
+            return {p: Y[p] for p in xs}
+        return {p: self.ops[p].normal(x) for p, x in xs.items()}
+
+
+def _problems(x, dim, P):
+    return [x[p] if dim == 0 else x for p in range(P)]
+
+
+def _count(x, dim, name):
+    if dim is None:
+        return None
+    if not isinstance(x, (torch.Tensor, list, tuple)) or len(x) == 0:
+        raise ValueError(f"{name} has no leading problem axis")
+    return len(x)
+
+
+def _batch_size(*sizes):
+    given = {s for s in sizes if s is not None}
+    if len(given) != 1:
+        raise ValueError(f"the batched arguments disagree on the problem count: {sorted(given)}")
+    return given.pop()
+
+
+def _rotate(Vb, Us: dict, m_out: int):
+    """``V[p, :m_out] ← (V[p] @ U_p)[:m_out]`` for each ``p`` of ``Us``: one
+    batched K2 launch where the one-problem rotation takes the kernel (a
+    real ``U`` on a ``(kmax, R, 128)`` float32/bfloat16 basis), else
+    ``bs.transform_partial`` per problem."""
+    ps = sorted(Us)
+    U0 = Us[ps[0]]
+    if not torch.is_complex(U0) and bs._leaf_ok(Vb[0]):
+        none = torch.zeros_like(U0)
+        Ub = torch.stack([Us.get(p, none) for p in range(Vb.shape[0])])
+        bs.transform_partial_inplace_batched(Vb, Ub, m_out, ps)
+        return
+    for p in ps:
+        Vp = Vb[p]
+        Vnew = bs.transform_partial(Vp, Us[p], m_out)
+        if Vnew is not Vp:
+            Vp.copy_(Vnew)
+
+
+def _read(values) -> list:
+    """One host read of a list of device scalars."""
+    return torch.stack(values).tolist() if values else []
+
+
+def eigsolve_lanczos_batched(op, x0, howmany: int, which, alg: Lanczos,
+                             space: VectorSpace = STANDARD, coeff_dtype=None, *,
+                             in_dims=(None, 0)):
+    """Hermitian eigsolves of ``P`` problems, each as
+    :func:`~.lanczos.eigsolve_lanczos` solves it, in one host loop.
+
+    ``in_dims = (op_dim, x0_dim)``: ``op_dim = 0`` takes ``op`` as a
+    sequence of ``P`` operators (``None``: one shared operator);
+    ``x0_dim = 0`` takes ``x0``'s leading axis as the problem axis
+    (``None``: one shared start).  Returns ``(vals (P, howmany), vecs (P,
+    howmany, ...), info)``; ``info``'s ``converged``, ``numiter`` and
+    ``numops`` are ``(P,)`` int64 tensors and ``normres``/``residual`` carry
+    the leading ``P``, as ``jax.vmap`` returns them.  At ``WARN`` each
+    unconverged problem prints its one-problem line, in problem order."""
+    op_dim, x_dim = _in_dims(in_dims, ("op", "x0"))
+    m = alg.krylovdim
+    if howmany > m:
+        raise ValueError(f"howmany={howmany} exceeds krylovdim={m}; enlarge krylovdim")
+    if isinstance(which, str) and which.upper() in ("LI", "SI"):
+        raise ValueError(
+            "which=:LI/:SI invalid for Hermitian eigsolve (real spectrum) — "
+            "reference src/eigsolve/eigsolve.jl:209-236"
+        )
+    if getattr(alg, "reorth", "full") == "selective":
+        raise ValueError("eigsolve_lanczos_batched: Lanczos(reorth='selective') is not batched")
+    if alg.eager:
+        raise ValueError("eigsolve_lanczos_batched: Lanczos(eager=True) is not batched")
+    _tensors_only("eigsolve_lanczos_batched", [x0])
+    P = _batch_size(_count(op, op_dim, "op"), _count(x0, x_dim, "x0"))
+    ops = _Operators(op, P, op_dim == 0)
+    _refuse("eigsolve_lanczos_batched", [x0], ops.distinct(), space)
+    x0s = _problems(x0, x_dim, P)
+    cdt = coeff_dtype or functools.reduce(
+        torch.promote_types, [probe_dtype(o, x0s[0]) for o in ops.distinct()])
+    rdt = cdt.to_real()
+    tol = alg.tol
+    btol = float(torch.tensor(torch.finfo(rdt).eps, dtype=rdt) ** 0.75)
+    dev = device_of(x0s[0])
+    promote = cdt.is_complex and not scalartype(x0s[0]).is_complex
+    vdt = cdt if promote else scalartype(x0s[0])
+
+    # one basis for all problems; each problem's factorization holds its row
+    Vb = torch.zeros((P, m + 1) + tuple(x0s[0].shape), dtype=vdt, device=dev)
+    st = {}
+    for p in range(P):
+        f0 = kf.initialize(x0s[p], 0, cdt, space, vec_dtype=cdt if promote else None,
+                           verbosity=alg.verbosity)
+        Vb[p, 0] = f0.V[0]
+        fact = kf.KrylovState(Vb[p], torch.zeros((m + 1, m + 1), dtype=cdt, device=dev), 0,
+                              f0.beta)
+        st[p] = _LoopState(
+            fact=fact, numiter=0, numops=0, nconv=0,
+            vals=torch.zeros(m + 1, dtype=rdt, device=dev),
+            U=torch.zeros((m + 1, m + 1), dtype=cdt, device=dev),
+            resnorms=torch.full((m + 1,), float("inf"), dtype=rdt, device=dev),
+            sc=kf.fused_scales_init(m + 1, device=dev),
+        )
+
+    dgks = type(alg.orth) is on.ClassicalGramSchmidt2 and 2 * (m + 1) + 2 <= 128
+    fused = (
+        op_dim is None
+        and (type(alg.orth) is on.ClassicalGramSchmidt or dgks)
+        and cdt == torch.float32
+        and kf.fused_available(ops.ops[0], x0s[0], space, kmax=m + 1)
+    )
+    keep_max = min((3 * m + 2 * max(howmany - 1, 0)) // 5, m - 1)
+
+    active = list(range(P))
+    while active:
+        facts = {p: st[p].fact for p in active}
+        numops = {p: st[p].numops for p in active}
+        scs = {p: st[p].sc for p in active}
+        if fused:
+            facts, scs, dops = kf.fused_expansions_batched(
+                ops.ops[0], Vb, facts, scs, m, btol, dgks=dgks)
+            for p in active:
+                numops[p] += dops[p]
+        else:
+            stepping = active
+            while True:
+                cand = [p for p in stepping if facts[p].k < m]
+                betas = _read([facts[p].beta for p in cand])
+                stepping = [p for p, b in zip(cand, betas) if b > btol]
+                if not stepping:
+                    break
+                W = ops({p: facts[p].V[facts[p].k] for p in stepping})
+                for p in stepping:
+                    facts[p] = kf.expand_hermitian(lambda _v, w=W[p]: w, facts[p], alg.orth,
+                                                   space, verbosity=alg.verbosity)
+                    numops[p] += 1
+
+        rotations, finished = {}, []
+        for p in active:
+            fact = facts[p]
+            nconv, vals, U, res = _process(fact.H, fact.k, fact.beta, which, tol, howmany)
+            full = fact.k >= m
+            numiter = st[p].numiter + int(full)
+            stalled = not (float(fact.beta) > btol) and fact.k < m
+            done = nconv >= howmany or (full and numiter >= alg.maxiter) or stalled
+            keep = min(max((3 * m + 2 * nconv) // 5, 1), max(fact.k - 1, 1))
+            restart_now = not done and fact.k >= m
+            # every processing but the last restarts; the last one runs the
+            # identity rotation (the JAX package's masked restart)
+            rotations[p] = _restart_rotation(fact.H, fact.k, U, keep, gate=restart_now,
+                                             scales=scs[p].L if fused else None)
+            sc = scs[p]
+            if restart_now:
+                fact = kf.KrylovState(fact.V, _arrowhead(fact.H, fact.k, vals, U, fact.beta, keep),
+                                      keep, fact.beta)
+                sc = kf.fused_scales_init(m + 1, H=fact.H if fused else None, device=dev)
+            log_if(
+                alg.verbosity, EACHITERATION,
+                "Lanczos eigsolve in iteration {it}: {nc} values converged, "
+                "normres = {nr}",
+                it=numiter, nc=nconv, nr=res[:howmany],
+            )
+            st[p] = _LoopState(fact, numiter, numops[p], nconv, vals, U, res, sc)
+            if done:
+                finished.append(p)
+        # rows < keep_max + 1 survive (kept Ritz vectors + relocated residual)
+        _rotate(Vb, rotations, keep_max + 1)
+        active = [p for p in active if p not in finished]
+
+    # --- extract results ---
+    m1 = m + 1
+    rows = torch.arange(m1, device=dev)[:, None]
+    cols = torch.arange(m1, device=dev)[None, :]
+    extract, residuals = {}, []
+    for p in range(P):
+        s_, fact = st[p], st[p].fact
+        k = fact.k
+        Umask = torch.where((rows < k) & (cols < howmany), s_.U,
+                            torch.zeros((), dtype=s_.U.dtype, device=dev))
+        extract[p] = kf.fold_scales(s_.sc, Umask)
+        # V[k] (the residual direction) before the in-place rotation
+        vk = bs.unproject_bucketed(fact.V, s_.sc.L[:, k].to(cdt), k + 1)
+        # residual vectors r_i = β·U[k-1,i]·V[k]
+        s = fact.beta * s_.U[max(k - 1, 0)]
+        residuals.append(s[:howmany].reshape((howmany,) + (1,) * vk.ndim) * vk[None])
+    _rotate(Vb, extract, howmany)
+    vecs = Vb[:, :howmany].clone()
+    conv, iters = [], []
+    for p in range(P):
+        s_ = st[p]
+        nconv_out = min(s_.nconv, howmany)
+        numiter_out = max(s_.numiter, 1)
+        conv.append(nconv_out)
+        iters.append(numiter_out)
+        log_if(
+            alg.verbosity, STARTSTOP,
+            "Lanczos eigsolve finished after {it} iterations: {nc} values "
+            "converged, numops = {no}, normres = {nr}",
+            it=numiter_out, nc=nconv_out, no=s_.numops, nr=s_.resnorms[:howmany],
+        )
+    for p in range(P):
+        warn_if(
+            alg.verbosity, conv[p] < howmany,
+            "Lanczos eigsolve stopped without convergence: {nc} of "
+            f"{howmany} values converged " + "after {it} iterations",
+            nc=conv[p], it=iters[p],
+        )
+    info = ConvergenceInfo(
+        converged=torch.tensor(conv, dtype=torch.int64, device=dev),
+        residual=torch.stack(residuals),
+        normres=torch.stack([st[p].resnorms[:howmany] for p in range(P)]),
+        numiter=torch.tensor(iters, dtype=torch.int64, device=dev),
+        numops=torch.tensor([st[p].numops for p in range(P)], dtype=torch.int64, device=dev),
+    )
+    return torch.stack([st[p].vals[:howmany] for p in range(P)]), vecs, info
+
+
+def linsolve_gmres_batched(op, b, x0, a0, a1, alg: GMRES, space: VectorSpace = STANDARD, *,
+                           in_dims=(None, 0, 0)):
+    """Restarted GMRES(m) solves of ``P`` systems ``(a0 + a1·A_p) x_p =
+    b_p``, each as :func:`~.gmres.linsolve_gmres` solves it, in one host
+    loop.  ``in_dims = (op_dim, b_dim, x0_dim)`` as in
+    :func:`eigsolve_lanczos_batched`; ``a0`` and ``a1`` are shared.  Every
+    problem starts a cycle at ``k = 0``, so the problems of a cycle step
+    together, and a problem leaves the cycle's launches when its own cycle
+    ends.  Returns ``(x (P, ...), info)`` with ``(P,)`` counts."""
+    op_dim, b_dim, x_dim = _in_dims(in_dims, ("op", "b", "x0"))
+    m = alg.krylovdim
+    _tensors_only("linsolve_gmres_batched", [b, x0])
+    P = _batch_size(_count(op, op_dim, "op"), _count(b, b_dim, "b"), _count(x0, x_dim, "x0"))
+    ops = _Operators(op, P, op_dim == 0)
+    _refuse("linsolve_gmres_batched", [b, x0], ops.distinct(), space, (a0, a1))
+    bs_, xs = _problems(b, b_dim, P), _problems(x0, x_dim, P)
+    dev = device_of(bs_[0])
+    cdt = functools.reduce(torch.promote_types, [probe_dtype(o, bs_[0]) for o in ops.distinct()])
+    for a in (a0, a1):
+        cdt = torch.result_type(torch.empty((), dtype=cdt), a)
+    rdt = cdt.to_real()
+    tol = rounded(alg.tol, rdt)
+    a0c = torch.as_tensor(a0, dtype=cdt, device=dev)
+    a1c = torch.as_tensor(a1, dtype=cdt, device=dev)
+
+    def residuals(ps):
+        """``b_p − (a0·x_p + a1·A_p x_p)`` for the problems ``ps``."""
+        Ax = ops({p: x[p] for p in ps})
+        return {p: astype(add(bs_[p], a0c * x[p] + a1c * Ax[p], a=-1), cdt) for p in ps}
+
+    def onehot(i: int):
+        e = torch.zeros(m + 1, dtype=cdt, device=dev)
+        e[i] = 1
+        return e
+
+    x = {p: astype(xs[p], cdt) for p in range(P)}
+    r = residuals(range(P))
+    normr = {p: space.norm(r[p]) for p in range(P)}
+
+    dgks = type(alg.orth) is on.ClassicalGramSchmidt2 and 2 * (m + 1) + 2 <= 128
+    fused = (
+        op_dim is None
+        and (type(alg.orth) is on.ClassicalGramSchmidt or dgks)
+        and cdt == torch.float32
+        and kf.fused_available(ops.ops[0], bs_[0], space, kmax=m + 1)
+    )
+    numiter, numops = [0] * P, [1] * P
+
+    def start(p, rows: int):
+        """The cycle's basis of ``rows`` rows from ``r/‖r‖`` and its QR
+        state, as the one-problem ``start``."""
+        fact = kf.initialize(r[p], rows - 1, cdt, space, vec_dtype=cdt)
+        G = torch.eye(m + 1, dtype=cdt, device=dev)
+        R = torch.zeros((m + 1, m + 1), dtype=cdt, device=dev)
+        return fact, G, R, normr[p].to(cdt) * onehot(0)
+
+    def cycle_unfused(active):
+        facts, G, R, y = {}, {}, {}, {}
+        for p in active:
+            facts[p], G[p], R[p], y[p] = start(p, m + 1)
+        stepping = active
+        while True:
+            cand = [p for p in stepping if facts[p].k < m]
+            res = _read([torch.abs(y[p][facts[p].k]) for p in cand])
+            stepping = [p for p, v in zip(cand, res) if v > tol]
+            if not stepping:
+                break
+            W = ops({p: facts[p].V[facts[p].k] for p in stepping})
+            for p in stepping:
+                k = facts[p].k  # column index produced by this step
+                facts[p] = kf.expand(lambda _v, w=W[p]: w, facts[p], alg.orth, space, alg.verbosity)
+                col = a1c * facts[p].H[:, k] + a0c * onehot(k)
+                G[p], R[p], y[p] = _qr_update(G[p], R[p], y[p], col, k)
+                numops[p] += 1
+        ident = kf.fused_scales_init(m + 1, device=dev)
+        return {p: (facts[p].V, ident, G[p], R[p], y[p], facts[p].k) for p in active}
+
+    Vb = None
+    if fused:
+        Vb = torch.zeros((P, m + 1) + tuple(bs_[0].shape), dtype=cdt, device=dev)
+        prime, advance, tail = kf.make_fused_stepper_batched(ops.ops[0], m + 1, dgks)
+        btol = float(torch.tensor(torch.finfo(rdt).eps, dtype=rdt) ** 0.75)
+
+    def cycle_fused(active):
+        """The fused cycle of :func:`~.gmres.linsolve_gmres` for every active
+        problem: one batched K1 launch per step for the problems whose
+        cycle goes on."""
+        kmax = m + 1
+        G, R, yt = {}, {}, {}
+        for p in active:
+            f0, G[p], R[p], yt[p] = start(p, 1)
+            Vb[p].zero_()
+            Vb[p, 0] = f0.V[0]
+        Y = torch.empty((P,) + tuple(Vb.shape[2:]), dtype=Vb.dtype, device=dev)
+        carries = prime(Vb, Y, {p: 0 for p in active},
+                        {p: kf.fused_scales_init(kmax, device=dev) for p in active}, active)
+        go = {}
+        for p in active:
+            numops[p] += 1  # priming apply
+
+        def shifted_col(h, beta_k, k):
+            return a1c * (h.to(cdt) + beta_k.to(cdt) * onehot(k + 1)) + a0c * onehot(k)
+
+        stepping = active
+        while stepping:
+            vals = _read([torch.stack([torch.abs(yt[p][carries[p].k]), torch.sqrt(carries[p].q)])
+                          for p in stepping])
+            nxt = []
+            for p, (resk, qnorm) in zip(stepping, vals):
+                live = resk > tol and qnorm > btol
+                if carries[p].k < m - 1 and live:
+                    nxt.append(p)
+                else:
+                    # tail column m-1: no (wasted) next apply
+                    go[p] = carries[p].k == m - 1 and live
+            if not nxt:
+                break
+            Y, outs = advance(Vb, Y, carries, nxt)
+            for p in nxt:
+                k = carries[p].k
+                carries[p], _, beta_k, h = outs[p]
+                G[p], R[p], yt[p] = _qr_update(G[p], R[p], yt[p], shifted_col(h, beta_k, k), k)
+                numops[p] += 1
+            stepping = nxt
+        out = {}
+        for p in active:
+            k = carries[p].k
+            V, sc, _, beta_m, h = tail(carries[p], go[p])
+            if go[p]:
+                G[p], R[p], yt[p] = _qr_update(G[p], R[p], yt[p], shifted_col(h, beta_m, k), k)
+                k += 1
+            out[p] = (V, sc, G[p], R[p], yt[p], k)
+        return out
+
+    run_cycle = cycle_fused if fused else cycle_unfused
+    nr = _read([normr[p] for p in range(P)])
+    active = [p for p in range(P) if not nr[p] <= tol]
+    while active:
+        cycles = run_cycle(active)
+        for p in active:
+            V, sc, G, R, yv, k = cycles[p]
+            # triangular solve on the active k×k block
+            coeff = solve_upper_active(R[:m, :m], yv[:m], k)
+            coeff = torch.cat([coeff, torch.zeros(1, dtype=cdt, device=dev)])
+            x[p] = add(x[p], bs.unproject(V, kf.fold_scales(sc, coeff)))
+            # residual reconstruction: r = V · (Gᴴ e_k · ỹ_k)
+            yk = yv[k]
+            rc = torch.conj(G.T) @ (yk * onehot(k))
+            r[p] = bs.unproject(V, kf.fold_scales(sc, rc))
+            normr[p] = torch.abs(yk)
+            numiter[p] += 1
+        nrs = dict(zip(active, _read([normr[p] for p in active])))
+        verify = [p for p in active if nrs[p] <= tol]
+        if verify:
+            # true-residual verification on apparent convergence
+            r.update(residuals(verify))
+            for p in verify:
+                normr[p] = space.norm(r[p])
+                numops[p] += 1
+            nrs.update(zip(verify, _read([normr[p] for p in verify])))
+        active = [p for p in active if not (nrs[p] <= tol or numiter[p] >= alg.maxiter)]
+
+    conv_tol = _read([normr[p] for p in range(P)])
+    conv = [int(v <= tol) for v in conv_tol]
+    for p in range(P):
+        log_if(
+            alg.verbosity, STARTSTOP,
+            "GMRES linsolve finished after {it} restarts: converged = {c}, "
+            "normres = {nr}, numops = {no}",
+            it=numiter[p], c=conv[p], nr=normr[p], no=numops[p],
+        )
+    for p in range(P):
+        warn_if(
+            alg.verbosity, conv[p] == 0,
+            "GMRES linsolve stopped without converging after {it} iterations: "
+            "normres = {nr}", it=numiter[p], nr=normr[p],
+        )
+    info = ConvergenceInfo(
+        converged=torch.tensor(conv, dtype=torch.int64, device=dev),
+        residual=torch.stack([r[p] for p in range(P)]),
+        normres=torch.stack([normr[p] for p in range(P)]),
+        numiter=torch.tensor(numiter, dtype=torch.int64, device=dev),
+        numops=torch.tensor(numops, dtype=torch.int64, device=dev),
+    )
+    return torch.stack([x[p] for p in range(P)]), info

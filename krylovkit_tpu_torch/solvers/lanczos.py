@@ -53,32 +53,29 @@ def _process(H, k: int, beta, which, tol: float, howmany: int):
     return nconv, w, U, res
 
 
-def _restart(fact: kf.KrylovState, vals, U, beta, keep: int, keep_max: int,
-             gate=None, scales=None) -> kf.KrylovState:
-    """Thick restart to an arrowhead factorization of size ``keep``.
-
-    With ``gate`` false the rotation is the identity and ``H``/``k`` keep
-    their values: the transform still runs, as in the JAX package's masked
-    restart, and leaves the basis bit-identical."""
-    V, H, k = fact.V, fact.H, fact.k
+def _restart_rotation(H, k: int, U, keep: int, gate=None, scales=None):
+    """The rotation of a thick restart to ``keep`` Ritz vectors, acting on
+    the stored rows; the identity where ``gate`` is false."""
     m1 = H.shape[0]
     dev = H.device
+    if gate is not None and not gate:
+        return torch.eye(m1, dtype=U.dtype, device=dev)
     rows = torch.arange(m1, device=dev)[:, None]
     cols = torch.arange(m1, device=dev)[None, :]
     Ukeep = torch.where((cols < keep) & (rows < k), U, torch.zeros((), dtype=U.dtype, device=dev))
     Ukeep[k, keep] += 1
     if scales is not None:
         # stored rows are unnormalized (v_j = Σ_i L[i,j]·row_i): the rotation
-        # acting on stored rows is L·U, applied before the identity gate so a
-        # gated-off restart keeps the raw rows
+        # acting on stored rows is L·U
         Ukeep = scales.to(U.dtype) @ Ukeep
-    if gate is not None and not gate:
-        Ukeep = torch.eye(m1, dtype=U.dtype, device=dev)
-    # rows < keep_max + 1 survive (kept Ritz vectors + relocated residual)
-    Vnew = bs.transform_partial(V, Ukeep, keep_max + 1)
-    if gate is not None and not gate:
-        return kf.KrylovState(Vnew, H, k, beta)
-    # arrowhead H: diag(θ) + spike row s[j] = β·conj(U[k-1, j]) and its mirror
+    return Ukeep
+
+
+def _arrowhead(H, k: int, vals, U, beta, keep: int):
+    """The restarted projected matrix: ``diag(θ)`` plus the spike row
+    ``s[j] = β·conj(U[k-1, j])`` and its mirror."""
+    m1 = H.shape[0]
+    dev = H.device
     s = (beta * torch.conj(U[max(k - 1, 0)])).to(H.dtype)
     didx = torch.arange(m1, device=dev)
     zero = torch.zeros((), dtype=H.dtype, device=dev)
@@ -86,7 +83,22 @@ def _restart(fact: kf.KrylovState, vals, U, beta, keep: int, keep_max: int,
     spike = torch.where(didx < keep, s, zero)
     Hnew[keep, :] += spike
     Hnew[:, keep] += torch.conj(spike)
-    return kf.KrylovState(Vnew, Hnew, keep, beta)
+    return Hnew
+
+
+def _restart(fact: kf.KrylovState, vals, U, beta, keep: int, keep_max: int,
+             gate=None, scales=None) -> kf.KrylovState:
+    """Thick restart to an arrowhead factorization of size ``keep``.
+
+    With ``gate`` false the rotation is the identity and ``H``/``k`` keep
+    their values: the transform still runs, as in the JAX package's masked
+    restart, and leaves the basis bit-identical."""
+    Ukeep = _restart_rotation(fact.H, fact.k, U, keep, gate, scales)
+    # rows < keep_max + 1 survive (kept Ritz vectors + relocated residual)
+    Vnew = bs.transform_partial(fact.V, Ukeep, keep_max + 1)
+    if gate is not None and not gate:
+        return kf.KrylovState(Vnew, fact.H, fact.k, beta)
+    return kf.KrylovState(Vnew, _arrowhead(fact.H, fact.k, vals, U, beta, keep), keep, beta)
 
 
 @dataclass

@@ -802,3 +802,126 @@ def test_sharded_ad_small_width_on_card():
     launches = sharded_ad(torch, np, kt, _build, "card test", N=256)
     assert launches["linsolve"]["forward"].get("fused_step", 0) > 0
     assert launches["eig_sylvester_proj"]["forward"].get("project", 0) > 0
+
+
+# batched K1: (kind, B, with_drift) at equal B = kp1 for every problem
+BATCHED_K1_CASES = [(kind, B, drift) for kind in ("chain", "grid") for B in (1, 16, 30)
+                    for drift in (False, True)]
+
+
+def _batched_inputs(kind, P, kmax, seed):
+    op, R = _fused_op(kind, None)
+    gen = _gen(seed)
+    V = torch.randn((P, kmax, R, 128), generator=gen, device="cuda")
+    y = torch.randn((P, R, 128), generator=gen, device="cuda")
+    g = torch.randn((P, kmax + 1), generator=gen, device="cuda")
+    return fl.spec_for(op), V, y, g
+
+
+@pytest.mark.parametrize("kind,B,with_drift", BATCHED_K1_CASES)
+def test_batched_fused_step_is_one_problem_launches_bit_for_bit(kind, B, with_drift):
+    """Batched K1 with every active problem at the same ``B = kp1``: each
+    problem's new row, ``y'`` and ``raw`` bit-identical to a one-problem
+    launch, within the one-problem tolerance of the plain version; the
+    inactive problem's rows untouched; one count of
+    ``fused_step_batched``."""
+    P, kmax = 4, 31
+    spec, V, y, g = _batched_inputs(kind, P, kmax, 100 + B)
+    active = [0, 2, 3]
+    Vb = V.clone()
+    before = _build.launches["fused_step_batched"]
+    yb, rb = fl.fused_step_batched(Vb, y, g, B, B, spec, with_drift, active)
+    assert _build.launches["fused_step_batched"] == before + 1
+    Vr = V.clone()
+    yr, rr = fl.fused_step_batched_reference(Vr, y, g, B, B, spec, with_drift, active)
+    torch.cuda.synchronize()
+    assert torch.equal(Vb[1], V[1])
+    for p in active:
+        V1 = V[p].clone()
+        y1, r1 = fl.fused_step(V1, y[p], g[p], B, B, spec, with_drift)
+        assert torch.equal(Vb[p], V1) and torch.equal(yb[p], y1) and torch.equal(rb[p], r1)
+        sc = float(yr[p].abs().max())
+        assert float((Vb[p, B] - Vr[p, B]).abs().max()) <= 2e-4 * sc
+        assert float((yb[p] - yr[p]).abs().max()) <= 2e-4 * sc
+        torch.testing.assert_close(rb[p], rr[p], rtol=2e-4, atol=2e-3 * V.shape[2] ** 0.5)
+
+
+@pytest.mark.parametrize("kind", ["chain", "grid"])
+def test_batched_fused_step_with_mixed_live_rows_matches_plain(kind):
+    """Batched K1 with a ``B``/``kp1`` per problem (the plan and ``KACC`` of
+    the largest ``B``): each problem within the one-problem tolerance of the
+    plain version, its other rows bit-identical, its ``raw`` zero beyond its
+    own length; the inactive problem untouched."""
+    P, kmax = 5, 31
+    spec, V, y, g = _batched_inputs(kind, P, kmax, 7)
+    B, kp1, active = [30, 4, 0, 19, 12], [30, 6, 0, 19, 12], [0, 1, 2, 3]
+    Vb = V.clone()
+    yb, rb = fl.fused_step_batched(Vb, y, g, kp1, B, spec, True, active)
+    Vr = V.clone()
+    yr, rr = fl.fused_step_batched_reference(Vr, y, g, kp1, B, spec, True, active)
+    torch.cuda.synchronize()
+    assert torch.equal(Vb[4], V[4])
+    for p in active:
+        k = kp1[p]
+        assert torch.equal(Vb[p, :k], V[p, :k]) and torch.equal(Vb[p, k + 1:], V[p, k + 1:])
+        sc = float(yr[p].abs().max())
+        assert float((Vb[p, k] - Vr[p, k]).abs().max()) <= 2e-4 * sc
+        assert float((yb[p] - yr[p]).abs().max()) <= 2e-4 * sc
+        n = 2 * B[p] + 2
+        torch.testing.assert_close(rb[p, :n], rr[p, :n], rtol=2e-4, atol=2e-3 * V.shape[2] ** 0.5)
+        assert not rb[p, n:].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_batched_transform_is_one_problem_launches_bit_for_bit(dtype):
+    """Batched K2 at ``(P, 31, 2^14, 128)``: each problem bit-identical to a
+    one-problem launch with its ``U``, rows ``>= m_out`` untouched, an
+    identity ``U`` leaves its basis bit-identical, the inactive problem
+    untouched; one count of ``transform_partial_batched``."""
+    P, kmax, R, m_out = 4, 31, 1 << 14 >> 7, 20
+    gen = _gen(11)
+    V = torch.randn((P, kmax, R, 128), generator=gen, device="cuda").to(dtype)
+    U = torch.randn((P, kmax, kmax), generator=gen, device="cuda") / kmax ** 0.5
+    U[1] = torch.eye(kmax, device="cuda")
+    before = _build.launches["transform_partial_batched"]
+    Vb = bs.transform_partial_inplace_batched(V.clone(), U, m_out, active=[0, 1, 2])
+    assert _build.launches["transform_partial_batched"] == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(Vb[1], V[1]) and torch.equal(Vb[3], V[3])
+    for p in (0, 2):
+        V1 = bs.transform_partial_inplace(V[p].clone(), U[p], m_out)
+        assert torch.equal(Vb[p], V1) and torch.equal(Vb[p, m_out:], V[p, m_out:])
+
+
+def test_batched_lanczos_and_gmres_on_card_match_one_problem_solves():
+    """A small batched Lanczos eigsolve (``laplacian_1d(2^14)``, three
+    starts) and a batched fused GMRES (``poisson_2d(128, 128)``, three
+    right-hand sides) on the card: counts equal to the one-problem solves on
+    the card, values within 1e-5 relative (``x`` of its largest entry);
+    batched K1/K2 only."""
+    from krylovkit_tpu_torch.solvers.gmres import linsolve_gmres
+
+    n = 1 << 14
+    X = torch.stack([torch.from_numpy(np.random.default_rng(20 + i).standard_normal(
+        (n // 128, 128)).astype(np.float32)) for i in range(3)]).cuda()
+    op = kt.laplacian_1d(n)
+    alg = kt.Lanczos(krylovdim=20, tol=1e-3, maxiter=30)
+    _build.reset_launches()
+    vals, _, info = kt.eigsolve_lanczos_batched(op, X, 1, "LM", alg)
+    torch.cuda.synchronize()
+    assert not {"fused_step", "transform_partial"} & {k for k, v in _build.launches.items() if v}
+    assert _build.launches["fused_step_batched"] > 0
+    assert _build.launches["transform_partial_batched"] > 0
+    for p in range(3):
+        v1, _, i1 = kt.eigsolve_lanczos(op, X[p], 1, "LM", alg)
+        assert [i1.numops, i1.numiter] == [int(info.numops[p]), int(info.numiter[p])]
+        torch.testing.assert_close(vals[p], v1, rtol=1e-5, atol=0)
+    gop = kt.poisson_2d(128, 128)
+    Bs = torch.stack([torch.from_numpy((np.random.default_rng(30 + i).standard_normal(
+        (128, 128)) / 128 * (1 + i)).astype(np.float32)) for i in range(3)]).cuda()
+    galg = kt.GMRES(krylovdim=16, tol=1e-4, maxiter=10)
+    x, ginfo = kt.linsolve_gmres_batched(gop, Bs, torch.zeros_like(Bs), 0.5, 1.0, galg)
+    for p in range(3):
+        x1, i1 = linsolve_gmres(gop, Bs[p], torch.zeros_like(Bs[p]), 0.5, 1.0, galg)
+        assert [i1.numops, i1.numiter] == [int(ginfo.numops[p]), int(ginfo.numiter[p])]
+        assert float((x[p] - x1).abs().max()) <= 1e-5 * float(x1.abs().max())
