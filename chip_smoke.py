@@ -197,7 +197,21 @@ without the final ``ok`` line:
    batched K1/K2 at these widths against their plain versions and
    bit-identical to one-problem launches, ms per launch beside the
    one-problem launches' and the bound;
-31. profile (only with ``--profile``) — one more config-1 solve and one
+31. batched_linear — ``P`` linear systems in one host loop per solve:
+   CG and MINRES on config 2's banded Poisson (n = 2^20, float32, a0 = 0.5;
+   fixed work, 40 steps) for 8 right-hand sides (ones and ``ones +
+   0.05·normal``), BiCGStab on ``laplacian_1d_pallas(2^21)`` for 8 (tol
+   1e-3: every problem converged with its true residual within tol), CG on
+   4 banded Poissons with their planes scaled by ``1 + 0.1·p``; each
+   problem's counts equal to its one-problem solve's and ``x`` within
+   1e-5, each batched apply one
+   ``banded_spmv_batched`` or ``laplacian_1d_batched`` launch, each
+   problem's applies equal to its ``numops``, no one-problem K3/K4; then
+   the batched K3 (shared and per-problem planes, float32 and float64,
+   five and three offsets) and K4 against one-problem launches (bit for
+   bit) and their plain versions, warm and cold ms, the bound, the plain
+   version's and the library's ms (cuSPARSE SpMM / SpMV, cuDNN conv1d);
+32. profile (only with ``--profile``) — one more config-1 solve and one
    more fused config-4 solve under ``torch.profiler``: device busy time and idle share, device ops, host
    reads of device scalars, device time by kernel name.
 
@@ -215,7 +229,7 @@ printed as ``parent_ms`` beside ``ms`` (without it ``parent_ms`` is null).
 ``--root`` (default: this tree) and prints one JSON line.
 
 Each path (phases 5, 7, 9, 12, 13, 14, 15, 17, 18, 20, 21, 24, 25, 27,
-28, 29 and 30, one solve or iterator at a time, the forward and the backward of
+28, 29, 30 and 31, one solve or iterator at a time, the forward and the backward of
 a differentiable solve apart; in 24, 25, 27 and 29 in every rank) is
 driven with the launch counts set to 0 just before it and read just after.
 Then the kernel summary line, the ``nvidia-smi`` name/power line, and as
@@ -4594,10 +4608,379 @@ def batched_phase(torch, np, kt, _build, fl, bs, smi, n=1 << 21, nx=1024, P=8, P
     return out
 
 
+def block_banded_csr(torch, D, offsets, n):
+    """The block-diagonal matrix of ``P`` banded blocks (plane sets ``D (P,
+    nδ, ...)``) as one ``torch.sparse_csr_tensor``: the cuSPARSE yardstick of
+    the batched K3 with a plane set per problem, never called by the port."""
+    P = D.shape[0]
+    i = torch.arange(n, device=D.device)
+    cols = i[:, None] + torch.tensor(offsets, device=D.device)[None, :]
+    inside = (cols >= 0) & (cols < n)
+    vals = D.reshape(P, len(offsets), -1)[:, :, :n].transpose(1, 2)  # (P, n, nδ)
+    keep = inside[None] & (vals != 0)
+    gcols = cols[None] + (torch.arange(P, device=D.device) * n)[:, None, None]
+    crow = torch.zeros(P * n + 1, dtype=torch.int64, device=D.device)
+    crow[1:] = torch.cumsum(keep.reshape(P * n, -1).sum(1), 0)
+    return torch.sparse_csr_tensor(crow, gcols[keep], vals[keep], (P * n, P * n))
+
+
+def check_banded_batched(torch, bd, label, X, D, offsets, n, planes, flush, timed=True):
+    """Batched K3 (``planes`` None: ``D`` one plane set shared by the rows;
+    else a set per row) against one-problem launches, bit for bit, and its
+    plain version within the one-problem tolerance.  Timed: ms per batched
+    launch warm and cold, the rows' one-problem launches warm and cold, the
+    plain version, the cuSPARSE yardstick (shared: ``torch.sparse.mm`` of
+    the CSR matrix with the ``(n, P)`` block, SpMM; per problem:
+    ``torch.mv`` of the block-diagonal CSR matrix, SpMV) and the bound by
+    bytes, each input read once (shared: (nδ + 2P)·n·itemsize; per
+    problem: P·(nδ + 2)·n·itemsize)."""
+    P = X.shape[0]
+
+    def one(p):
+        return bd.banded_spmv(X[p], D if planes is None else D[planes[p]], offsets, n)
+
+    Y = bd.banded_spmv_batched(X, D, offsets, n, planes)
+    Yr = bd.banded_spmv_batched_reference(X, D, offsets, n, planes)
+    torch.cuda.synchronize()
+    same = all(torch.equal(Y[p], one(p)) for p in range(P))
+    require(same, f"banded_spmv_batched {label}: each row bit-identical to a one-problem launch")
+    scale = bd.banded_spmv_batched_reference(X.abs(), D.abs(), offsets, n, planes).clamp_min(
+        torch.finfo(X.dtype).tiny)
+    rel = float(((Y - Yr).abs() / scale).max())
+    tol = 1e-6 if X.dtype == torch.float32 else 1e-15
+    require(rel <= tol, f"banded_spmv_batched {label}: within {tol}*sum|d||x| of the plain version")
+    case = {"case": label, "P": P, "n": n, "offsets": len(offsets), "dtype": str(X.dtype),
+            "planes": "shared" if planes is None else "per_problem",
+            "max_abs_err": float((Y - Yr).abs().max()), "max_rel_err": rel,
+            "tolerance": f"{tol}*sum_p|d_p||x|", "bit_identical_to_one_problem_launches": same}
+    if not timed:
+        return case
+    nd, itemsize = len(offsets), X.element_size()
+    rate = F32_FLOP_PER_S if X.dtype == torch.float32 else F64_FLOP_PER_S
+    nbytes = ((nd + 2 * P) if planes is None else P * (nd + 2)) * n * itemsize
+    t_bound, by = bound(nbytes, 2 * nd * n * P, rate)
+    Xf = X.reshape(P, n)
+    if planes is None:
+        A = banded_csr(torch, D, offsets, n)
+        Xt = Xf.T.contiguous()
+
+        def lib():
+            return torch.sparse.mm(A, Xt)
+
+        lib_y = lib().T
+    else:
+        A = block_banded_csr(torch, D[planes], offsets, n)
+        Xv = Xf.reshape(-1)
+
+        def lib():
+            return torch.mv(A, Xv)
+
+        lib_y = lib().reshape(P, n)
+    lib_rel = float(((lib_y - Yr.reshape(P, n)).abs() / scale.reshape(P, n)).max())
+    require(lib_rel <= 10 * tol, f"banded_spmv_batched {label}: the cuSPARSE yardstick computes "
+            f"the same product ({lib_rel})")
+    case.update({
+        "ms": device_ms(torch, lambda: bd.banded_spmv_batched(X, D, offsets, n, planes)),
+        "cold_ms": cold_device_ms(torch, lambda: bd.banded_spmv_batched(X, D, offsets, n, planes),
+                                  flush),
+        "one_problem_launches_ms": device_ms(torch, lambda: [one(p) for p in range(P)]),
+        "one_problem_launches_cold_ms": cold_device_ms(torch, lambda: [one(p) for p in range(P)],
+                                                       flush),
+        "plain_ms": device_ms(torch, lambda: bd.banded_spmv_batched_reference(
+            X, D, offsets, n, planes), reps=2, batches=2),
+        "library_ms": device_ms(torch, lib), "library_rel_err": lib_rel,
+        "library": ("torch.sparse.mm(sparse_csr_tensor, (n, P) block) (cuSPARSE SpMM)"
+                    if planes is None else
+                    "torch.mv(block-diagonal sparse_csr_tensor, x) (cuSPARSE SpMV)"),
+        "bound_ms": t_bound, "bound_by": by, "bytes": nbytes,
+    })
+    return case
+
+
+def check_laplacian_batched(torch, s1, P, n, dtype, gen, flush, timed=True):
+    """Batched K4 against ``P`` one-problem launches and its plain version,
+    bit for bit.  Timed: ms per batched launch warm and cold, the ``P``
+    one-problem launches, the plain version, ``conv1d`` with ``P`` as the
+    batch (cuDNN, TF32 off) and the bound by bytes, 2·P·n·itemsize."""
+    X = torch.randn((P, n), generator=gen, device="cuda", dtype=dtype)
+    Y = s1.laplacian_1d_flat_batched(X)
+    Yr = s1.laplacian_1d_flat_batched_reference(X)
+    torch.cuda.synchronize()
+    same = all(torch.equal(Y[p], s1.laplacian_1d_flat(X[p])) for p in range(P))
+    label = f"laplacian_1d_batched P={P} n={n} {dtype}"
+    require(same and torch.equal(Y, Yr), f"{label}: bit-identical to one-problem launches and to "
+            f"the plain version")
+    case = {"P": P, "n": n, "dtype": str(dtype), "max_abs_err": float((Y - Yr).abs().max()),
+            "bit_identical_to_one_problem_launches": same, "bit_equal_plain": True}
+    if not timed:
+        return case
+    w = torch.tensor([-1.0, 2.0, -1.0], dtype=dtype, device="cuda").view(1, 1, 3)
+    Xc = X.view(P, 1, n)
+
+    def conv():
+        return torch.nn.functional.conv1d(Xc, w, padding=1)
+
+    sc = float(Yr.abs().max())
+    lib_err = float((conv().view(P, n) - Yr).abs().max())
+    tol = 1e-6 if dtype == torch.float32 else 1e-15
+    require(lib_err <= 4 * tol * sc, f"{label}: the conv1d yardstick computes the same map")
+    rate = F32_FLOP_PER_S if dtype == torch.float32 else F64_FLOP_PER_S
+    nbytes = 2 * P * n * X.element_size()
+    t_bound, by = bound(nbytes, 3 * n * P, rate)
+    case.update({
+        "ms": device_ms(torch, lambda: s1.laplacian_1d_flat_batched(X)),
+        "cold_ms": cold_device_ms(torch, lambda: s1.laplacian_1d_flat_batched(X), flush),
+        "one_problem_launches_ms": device_ms(
+            torch, lambda: [s1.laplacian_1d_flat(X[p]) for p in range(P)]),
+        "plain_ms": device_ms(torch, lambda: s1.laplacian_1d_flat_batched_reference(X), reps=3),
+        "library_ms": device_ms(torch, conv), "library_err": lib_err,
+        "library": "torch.nn.functional.conv1d, batch P (cuDNN, TF32 off)",
+        "bound_ms": t_bound, "bound_by": by, "bytes": nbytes,
+    })
+    return case
+
+
+def batched_linear_rhs(torch, np, shape, P, dev, seed=100):
+    """Phase ``batched_linear``'s right-hand sides: ``b_0 = ones`` and ``b_p =
+    ones + 0.05·normal`` from ``default_rng(seed + p)``, float32."""
+    B = torch.empty((P,) + tuple(shape), dtype=torch.float32, device=dev)
+    B[0] = 1
+    for p in range(1, P):
+        B[p] = torch.from_numpy((1 + 0.05 * np.random.default_rng(seed + p).standard_normal(shape))
+                                .astype(np.float32))
+    return B
+
+
+class ApplyRecorder:
+    """Within the block, counts the batched applies of
+    ``solvers/batched.py:_Operators.apply_stack`` that carry each problem
+    (``per_problem``) and the applies (``calls``)."""
+
+    def __init__(self, batched_mod):
+        self.cls, self.calls, self.per_problem = batched_mod._Operators, 0, {}
+
+    def __enter__(self):
+        inner = self.inner = self.cls.apply_stack
+
+        def recording(ops, X, ps):
+            self.calls += 1
+            for p in ps:
+                self.per_problem[p] = self.per_problem.get(p, 0) + 1
+            return inner(ops, X, ps)
+
+        self.cls.apply_stack = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.apply_stack = self.inner
+
+
+def batched_linear_phase(torch, np, kt, _build, bd, s1, smi, nx=1024, n1=1 << 21, P=8, PP=4,
+                         dev="cuda"):
+    """Phase ``batched_linear``: ``P`` linear systems in one host loop per
+    solve, each batched operator apply one batched K3 or K4 launch.
+
+    (a) CG on config 2's banded 1024² Poisson (planes shared by the
+    problems) with ``a0 = 0.5``; (b) MINRES on the same operator and shift;
+    (c) BiCGStab on ``laplacian_1d_pallas(n1)`` (K4) with ``a0 = 0.5``,
+    ``BiCGStab(tol=1e-3, maxiter=100)``; (d) CG on ``PP`` banded Poissons
+    whose planes are scaled by ``1 + 0.1·p`` (a plane set per problem).
+    Right-hand sides from :func:`batched_linear_rhs`.  (a), (b) and (d) run
+    fixed work (tol 1e-30, 40 steps): at tol 5e-5 the noisy right-hand
+    sides stall at the float32 floor of their true residual.  Each batched
+    solve is driven once with the launch counts set to 0 just before it and
+    read just after, its applies recorded per problem, then timed once more
+    beside the one-problem solves.  Guards: (c) every problem converged
+    with its true residual (the one-problem apply and norm) within tol, the
+    others 40 steps each; counts equal to its one-problem solve's, ``x``
+    within 1e-5 relative; on the card only the batched kernel launched,
+    once per batched apply, each problem's applies equal to its
+    ``numops``.  Then (e) the batched K3 (shared and per problem,
+    float32 and float64, config 2's five offsets and config 4's three, P =
+    8) and K4 (n = 2^21, P = 8) against one-problem launches and their plain
+    versions, timed.  ``dev="cpu"`` with small ``nx`` and ``n1`` rehearses
+    (a)-(d) with the plain versions: no launch guard, no kernel checks."""
+    from krylovkit_tpu_torch.ops.operator import apply_shifted
+    from krylovkit_tpu_torch.ops.vector import STANDARD, add
+    from krylovkit_tpu_torch.solvers import batched as batched_mod
+    from krylovkit_tpu_torch.solvers.bicgstab import linsolve_bicgstab
+    from krylovkit_tpu_torch.solvers.cg import linsolve_cg
+    from krylovkit_tpu_torch.solvers.minres import linsolve_minres
+
+    t0 = time.perf_counter()
+    card = dev != "cpu"
+    n2 = nx * nx
+    banded = kt.banded_from_coo(*poisson_coo(np, nx, np.float32), n2, device=dev)
+    scaled = [kt.BandedOperator(banded.offsets, banded.diags * (1 + 0.1 * p), n2, nnz=banded.nnz)
+              for p in range(PP)]
+    lap = kt.laplacian_1d_pallas(n1, device=dev)
+    B2 = batched_linear_rhs(torch, np, (n2 // 128, 128), P, dev)
+    B1 = batched_linear_rhs(torch, np, (n1,), P, dev)
+    quiet = {"verbosity": kt.SILENT}
+    # CG and MINRES at tol 5e-5 stall on the noisy right-hand sides at the
+    # float32 floor of their true residual (2.6e-4 and 1.4e-3 after 400
+    # iterations on an H100), so they run fixed work: tol 1e-30, 40 steps
+    fixed = {"tol": 1e-30, "maxiter": 40, **quiet}
+    paths = [
+        # (path, batched driver, one-problem driver, operator(s), op axis, B,
+        #  algorithm, kernel, applies a step)
+        ("cg_banded", kt.linsolve_cg_batched, linsolve_cg, banded, None, B2, kt.CG(**fixed),
+         "banded_spmv", 1),
+        ("minres_banded", kt.linsolve_minres_batched, linsolve_minres, banded, None, B2,
+         kt.MINRES(**fixed), "banded_spmv", 1),
+        ("bicgstab_laplacian_1d_pallas", kt.linsolve_bicgstab_batched, linsolve_bicgstab, lap,
+         None, B1, kt.BiCGStab(tol=1e-3, maxiter=100, **quiet), "laplacian_1d", 2),
+        ("cg_banded_per_problem", kt.linsolve_cg_batched, linsolve_cg, scaled, 0, B2[:PP],
+         kt.CG(**fixed), "banded_spmv", 1),
+    ]
+    out = {"launches": {}}
+    for path, batched, one, op, op_dim, B, alg, kernel, per_step in paths:
+        Pn = B.shape[0]
+        with ApplyRecorder(batched_mod) as rec:
+            (x, info), first_ms, launches = _sync_ms(
+                torch, _build, lambda: batched(op, B, torch.zeros_like(B), 0.5, 1.0, alg,
+                                               in_dims=(op_dim, 0, 0)), dev)
+        _, batched_ms, _ = _sync_ms(
+            torch, _build, lambda: batched(op, B, torch.zeros_like(B), 0.5, 1.0, alg,
+                                           in_dims=(op_dim, 0, 0)), dev)
+        ones, one_ms, one_launches = [], [], []
+        for p in range(Pn):
+            opp = op[p] if op_dim == 0 else op
+            (x1, i1), ms1, l1 = _sync_ms(torch, _build, lambda: one(
+                opp, B[p], torch.zeros_like(B[p]), 0.5, 1.0, alg), dev)
+            ones.append((x1, i1))
+            one_ms.append(ms1)
+            one_launches.append(l1)
+        true_res, x_rel, bit_equal = [], 0.0, True
+        for p, (x1, i1) in enumerate(ones):
+            opp = op[p] if op_dim == 0 else op
+            r = add(B[p], apply_shifted(opp, x[p], 0.5, 1.0), a=-1)
+            true_res.append(float(STANDARD.norm(r)))
+            x_rel = max(x_rel, float((x[p] - x1).abs().max() / x1.abs().max()))
+            bit_equal = bit_equal and bool(torch.equal(x[p], x1))
+        numops, numiter = info.numops.tolist(), info.numiter.tolist()
+        start = 2 if path.startswith("minres") else 1  # MINRES's final residual
+        least = start + per_step * max(numiter)
+        verifications = sum(numops) - start * Pn - per_step * sum(numiter)
+        rec_line = {
+            "phase": "batched_linear", "path": path, "P": Pn, "n": B[0].numel(),
+            "numops": numops, "numiter": numiter, "converged": info.converged.tolist(),
+            "one_problem_numops": [i1.numops for _, i1 in ones],
+            "one_problem_numiter": [i1.numiter for _, i1 in ones],
+            "true_residual": true_res, "tol": alg.tol, "x_max_rel_diff_one_problem": x_rel,
+            "x_bit_equal_one_problem": bit_equal, "launches": launches,
+            "batched_applies": rec.calls, "applies_per_problem": rec.per_problem,
+            "least_applies": least, "verification_applies_at_most": verifications,
+            "one_problem_launches": one_launches, "first_solve_ms": first_ms,
+            "batched_ms": batched_ms, "one_problem_ms": one_ms, "sum_one_problem_ms": sum(one_ms),
+            "nvidia_smi": smi,
+        }
+        emit(rec_line)
+        if alg.tol == fixed["tol"]:
+            require(numiter == [fixed["maxiter"]] * Pn and info.converged.tolist() == [0] * Pn,
+                    f"batched_linear {path}: fixed work, {fixed['maxiter']} steps each")
+        else:
+            require(info.converged.tolist() == [1] * Pn and max(true_res) <= alg.tol,
+                    f"batched_linear {path}: every problem converged, true residual within "
+                    f"{alg.tol} ({true_res})")
+        require(numops == [i1.numops for _, i1 in ones] and numiter == [i1.numiter for _, i1 in ones],
+                f"batched_linear {path}: counts equal to the one-problem solves")
+        require(x_rel <= 1e-5, f"batched_linear {path}: x within 1e-5 of the one-problem solves "
+                f"({x_rel})")
+        require(rec.per_problem == {p: numops[p] for p in range(Pn)}
+                and least <= rec.calls <= least + verifications,
+                f"batched_linear {path}: each problem's batched applies equal its numops, "
+                f"{least} to {least + verifications} applies ({rec.calls})")
+        if card:
+            require(launches == {f"{kernel}_batched": rec.calls},
+                    f"batched_linear {path}: one {kernel}_batched launch per batched apply, no "
+                    f"one-problem launch ({launches})")
+            require(all(l1 == {kernel: i1.numops} for l1, (_, i1) in zip(one_launches, ones)),
+                    f"batched_linear {path}: the one-problem solves launch {kernel} once per "
+                    f"apply")
+        out["launches"][path] = launches
+        del x, ones
+    del B1, B2
+    if not card:
+        return out
+
+    # (e) the batched kernels at the paths' shapes
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    flush = torch.empty(32 << 20, device="cuda")  # 128 MB, written to clear L2
+    R2 = n2 // 128
+    X = torch.randn((P, R2, 128), generator=gen, device="cuda")
+    Dsets = torch.randn((P,) + tuple(banded.diags.shape), generator=gen, device="cuda")
+    every = list(range(P))
+    tri = kt.banded_from_coo(*tridiagonal_coo(np, n2, -1.3, 2.0, -0.7, np.float32), n2)
+    k3 = [
+        check_banded_batched(torch, bd, "poisson_2d shared f32", X, banded.diags, banded.offsets,
+                             n2, None, flush),
+        check_banded_batched(torch, bd, "poisson_2d per problem f32", X, Dsets, banded.offsets,
+                             n2, every, flush),
+        check_banded_batched(torch, bd, "transport-diffusion shared f32", X, tri.diags,
+                             tri.offsets, n2, None, flush),
+        check_banded_batched(torch, bd, "transport-diffusion per problem f32", X,
+                             torch.randn((P,) + tuple(tri.diags.shape), generator=gen,
+                                         device="cuda"), tri.offsets, n2, every, flush,
+                             timed=False),
+        check_banded_batched(torch, bd, "poisson_2d shared f64", X.double(),
+                             banded.diags.double(), banded.offsets, n2, None, flush, timed=False),
+        check_banded_batched(torch, bd, "poisson_2d per problem f64", X.double(), Dsets.double(),
+                             banded.offsets, n2, every, flush, timed=False),
+        check_banded_batched(torch, bd, "transport-diffusion shared f64", X.double(),
+                             tri.diags.double(), tri.offsets, n2, None, flush, timed=False),
+        check_banded_batched(torch, bd, "transport-diffusion per problem f64", X.double(),
+                             torch.randn((P,) + tuple(tri.diags.shape), generator=gen,
+                                         device="cuda", dtype=torch.float64), tri.offsets, n2,
+                             every, flush, timed=False),
+    ]
+    del X, Dsets
+    k4 = [check_laplacian_batched(torch, s1, P, n1, torch.float32, gen, flush),
+          check_laplacian_batched(torch, s1, P, n1, torch.float64, gen, flush, timed=False)]
+    del flush
+    main3, pp3 = k3[0], k3[1]
+    L = out["launches"]
+    summary = {
+        "banded_spmv": {
+            "launches_batched_cg": L["cg_banded"].get("banded_spmv_batched", 0),
+            "launches_batched_minres": L["minres_banded"].get("banded_spmv_batched", 0),
+            "launches_batched_cg_per_problem": L["cg_banded_per_problem"].get(
+                "banded_spmv_batched", 0),
+            "ms_batched": main3["ms"], "cold_ms_batched": main3["cold_ms"],
+            "bound_ms_batched": main3["bound_ms"], "library_ms_batched": main3["library_ms"],
+            "plain_ms_batched": main3["plain_ms"],
+            "one_problem_launches_ms_batched": main3["one_problem_launches_ms"],
+            "one_problem_launches_cold_ms_batched": main3["one_problem_launches_cold_ms"],
+            "ms_batched_per_problem": pp3["ms"], "cold_ms_batched_per_problem": pp3["cold_ms"],
+            "bound_ms_batched_per_problem": pp3["bound_ms"],
+            "library_ms_batched_per_problem": pp3["library_ms"],
+            "ms_batched_config4": k3[2]["ms"], "bound_ms_batched_config4": k3[2]["bound_ms"],
+            "max_abs_err_batched": max(c["max_abs_err"] for c in k3),
+            "shapes_batched": f"P = {P}, banded poisson_2d(1024, 1024) f32, n = 2^20, 5 offsets",
+        },
+        "laplacian_1d": {
+            "launches_batched_bicgstab": L["bicgstab_laplacian_1d_pallas"].get(
+                "laplacian_1d_batched", 0),
+            "ms_batched": k4[0]["ms"], "cold_ms_batched": k4[0]["cold_ms"],
+            "bound_ms_batched": k4[0]["bound_ms"], "library_ms_batched": k4[0]["library_ms"],
+            "plain_ms_batched": k4[0]["plain_ms"],
+            "one_problem_launches_ms_batched": k4[0]["one_problem_launches_ms"],
+            "max_abs_err_batched": max(c["max_abs_err"] for c in k4),
+            "shapes_batched": f"P = {P}, n = 2^21 f32",
+        },
+    }
+    emit({"phase": "batched_linear_kernels", "banded_spmv_batched": k3,
+          "laplacian_1d_batched": k4, "summary": summary, "nvidia_smi": smi,
+          "seconds": time.perf_counter() - t0})
+    out["kernels"] = summary
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one config-1 and one config-4 solve (phase 31)")
+                    help="also profile one config-1 and one config-4 solve (phase 32)")
     ap.add_argument("--parent", metavar="DIR",
                     help="an unpacked earlier tree: time its K1 and K2 on this card as parent_ms")
     ap.add_argument("--kernel-times", action="store_true",
@@ -5483,6 +5866,11 @@ def main():
     # GMRES for 4 right-hand sides, each in one host loop
     batched = batched_phase(torch, np, kt, _build, fl, bs, smi)
 
+    # 31. batched linear solves: CG and MINRES on config 2's banded Poisson
+    # for 8 right-hand sides (batched K3), BiCGStab on the 1-D Laplacian
+    # (batched K4), CG on 4 banded operators (a plane set per problem)
+    batched_lin = batched_linear_phase(torch, np, kt, _build, bd, s1, smi)
+
     def slice11(name):
         """The launches per rank of ``name`` in phase 29's passes."""
         return {"launches_sharded_ad_per_rank": {
@@ -5595,6 +5983,7 @@ def main():
             **slice8("banded_spmv"),
             **slice10("banded_spmv"),
             **slice11("banded_spmv"),
+            **batched_lin["kernels"]["banded_spmv"],
         },
         {
             "name": "laplacian_1d", "route": "cuda",
@@ -5608,6 +5997,7 @@ def main():
             "shapes": "n = 2^21 f32; launches over the config-2 BiCGStab solve",
             **slice10("laplacian_1d"),
             **slice11("laplacian_1d"),
+            **batched_lin["kernels"]["laplacian_1d"],
         },
         {
             "name": "project", "route": "cuda",

@@ -29,6 +29,7 @@ __all__ = [
     "stencil_from_arrays",
     "grid_stencil_from_arrays",
     "banded_from_arrays",
+    "banded_batch_from_arrays",
     "ell_from_arrays",
     "matrix_from_numpy",
     "matrices_from_numpy",
@@ -89,6 +90,15 @@ def banded_from_arrays(offsets, diags, n, adj_offsets=None, adj_diags=None,
     if adj_offsets is not None:
         adj = BandedOperator(adj_offsets, torch.as_tensor(np.array(adj_diags), device=dev), n)
     return BandedOperator(offsets, torch.as_tensor(np.array(diags), device=dev), n, adj=adj)
+
+
+def banded_batch_from_arrays(offsets, diags, n, device="cuda") -> list:
+    """One :class:`BandedOperator` per plane set of the stack ``diags``
+    (``(P, nδ, R, 128)``, e.g. the numpy planes of a JAX ``BandedOperator``
+    batched under ``jax.vmap``), all with ``offsets``: the batched operator
+    of ``solvers/batched_linsolve.py`` (``in_dims`` 0), whose equal offsets
+    let it apply every problem's planes in one launch."""
+    return [banded_from_arrays(offsets, d, n, device=device) for d in np.asarray(diags)]
 
 
 def ell_from_arrays(cols, vals, n_cols, adj_cols=None, adj_vals=None,

@@ -42,12 +42,29 @@ def log_if(verbosity: int, level: int, fmt: str, **kw):
         print(fmt.format(**{k: _host(v) for k, v in kw.items()}))
 
 
+def _per_problem(v) -> bool:
+    return isinstance(v, (list, tuple)) or (isinstance(v, torch.Tensor) and v.ndim >= 1)
+
+
 def warn_if(verbosity: int, cond, fmt: str, **kw):
     """Print ``fmt`` when ``cond`` holds and ``verbosity >= WARN``
     (reference ``@warn``).  ``cond`` is read on the host only when the
-    verbosity asks for the message."""
-    if verbosity >= WARN and bool(cond):
-        print(fmt.format(**{k: _host(v) for k, v in kw.items()}))
+    verbosity asks for the message.
+
+    A batched solve gives ``cond`` as a sequence (or 1-D tensor), one entry
+    per problem: one line is printed per problem where it holds, in problem
+    order, each with that problem's entry of every value given as a
+    sequence, as the JAX package's ``warn_if`` prints under ``vmap``."""
+    if verbosity < WARN:
+        return
+    if not _per_problem(cond):
+        if bool(cond):
+            print(fmt.format(**{k: _host(v) for k, v in kw.items()}))
+        return
+    for i, c in enumerate(cond):
+        if bool(c):
+            print(fmt.format(**{k: _host(v[i] if _per_problem(v) else v)
+                                for k, v in kw.items()}))
 
 
 class ConvergenceInfo(NamedTuple):
@@ -68,9 +85,10 @@ class ConvergenceInfo(NamedTuple):
     numops: int
 
     def __repr__(self):
+        # a batched solve's counts are (P,) tensors, printed as arrays
         return (
-            f"ConvergenceInfo: {int(self.converged)} converged value(s) after "
-            f"{int(self.numiter)} iteration(s) and {int(self.numops)} "
+            f"ConvergenceInfo: {_host(self.converged)} converged value(s) after "
+            f"{_host(self.numiter)} iteration(s) and {_host(self.numops)} "
             f"applications of the linear map; norms of residuals are "
             f"{_host(self.normres)!s}."
         )

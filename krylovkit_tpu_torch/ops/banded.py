@@ -18,6 +18,13 @@ kernel reads ``x`` from global memory and takes any offset in ``(-n, n)``,
 any ``n``, float32 or float64.  Complex planes or vectors are outside the
 TPU kernel, and :class:`BandedOperator` applies them with the plain version
 on every device, as the JAX package sends them to XLA.
+
+:func:`banded_spmv_batched` is the product for the rows of a stack of ``P``
+vectors in one launch (``kk_banded_spmv_batched``, the TPU kernel under
+``jax.vmap``), with one plane set shared by every row or one per row, each
+row bit-identical to a :func:`banded_spmv` launch on it; its plain version
+:func:`banded_spmv_batched_reference` is the one-vector plain version's
+arithmetic on the stack.
 """
 
 from __future__ import annotations
@@ -38,6 +45,8 @@ __all__ = [
     "banded_from_coo",
     "banded_from_dense",
     "banded_spmv",
+    "banded_spmv_batched",
+    "banded_spmv_batched_reference",
     "banded_spmv_reference",
     "ell_to_banded",
 ]
@@ -46,6 +55,8 @@ LANES = 128
 # offsets the kernel takes (csrc/banded_spmv.cu kMaxOffsets), the default
 # ``max_offsets`` of banded_from_coo
 MAX_OFFSETS = 128
+# rows one batched launch takes (csrc/banded_spmv.cu kMaxRows)
+MAX_ROWS = 64
 
 
 def banded_spmv_reference(x: torch.Tensor, diags: torch.Tensor, offsets, n: int) -> torch.Tensor:
@@ -60,6 +71,29 @@ def banded_spmv_reference(x: torch.Tensor, diags: torch.Tensor, offsets, n: int)
     return y.reshape(x.shape)
 
 
+def _plane_sets(diags: torch.Tensor, nd: int, planes):
+    """``diags`` as ``(sets, nd, L)``: one shared set (``planes`` None) or
+    the leading axis of a per-row stack."""
+    if planes is None:
+        return diags.reshape(1, nd, -1)
+    return diags.reshape(diags.shape[0], nd, -1)
+
+
+def banded_spmv_batched_reference(X: torch.Tensor, diags: torch.Tensor, offsets, n: int,
+                                  planes=None) -> torch.Tensor:
+    """Plain version of the batched SpMV: :func:`banded_spmv_reference`'s
+    operations on every row of ``X`` at once, so each row is bit-identical
+    to it.  ``planes`` as in :func:`banded_spmv_batched`."""
+    rows = X.shape[0]
+    Xf = X.reshape(rows, n)
+    D = _plane_sets(diags, len(offsets), planes)
+    D = D[:, :, :n] if planes is None else D[torch.as_tensor(planes, device=D.device), :, :n]
+    Y = torch.zeros((rows, n), dtype=torch.promote_types(diags.dtype, X.dtype), device=X.device)
+    for p, d in enumerate(offsets):
+        Y = Y + D[:, p] * _shift_flat(Xf, d)
+    return Y.reshape(X.shape)
+
+
 _spmv_lib = None
 
 
@@ -70,6 +104,8 @@ def _lib():
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.kk_banded_spmv.argtypes = [p, p, p, ll, ll, i, p, i, p]
         lib.kk_banded_spmv.restype = i
+        lib.kk_banded_spmv_batched.argtypes = [p, p, p, ll, ll, ll, ll, ll, i, p, i, p, i, p]
+        lib.kk_banded_spmv_batched.restype = i
         _spmv_lib = lib
     return _spmv_lib
 
@@ -129,6 +165,72 @@ def banded_spmv(x: torch.Tensor, diags: torch.Tensor, offsets: Tuple[int, ...],
     _build.check(lib, status, "banded_spmv")
     _build.launches["banded_spmv"] += 1
     return y.reshape(x.shape)
+
+
+def banded_spmv_batched(X: torch.Tensor, diags: torch.Tensor, offsets: Tuple[int, ...],
+                        n: int, planes=None) -> torch.Tensor:
+    """:func:`banded_spmv` of each row of the stack ``X`` (``(rows, ...)``,
+    ``n`` entries a row); the result has ``X``'s shape.  ``planes`` None:
+    ``diags`` is one plane set (as :func:`banded_spmv` takes it) shared by
+    every row.  Else ``diags`` stacks plane sets along a leading axis
+    (``(sets, nδ, R, 128)``) and row ``r`` takes set ``planes[r]``.
+
+    A CUDA tensor runs ``kk_banded_spmv_batched`` of ``csrc/banded_spmv.cu``
+    (real float32 or float64, :data:`MAX_ROWS` rows a launch), each row
+    bit-identical to a :func:`banded_spmv` launch on it; a CPU tensor runs
+    :func:`banded_spmv_batched_reference`, a ``meta`` one gets an empty
+    result.  Refuses what :func:`banded_spmv` refuses."""
+    _build.refuse_autograd("banded_spmv_batched", X, diags)
+    offsets = tuple(int(d) for d in offsets)
+    rows, nd = X.shape[0], len(offsets)
+    if X.numel() != rows * n:
+        raise ValueError(f"rows of {X.numel() // max(rows, 1)} entries for an n={n} banded "
+                         "operator")
+    if planes is not None and len(planes) != rows:
+        raise ValueError(f"{len(planes)} plane sets named for {rows} rows")
+    if X.device.type == "meta":
+        return torch.empty(X.shape, dtype=torch.promote_types(diags.dtype, X.dtype), device="meta")
+    if X.device.type == "cpu":
+        return banded_spmv_batched_reference(X, diags, offsets, n, planes)
+    if X.device.type != "cuda":
+        raise ValueError(f"unsupported device {X.device}")
+    if torch.is_complex(X) or torch.is_complex(diags):
+        raise ValueError("the CUDA banded SpMV takes real float32/float64 planes; "
+                         "BandedOperator applies complex ones with banded_spmv_reference")
+    if X.dtype not in (torch.float32, torch.float64) or diags.dtype != X.dtype:
+        raise ValueError(f"the CUDA banded SpMV needs X and diags both float32 or both "
+                         f"float64, got {X.dtype} and {diags.dtype}")
+    D = _plane_sets(diags, nd, planes)
+    ld = D.shape[2]
+    vec = 16 // X.element_size()
+    if (diags.device != X.device or not diags.is_contiguous() or ld < n or ld % vec
+            or diags.data_ptr() % 16 or nd > MAX_OFFSETS
+            or (planes is not None and not all(0 <= s < D.shape[0] for s in planes))):
+        raise ValueError(
+            f"the CUDA banded SpMV needs contiguous, 16-byte aligned planes on {X.device}, "
+            f"one per offset (at most {MAX_OFFSETS}), each of at least n entries and a "
+            f"multiple of {vec}; got {tuple(diags.shape)} for {nd} offsets, n={n}"
+        )
+    Xf = X.reshape(rows, n)
+    if Xf.stride(1) != 1:
+        Xf = Xf.contiguous()
+    ldy = -(-n // vec) * vec
+    Y = torch.empty((rows, ldy), dtype=X.dtype, device=X.device)
+    offs = np.asarray(offsets, np.int32)
+    ldp = 0 if planes is None else nd * ld
+    lib = _lib()
+    stream = torch.cuda.current_stream(X.device).cuda_stream
+    for r0 in range(0, rows, MAX_ROWS):
+        r1 = min(rows, r0 + MAX_ROWS)
+        sets = None if planes is None else np.asarray(planes[r0:r1], np.int32)
+        status = lib.kk_banded_spmv_batched(
+            Xf[r0].data_ptr(), diags.data_ptr(), Y[r0].data_ptr(), n, Xf.stride(0), ldy, ld,
+            ldp, r1 - r0, None if sets is None else sets.ctypes.data, nd, offs.ctypes.data,
+            int(X.dtype == torch.float64), stream,
+        )
+        _build.check(lib, status, "banded_spmv_batched")
+        _build.launches["banded_spmv_batched"] += 1
+    return Y[:, :n].reshape(X.shape)
 
 
 @dataclasses.dataclass(frozen=True)

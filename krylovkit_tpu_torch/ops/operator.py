@@ -40,6 +40,7 @@ __all__ = [
     "as_generalized_pair",
     "concrete_start",
     "apply_shifted",
+    "apply_shifted_batched",
     "probe_dtype",
     "probe_adjoint",
     "require_adjoint",
@@ -151,15 +152,16 @@ class TypedOperator(LinearOperator):
 
 
 def _shift_flat(xf: torch.Tensor, d: int) -> torch.Tensor:
-    """``out[i] = xf[i + d]`` for ``0 <= i + d < n``, else 0."""
-    n = xf.shape[0]
+    """``out[..., i] = xf[..., i + d]`` for ``0 <= i + d < n``, else 0,
+    along the last axis (a flat vector, or each row of a stack)."""
+    n = xf.shape[-1]
     out = torch.zeros_like(xf)
     if abs(d) >= n:
         return out
     if d >= 0:
-        out[: n - d] = xf[d:]
+        out[..., : n - d] = xf[..., d:]
     else:
-        out[-d:] = xf[: n + d]
+        out[..., -d:] = xf[..., : n + d]
     return out
 
 
@@ -399,6 +401,14 @@ def apply_shifted(op: LinearOperator, x, a0, a1):
     return tree_map(lambda lx, la: a0 * lx + a1 * la, x, op(x))
 
 
+def apply_shifted_batched(apply: Callable, X: torch.Tensor, a0, a1) -> torch.Tensor:
+    """``a0·X + a1·A(X)`` for a ``(P, ...)`` stack ``X``, where ``apply``
+    maps the stack to its rows' images (a batched operator apply); ``a0``
+    and ``a1`` are shared by the rows and enter as in
+    :func:`apply_shifted`, so each row is that function's result on it."""
+    return a0 * X + a1 * apply(X)
+
+
 def probe_dtype(op: LinearOperator, x0) -> torch.dtype:
     """Scalar type of the problem (reference ``apply_scalartype``,
     ``src/apply.jl:26-36``), from one application to a ``meta`` copy of
@@ -481,7 +491,7 @@ def require_adjoint(op: LinearOperator, x_template, space=None) -> LinearOperato
     banded operator's adjoint is exact and unchecked."""
     if op.adjoint is None:
         return op.with_adjoint_from(x_template)
-    if type(op) is LinearOperator:
+    if type(op) is LinearOperator or getattr(type(op), "pair_from_caller", False):
         check_adjoint_compatibility(op, x_template, space)
     return op
 

@@ -33,7 +33,9 @@ __all__ = [
     "STANDARD",
     "REAL",
     "inner",
+    "inner_batched",
     "norm",
+    "norm_batched",
     "scale",
     "add",
     "zerovector",
@@ -155,6 +157,23 @@ def inner(x, y, space: VectorSpace = STANDARD) -> torch.Tensor:
 
 def norm(x, space: VectorSpace = STANDARD) -> torch.Tensor:
     return space.norm(x)
+
+
+def inner_batched(X: torch.Tensor, Y: torch.Tensor, space: VectorSpace = STANDARD) -> torch.Tensor:
+    """``space.inner(X[p], Y[p])`` for every ``p`` of two ``(P, ...)``
+    stacks, as a ``(P,)`` tensor.  Each entry is ``space.inner`` of its row,
+    bits and all: a batched reduction would sum in another order, and near
+    the float32 floor of a solve that moves its counts.  A sharded space is
+    not batched."""
+    if space.psum_axis is not None:
+        raise ValueError("a sharded space (VectorSpace(psum_axis=...)) is not batched")
+    return torch.stack([space.inner(x, y) for x, y in zip(X, Y)])
+
+
+def norm_batched(X: torch.Tensor, space: VectorSpace = STANDARD) -> torch.Tensor:
+    """``space.norm(X[p])`` for every ``p`` of a ``(P, ...)`` stack, each
+    with the bits of ``space.norm`` of its row."""
+    return torch.sqrt(torch.clamp(torch.real(inner_batched(X, X, space)), min=0))
 
 
 def scale(x: PyTree, a) -> PyTree:

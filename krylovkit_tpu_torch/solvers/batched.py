@@ -44,9 +44,13 @@ from ..algorithms import GMRES, Lanczos
 from ..dense.triangular import solve_upper_active
 from ..factorizations import krylov as kf
 from ..info import EACHITERATION, STARTSTOP, ConvergenceInfo, log_if, warn_if
+from ..ops import banded as bd
 from ..ops import basis as bs
 from ..ops import orthonormal as on
+from ..ops import stencil_1d as s1
+from ..ops.banded import BandedOperator
 from ..ops.operator import LinearOperator, MatrixOperator, as_operator, probe_dtype
+from ..ops.stencil_1d import Laplacian1DOperator
 from ..ops.vector import STANDARD, VectorSpace, add, astype, device_of, rounded, scalartype
 from .gmres import _qr_update
 from .lanczos import _LoopState, _arrowhead, _process, _restart_rotation
@@ -81,10 +85,24 @@ def _refuse(what: str, vectors, ops, space: VectorSpace, scalars=()):
                          "solve the problems one by one")
 
 
+def _kernel_banded(o) -> bool:
+    """A :class:`BandedOperator` whose apply is K3 (real planes, not the
+    differentiable plain form)."""
+    return type(o) is BandedOperator and not o.plain and not o.diags.is_complex()
+
+
 class _Operators:
     """The operator of each of ``P`` problems, applied to the vectors of a
-    set of problems at once: one shared operator, or one per problem (``P``
-    matrices of one shape as one ``torch.matmul`` over their stack)."""
+    set of problems at once: one shared operator, or one per problem.
+
+    Three kinds apply a stack in one batched kernel launch, each row
+    bit-identical to the one-problem apply: a shared kernel-backed
+    :class:`BandedOperator` (its planes shared by the rows), a sequence of
+    them with equal offsets, ``n``, plane shapes, types and devices (their
+    planes stacked once, a row taking its problem's), and a shared
+    :class:`Laplacian1DOperator`.  ``P`` matrices of one shape apply as one
+    ``torch.matmul`` over their stack; any other operator applies problem by
+    problem."""
 
     def __init__(self, op, P: int, batched: bool):
         if batched:
@@ -94,8 +112,19 @@ class _Operators:
         else:
             self.ops = [as_operator(op)] * P
         self.stack = None
-        As = [o.A for o in self.ops] if batched else []
-        if As and all(type(o) is MatrixOperator for o in self.ops) and all(
+        self.planes, self.shared = None, not batched
+        self.laplacian = not batched and isinstance(self.ops[0], Laplacian1DOperator)
+        o0 = self.ops[0]
+        if not batched and _kernel_banded(o0):
+            self.planes = o0.diags
+        elif batched and all(_kernel_banded(o) for o in self.ops) and all(
+                (o.offsets, o.n, o.diags.shape, o.diags.dtype, o.diags.device)
+                == (o0.offsets, o0.n, o0.diags.shape, o0.diags.dtype, o0.diags.device)
+                for o in self.ops):
+            self.planes = torch.stack([o.diags for o in self.ops])
+        mats = batched and all(type(o) is MatrixOperator for o in self.ops)
+        As = [o.A for o in self.ops] if mats else []
+        if As and all(
                 A.shape == As[0].shape and A.dtype == As[0].dtype and A.device == As[0].device
                 for A in As):
             self.stack = torch.stack(As)
@@ -103,16 +132,39 @@ class _Operators:
     def distinct(self):
         return list({id(o): o for o in self.ops}.values())
 
+    def _batches(self, x: torch.Tensor) -> bool:
+        """Whether vectors like ``x`` (one problem's) apply as a stack."""
+        if self.planes is not None:
+            return not torch.promote_types(self.planes.dtype, x.dtype).is_complex
+        return self.laplacian or (self.stack is not None and x.ndim == 1)
+
+    def apply_stack(self, X: torch.Tensor, ps) -> torch.Tensor:
+        """``A_p X[i]`` for row ``i`` of the stack ``X``, the vector of
+        problem ``ps[i]``, as a stack."""
+        if self.planes is not None and self._batches(X[0]):
+            o0 = self.ops[0]
+            dt = torch.promote_types(self.planes.dtype, X.dtype)
+            return bd.banded_spmv_batched(X.to(dt), self.planes.to(dt), o0.offsets, o0.n,
+                                          planes=None if self.shared else list(ps))
+        if self.laplacian:
+            if X[0].numel() != self.ops[0].n:
+                raise ValueError(f"vector of {X[0].numel()} entries for an "
+                                 f"n={self.ops[0].n} Laplacian")
+            return s1.laplacian_1d_flat_batched(X)
+        if self.stack is not None and X.ndim == 2:
+            dt = torch.promote_types(self.stack.dtype, X.dtype)
+            full = torch.zeros((len(self.ops), X.shape[1]), dtype=dt, device=X.device)
+            full[list(ps)] = X.to(dt)
+            return torch.matmul(self.stack.to(dt), full[:, :, None])[list(ps), :, 0]
+        return torch.stack([self.ops[p].normal(x) for p, x in zip(ps, X)])
+
     def __call__(self, xs: dict) -> dict:
         """``{p: A_p x_p}`` for the vectors ``xs = {p: x_p}``."""
-        if self.stack is not None and all(x.ndim == 1 for x in xs.values()):
-            x0 = next(iter(xs.values()))
-            dt = torch.promote_types(self.stack.dtype, x0.dtype)
-            none = torch.zeros(self.stack.shape[2], dtype=dt, device=x0.device)
-            X = torch.stack([xs[p].to(dt) if p in xs else none for p in range(len(self.ops))])
-            Y = torch.matmul(self.stack.to(dt), X[:, :, None])[:, :, 0]
-            return {p: Y[p] for p in xs}
-        return {p: self.ops[p].normal(x) for p, x in xs.items()}
+        ps = list(xs)
+        if not self._batches(xs[ps[0]]):
+            return {p: self.ops[p].normal(x) for p, x in xs.items()}
+        Y = self.apply_stack(torch.stack([xs[p] for p in ps]), ps)
+        return {p: Y[i] for i, p in enumerate(ps)}
 
 
 def _problems(x, dim, P):
@@ -312,13 +364,12 @@ def eigsolve_lanczos_batched(op, x0, howmany: int, which, alg: Lanczos,
             "converged, numops = {no}, normres = {nr}",
             it=numiter_out, nc=nconv_out, no=s_.numops, nr=s_.resnorms[:howmany],
         )
-    for p in range(P):
-        warn_if(
-            alg.verbosity, conv[p] < howmany,
-            "Lanczos eigsolve stopped without convergence: {nc} of "
-            f"{howmany} values converged " + "after {it} iterations",
-            nc=conv[p], it=iters[p],
-        )
+    warn_if(
+        alg.verbosity, [c < howmany for c in conv],
+        "Lanczos eigsolve stopped without convergence: {nc} of "
+        f"{howmany} values converged " + "after {it} iterations",
+        nc=conv, it=iters,
+    )
     info = ConvergenceInfo(
         converged=torch.tensor(conv, dtype=torch.int64, device=dev),
         residual=torch.stack(residuals),
@@ -500,12 +551,11 @@ def linsolve_gmres_batched(op, b, x0, a0, a1, alg: GMRES, space: VectorSpace = S
             "normres = {nr}, numops = {no}",
             it=numiter[p], c=conv[p], nr=normr[p], no=numops[p],
         )
-    for p in range(P):
-        warn_if(
-            alg.verbosity, conv[p] == 0,
-            "GMRES linsolve stopped without converging after {it} iterations: "
-            "normres = {nr}", it=numiter[p], nr=normr[p],
-        )
+    warn_if(
+        alg.verbosity, [c == 0 for c in conv],
+        "GMRES linsolve stopped without converging after {it} iterations: "
+        "normres = {nr}", it=numiter, nr=[normr[p] for p in range(P)],
+    )
     info = ConvergenceInfo(
         converged=torch.tensor(conv, dtype=torch.int64, device=dev),
         residual=torch.stack([r[p] for p in range(P)]),

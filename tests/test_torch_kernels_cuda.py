@@ -925,3 +925,142 @@ def test_batched_lanczos_and_gmres_on_card_match_one_problem_solves():
         x1, i1 = linsolve_gmres(gop, Bs[p], torch.zeros_like(Bs[p]), 0.5, 1.0, galg)
         assert [i1.numops, i1.numiter] == [int(ginfo.numops[p]), int(ginfo.numiter[p])]
         assert float((x[p] - x1).abs().max()) <= 1e-5 * float(x1.abs().max())
+
+
+# (rows, n, offsets, dtype): config 2's five offsets and config 4's three at
+# P = 8, one row, a ragged n, rows that end inside the kernel's chunk of 4
+# shared-plane rows, and more than the 64 rows one launch takes
+BATCHED_K3_CASES = [
+    (8, 1 << 20, (-1024, -1, 0, 1, 1024), torch.float32),
+    (8, 1 << 20, (-1024, -1, 0, 1, 1024), torch.float64),
+    (8, 1 << 20, (-1, 0, 1), torch.float32),
+    (1, 4096, (-1024, -1, 0, 1, 1024), torch.float32),
+    (3, 301, (-2, 0, 5), torch.float64),
+    (11, 1000, (-999, -1, 0, 999), torch.float32),
+    (70, 2048, (-130, -127, -1, 0, 1, 3, 127, 129, 256), torch.float32),
+]
+
+
+@pytest.mark.parametrize("shared", [True, False], ids=["shared", "per_problem"])
+@pytest.mark.parametrize("rows,n,offsets,dtype", BATCHED_K3_CASES)
+def test_batched_banded_spmv_is_one_problem_launches_bit_for_bit(rows, n, offsets, dtype, shared):
+    """Batched K3 with shared planes and with a plane set per row (named
+    with repeats): each row bit-identical to a one-problem launch on it,
+    within the one-problem tolerance of the plain version, one launch per 64
+    rows."""
+    gen = _gen(rows + n)
+    R = -(-n // 128)
+    sets = 1 if shared else 5
+    D = torch.randn((sets, len(offsets), R, 128), generator=gen, device="cuda", dtype=dtype)
+    planes = None if shared else [(3 * r + 1) % sets for r in range(rows)]
+    X = torch.randn((rows, n), generator=gen, device="cuda", dtype=dtype)
+    Dk = D[0] if shared else D
+    before = _build.launches["banded_spmv_batched"]
+    Y = bd.banded_spmv_batched(X, Dk, offsets, n, planes)
+    assert _build.launches["banded_spmv_batched"] == before + -(-rows // 64)
+    Yr = bd.banded_spmv_batched_reference(X, Dk, offsets, n, planes)
+    torch.cuda.synchronize()
+    for r in range(rows):
+        Dr = D[0] if shared else D[planes[r]]
+        assert torch.equal(Y[r], bd.banded_spmv(X[r], Dr, offsets, n))
+    scale = bd.banded_spmv_batched_reference(X.abs(), Dk.abs(), offsets, n, planes)
+    tol = 1e-6 if dtype == torch.float32 else 1e-15
+    assert float(((Y - Yr).abs() - tol * scale).max()) <= 0
+
+
+def test_batched_banded_spmv_takes_a_subset_and_any_row_stride():
+    """Rows gathered for a subset of problems (their plane sets named), and
+    rows of a strided view, give the one-problem launches' bits."""
+    gen = _gen(5)
+    n, offsets = 1 << 16, (-256, -1, 0, 1, 256)
+    D = torch.randn((6, len(offsets), n // 128, 128), generator=gen, device="cuda")
+    X = torch.randn((6, n + 8), generator=gen, device="cuda")[:, 3:n + 3]
+    sub = [4, 1, 5]
+    Y = bd.banded_spmv_batched(X[sub], D, offsets, n, sub)
+    Ys = bd.banded_spmv_batched(X, D[2], offsets, n)
+    torch.cuda.synchronize()
+    for i, p in enumerate(sub):
+        assert torch.equal(Y[i], bd.banded_spmv(X[p].contiguous(), D[p], offsets, n))
+    for p in range(6):
+        assert torch.equal(Ys[p], bd.banded_spmv(X[p].contiguous(), D[2], offsets, n))
+
+
+@pytest.mark.parametrize("rows,n,dtype", [(8, 1 << 21, torch.float32), (8, 1 << 21, torch.float64),
+                                          (1, 4096, torch.float32), (9, 1001, torch.float32),
+                                          (3, 999, torch.float64)])
+def test_batched_laplacian_is_one_problem_launches_bit_for_bit(rows, n, dtype):
+    """Batched K4: one launch for every row, each row bit-identical to a
+    one-problem launch and to the plain version (the same operations in the
+    same order); a ragged n pads the rows."""
+    X = torch.randn((rows, n), generator=_gen(n + rows), device="cuda", dtype=dtype)
+    before = _build.launches["laplacian_1d_batched"]
+    Y = s1.laplacian_1d_flat_batched(X)
+    assert _build.launches["laplacian_1d_batched"] == before + 1
+    torch.cuda.synchronize()
+    assert Y.shape == (rows, n) and torch.equal(Y, s1.laplacian_1d_flat_batched_reference(X))
+    for r in range(rows):
+        assert torch.equal(Y[r], s1.laplacian_1d_flat(X[r]))
+
+
+def test_batched_wrappers_raise_instead_of_falling_back():
+    """Complex or mixed types raise on the card; a batched solve on complex
+    planes applies them problem by problem with the plain version, as the
+    JAX package sends them to XLA, and launches no batched K3."""
+    D = torch.ones((3, 2, 128), device="cuda")
+    X = torch.ones((2, 256), device="cuda")
+    with pytest.raises(ValueError, match="complex"):
+        bd.banded_spmv_batched(X.to(torch.complex64), D.to(torch.complex64), (-1, 0, 1), 256)
+    with pytest.raises(ValueError, match="float64"):
+        bd.banded_spmv_batched(X, D.double(), (-1, 0, 1), 256)
+    with pytest.raises(ValueError, match="float32 or float64"):
+        s1.laplacian_1d_flat_batched(X.half())
+    coo = poisson_coo(np, 32, np.complex128)
+    op = kt.banded_from_coo(*coo, 1024)
+    B = torch.ones((2, 1024), dtype=torch.complex128, device="cuda")
+    _build.reset_launches()
+    x, info = kt.linsolve_bicgstab_batched(op, B, torch.zeros_like(B), 0.5, 1.0,
+                                           kt.BiCGStab(tol=1e-8, maxiter=200))
+    assert not _build.launches["banded_spmv_batched"] and not _build.launches["banded_spmv"]
+    assert info.converged.tolist() == [1, 1]
+
+
+@pytest.mark.parametrize("driver", ["cg", "minres", "bicgstab"])
+def test_batched_linear_solves_on_card_match_one_problem_solves(driver):
+    """Batched CG, MINRES and BiCGStab on the card (float64: a shared banded
+    Poisson operator, per-problem planes for CG, the 1-D Laplacian for
+    BiCGStab): counts equal to the one-problem solves on the card, ``x``
+    bit-identical; batched K3/K4 launches only."""
+    from krylovkit_tpu_torch.solvers.bicgstab import linsolve_bicgstab
+    from krylovkit_tpu_torch.solvers.cg import linsolve_cg
+    from krylovkit_tpu_torch.solvers.minres import linsolve_minres
+
+    nx, P = 64, 3
+    n = nx * nx
+    coo = poisson_coo(np, nx, np.float64)
+    B = torch.stack([torch.from_numpy(np.random.default_rng(60 + p).standard_normal(n) * (1 + p))
+                     for p in range(P)]).cuda()
+    banded = kt.banded_from_coo(*coo, n)
+    one, batched, alg = {
+        "cg": (linsolve_cg, kt.linsolve_cg_batched, kt.CG(tol=1e-9, maxiter=400)),
+        "minres": (linsolve_minres, kt.linsolve_minres_batched, kt.MINRES(tol=1e-9, maxiter=400)),
+        "bicgstab": (linsolve_bicgstab, kt.linsolve_bicgstab_batched,
+                     kt.BiCGStab(tol=1e-9, maxiter=400)),
+    }[driver]
+    cases = [(banded, None)]
+    if driver == "cg":
+        cases.append(([kt.BandedOperator(banded.offsets, banded.diags * (1 + 0.1 * p), n)
+                       for p in range(P)], 0))
+    if driver == "bicgstab":
+        cases.append((kt.laplacian_1d_pallas(n, torch.float64), None))
+    for op, op_dim in cases:
+        _build.reset_launches()
+        x, info = batched(op, B, torch.zeros_like(B), 0.5, 1.0, alg, in_dims=(op_dim, 0, 0))
+        torch.cuda.synchronize()
+        used = {k for k, v in _build.launches.items() if v}
+        assert used in ({"banded_spmv_batched"}, {"laplacian_1d_batched"}), used
+        for p in range(P):
+            opp = op[p] if op_dim == 0 else op
+            x1, i1 = one(opp, B[p], torch.zeros_like(B[p]), 0.5, 1.0, alg)
+            assert [i1.numops, i1.numiter, i1.converged] == [
+                int(info.numops[p]), int(info.numiter[p]), int(info.converged[p])]
+            assert torch.equal(x[p], x1)
