@@ -211,7 +211,23 @@ without the final ``ok`` line:
    five and three offsets) and K4 against one-problem launches (bit for
    bit) and their plain versions, warm and cold ms, the bound, the plain
    version's and the library's ms (cuSPARSE SpMM / SpMV, cuDNN conv1d);
-32. profile (only with ``--profile``) — one more config-1 solve and one
+32. batched_arnoldi — config 4 for 4 starts (phase 30's) in one host loop
+   per solve: ``schursolve_batched`` on the transport-diffusion stencil
+   (fused: batched K1 and K2), ``eigsolve_arnoldi_batched`` on it as a
+   ``BandedOperator`` with the projection kernels on (batched K3, K5, K6
+   and K2), both fixed work (krylovdim 30, maxiter 3), and
+   ``exponentiate_batched`` of the (1, −2, 1) chain (fused: batched K1,
+   one launch per distinct live-row count; again unfused with mgs2): each
+   problem's counts equal its one-problem solve's and its values within
+   1e-5 (on the banded path problems 0 and 1 only, for the phase's
+   budget), exactly the batched launches the one-problem solves' rounds
+   give (the banded path: its own steps), no one-problem K1, K2, K3, K5 or
+   K6;
+   then the batched K5 and K6 at 8 bases (k = 18, 30, mixed) against
+   one-problem launches (every row bit for bit) and their plain versions,
+   warm and cold ms, the 8 one-problem launches, ``torch.bmm`` and the
+   bound; untimed at 70 problems (two launches) and with every k = 0;
+33. profile (only with ``--profile``) — one more config-1 solve and one
    more fused config-4 solve under ``torch.profiler``: device busy time and idle share, device ops, host
    reads of device scalars, device time by kernel name.
 
@@ -229,7 +245,7 @@ printed as ``parent_ms`` beside ``ms`` (without it ``parent_ms`` is null).
 ``--root`` (default: this tree) and prints one JSON line.
 
 Each path (phases 5, 7, 9, 12, 13, 14, 15, 17, 18, 20, 21, 24, 25, 27,
-28, 29, 30 and 31, one solve or iterator at a time, the forward and the backward of
+28, 29, 30, 31 and 32, one solve or iterator at a time, the forward and the backward of
 a differentiable solve apart; in 24, 25, 27 and 29 in every rank) is
 driven with the launch counts set to 0 just before it and read just after.
 Then the kernel summary line, the ``nvidia-smi`` name/power line, and as
@@ -4977,10 +4993,340 @@ def batched_linear_phase(torch, np, kt, _build, bd, s1, smi, nx=1024, n1=1 << 21
     return out
 
 
+def round_launches(arn, _build, solve):
+    """``solve()`` (a one-problem Krylov-Schur solve) with the launch counts
+    set to 0 just before it and the counts of each round's expansion read at
+    each call of ``solvers/arnoldi.py:_round``.  Returns ``(result, [launches
+    of round r])``."""
+    marks, real = [], arn._round
+
+    def counting(*a, **kw):
+        marks.append(dict(_build.launches))
+        return real(*a, **kw)
+
+    arn._round = counting
+    _build.reset_launches()
+    try:
+        out = solve()
+    finally:
+        arn._round = real
+    rounds = [{k: v - prev.get(k, 0) for k, v in now.items() if v - prev.get(k, 0)}
+              for prev, now in zip([{}] + marks[:-1], marks)]
+    return out, rounds
+
+
+def batched_rounds_expected(per_problem, pairs):
+    """The batched launches of a batched Krylov-Schur solve from its
+    problems' one-problem rounds.  Every problem starts a round's expansion
+    together and expands to the same top row, so its ``j``-th step of round
+    ``r`` is its ``c - j``-th from the end (``c`` its launches of that
+    round).  A batched apply or sweep launches once for every problem that
+    steps: round ``r`` launches ``max_p c_p`` times.  A fused step
+    (``fused_step``) launches once per distinct live-row count among the
+    problems that step, and two problems step at one count exactly when
+    their ``c`` are equal.  ``pairs`` maps a one-problem kernel name to its
+    batched launcher's."""
+    out = {}
+    nrounds = max(len(r) for r in per_problem)
+    for one, batched in pairs.items():
+        total = 0
+        for i in range(nrounds):
+            cs = [r[i].get(one, 0) for r in per_problem if i < len(r)]
+            total += (sum(len({c for c in cs if c > j}) for j in range(max(cs)))
+                      if one == "fused_step" else max(cs))
+        if total:
+            out[batched] = total
+    return out
+
+
+def check_batched_projections(torch, pb, ks, R, kmax, gen, flush=None, timed=True):
+    """Batched K5 and K6 for ``len(ks)`` problems (each its own basis
+    ``(kmax, R, 128)``, rows ``>= k_p`` NaN: never read) against one-problem
+    launches (every row bit for bit) and the plain versions (within
+    1e-5·|V_j||w| and 1e-5·Σ|c_j||V_j|).  Timed: warm and cold ms per
+    batched launch, the ``P`` one-problem launches, the plain version,
+    ``torch.bmm`` over the ``(P, kmax_live, n)`` view and the bound
+    (``Σ_p (k_p + 1)·n·4`` bytes)."""
+    P, n = len(ks), R * 128
+    V = torch.randn((P, kmax, R, 128), generator=gen, device="cuda")
+    W = torch.randn((P, R, 128), generator=gen, device="cuda")
+    C = torch.randn((P, kmax), generator=gen, device="cuda")
+    for p, k in enumerate(ks):
+        C[p, k:] = 0
+    Vn = V.clone()
+    for p, k in enumerate(ks):
+        Vn[p, k:] = float("nan")
+    got_c = pb.project_pallas_batched(Vn, W, ks)
+    got_y = pb.unproject_pallas_batched(Vn, C, ks)
+    want_c = pb.project_batched_reference(Vn, W, ks)
+    want_y = pb.unproject_batched_reference(Vn, C, ks)
+    torch.cuda.synchronize()
+    label = f"batched projections P={P} R={R} k={ks if len(set(ks)) > 1 else ks[0]}"
+    require(bool(torch.isfinite(got_c).all()) and bool(torch.isfinite(got_y).all()),
+            f"{label}: rows >= k never read (no NaN)")
+    same = all(torch.equal(got_c[p], pb.project_pallas(Vn[p], W[p], k))
+               and torch.equal(got_y[p], pb.unproject_pallas(Vn[p], C[p], k))
+               for p, k in enumerate(ks))
+    require(same, f"{label}: every row bit-identical to a one-problem launch")
+    err_c = err_y = 0.0
+    for p, k in enumerate(ks):
+        require(not bool(got_c[p, k:].any()), f"{label}: project zero beyond k")
+        if k == 0:
+            require(not bool(got_y[p].any()), f"{label}: unproject k = 0 gives zeros")
+            continue
+        Vk = V[p, :k].reshape(k, n)
+        sc_c = torch.linalg.vector_norm(Vk, dim=1) * torch.linalg.vector_norm(W[p])
+        sc_y = (C[p, :k].abs()[:, None] * Vk.abs()).sum(0).reshape(R, 128)
+        d_c, d_y = (got_c[p] - want_c[p])[:k].abs(), (got_y[p] - want_y[p]).abs()
+        require(bool((d_c <= 1e-5 * sc_c).all()), f"{label}: project within 1e-5*|V_j||w|")
+        require(bool((d_y <= 1e-5 * sc_y).all()), f"{label}: unproject within 1e-5*sum|c_j||V_j|")
+        err_c, err_y = max(err_c, float(d_c.max())), max(err_y, float(d_y.max()))
+    case = {"P": P, "kmax": kmax, "n": n, "k": ks, "max_abs_err_project": err_c,
+            "max_abs_err_unproject": err_y, "tolerance": "1e-5*|V_j||w|, 1e-5*sum_j|c_j||V_j|",
+            "bit_identical_to_one_problem_launches": same}
+    if timed:
+        kl = max(ks)
+        Vv, Wv = V.reshape(P, kmax, n)[:, :kl], W.reshape(P, n, 1)
+        Cv = C[:, None, :kl]
+        t_bound, by = bound(sum((k + 1) * n * 4 for k in ks), sum(2 * k * n for k in ks))
+        for name, fn, one, plain, lib in (
+                ("project", lambda: pb.project_pallas_batched(V, W, ks),
+                 lambda: [pb.project_pallas(V[p], W[p], k) for p, k in enumerate(ks)],
+                 lambda: pb.project_batched_reference(V, W, ks), lambda: torch.bmm(Vv, Wv)),
+                ("unproject", lambda: pb.unproject_pallas_batched(V, C, ks),
+                 lambda: [pb.unproject_pallas(V[p], C[p], k) for p, k in enumerate(ks)],
+                 lambda: pb.unproject_batched_reference(V, C, ks), lambda: torch.bmm(Cv, Vv))):
+            case[name] = {
+                "ms": device_ms(torch, fn, reps=5),
+                "cold_ms": cold_device_ms(torch, fn, flush) if flush is not None else None,
+                "one_problem_launches_ms": device_ms(torch, one, reps=3),
+                "plain_ms": device_ms(torch, plain, reps=1, batches=2),
+                "library_ms": device_ms(torch, lib, reps=5),
+                "library": (f"torch.bmm over the (P, {kl}, n) view" if name == "project" else
+                            f"torch.bmm((P, 1, {kl}), (P, {kl}, n))"),
+                "bound_ms": t_bound, "bound_by": by,
+            }
+    return case
+
+
+def batched_arnoldi_phase(torch, np, kt, _build, arn, expi, kf, bs, pb, smi, n=1 << 20, P=4,
+                          PK=8, dev="cuda"):
+    """Phase ``batched_arnoldi``: config 4 for ``P`` starts
+    (:func:`batched_starts`) in one host loop per solve.
+
+    (a) ``schursolve_batched`` on the transport-diffusion stencil (4 "LM",
+    krylovdim 30, fixed work: maxiter 3, tol 1e-30): batched K1 and K2;
+    (b) ``eigsolve_arnoldi_batched`` on the same matrix as a
+    ``BandedOperator`` with the projection flag on: batched K3, K5, K6, K2;
+    (c) ``exponentiate_batched`` of the (1, −2, 1) chain (t = 0.1, tol
+    1e-4, krylovdim 30): fused, batched K1; once more unfused with mgs2.
+    Each batched solve is driven with the counts set to 0 just before it
+    and read just after, and timed so (no second run: the phase's budget).
+    Each problem's counts equal its one-problem solve's and its values are
+    within 1e-5 of them (bit-identity reported); on (b) problems 0 and 1
+    only, for the phase's budget.  The batched launches are exactly what
+    the one-problem solves' rounds give (:func:`batched_rounds_expected`;
+    on (b) what the batched solve's own steps give), and no one-problem K1,
+    K2, K3, K5 or K6 is launched.  (d) the batched K5 and K6 alone at ``PK`` problems,
+    kmax 31, at this width (:func:`check_batched_projections`, equal ``k``
+    18 and 30 and mixed ``k``), untimed at ``P = 70`` (two launches) and
+    with every ``k = 0``.  ``dev="cpu"`` with a small ``n`` rehearses
+    (a)-(c) with the plain versions: no launch guard, no kernel checks."""
+    t0 = time.perf_counter()
+    card = dev != "cpu"
+    R = n // 128
+    m = KRYLOVDIM
+    X = batched_starts(torch, np, R, P, dev)
+    quiet = {"verbosity": kt.SILENT}
+    alg = kt.Arnoldi(krylovdim=m, maxiter=3, tol=1e-30, **quiet)
+    stencil = kt.StencilOperator((-1, 0, 1), (-1.3, 2.0, -0.7))
+    banded = kt.banded_from_coo(*tridiagonal_coo(np, n, -1.3, 2.0, -0.7, np.float32), n,
+                                device=dev)
+    one_problem = {"fused_step", "transform_partial", "banded_spmv", "project", "unproject",
+                   "laplacian_1d"}
+    pairs = {"fused_step": "fused_step_batched", "banded_spmv": "banded_spmv_batched",
+             "project": "project_batched", "unproject": "unproject_batched"}
+    def solve_pair(path, batched_solve, one_solve, values, flag, compared):
+        """The batched solve (counted and timed) and the one-problem solves
+        of the problems ``compared`` (their rounds' launches), with the
+        guards.  Where every problem is compared the batched launches must
+        be what the one-problem rounds give; else what the batched solve's
+        own steps give (one batched K3, two K5 and two K6 a ``cgs2`` step;
+        each problem in as many steps as its ``numops``)."""
+        steps, real = [], kf.expand_batched
+
+        def recording(apply, states, *a, **kw):
+            steps.append(sorted(states))
+            return real(apply, states, *a, **kw)
+
+        bs.use_pallas_projections = flag
+        kf.expand_batched = recording
+        try:
+            res, batched_ms, launches = _sync_ms(torch, _build, batched_solve, dev)
+            kf.expand_batched = real
+            ones, rounds, one_ms = [], [], []
+            for p in compared:
+                t1 = time.perf_counter()
+                r1, lr = round_launches(arn, _build, lambda p=p: one_solve(p))
+                if card:
+                    torch.cuda.synchronize()
+                one_ms.append((time.perf_counter() - t1) * 1e3)
+                ones.append(r1)
+                rounds.append(lr)
+        finally:
+            kf.expand_batched = real
+            bs.use_pallas_projections = False
+        info = res[-1] if path != "schursolve_stencil_fused" else res[3]
+        infos1 = [o[-1] if path != "schursolve_stencil_fused" else o[3] for o in ones]
+        vals, vals1 = values(res), [values(o) for o in ones]
+        rel = max(float(((vals[p] - v1).abs() / v1.abs().clamp_min(1e-30)).max())
+                  for p, v1 in zip(compared, vals1))
+        bits = all(torch.equal(vals[p], v1) for p, v1 in zip(compared, vals1))
+        counts = [info.numops.tolist(), info.numiter.tolist(), info.converged.tolist()]
+        counts1 = [[i.numops for i in infos1], [i.numiter for i in infos1],
+                   [i.converged for i in infos1]]
+        if len(compared) == P:
+            want = batched_rounds_expected(rounds, pairs)
+            want["transform_partial_batched"] = max(len(r) for r in rounds)
+        else:
+            want = {"banded_spmv_batched": len(steps), "transform_partial_batched":
+                    max(counts[1])}
+            if flag:
+                want.update(project_batched=2 * len(steps), unproject_batched=2 * len(steps))
+            require([sum(p in st for st in steps) for p in range(P)] == counts[0],
+                    f"batched {path}: each problem in as many batched steps as its numops")
+        rec = {"phase": "batched_arnoldi", "path": path, "P": P, "n": n, "projection_kernels": flag,
+               "numops": counts[0], "numiter": counts[1], "converged": counts[2],
+               "compared_problems": list(compared), "one_problem_counts": counts1,
+               "abs_vals": vals.abs().cpu().tolist(), "one_problem_max_rel_diff": rel,
+               "tolerance": 1e-5, "bit_identical": bits, "launches": launches,
+               "expected_launches": want, "one_problem_launches_per_round": rounds,
+               "batched_ms": batched_ms, "one_problem_ms": one_ms,
+               "batched_over_one_problem_mean_times_P": batched_ms / (P * mean(one_ms)),
+               "nvidia_smi": smi}
+        emit(rec)
+        require([[c[p] for p in compared] for c in counts] == counts1,
+                f"batched {path}: each compared problem's counts equal its one-problem solve's "
+                f"({counts} vs {counts1})")
+        require(rel <= 1e-5, f"batched {path}: values within 1e-5 of the one-problem solves "
+                f"({rel})")
+        require(bool(torch.isfinite(vals).all()), f"batched {path}: finite values")
+        if card:
+            require(launches == want, f"batched {path}: exactly the expected batched launches "
+                    f"({launches} vs {want})")
+            require(not one_problem & set(launches), f"batched {path}: no one-problem K1, K2, "
+                    f"K3, K5 or K6 launch ({launches})")
+        return res, launches
+
+    def schur_vals(res):
+        return torch.complex(*res[2])
+
+    (_, _, (re_a, im_a), _), _ = solve_pair(
+        "schursolve_stencil_fused",
+        lambda: kt.schursolve_batched(stencil, X, 4, "LM", alg),
+        lambda p: arn.schursolve(stencil, X[p], 4, "LM", alg), schur_vals, False, range(P))
+    lam = torch.hypot(re_a, im_a).cpu()
+    require(bool((lam <= 4.0 + 1e-3).all()), f"batched schursolve: |lambda| inside the "
+            f"Gershgorin disc: {lam.tolist()}")
+    (vals_b, vecs_b, info_b), launches_b = solve_pair(
+        "eigsolve_banded_projection_kernels",
+        lambda: kt.eigsolve_arnoldi_batched(banded, X, 4, "LM", alg),
+        lambda p: arn.eigsolve_arnoldi(banded, X[p], 4, "LM", alg), lambda res: res[0], True,
+        range(2))  # the phase's budget: problems 0 and 1 only
+    require(tuple(vecs_b.shape) == (P, 4, R, 128) and bool(torch.isfinite(vecs_b).all()),
+            "batched eigsolve: finite (P, 4, R, 128) vectors")
+    # the stencil and the banded matrix are one operator: the two paths agree
+    agree = float(((vals_b.abs().cpu() - lam).abs() / lam).max())
+    require(agree <= 1e-3, f"batched config 4: banded |lambda| within 1e-3 of the stencil's "
+            f"({agree})")
+    del vecs_b
+
+    # (c) exponentiate: fused (batched K1), then unfused with mgs2
+    neg = kt.StencilOperator((-1, 0, 1), (1.0, -2.0, 1.0))
+    lalg = kt.Lanczos(krylovdim=m, tol=1e-4, **quiet)
+    (ye, ie), ms_e, launches_e = _sync_ms(
+        torch, _build, lambda: kt.exponentiate_batched(neg, 0.1, X, lalg), dev)
+    ones, k1_one, one_ms = [], [], []
+    for p in range(P):
+        (y1, i1), ms1, l1 = _sync_ms(torch, _build, lambda p=p: expi._expintegrator_core(
+            neg, 0.1, (X[p],), lalg, kt.STANDARD), dev)
+        ones.append((y1, i1))
+        k1_one.append(l1.get("fused_step", 0))
+        one_ms.append(ms1)
+    ualg = kt.Lanczos(krylovdim=m, tol=1e-4, orth=kt.mgs2, **quiet)
+    (yu, iu), ms_u, launches_u = _sync_ms(
+        torch, _build, lambda: kt.exponentiate_batched(neg, 0.1, X, ualg), dev)
+    rel_e = max(float(torch.linalg.vector_norm(ye[p] - y1) / torch.linalg.vector_norm(y1))
+                for p, (y1, _) in enumerate(ones))
+    bits_e = all(torch.equal(ye[p], y1) for p, (y1, _) in enumerate(ones))
+    rel_u = float(torch.linalg.vector_norm(yu - ye) / torch.linalg.vector_norm(ye))
+    counts_e = [ie.numops.tolist(), ie.numiter.tolist(), ie.converged.tolist()]
+    counts_e1 = [[i.numops for _, i in ones], [i.numiter for _, i in ones],
+                 [i.converged for _, i in ones]]
+    want_e = {"fused_step_batched": max(k1_one)} if card else {}
+    rec = {"phase": "batched_arnoldi", "path": "exponentiate_stencil_fused", "P": P, "n": n,
+           "numops": counts_e[0], "numiter": counts_e[1], "converged": counts_e[2],
+           "normres": ie.normres.cpu().tolist(), "one_problem_counts": counts_e1,
+           "one_problem_max_rel_diff": rel_e, "tolerance": 1e-5, "bit_identical": bits_e,
+           "launches": launches_e, "expected_launches": want_e,
+           "one_problem_fused_step": k1_one, "batched_ms": ms_e, "one_problem_ms": one_ms,
+           "batched_over_one_problem_mean_times_P": ms_e / sum(one_ms),
+           "unfused_mgs2": {"numops": iu.numops.tolist(), "numiter": iu.numiter.tolist(),
+                            "ms": ms_u, "launches": launches_u,
+                            "rel_diff_vs_fused": rel_u},
+           "nvidia_smi": smi}
+    emit(rec)
+    require(counts_e == counts_e1, f"batched exponentiate: counts equal to the one-problem "
+            f"solves ({counts_e} vs {counts_e1})")
+    require(ie.converged.tolist() == [1] * P and bool((ie.normres <= 0.1 * 1e-4).all()),
+            "batched exponentiate: every problem converged within t*tol")
+    require(rel_e <= 1e-5, f"batched exponentiate: within 1e-5 of the one-problem solves "
+            f"({rel_e})")
+    require(rel_u <= 1e-4, f"batched exponentiate: unfused mgs2 within 1e-4 of fused ({rel_u})")
+    if card:
+        # one cycle each (numiter 1): a step launches once for all problems
+        require(counts_e[1] == [1] * P and launches_e == want_e,
+                f"batched exponentiate: one cycle each, exactly {want_e} ({launches_e})")
+        require(launches_u == {}, f"batched exponentiate, unfused mgs2: no kernel ({launches_u})")
+    del ye, yu, ones
+    if not card:
+        return {}
+
+    # (d) the batched K5 and K6 alone at this width
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(14)
+    kmax = m + 1
+    flush = torch.empty(32 << 20, device="cuda")
+    cases = [check_batched_projections(torch, pb, [k] * PK, R, kmax, gen, flush) for k in (18, 30)]
+    cases.append(check_batched_projections(torch, pb, [30, 19, 25, 4, 16, 29, 1, 22][:PK], R,
+                                           kmax, gen, flush))
+    del flush
+    small = [check_batched_projections(torch, pb, [(7 * i) % 14 for i in range(70)], 16, 13, gen,
+                                       timed=False),
+             check_batched_projections(torch, pb, [0] * 5, 16, 13, gen, timed=False)]
+    emit({"phase": "batched_arnoldi_kernels", "cases": cases, "untimed": small,
+          "nvidia_smi": smi, "seconds": time.perf_counter() - t0})
+
+    def summary(name):
+        timed = [c[name] for c in cases]
+        return {key: mean([t[key] for t in timed]) for key in
+                ("ms", "cold_ms", "one_problem_launches_ms", "plain_ms", "library_ms", "bound_ms")}
+
+    return {"kernels": {
+        name: {**summary(name),
+               "max_abs_err": max(c[f"max_abs_err_{name}"] for c in cases + small),
+               "launches": launches_b.get(f"{name}_batched", 0)}
+        for name in ("project", "unproject")}}
+
+
+def mean(xs):
+    return sum(xs) / len(xs)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one config-1 and one config-4 solve (phase 32)")
+                    help="also profile one config-1 and one config-4 solve (phase 33)")
     ap.add_argument("--parent", metavar="DIR",
                     help="an unpacked earlier tree: time its K1 and K2 on this card as parent_ms")
     ap.add_argument("--kernel-times", action="store_true",
@@ -5008,9 +5354,6 @@ def main():
     from krylovkit_tpu_torch.solvers import arnoldi as arn
     from krylovkit_tpu_torch.solvers import expintegrator as expi
     from krylovkit_tpu_torch.solvers import svdsolve as svds
-
-    def mean(xs):
-        return sum(xs) / len(xs)
 
     # 1. device
     smi = nvidia_smi_line()
@@ -5871,6 +6214,11 @@ def main():
     # (batched K4), CG on 4 banded operators (a plane set per problem)
     batched_lin = batched_linear_phase(torch, np, kt, _build, bd, s1, smi)
 
+    # 32. batched Arnoldi and exponential integrator: config 4 for 4 starts
+    # (fused schursolve, banded eigsolve with the projection kernels,
+    # exponentiate), then the batched K5 and K6 alone
+    batched_arn = batched_arnoldi_phase(torch, np, kt, _build, arn, expi, kf, bs, pb, smi)
+
     def slice11(name):
         """The launches per rank of ``name`` in phase 29's passes."""
         return {"launches_sharded_ad_per_rank": {
@@ -6049,6 +6397,17 @@ def main():
             **slice10("unproject"),
             **slice11("unproject"),
         },
+        *[{
+            "name": f"{name}_batched", "route": "cuda",
+            "source": "krylovkit_tpu_torch/csrc/projections.cu",
+            "replaces": replaces + " (under jax.vmap)",
+            **batched_arn["kernels"][name],
+            "bound_by": "bytes",
+            "shapes": "mean per launch over P = 8 bases (31, 8192, 128) f32 at k = 18, 30 and "
+                      "mixed k; launches: the config-4 banded eigsolve_arnoldi_batched, P = 4, "
+                      "projection flag on",
+        } for name, replaces in (("project", "krylovkit_tpu/ops/pallas_basis.py:59"),
+                                 ("unproject", "krylovkit_tpu/ops/pallas_basis.py:118"))],
     ]})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

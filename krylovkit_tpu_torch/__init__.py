@@ -19,11 +19,15 @@ Lanczos, Arnoldi, CG, GMRES, LSMR and GKL solvers, with reverse-mode
 differentiation of ``linsolve``, ``eigsolve`` and ``svdsolve`` (``ad``:
 one ``torch.autograd.Function`` each) and pytree vectors (tuples, lists and
 dicts of tensors) in the Krylov, Lanczos, Arnoldi and linear solvers,
-batched Lanczos, GMRES, CG, MINRES and BiCGStab solves of many problems in
-one host loop (``eigsolve_lanczos_batched``, ``linsolve_gmres_batched``,
-``linsolve_cg_batched``, ``linsolve_minres_batched``,
-``linsolve_bicgstab_batched``: ``jax.vmap`` of the JAX drivers, a banded or
-1-D Laplacian operator applied to every problem in one batched launch), with
+batched Lanczos, Arnoldi, GMRES, CG, MINRES and BiCGStab solves and batched
+exponential integrators of many problems in one host loop
+(``eigsolve_lanczos_batched``, ``schursolve_batched``,
+``eigsolve_arnoldi_batched``, ``realeigsolve_arnoldi_batched``,
+``linsolve_gmres_batched``, ``linsolve_cg_batched``,
+``linsolve_minres_batched``, ``linsolve_bicgstab_batched``,
+``expintegrator_batched``, ``exponentiate_batched``: ``jax.vmap`` of the JAX
+drivers, a banded or 1-D Laplacian operator applied to every problem in one
+batched launch), with
 six hand-written CUDA kernels
 (``csrc/``): the fused one-stream expansion, the in-place restart rotation,
 the banded SpMV of :class:`BandedOperator`, the 1-D Laplacian of
@@ -94,6 +98,12 @@ from .ops.vector import REAL, STANDARD, VectorSpace  # noqa: E402
 from .parallel.operators import laplacian_1d, poisson_2d  # noqa: E402
 from .solvers.arnoldi import eigsolve_arnoldi  # noqa: E402
 from .solvers.batched import eigsolve_lanczos_batched, linsolve_gmres_batched  # noqa: E402
+from .solvers.batched_arnoldi import (  # noqa: E402
+    eigsolve_arnoldi_batched,
+    realeigsolve_arnoldi_batched,
+    schursolve_batched,
+)
+from .solvers.batched_expintegrator import expintegrator_batched, exponentiate_batched  # noqa: E402
 from .solvers.batched_linsolve import (  # noqa: E402
     linsolve_bicgstab_batched,
     linsolve_cg_batched,
@@ -170,6 +180,11 @@ __all__ = [
     "linsolve_cg_batched",
     "linsolve_minres_batched",
     "linsolve_bicgstab_batched",
+    "schursolve_batched",
+    "eigsolve_arnoldi_batched",
+    "realeigsolve_arnoldi_batched",
+    "expintegrator_batched",
+    "exponentiate_batched",
     "schursolve",
     "realeigsolve",
     "geneigsolve",

@@ -30,6 +30,14 @@
 //     two runs agree to the bit) and writes 0 for j >= k.
 //   * unproject holds c[:k] in shared memory and accumulates j = 0 .. k-1 in
 //     ascending order with float32 FMAs.
+//
+// Batched launches (kk_project_batched, kk_unproject_batched; the TPU kernels
+// under jax.vmap, whose batching rule adds a grid axis and gives each problem
+// its own k).  blockIdx.y picks a problem of a table passed by value: its
+// basis pointer, its w or c pointer and its k.  Inside a problem the launch
+// runs the one-problem body (same blocks, same per-block partials in a slab
+// of its own, same reduce order), so each row is bit-identical to a
+// one-problem launch.  A problem with k = 0 reads nothing of its basis.
 
 #include <cuda_runtime.h>
 
@@ -52,12 +60,14 @@ __device__ __forceinline__ float warp_sum_down(float v) {
   return v;  // the sum is in lane 0
 }
 
-__global__ void __launch_bounds__(kThreads)
-project_kernel(const float4* __restrict__ V, const float4* __restrict__ w,
-               float* __restrict__ partials, const int* __restrict__ kptr,
-               int kval, int kmax, long long n4) {
-  __shared__ float sRed[kWarps][kMaxK];
-  const int k = live_rows(kptr, kval, kmax);
+// One block of project: the partial sums of its columns for j < k, written
+// as partials[block, j].  The one-problem and the batched kernels both run
+// this body, so a problem of a batched launch gets the one-problem bits.
+__device__ __forceinline__ void project_block(const float4* __restrict__ V,
+                                              const float4* __restrict__ w,
+                                              float* __restrict__ partials, int k,
+                                              int kmax, long long n4,
+                                              float (*sRed)[kMaxK]) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   long long idx[kVec];
   float4 wv[kVec];
@@ -92,13 +102,12 @@ project_kernel(const float4* __restrict__ V, const float4* __restrict__ w,
   }
 }
 
-// c[j] = sum over blocks of partials[b, j] in a fixed order; 0 for j >= k
-__global__ void __launch_bounds__(256)
-project_reduce(const float* __restrict__ partials, float* __restrict__ c,
-               const int* __restrict__ kptr, int kval, int kmax, int nblocks) {
-  __shared__ float s[256];
+// c[j] = sum over blocks of partials[b, j] in a fixed order; 0 for j >= k.
+// Block j of the reduce kernels (blockIdx.x = j).
+__device__ __forceinline__ void reduce_column(const float* __restrict__ partials,
+                                              float* __restrict__ c, int k,
+                                              int kmax, int nblocks, float* s) {
   const int j = blockIdx.x;
-  const int k = live_rows(kptr, kval, kmax);
   if (j >= k) {  // the whole block leaves: partials[:, j] was never written
     if (threadIdx.x == 0) c[j] = 0.f;
     return;
@@ -115,12 +124,11 @@ project_reduce(const float* __restrict__ partials, float* __restrict__ c,
   if (threadIdx.x == 0) c[j] = s[0];
 }
 
-__global__ void __launch_bounds__(kThreads)
-unproject_kernel(const float4* __restrict__ V, const float* __restrict__ c,
-                 float4* __restrict__ y, const int* __restrict__ kptr, int kval,
-                 int kmax, long long n4) {
-  __shared__ float sC[kMaxK];
-  const int k = live_rows(kptr, kval, kmax);
+// One block of unproject: y[cols] = sum_{j<k} c[j] V[j][cols], ascending j.
+__device__ __forceinline__ void unproject_block(const float4* __restrict__ V,
+                                                const float* __restrict__ c,
+                                                float4* __restrict__ y, int k,
+                                                long long n4, float* sC) {
   for (int t = threadIdx.x; t < k; t += kThreads) sC[t] = c[t];
   __syncthreads();
   long long idx[kVec];
@@ -148,6 +156,70 @@ unproject_kernel(const float4* __restrict__ V, const float* __restrict__ c,
 #pragma unroll
   for (int v = 0; v < kVec; ++v)
     if (idx[v] < n4) y[idx[v]] = acc[v];
+}
+
+__global__ void __launch_bounds__(kThreads)
+project_kernel(const float4* __restrict__ V, const float4* __restrict__ w,
+               float* __restrict__ partials, const int* __restrict__ kptr,
+               int kval, int kmax, long long n4) {
+  __shared__ float sRed[kWarps][kMaxK];
+  project_block(V, w, partials, live_rows(kptr, kval, kmax), kmax, n4, sRed);
+}
+
+__global__ void __launch_bounds__(256)
+project_reduce(const float* __restrict__ partials, float* __restrict__ c,
+               const int* __restrict__ kptr, int kval, int kmax, int nblocks) {
+  __shared__ float s[256];
+  reduce_column(partials, c, live_rows(kptr, kval, kmax), kmax, nblocks, s);
+}
+
+__global__ void __launch_bounds__(kThreads)
+unproject_kernel(const float4* __restrict__ V, const float* __restrict__ c,
+                 float4* __restrict__ y, const int* __restrict__ kptr, int kval,
+                 int kmax, long long n4) {
+  __shared__ float sC[kMaxK];
+  unproject_block(V, c, y, live_rows(kptr, kval, kmax), n4, sC);
+}
+
+// The problems of a batched launch, passed by value: blockIdx.y = i runs
+// problem i on its own basis V[i] (a table of pointers, so the bases need
+// not be one stacked tensor), its own operand x[i] (w for project, c for
+// unproject) and its own live length k[i].  64 pointers of each kind and 64
+// ints are 1280 bytes, well inside the 4 KB of kernel parameters.
+constexpr int kMaxProblems = 64;
+struct Problems {
+  const float* V[kMaxProblems];
+  const float* x[kMaxProblems];
+  int k[kMaxProblems];
+};
+
+// Problem i writes its partials slab partials + i * nblocks * kmax.
+__global__ void __launch_bounds__(kThreads)
+project_batched_kernel(const Problems prob, float* __restrict__ partials,
+                       int kmax, long long n4, int nblocks) {
+  __shared__ float sRed[kWarps][kMaxK];
+  const int i = blockIdx.y;
+  project_block((const float4*)prob.V[i], (const float4*)prob.x[i],
+                partials + (long long)i * nblocks * kmax, prob.k[i], kmax, n4, sRed);
+}
+
+// Problem i's coefficients are row i of c (nprob, kmax).
+__global__ void __launch_bounds__(256)
+project_reduce_batched(const Problems prob, const float* __restrict__ partials,
+                       float* __restrict__ c, int kmax, int nblocks) {
+  __shared__ float s[256];
+  const int i = blockIdx.y;
+  reduce_column(partials + (long long)i * nblocks * kmax, c + (long long)i * kmax,
+                prob.k[i], kmax, nblocks, s);
+}
+
+// Problem i's y is row i of y (nprob, n).
+__global__ void __launch_bounds__(kThreads)
+unproject_batched_kernel(const Problems prob, float4* __restrict__ y, long long n4) {
+  __shared__ float sC[kMaxK];
+  const int i = blockIdx.y;
+  unproject_block((const float4*)prob.V[i], prob.x[i], y + (long long)i * n4,
+                  prob.k[i], n4, sC);
 }
 
 bool bad_shape(int kval, int kmax, long long ncols) {
@@ -190,6 +262,56 @@ int kk_unproject(const float* V, const float* c, float* y, const int* kptr,
   const int nblocks = kk_project_blocks(ncols);
   unproject_kernel<<<nblocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const float4*)V, c, (float4*)y, kptr, kval, kmax, ncols / 4);
+  return (int)cudaGetLastError();
+}
+
+// Fills the by-value table of a batched launch; false if a k is outside
+// [0, kmax] or a count is out of range.
+static bool fill_problems(Problems* prob, const void* const* V, const void* const* x,
+                          const int* ks, int nprob, int kmax) {
+  if (nprob < 1 || nprob > kMaxProblems) return false;
+  for (int i = 0; i < nprob; ++i) {
+    if (ks[i] < 0 || ks[i] > kmax) return false;
+    prob->V[i] = (const float*)V[i];
+    prob->x[i] = (const float*)x[i];
+    prob->k[i] = ks[i];
+  }
+  return true;
+}
+
+// Batched project: nprob <= 64 problems, HOST arrays V[i] (kmax, ncols), w[i]
+// (ncols) device pointers and ks[i] live lengths; partials
+// (nprob, kk_project_blocks(ncols), kmax) scratch; c (nprob, kmax) out.  Row i
+// of c is what kk_project gives for (V[i], w[i], ks[i]), bit for bit.
+int kk_project_batched(const void* const* V, const void* const* w, const int* ks,
+                       int nprob, float* partials, float* c, int kmax,
+                       long long ncols, void* stream) {
+  Problems prob;
+  if (bad_shape(0, kmax, ncols) || !fill_problems(&prob, V, w, ks, nprob, kmax))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int nblocks = kk_project_blocks(ncols);
+  project_batched_kernel<<<dim3(nblocks, nprob), kThreads, 0, s>>>(
+      prob, partials, kmax, ncols / 4, nblocks);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  project_reduce_batched<<<dim3(kmax, nprob), 256, 0, s>>>(prob, partials, c, kmax,
+                                                             nblocks);
+  return (int)cudaGetLastError();
+}
+
+// Batched unproject: HOST arrays V[i] (kmax, ncols), c[i] (kmax, zero beyond
+// ks[i]) device pointers and ks[i]; y (nprob, ncols) out.  Row i of y is what
+// kk_unproject gives for (V[i], c[i], ks[i]), bit for bit.
+int kk_unproject_batched(const void* const* V, const void* const* c, const int* ks,
+                         int nprob, float* y, int kmax, long long ncols,
+                         void* stream) {
+  Problems prob;
+  if (bad_shape(0, kmax, ncols) || !fill_problems(&prob, V, c, ks, nprob, kmax))
+    return (int)cudaErrorInvalidValue;
+  const int nblocks = kk_project_blocks(ncols);
+  unproject_batched_kernel<<<dim3(nblocks, nprob), kThreads, 0, (cudaStream_t)stream>>>(
+      prob, (float4*)y, ncols / 4);
   return (int)cudaGetLastError();
 }
 

@@ -39,6 +39,7 @@ __all__ = [
     "initialize_3term",
     "expand",
     "expand_hermitian",
+    "expand_batched",
     "expand_hermitian_selective",
     "expand_3term",
     "fused_available",
@@ -88,15 +89,64 @@ def expand(op_apply, state: KrylovState, orth: on.Orthogonalizer,
            space: VectorSpace = STANDARD, verbosity: int = 0) -> KrylovState:
     """One Krylov step: ``w = A V[k]``, orthonormalize against ``V[:k+1]``,
     append (reference ``expand!``, ``src/factorizations/arnoldi.jl:199-219``)."""
-    V, H, k = state.V, state.H, state.k
+    V, k = state.V, state.k
     w = op_apply(bs.get(V, k))
     v_new, beta, c = on.orthonormalize(w, V, k + 1, orth, space)
+    return _arnoldi_append(state, v_new, beta, c, verbosity)
+
+
+def _arnoldi_append(state: KrylovState, v_new, beta, c, verbosity: int) -> KrylovState:
+    V, H, k = state.V, state.H, state.k
     bs.set(V, k + 1, v_new)
     H[:, k] = c.to(H.dtype)
     H[k + 1, k] = beta.to(H.dtype)
     log_if(
         verbosity, EACHITERATION + 1,
         "Krylov expansion to dimension {k}: subspace normres = {b}",
+        k=k + 1, b=beta,
+    )
+    return KrylovState(V, H, k + 1, beta)
+
+
+def _lanczos_front(w, state: KrylovState, orth: on.Orthogonalizer, space: VectorSpace,
+                   verbosity: int):
+    """The part of a Hermitian Lanczos step before its drift sweep, for an
+    orthogonalizer other than plain cgs: the explicit 3-term subtraction and
+    ``α``.  Returns ``(w, α, the drift sweep's orthogonalizer)``."""
+    V, k, beta_prev = state.V, state.k, state.beta
+    vk = bs.get(V, k)
+    if k > 0:
+        w = tree_map(lambda a, b: a - beta_prev.to(a.dtype) * b, w, bs.get(V, k - 1))
+    alpha = space.inner(vk, w)
+    if torch.is_complex(alpha):
+        # hermiticity check (reference src/factorizations/lanczos.jl:172-178)
+        eps = torch.finfo(alpha.real.dtype).eps
+        htol = eps ** 0.75
+        warn_if(
+            verbosity,
+            torch.abs(alpha.imag) > htol * torch.clamp(torch.abs(alpha), min=1),
+            "Lanczos iteration: operator does not appear to be hermitian: "
+            "imag(alpha) = {ia}",
+            ia=alpha.imag,
+        )
+    w = tree_map(lambda a, b: a - alpha.to(a.dtype) * b, w, vk)
+    if isinstance(orth, (on.ClassicalGramSchmidt, on.ClassicalGramSchmidt2)):
+        sweep_orth = on.cgs
+    elif isinstance(orth, (on.ModifiedGramSchmidt, on.ModifiedGramSchmidt2)):
+        sweep_orth = on.mgs
+    else:
+        sweep_orth = orth
+    return w, alpha, sweep_orth
+
+
+def _lanczos_append(state: KrylovState, v_new, alpha, beta, verbosity: int) -> KrylovState:
+    V, H, k = state.V, state.H, state.k
+    bs.set(V, k + 1, v_new)
+    H[k, k] = alpha.to(H.dtype)
+    H[k + 1, k] = beta.to(H.dtype)
+    log_if(
+        verbosity, EACHITERATION + 1,
+        "Lanczos expansion to dimension {k}: subspace normres = {b}",
         k=k + 1, b=beta,
     )
     return KrylovState(V, H, k + 1, beta)
@@ -112,44 +162,47 @@ def expand_hermitian(op_apply, state: KrylovState, orth: on.Orthogonalizer,
     sweep (cgs for cgs/cgs2, mgs for mgs/mgs2, else the orthogonalizer
     itself).  Column ``k`` of ``H`` gets ``α`` at ``k`` and ``β`` at
     ``k+1``; its other entries (the restart's arrowhead couplings) stay."""
-    V, H, k, beta_prev = state.V, state.H, state.k, state.beta
-    vk = bs.get(V, k)
-    w = op_apply(vk)
+    V, k = state.V, state.k
+    w = op_apply(bs.get(V, k))
     if isinstance(orth, on.ClassicalGramSchmidt):
         v_new, beta, c = on.orthonormalize(w, V, k + 1, on.cgs, space)
         alpha = c[k]
     else:
-        if k > 0:
-            w = tree_map(lambda a, b: a - beta_prev.to(a.dtype) * b, w, bs.get(V, k - 1))
-        alpha = space.inner(vk, w)
-        if torch.is_complex(alpha):
-            # hermiticity check (reference src/factorizations/lanczos.jl:172-178)
-            eps = torch.finfo(alpha.real.dtype).eps
-            htol = eps ** 0.75
-            warn_if(
-                verbosity,
-                torch.abs(alpha.imag) > htol * torch.clamp(torch.abs(alpha), min=1),
-                "Lanczos iteration: operator does not appear to be hermitian: "
-                "imag(alpha) = {ia}",
-                ia=alpha.imag,
-            )
-        w = tree_map(lambda a, b: a - alpha.to(a.dtype) * b, w, vk)
-        if isinstance(orth, (on.ClassicalGramSchmidt, on.ClassicalGramSchmidt2)):
-            sweep_orth = on.cgs
-        elif isinstance(orth, (on.ModifiedGramSchmidt, on.ModifiedGramSchmidt2)):
-            sweep_orth = on.mgs
-        else:
-            sweep_orth = orth
+        w, alpha, sweep_orth = _lanczos_front(w, state, orth, space, verbosity)
         v_new, beta, _ = on.orthonormalize(w, V, k + 1, sweep_orth, space)
-    bs.set(V, k + 1, v_new)
-    H[k, k] = alpha.to(H.dtype)
-    H[k + 1, k] = beta.to(H.dtype)
-    log_if(
-        verbosity, EACHITERATION + 1,
-        "Lanczos expansion to dimension {k}: subspace normres = {b}",
-        k=k + 1, b=beta,
-    )
-    return KrylovState(V, H, k + 1, beta)
+    return _lanczos_append(state, v_new, alpha, beta, verbosity)
+
+
+def expand_batched(apply, states: dict, orth: on.Orthogonalizer, space: VectorSpace = STANDARD,
+                   verbosity: int = 0, hermitian: bool = False) -> dict:
+    """One :func:`expand` (or, ``hermitian``, :func:`expand_hermitian`) step
+    of every problem in ``states`` (``{p: KrylovState}``) at once, each at
+    its own ``k``: ``apply({p: x_p})`` gives ``{p: A_p x_p}`` for all of
+    them (one call, e.g. one batched operator launch), then the
+    orthonormalizations run through :func:`~..ops.orthonormal.orthonormalize_batched`
+    (a cgs or cgs2 sweep: one batched project and one batched unproject for
+    all).  Each problem's new state is its one-problem step's.  Returns
+    ``{p: KrylovState}``."""
+    ps = list(states)
+    W = apply({p: bs.get(states[p].V, states[p].k) for p in ps})
+    alphas, sweep_orth = {}, orth
+    if hermitian:
+        sweep_orth = on.cgs
+        if not isinstance(orth, on.ClassicalGramSchmidt):
+            for p in ps:
+                W[p], alphas[p], sweep_orth = _lanczos_front(W[p], states[p], orth, space,
+                                                             verbosity)
+    outs = on.orthonormalize_batched([W[p] for p in ps], [states[p].V for p in ps],
+                                     [states[p].k + 1 for p in ps], sweep_orth, space)
+    new = {}
+    for p, (v_new, beta, c) in zip(ps, outs):
+        st = states[p]
+        if hermitian:
+            alpha = alphas[p] if p in alphas else c[st.k]
+            new[p] = _lanczos_append(st, v_new, alpha, beta, verbosity)
+        else:
+            new[p] = _arnoldi_append(st, v_new, beta, c, verbosity)
+    return new
 
 
 def _normalized(w, beta):
@@ -597,8 +650,12 @@ def make_fused_stepper_batched(op, kmax: int, dgks: bool):
     * ``advance(V, Y, carries, problems)``: one step of every problem in
       ``problems``, each at its own top row, the scalar front half per
       problem and one :func:`~..ops.fused_lanczos.fused_step_batched` launch
-      for all; returns ``(Y', {p: (carry', alpha, beta, hcol)})``, ``Y'``
-      the launch's ``y'`` (only the stepped problems' rows are defined);
+      for each distinct top row among them (a launch whose problems have
+      unequal live rows runs the plan of the largest, which rounds the
+      others' reductions otherwise than their one-problem launches; one
+      ``B`` a launch keeps every problem's one-problem bits); returns
+      ``(Y', {p: (carry', alpha, beta, hcol)})``, ``Y'`` the launches'
+      ``y'`` (only the stepped problems' rows are defined);
     * ``tail``: the one-problem tail of one problem's carry."""
     spec = fl.spec_for(op)
     if spec is None:
@@ -626,14 +683,18 @@ def make_fused_stepper_batched(op, kmax: int, dgks: bool):
             rows[p] = torch.cat([csub, lam[None]])
             kp1[p] = c.k + 1
         G = torch.stack(rows)
-        # live rows: B = k + 1 = kp1 for every problem
-        Yn, raw = fl.fused_step_batched(V, Y, G, kp1, kp1, spec, with_drift=dgks,
-                                        active=problems)
+        # live rows: B = k + 1 = kp1 for every problem; one launch per B
+        Yn, raws = torch.empty_like(Y), {}
+        for B in sorted({kp1[p] for p in problems}):
+            group = [p for p in problems if kp1[p] == B]
+            _, raw = fl.fused_step_batched(V, Y, G, kp1, kp1, spec, with_drift=dgks,
+                                           active=group, ynext=Yn)
+            raws.update({p: raw[p] for p in group})
         out = {}
         for p in problems:
             c = carries[p]
             csub, lam, hcol, alpha, sc = fronts[p]
-            rn, dn, rpn, qn = _unpack_raw(raw[p], c.k + 1, kmax, dgks)
+            rn, dn, rpn, qn = _unpack_raw(raws[p], c.k + 1, kmax, dgks)
             beta = torch.sqrt(qn)
             sc = _append_row(sc, c.k, beta, csub, lam, dgks)
             out[p] = (FusedCarry(V[p], Yn[p], rn, dn, rpn, qn, sc, c.k + 1), alpha, beta, hcol)
@@ -642,21 +703,26 @@ def make_fused_stepper_batched(op, kmax: int, dgks: bool):
     return prime, advance, tail
 
 
-def fused_expansions_batched(op, V, states, scales, m: int, btol: float, dgks: bool = False):
-    """:func:`fused_expansions` (Hermitian) of every problem in ``states``
+def fused_expansions_batched(op, V, states, scales, m: int, btol, dgks: bool = False,
+                             hermitian: bool = True, min_one: bool = False):
+    """:func:`fused_expansions` of every problem in ``states``
     (``{p: KrylovState}``, ``states[p].V`` the row ``V[p]`` of the batch's
     basis ``V (P, m + 1, R, 128)``; ``scales`` ``{p: FusedScales}``) at
     once: each problem expands from its own ``k`` to ``m`` as its own solve
     would, and leaves the launches when its solve would stop (frozen, as a
     vmapped ``while_loop`` selects a finished problem's old carry).  A step
     reads one ``(problems,)`` list of ``‖R_k‖`` from the device and makes one
-    batched kernel launch.  Returns ``({p: KrylovState}, {p: FusedScales},
-    {p: numops increment})``."""
+    batched kernel launch per distinct top row.  ``btol`` is one bound for all or ``{p: bound}``;
+    ``hermitian`` and ``min_one`` are :func:`fused_expansions`'s (the
+    Arnoldi column, one forced step).  Returns ``({p: KrylovState}, {p:
+    FusedScales}, {p: numops increment})``."""
     problems = sorted(states)
+    btols = btol if isinstance(btol, dict) else {p: btol for p in problems}
     kmax = m + 1
     prime, advance, tail = make_fused_stepper_batched(op, kmax, dgks)
     Y = torch.empty((V.shape[0],) + tuple(V.shape[2:]), dtype=V.dtype, device=V.device)
-    carries = prime(V, Y, {p: states[p].k for p in problems}, scales, problems)
+    k0s = {p: states[p].k for p in problems}
+    carries = prime(V, Y, k0s, scales, problems)
     H = {p: states[p].H for p in problems}
     go = {}
     stepping = problems
@@ -664,30 +730,31 @@ def fused_expansions_batched(op, V, states, scales, m: int, btol: float, dgks: b
         qnorms = torch.stack([torch.sqrt(carries[p].q) for p in stepping]).tolist()
         nxt = []
         for p, qn in zip(stepping, qnorms):
-            if carries[p].k < m - 1 and qn > btol:
+            going = (min_one and carries[p].k == k0s[p]) or qn > btols[p]
+            if carries[p].k < m - 1 and going:
                 nxt.append(p)
             else:
-                go[p] = carries[p].k == m - 1 and qn > btol
+                go[p] = carries[p].k == m - 1 and going
         if not nxt:
             break
         Y, outs = advance(V, Y, carries, nxt)
         for p in nxt:
-            c, alpha, beta_k, _ = outs[p]
-            H[p] = _h_column(H[p], carries[p].k, alpha, beta_k)
+            c, alpha, beta_k, h = outs[p]
+            H[p] = _h_column(H[p], carries[p].k, alpha, beta_k, None if hermitian else h)
             carries[p] = c
         stepping = nxt
     new_states, new_scales, dops = {}, {}, {}
     for p in problems:
         c = carries[p]
         k = c.k
-        Vp, sc, alpha, beta_m, _ = tail(c, go[p])
+        Vp, sc, alpha, beta_m, h = tail(c, go[p])
         if go[p]:
-            H[p] = _h_column(H[p], k, alpha, beta_m)
+            H[p] = _h_column(H[p], k, alpha, beta_m, None if hermitian else h)
             beta_out = beta_m
         else:
             beta_out = torch.sqrt(c.q)
         new_states[p] = KrylovState(Vp, H[p], k + int(go[p]),
                                     beta_out.to(states[p].beta.dtype))
         new_scales[p] = sc
-        dops[p] = (k - states[p].k) + 1
+        dops[p] = (k - k0s[p]) + 1
     return new_states, new_scales, dops

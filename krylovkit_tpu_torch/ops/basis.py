@@ -21,7 +21,10 @@ R, 128)``, each by its own ``U``, in one launch (the TPU kernel under
 With the module flag :data:`use_pallas_projections` on, :func:`project` and
 :func:`unproject` (given ``k``) send an eligible basis to the live-row
 kernels of ``ops/projections.py``; any other basis, a pytree basis
-included, keeps the ``@`` path.
+included, keeps the ``@`` path.  :func:`project_batched` and
+:func:`unproject_batched` do the same for the problems of a batched solve:
+one batched launch where the flag is on and every problem's basis is
+eligible, else each problem through :func:`project` / :func:`unproject`.
 """
 
 from __future__ import annotations
@@ -46,6 +49,8 @@ __all__ = [
     "project_bucketed",
     "unproject",
     "unproject_bucketed",
+    "project_batched",
+    "unproject_batched",
     "transform",
     "transform_partial",
     "transform_rung",
@@ -211,6 +216,30 @@ def unproject_bucketed(V, c: torch.Tensor, k: int):
     beyond ``k``)."""
     B = bucket_for(k, capacity(V))
     return unproject(prefix(V, B), c[:B])
+
+
+def project_batched(Vs, xs, ks, space: VectorSpace = STANDARD) -> list:
+    """``[project(Vs[i], xs[i], ks[i], space) for i]`` for the problems of a
+    batched solve (``Vs`` their bases, ``ks`` host ints).  With the flag on
+    and every problem's ``(V, x)`` eligible (:func:`_pallas_proj_leaf`) on
+    an unsharded space, one batched launch of the project kernel
+    (``projections.project_pallas_batched``), each row the one-problem
+    launch's bits; otherwise problem by problem, today's routes exactly."""
+    if space.psum_axis is None and all(_pallas_proj_leaf(V, x, space) for V, x in zip(Vs, xs)):
+        return list(pb.project_pallas_batched(Vs, [x.contiguous() for x in xs], ks))
+    return [project(V, x, k, space) for V, x, k in zip(Vs, xs, ks)]
+
+
+def unproject_batched(Vs, cs, ks) -> list:
+    """``[unproject(Vs[i], cs[i], ks[i]) for i]``: with the flag on, real
+    coefficients and every basis eligible (:func:`_pallas_basis`), one
+    batched launch of the unproject kernel
+    (``projections.unproject_pallas_batched``), each row the one-problem
+    launch's bits; otherwise problem by problem."""
+    if all(not torch.is_complex(c) and _pallas_basis(V) and c.device == V.device
+           for V, c in zip(Vs, cs)):
+        return list(pb.unproject_pallas_batched(Vs, cs, ks))
+    return [unproject(V, c, k) for V, c, k in zip(Vs, cs, ks)]
 
 
 def append_scaled(y, V, c: torch.Tensor, alpha=1.0):

@@ -452,16 +452,18 @@ def _batch_args(V, y, g, kp1, B, active):
 
 
 def fused_step_batched_reference(V, y, g, kp1, B, spec: StencilSpec,
-                                 with_drift: bool = False, active=None):
+                                 with_drift: bool = False, active=None, ynext=None):
     """Plain version of the batched step: :func:`fused_step_reference` on
     each active problem ``p`` (``V[p]``, ``y[p]``, ``g[p]``, ``kp1[p]``,
     ``B[p]``).  Returns ``(y_next (P, R, 128), raw (P, width))`` with
     ``width`` the longest ``raw`` of the active problems; a problem's row is
     zero beyond its own ``raw`` and every row of an inactive problem is
-    zero, and its basis is not touched."""
+    zero (of ``y_next`` too, unless ``ynext`` is given: then the active rows
+    are written into it and the others keep theirs), and its basis is not
+    touched."""
     P, kp1, B, active = _batch_args(V, y, g, kp1, B, active)
     width = max(_raw_len(B[p], with_drift) for p in active)
-    ynext = torch.zeros_like(y)
+    ynext = torch.zeros_like(y) if ynext is None else ynext
     raw = torch.zeros((P, width), dtype=torch.float32, device=V.device)
     for p in active:
         yn, r = fused_step_reference(V[p], y[p], g[p], kp1[p], B[p], spec, with_drift)
@@ -484,7 +486,7 @@ def _batch_scratch_for(device: torch.device, floats: int):
 
 
 def fused_step_batched(V, y, g, kp1, B, spec: StencilSpec, with_drift: bool = False,
-                       active=None):
+                       active=None, ynext=None):
     """The fused step of the problems in ``active`` (default: all) in one
     launch.  ``V (P, kmax, R, 128)``, ``y (P, R, 128)``, ``g (P, kmax + 1)``;
     ``kp1`` and ``B`` are an int each per problem (or one int for all).
@@ -499,10 +501,13 @@ def fused_step_batched(V, y, g, kp1, B, spec: StencilSpec, with_drift: bool = Fa
     ``B`` are equal, each problem's results are a one-problem launch's, bit
     for bit), :data:`MAX_BATCH` problems a launch; a CPU tensor runs
     :func:`fused_step_batched_reference`.  No external halos: a sharded
-    space is not batched."""
+    space is not batched.  ``ynext``, where given, is the ``(P, R, 128)``
+    buffer the active rows of ``y_next`` are written into (its other rows
+    keep theirs), so launches over disjoint sets of problems can fill one
+    buffer."""
     _build.refuse_autograd("fused_step_batched", V, y, g)
     if V.device.type == "cpu":
-        return fused_step_batched_reference(V, y, g, kp1, B, spec, with_drift, active)
+        return fused_step_batched_reference(V, y, g, kp1, B, spec, with_drift, active, ynext)
     if V.device.type != "cuda":
         raise ValueError(f"unsupported device {V.device}")
     P, kp1, B, active = _batch_args(V, y, g, kp1, B, active)
@@ -524,7 +529,12 @@ def fused_step_batched(V, y, g, kp1, B, spec: StencilSpec, with_drift: bool = Fa
     plan = plan_step(R, Bmax, spec.h, bool(with_drift), sms)
     chunk = min(len(active), MAX_BATCH)
     partials, counters = _batch_scratch_for(V.device, chunk * plan.nblocks * width)
-    ynext = torch.empty_like(y)
+    if ynext is None:
+        ynext = torch.empty_like(y)
+    elif (ynext.shape != y.shape or ynext.dtype != torch.float32 or ynext.device != V.device
+          or not ynext.is_contiguous() or ynext.data_ptr() % 16):
+        raise ValueError("fused_step_batched needs ynext like y: contiguous float32, 16-byte "
+                         "aligned")
     raw = torch.empty((P, width), dtype=torch.float32, device=V.device)
     coef, offs, dxs = _host_taps(spec)
     stream = torch.cuda.current_stream(V.device).cuda_stream

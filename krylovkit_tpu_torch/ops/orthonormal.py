@@ -9,6 +9,11 @@ package (``basis.buckets_for``), so both contract over the same rows.  With
 ``basis.use_pallas_projections`` on, the sweep is unbucketed: the live-row
 kernels take the whole basis and the active length.  Vectors and bases may
 be pytrees (``ops/vector.py``); the sweeps then run leaf by leaf.
+
+:func:`orthonormalize_batched` orthonormalizes one vector of each problem of
+a batched solve against that problem's basis: each problem's result is
+:func:`orthonormalize`'s, and a cgs or cgs2 sweep makes one
+``basis.project_batched`` and one ``basis.unproject_batched`` call for all.
 """
 
 from __future__ import annotations
@@ -38,6 +43,8 @@ __all__ = [
     "mgsir",
     "orthogonalize",
     "orthonormalize",
+    "orthogonalize_batched",
+    "orthonormalize_batched",
 ]
 
 _ETA_DGKS = 1 / math.sqrt(2.0)  # reference default η (src/algorithms.jl:76-80)
@@ -111,6 +118,17 @@ def _cgs_sweep(w, V, k: int, space):
     return w, torch.nn.functional.pad(c, (0, kmax - B)).to(_coeff_dtype(V, w, space))
 
 
+def _cgs_sweep_batched(ws, Vs, ks, space):
+    """:func:`_cgs_sweep` of each problem; with the projection flag on, the
+    two halves of every problem's sweep in one batched call each."""
+    if not bs.use_pallas_projections:
+        return [_cgs_sweep(w, V, k, space) for w, V, k in zip(ws, Vs, ks)]
+    cs = bs.project_batched(Vs, ws, ks, space)
+    ys = bs.unproject_batched(Vs, cs, ks)
+    return [(_sub(w, y), c.to(_coeff_dtype(V, w, space)))
+            for w, V, c, y in zip(ws, Vs, cs, ys)]
+
+
 def _mgs_sweep(w, V, k: int, space):
     c = torch.zeros(bs.capacity(V), dtype=_coeff_dtype(V, w, space), device=device_of(w))
     for j in range(k):
@@ -168,7 +186,33 @@ def orthonormalize(
     and ``‖v‖ = 1``; on breakdown (``beta == 0``) ``v`` is zero.  Reference:
     ``orthonormalize!!`` (``src/orthonormal.jl:520-527``)."""
     w, c = orthogonalize(w, V, k, orth, space)
+    return _normalize(w, space) + (c,)
+
+
+def _normalize(w, space):
+    """``(w/‖w‖, ‖w‖)``, a zero vector where the norm is zero."""
     beta = space.norm(w)
     safe = torch.where(beta > 0, beta, torch.ones_like(beta))
-    v = tree_map(lambda l: torch.where(beta > 0, l / safe, 0 * l), w)
-    return v, beta, c
+    return tree_map(lambda l: torch.where(beta > 0, l / safe, 0 * l), w), beta
+
+
+def orthogonalize_batched(ws, Vs, ks, orth: Orthogonalizer = cgs2,
+                          space: VectorSpace = STANDARD) -> list:
+    """:func:`orthogonalize` of ``ws[i]`` against ``Vs[i][:ks[i]]`` for each
+    problem ``i``, as a list of ``(w_perp, c)``.  cgs and cgs2 run their
+    sweeps for all problems at once (:func:`_cgs_sweep_batched`); the other
+    orthogonalizers run problem by problem."""
+    if type(orth) is ClassicalGramSchmidt:
+        return _cgs_sweep_batched(ws, Vs, ks, space)
+    if type(orth) is ClassicalGramSchmidt2:
+        first = _cgs_sweep_batched(ws, Vs, ks, space)
+        second = _cgs_sweep_batched([w for w, _ in first], Vs, ks, space)
+        return [(w, c1 + c2) for (_, c1), (w, c2) in zip(first, second)]
+    return [orthogonalize(w, V, k, orth, space) for w, V, k in zip(ws, Vs, ks)]
+
+
+def orthonormalize_batched(ws, Vs, ks, orth: Orthogonalizer = cgs2,
+                           space: VectorSpace = STANDARD) -> list:
+    """:func:`orthonormalize` of each problem, as a list of ``(v, beta,
+    c)``, its sweeps through :func:`orthogonalize_batched`."""
+    return [_normalize(w, space) + (c,) for w, c in orthogonalize_batched(ws, Vs, ks, orth, space)]

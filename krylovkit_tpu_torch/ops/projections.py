@@ -17,6 +17,12 @@ and rows ``>= k`` of the basis are never read.
 
 ``ops/basis.py`` routes ``project``/``unproject`` here when its module flag
 ``use_pallas_projections`` is on.
+
+:func:`project_pallas_batched` and :func:`unproject_pallas_batched` run the
+two kernels for ``P`` problems in one launch (the TPU kernels under
+``jax.vmap``), each problem on its own basis, operand and host ``int`` ``k``;
+each problem's result is the one-problem launch's, bit for bit.  Their plain
+versions loop the one-problem plain versions.
 """
 
 from __future__ import annotations
@@ -36,6 +42,11 @@ __all__ = [
     "project_reference",
     "unproject_pallas",
     "unproject_reference",
+    "MAX_BATCH",
+    "project_pallas_batched",
+    "project_batched_reference",
+    "unproject_pallas_batched",
+    "unproject_batched_reference",
 ]
 
 LANES = 128
@@ -99,6 +110,10 @@ def _lib():
         lib.kk_project.restype = i
         lib.kk_unproject.argtypes = [p, p, p, p, i, i, ll, p]
         lib.kk_unproject.restype = i
+        lib.kk_project_batched.argtypes = [p, p, p, i, p, p, i, ll, p]
+        lib.kk_project_batched.restype = i
+        lib.kk_unproject_batched.argtypes = [p, p, p, i, p, i, ll, p]
+        lib.kk_unproject_batched.restype = i
         _proj_lib = lib
     return _proj_lib
 
@@ -192,3 +207,134 @@ def unproject_pallas(V: torch.Tensor, c: torch.Tensor, k: LiveRows) -> torch.Ten
     _build.check(lib, status, "unproject")
     _build.launches["unproject"] += 1
     return y
+
+
+# problems one batched launch takes (csrc/projections.cu kMaxProblems); the
+# wrappers launch a longer list in chunks of this many
+MAX_BATCH = 64
+
+_batch_scratch: dict = {}
+
+
+def _batched_operands(name: str, Vs, xs, ks, operand_shape):
+    """The lists ``(Vs, xs, ks)`` of a batched call, each problem checked as
+    the one-problem wrapper checks it; every basis of one shape, type and
+    device."""
+    Vs, xs = list(Vs), list(xs)
+    ks = [int(k.item()) if isinstance(k, torch.Tensor) else int(k) for k in ks]
+    if not Vs or len(xs) != len(Vs) or len(ks) != len(Vs):
+        raise ValueError(f"{name}: {len(Vs)} bases, {len(xs)} operands and {len(ks)} k")
+    V0 = Vs[0]
+    for V, x, k in zip(Vs, xs, ks):
+        if (V.shape, V.dtype, V.device) != (V0.shape, V0.dtype, V0.device):
+            raise ValueError(f"{name}: bases of shapes {tuple(V0.shape)} and {tuple(V.shape)}, "
+                             f"or on {V0.device} and {V.device}")
+        _check(name, V, x, operand_shape(V), k)
+    return Vs, xs, ks
+
+
+def project_batched_reference(Vs, ws, ks) -> torch.Tensor:
+    """Plain version of the batched project: :func:`project_reference` of
+    each problem, stacked ``(P, kmax)``."""
+    Vs, ws, ks = _batched_operands("project_batched", Vs, ws, ks, lambda V: V.shape[1:])
+    return torch.stack([project_reference(V, w, k) for V, w, k in zip(Vs, ws, ks)])
+
+
+def unproject_batched_reference(Vs, cs, ks) -> torch.Tensor:
+    """Plain version of the batched unproject: :func:`unproject_reference` of
+    each problem, stacked ``(P, R, 128)``."""
+    cs = [c.to(torch.float32) for c in cs]
+    Vs, cs, ks = _batched_operands("unproject_batched", Vs, cs, ks, lambda V: (V.shape[0],))
+    return torch.stack([unproject_reference(V, c, k) for V, c, k in zip(Vs, cs, ks)])
+
+
+def _batch_partials(device: torch.device, floats: int) -> torch.Tensor:
+    """Per device: the partials of a batched project launch, grown to
+    ``floats``.  One stream at a time may use them (a one-problem launch
+    has its own)."""
+    buf = _batch_scratch.get(device)
+    if buf is None or buf.numel() < floats:
+        buf = torch.empty(floats, dtype=torch.float32, device=device)
+        _batch_scratch[device] = buf
+    return buf
+
+
+def _pointers(ts):
+    return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
+
+
+def project_pallas_batched(Vs, ws, ks) -> torch.Tensor:
+    """``C[p, j] = <V_p[j], w_p>`` for ``j < k_p``, zero beyond, for ``P``
+    problems: ``Vs`` ``P`` bases ``(kmax, R, 128)`` float32 of one shape (a
+    ``(P, kmax, R, 128)`` stack iterates as one), ``ws`` ``P`` operands,
+    ``ks`` ``P`` host ints.  Returns ``C (P, kmax)``; row ``p`` is
+    :func:`project_pallas` of problem ``p`` bit for bit, and rows ``>= k_p``
+    of its basis are never read.
+
+    A CUDA basis runs ``kk_project_batched`` of ``csrc/projections.cu``,
+    :data:`MAX_BATCH` problems a launch; a CPU basis runs
+    :func:`project_batched_reference`."""
+    Vs, ws = list(Vs), list(ws)
+    _build.refuse_autograd("project_batched", *Vs, *ws)
+    Vs, ws, ks = _batched_operands("project_batched", Vs, ws, ks, lambda V: V.shape[1:])
+    V0 = Vs[0]
+    if V0.device.type == "cpu":
+        return project_batched_reference(Vs, ws, ks)
+    _check_cuda("project_batched", V0)
+    for V, w in zip(Vs, ws):
+        _check_cuda("project_batched", V, w)
+    kmax, ncols, P = V0.shape[0], V0[0].numel(), len(Vs)
+    lib = _lib()
+    nblocks = lib.kk_project_blocks(ncols)
+    chunk = min(P, MAX_BATCH)
+    partials = _batch_partials(V0.device, chunk * nblocks * kmax)
+    C = torch.empty((P, kmax), dtype=torch.float32, device=V0.device)
+    stream = torch.cuda.current_stream(V0.device).cuda_stream
+    for c0 in range(0, P, MAX_BATCH):
+        part = range(c0, min(c0 + MAX_BATCH, P))
+        status = lib.kk_project_batched(
+            _pointers([Vs[i] for i in part]), _pointers([ws[i] for i in part]),
+            (ctypes.c_int * len(part))(*[ks[i] for i in part]), len(part),
+            partials.data_ptr(), C[c0].data_ptr(), kmax, ncols, stream,
+        )
+        _build.check(lib, status, "project_batched")
+        _build.launches["project_batched"] += 1
+    return C
+
+
+def unproject_pallas_batched(Vs, cs, ks) -> torch.Tensor:
+    """``Y[p] = Σ_{j<k_p} c_p[j] V_p[j]`` for ``P`` problems (``cs`` real
+    ``(kmax,)`` vectors, each zero beyond its ``k``).  Returns ``Y (P, R,
+    128)``; row ``p`` is :func:`unproject_pallas` of problem ``p`` bit for
+    bit, and rows ``>= k_p`` of its basis are never read.
+
+    A CUDA basis runs ``kk_unproject_batched`` of ``csrc/projections.cu``,
+    :data:`MAX_BATCH` problems a launch; a CPU basis runs
+    :func:`unproject_batched_reference`."""
+    Vs, cs = list(Vs), list(cs)
+    _build.refuse_autograd("unproject_batched", *Vs, *cs)
+    for c in cs:
+        if torch.is_complex(c) or not torch.is_floating_point(c):
+            raise ValueError(f"unproject_pallas_batched needs real floating coefficients, "
+                             f"got {c.dtype}")
+    cs = [c.to(torch.float32).contiguous() for c in cs]
+    Vs, cs, ks = _batched_operands("unproject_batched", Vs, cs, ks, lambda V: (V.shape[0],))
+    V0 = Vs[0]
+    if V0.device.type == "cpu":
+        return unproject_batched_reference(Vs, cs, ks)
+    for V in Vs:
+        _check_cuda("unproject_batched", V)
+    kmax, ncols, P = V0.shape[0], V0[0].numel(), len(Vs)
+    lib = _lib()
+    Y = torch.empty((P,) + tuple(V0.shape[1:]), dtype=torch.float32, device=V0.device)
+    stream = torch.cuda.current_stream(V0.device).cuda_stream
+    for c0 in range(0, P, MAX_BATCH):
+        part = range(c0, min(c0 + MAX_BATCH, P))
+        status = lib.kk_unproject_batched(
+            _pointers([Vs[i] for i in part]), _pointers([cs[i] for i in part]),
+            (ctypes.c_int * len(part))(*[ks[i] for i in part]), len(part),
+            Y[c0].data_ptr(), kmax, ncols, stream,
+        )
+        _build.check(lib, status, "unproject_batched")
+        _build.launches["unproject_batched"] += 1
+    return Y

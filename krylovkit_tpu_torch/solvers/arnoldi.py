@@ -106,34 +106,91 @@ def _masked(M: torch.Tensor, k: int, howmany: int) -> torch.Tensor:
     return out
 
 
-def _restart(fact: kf.KrylovState, T, Q, beta, keep: int, keep_max: int, gate=None,
-             scales=None) -> kf.KrylovState:
-    """Krylov-Schur truncation: keep the leading sorted Schur vectors.
-
-    With ``gate`` false the rotation is the identity and ``H``/``k`` keep
-    their values: the transform still runs, as in the JAX package's masked
-    restart, and leaves the basis bit-identical.  ``keep_max`` bounds
-    ``keep``, so only the surviving rows are written
-    (``bs.transform_partial``)."""
+def _restart_rotation(fact: kf.KrylovState, T, Q, beta, keep: int, gate=None,
+                      scales=None):
+    """The Krylov-Schur truncation's rotation ``U`` of the stored rows and
+    the truncated state (its basis not yet rotated): keep the leading
+    sorted Schur vectors.  With ``gate`` false ``U`` is the identity and
+    ``H``/``k`` keep their values (the JAX package's masked restart)."""
     V, H, k = fact.V, fact.H, fact.k
     m1 = H.shape[0]
-    dev = H.device
     if gate is not None and not gate:
-        Vnew = bs.transform_partial(V, torch.eye(m1, dtype=Q.dtype, device=dev), keep_max + 1)
-        return kf.KrylovState(Vnew, H, k, beta)
+        return torch.eye(m1, dtype=Q.dtype, device=H.device), kf.KrylovState(V, H, k, beta)
     Qkeep = _masked(Q, k, keep)
     Qkeep[k, keep] += 1
     if scales is not None:
         # fused-expansion mode: stored rows are unnormalized with true basis
         # v_j = Σ_i L[i,j]·row_i — rotate with L·Q
         Qkeep = scales.to(Q.dtype) @ Qkeep
-    Vnew = bs.transform_partial(V, Qkeep, keep_max + 1)
     # H ← [kept triangular block; spike row s = β·Q[k-1, :keep]]
     s = (beta * Q[max(k - 1, 0)]).to(H.dtype)
     Hnew = torch.zeros_like(H)
     Hnew[:keep, :keep] = T[:keep, :keep].to(H.dtype)
     Hnew[keep, :keep] = s[:keep]
-    return kf.KrylovState(Vnew, Hnew, keep, beta)
+    return Qkeep, kf.KrylovState(V, Hnew, keep, beta)
+
+
+def _restart(fact: kf.KrylovState, T, Q, beta, keep: int, keep_max: int, gate=None,
+             scales=None) -> kf.KrylovState:
+    """Krylov-Schur truncation (:func:`_restart_rotation`) with the basis
+    rotated.
+
+    With ``gate`` false the rotation is the identity: the transform still
+    runs, as in the JAX package's masked restart, and leaves the basis
+    bit-identical.  ``keep_max`` bounds ``keep``, so only the surviving rows
+    are written (``bs.transform_partial``)."""
+    U, fact = _restart_rotation(fact, T, Q, beta, keep, gate, scales)
+    Vnew = bs.transform_partial(fact.V, U, keep_max + 1)
+    return kf.KrylovState(Vnew, fact.H, fact.k, beta)
+
+
+def _fused(alg: Arnoldi, real: bool, cdt, op, x0, space) -> tuple:
+    """``(fused, dgks)``: whether the solve runs the one-stream fused
+    expansion (``ops/fused_lanczos.py``) in Arnoldi mode, full-Hessenberg
+    column writes on real float32 stencil operators.  Plain cgs runs the
+    single-sweep stream; the default cgs2 runs the one-reduce DGKS mode
+    (deferred second sweep in scalar space)."""
+    m = alg.krylovdim
+    dgks = type(alg.orth) is on.ClassicalGramSchmidt2 and 2 * (m + 1) + 2 <= 128
+    fused = (
+        real
+        and not alg.eager
+        and (type(alg.orth) is on.ClassicalGramSchmidt or dgks)
+        and cdt == torch.float32
+        and kf.fused_available(op, x0, space, kmax=m + 1)
+    )
+    return fused, dgks
+
+
+def _round(process, fact: kf.KrylovState, numiter: int, which, tol, btol: float,
+           howmany: int, alg: Arnoldi, real: bool):
+    """The host half of one Krylov-Schur round: process the projected
+    problem and decide.  Returns ``(nconv, T, Q, res, numiter, done, keep,
+    restart_now)``."""
+    m = alg.krylovdim
+    nconv, T, Q, res = process(fact.H, fact.k, fact.beta, which, tol)
+    full = fact.k >= m
+    numiter = numiter + int(full)
+    # ¬(β > btol): a NaN β must count as breakdown
+    stalled = not (float(fact.beta) > btol) and fact.k < m
+    done = nconv >= howmany or (full and numiter >= alg.maxiter) or stalled
+    keep = min(max((3 * m + 2 * nconv) // 5, 1), max(fact.k - 1, 1))
+    if real:
+        keep = _block_safe_keep(T, fact.k, keep)
+    restart_now = not done and fact.k >= m
+    log_if(
+        alg.verbosity, EACHITERATION,
+        "Arnoldi schursolve in iteration {it}: {nc} values converged, "
+        "normres = {nr}",
+        it=numiter, nc=nconv, nr=res[: min(8, m)],
+    )
+    return nconv, T, Q, res, numiter, done, keep, restart_now
+
+
+def _keep_max(m: int, howmany: int) -> int:
+    """Static bound on ``keep``: a restart implies ``nconv < howmany`` and
+    ``k == m``; the block-safe adjustment can grow ``keep`` by one."""
+    return min((3 * m + 2 * max(howmany - 1, 0)) // 5 + 1, m - 1)
 
 
 def _arnoldi_loop(op, x0, howmany: int, which, alg: Arnoldi, space, cdt, real=False):
@@ -153,19 +210,8 @@ def _arnoldi_loop(op, x0, howmany: int, which, alg: Arnoldi, space, cdt, real=Fa
         resnorms=torch.full((m + 1,), float("inf"), dtype=rdt, device=dev),
         sc=kf.fused_scales_init(m + 1, device=dev),
     )
-
-    # one-stream fused expansion (ops/fused_lanczos.py), Arnoldi mode:
-    # full-Hessenberg column writes; real f32 stencil operators.  Plain cgs
-    # runs the single-sweep stream; the default cgs2 runs the one-reduce DGKS
-    # mode (deferred second sweep in scalar space)
-    dgks = type(alg.orth) is on.ClassicalGramSchmidt2 and 2 * (m + 1) + 2 <= 128
-    fused = (
-        real
-        and not alg.eager
-        and (type(alg.orth) is on.ClassicalGramSchmidt or dgks)
-        and cdt == torch.float32
-        and kf.fused_available(op, x0, space, kmax=m + 1)
-    )
+    fused, dgks = _fused(alg, real, cdt, op, x0, space)
+    keep_max = _keep_max(m, howmany)
 
     done = False
     while not done:
@@ -185,20 +231,8 @@ def _arnoldi_loop(op, x0, howmany: int, which, alg: Arnoldi, space, cdt, real=Fa
                 numops += 1
                 j += 1
 
-        nconv, T, Q, res = process(fact.H, fact.k, fact.beta, which, tol)
-        full = fact.k >= m
-        numiter = st.numiter + int(full)
-        # ¬(β > btol): a NaN β must count as breakdown
-        stalled = not (float(fact.beta) > btol) and fact.k < m
-        done = nconv >= howmany or (full and numiter >= alg.maxiter) or stalled
-
-        keep = min(max((3 * m + 2 * nconv) // 5, 1), max(fact.k - 1, 1))
-        if real:
-            keep = _block_safe_keep(T, fact.k, keep)
-        # static bound: restart implies nconv < howmany and k == m; the
-        # block-safe adjustment can grow keep by one
-        keep_max = min((3 * m + 2 * max(howmany - 1, 0)) // 5 + 1, m - 1)
-        restart_now = not done and fact.k >= m
+        nconv, T, Q, res, numiter, done, keep, restart_now = _round(
+            process, fact, st.numiter, which, tol, btol, howmany, alg, real)
         if alg.eager:
             # eager processes every step: restart only when it is due
             if restart_now:
@@ -213,12 +247,6 @@ def _arnoldi_loop(op, x0, howmany: int, which, alg: Arnoldi, space, cdt, real=Fa
             # (triangular block + spike) seeds the stored-row Hessenberg of
             # the dgks mode
             sc = kf.fused_scales_init(m + 1, H=fact.H if fused else None, device=dev)
-        log_if(
-            alg.verbosity, EACHITERATION,
-            "Arnoldi schursolve in iteration {it}: {nc} values converged, "
-            "normres = {nr}",
-            it=numiter, nc=nconv, nr=res[: min(8, m)],
-        )
         st = _LoopState(fact, numiter, numops, nconv, T, Q, res, sc)
     return st
 
@@ -264,25 +292,17 @@ def _info(st: _LoopState, residuals, normres, howmany: int) -> ConvergenceInfo:
     )
 
 
-def schursolve(op: LinearOperator, x0: torch.Tensor, howmany: int, which, alg: Arnoldi,
-               space: VectorSpace = STANDARD):
-    """Partial Schur decomposition (reference ``schursolve``,
-    ``src/eigsolve/arnoldi.jl:1-150``): returns ``(T, vecs, vals, info)``
-    where ``vecs`` are the leading ``howmany`` Schur vectors and ``T`` the
-    ``(howmany, howmany)`` triangular factor.
-
-    Real inputs run the REAL Schur path (real basis + quasi-triangular ``T``
-    with standardized 2×2 blocks, like the reference's LAPACK ``dhseqr``);
-    ``vals`` is then ``(re, im)`` as a pair of real tensors (combine with
-    ``torch.complex(re, im)`` for complex values).  A 2×2 block straddling
-    the ``howmany`` boundary is truncated; pick ``howmany`` that does not
-    split a wanted conjugate pair."""
-    m = alg.krylovdim
-    _check(howmany, m)
+def _schur_dtypes(op, x0):
+    """``(real, cdt)`` of ``schursolve``: real inputs keep real arithmetic,
+    complex ones work in at least complex64."""
     pdt = probe_dtype(op, x0)
     real = not pdt.is_complex
-    cdt = pdt if real else torch.promote_types(pdt, torch.complex64)
-    st = _arnoldi_loop(op, x0, howmany, which, alg, space, cdt, real=real)
+    return real, pdt if real else torch.promote_types(pdt, torch.complex64)
+
+
+def _extract_schur(st: _LoopState, howmany: int, real: bool, cdt):
+    """``(T, vecs, vals, info)`` of :func:`schursolve` from its final loop
+    state."""
     fact = st.fact
     Qmask = kf.fold_scales(st.sc, _masked(st.Q, fact.k, howmany))  # fused row bookkeeping
     vecs = _leading_rows(fact.V, Qmask, howmany)
@@ -297,22 +317,36 @@ def schursolve(op: LinearOperator, x0: torch.Tensor, howmany: int, which, alg: A
     return Tsmall, vecs, vals, _info(st, residuals, st.resnorms[:howmany], howmany)
 
 
-def eigsolve_arnoldi(op: LinearOperator, x0: torch.Tensor, howmany: int, which,
-                     alg: Arnoldi, space: VectorSpace = STANDARD):
-    """General eigsolve via Krylov-Schur: returns ``(vals, vecs, info)``;
-    eigenvectors extracted from the sorted Schur form with ``trevc``-style
-    back-substitution (reference ``src/eigsolve/arnoldi.jl:151-170``).
+def schursolve(op: LinearOperator, x0: torch.Tensor, howmany: int, which, alg: Arnoldi,
+               space: VectorSpace = STANDARD):
+    """Partial Schur decomposition (reference ``schursolve``,
+    ``src/eigsolve/arnoldi.jl:1-150``): returns ``(T, vecs, vals, info)``
+    where ``vecs`` are the leading ``howmany`` Schur vectors and ``T`` the
+    ``(howmany, howmany)`` triangular factor.
 
-    Real inputs run the real-arithmetic loop (real basis); complex
-    eigenvalues and eigenvectors appear only in this final extraction, as in
-    the reference's real ``dtrevc`` + pair combination
-    (``src/dense/linalg.jl:223-246``)."""
-    m = alg.krylovdim
-    _check(howmany, m)
+    Real inputs run the REAL Schur path (real basis + quasi-triangular ``T``
+    with standardized 2×2 blocks, like the reference's LAPACK ``dhseqr``);
+    ``vals`` is then ``(re, im)`` as a pair of real tensors (combine with
+    ``torch.complex(re, im)`` for complex values).  A 2×2 block straddling
+    the ``howmany`` boundary is truncated; pick ``howmany`` that does not
+    split a wanted conjugate pair."""
+    _check(howmany, alg.krylovdim)
+    real, cdt = _schur_dtypes(op, x0)
+    st = _arnoldi_loop(op, x0, howmany, which, alg, space, cdt, real=real)
+    return _extract_schur(st, howmany, real, cdt)
+
+
+def _eig_dtypes(op, x0):
+    """``(real, loop dtype, value dtype)`` of ``eigsolve_arnoldi``."""
     pdt = probe_dtype(op, x0)
     real = not pdt.is_complex
     cdt = torch.promote_types(pdt, torch.complex64)
-    st = _arnoldi_loop(op, x0, howmany, which, alg, space, pdt if real else cdt, real=real)
+    return real, pdt if real else cdt, cdt
+
+
+def _extract_eig(st: _LoopState, howmany: int, real: bool, cdt):
+    """``(vals, vecs, info)`` of :func:`eigsolve_arnoldi` from its final
+    loop state."""
     fact = st.fact
     if real:
         Xre, Xim = dense.triangular_eigvecs_real(st.T, fact.k)
@@ -335,6 +369,54 @@ def eigsolve_arnoldi(op: LinearOperator, x0: torch.Tensor, howmany: int, which,
     return vals, vecs, _info(st, residuals, torch.abs(s)[:howmany], howmany)
 
 
+def eigsolve_arnoldi(op: LinearOperator, x0: torch.Tensor, howmany: int, which,
+                     alg: Arnoldi, space: VectorSpace = STANDARD):
+    """General eigsolve via Krylov-Schur: returns ``(vals, vecs, info)``;
+    eigenvectors extracted from the sorted Schur form with ``trevc``-style
+    back-substitution (reference ``src/eigsolve/arnoldi.jl:151-170``).
+
+    Real inputs run the real-arithmetic loop (real basis); complex
+    eigenvalues and eigenvectors appear only in this final extraction, as in
+    the reference's real ``dtrevc`` + pair combination
+    (``src/dense/linalg.jl:223-246``)."""
+    _check(howmany, alg.krylovdim)
+    real, ldt, cdt = _eig_dtypes(op, x0)
+    st = _arnoldi_loop(op, x0, howmany, which, alg, space, ldt, real=real)
+    return _extract_eig(st, howmany, real, cdt)
+
+
+def _require_real(pdt):
+    if pdt.is_complex:
+        raise ValueError(
+            "realeigsolve requires a real linear map and vector; got "
+            f"scalar type {pdt} (reference src/eigsolve/arnoldi.jl:293-300)"
+        )
+    return pdt
+
+
+REALEIG_WARNING = (
+    "realeigsolve: a complex conjugate pair entered the wanted window "
+    "(max |imag| = {mi}); results are invalid — use eigsolve"
+)
+
+
+def _extract_realeig(st: _LoopState, howmany: int, pdt):
+    """``(vals, vecs, info, maximag)`` of :func:`realeigsolve_arnoldi` from
+    its final loop state (the caller warns)."""
+    fact = st.fact
+    re, im = dense.real_schur_eigvals(st.T, fact.k)
+    maximag = torch.max(torch.abs(im[:howmany]))
+    # real eigenvectors from the quasi-triangular form (imaginary parts are
+    # zero for genuinely real eigenvalues)
+    Xre, _ = dense.triangular_eigvecs_real(st.T, fact.k)
+    QX = st.Q @ Xre
+    vecs = _leading_rows(fact.V, kf.fold_scales(st.sc, _masked(QX, fact.k, howmany)), howmany)
+    s = fact.beta * QX[max(fact.k - 1, 0)]
+    residuals = _residuals(st, s, howmany, pdt)
+    info = _info(st, residuals, torch.abs(s)[:howmany], howmany)
+    return re[:howmany], vecs, info, maximag
+
+
 def realeigsolve_arnoldi(op: LinearOperator, x0: torch.Tensor, howmany: int, which,
                          alg: Arnoldi, space: VectorSpace = STANDARD):
     """Eigsolve for real linear maps asserting real eigenvalues — the
@@ -345,31 +427,9 @@ def realeigsolve_arnoldi(op: LinearOperator, x0: torch.Tensor, howmany: int, whi
     |Im λ| among the ``howmany`` selected eigenvalues — nonzero means a
     complex conjugate pair entered the wanted window (the reference throws;
     the front-end raises)."""
-    m = alg.krylovdim
-    _check(howmany, m)
-    pdt = probe_dtype(op, x0)
-    if pdt.is_complex:
-        raise ValueError(
-            "realeigsolve requires a real linear map and vector; got "
-            f"scalar type {pdt} (reference src/eigsolve/arnoldi.jl:293-300)"
-        )
+    _check(howmany, alg.krylovdim)
+    pdt = _require_real(probe_dtype(op, x0))
     st = _arnoldi_loop(op, x0, howmany, which, alg, space, pdt, real=True)
-    fact = st.fact
-    re, im = dense.real_schur_eigvals(st.T, fact.k)
-    maximag = torch.max(torch.abs(im[:howmany]))
-    warn_if(
-        alg.verbosity,
-        maximag > 0,
-        "realeigsolve: a complex conjugate pair entered the wanted window "
-        "(max |imag| = {mi}); results are invalid — use eigsolve",
-        mi=maximag,
-    )
-    # real eigenvectors from the quasi-triangular form (imaginary parts are
-    # zero for genuinely real eigenvalues)
-    Xre, _ = dense.triangular_eigvecs_real(st.T, fact.k)
-    QX = st.Q @ Xre
-    vecs = _leading_rows(fact.V, kf.fold_scales(st.sc, _masked(QX, fact.k, howmany)), howmany)
-    s = fact.beta * QX[max(fact.k - 1, 0)]
-    residuals = _residuals(st, s, howmany, pdt)
-    info = _info(st, residuals, torch.abs(s)[:howmany], howmany)
-    return re[:howmany], vecs, info, maximag
+    out = _extract_realeig(st, howmany, pdt)
+    warn_if(alg.verbosity, out[3] > 0, REALEIG_WARNING, mi=out[3])
+    return out

@@ -19,11 +19,16 @@ with a problem axis:
 * the projected problems (``_process``, the Givens QR, the triangular
   solve) run per problem through the one-problem functions;
 * on a fusable stencil operator with ``(R, 128)`` float32 vectors, each
-  step is one batched K1 launch for every problem that steps
-  (``ops/fused_lanczos.py:fused_step_batched``), and each Lanczos restart
+  step is one batched K1 launch for the problems that step
+  (``ops/fused_lanczos.py:fused_step_batched``; one per distinct live-row
+  count among them, so each keeps its one-problem bits), and each Lanczos restart
   and the extraction one batched K2 launch
   (``ops/basis.py:transform_partial_inplace_batched``), a problem that is
-  not restarting taking the identity.
+  not restarting taking the identity;
+* an unfused step applies the operator to the stack once and
+  orthonormalizes through ``factorizations/krylov.py:expand_batched``: with
+  ``ops/basis.py``'s projection flag on, a cgs-family sweep is one batched
+  K5 and one batched K6 launch for every problem that steps.
 
 Which arguments carry the problem axis is stated by ``in_dims`` (``0`` or
 ``None`` per argument, as ``vmap``'s ``in_dims``), never guessed from
@@ -295,10 +300,9 @@ def eigsolve_lanczos_batched(op, x0, howmany: int, which, alg: Lanczos,
                 stepping = [p for p, b in zip(cand, betas) if b > btol]
                 if not stepping:
                     break
-                W = ops({p: facts[p].V[facts[p].k] for p in stepping})
+                facts.update(kf.expand_batched(ops, {p: facts[p] for p in stepping}, alg.orth,
+                                               space, alg.verbosity, hermitian=True))
                 for p in stepping:
-                    facts[p] = kf.expand_hermitian(lambda _v, w=W[p]: w, facts[p], alg.orth,
-                                                   space, verbosity=alg.verbosity)
                     numops[p] += 1
 
         rotations, finished = {}, []
@@ -447,10 +451,11 @@ def linsolve_gmres_batched(op, b, x0, a0, a1, alg: GMRES, space: VectorSpace = S
             stepping = [p for p, v in zip(cand, res) if v > tol]
             if not stepping:
                 break
-            W = ops({p: facts[p].V[facts[p].k] for p in stepping})
+            ks = {p: facts[p].k for p in stepping}  # the columns this step produces
+            facts.update(kf.expand_batched(ops, {p: facts[p] for p in stepping}, alg.orth, space,
+                                           alg.verbosity))
             for p in stepping:
-                k = facts[p].k  # column index produced by this step
-                facts[p] = kf.expand(lambda _v, w=W[p]: w, facts[p], alg.orth, space, alg.verbosity)
+                k = ks[p]
                 col = a1c * facts[p].H[:, k] + a0c * onehot(k)
                 G[p], R[p], y[p] = _qr_update(G[p], R[p], y[p], col, k)
                 numops[p] += 1

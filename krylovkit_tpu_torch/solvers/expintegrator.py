@@ -120,8 +120,12 @@ def expintegrator(
         alg = cls(**{k: v for k, v in kw.items() if v is not None})
     elif tol is not None and alg.tol != tol:
         alg = dataclasses.replace(alg, tol=tol)
-    t = complex(t) if isinstance(t, complex) or np.iscomplexobj(t) else float(t)
-    return _expintegrator_core(op, t, u, alg, space)
+    return _expintegrator_core(op, _host_t(t), u, alg, space)
+
+
+def _host_t(t):
+    """``t`` as a host ``complex`` or ``float``."""
+    return complex(t) if isinstance(t, complex) or np.iscomplexobj(t) else float(t)
 
 
 def exponentiate(A, t, v, **kw):
@@ -130,114 +134,137 @@ def exponentiate(A, t, v, **kw):
     return expintegrator(A, t, (v,), **kw)
 
 
-def _expintegrator_core(op: LinearOperator, t, u: tuple, alg, space: VectorSpace):
-    if len(u) == 1:
-        u = (u[0], zerovector(u[0]))
-    p = len(u) - 1
-    m = alg.krylovdim
-    m1p = m + p + 1
-    dev = device_of(u[0])
+class _Integrator:
+    """One problem's state of the integrator loop (reference
+    ``src/matrixfun/expintegrator.jl``) and everything it does between two
+    Krylov expansions.  :func:`_expintegrator_core` drives one;
+    ``solvers/batched_expintegrator.py`` drives one per problem and makes the
+    expansions and the operator applies of ``w`` for all of them at once.
 
-    cdt = probe_dtype(op, u[0])
-    if isinstance(t, complex) and t.imag != 0:
-        cdt = torch.promote_types(cdt, torch.complex64)
-    rdt = cdt.to_real()
-    u = tuple(astype(ui, cdt) for ui in u)
+    ``basis``, where given, is the ``(m + 1, ...)`` buffer every cycle's
+    factorization lives in (zeroed and refilled at each restart), so a
+    batched driver keeps all problems' bases in one stack."""
 
-    def real(v):
-        return torch.tensor(v, dtype=rdt)
+    def __init__(self, op: LinearOperator, t, u: tuple, alg, space: VectorSpace, cdt=None,
+                 basis=None):
+        if len(u) == 1:
+            u = (u[0], zerovector(u[0]))
+        self.op, self.alg, self.space, self.basis = op, alg, space, basis
+        self.p = p = len(u) - 1
+        self.m = m = alg.krylovdim
+        self.m1p = m + p + 1
+        self.dev = device_of(u[0])
+        if cdt is None:
+            cdt = probe_dtype(op, u[0])
+            if isinstance(t, complex) and t.imag != 0:
+                cdt = torch.promote_types(cdt, torch.complex64)
+        self.cdt = cdt
+        self.rdt = rdt = cdt.to_real()
+        self.u = tuple(astype(ui, cdt) for ui in u)
+        self.eta = self.real(alg.tol)
+        self.eps = torch.finfo(rdt).eps
 
-    eta = real(alg.tol)
-    eps = torch.finfo(rdt).eps
+        # time-step parameters
+        tau_f = abs(t)
+        if isinstance(t, complex):
+            sgn = t / tau_f if tau_f > 0 else 1.0
+            if not cdt.is_complex:
+                sgn = sgn.real
+        else:
+            sgn = math.copysign(1.0, t) if t != 0 else 1.0
+        self.sgn = sgn
+        self.finite = math.isfinite(tau_f)
+        self.tau = self.real(tau_f)
+        if self.finite:
+            self.dtau = self.tau
+            self.dtaumin = self.tau / alg.maxiter
+            self.maxerr = self.tau * self.eta
+        else:
+            self.dtau = self.real(1.0)
+            self.dtaumin = self.real(0.0)
+            self.maxerr = self.eta
+        self.tau0 = self.real(0.0)
+        self.numops = 0
+        self.w = [self.u[0]]
 
-    # time-step parameters
-    tau_f = abs(t)
-    if isinstance(t, complex):
-        sgn = t / tau_f if tau_f > 0 else 1.0
-        if not cdt.is_complex:
-            sgn = sgn.real
-    else:
-        sgn = math.copysign(1.0, t) if t != 0 else 1.0
-    finite = math.isfinite(tau_f)
-    tau = real(tau_f)
-    if finite:
-        dtau = tau
-        dtaumin = tau / alg.maxiter
-        maxerr = tau * eta
-    else:
-        dtau = real(1.0)
-        dtaumin = real(0.0)
-        maxerr = eta
+        # one-stream fused expansion (ops/fused_lanczos.py): Hermitian Lanczos
+        # subspaces of real float32 stencil operators under cgs, or under cgs2
+        # (its one-reduce form) while the packed reductions fit
+        self.dgks = type(alg.orth) is on.ClassicalGramSchmidt2 and 2 * (m + 1) + 2 <= 128
+        self.fused = (
+            isinstance(alg, Lanczos)
+            and not alg.eager
+            and (type(alg.orth) is on.ClassicalGramSchmidt or self.dgks)
+            and cdt == torch.float32
+            and kf.fused_available(op, self.u[0], space, kmax=m + 1)
+        )
+        self.totalerr = self.real(0.0)
+        self.numiter = 1
+        self.done = self.fixedpt = False
 
-    def build_w(w0, tau0, numops):
-        """``w[j+1] = A w[j] + Σ_l u[j+l+1]·(sgn·τ₀)ˡ/l!`` for ``j < p``
-        (reference ``:144-158``, ``:289-301``); returns ``(w, w_{p+1}, ops)``."""
-        w = [w0]
-        for j in range(p):
-            wj1 = op.normal(w[j])
-            numops += 1
-            lfac = 1.0
-            for l in range(p - j):
-                coef = sgn ** l * float(tau0) ** l / lfac
-                wj1 = add(wj1, u[j + l + 1], a=coef)
-                lfac *= l + 1
-            w.append(wj1)
-        return w[: p + 1], w[p], numops
+    def real(self, v):
+        return torch.tensor(v, dtype=self.rdt)
 
-    tau0 = real(0.0)
-    w, wp1, numops = build_w(u[0], tau0, 0)
-    beta0 = space.norm(wp1)  # ‖w[p+1]‖ at the start of the cycle
+    # --- w[j+1] = A w[j] + Σ_l u[j+l+1]·(sgn·τ₀)ˡ/l! (reference :144-158, :289-301)
 
-    fact = kf.initialize(wp1, m, cdt, space, vec_dtype=cdt)
-    # one-stream fused expansion (ops/fused_lanczos.py): Hermitian Lanczos
-    # subspaces of real float32 stencil operators under cgs, or under cgs2
-    # (its one-reduce form) while the packed reductions fit
-    dgks = type(alg.orth) is on.ClassicalGramSchmidt2 and 2 * (m + 1) + 2 <= 128
-    fused = (
-        isinstance(alg, Lanczos)
-        and not alg.eager
-        and (type(alg.orth) is on.ClassicalGramSchmidt or dgks)
-        and cdt == torch.float32
-        and kf.fused_available(op, u[0], space, kmax=m + 1)
-    )
-    sc = kf.fused_scales_init(m + 1, device=dev)
-    totalerr = real(0.0)
-    numiter = 1
-    done = fixedpt = False
-    # immediate fixed point (reference :127-135), reported with numiter = 0
-    # (":163: ConvergenceInfo(1, …, 0, numops)")
-    if p == 1 and float(beta0) < float(eta):
-        done = fixedpt = True
-        numiter = 0
+    def add_w(self, j: int, Aw) -> None:
+        """Append ``w[j+1]`` from ``Aw = A w[j]`` (one operator apply)."""
+        self.numops += 1
+        lfac = 1.0
+        for l in range(self.p - j):
+            coef = self.sgn ** l * float(self.tau0) ** l / lfac
+            Aw = add(Aw, self.u[j + l + 1], a=coef)
+            lfac *= l + 1
+        self.w.append(Aw)
 
-    def _Heff(H):
+    def start_cycle(self) -> None:
+        """After the ``p`` applies of ``w``: the cycle's ``β₀ = ‖w_{p+1}‖``
+        and factorization; at a fixed point (``p == 1``, ``β₀ < η``) the
+        loop ends (reference ``:127-135``, ``:299-304``: reported with
+        ``numiter`` as it stands)."""
+        p = self.p
+        self.w = self.w[: p + 1]
+        wp1 = self.w[p]
+        self.beta0 = self.space.norm(wp1)  # ‖w[p+1]‖ at the start of the cycle
+        m, cdt = self.m, self.cdt
+        fact = kf.initialize(wp1, m if self.basis is None else 0, cdt, self.space, vec_dtype=cdt)
+        if self.basis is not None:
+            self.basis.zero_()
+            self.basis[0] = fact.V[0]
+            H = torch.zeros((m + 1, m + 1), dtype=cdt, device=self.dev)
+            fact = kf.KrylovState(self.basis, H, 0, fact.beta)
+        self.fact = fact
+        self.sc = kf.fused_scales_init(m + 1, device=self.dev)
+        self.fixedpt = p == 1 and float(self.beta0) < float(self.eta)
+
+    def rem_eta(self) -> float:
+        """The remaining interval's error budget ``(τ − τ₀)·η``."""
+        return float((self.tau - self.tau0) * self.eta)
+
+    def _Heff(self, H):
         # the Hermitian expansion writes only (α, β): rebuild the Rayleigh
         # quotient from the lower triangle
-        if isinstance(alg, Lanczos):
+        if isinstance(self.alg, Lanczos):
             return torch.tril(H) + torch.tril(H, -1).conj().T
         return H
 
-    def expand_one(fact):
-        if isinstance(alg, Lanczos):
-            return kf.expand_hermitian(op.normal, fact, alg.orth, space,
-                                       verbosity=alg.verbosity)
-        return kf.expand(op.normal, fact, alg.orth, space, alg.verbosity)
+    def trial(self, dt):
+        fact = self.fact
+        return _phi_step(self._Heff(fact.H), fact.k, self.p, self.sgn * float(dt), self.beta0,
+                         fact.beta, self.m1p, self.eta.to(self.dev))
 
-    def trial(fact, dt):
-        return _phi_step(_Heff(fact.H), fact.k, p, sgn * float(dt), beta0, fact.beta,
-                         m1p, eta.to(dev))
-
-    def take_step(fact, sc, w, expH, dtau_eff):
+    def take_step(self, expH, dtau_eff) -> None:
         """Advance ``w₀`` over ``Δτ`` (reference ``:224-240``)."""
+        fact, sc, p, w, cdt = self.fact, self.sc, self.p, self.w, self.cdt
         K = fact.k
         w0 = w[0]
-        sgn_dt = sgn * float(dtau_eff)
+        sgn_dt = self.sgn * float(dtau_eff)
         jfac = 1.0
         for j in range(1, p):
             w0 = add(w0, w[j], a=sgn_dt ** j / jfac)
             jfac *= j + 1
         # w_{p+1} ← V·expH[0:K, K+p-1] + residual·expH[K-1, K+p]
-        col = expH[: m + 1, K + p - 1].clone()
+        col = expH[: self.m + 1, K + p - 1].clone()
         col[K:] = 0
         corr = expH[max(K - 1, 0), K + p]
         # the fused expansion stores raw rows (v_j = Σ_i L[i,j]·row_i): fold L
@@ -245,109 +272,151 @@ def _expintegrator_core(op: LinearOperator, t, u: tuple, alg, space: VectorSpace
         # into the same unproject (one pass over the basis)
         colm = kf.fold_scales(sc, col) + (corr * fact.beta.to(cdt)) * sc.L[:, K].to(cdt)
         wp1 = bs.unproject(fact.V, colm)
-        w0 = add(w0, wp1, a=beta0.to(cdt) * sgn_dt ** p)
-        return [w0] + w[1:]
+        w0 = add(w0, wp1, a=self.beta0.to(cdt) * sgn_dt ** p)
+        self.w = [w0] + w[1:]
 
-    while not done:
-        # --- expand to krylovdim (or breakdown / small residual / eager) ---
-        rem_eta = float((tau - tau0) * eta)
-        if fact.k < m and float(fact.beta) > 0:
-            if fused:
-                # the unfused pair below runs while β > max(eps, (τ−τ₀)·η);
-                # min_one: after a rejected partial attempt the loop re-enters
-                # with β within that bound and an unnormalized last row, and
-                # must still take its one step
-                fact, sc, dops = kf.fused_expansions(
-                    op, fact, sc, m, max(eps, rem_eta), space,
-                    hermitian=True, min_one=True, dgks=dgks,
-                )
-                numops += dops
-            else:
-                fact = expand_one(fact)
-                numops += 1
-        if not fused:
-            while fact.k < m and not (alg.eager and fact.k >= 1):
-                b = float(fact.beta)
-                # stop once the factorization residual covers the remaining
-                # interval's error budget (reference :237)
-                if not b > eps or b <= rem_eta:
-                    break
-                fact = expand_one(fact)
-                numops += 1
-
+    def after_expansion(self, rem_eta: float) -> bool:
+        """The rest of a cycle once the factorization is expanded: the
+        adaptive step on a complete subspace, or the attempt of the
+        remaining interval on a partial one.  Returns whether the next
+        cycle must restart (then the caller rebuilds ``w`` from ``w[0]``
+        and calls :meth:`start_cycle`)."""
+        alg, fact, real = self.alg, self.fact, self.real
+        tau, tau0 = self.tau, self.tau0
         K = fact.k
         # complete: the subspace is full or invariant (breakdown); then the
         # projected exponential is exact and the adaptive branch applies too
-        complete = K >= m or float(fact.beta) <= eps
+        complete = K >= self.m or float(fact.beta) <= self.eps
         if complete:
             # --- full subspace, adaptive Δτ (reference :178-236) ---
-            atmax = numiter >= alg.maxiter
-            dtau = (tau - tau0) if atmax else torch.minimum(dtau, tau - tau0)
-            if not atmax and finite:
-                dtaumin = (tau - tau0) / max(alg.maxiter - numiter + 1, 1)
-            expH, eps_, omega = trial(fact, dtau)
+            atmax = self.numiter >= alg.maxiter
+            dtau = (tau - tau0) if atmax else torch.minimum(self.dtau, tau - tau0)
+            if not atmax and self.finite:
+                self.dtaumin = (tau - tau0) / max(alg.maxiter - self.numiter + 1, 1)
+            dtaumin = self.dtaumin
+            expH, eps_, omega = self.trial(dtau)
             q = real(K) / 2
             it = 0
             while not atmax and omega >= 1.0 and dtau > dtaumin and it < 64:
                 dtau_prev, eps_prev = dtau, eps_
                 dtau = torch.maximum(dtau * (0.8 / omega) ** (1 / (q + 1)), dtaumin)
-                expH, eps_, omega = trial(fact, dtau)
+                expH, eps_, omega = self.trial(dtau)
                 q = torch.clamp(torch.log(eps_ / eps_prev) / torch.log(dtau / dtau_prev) - 1,
                                 min=0.0)
                 it += 1
-            w = take_step(fact, sc, w, expH, dtau)
-            totalerr = totalerr + eps_
-            tau0 = tau if atmax else tau0 + dtau
+            self.take_step(expH, dtau)
+            self.totalerr = self.totalerr + eps_
+            self.tau0 = tau if atmax else tau0 + dtau
             # grow Δτ for the next cycle; the cap keeps an exact step (ω = 0)
             # from pushing Δτ to Inf
             if omega < 0.8:
                 growth = (0.8 / torch.clamp(omega, min=1e-12)) ** (1 / (q + 1))
                 dtau = dtau * torch.clamp(growth, max=1e3)
+            self.dtau = dtau
         else:
             # --- partial subspace: attempt the remaining interval (:237-258) ---
             dt = tau - tau0
             # with t = Inf the attempt evaluates exp(Inf·H): ω is NaN and the
             # step is always rejected, so it is not evaluated
-            if (float(fact.beta) <= rem_eta or alg.eager) and finite:
-                expH, eps_, omega = trial(fact, dt)
+            if (float(fact.beta) <= rem_eta or alg.eager) and self.finite:
+                expH, eps_, omega = self.trial(dt)
                 if omega < 1.0:
-                    w = take_step(fact, sc, w, expH, dt)
-                    totalerr = totalerr + eps_
-                    tau0 = tau
+                    self.take_step(expH, dt)
+                    self.totalerr = self.totalerr + eps_
+                    self.tau0 = tau
 
-        done = bool(tau0 >= tau)
-
+        self.done = bool(self.tau0 >= tau)
         # --- restart if not finished and the subspace is complete ---
-        if not done and complete:
-            w, wp1, numops = build_w(w[0], tau0, numops)
-            beta0 = space.norm(wp1)
-            fixedpt = p == 1 and float(beta0) < float(eta)
-            fact = kf.initialize(wp1, m, cdt, space, vec_dtype=cdt)
-            sc = kf.fused_scales_init(m + 1, device=dev)
-            # a fixed point found here exits before the reference increments
-            # numiter (src/matrixfun/expintegrator.jl:299-304 returns, :319
-            # is the increment)
-            if fixedpt:
-                done = True
-            else:
-                numiter += 1
+        return not self.done and complete
 
-    log_if(
-        alg.verbosity, STARTSTOP,
-        "expintegrate finished after {it} iterations: total error = {err}, "
-        "numops = {no}", it=numiter, err=totalerr, no=numops,
-    )
-    warn_if(
-        alg.verbosity,
-        not fixedpt and bool(totalerr > maxerr),
-        "expintegrate did not reach sufficiently small error after {it} "
-        "iterations: total error = {err}", it=numiter, err=totalerr,
-    )
-    info = ConvergenceInfo(
-        converged=int(fixedpt or bool(totalerr <= maxerr)),
-        residual=None,
-        normres=beta0 if fixedpt else totalerr.to(dev),
-        numiter=numiter,
-        numops=numops,
-    )
-    return w[0], info
+    def after_restart(self) -> None:
+        """A fixed point found at a restart exits before the reference
+        increments ``numiter`` (``src/matrixfun/expintegrator.jl:299-304``
+        returns, ``:319`` is the increment)."""
+        if self.fixedpt:
+            self.done = True
+        else:
+            self.numiter += 1
+
+    def result(self):
+        """``(y, info)`` with the closing log and warning."""
+        alg = self.alg
+        log_if(
+            alg.verbosity, STARTSTOP,
+            "expintegrate finished after {it} iterations: total error = {err}, "
+            "numops = {no}", it=self.numiter, err=self.totalerr, no=self.numops,
+        )
+        warn_if(
+            alg.verbosity,
+            not self.fixedpt and bool(self.totalerr > self.maxerr),
+            WARNING, it=self.numiter, err=self.totalerr,
+        )
+        return self.w[0], self.info()
+
+    def info(self) -> ConvergenceInfo:
+        return ConvergenceInfo(
+            converged=int(self.fixedpt or bool(self.totalerr <= self.maxerr)),
+            residual=None,
+            normres=self.beta0 if self.fixedpt else self.totalerr.to(self.dev),
+            numiter=self.numiter,
+            numops=self.numops,
+        )
+
+
+WARNING = ("expintegrate did not reach sufficiently small error after {it} "
+           "iterations: total error = {err}")
+
+
+def _expintegrator_core(op: LinearOperator, t, u: tuple, alg, space: VectorSpace):
+    s = _Integrator(op, t, u, alg, space)
+    m = s.m
+
+    def build_w():
+        for j in range(s.p):
+            s.add_w(j, op.normal(s.w[j]))
+        s.start_cycle()
+
+    def expand_one(fact):
+        if isinstance(alg, Lanczos):
+            return kf.expand_hermitian(op.normal, fact, alg.orth, space,
+                                       verbosity=alg.verbosity)
+        return kf.expand(op.normal, fact, alg.orth, space, alg.verbosity)
+
+    build_w()
+    # immediate fixed point (reference :127-135), reported with numiter = 0
+    # (":163: ConvergenceInfo(1, …, 0, numops)")
+    if s.fixedpt:
+        s.done = True
+        s.numiter = 0
+
+    while not s.done:
+        # --- expand to krylovdim (or breakdown / small residual / eager) ---
+        rem_eta = s.rem_eta()
+        if s.fact.k < m and float(s.fact.beta) > 0:
+            if s.fused:
+                # the unfused pair below runs while β > max(eps, (τ−τ₀)·η);
+                # min_one: after a rejected partial attempt the loop re-enters
+                # with β within that bound and an unnormalized last row, and
+                # must still take its one step
+                s.fact, s.sc, dops = kf.fused_expansions(
+                    op, s.fact, s.sc, m, max(s.eps, rem_eta), space,
+                    hermitian=True, min_one=True, dgks=s.dgks,
+                )
+                s.numops += dops
+            else:
+                s.fact = expand_one(s.fact)
+                s.numops += 1
+        if not s.fused:
+            while s.fact.k < m and not (alg.eager and s.fact.k >= 1):
+                b = float(s.fact.beta)
+                # stop once the factorization residual covers the remaining
+                # interval's error budget (reference :237)
+                if not b > s.eps or b <= rem_eta:
+                    break
+                s.fact = expand_one(s.fact)
+                s.numops += 1
+        if s.after_expansion(rem_eta):
+            s.w = s.w[:1]
+            build_w()
+            s.after_restart()
+    return s.result()

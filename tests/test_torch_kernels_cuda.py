@@ -1064,3 +1064,56 @@ def test_batched_linear_solves_on_card_match_one_problem_solves(driver):
             assert [i1.numops, i1.numiter, i1.converged] == [
                 int(info.numops[p]), int(info.numiter[p]), int(info.converged[p])]
             assert torch.equal(x[p], x1)
+
+
+@pytest.mark.parametrize("ks, R, kmax", [
+    ([18] * 8, 64, 31),                      # equal k
+    ([30, 19, 25, 4, 16, 29, 1, 22], 64, 31),  # mixed k
+    ([(7 * i) % 14 for i in range(70)], 16, 13),  # P > 64: two launches
+    ([0] * 5, 16, 13),                       # every k = 0
+])
+def test_batched_projections_are_one_problem_launches_bit_for_bit(ks, R, kmax):
+    """Batched K5 and K6: every row bit-identical to a one-problem launch,
+    within 1e-5 of the plain version, rows ``>= k_p`` never read (NaN),
+    ``k_p = 0`` zeros (``chip_smoke.check_batched_projections``); one
+    launch per 64 problems."""
+    from chip_smoke import check_batched_projections
+
+    _build.reset_launches()
+    case = check_batched_projections(torch, pb, ks, R, kmax, _gen(71), timed=False)
+    assert case["bit_identical_to_one_problem_launches"]
+    chunks = -(-len(ks) // pb.MAX_BATCH)
+    assert _build.launches["project_batched"] == _build.launches["unproject_batched"] == chunks
+
+
+def test_batched_arnoldi_with_projection_kernels_on_card_matches_cpu():
+    """A small ``eigsolve_arnoldi_batched`` on config 4's banded matrix (n =
+    4096, float32 ``(32, 128)`` starts, P = 3, krylovdim 18, maxiter 3) with
+    the projection flag on: counts equal to the CPU run (plain versions),
+    ``|λ|`` within 2e-4 relative; on the card only batched launches, K5 and
+    K6 twice per batched K3."""
+    from chip_smoke import batched_starts, tridiagonal_coo
+
+    n, P = 4096, 3
+    coo = tridiagonal_coo(np, n, -1.3, 2.0, -0.7, np.float32)
+    alg = kt.Arnoldi(krylovdim=18, maxiter=3, tol=1e-30, verbosity=kt.SILENT)
+    X = batched_starts(torch, np, n // 128, P, "cpu")
+    old = bs.use_pallas_projections
+    bs.use_pallas_projections = True
+    try:
+        _build.reset_launches()
+        vc, _, ic = kt.eigsolve_arnoldi_batched(kt.banded_from_coo(*coo, n), X.cuda(), 4, "LM",
+                                                alg)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in _build.launches.items() if v}
+        vh, _, ih = kt.eigsolve_arnoldi_batched(kt.banded_from_coo(*coo, n, device="cpu"), X, 4,
+                                                "LM", alg)
+    finally:
+        bs.use_pallas_projections = old
+    assert ic.numops.tolist() == ih.numops.tolist() and ic.numiter.tolist() == ih.numiter.tolist()
+    np.testing.assert_allclose(vc.abs().cpu().numpy(), vh.abs().numpy(), rtol=2e-4)
+    assert set(launches) == {"banded_spmv_batched", "project_batched", "unproject_batched",
+                             "transform_partial_batched"}, launches
+    assert launches["project_batched"] == launches["unproject_batched"] == \
+        2 * launches["banded_spmv_batched"]
+    assert launches["transform_partial_batched"] == max(ic.numiter.tolist())
