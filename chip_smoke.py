@@ -4346,23 +4346,39 @@ def batched_starts(torch, np, R, P, dev, seed=100):
     return X
 
 
-def check_batched_step(torch, fl, op, P, R, kmax, B, with_drift, gen, timed=True):
+def check_batched_step(torch, fl, op, P, R, kmax, B, with_drift, gen, timed=True,
+                       adjoint=False, grouped=False):
     """Batched K1 against its plain version (the one-problem tolerance of
     :func:`check_fused_step`) and, where every problem has the same ``B =
     kp1`` (``B`` an int), against ``P`` one-problem launches bit for bit;
-    ``B`` a list gives each problem its own.  Timed: ms per batched launch,
-    the ``P`` one-problem launches' ms, the plain version's and the bound
-    (``P`` times the one-problem bytes and operations)."""
-    spec = fl.spec_for(op)
+    ``B`` a list gives each problem its own.  ``grouped`` launches a list
+    ``B`` as the batched fused GKL does, one launch per distinct ``B``
+    (``active`` its problems, one ``ynext`` buffer), and holds every problem
+    against a one-problem launch bit for bit too.  ``adjoint``: the
+    operator's adjoint spec (the codomain half-steps of the fused GKL).
+    Timed: ms per batched launch, the ``P`` one-problem launches' ms, the
+    plain version's and the bound (``P`` times the one-problem bytes and
+    operations)."""
+    spec = fl.adjoint_spec(op) if adjoint else fl.spec_for(op)
     V = torch.randn((P, kmax, R, 128), generator=gen, device="cuda")
     y = torch.randn((P, R, 128), generator=gen, device="cuda")
     g = torch.randn((P, kmax + 1), generator=gen, device="cuda")
     Bs = [B] * P if isinstance(B, int) else list(B)
     Vb = V.clone()
-    yb, rb = fl.fused_step_batched(Vb, y, g, Bs, Bs, spec, with_drift)
+    if grouped:
+        yb, raws = torch.empty_like(y), {}
+        for b in sorted(set(Bs)):
+            group = [p for p in range(P) if Bs[p] == b]
+            _, raw = fl.fused_step_batched(Vb, y, g, Bs, Bs, spec, with_drift, active=group,
+                                           ynext=yb)
+            raws.update({p: raw[p] for p in group})
+        rb = [raws[p] for p in range(P)]
+    else:
+        yb, rb = fl.fused_step_batched(Vb, y, g, Bs, Bs, spec, with_drift)
     Vr = V.clone()
     yr, rr = fl.fused_step_batched_reference(Vr, y, g, Bs, Bs, spec, with_drift)
     torch.cuda.synchronize()
+    to_one = isinstance(B, int) or grouped
     err, rel_raw, same = 0.0, 0.0, True
     for p in range(P):
         k = Bs[p]
@@ -4371,25 +4387,27 @@ def check_batched_step(torch, fl, op, P, R, kmax, B, with_drift, gen, timed=True
         require(e <= 2e-4 * sc, f"fused_step_batched B={k}: w', y' within 2e-4*scale")
         require(torch.equal(Vb[p, :k], V[p, :k]) and torch.equal(Vb[p, k + 1:], V[p, k + 1:]),
                 f"fused_step_batched B={k}: rows other than kp1 bit-identical")
-        nV = torch.linalg.vector_norm(V[p, :k].reshape(k, -1), dim=1)
+        nV = torch.linalg.vector_norm(V[p, :k].reshape(k, R * 128), dim=1)
         nw, ny = torch.linalg.vector_norm(Vr[p, k]), torch.linalg.vector_norm(yr[p])
         scales = torch.cat([nV * ny] + ([nV * nw] if with_drift else [])
                            + [(nw * ny)[None], (nw * nw)[None]])
         n_slots = scales.numel()
-        rel = float(torch.max(torch.abs(rb[p, :n_slots] - rr[p, :n_slots]) / scales))
+        rel = float(torch.max(torch.abs(rb[p][:n_slots] - rr[p, :n_slots]) / scales))
         require(rel <= 1e-6, f"fused_step_batched B={k}: raw within 1e-6 of the norm products")
         err, rel_raw = max(err, e), max(rel_raw, rel)
-        if isinstance(B, int):
+        if to_one:
             V1 = V[p].clone()
             y1, r1 = fl.fused_step(V1, y[p], g[p], k, k, spec, with_drift)
             same = same and torch.equal(V1[k], Vb[p, k]) and torch.equal(y1, yb[p]) and \
-                torch.equal(r1, rb[p])
+                torch.equal(r1, rb[p][:r1.numel()])
     require(same, f"fused_step_batched B={B}: each problem bit-identical to a one-problem launch")
     n = R * 128
-    case = {"op": "grid" if spec.gc else "chain", "P": P, "n": n, "kmax": kmax, "B": B,
-            "with_drift": with_drift, "max_abs_err": err, "raw_rel_err": rel_raw,
+    case = {"op": "grid" if spec.gc else "chain", "adjoint": adjoint, "P": P, "n": n,
+            "kmax": kmax, "B": B, "with_drift": with_drift, "max_abs_err": err,
+            "raw_rel_err": rel_raw,
             "tolerance": "2e-4*scale (w', y'); 1e-6*norm products (raw)",
-            "bit_identical_to_one_problem_launches": same if isinstance(B, int) else None}
+            "launches": len(set(Bs)) if grouped else 1,
+            "bit_identical_to_one_problem_launches": same if to_one else None}
     if timed:
         t_bound, by = bound(sum((k + 3) * n * 4 for k in Bs),
                             sum(k1_flops(n, k, len(spec.taps), with_drift) for k in Bs))
@@ -4769,26 +4787,33 @@ def batched_linear_rhs(torch, np, shape, P, dev, seed=100):
 
 class ApplyRecorder:
     """Within the block, counts the batched applies of
-    ``solvers/batched.py:_Operators.apply_stack`` that carry each problem
-    (``per_problem``) and the applies (``calls``)."""
+    ``solvers/batched.py:_Operators.apply_stack`` and
+    ``apply_adjoint_stack`` that carry each problem (``per_problem``) and
+    the applies (``calls``)."""
+
+    NAMES = ("apply_stack", "apply_adjoint_stack")
 
     def __init__(self, batched_mod):
         self.cls, self.calls, self.per_problem = batched_mod._Operators, 0, {}
 
     def __enter__(self):
-        inner = self.inner = self.cls.apply_stack
+        self.inner = {name: getattr(self.cls, name) for name in self.NAMES}
 
-        def recording(ops, X, ps):
-            self.calls += 1
-            for p in ps:
-                self.per_problem[p] = self.per_problem.get(p, 0) + 1
-            return inner(ops, X, ps)
+        def recording(inner):
+            def apply(ops, X, ps):
+                self.calls += 1
+                for p in ps:
+                    self.per_problem[p] = self.per_problem.get(p, 0) + 1
+                return inner(ops, X, ps)
+            return apply
 
-        self.cls.apply_stack = recording
+        for name, inner in self.inner.items():
+            setattr(self.cls, name, recording(inner))
         return self
 
     def __exit__(self, *exc):
-        self.cls.apply_stack = self.inner
+        for name, inner in self.inner.items():
+            setattr(self.cls, name, inner)
 
 
 def batched_linear_phase(torch, np, kt, _build, bd, s1, smi, nx=1024, n1=1 << 21, P=8, PP=4,
@@ -5319,6 +5344,262 @@ def batched_arnoldi_phase(torch, np, kt, _build, arn, expi, kf, bs, pb, smi, n=1
         for name in ("project", "unproject")}}
 
 
+def check_banded_adjoint_batched(torch, label, ops, X, shared):
+    """The batched adjoint apply of ``solvers/batched.py:_Operators`` on
+    banded operators with their adjoints (one operator for every row, or
+    one per row): one ``banded_spmv_batched`` launch on the adjoint planes,
+    each row bit-identical to ``op.apply_adjoint``."""
+    from krylovkit_tpu_torch import _build
+    from krylovkit_tpu_torch.solvers.batched import _Operators
+
+    P = X.shape[0]
+    batch = _Operators(ops, P, not shared)
+    _build.reset_launches()
+    Y = batch.apply_adjoint_stack(X, list(range(P)))
+    launches = {k: v for k, v in _build.launches.items() if v}
+    one = [(ops if shared else ops[p]).apply_adjoint(X[p]) for p in range(P)]
+    torch.cuda.synchronize()
+    same = all(torch.equal(Y[p], one[p]) for p in range(P))
+    require(same, f"adjoint stack {label}: each row bit-identical to op.apply_adjoint")
+    require(launches == {"banded_spmv_batched": 1},
+            f"adjoint stack {label}: one banded_spmv_batched launch ({launches})")
+    return {"case": label, "P": P, "launches": launches,
+            "bit_identical_to_apply_adjoint": same}
+
+
+def batched_gkl_phase(torch, np, kt, _build, svds, lss, bd, bs, fl, smi, rect=None,
+                      rect_adj=None, nx=1024, P=4, PL=8, PL1=2, dev="cuda"):
+    """Phase ``batched_gkl``: batched GKL ``svdsolve`` and batched LSMR
+    ``lssolve`` at the widths of configs 3 and 2, ``P`` (``PL``) problems in
+    one host loop per solve.
+
+    (a) ``svdsolve_gkl_batched`` on the ``nx × nx`` advection-diffusion grid
+    stencil of config 3, fused: starts phase 12's ``x0q`` and
+    ``default_rng(100 + i)`` normals, 8 "LR", krylovdim 30, fixed work
+    (maxiter 3, tol 1e-30); batched K1 over both stacks, batched K2.
+    (b) the same starts through config 3's rectangular ``(rect, rect_adj)``
+    map (rows ``2·nx²``, columns ``nx²``), projection flag on: the applies
+    per problem (a callable), batched K5 and K6 on both stacks, batched K2.
+    (c) ``lssolve_lsmr_batched`` on config 2's banded Poisson (kernel-backed,
+    with its adjoint) for phase 31's ``PL`` right-hand sides, 40 iterations
+    (tol 1e-30): each batched apply, normal or adjoint, one
+    ``banded_spmv_batched`` launch.
+
+    Each batched solve is driven once with the launch counts set to 0 just
+    before it and read just after, then timed once more; then the one-problem
+    solves (all problems on (a) and (b), the first ``PL1`` on (c)), each
+    with its rounds' launches.  Guards: each compared problem's counts equal
+    its one-problem solve's, its values, singular vectors (solution and
+    residual) bit-identical; exactly the batched launches the one-problem
+    rounds give (:func:`batched_rounds_expected`; K2 twice a round) and no
+    one-problem K1, K2, K3, K5 or K6; on (c) each problem's batched applies
+    equal its ``numops``.  The true residuals ``‖A v_i − σ_i u_i‖`` are
+    printed.  (d) the batched K1 on the stencil's adjoint spec at ``B = 0``
+    and at mixed ``B`` (one launch per ``B``), and the batched K3 on the
+    Poisson's adjoint planes (shared, and a set per problem).
+    ``dev="cpu"`` with a small ``nx`` rehearses (a)-(c) with the plain
+    versions: no launch guard, no kernel checks."""
+    from krylovkit_tpu_torch.solvers import batched as batched_mod
+
+    t0 = time.perf_counter()
+    card = dev != "cpu"
+    m = KRYLOVDIM
+    quiet = {"verbosity": kt.SILENT}
+    R = nx * nx // 128
+    X = batched_starts(torch, np, R, P, dev)
+    X[0] = torch.from_numpy(np.random.default_rng(2).standard_normal((R, 128))
+                            .astype(np.float32))
+    advect = kt.GridStencilOperator((nx, nx), ((0, 0), (-1, 0), (1, 0), (0, -1), (0, 1)),
+                                    (4.0, -1.5, -0.5, -1.2, -0.8))
+    if rect is None:
+        C = nx * nx // 2
+        wr = torch.from_numpy(np.linspace(1.0, 3.0, C, dtype=np.float32)
+                              .reshape(C // 128, 128)).to(dev)
+
+        def rect(x):
+            wx = wr * x
+            return torch.cat([wx, 0.5 * torch.roll(wx, 1, dims=0)], dim=0)
+
+        def rect_adj(y):
+            return wr * y[: C // 128] + 0.5 * wr * torch.roll(y[C // 128:], -1, dims=0)
+
+    alg = kt.GKL(krylovdim=m, maxiter=3, tol=1e-30, **quiet)
+    one_problem = {"fused_step", "transform_partial", "banded_spmv", "project", "unproject"}
+    pairs = {"fused_step": "fused_step_batched", "project": "project_batched",
+             "unproject": "unproject_batched"}
+    out = {"launches": {}}
+
+    def svd_path(path, op, flag):
+        bs.use_pallas_projections = flag
+        try:
+            (S, U, W, info), first_ms, launches = _sync_ms(
+                torch, _build, lambda: kt.svdsolve_gkl_batched(op, X, 8, "LR", alg), dev)
+            _, batched_ms, _ = _sync_ms(
+                torch, _build, lambda: kt.svdsolve_gkl_batched(op, X, 8, "LR", alg), dev)
+            one_op = kt.ops.operator.as_operator(op)
+            ones, rounds, one_ms = [], [], []
+            for p in range(P):
+                t1 = time.perf_counter()
+                r1, lr = round_launches(svds, _build, lambda p=p: svds.svdsolve_gkl(
+                    one_op, X[p], 8, "LR", alg))
+                if card:
+                    torch.cuda.synchronize()
+                one_ms.append((time.perf_counter() - t1) * 1e3)
+                ones.append(r1)
+                rounds.append(lr)
+        finally:
+            bs.use_pallas_projections = False
+        counts = [info.numops.tolist(), info.numiter.tolist(), info.converged.tolist()]
+        counts1 = [[o[3].numops for o in ones], [o[3].numiter for o in ones],
+                   [o[3].converged for o in ones]]
+        diff = max(max(float((a[p] - o[i]).abs().max()) for p, o in enumerate(ones))
+                   for i, a in enumerate((S, U, W)))
+        bits = all(torch.equal(S[p], o[0]) and torch.equal(U[p], o[1]) and torch.equal(W[p], o[2])
+                   and torch.equal(info.residual[p], o[3].residual) for p, o in enumerate(ones))
+        true_res = [[float(torch.linalg.vector_norm(one_op.normal(W[p, i]) - S[p, i] * U[p, i]))
+                     for i in range(3)] for p in range(P)]
+        want = batched_rounds_expected(rounds, pairs)
+        want["transform_partial_batched"] = 2 * max(len(r) for r in rounds)
+        rec = {"phase": "batched_gkl", "path": path, "P": P, "n": R * 128,
+               "projection_kernels": flag, "numops": counts[0], "numiter": counts[1],
+               "converged": counts[2], "one_problem_counts": counts1,
+               "svals": S.cpu().tolist(), "normres_leading_3": info.normres[:, :3].cpu().tolist(),
+               "true_residual_leading_3": true_res, "one_problem_max_abs_diff": diff,
+               "bit_identical": bits, "launches": launches, "expected_launches": want,
+               "one_problem_launches_per_round": rounds, "first_batched_ms": first_ms,
+               "batched_ms": batched_ms, "one_problem_ms": one_ms, "batched_over_sum_of_one_problem": batched_ms / sum(one_ms),
+               "nvidia_smi": smi}
+        emit(rec)
+        require(counts == counts1, f"batched_gkl {path}: each problem's counts equal its "
+                f"one-problem solve's ({counts} vs {counts1})")
+        require(counts[0] == [2 * (m + 2 * (m - 18))] * P and counts[1] == [3] * P,
+                f"batched_gkl {path}: 3 rounds, 2*(30 + 12 + 12) applies each ({counts})")
+        require(bits, f"batched_gkl {path}: values, singular vectors and residuals bit-identical "
+                f"to the one-problem solves (max diff {diff})")
+        S_h = S.cpu()
+        require(bool(torch.isfinite(S_h).all()) and bool((S_h[:, :-1] >= S_h[:, 1:]).all())
+                and tuple(U.shape) == (P, 8) + tuple(X.shape[1:]) and bool(torch.isfinite(U).all())
+                and bool(torch.isfinite(W).all()),
+                f"batched_gkl {path}: finite descending values, finite vectors of the expected shape")
+        nr = info.normres.cpu()
+        require(all(true_res[p][i] <= float(nr[p, i]) + 1e-3 * float(S_h[p, 0])
+                    for p in range(P) for i in range(3)),
+                f"batched_gkl {path}: |A v - sigma u| of the leading triplets within normres + "
+                f"1e-3 sigma_0 ({true_res})")
+        if card:
+            require(launches == want, f"batched_gkl {path}: exactly the batched launches the "
+                    f"one-problem rounds give ({launches} vs {want})")
+            require(not one_problem & set(launches), f"batched_gkl {path}: no one-problem K1, K2, "
+                    f"K3, K5 or K6 launch ({launches})")
+        out["launches"][path] = launches
+        return S_h
+
+    S_a = svd_path("svdsolve_advect_fused", advect, False)
+    S_b = svd_path("svdsolve_rect_projection_kernels", (rect, rect_adj), True)
+
+    # (c) LSMR on the banded Poisson, normal and adjoint applies batched
+    n2 = nx * nx
+    banded = kt.banded_from_coo(*poisson_coo(np, nx, np.float32), n2, device=dev)
+    Bl = batched_linear_rhs(torch, np, (R, 128), PL, dev)
+    lalg = kt.LSMR(maxiter=40, tol=1e-30, **quiet)
+    with ApplyRecorder(batched_mod) as rec_l:
+        (xl, il), first_ms_l, launches_l = _sync_ms(
+            torch, _build, lambda: kt.lssolve_lsmr_batched(banded, Bl, lalg), dev)
+    _, ms_l, _ = _sync_ms(torch, _build, lambda: kt.lssolve_lsmr_batched(banded, Bl, lalg), dev)
+    ones_l, one_ms_l, one_launches_l = [], [], []
+    for p in range(PL1):
+        (x1, i1), ms1, l1 = _sync_ms(torch, _build, lambda p=p: lss.lssolve_lsmr(banded, Bl[p],
+                                                                                  lalg), dev)
+        ones_l.append((x1, i1))
+        one_ms_l.append(ms1)
+        one_launches_l.append(l1)
+    numops_l = il.numops.tolist()
+    bits_l = all(torch.equal(xl[p], x1) and torch.equal(il.residual[p], i1.residual)
+                 and torch.equal(il.normres[p], i1.normres) for p, (x1, i1) in enumerate(ones_l))
+    diff_l = max(float((xl[p] - x1).abs().max()) for p, (x1, _) in enumerate(ones_l))
+    true_res_l = [float(torch.linalg.vector_norm(
+        banded.apply_adjoint(Bl[p] - banded.normal(xl[p])))) for p in range(PL)]
+    want_l = {"banded_spmv_batched": 1 + 2 * lalg.maxiter}
+    emit({"phase": "batched_gkl", "path": "lssolve_lsmr_banded", "P": PL, "n": n2,
+          "numops": numops_l, "numiter": il.numiter.tolist(), "converged": il.converged.tolist(),
+          "normres": il.normres.cpu().tolist(), "true_normal_equation_residual": true_res_l,
+          "compared_problems": list(range(PL1)),
+          "one_problem_counts": [[i1.numops for _, i1 in ones_l], [i1.numiter for _, i1 in ones_l]],
+          "one_problem_max_abs_diff": diff_l, "bit_identical": bits_l, "launches": launches_l,
+          "expected_launches": want_l, "applies": rec_l.calls,
+          "applies_per_problem": rec_l.per_problem, "one_problem_launches": one_launches_l,
+          "first_batched_ms": first_ms_l, "batched_ms": ms_l, "one_problem_ms": one_ms_l,
+          "batched_over_one_problem_mean_times_P": ms_l / (PL * mean(one_ms_l)),
+          "nvidia_smi": smi})
+    require(numops_l == [1 + 2 * lalg.maxiter] * PL and il.numiter.tolist() == [lalg.maxiter] * PL,
+            f"batched_gkl lssolve: 40 iterations, 81 applies each ({numops_l})")
+    require([numops_l[p] for p in range(PL1)] == [i1.numops for _, i1 in ones_l]
+            and [il.numiter[p].item() for p in range(PL1)] == [i1.numiter for _, i1 in ones_l],
+            "batched_gkl lssolve: counts equal to the one-problem solves")
+    require(bits_l, f"batched_gkl lssolve: x, residual and normres bit-identical to the "
+            f"one-problem solves (max diff {diff_l})")
+    require(rec_l.per_problem == {p: numops_l[p] for p in range(PL)}
+            and rec_l.calls == 1 + 2 * lalg.maxiter,
+            f"batched_gkl lssolve: each problem's batched applies equal its numops "
+            f"({rec_l.per_problem}, {rec_l.calls} applies)")
+    require(bool(torch.isfinite(xl).all()) and tuple(xl.shape) == (PL, R, 128),
+            "batched_gkl lssolve: finite (P, R, 128) solutions")
+    if card:
+        require(launches_l == want_l, f"batched_gkl lssolve: one banded_spmv_batched launch per "
+                f"batched apply, no one-problem launch ({launches_l})")
+        require(all(l1 == {"banded_spmv": i1.numops} for l1, (_, i1) in zip(one_launches_l, ones_l)),
+                "batched_gkl lssolve: the one-problem solves launch banded_spmv once per apply")
+    out["launches"]["lssolve_lsmr_banded"] = launches_l
+    del xl, ones_l
+    if not card:
+        return out
+
+    # (d) the batched K1 on the adjoint spec at B = 0 and mixed B, and the
+    # batched K3 on adjoint planes, at this width
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(15)
+    kmax = m + 1
+    k1 = [check_batched_step(torch, fl, advect, P, R, kmax, 0, True, gen, adjoint=True),
+          check_batched_step(torch, fl, advect, P, R, kmax, 0, True, gen),
+          check_batched_step(torch, fl, advect, P, R, kmax, 18, True, gen, adjoint=True),
+          check_batched_step(torch, fl, advect, P, R, kmax, [0, 19, 12, 29][:P], True, gen,
+                             timed=False, adjoint=True),
+          check_batched_step(torch, fl, advect, P, R, kmax, [19, 12, 19, 0][:P], True, gen,
+                             timed=False, adjoint=True, grouped=True)]
+    Xk = torch.randn((P, R, 128), generator=gen, device="cuda")
+    # config 4's non-symmetric tridiagonal, its lower band scaled per problem:
+    # adjoint planes that differ from the normal ones
+    tri = [kt.banded_from_coo(*tridiagonal_coo(np, n2, -1.3 * (1 + 0.1 * p), 2.0, -0.7,
+                                               np.float32), n2) for p in range(P)]
+    k3 = [check_banded_adjoint_batched(torch, "poisson_2d shared", banded, Xk, True),
+          check_banded_adjoint_batched(torch, "transport-diffusion shared", tri[0], Xk, True),
+          check_banded_adjoint_batched(torch, "transport-diffusion per problem", tri, Xk,
+                                       False),
+          check_banded_batched(torch, bd, "transport-diffusion adjoint planes shared f32", Xk,
+                               tri[0].adj.diags, tri[0].adj.offsets, n2, None, None,
+                               timed=False)]
+    emit({"phase": "batched_gkl_kernels", "fused_step_batched": k1, "banded_spmv_batched": k3,
+          "nvidia_smi": smi, "seconds": time.perf_counter() - t0})
+    L = out["launches"]
+    out["kernels"] = {
+        "fused_step": {"launches_batched_gkl_svdsolve_advect":
+                       L["svdsolve_advect_fused"].get("fused_step_batched", 0),
+                       **{f"{key}_batched_gkl_adjoint_B{B}": case[key]
+                          for B, case in ((0, k1[0]), (18, k1[2]))
+                          for key in ("ms", "one_problem_launches_ms", "plain_ms", "bound_ms")}},
+        "transform_partial": {f"launches_batched_gkl_{k}": L[k].get("transform_partial_batched", 0)
+                              for k in ("svdsolve_advect_fused",
+                                        "svdsolve_rect_projection_kernels")},
+        "banded_spmv": {"launches_batched_gkl_lssolve":
+                        L["lssolve_lsmr_banded"].get("banded_spmv_batched", 0)},
+        "project": {"launches_batched_gkl_svdsolve_rect":
+                    L["svdsolve_rect_projection_kernels"].get("project_batched", 0)},
+        "unproject": {"launches_batched_gkl_svdsolve_rect":
+                      L["svdsolve_rect_projection_kernels"].get("unproject_batched", 0)},
+    }
+    return out
+
+
 def mean(xs):
     return sum(xs) / len(xs)
 
@@ -5353,6 +5634,7 @@ def main():
     from krylovkit_tpu_torch.factorizations import krylov as kf
     from krylovkit_tpu_torch.solvers import arnoldi as arn
     from krylovkit_tpu_torch.solvers import expintegrator as expi
+    from krylovkit_tpu_torch.solvers import lssolve as lss
     from krylovkit_tpu_torch.solvers import svdsolve as svds
 
     # 1. device
@@ -6219,6 +6501,12 @@ def main():
     # exponentiate), then the batched K5 and K6 alone
     batched_arn = batched_arnoldi_phase(torch, np, kt, _build, arn, expi, kf, bs, pb, smi)
 
+    # 33. batched GKL svdsolve and LSMR lssolve: config 3 for 4 starts (the
+    # fused grid stencil; the rectangular map with the projection kernels),
+    # config 2's banded Poisson for 8 right-hand sides
+    batched_svd = batched_gkl_phase(torch, np, kt, _build, svds, lss, bd, bs, fl, smi, rect,
+                                    rect_adj)
+
     def slice11(name):
         """The launches per rank of ``name`` in phase 29's passes."""
         return {"launches_sharded_ad_per_rank": {
@@ -6277,6 +6565,7 @@ def main():
             **slice10("fused_step"),
             **slice11("fused_step"),
             **batched["kernels"]["fused_step"],
+            **batched_svd["kernels"]["fused_step"],
         },
         {
             "name": "transform_partial", "route": "cuda",
@@ -6306,6 +6595,7 @@ def main():
             **slice10("transform_partial"),
             **slice11("transform_partial"),
             **batched["kernels"]["transform_partial"],
+            **batched_svd["kernels"]["transform_partial"],
         },
         {
             "name": "banded_spmv", "route": "cuda",
@@ -6332,6 +6622,7 @@ def main():
             **slice10("banded_spmv"),
             **slice11("banded_spmv"),
             **batched_lin["kernels"]["banded_spmv"],
+            **batched_svd["kernels"]["banded_spmv"],
         },
         {
             "name": "laplacian_1d", "route": "cuda",
@@ -6402,6 +6693,7 @@ def main():
             "source": "krylovkit_tpu_torch/csrc/projections.cu",
             "replaces": replaces + " (under jax.vmap)",
             **batched_arn["kernels"][name],
+            **batched_svd["kernels"][name],
             "bound_by": "bytes",
             "shapes": "mean per launch over P = 8 bases (31, 8192, 128) f32 at k = 18, 30 and "
                       "mixed k; launches: the config-4 banded eigsolve_arnoldi_batched, P = 4, "

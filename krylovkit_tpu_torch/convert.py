@@ -92,13 +92,22 @@ def banded_from_arrays(offsets, diags, n, adj_offsets=None, adj_diags=None,
     return BandedOperator(offsets, torch.as_tensor(np.array(diags), device=dev), n, adj=adj)
 
 
-def banded_batch_from_arrays(offsets, diags, n, device="cuda") -> list:
+def banded_batch_from_arrays(offsets, diags, n, device="cuda", adj_offsets=None,
+                             adj_diags=None) -> list:
     """One :class:`BandedOperator` per plane set of the stack ``diags``
     (``(P, nδ, R, 128)``, e.g. the numpy planes of a JAX ``BandedOperator``
     batched under ``jax.vmap``), all with ``offsets``: the batched operator
     of ``solvers/batched_linsolve.py`` (``in_dims`` 0), whose equal offsets
-    let it apply every problem's planes in one launch."""
-    return [banded_from_arrays(offsets, d, n, device=device) for d in np.asarray(diags)]
+    let it apply every problem's planes in one launch.  With ``adj_offsets``
+    and the stack ``adj_diags`` (``(P, nδ', R, 128)``, the batched
+    operator's ``adj.diags``) each operator has its adjoint, as the batched
+    ``svdsolve``/``lssolve`` need it."""
+    diags = np.asarray(diags)
+    adjs = [None] * len(diags) if adj_offsets is None else np.asarray(adj_diags)
+    if len(adjs) != len(diags):
+        raise ValueError(f"{len(adjs)} adjoint plane sets for {len(diags)} operators")
+    return [banded_from_arrays(offsets, d, n, adj_offsets, a, device=device)
+            for d, a in zip(diags, adjs)]
 
 
 def ell_from_arrays(cols, vals, n_cols, adj_cols=None, adj_vals=None,

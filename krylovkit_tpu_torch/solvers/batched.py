@@ -54,7 +54,8 @@ from ..ops import basis as bs
 from ..ops import orthonormal as on
 from ..ops import stencil_1d as s1
 from ..ops.banded import BandedOperator
-from ..ops.operator import LinearOperator, MatrixOperator, as_operator, probe_dtype
+from ..ops.operator import (LinearOperator, MatrixOperator, as_operator, probe_dtype,
+                            require_adjoint)
 from ..ops.stencil_1d import Laplacian1DOperator
 from ..ops.vector import STANDARD, VectorSpace, add, astype, device_of, rounded, scalartype
 from .gmres import _qr_update
@@ -96,6 +97,21 @@ def _kernel_banded(o) -> bool:
     return type(o) is BandedOperator and not o.plain and not o.diags.is_complex()
 
 
+def _banded_planes(ops, shared: bool):
+    """The planes of kernel-backed banded operators as one launch takes
+    them: the shared operator's, or the stack of a sequence with equal
+    offsets, ``n``, plane shapes, types and devices; else ``None``."""
+    o0 = ops[0]
+    if shared:
+        return o0.diags if _kernel_banded(o0) else None
+    if all(_kernel_banded(o) for o in ops) and all(
+            (o.offsets, o.n, o.diags.shape, o.diags.dtype, o.diags.device)
+            == (o0.offsets, o0.n, o0.diags.shape, o0.diags.dtype, o0.diags.device)
+            for o in ops):
+        return torch.stack([o.diags for o in ops])
+    return None
+
+
 class _Operators:
     """The operator of each of ``P`` problems, applied to the vectors of a
     set of problems at once: one shared operator, or one per problem.
@@ -107,26 +123,36 @@ class _Operators:
     planes stacked once, a row taking its problem's), and a shared
     :class:`Laplacian1DOperator`.  ``P`` matrices of one shape apply as one
     ``torch.matmul`` over their stack; any other operator applies problem by
-    problem."""
+    problem.  The adjoint (:meth:`apply_adjoint_stack`) batches alike: a
+    banded operator's adjoint planes (stacked on first use), the
+    self-adjoint Laplacian, the conjugate-transposed matrix stack.
 
-    def __init__(self, op, P: int, batched: bool):
+    A ``(f, fadjoint)`` tuple is one operator (``as_operator``), never two
+    problems.  ``templates`` (each problem's vector of the codomain) gives
+    every distinct operator its adjoint as the ``svdsolve``/``lssolve``
+    front-ends do (``require_adjoint`` on its first problem's vector, a
+    caller's pair checked in ``check_space``)."""
+
+    def __init__(self, op, P: int, batched: bool, templates=None, check_space=None):
         if batched:
+            if isinstance(op, tuple):
+                raise ValueError("a (f, fadjoint) tuple is one shared operator, not a batch: "
+                                 "give it with in_dims None, or a list of P operators")
             if isinstance(op, (LinearOperator, torch.Tensor)) or len(op) != P:
                 raise ValueError(f"a batched operator is a sequence of {P} operators")
             self.ops = [as_operator(o) for o in op]
         else:
             self.ops = [as_operator(op)] * P
+        if templates is not None:
+            first = {}
+            for p, o in enumerate(self.ops):
+                if id(o) not in first:
+                    first[id(o)] = require_adjoint(o, templates[p], check_space)
+            self.ops = [first[id(o)] for o in self.ops]
         self.stack = None
-        self.planes, self.shared = None, not batched
+        self.shared = not batched
+        self.planes = _banded_planes(self.ops, self.shared)
         self.laplacian = not batched and isinstance(self.ops[0], Laplacian1DOperator)
-        o0 = self.ops[0]
-        if not batched and _kernel_banded(o0):
-            self.planes = o0.diags
-        elif batched and all(_kernel_banded(o) for o in self.ops) and all(
-                (o.offsets, o.n, o.diags.shape, o.diags.dtype, o.diags.device)
-                == (o0.offsets, o0.n, o0.diags.shape, o0.diags.dtype, o0.diags.device)
-                for o in self.ops):
-            self.planes = torch.stack([o.diags for o in self.ops])
         mats = batched and all(type(o) is MatrixOperator for o in self.ops)
         As = [o.A for o in self.ops] if mats else []
         if As and all(
@@ -134,22 +160,34 @@ class _Operators:
                 for A in As):
             self.stack = torch.stack(As)
 
+    @functools.cached_property
+    def adj_planes(self):
+        """The adjoints' planes as one launch takes them (or ``None``)."""
+        if self.planes is None or any(o.adj is None for o in self.ops):
+            return None
+        return _banded_planes([o.adj for o in self.ops], self.shared)
+
+    @functools.cached_property
+    def adj_stack(self):
+        """The conjugate-transposed matrix stack."""
+        return self.stack.conj().transpose(1, 2)
+
     def distinct(self):
         return list({id(o): o for o in self.ops}.values())
 
-    def _batches(self, x: torch.Tensor) -> bool:
+    def _batches(self, x: torch.Tensor, adjoint: bool = False) -> bool:
         """Whether vectors like ``x`` (one problem's) apply as a stack."""
-        if self.planes is not None:
-            return not torch.promote_types(self.planes.dtype, x.dtype).is_complex
+        planes = self.adj_planes if adjoint else self.planes
+        if planes is not None:
+            return not torch.promote_types(planes.dtype, x.dtype).is_complex
         return self.laplacian or (self.stack is not None and x.ndim == 1)
 
-    def apply_stack(self, X: torch.Tensor, ps) -> torch.Tensor:
-        """``A_p X[i]`` for row ``i`` of the stack ``X``, the vector of
-        problem ``ps[i]``, as a stack."""
-        if self.planes is not None and self._batches(X[0]):
-            o0 = self.ops[0]
-            dt = torch.promote_types(self.planes.dtype, X.dtype)
-            return bd.banded_spmv_batched(X.to(dt), self.planes.to(dt), o0.offsets, o0.n,
+    def _apply(self, X: torch.Tensor, ps, adjoint: bool) -> torch.Tensor:
+        planes = self.adj_planes if adjoint else self.planes
+        if planes is not None and self._batches(X[0], adjoint):
+            o0 = self.ops[0].adj if adjoint else self.ops[0]
+            dt = torch.promote_types(planes.dtype, X.dtype)
+            return bd.banded_spmv_batched(X.to(dt), planes.to(dt), o0.offsets, o0.n,
                                           planes=None if self.shared else list(ps))
         if self.laplacian:
             if X[0].numel() != self.ops[0].n:
@@ -157,19 +195,42 @@ class _Operators:
                                  f"n={self.ops[0].n} Laplacian")
             return s1.laplacian_1d_flat_batched(X)
         if self.stack is not None and X.ndim == 2:
-            dt = torch.promote_types(self.stack.dtype, X.dtype)
+            stack = self.adj_stack if adjoint else self.stack
+            dt = torch.promote_types(stack.dtype, X.dtype)
             full = torch.zeros((len(self.ops), X.shape[1]), dtype=dt, device=X.device)
             full[list(ps)] = X.to(dt)
-            return torch.matmul(self.stack.to(dt), full[:, :, None])[list(ps), :, 0]
+            return torch.matmul(stack.to(dt), full[:, :, None])[list(ps), :, 0]
+        if adjoint:
+            return torch.stack([self.ops[p].apply_adjoint(x) for p, x in zip(ps, X)])
         return torch.stack([self.ops[p].normal(x) for p, x in zip(ps, X)])
+
+    def apply_stack(self, X: torch.Tensor, ps) -> torch.Tensor:
+        """``A_p X[i]`` for row ``i`` of the stack ``X``, the vector of
+        problem ``ps[i]``, as a stack."""
+        return self._apply(X, ps, False)
+
+    def apply_adjoint_stack(self, X: torch.Tensor, ps) -> torch.Tensor:
+        """``A_pᴴ X[i]`` for row ``i`` of the stack ``X``, the vector of
+        problem ``ps[i]``, as a stack."""
+        return self._apply(X, ps, True)
+
+    def _map(self, xs: dict, adjoint: bool) -> dict:
+        ps = list(xs)
+        if not self._batches(xs[ps[0]], adjoint):
+            if adjoint:
+                return {p: self.ops[p].apply_adjoint(x) for p, x in xs.items()}
+            return {p: self.ops[p].normal(x) for p, x in xs.items()}
+        X = torch.stack([xs[p] for p in ps])
+        Y = self.apply_adjoint_stack(X, ps) if adjoint else self.apply_stack(X, ps)
+        return {p: Y[i] for i, p in enumerate(ps)}
 
     def __call__(self, xs: dict) -> dict:
         """``{p: A_p x_p}`` for the vectors ``xs = {p: x_p}``."""
-        ps = list(xs)
-        if not self._batches(xs[ps[0]]):
-            return {p: self.ops[p].normal(x) for p, x in xs.items()}
-        Y = self.apply_stack(torch.stack([xs[p] for p in ps]), ps)
-        return {p: Y[i] for i, p in enumerate(ps)}
+        return self._map(xs, False)
+
+    def adjoint(self, xs: dict) -> dict:
+        """``{p: A_pᴴ x_p}`` for the vectors ``xs = {p: x_p}``."""
+        return self._map(xs, True)
 
 
 def _problems(x, dim, P):

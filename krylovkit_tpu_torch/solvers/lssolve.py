@@ -25,7 +25,7 @@ map.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -52,6 +52,60 @@ def _div(x, s):
     return tree_map(lambda l: l / s, x)
 
 
+class _Rotations(NamedTuple):
+    """The scalars the plane rotations carry from one LSMR step to the next
+    (0-d tensors, or ``(P,)`` ones for a batch)."""
+
+    alphabar: torch.Tensor
+    zetabar: torch.Tensor
+    rho: torch.Tensor
+    theta: torch.Tensor
+    rhobar: torch.Tensor
+    cbar: torch.Tensor
+    sbar: torch.Tensor
+
+
+def _rotations(rot: _Rotations, alpha, beta, lamr, hypot=torch.hypot):
+    """The three plane rotations of one step (``P̂`` for the
+    λ-regularization, ``P`` from bidiagonal to ``R``, ``P̄`` from ``Rᵀ`` to
+    ``R̄``, reference ``src/lssolve/lsmr.jl:93-113``): ``(rot', c1, c2)``
+    with ``c1 = θ̄ρ/(ρ_old ρ̄_old)`` and ``c2 = ζ/(ρ ρ̄)``, the coefficients
+    of the ``h̄``/``x`` updates.  Elementwise, so a batch's row is its
+    one-problem step's; ``hypot`` is the one a batch takes on the CPU."""
+    # rotation P̂ (λ-regularization)
+    alphahat = hypot(rot.alphabar, lamr)
+    # rotation P: bidiagonal → R
+    rho = hypot(alphahat, beta)
+    c = alphahat / rho
+    s = beta / rho
+    theta = s * alpha
+    alphabar = c * alpha
+    # rotation P̄: Rᵀ → R̄
+    thetabar = rot.sbar * rho
+    crho = rot.cbar * rho
+    rhobar = hypot(crho, theta)
+    cbar = crho / rhobar
+    sbar = theta / rhobar
+    zeta = cbar * rot.zetabar
+    zetabar = -sbar * rot.zetabar
+    c1 = thetabar * rho / (rot.rho * rot.rhobar)
+    c2 = zeta / (rho * rhobar)
+    return _Rotations(alphabar, zetabar, rho, theta, rhobar, cbar, sbar), c1, c2
+
+
+def _start_rotations(alpha, beta) -> _Rotations:
+    """The rotations' scalars before the first step."""
+    one = torch.ones_like(alpha)
+    return _Rotations(alpha, alpha * beta, one, torch.zeros_like(one), one, one,
+                      torch.zeros_like(one))
+
+
+FINISHED = ("LSMR lssolve finished at iteration {it}: converged = {c}, "
+            "|| A^H(b - A x) - lam^2 x || = {nr}")
+UNCONVERGED = ("LSMR lssolve finished without converging after {it} iterations: "
+               "normres = {nr}")
+
+
 def lssolve_lsmr(op: LinearOperator, b, alg: LSMR, lam=0.0,
                  space: VectorSpace = STANDARD):
     """Returns ``(x, info)`` minimizing ``‖b − A x‖² + λ²‖x‖²``, on ``b``'s
@@ -72,16 +126,12 @@ def lssolve_lsmr(op: LinearOperator, b, alg: LSMR, lam=0.0,
 
     V = bs.set(bs.alloc(v, K), 0, v)  # ring buffer of the last K v's
 
-    one = torch.ones((), dtype=rdt, device=dev)
     x = zerovector(v)
     h, hbar = v, zerovector(v)
     r = tree_map(lambda l: beta.to(cdt) * l, u)
     Ah, Ahbar = zerovector(u), zerovector(u)
-    alphabar = alpha
-    zetabar = alpha * beta
-    rho, rhobar, cbar = one, one, one
-    theta, sbar = torch.zeros_like(one), torch.zeros_like(one)
-    normres = torch.abs(zetabar)
+    rot = _start_rotations(alpha, beta)
+    normres = torch.abs(rot.zetabar)
     numiter, numops = 0, 1
     done = float(normres) <= tol
 
@@ -90,7 +140,7 @@ def lssolve_lsmr(op: LinearOperator, b, alg: LSMR, lam=0.0,
         Av = op.normal(v)
         numops += 1
         # Ah_k = A v_k − (θ_k/ρ_{k−1}) Ah_{k−1}  (the h update of the last step)
-        Ah = add(Av, Ah, a=-(theta / rho).to(cdt))
+        Ah = add(Av, Ah, a=-(rot.theta / rot.rho).to(cdt))
 
         # β_{k+1} u_{k+1} = A v_k − α_k u_k
         u = add(Av, u, a=-alpha.to(cdt))
@@ -108,51 +158,24 @@ def lssolve_lsmr(op: LinearOperator, b, alg: LSMR, lam=0.0,
                 bs.set(V, numiter % K, w)
             v = w
         else:
-            alpha = torch.zeros_like(one)
+            alpha = torch.zeros_like(rot.rho)
 
-        # rotation P̂ (λ-regularization)
-        alphahat = torch.hypot(alphabar, lamr)
-        # rotation P: bidiagonal → R
-        rho_old = rho
-        rho = torch.hypot(alphahat, beta)
-        c = alphahat / rho
-        s = beta / rho
-        theta = s * alpha
-        alphabar = c * alpha
-        # rotation P̄: Rᵀ → R̄
-        rhobar_old = rhobar
-        thetabar = sbar * rho
-        crho = cbar * rho
-        rhobar = torch.hypot(crho, theta)
-        cbar = crho / rhobar
-        sbar = theta / rhobar
-        zeta = cbar * zetabar
-        zetabar = -sbar * zetabar
-
+        rot, c1, c2 = _rotations(rot, alpha, beta, lamr)
         # vector updates
-        coef1 = (thetabar * rho / (rho_old * rhobar_old)).to(cdt)
+        coef1 = c1.to(cdt)
         hbar = add(h, hbar, a=-coef1)
         Ahbar = add(Ah, Ahbar, a=-coef1)
-        coef2 = (zeta / (rho * rhobar)).to(cdt)
+        coef2 = c2.to(cdt)
         x = add(x, hbar, a=coef2)
         r = add(r, Ahbar, a=-coef2)
-        h = add(v, h, a=-(theta / rho).to(cdt))
+        h = add(v, h, a=-(rot.theta / rot.rho).to(cdt))
 
-        normres = torch.abs(zetabar)
+        normres = torch.abs(rot.zetabar)
         done = float(normres) <= tol or numiter >= alg.maxiter
 
     conv = int(float(normres) <= tol)
-    log_if(
-        alg.verbosity, STARTSTOP,
-        "LSMR lssolve finished at iteration {it}: converged = {c}, "
-        "|| A^H(b - A x) - lam^2 x || = {nr}",
-        it=numiter, c=conv, nr=normres,
-    )
-    warn_if(
-        alg.verbosity, conv == 0,
-        "LSMR lssolve finished without converging after {it} iterations: "
-        "normres = {nr}", it=numiter, nr=normres,
-    )
+    log_if(alg.verbosity, STARTSTOP, FINISHED, it=numiter, c=conv, nr=normres)
+    warn_if(alg.verbosity, conv == 0, UNCONVERGED, it=numiter, nr=normres)
     info = ConvergenceInfo(
         converged=conv, residual=r, normres=normres, numiter=numiter, numops=numops,
     )

@@ -82,53 +82,60 @@ def _process(B, k: int, beta, which, tol: float):
     return nconv, s, P, Q, res
 
 
-def _restart(fact: gf.GKLState, svals, P, Q, beta, keep: int, keep_max: int,
-             gate=None, scales=None) -> gf.GKLState:
-    """Thick restart to the broken-arrow form of size ``keep``:
-    ``A Ṽ = Ũ Σ + β u_k Q[k-1, :]`` (``factorizations/gkl.py``).
-
-    With ``gate`` false both rotations are the identity and ``B``/``k`` keep
-    their values: the transforms still run, as in the JAX package's masked
-    restart, and leave both bases bit-identical.  ``scales = (L_U, L_V)`` of
-    the fused mode fold into the rotations.  Mirrors ``lanczos._restart``."""
+def _restart_rotations(fact: gf.GKLState, svals, P, Q, beta, keep: int, gate=None,
+                       scales=None):
+    """The thick restart's rotations ``(U rotation, V rotation)`` of the
+    stored rows and the restarted state (its bases not yet rotated): the
+    broken-arrow form of size ``keep``, ``A Ṽ = Ũ Σ + β u_k Q[k-1, :]``
+    (``factorizations/gkl.py``).  With ``gate`` false both rotations are
+    the identity and ``B``/``k`` keep their values (the JAX package's masked
+    restart).  ``scales = (L_U, L_V)`` of the fused mode fold into the
+    rotations."""
     U, V, B, k = fact.U, fact.V, fact.B, fact.k
     m1 = B.shape[0]
     dev = B.device
-    off = gate is not None and not gate
+    if gate is not None and not gate:
+        eye = torch.eye(m1, dtype=P.dtype, device=dev)
+        return eye, eye, gf.GKLState(U, V, B, k, beta)
     rows = torch.arange(m1, device=dev)[:, None]
     cols = torch.arange(m1, device=dev)[None, :]
     keepmask = (cols < keep) & (rows < k)
     zero = torch.zeros((), dtype=P.dtype, device=dev)
-    eye = torch.eye(m1, dtype=P.dtype, device=dev)
     # domain basis: the kept right singular vectors
     Qkeep = torch.where(keepmask, Q, zero)
     if scales is not None:
         # stored rows are raw (v_j = Σ_i L[i,j]·row_i): the rotation acting on
         # stored rows is L·Q, resp. L·P
         Qkeep = scales[1].to(Q.dtype) @ Qkeep
-    Vnew = bs.transform_partial(V, eye if off else Qkeep, keep_max + 1)
     # codomain basis: the kept left singular vectors + the old residual u_k
     # at slot ``keep``
     Pkeep = torch.where(keepmask, P, zero)
     Pkeep[k, keep] += 1
     if scales is not None:
         Pkeep = scales[0].to(P.dtype) @ Pkeep
-    Unew = bs.transform_partial(U, eye if off else Pkeep, keep_max + 1)
-    if off:
-        return gf.GKLState(Unew, Vnew, B, k, beta)
     # projected matrix: diag(σ[:keep]) + spike row at ``keep``
     didx = torch.arange(m1, device=dev)
     zb = torch.zeros((), dtype=B.dtype, device=dev)
     Bnew = torch.diag(torch.where(didx < keep, svals.to(B.dtype), zb))
     Bnew[keep, :] += torch.where(didx < keep, (beta * Q[max(k - 1, 0)]).to(B.dtype), zb)
-    return gf.GKLState(Unew, Vnew, Bnew, keep, beta)
+    return Pkeep, Qkeep, gf.GKLState(U, V, Bnew, keep, beta)
 
 
-def svdsolve_gkl(op: LinearOperator, x0, howmany: int, which, alg: GKL,
-                 space: VectorSpace = STANDARD):
-    """Partial SVD on ``x0``'s device: ``(vals, lvecs, rvecs, info)``
-    (reference GKL solver, ``src/eigsolve/svdsolve.jl:144-314``)."""
-    m = alg.krylovdim
+def _restart(fact: gf.GKLState, svals, P, Q, beta, keep: int, keep_max: int,
+             gate=None, scales=None) -> gf.GKLState:
+    """Thick restart (:func:`_restart_rotations`) with both bases rotated.
+
+    With ``gate`` false both rotations are the identity and ``B``/``k`` keep
+    their values: the transforms still run, as in the JAX package's masked
+    restart, and leave both bases bit-identical.  Mirrors
+    ``lanczos._restart``."""
+    Prot, Qrot, fact = _restart_rotations(fact, svals, P, Q, beta, keep, gate, scales)
+    Vnew = bs.transform_partial(fact.V, Qrot, keep_max + 1)
+    Unew = bs.transform_partial(fact.U, Prot, keep_max + 1)
+    return gf.GKLState(Unew, Vnew, fact.B, fact.k, beta)
+
+
+def _check(howmany: int, m: int, which):
     if howmany > m:
         raise ValueError(f"howmany={howmany} exceeds krylovdim={m}")
     w = which.upper() if isinstance(which, str) else which
@@ -137,29 +144,31 @@ def svdsolve_gkl(op: LinearOperator, x0, howmany: int, which, alg: GKL,
             "svdsolve accepts which in ('LR', 'SR') — singular values are "
             "real nonnegative (reference src/eigsolve/svdsolve.jl:137-142)"
         )
-    # x0 lives in the codomain: the scalar type comes through the adjoint
-    cdt = scalartype(probe_adjoint(op, x0), x0)
-    rdt = cdt.to_real()
-    tol = rounded(alg.tol, rdt)
-    btol = float(torch.tensor(torch.finfo(rdt).eps, dtype=rdt) ** 0.75)
-    dev = device_of(x0)
 
-    # a complex map and a real x0: the bases take the map's type (the JAX
-    # package keeps x0's and drops the imaginary part of Aᴴ u)
-    promote = cdt.is_complex and not scalartype(x0).is_complex
-    fact = gf.initialize(op, x0, m, cdt, space, vec_dtype=cdt if promote else None,
-                         verbosity=alg.verbosity)
-    m1 = m + 1
-    # fused one-stream GKL kernels (factorizations/gkl.py): square fusable
-    # stencils under either cgs-family orthogonalizer (the kernel path always
-    # runs the immediate scalar-space DGKS correction: cgs2 orthogonality)
-    fused = (
+
+def _tolerances(alg: GKL, cdt):
+    """``(tol, btol)``: the convergence bound rounded to the real type and
+    the breakdown bound ``eps^0.75``."""
+    rdt = cdt.to_real()
+    return rounded(alg.tol, rdt), float(torch.tensor(torch.finfo(rdt).eps, dtype=rdt) ** 0.75)
+
+
+def _fused(alg: GKL, cdt, op, x0, space, m1: int) -> bool:
+    """Whether the solve runs the fused one-stream GKL kernels
+    (``factorizations/gkl.py``): square fusable stencils under either
+    cgs-family orthogonalizer (the kernel path always runs the immediate
+    scalar-space DGKS correction: cgs2 orthogonality)."""
+    return (
         not alg.eager
         and type(alg.orth) in (on.ClassicalGramSchmidt, on.ClassicalGramSchmidt2)
         and cdt == torch.float32
         and gf.fused_kernel_available(op, x0, space, m1)
     )
-    st = _LoopState(
+
+
+def _loop_state(fact: gf.GKLState, m1: int, cdt, dev) -> _LoopState:
+    rdt = cdt.to_real()
+    return _LoopState(
         fact=fact, numiter=0, numops=0, nconv=0,
         svals=torch.zeros(m1, dtype=rdt, device=dev),
         P=torch.zeros((m1, m1), dtype=cdt, device=dev),
@@ -168,6 +177,98 @@ def svdsolve_gkl(op: LinearOperator, x0, howmany: int, which, alg: GKL,
         scU=kf.fused_scales_init(m1, device=dev),
         scV=kf.fused_scales_init(m1, device=dev),
     )
+
+
+def _keep_max(m: int, howmany: int) -> int:
+    """Static bound on ``keep``: a restart implies ``nconv < howmany`` and
+    ``k == m``."""
+    return min((3 * m + 2 * max(howmany - 1, 0)) // 5, m - 1)
+
+
+def _round(fact: gf.GKLState, numiter: int, which, tol: float, btol: float, howmany: int,
+           alg: GKL):
+    """The host half of one round: the projected SVD and the decisions.
+    Returns ``(nconv, svals, P, Q, res, numiter, done, keep, restart_now)``."""
+    m = alg.krylovdim
+    nconv, svals, P, Q, res = _process(fact.B, fact.k, fact.beta, which, tol)
+    full = fact.k >= m
+    numiter = numiter + int(full)
+    # ¬(β > btol): a NaN β counts as breakdown (see lanczos.py)
+    stalled = not (float(fact.beta) > btol) and fact.k < m
+    done = nconv >= howmany or (full and numiter >= alg.maxiter) or stalled
+    keep = min(max((3 * m + 2 * nconv) // 5, 1), max(fact.k - 1, 1))
+    restart_now = not done and fact.k >= m
+    return nconv, svals, P, Q, res, numiter, done, keep, restart_now
+
+
+def _reseeded(fact: gf.GKLState, m1: int, dev):
+    """The fused scales after a restart: a restart renormalizes both bases,
+    and the broken-arrow buffer seeds the stored-row images (A V = U·B,
+    Aᴴ U = V·Bᵀ exactly).  Returns ``(scU, scV)``."""
+    Bs = torch.real(fact.B).to(torch.float32)
+    return (dataclasses.replace(kf.fused_scales_init(m1, device=dev), Hs=Bs.T),
+            dataclasses.replace(kf.fused_scales_init(m1, device=dev), Hs=Bs))
+
+
+FINISHED = ("GKL svdsolve finished after {it} iterations: {nc} values converged, "
+            "normres = {nr}")
+
+
+def _unconverged(howmany: int) -> str:
+    return ("GKL svdsolve finished without convergence: {nc} of "
+            f"{howmany}" + " values converged after {it} iterations")
+
+
+def _extract(st: _LoopState, howmany: int, cdt):
+    """``(vals, lvecs, rvecs, info)`` of :func:`svdsolve_gkl` from its final
+    loop state."""
+    fact = st.fact
+    k = fact.k
+    m1 = fact.B.shape[0]
+    dev = fact.B.device
+    rows = torch.arange(m1, device=dev)[:, None]
+    cols = torch.arange(m1, device=dev)[None, :]
+    hm = (rows < k) & (cols < howmany)
+    zero = torch.zeros((), dtype=cdt, device=dev)
+    # u_k (the residual direction) before anything rotates U
+    uk = bs.unproject_bucketed(fact.U, st.scU.L[:, k].to(cdt), k + 1)
+    lvecs = _leading(bs.transform(fact.U, kf.fold_scales(st.scU, torch.where(hm, st.P, zero))),
+                     howmany)
+    rvecs = _leading(bs.transform(fact.V, kf.fold_scales(st.scV, torch.where(hm, st.Q, zero))),
+                     howmany)
+    # residuals r_i = β·Q[k-1, i]·u_k  (= A ṽ_i − σ_i ũ_i)
+    s = fact.beta * st.Q[max(k - 1, 0)]
+    residuals = tree_map(lambda l: s[:howmany].reshape((howmany,) + (1,) * l.ndim) * l[None], uk)
+    info = ConvergenceInfo(
+        converged=min(st.nconv, howmany),
+        residual=residuals,
+        normres=st.resnorms[:howmany],
+        numiter=max(st.numiter, 1),
+        numops=st.numops,
+    )
+    return st.svals[:howmany], lvecs, rvecs, info
+
+
+def svdsolve_gkl(op: LinearOperator, x0, howmany: int, which, alg: GKL,
+                 space: VectorSpace = STANDARD):
+    """Partial SVD on ``x0``'s device: ``(vals, lvecs, rvecs, info)``
+    (reference GKL solver, ``src/eigsolve/svdsolve.jl:144-314``)."""
+    m = alg.krylovdim
+    _check(howmany, m, which)
+    # x0 lives in the codomain: the scalar type comes through the adjoint
+    cdt = scalartype(probe_adjoint(op, x0), x0)
+    tol, btol = _tolerances(alg, cdt)
+    dev = device_of(x0)
+
+    # a complex map and a real x0: the bases take the map's type (the JAX
+    # package keeps x0's and drops the imaginary part of Aᴴ u)
+    promote = cdt.is_complex and not scalartype(x0).is_complex
+    fact = gf.initialize(op, x0, m, cdt, space, vec_dtype=cdt if promote else None,
+                         verbosity=alg.verbosity)
+    m1 = m + 1
+    fused = _fused(alg, cdt, op, x0, space, m1)
+    st = _loop_state(fact, m1, cdt, dev)
+    keep_max = _keep_max(m, howmany)
 
     done = False
     while not done:
@@ -184,16 +285,8 @@ def svdsolve_gkl(op: LinearOperator, x0, howmany: int, which, alg: GKL,
                 numops += 2
                 j += 1
 
-        nconv, svals, P, Q, res = _process(fact.B, fact.k, fact.beta, which, tol)
-        full = fact.k >= m
-        numiter = st.numiter + int(full)
-        # ¬(β > btol): a NaN β counts as breakdown (see lanczos.py)
-        stalled = not (float(fact.beta) > btol) and fact.k < m
-        done = nconv >= howmany or (full and numiter >= alg.maxiter) or stalled
-        keep = min(max((3 * m + 2 * nconv) // 5, 1), max(fact.k - 1, 1))
-        # static bound: a restart implies nconv < howmany and k == m
-        keep_max = min((3 * m + 2 * max(howmany - 1, 0)) // 5, m - 1)
-        restart_now = not done and fact.k >= m
+        nconv, svals, P, Q, res, numiter, done, keep, restart_now = _round(
+            fact, st.numiter, which, tol, btol, howmany, alg)
         if alg.eager:
             if restart_now:
                 fact = _restart(fact, svals, P, Q, fact.beta, keep, keep_max)
@@ -203,49 +296,15 @@ def svdsolve_gkl(op: LinearOperator, x0, howmany: int, which, alg: GKL,
             fact = _restart(fact, svals, P, Q, fact.beta, keep, keep_max, gate=restart_now,
                             scales=(scU.L, scV.L) if fused else None)
         if restart_now and fused:
-            # a restart renormalizes both bases; the broken-arrow buffer seeds
-            # the stored-row images (A V = U·B, Aᴴ U = V·Bᵀ exactly)
-            Bs = torch.real(fact.B).to(torch.float32)
-            scU = dataclasses.replace(kf.fused_scales_init(m1, device=dev), Hs=Bs.T)
-            scV = dataclasses.replace(kf.fused_scales_init(m1, device=dev), Hs=Bs)
+            scU, scV = _reseeded(fact, m1, dev)
         st = _LoopState(fact, numiter, numops, nconv, svals, P, Q, res, scU, scV)
 
     nconv_out = min(st.nconv, howmany)
-    log_if(
-        alg.verbosity, STARTSTOP,
-        "GKL svdsolve finished after {it} iterations: {nc} values converged, "
-        "normres = {nr}", it=st.numiter, nc=nconv_out, nr=st.resnorms[:howmany],
-    )
-    warn_if(
-        alg.verbosity, nconv_out < howmany,
-        "GKL svdsolve finished without convergence: {nc} of "
-        f"{howmany}" + " values converged after {it} iterations",
-        nc=nconv_out, it=st.numiter,
-    )
-
-    fact = st.fact
-    k = fact.k
-    rows = torch.arange(m1, device=dev)[:, None]
-    cols = torch.arange(m1, device=dev)[None, :]
-    hm = (rows < k) & (cols < howmany)
-    zero = torch.zeros((), dtype=cdt, device=dev)
-    # u_k (the residual direction) before anything rotates U
-    uk = bs.unproject_bucketed(fact.U, st.scU.L[:, k].to(cdt), k + 1)
-    lvecs = _leading(bs.transform(fact.U, kf.fold_scales(st.scU, torch.where(hm, st.P, zero))),
-                     howmany)
-    rvecs = _leading(bs.transform(fact.V, kf.fold_scales(st.scV, torch.where(hm, st.Q, zero))),
-                     howmany)
-    # residuals r_i = β·Q[k-1, i]·u_k  (= A ṽ_i − σ_i ũ_i)
-    s = fact.beta * st.Q[max(k - 1, 0)]
-    residuals = tree_map(lambda l: s[:howmany].reshape((howmany,) + (1,) * l.ndim) * l[None], uk)
-    info = ConvergenceInfo(
-        converged=nconv_out,
-        residual=residuals,
-        normres=st.resnorms[:howmany],
-        numiter=max(st.numiter, 1),
-        numops=st.numops,
-    )
-    return st.svals[:howmany], lvecs, rvecs, info
+    log_if(alg.verbosity, STARTSTOP, FINISHED, it=st.numiter, nc=nconv_out,
+           nr=st.resnorms[:howmany])
+    warn_if(alg.verbosity, nconv_out < howmany, _unconverged(howmany), nc=nconv_out,
+            it=st.numiter)
+    return _extract(st, howmany, cdt)
 
 
 def _leading(V, howmany: int):

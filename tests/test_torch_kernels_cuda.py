@@ -1117,3 +1117,88 @@ def test_batched_arnoldi_with_projection_kernels_on_card_matches_cpu():
     assert launches["project_batched"] == launches["unproject_batched"] == \
         2 * launches["banded_spmv_batched"]
     assert launches["transform_partial_batched"] == max(ic.numiter.tolist())
+
+
+# batched K1 on the grid's adjoint spec with drift (the codomain half-steps
+# of the batched fused GKL): B = 0 for every problem, and mixed B launched
+# once per distinct B, as factorizations/gkl.py launches them
+@pytest.mark.parametrize("Bs", [[0, 0, 0, 0], [0, 19, 12, 19], [29, 0, 29, 5]],
+                         ids=["all_B0", "mixed_with_B0", "mixed"])
+def test_batched_fused_step_on_the_adjoint_grid_spec_is_one_problem_launches(Bs):
+    """Each problem of the batched K1 on the adjoint grid spec with drift
+    (one launch per distinct ``B``, ``active`` its problems, one ``ynext``
+    buffer: ``chip_smoke.check_batched_step(grouped=True)``) bit-identical
+    to a one-problem launch, within the one-problem tolerance of the plain
+    version; one count of ``fused_step_batched`` per distinct ``B``."""
+    from chip_smoke import check_batched_step
+
+    op = GridStencilOperator((256, 1024), POISSON_OFF, ADVECTION_CF)
+    before = _build.launches["fused_step_batched"]
+    case = check_batched_step(torch, fl, op, len(Bs), 2048, 31, Bs, True, _gen(150 + sum(Bs)),
+                              timed=False, adjoint=True, grouped=True)
+    assert _build.launches["fused_step_batched"] == before + len(set(Bs))
+    assert case["bit_identical_to_one_problem_launches"]
+
+
+@pytest.mark.parametrize("shared", [True, False], ids=["shared", "per_problem"])
+def test_batched_banded_adjoint_is_apply_adjoint_row_by_row(shared):
+    """The adjoint stack apply of ``solvers/batched.py:_Operators`` on
+    banded operators with their adjoints (config 4's non-symmetric
+    tridiagonal at n = 2^16, its lower band scaled per problem): one
+    ``banded_spmv_batched`` launch on the adjoint planes, each row
+    bit-identical to ``op.apply_adjoint``, no one-problem launch."""
+    from chip_smoke import tridiagonal_coo
+    from krylovkit_tpu_torch.solvers.batched import _Operators
+
+    P, n = 4, 1 << 16
+    ops = [kt.banded_from_coo(*tridiagonal_coo(np, n, -1.3 * (1 + 0.1 * p), 2.0, -0.7,
+                                               np.float32), n) for p in range(P)]
+    X = torch.randn((P, n // 128, 128), generator=_gen(160), device="cuda")
+    batch = _Operators(ops[0] if shared else ops, P, not shared)
+    _build.reset_launches()
+    Y = batch.apply_adjoint_stack(X, list(range(P)))
+    torch.cuda.synchronize()
+    assert {k: v for k, v in _build.launches.items() if v} == {"banded_spmv_batched": 1}
+    for p in range(P):
+        assert torch.equal(Y[p], (ops[0] if shared else ops[p]).apply_adjoint(X[p]))
+
+
+def test_batched_svdsolve_and_lssolve_on_card_match_one_problem_solves():
+    """A small fused ``svdsolve_gkl_batched`` (the advection grid stencil,
+    256 × 1024, three starts, krylovdim 16, maxiter 3) and a small
+    ``lssolve_lsmr_batched`` (the banded 128² Poisson with its adjoint,
+    three right-hand sides, 20 iterations) on the card: each problem's
+    counts and bits equal to its one-problem solve on the card, only
+    batched launches."""
+    from chip_smoke import batched_starts
+    from krylovkit_tpu_torch.solvers import lssolve as lss
+    from krylovkit_tpu_torch.solvers import svdsolve as svds
+
+    P = 3
+    op = GridStencilOperator((256, 1024), POISSON_OFF, ADVECTION_CF)
+    X = batched_starts(torch, np, 2048, P, "cuda")
+    alg = kt.GKL(krylovdim=16, maxiter=3, tol=1e-30, verbosity=kt.SILENT)
+    _build.reset_launches()
+    S, U, W, it = kt.svdsolve_gkl_batched(op, X, 4, "LR", alg)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _build.launches.items() if v}
+    # keep (3·16)//5 = 9: 2·(16 + 7 + 7) applies a problem, K1 all but the
+    # two of each round's tail step, at one live-row count a half-step
+    assert launches == {"fused_step_batched": 2 * (16 + 7 + 7) - 2 * 3,
+                        "transform_partial_batched": 6}, launches
+    for p in range(P):
+        S1, U1, W1, i1 = svds.svdsolve_gkl(op, X[p], 4, "LR", alg)
+        assert [i1.numops, i1.numiter] == [it.numops[p].item(), it.numiter[p].item()]
+        assert torch.equal(S[p], S1) and torch.equal(U[p], U1) and torch.equal(W[p], W1)
+    n = 128 * 128
+    banded = kt.banded_from_coo(*poisson_coo(np, 128, np.float32), n)
+    B = batched_starts(torch, np, n // 128, P, "cuda")
+    lalg = kt.LSMR(maxiter=20, tol=1e-30, verbosity=kt.SILENT)
+    _build.reset_launches()
+    x, il = kt.lssolve_lsmr_batched(banded, B, lalg)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in _build.launches.items() if v} == {"banded_spmv_batched": 41}
+    for p in range(P):
+        x1, i1 = lss.lssolve_lsmr(banded, B[p], lalg)
+        assert [i1.numops, i1.numiter] == [il.numops[p].item(), il.numiter[p].item()] == [41, 20]
+        assert torch.equal(x[p], x1) and torch.equal(il.normres[p], i1.normres)
