@@ -227,7 +227,38 @@ without the final ``ok`` line:
    one-problem launches (every row bit for bit) and their plain versions,
    warm and cold ms, the 8 one-problem launches, ``torch.bmm`` and the
    bound; untimed at 70 problems (two launches) and with every k = 0;
-33. profile (only with ``--profile``) — one more config-1 solve and one
+33. batched_gkl — config 3 for 4 starts in one host loop per solve:
+   ``svdsolve_gkl_batched`` on the advection grid stencil (fused: batched
+   K1 over both stacks, batched K2) and through the rectangular map with
+   the projection kernels on (batched K5, K6 and K2), fixed work
+   (krylovdim 30, maxiter 3); ``lssolve_lsmr_batched`` on config 2's
+   banded Poisson for 8 right-hand sides (40 iterations; one batched K3
+   launch per normal or adjoint apply); each compared problem's counts
+   equal its one-problem solve's and its results bit-identical, exactly
+   the batched launches the one-problem rounds give, no one-problem K1,
+   K2, K3, K5 or K6; then the batched K1 on the adjoint grid spec (B = 0,
+   18 and mixed) and the batched K3 on adjoint planes;
+34. batched_geneig_bieig — (a) ``geneigsolve_golubye_batched`` on the
+   1024² Q1 pencil of phase 14 (K and M two shared banded operators, nine
+   offsets each) for 4 starts (phase 14's and ``default_rng(101–103)``),
+   4 "SR", krylovdim 30, maxiter 8, tol 1e-30 (fixed work), the projection
+   flag off, then on: every problem 240 / 8, 480 ``banded_spmv_batched``
+   launches (two a batched apply of the pencil, each problem's batched
+   pencil applies 240), with the flag 494 ``project_batched`` and
+   ``unproject_batched`` (the one-problem solve's K5/K6), each Rayleigh
+   quotient within 1e-4; (b) ``bieigsolve_batched`` on config 4's
+   tridiagonal (n = 2^20, its adjoint planes) for 4 ``(v0, w0)`` pairs
+   (phase 20's and ``default_rng(101–103)`` / ``(111–113)``), 4 "LM",
+   krylovdim 30, tol 1e-30, the flag on, maxiter 2 (cut from phase 20's
+   8 for the phase's budget): ``numops`` even in 84..96, batched K3 = the
+   largest ``numops``, batched K5/K6 as
+   :func:`bieig_predicted_projections` on the batch's lock-steps, every
+   ``|λ| <= 4 + ‖A v − λ v‖/‖v‖``; on both, problems 0 and 1 bit-identical
+   to their one-problem solves and no one-problem K3, K5 or K6; then the
+   batched K3 on the Q1 pencil's two nine-offset plane sets at ``P = 4``
+   (warm and cold, 4 one-problem launches, the bound, the plain version,
+   cuSPARSE SpMM), bit-identical to one-problem launches;
+35. profile (only with ``--profile``) — one more config-1 solve and one
    more fused config-4 solve under ``torch.profiler``: device busy time and idle share, device ops, host
    reads of device scalars, device time by kernel name.
 
@@ -245,7 +276,7 @@ printed as ``parent_ms`` beside ``ms`` (without it ``parent_ms`` is null).
 ``--root`` (default: this tree) and prints one JSON line.
 
 Each path (phases 5, 7, 9, 12, 13, 14, 15, 17, 18, 20, 21, 24, 25, 27,
-28, 29, 30, 31 and 32, one solve or iterator at a time, the forward and the backward of
+28, 29, 30, 31, 32, 33 and 34, one solve or iterator at a time, the forward and the backward of
 a differentiable solve apart; in 24, 25, 27 and 29 in every rank) is
 driven with the launch counts set to 0 just before it and read just after.
 Then the kernel summary line, the ``nvidia-smi`` name/power line, and as
@@ -796,8 +827,8 @@ def geneig_full(torch, np, kt, _build, bd, bs, fl, pb, q1_full, N, smi, dev="cud
     checks).  Before the solves, K3 on both nine-offset operators and K5/K6
     on the solve's ``(37, R, 128)`` basis are held against their plain
     versions, K5/K6 at the live lengths the sweeps reach (1 to 30, mean
-    15.9) and beyond, up to all 37 rows.  Returns the launches by route and
-    the kernel records."""
+    15.9) and beyond, up to all 37 rows.  Returns the launches by route, the
+    kernel records and the pencil's two operators."""
     (coo_k, coo_m), n = q1_full, N * N
     Kb, Mb = kt.banded_from_coo(*coo_k, n, device=dev), kt.banded_from_coo(*coo_m, n, device=dev)
     require(len(Kb.offsets) == len(Mb.offsets) == 9 and Kb.diags.dtype == torch.float32,
@@ -887,7 +918,7 @@ def geneig_full(torch, np, kt, _build, bd, bs, fl, pb, q1_full, N, smi, dev="cud
           "phase_seconds": time.perf_counter() - t_phase})
     require(agree <= GENEIG_ROUTE_TOL, f"geneig: leading values of the two routes within "
             f"{GENEIG_ROUTE_TOL} ({agree})")
-    return launches_by, kernels
+    return launches_by, kernels, (Kb, Mb)
 
 
 def block_full(torch, np, kt, _build, bd, fl, pb, banded, grid, N, smi, dev="cuda"):
@@ -1672,7 +1703,7 @@ def bieig_full(torch, np, kt, _build, bd, bs, fl, pb, n=1 << 20, dev="cuda", smi
     vᴴ/‖v‖²``); the leading |λ| of the two routes within 1e-3; finite
     values and vectors; ``diag(WᴴV)`` nonzero.  Reported, not guarded: the
     off-diagonal of ``WᴴV`` relative to its diagonal.  Returns the launches
-    of the two routes."""
+    of the two routes and the operator."""
     t_phase = time.perf_counter()
     R = n // 128
     m = 30
@@ -1787,7 +1818,7 @@ def bieig_full(torch, np, kt, _build, bd, bs, fl, pb, n=1 << 20, dev="cuda", smi
           "phase_seconds": time.perf_counter() - t_phase})
     require(agree <= 1e-3, f"bieig: leading |lambda| of the two routes within 1e-3 ({agree})")
     require(nr == 8, f"bieig: one dense round per iteration ({nr})")
-    return {"bieig": off_r["launches"], "bieig_proj": on_r["launches"]}
+    return {"bieig": off_r["launches"], "bieig_proj": on_r["launches"], "operator": op}
 
 
 def _cpu_counted(solve):
@@ -5600,6 +5631,239 @@ def batched_gkl_phase(torch, np, kt, _build, svds, lss, bd, bs, fl, smi, rect=No
     return out
 
 
+def batched_geneig_bieig_phase(torch, np, kt, _build, bd, bs, smi, pencil=None, tri=None,
+                               N=1024, n4=1 << 20, P=4, PB=4, dev="cuda"):
+    """Phase ``batched_geneig_bieig``: batched Golub-Ye ``geneigsolve`` and
+    batched BiArnoldi ``bieigsolve`` at the widths of phases 14 and 20, one
+    host loop per solve.
+
+    (a) ``geneigsolve_golubye_batched`` on the ``N × N`` Q1 pencil (K and M
+    two shared float32 banded operators, nine offsets each) for ``P``
+    starts (phase 14's ``default_rng(4)`` and ``default_rng(100 + p)``), 4
+    "SR", krylovdim 30, maxiter 8, tol 1e-30 (fixed work), the projection
+    flag off, then on.  (b) ``bieigsolve_batched`` on config 4's
+    tridiagonal (n = ``n4``, its adjoint planes) for ``PB`` start pairs
+    (phase 20's ``default_rng(1)``/``(10)`` and ``default_rng(100 + p)`` /
+    ``(110 + p)``), 4 "LM", krylovdim 30, tol 1e-30, the flag on, maxiter 2
+    (cut from phase 20's 8: a dense round costs ~0.3 s a problem).
+
+    Each batched solve is driven once with the launch counts set to 0 just
+    before it and read just after, and its applies recorded
+    (:class:`ApplyRecorder`); then the one-problem solves (all ``P`` on
+    (a), problems 0 and 1 on (b)), each with its launches.  Guards: (a)
+    every problem 240 / 8, 480 batched K3 (two a batched pencil apply, each
+    problem's batched pencil applies 240), with the flag K5 = K6 =
+    :func:`golubye_sweeps` batched, each value within 1e-4 of its vector's
+    Rayleigh quotient; (b) ``numiter`` 2, ``numops`` even in
+    2·(30 + 12)..2·(30 + 18), batched K3 = the largest ``numops`` (each
+    problem's batched applies its ``numops``), batched K5/K6 as
+    :func:`bieig_predicted_projections` on the batch's lock-steps, every
+    ``|λ| <= 4 + ‖A v − λ v‖/‖v‖``; on both, the compared problems' counts
+    equal their one-problem solves', problems 0 and 1 bit-identical, and no
+    one-problem K3, K5 or K6.  Then the batched K3 on the pencil's two
+    plane sets at ``P`` (:func:`check_banded_batched`, timed).  ``pencil``
+    (phase 14's ``(K, M)``) and ``tri`` (phase 20's operator) are built
+    here when not given.  ``dev="cpu"`` with a small ``N`` and ``n4``
+    rehearses (a) and (b) with the plain versions: no launch guard, no
+    kernel check."""
+    from krylovkit_tpu_torch.solvers import batched as batched_mod
+
+    t0 = time.perf_counter()
+    card = dev != "cpu"
+    n = N * N
+    R = n // 128
+    if pencil is None:
+        pencil = [kt.banded_from_coo(*c, n, device=dev) for c in q1_coo(np, N, N, np.float32)]
+    Kb, Mb = pencil
+    X = torch.empty((P, R, 128), dtype=torch.float32, device=dev)
+    for p in range(P):
+        X[p] = torch.from_numpy(np.random.default_rng(4 if p == 0 else 100 + p)
+                                .standard_normal((R, 128)).astype(np.float32))
+    alg = kt.GolubYe(krylovdim=30, maxiter=8, tol=1e-30, verbosity=kt.SILENT)
+    one_problem = {"banded_spmv", "project", "unproject"}
+    out = {"launches": {}}
+
+    for path, flag in (("geneigsolve_golubye_q1", False), ("geneigsolve_golubye_q1_proj", True)):
+        bs.use_pallas_projections = flag
+        try:
+            with ApplyRecorder(batched_mod) as rec:
+                (vals, vecs, info), ms, launches = _sync_ms(
+                    torch, _build, lambda: kt.geneigsolve_golubye_batched(Kb, Mb, X, 4, "SR", alg),
+                    dev)
+            ones, one_ms, one_launches = [], [], []
+            for p in range(P):
+                o, ms1, l1 = _sync_ms(torch, _build, lambda p=p: kt.geneigsolve(
+                    (Kb, Mb), X[p], 4, "SR", alg=alg), dev)
+                ones.append(o)
+                one_ms.append(ms1)
+                one_launches.append(l1)
+        finally:
+            bs.use_pallas_projections = False
+        counts = [info.numops.tolist(), info.numiter.tolist(), info.converged.tolist()]
+        counts1 = [[o[2].numops for o in ones], [o[2].numiter for o in ones],
+                   [o[2].converged for o in ones]]
+        bits = [torch.equal(vals[p], o[0]) and torch.equal(vecs[p], o[1])
+                and torch.equal(info.normres[p], o[2].normres)
+                and torch.equal(info.residual[p], o[2].residual) for p, o in enumerate(ones)]
+        diff = [max(float((vals[p] - o[0]).abs().max()), float((vecs[p] - o[1]).abs().max()))
+                for p, o in enumerate(ones)]
+        rq_err = []
+        for p in range(P):
+            for i in range(4):
+                v = vecs[p, i].double()
+                kv = bd.banded_spmv_reference(v, Kb.diags.double(), Kb.offsets, n)
+                mv = bd.banded_spmv_reference(v, Mb.diags.double(), Mb.offsets, n)
+                rq = float(torch.sum(v * kv) / torch.sum(v * mv))
+                rq_err.append(abs(rq - float(vals[p, i])) / abs(float(vals[p, i])))
+        sw = golubye_sweeps(240, 8)
+        want = {"banded_spmv_batched": 2 * 240}
+        want1 = {"banded_spmv": 2 * 240}
+        if flag:
+            want.update(project_batched=sw, unproject_batched=sw)
+            want1.update(project=sw, unproject=sw)
+        emit({"phase": "batched_geneig_bieig", "path": path, "P": P, "n": n,
+              "projection_kernels": flag, "numops": counts[0], "numiter": counts[1],
+              "converged": counts[2], "one_problem_counts": counts1,
+              "vals": vals.cpu().tolist(), "rayleigh_rel_err_max": max(rq_err),
+              "bit_identical": bits, "one_problem_max_abs_diff": diff, "launches": launches,
+              "expected_launches": want, "one_problem_launches": one_launches,
+              "batched_applies": rec.calls, "pencil_applies_per_problem":
+              {p: c // 2 for p, c in rec.per_problem.items()},
+              "batched_ms": ms, "one_problem_ms": one_ms, "one_problem_ms_sum": sum(one_ms),
+              "batched_over_sum_of_one_problem": ms / sum(one_ms), "nvidia_smi": smi})
+        require(counts[0] == [240] * P and counts[1] == [8] * P,
+                f"batched_geneig {path}: every problem 240 / 8 ({counts})")
+        require(counts == counts1, f"batched_geneig {path}: each problem's counts equal its "
+                f"one-problem solve's ({counts} vs {counts1})")
+        require(all(bits[:2]), f"batched_geneig {path}: problems 0 and 1 bit-identical to their "
+                f"one-problem solves ({bits}, max diff {diff})")
+        require(max(rq_err) <= 1e-4, f"batched_geneig {path}: each value within 1e-4 of its "
+                f"vector's Rayleigh quotient ({max(rq_err)})")
+        require(bool(torch.isfinite(vecs).all()) and tuple(vecs.shape) == (P, 4, R, 128),
+                f"batched_geneig {path}: finite (P, 4, R, 128) vectors")
+        require(rec.calls == 2 * 240 and rec.per_problem == {p: 2 * 240 for p in range(P)},
+                f"batched_geneig {path}: one batched apply of K and one of M per pencil apply, "
+                f"240 a problem ({rec.calls}, {rec.per_problem})")
+        if card:
+            require(launches == want, f"batched_geneig {path}: launches {launches}, expected "
+                    f"{want} (K3 twice a batched pencil apply; with the flag K5 = K6 = "
+                    f"2(numops + numiter - 1))")
+            require(not one_problem & set(launches), f"batched_geneig {path}: no one-problem K3, "
+                    f"K5 or K6 ({launches})")
+            require(all(l1 == want1 for l1 in one_launches), f"batched_geneig {path}: the "
+                    f"one-problem solves launch {want1} ({one_launches})")
+        out["launches"][path] = launches
+        del vals, vecs, info, ones
+
+    # (b) the two-sided solves, the projection flag on
+    nb = n4
+    Rb = nb // 128
+    op = tri if tri is not None else kt.banded_from_coo(
+        *tridiagonal_coo(np, nb, -1.3, 2.0, -0.7, np.float32), nb, device=dev)
+    V0 = torch.empty((PB, Rb, 128), dtype=torch.float32, device=dev)
+    W0 = torch.empty_like(V0)
+    for p in range(PB):
+        for Y, seed in ((V0, 1 if p == 0 else 100 + p), (W0, 10 if p == 0 else 110 + p)):
+            Y[p] = torch.from_numpy(np.random.default_rng(seed).standard_normal((Rb, 128))
+                                    .astype(np.float32))
+    balg = kt.BiArnoldi(krylovdim=30, maxiter=2, tol=1e-30, verbosity=kt.SILENT)
+    bs.use_pallas_projections = True
+    try:
+        with ApplyRecorder(batched_mod) as rec:
+            (vals, (Vv, Ww), (iV, iW)), ms_b, launches_b = _sync_ms(
+                torch, _build, lambda: kt.bieigsolve_batched(op, V0, W0, 4, "LM", balg), dev)
+        ones, one_ms, one_launches = [], [], []
+        for p in range(2):
+            o, ms1, l1 = _sync_ms(torch, _build, lambda p=p: kt.bieigsolve(
+                op, V0[p], W0[p], 4, "LM", alg=balg), dev)
+            ones.append(o)
+            one_ms.append(ms1)
+            one_launches.append(l1)
+    finally:
+        bs.use_pallas_projections = False
+    numops = iV.numops.tolist()
+    bits = [torch.equal(vals[p], o[0]) and torch.equal(Vv[p], o[1][0])
+            and torch.equal(Ww[p], o[1][1])
+            and all(torch.equal(b.residual[p], i1.residual)
+                    and torch.equal(b.normres[p], i1.normres) for b, i1 in zip((iV, iW), o[2]))
+            for p, o in enumerate(ones)]
+    diff = [float((vals[p] - o[0]).abs().max()) for p, o in enumerate(ones)]
+    lam = vals.detach().cpu()
+    vn = torch.linalg.vector_norm(Vv.reshape(PB, 4, -1), dim=2)
+    res = torch.stack([torch.stack([torch.linalg.vector_norm(
+        op.normal(Vv[p, i].real) + 1j * op.normal(Vv[p, i].imag) - vals[p, i] * Vv[p, i])
+        for i in range(4)]) for p in range(PB)])
+    bound_l = (4.0 + res / vn).cpu()
+    k5, k6 = bieig_predicted_projections(max(numops), 2)
+    want_b = {"banded_spmv_batched": max(numops), "project_batched": k5, "unproject_batched": k6}
+    want1 = [dict(zip(("project", "unproject"), bieig_predicted_projections(numops[p], 2)),
+                  banded_spmv=numops[p]) for p in range(2)]
+    one_mean = mean(one_ms)
+    emit({"phase": "batched_geneig_bieig", "path": "bieigsolve_nonsym_banded_proj", "P": PB,
+          "n": nb, "projection_kernels": True, "maxiter": 2, "numops": numops,
+          "numiter": iV.numiter.tolist(), "converged": iV.converged.tolist(),
+          "one_problem_counts": [[o[2][0].numops for o in ones], [o[2][0].numiter for o in ones]],
+          "abs_vals": lam.abs().tolist(), "true_residual_over_norm": (res / vn).cpu().tolist(),
+          "bit_identical": bits, "one_problem_max_abs_diff": diff, "launches": launches_b,
+          "expected_launches": want_b, "one_problem_launches": one_launches,
+          "batched_applies": rec.calls, "applies_per_problem": rec.per_problem,
+          "batched_ms": ms_b, "one_problem_ms": one_ms,
+          "batched_over_one_problem_mean_times_P": ms_b / (PB * one_mean), "nvidia_smi": smi})
+    require(iV.numiter.tolist() == [2] * PB and iW.numiter.tolist() == [2] * PB,
+            f"batched_bieig: 2 iterations each ({iV.numiter.tolist()})")
+    require(all(c % 2 == 0 and 84 <= c <= 96 for c in numops),
+            f"batched_bieig: numops even, in 2*(30 + 12)..2*(30 + 18) ({numops})")
+    require([numops[p] for p in range(2)] == [o[2][0].numops for o in ones],
+            "batched_bieig: problems 0 and 1's counts equal their one-problem solves'")
+    require(all(bits), f"batched_bieig: problems 0 and 1 bit-identical to their one-problem "
+            f"solves ({bits}, max diff {diff})")
+    require(bool(torch.isfinite(lam.abs()).all()) and bool((lam.abs() <= bound_l + 1e-3).all()),
+            f"batched_bieig: |lambda| <= 4 + |A v - lambda v|/|v| ({lam.abs().tolist()} vs "
+            f"{bound_l.tolist()})")
+    require(tuple(Vv.shape) == tuple(Ww.shape) == (PB, 4, Rb, 128)
+            and bool(torch.isfinite(Vv).all()) and bool(torch.isfinite(Ww).all()),
+            "batched_bieig: finite (P, 4, R, 128) vectors")
+    require(rec.per_problem == dict(enumerate(numops)) and rec.calls == max(numops),
+            f"batched_bieig: each problem's batched applies equal its numops, one normal and one "
+            f"adjoint batched apply a lock-step ({rec.per_problem}, {rec.calls})")
+    if card:
+        require(launches_b == want_b, f"batched_bieig: launches {launches_b}, predicted {want_b}")
+        require(all(l1 == w1 for l1, w1 in zip(one_launches, want1)),
+                f"batched_bieig: the one-problem solves launch {want1} ({one_launches})")
+    out["launches"]["bieigsolve_nonsym_banded_proj"] = launches_b
+    del vals, Vv, Ww, iV, iW, ones, op, V0, W0
+    if not card:
+        return out
+
+    # the batched K3 on the pencil's two nine-offset plane sets at P
+    flush = torch.empty(32 << 20, device=dev)  # 128 MB, written to clear L2
+    k3 = [check_banded_batched(torch, bd, f"Q1 {name} f32, 9 offsets, shared, P={P}", X,
+                               o.diags, o.offsets, n, None, flush)
+          for name, o in (("K", Kb), ("M", Mb))]
+    del flush
+    seconds = time.perf_counter() - t0
+    emit({"phase": "batched_geneig_bieig_kernels", "banded_spmv_batched": k3, "nvidia_smi": smi,
+          "phase_seconds": seconds})
+    L = out["launches"]
+    out["kernels"] = {
+        "banded_spmv": {
+            "launches_batched_geneig_q1": L["geneigsolve_golubye_q1"]["banded_spmv_batched"],
+            "launches_batched_geneig_q1_proj":
+            L["geneigsolve_golubye_q1_proj"]["banded_spmv_batched"],
+            "launches_batched_bieig": L["bieigsolve_nonsym_banded_proj"]["banded_spmv_batched"],
+            **{f"{key}_batched_q1_{name}_P{P}": case[key]
+               for name, case in zip("KM", k3)
+               for key in ("ms", "cold_ms", "one_problem_launches_ms",
+                           "one_problem_launches_cold_ms", "plain_ms", "library_ms",
+                           "bound_ms")}},
+        **{name: {"launches_batched_geneig_q1_proj":
+                  L["geneigsolve_golubye_q1_proj"][f"{name}_batched"],
+                  "launches_batched_bieig": L["bieigsolve_nonsym_banded_proj"][f"{name}_batched"]}
+           for name in ("project", "unproject")},
+    }
+    return out
+
+
 def mean(xs):
     return sum(xs) / len(xs)
 
@@ -5607,7 +5871,7 @@ def mean(xs):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one config-1 and one config-4 solve (phase 33)")
+                    help="also profile one config-1 and one config-4 solve (phase 35)")
     ap.add_argument("--parent", metavar="DIR",
                     help="an unpacked earlier tree: time its K1 and K2 on this card as parent_ms")
     ap.add_argument("--kernel-times", action="store_true",
@@ -6445,7 +6709,8 @@ def main():
 
     # 14. the Q1 pencil at full width through geneigsolve, the projection
     # kernels off and on
-    geneig_launches, kg = geneig_full(torch, np, kt, _build, bd, bs, fl, pb, q1_full, nq, smi)
+    geneig_launches, kg, q1_pencil = geneig_full(torch, np, kt, _build, bd, bs, fl, pb, q1_full,
+                                                 nq, smi)
     del q1_full
 
     # 15. Block Lanczos on the config-2 Poisson matrix, banded and stencil
@@ -6506,6 +6771,13 @@ def main():
     # config 2's banded Poisson for 8 right-hand sides
     batched_svd = batched_gkl_phase(torch, np, kt, _build, svds, lss, bd, bs, fl, smi, rect,
                                     rect_adj)
+
+    # 34. batched Golub-Ye geneigsolve on the Q1 pencil for 4 starts (two
+    # batched K3 launches an apply) and batched BiArnoldi bieigsolve on
+    # config 4's tridiagonal for 4 start pairs (batched K3 on the normal and
+    # the adjoint planes), the projection kernels batched
+    batched_gb = batched_geneig_bieig_phase(torch, np, kt, _build, bd, bs, smi, q1_pencil,
+                                            bieig_l.pop("operator"))
 
     def slice11(name):
         """The launches per rank of ``name`` in phase 29's passes."""
@@ -6623,6 +6895,7 @@ def main():
             **slice11("banded_spmv"),
             **batched_lin["kernels"]["banded_spmv"],
             **batched_svd["kernels"]["banded_spmv"],
+            **batched_gb["kernels"]["banded_spmv"],
         },
         {
             "name": "laplacian_1d", "route": "cuda",
@@ -6694,6 +6967,7 @@ def main():
             "replaces": replaces + " (under jax.vmap)",
             **batched_arn["kernels"][name],
             **batched_svd["kernels"][name],
+            **batched_gb["kernels"][name],
             "bound_by": "bytes",
             "shapes": "mean per launch over P = 8 bases (31, 8192, 128) f32 at k = 18, 30 and "
                       "mixed k; launches: the config-4 banded eigsolve_arnoldi_batched, P = 4, "

@@ -19,14 +19,16 @@ Lanczos, Arnoldi, CG, GMRES, LSMR and GKL solvers, with reverse-mode
 differentiation of ``linsolve``, ``eigsolve`` and ``svdsolve`` (``ad``:
 one ``torch.autograd.Function`` each) and pytree vectors (tuples, lists and
 dicts of tensors) in the Krylov, Lanczos, Arnoldi and linear solvers,
-batched Lanczos, Arnoldi, GMRES, CG, MINRES, BiCGStab, GKL and LSMR solves
-and batched exponential integrators of many problems in one host loop
+batched Lanczos, Arnoldi, GMRES, CG, MINRES, BiCGStab, GKL, LSMR, Golub-Ye
+and BiArnoldi solves and batched exponential integrators of many problems
+in one host loop
 (``eigsolve_lanczos_batched``, ``schursolve_batched``,
 ``eigsolve_arnoldi_batched``, ``realeigsolve_arnoldi_batched``,
 ``linsolve_gmres_batched``, ``linsolve_cg_batched``,
 ``linsolve_minres_batched``, ``linsolve_bicgstab_batched``,
 ``expintegrator_batched``, ``exponentiate_batched``,
-``svdsolve_gkl_batched``, ``lssolve_lsmr_batched``: ``jax.vmap`` of the JAX
+``svdsolve_gkl_batched``, ``lssolve_lsmr_batched``,
+``geneigsolve_golubye_batched``, ``bieigsolve_batched``: ``jax.vmap`` of the JAX
 drivers, a banded or 1-D Laplacian operator applied to every problem in one
 batched launch), with
 six hand-written CUDA kernels
@@ -104,8 +106,10 @@ from .solvers.batched_arnoldi import (  # noqa: E402
     realeigsolve_arnoldi_batched,
     schursolve_batched,
 )
+from .solvers.batched_biarnoldi import bieigsolve_batched  # noqa: E402
 from .solvers.batched_expintegrator import expintegrator_batched, exponentiate_batched  # noqa: E402
 from .solvers.batched_gkl import lssolve_lsmr_batched, svdsolve_gkl_batched  # noqa: E402
+from .solvers.batched_golubye import geneigsolve_golubye_batched  # noqa: E402
 from .solvers.batched_linsolve import (  # noqa: E402
     linsolve_bicgstab_batched,
     linsolve_cg_batched,
@@ -189,6 +193,8 @@ __all__ = [
     "exponentiate_batched",
     "svdsolve_gkl_batched",
     "lssolve_lsmr_batched",
+    "geneigsolve_golubye_batched",
+    "bieigsolve_batched",
     "schursolve",
     "realeigsolve",
     "geneigsolve",

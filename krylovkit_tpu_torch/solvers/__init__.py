@@ -2,7 +2,11 @@
 batched Lanczos and GMRES drivers (``batched.py``), the batched CG, MINRES
 and BiCGStab drivers (``batched_linsolve.py``), the batched Arnoldi and
 exponential-integrator drivers (``batched_arnoldi.py``,
-``batched_expintegrator.py``) and the batched GKL ``svdsolve`` and LSMR
-``lssolve`` (``batched_gkl.py``)."""
+``batched_expintegrator.py``), the batched GKL ``svdsolve`` and LSMR
+``lssolve`` (``batched_gkl.py``), the batched Golub-Ye ``geneigsolve``
+(``batched_golubye.py``) and the batched BiArnoldi ``bieigsolve``
+(``batched_biarnoldi.py``)."""
 
+from .batched_biarnoldi import bieigsolve_batched  # noqa: F401
 from .batched_gkl import lssolve_lsmr_batched, svdsolve_gkl_batched  # noqa: F401
+from .batched_golubye import geneigsolve_golubye_batched  # noqa: F401

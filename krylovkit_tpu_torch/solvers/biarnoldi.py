@@ -61,152 +61,139 @@ def _zero_outside(A, mask):
     return torch.where(mask, A, torch.zeros((), dtype=A.dtype, device=A.device))
 
 
-def bieigsolve_driver(op, v0, w0, howmany: int, which, alg: BiArnoldi,
-                      space: VectorSpace = STANDARD):
+@dataclasses.dataclass
+class _LoopState:
+    """One problem's loop state: its two factorizations, ``M = WᴴV``, the
+    counts and, after a round, the round's Schur data for the extraction."""
+
+    fV: kf.KrylovState
+    fW: kf.KrylovState
+    M: torch.Tensor
+    numiter: int = 0
+    numops: int = 0
+    nconv: int = 0
+    rnd: tuple = ()
+
+
+def _round(st: _LoopState, Whv, Vhw, howmany: int, which, alg: BiArnoldi, space: VectorSpace,
+           cdt, real: bool, tol: float, btol: float):
+    """One processing round after the expansion, given the oblique
+    correction's two projections ``Whv = Wᴴv`` and ``Vhw = Vᴴw``: sets
+    ``st.rnd``, ``st.nconv`` and ``st.numiter``.  Returns ``(done,
+    restart)``: ``restart`` is ``None``, or ``(keep, Vn, Wn, Hn, Kn, Mn)``
+    with ``M``'s residual slot still to fill."""
+    fV, fW, M = st.fV, st.fW, st.M
     m = alg.krylovdim
-    if howmany > m:
-        raise ValueError(f"howmany={howmany} exceeds krylovdim={m}")
-    pdt = probe_dtype(op, v0)
-    real = not pdt.is_complex and isinstance(which, str)
-    cdt = pdt if real else torch.promote_types(pdt, torch.complex64)
-    rdt = cdt.to_real()
-    tol = rounded(alg.tol, rdt)
-    btol = float(torch.tensor(torch.finfo(rdt).eps, dtype=rdt) ** 0.75)
     m1 = m + 1
-    dev = device_of(v0)
+    rdt = cdt.to_real()
+    dev = M.device
     idx = torch.arange(m1, device=dev)
     rows, cols = idx[:, None], idx[None, :]
+    L = fV.k
+    bv, bw = fV.beta.to(cdt), fW.beta.to(cdt)
+    rV0, rW0 = bs.get(fV.V, L), bs.get(fW.V, L)  # normalized residual directions
 
-    fV = kf.initialize(v0, m, cdt, space, vec_dtype=None if real else cdt)
-    fW = kf.initialize(w0, m, cdt, space, vec_dtype=None if real else cdt)
-    M = torch.zeros((m1, m1), dtype=cdt, device=dev)
-    M[0, 0] = space.inner(bs.get(fV.V, 0), bs.get(fW.V, 0)).conj().to(cdt)
+    # oblique correction through M = WᴴV (reference :282-302)
+    Meff = dense.embed_active(M, L, 1.0)
+    x = torch.linalg.solve(Meff, Whv.to(cdt))  # M⁻¹ Wᴴv
+    y = torch.linalg.solve(Meff.conj().T, Vhw.to(cdt))  # M⁻ᴴ Vᴴw
+    eL = (idx == max(L - 1, 0)).to(cdt)
+    Ht = fV.H + bv * x[:, None] * eL[None, :]
+    Kt = fW.H + bw * y[:, None] * eL[None, :]
+    rV = add(rV0, bs.unproject(fV.V, x), a=-1)
+    rW = add(rW0, bs.unproject(fW.V, y), a=-1)
+    brV, brW = space.norm(rV), space.norm(rW)
 
-    def betas_ok():
-        return bool((fV.beta > btol) & (fW.beta > btol))
+    # dual Schur + sort (left side by conj ∘ which; for real string
+    # targets conj ∘ which == which, the spectrum being conj-symmetric)
+    valid = idx < L
+    if real:
+        S, Q, _ = dense.real_schur_active(Ht, L)
+        T, Z, _ = dense.real_schur_active(Kt, L)
+        S, Q = dense.sort_schur_real(S, Q, which, L)
+        T, Z = dense.sort_schur_real(T, Z, which, L)
+    else:
+        S, Q, _ = dense.schur_active(Ht, L)
+        T, Z, _ = dense.schur_active(Kt, L)
+        inf = torch.tensor(float("inf"), dtype=rdt, device=dev)
+        keyS = torch.where(valid, dense.which_key(torch.diagonal(S), which), inf)
+        keyT = torch.where(valid, dense.which_key(torch.conj(torch.diagonal(T)), which), inf)
+        S, Q, _ = dense.sort_schur(S, Q, keyS)
+        T, Z, _ = dense.sort_schur(T, Z, keyT)
 
-    numiter = numops = nconv = 0
-    done = False
-    while not done:
-        # lock-step expansion (do-while: at least one step if possible)
-        j = 0
-        while fV.k < m and betas_ok():
-            if alg.eager and j > 0 and not fV.k < max(howmany, 1):
-                break
-            fV = kf.expand(op.normal, fV, alg.orth, space, alg.verbosity)
-            fW = kf.expand(op.apply_adjoint, fW, alg.orth, space, alg.verbosity)
-            M = _update_M(M, fV.V, fW.V, fV.k, space)
-            numops += 2
-            j += 1
+    h = torch.conj(Q[max(L - 1, 0)]) * bv
+    kv = torch.conj(Z[max(L - 1, 0)]) * bw
+    res = torch.maximum(brV * torch.abs(h), brW * torch.abs(kv))
+    res = torch.where(valid, res, torch.full_like(res, float("inf")))
+    nconv = int(torch.sum(torch.cumprod((res <= tol).to(torch.int64), 0)))
+    if real:
+        # never count or keep half a 2×2 block (either side)
+        startsS = dense.block_starts(S, L).tolist()
+        startsT = dense.block_starts(T, L).tolist()
+        second = [False] + [a or b for a, b in zip(startsS[:-1], startsT[:-1])]
+        if 0 < nconv < L and second[min(nconv, m1 - 1)]:
+            nconv -= 1
 
-        L = fV.k
-        bv, bw = fV.beta.to(cdt), fW.beta.to(cdt)
-        rV0, rW0 = bs.get(fV.V, L), bs.get(fW.V, L)  # normalized residual directions
+    full = L >= m
+    st.numiter += int(full)
+    st.nconv = nconv
+    st.rnd = (S, T, Q, Z, h, kv, rV, rW, brV, brW)
+    # ¬(β > btol): a NaN β must count as breakdown
+    stalled = not bool((fV.beta > btol) & (fW.beta > btol)) and L < m
+    done = nconv >= howmany or (full and st.numiter >= alg.maxiter) or stalled
 
-        # oblique correction through M = WᴴV (reference :282-302)
-        Whv = bs.project(fW.V, rV0, L, space)
-        Vhw = bs.project(fV.V, rW0, L, space)
-        Meff = dense.embed_active(M, L, 1.0)
-        x = torch.linalg.solve(Meff, Whv.to(cdt))  # M⁻¹ Wᴴv
-        y = torch.linalg.solve(Meff.conj().T, Vhw.to(cdt))  # M⁻ᴴ Vᴴw
-        eL = (idx == max(L - 1, 0)).to(cdt)
-        Ht = fV.H + bv * x[:, None] * eL[None, :]
-        Kt = fW.H + bw * y[:, None] * eL[None, :]
-        rV = add(rV0, bs.unproject(fV.V, x), a=-1)
-        rW = add(rW0, bs.unproject(fW.V, y), a=-1)
-        brV, brW = space.norm(rV), space.norm(rW)
+    keep = min(max((3 * m + 2 * nconv) // 5, 1), max(L - 1, 1))
+    if real:
+        # decrement-only block-boundary adjustment, alternating sides
+        def dec(keep, starts):
+            return keep - int(starts[min(max(keep - 1, 0), m1 - 1)] and 1 < keep < L)
 
-        # dual Schur + sort (left side by conj ∘ which; for real string
-        # targets conj ∘ which == which, the spectrum being conj-symmetric)
-        valid = idx < L
-        if real:
-            S, Q, _ = dense.real_schur_active(Ht, L)
-            T, Z, _ = dense.real_schur_active(Kt, L)
-            S, Q = dense.sort_schur_real(S, Q, which, L)
-            T, Z = dense.sort_schur_real(T, Z, which, L)
-        else:
-            S, Q, _ = dense.schur_active(Ht, L)
-            T, Z, _ = dense.schur_active(Kt, L)
-            inf = torch.tensor(float("inf"), dtype=rdt, device=dev)
-            keyS = torch.where(valid, dense.which_key(torch.diagonal(S), which), inf)
-            keyT = torch.where(valid, dense.which_key(torch.conj(torch.diagonal(T)), which), inf)
-            S, Q, _ = dense.sort_schur(S, Q, keyS)
-            T, Z, _ = dense.sort_schur(T, Z, keyT)
+        for _ in range(3):
+            keep = dec(dec(keep, startsS), startsT)
+        keep = max(keep, 1)
 
-        h = torch.conj(Q[max(L - 1, 0)]) * bv
-        kv = torch.conj(Z[max(L - 1, 0)]) * bw
-        res = torch.maximum(brV * torch.abs(h), brW * torch.abs(kv))
-        res = torch.where(valid, res, torch.full_like(res, float("inf")))
-        nconv = int(torch.sum(torch.cumprod((res <= tol).to(torch.int64), 0)))
-        if real:
-            # never count or keep half a 2×2 block (either side)
-            startsS = dense.block_starts(S, L).tolist()
-            startsT = dense.block_starts(T, L).tolist()
-            second = [False] + [a or b for a, b in zip(startsS[:-1], startsT[:-1])]
-            if 0 < nconv < L and second[min(nconv, m1 - 1)]:
-                nconv -= 1
+    if done or not full:
+        return done, None
+    # dual Krylov-Schur restart (reference :361-445)
+    kmask = (rows < L) & (cols < keep)
+    Qk, Zk = _zero_outside(Q, kmask), _zero_outside(Z, kmask)
+    # Ĥ = S_kk + VQᴴv·h̃ᴴ with VQᴴv = −Qₖᴴ x (reference :399-404)
+    vqv = -(Qk.conj().T @ x)
+    wzw = -(Zk.conj().T @ y)
+    keepblk = (rows < keep) & (cols < keep)
+    hk = _zero_outside(h, idx < keep)
+    kk = _zero_outside(kv, idx < keep)
+    Hn = _zero_outside(S + vqv[:, None] * torch.conj(hk)[None, :], keepblk)
+    Kn = _zero_outside(T + wzw[:, None] * torch.conj(kk)[None, :], keepblk)
+    # corrected residuals (reference :406-418)
+    rV2 = add(rV, bs.unproject(fV.V, Qk @ vqv), a=-1)
+    rW2 = add(rW, bs.unproject(fW.V, Zk @ wzw), a=-1)
+    b2v, b2w = space.norm(rV2), space.norm(rW2)
+    sv = torch.where(b2v > 0, b2v, torch.ones_like(b2v))
+    sw = torch.where(b2w > 0, b2w, torch.ones_like(b2w))
+    # spike rows: coupling of the normalized residual, row h̃ᴴ
+    Hn[keep, :] += torch.conj(hk) * b2v.to(cdt)
+    Kn[keep, :] += torch.conj(kk) * b2w.to(cdt)
+    Vn = bs.set(bs.transform(fV.V, Qk), keep, scale(rV2, (1 / sv).to(cdt)))
+    Wn = bs.set(bs.transform(fW.V, Zk), keep, scale(rW2, (1 / sw).to(cdt)))
+    # M ← ZᴴMQ on the keep block; the residual slot's entries follow
+    Mn = _zero_outside(Zk.conj().T @ (M @ Qk), keepblk)
+    return done, (keep, Vn, Wn, Hn, Kn, Mn)
 
-        full = L >= m
-        numiter += int(full)
-        # ¬(β > btol): a NaN β must count as breakdown
-        stalled = not betas_ok() and L < m
-        done = nconv >= howmany or (full and numiter >= alg.maxiter) or stalled
 
-        keep = min(max((3 * m + 2 * nconv) // 5, 1), max(L - 1, 1))
-        if real:
-            # decrement-only block-boundary adjustment, alternating sides
-            def dec(keep, starts):
-                return keep - int(starts[min(max(keep - 1, 0), m1 - 1)] and 1 < keep < L)
-
-            for _ in range(3):
-                keep = dec(dec(keep, startsS), startsT)
-            keep = max(keep, 1)
-
-        if not done and full:
-            # dual Krylov-Schur restart (reference :361-445)
-            kmask = (rows < L) & (cols < keep)
-            Qk, Zk = _zero_outside(Q, kmask), _zero_outside(Z, kmask)
-            # Ĥ = S_kk + VQᴴv·h̃ᴴ with VQᴴv = −Qₖᴴ x (reference :399-404)
-            vqv = -(Qk.conj().T @ x)
-            wzw = -(Zk.conj().T @ y)
-            keepblk = (rows < keep) & (cols < keep)
-            hk = _zero_outside(h, idx < keep)
-            kk = _zero_outside(kv, idx < keep)
-            Hn = _zero_outside(S + vqv[:, None] * torch.conj(hk)[None, :], keepblk)
-            Kn = _zero_outside(T + wzw[:, None] * torch.conj(kk)[None, :], keepblk)
-            # corrected residuals (reference :406-418)
-            rV2 = add(rV, bs.unproject(fV.V, Qk @ vqv), a=-1)
-            rW2 = add(rW, bs.unproject(fW.V, Zk @ wzw), a=-1)
-            b2v, b2w = space.norm(rV2), space.norm(rW2)
-            sv = torch.where(b2v > 0, b2v, torch.ones_like(b2v))
-            sw = torch.where(b2w > 0, b2w, torch.ones_like(b2w))
-            # spike rows: coupling of the normalized residual, row h̃ᴴ
-            Hn[keep, :] += torch.conj(hk) * b2v.to(cdt)
-            Kn[keep, :] += torch.conj(kk) * b2w.to(cdt)
-            Vn = bs.set(bs.transform(fV.V, Qk), keep, scale(rV2, (1 / sv).to(cdt)))
-            Wn = bs.set(bs.transform(fW.V, Zk), keep, scale(rW2, (1 / sw).to(cdt)))
-            # M ← ZᴴMQ on the keep block, then the residual slot's entries
-            Mn = _zero_outside(Zk.conj().T @ (M @ Qk), keepblk)
-            M = _update_M(Mn, Vn, Wn, keep, space)
-            fV = kf.KrylovState(Vn, Hn, keep, fV.beta)
-            fW = kf.KrylovState(Wn, Kn, keep, fW.beta)
-
-    log_if(
-        alg.verbosity, STARTSTOP,
-        "BiArnoldi bieigsolve finished after {it} iterations: {nc} values "
-        "converged", it=numiter, nc=min(nconv, howmany),
-    )
-    warn_if(
-        alg.verbosity, nconv < howmany,
-        "BiArnoldi bieigsolve stopped without convergence: {nc} of "
-        f"{howmany}" + " values converged after {it} iterations",
-        nc=nconv, it=numiter,
-    )
-
-    # --- extraction (reference bieigsolve body, :151-200); in real mode the
-    # only place complex values appear ---
+def _extract(st: _LoopState, howmany: int, cdt, real: bool):
+    """``(vals, vecsV, vecsW, infoV, infoW)`` from the final loop state
+    (reference bieigsolve body, :151-200); in real mode the only place
+    complex values appear."""
+    S, T, Q, Z, h, kv, rV, rW, brV, brW = st.rnd
+    fV, fW, M = st.fV, st.fW, st.M
     hm = howmany
     L = fV.k
+    m1 = M.shape[0]
+    rdt = cdt.to_real()
+    dev = M.device
+    idx = torch.arange(m1, device=dev)
+    rows, cols = idx[:, None], idx[None, :]
     ccdt = torch.promote_types(cdt, torch.complex64)
     if real:
         re_, im_ = dense.real_schur_eigvals(S, L)
@@ -268,10 +255,71 @@ def bieigsolve_driver(op, v0, w0, howmany: int, which, alg: BiArnoldi,
         return tree_map(
             lambda l: coef.reshape((hm,) + (1,) * l.ndim).to(ccdt) * l.to(ccdt)[None], r)
 
-    conv = min(nconv, hm)
-    it = max(numiter, 1)  # reference numiter starts at 1 (src/eigsolve/biarnoldi.jl)
-    infoV = ConvergenceInfo(conv, residuals(hS, rV), resnV, it, numops)
-    infoW = ConvergenceInfo(conv, residuals(kT, rW), resnW, it, numops)
+    conv = min(st.nconv, hm)
+    it = max(st.numiter, 1)  # reference numiter starts at 1 (src/eigsolve/biarnoldi.jl)
+    infoV = ConvergenceInfo(conv, residuals(hS, rV), resnV, it, st.numops)
+    infoW = ConvergenceInfo(conv, residuals(kT, rW), resnW, it, st.numops)
+    return vals, vecsV, vecsW, infoV, infoW
+
+
+def bieigsolve_driver(op, v0, w0, howmany: int, which, alg: BiArnoldi,
+                      space: VectorSpace = STANDARD):
+    m = alg.krylovdim
+    if howmany > m:
+        raise ValueError(f"howmany={howmany} exceeds krylovdim={m}")
+    pdt = probe_dtype(op, v0)
+    real = not pdt.is_complex and isinstance(which, str)
+    cdt = pdt if real else torch.promote_types(pdt, torch.complex64)
+    rdt = cdt.to_real()
+    tol = rounded(alg.tol, rdt)
+    btol = float(torch.tensor(torch.finfo(rdt).eps, dtype=rdt) ** 0.75)
+    m1 = m + 1
+    dev = device_of(v0)
+
+    fV = kf.initialize(v0, m, cdt, space, vec_dtype=None if real else cdt)
+    fW = kf.initialize(w0, m, cdt, space, vec_dtype=None if real else cdt)
+    M = torch.zeros((m1, m1), dtype=cdt, device=dev)
+    M[0, 0] = space.inner(bs.get(fV.V, 0), bs.get(fW.V, 0)).conj().to(cdt)
+    st = _LoopState(fV, fW, M)
+
+    def betas_ok():
+        return bool((st.fV.beta > btol) & (st.fW.beta > btol))
+
+    done = False
+    while not done:
+        # lock-step expansion (do-while: at least one step if possible)
+        j = 0
+        while st.fV.k < m and betas_ok():
+            if alg.eager and j > 0 and not st.fV.k < max(howmany, 1):
+                break
+            st.fV = kf.expand(op.normal, st.fV, alg.orth, space, alg.verbosity)
+            st.fW = kf.expand(op.apply_adjoint, st.fW, alg.orth, space, alg.verbosity)
+            st.M = _update_M(st.M, st.fV.V, st.fW.V, st.fV.k, space)
+            st.numops += 2
+            j += 1
+
+        L = st.fV.k
+        Whv = bs.project(st.fW.V, bs.get(st.fV.V, L), L, space)
+        Vhw = bs.project(st.fV.V, bs.get(st.fW.V, L), L, space)
+        done, restart = _round(st, Whv, Vhw, howmany, which, alg, space, cdt, real, tol, btol)
+        if restart is not None:
+            keep, Vn, Wn, Hn, Kn, Mn = restart
+            st.M = _update_M(Mn, Vn, Wn, keep, space)
+            st.fV = kf.KrylovState(Vn, Hn, keep, st.fV.beta)
+            st.fW = kf.KrylovState(Wn, Kn, keep, st.fW.beta)
+
+    log_if(
+        alg.verbosity, STARTSTOP,
+        "BiArnoldi bieigsolve finished after {it} iterations: {nc} values "
+        "converged", it=st.numiter, nc=min(st.nconv, howmany),
+    )
+    warn_if(
+        alg.verbosity, st.nconv < howmany,
+        "BiArnoldi bieigsolve stopped without convergence: {nc} of "
+        f"{howmany}" + " values converged after {it} iterations",
+        nc=st.nconv, it=st.numiter,
+    )
+    vals, vecsV, vecsW, infoV, infoW = _extract(st, howmany, cdt, real)
     return vals, (vecsV, vecsW), (infoV, infoW)
 
 

@@ -62,6 +62,46 @@ def _append(op_a, op_b, V, AV, BV, k: int, w, orth, space, numops: int):
     return k, numops + 1
 
 
+def _ritz(V, AV, BV, k: int, howmany: int, which, tol: float, space: VectorSpace, cdt):
+    """The projected pencil on the first ``k`` rows of the bases and its
+    Ritz data, products of the bases with no applies: ``(nconv, rhos,
+    betas, Rv, Rav, Rbv, Rres)``."""
+    hm1 = howmany + 1
+    dev = device_of(V)
+    idx = torch.arange(bs.capacity(V), device=dev)
+    D, Z, valid = dense.geneigh_active(bs.gram(V, AV, space), bs.gram(V, BV, space), k)
+    perm = dense.sort_perm(D.to(cdt), valid, which)
+    Z = Z[:, perm]
+    Zm = torch.where((idx[:, None] < k) & (idx[None, :] < hm1), Z.to(cdt),
+                     torch.zeros((), dtype=cdt, device=dev))
+    Rv, Rav, Rbv = bs.transform(V, Zm), bs.transform(AV, Zm), bs.transform(BV, Zm)
+    num = torch.real(bs.batch_inner(Rv, Rav, space))
+    den = torch.real(bs.batch_inner(Rv, Rbv, space))
+    rhos = num / torch.where(torch.abs(den) > 0, den, torch.ones_like(den))
+    Rres = tree_map(lambda la, lb: la - rhos.reshape((-1,) + (1,) * (la.ndim - 1))
+                    .to(la.dtype) * lb, Rav, Rbv)
+    betas = torch.sqrt(torch.clamp(torch.real(bs.batch_inner(Rres, Rres, space)), min=0))
+    znorm = torch.sqrt(torch.sum(torch.abs(Zm) ** 2, dim=0))
+    flags = betas[:howmany] <= tol * torch.clamp(znorm[:howmany], min=1e-30)
+    nconv = int(torch.sum(torch.cumprod(flags.to(torch.int64), 0)))
+    return nconv, rhos, betas, Rv, Rav, Rbv, Rres
+
+
+def _restart(V, AV, BV, ritz, rhos, i0: int, space: VectorSpace, cdt):
+    """Restart from Ritz vector ``i0`` (the first unconverged one), only
+    row 0 of the bases set (in place).  ``ritz`` is ``(Rv, Rav, Rbv,
+    Rres)``.  Returns ``(vold, rho, w)``: the previous outer iterate, the
+    new shift and the normalized residual still to orthonormalize."""
+    Rv, Rav, Rbv, Rres = ritz
+    nrm = space.norm(bs.get(Rv, i0))
+    inv = (1 / torch.where(nrm > 0, nrm, torch.ones_like(nrm))).to(cdt)
+    vold = tree_map(torch.clone, bs.get(V, 0))
+    for B_, R_ in ((V, Rv), (AV, Rav), (BV, Rbv)):
+        tree_map(torch.Tensor.zero_, B_)
+        bs.set(B_, 0, scale(bs.get(R_, i0), inv))
+    return vold, rhos[i0], scale(bs.get(Rres, i0), inv)
+
+
 def geneigsolve_golubye(opA: LinearOperator, opB: Optional[LinearOperator], x0,
                         howmany: int, which, alg: GolubYe, space: VectorSpace = STANDARD):
     """Returns ``(vals, vecs, info)`` for ``A x = λ B x`` with Hermitian
@@ -78,7 +118,6 @@ def geneigsolve_golubye(opA: LinearOperator, opB: Optional[LinearOperator], x0,
     cdt = probe_dtype(opA, x0)
     rdt = cdt.to_real()
     tol = rounded(alg.tol, rdt)
-    dev = device_of(x0)
 
     def inv_norm(x):
         nrm = space.norm(x)
@@ -97,7 +136,6 @@ def geneigsolve_golubye(opA: LinearOperator, opB: Optional[LinearOperator], x0,
     vold = v0
     cvecs = None
     k, nconv, numiter, numops = 1, 0, 1, 1
-    idx = torch.arange(mcap, device=dev)
 
     while True:
         # one Lanczos cycle on A − ρB, ρ frozen for the cycle
@@ -120,33 +158,14 @@ def geneigsolve_golubye(opA: LinearOperator, opB: Optional[LinearOperator], x0,
                                 numops)
 
         # projected pencil and Ritz data: products of the bases, no applies
-        D, Z, valid = dense.geneigh_active(bs.gram(V, AV, space), bs.gram(V, BV, space), k)
-        perm = dense.sort_perm(D.to(cdt), valid, which)
-        Z = Z[:, perm]
-        Zm = torch.where((idx[:, None] < k) & (idx[None, :] < hm1), Z.to(cdt),
-                         torch.zeros((), dtype=cdt, device=dev))
-        Rv, Rav, Rbv = bs.transform(V, Zm), bs.transform(AV, Zm), bs.transform(BV, Zm)
-        num = torch.real(bs.batch_inner(Rv, Rav, space))
-        den = torch.real(bs.batch_inner(Rv, Rbv, space))
-        rhos = num / torch.where(torch.abs(den) > 0, den, torch.ones_like(den))
-        Rres = tree_map(lambda la, lb: la - rhos.reshape((-1,) + (1,) * (la.ndim - 1))
-                        .to(la.dtype) * lb, Rav, Rbv)
-        betas = torch.sqrt(torch.clamp(torch.real(bs.batch_inner(Rres, Rres, space)), min=0))
-        znorm = torch.sqrt(torch.sum(torch.abs(Zm) ** 2, dim=0))
-        flags = betas[:howmany] <= tol * torch.clamp(znorm[:howmany], min=1e-30)
-        nconv = int(torch.sum(torch.cumprod(flags.to(torch.int64), 0)))
+        nconv, rhos, betas, Rv, Rav, Rbv, Rres = _ritz(V, AV, BV, k, howmany, which, tol,
+                                                      space, cdt)
         if nconv >= howmany or numiter >= alg.maxiter:
             break
 
-        # restart from the first unconverged Ritz vector, only row 0 set
-        i0 = min(nconv, hm1 - 1)
-        inv = inv_norm(bs.get(Rv, i0))
-        vold = tree_map(torch.clone, bs.get(V, 0))
-        for B_, R_ in ((V, Rv), (AV, Rav), (BV, Rbv)):
-            tree_map(torch.Tensor.zero_, B_)
-            bs.set(B_, 0, scale(bs.get(R_, i0), inv))
-        rho = rhos[i0]
-        vres, beta, _ = on.orthonormalize(scale(bs.get(Rres, i0), inv), V, 1, alg.orth, space)
+        vold, rho, w = _restart(V, AV, BV, (Rv, Rav, Rbv, Rres), rhos, min(nconv, hm1 - 1),
+                                space, cdt)
+        vres, beta, _ = on.orthonormalize(w, V, 1, alg.orth, space)
         cvecs = bs.prefix(Rv, howmany)
         k = 1
         numiter += 1

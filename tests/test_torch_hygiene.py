@@ -41,14 +41,15 @@ def test_port_has_files():
         "gauge.py", "_common.py", "vector.py", "basis.py",
         "biarnoldi.py", "iterators.py", "mesh.py", "operators.py", "batched.py",
         "batched_linsolve.py", "batched_arnoldi.py", "batched_expintegrator.py",
-        "batched_gkl.py",
+        "batched_gkl.py", "batched_golubye.py", "batched_biarnoldi.py",
     } <= names
     parallel = {p.name for p in PORT_FILES if p.parent.name == "parallel"}
     assert {"__init__.py", "mesh.py", "operators.py", "sparse.py"} <= parallel
     solvers = {p.name for p in PORT_FILES if p.parent.name == "solvers"}
     factorizations = {p.name for p in PORT_FILES if p.parent.name == "factorizations"}
     assert {"biarnoldi.py", "batched.py", "batched_linsolve.py", "batched_arnoldi.py",
-            "batched_expintegrator.py", "batched_gkl.py"} <= solvers
+            "batched_expintegrator.py", "batched_gkl.py", "batched_golubye.py",
+            "batched_biarnoldi.py"} <= solvers
     assert "iterators.py" in factorizations
     ad = {p.name for p in PORT_FILES if p.parent.name == "ad"}
     assert {"__init__.py", "linsolve.py", "eigsolve.py", "svdsolve.py", "gauge.py",

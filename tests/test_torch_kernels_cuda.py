@@ -1202,3 +1202,83 @@ def test_batched_svdsolve_and_lssolve_on_card_match_one_problem_solves():
         x1, i1 = lss.lssolve_lsmr(banded, B[p], lalg)
         assert [i1.numops, i1.numiter] == [il.numops[p].item(), il.numiter[p].item()] == [41, 20]
         assert torch.equal(x[p], x1) and torch.equal(il.normres[p], i1.normres)
+
+
+def test_batched_k3_on_both_operators_of_the_q1_pencil_is_one_problem_launches():
+    """The batched apply of the Q1 pencil's two nine-offset operators
+    (``solvers/batched.py:_Operators`` of K and of M, shared float32
+    ``BandedOperator``\\ s on the 256 × 256 grid, four problems): one
+    ``banded_spmv_batched`` launch per operator, each row bit-identical to
+    the operator's one-problem apply, no one-problem launch."""
+    from krylovkit_tpu_torch.solvers.batched import _Operators
+
+    P, N = 4, 256
+    n = N * N
+    (ck, cm) = q1_coo(np, N, N, np.float32)
+    ops = [kt.banded_from_coo(*c, n) for c in (ck, cm)]
+    X = torch.randn((P, n // 128, 128), generator=_gen(170), device="cuda")
+    batches = [_Operators(o, P, False) for o in ops]
+    _build.reset_launches()
+    Y = [b.apply_stack(X, list(range(P))) for b in batches]
+    torch.cuda.synchronize()
+    assert {k: v for k, v in _build.launches.items() if v} == {"banded_spmv_batched": 2}
+    for o, y in zip(ops, Y):
+        assert len(o.offsets) == 9
+        for p in range(P):
+            assert torch.equal(y[p], o.normal(X[p]))
+
+
+def test_batched_geneigsolve_and_bieigsolve_on_card_match_cpu():
+    """A small ``geneigsolve_golubye_batched`` (the float64 Q1 pencil on a
+    16 × 64 grid, three starts, 2 "SR", krylovdim 10) and a small
+    ``bieigsolve_batched`` (the float64 tridiagonal (−0.4, (1 + i/63)⁸,
+    −0.2) at n = 64 with its adjoint planes, three start pairs, 2 "LM",
+    krylovdim 20) on the card against the same batched solves on the CPU:
+    counts equal, values within 1e-10; on the card only batched K3
+    launches, two per batched pencil apply in Golub-Ye and one per side
+    and lock-step in BiArnoldi."""
+    from chip_smoke import ApplyRecorder
+    from krylovkit_tpu_torch.solvers import batched as batched_mod
+
+    P = 3
+    ny, nx = 16, 64
+    n = ny * nx
+    ck, cm = q1_coo(np, ny, nx, np.float64)
+    X = np.random.default_rng(171).standard_normal((P, n))
+    alg = kt.GolubYe(krylovdim=10, tol=1e-10, maxiter=100, verbosity=kt.SILENT)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        K, M = (kt.banded_from_coo(*c, n, device=dev) for c in (ck, cm))
+        _build.reset_launches()
+        with ApplyRecorder(batched_mod) as rec:
+            vals, _, info = kt.geneigsolve_golubye_batched(
+                K, M, torch.from_numpy(X).to(dev), 2, "SR", alg)
+        torch.cuda.synchronize()
+        got[dev] = (vals.cpu(), info.numops.tolist(), info.numiter.tolist(),
+                    {k: v for k, v in _build.launches.items() if v}, rec.calls)
+    assert got["cuda"][1:3] == got["cpu"][1:3]
+    np.testing.assert_allclose(got["cuda"][0].numpy(), got["cpu"][0].numpy(), rtol=0, atol=1e-10)
+    assert got["cuda"][3] == {"banded_spmv_batched": got["cuda"][4]}
+    assert got["cuda"][4] >= 2 * max(got["cuda"][1]) and got["cuda"][4] % 2 == 0
+
+    nb = 64
+    i = np.arange(nb)
+    coo = (np.concatenate([i[1:], i, i[:-1]]), np.concatenate([i[1:] - 1, i, i[:-1] + 1]),
+           np.concatenate([np.full(nb - 1, -0.4), (1 + i / (nb - 1)) ** 8, np.full(nb - 1, -0.2)]))
+    rng = np.random.default_rng(172)
+    V, W = rng.standard_normal((P, nb)), rng.standard_normal((P, nb))
+    balg = kt.BiArnoldi(krylovdim=20, tol=1e-10, maxiter=100, verbosity=kt.SILENT)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        op = kt.banded_from_coo(*coo, nb, device=dev)
+        _build.reset_launches()
+        with ApplyRecorder(batched_mod) as rec:
+            vals, _, (iV, _) = kt.bieigsolve_batched(op, torch.from_numpy(V).to(dev),
+                                                     torch.from_numpy(W).to(dev), 2, "LM", balg)
+        torch.cuda.synchronize()
+        got[dev] = (vals.cpu(), iV.numops.tolist(), iV.numiter.tolist(),
+                    {k: v for k, v in _build.launches.items() if v}, rec.calls)
+    assert got["cuda"][1:3] == got["cpu"][1:3]
+    np.testing.assert_allclose(got["cuda"][0].numpy(), got["cpu"][0].numpy(), rtol=0, atol=1e-10)
+    assert got["cuda"][3] == {"banded_spmv_batched": got["cuda"][4]}
+    assert got["cuda"][4] >= max(got["cuda"][1])
