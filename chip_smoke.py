@@ -258,7 +258,18 @@ without the final ``ok`` line:
    batched K3 on the Q1 pencil's two nine-offset plane sets at ``P = 4``
    (warm and cold, 4 one-problem launches, the bound, the plain version,
    cuSPARSE SpMM), bit-identical to one-problem launches;
-35. profile (only with ``--profile``) — one more config-1 solve and one
+35. batched_block_lanczos — ``eigsolve_blocklanczos_batched`` on phase
+   15's problem (config 2's banded Poisson, n = 2^20, float32, block of 4,
+   4 "LR", krylovdim 30, maxiter 8, tol 1e-30: fixed work) for 4 start
+   blocks (phase 15's and ``default_rng(101–103)``): the shared planes with
+   the projection flag off and on, and a plane set per problem (scaled by
+   ``1 + 0.1·p``); every problem 112 / 8 and bit-identical to its
+   one-problem solve, exactly 28 ``banded_spmv_batched`` launches of 16
+   rows (one a lock-step) and with the flag 232 ``project_batched`` (the
+   block QRs' column passes), no one-problem K3 or K5; then the batched K3
+   at those 16 rows (shared and per-problem planes, warm and cold, 16
+   one-problem launches, the bound, the plain version, cuSPARSE);
+36. profile (only with ``--profile``) — one more config-1 solve and one
    more fused config-4 solve under ``torch.profiler``: device busy time and idle share, device ops, host
    reads of device scalars, device time by kernel name.
 
@@ -276,7 +287,7 @@ printed as ``parent_ms`` beside ``ms`` (without it ``parent_ms`` is null).
 ``--root`` (default: this tree) and prints one JSON line.
 
 Each path (phases 5, 7, 9, 12, 13, 14, 15, 17, 18, 20, 21, 24, 25, 27,
-28, 29, 30, 31, 32, 33 and 34, one solve or iterator at a time, the forward and the backward of
+28, 29, 30, 31, 32, 33, 34 and 35, one solve or iterator at a time, the forward and the backward of
 a differentiable solve apart; in 24, 25, 27 and 29 in every rank) is
 driven with the launch counts set to 0 just before it and read just after.
 Then the kernel summary line, the ``nvidia-smi`` name/power line, and as
@@ -823,7 +834,7 @@ def geneig_full(torch, np, kt, _build, bd, bs, fl, pb, q1_full, N, smi, dev="cud
     """Phase ``geneig``: the Q1 pencil on the ``N × N`` grid in float32,
     ``geneigsolve((K, M), x0, 4, "SR", krylovdim=30, maxiter=8, tol=1e-30)``
     with the projection kernels off, then on; per route the launch counts of
-    one solve, then 2 timed solves, one metric line each (printed before its
+    one solve, then a timed solve, one metric line each (printed before its
     checks).  Before the solves, K3 on both nine-offset operators and K5/K6
     on the solve's ``(37, R, 128)`` basis are held against their plain
     versions, K5/K6 at the live lengths the sweeps reach (1 to 30, mean
@@ -859,7 +870,7 @@ def geneig_full(torch, np, kt, _build, bd, bs, fl, pb, q1_full, N, smi, dev="cud
         bs.use_pallas_projections = flag
         try:
             (vals, vecs, info), launches, _, sweeps, first_ms, ms = drive_counted(
-                torch, _build, fl, pb, lambda: kt.geneigsolve((Kb, Mb), x0, 4, "SR", **kw), reps=2)
+                torch, _build, fl, pb, lambda: kt.geneigsolve((Kb, Mb), x0, 4, "SR", **kw))
         finally:
             bs.use_pallas_projections = False
         ks = [k for _, k in sweeps]
@@ -926,7 +937,7 @@ def block_full(torch, np, kt, _build, bd, fl, pb, banded, grid, N, smi, dev="cud
     of the ``N × N`` grid in float32, ``eigsolve(P, Block([x1..x4]), 4,
     "LR", krylovdim=30, maxiter=8, tol=1e-30)``, on the banded operator
     ``banded`` and on the grid stencil ``grid``; per route the launch
-    counts of one solve, then 2 timed solves, one metric line each (printed
+    counts of one solve, then a timed solve, one metric line each (printed
     before its checks).  Returns the launches of the banded route."""
     n = N * N
     rng = np.random.default_rng(5)
@@ -939,7 +950,7 @@ def block_full(torch, np, kt, _build, bd, fl, pb, banded, grid, N, smi, dev="cud
     Pd = banded.diags.double()
     for metric, op in (("block_lanczos_poisson_2d_banded", banded), ("block_lanczos_poisson_2d", grid)):
         (vals, vecs, info), launches, _, _, first_ms, ms = drive_counted(
-            torch, _build, fl, pb, lambda: kt.eigsolve(op, X0, 4, "LR", **kw), reps=2)
+            torch, _build, fl, pb, lambda: kt.eigsolve(op, X0, 4, "LR", **kw))
         kernel_ms = {"banded_spmv": launches.get("banded_spmv", 0) * k3}
         W = vecs.reshape(4, -1).double()
         ortho = float((W @ W.T - torch.eye(4, dtype=W.dtype, device=W.device)).abs().max())
@@ -1689,7 +1700,7 @@ def bieig_full(torch, np, kt, _build, bd, bs, fl, pb, n=1 << 20, dev="cuda", smi
     ways), ``v0 = default_rng(1)``, ``w0 = default_rng(10)``, 4 "LM",
     krylovdim 30, maxiter 8, tol 1e-30 (nothing converges: fixed work) —
     with the projection kernels off and on.  Per route the launch counts of
-    one solve (warm-up), then 2 timed solves; then the dense rounds (two
+    one solve (warm-up), then a timed solve; then the dense rounds (two
     Schur decompositions, two sorts) of one more solve.
 
     Guards: ``numiter`` 8 and ``numops`` equal on both routes; ``numops``
@@ -1736,14 +1747,14 @@ def bieig_full(torch, np, kt, _build, bd, bs, fl, pb, n=1 << 20, dev="cuda", smi
         pb.unproject_pallas = rec_unproject
         try:
             (vals, (V, W), (iV, iW)), launches, _, sweeps, first_ms, ms = drive_counted(
-                torch, _build, fl, pb, solve, reps=2) if card else _cpu_counted(solve)
+                torch, _build, fl, pb, solve) if card else _cpu_counted(solve)
         finally:
             bs.use_pallas_projections = False
             pb.unproject_pallas = unproject
             restore()
-        adj_launches = adj[0] // 3 if card else adj[0]  # the counted solve of three
+        adj_launches = adj[0] // 2 if card else adj[0]  # the counted solve of two
         ks_p = [k for _, k in sweeps]
-        ks_u = ks_u[: len(ks_u) // 3] if card else ks_u
+        ks_u = ks_u[: len(ks_u) // 2] if card else ks_u
         kernel_ms = {}
         if card:
             kernel_ms["banded_spmv"] = ((launches.get("banded_spmv", 0) - adj_launches) * per["banded_spmv"]
@@ -1896,7 +1907,7 @@ def lanczos_variants(torch, np, kt, _build, bd, bs, fl, pb, N=1024, dev="cuda", 
             try:
                 (vals, vecs, info), launches, _, _, first_ms, ms = drive_counted(
                     torch, _build, fl, pb,
-                    lambda: kt.eigsolve(op, x0, 4, "SR", ishermitian=True, alg=alg), reps=2
+                    lambda: kt.eigsolve(op, x0, 4, "SR", ishermitian=True, alg=alg)
                 ) if card else _cpu_counted(
                     lambda: kt.eigsolve(op, x0, 4, "SR", ishermitian=True, alg=alg))
             finally:
@@ -2196,12 +2207,12 @@ def time_unproject(torch, pb, V, c, k, kdev, plain_reps=3):
     }
 
 
-def drive_counted(torch, _build, fl, pb, solve, reps=2):
+def drive_counted(torch, _build, fl, pb, solve, reps=1):
     """One ``solve()`` with the launch counts set to 0 just before it and
     read just after (the ``(B, with_drift, spec)`` of each fused step and the
     ``(R, k)`` of each projection are recorded too), then ``reps`` timed
-    ones.  Returns ``(result, launches, steps, sweeps, first_ms,
-    ms_per_solve)``."""
+    ones (the counted solve is timed too: ``first_ms``).  Returns
+    ``(result, launches, steps, sweeps, first_ms, ms_per_solve)``."""
     steps, sweeps = [], []
     fused_step, project = fl.fused_step, pb.project_pallas
 
@@ -4698,7 +4709,7 @@ def check_banded_batched(torch, bd, label, X, D, offsets, n, planes, flush, time
     the CSR matrix with the ``(n, P)`` block, SpMM; per problem:
     ``torch.mv`` of the block-diagonal CSR matrix, SpMV) and the bound by
     bytes, each input read once (shared: (nδ + 2P)·n·itemsize; per
-    problem: P·(nδ + 2)·n·itemsize)."""
+    problem: (S·nδ + 2P)·n·itemsize for the S distinct sets named)."""
     P = X.shape[0]
 
     def one(p):
@@ -4722,7 +4733,7 @@ def check_banded_batched(torch, bd, label, X, D, offsets, n, planes, flush, time
         return case
     nd, itemsize = len(offsets), X.element_size()
     rate = F32_FLOP_PER_S if X.dtype == torch.float32 else F64_FLOP_PER_S
-    nbytes = ((nd + 2 * P) if planes is None else P * (nd + 2)) * n * itemsize
+    nbytes = ((nd + 2 * P) if planes is None else len(set(planes)) * nd + 2 * P) * n * itemsize
     t_bound, by = bound(nbytes, 2 * nd * n * P, rate)
     Xf = X.reshape(P, n)
     if planes is None:
@@ -5864,6 +5875,181 @@ def batched_geneig_bieig_phase(torch, np, kt, _build, bd, bs, smi, pencil=None, 
     return out
 
 
+def batched_block_lanczos_phase(torch, np, kt, _build, bd, bs, smi, banded=None, N=1024, P=4,
+                                dev="cuda"):
+    """Phase ``batched_block_lanczos``: batched Block Lanczos
+    (``eigsolve_blocklanczos_batched``) at phase 15's width, one host loop
+    per solve: config 2's Poisson matrix of the ``N × N`` grid as a float32
+    banded operator (five offsets), block of 4, 4 "LR", krylovdim 30,
+    maxiter 8, tol 1e-30 (fixed work), for ``P`` start blocks (phase 15's
+    ``default_rng(5)`` block and one from each ``default_rng(100 + p)``),
+    three routes: (a) the shared planes, the projection flag off; (b) the
+    same, the flag on; (c) one plane set per problem, the planes scaled by
+    ``1 + 0.1·p`` (as phase 31), the flag off.
+
+    Each batched solve is driven once with the launch counts set to 0 just
+    before it and read just after, and its applies recorded
+    (:class:`ApplyRecorder`); then the ``P`` one-problem solves
+    (``eigsolve`` with a ``Block`` start on the problem's operator), each
+    with its launches.  Guards: every problem 112 / 8 (7 block steps fill
+    the first cycle, 3 refill each of the 7 restarted ones, 4 applies a
+    step), equal to its one-problem solve's, and bit-identical to it
+    (values, vectors, residuals, residual norms); 28 batched applies, each
+    carrying 4 rows of every problem; on the card exactly 28
+    ``banded_spmv_batched`` launches (16 rows each) and, with the flag, 232
+    ``project_batched`` (29 block QRs × 2 passes × 4 columns, the
+    one-problem solve's K5 count), no one-problem K3 or K5 and nothing
+    else; each value within 1e-4 of its vector's Rayleigh quotient, the
+    leading values of (b) and (c) within 1e-4 of (a)'s (scaled).  Then the
+    batched K3 at the phase's 16 rows, shared planes and a set per problem
+    (:func:`check_banded_batched`, timed).  ``banded`` (phase 15's
+    operator) is built here when not given.  ``dev="cpu"`` with a small
+    ``N`` rehearses the three routes with the plain versions: no launch
+    guard, no kernel check."""
+    from krylovkit_tpu_torch.solvers import batched as batched_mod
+
+    t0 = time.perf_counter()
+    card = dev != "cpu"
+    n = N * N
+    R = n // 128
+    b = 4
+    if banded is None:
+        banded = kt.banded_from_coo(*poisson_coo(np, N, np.float32), n, device=dev)
+    X = torch.empty((P, b, R, 128), dtype=torch.float32, device=dev)
+    for p in range(P):
+        rng = np.random.default_rng(5 if p == 0 else 100 + p)
+        for j in range(b):
+            X[p, j] = torch.from_numpy(rng.standard_normal((R, 128)).astype(np.float32))
+    scaled = [kt.BandedOperator(banded.offsets, banded.diags * (1 + 0.1 * p), n, nnz=banded.nnz)
+              for p in range(P)]
+    alg = kt.BlockLanczos(krylovdim=30, maxiter=8, tol=1e-30, verbosity=kt.SILENT)
+    steps = 7 + 7 * 3
+    numops_want = b * steps
+    qr_projections = (1 + steps) * 2 * b
+    one_problem = {"banded_spmv", "project", "unproject"}
+    out = {"launches": {}}
+    leading = {}
+    for path, op, flag, op_dim in (
+            ("block_lanczos_poisson_2d_banded", banded, False, None),
+            ("block_lanczos_poisson_2d_banded_proj", banded, True, None),
+            ("block_lanczos_poisson_2d_banded_per_problem", scaled, False, 0)):
+        ops = op if op_dim == 0 else [op] * P
+        bs.use_pallas_projections = flag
+        try:
+            with ApplyRecorder(batched_mod) as rec:
+                (vals, vecs, info), ms, launches = _sync_ms(
+                    torch, _build, lambda: kt.eigsolve_blocklanczos_batched(
+                        op, X, 4, "LR", alg, in_dims=(op_dim, 0)), dev)
+            ones, one_ms, one_launches = [], [], []
+            for p in range(P):
+                o, ms1, l1 = _sync_ms(torch, _build, lambda p=p: kt.eigsolve(
+                    ops[p], kt.Block(X[p], stacked=True), 4, "LR", alg=alg), dev)
+                ones.append(o)
+                one_ms.append(ms1)
+                one_launches.append(l1)
+        finally:
+            bs.use_pallas_projections = False
+        counts = [info.numops.tolist(), info.numiter.tolist(), info.converged.tolist()]
+        counts1 = [[o[2].numops for o in ones], [o[2].numiter for o in ones],
+                   [o[2].converged for o in ones]]
+        bits = [torch.equal(vals[p], o[0]) and torch.equal(vecs[p], o[1])
+                and torch.equal(info.normres[p], o[2].normres)
+                and torch.equal(info.residual[p], o[2].residual) for p, o in enumerate(ones)]
+        diff = [max(float((vals[p] - o[0]).abs().max()), float((vecs[p] - o[1]).abs().max()))
+                for p, o in enumerate(ones)]
+        rq_err = []
+        for p in range(P):
+            D64 = ops[p].diags.double()
+            for i in range(4):
+                v = vecs[p, i].double()
+                rq = float(torch.sum(v * bd.banded_spmv_reference(v, D64, banded.offsets, n))
+                           / torch.sum(v * v))
+                rq_err.append(abs(rq - float(vals[p, i])) / abs(float(vals[p, i])))
+        vh = vals.cpu().double()
+        leading[path] = [float(vh[p, 0]) / (1 + 0.1 * p if op_dim == 0 else 1) for p in range(P)]
+        want = {"banded_spmv_batched": steps}
+        want1 = {"banded_spmv": numops_want}
+        if flag:
+            want["project_batched"] = qr_projections
+            want1["project"] = qr_projections
+        emit({"phase": "batched_block_lanczos", "path": path, "P": P, "block": b, "n": n,
+              "projection_kernels": flag,
+              "planes": "per_problem" if op_dim == 0 else "shared",
+              "numops": counts[0], "numiter": counts[1], "converged": counts[2],
+              "one_problem_counts": counts1, "vals": vh.tolist(),
+              "rayleigh_rel_err_max": max(rq_err), "bit_identical": bits,
+              "one_problem_max_abs_diff": diff, "launches": launches, "expected_launches": want,
+              "one_problem_launches": one_launches, "batched_applies": rec.calls,
+              "rows_per_problem": rec.per_problem, "batched_ms": ms, "one_problem_ms": one_ms,
+              "one_problem_ms_sum": sum(one_ms),
+              "batched_over_sum_of_one_problem": ms / sum(one_ms),
+              "nvidia_smi": smi})
+        require(counts[0] == [numops_want] * P and counts[1] == [8] * P,
+                f"batched_block_lanczos {path}: every problem {numops_want} / 8 ({counts})")
+        require(counts == counts1, f"batched_block_lanczos {path}: each problem's counts equal "
+                f"its one-problem solve's ({counts} vs {counts1})")
+        require(all(bits), f"batched_block_lanczos {path}: every problem bit-identical to its "
+                f"one-problem solve ({bits}, max diff {diff})")
+        require(max(rq_err) <= 1e-4, f"batched_block_lanczos {path}: each value within 1e-4 of "
+                f"its vector's Rayleigh quotient ({max(rq_err)})")
+        require(bool(torch.isfinite(vecs).all()) and tuple(vecs.shape) == (P, 4, R, 128),
+                f"batched_block_lanczos {path}: finite (P, 4, R, 128) vectors")
+        require(rec.calls == steps and rec.per_problem == {p: numops_want for p in range(P)},
+                f"batched_block_lanczos {path}: one batched apply a lock-step carrying the {b} "
+                f"rows of every problem ({rec.calls}, {rec.per_problem})")
+        if card:
+            require(launches == want, f"batched_block_lanczos {path}: launches {launches}, "
+                    f"expected {want} (K3 once a lock-step; with the flag K5 once per column "
+                    f"pass of each block QR)")
+            require(not one_problem & set(launches), f"batched_block_lanczos {path}: no "
+                    f"one-problem K3 or K5 ({launches})")
+            require(all(l1 == want1 for l1 in one_launches), f"batched_block_lanczos {path}: "
+                    f"the one-problem solves launch {want1} ({one_launches})")
+        out["launches"][path] = launches
+        del vals, vecs, info, ones
+    base = leading["block_lanczos_poisson_2d_banded"]
+    agree = max(abs(v - w) / abs(w) for path, vs in leading.items() for v, w in zip(vs, base))
+    emit({"phase": "batched_block_lanczos_agreement", "leading_vals_unscaled": leading,
+          "max_rel_diff": agree, "tolerance": BLOCK_ROUTE_TOL})
+    require(agree <= BLOCK_ROUTE_TOL, f"batched_block_lanczos: each problem's leading value on "
+            f"the three routes within {BLOCK_ROUTE_TOL} (scaled by 1 + 0.1 p on (c); {agree})")
+    if not card:
+        return out
+
+    # the batched K3 at the phase's 16 rows: the shared planes, and a set per
+    # problem named by each of its block's rows
+    flush = torch.empty(32 << 20, device=dev)  # 128 MB, written to clear L2
+    rows = X.reshape(P * b, R, 128)
+    sets = torch.stack([o.diags for o in scaled])
+    label = "poisson_2d banded f32, 5 offsets"
+    k3 = [check_banded_batched(torch, bd, f"{label}, shared, {P * b} rows", rows, banded.diags,
+                               banded.offsets, n, None, flush),
+          check_banded_batched(torch, bd, f"{label}, {P} sets x {b} rows", rows, sets,
+                               banded.offsets, n, [p for p in range(P) for _ in range(b)], flush)]
+    del flush, sets
+    emit({"phase": "batched_block_lanczos_kernels", "banded_spmv_batched": k3, "nvidia_smi": smi,
+          "phase_seconds": time.perf_counter() - t0})
+    L = out["launches"]
+    out["kernels"] = {
+        "banded_spmv": {
+            "launches_batched_block_lanczos": L["block_lanczos_poisson_2d_banded"][
+                "banded_spmv_batched"],
+            "launches_batched_block_lanczos_proj": L["block_lanczos_poisson_2d_banded_proj"][
+                "banded_spmv_batched"],
+            "launches_batched_block_lanczos_per_problem":
+            L["block_lanczos_poisson_2d_banded_per_problem"]["banded_spmv_batched"],
+            **{f"{key}_batched_block_{name}_rows{P * b}": case[key]
+               for name, case in zip(("shared", "per_problem"), k3)
+               for key in ("ms", "cold_ms", "one_problem_launches_ms",
+                           "one_problem_launches_cold_ms", "plain_ms", "library_ms",
+                           "bound_ms")}},
+        **{name: {"launches_batched_block_lanczos_proj":
+                  L["block_lanczos_poisson_2d_banded_proj"].get(f"{name}_batched", 0)}
+           for name in ("project", "unproject")},
+    }
+    return out
+
+
 def mean(xs):
     return sum(xs) / len(xs)
 
@@ -5871,7 +6057,7 @@ def mean(xs):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one config-1 and one config-4 solve (phase 35)")
+                    help="also profile one config-1 and one config-4 solve (phase 36)")
     ap.add_argument("--parent", metavar="DIR",
                     help="an unpacked earlier tree: time its K1 and K2 on this card as parent_ms")
     ap.add_argument("--kernel-times", action="store_true",
@@ -5901,6 +6087,16 @@ def main():
     from krylovkit_tpu_torch.solvers import lssolve as lss
     from krylovkit_tpu_torch.solvers import svdsolve as svds
 
+    t_start = t_lap = time.perf_counter()
+
+    def phase_done(name):
+        """One line: the seconds of the phase that ends here, and since the
+        script began."""
+        nonlocal t_lap
+        now = time.perf_counter()
+        emit({"phase_done": name, "seconds": now - t_lap, "total_seconds": now - t_start})
+        t_lap = now
+
     # 1. device
     smi = nvidia_smi_line()
     print(smi, flush=True)
@@ -5911,6 +6107,7 @@ def main():
     emit({"phase": "device", "torch": torch.__version__, "cuda": torch.version.cuda,
           "name": torch.cuda.get_device_name(0), "nvidia_smi": smi, "tf32": tf32})
     require(not any(tf32.values()), "TF32 is off")
+    phase_done("device")
 
     # 2. build
     secs = _build.build()
@@ -5920,6 +6117,7 @@ def main():
         lines = log.read_text().splitlines() if log.exists() else []
         report[name] = [ln.strip() for ln in lines if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": secs, "ptxas": report})
+    phase_done("build")
 
     # 3. kernels at the shapes of the paths below (the parent tree's K1 and
     # K2, where one is given, before and after)
@@ -6088,6 +6286,8 @@ def main():
     t2 = {c["m_out"]: c for c in k2_cases if c["n"] == n and c["dtype"] == "torch.float32" and "ms" in c}
     k2_schedule = [20] * 10 + [4]
 
+    phase_done("kernels")
+
     # 4. small solve: card vs CPU (plain versions)
     xs = torch.randn((32, 128), generator=torch.Generator().manual_seed(1))
     alg_s = kt.Lanczos(krylovdim=30, maxiter=6, verbosity=kt.SILENT)
@@ -6099,6 +6299,8 @@ def main():
           "numops": [ic.numops, ih.numops], "numiter": [ic.numiter, ih.numiter]})
     require(small_err <= 2e-4, "small solve: card vs CPU values rtol 2e-4")
     require(ic.numops == ih.numops and ic.numiter == ih.numiter, "small solve: counts equal")
+
+    phase_done("small")
 
     # 5. main path at the bench configuration
     op = kt.laplacian_1d(n)
@@ -6140,6 +6342,8 @@ def main():
         "outside_kernels_ms_per_solve": dt * 1e3 - k1_ms - k2_ms,
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
     })
+
+    phase_done("main")
 
     # 6. small linear solves: card vs CPU (plain versions).  MINRES runs on
     # the 32x32 grid, where a0 = -0.1 lies inside the Laplacian's spectrum
@@ -6188,6 +6392,8 @@ def main():
     require(ic.converged == ih.converged == 1 and ic.numiter == ih.numiter,
             "small fused GMRES: converged on both, numiter equal")
     require(rel <= 2e-5 and k1_small > 0, "small fused GMRES: x within 2e-5, fused_step launched")
+
+    phase_done("small_linsolve")
 
     # 7. config 2 at full size
     grid_spec = fl.spec_for(grid)
@@ -6272,6 +6478,8 @@ def main():
         require(rel <= 1e-4, f"{banded_metric}: x agrees with {stencil_metric} to 1e-4")
     del Vg, yg, gg
 
+    phase_done("config2")
+
     # 8. small Arnoldi solves: card vs CPU (plain versions)
     ns = 4096
     coeffs = (-1.3, 2.0, -0.7)
@@ -6347,6 +6555,8 @@ def main():
     require(vc.dtype == torch.complex64 and err <= 2e-4 and ic.converged == ih.converged == 3,
             "small complex schursolve: 3 converged, card vs CPU values within 2e-4")
     require(res_c <= 1e-3, f"small complex schursolve: |A V - V T| = {res_c} within 1e-3")
+
+    phase_done("small_arnoldi")
 
     # 9. config 4's Arnoldi solve at full size, three ways
     x04 = torch.from_numpy(np.random.default_rng(1).standard_normal((R4, 128)).astype(np.float32)).cuda()
@@ -6431,6 +6641,8 @@ def main():
     ks4 = proj4["ks"]
     del V4, y4, g4
 
+    phase_done("config4_arnoldi")
+
     # 10. small svdsolve / lssolve / exponentiate: card vs CPU (plain versions)
     small_se = []
 
@@ -6499,11 +6711,15 @@ def main():
                 f"small {label}: converged; K1 launched by the fused solve only ({counted})")
     emit({"phase": "small_svd_exp", "solves": small_se})
 
+    phase_done("small_svd_exp")
+
     # 11. small generalized and block eigensolves, ELL and complex banded:
     # card vs CPU (plain versions)
     nq = 1024
     q1_full = q1_coo(np, nq, nq, np.float32)
     emit(small_geneig_block(torch, np, kt, _build, bs, (q1_full[0], nq * nq)))
+
+    phase_done("small_geneig_block")
 
     # 12. config 3 at full size: the rectangular map and the square stencil
     C3, R3 = 1 << 19, 1 << 20
@@ -6558,8 +6774,7 @@ def main():
         bs.use_pallas_projections = flag
         try:
             (S3, U3, W3, info3), launches3, steps3, sweeps3, first_ms, ms = drive_counted(
-                torch, _build, fl, pb, lambda: kt.svdsolve(A3, x03, 8, "LR", **kw3, **kw),
-                reps=1 if kw else 2)
+                torch, _build, fl, pb, lambda: kt.svdsolve(A3, x03, 8, "LR", **kw3, **kw))
         finally:
             bs.use_pallas_projections = False
         op3 = kt.as_operator(A3)
@@ -6636,6 +6851,8 @@ def main():
           "ms_per_round_mean": mean(svd_rounds)})
     require(len(svd_rounds) == nit3, "config-3: one projected SVD per round")
 
+    phase_done("config3")
+
     # 13. config 4's exponentiate step at full size
     x0e = x04
     kwe = dict(krylovdim=m, tol=1e-4, ishermitian=True, **quiet)
@@ -6649,12 +6866,12 @@ def main():
     kf.fused_expansions = counting
     try:
         (ye, infoe), launchese, stepse, _, first_ms, ms = drive_counted(
-            torch, _build, fl, pb, lambda: kt.exponentiate(neg_lap, 0.1, x0e, **kwe), reps=2)
+            torch, _build, fl, pb, lambda: kt.exponentiate(neg_lap, 0.1, x0e, **kwe))
     finally:
         kf.fused_expansions = fused_expansions
-    ncalls = len(calls) // 3  # the counted solve and the two timed ones
+    ncalls = len(calls) // 2  # the counted solve and the timed one
     (yu, infou), launchesu, _, _, _, ms_u = drive_counted(
-        torch, _build, fl, pb, lambda: kt.exponentiate(neg_lap, 0.1, x0e, orth=kt.mgs2, **kwe), reps=1)
+        torch, _build, fl, pb, lambda: kt.exponentiate(neg_lap, 0.1, x0e, orth=kt.mgs2, **kwe))
     k1_ms_e = steps_ms(stepse)
     rel_e = float(torch.linalg.vector_norm(ye - yu) / torch.linalg.vector_norm(yu))
     # exp(tA) x0 by its Taylor series in float64 with a plain three-point
@@ -6707,64 +6924,91 @@ def main():
           "ms_per_call_mean": mean(phi_ms)})
     del Vq, yq, gq
 
+    phase_done("config4_expm")
+
     # 14. the Q1 pencil at full width through geneigsolve, the projection
     # kernels off and on
     geneig_launches, kg, q1_pencil = geneig_full(torch, np, kt, _build, bd, bs, fl, pb, q1_full,
                                                  nq, smi)
     del q1_full
 
+    phase_done("geneig")
+
     # 15. Block Lanczos on the config-2 Poisson matrix, banded and stencil
     block_launches = block_full(torch, np, kt, _build, bd, fl, pb, banded, grid, nx, smi)
     geneig_off, geneig_on = (geneig_launches[k] for k in ("geneigsolve_golubye_q1",
                                                           "geneigsolve_golubye_q1_proj"))
 
+    phase_done("block_lanczos")
+
     # 16-18. differentiable solves: every AD route card vs CPU, then the
     # eigenvalue and linear-solve gradients at config 2's width
     ad_small_launches = small_ad(torch, np, kt, _build)
+    phase_done("small_ad")
     ad_imp = ad_impurity(torch, np, kt, _build, bs, bd, N=nx, smi=smi)
+    phase_done("ad_impurity")
     ad_pot, _ = ad_potential(torch, np, kt, _build, bd, N=nx, smi=smi)
+    phase_done("ad_potential")
 
     # 19-21. two-sided eigenproblems, the iterators and the Lanczos variants:
     # card vs CPU, then bieigsolve at config 4's width and the variants at
     # config 2's
     small_bieig_iter(torch, np, kt, _build)
+    phase_done("small_bieig_iter")
     bieig_l = bieig_full(torch, np, kt, _build, bd, bs, fl, pb, n=n4, smi=smi)
+    phase_done("bieig")
     lanczos_l = lanczos_variants(torch, np, kt, _build, bd, bs, fl, pb, N=nx, smi=smi)
+
+    phase_done("lanczos_variants")
 
     # 22-25. the distribution layer: ranks of one torch.distributed group on
     # this card (gloo with CUDA tensors; NCCL takes one rank per card)
     sharded = distribution_phases(torch, np, kt, _build, fl, pb, smi, vals_h,
                                   (grid, b2, xs_by_metric["gmres30_poisson_2d"]))
 
+    phase_done("sharded_22_25")
+
     # 26-28. the remaining front-ends on a sharded space (small scenarios,
     # card ranks against CPU ranks; then at full width against one rank) and
     # pytree vectors in the drivers that took single tensors before
     t_slice10 = time.perf_counter()
     small_fe = small_front_ends(torch, np)
+    phase_done("small_front_ends")
     sharded_fe = sharded_front_ends(torch, np, kt, _build, smi)
+    phase_done("sharded_front_ends")
     rect3 = c3["gkl_svdsolve_rect"]
     tree_l = pytree_drivers(torch, np, kt, _build, {
         "rect": (rect, rect_adj, x0r), "svdsolve": (rect3["S"], rect3["info"]),
         "exponentiate": (neg_lap, x0e, (ye, infoe))}, smi)
     emit({"phase": "slice10", "seconds": time.perf_counter() - t_slice10})
 
+    phase_done("pytree_drivers")
+
     # 29. gradients of sharded solves at config 2's width: two gloo ranks
     # against one rank
     ad_sharded = sharded_ad(torch, np, kt, _build, smi, N=nx)
 
+    phase_done("sharded_ad")
+
     # 30. batched solves: config 1 for 8 starts and config 2's shifted
     # GMRES for 4 right-hand sides, each in one host loop
     batched = batched_phase(torch, np, kt, _build, fl, bs, smi)
+
+    phase_done("batched")
 
     # 31. batched linear solves: CG and MINRES on config 2's banded Poisson
     # for 8 right-hand sides (batched K3), BiCGStab on the 1-D Laplacian
     # (batched K4), CG on 4 banded operators (a plane set per problem)
     batched_lin = batched_linear_phase(torch, np, kt, _build, bd, s1, smi)
 
+    phase_done("batched_linear")
+
     # 32. batched Arnoldi and exponential integrator: config 4 for 4 starts
     # (fused schursolve, banded eigsolve with the projection kernels,
     # exponentiate), then the batched K5 and K6 alone
     batched_arn = batched_arnoldi_phase(torch, np, kt, _build, arn, expi, kf, bs, pb, smi)
+
+    phase_done("batched_arnoldi")
 
     # 33. batched GKL svdsolve and LSMR lssolve: config 3 for 4 starts (the
     # fused grid stencil; the rectangular map with the projection kernels),
@@ -6772,12 +7016,24 @@ def main():
     batched_svd = batched_gkl_phase(torch, np, kt, _build, svds, lss, bd, bs, fl, smi, rect,
                                     rect_adj)
 
+    phase_done("batched_gkl")
+
     # 34. batched Golub-Ye geneigsolve on the Q1 pencil for 4 starts (two
     # batched K3 launches an apply) and batched BiArnoldi bieigsolve on
     # config 4's tridiagonal for 4 start pairs (batched K3 on the normal and
     # the adjoint planes), the projection kernels batched
     batched_gb = batched_geneig_bieig_phase(torch, np, kt, _build, bd, bs, smi, q1_pencil,
                                             bieig_l.pop("operator"))
+
+    phase_done("batched_geneig_bieig")
+
+    # 35. batched Block Lanczos on config 2's banded Poisson for 4 start
+    # blocks (one batched K3 launch a lock-step over every problem's block;
+    # the block QR's projections batched with the flag), shared planes and a
+    # plane set per problem
+    batched_bl = batched_block_lanczos_phase(torch, np, kt, _build, bd, bs, smi, banded)
+
+    phase_done("batched_block_lanczos")
 
     def slice11(name):
         """The launches per rank of ``name`` in phase 29's passes."""
@@ -6805,6 +7061,7 @@ def main():
                            lambda: kt.eigsolve_lanczos(op, x0, 4, "LM", alg)))
         emit(profile_solve(torch, "config 4 Arnoldi schursolve, fused",
                            lambda: kt.schursolve(nonsym, x04, 4, "LM", alg4)))
+        phase_done("profile")
 
     emit({"kernels": [
         {
@@ -6896,6 +7153,7 @@ def main():
             **batched_lin["kernels"]["banded_spmv"],
             **batched_svd["kernels"]["banded_spmv"],
             **batched_gb["kernels"]["banded_spmv"],
+            **batched_bl["kernels"]["banded_spmv"],
         },
         {
             "name": "laplacian_1d", "route": "cuda",
@@ -6968,6 +7226,7 @@ def main():
             **batched_arn["kernels"][name],
             **batched_svd["kernels"][name],
             **batched_gb["kernels"][name],
+            **batched_bl["kernels"][name],
             "bound_by": "bytes",
             "shapes": "mean per launch over P = 8 bases (31, 8192, 128) f32 at k = 18, 30 and "
                       "mixed k; launches: the config-4 banded eigsolve_arnoldi_batched, P = 4, "

@@ -19,8 +19,8 @@ Lanczos, Arnoldi, CG, GMRES, LSMR and GKL solvers, with reverse-mode
 differentiation of ``linsolve``, ``eigsolve`` and ``svdsolve`` (``ad``:
 one ``torch.autograd.Function`` each) and pytree vectors (tuples, lists and
 dicts of tensors) in the Krylov, Lanczos, Arnoldi and linear solvers,
-batched Lanczos, Arnoldi, GMRES, CG, MINRES, BiCGStab, GKL, LSMR, Golub-Ye
-and BiArnoldi solves and batched exponential integrators of many problems
+batched Lanczos, Arnoldi, GMRES, CG, MINRES, BiCGStab, GKL, LSMR, Golub-Ye,
+BiArnoldi and Block Lanczos solves and batched exponential integrators of many problems
 in one host loop
 (``eigsolve_lanczos_batched``, ``schursolve_batched``,
 ``eigsolve_arnoldi_batched``, ``realeigsolve_arnoldi_batched``,
@@ -28,9 +28,10 @@ in one host loop
 ``linsolve_minres_batched``, ``linsolve_bicgstab_batched``,
 ``expintegrator_batched``, ``exponentiate_batched``,
 ``svdsolve_gkl_batched``, ``lssolve_lsmr_batched``,
-``geneigsolve_golubye_batched``, ``bieigsolve_batched``: ``jax.vmap`` of the JAX
-drivers, a banded or 1-D Laplacian operator applied to every problem in one
-batched launch), with
+``geneigsolve_golubye_batched``, ``bieigsolve_batched``,
+``eigsolve_blocklanczos_batched``: ``jax.vmap`` of the JAX drivers, a
+banded or 1-D Laplacian operator applied to every problem in one batched
+launch), with
 six hand-written CUDA kernels
 (``csrc/``): the fused one-stream expansion, the in-place restart rotation,
 the banded SpMV of :class:`BandedOperator`, the 1-D Laplacian of
@@ -107,6 +108,7 @@ from .solvers.batched_arnoldi import (  # noqa: E402
     schursolve_batched,
 )
 from .solvers.batched_biarnoldi import bieigsolve_batched  # noqa: E402
+from .solvers.batched_blocklanczos import eigsolve_blocklanczos_batched  # noqa: E402
 from .solvers.batched_expintegrator import expintegrator_batched, exponentiate_batched  # noqa: E402
 from .solvers.batched_gkl import lssolve_lsmr_batched, svdsolve_gkl_batched  # noqa: E402
 from .solvers.batched_golubye import geneigsolve_golubye_batched  # noqa: E402
@@ -195,6 +197,7 @@ __all__ = [
     "lssolve_lsmr_batched",
     "geneigsolve_golubye_batched",
     "bieigsolve_batched",
+    "eigsolve_blocklanczos_batched",
     "schursolve",
     "realeigsolve",
     "geneigsolve",

@@ -18,6 +18,18 @@ plain matrix products per leaf (the JAX package leaves them to XLA), and
 every reduction goes through the space (all-reduced on a sharded one); the
 operator is applied to the block's rows one at a time, which runs a
 kernel-backed operator's kernel once per row.
+
+The batched counterparts (:func:`initialize_batched`,
+:func:`block_qr_batched`, :func:`expand_batched`; what ``jax.vmap`` makes
+of these functions) step ``P`` problems at once (tensor blocks), each at
+its own ``k`` and ``r`` on its own basis: the current blocks of the
+problems that step are applied as one stack of rows (one batched K3
+launch on a kernel-backed banded operator), each column of
+the block QRs is one ``bs.project_batched`` call per pass (one batched K5
+launch with the projection flag on), and the Gram products, the block
+updates, the norms and the compaction run per problem through the helpers
+the one-problem functions use, so each problem keeps its one-problem bits.
+The ranks stay on the device for the caller to read with the ``β``s.
 """
 
 from __future__ import annotations
@@ -33,7 +45,8 @@ from ..ops.vector import STANDARD, VectorSpace, device_of, scalartype, tree_leav
 
 PyTree = Any
 
-__all__ = ["BlockLanczosState", "block_qr", "initialize", "expand"]
+__all__ = ["BlockLanczosState", "block_qr", "initialize", "expand", "block_qr_batched",
+           "initialize_batched", "expand_batched"]
 
 
 @dataclass
@@ -59,6 +72,45 @@ def _block_axpy(W: PyTree, V: PyTree, M: torch.Tensor) -> PyTree:
     return tree_map(leaf, W, V)
 
 
+class _QR:
+    """The state of one block's rank-revealing QR: the rank tolerance, ``Q``
+    (zeroed like the block), ``C`` and the accepted flags."""
+
+    def __init__(self, X: PyTree, qr_tol, space: VectorSpace):
+        b = bs.capacity(X)
+        cdt = scalartype(X)
+        dev = device_of(X)
+        norms0 = torch.sqrt(torch.clamp(torch.real(bs.batch_inner(X, X, space)), min=0))
+        self.tol = qr_tol * torch.clamp(torch.max(norms0), min=1e-30)
+        self.Q = tree_map(torch.zeros_like, X)
+        self.C = torch.zeros((b, b), dtype=cdt, device=dev)
+        self.valid = torch.zeros(b, dtype=torch.bool, device=dev)
+
+    def subtract(self, xi: PyTree, i: int, c: torch.Tensor) -> PyTree:
+        """One Gram-Schmidt pass of column ``i`` given its projections ``c``
+        on ``Q``: ``C[:, i] += c`` over the accepted rows, ``xi − Σ_j c_j Q[j]``."""
+        c = c * self.valid.to(self.C.dtype.to_real())
+        self.C[:, i] += c.to(self.C.dtype)
+        return tree_map(lambda lx, lq: lx - torch.tensordot(c.to(lq.dtype), lq, dims=([0], [0])),
+                        xi, self.Q)
+
+    def accept(self, xi: PyTree, i: int, space: VectorSpace):
+        """Column ``i`` normalised into ``Q[i]`` where its norm exceeds the
+        tolerance, else zero."""
+        nrm = space.norm(xi)
+        ok = nrm > self.tol
+        safe = torch.where(ok, nrm, torch.ones_like(nrm))
+        bs.set(self.Q, i, tree_map(lambda l: torch.where(ok, l / safe.to(l.dtype), 0 * l), xi))
+        self.C[i, i] = torch.where(ok, nrm.to(self.C.dtype),
+                                   torch.zeros((), dtype=self.C.dtype, device=self.C.device))
+        self.valid[i] = ok
+
+    def compacted(self):
+        """``(Q, C)`` with the accepted rows first, in their order."""
+        order = torch.argsort((~self.valid).to(torch.int8), stable=True)
+        return tree_map(lambda l: l[order], self.Q), self.C[order, :]
+
+
 def block_qr(X: PyTree, qr_tol, space: VectorSpace = STANDARD
              ) -> Tuple[PyTree, torch.Tensor, int]:
     """Rank-revealing QR of a stacked block by two classical Gram-Schmidt
@@ -70,32 +122,33 @@ def block_qr(X: PyTree, qr_tol, space: VectorSpace = STANDARD
     permuted alike.  A column is accepted where its remaining norm exceeds
     ``qr_tol`` times the largest input norm."""
     b = bs.capacity(X)
-    cdt = scalartype(X)
-    rdt = cdt.to_real()
-    dev = device_of(X)
-    norms0 = torch.sqrt(torch.clamp(torch.real(bs.batch_inner(X, X, space)), min=0))
-    tol = qr_tol * torch.clamp(torch.max(norms0), min=1e-30)
-
-    Q = tree_map(torch.zeros_like, X)
-    C = torch.zeros((b, b), dtype=cdt, device=dev)
-    valid = torch.zeros(b, dtype=torch.bool, device=dev)
+    qr = _QR(X, qr_tol, space)
     for i in range(b):
         xi = bs.get(X, i)
         for _ in range(2):
-            c = bs.project(Q, xi, b, space) * valid.to(rdt)
-            C[:, i] += c.to(cdt)
-            xi = tree_map(lambda lx, lq: lx - torch.tensordot(c.to(lq.dtype), lq, dims=([0], [0])),
-                          xi, Q)
-        nrm = space.norm(xi)
-        ok = nrm > tol
-        safe = torch.where(ok, nrm, torch.ones_like(nrm))
-        xi = tree_map(lambda l: torch.where(ok, l / safe.to(l.dtype), 0 * l), xi)
-        bs.set(Q, i, xi)
-        C[i, i] = torch.where(ok, nrm.to(cdt), torch.zeros((), dtype=cdt, device=dev))
-        valid[i] = ok
-    # accepted rows first, in their order
-    order = torch.argsort((~valid).to(torch.int8), stable=True)
-    return tree_map(lambda l: l[order], Q), C[order, :], int(valid.sum())
+            xi = qr.subtract(xi, i, bs.project(qr.Q, xi, b, space))
+        qr.accept(xi, i, space)
+    return (*qr.compacted(), int(qr.valid.sum()))
+
+
+def block_qr_batched(Xs, qr_tol, space: VectorSpace = STANDARD):
+    """:func:`block_qr` of each stacked block of ``Xs`` (``P`` tensors of
+    one shape), column by column for all of them: each of a column's two
+    passes projects every block's column in one ``bs.project_batched``
+    call; the rest runs per block as :func:`block_qr` runs it.  Returns
+    ``(Qs, Cs, ranks)``, lists of ``P``; each rank a 0-d int64 device
+    tensor (not read here)."""
+    b = bs.capacity(Xs[0])
+    qrs = [_QR(X, qr_tol, space) for X in Xs]
+    for i in range(b):
+        xs = [bs.get(X, i) for X in Xs]
+        for _ in range(2):
+            cs = bs.project_batched([qr.Q for qr in qrs], xs, [b] * len(Xs), space)
+            xs = [qr.subtract(x, i, c) for qr, x, c in zip(qrs, xs, cs)]
+        for qr, x in zip(qrs, xs):
+            qr.accept(x, i, space)
+    out = [qr.compacted() for qr in qrs]
+    return [q for q, _ in out], [c for _, c in out], [qr.valid.sum() for qr in qrs]
 
 
 def initialize(X0: PyTree, mcap: int, coeff_dtype, qr_tol,
@@ -111,40 +164,54 @@ def initialize(X0: PyTree, mcap: int, coeff_dtype, qr_tol,
     return BlockLanczosState(V=V, H=H, X=Q, r=r, k=0, beta=beta)
 
 
-def expand(op_apply, state: BlockLanczosState, qr_tol, space: VectorSpace = STANDARD,
-           verbosity: int = 0) -> BlockLanczosState:
-    """One block step, in place on ``state.V`` and ``state.H``: commit ``X``
-    at rows ``[k, k + b)``, apply the operator to each row of ``X``,
-    orthogonalize the images against the committed basis (two passes), and
-    split them by :func:`block_qr` into the next block and its coupling.
-    Reference ``block_lanczosrecurrence``
-    (``src/factorizations/blocklanczos.jl:242-263``)."""
-    V, H, X, r, k = state.V, state.H, state.X, state.r, state.k
-    b = bs.capacity(X)
-    mcapb = H.shape[0]
-    kr = k + r
-    # the JAX package's dynamic slices clamp an out-of-range start; the
-    # drivers keep k + r <= mcap, so no slice here ever needs it
-    if not (0 <= k and kr + b <= mcapb):
-        raise ValueError(f"block step at k={k}, r={r} overruns the {mcapb}-row buffer")
-    for lV, lX in zip(tree_leaves(V), tree_leaves(X)):
-        lV[k:k + b] = lX.to(lV.dtype)
-    images = [op_apply(bs.get(X, j)) for j in range(b)]
-    W = tree_map(lambda *ls: torch.stack(ls), *images)
+def initialize_batched(X0s, mcap: int, coeff_dtype, qr_tol, space: VectorSpace = STANDARD):
+    """:func:`initialize` of each start block of ``X0s`` (``P`` tensors of
+    one shape), the block QRs through :func:`block_qr_batched`.  Returns
+    the list of states, each with its own zeroed basis and its rank as a
+    0-d device tensor."""
+    b = bs.capacity(X0s[0])
+    dev = device_of(X0s[0])
+    Qs, _, ranks = block_qr_batched(X0s, qr_tol, space)
+    return [BlockLanczosState(
+        V=bs.alloc(bs.get(Q, 0), mcap + b),
+        H=torch.zeros((mcap + b, mcap + b), dtype=coeff_dtype, device=dev), X=Q, r=r,
+        k=0, beta=torch.ones((), dtype=coeff_dtype.to_real(), device=dev))
+        for Q, r in zip(Qs, ranks)]
 
-    M = torch.zeros((mcapb, b), dtype=H.dtype, device=H.device)
-    rows = torch.arange(mcapb, device=H.device)[:, None]
+
+def _commit(state: BlockLanczosState, b: int):
+    """Write the current block at rows ``[k, k + b)`` of the basis (the
+    drivers keep ``k + r <= mcap``; the JAX package's dynamic slices would
+    clamp an out-of-range start, so none is taken)."""
+    k, mcapb = state.k, state.H.shape[0]
+    if not (0 <= k and k + state.r + b <= mcapb):
+        raise ValueError(f"block step at k={k}, r={state.r} overruns the {mcapb}-row buffer")
+    for lV, lX in zip(tree_leaves(state.V), tree_leaves(state.X)):
+        lV[k:k + b] = lX.to(lV.dtype)
+
+
+def _orthogonalize(state: BlockLanczosState, W: PyTree, b: int, space: VectorSpace) -> PyTree:
+    """The images ``W`` orthogonalized against the committed basis ``V[:k +
+    r]`` in two passes; their coefficients fill columns ``[k, k + b)`` of
+    ``H`` and its Hermitian mirror rows."""
+    V, H, k, kr = state.V, state.H, state.k, state.k + state.r
+    M = torch.zeros((H.shape[0], b), dtype=H.dtype, device=H.device)
+    rows = torch.arange(H.shape[0], device=H.device)[:, None]
     for _ in range(2):
         Mi = bs.gram(V, W, space)
         Mi = torch.where(rows < kr, Mi, torch.zeros((), dtype=Mi.dtype, device=Mi.device))
         W = _block_axpy(W, V, Mi)
         M = M + Mi.to(H.dtype)
-    # coefficient columns [k, k + b) and their Hermitian mirror rows
     H[:, k:k + b] = M
     H[k:k + b, :] = M.conj().T
+    return W
 
-    Q, C, rnew = block_qr(W, qr_tol, space)
-    # coupling rows H[kr + j, k + i] = C[j, i] and their mirror
+
+def _advanced(state: BlockLanczosState, Q: PyTree, C: torch.Tensor, rnew, b: int,
+              verbosity: int) -> BlockLanczosState:
+    """The state after a block step: the coupling ``C`` at rows ``[k + r,
+    k + r + b)`` of ``H`` and its mirror, ``Q`` the next block, ``β = ‖C‖``."""
+    H, k, kr = state.H, state.k, state.k + state.r
     H[kr:kr + b, k:k + b] = C.to(H.dtype)
     H[k:k + b, kr:kr + b] = C.conj().T.to(H.dtype)
     beta = torch.sqrt(torch.clamp(torch.sum(torch.abs(C) ** 2), min=0)).to(state.beta.dtype)
@@ -153,4 +220,41 @@ def expand(op_apply, state: BlockLanczosState, qr_tol, space: VectorSpace = STAN
         "BlockLanczos expansion to dimension {k}: subspace normres = {b}",
         k=kr, b=beta,
     )
-    return BlockLanczosState(V=V, H=H, X=Q, r=rnew, k=kr, beta=beta)
+    return BlockLanczosState(V=state.V, H=H, X=Q, r=rnew, k=kr, beta=beta)
+
+
+def expand(op_apply, state: BlockLanczosState, qr_tol, space: VectorSpace = STANDARD,
+           verbosity: int = 0) -> BlockLanczosState:
+    """One block step, in place on ``state.V`` and ``state.H``: commit ``X``
+    at rows ``[k, k + b)``, apply the operator to each row of ``X``,
+    orthogonalize the images against the committed basis (two passes), and
+    split them by :func:`block_qr` into the next block and its coupling.
+    Reference ``block_lanczosrecurrence``
+    (``src/factorizations/blocklanczos.jl:242-263``)."""
+    b = bs.capacity(state.X)
+    _commit(state, b)
+    images = [op_apply(bs.get(state.X, j)) for j in range(b)]
+    W = _orthogonalize(state, tree_map(lambda *ls: torch.stack(ls), *images), b, space)
+    Q, C, rnew = block_qr(W, qr_tol, space)
+    return _advanced(state, Q, C, rnew, b, verbosity)
+
+
+def expand_batched(apply_stack, states: dict, qr_tol, space: VectorSpace = STANDARD,
+                   verbosity: int = 0) -> dict:
+    """:func:`expand` for each problem of ``states`` (``{p: state}``, host
+    ``k`` and ``r``), in place on their bases and ``H``: the current blocks
+    go through ``apply_stack(X, rows)`` as one ``(P_s·b, ...)`` stack, row
+    ``i·b + j`` row ``j`` of the ``i``-th problem's block and ``rows`` each
+    problem's index ``b`` times; the two projection passes run per problem
+    and the block QRs through :func:`block_qr_batched`.  Returns ``{p:
+    state}`` with each new rank a 0-d device tensor (the caller reads it
+    with ``β``)."""
+    ps = list(states)
+    b = bs.capacity(states[ps[0]].X)
+    for p in ps:
+        _commit(states[p], b)
+    Y = apply_stack(torch.cat([states[p].X for p in ps]), [p for p in ps for _ in range(b)])
+    Ws = [_orthogonalize(states[p], Y[i * b:(i + 1) * b], b, space) for i, p in enumerate(ps)]
+    Qs, Cs, ranks = block_qr_batched(Ws, qr_tol, space)
+    return {p: _advanced(states[p], Q, C, r, b, verbosity)
+            for p, Q, C, r in zip(ps, Qs, Cs, ranks)}

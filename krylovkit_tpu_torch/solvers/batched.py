@@ -122,10 +122,11 @@ class _Operators:
     them with equal offsets, ``n``, plane shapes, types and devices (their
     planes stacked once, a row taking its problem's), and a shared
     :class:`Laplacian1DOperator`.  ``P`` matrices of one shape apply as one
-    ``torch.matmul`` over their stack; any other operator applies problem by
-    problem.  The adjoint (:meth:`apply_adjoint_stack`) batches alike: a
-    banded operator's adjoint planes (stacked on first use), the
-    self-adjoint Laplacian, the conjugate-transposed matrix stack.
+    ``torch.matmul`` over their stack (a problem's rows the columns of its
+    block); any other operator applies problem by problem.  The adjoint
+    (:meth:`apply_adjoint_stack`) batches alike: a banded operator's adjoint
+    planes (stacked on first use), the self-adjoint Laplacian, the
+    conjugate-transposed matrix stack.
 
     A ``(f, fadjoint)`` tuple is one operator (``as_operator``), never two
     problems.  ``templates`` (each problem's vector of the codomain) gives
@@ -197,9 +198,15 @@ class _Operators:
         if self.stack is not None and X.ndim == 2:
             stack = self.adj_stack if adjoint else self.stack
             dt = torch.promote_types(stack.dtype, X.dtype)
-            full = torch.zeros((len(self.ops), X.shape[1]), dtype=dt, device=X.device)
-            full[list(ps)] = X.to(dt)
-            return torch.matmul(stack.to(dt), full[:, :, None])[list(ps), :, 0]
+            # row i is column slot[i] of its problem's (n, c) block
+            slot, seen = [], {}
+            for p in ps:
+                slot.append(seen.get(p, 0))
+                seen[p] = slot[-1] + 1
+            full = torch.zeros((len(self.ops), X.shape[1], max(seen.values())), dtype=dt,
+                               device=X.device)
+            full[list(ps), :, slot] = X.to(dt)
+            return torch.matmul(stack.to(dt), full)[list(ps), :, slot]
         if adjoint:
             return torch.stack([self.ops[p].apply_adjoint(x) for p, x in zip(ps, X)])
         return torch.stack([self.ops[p].normal(x) for p, x in zip(ps, X)])

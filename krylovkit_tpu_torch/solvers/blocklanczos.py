@@ -11,6 +11,9 @@ as host loops over device tensors.  The control flow reads the block rank
 and ``β`` per step and ``nconv`` per round.  The block may be a stacked
 pytree (``ops/block.py``), and on a sharded space (``psum_axis``) every
 reduction is all-reduced, so the projected matrix is the same on every rank.
+The dense round, the restart and the extraction are module functions
+(``_round``, ``_restart``, ``_extract``) that the batched driver
+(``batched_blocklanczos.py``) calls too.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from ..factorizations import blocklanczos as bf
 from ..info import STARTSTOP, ConvergenceInfo, log_if, warn_if
 from ..ops import basis as bs
 from ..ops.operator import LinearOperator, probe_dtype
-from ..ops.vector import STANDARD, VectorSpace, astype, device_of, rounded, tree_map
+from ..ops.vector import STANDARD, VectorSpace, astype, rounded, tree_map
 
 __all__ = ["eigsolve_blocklanczos"]
 
@@ -40,6 +43,61 @@ def _eps_pow(rdt: torch.dtype) -> float:
     return float(torch.tensor(torch.finfo(rdt).eps, dtype=rdt) ** 0.75)
 
 
+def _round(fact: bf.BlockLanczosState, b: int, which, tol):
+    """The dense work of a round: the eigendecomposition of the projected
+    buffer over ``[0, k)``, sorted by ``which``, the coupling rows ``S U``,
+    the residual norms and ``nconv``.  Returns ``(w, U, SU, res, nconv)``."""
+    K = fact.k
+    w, U, valid = dense.eigh_active((fact.H + fact.H.conj().T) / 2, K)
+    perm = dense.sort_perm(w, valid, which)
+    w, U, valid = w[perm], U[:, perm], valid[perm]
+    SU = _spike(fact.H, K, b) @ U
+    res = torch.sqrt(torch.sum(torch.abs(SU) ** 2, dim=0))
+    res = torch.where(valid, res, torch.full_like(res, float("inf")))
+    nconv = int(torch.sum(torch.cumprod((res <= tol).to(torch.int64), 0)))
+    return w, U, SU, res, nconv
+
+
+def _restart(fact: bf.BlockLanczosState, w, U, SU, nconv: int, m: int,
+             b: int) -> bf.BlockLanczosState:
+    """Thick restart: keep the leading Ritz vectors, arrowhead ``H`` with
+    the rotated coupling rows at ``[keep, keep + b)``.  The basis is
+    rotated into a new tensor (``bs.transform``)."""
+    H = fact.H
+    idx = torch.arange(H.shape[0], device=H.device)
+    zero = torch.zeros((), dtype=H.dtype, device=H.device)
+    keep = min(max((3 * m + 2 * nconv) // 5, 1), max(fact.k - 1, 1))
+    Ukeep = torch.where((idx[:, None] < fact.k) & (idx[None, :] < keep), U, zero)
+    Vnew = bs.transform(fact.V, Ukeep)
+    Hnew = torch.diag(torch.where(idx < keep, w.to(H.dtype), zero))
+    Snew = torch.where(idx[None, :] < keep, SU.to(H.dtype), zero)
+    Hnew[keep:keep + b, :] = Snew
+    Hnew[:, keep:keep + b] = Snew.conj().T
+    return bf.BlockLanczosState(V=Vnew, H=Hnew, X=fact.X, r=fact.r, k=keep, beta=fact.beta)
+
+
+def _extract(fact: bf.BlockLanczosState, w, U, res, nconv_out: int, numiter_out: int,
+             numops: int, howmany: int, b: int):
+    """``(vals, vecs, info)`` of a finished solve: the Ritz vectors and the
+    residual vectors ``r_i = Σ_j X[j]·(S U)[j, i]``."""
+    idx = torch.arange(fact.H.shape[0], device=fact.H.device)
+    zero = torch.zeros((), dtype=fact.H.dtype, device=fact.H.device)
+    k = fact.k
+    Umask = torch.where((idx[:, None] < k) & (idx[None, :] < howmany), U, zero)
+    vecs = bs.prefix(bs.transform(fact.V, Umask), howmany)
+    SU = (_spike(fact.H, k, b) @ U)[:, :howmany]
+    residuals = tree_map(lambda lX: torch.tensordot(SU.T.to(lX.dtype), lX, dims=([1], [0])),
+                         fact.X)
+    info = ConvergenceInfo(
+        converged=nconv_out,
+        residual=residuals,
+        normres=res[:howmany],
+        numiter=numiter_out,
+        numops=numops,
+    )
+    return w[:howmany], vecs, info
+
+
 def eigsolve_blocklanczos(op: LinearOperator, X0, howmany: int, which,
                           alg: BlockLanczos, space: VectorSpace = STANDARD):
     """Hermitian eigsolve from the stacked start block ``X0`` (every leaf's
@@ -51,16 +109,12 @@ def eigsolve_blocklanczos(op: LinearOperator, X0, howmany: int, which,
         raise ValueError(f"howmany={howmany} exceeds krylovdim={m}")
     cdt = probe_dtype(op, bs.get(X0, 0))
     rdt = cdt.to_real()
-    dev = device_of(X0)
     tol = rounded(alg.tol, rdt)
     qr_tol = rounded(alg.qr_tol, rdt) if alg.qr_tol >= 0 else _eps_pow(rdt)
     btol = _eps_pow(rdt)
 
     fact = bf.initialize(astype(X0, cdt), m, cdt, qr_tol, space)
-    mcapb = m + b
     numiter = numops = 0
-    idx = torch.arange(mcapb, device=dev)
-    zero = torch.zeros((), dtype=cdt, device=dev)
 
     def expand_one(fact, numops):
         # one block step applies the operator to every row of the block
@@ -75,34 +129,15 @@ def eigsolve_blocklanczos(op: LinearOperator, X0, howmany: int, which,
                and not (alg.eager and fact.k >= max(howmany, 1))):
             fact, numops = expand_one(fact, numops)
 
-        K = fact.k
-        w, U, valid = dense.eigh_active((fact.H + fact.H.conj().T) / 2, K)
-        perm = dense.sort_perm(w, valid, which)
-        w, U, valid = w[perm], U[:, perm], valid[perm]
-        SU = _spike(fact.H, K, b) @ U
-        res = torch.sqrt(torch.sum(torch.abs(SU) ** 2, dim=0))
-        res = torch.where(valid, res, torch.full_like(res, float("inf")))
-        nconv = int(torch.sum(torch.cumprod((res <= tol).to(torch.int64), 0)))
-
+        w, U, SU, res, nconv = _round(fact, b, which, tol)
         full = fact.k + fact.r > m
         numiter += int(full)
         exhausted = fact.r <= 0 or not (float(fact.beta) > btol)
         done = nconv >= howmany or (full and numiter >= alg.maxiter) or exhausted
         if not done and full:
-            # thick restart: keep the leading Ritz vectors, arrowhead H with
-            # the rotated coupling rows at [keep, keep + b)
-            keep = min(max((3 * m + 2 * nconv) // 5, 1), max(fact.k - 1, 1))
-            Ukeep = torch.where((idx[:, None] < fact.k) & (idx[None, :] < keep), U, zero)
-            Vnew = bs.transform(fact.V, Ukeep)
-            Hnew = torch.diag(torch.where(idx < keep, w.to(cdt), zero))
-            Snew = torch.where(idx[None, :] < keep, SU.to(cdt), zero)
-            Hnew[keep:keep + b, :] = Snew
-            Hnew[:, keep:keep + b] = Snew.conj().T
-            fact = bf.BlockLanczosState(V=Vnew, H=Hnew, X=fact.X, r=fact.r, k=keep,
-                                        beta=fact.beta)
+            fact = _restart(fact, w, U, SU, nconv, m, b)
 
     nconv_out = min(nconv, howmany)
-    numiter_out = max(numiter, 1)
     log_if(
         alg.verbosity, STARTSTOP,
         "BlockLanczos eigsolve finished after {it} iterations: {nc} values "
@@ -115,18 +150,4 @@ def eigsolve_blocklanczos(op: LinearOperator, X0, howmany: int, which,
         f"{howmany}" + " values converged after {it} iterations",
         nc=nconv_out, it=numiter,
     )
-    k = fact.k
-    Umask = torch.where((idx[:, None] < k) & (idx[None, :] < howmany), U, zero)
-    vecs = bs.prefix(bs.transform(fact.V, Umask), howmany)
-    # residual vectors r_i = Σ_j X[j]·(S U)[j, i]
-    SU = (_spike(fact.H, k, b) @ U)[:, :howmany]
-    residuals = tree_map(lambda lX: torch.tensordot(SU.T.to(lX.dtype), lX, dims=([1], [0])),
-                         fact.X)
-    info = ConvergenceInfo(
-        converged=nconv_out,
-        residual=residuals,
-        normres=res[:howmany],
-        numiter=numiter_out,
-        numops=numops,
-    )
-    return w[:howmany], vecs, info
+    return _extract(fact, w, U, res, nconv_out, max(numiter, 1), numops, howmany, b)

@@ -179,3 +179,21 @@ def test_complex_planes_apply_problem_by_problem(stacks):
         x1, i1 = linsolve_bicgstab(op, B[p], torch.zeros_like(B[p]), 0.5, 1.0, alg)
         assert [i1.numops, i1.numiter] == [int(info.numops[p]), int(info.numiter[p])]
         assert torch.equal(x[p], x1)
+
+
+@pytest.mark.parametrize("adjoint", [False, True], ids=["normal", "adjoint"])
+def test_matrix_stack_applies_repeated_problem_rows(adjoint):
+    """A matrix stack applies a stack whose rows name a problem more than
+    once (a block of rows per problem, as Block Lanczos applies it: ``ps =
+    [0, 0, 1, 1]``): two 6 × 6 float64 matrices, each row within 1e-12 of
+    its own ``A_p x`` (``A_pᴴ x`` for the adjoint stack)."""
+    rng = np.random.default_rng(43)
+    As = rng.standard_normal((2, 6, 6))
+    X = torch.from_numpy(rng.standard_normal((4, 6)))
+    ps = [0, 0, 1, 1]
+    ops = _Operators(convert.matrices_from_numpy(As, "cpu"), 2, True)
+    Y = ops.apply_adjoint_stack(X, ps) if adjoint else ops.apply_stack(X, ps)
+    assert Y.shape == X.shape
+    for i, p in enumerate(ps):
+        A = As[p].conj().T if adjoint else As[p]
+        np.testing.assert_allclose(Y[i].numpy(), A @ X[i].numpy(), rtol=0, atol=1e-12)

@@ -1282,3 +1282,80 @@ def test_batched_geneigsolve_and_bieigsolve_on_card_match_cpu():
     np.testing.assert_allclose(got["cuda"][0].numpy(), got["cpu"][0].numpy(), rtol=0, atol=1e-10)
     assert got["cuda"][3] == {"banded_spmv_batched": got["cuda"][4]}
     assert got["cuda"][4] >= max(got["cuda"][1])
+
+
+@pytest.mark.parametrize("shared", [True, False], ids=["shared", "per_problem"])
+def test_batched_k3_with_each_problems_rows_repeated_is_one_problem_launches(shared):
+    """The batched apply of a Block Lanczos lock-step
+    (``solvers/batched.py:_Operators.apply_stack`` with each problem's index
+    named ``b`` times): config 2's float32 Poisson planes at n = 2^16, four
+    problems of four rows, the planes shared or a set per problem (scaled
+    by ``1 + 0.1·p``): one ``banded_spmv_batched`` launch, every row
+    bit-identical to a one-problem launch on its problem's operator."""
+    from krylovkit_tpu_torch.solvers.batched import _Operators
+
+    P, b, N = 4, 4, 256
+    n = N * N
+    base = kt.banded_from_coo(*poisson_coo(np, N, np.float32), n)
+    ops = [base if shared else kt.BandedOperator(base.offsets, base.diags * (1 + 0.1 * p), n)
+           for p in range(P)]
+    batch = _Operators(base if shared else ops, P, not shared)
+    X = torch.randn((P * b, n // 128, 128), generator=_gen(173), device="cuda")
+    rows = [p for p in range(P) for _ in range(b)]
+    _build.reset_launches()
+    Y = batch.apply_stack(X, rows)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in _build.launches.items() if v} == {"banded_spmv_batched": 1}
+    for i, p in enumerate(rows):
+        assert torch.equal(Y[i], ops[p].normal(X[i]))
+
+
+def test_batched_k5_at_the_block_width_is_one_problem_launches():
+    """Batched K5 at ``k = b = 4`` (a column pass of the batched block QR:
+    each problem's ``(4, R, 128)`` block against one of its rows), eight
+    problems at R = 8192: every row bit-identical to a one-problem launch
+    and within 1e-5 of the plain version; one launch."""
+    from chip_smoke import check_batched_projections
+
+    _build.reset_launches()
+    case = check_batched_projections(torch, pb, [4] * 8, 8192, 4, _gen(174), timed=False)
+    assert case["bit_identical_to_one_problem_launches"]
+    assert _build.launches["project_batched"] == 1
+
+
+def test_batched_block_lanczos_on_card_is_each_one_problem_solve():
+    """A small ``eigsolve_blocklanczos_batched`` on the card: the float32
+    Poisson matrix of the 128 × 128 grid as one shared banded operator,
+    three start blocks of 3, 3 "LR", krylovdim 20, maxiter 3, tol 1e-30
+    (fixed work), the projection flag off and on: every problem
+    bit-identical to its one-problem solve on the card, one batched K3
+    launch a lock-step and, with the flag, one batched K5 launch per
+    column pass of the block QRs (``2·b·(1 + steps)``), no one-problem
+    launch."""
+    from krylovkit_tpu_torch.solvers.blocklanczos import eigsolve_blocklanczos
+
+    P, b, N = 3, 3, 128
+    n = N * N
+    op = kt.banded_from_coo(*poisson_coo(np, N, np.float32), n)
+    X = torch.randn((P, b, n // 128, 128), generator=_gen(175), device="cuda")
+    alg = kt.BlockLanczos(krylovdim=20, maxiter=3, tol=1e-30, verbosity=kt.SILENT)
+    for flag in (False, True):
+        bs.use_pallas_projections = flag
+        try:
+            _build.reset_launches()
+            vals, vecs, info = kt.eigsolve_blocklanczos_batched(op, X, 3, "LR", alg)
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in _build.launches.items() if v}
+            ones = [eigsolve_blocklanczos(op, X[p], 3, "LR", alg) for p in range(P)]
+        finally:
+            bs.use_pallas_projections = False
+        steps = info.numops[0].item() // b
+        assert info.numops.tolist() == [b * steps] * P and info.numiter.tolist() == [3] * P
+        want = {"banded_spmv_batched": steps}
+        if flag:
+            want["project_batched"] = 2 * b * (1 + steps)
+        assert launches == want, launches
+        for p, (v1, w1, i1) in enumerate(ones):
+            assert torch.equal(vals[p], v1) and torch.equal(vecs[p], w1)
+            assert torch.equal(info.normres[p], i1.normres)
+            assert torch.equal(info.residual[p], i1.residual)
