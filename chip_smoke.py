@@ -107,7 +107,7 @@ without the final ``ok`` line:
    on the card against the CPU: within 1e-10, counts and sweeps equal;
 20. bieig — ``bieigsolve`` at config 4's width (the banded transport-
    diffusion tridiagonal, n = 2^20, float32, 4 "LM", krylovdim 30, maxiter
-   8), the projection kernels off and on: K3 = ``numops`` (half on the
+   :data:`BIEIG_ITERS` = 4, cut from 8 for the script's time budget), the projection kernels off and on: K3 = ``numops`` (half on the
    adjoint's planes), with the flag K5 = 3·numops + 4·numiter − 2 and K6 =
    2·numops; then the ms of each dense round (two Schur decompositions, two
    sorts);
@@ -125,7 +125,14 @@ without the final ``ok`` line:
    ``batch 2 × vec 1`` mesh, the sharded K5 projection) on two ranks of one
    gloo group with CUDA tensors, against the same on two CPU ranks run at
    the same time: float64 within 1e-12, counts equal, K1/K2/K5 launched on
-   every card rank;
+   every card rank; then (line ``small_sharded_batched``, in the same rank
+   processes) the batched drivers on a sharded space
+   (``SMALL_SHARDED_BATCHED`` of ``sharded_batched_cases``, four problems on
+   a ``batch 1 × vec 2`` mesh: fused Lanczos, ``schursolve``,
+   ``exponentiate`` and GMRES, and ``eigsolve_arnoldi`` with the
+   projection flag) on two card ranks against two CPU ranks: within
+   1e-12 (float32 2e-4), counts equal, batched K1 (with every problem's
+   halos) and batched K5/K6 on every card rank, no one-problem launch;
 23. nccl_mesh1 — one rank over NCCL, ``make_mesh(1)``: the halo plan is
    communication-free and the sharded ELL apply equals ``sparse.from_coo``'s
    bit for bit;
@@ -141,7 +148,14 @@ without the final ``ok`` line:
    and config 2's ``gmres30_poisson_2d`` on the sharded 1024² grid, two gloo
    ranks: K1 per rank with the neighbours' edge rows as external halos
    (138 / K1 128 / K2 11 and 421 / K1 406 per rank, values within 1e-4 of
-   phase main's, true residual within 1e-3 of phase config2's);
+   phase main's, true residual within 1e-3 of phase config2's); config 1
+   for phase 30's first 4 starts through ``eigsolve_lanczos_batched`` on the
+   same ranks (every problem 138 / 10, 128 ``fused_step_batched`` with every
+   problem's halos and 11 ``transform_partial_batched`` per rank, no
+   one-problem K1, within 1e-4 of the one-rank batched solve, problem 0 of
+   phase main's; its all-reduces beside four one-problem solves'), then the
+   batched K1 with halos at a rank's width (P = 4, B = 4, 16, 29) against
+   its plain version and one-problem launches with halos, ms and bound;
 26. small_front_ends — the front-ends of ``front_end_cases`` on a sharded
    space (MINRES, BiCGStab, ``exponentiate`` unfused and fused,
    ``expintegrator``, ``geneigsolve``, ``bieigsolve``, Block Lanczos,
@@ -152,12 +166,13 @@ without the final ``ok`` line:
 27. sharded_front_ends — at full width on two ranks, each solve against the
    same solve on one rank, the projection kernels on in both: config 5's
    operator (planned once a rank) through Block Lanczos (4 "LM", b = 4,
-   krylovdim 30, maxiter 8), MINRES and BiCGStab (b = ones, tol 1e-6,
+   krylovdim 30, maxiter :data:`FE_BLOCK_ITERS` = 4, cut from 8 for the
+   script's time budget), MINRES and BiCGStab (b = ones, tol 1e-6,
    maxiter 10 and 5), ``geneigsolve`` with a diagonal SPD ``B`` (4 "SR",
    krylovdim 30, maxiter 4, tol 1e-30) and 30 ``LanczosIterator``
    expansions; ``bieigsolve`` on config
-   4's tridiagonal (n = 2^20, the parameters of phase 20; the adjoint
-   plan); the fused ``exponentiate`` of config 4 on ``shard_local_stencil``
+   4's tridiagonal (n = 2^20, the parameters of phase 20, maxiter
+   :data:`BIEIG_ITERS`; the adjoint plan); the fused ``exponentiate`` of config 4 on ``shard_local_stencil``
    (K1 per rank).  Counts, launches per rank and every rank's bits equal,
    values within 1e-4, the linear solves' true residuals within 1e-3; the
    slowest rank's ms, the collectives and their ms, the one-rank ms;
@@ -249,8 +264,8 @@ without the final ``ok`` line:
    quotient within 1e-4; (b) ``bieigsolve_batched`` on config 4's
    tridiagonal (n = 2^20, its adjoint planes) for 4 ``(v0, w0)`` pairs
    (phase 20's and ``default_rng(101–103)`` / ``(111–113)``), 4 "LM",
-   krylovdim 30, tol 1e-30, the flag on, maxiter 2 (cut from phase 20's
-   8 for the phase's budget): ``numops`` even in 84..96, batched K3 = the
+   krylovdim 30, tol 1e-30, the flag on, maxiter 2 (cut from the 8 phase
+   20 then ran, for the phase's budget): ``numops`` even in 84..96, batched K3 = the
    largest ``numops``, batched K5/K6 as
    :func:`bieig_predicted_projections` on the batch's lock-steps, every
    ``|λ| <= 4 + ‖A v − λ v‖/‖v‖``; on both, problems 0 and 1 bit-identical
@@ -1693,20 +1708,25 @@ def bieig_predicted_projections(numops, numiter):
     return 6 * pairs + 2 * numiter + 2 * (numiter - 1), 4 * pairs
 
 
+# iterations of phase 20's bieigsolve and of phase 27's (cut from 8 for the
+# script's time budget: a dense round costs ~0.3 s)
+BIEIG_ITERS = 4
+
+
 def bieig_full(torch, np, kt, _build, bd, bs, fl, pb, n=1 << 20, dev="cuda", smi=None):
     """Phase ``bieig``: ``bieigsolve`` at config 4's width — the banded
     transport-diffusion tridiagonal ``(−1.3, 2.0, −0.7)``, n = 2^20, float32
     ``(n/128, 128)`` vectors, its adjoint the transposed planes (K3 both
     ways), ``v0 = default_rng(1)``, ``w0 = default_rng(10)``, 4 "LM",
-    krylovdim 30, maxiter 8, tol 1e-30 (nothing converges: fixed work) —
-    with the projection kernels off and on.  Per route the launch counts of
-    one solve (warm-up), then a timed solve; then the dense rounds (two
-    Schur decompositions, two sorts) of one more solve.
+    krylovdim 30, maxiter :data:`BIEIG_ITERS`, tol 1e-30 (nothing converges:
+    fixed work) — with the projection kernels off and on.  Per route the
+    launch counts of one solve (warm-up), then a timed solve; then the dense
+    rounds (two Schur decompositions, two sorts) of one more solve.
 
-    Guards: ``numiter`` 8 and ``numops`` equal on both routes; ``numops``
-    even and between 2·(30 + 7·12) = 228 (``keep`` 18 at every restart)
-    and 2·(30 + 7·18) = 312 (the 2×2-block adjustment lowers ``keep`` to 12
-    at most); K3 = ``numops``, half of it on the adjoint's planes; no K1, no
+    Guards: ``numiter`` :data:`BIEIG_ITERS` and ``numops`` equal on both
+    routes; ``numops`` even and between 2·(30 + (BIEIG_ITERS − 1)·12)
+    (``keep`` 12 at every restart: the 2×2-block adjustment lowers ``keep``
+    from 18 to 12 at most) and 2·(30 + (BIEIG_ITERS − 1)·18) (``keep`` 18); K3 = ``numops``, half of it on the adjoint's planes; no K1, no
     K2; with the flag K5 and K6 as :func:`bieig_predicted_projections`
     counts; every ``|λ| <= 4 + ‖A v − λ v‖/‖v‖`` (‖A‖ <= 4 by Gershgorin;
     an unconverged two-sided Ritz value is no Rayleigh quotient and may lie
@@ -1722,7 +1742,7 @@ def bieig_full(torch, np, kt, _build, bd, bs, fl, pb, n=1 << 20, dev="cuda", smi
     op = kt.banded_from_coo(*tridiagonal_coo(np, n, -1.3, 2.0, -0.7, np.float32), n, device=dev)
     v0, w0 = (torch.from_numpy(np.random.default_rng(s).standard_normal((R, 128)).astype(np.float32))
               .to(dev) for s in (1, 10))
-    kw = dict(krylovdim=m, maxiter=8, tol=1e-30, verbosity=kt.SILENT)
+    kw = dict(krylovdim=m, maxiter=BIEIG_ITERS, tol=1e-30, verbosity=kt.SILENT)
 
     def solve():
         return kt.bieigsolve(op, v0, w0, 4, "LM", **kw)
@@ -1798,9 +1818,11 @@ def bieig_full(torch, np, kt, _build, bd, bs, fl, pb, n=1 << 20, dev="cuda", smi
             "outside_kernels_share": (ms - sum(kernel_ms.values())) / ms,
             "device": torch.cuda.get_device_name(0) if card else "cpu", "nvidia_smi": smi,
         })
-        require(iV.numiter == 8 and iW.numiter == 8, f"{metric}: 8 iterations ({iV.numiter})")
-        require(iV.numops % 2 == 0 and 228 <= iV.numops <= 312,
-                f"{metric}: numops even, in 2*(30 + 7*12)..2*(30 + 7*18) ({iV.numops})")
+        lo, hi = (2 * (m + (BIEIG_ITERS - 1) * keep) for keep in (12, 18))
+        require(iV.numiter == BIEIG_ITERS and iW.numiter == BIEIG_ITERS,
+                f"{metric}: {BIEIG_ITERS} iterations ({iV.numiter})")
+        require(iV.numops % 2 == 0 and lo <= iV.numops <= hi,
+                f"{metric}: numops even, in {lo}..{hi} ({iV.numops})")
         require(bool(torch.isfinite(lam.abs()).all()) and bool((lam.abs() <= bound_l + 1e-3).all()),
                 f"{metric}: |lambda| <= 4 + |A v - lambda v|/|v| (Gershgorin, widened by the pair's "
                 f"residual): {lam.abs().tolist()} vs {bound_l.tolist()}")
@@ -1828,7 +1850,7 @@ def bieig_full(torch, np, kt, _build, bd, bs, fl, pb, n=1 << 20, dev="cuda", smi
           "dense_ms_by_call": {k: sum(v) for k, v in rounds.items()},
           "phase_seconds": time.perf_counter() - t_phase})
     require(agree <= 1e-3, f"bieig: leading |lambda| of the two routes within 1e-3 ({agree})")
-    require(nr == 8, f"bieig: one dense round per iteration ({nr})")
+    require(nr == BIEIG_ITERS, f"bieig: one dense round per iteration ({nr})")
     return {"bieig": off_r["launches"], "bieig_proj": on_r["launches"], "operator": op}
 
 
@@ -2420,7 +2442,8 @@ def sharded_cases(torch, np, kt, dev="cpu", names=None):
     mesh), Lanczos on the sharded ELL operator and on ``sharded_laplacian_1d``,
     CG, LSMR, GKL ``svdsolve``, the real Arnoldi ``schursolve``, the fused
     Lanczos on ``shard_local_stencil`` (chain with cgs and cgs2, grid) and
-    its apply, batched GMRES on a ``(2, world/2)`` mesh, the sharded K5
+    its apply, batched GMRES on a ``(2, world/2)`` mesh (``linsolve_gmres_batched``
+    on this rank's batch row of right-hand sides), the sharded K5
     projection, a start vector that is zero on rank 0's block, the ELL
     operator's applies per ``numops``, the collective counters, and
     ``make_mesh``'s refusals.  Each
@@ -2602,12 +2625,10 @@ def sharded_cases(torch, np, kt, dev="cpu", names=None):
         B = P.shard_vector(torch.ones((4, n3), dtype=f64), mb, batched=True)
         alg = kt.GMRES(krylovdim=16, maxiter=50, tol=1e-9)
         sp = VectorSpace(psum_axis=axv)
-        xs, infos = [], []
-        for b in B:
-            x, info = kt.linsolve(op, b, torch.zeros_like(b), 1.0, 1.0, alg=alg, space=sp)
-            xs.append(gather(torch, axv, x))
-            infos.append(_infos(info))
-        X = gather(torch, mb.axis(P.BATCH_AXIS), torch.stack(xs))
+        X, info = kt.linsolve_gmres_batched(op, B, torch.zeros_like(B), 1.0, 1.0, alg, sp)
+        infos = [{k: int(getattr(info, k)[i]) for k in ("numops", "numiter", "converged")}
+                 for i in range(B.shape[0])]
+        X = gather(torch, mb.axis(P.BATCH_AXIS), gather(torch, axv, X, dim=1))
         return {"X": X.cpu().numpy(), "infos": infos}
 
     def project_k5():
@@ -2725,7 +2746,7 @@ def compare_sharded(np, card, cpu, phase="small_sharded", tol64=None):
                 continue
             if isinstance(w, np.ndarray):
                 tol = SMALL_SHARDED_TOL32 if w.dtype == np.float32 else tol64
-                err = float(np.max(np.abs(g - w)) / max(float(np.max(np.abs(w))), 1e-300))
+                err = float(np.max(np.abs(g - w))) / max(float(np.max(np.abs(w))), 1e-300)
                 require(g.shape == w.shape and err <= tol,
                         f"{phase} {name}.{key}: card within {tol} of CPU ({err})")
                 worst = max(worst, err)
@@ -2737,21 +2758,34 @@ def compare_sharded(np, card, cpu, phase="small_sharded", tol64=None):
     return records
 
 
-def small_sharded(torch, np, world=2):
-    """Phase ``small_sharded``: :func:`sharded_cases` on ``world`` ranks of
-    one gloo group with CUDA tensors and, at the same time, on ``world`` CPU
-    ranks of another; the card within 1e-12 of the CPU (float64), counts
-    equal, and the kernels of the fused and K5 scenarios launched on every
-    card rank."""
+def small_sharded_rank(torch, np, kt, dev="cpu", names=None, batched_names=None):
+    """Phase ``small_sharded`` on this rank, in one process: :func:`sharded_cases`
+    of ``names``, then :func:`sharded_batched_cases` of ``batched_names``
+    (no one-problem loops), each part's seconds beside it."""
     t0 = time.perf_counter()
-    on_card = start_ranks(world, "sharded_cases", dev="cuda", threads=2, timeout=600,
-                          names=SMALL_SHARDED)
-    on_cpu = start_ranks(world, "sharded_cases", dev="cpu", threads=2, timeout=600,
-                         names=SMALL_SHARDED)
+    sharded = sharded_cases(torch, np, kt, dev, names)
+    t1 = time.perf_counter()
+    batched = sharded_batched_cases(torch, np, kt, dev, batched_names, one_problem=False)
+    return {"sharded": sharded, "batched": batched,
+            "seconds": {"sharded": t1 - t0, "batched": time.perf_counter() - t1}}
+
+
+def small_sharded(torch, np, world=2):
+    """Phase ``small_sharded``: :func:`small_sharded_rank` on ``world`` ranks
+    of one gloo group with CUDA tensors and, at the same time, on ``world``
+    CPU ranks of another.  :func:`sharded_cases`: the card within 1e-12 of
+    the CPU (float64), counts equal, and the kernels of the fused and K5
+    scenarios launched on every card rank; then :func:`small_sharded_batched`."""
+    t0 = time.perf_counter()
+    kw = {"names": SMALL_SHARDED, "batched_names": SMALL_SHARDED_BATCHED}
+    on_card = start_ranks(world, "small_sharded_rank", dev="cuda", threads=2, timeout=600, **kw)
+    on_cpu = start_ranks(world, "small_sharded_rank", dev="cpu", threads=2, timeout=600, **kw)
     try:
-        card = same_on_every_rank(np, collect_ranks(on_card))
+        card_all = collect_ranks(on_card)
     finally:
-        cpu = same_on_every_rank(np, collect_ranks(on_cpu))
+        cpu_all = collect_ranks(on_cpu)
+    card = same_on_every_rank(np, [r["sharded"] for r in card_all])
+    cpu = same_on_every_rank(np, [r["sharded"] for r in cpu_all])
     records = compare_sharded(np, card, cpu)
     for name, kernel in (("fused_chain_cgs2", "fused_step"), ("fused_grid", "fused_step"),
                          ("fused_gmres", "fused_step"),
@@ -2766,7 +2800,52 @@ def small_sharded(torch, np, world=2):
             launches[key] = launches.get(key, 0) + count
     emit({"phase": "small_sharded", "ranks": world, "backend": "gloo", "scenarios": records,
           "tolerance": SMALL_SHARDED_TOL, "tolerance_float32": SMALL_SHARDED_TOL32,
-          "launches_per_rank": launches, "seconds": time.perf_counter() - t0})
+          "launches_per_rank": launches, "seconds": time.perf_counter() - t0,
+          "rank_seconds": {"card": card_all[0]["seconds"], "cpu": cpu_all[0]["seconds"]}})
+    batched = small_sharded_batched(
+        np, same_on_every_rank(np, [r["batched"] for r in card_all]),
+        same_on_every_rank(np, [r["batched"] for r in cpu_all]), world,
+        {"card": card_all[0]["seconds"]["batched"], "cpu": cpu_all[0]["seconds"]["batched"]})
+    for key, count in batched.items():
+        launches[key] = launches.get(key, 0) + count
+    return launches
+
+
+# the batched scenarios on the card: every one that launches a kernel
+# (batched K1 with halos, K2, K5, K6); the unfused batched GMRES runs in
+# sharded_cases' gmres_batched, and the rest in the CPU tests only
+SMALL_SHARDED_BATCHED = ("lanczos_fused", "schursolve_fused", "exponentiate_fused",
+                         "gmres_fused", "arnoldi_flag")
+
+
+def small_sharded_batched(np, card, cpu, world=2, seconds=None):
+    """The second half of phase ``small_sharded``: the batched drivers on a
+    sharded space (a ``batch 1 × vec 2`` mesh at two ranks), card ranks
+    against CPU ranks: within 1e-12 (float32 2e-4), counts equal, batched
+    K1 and K5 launched on every card rank and no one-problem K1, K2, K5 or
+    K6 (the one-problem sharded solves they are held against bit for bit
+    run in the CPU tests, ``tests/test_torch_sharded_batched*.py``).
+    Returns the launches per rank."""
+    for name in SMALL_SHARDED_BATCHED:
+        got = card[name]
+        kernels = {"arnoldi_flag": ("project_batched", "unproject_batched")}.get(
+            name, ("fused_step_batched",))
+        for kernel in kernels:
+            require(min(got["launches"].get(kernel, [0])) > 0,
+                    f"small_sharded_batched {name}: {kernel} launched on every card rank")
+        one = {"fused_step", "transform_partial", "project", "unproject"} & set(got["launches"])
+        require(not one, f"small_sharded_batched {name}: no one-problem launch ({one})")
+    records = compare_sharded(np, card, cpu, phase="small_sharded_batched")
+    launches = {}
+    for name in card:
+        for key, count in card[name].get("launches", {}).items():
+            launches[key] = launches.get(key, 0) + max(count)
+    emit({"phase": "small_sharded_batched", "ranks": world, "backend": "gloo",
+          "mesh": {"batch": max(world // 2, 1), "vec": 2}, "problems": SHARDED_BATCHED_P,
+          "scenarios": records, "collectives_per_solve": {
+              name: card[name]["collectives"] for name in SMALL_SHARDED_BATCHED},
+          "tolerance": SMALL_SHARDED_TOL, "tolerance_float32": SMALL_SHARDED_TOL32,
+          "launches_per_rank": launches, "rank_seconds": seconds})
     return launches
 
 
@@ -2954,6 +3033,308 @@ def front_end_cases(torch, np, kt, dev="cpu", names=None):
                  "geneigsolve": geneigsolve, "bieigsolve": bieigsolve,
                  "block_lanczos": block_lanczos, "minres_tree": minres_tree,
                  **{name: (lambda name=name: iterator(name)) for name in FRONT_END_ITERATORS}}
+    out = {}
+    for name, fn in scenarios.items():
+        if names is not None and name not in names:
+            continue
+        try:
+            out[name] = fn()
+        except Exception:  # noqa: BLE001 - the same on every rank; reported per scenario
+            out[name] = {"error": traceback.format_exc()}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# batched solves on a sharded space (a (batch, vec) mesh)
+# ---------------------------------------------------------------------------
+
+SHARDED_BATCHED_P = 4  # problems of every scenario, split over the batch axis
+SHARDED_BATCHED_N32 = 1 << 13  # float32 chains: (64, 128) vectors, 32 rows a rank
+SHARDED_BATCHED_ARNOLDI_N = 1 << 11  # the flag's K5 takes (8, 128) blocks a rank
+SHARDED_BATCHED_GRID = (32, 256)  # fused GMRES: 64 layout rows, whole grid rows a rank
+SHARDED_BATCHED_KERNELS = ("fused_step", "fused_step_batched", "transform_partial",
+                           "transform_partial_batched", "project", "project_batched",
+                           "unproject", "unproject_batched")
+
+
+def sharded_batched_problem(np, name):
+    """The global data of scenario ``name`` of :func:`sharded_batched_cases`
+    (the same on every rank and on the JAX side of a comparison): the
+    ``(P, ...)`` start vectors or right-hand sides ``X``, and for the ELL
+    scenarios the COO triplets ``coo`` of an ``n × n`` matrix."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    P = SHARDED_BATCHED_P
+    if name in ("lanczos_fused", "schursolve_fused", "exponentiate_fused"):
+        n = SHARDED_BATCHED_N32
+        return {"n": n, "X": rng.standard_normal((P, n // 128, 128)).astype(np.float32)}
+    if name == "gmres_fused":
+        gr, gc = SHARDED_BATCHED_GRID
+        return {"n": gr * gc,
+                "X": rng.standard_normal((P, gr * gc // 128, 128)).astype(np.float32)}
+    if name in ("gmres", "cg"):
+        n = 64 if name == "gmres" else 256
+        return {"n": n, "X": rng.standard_normal((P, n))}
+    if name == "arnoldi_flag":
+        n = SHARDED_BATCHED_ARNOLDI_N
+        i = np.arange(n)
+        d = 1.0 + 4.0 * np.linspace(0.0, 1.0, n) ** 8  # well separated largest values
+        coo = (np.concatenate([i, i[:-1]]), np.concatenate([i, i[:-1] + 1]),
+               np.concatenate([d, np.full(n - 1, 0.02)]).astype(np.float32))
+        return {"n": n, "coo": coo,
+                "X": rng.standard_normal((P, n // 128, 128)).astype(np.float32)}
+    n = FRONT_END_N
+    if name == "bicgstab":
+        coo = tridiagonal_coo(np, n, *FRONT_END_TRI, np.float64)
+    else:
+        coo = None  # the banded SPD matrix of parallel.banded_coo(n, 4, seed=11)
+    return {"n": n, "coo": coo, "X": rng.standard_normal((P, n))}
+
+
+def sharded_batched_cases(torch, np, kt, dev="cpu", names=None, one_problem=True):
+    """The batched drivers on a sharded space, on this rank (called on every
+    rank of a group, ``run_ranks``): a ``(world/2, 2)`` mesh of ``make_mesh(
+    batch=world // 2)``, :data:`SHARDED_BATCHED_P` problems split over its
+    ``batch`` axis (each rank its batch row's problems, its block of their
+    rows), every collective of a solve over the ``vec`` axis.  The
+    scenarios: batched GMRES on ``sharded_laplacian_1d`` (the problem of
+    ``__graft_entry__.py``'s multichip dry run, one right-hand side a
+    problem), Lanczos fused on ``shard_local_stencil(laplacian_1d)``
+    (float32) and unfused on the sharded ELL operator (float64), CG on
+    ``sharded_laplacian_1d``, MINRES on the sharded ELL SPD matrix,
+    BiCGStab on the sharded tridiagonal, ``schursolve`` fused on a
+    non-symmetric chain, ``eigsolve_arnoldi`` unfused with the projection
+    flag on (float32, the sharded bidiagonal), ``exponentiate`` fused and
+    GMRES fused on the sharded grid stencil, and the stack applies of the
+    sharded operators against their one-vector applies.  Each solve runs at
+    ``WARN`` and, with ``one_problem``, after it each of this rank's
+    problems through its one-problem sharded solve: whether the results are
+    the same bits, the WARN lines the same lines, the one-problem counts and
+    collectives.  Each returns
+    global values (gathered over both axes), per-problem counts, and per
+    batch row the kernel launches and the collectives of the batched solve,
+    or ``{"error": traceback}``; ``names`` picks some."""
+    import contextlib
+    import io
+    import traceback
+
+    import torch.distributed as dist
+
+    from krylovkit_tpu_torch import _build
+    from krylovkit_tpu_torch.factorizations import krylov as kf
+    from krylovkit_tpu_torch.ops import basis as bs
+    from krylovkit_tpu_torch.ops import collectives as pc
+    from krylovkit_tpu_torch.ops.vector import VectorSpace
+
+    Pm = kt.parallel
+    mesh = Pm.make_mesh(batch=max(dist.get_world_size() // 2, 1), device=dev)
+    axv, axb = mesh.axis(Pm.VECTOR_AXIS), mesh.axis(Pm.BATCH_AXIS)
+    space = VectorSpace(psum_axis=axv)
+    f64 = torch.float64
+
+    def sv(a):
+        return Pm.shard_vector(torch.as_tensor(np.asarray(a)), mesh, batched=True)
+
+    def full(t, vec_dim=None):
+        """This rank's ``(P_b, ...)`` results as the global ``(P, ...)``."""
+        if vec_dim is not None:
+            t = gather(torch, axv, t.contiguous(), dim=vec_dim)
+        return gather(torch, axb, t.contiguous(), dim=0).cpu().numpy()
+
+    def per_row(values):
+        """``values`` (ints) of this rank, one list per batch row."""
+        t = torch.tensor([values], dtype=torch.int64, device=mesh.device)
+        return gather(torch, axb, t).cpu().tolist()
+
+    def counts(info):
+        return {k: full(torch.as_tensor(getattr(info, k), device=mesh.device)).tolist()
+                for k in ("numops", "numiter", "converged")}
+
+    def quiet(fn):
+        """``fn()`` and the lines it printed."""
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out = fn()
+        return out, buf.getvalue().splitlines()
+
+    def run(batched, one, X, pick):
+        """The batched solve with the launches and the collectives set to 0
+        just before it and read just after (per batch row), then each
+        problem of ``X`` through ``one``; ``pick`` maps a solve's result to
+        ``(tensors, info)``, the batched one's tensors ``(P_b, ...)``."""
+        _build.reset_launches()
+        pc.reset_stats()
+        res, lines = quiet(batched)
+        rows = per_row([_build.launches[k] for k in SHARDED_BATCHED_KERNELS]
+                       + [pc.stats["collectives"]])
+        launches = {k: [r[i] for r in rows] for i, k in enumerate(SHARDED_BATCHED_KERNELS)}
+        tensors, info = pick(res)
+        out = {**counts(info), "launches": {k: v for k, v in launches.items() if any(v)},
+               "collectives": [r[-1] for r in rows]}
+        if not one_problem:
+            return res, out
+        pc.reset_stats()
+        ones, one_lines = quiet(lambda: [pick(one(x)) for x in X])
+        one_coll = pc.stats["collectives"]
+        same = all(torch.equal(t[p], o[0][i]) for p, o in enumerate(ones)
+                   for i, t in enumerate(tensors))
+        diff = [max(float((t[p] - o[0][i]).abs().max()) for i, t in enumerate(tensors))
+                for p, o in enumerate(ones)]
+        one_rows = per_row([int(same), one_coll] + [
+            int(getattr(o[1], k)) for o in ones for k in ("numops", "numiter", "converged")])
+        flat = [c for row in one_rows for c in row[2:]]
+        return res, {
+            **out,
+            "one_problem_collectives": [r[1] for r in one_rows],
+            "one_problem_counts": [flat[i:i + 3] for i in range(0, len(flat), 3)],
+            "one_problem_bits": all(r[0] for r in one_rows),
+            "one_problem_max_abs_diff": full(torch.tensor(diff, dtype=f64,
+                                                          device=mesh.device)).tolist(),
+            "warn_lines": [r[0] for r in per_row([len(lines)])],
+            "warn_lines_equal": lines == one_lines,
+        }
+
+    def ell(prob, tile=None):
+        n = prob["n"]
+        coo = prob["coo"] or Pm.banded_coo(n, halfband=4, seed=11, spd=True)
+        return Pm.sharded_ell_from_coo(*coo, (n, n), mesh, tile=tile)
+
+    def fused_gate(op, X, m):
+        return bool(kf.fused_available_batched(op, list(X), space, kmax=m + 1))
+
+    def linear(name, op, batched, one, alg, a0, fused=False):
+        B = sv(sharded_batched_problem(np, name)["X"])
+        Z = torch.zeros_like(B)
+        (X, _), rec = run(lambda: batched(op, B, Z, a0, 1.0, alg, space),
+                          lambda b: one(op, b, torch.zeros_like(b), a0, 1.0, alg, space), B,
+                          lambda r: ((r[0],), r[1]))
+        out = {"X": full(X, 1), **rec}
+        if fused:
+            out["fused"] = fused_gate(op, B, alg.krylovdim)
+        return out
+
+    def gmres():
+        from krylovkit_tpu_torch.solvers.gmres import linsolve_gmres
+
+        op = Pm.sharded_laplacian_1d(sharded_batched_problem(np, "gmres")["n"], mesh)
+        return linear("gmres", op, kt.linsolve_gmres_batched, linsolve_gmres,
+                      kt.GMRES(krylovdim=16, maxiter=50, tol=1e-9), 1.0)
+
+    def gmres_fused():
+        from krylovkit_tpu_torch.solvers.gmres import linsolve_gmres
+
+        op = Pm.shard_local_stencil(kt.poisson_2d(*SHARDED_BATCHED_GRID, device=dev), axv)
+        return linear("gmres_fused", op, kt.linsolve_gmres_batched, linsolve_gmres,
+                      kt.GMRES(krylovdim=16, maxiter=3, tol=1e-6), 0.5, fused=True)
+
+    def linear_krylov(name):
+        from krylovkit_tpu_torch.solvers import bicgstab, cg, minres
+
+        prob = sharded_batched_problem(np, name)
+        if name == "cg":
+            return linear(name, Pm.sharded_laplacian_1d(prob["n"], mesh),
+                          kt.linsolve_cg_batched, cg.linsolve_cg,
+                          kt.CG(tol=1e-10, maxiter=3000), 0.5)
+        if name == "minres":
+            return linear(name, ell(prob), kt.linsolve_minres_batched, minres.linsolve_minres,
+                          kt.MINRES(tol=1e-10, maxiter=3000), 0.0)
+        return linear(name, ell(prob), kt.linsolve_bicgstab_batched,
+                      bicgstab.linsolve_bicgstab, kt.BiCGStab(tol=1e-10, maxiter=3000), 1.0)
+
+    def lanczos(name):
+        prob = sharded_batched_problem(np, name)
+        X = sv(prob["X"])
+        if name == "lanczos_ell":
+            op = ell(prob)
+            alg = kt.Lanczos(krylovdim=20, maxiter=50, tol=1e-10)
+        else:
+            op = Pm.shard_local_stencil(kt.laplacian_1d(prob["n"], device=dev), axv)
+            alg = kt.Lanczos(krylovdim=16, maxiter=3, tol=1e-6)
+        (vals, vecs, _), rec = run(
+            lambda: kt.eigsolve_lanczos_batched(op, X, 2, "LM", alg, space),
+            lambda x: kt.eigsolve_lanczos(op, x, 2, "LM", alg, space=space), X,
+            lambda r: ((r[0], r[1]), r[2]))
+        out = {"vals": full(vals), **rec}
+        if name == "lanczos_fused":
+            # each problem's first eigenvector (compared by |<a, b>|)
+            out.update(vecs=full(vecs[:, 0], 1), fused=fused_gate(op, X, alg.krylovdim))
+        return out
+
+    def arnoldi(name):
+        from krylovkit_tpu_torch.solvers import arnoldi as arn
+
+        prob = sharded_batched_problem(np, name)
+        X = sv(prob["X"])
+        if name == "schursolve_fused":
+            op = Pm.shard_local_stencil(kt.StencilOperator((-1, 0, 1), FRONT_END_TRI), axv)
+            alg = kt.Arnoldi(krylovdim=16, maxiter=3, tol=1e-6)
+            (_, _, (re, im), _), rec = run(
+                lambda: kt.schursolve_batched(op, X, 2, "LM", alg, space),
+                lambda x: arn.schursolve(op, x, 2, "LM", alg, space), X,
+                lambda r: ((r[2][0], r[2][1]), r[3]))
+            # (re, im) of each value together: an unconverged pair's imaginary
+            # part is compared on the scale of the values, not its own
+            return {"vals": full(torch.stack([re, im], dim=1)),
+                    "fused": fused_gate(op, X, alg.krylovdim), **rec}
+        op = ell(prob, tile=128)
+        alg = kt.Arnoldi(krylovdim=16, maxiter=20, tol=1e-5)
+        old = bs.use_pallas_projections
+        bs.use_pallas_projections = True
+        try:
+            (vals, _, _), rec = run(
+                lambda: kt.eigsolve_arnoldi_batched(op, X, 2, "LM", alg, space),
+                lambda x: arn.eigsolve_arnoldi(op, x, 2, "LM", alg, space), X,
+                lambda r: ((r[0],), r[2]))
+        finally:
+            bs.use_pallas_projections = old
+        return {"vals": full(torch.stack([vals.real, vals.imag], dim=1)), **rec}
+
+    def exponentiate_fused():
+        from krylovkit_tpu_torch.solvers.expintegrator import _expintegrator_core
+
+        X = sv(sharded_batched_problem(np, "exponentiate_fused")["X"])
+        op = Pm.shard_local_stencil(kt.StencilOperator(*FRONT_END_NEG_LAP), axv)
+        alg = kt.Lanczos(krylovdim=20, tol=1e-5)
+        (y, _), rec = run(lambda: kt.exponentiate_batched(op, 0.1, X, alg, space),
+                          lambda x: _expintegrator_core(op, 0.1, (x,), alg, space), X,
+                          lambda r: ((r[0],), r[1]))
+        return {"y": full(y, 1), "fused": fused_gate(op, X, alg.krylovdim), **rec}
+
+    def stack_apply():
+        # each sharded operator's stack apply against its one-vector apply,
+        # row by row and bit for bit, and its collectives: one for all rows
+        prob = sharded_batched_problem(np, "lanczos_ell")
+        chain = sharded_batched_problem(np, "lanczos_fused")
+        grid = sharded_batched_problem(np, "gmres_fused")
+        cases = {
+            "laplacian": (Pm.sharded_laplacian_1d(prob["n"], mesh), sv(prob["X"])),
+            "ell": (ell(prob), sv(prob["X"])),
+            "chain": (Pm.shard_local_stencil(kt.StencilOperator((-200, 0, 200),
+                                                                (0.3, 1.0, -0.4)), axv),
+                      sv(chain["X"])),
+            "grid": (Pm.shard_local_stencil(kt.poisson_2d(*SHARDED_BATCHED_GRID, device=dev),
+                                            axv), sv(grid["X"])),
+        }
+        out = {}
+        for key, (op, X) in cases.items():
+            for side in ("normal", "adjoint"):
+                pc.reset_stats()
+                Y = getattr(op, side + "_stack")(X)
+                stack_coll = pc.stats["collectives"]
+                rows = torch.stack([getattr(op, side)(x) for x in X])
+                out[f"{key}_{side}_equal"] = bool(torch.equal(Y, rows))
+                out[f"{key}_{side}_collectives"] = stack_coll
+                out[f"{key}_{side}"] = full(Y, 1)
+        return out
+
+    scenarios = {
+        "gmres": gmres, "lanczos_ell": lambda: lanczos("lanczos_ell"),
+        "cg": lambda: linear_krylov("cg"), "minres": lambda: linear_krylov("minres"),
+        "bicgstab": lambda: linear_krylov("bicgstab"),
+        "arnoldi_flag": lambda: arnoldi("arnoldi_flag"), "stack_apply": stack_apply,
+        "lanczos_fused": lambda: lanczos("lanczos_fused"),
+        "schursolve_fused": lambda: arnoldi("schursolve_fused"),
+        "exponentiate_fused": exponentiate_fused, "gmres_fused": gmres_fused,
+    }
     out = {}
     for name, fn in scenarios.items():
         if names is not None and name not in names:
@@ -3312,12 +3693,14 @@ def rank_solve(torch, ax, solve):
                  "collective_ms_by_rank": [r[1] for r in per_rank]}
 
 
-def sharded_fused_rank(torch, np, kt, dev="cuda", n1=1 << 21, nx=1024):
+def sharded_fused_rank(torch, np, kt, dev="cuda", n1=1 << 21, nx=1024, batched_p=4):
     """Phase ``sharded_fused`` on this rank: config 1 (the main path's
-    Lanczos eigsolve) on ``shard_local_stencil(laplacian_1d(n1))`` and
-    config 2's ``gmres30_poisson_2d`` on the sharded grid stencil, float32
-    ``(R/D, 128)`` blocks of ``VectorSpace(psum_axis=...)``: K1 per rank with
-    the neighbours' edge rows as external halos."""
+    Lanczos eigsolve) on ``shard_local_stencil(laplacian_1d(n1))``, the same
+    for ``batched_p`` starts through ``eigsolve_lanczos_batched`` (batched K1
+    with every problem's halos), and config 2's ``gmres30_poisson_2d`` on the
+    sharded grid stencil, float32 ``(R/D, 128)`` blocks of
+    ``VectorSpace(psum_axis=...)``: K1 per rank with the neighbours' edge rows
+    as external halos."""
     from krylovkit_tpu_torch.ops.vector import VectorSpace
 
     P = kt.parallel
@@ -3333,6 +3716,20 @@ def sharded_fused_rank(torch, np, kt, dev="cuda", n1=1 << 21, nx=1024):
     norms = torch.sqrt(space.inner(vecs[0], vecs[0]))
     out["config1"] = {"vals": vals.cpu().numpy(), "vec0_norm": float(norms), **_infos(info),
                       "comm_per_step": "1 all-reduce of (raw | 2 x 2 x h x 128) floats", **rec}
+    # config 1 for phase 30's first P starts in one host loop: a (P, R/D, 128)
+    # stack of this rank's blocks, one batched K1 launch with every problem's
+    # halos and one all-reduce a lock-step
+    X = P.shard_vector(batched_starts(torch, np, n1 // 128, batched_p, "cpu"), mesh,
+                       batched=True)
+    (bvals, bvecs, binfo), brec = rank_solve(
+        torch, ax, lambda: kt.eigsolve_lanczos_batched(op, X, 4, "LM", alg, space))
+    out["config1_batched"] = {
+        "vals": bvals.cpu().numpy(), "numops": binfo.numops.tolist(),
+        "numiter": binfo.numiter.tolist(),
+        "vec0_norms": [float(space.norm(v)) for v in bvecs[:, 0]],
+        "comm_per_step": f"1 all-reduce of (raw | 2 x 2 x h x 128) floats for each of the "
+                         f"{batched_p} problems", **brec}
+    del X, bvecs
     grid = P.shard_local_stencil(kt.poisson_2d(nx, nx, device=dev), ax)
     b = P.shard_vector(torch.ones((nx * nx // 128, 128), dtype=torch.float32), mesh)
     alg2 = kt.GMRES(krylovdim=30, tol=1e-4, maxiter=14, verbosity=kt.SILENT)
@@ -3540,6 +3937,7 @@ def distribution_phases(torch, np, kt, _build, fl, pb, smi, config1_vals, config
             f"sharded config 1: K1 128 and K2 11 per rank ({rec['launches_per_rank']})")
     require(err <= 1e-4, f"sharded config 1: values within 1e-4 of phase main's ({err})")
     require(abs(rec["vec0_norm"] - 1) < 1e-3, "sharded config 1: unit eigenvector")
+    batched1 = sharded_batched_config1(torch, np, kt, fl, sf, rec, config1_vals, card, smi)
     grid, b2, x2 = config2
     res1 = float(torch.linalg.vector_norm(b2 - grid.normal(x2)))
     rec2 = _agree_on_counts(sf, "gmres30_poisson_2d")
@@ -3553,7 +3951,75 @@ def distribution_phases(torch, np, kt, _build, fl, pb, smi, config1_vals, config
     require(res_err <= 1e-3, f"sharded gmres30_poisson_2d: true residual within 1e-3 ({res_err})")
     emit({"phase": "sharded_fused", "seconds": time.perf_counter() - t0})
     return {"small": small, "config5": c5_launches,
-            "fused_config1": rec["launches_per_rank"], "fused_gmres": rec2["launches_per_rank"]}
+            "fused_config1": rec["launches_per_rank"], "fused_gmres": rec2["launches_per_rank"],
+            "batched_config1": batched1}
+
+
+def sharded_batched_config1(torch, np, kt, fl, sf, rec1, config1_vals, card, smi, P=4):
+    """Phase 25's batched part: config 1 for ``P`` starts (phase 30's first)
+    through ``eigsolve_lanczos_batched`` on two gloo ranks of ``vec 2``,
+    against the same batched solve on one rank of this process: every
+    problem 138 / 10 and within 1e-4, problem 0 within 1e-4 of phase main;
+    exactly 128 ``fused_step_batched`` launches with halos and 11
+    ``transform_partial_batched`` per rank, no one-problem K1; the
+    all-reduces of the solve beside ``P`` times those of the one-problem
+    sharded solve (``rec1``, problem 0's start: every problem's schedule is
+    138 / 10).  Then the batched K1 with halos at the rank's width against
+    its plain version and one-problem launches, ms and bound.  Returns the
+    kernel line's entries."""
+    t0 = time.perf_counter()
+    rec = _agree_on_counts(sf, "config1_batched")
+    n = 1 << 21
+    R = n // 128
+    op = kt.laplacian_1d(n)
+    X = batched_starts(torch, np, R, P, "cuda")
+    alg = kt.Lanczos(krylovdim=KRYLOVDIM, maxiter=10, tol=1e-30, verbosity=kt.SILENT)
+    vals1, _, info1 = kt.eigsolve_lanczos_batched(op, X, 4, "LM", alg)
+    del X
+    vals1 = vals1.cpu().numpy()
+    err = max(_rel(np, rec["vals"][p], vals1[p]) for p in range(P))
+    err_main = _rel(np, rec["vals"][0], config1_vals.numpy())
+    # the metric counts every problem's applies: numops summed over the batch
+    emit(_solve_line("sharded_config1_eigsolve_batched", dict(rec, numops=sum(rec["numops"])),
+                     3 * n, {
+        "ranks": 2, "P": P, "vals": rec["vals"].tolist(), "vals_rel_err_vs_one_rank": err,
+        "vals_rel_err_vs_main_problem0": err_main, "tolerance": 1e-4,
+        "numops_per_problem": rec["numops"], "numiter_per_problem": rec["numiter"],
+        "one_rank_numops": info1.numops.tolist(),
+        "collectives_one_problem_loop": P * rec1["collectives_per_solve"],
+        "collectives_one_problem_loop_note": f"{P} x the one-problem sharded solve's "
+                                             "(problem 0's start; every problem 138 / 10)",
+        "device": card, "nvidia_smi": smi}))
+    require(rec["numops"] == [138] * P and rec["numiter"] == [10] * P,
+            f"sharded batched config 1: every problem 138 / 10 ({rec['numops']}, "
+            f"{rec['numiter']})")
+    require(rec["launches_per_rank"] == {"fused_step_batched": 128,
+                                         "transform_partial_batched": 11},
+            f"sharded batched config 1: 128 batched K1 with halos and 11 batched K2 per rank, "
+            f"no one-problem K1 ({rec['launches_per_rank']})")
+    require(err <= 1e-4, f"sharded batched config 1: values within 1e-4 of one rank's ({err})")
+    require(err_main <= 1e-4, f"sharded batched config 1: problem 0 within 1e-4 of phase "
+                              f"main's ({err_main})")
+    require(all(abs(v - 1) < 1e-3 for v in rec["vec0_norms"]),
+            "sharded batched config 1: unit eigenvectors")
+    # the batched K1 with every problem's halos at a rank's width (R/2 rows)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(25)
+    chain = kt.laplacian_1d(n)
+    k1 = [check_batched_step(torch, fl, chain, P, R // 2, KRYLOVDIM + 1, B, True, gen, ext=True)
+          for B in (4, 16, 29)]
+    emit({"phase": "sharded_batched_kernel", "fused_step_batched_external_halos": k1,
+          "nvidia_smi": smi, "seconds": time.perf_counter() - t0})
+    return {"launches_sharded_batched_config1_per_rank": rec["launches_per_rank"].get(
+                "fused_step_batched", 0),
+            "ms_batched_external_halos": mean([c["ms"] for c in k1]),
+            "bound_ms_batched_external_halos": mean([c["bound_ms"] for c in k1]),
+            "plain_ms_batched_external_halos": mean([c["plain_ms"] for c in k1]),
+            "one_problem_launches_ms_batched_external_halos": mean(
+                [c["one_problem_launches_ms"] for c in k1]),
+            "max_abs_err_batched_external_halos": max(c["max_abs_err"] for c in k1),
+            "shapes_batched_external_halos": f"P = {P}, (31, {R // 2}, 128) f32 a problem, "
+                                             "B = 4, 16, 29, with drift, h = 1"}
 
 
 def slice9(sharded, name):
@@ -3579,6 +4045,7 @@ FE_MINRES_ITERS = 10
 FE_BICGSTAB_ITERS = 5
 FE_ITERATOR_STEPS = 30
 FE_GENEIG_ITERS = 4  # fixed work (tol 1e-30), as Block Lanczos and bieig
+FE_BLOCK_ITERS = 4  # cut from 8 for the script's time budget
 
 
 def small_front_ends(torch, np, world=2):
@@ -3963,8 +4430,8 @@ def front_ends_solves(kt, A, B, tri, chain, vecs, space, host):
         return {"vals": vals.cpu().numpy(), **_infos(info)}
 
     def block():
-        vals, _, info = kt.eigsolve(A, kt.Block(vecs["block"]), 4, "LM", krylovdim=30, maxiter=8,
-                                    tol=1e-30, space=space, **quiet)
+        vals, _, info = kt.eigsolve(A, kt.Block(vecs["block"]), 4, "LM", krylovdim=30,
+                                    maxiter=FE_BLOCK_ITERS, tol=1e-30, space=space, **quiet)
         return eig(vals, info)
 
     def linear(alg):
@@ -3990,7 +4457,7 @@ def front_ends_solves(kt, A, B, tri, chain, vecs, space, host):
 
     def bieig():
         vals, _, (info, _) = kt.bieigsolve(tri, vecs["v0"], vecs["w0"], 4, "LM", krylovdim=30,
-                                           maxiter=8, tol=1e-30, space=space, **quiet)
+                                           maxiter=BIEIG_ITERS, tol=1e-30, space=space, **quiet)
         return eig(vals, info)
 
     def expo():
@@ -4389,7 +4856,7 @@ def batched_starts(torch, np, R, P, dev, seed=100):
 
 
 def check_batched_step(torch, fl, op, P, R, kmax, B, with_drift, gen, timed=True,
-                       adjoint=False, grouped=False):
+                       adjoint=False, grouped=False, ext=False):
     """Batched K1 against its plain version (the one-problem tolerance of
     :func:`check_fused_step`) and, where every problem has the same ``B =
     kp1`` (``B`` an int), against ``P`` one-problem launches bit for bit;
@@ -4398,13 +4865,21 @@ def check_batched_step(torch, fl, op, P, R, kmax, B, with_drift, gen, timed=True
     (``active`` its problems, one ``ynext`` buffer), and holds every problem
     against a one-problem launch bit for bit too.  ``adjoint``: the
     operator's adjoint spec (the codomain half-steps of the fused GKL).
-    Timed: ms per batched launch, the ``P`` one-problem launches' ms, the
-    plain version's and the bound (``P`` times the one-problem bytes and
-    operations)."""
+    ``ext`` gives every problem non-zero external halos (``Vext (P, kmax,
+    2, h, 128)``, ``yext (P, 2, h, 128)``: a rank's blocks of split
+    vectors), held against the one-problem launch with the problem's
+    halos.  Timed: ms per batched launch, the ``P`` one-problem launches'
+    ms, the plain version's and the bound (``P`` times the one-problem
+    bytes and operations, the halo rows included)."""
     spec = fl.adjoint_spec(op) if adjoint else fl.spec_for(op)
     V = torch.randn((P, kmax, R, 128), generator=gen, device="cuda")
     y = torch.randn((P, R, 128), generator=gen, device="cuda")
     g = torch.randn((P, kmax + 1), generator=gen, device="cuda")
+    halos, one_halos = {}, lambda p: {}
+    if ext:
+        halos = {"Vext": torch.randn((P, kmax, 2, spec.h, 128), generator=gen, device="cuda"),
+                 "yext": torch.randn((P, 2, spec.h, 128), generator=gen, device="cuda")}
+        one_halos = lambda p: {k: v[p] for k, v in halos.items()}  # noqa: E731
     Bs = [B] * P if isinstance(B, int) else list(B)
     Vb = V.clone()
     if grouped:
@@ -4412,13 +4887,13 @@ def check_batched_step(torch, fl, op, P, R, kmax, B, with_drift, gen, timed=True
         for b in sorted(set(Bs)):
             group = [p for p in range(P) if Bs[p] == b]
             _, raw = fl.fused_step_batched(Vb, y, g, Bs, Bs, spec, with_drift, active=group,
-                                           ynext=yb)
+                                           ynext=yb, **halos)
             raws.update({p: raw[p] for p in group})
         rb = [raws[p] for p in range(P)]
     else:
-        yb, rb = fl.fused_step_batched(Vb, y, g, Bs, Bs, spec, with_drift)
+        yb, rb = fl.fused_step_batched(Vb, y, g, Bs, Bs, spec, with_drift, **halos)
     Vr = V.clone()
-    yr, rr = fl.fused_step_batched_reference(Vr, y, g, Bs, Bs, spec, with_drift)
+    yr, rr = fl.fused_step_batched_reference(Vr, y, g, Bs, Bs, spec, with_drift, **halos)
     torch.cuda.synchronize()
     to_one = isinstance(B, int) or grouped
     err, rel_raw, same = 0.0, 0.0, True
@@ -4439,29 +4914,31 @@ def check_batched_step(torch, fl, op, P, R, kmax, B, with_drift, gen, timed=True
         err, rel_raw = max(err, e), max(rel_raw, rel)
         if to_one:
             V1 = V[p].clone()
-            y1, r1 = fl.fused_step(V1, y[p], g[p], k, k, spec, with_drift)
+            y1, r1 = fl.fused_step(V1, y[p], g[p], k, k, spec, with_drift, **one_halos(p))
             same = same and torch.equal(V1[k], Vb[p, k]) and torch.equal(y1, yb[p]) and \
                 torch.equal(r1, rb[p][:r1.numel()])
     require(same, f"fused_step_batched B={B}: each problem bit-identical to a one-problem launch")
     n = R * 128
     case = {"op": "grid" if spec.gc else "chain", "adjoint": adjoint, "P": P, "n": n,
-            "kmax": kmax, "B": B, "with_drift": with_drift, "max_abs_err": err,
+            "kmax": kmax, "B": B, "with_drift": with_drift, "external_halos": ext,
+            "max_abs_err": err,
             "raw_rel_err": rel_raw,
             "tolerance": "2e-4*scale (w', y'); 1e-6*norm products (raw)",
             "launches": len(set(Bs)) if grouped else 1,
             "bit_identical_to_one_problem_launches": same if to_one else None}
     if timed:
-        t_bound, by = bound(sum((k + 3) * n * 4 for k in Bs),
+        halo_bytes = (lambda k: (k + 1) * 2 * spec.h * 128 * 4) if ext else (lambda k: 0)
+        t_bound, by = bound(sum((k + 3) * n * 4 + halo_bytes(k) for k in Bs),
                             sum(k1_flops(n, k, len(spec.taps), with_drift) for k in Bs))
         one = [device_ms(torch, lambda p=p: fl.fused_step(V[p], y[p], g[p], Bs[p], Bs[p], spec,
-                                                           with_drift), reps=5)
+                                                           with_drift, **one_halos(p)), reps=5)
                for p in ([0] if isinstance(B, int) else range(P))]
         case.update({
             "ms": device_ms(torch, lambda: fl.fused_step_batched(Vb, y, g, Bs, Bs, spec,
-                                                                 with_drift), reps=5),
+                                                                 with_drift, **halos), reps=5),
             "one_problem_launches_ms": one[0] * P if isinstance(B, int) else sum(one),
             "plain_ms": device_ms(torch, lambda: fl.fused_step_batched_reference(
-                Vr, y, g, Bs, Bs, spec, with_drift), reps=1, batches=1),
+                Vr, y, g, Bs, Bs, spec, with_drift, **halos), reps=1, batches=1),
             "bound_ms": t_bound, "bound_by": by,
         })
     return case
@@ -7091,6 +7568,9 @@ def main():
             "launches_sharded_config1_per_rank": sharded["fused_config1"].get("fused_step", 0),
             "launches_sharded_gmres30_poisson_2d_per_rank": sharded["fused_gmres"].get("fused_step", 0),
             "launches_small_sharded_per_rank": sharded["small"].get("fused_step", 0),
+            "launches_small_sharded_batched_per_rank":
+                sharded["small"].get("fused_step_batched", 0),
+            **sharded["batched_config1"],
             **slice10("fused_step"),
             **slice11("fused_step"),
             **batched["kernels"]["fused_step"],
@@ -7227,6 +7707,8 @@ def main():
             **batched_svd["kernels"][name],
             **batched_gb["kernels"][name],
             **batched_bl["kernels"][name],
+            "launches_small_sharded_batched_per_rank":
+                sharded["small"].get(f"{name}_batched", 0),
             "bound_by": "bytes",
             "shapes": "mean per launch over P = 8 bases (31, 8192, 128) f32 at k = 18, 30 and "
                       "mixed k; launches: the config-4 banded eigsolve_arnoldi_batched, P = 4, "

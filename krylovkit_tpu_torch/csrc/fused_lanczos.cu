@@ -75,6 +75,10 @@
 // a problem with a smaller B masks its rows as the loops already do.  Where
 // every problem has the plan's B, a problem's results are those of a
 // one-problem launch, bit for bit.  Bound: P times the one-problem bytes.
+// On a vector split over ranks each problem passes its own external halos,
+// Vext (P, kmax, 2, h, 128) and yext (P, 2, h, 128): block (x, i) hands
+// problem p[i]'s slices to the one-problem body, which stages its rows
+// beyond the shard from them as a one-problem launch with halos does.
 
 #include <cuda_runtime.h>
 
@@ -452,14 +456,18 @@ __global__ void __launch_bounds__(kThreads, KACC <= 32 ? 2 : 1)
 fused_step_batched_kernel(float* V, const float* __restrict__ y,
                           float* __restrict__ ynext, const float* __restrict__ g,
                           float* partials, float* __restrict__ raw, int* counters,
+                          const float* __restrict__ Vext, const float* __restrict__ yext,
                           int kmax, int R, int h, int gc, int mrow, int rawPad,
                           Plan plan, Taps taps, Problems probs) {
   const int i = blockIdx.y, p = probs.p[i];
   const long long N = (long long)R * kLanes;
+  const long long extRow = 2LL * h * kLanes;  // floats of one basis row's halos
   fused_step_body<KACC, DRIFT, LPT>(
       V + (long long)p * kmax * N, y + (long long)p * N, ynext + (long long)p * N,
       g + (long long)p * (kmax + 1), partials + (long long)i * gridDim.x * rawPad,
-      raw + (long long)p * rawPad, counters + i, nullptr, nullptr, kmax, R,
+      raw + (long long)p * rawPad, counters + i,
+      Vext ? Vext + (long long)p * kmax * extRow : nullptr,
+      yext ? yext + (long long)p * extRow : nullptr, kmax, R,
       probs.B[i], probs.kp1[i], h, gc, mrow, plan, taps, rawPad);
 }
 
@@ -495,15 +503,16 @@ cudaError_t launch_step(int nblocks, size_t smem, cudaStream_t s, float* V,
 template <int KACC, bool DRIFT, int LPT>
 cudaError_t launch_batched(int nblocks, int nprob, size_t smem, cudaStream_t s,
                            float* V, const float* y, float* ynext, const float* g,
-                           float* partials, float* raw, int* counters, int kmax,
+                           float* partials, float* raw, int* counters,
+                           const float* Vext, const float* yext, int kmax,
                            int R, int h, int gc, int mrow, int rawPad,
                            const Plan& plan, const Taps& taps, const Problems& probs) {
   static bool raised[64] = {};
   cudaError_t err = allow_smem(fused_step_batched_kernel<KACC, DRIFT, LPT>, raised);
   if (err != cudaSuccess) return err;
   fused_step_batched_kernel<KACC, DRIFT, LPT><<<dim3(nblocks, nprob), kThreads, smem, s>>>(
-      V, y, ynext, g, partials, raw, counters, kmax, R, h, gc, mrow, rawPad, plan,
-      taps, probs);
+      V, y, ynext, g, partials, raw, counters, Vext, yext, kmax, R, h, gc, mrow, rawPad,
+      plan, taps, probs);
   return cudaGetLastError();
 }
 
@@ -592,10 +601,14 @@ int kk_fused_step(float* V, const float* y, float* ynext, const float* g,
 // kMaxProblems problems, HOST arrays p (which problem), B and kp1, each with
 // kp1 >= B and the slots of B within rawPad <= 128; partials (nprob, nblocks,
 // rawPad) scratch; counters nprob int32, 0 before the launch and left 0.
-// The plan is the host's for Bmax >= every B (it sets KACC and the shared
-// memory).  Rows and entries of the problems not named are not touched.
+// Vext (P, kmax, 2, h, 128) and yext (P, 2, h, 128): each problem's external
+// halos as kk_fused_step takes them, 16-byte aligned; both null, or both
+// given.  The plan is the host's for Bmax >= every B (it sets KACC and the
+// shared memory).  Rows and entries of the problems not named are not
+// touched.
 int kk_fused_step_batched(float* V, const float* y, float* ynext, const float* g,
-                          float* partials, float* raw, int* counters, int kmax,
+                          float* partials, float* raw, int* counters,
+                          const float* Vext, const float* yext, int kmax,
                           int R, int nprob, const int* p, const int* B,
                           const int* kp1, int Bmax, int rawPad, int with_drift,
                           int h, int gc, int mrow, int ntaps, const float* coef,
@@ -603,7 +616,8 @@ int kk_fused_step_batched(float* V, const float* y, float* ynext, const float* g
                           int NR, int reread, int run, int nblocks,
                           int smem_bytes, void* stream) {
   if (nprob < 1 || nprob > kMaxProblems || h < 1 || h > kMaxHalo || Bmax < 0 ||
-      rawPad > kMaxSlots || R < 1 || (gc && mrow < 1))
+      rawPad > kMaxSlots || R < 1 || (gc && mrow < 1) ||
+      ((Vext == nullptr) != (yext == nullptr)))
     return (int)cudaErrorInvalidValue;
   Problems probs;
   for (int i = 0; i < nprob; ++i) {
@@ -625,8 +639,8 @@ int kk_fused_step_batched(float* V, const float* y, float* ynext, const float* g
 #define KK_BATCHED(KACC, DRIFT, LPT)                                             \
   return (int)launch_batched<KACC, DRIFT, LPT>(nblocks, nprob, (size_t)smem_bytes, \
                                                s, V, y, ynext, g, partials, raw,   \
-                                               counters, kmax, R, h, gc, mrow,     \
-                                               rawPad, plan, taps, probs)
+                                               counters, Vext, yext, kmax, R, h,   \
+                                               gc, mrow, rawPad, plan, taps, probs)
   if (with_drift) {
     if (Bmax <= 32) {
       if (lpt == 4) KK_BATCHED(32, true, 4);

@@ -16,7 +16,9 @@ Gram-Schmidt sweep is deferred and applied in scalar space one step later.
 On a sharded space (``psum_axis``) each rank runs the kernel on its block of
 rows with the neighbours' edge rows as external halos, and one all-reduce
 per step finishes the kernel's reductions and brings the new row's and
-``y'``'s edge rows (the JAX package's ``psum`` and ``_edge_fix``).
+``y'``'s edge rows (the JAX package's ``psum`` and ``_edge_fix``); the
+batched stepper does the same for ``P`` problems, each with its own halos,
+in one batched launch and one all-reduce a step.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from ..info import EACHITERATION, log_if, warn_if
 from ..ops import basis as bs
 from ..ops import fused_lanczos as fl
 from ..ops import orthonormal as on
-from ..ops.vector import STANDARD, VectorSpace, astype, device_of, psum, tree_map
+from ..ops.vector import STANDARD, VectorSpace, astype, device_of, inner_batched, psum, tree_map
 
 __all__ = [
     "KrylovState",
@@ -43,6 +45,8 @@ __all__ = [
     "expand_hermitian_selective",
     "expand_3term",
     "fused_available",
+    "fused_available_batched",
+    "check_sharded_blocks",
     "FusedScales",
     "fused_scales_init",
     "fold_scales",
@@ -118,25 +122,55 @@ def _lanczos_front(w, state: KrylovState, orth: on.Orthogonalizer, space: Vector
     if k > 0:
         w = tree_map(lambda a, b: a - beta_prev.to(a.dtype) * b, w, bs.get(V, k - 1))
     alpha = space.inner(vk, w)
+    _check_hermitian(alpha, verbosity)
+    w = tree_map(lambda a, b: a - alpha.to(a.dtype) * b, w, vk)
+    return w, alpha, _drift_sweep(orth)
+
+
+def _check_hermitian(alpha, verbosity: int) -> None:
+    """Warn when a complex ``α`` is not real to ``eps^0.75`` (reference
+    ``src/factorizations/lanczos.jl:172-178``)."""
     if torch.is_complex(alpha):
-        # hermiticity check (reference src/factorizations/lanczos.jl:172-178)
         eps = torch.finfo(alpha.real.dtype).eps
-        htol = eps ** 0.75
         warn_if(
             verbosity,
-            torch.abs(alpha.imag) > htol * torch.clamp(torch.abs(alpha), min=1),
+            torch.abs(alpha.imag) > eps ** 0.75 * torch.clamp(torch.abs(alpha), min=1),
             "Lanczos iteration: operator does not appear to be hermitian: "
             "imag(alpha) = {ia}",
             ia=alpha.imag,
         )
-    w = tree_map(lambda a, b: a - alpha.to(a.dtype) * b, w, vk)
+
+
+def _drift_sweep(orth: on.Orthogonalizer) -> on.Orthogonalizer:
+    """The one full drift sweep of a Lanczos step after its 3-term part:
+    cgs for cgs/cgs2, mgs for mgs/mgs2, else the orthogonalizer itself."""
     if isinstance(orth, (on.ClassicalGramSchmidt, on.ClassicalGramSchmidt2)):
-        sweep_orth = on.cgs
-    elif isinstance(orth, (on.ModifiedGramSchmidt, on.ModifiedGramSchmidt2)):
-        sweep_orth = on.mgs
-    else:
-        sweep_orth = orth
-    return w, alpha, sweep_orth
+        return on.cgs
+    if isinstance(orth, (on.ModifiedGramSchmidt, on.ModifiedGramSchmidt2)):
+        return on.mgs
+    return orth
+
+
+def _lanczos_front_batched(W: dict, states: dict, orth: on.Orthogonalizer,
+                           space: VectorSpace, verbosity: int):
+    """:func:`_lanczos_front` of every problem of ``W`` (``{p: w}``, tensor
+    vectors), each with its one-problem bits, the ``α`` of all from one
+    :func:`~..ops.vector.inner_batched` (one all-reduce on a sharded space).
+    Returns ``({p: w}, {p: α}, the drift sweep's orthogonalizer)``."""
+    ps = list(W)
+    vks = {p: bs.get(states[p].V, states[p].k) for p in ps}
+    for p in ps:
+        st = states[p]
+        if st.k > 0:
+            W[p] = W[p] - st.beta.to(W[p].dtype) * bs.get(st.V, st.k - 1)
+    alphas = inner_batched(torch.stack([vks[p] for p in ps]), torch.stack([W[p] for p in ps]),
+                           space)
+    out_w, out_a = {}, {}
+    for p, alpha in zip(ps, alphas):
+        _check_hermitian(alpha, verbosity)
+        out_w[p] = W[p] - alpha.to(W[p].dtype) * vks[p]
+        out_a[p] = alpha
+    return out_w, out_a, _drift_sweep(orth)
 
 
 def _lanczos_append(state: KrylovState, v_new, alpha, beta, verbosity: int) -> KrylovState:
@@ -181,17 +215,16 @@ def expand_batched(apply, states: dict, orth: on.Orthogonalizer, space: VectorSp
     them (one call, e.g. one batched operator launch), then the
     orthonormalizations run through :func:`~..ops.orthonormal.orthonormalize_batched`
     (a cgs or cgs2 sweep: one batched project and one batched unproject for
-    all).  Each problem's new state is its one-problem step's.  Returns
-    ``{p: KrylovState}``."""
+    all).  Each problem's new state is its one-problem step's.  On a
+    sharded space every reduction of the step is one all-reduce for all the
+    problems.  Returns ``{p: KrylovState}``."""
     ps = list(states)
     W = apply({p: bs.get(states[p].V, states[p].k) for p in ps})
     alphas, sweep_orth = {}, orth
     if hermitian:
         sweep_orth = on.cgs
         if not isinstance(orth, on.ClassicalGramSchmidt):
-            for p in ps:
-                W[p], alphas[p], sweep_orth = _lanczos_front(W[p], states[p], orth, space,
-                                                             verbosity)
+            W, alphas, sweep_orth = _lanczos_front_batched(W, states, orth, space, verbosity)
     outs = on.orthonormalize_batched([W[p] for p in ps], [states[p].V for p in ps],
                                      [states[p].k + 1 for p in ps], sweep_orth, space)
     new = {}
@@ -363,7 +396,7 @@ def fused_available(op, x0, space: VectorSpace, kmax=None) -> bool:
         return False
     nloc = R * fl.LANES
     if space.psum_axis is not None:
-        if R < spec.h or (spec.gc and nloc % spec.gc != 0):
+        if _rank_refusal(spec, R) is not None:
             return False
         nloc *= space.psum_axis.size
     if spec.gc and nloc != spec.gr * spec.gc:
@@ -373,6 +406,39 @@ def fused_available(op, x0, space: VectorSpace, kmax=None) -> bool:
     except ValueError:
         return False
     return x0.device.type in ("cuda", "cpu")
+
+
+def _rank_refusal(spec, R: int) -> Optional[str]:
+    """The per-rank rule of the fused gate that a sharded block of ``R``
+    rows of 128 fails, or ``None``: its halos come from the next rank alone,
+    and a grid's blocks cut whole grid rows."""
+    if R < spec.h:
+        return f"a block of {R} rows is shorter than the stencil's reach of {spec.h} rows"
+    if spec.gc and (R * fl.LANES) % spec.gc != 0:
+        return f"a block of {R} rows of {fl.LANES} does not cut whole grid rows of {spec.gc}"
+    return None
+
+
+def check_sharded_blocks(what: str, ops, xs, space: VectorSpace) -> None:
+    """Raise where a batched solve on a sharded space meets a fusable
+    stencil (``fl.spec_for``) and a ``(R, 128)`` block ``xs[p]`` that fails
+    a per-rank rule of :func:`fused_available` (:func:`_rank_refusal`).
+    Batched K1 cannot take such a block's halos, and a batched sharded
+    solve does not step it otherwise without a word.  The other rules of the
+    gate (dtype, ``R % 8``, ``kmax``) send it to the unfused lock-step, as
+    they do an unsharded batched solve."""
+    if space.psum_axis is None:
+        return
+    for op in ops:
+        spec = fl.spec_for(op)
+        if spec is None:
+            continue
+        for x in xs:
+            if isinstance(x, torch.Tensor) and x.ndim == 2 and x.shape[1] == fl.LANES:
+                why = _rank_refusal(spec, x.shape[0])
+                if why is not None:
+                    raise ValueError(f"{what}: on a sharded space {why}; batched K1 "
+                                     "cannot take its halos")
 
 
 def _safe_inv(x):
@@ -495,6 +561,81 @@ class FusedCarry(NamedTuple):
     yext: Optional[torch.Tensor] = None  # (2, h, 128), sharded spaces only
 
 
+def _edge_rows(V, y, k0: int, h: int):
+    """``(first, last)``: the first and the last ``h`` rows of the live basis
+    rows ``V[:k0 + 1]`` and of ``y``, ``k0 + 2`` of each, what a sharded
+    prime sends its neighbours."""
+    return (torch.cat([V[:k0 + 1, :h], y[None, :h]]), torch.cat([V[:k0 + 1, -h:], y[None, -h:]]))
+
+
+def _primed(V, y, r, k0: int, sc: FusedScales, above=None, below=None, Vext=None,
+            yext=None) -> FusedCarry:
+    """The carry of a primed problem, ``r`` its finished projections of
+    ``y = A R_{k0}``; the priming norm comes from the scale vector.
+    Sharded: the neighbours' edge rows ``above``/``below`` (laid out as
+    :func:`_edge_rows` sends them) are written into the zero halo buffers
+    ``Vext (kmax, 2, h, 128)`` and ``yext (2, h, 128)``."""
+    r = r.to(torch.float32)
+    q = _safe_inv(sc.s[k0]) ** 2
+    d = torch.zeros_like(r)
+    if above is not None:
+        Vext[:k0 + 1, 0] = above[:k0 + 1]
+        Vext[:k0 + 1, 1] = below[:k0 + 1]
+        yext[0], yext[1] = above[k0 + 1], below[k0 + 1]
+    return FusedCarry(V, y, r, d, r[k0], q, sc, k0, Vext, yext)
+
+
+def _stepped(c: FusedCarry, front, raw, yn, dgks: bool, Vext, yext):
+    """``(carry', alpha, beta, hcol)`` of a step from the front half
+    ``front`` (:func:`_step_coeffs` of ``c``) and the kernel's finished
+    reductions ``raw``."""
+    csub, lam, hcol, alpha, sc = front
+    rn, dn, rpn, qn = _unpack_raw(raw, c.k + 1, c.r.shape[0], dgks)
+    beta = torch.sqrt(qn)
+    sc = _append_row(sc, c.k, beta, csub, lam, dgks)
+    return FusedCarry(c.V, yn, rn, dn, rpn, qn, sc, c.k + 1, Vext, yext), alpha, beta, hcol
+
+
+def _exchange(ax, h: int, raws, rows, ys):
+    """Sharded: one all-reduce of a zero-filled buffer sums the kernel's
+    partial reductions ``raws[j]`` of each stepping problem and brings the
+    neighbours' edge rows of its new basis row ``rows[j]`` and of its
+    ``y'`` ``ys[j]``.  Returns the summed reductions and ``mine (n, 2, 2, h,
+    128)``: problem ``j``'s rows from the rank above and below, of ``V`` at
+    ``mine[j, :, 0]`` and of ``y'`` at ``mine[j, :, 1]``."""
+    D, i = ax.size, ax.index
+    width = max(r.numel() for r in raws)
+    R = torch.zeros((len(raws), width), dtype=torch.float32, device=ys[0].device)
+    slots = torch.zeros((D, len(raws), 2, 2, h, fl.LANES), dtype=torch.float32,
+                        device=ys[0].device)
+    for j, (raw, row, y) in enumerate(zip(raws, rows, ys)):
+        R[j, :raw.numel()] = raw
+        if i + 1 < D:
+            slots[i + 1, j, 0, 0], slots[i + 1, j, 0, 1] = row[-h:], y[-h:]
+        if i > 0:
+            slots[i - 1, j, 1, 0], slots[i - 1, j, 1, 1] = row[:h], y[:h]
+    total = ax.psum(torch.cat([R.reshape(-1), slots.reshape(-1)]))
+    summed = total[:R.numel()].reshape(R.shape)
+    mine = total[R.numel():].reshape(slots.shape)[i]
+    return [summed[j, :r.numel()] for j, r in enumerate(raws)], mine
+
+
+def _tail_front(c: FusedCarry, dgks: bool):
+    """The local half of a tail: ``(W, front)``, the new row ``W`` (its norm
+    still to be finished) and the step's front half."""
+    front = _step_coeffs(c.r, c.d, c.rp, c.q, c.sc, c.k, dgks)
+    csub, lam = front[0], front[1]
+    return lam * c.y - bs.unproject_bucketed(c.V, csub, c.k + 1), front
+
+
+def _tailed(c: FusedCarry, W, front, beta):
+    """The tail's ``(V, scales', alpha, beta, hcol)``, ``W`` written as row
+    ``k + 1``, ``beta`` its finished norm."""
+    csub, lam, hcol, alpha, sc = front
+    c.V[c.k + 1] = W
+    return c.V, _append_row(sc, c.k, beta, csub, lam, False), alpha, beta, hcol
+
+
 def make_fused_stepper(op, kmax: int, dgks: bool, space: VectorSpace):
     """Return ``(prime, advance, tail)`` over a :class:`FusedCarry`.
     ``dgks=True`` is the one-reduce CGS2 mode; it needs ``2·kmax + 2 <= 128``."""
@@ -505,38 +646,17 @@ def make_fused_stepper(op, kmax: int, dgks: bool, space: VectorSpace):
     h = spec.h
 
     def prime(V, k0: int, sc: FusedScales) -> FusedCarry:
-        """``y = A R_{k0}`` and its projections; the priming norm comes from
-        the scale vector.  Sharded: the edge rows of the live basis rows and
-        of ``y`` from the neighbours, in one all-reduce (after a restart
-        rotation they are all new)."""
+        """``y = A R_{k0}`` and its projections.  Sharded: the edge rows of
+        the live basis rows and of ``y`` from the neighbours, in one
+        all-reduce (after a restart rotation they are all new)."""
         y = op.normal(V[k0])
-        r = bs.project_bucketed(V, y, k0 + 1, space).to(torch.float32)
-        q = _safe_inv(sc.s[k0]) ** 2
-        d = torch.zeros(kmax, dtype=torch.float32, device=V.device)
-        Vext = yext = None
-        if ax is not None:
-            first = torch.cat([V[:k0 + 1, :h], y[None, :h]])
-            last = torch.cat([V[:k0 + 1, -h:], y[None, -h:]])
-            above, below = ax.edges(first, last)
-            Vext = torch.zeros((kmax, 2, h, fl.LANES), dtype=torch.float32, device=V.device)
-            Vext[:k0 + 1, 0] = above[:k0 + 1]
-            Vext[:k0 + 1, 1] = below[:k0 + 1]
-            yext = torch.stack([above[k0 + 1], below[k0 + 1]])
-        return FusedCarry(V, y, r, d, r[k0], q, sc, k0, Vext, yext)
-
-    def exchange(raw, V, kp1: int, yn):
-        """Sharded: one all-reduce sums the kernel's partial reductions and
-        brings the neighbours' edge rows of the new row ``V[kp1]`` and of
-        ``y'``.  Returns ``(raw, Vext row kp1, yext)``."""
-        D, i = ax.size, ax.index
-        slots = torch.zeros((D, 2, 2, h, fl.LANES), dtype=torch.float32, device=raw.device)
-        if i + 1 < D:
-            slots[i + 1, 0, 0], slots[i + 1, 0, 1] = V[kp1, -h:], yn[-h:]
-        if i > 0:
-            slots[i - 1, 1, 0], slots[i - 1, 1, 1] = V[kp1, :h], yn[:h]
-        total = ax.psum(torch.cat([raw, slots.reshape(-1)]))
-        mine = total[raw.numel():].reshape(slots.shape)[i]
-        return total[:raw.numel()], mine[:, 0], mine[:, 1].contiguous()
+        r = bs.project_bucketed(V, y, k0 + 1, space)
+        if ax is None:
+            return _primed(V, y, r, k0, sc)
+        above, below = ax.edges(*_edge_rows(V, y, k0, h))
+        Vext = torch.zeros((kmax, 2, h, fl.LANES), dtype=torch.float32, device=V.device)
+        yext = torch.zeros((2, h, fl.LANES), dtype=torch.float32, device=V.device)
+        return _primed(V, y, r, k0, sc, above, below, Vext, yext)
 
     def advance(c: FusedCarry):
         """One fused step (scalar front half + kernel + bookkeeping).
@@ -544,18 +664,16 @@ def make_fused_stepper(op, kmax: int, dgks: bool, space: VectorSpace):
         normalized-units projection column (``j <= k``; callers add ``β`` at
         ``k+1``)."""
         k = c.k
-        csub, lam, hcol, alpha, sc = _step_coeffs(c.r, c.d, c.rp, c.q, c.sc, k, dgks)
-        g = torch.cat([csub, lam[None]])
+        front = _step_coeffs(c.r, c.d, c.rp, c.q, c.sc, k, dgks)
+        g = torch.cat([front[0], front[1][None]])
         B = k + 1  # live rows: row k+1 (written) is never read
         yn, raw = fl.fused_step(c.V, c.y, g, k + 1, B, spec, with_drift=dgks,
                                 Vext=c.Vext, yext=c.yext)
         Vext, yext = c.Vext, c.yext
         if ax is not None:
-            raw, Vext[k + 1], yext = exchange(raw, c.V, k + 1, yn)
-        rn, dn, rpn, qn = _unpack_raw(raw, B, kmax, dgks)
-        beta = torch.sqrt(qn)
-        sc = _append_row(sc, k, beta, csub, lam, dgks)
-        return FusedCarry(c.V, yn, rn, dn, rpn, qn, sc, k + 1, Vext, yext), alpha, beta, hcol
+            (raw,), mine = _exchange(ax, h, [raw], [c.V[k + 1]], [yn])
+            Vext[k + 1], yext = mine[0, :, 0], mine[0, :, 1].contiguous()
+        return _stepped(c, front, raw, yn, dgks, Vext, yext)
 
     def tail(c: FusedCarry, go: bool):
         """Final append WITHOUT the next operator apply, only when ``go``.
@@ -563,12 +681,8 @@ def make_fused_stepper(op, kmax: int, dgks: bool, space: VectorSpace):
         basis and scales are unchanged and the rest is ``None``."""
         if not go:
             return c.V, c.sc, None, None, None
-        k = c.k
-        csub, lam, hcol, alpha, sc = _step_coeffs(c.r, c.d, c.rp, c.q, c.sc, k, dgks)
-        W = lam * c.y - bs.unproject_bucketed(c.V, csub, k + 1)
-        beta = torch.sqrt(psum(torch.sum(W * W), space.psum_axis))
-        c.V[k + 1] = W
-        return c.V, _append_row(sc, k, beta, csub, lam, False), alpha, beta, hcol
+        W, front = _tail_front(c, dgks)
+        return _tailed(c, W, front, torch.sqrt(psum(torch.sum(W * W), ax)))
 
     return prime, advance, tail
 
@@ -638,7 +752,15 @@ def fused_expansions(op, state: KrylovState, scales: FusedScales, m: int, btol: 
 # Batched fused expansion (P problems on one stencil operator)
 # --------------------------------------------------------------------------
 
-def make_fused_stepper_batched(op, kmax: int, dgks: bool):
+def fused_available_batched(op, x0s, space: VectorSpace, kmax=None) -> bool:
+    """:func:`fused_available` for the problems of a batched solve, ``x0s``
+    their start vectors (one shared start, or one each): every problem's
+    block must pass the one-problem gate, on a sharded space its per-rank
+    rules too (at least ``h`` rows, a grid's blocks cut whole grid rows)."""
+    return all(fused_available(op, x, space, kmax) for x in x0s)
+
+
+def make_fused_stepper_batched(op, kmax: int, dgks: bool, space: VectorSpace = STANDARD):
     """Return ``(prime, advance, tail)`` over the :class:`FusedCarry` of each
     of ``P`` problems on one fusable stencil operator (the counterpart of
     :func:`make_fused_stepper` under ``jax.vmap``).  The problems share the
@@ -646,7 +768,8 @@ def make_fused_stepper_batched(op, kmax: int, dgks: bool):
     ``carries[p].V`` is ``V[p]`` and ``carries[p].y`` is ``Y[p]``.
 
     * ``prime(V, Y, k0s, scs, problems)``: each problem's
-      :func:`make_fused_stepper` prime, its ``y`` copied into ``Y[p]``;
+      :func:`make_fused_stepper` prime (its local part, the collectives for
+      all, then the shared :func:`_primed`), its ``y`` copied into ``Y[p]``;
     * ``advance(V, Y, carries, problems)``: one step of every problem in
       ``problems``, each at its own top row, the scalar front half per
       problem and one :func:`~..ops.fused_lanczos.fused_step_batched` launch
@@ -656,18 +779,52 @@ def make_fused_stepper_batched(op, kmax: int, dgks: bool):
       ``B`` a launch keeps every problem's one-problem bits); returns
       ``(Y', {p: (carry', alpha, beta, hcol)})``, ``Y'`` the launches'
       ``y'`` (only the stepped problems' rows are defined);
-    * ``tail``: the one-problem tail of one problem's carry."""
+    * ``tail(carries, go)``: the one-problem tail of each problem of ``go``
+      (``{p: bool}``, :func:`_tail_front` and :func:`_tailed` around one
+      sum of the norms), as ``{p: (V, scales', alpha, beta, hcol)}``.
+
+    On a sharded space (``space.psum_axis``) each rank steps its block of
+    every problem, the neighbours' edge rows of each problem's basis and
+    ``y`` its external halos (``Vext (P, kmax, 2, h, 128)`` and ``yext (P,
+    2, h, 128)``, held here), and each collective the one-problem stepper
+    makes a problem is one all-reduce for all the problems of a call:
+    ``prime`` applies the operator to the stack (its ``normal_stack``),
+    finishes the projections and brings the edge rows of every problem's
+    live rows and ``y``; ``advance`` sums every stepping problem's partial
+    reductions and brings the edge rows of its new row and ``y'`` in one
+    zero-filled buffer; ``tail`` sums the norms."""
     spec = fl.spec_for(op)
     if spec is None:
         raise ValueError("make_fused_stepper_batched requires a fusable stencil operator")
-    prime1, _, tail = make_fused_stepper(op, kmax, dgks, STANDARD)
+    ax = space.psum_axis
+    h = spec.h
+    local = dataclasses.replace(space, psum_axis=None)
+    halos = {}  # sharded: the halo buffers of the problems primed last
 
     def prime(V, Y, k0s, scs, problems):
-        carries = {}
-        for p in problems:
-            c = prime1(V[p], k0s[p], scs[p])
-            Y[p].copy_(c.y)
-            carries[p] = c._replace(y=Y[p])
+        X = [V[p, k0s[p]] for p in problems]
+        Yp = (op.normal_stack(torch.stack(X)) if op.normal_stack is not None
+              else [op.normal(x) for x in X])
+        C = psum(torch.stack([bs.project_bucketed(V[p], y, k0s[p] + 1, local)
+                              for p, y in zip(problems, Yp)]), ax)
+        if ax is not None:
+            sent = [_edge_rows(V[p], y, k0s[p], h) for p, y in zip(problems, Yp)]
+            above, below = ax.edges(torch.cat([f for f, _ in sent]),
+                                    torch.cat([l for _, l in sent]))
+            P = V.shape[0]
+            halos.update(
+                Vext=torch.zeros((P, kmax, 2, h, fl.LANES), dtype=torch.float32, device=V.device),
+                yext=torch.zeros((P, 2, h, fl.LANES), dtype=torch.float32, device=V.device))
+        carries, off = {}, 0
+        for i, p in enumerate(problems):
+            Y[p].copy_(Yp[i])
+            ext = ()
+            if ax is not None:
+                n = k0s[p] + 2
+                ext = (above[off:off + n], below[off:off + n], halos["Vext"][p],
+                       halos["yext"][p])
+                off += n
+            carries[p] = _primed(V[p], Y[p], C[i], k0s[p], scs[p], *ext)
         return carries
 
     def advance(V, Y, carries, problems):
@@ -678,33 +835,51 @@ def make_fused_stepper_batched(op, kmax: int, dgks: bool):
             c = carries[p]
             if c.y.data_ptr() != Y[p].data_ptr():
                 raise ValueError(f"problem {p}: its y is not row {p} of the batch's y buffer")
+            if ax is not None and c.yext.data_ptr() != halos["yext"][p].data_ptr():
+                raise ValueError(f"problem {p}: its halos are not row {p} of the batch's halos")
             fronts[p] = _step_coeffs(c.r, c.d, c.rp, c.q, c.sc, c.k, dgks)
-            csub, lam = fronts[p][0], fronts[p][1]
-            rows[p] = torch.cat([csub, lam[None]])
+            rows[p] = torch.cat([fronts[p][0], fronts[p][1][None]])
             kp1[p] = c.k + 1
         G = torch.stack(rows)
+        ext = {} if ax is None else {"Vext": halos["Vext"], "yext": halos["yext"]}
         # live rows: B = k + 1 = kp1 for every problem; one launch per B
         Yn, raws = torch.empty_like(Y), {}
         for B in sorted({kp1[p] for p in problems}):
             group = [p for p in problems if kp1[p] == B]
             _, raw = fl.fused_step_batched(V, Y, G, kp1, kp1, spec, with_drift=dgks,
-                                           active=group, ynext=Yn)
+                                           active=group, ynext=Yn, **ext)
             raws.update({p: raw[p] for p in group})
+        if ax is not None:
+            summed, mine = _exchange(ax, h, [raws[p] for p in problems],
+                                     [V[p, kp1[p]] for p in problems], [Yn[p] for p in problems])
+            yext = halos["yext"].clone()  # a stopped problem keeps its halos
+            for j, p in enumerate(problems):
+                halos["Vext"][p, kp1[p]], yext[p] = mine[j, :, 0], mine[j, :, 1]
+                raws[p] = summed[j]
+            halos["yext"] = yext
         out = {}
         for p in problems:
-            c = carries[p]
-            csub, lam, hcol, alpha, sc = fronts[p]
-            rn, dn, rpn, qn = _unpack_raw(raws[p], c.k + 1, kmax, dgks)
-            beta = torch.sqrt(qn)
-            sc = _append_row(sc, c.k, beta, csub, lam, dgks)
-            out[p] = (FusedCarry(V[p], Yn[p], rn, dn, rpn, qn, sc, c.k + 1), alpha, beta, hcol)
+            Vext, yext = ((halos["Vext"][p], halos["yext"][p]) if ax is not None
+                          else (None, None))
+            out[p] = _stepped(carries[p], fronts[p], raws[p], Yn[p], dgks, Vext, yext)
         return Yn, out
+
+    def tail(carries, go):
+        out = {p: (carries[p].V, carries[p].sc, None, None, None) for p, g in go.items() if not g}
+        fronts = {p: _tail_front(carries[p], dgks) for p, g in go.items() if g}
+        if fronts:
+            betas = torch.sqrt(psum(torch.stack([torch.sum(W * W) for W, _ in fronts.values()]),
+                                    ax))
+            for (p, (W, front)), beta in zip(fronts.items(), betas):
+                out[p] = _tailed(carries[p], W, front, beta)
+        return out
 
     return prime, advance, tail
 
 
 def fused_expansions_batched(op, V, states, scales, m: int, btol, dgks: bool = False,
-                             hermitian: bool = True, min_one: bool = False):
+                             hermitian: bool = True, min_one: bool = False,
+                             space: VectorSpace = STANDARD):
     """:func:`fused_expansions` of every problem in ``states``
     (``{p: KrylovState}``, ``states[p].V`` the row ``V[p]`` of the batch's
     basis ``V (P, m + 1, R, 128)``; ``scales`` ``{p: FusedScales}``) at
@@ -712,14 +887,15 @@ def fused_expansions_batched(op, V, states, scales, m: int, btol, dgks: bool = F
     would, and leaves the launches when its solve would stop (frozen, as a
     vmapped ``while_loop`` selects a finished problem's old carry).  A step
     reads one ``(problems,)`` list of ``‖R_k‖`` from the device and makes one
-    batched kernel launch per distinct top row.  ``btol`` is one bound for all or ``{p: bound}``;
-    ``hermitian`` and ``min_one`` are :func:`fused_expansions`'s (the
-    Arnoldi column, one forced step).  Returns ``({p: KrylovState}, {p:
+    batched kernel launch per distinct top row (on a sharded space, then one
+    all-reduce for all of them).  ``btol`` is one bound for all or ``{p:
+    bound}``; ``hermitian`` and ``min_one`` are :func:`fused_expansions`'s
+    (the Arnoldi column, one forced step).  Returns ``({p: KrylovState}, {p:
     FusedScales}, {p: numops increment})``."""
     problems = sorted(states)
     btols = btol if isinstance(btol, dict) else {p: btol for p in problems}
     kmax = m + 1
-    prime, advance, tail = make_fused_stepper_batched(op, kmax, dgks)
+    prime, advance, tail = make_fused_stepper_batched(op, kmax, dgks, space)
     Y = torch.empty((V.shape[0],) + tuple(V.shape[2:]), dtype=V.dtype, device=V.device)
     k0s = {p: states[p].k for p in problems}
     carries = prime(V, Y, k0s, scales, problems)
@@ -743,11 +919,12 @@ def fused_expansions_batched(op, V, states, scales, m: int, btol, dgks: bool = F
             H[p] = _h_column(H[p], carries[p].k, alpha, beta_k, None if hermitian else h)
             carries[p] = c
         stepping = nxt
+    tails = tail(carries, go)
     new_states, new_scales, dops = {}, {}, {}
     for p in problems:
         c = carries[p]
         k = c.k
-        Vp, sc, alpha, beta_m, h = tail(c, go[p])
+        Vp, sc, alpha, beta_m, h = tails[p]
         if go[p]:
             H[p] = _h_column(H[p], k, alpha, beta_m, None if hermitian else h)
             beta_out = beta_m

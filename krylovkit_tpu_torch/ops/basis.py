@@ -221,12 +221,15 @@ def unproject_bucketed(V, c: torch.Tensor, k: int):
 def project_batched(Vs, xs, ks, space: VectorSpace = STANDARD) -> list:
     """``[project(Vs[i], xs[i], ks[i], space) for i]`` for the problems of a
     batched solve (``Vs`` their bases, ``ks`` host ints).  With the flag on
-    and every problem's ``(V, x)`` eligible (:func:`_pallas_proj_leaf`) on
-    an unsharded space, one batched launch of the project kernel
+    and every problem's ``(V, x)`` eligible (:func:`_pallas_proj_leaf`), one
+    batched launch of the project kernel
     (``projections.project_pallas_batched``), each row the one-problem
-    launch's bits; otherwise problem by problem, today's routes exactly."""
-    if space.psum_axis is None and all(_pallas_proj_leaf(V, x, space) for V, x in zip(Vs, xs)):
-        return list(pb.project_pallas_batched(Vs, [x.contiguous() for x in xs], ks))
+    launch's bits, and on a sharded space one all-reduce of the ``(P,
+    kmax)`` coefficients (:func:`project` all-reduces its one-problem launch
+    so); otherwise problem by problem, today's routes exactly."""
+    if all(_pallas_proj_leaf(V, x, space) for V, x in zip(Vs, xs)):
+        C = pb.project_pallas_batched(Vs, [x.contiguous() for x in xs], ks)
+        return list(psum(C, space.psum_axis))
     return [project(V, x, k, space) for V, x, k in zip(Vs, xs, ks)]
 
 

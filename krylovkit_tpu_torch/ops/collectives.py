@@ -133,11 +133,14 @@ class MeshAxis:
         ``last`` rows of the rank before and the ``first`` rows of the rank
         after, zero at the ends of the axis (a Dirichlet boundary), in one
         all-reduce (JAX: two ``ppermute``s with the chain permutations).
+        The payload may have any shape: a ``(P, h, ...)`` stack of the edge
+        rows of ``P`` problems goes in the same one all-reduce.
         Differentiable: the backward is the transposed exchange."""
         return _Edges.apply(first, last, self)
 
     def _swap(self, to_left: torch.Tensor, to_right: torch.Tensor):
-        """One all-reduce of a zero-filled ``(size, 2, ...)`` buffer: this
+        """One all-reduce of a zero-filled ``(size, 2) + to_left.shape``
+        buffer, whatever that shape (a stack of problems' rows too): this
         rank's ``to_right`` goes to slot 0 of the rank after, its ``to_left``
         to slot 1 of the rank before; returns this rank's two slots."""
         slots = torch.zeros((self.size, 2) + tuple(to_left.shape), dtype=to_left.dtype,

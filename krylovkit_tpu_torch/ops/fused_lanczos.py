@@ -24,8 +24,10 @@ scales are carried by the driver (``factorizations/krylov.py:FusedScales``).
 kernel under ``jax.vmap``): ``V (P, kmax, R, 128)``, ``y (P, R, 128)``,
 ``g (P, kmax + 1)``, a ``B`` and a ``kp1`` per problem, and the list of the
 problems that step; one launch of ``kk_fused_step_batched`` runs them all.
-Its plain version :func:`fused_step_batched_reference` loops
-:func:`fused_step_reference` over them.
+On a split vector each problem passes its own external halos, ``Vext (P,
+kmax, 2, h, 128)`` and ``yext (P, 2, h, 128)``.  Its plain version
+:func:`fused_step_batched_reference` loops :func:`fused_step_reference` over
+them.
 """
 
 from __future__ import annotations
@@ -342,7 +344,7 @@ def _lib():
         lib.kk_fused_step.argtypes = [p] * 9 + [i] * 9 + [p, p, p] + [i] * 8 + [p]
         lib.kk_fused_step.restype = i
         lib.kk_fused_step_batched.argtypes = (
-            [p] * 7 + [i] * 3 + [p] * 3 + [i] * 7 + [p] * 3 + [i] * 8 + [p])
+            [p] * 9 + [i] * 3 + [p] * 3 + [i] * 7 + [p] * 3 + [i] * 8 + [p])
         lib.kk_fused_step_batched.restype = i
         _fused_lib = lib
     return _fused_lib
@@ -451,22 +453,39 @@ def _batch_args(V, y, g, kp1, B, active):
     return P, kp1, B, active
 
 
+def _batch_halos(V, spec, Vext, yext):
+    """Check a batched step's external halos: both or neither, ``Vext (P,
+    kmax, 2, h, 128)`` and ``yext (P, 2, h, 128)``."""
+    if (Vext is None) != (yext is None):
+        raise ValueError("fused_step_batched takes both external halos (Vext, yext) or neither")
+    if Vext is None:
+        return
+    P, kmax = V.shape[0], V.shape[1]
+    want_V, want_y = (P, kmax, 2, spec.h, LANES), (P, 2, spec.h, LANES)
+    if tuple(Vext.shape) != want_V or tuple(yext.shape) != want_y:
+        raise ValueError(f"fused_step_batched halos: Vext {tuple(Vext.shape)}, yext "
+                         f"{tuple(yext.shape)}; want {want_V} and {want_y}")
+
+
 def fused_step_batched_reference(V, y, g, kp1, B, spec: StencilSpec,
-                                 with_drift: bool = False, active=None, ynext=None):
+                                 with_drift: bool = False, active=None, ynext=None,
+                                 Vext=None, yext=None):
     """Plain version of the batched step: :func:`fused_step_reference` on
     each active problem ``p`` (``V[p]``, ``y[p]``, ``g[p]``, ``kp1[p]``,
-    ``B[p]``).  Returns ``(y_next (P, R, 128), raw (P, width))`` with
-    ``width`` the longest ``raw`` of the active problems; a problem's row is
-    zero beyond its own ``raw`` and every row of an inactive problem is
-    zero (of ``y_next`` too, unless ``ynext`` is given: then the active rows
-    are written into it and the others keep theirs), and its basis is not
-    touched."""
+    ``B[p]``, and given the halos ``Vext[p]``, ``yext[p]``).  Returns
+    ``(y_next (P, R, 128), raw (P, width))`` with ``width`` the longest
+    ``raw`` of the active problems; a problem's row is zero beyond its own
+    ``raw`` and every row of an inactive problem is zero (of ``y_next`` too,
+    unless ``ynext`` is given: then the active rows are written into it and
+    the others keep theirs), and its basis is not touched."""
     P, kp1, B, active = _batch_args(V, y, g, kp1, B, active)
+    _batch_halos(V, spec, Vext, yext)
     width = max(_raw_len(B[p], with_drift) for p in active)
     ynext = torch.zeros_like(y) if ynext is None else ynext
     raw = torch.zeros((P, width), dtype=torch.float32, device=V.device)
     for p in active:
-        yn, r = fused_step_reference(V[p], y[p], g[p], kp1[p], B[p], spec, with_drift)
+        halos = {} if Vext is None else {"Vext": Vext[p], "yext": yext[p]}
+        yn, r = fused_step_reference(V[p], y[p], g[p], kp1[p], B[p], spec, with_drift, **halos)
         ynext[p] = yn
         raw[p, :r.numel()] = r
     return ynext, raw
@@ -486,7 +505,7 @@ def _batch_scratch_for(device: torch.device, floats: int):
 
 
 def fused_step_batched(V, y, g, kp1, B, spec: StencilSpec, with_drift: bool = False,
-                       active=None, ynext=None):
+                       active=None, ynext=None, Vext=None, yext=None):
     """The fused step of the problems in ``active`` (default: all) in one
     launch.  ``V (P, kmax, R, 128)``, ``y (P, R, 128)``, ``g (P, kmax + 1)``;
     ``kp1`` and ``B`` are an int each per problem (or one int for all).
@@ -500,28 +519,36 @@ def fused_step_batched(V, y, g, kp1, B, spec: StencilSpec, with_drift: bool = Fa
     ``csrc/fused_lanczos.cu`` with the plan of the largest ``B`` (where all
     ``B`` are equal, each problem's results are a one-problem launch's, bit
     for bit), :data:`MAX_BATCH` problems a launch; a CPU tensor runs
-    :func:`fused_step_batched_reference`.  No external halos: a sharded
-    space is not batched.  ``ynext``, where given, is the ``(P, R, 128)``
-    buffer the active rows of ``y_next`` are written into (its other rows
-    keep theirs), so launches over disjoint sets of problems can fill one
-    buffer."""
-    _build.refuse_autograd("fused_step_batched", V, y, g)
+    :func:`fused_step_batched_reference`.  A shard of split vectors passes
+    every problem's external halos, ``Vext (P, kmax, 2, h, 128)`` and
+    ``yext (P, 2, h, 128)`` (both or neither): problem ``p`` then gets
+    :func:`fused_step`'s results with ``Vext[p]``/``yext[p]``, bit for bit
+    where all ``B`` are equal, and its ``raw`` holds this shard's partial
+    sums.  ``ynext``, where given, is the ``(P, R, 128)`` buffer the active
+    rows of ``y_next`` are written into (its other rows keep theirs), so
+    launches over disjoint sets of problems can fill one buffer."""
+    _build.refuse_autograd("fused_step_batched", V, y, g, Vext, yext)
     if V.device.type == "cpu":
-        return fused_step_batched_reference(V, y, g, kp1, B, spec, with_drift, active, ynext)
+        return fused_step_batched_reference(V, y, g, kp1, B, spec, with_drift, active, ynext,
+                                            Vext, yext)
     if V.device.type != "cuda":
         raise ValueError(f"unsupported device {V.device}")
     P, kp1, B, active = _batch_args(V, y, g, kp1, B, active)
+    _batch_halos(V, spec, Vext, yext)
     kmax, R = V.shape[1], V.shape[2]
     for p in active:
         _check(V[p], y[p], g[p], kp1[p], B[p], with_drift, spec)
         if kp1[p] < B[p]:
             raise ValueError(f"the CUDA fused step needs kp1 >= B (problem {p}: "
                              f"B={B[p]}, kp1={kp1[p]})")
-    for name, t in (("V", V), ("y", y), ("g", g)):
+    named = [("V", V), ("y", y), ("g", g)]
+    if Vext is not None:
+        named += [("Vext", Vext), ("yext", yext)]
+    for name, t in named:
         if t.device != V.device or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"fused_step_batched needs {name} as contiguous float32 on {V.device}")
-    if V.data_ptr() % 16 or y.data_ptr() % 16:
-        raise ValueError("fused_step_batched needs V and y on 16-byte boundaries")
+    if any(t.data_ptr() % 16 for name, t in named if name != "g"):
+        raise ValueError("fused_step_batched needs V, y and the halos on 16-byte boundaries")
     Bmax = max(B[p] for p in active)
     width = max(_raw_len(B[p], with_drift) for p in active)
     lib = _lib()
@@ -545,7 +572,9 @@ def fused_step_batched(V, y, g, kp1, B, spec: StencilSpec, with_drift: bool = Fa
         ks = np.asarray([kp1[p] for p in part], np.int32)
         status = lib.kk_fused_step_batched(
             V.data_ptr(), y.data_ptr(), ynext.data_ptr(), g.data_ptr(),
-            partials.data_ptr(), raw.data_ptr(), counters.data_ptr(), kmax, R, len(part),
+            partials.data_ptr(), raw.data_ptr(), counters.data_ptr(),
+            Vext.data_ptr() if Vext is not None else None,
+            yext.data_ptr() if yext is not None else None, kmax, R, len(part),
             ps.ctypes.data, Bs.ctypes.data, ks.ctypes.data, Bmax, width, int(with_drift),
             spec.h, spec.gc, spec.mrow, len(spec.taps),
             coef.ctypes.data, offs.ctypes.data, dxs.ctypes.data,

@@ -101,10 +101,16 @@ def _derived_adjoint(f, x_template, params=None):
 @dataclasses.dataclass(frozen=True)
 class LinearOperator:
     """A linear map on vectors with an optional adjoint: ``normal(x) = A x``,
-    ``adjoint(y) = Aᴴ y``."""
+    ``adjoint(y) = Aᴴ y``.  ``normal_stack`` and ``adjoint_stack``, where an
+    operator has them, map a ``(p, ...)`` stack of tensor vectors to the
+    stack of their images in one pass, each row the bits of ``normal`` /
+    ``adjoint`` on it: the batched drivers (``solvers/batched.py``) apply a
+    shared sharded operator so, with one collective for all rows."""
 
     normal: Callable[[Any], Any]
     adjoint: Optional[Callable[[Any], Any]] = None
+    normal_stack: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+    adjoint_stack: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
 
     def __call__(self, x):
         return self.normal(x)
@@ -203,7 +209,8 @@ class StencilOperator(LinearOperator):
     offsets: Tuple[int, ...] = ()
     coeffs: Tuple[float, ...] = ()
 
-    def __init__(self, offsets, coeffs, normal=None, adjoint=None):
+    def __init__(self, offsets, coeffs, normal=None, adjoint=None, normal_stack=None,
+                 adjoint_stack=None):
         offsets = tuple(int(d) for d in offsets)
         coeffs = _clean_coeffs(coeffs)
         object.__setattr__(self, "offsets", offsets)
@@ -212,6 +219,8 @@ class StencilOperator(LinearOperator):
         if adjoint is None:
             adjoint = _stencil_apply_fn(*_adjoint_stencil(offsets, coeffs))
         object.__setattr__(self, "adjoint", adjoint)
+        object.__setattr__(self, "normal_stack", normal_stack)
+        object.__setattr__(self, "adjoint_stack", adjoint_stack)
 
 
 def _grid_stencil_apply_fn(grid, offsets2, coeffs):
@@ -250,7 +259,8 @@ class GridStencilOperator(LinearOperator):
     offsets2: Tuple[Tuple[int, int], ...] = ()
     coeffs: Tuple[float, ...] = ()
 
-    def __init__(self, grid, offsets2, coeffs, normal=None, adjoint=None):
+    def __init__(self, grid, offsets2, coeffs, normal=None, adjoint=None, normal_stack=None,
+                 adjoint_stack=None):
         grid = (int(grid[0]), int(grid[1]))
         offsets2 = tuple((int(dy), int(dx)) for dy, dx in offsets2)
         coeffs = _clean_coeffs(coeffs)
@@ -267,6 +277,8 @@ class GridStencilOperator(LinearOperator):
             )
             adjoint = _grid_stencil_apply_fn(grid, adj_off, adj_cf)
         object.__setattr__(self, "adjoint", adjoint)
+        object.__setattr__(self, "normal_stack", normal_stack)
+        object.__setattr__(self, "adjoint_stack", adjoint_stack)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -14,6 +14,8 @@ be pytrees (``ops/vector.py``); the sweeps then run leaf by leaf.
 a batched solve against that problem's basis: each problem's result is
 :func:`orthonormalize`'s, and a cgs or cgs2 sweep makes one
 ``basis.project_batched`` and one ``basis.unproject_batched`` call for all.
+On a sharded space a sweep all-reduces the ``(P, kmax)`` coefficients of all
+problems at once, and so do the norms of the new vectors.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from typing import Tuple
 import torch
 
 from . import basis as bs
-from .vector import STANDARD, VectorSpace, device_of, scalartype, tree_map
+from .vector import STANDARD, VectorSpace, device_of, norm_batched, psum, scalartype, tree_map
 
 __all__ = [
     "Orthogonalizer",
@@ -119,14 +121,30 @@ def _cgs_sweep(w, V, k: int, space):
 
 
 def _cgs_sweep_batched(ws, Vs, ks, space):
-    """:func:`_cgs_sweep` of each problem; with the projection flag on, the
-    two halves of every problem's sweep in one batched call each."""
-    if not bs.use_pallas_projections:
-        return [_cgs_sweep(w, V, k, space) for w, V, k in zip(ws, Vs, ks)]
-    cs = bs.project_batched(Vs, ws, ks, space)
-    ys = bs.unproject_batched(Vs, cs, ks)
-    return [(_sub(w, y), c.to(_coeff_dtype(V, w, space)))
-            for w, V, c, y in zip(ws, Vs, cs, ys)]
+    """:func:`_cgs_sweep` of each problem, as a list of ``(w, c)``; the
+    coefficients of all problems are finished at once (on a sharded space
+    one all-reduce of the ``(P, kmax)`` stack).  With the projection flag on
+    the two halves of every problem's sweep are one batched call each; off,
+    each problem's local partials over its bucket prefix, zero-padded to
+    ``kmax``."""
+    if bs.use_pallas_projections:
+        cs = bs.project_batched(Vs, ws, ks, space)
+        ys = bs.unproject_batched(Vs, cs, ks)
+        return [(_sub(w, y), c.to(_coeff_dtype(V, w, space)))
+                for w, V, c, y in zip(ws, Vs, cs, ys)]
+    kmax = bs.capacity(Vs[0])
+    local = dataclasses.replace(space, psum_axis=None)
+    Bs = [bs.bucket_for(k, kmax) if space.inner_fn is None else kmax for k in ks]
+    parts = [torch.nn.functional.pad(bs.project(bs.prefix(V, B), w, k, local), (0, kmax - B))
+             for w, V, k, B in zip(ws, Vs, ks, Bs)]
+    C = psum(torch.stack(parts), space.psum_axis)
+    out = []
+    for w, V, B, c in zip(ws, Vs, Bs, C):
+        # a fresh copy: a row of C need not start where the one-problem
+        # operand does, and the card's product may round otherwise there
+        w = _sub(w, bs.unproject(bs.prefix(V, B), c[:B].clone()))
+        out.append((w, c.to(_coeff_dtype(V, w, space))))
+    return out
 
 
 def _mgs_sweep(w, V, k: int, space):
@@ -189,9 +207,10 @@ def orthonormalize(
     return _normalize(w, space) + (c,)
 
 
-def _normalize(w, space):
-    """``(w/‖w‖, ‖w‖)``, a zero vector where the norm is zero."""
-    beta = space.norm(w)
+def _normalize(w, space, beta=None):
+    """``(w/‖w‖, ‖w‖)``, a zero vector where the norm is zero; ``beta`` the
+    norm where it is known."""
+    beta = space.norm(w) if beta is None else beta
     safe = torch.where(beta > 0, beta, torch.ones_like(beta))
     return tree_map(lambda l: torch.where(beta > 0, l / safe, 0 * l), w), beta
 
@@ -214,5 +233,9 @@ def orthogonalize_batched(ws, Vs, ks, orth: Orthogonalizer = cgs2,
 def orthonormalize_batched(ws, Vs, ks, orth: Orthogonalizer = cgs2,
                            space: VectorSpace = STANDARD) -> list:
     """:func:`orthonormalize` of each problem, as a list of ``(v, beta,
-    c)``, its sweeps through :func:`orthogonalize_batched`."""
-    return [_normalize(w, space) + (c,) for w, c in orthogonalize_batched(ws, Vs, ks, orth, space)]
+    c)``, its sweeps through :func:`orthogonalize_batched` and the norms of
+    all problems through ``norm_batched`` (on a sharded space one
+    all-reduce)."""
+    outs = orthogonalize_batched(ws, Vs, ks, orth, space)
+    betas = norm_batched([w for w, _ in outs], space)
+    return [_normalize(w, space, beta) + (c,) for (w, c), beta in zip(outs, betas)]

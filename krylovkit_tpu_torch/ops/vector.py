@@ -12,7 +12,8 @@ per-leaf ``vdot``s.  Custom inner products (the reference's
 carried by a frozen :class:`VectorSpace`, as in the JAX package.  A sharded
 space (``psum_axis``, a :class:`~.collectives.MeshAxis`) finishes every
 inner product with one all-reduce over the ranks that hold the vector's
-blocks.
+blocks; :func:`inner_batched` finishes the ``(P,)`` inner products of a
+batched solve's problems with one.
 
 The tree helpers (``tree_map``, ``tree_leaves``, ``tree_flatten``,
 ``tree_unflatten``) are built on ``torch.utils._pytree`` and live here only.
@@ -159,20 +160,23 @@ def norm(x, space: VectorSpace = STANDARD) -> torch.Tensor:
     return space.norm(x)
 
 
-def inner_batched(X: torch.Tensor, Y: torch.Tensor, space: VectorSpace = STANDARD) -> torch.Tensor:
+def inner_batched(X, Y, space: VectorSpace = STANDARD) -> torch.Tensor:
     """``space.inner(X[p], Y[p])`` for every ``p`` of two ``(P, ...)``
-    stacks, as a ``(P,)`` tensor.  Each entry is ``space.inner`` of its row,
-    bits and all: a batched reduction would sum in another order, and near
-    the float32 floor of a solve that moves its counts.  A sharded space is
-    not batched."""
-    if space.psum_axis is not None:
-        raise ValueError("a sharded space (VectorSpace(psum_axis=...)) is not batched")
-    return torch.stack([space.inner(x, y) for x, y in zip(X, Y)])
+    stacks (or lists of vectors), as a ``(P,)`` tensor.  Each row's local
+    partial is the one ``space.inner`` takes, stacked, and on a sharded
+    space one all-reduce of the ``(P,)`` partials finishes them all.  Each
+    entry thus has the bits of ``space.inner`` of its row (over more than two
+    ranks the ring may add the ranks' partials in another order): a batched
+    reduction would sum in another order, and near the float32 floor of a
+    solve that moves its counts."""
+    local = space.inner_fn or _tree_inner
+    ip = psum(torch.stack([local(x, y) for x, y in zip(X, Y)]), space.psum_axis)
+    return torch.real(ip) if space.real_inner else ip
 
 
-def norm_batched(X: torch.Tensor, space: VectorSpace = STANDARD) -> torch.Tensor:
-    """``space.norm(X[p])`` for every ``p`` of a ``(P, ...)`` stack, each
-    with the bits of ``space.norm`` of its row."""
+def norm_batched(X, space: VectorSpace = STANDARD) -> torch.Tensor:
+    """``space.norm(X[p])`` for every ``p`` of a ``(P, ...)`` stack (or a
+    list of vectors), each with the bits of ``space.norm`` of its row."""
     return torch.sqrt(torch.clamp(torch.real(inner_batched(X, X, space)), min=0))
 
 

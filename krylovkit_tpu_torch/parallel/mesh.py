@@ -21,7 +21,13 @@ Initializing the default group is the caller's job (``torchrun``, or
 :func:`make_mesh` splits it into a ``(batch, vec)`` grid of ranks and makes
 one group per row and per column.  A second axis, ``BATCH_AXIS``, holds
 independent problems (several right-hand sides), the data-parallel
-analogue.
+analogue: ``shard_vector(X, mesh, batched=True)`` gives each rank its batch
+row's problems, a ``(P_b, ...)`` stack of its block of their rows, which the
+batched drivers (``solvers/batched.py``, ``batched_linsolve.py``,
+``batched_arnoldi.py``, ``batched_expintegrator.py``) solve with
+``VectorSpace(psum_axis=mesh.axis(VECTOR_AXIS))``: every collective of a
+solve runs over its ``vec`` group, so batch rows never talk; a caller
+gathers the results over the ``batch`` axis at the end.
 
 :class:`MeshAxis` (an axis as one rank sees it) and the collective
 counters (``stats``, and ``time_collectives`` that times them) live in

@@ -10,7 +10,10 @@ card that is not there fails at construction.
 The sharded forms apply to this rank's block of a vector split over a mesh
 axis (``parallel/mesh.py``): they exchange edge rows with the neighbouring
 ranks (zeros at the ends: the Dirichlet boundary), apply on the haloed
-strip and keep its interior.
+strip and keep its interior.  Each applies to a ``(p, ...)`` stack of
+blocks, the vectors of the problems of a batched solve
+(``LinearOperator.normal_stack``), with every row's edges in one
+all-reduce; its one-vector apply is that of a stack of one.
 """
 
 from __future__ import annotations
@@ -54,20 +57,23 @@ def sharded_laplacian_1d(n: int, mesh, axis: str = VECTOR_AXIS) -> LinearOperato
     """``tridiag(-1, 2, -1)`` of length ``n`` on this rank's block of a
     vector split over ``mesh``'s axis ``axis`` (any layout: the row-major
     flattening of the block is its part of the chain).  Each apply brings
-    one element from either neighbour in one all-reduce.  A plain
+    one element from either neighbour in one all-reduce; a stack of ``p``
+    blocks (``normal_stack``) brings every row's two in one.  A plain
     (non-fusable) operator, as the JAX package's."""
     ax = mesh.axis(axis)
 
-    def apply(x):
-        xf = x.reshape(-1)
-        if x.device.type != "meta" and xf.numel() * ax.size != n:
-            raise ValueError(f"a block of {xf.numel()} entries over {ax.size} ranks is not "
+    def rows(X, lead: int):
+        """``X`` as ``(p, block)`` rows, its ``lead`` leading axes the stack."""
+        Xf = X.reshape(X.shape[:lead].numel(), -1)
+        if X.device.type != "meta" and Xf.shape[1] * ax.size != n:
+            raise ValueError(f"a block of {Xf.shape[1]} entries over {ax.size} ranks is not "
                              f"a chain of {n}")
-        left, right = ax.edges(xf[:1], xf[-1:])
-        strip = torch.cat([left, xf, right])
-        return (2 * xf - strip[:-2] - strip[2:]).reshape(x.shape)
+        left, right = ax.edges(Xf[:, :1], Xf[:, -1:])
+        strip = torch.cat([left, Xf, right], dim=1)
+        return (2 * Xf - strip[:, :-2] - strip[:, 2:]).reshape(X.shape)
 
-    return LinearOperator(apply, apply)
+    return LinearOperator(lambda x: rows(x, 0), lambda x: rows(x, 0),
+                          lambda X: rows(X, 1), lambda X: rows(X, 1))
 
 
 def shard_local_stencil(op, axis):
@@ -83,7 +89,9 @@ def shard_local_stencil(op, axis):
     Chains (:class:`StencilOperator`) and grids (:class:`GridStencilOperator`,
     whose blocks must cut whole grid rows: the halo is rounded up to whole
     grid rows) are supported; the adjoint is the reversed stencil, sharded
-    the same way."""
+    the same way.  A ``(p, R, 128)`` stack of blocks (``normal_stack``,
+    ``adjoint_stack``) exchanges every row's ``h`` edge rows in one
+    all-reduce and applies each row's haloed strip as one block's."""
     from ..ops import fused_lanczos as fl
 
     spec = fl.spec_for(op)
@@ -95,12 +103,17 @@ def shard_local_stencil(op, axis):
         # whole grid rows, so the haloed strip keeps the grid-column phase
         h = -(-h // spec.mrow) * spec.mrow
 
-    def _mk(inner):
-        def apply(x):
-            above, below = ax.edges(x[:h], x[-h:])
-            return inner(torch.cat([above, x, below]))[h:-h]
+    def _mk_stack(inner):
+        def apply(X):
+            above, below = ax.edges(X[:, :h], X[:, -h:])
+            strips = torch.cat([above, X, below], dim=1)
+            return torch.stack([inner(s)[h:-h] for s in strips])
 
         return apply
+
+    def _mk(inner):
+        stack = _mk_stack(inner)
+        return lambda x: stack(x[None])[0]
 
     if isinstance(op, GridStencilOperator):
         gc = op.grid[1]
@@ -116,13 +129,14 @@ def shard_local_stencil(op, axis):
 
             return inner
 
+        normal, adjoint = grid_inner(op.offsets2, op.coeffs), grid_inner(adj_off, adj_cf)
         return GridStencilOperator(
-            op.grid, op.offsets2, op.coeffs,
-            normal=_mk(grid_inner(op.offsets2, op.coeffs)),
-            adjoint=_mk(grid_inner(adj_off, adj_cf)),
+            op.grid, op.offsets2, op.coeffs, normal=_mk(normal), adjoint=_mk(adjoint),
+            normal_stack=_mk_stack(normal), adjoint_stack=_mk_stack(adjoint),
         )
 
     normal = StencilOperator(op.offsets, op.coeffs).normal
     adj_off = tuple(-d for d in reversed(op.offsets))
     adjoint = StencilOperator(adj_off, tuple(reversed(op.coeffs))).normal
-    return StencilOperator(op.offsets, op.coeffs, normal=_mk(normal), adjoint=_mk(adjoint))
+    return StencilOperator(op.offsets, op.coeffs, normal=_mk(normal), adjoint=_mk(adjoint),
+                           normal_stack=_mk_stack(normal), adjoint_stack=_mk_stack(adjoint))

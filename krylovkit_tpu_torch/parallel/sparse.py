@@ -264,19 +264,21 @@ def _shard_data(planned, index: int, D: int, device) -> Tuple[_ShardData, _HaloP
 
 
 def _pack(ax, plan: _HaloPlan, sends, v: torch.Tensor, transpose: bool) -> torch.Tensor:
-    """The zero-filled ``(D, halo_elems)`` buffer of one halo exchange: in
-    round ``δ`` this rank's entries ``v[send]`` go to the slot of the rank
-    ``δ`` before it.  Transposed, ``v`` is a halo buffer's cotangent and
-    round ``δ``'s part of it goes back to the rank ``δ`` after, which sent
-    those entries."""
+    """The zero-filled ``(D, ..., halo_elems)`` buffer of one halo exchange
+    of ``v``, a ``(..., n)`` stack of vectors (the leading axes those of a
+    batched solve's problems): in round ``δ`` this rank's entries
+    ``v[..., send]`` go to the slot of the rank ``δ`` before it.
+    Transposed, ``v`` is a halo buffer's cotangent and round ``δ``'s part
+    of it goes back to the rank ``δ`` after, which sent those entries."""
     D, i = ax.size, ax.index
-    slots = torch.zeros((D, plan.halo_elems), dtype=v.dtype, device=v.device)
+    slots = torch.zeros((D,) + tuple(v.shape[:-1]) + (plan.halo_elems,), dtype=v.dtype,
+                        device=v.device)
     off = 0
     for delta, L, send in zip(plan.deltas, plan.lengths, sends):
         if transpose:
-            slots[(i + delta) % D, off:off + L] = v[off:off + L]
+            slots[(i + delta) % D, ..., off:off + L] = v[..., off:off + L]
         else:
-            slots[(i - delta) % D, off:off + L] = v[send]
+            slots[(i - delta) % D, ..., off:off + L] = v[..., send]
         off += L
     return slots
 
@@ -289,15 +291,16 @@ def _exchange_start(ax, plan: _HaloPlan, sends, v: torch.Tensor, transpose: bool
 def _exchange_finish(ax, plan: _HaloPlan, sends, v: torch.Tensor, pending,
                      transpose: bool = False, n: int = 0) -> torch.Tensor:
     """Wait for the exchange of ``v`` and return what this rank receives,
-    with its derivative attached (:class:`_Exchanged`): the halo buffer, or
-    transposed, the cotangent of the ``(n,)`` vector whose entries were
-    sent (each round's part added at its sent indices)."""
+    with its derivative attached (:class:`_Exchanged`): the halo buffer of
+    each vector of the stack, or transposed, the cotangent of the ``(...,
+    n)`` stack whose entries were sent (each round's part added at its sent
+    indices)."""
     got = pending.wait()[ax.index]
     if transpose:
-        xbar = torch.zeros(n, dtype=got.dtype, device=got.device)
+        xbar = torch.zeros(got.shape[:-1] + (n,), dtype=got.dtype, device=got.device)
         off = 0
         for L, send in zip(plan.lengths, sends):
-            xbar.index_add_(0, send, got[off:off + L])
+            xbar.index_add_(-1, send, got[..., off:off + L])
             off += L
         got = xbar
     return _Exchanged.apply(v, got, ax, plan, sends, transpose)
@@ -318,7 +321,7 @@ class _Exchanged(torch.autograd.Function):
     @staticmethod
     def setup_context(ctx, inputs, output):
         v, _, ctx.ax, ctx.plan, ctx.sends, ctx.transpose = inputs
-        ctx.n = v.shape[0]
+        ctx.n = v.shape[-1]
 
     @staticmethod
     def backward(ctx, g):
@@ -328,22 +331,29 @@ class _Exchanged(torch.autograd.Function):
                 None, None, None, None, None)
 
 
-def _spmv(ax, plan: _HaloPlan, data: _ShardData, x: torch.Tensor, out_shape) -> torch.Tensor:
-    """One direction's apply on this rank's block ``x``.  The halo rounds
-    are packed into one all-reduce, started first; the interior gather does
-    not wait on it, only the boundary rows do."""
-    xf = x.reshape(-1)
+def _gather(x: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """``y_i = Σ_j vals[i, j] x[cols[i, j]]``, the ELL product of one vector."""
+    g = torch.index_select(x, 0, cols.reshape(-1)).reshape(cols.shape)
+    return torch.sum(vals.to(g.dtype) * g, dim=1)
+
+
+def _spmv(ax, plan: _HaloPlan, data: _ShardData, X: torch.Tensor, out_shape) -> torch.Tensor:
+    """One direction's apply on each row of ``X``, a ``(p, ...)`` stack of
+    this rank's blocks (the vectors of a batched solve's problems; ``p = 1``
+    for one vector).  Every row's halo rounds are packed into one
+    all-reduce, started first; the interior gathers do not wait on it, only
+    the boundary rows do.  The gathers run row by row, so each row has the
+    bits of its own apply."""
+    Xf = X.reshape(X.shape[0], -1)
     if plan.deltas:
-        pending = _exchange_start(ax, plan, data.sends, xf)
+        pending = _exchange_start(ax, plan, data.sends, Xf)
     # interior pass: independent of every payload
-    g = torch.index_select(xf, 0, data.cols.reshape(-1)).reshape(data.cols.shape)
-    y = torch.sum(data.vals.to(g.dtype) * g, dim=1)
+    ys = [_gather(xf, data.cols, data.vals) for xf in Xf]
     if plan.deltas:
-        halo = _exchange_finish(ax, plan, data.sends, xf, pending)
-        gb = torch.index_select(halo, 0, data.bcols.reshape(-1)).reshape(data.bcols.shape)
-        yb = torch.sum(data.bvals.to(gb.dtype) * gb, dim=1)
-        y = y.index_add(0, data.brows, yb)
-    return y.reshape(out_shape)
+        halos = _exchange_finish(ax, plan, data.sends, Xf, pending)
+        ys = [y.index_add(0, data.brows, _gather(halo, data.bcols, data.bvals))
+              for y, halo in zip(ys, halos)]
+    return torch.stack(ys).reshape((X.shape[0],) + tuple(out_shape))
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -353,7 +363,9 @@ class ShardedELLOperator(TypedOperator):
     or tile-aligned ``(n/(D·C), C)``; the partition is by contiguous element
     blocks either way).  It carries its scalar type (``dtype``) and its
     global ``shape``, so the solvers ask no probe apply.  ``plan_seconds``
-    holds the host planning time of each direction."""
+    holds the host planning time of each direction.  A ``(p, ...)`` stack of
+    blocks applies in one halo all-reduce (``normal_stack``,
+    ``adjoint_stack``); a vector is a stack of one (:func:`_spmv`)."""
 
     mesh: Mesh = None
     axis: str = VECTOR_AXIS
@@ -381,10 +393,13 @@ class ShardedELLOperator(TypedOperator):
                             ("plan_seconds", dict(plan_seconds or {})),
                             ("dtype", fdata.vals.dtype)):
             object.__setattr__(self, name, value)
-        object.__setattr__(self, "normal", lambda x: _spmv(ax, fplan, fdata, x, cod))
+        object.__setattr__(self, "normal", lambda x: _spmv(ax, fplan, fdata, x[None], cod)[0])
+        object.__setattr__(self, "normal_stack", lambda X: _spmv(ax, fplan, fdata, X, cod))
         if adj is not None:
             adata, aplan = adj
-            object.__setattr__(self, "adjoint", lambda y: _spmv(ax, aplan, adata, y, dom))
+            object.__setattr__(self, "adjoint",
+                               lambda y: _spmv(ax, aplan, adata, y[None], dom)[0])
+            object.__setattr__(self, "adjoint_stack", lambda Y: _spmv(ax, aplan, adata, Y, dom))
         else:
             object.__setattr__(self, "adjoint", None)
 

@@ -35,8 +35,27 @@ Which arguments carry the problem axis is stated by ``in_dims`` (``0`` or
 shapes: an ``(R, 128)`` vector is 2-D itself.  A batched operator is a
 sequence of ``P`` operators; ``P`` :class:`~..ops.operator.MatrixOperator`
 of one shape apply as one ``torch.matmul`` over their ``(P, n, n)`` stack.
-Pytree vectors, sharded spaces, ``eager``, selective reorthogonalization and
-differentiation are not batched (``ValueError``).
+
+Both drivers here, and those of ``batched_linsolve.py``,
+``batched_arnoldi.py`` and ``batched_expintegrator.py``, take a sharded
+space (``VectorSpace(psum_axis=mesh.axis("vec"))`` on a ``(batch, vec)``
+mesh of ``parallel/mesh.py``): each rank holds its batch row's problems, a
+``(P_b, ...)`` stack of its block of rows (``shard_vector(...,
+batched=True)``), and every collective runs over the ``vec`` axis only, so
+batch rows never talk during a solve.  A lock-step then all-reduces once
+for every stepping problem where the one-problem loop would once a
+problem: the stack apply of a shared sharded operator
+(``LinearOperator.normal_stack``), the ``(P,)`` inner products
+(``ops/vector.py:inner_batched``), a cgs sweep's ``(P, k)`` coefficients
+and the fused step's reductions and halos.  A fusable stencil whose
+``(R, 128)`` blocks the fused step's halos cannot serve (fewer rows than
+its reach, a grid row cut between ranks) raises
+(``factorizations/krylov.py:check_sharded_blocks``); the gate's other rules
+send a problem to the unfused lock-step, as on an unsharded space, never
+to a loop over problems.  Pytree vectors, ``eager``,
+selective reorthogonalization and differentiation are not batched
+(``ValueError``), nor is a sharded space in the GKL, Golub-Ye, BiArnoldi
+and Block Lanczos drivers.
 """
 
 from __future__ import annotations
@@ -79,10 +98,11 @@ def _tensors_only(what: str, vectors):
                              "leading problem axis")
 
 
-def _refuse(what: str, vectors, ops, space: VectorSpace, scalars=()):
-    """The pieces this module does not batch, each named."""
+def _refuse(what: str, vectors, ops, space: VectorSpace, scalars=(), sharded: bool = False):
+    """The pieces this module does not batch, each named; a sharded space
+    only where the driver does not take one (``sharded``)."""
     _tensors_only(what, vectors)
-    if space.psum_axis is not None:
+    if space.psum_axis is not None and not sharded:
         raise ValueError(f"{what}: a sharded space (VectorSpace(psum_axis=...)) is not batched")
     tensors = list(vectors) + [t for op in ops for t in op.tensors()]
     tensors += [a for a in scalars if isinstance(a, torch.Tensor)]
@@ -116,6 +136,9 @@ class _Operators:
     """The operator of each of ``P`` problems, applied to the vectors of a
     set of problems at once: one shared operator, or one per problem.
 
+    A shared operator with a stack apply of its own
+    (``LinearOperator.normal_stack``: the sharded operators of
+    ``parallel/``, one collective for all rows) applies a stack through it.
     Three kinds apply a stack in one batched kernel launch, each row
     bit-identical to the one-problem apply: a shared kernel-backed
     :class:`BandedOperator` (its planes shared by the rows), a sequence of
@@ -154,6 +177,7 @@ class _Operators:
         self.shared = not batched
         self.planes = _banded_planes(self.ops, self.shared)
         self.laplacian = not batched and isinstance(self.ops[0], Laplacian1DOperator)
+        self.own_stack = not batched and self.ops[0].normal_stack is not None
         mats = batched and all(type(o) is MatrixOperator for o in self.ops)
         As = [o.A for o in self.ops] if mats else []
         if As and all(
@@ -181,9 +205,18 @@ class _Operators:
         planes = self.adj_planes if adjoint else self.planes
         if planes is not None:
             return not torch.promote_types(planes.dtype, x.dtype).is_complex
+        if self.own_stack:
+            return self._own(adjoint) is not None
         return self.laplacian or (self.stack is not None and x.ndim == 1)
 
+    def _own(self, adjoint: bool):
+        """The shared operator's own stack apply (or ``None``)."""
+        o = self.ops[0]
+        return o.adjoint_stack if adjoint else o.normal_stack
+
     def _apply(self, X: torch.Tensor, ps, adjoint: bool) -> torch.Tensor:
+        if self.own_stack and self._own(adjoint) is not None:
+            return self._own(adjoint)(X)
         planes = self.adj_planes if adjoint else self.planes
         if planes is not None and self._batches(X[0], adjoint):
             o0 = self.ops[0].adj if adjoint else self.ops[0]
@@ -313,8 +346,9 @@ def eigsolve_lanczos_batched(op, x0, howmany: int, which, alg: Lanczos,
     _tensors_only("eigsolve_lanczos_batched", [x0])
     P = _batch_size(_count(op, op_dim, "op"), _count(x0, x_dim, "x0"))
     ops = _Operators(op, P, op_dim == 0)
-    _refuse("eigsolve_lanczos_batched", [x0], ops.distinct(), space)
+    _refuse("eigsolve_lanczos_batched", [x0], ops.distinct(), space, sharded=True)
     x0s = _problems(x0, x_dim, P)
+    kf.check_sharded_blocks("eigsolve_lanczos_batched", ops.distinct(), x0s, space)
     cdt = coeff_dtype or functools.reduce(
         torch.promote_types, [probe_dtype(o, x0s[0]) for o in ops.distinct()])
     rdt = cdt.to_real()
@@ -346,7 +380,7 @@ def eigsolve_lanczos_batched(op, x0, howmany: int, which, alg: Lanczos,
         op_dim is None
         and (type(alg.orth) is on.ClassicalGramSchmidt or dgks)
         and cdt == torch.float32
-        and kf.fused_available(ops.ops[0], x0s[0], space, kmax=m + 1)
+        and kf.fused_available_batched(ops.ops[0], x0s, space, kmax=m + 1)
     )
     keep_max = min((3 * m + 2 * max(howmany - 1, 0)) // 5, m - 1)
 
@@ -357,7 +391,7 @@ def eigsolve_lanczos_batched(op, x0, howmany: int, which, alg: Lanczos,
         scs = {p: st[p].sc for p in active}
         if fused:
             facts, scs, dops = kf.fused_expansions_batched(
-                ops.ops[0], Vb, facts, scs, m, btol, dgks=dgks)
+                ops.ops[0], Vb, facts, scs, m, btol, dgks=dgks, space=space)
             for p in active:
                 numops[p] += dops[p]
         else:
@@ -466,8 +500,9 @@ def linsolve_gmres_batched(op, b, x0, a0, a1, alg: GMRES, space: VectorSpace = S
     _tensors_only("linsolve_gmres_batched", [b, x0])
     P = _batch_size(_count(op, op_dim, "op"), _count(b, b_dim, "b"), _count(x0, x_dim, "x0"))
     ops = _Operators(op, P, op_dim == 0)
-    _refuse("linsolve_gmres_batched", [b, x0], ops.distinct(), space, (a0, a1))
+    _refuse("linsolve_gmres_batched", [b, x0], ops.distinct(), space, (a0, a1), sharded=True)
     bs_, xs = _problems(b, b_dim, P), _problems(x0, x_dim, P)
+    kf.check_sharded_blocks("linsolve_gmres_batched", ops.distinct(), bs_, space)
     dev = device_of(bs_[0])
     cdt = functools.reduce(torch.promote_types, [probe_dtype(o, bs_[0]) for o in ops.distinct()])
     for a in (a0, a1):
@@ -496,7 +531,7 @@ def linsolve_gmres_batched(op, b, x0, a0, a1, alg: GMRES, space: VectorSpace = S
         op_dim is None
         and (type(alg.orth) is on.ClassicalGramSchmidt or dgks)
         and cdt == torch.float32
-        and kf.fused_available(ops.ops[0], bs_[0], space, kmax=m + 1)
+        and kf.fused_available_batched(ops.ops[0], bs_, space, kmax=m + 1)
     )
     numiter, numops = [0] * P, [1] * P
 
@@ -533,7 +568,7 @@ def linsolve_gmres_batched(op, b, x0, a0, a1, alg: GMRES, space: VectorSpace = S
     Vb = None
     if fused:
         Vb = torch.zeros((P, m + 1) + tuple(bs_[0].shape), dtype=cdt, device=dev)
-        prime, advance, tail = kf.make_fused_stepper_batched(ops.ops[0], m + 1, dgks)
+        prime, advance, tail = kf.make_fused_stepper_batched(ops.ops[0], m + 1, dgks, space)
         btol = float(torch.tensor(torch.finfo(rdt).eps, dtype=rdt) ** 0.75)
 
     def cycle_fused(active):
@@ -577,10 +612,10 @@ def linsolve_gmres_batched(op, b, x0, a0, a1, alg: GMRES, space: VectorSpace = S
                 G[p], R[p], yt[p] = _qr_update(G[p], R[p], yt[p], shifted_col(h, beta_k, k), k)
                 numops[p] += 1
             stepping = nxt
-        out = {}
+        out, tails = {}, tail(carries, go)
         for p in active:
             k = carries[p].k
-            V, sc, _, beta_m, h = tail(carries[p], go[p])
+            V, sc, _, beta_m, h = tails[p]
             if go[p]:
                 G[p], R[p], yt[p] = _qr_update(G[p], R[p], yt[p], shifted_col(h, beta_m, k), k)
                 k += 1

@@ -29,9 +29,10 @@ design of ``solvers/batched.py``:
   ``factorizations/krylov.py:expand_batched``, with ``ops/basis.py``'s
   projection flag on one batched K5 and one batched K6 launch per sweep.
 
-``in_dims``, the shared or per-problem operator and the refusals (pytree
-vectors, sharded spaces, ``eager``, differentiation) are those of
-``solvers/batched.py``.
+``in_dims``, the shared or per-problem operator, a sharded space (one
+all-reduce a lock-step for every stepping problem, the fused step's halos
+each problem's) and the refusals (pytree vectors, ``eager``,
+differentiation) are those of ``solvers/batched.py``.
 """
 
 from __future__ import annotations
@@ -85,8 +86,9 @@ def _setup(what: str, op, x0, howmany: int, alg: Arnoldi, space: VectorSpace, in
     _tensors_only(what, [x0])
     P = _batch_size(_count(op, op_dim, "op"), _count(x0, x_dim, "x0"))
     ops = _Operators(op, P, op_dim == 0)
-    _refuse(what, [x0], ops.distinct(), space)
+    _refuse(what, [x0], ops.distinct(), space, sharded=True)
     x0s = _problems(x0, x_dim, P)
+    kf.check_sharded_blocks(what, ops.distinct(), x0s, space)
     pdt = functools.reduce(torch.promote_types,
                            [probe_dtype(o, x0s[0]) for o in ops.distinct()])
     return ops, x0s, pdt
@@ -132,7 +134,7 @@ def _arnoldi_loop_batched(ops: _Operators, x0s, howmany: int, which, alg: Arnold
         scs = {p: st[p].sc for p in active}
         if fused:
             facts, scs, dops = kf.fused_expansions_batched(
-                ops.ops[0], Vb, facts, scs, m, btol, dgks=dgks, hermitian=False)
+                ops.ops[0], Vb, facts, scs, m, btol, dgks=dgks, hermitian=False, space=space)
             for p in active:
                 numops[p] += dops[p]
         else:

@@ -20,9 +20,10 @@ together, as in ``solvers/batched.py``:
 * the host reads one list of the stepping problems' ``β`` per step, and the
   augmented exponential ``_phi_step`` runs per problem.
 
-``t`` is shared or given per problem (``in_dims``).  Pytree vectors,
-sharded spaces, ``eager`` and differentiation are not batched
-(``ValueError``).
+``t`` is shared or given per problem (``in_dims``).  A sharded space is
+batched as in ``solvers/batched.py`` (the fused step with each problem's
+halos, one all-reduce a lock-step).  Pytree vectors, ``eager`` and
+differentiation are not batched (``ValueError``).
 """
 
 from __future__ import annotations
@@ -81,11 +82,12 @@ def expintegrator_batched(op, t, u: tuple, alg, space: VectorSpace = STANDARD, *
                     *[_count(ui, d, "u") for ui, d in zip(u, u_dims)])
     ops = _Operators(op, P, op_dim == 0)
     ts = _problems(t, t_dim, P)
-    _refuse(what, u, ops.distinct(), space, ts)
+    _refuse(what, u, ops.distinct(), space, ts, sharded=True)
     ts = [_host_t(tp) for tp in ts]
     us = [tuple(_problems(ui, d, P)[p] for ui, d in zip(u, u_dims)) for p in range(P)]
     if len(u) == 1:
         us = [(up[0], zerovector(up[0])) for up in us]
+    kf.check_sharded_blocks(what, ops.distinct(), [up[0] for up in us], space)
     cdt = functools.reduce(torch.promote_types, [probe_dtype(o, us[0][0]) for o in ops.distinct()])
     if any(isinstance(tp, complex) and tp.imag != 0 for tp in ts):
         cdt = torch.promote_types(cdt, torch.complex64)
@@ -124,7 +126,7 @@ def expintegrator_batched(op, t, u: tuple, alg, space: VectorSpace = STANDARD, *
                 facts, scs, dops = kf.fused_expansions_batched(
                     ops.ops[0], Vb, {p: ints[p].fact for p in first},
                     {p: ints[p].sc for p in first}, m, {p: max(eps, rem[p]) for p in first},
-                    dgks=ints[0].dgks, hermitian=True, min_one=True)
+                    dgks=ints[0].dgks, hermitian=True, min_one=True, space=space)
                 for p in first:
                     ints[p].fact, ints[p].sc = facts[p], scs[p]
                     ints[p].numops += dops[p]

@@ -28,9 +28,12 @@ every scalar of the recurrence a ``(P,)`` tensor, as under ``vmap``:
   where some problem verifies its true residual.
 
 ``in_dims = (op_dim, b_dim, x0_dim)`` as in
-:func:`~.batched.linsolve_gmres_batched`; ``a0`` and ``a1`` are shared.
-Pytree vectors, sharded spaces and differentiation are not batched
-(``ValueError``).
+:func:`~.batched.linsolve_gmres_batched`; ``a0`` and ``a1`` are shared.  On
+a sharded space (``solvers/batched.py``) each rank runs its batch row's
+problems on its block of rows, and a step's inner products are one
+all-reduce of the ``(p,)`` partials each, its applies one stack apply of
+the shared sharded operator.  Pytree vectors and differentiation are not
+batched (``ValueError``).
 """
 
 from __future__ import annotations
@@ -112,7 +115,7 @@ class _Problem:
         self.P = _batch_size(_count(op, op_dim, "op"), _count(b, b_dim, "b"),
                              _count(x0, x_dim, "x0"))
         self.ops = _Operators(op, self.P, op_dim == 0)
-        _refuse(name, [b, x0], self.ops.distinct(), space, (a0, a1))
+        _refuse(name, [b, x0], self.ops.distinct(), space, (a0, a1), sharded=True)
         P = self.P
         self.B = b if b_dim == 0 else b.expand((P,) + tuple(b.shape))
         self.X0 = x0 if x_dim == 0 else x0.expand((P,) + tuple(x0.shape))

@@ -247,15 +247,13 @@ def test_warn_lines_of_a_batched_solve_match_jax_vmap():
 
 def test_batched_lanczos_refusals():
     """(h) each piece this slice does not batch raises ``ValueError`` with
-    its name."""
+    its name.  A sharded
+    space is batched: on a one-rank axis, the unsharded bits."""
     top = kt.laplacian_1d(N, device="cpu")
     X = torch.from_numpy(_starts(2))
     alg = kt.Lanczos(krylovdim=10)
     cases = [
         (lambda: kt.eigsolve_lanczos_batched(top, {"a": X}, 1, "LM", alg), "pytree"),
-        (lambda: kt.eigsolve_lanczos_batched(
-            top, X, 1, "LM", alg, space=kt.VectorSpace(psum_axis=MeshAxis("vec", None, 1, 0))),
-         "sharded"),
         (lambda: kt.eigsolve_lanczos_batched(top, X, 1, "LM", kt.Lanczos(krylovdim=10, eager=True)),
          "eager"),
         (lambda: kt.eigsolve_lanczos_batched(
@@ -270,6 +268,14 @@ def test_batched_lanczos_refusals():
     for call, word in cases:
         with pytest.raises(ValueError, match=word):
             call()
+    # a sharded space is batched: on a one-rank axis (no collective) each
+    # problem solves as on the unsharded space, bit for bit
+    short = kt.Lanczos(krylovdim=10, maxiter=2)
+    one = kt.VectorSpace(psum_axis=MeshAxis("vec", None, 1, 0))
+    got = kt.eigsolve_lanczos_batched(top, X, 1, "LM", short, space=one)
+    want = kt.eigsolve_lanczos_batched(top, X, 1, "LM", short)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got[2].numops, want[2].numops)
 
 
 def test_parametric_probe_makes_no_data_apply():

@@ -179,15 +179,13 @@ def test_realeigsolve_warn_lines_match_jax_vmap():
 
 def test_batched_arnoldi_refusals():
     """Each piece this slice does not batch raises ``ValueError`` with its
-    name."""
+    name.  A sharded
+    space is batched: on a one-rank axis, the unsharded bits."""
     top = convert.stencil_from_arrays(*NONSYM, "cpu")
     X = chip_smoke.batched_starts(torch, np, 16, 2, "cpu")
     alg = kt.Arnoldi(krylovdim=10)
     cases = [
         (lambda: kt.schursolve_batched(top, {"a": X}, 1, "LM", alg), "pytree"),
-        (lambda: kt.eigsolve_arnoldi_batched(
-            top, X, 1, "LM", alg, space=kt.VectorSpace(psum_axis=MeshAxis("vec", None, 1, 0))),
-         "sharded"),
         (lambda: kt.realeigsolve_arnoldi_batched(top, X, 1, "LM", kt.Arnoldi(krylovdim=10,
                                                                              eager=True)),
          "eager"),
@@ -203,3 +201,11 @@ def test_batched_arnoldi_refusals():
     for call, word in cases:
         with pytest.raises(ValueError, match=word):
             call()
+    # a sharded space is batched: on a one-rank axis (no collective) each
+    # problem solves as on the unsharded space, bit for bit
+    short = kt.Arnoldi(krylovdim=10, maxiter=2)
+    one = kt.VectorSpace(psum_axis=MeshAxis("vec", None, 1, 0))
+    got = kt.eigsolve_arnoldi_batched(top, X, 1, "LM", short, space=one)
+    want = kt.eigsolve_arnoldi_batched(top, X, 1, "LM", short)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got[2].numops, want[2].numops)

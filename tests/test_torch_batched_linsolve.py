@@ -257,18 +257,21 @@ def test_batched_cg_warn_lines_match_jax_vmap():
 
 @pytest.mark.parametrize("driver", ["cg", "minres", "bicgstab"])
 def test_batched_linsolve_refusals(driver):
-    """Pytree vectors, a sharded space and an input that requires grad are
-    refused with a ``ValueError`` that names them; so are problem counts
-    that disagree."""
+    """Pytree vectors and an input that requires grad are refused with a
+    ``ValueError`` that names them; so are problem counts that disagree.  A
+    sharded space is batched (a one-rank axis: the unsharded bits)."""
     tbatched, tcls = DRIVERS[driver][3], DRIVERS[driver][4]
     A = torch.eye(8, dtype=torch.float64) * 2
     B = torch.ones(2, 8, dtype=torch.float64)
     alg = tcls()
     with pytest.raises(ValueError, match="pytree"):
         tbatched(A, {"b": B}, {"b": B}, 0.0, 1.0, alg)
-    with pytest.raises(ValueError, match="sharded space"):
-        tbatched(A, B, torch.zeros_like(B), 0.0, 1.0, alg,
-                 kt.VectorSpace(psum_axis=MeshAxis("vec", None, 1, 0)))
+    # a sharded space is batched: on a one-rank axis (no collective) each
+    # problem solves as on the unsharded space, bit for bit
+    got = tbatched(A, B, torch.zeros_like(B), 0.0, 1.0, alg,
+                   kt.VectorSpace(psum_axis=MeshAxis("vec", None, 1, 0)))
+    want = tbatched(A, B, torch.zeros_like(B), 0.0, 1.0, alg)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1].numops, want[1].numops)
     with pytest.raises(ValueError, match="differentiation"):
         tbatched(A, B.clone().requires_grad_(True), torch.zeros_like(B), 0.0, 1.0, alg)
     with pytest.raises(ValueError, match="differentiation"):

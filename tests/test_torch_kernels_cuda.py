@@ -1359,3 +1359,39 @@ def test_batched_block_lanczos_on_card_is_each_one_problem_solve():
             assert torch.equal(vals[p], v1) and torch.equal(vecs[p], w1)
             assert torch.equal(info.normres[p], i1.normres)
             assert torch.equal(info.residual[p], i1.residual)
+
+
+@pytest.mark.parametrize("kind", ["chain", "chain_multirow", "grid"])
+@pytest.mark.parametrize("Bs", [[16, 16, 16], [5, 2, 7], [0, 0, 0]], ids=["equal", "mixed", "B0"])
+def test_batched_fused_step_with_each_problems_halos_is_one_problem_launches(kind, Bs):
+    """Batched K1 with every problem's external halos (a rank's blocks of
+    split vectors: ``Vext (P, kmax, 2, h, 128)``, ``yext (P, 2, h, 128)``),
+    one launch per distinct ``B``: each problem bit-identical to a
+    one-problem launch with its halos, within the one-problem tolerance of
+    the plain version, its other rows untouched."""
+    from chip_smoke import check_batched_step
+
+    op, R = _fused_op(kind, 512)
+    before = _build.launches["fused_step_batched"]
+    case = check_batched_step(torch, fl, op, len(Bs), R, 31, Bs, True, _gen(170 + sum(Bs)),
+                              timed=False, grouped=True, ext=True)
+    assert _build.launches["fused_step_batched"] == before + len(set(Bs))
+    assert case["bit_identical_to_one_problem_launches"]
+
+
+def test_batched_fused_step_halos_are_checked_on_card():
+    """Both halos or neither, each problem's shape, 16-byte alignment: a
+    ``ValueError`` before any launch."""
+    spec, V, y, g = _batched_inputs("chain", 2, 9, 3)
+    h = spec.h
+    Vext = torch.zeros((2, 9, 2, h, 128), device="cuda")
+    yext = torch.zeros((2, 2, h, 128), device="cuda")
+    before = _build.launches["fused_step_batched"]
+    with pytest.raises(ValueError, match="both external halos"):
+        fl.fused_step_batched(V, y, g, 1, 1, spec, Vext=Vext)
+    with pytest.raises(ValueError, match="halos"):
+        fl.fused_step_batched(V, y, g, 1, 1, spec, Vext=Vext[:, :5], yext=yext)
+    odd = torch.zeros(Vext.numel() + 1, device="cuda")[1:].view(Vext.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        fl.fused_step_batched(V, y, g, 1, 1, spec, Vext=odd, yext=yext)
+    assert _build.launches["fused_step_batched"] == before

@@ -1,0 +1,133 @@
+"""PyTorch port: fused batched solves on a sharded space against the JAX
+package on the CPU (a part of ``tests/test_torch_sharded_batched.py``).
+
+One group of 4 gloo ranks on the CPU, a ``batch 2 × vec 2`` mesh, runs the
+fused Hermitian scenarios of ``chip_smoke.sharded_batched_cases`` on
+``shard_local_stencil`` operators (float32 ``(32, 128)`` blocks a rank):
+Lanczos on ``laplacian_1d`` and ``exponentiate`` of the ``(1, −2, 1)``
+chain (``schursolve`` and GMRES: ``..._fused_nonsym.py``).  Every lock-step
+is one batched K1 launch per distinct live-row count with every problem's
+external halos (its plain version on the CPU), then one all-reduce for all
+the stepping problems.  The JAX side is ``jax.vmap`` inside the
+``shard_map`` body with ``psum_axis="vec"`` and the fused kernel in
+interpret mode (``tests/test_fused_lanczos.py:734-800``), on 4 of the
+conftest's virtual CPU devices as a ``(batch, vec)`` mesh.
+
+Tolerances: values rtol 2e-4 (two roundings of one kernel), ``y`` within
+2e-4 of its largest entry, counts equal.  Each problem is also held against
+its one-problem sharded solve: the same bits (two ``vec`` ranks), counts
+and WARN lines.
+"""
+
+from functools import partial
+
+import numpy as np
+import pytest
+
+import chip_smoke
+import krylovkit_tpu as kk
+import krylovkit_tpu.parallel as jpar
+
+WORLD = 4
+SCENARIOS = ("lanczos_fused", "exponentiate_fused")
+
+
+@pytest.fixture(scope="module")
+def ranks():
+    res = chip_smoke.run_ranks(WORLD, "sharded_batched_cases", dev="cpu", timeout=400,
+                               names=SCENARIOS)
+    return chip_smoke.same_on_every_rank(np, res)
+
+
+def _case(ranks, name):
+    out = ranks[name]
+    assert "error" not in out, out.get("error")
+    assert out["fused"]
+    assert out["one_problem_counts"] == [list(c) for c in zip(
+        out["numops"], out["numiter"], out["converged"])]
+    assert out["one_problem_bits"] and out["warn_lines_equal"]
+    return out
+
+
+def _vmapped_in_shard_map(body, X, n_out):
+    """``jax.vmap(body)`` over this device's problems inside ``shard_map`` on
+    a ``(batch 2, vec 2)`` mesh, the fused kernel in interpret mode; ``X``
+    ``(P, R, 128)`` split over both axes.  ``body`` returns ``n_out``
+    per-problem values (leading axis the problem) and a vector last."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec as Ps
+
+    from krylovkit_tpu.factorizations import krylov as jkf
+
+    if len(jax.devices()) < WORLD:
+        pytest.skip(f"needs {WORLD} virtual devices")
+    mesh = Mesh(np.array(jax.devices()[:WORLD]).reshape(2, 2), ("batch", "vec"))
+    vec_spec = Ps("batch", "vec", None)
+
+    @partial(jax.shard_map, mesh=mesh, in_specs=vec_spec,
+             out_specs=(Ps("batch"),) * n_out + (vec_spec,), check_vma=False)
+    def run(Xl):
+        return jax.vmap(body)(Xl)
+
+    old = jkf.fused_interpret
+    jkf.fused_interpret = True
+    try:
+        return jax.jit(run)(jax.device_put(jnp.asarray(X), NamedSharding(mesh, vec_spec)))
+    finally:
+        jkf.fused_interpret = old
+
+
+def _space():
+    from krylovkit_tpu.ops.vector import VectorSpace as JSpace
+
+    return JSpace(psum_axis="vec")
+
+
+def _counts_equal(out, numops, numiter, conv):
+    assert out["numops"] == np.asarray(numops).tolist()
+    assert out["numiter"] == np.asarray(numiter).tolist()
+    assert out["converged"] == np.asarray(conv).tolist()
+
+
+def test_sharded_batched_fused_lanczos_matches_jax(ranks):
+    out = _case(ranks, "lanczos_fused")
+    import jax.numpy as jnp
+
+    from krylovkit_tpu.solvers.lanczos import eigsolve_lanczos
+
+    prob = chip_smoke.sharded_batched_problem(np, "lanczos_fused")
+    op = jpar.shard_local_stencil(jpar.laplacian_1d(prob["n"], jnp.float32), "vec")
+    alg = kk.Lanczos(krylovdim=16, maxiter=3, tol=1e-6)
+
+    def body(x):
+        vals, vecs, info = eigsolve_lanczos(op, x, 2, "LM", alg, space=_space())
+        return vals, info.numops, info.numiter, info.converged, vecs[0]
+
+    vals, numops, numiter, conv, v0 = _vmapped_in_shard_map(body, prob["X"], 4)
+    np.testing.assert_allclose(out["vals"], np.asarray(vals), rtol=2e-4)
+    _counts_equal(out, numops, numiter, conv)
+    for p in range(len(v0)):
+        a, b = out["vecs"][p].ravel(), np.asarray(v0[p]).ravel()
+        np.testing.assert_allclose(abs(np.dot(a, b)), 1.0, rtol=1e-3)
+    # one all-reduce a lock-step for both problems of a batch row, not one each
+    assert out["collectives"][0] < out["one_problem_collectives"][0]
+
+
+def test_sharded_batched_fused_exponentiate_matches_jax(ranks):
+    out = _case(ranks, "exponentiate_fused")
+
+    from krylovkit_tpu.solvers.expintegrator import _expintegrator_core
+
+    prob = chip_smoke.sharded_batched_problem(np, "exponentiate_fused")
+    op = jpar.shard_local_stencil(kk.StencilOperator(*chip_smoke.FRONT_END_NEG_LAP), "vec")
+    alg = kk.Lanczos(krylovdim=20, tol=1e-5)
+
+    def body(x):
+        y, info = _expintegrator_core(op, 0.1, (x,), alg, _space())
+        return info.numops, info.numiter, info.converged, y
+
+    numops, numiter, conv, y = _vmapped_in_shard_map(body, prob["X"], 3)
+    y = np.asarray(y)
+    np.testing.assert_allclose(out["y"], y, rtol=0, atol=2e-4 * float(np.abs(y).max()))
+    _counts_equal(out, numops, numiter, conv)
