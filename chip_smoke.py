@@ -133,6 +133,10 @@ without the final ``ok`` line:
    projection flag) on two card ranks against two CPU ranks: within
    1e-12 (float32 2e-4), counts equal, batched K1 (with every problem's
    halos) and batched K5/K6 on every card rank, no one-problem launch;
+   and the batched GKL ``svdsolve``, LSMR, Golub-Ye, BiArnoldi and Block
+   Lanczos (``SMALL_SHARDED_BATCHED_SOLVES``, float64, two problems,
+   capped by ``SMALL_SHARDED_BATCHED_CAPS``), each problem bit-identical to
+   its one-problem sharded solve on the card ranks too;
 23. nccl_mesh1 — one rank over NCCL, ``make_mesh(1)``: the halo plan is
    communication-free and the sharded ELL apply equals ``sparse.from_coo``'s
    bit for bit;
@@ -175,7 +179,15 @@ without the final ``ok`` line:
    :data:`BIEIG_ITERS`; the adjoint plan); the fused ``exponentiate`` of config 4 on ``shard_local_stencil``
    (K1 per rank).  Counts, launches per rank and every rank's bits equal,
    values within 1e-4, the linear solves' true residuals within 1e-3; the
-   slowest rank's ms, the collectives and their ms, the one-rank ms;
+   slowest rank's ms, the collectives (by kind) and their ms, the one-rank
+   ms.  Then the batched half, :data:`FE_BATCH_P` = 2 problems a solve on
+   the same ranks (problem 0 the phase's own start), warmed up once at one
+   iteration each and then timed at :data:`FE_BATCHED_ITERS`: Block
+   Lanczos and Golub-Ye on config 5's operator, BiArnoldi, GKL ``svdsolve``
+   and LSMR on config 4's tridiagonal; problem 0 bit for bit its
+   one-problem sharded solve (the phase's own where it ran one), batched
+   K2/K5/K6 only and as many as predicted, fewer all-reduces than P
+   one-problem solves (by kind beside them);
 28. pytree_drivers — small float64 tree solves (``svdsolve`` from a dict
    domain to a tuple codomain, ``lssolve`` with λ, ``geneigsolve``,
    ``expintegrator`` with three vectors, Block Lanczos on a ``Block`` of
@@ -2761,11 +2773,13 @@ def compare_sharded(np, card, cpu, phase="small_sharded", tol64=None):
 def small_sharded_rank(torch, np, kt, dev="cpu", names=None, batched_names=None):
     """Phase ``small_sharded`` on this rank, in one process: :func:`sharded_cases`
     of ``names``, then :func:`sharded_batched_cases` of ``batched_names``
-    (no one-problem loops), each part's seconds beside it."""
+    (one-problem loops for :data:`SMALL_SHARDED_BATCHED_SOLVES` only, cut
+    to ``small``), each part's seconds beside it."""
     t0 = time.perf_counter()
     sharded = sharded_cases(torch, np, kt, dev, names)
     t1 = time.perf_counter()
-    batched = sharded_batched_cases(torch, np, kt, dev, batched_names, one_problem=False)
+    batched = sharded_batched_cases(torch, np, kt, dev, batched_names,
+                                    one_problem=SMALL_SHARDED_BATCHED_SOLVES, small=True)
     return {"sharded": sharded, "batched": batched,
             "seconds": {"sharded": t1 - t0, "batched": time.perf_counter() - t1}}
 
@@ -2777,7 +2791,8 @@ def small_sharded(torch, np, world=2):
     the CPU (float64), counts equal, and the kernels of the fused and K5
     scenarios launched on every card rank; then :func:`small_sharded_batched`."""
     t0 = time.perf_counter()
-    kw = {"names": SMALL_SHARDED, "batched_names": SMALL_SHARDED_BATCHED}
+    kw = {"names": SMALL_SHARDED,
+          "batched_names": SMALL_SHARDED_BATCHED + SMALL_SHARDED_BATCHED_SOLVES}
     on_card = start_ranks(world, "small_sharded_rank", dev="cuda", threads=2, timeout=600, **kw)
     on_cpu = start_ranks(world, "small_sharded_rank", dev="cpu", threads=2, timeout=600, **kw)
     try:
@@ -2816,6 +2831,16 @@ def small_sharded(torch, np, world=2):
 # sharded_cases' gmres_batched, and the rest in the CPU tests only
 SMALL_SHARDED_BATCHED = ("lanczos_fused", "schursolve_fused", "exponentiate_fused",
                          "gmres_fused", "arnoldi_flag")
+# and the GKL, LSMR and pencil drivers (float64, no kernel), each problem
+# held against its one-problem sharded solve on the card too, with fewer
+# problems and at caps that keep the phase short (gloo all-reduces of CUDA
+# tensors take ms: at four problems the five added 6.2-7.4 s to the card
+# ranks' time on an NVIDIA H100 80GB HBM3, 700.00 W)
+SMALL_SHARDED_BATCHED_SOLVES = ("gkl", "lsmr", "golubye", "biarnoldi", "blocklanczos")
+SMALL_SHARDED_BATCHED_P = 2
+SMALL_SHARDED_BATCHED_CAPS = {"gkl": {"maxiter": 1}, "lsmr": {"maxiter": 10},
+                              "golubye": {"maxiter": 2}, "biarnoldi": {"maxiter": 1},
+                              "blocklanczos": {"maxiter": 1}}
 
 
 def small_sharded_batched(np, card, cpu, world=2, seconds=None):
@@ -2824,8 +2849,19 @@ def small_sharded_batched(np, card, cpu, world=2, seconds=None):
     against CPU ranks: within 1e-12 (float32 2e-4), counts equal, batched
     K1 and K5 launched on every card rank and no one-problem K1, K2, K5 or
     K6 (the one-problem sharded solves they are held against bit for bit
-    run in the CPU tests, ``tests/test_torch_sharded_batched*.py``).
-    Returns the launches per rank."""
+    run in the CPU tests, ``tests/test_torch_sharded_batched*.py``); the
+    GKL, LSMR and pencil drivers each problem bit-identical to its
+    one-problem sharded solve on the card ranks, with its counts.  Returns
+    the launches per rank."""
+    for name in SMALL_SHARDED_BATCHED_SOLVES:
+        got = card[name]
+        require("error" not in got, f"small_sharded_batched {name}: ran ({got.get('error')})")
+        require(got["one_problem_bits"] and got["warn_lines_equal"],
+                f"small_sharded_batched {name}: each problem its one-problem sharded solve, "
+                "bit for bit, with its WARN lines")
+        require(got["one_problem_counts"] == [list(c) for c in zip(
+            got["numops"], got["numiter"], got["converged"])],
+            f"small_sharded_batched {name}: the one-problem counts")
     for name in SMALL_SHARDED_BATCHED:
         got = card[name]
         kernels = {"arnoldi_flag": ("project_batched", "unproject_batched")}.get(
@@ -2843,7 +2879,10 @@ def small_sharded_batched(np, card, cpu, world=2, seconds=None):
     emit({"phase": "small_sharded_batched", "ranks": world, "backend": "gloo",
           "mesh": {"batch": max(world // 2, 1), "vec": 2}, "problems": SHARDED_BATCHED_P,
           "scenarios": records, "collectives_per_solve": {
-              name: card[name]["collectives"] for name in SMALL_SHARDED_BATCHED},
+              name: card[name]["collectives"] for name in card},
+          "one_problem_collectives": {name: card[name]["one_problem_collectives"]
+                                      for name in SMALL_SHARDED_BATCHED_SOLVES},
+          "caps": SMALL_SHARDED_BATCHED_CAPS, "problems_capped": SMALL_SHARDED_BATCHED_P,
           "tolerance": SMALL_SHARDED_TOL, "tolerance_float32": SMALL_SHARDED_TOL32,
           "launches_per_rank": launches, "rank_seconds": seconds})
     return launches
@@ -3052,6 +3091,16 @@ SHARDED_BATCHED_P = 4  # problems of every scenario, split over the batch axis
 SHARDED_BATCHED_N32 = 1 << 13  # float32 chains: (64, 128) vectors, 32 rows a rank
 SHARDED_BATCHED_ARNOLDI_N = 1 << 11  # the flag's K5 takes (8, 128) blocks a rank
 SHARDED_BATCHED_GRID = (32, 256)  # fused GMRES: 64 layout rows, whole grid rows a rank
+SHARDED_BATCHED_RECT = (128, 64)  # GKL and LSMR: a rectangular sharded ELL operator
+SHARDED_BATCHED_PENCIL_N = 64  # Golub-Ye, BiArnoldi and Block Lanczos
+SHARDED_BATCHED_BLOCK = 2  # Block Lanczos: the block size
+SHARDED_BATCHED_ALGS = {  # the algorithms of the GKL, LSMR and pencil scenarios (float64)
+    "gkl": dict(krylovdim=12, maxiter=20, tol=1e-10),
+    "lsmr": dict(krylovdim=5, maxiter=60, tol=1e-9),
+    "golubye": dict(krylovdim=8, maxiter=40, tol=1e-10),
+    "biarnoldi": dict(krylovdim=12, maxiter=100, tol=1e-10),
+    "blocklanczos": dict(krylovdim=12, maxiter=40, tol=1e-10),
+}
 SHARDED_BATCHED_KERNELS = ("fused_step", "fused_step_batched", "transform_partial",
                            "transform_partial_batched", "project", "project_batched",
                            "unproject", "unproject_batched")
@@ -3082,6 +3131,27 @@ def sharded_batched_problem(np, name):
                np.concatenate([d, np.full(n - 1, 0.02)]).astype(np.float32))
         return {"n": n, "coo": coo,
                 "X": rng.standard_normal((P, n // 128, 128)).astype(np.float32)}
+    if name in ("gkl", "lsmr"):
+        m, n = SHARDED_BATCHED_RECT
+        return {"n": n, "shape": (m, n), "coo": ("rect", m, n, 4, 3),
+                "X": rng.standard_normal((P, m))}
+    if name in ("golubye", "biarnoldi", "blocklanczos"):
+        n = SHARDED_BATCHED_PENCIL_N
+        out = {"n": n, "shape": (n, n), "coo": ("banded", n, 4, 11, True)}
+        if name == "golubye":
+            i = np.arange(n)
+            out["coo_b"] = (i, i, 1.0 + rng.random(n))  # a diagonal SPD B
+        if name == "biarnoldi":
+            # random non-symmetric couplings on a graded diagonal: well
+            # separated eigenvalues of largest modulus
+            rows, cols, vals = tridiagonal_coo(np, n, *FRONT_END_TRI, np.float64)
+            off = rows != cols
+            vals[off] = 0.1 * rng.standard_normal(int(off.sum()))
+            vals[~off] = 4 * np.linspace(0, 1, n) ** 8
+            out["coo"] = (rows, cols, vals)
+            out["Y"] = rng.standard_normal((P, n))
+        shape = (P, SHARDED_BATCHED_BLOCK, n) if name == "blocklanczos" else (P, n)
+        return {**out, "X": rng.standard_normal(shape)}
     n = FRONT_END_N
     if name == "bicgstab":
         coo = tridiagonal_coo(np, n, *FRONT_END_TRI, np.float64)
@@ -3090,7 +3160,21 @@ def sharded_batched_problem(np, name):
     return {"n": n, "coo": coo, "X": rng.standard_normal((P, n))}
 
 
-def sharded_batched_cases(torch, np, kt, dev="cpu", names=None, one_problem=True):
+def sharded_batched_coo(par, prob, key="coo"):
+    """The COO triplets of ``prob[key]`` (:func:`sharded_batched_problem`):
+    given, or made by ``par`` (this port's ``parallel`` module or the JAX
+    package's: both make the same triplets) from ``("banded", n, halfband,
+    seed, spd)`` or ``("rect", m, n, nnz_per_row, seed)``."""
+    spec = prob[key]
+    if isinstance(spec[0], str):
+        kind, *args = spec
+        if kind == "banded":
+            return par.banded_coo(args[0], halfband=args[1], seed=args[2], spd=args[3])
+        return par.rect_sparse_coo(args[0], args[1], nnz_per_row=args[2], seed=args[3])
+    return spec
+
+
+def sharded_batched_cases(torch, np, kt, dev="cpu", names=None, one_problem=True, small=False):
     """The batched drivers on a sharded space, on this rank (called on every
     rank of a group, ``run_ranks``): a ``(world/2, 2)`` mesh of ``make_mesh(
     batch=world // 2)``, :data:`SHARDED_BATCHED_P` problems split over its
@@ -3104,12 +3188,20 @@ def sharded_batched_cases(torch, np, kt, dev="cpu", names=None, one_problem=True
     BiCGStab on the sharded tridiagonal, ``schursolve`` fused on a
     non-symmetric chain, ``eigsolve_arnoldi`` unfused with the projection
     flag on (float32, the sharded bidiagonal), ``exponentiate`` fused and
-    GMRES fused on the sharded grid stencil, and the stack applies of the
-    sharded operators against their one-vector applies.  Each solve runs at
-    ``WARN`` and, with ``one_problem``, after it each of this rank's
-    problems through its one-problem sharded solve: whether the results are
-    the same bits, the WARN lines the same lines, the one-problem counts and
-    collectives.  Each returns
+    GMRES fused on the sharded grid stencil, the batched GKL, LSMR and
+    pencil drivers (below), and the stack applies of the sharded operators
+    against their one-vector applies.  Each solve runs at
+    ``WARN`` and, with ``one_problem`` (true, or the names of the scenarios
+    that take it), after it each of this rank's problems through its
+    one-problem sharded solve: whether the results are the same bits, the
+    WARN lines the same lines, the one-problem counts and collectives.  The
+    GKL, LSMR and pencil scenarios (``gkl``, ``lsmr``: the sharded
+    rectangular ELL operator; ``golubye`` with a sharded diagonal ``B``,
+    ``biarnoldi`` on a non-symmetric tridiagonal, ``blocklanczos`` with
+    blocks of :data:`SHARDED_BATCHED_BLOCK`; float64) take the algorithms
+    of :data:`SHARDED_BATCHED_ALGS`; with ``small``, their first
+    :data:`SMALL_SHARDED_BATCHED_P` problems only, at the caps of
+    :data:`SMALL_SHARDED_BATCHED_CAPS`.  Each returns
     global values (gathered over both axes), per-problem counts, and per
     batch row the kernel launches and the collectives of the batched solve,
     or ``{"error": traceback}``; ``names`` picks some."""
@@ -3170,7 +3262,7 @@ def sharded_batched_cases(torch, np, kt, dev="cpu", names=None, one_problem=True
         tensors, info = pick(res)
         out = {**counts(info), "launches": {k: v for k, v in launches.items() if any(v)},
                "collectives": [r[-1] for r in rows]}
-        if not one_problem:
+        if not checked:
             return res, out
         pc.reset_stats()
         ones, one_lines = quiet(lambda: [pick(one(x)) for x in X])
@@ -3299,6 +3391,67 @@ def sharded_batched_cases(torch, np, kt, dev="cpu", names=None, one_problem=True
                           lambda r: ((r[0],), r[1]))
         return {"y": full(y, 1), "fused": fused_gate(op, X, alg.krylovdim), **rec}
 
+    def sparse(prob, key="coo"):
+        return Pm.sharded_ell_from_coo(*sharded_batched_coo(Pm, prob, key), prob["shape"], mesh)
+
+    def alg_kw(name):
+        cut = SMALL_SHARDED_BATCHED_CAPS[name] if small else {}
+        return {**SHARDED_BATCHED_ALGS[name], **cut}
+
+    def problem(name):
+        prob = sharded_batched_problem(np, name)
+        if small:
+            prob.update({k: prob[k][:SMALL_SHARDED_BATCHED_P] for k in ("X", "Y") if k in prob})
+        return prob
+
+    def gkl(name):
+        from krylovkit_tpu_torch.solvers import lssolve as lss, svdsolve as svs
+
+        prob = problem(name)
+        op, X = sparse(prob), sv(prob["X"])
+        if name == "gkl":
+            alg = kt.GKL(**alg_kw(name))
+            (vals, _, _, _), rec = run(
+                lambda: kt.svdsolve_gkl_batched(op, X, 2, "LR", alg, space),
+                lambda x: svs.svdsolve_gkl(op, x, 2, "LR", alg, space), X,
+                lambda r: ((r[0], r[1], r[2]), r[3]))
+            return {"vals": full(vals), **rec}
+        alg = kt.LSMR(**alg_kw(name))
+        (x, _), rec = run(lambda: kt.lssolve_lsmr_batched(op, X, alg, 0.0, space),
+                          lambda b: lss.lssolve_lsmr(op, b, alg, 0.0, space), X,
+                          lambda r: ((r[0],), r[1]))
+        return {"X": full(x, 1), **rec}
+
+    def pencil(name):
+        from krylovkit_tpu_torch.solvers import biarnoldi as ba, blocklanczos as bl, golubye as gy
+
+        prob = problem(name)
+        op = sparse(prob)
+        if name == "golubye":
+            X, opB = sv(prob["X"]), sparse(prob, "coo_b")
+            alg = kt.GolubYe(**alg_kw(name))
+            (vals, _, _), rec = run(
+                lambda: kt.geneigsolve_golubye_batched(op, opB, X, 2, "SR", alg, space),
+                lambda x: gy.geneigsolve_golubye(op, opB, x, 2, "SR", alg, space), X,
+                lambda r: ((r[0], r[1]), r[2]))
+            return {"vals": full(vals), **rec}
+        if name == "biarnoldi":
+            V0, W0 = sv(prob["X"]), sv(prob["Y"])
+            alg = kt.BiArnoldi(**alg_kw(name))
+            (vals, _, _), rec = run(
+                lambda: kt.bieigsolve_batched(op, V0, W0, 2, "LM", alg, space),
+                lambda vw: ba.bieigsolve_driver(op, vw[0], vw[1], 2, "LM", alg, space),
+                list(zip(V0, W0)), lambda r: ((r[0], r[1][0], r[1][1]), r[2][0]))
+            return {"vals": full(torch.stack([vals.real, vals.imag], dim=1)), **rec}
+        # each problem's (b, n) start block: its rows split over the vec axis
+        X = torch.stack([sv(prob["X"][:, j]) for j in range(SHARDED_BATCHED_BLOCK)], dim=1)
+        alg = kt.BlockLanczos(**alg_kw(name))
+        (vals, _, _), rec = run(
+            lambda: kt.eigsolve_blocklanczos_batched(op, X, 2, "LM", alg, space),
+            lambda x: bl.eigsolve_blocklanczos(op, x, 2, "LM", alg, space), X,
+            lambda r: ((r[0], r[1]), r[2]))
+        return {"vals": full(vals), **rec}
+
     def stack_apply():
         # each sharded operator's stack apply against its one-vector apply,
         # row by row and bit for bit, and its collectives: one for all rows
@@ -3334,11 +3487,17 @@ def sharded_batched_cases(torch, np, kt, dev="cpu", names=None, one_problem=True
         "lanczos_fused": lambda: lanczos("lanczos_fused"),
         "schursolve_fused": lambda: arnoldi("schursolve_fused"),
         "exponentiate_fused": exponentiate_fused, "gmres_fused": gmres_fused,
+        "gkl": lambda: gkl("gkl"), "lsmr": lambda: gkl("lsmr"),
+        "golubye": lambda: pencil("golubye"), "biarnoldi": lambda: pencil("biarnoldi"),
+        "blocklanczos": lambda: pencil("blocklanczos"),
     }
     out = {}
     for name, fn in scenarios.items():
         if names is not None and name not in names:
             continue
+        # read by run(): whether this scenario's problems meet their
+        # one-problem solves
+        checked = one_problem if isinstance(one_problem, bool) else name in one_problem
         try:
             out[name] = fn()
         except Exception:  # noqa: BLE001 - the same on every rank; reported per scenario
@@ -3658,29 +3817,93 @@ def nccl_mesh1(torch, np, kt, dev="cuda", n=1 << 16):
             "comm": op.comm_summary()}
 
 
-def rank_solve(torch, ax, solve):
+# (file, function) of the once-a-round work that keeps one all-reduce per
+# problem in a batched solve
+ROUND_COLLECTIVES = (("golubye.py", "_ritz"), ("golubye.py", "_restart"),
+                     ("biarnoldi.py", "_round"))
+# kinds named by a function on the all-reduce's stack, the first that
+# matches (its name, or its (file, name)); else "inner_norm"
+COLLECTIVE_KINDS = (
+    ("round_per_problem", ROUND_COLLECTIVES),
+    ("apply", ("_spmv", "_swap")),
+    ("gram", ("gram_batched", "gram")),
+    ("block_qr", ("block_qr_batched", "block_qr")),
+    ("sweep", ("_cgs_sweep_batched", "_cgs_sweep", "_mgs_sweep")),
+    ("projection", ("project_batched", "project")),
+)
+
+
+def _collective_kind(sys_mod):
+    """The kind of the all-reduce being started (:data:`COLLECTIVE_KINDS`,
+    read off the Python stack); an apply of an adjoint (an ``apply_adjoint``
+    or ``_Operators._apply(adjoint=True)`` frame) is ``adjoint_apply``."""
+    seen, adjoint = set(), False
+    f = sys_mod._getframe(2)
+    while f is not None:
+        code = f.f_code
+        seen.add(code.co_name)
+        seen.add((os.path.basename(code.co_filename), code.co_name))
+        if code.co_name == "apply_adjoint" or (code.co_name == "_apply"
+                                               and f.f_locals.get("adjoint") is True):
+            adjoint = True
+        f = f.f_back
+    for kind, names in COLLECTIVE_KINDS:
+        if seen.intersection(names):
+            return "adjoint_apply" if kind == "apply" and adjoint else kind
+    return "inner_norm"
+
+
+class CollectiveKinds:
+    """Inside, every all-reduce of ``ops/collectives.py`` is also counted by
+    kind (:func:`_collective_kind`) in ``counts``; a walk up the Python
+    stack per all-reduce, microseconds against its milliseconds."""
+
+    def __init__(self):
+        from krylovkit_tpu_torch.ops import collectives as pc
+
+        self.pc, self.counts = pc, {}
+
+    def __enter__(self):
+        real = self.real = self.pc._all_reduce_start
+
+        def counted(t, group):
+            kind = _collective_kind(sys)
+            self.counts[kind] = self.counts.get(kind, 0) + 1
+            return real(t, group)
+
+        self.pc._all_reduce_start = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.pc._all_reduce_start = self.real
+
+
+def rank_solve(torch, ax, solve, warm=True):
     """``solve()`` on this rank once to warm up (library loads, the first
-    launch of each kernel), then once more, timed, with the launch counts
-    and the collective counters set to 0 just before it and read just
-    after (``time_collectives`` on: each all-reduce is timed from its start
-    to its wait, less the work it overlaps); each rank's times are gathered
-    to every rank.  Returns ``(result, record)``."""
+    launch of each kernel; skipped without ``warm``), then once more,
+    timed, with the launch counts and the collective counters set to 0 just
+    before it and read just after (``time_collectives`` on: each all-reduce
+    is timed from its start to its wait, less the work it overlaps; each
+    counted by kind, :class:`CollectiveKinds`); each rank's times are
+    gathered to every rank.  Returns ``(result, record)``."""
     from krylovkit_tpu_torch import _build
     from krylovkit_tpu_torch.ops import collectives as pc
 
     dev = torch.device(f"cuda:{torch.cuda.current_device()}") if torch.cuda.is_available() \
         else torch.device("cpu")
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    solve()
+    if warm:
+        solve()
     sync()
     _build.reset_launches()
     pc.reset_stats()
     pc.time_collectives = True
     try:
-        t0 = time.perf_counter()
-        out = solve()
-        sync()
-        ms = (time.perf_counter() - t0) * 1e3
+        with CollectiveKinds() as kinds:
+            t0 = time.perf_counter()
+            out = solve()
+            sync()
+            ms = (time.perf_counter() - t0) * 1e3
     finally:
         pc.time_collectives = False
     launches = {k: v for k, v in _build.launches.items() if v}
@@ -3688,6 +3911,7 @@ def rank_solve(torch, ax, solve):
     per_rank = gather(torch, ax, torch.tensor([[ms, coll["seconds"] * 1e3]],
                                               dtype=torch.float64, device=dev)).cpu().tolist()
     return out, {"launches_per_rank": launches, "collectives_per_solve": coll["collectives"],
+                 "collectives_by_kind": dict(sorted(kinds.counts.items())),
                  "collective_bytes_per_solve": coll["bytes"],
                  "ms_per_solve_by_rank": [r[0] for r in per_rank],
                  "collective_ms_by_rank": [r[1] for r in per_rank]}
@@ -4472,6 +4696,120 @@ def front_ends_solves(kt, A, B, tri, chain, vecs, space, host):
             "exponentiate_fused": expo}
 
 
+FE_BATCH_P = 2  # problems of each batched solve of phase sharded_front_ends
+# the caps (iterations, tol 1e-30) of its batched solves: Block Lanczos at
+# the phase's own (problem 0 is then the phase's solve); the others cut to
+# keep the batched half near 10 s (at the phase's four rounds a batched
+# Golub-Ye took 3.3 s and BiArnoldi 7.3 s on an NVIDIA H100 80GB HBM3,
+# 700.00 W)
+FE_BATCHED_ITERS = {"block_lanczos": FE_BLOCK_ITERS, "geneigsolve": 1, "bieigsolve": 1,
+                    "svdsolve": 1, "lssolve": 20}
+
+
+def front_ends_batched_solves(torch, np, kt, A, B, tri, vecs, sv, space, n, n4, warm=False):
+    """The batched half of phase ``sharded_front_ends`` by name: ``(batched,
+    one, pick)``, the batched solve of :data:`FE_BATCH_P` problems, the
+    one-problem sharded solve of problem 0 (``one()``) and ``pick``, which
+    maps either result to ``(tensors, info)``.  Problem 0 starts from the
+    phase's own start (``vecs``), problem 1 from starts of other seeds
+    (``sv`` shards a global array); the settings are the phase's (GKL and
+    LSMR on config 4's tridiagonal ``tri``), every solve to its cap of
+    :data:`FE_BATCHED_ITERS` (tol 1e-30); with ``warm``, every cap one
+    iteration."""
+    from krylovkit_tpu_torch.solvers import biarnoldi as ba, blocklanczos as bl
+    from krylovkit_tpu_torch.solvers import golubye as gy, lssolve as lss, svdsolve as svs
+
+    R, R4 = n // 128, n4 // 128
+    other = {"block": np.random.default_rng(21).standard_normal((4, R, 128)).astype(np.float32),
+             "x0": np.random.default_rng(18).standard_normal((R, 128)).astype(np.float32),
+             "v0": np.random.default_rng(19).standard_normal((R4, 128)).astype(np.float32),
+             "w0": np.random.default_rng(20).standard_normal((R4, 128)).astype(np.float32)}
+    X = {"block": torch.stack([torch.stack(vecs["block"]),
+                               torch.stack([sv(b) for b in other["block"]])])}
+    for k in ("x0", "v0", "w0"):
+        X[k] = torch.stack([vecs[k], sv(other[k])])
+
+    def cap(name):
+        return {"maxiter": 1 if warm else FE_BATCHED_ITERS[name], "tol": 1e-30,
+                "verbosity": kt.SILENT}
+
+    block = kt.BlockLanczos(krylovdim=30, **cap("block_lanczos"))
+    gen = kt.GolubYe(krylovdim=30, **cap("geneigsolve"))
+    bi = kt.BiArnoldi(krylovdim=30, **cap("bieigsolve"))
+    gkl = kt.GKL(krylovdim=30, **cap("svdsolve"))
+    lsmr = kt.LSMR(**cap("lssolve"))
+
+    def eig(r):
+        return (r[0], r[1]), r[2]
+
+    return {
+        "block_lanczos": (
+            lambda: kt.eigsolve_blocklanczos_batched(A, X["block"], 4, "LM", block, space),
+            lambda: bl.eigsolve_blocklanczos(A, X["block"][0], 4, "LM", block, space), eig),
+        "geneigsolve": (
+            lambda: kt.geneigsolve_golubye_batched(A, B, X["x0"], 4, "SR", gen, space),
+            lambda: gy.geneigsolve_golubye(A, B, X["x0"][0], 4, "SR", gen, space), eig),
+        "bieigsolve": (
+            lambda: kt.bieigsolve_batched(tri, X["v0"], X["w0"], 4, "LM", bi, space),
+            lambda: ba.bieigsolve_driver(tri, X["v0"][0], X["w0"][0], 4, "LM", bi, space),
+            lambda r: ((r[0], r[1][0], r[1][1]), r[2][0])),
+        "svdsolve": (
+            lambda: kt.svdsolve_gkl_batched(tri, X["v0"], 4, "LR", gkl, space),
+            lambda: svs.svdsolve_gkl(tri, X["v0"][0], 4, "LR", gkl, space),
+            lambda r: ((r[0], r[1], r[2]), r[3])),
+        "lssolve": (
+            lambda: kt.lssolve_lsmr_batched(tri, X["w0"], lsmr, 0.0, space),
+            lambda: lss.lssolve_lsmr(tri, X["w0"][0], lsmr, 0.0, space),
+            lambda r: ((r[0],), r[1])),
+    }
+
+
+def front_ends_batched_rank(torch, np, kt, A, B, tri, vecs, mesh, space, n, n4, phase):
+    """The batched half of phase ``sharded_front_ends`` on this rank, the
+    projection kernels on: every solve of :func:`front_ends_batched_solves`
+    once to warm up (one iteration each, to keep the phase short), then
+    each timed (:func:`rank_solve`), then problem 0's one-problem sharded
+    solve timed where the phase ran none at that cap (``phase[name]``, the
+    phase's own solve of problem 0, is its record where the caps agree).
+    Returns per name the batched record and counts, problem 0's
+    one-problem record, and whether problem 0 is its one-problem solve bit
+    for bit (the values and counts of the phase's own solve) on every rank;
+    and the warm-up's seconds."""
+    P = kt.parallel
+    ax = mesh.axis(P.VECTOR_AXIS)
+    args = (torch, np, kt, A, B, tri, vecs, lambda a: P.shard_vector(a, mesh), space, n, n4)
+    t0 = time.perf_counter()
+    for batched, _, _ in front_ends_batched_solves(*args, warm=True).values():
+        batched()
+    warm_s = time.perf_counter() - t0
+    out = {}
+    for name, (batched, one, pick) in front_ends_batched_solves(*args).items():
+        res, rec = rank_solve(torch, ax, batched, warm=False)
+        tensors, info = pick(res)
+        counts = {k: torch.as_tensor(getattr(info, k)).tolist()
+                  for k in ("numops", "numiter", "converged")}
+        phase_caps = {"block_lanczos": FE_BLOCK_ITERS, "geneigsolve": FE_GENEIG_ITERS,
+                      "bieigsolve": BIEIG_ITERS}
+        if phase_caps.get(name) == FE_BATCHED_ITERS[name]:
+            rec1 = {k: v for k, v in phase[name].items() if k != "vals"}
+            same = np.array_equal(tensors[0][0].cpu().numpy(), phase[name]["vals"]) and all(
+                counts[k][0] == phase[name][k] for k in counts)
+        else:
+            res1, rec1 = rank_solve(torch, ax, one, warm=False)
+            t1, i1 = pick(res1)
+            rec1.update({k: int(getattr(i1, k)) for k in counts})
+            same = all(torch.equal(t[0], u) for t, u in zip(tensors, t1)) and all(
+                counts[k][0] == rec1[k] for k in counts)
+        every = gather(torch, ax, torch.tensor([[int(same)]], device=mesh.device))
+        vals = tensors[0]
+        if vals.is_complex():
+            vals = torch.stack([vals.real, vals.imag], dim=1)
+        out[name] = {**rec, **counts, "one_problem": rec1,
+                     "problem0_bits": all(r[0] for r in every.tolist()),
+                     "vals": vals.cpu().numpy() if name != "lssolve" else None}
+    return out, warm_s
+
+
 def sharded_front_ends_rank(torch, np, kt, dev="cuda", n=1 << 21, halfband=25, n4=1 << 20,
                             go=None):
     """Phase ``sharded_front_ends`` on this rank: config 5's operator
@@ -4516,10 +4854,15 @@ def sharded_front_ends_rank(torch, np, kt, dev="cuda", n=1 << 21, halfband=25, n
         for name, solve in solves.items():
             res, rec = rank_solve(torch, ax, solve)
             out[name] = {**res, **rec}
+        t0 = time.perf_counter()
+        batched, warm_s = front_ends_batched_rank(torch, np, kt, A, B, tri, vecs, mesh, space, n,
+                                                  n4, out)
+        batched_s = time.perf_counter() - t0
     finally:
         bs.use_pallas_projections = old
-    return {"solves": out, "nnz": nnz, "comm": A.comm_summary(),
-            "generate_plan_s_by_rank": planned.cpu().tolist()}
+    return {"solves": out, "batched": batched, "nnz": nnz, "comm": A.comm_summary(),
+            "generate_plan_s_by_rank": planned.cpu().tolist(),
+            "batched_seconds": {"warm_up": warm_s, "all": batched_s}}
 
 
 def front_ends_reference(torch, np, kt, dev, n, halfband, n4):
@@ -4656,11 +4999,80 @@ def sharded_front_ends(torch, np, kt, _build, smi, world=2, dev="cuda", n=1 << 2
     if dev != "cpu":
         require(launches["exponentiate_fused"].get("fused_step", 0) > 0,
                 "sharded_front_ends: the fused exponentiate launched K1 on every rank")
+    batched = same_on_every_rank(np, [r["batched"] for r in ranks])
+    for name, rec in batched.items():
+        launches[f"{name}_batched"] = front_ends_batched_line(np, name, rec, world, dev, card, smi)
     emit({"phase": "sharded_front_ends", "seconds": time.perf_counter() - t0,
+          "batched_seconds_by_rank": [r["batched_seconds"] for r in ranks],
           "one_rank_build_s": ref_s, "generate_plan_s_by_rank": [r["generate_plan_s_by_rank"]
                                                                    for r in ranks][0],
           "comm": ranks[0]["comm"], "note": "one card: ranks share it; no scaling measured"})
     return launches
+
+
+def front_ends_batched_predicted(name, rec):
+    """The batched K2/K5/K6 launches a rank makes in the batched solve
+    ``name`` of phase ``sharded_front_ends`` (:data:`FE_BATCH_P` problems in
+    lock-step, every solve to its cap), from its counts: ``{kernel:
+    launches}``."""
+    ops, it = rec["numops"][0], rec["numiter"][0]
+    if name == "block_lanczos":  # 2 passes a column of b = 4: the start's QR and each step's
+        return {"project_batched": 2 * (4 + ops)}
+    if name == "geneigsolve":  # a cgs2 pair an apply and a restart (numops counts the start)
+        return {"project_batched": 2 * (ops + it - 1), "unproject_batched": 2 * (ops + it - 1)}
+    if name == "bieigsolve":  # each side's cgs2 pair a step, M's two and the oblique two a round
+        # (a lock-step a step: after a restart the problems may keep
+        # different counts and step apart, so one round, as the phase runs)
+        steps = ops // 2
+        return {"project_batched": 6 * steps + 2 * it + 2 * (it - 1),
+                "unproject_batched": 4 * steps}
+    if name == "svdsolve":  # one drift sweep each half-step, one rotation of each basis a round
+        steps = ops // 2
+        return {"project_batched": 2 * steps, "unproject_batched": 2 * steps,
+                "transform_partial_batched": 2 * it}
+    return {"project_batched": 2 * it, "unproject_batched": 2 * it}  # lssolve: a cgs2 ring sweep
+
+
+def front_ends_batched_line(np, name, rec, world, dev, card, smi):
+    """One metric line of the batched half of phase ``sharded_front_ends``
+    and its guards: problem 0 bit-identical to its one-problem sharded
+    solve (the phase's own, where it ran one), the problems' counts equal
+    (fixed work: problem 1's one-problem solve would take problem 0's, so
+    the two one-problem solves are ``P`` times problem 0's, measured),
+    batched K2/K5/K6 only and as many as
+    :func:`front_ends_batched_predicted` gives, fewer all-reduces than
+    ``P`` one-problem solves.  Returns the launches per rank."""
+    one = rec["one_problem"]
+    ms, ms1 = max(rec["ms_per_solve_by_rank"]), max(one["ms_per_solve_by_rank"])
+    got = rec["launches_per_rank"]
+    want = front_ends_batched_predicted(name, rec) if dev != "cpu" else {}
+    emit({"metric": f"sharded_{name}_batched", "value": ms / (FE_BATCH_P * ms1), "unit": "x",
+          "formula": "t_batched / (P * t_one_problem(problem 0)), each the slowest rank",
+          "ranks": world, "problems": FE_BATCH_P, "ms_per_solve": ms,
+          "ms_per_solve_by_rank": rec["ms_per_solve_by_rank"], "one_problem_ms": ms1,
+          "P_times_one_problem_ms": FE_BATCH_P * ms1,
+          **{k: rec[k] for k in ("numops", "numiter", "converged")},
+          "launches_per_rank": got, "predicted_launches_per_rank": want,
+          "one_problem_launches_per_rank": one["launches_per_rank"],
+          "collectives_per_solve": rec["collectives_per_solve"],
+          "collectives_by_kind": rec["collectives_by_kind"],
+          "one_problem_collectives": one["collectives_per_solve"],
+          "one_problem_collectives_by_kind": one["collectives_by_kind"],
+          "collective_ms_per_solve": max(rec["collective_ms_by_rank"]),
+          "one_problem_collective_ms": max(one["collective_ms_by_rank"]),
+          "problem0_bit_identical": rec["problem0_bits"],
+          **({"vals": _json_values(np, rec["vals"])} if rec["vals"] is not None else {}),
+          "device": card, "nvidia_smi": smi})
+    require(rec["problem0_bits"], f"sharded_front_ends {name}_batched: problem 0 its "
+            "one-problem sharded solve bit for bit")
+    require(all(len(set(rec[k])) == 1 for k in ("numops", "numiter")),
+            f"sharded_front_ends {name}_batched: every problem the same counts (fixed work)")
+    require(got == want, f"sharded_front_ends {name}_batched: launches per rank {got} as "
+            f"predicted {want}")
+    require(rec["collectives_per_solve"] < FE_BATCH_P * one["collectives_per_solve"],
+            f"sharded_front_ends {name}_batched: fewer all-reduces than {FE_BATCH_P} one-problem "
+            "solves")
+    return got
 
 
 def _tree_of(torch, kind, cut):
@@ -7523,6 +7935,9 @@ def main():
         return {"launches_small_front_ends_per_rank": small_fe.get(name, 0),
                 "launches_sharded_front_ends_per_rank": {
                     k: v[name] for k, v in sharded_fe.items() if v.get(name)},
+                "launches_sharded_front_ends_batched_per_rank": {
+                    k: v[f"{name}_batched"] for k, v in sharded_fe.items()
+                    if v.get(f"{name}_batched")},
                 "launches_pytree_drivers": {k: v[name] for k, v in tree_l.items() if v.get(name)}}
 
     def slice8(name):

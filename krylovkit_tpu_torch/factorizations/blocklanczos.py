@@ -24,12 +24,14 @@ The batched counterparts (:func:`initialize_batched`,
 of these functions) step ``P`` problems at once (tensor blocks), each at
 its own ``k`` and ``r`` on its own basis: the current blocks of the
 problems that step are applied as one stack of rows (one batched K3
-launch on a kernel-backed banded operator), each column of
-the block QRs is one ``bs.project_batched`` call per pass (one batched K5
-launch with the projection flag on), and the Gram products, the block
-updates, the norms and the compaction run per problem through the helpers
-the one-problem functions use, so each problem keeps its one-problem bits.
-The ranks stay on the device for the caller to read with the ``β``s.
+launch on a kernel-backed banded operator), each orthogonalization pass is
+one ``bs.gram_batched`` for every problem, and each column of the block
+QRs is one ``bs.project_batched`` call per pass (one batched K5 launch with
+the projection flag on) and one ``norm_batched``.  Each problem's local
+products, block updates and compaction are those of the one-problem
+functions, so each problem keeps its one-problem bits; on a sharded space
+every reduction kind above is one all-reduce for all the problems.  The
+ranks stay on the device for the caller to read with the ``β``s.
 """
 
 from __future__ import annotations
@@ -41,7 +43,8 @@ import torch
 
 from ..info import EACHITERATION, log_if
 from ..ops import basis as bs
-from ..ops.vector import STANDARD, VectorSpace, device_of, scalartype, tree_leaves, tree_map
+from ..ops.vector import (STANDARD, VectorSpace, device_of, norm_batched, scalartype, tree_leaves,
+                          tree_map)
 
 PyTree = Any
 
@@ -76,11 +79,12 @@ class _QR:
     """The state of one block's rank-revealing QR: the rank tolerance, ``Q``
     (zeroed like the block), ``C`` and the accepted flags."""
 
-    def __init__(self, X: PyTree, qr_tol, space: VectorSpace):
+    def __init__(self, X: PyTree, qr_tol, inner: torch.Tensor):
+        """``inner``: the rows' squared norms, ``bs.batch_inner(X, X, space)``."""
         b = bs.capacity(X)
         cdt = scalartype(X)
         dev = device_of(X)
-        norms0 = torch.sqrt(torch.clamp(torch.real(bs.batch_inner(X, X, space)), min=0))
+        norms0 = torch.sqrt(torch.clamp(torch.real(inner), min=0))
         self.tol = qr_tol * torch.clamp(torch.max(norms0), min=1e-30)
         self.Q = tree_map(torch.zeros_like, X)
         self.C = torch.zeros((b, b), dtype=cdt, device=dev)
@@ -94,10 +98,9 @@ class _QR:
         return tree_map(lambda lx, lq: lx - torch.tensordot(c.to(lq.dtype), lq, dims=([0], [0])),
                         xi, self.Q)
 
-    def accept(self, xi: PyTree, i: int, space: VectorSpace):
-        """Column ``i`` normalised into ``Q[i]`` where its norm exceeds the
-        tolerance, else zero."""
-        nrm = space.norm(xi)
+    def accept(self, xi: PyTree, i: int, nrm: torch.Tensor):
+        """Column ``i`` (of norm ``nrm``) normalised into ``Q[i]`` where its
+        norm exceeds the tolerance, else zero."""
         ok = nrm > self.tol
         safe = torch.where(ok, nrm, torch.ones_like(nrm))
         bs.set(self.Q, i, tree_map(lambda l: torch.where(ok, l / safe.to(l.dtype), 0 * l), xi))
@@ -122,31 +125,32 @@ def block_qr(X: PyTree, qr_tol, space: VectorSpace = STANDARD
     permuted alike.  A column is accepted where its remaining norm exceeds
     ``qr_tol`` times the largest input norm."""
     b = bs.capacity(X)
-    qr = _QR(X, qr_tol, space)
+    qr = _QR(X, qr_tol, bs.batch_inner(X, X, space))
     for i in range(b):
         xi = bs.get(X, i)
         for _ in range(2):
             xi = qr.subtract(xi, i, bs.project(qr.Q, xi, b, space))
-        qr.accept(xi, i, space)
+        qr.accept(xi, i, space.norm(xi))
     return (*qr.compacted(), int(qr.valid.sum()))
 
 
 def block_qr_batched(Xs, qr_tol, space: VectorSpace = STANDARD):
     """:func:`block_qr` of each stacked block of ``Xs`` (``P`` tensors of
-    one shape), column by column for all of them: each of a column's two
-    passes projects every block's column in one ``bs.project_batched``
-    call; the rest runs per block as :func:`block_qr` runs it.  Returns
-    ``(Qs, Cs, ranks)``, lists of ``P``; each rank a 0-d int64 device
-    tensor (not read here)."""
+    one shape), column by column for all of them: the input norms are one
+    ``bs.batch_inner_batched``, each of a column's two passes projects every
+    block's column in one ``bs.project_batched`` call and its norms are one
+    ``norm_batched``; the rest runs per block as :func:`block_qr` runs it.
+    Returns ``(Qs, Cs, ranks)``, lists of ``P``; each rank a 0-d int64
+    device tensor (not read here)."""
     b = bs.capacity(Xs[0])
-    qrs = [_QR(X, qr_tol, space) for X in Xs]
+    qrs = [_QR(X, qr_tol, ip) for X, ip in zip(Xs, bs.batch_inner_batched(Xs, Xs, space))]
     for i in range(b):
         xs = [bs.get(X, i) for X in Xs]
         for _ in range(2):
             cs = bs.project_batched([qr.Q for qr in qrs], xs, [b] * len(Xs), space)
             xs = [qr.subtract(x, i, c) for qr, x, c in zip(qrs, xs, cs)]
-        for qr, x in zip(qrs, xs):
-            qr.accept(x, i, space)
+        for qr, x, nrm in zip(qrs, xs, norm_batched(xs, space)):
+            qr.accept(x, i, nrm)
     out = [qr.compacted() for qr in qrs]
     return [q for q, _ in out], [c for _, c in out], [qr.valid.sum() for qr in qrs]
 
@@ -207,6 +211,25 @@ def _orthogonalize(state: BlockLanczosState, W: PyTree, b: int, space: VectorSpa
     return W
 
 
+def _orthogonalize_batched(states, Ws, b: int, space: VectorSpace) -> list:
+    """:func:`_orthogonalize` of each problem's images ``Ws[i]`` against its
+    basis, each pass one ``bs.gram_batched`` for all of them, each
+    problem's slab ``bs.gram``'s local product."""
+    Ms = [torch.zeros((st.H.shape[0], b), dtype=st.H.dtype, device=st.H.device) for st in states]
+    rows = torch.arange(states[0].H.shape[0], device=states[0].H.device)[:, None]
+    for _ in range(2):
+        Mis = bs.gram_batched([st.V for st in states], Ws, space)
+        for i, (st, Mi) in enumerate(zip(states, Mis)):
+            Mi = torch.where(rows < st.k + st.r, Mi,
+                             torch.zeros((), dtype=Mi.dtype, device=Mi.device))
+            Ws[i] = _block_axpy(Ws[i], st.V, Mi)
+            Ms[i] = Ms[i] + Mi.to(st.H.dtype)
+    for st, M in zip(states, Ms):
+        st.H[:, st.k:st.k + b] = M
+        st.H[st.k:st.k + b, :] = M.conj().T
+    return Ws
+
+
 def _advanced(state: BlockLanczosState, Q: PyTree, C: torch.Tensor, rnew, b: int,
               verbosity: int) -> BlockLanczosState:
     """The state after a block step: the coupling ``C`` at rows ``[k + r,
@@ -245,16 +268,17 @@ def expand_batched(apply_stack, states: dict, qr_tol, space: VectorSpace = STAND
     ``k`` and ``r``), in place on their bases and ``H``: the current blocks
     go through ``apply_stack(X, rows)`` as one ``(P_s·b, ...)`` stack, row
     ``i·b + j`` row ``j`` of the ``i``-th problem's block and ``rows`` each
-    problem's index ``b`` times; the two projection passes run per problem
-    and the block QRs through :func:`block_qr_batched`.  Returns ``{p:
-    state}`` with each new rank a 0-d device tensor (the caller reads it
-    with ``β``)."""
+    problem's index ``b`` times; each projection pass is one batched Gram
+    (:func:`_orthogonalize_batched`) and the block QRs run through
+    :func:`block_qr_batched`.  Returns ``{p: state}`` with each new rank a
+    0-d device tensor (the caller reads it with ``β``)."""
     ps = list(states)
     b = bs.capacity(states[ps[0]].X)
     for p in ps:
         _commit(states[p], b)
     Y = apply_stack(torch.cat([states[p].X for p in ps]), [p for p in ps for _ in range(b)])
-    Ws = [_orthogonalize(states[p], Y[i * b:(i + 1) * b], b, space) for i, p in enumerate(ps)]
+    Ws = _orthogonalize_batched([states[p] for p in ps],
+                                [Y[i * b:(i + 1) * b] for i in range(len(ps))], b, space)
     Qs, Cs, ranks = block_qr_batched(Ws, qr_tol, space)
     return {p: _advanced(states[p], Q, C, r, b, verbosity)
             for p, Q, C, r in zip(ps, Qs, Cs, ranks)}

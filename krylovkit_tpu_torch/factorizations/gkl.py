@@ -157,25 +157,23 @@ def initialize_batched(ops, x0s, m: int, coeff_dtype, space: VectorSpace = STAND
     """:func:`initialize` of every problem ``p`` (operator ``ops[p]``, start
     ``x0s[p]``) on stacked bases: ``(U (P, m+1, ...), V (P, m+1, ...),
     [GKLState])``, problem ``p``'s state holding rows ``U[p]`` and ``V[p]``
-    and its own ``B (m+1, m+1)``.  The problems' domain vectors must share
-    one shape and type."""
-    P = len(x0s)
-    Ub = Vb = None
+    and its own ``B (m+1, m+1)``.  The starts' norms are one ``norm_batched``
+    (:func:`~.krylov.normalized_batched`).  The problems' domain vectors must
+    share one shape and type."""
+    u0s = kf.normalized_batched(x0s, space, vec_dtype, verbosity)
+    doms = [probe_adjoint(o, u0) for o, u0 in zip(ops, u0s)]
+    P, u0, v0 = len(x0s), u0s[0], doms[0]
+    Ub = torch.zeros((P, m + 1) + tuple(u0.shape), dtype=u0.dtype, device=u0.device)
+    Vb = torch.zeros((P, m + 1) + tuple(v0.shape), dtype=v0.dtype, device=u0.device)
     states = []
     for p in range(P):
-        f0 = initialize(ops[p], x0s[p], 0, coeff_dtype, space, vec_dtype=vec_dtype,
-                        verbosity=verbosity)
-        if Ub is None:
-            Ub = torch.zeros((P, m + 1) + tuple(f0.U.shape[1:]), dtype=f0.U.dtype,
-                             device=f0.U.device)
-            Vb = torch.zeros((P, m + 1) + tuple(f0.V.shape[1:]), dtype=f0.V.dtype,
-                             device=f0.V.device)
-        if f0.V.shape[1:] != Vb.shape[2:] or f0.V.dtype != Vb.dtype:
-            raise ValueError(f"problem {p}: its domain vectors {tuple(f0.V.shape[1:])} "
-                             f"{f0.V.dtype} differ from problem 0's")
-        Ub[p, 0] = f0.U[0]
+        if doms[p].shape != v0.shape or doms[p].dtype != v0.dtype:
+            raise ValueError(f"problem {p}: its domain vectors {tuple(doms[p].shape)} "
+                             f"{doms[p].dtype} differ from problem 0's")
+        Ub[p, 0] = u0s[p]
         B = torch.zeros((m + 1, m + 1), dtype=coeff_dtype, device=Ub.device)
-        states.append(GKLState(Ub[p], Vb[p], B, 0, f0.beta))
+        beta = torch.ones((), dtype=coeff_dtype.to_real(), device=Ub.device)
+        states.append(GKLState(Ub[p], Vb[p], B, 0, beta))
     return Ub, Vb, states
 
 

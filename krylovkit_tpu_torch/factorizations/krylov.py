@@ -32,12 +32,14 @@ from ..info import EACHITERATION, log_if, warn_if
 from ..ops import basis as bs
 from ..ops import fused_lanczos as fl
 from ..ops import orthonormal as on
-from ..ops.vector import STANDARD, VectorSpace, astype, device_of, inner_batched, psum, tree_map
+from ..ops.vector import (STANDARD, VectorSpace, astype, device_of, inner_batched, norm_batched,
+                          psum, tree_map)
 
 __all__ = [
     "KrylovState",
     "Lanczos3State",
     "initialize",
+    "normalized_batched",
     "initialize_3term",
     "expand",
     "expand_hermitian",
@@ -67,6 +69,10 @@ class KrylovState:
     beta: torch.Tensor  # 0-d, real
 
 
+ZERO_START = ("[krylovkit_tpu] starting vector x0 has zero norm: results are NaN "
+              "and converged = 0")
+
+
 def initialize(x0, m: int, coeff_dtype, space: VectorSpace = STANDARD,
                vec_dtype=None, verbosity: int = 0) -> KrylovState:
     """``V[0] = x0/‖x0‖`` in a fresh ``(m+1)``-row basis (reference
@@ -76,17 +82,28 @@ def initialize(x0, m: int, coeff_dtype, space: VectorSpace = STANDARD,
     if vec_dtype is not None:
         x0 = astype(x0, vec_dtype)
     nrm = space.norm(x0)
-    warn_if(
-        verbosity, nrm == 0,
-        "[krylovkit_tpu] starting vector x0 has zero norm: results are NaN "
-        "and converged = 0",
-    )
+    warn_if(verbosity, nrm == 0, ZERO_START)
     v0 = tree_map(lambda l: l / nrm.to(l.dtype), x0)
     V = bs.set(bs.alloc(v0, m + 1), 0, v0)
     dev = device_of(x0)
     H = torch.zeros((m + 1, m + 1), dtype=coeff_dtype, device=dev)
     beta = torch.ones((), dtype=coeff_dtype.to_real(), device=dev)
     return KrylovState(V, H, 0, beta)
+
+
+def normalized_batched(x0s, space: VectorSpace = STANDARD, vec_dtype=None,
+                       verbosity: int = 0) -> list:
+    """``x0s[p]/‖x0s[p]‖`` for every start of a batch (tensors), each the
+    row 0 that :func:`initialize` makes of it, with its WARN line for a zero
+    norm, in order; the norms are one ``norm_batched`` (on a sharded space
+    one all-reduce for all)."""
+    if vec_dtype is not None:
+        x0s = [astype(x, vec_dtype) for x in x0s]
+    out = []
+    for x, nrm in zip(x0s, norm_batched(x0s, space)):
+        warn_if(verbosity, nrm == 0, ZERO_START)
+        out.append(x / nrm.to(x.dtype))
+    return out
 
 
 def expand(op_apply, state: KrylovState, orth: on.Orthogonalizer,

@@ -25,11 +25,17 @@ included, keeps the ``@`` path.  :func:`project_batched` and
 :func:`unproject_batched` do the same for the problems of a batched solve:
 one batched launch where the flag is on and every problem's basis is
 eligible, else each problem through :func:`project` / :func:`unproject`.
+:func:`project_batched`, :func:`gram_batched` and
+:func:`batch_inner_batched` finish the local partials of all their
+problems at once: on a sharded space one all-reduce of the stack, each
+problem's slab the local product of its one-problem function, so over two
+ranks each keeps that function's bits.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -61,7 +67,9 @@ __all__ = [
     "append_scaled",
     "mask_coeffs",
     "gram",
+    "gram_batched",
     "batch_inner",
+    "batch_inner_batched",
 ]
 
 LANES = 128
@@ -218,19 +226,34 @@ def unproject_bucketed(V, c: torch.Tensor, k: int):
     return unproject(prefix(V, B), c[:B])
 
 
+def _finished(C: torch.Tensor, space: VectorSpace) -> list:
+    """The stacked local partials ``C`` of a batch's problems, finished in
+    one all-reduce on a sharded space, as a list of fresh rows (a row of the
+    stack need not start where a one-problem result does, and the card's
+    products may round otherwise there)."""
+    return [c.clone() for c in psum(C, space.psum_axis)]
+
+
+def _local(space: VectorSpace) -> VectorSpace:
+    """``space`` without its mesh axis: a rank's local partials."""
+    return dataclasses.replace(space, psum_axis=None)
+
+
 def project_batched(Vs, xs, ks, space: VectorSpace = STANDARD) -> list:
     """``[project(Vs[i], xs[i], ks[i], space) for i]`` for the problems of a
     batched solve (``Vs`` their bases, ``ks`` host ints).  With the flag on
     and every problem's ``(V, x)`` eligible (:func:`_pallas_proj_leaf`), one
     batched launch of the project kernel
     (``projections.project_pallas_batched``), each row the one-problem
-    launch's bits, and on a sharded space one all-reduce of the ``(P,
-    kmax)`` coefficients (:func:`project` all-reduces its one-problem launch
-    so); otherwise problem by problem, today's routes exactly."""
+    launch's bits; otherwise each problem's local :func:`project`.  Either
+    way, on a sharded space one all-reduce of the ``(P, kmax)``
+    coefficients finishes them all (:func:`project` all-reduces its own
+    so)."""
     if all(_pallas_proj_leaf(V, x, space) for V, x in zip(Vs, xs)):
-        C = pb.project_pallas_batched(Vs, [x.contiguous() for x in xs], ks)
-        return list(psum(C, space.psum_axis))
-    return [project(V, x, k, space) for V, x, k in zip(Vs, xs, ks)]
+        return _finished(pb.project_pallas_batched(Vs, [x.contiguous() for x in xs], ks), space)
+    local = _local(space)
+    return _finished(torch.stack([project(V, x, k, local) for V, x, k in zip(Vs, xs, ks)]),
+                     space)
 
 
 def unproject_batched(Vs, cs, ks) -> list:
@@ -486,3 +509,18 @@ def batch_inner(X, Y, space: VectorSpace = STANDARD) -> torch.Tensor:
     parts = [part(a, b) for a, b in zip(tree_leaves(X), tree_leaves(Y))]
     c = psum(sum(parts[1:], parts[0]), space.psum_axis)
     return torch.real(c) if space.real_inner else c
+
+
+def gram_batched(Xs, Ys, space: VectorSpace = STANDARD) -> list:
+    """``[gram(Xs[i], Ys[i], space) for i]``: each problem's local Gram
+    product, stacked, and on a sharded space one all-reduce for all."""
+    local = _local(space)
+    return _finished(torch.stack([gram(X, Y, local) for X, Y in zip(Xs, Ys)]), space)
+
+
+def batch_inner_batched(Xs, Ys, space: VectorSpace = STANDARD) -> list:
+    """``[batch_inner(Xs[i], Ys[i], space) for i]``: each problem's local
+    row-wise products, stacked, and on a sharded space one all-reduce for
+    all."""
+    local = _local(space)
+    return _finished(torch.stack([batch_inner(X, Y, local) for X, Y in zip(Xs, Ys)]), space)

@@ -36,26 +36,31 @@ shapes: an ``(R, 128)`` vector is 2-D itself.  A batched operator is a
 sequence of ``P`` operators; ``P`` :class:`~..ops.operator.MatrixOperator`
 of one shape apply as one ``torch.matmul`` over their ``(P, n, n)`` stack.
 
-Both drivers here, and those of ``batched_linsolve.py``,
-``batched_arnoldi.py`` and ``batched_expintegrator.py``, take a sharded
-space (``VectorSpace(psum_axis=mesh.axis("vec"))`` on a ``(batch, vec)``
-mesh of ``parallel/mesh.py``): each rank holds its batch row's problems, a
-``(P_b, ...)`` stack of its block of rows (``shard_vector(...,
-batched=True)``), and every collective runs over the ``vec`` axis only, so
+Every batched driver (the two here and those of ``batched_linsolve.py``,
+``batched_arnoldi.py``, ``batched_expintegrator.py``, ``batched_gkl.py``,
+``batched_golubye.py``, ``batched_biarnoldi.py`` and
+``batched_blocklanczos.py``) takes a sharded space
+(``VectorSpace(psum_axis=mesh.axis("vec"))`` on a ``(batch, vec)`` mesh of
+``parallel/mesh.py``): each rank holds its batch row's problems, a ``(P_b,
+...)`` stack of its block of rows (``shard_vector(..., batched=True)``),
+and every collective runs over the ``vec`` axis only, so
 batch rows never talk during a solve.  A lock-step then all-reduces once
 for every stepping problem where the one-problem loop would once a
-problem: the stack apply of a shared sharded operator
-(``LinearOperator.normal_stack``), the ``(P,)`` inner products
-(``ops/vector.py:inner_batched``), a cgs sweep's ``(P, k)`` coefficients
-and the fused step's reductions and halos.  A fusable stencil whose
+problem: the stack apply of a shared sharded operator and of its adjoint
+(``LinearOperator.normal_stack``, ``adjoint_stack``), the ``(P,)`` inner
+products and norms (``ops/vector.py:inner_batched``), a cgs sweep's ``(P,
+k)`` coefficients, the projections of ``ops/basis.py:project_batched``,
+the Block Lanczos Gram passes (``gram_batched``) and block-QR norms, and
+the fused step's reductions and halos.  The dense work that runs once a
+round per problem (Golub-Ye's Ritz data and restart, BiArnoldi's oblique
+residual norms) keeps its one-problem collectives.  A fusable stencil whose
 ``(R, 128)`` blocks the fused step's halos cannot serve (fewer rows than
 its reach, a grid row cut between ranks) raises
 (``factorizations/krylov.py:check_sharded_blocks``); the gate's other rules
 send a problem to the unfused lock-step, as on an unsharded space, never
-to a loop over problems.  Pytree vectors, ``eager``,
-selective reorthogonalization and differentiation are not batched
-(``ValueError``), nor is a sharded space in the GKL, Golub-Ye, BiArnoldi
-and Block Lanczos drivers.
+to a loop over problems.  Pytree vectors, ``eager`` (but in Block
+Lanczos), selective reorthogonalization and differentiation are not
+batched (``ValueError``).
 """
 
 from __future__ import annotations
@@ -98,12 +103,10 @@ def _tensors_only(what: str, vectors):
                              "leading problem axis")
 
 
-def _refuse(what: str, vectors, ops, space: VectorSpace, scalars=(), sharded: bool = False):
-    """The pieces this module does not batch, each named; a sharded space
-    only where the driver does not take one (``sharded``)."""
+def _refuse(what: str, vectors, ops, scalars=()):
+    """The pieces the batched drivers do not batch, each named: pytree
+    vectors and differentiation."""
     _tensors_only(what, vectors)
-    if space.psum_axis is not None and not sharded:
-        raise ValueError(f"{what}: a sharded space (VectorSpace(psum_axis=...)) is not batched")
     tensors = list(vectors) + [t for op in ops for t in op.tensors()]
     tensors += [a for a in scalars if isinstance(a, torch.Tensor)]
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
@@ -346,7 +349,7 @@ def eigsolve_lanczos_batched(op, x0, howmany: int, which, alg: Lanczos,
     _tensors_only("eigsolve_lanczos_batched", [x0])
     P = _batch_size(_count(op, op_dim, "op"), _count(x0, x_dim, "x0"))
     ops = _Operators(op, P, op_dim == 0)
-    _refuse("eigsolve_lanczos_batched", [x0], ops.distinct(), space, sharded=True)
+    _refuse("eigsolve_lanczos_batched", [x0], ops.distinct())
     x0s = _problems(x0, x_dim, P)
     kf.check_sharded_blocks("eigsolve_lanczos_batched", ops.distinct(), x0s, space)
     cdt = coeff_dtype or functools.reduce(
@@ -500,7 +503,7 @@ def linsolve_gmres_batched(op, b, x0, a0, a1, alg: GMRES, space: VectorSpace = S
     _tensors_only("linsolve_gmres_batched", [b, x0])
     P = _batch_size(_count(op, op_dim, "op"), _count(b, b_dim, "b"), _count(x0, x_dim, "x0"))
     ops = _Operators(op, P, op_dim == 0)
-    _refuse("linsolve_gmres_batched", [b, x0], ops.distinct(), space, (a0, a1), sharded=True)
+    _refuse("linsolve_gmres_batched", [b, x0], ops.distinct(), (a0, a1))
     bs_, xs = _problems(b, b_dim, P), _problems(x0, x_dim, P)
     kf.check_sharded_blocks("linsolve_gmres_batched", ops.distinct(), bs_, space)
     dev = device_of(bs_[0])

@@ -86,7 +86,7 @@ def _setup(what: str, op, x0, howmany: int, alg: Arnoldi, space: VectorSpace, in
     _tensors_only(what, [x0])
     P = _batch_size(_count(op, op_dim, "op"), _count(x0, x_dim, "x0"))
     ops = _Operators(op, P, op_dim == 0)
-    _refuse(what, [x0], ops.distinct(), space, sharded=True)
+    _refuse(what, [x0], ops.distinct())
     x0s = _problems(x0, x_dim, P)
     kf.check_sharded_blocks(what, ops.distinct(), x0s, space)
     pdt = functools.reduce(torch.promote_types,

@@ -31,10 +31,15 @@ design of ``solvers/batched.py``:
 ``in_dims = (op_dim, v0_dim, w0_dim)`` takes ``0`` or ``None`` per
 argument.  Every operator gets its adjoint through ``require_adjoint``:
 derived for a bare callable, as ``bieigsolve`` derives it, and a caller's
-``(f, fadjoint)`` pair checked, as ``svdsolve`` checks it.  Pytree vectors, sharded spaces (``psum_axis``),
-``BiArnoldi(eager=True)`` and differentiation are not batched
-(``ValueError``); an ``(f, fadjoint)`` tuple is one shared operator, never
-two problems.
+``(f, fadjoint)`` pair checked, as ``svdsolve`` checks it.  On a sharded
+space (``solvers/batched.py``) a lock-step is one all-reduce of each kind
+for all its stepping problems (the stack apply, the adjoint stack apply,
+each side's sweeps and norms, the two projections of ``M``), as are the
+starts' norms, ``M[0, 0]`` and the oblique correction's projections;
+``_round`` keeps its two residual norms (four with a restart) per problem.
+Pytree vectors, ``BiArnoldi(eager=True)`` and differentiation are not
+batched (``ValueError``); an ``(f, fadjoint)`` tuple is one shared
+operator, never two problems.
 """
 
 from __future__ import annotations
@@ -48,7 +53,7 @@ from ..factorizations import krylov as kf
 from ..info import STARTSTOP, log_if, warn_if
 from ..ops import basis as bs
 from ..ops.operator import probe_dtype
-from ..ops.vector import STANDARD, VectorSpace, device_of, rounded
+from ..ops.vector import STANDARD, VectorSpace, device_of, inner_batched, rounded
 from .batched import _batch_size, _count, _in_dims, _Operators, _problems, _read, _refuse
 from .batched_arnoldi import _stack_infos
 from .biarnoldi import _extract, _LoopState, _round
@@ -92,11 +97,11 @@ def bieigsolve_batched(op, v0, w0, howmany: int, which, alg: BiArnoldi,
         raise ValueError(f"howmany={howmany} exceeds krylovdim={m}")
     if alg.eager:
         raise ValueError(f"{what}: BiArnoldi(eager=True) is not batched")
-    _refuse(what, [v0, w0], [], space)
+    _refuse(what, [v0, w0], [])
     P = _batch_size(_count(op, op_dim, "op"), _count(v0, v_dim, "v0"), _count(w0, w_dim, "w0"))
     vs, ws = _problems(v0, v_dim, P), _problems(w0, w_dim, P)
     ops = _Operators(op, P, op_dim == 0, templates=vs)
-    _refuse(what, [], ops.distinct(), space)
+    _refuse(what, [], ops.distinct())
     pdt = functools.reduce(torch.promote_types, [probe_dtype(o, vs[0]) for o in ops.distinct()])
     real = not pdt.is_complex and isinstance(which, str)
     cdt = pdt if real else torch.promote_types(pdt, torch.complex64)
@@ -106,22 +111,25 @@ def bieigsolve_batched(op, v0, w0, howmany: int, which, alg: BiArnoldi,
     m1 = m + 1
     dev = device_of(vs[0])
 
-    # one stack per side; each problem's factorizations hold its rows
-    Vb = Wb = None
+    # one stack per side; each problem's factorizations hold its rows.  The
+    # starts are normalised with one norm_batched for both sides and M[0, 0]
+    # is one inner_batched
+    starts = kf.normalized_batched(vs + ws, space, None if real else cdt)
+    Vb = torch.zeros((P, m1) + tuple(starts[0].shape), dtype=starts[0].dtype, device=dev)
+    Wb = torch.zeros((P, m1) + tuple(starts[P].shape), dtype=starts[P].dtype, device=dev)
+    Vb[:, 0] = torch.stack(starts[:P])
+    Wb[:, 0] = torch.stack(starts[P:])
+    M00 = inner_batched(Vb[:, 0], Wb[:, 0], space).conj().to(cdt)
+
+    def start(basis):
+        return kf.KrylovState(basis, torch.zeros((m1, m1), dtype=cdt, device=dev), 0,
+                              torch.ones((), dtype=rdt, device=dev))
+
     st = {}
     for p in range(P):
-        f0 = kf.initialize(vs[p], 0, cdt, space, vec_dtype=None if real else cdt)
-        g0 = kf.initialize(ws[p], 0, cdt, space, vec_dtype=None if real else cdt)
-        if Vb is None:
-            Vb = torch.zeros((P, m1) + tuple(f0.V.shape[1:]), dtype=f0.V.dtype, device=dev)
-            Wb = torch.zeros((P, m1) + tuple(g0.V.shape[1:]), dtype=g0.V.dtype, device=dev)
-        Vb[p, 0], Wb[p, 0] = f0.V[0], g0.V[0]
         M = torch.zeros((m1, m1), dtype=cdt, device=dev)
-        M[0, 0] = space.inner(bs.get(Vb[p], 0), bs.get(Wb[p], 0)).conj().to(cdt)
-        st[p] = _LoopState(
-            fV=kf.KrylovState(Vb[p], torch.zeros((m1, m1), dtype=cdt, device=dev), 0, f0.beta),
-            fW=kf.KrylovState(Wb[p], torch.zeros((m1, m1), dtype=cdt, device=dev), 0, g0.beta),
-            M=M)
+        M[0, 0] = M00[p]
+        st[p] = _LoopState(fV=start(Vb[p]), fW=start(Wb[p]), M=M)
 
     active = list(range(P))
     while active:

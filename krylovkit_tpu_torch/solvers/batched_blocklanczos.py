@@ -28,10 +28,14 @@ the design of ``solvers/batched.py``:
   problem through :mod:`.blocklanczos`'s ``_round``, ``_restart`` and
   ``_extract``, the functions the one-problem driver calls.
 
-``in_dims = (op_dim, X0_dim)`` takes ``0`` or ``None`` per argument.
-Pytree vectors, sharded spaces (``psum_axis``) and differentiation are not
-batched (``ValueError``); an ``(f, fadjoint)`` tuple is one shared
-operator, never two problems.
+``in_dims = (op_dim, X0_dim)`` takes ``0`` or ``None`` per argument.  On
+a sharded space (``solvers/batched.py``; a rank holds its batch row's
+``(P_b, b, ...)`` blocks of rows) a lock-step is one all-reduce of each
+kind for all its stepping problems: the stack apply, each Gram pass, the
+block QRs' input norms, and each QR column's two projection passes and its
+norms; the dense round runs no collective.  Pytree vectors and
+differentiation are not batched (``ValueError``); an ``(f, fadjoint)``
+tuple is one shared operator, never two problems.
 """
 
 from __future__ import annotations
@@ -78,10 +82,10 @@ def eigsolve_blocklanczos_batched(op, X0, howmany: int, which, alg: BlockLanczos
             raise ValueError(f"{what}: a Block is one shared start block; give one block per "
                              "problem as a (P, b, ...) tensor")
         X0 = X0.stacked
-    _refuse(what, [X0], [], space)
+    _refuse(what, [X0], [])
     P = _batch_size(_count(op, op_dim, "op"), _count(X0, x_dim, "X0"))
     ops = _Operators(op, P, op_dim == 0)
-    _refuse(what, [], ops.distinct(), space)
+    _refuse(what, [], ops.distinct())
     X0s = _problems(X0, x_dim, P)
     b = X0s[0].shape[0]
     cdt = functools.reduce(torch.promote_types, [probe_dtype(o, X0s[0][0]) for o in ops.distinct()])

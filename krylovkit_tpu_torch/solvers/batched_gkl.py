@@ -43,8 +43,12 @@ A batched operator is a list of ``P`` operators; an ``(f, fadjoint)`` tuple
 of callables is always ONE shared operator (``in_dims`` ``None``), never two
 problems.  Every operator gets its adjoint as the one-problem front-ends
 give it (``require_adjoint``: derived for a bare callable, checked for a
-caller's pair).  Pytree vectors, sharded spaces (``psum_axis``),
-``GKL(eager=True)`` and differentiation are not batched (``ValueError``).
+caller's pair).  On a sharded space (``solvers/batched.py``) both drivers
+step every problem of a rank's batch row in one all-reduce of each kind a
+lock-step (the stack apply, the adjoint stack apply, a sweep's
+coefficients, the norms); the fused GKL gate refuses such a space, so
+``svdsolve`` runs unfused there.  Pytree vectors, ``GKL(eager=True)`` and
+differentiation are not batched (``ValueError``).
 """
 
 from __future__ import annotations
@@ -78,18 +82,20 @@ from .lssolve import FINISHED, UNCONVERGED, _Rotations, _rotations, _start_rotat
 __all__ = ["svdsolve_gkl_batched", "lssolve_lsmr_batched"]
 
 
-def _setup(what: str, op, x, space: VectorSpace, in_dims, names, scalars=(), check_space=None):
+def _setup(what: str, op, x, in_dims, names, scalars=(), check_space=None):
     """The problems of a batched call: ``(ops, vectors, probe dtype)``,
     after the refusals; every operator with its adjoint, a caller's
     ``(f, fadjoint)`` pair checked in ``check_space`` as the one-problem
-    front-end checks it."""
+    front-end checks it.  On a sharded space every rank runs the same
+    probes and guard on its own block (the guard's applies are collective;
+    the probes run on ``meta`` copies, which make none)."""
     op_dim, x_dim = _in_dims(in_dims, names)
-    # the vectors and the space first: the adjoint guard below runs in them
-    _refuse(what, [x], [], space, scalars)
+    # the vectors first: the adjoint guard below runs in them
+    _refuse(what, [x], [], scalars)
     P = _batch_size(_count(op, op_dim, names[0]), _count(x, x_dim, names[1]))
     xs = _problems(x, x_dim, P)
     ops = _Operators(op, P, op_dim == 0, templates=xs, check_space=check_space)
-    _refuse(what, [], ops.distinct(), space)
+    _refuse(what, [], ops.distinct())
     # the vectors live in the codomain: the scalar type comes through the adjoint
     cdt = functools.reduce(torch.promote_types,
                            [scalartype(probe_adjoint(o, xs[0]), xs[0]) for o in ops.distinct()])
@@ -115,7 +121,7 @@ def svdsolve_gkl_batched(op, x0, howmany: int, which, alg: GKL, space: VectorSpa
     if alg.eager:
         raise ValueError("svdsolve_gkl_batched: GKL(eager=True) is not batched")
     # the pair's guard runs in the standard inner product, as svdsolve's does
-    ops, x0s, cdt = _setup("svdsolve_gkl_batched", op, x0, space, in_dims, ("op", "x0"))
+    ops, x0s, cdt = _setup("svdsolve_gkl_batched", op, x0, in_dims, ("op", "x0"))
     P = len(x0s)
     tol, btol = sv._tolerances(alg, cdt)
     dev = device_of(x0s[0])
@@ -210,7 +216,7 @@ def lssolve_lsmr_batched(op, b, alg: LSMR, lam=0.0, space: VectorSpace = STANDAR
     ``lam`` is shared.  Returns ``(x (P, ...), info)`` with ``(P,)`` counts;
     at ``WARN`` each unconverged problem prints its one-problem line, in
     problem order."""
-    ops, bs_, cdt = _setup("lssolve_lsmr_batched", op, b, space, in_dims, ("op", "b"), (lam,),
+    ops, bs_, cdt = _setup("lssolve_lsmr_batched", op, b, in_dims, ("op", "b"), (lam,),
                            check_space=space)
     P = len(bs_)
     K = alg.krylovdim

@@ -29,9 +29,14 @@ design of ``solvers/batched.py``:
   ``_restart``, the functions the one-problem driver calls.
 
 ``in_dims = (opA_dim, opB_dim, x0_dim)`` takes ``0`` or ``None`` per
-argument, as ``vmap``'s ``in_axes``.  Pytree vectors, sharded spaces
-(``psum_axis``) and differentiation are not batched (``ValueError``); an
-``(f, fadjoint)`` tuple is one shared operator, never two problems.
+argument, as ``vmap``'s ``in_axes``.  On a sharded space
+(``solvers/batched.py``) a pencil apply is one stack apply of each
+operator (one halo all-reduce each) and every orthonormalization and
+norm one all-reduce for all its problems; ``_ritz`` (two Gram products,
+three row-wise products) and ``_restart`` (one norm) keep one all-reduce
+per problem a round.  Pytree vectors and differentiation are not batched
+(``ValueError``); an ``(f, fadjoint)`` tuple is one shared operator, never
+two problems.
 """
 
 from __future__ import annotations
@@ -78,12 +83,12 @@ def geneigsolve_golubye_batched(opA, opB, x0, howmany: int, which, alg: GolubYe,
         raise ValueError("which=LI/SI invalid for Hermitian pencils (real spectrum)")
     if opB is None:
         b_dim = None
-    _refuse(what, [x0], [], space)
+    _refuse(what, [x0], [])
     P = _batch_size(_count(opA, a_dim, "opA"), _count(opB, b_dim, "opB"),
                     _count(x0, x_dim, "x0"))
     opsA = _Operators(opA, P, a_dim == 0)
     opsB: Optional[_Operators] = None if opB is None else _Operators(opB, P, b_dim == 0)
-    _refuse(what, [], opsA.distinct() + (opsB.distinct() if opsB else []), space)
+    _refuse(what, [], opsA.distinct() + (opsB.distinct() if opsB else []))
     x0s = _problems(x0, x_dim, P)
     cdt = functools.reduce(torch.promote_types,
                            [probe_dtype(o, x0s[0]) for o in opsA.distinct()])

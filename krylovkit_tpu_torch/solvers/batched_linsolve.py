@@ -115,7 +115,7 @@ class _Problem:
         self.P = _batch_size(_count(op, op_dim, "op"), _count(b, b_dim, "b"),
                              _count(x0, x_dim, "x0"))
         self.ops = _Operators(op, self.P, op_dim == 0)
-        _refuse(name, [b, x0], self.ops.distinct(), space, (a0, a1), sharded=True)
+        _refuse(name, [b, x0], self.ops.distinct(), (a0, a1))
         P = self.P
         self.B = b if b_dim == 0 else b.expand((P,) + tuple(b.shape))
         self.X0 = x0 if x_dim == 0 else x0.expand((P,) + tuple(x0.shape))

@@ -176,10 +176,10 @@ def test_warn_lines_are_the_one_problem_lines_in_problem_order():
 
 def test_batched_bieigsolve_refusals():
     """Each piece this slice does not batch raises ``ValueError`` with its
-    name: pytree vectors, a sharded space, ``BiArnoldi(eager=True)``, an
-    input or an operator tensor that requires grad, ``in_dims`` other than
-    0 or None, an ``(f, fadjoint)`` tuple given as a batch; and the
-    argument checks."""
+    name: pytree vectors, ``BiArnoldi(eager=True)``, an input or an
+    operator tensor that requires grad, ``in_dims`` other than 0 or None,
+    an ``(f, fadjoint)`` tuple given as a batch; and the argument checks.
+    A sharded space is batched: on a one-rank axis, the unsharded bits."""
     As, _, _ = _stack(10)
     A = torch.from_numpy(As[0])
     Vt, Wt = torch.from_numpy(As[1, :P]), torch.from_numpy(As[2, :P])
@@ -188,8 +188,6 @@ def test_batched_bieigsolve_refusals():
     pair = (lambda x: A @ x, lambda y: A.T @ y)
     cases = [
         (lambda: solve(A, {"a": Vt}, Wt, 1, "LM", alg), "pytree"),
-        (lambda: solve(A, Vt, Wt, 1, "LM", alg,
-                       space=kt.VectorSpace(psum_axis=MeshAxis("vec", None, 1, 0))), "sharded"),
         (lambda: solve(A, Vt, Wt, 1, "LM", kt.BiArnoldi(krylovdim=12, eager=True)), "eager"),
         (lambda: solve(A, Vt.clone().requires_grad_(True), Wt, 1, "LM", alg), "differentiation"),
         (lambda: solve(A.clone().requires_grad_(True), Vt, Wt, 1, "LM", alg), "differentiation"),
@@ -202,6 +200,12 @@ def test_batched_bieigsolve_refusals():
     for call, match in cases:
         with pytest.raises(ValueError, match=match):
             call()
+    # a sharded space is batched: on a one-rank axis (no collective) each
+    # problem solves as on the unsharded space, bit for bit
+    got = solve(A, Vt, Wt, 2, "LM", alg, space=kt.VectorSpace(psum_axis=MeshAxis("vec", None, 1, 0)))
+    want = solve(A, Vt, Wt, 2, "LM", alg)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1][0], want[1][0])
+    assert counts(got[2][0]) == counts(want[2][0])
     # a pair given as one shared operator solves as the matrix does
     got = solve(pair, Vt, Wt, 2, "LM", alg)
     want = solve(A, Vt, Wt, 2, "LM", alg)

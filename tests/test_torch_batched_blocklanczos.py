@@ -221,10 +221,11 @@ def test_warn_lines_are_the_one_problem_lines_in_problem_order():
 
 def test_batched_blocklanczos_refusals():
     """Each piece this slice does not batch raises ``ValueError`` with its
-    name: pytree vectors (a dict block, a ``Block`` of dicts), a sharded
-    space, a start or an operator tensor that requires grad, ``in_dims``
-    other than 0 or None, an ``(f, fadjoint)`` tuple given as a batch, a
-    ``Block`` given as a batch; and the argument checks."""
+    name: pytree vectors (a dict block, a ``Block`` of dicts), a start or
+    an operator tensor that requires grad, ``in_dims`` other than 0 or
+    None, an ``(f, fadjoint)`` tuple given as a batch, a ``Block`` given as
+    a batch; and the argument checks.  A sharded space is batched: on a
+    one-rank axis, the unsharded bits."""
     As, X0, Xs = _problems()
     A = torch.from_numpy(As[0])
     X = torch.from_numpy(Xs)
@@ -235,8 +236,6 @@ def test_batched_blocklanczos_refusals():
         (lambda: solve(A, {"a": X}, 1, "LR", alg), "pytree"),
         (lambda: solve([A] * P, kt.Block([{"a": x} for x in X[0]]), 1, "LR", alg,
                        in_dims=(0, None)), "pytree"),
-        (lambda: solve(A, X, 1, "LR", alg,
-                       space=kt.VectorSpace(psum_axis=MeshAxis("vec", None, 1, 0))), "sharded"),
         (lambda: solve(A, X.clone().requires_grad_(True), 1, "LR", alg), "differentiation"),
         (lambda: solve(A.clone().requires_grad_(True), X, 1, "LR", alg), "differentiation"),
         (lambda: solve(A, X, 1, "LR", alg, in_dims=(None, 1)), "in_dims"),
@@ -249,6 +248,12 @@ def test_batched_blocklanczos_refusals():
     for call, match in cases:
         with pytest.raises(ValueError, match=match):
             call()
+    # a sharded space is batched: on a one-rank axis (no collective) each
+    # problem solves as on the unsharded space, bit for bit
+    got = solve(A, X, 2, "LR", alg, space=kt.VectorSpace(psum_axis=MeshAxis("vec", None, 1, 0)))
+    want = solve(A, X, 2, "LR", alg)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert _counts(got[2]) == _counts(want[2])
     # a shared Block start is taken as its stacked tensor
     vals, _, info = solve(convert.matrices_from_numpy(As, "cpu"), block, 2, "LR", alg,
                           in_dims=(0, None))

@@ -233,17 +233,15 @@ def test_repr_of_batched_info():
 
 def test_batched_svdsolve_refusals():
     """Each piece this slice does not batch raises ``ValueError`` with its
-    name: pytree vectors, a sharded space, ``GKL(eager=True)``, an input or
-    an operator tensor that requires grad; and the argument checks."""
+    name: pytree vectors, ``GKL(eager=True)``, an input or an operator
+    tensor that requires grad; and the argument checks.  A sharded space is
+    batched: on a one-rank axis, the unsharded bits."""
     As, X = _problems("real", seed=10)
     A = torch.from_numpy(As[0])
     Xt = torch.from_numpy(X)
     alg = kt.GKL(krylovdim=8)
     cases = [
         (lambda: kt.svdsolve_gkl_batched(A, {"a": Xt}, 1, "LR", alg), "pytree"),
-        (lambda: kt.svdsolve_gkl_batched(
-            A, Xt, 1, "LR", alg, space=kt.VectorSpace(psum_axis=MeshAxis("vec", None, 1, 0))),
-         "sharded"),
         (lambda: kt.svdsolve_gkl_batched(A, Xt, 1, "LR", kt.GKL(krylovdim=8, eager=True)),
          "eager"),
         (lambda: kt.svdsolve_gkl_batched(A, Xt.clone().requires_grad_(True), 1, "LR", alg),
@@ -258,3 +256,9 @@ def test_batched_svdsolve_refusals():
     for call, word in cases:
         with pytest.raises(ValueError, match=word):
             call()
+    # a sharded space is batched: on a one-rank axis (no collective) each
+    # problem solves as on the unsharded space, bit for bit
+    got = kt.svdsolve_gkl_batched(A, Xt, 1, "LR", alg, space=kt.VectorSpace(psum_axis=MeshAxis("vec", None, 1, 0)))
+    want = kt.svdsolve_gkl_batched(A, Xt, 1, "LR", alg)
+    assert all(torch.equal(g, w) for g, w in zip(got[:3], want[:3]))
+    assert torch.equal(got[3].numops, want[3].numops)

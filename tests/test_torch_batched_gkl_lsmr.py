@@ -245,16 +245,15 @@ def test_lsmr_warn_lines_match_one_problem_text_and_jax_vmap():
 
 
 def test_batched_lssolve_refusals():
-    """Pytree vectors, a sharded space, and a right-hand side, an operator
-    tensor or a ``lam`` that requires grad raise ``ValueError`` with the
-    cause's name; so do the argument checks."""
+    """Pytree vectors, and a right-hand side, an operator tensor or a
+    ``lam`` that requires grad raise ``ValueError`` with the cause's name;
+    so do the argument checks.  A sharded space is batched: on a one-rank
+    axis, the unsharded bits."""
     A = torch.from_numpy(np.random.default_rng(15).standard_normal((M, N)))
     B = torch.from_numpy(np.random.default_rng(16).standard_normal((P, M)))
     alg = kt.LSMR(tol=1e-8)
     cases = [
         (lambda: kt.lssolve_lsmr_batched(A, {"b": B}, alg), "pytree"),
-        (lambda: kt.lssolve_lsmr_batched(
-            A, B, alg, space=kt.VectorSpace(psum_axis=MeshAxis("vec", None, 1, 0))), "sharded"),
         (lambda: kt.lssolve_lsmr_batched(A, B.clone().requires_grad_(True), alg),
          "differentiation"),
         (lambda: kt.lssolve_lsmr_batched(A.clone().requires_grad_(True), B, alg),
@@ -268,3 +267,8 @@ def test_batched_lssolve_refusals():
     for call, word in cases:
         with pytest.raises(ValueError, match=word):
             call()
+    # a sharded space is batched: on a one-rank axis (no collective) each
+    # problem solves as on the unsharded space, bit for bit
+    got = kt.lssolve_lsmr_batched(A, B, alg, space=kt.VectorSpace(psum_axis=MeshAxis("vec", None, 1, 0)))
+    want = kt.lssolve_lsmr_batched(A, B, alg)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1].numops, want[1].numops)

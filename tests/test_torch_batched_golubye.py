@@ -306,9 +306,10 @@ def test_warn_lines_are_the_one_problem_lines_in_problem_order():
 
 def test_batched_geneigsolve_refusals():
     """Each piece this slice does not batch raises ``ValueError`` with its
-    name: pytree vectors, a sharded space, an input or an operator tensor
-    that requires grad, ``in_dims`` other than 0 or None, an ``(f,
-    fadjoint)`` tuple given as a batch; and the argument checks."""
+    name: pytree vectors, an input or an operator tensor that requires
+    grad, ``in_dims`` other than 0 or None, an ``(f, fadjoint)`` tuple given
+    as a batch; and the argument checks.  A sharded space is batched: on a
+    one-rank axis, the unsharded bits."""
     As, Bs, x0 = _pencils()
     A, B = torch.from_numpy(As[0]), torch.from_numpy(Bs[0])
     X = torch.from_numpy(np.stack([x0] * P))
@@ -317,8 +318,6 @@ def test_batched_geneigsolve_refusals():
     grad_A = A.clone().requires_grad_(True)
     cases = [
         (lambda: solve(A, B, {"a": X}, 1, "SR", alg), "pytree"),
-        (lambda: solve(A, B, X, 1, "SR", alg,
-                       space=kt.VectorSpace(psum_axis=MeshAxis("vec", None, 1, 0))), "sharded"),
         (lambda: solve(A, B, X.clone().requires_grad_(True), 1, "SR", alg), "differentiation"),
         (lambda: solve(grad_A, B, X, 1, "SR", alg), "differentiation"),
         (lambda: solve(A, B, X, 1, "SR", alg, in_dims=(None, None, 1)), "in_dims"),
@@ -331,3 +330,9 @@ def test_batched_geneigsolve_refusals():
     for call, match in cases:
         with pytest.raises(ValueError, match=match):
             call()
+    # a sharded space is batched: on a one-rank axis (no collective) each
+    # problem solves as on the unsharded space, bit for bit
+    got = solve(A, B, X, 1, "SR", alg, space=kt.VectorSpace(psum_axis=MeshAxis("vec", None, 1, 0)))
+    want = solve(A, B, X, 1, "SR", alg)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got[2].numops, want[2].numops)

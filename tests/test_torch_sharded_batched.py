@@ -22,7 +22,9 @@ one order whatever the buffer), and so do the counts and the WARN lines.
 In this process: the glued batched K1 twin with per-problem halos against
 the unsharded batched step, one all-reduce a fused lock-step for all
 stepping problems (``collectives.stats``), the edge exchange of a stack,
-and the drivers that still refuse a sharded space.
+and what the drivers still refuse on a sharded space.  The GKL, LSMR and
+pencil drivers' parity on a sharded space is in
+``tests/test_torch_sharded_batched_gkl.py`` and ``..._pencil.py``.
 """
 
 import numpy as np
@@ -351,26 +353,46 @@ def test_edges_carry_a_stack_in_one_all_reduce(fake_collectives):
     assert torch.equal(above, torch.zeros_like(above))  # rank 0: nothing above it
 
 
-def test_drivers_left_out_refuse_a_sharded_space():
+def _sharded_call(driver, A, X, space, eager=False):
+    """``driver`` on the operator ``A`` and the starts ``X`` (``(P, n)``; a
+    block driver takes ``X[:, None]``, the two-sided one ``X`` on both
+    sides) in ``space``."""
+    if driver == "svdsolve_gkl_batched":
+        return kt.svdsolve_gkl_batched(A, X, 1, "LR", kt.GKL(krylovdim=4, eager=eager), space)
+    if driver == "lssolve_lsmr_batched":
+        return kt.lssolve_lsmr_batched(A, X, kt.LSMR(), 0.0, space)
+    if driver == "geneigsolve_golubye_batched":
+        return kt.geneigsolve_golubye_batched(A, None, X, 1, "SR", kt.GolubYe(krylovdim=4),
+                                              space)
+    if driver == "bieigsolve_batched":
+        return kt.bieigsolve_batched(A, X, X, 1, "LM", kt.BiArnoldi(krylovdim=4, eager=eager),
+                                     space)
+    blocks = X[:, None] if isinstance(X, torch.Tensor) else {k: v[:, None] for k, v in X.items()}
+    return kt.eigsolve_blocklanczos_batched(A, blocks, 1, "LR", kt.BlockLanczos(krylovdim=4),
+                                            space)
+
+
+@pytest.mark.parametrize("driver", ["svdsolve_gkl_batched", "lssolve_lsmr_batched",
+                                    "geneigsolve_golubye_batched", "bieigsolve_batched",
+                                    "eigsolve_blocklanczos_batched"])
+def test_drivers_on_a_sharded_space_refuse_what_they_do_not_batch(driver):
     """The GKL, LSMR, Golub-Ye, BiArnoldi and Block Lanczos batched drivers
-    keep refusing a sharded space, each naming itself."""
+    take a sharded space and still refuse, each naming itself, a pytree
+    start, a start that requires grad and (GKL, BiArnoldi) ``eager=True``;
+    on a one-rank axis a sharded solve is the unsharded one, bit for bit."""
     space = VectorSpace(psum_axis=MeshAxis("vec", None, 1, 0))
-    A = torch.eye(8, dtype=torch.float64) * 2
+    A = torch.diag(torch.linspace(1.0, 2.0, 8, dtype=torch.float64))
     X = torch.ones((2, 8), dtype=torch.float64)
-    cases = {
-        "svdsolve_gkl_batched": lambda: kt.svdsolve_gkl_batched(A, X, 1, "LR", kt.GKL(),
-                                                                space),
-        "lssolve_lsmr_batched": lambda: kt.lssolve_lsmr_batched(A, X, kt.LSMR(), 0.0, space),
-        "geneigsolve_golubye_batched": lambda: kt.geneigsolve_golubye_batched(
-            A, None, X, 1, "SR", kt.GolubYe(), space),
-        "bieigsolve_batched": lambda: kt.bieigsolve_batched(A, X, X, 1, "LM", kt.BiArnoldi(),
-                                                            space),
-        "eigsolve_blocklanczos_batched": lambda: kt.eigsolve_blocklanczos_batched(
-            A, X[:, None], 1, "LR", kt.BlockLanczos(), space),
-    }
-    for name, call in cases.items():
-        with pytest.raises(ValueError, match=f"{name}.*sharded space"):
-            call()
+    cases = [({"a": X}, {}, "pytree vectors"), (X.clone().requires_grad_(True), {},
+                                                 "differentiation")]
+    if driver in ("svdsolve_gkl_batched", "bieigsolve_batched"):
+        cases.append((X, {"eager": True}, "eager=True"))
+    for X0, kw, why in cases:
+        with pytest.raises(ValueError, match=f"{driver}.*{why}"):
+            _sharded_call(driver, A, X0, space, **kw)
+    got = _sharded_call(driver, A, X, space)
+    want = _sharded_call(driver, A, X, VectorSpace())
+    assert torch.equal(got[0], want[0])
 
 
 _UNFIT_BLOCKS = {
