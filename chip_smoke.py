@@ -296,7 +296,22 @@ without the final ``ok`` line:
    block QRs' column passes), no one-problem K3 or K5; then the batched K3
    at those 16 rows (shared and per-problem planes, warm and cold, 16
    one-problem launches, the bound, the plain version, cuSPARSE);
-36. profile (only with ``--profile``) — one more config-1 solve and one
+36. batched_pytree — batched solves on pytree vectors, each vector cut
+   into two leaves by rows and the operator a callable on the trees (the
+   unfused lock-step): config 1 (n = 2^21, float32, two (8192, 128)
+   leaves of a tuple, 4 "LM", krylovdim 30, maxiter 8, tol 1e-30) for
+   phase 30's first 2 starts through ``eigsolve_lanczos_batched``, and
+   config 3's rectangular map from a dict domain to a tuple codomain
+   through ``svdsolve_gkl_batched`` (8 "LR", krylovdim 30, maxiter 3, 2
+   starts): each problem's counts equal its one-problem tree solve's and
+   its values, vectors and residuals bit-identical to it, config 1's
+   values within 2e-2 of 4; exactly the one-problem tree solve's K2 count
+   as ``transform_partial_batched`` (one launch per leaf per rotation), no
+   one-problem kernel; then small float64 tree batches (2 problems)
+   through every other batched driver, card within 1e-12 of the CPU,
+   counts equal, each problem bit-identical to its one-problem tree solve
+   on the card;
+37. profile (only with ``--profile``) — one more config-1 solve and one
    more fused config-4 solve under ``torch.profiler``: device busy time and idle share, device ops, host
    reads of device scalars, device time by kernel name.
 
@@ -314,7 +329,7 @@ printed as ``parent_ms`` beside ``ms`` (without it ``parent_ms`` is null).
 ``--root`` (default: this tree) and prints one JSON line.
 
 Each path (phases 5, 7, 9, 12, 13, 14, 15, 17, 18, 20, 21, 24, 25, 27,
-28, 29, 30, 31, 32, 33, 34 and 35, one solve or iterator at a time, the forward and the backward of
+28, 29, 30, 31, 32, 33, 34, 35 and 36, one solve or iterator at a time, the forward and the backward of
 a differentiable solve apart; in 24, 25, 27 and 29 in every rank) is
 driven with the launch counts set to 0 just before it and read just after.
 Then the kernel summary line, the ``nvidia-smi`` name/power line, and as
@@ -6939,6 +6954,349 @@ def batched_block_lanczos_phase(torch, np, kt, _build, bd, bs, smi, banded=None,
     return out
 
 
+def small_batched_pytree_cases(torch, np, kt, dev, P=2, one_problem=True):
+    """The small float64 batched tree solves of phase ``batched_pytree`` on
+    ``dev``, by name, each a function giving ``(values, counts, bits)``:
+    the batch's values (a flat float64 CPU tensor: solutions for the linear
+    solves and the integrator, eigen- and singular values otherwise), its
+    ``[numops, numiter, converged]`` lists, and whether every problem is
+    bit-identical (``torch.equal`` leaf by leaf) to its one-problem tree
+    solve on ``dev`` (``None`` with ``one_problem=False``: those solves are
+    not run).  ``P`` problems each, the shapes of
+    :func:`small_pytree_cases`: GMRES on dicts; CG, MINRES and BiCGStab on
+    tuples; ``schursolve``, ``eigsolve_arnoldi`` and ``realeigsolve_arnoldi``
+    on tuples; ``expintegrator`` with three dict vectors; LSMR from a tuple
+    domain to a dict codomain; Golub-Ye on dicts; BiArnoldi on a ``(v0,
+    w0)`` pair of tuples; Block Lanczos on ``(P, b, ...)`` dict leaves."""
+    from krylovkit_tpu_torch.ops.operator import as_operator
+    from krylovkit_tpu_torch.ops.vector import tree_leaves, tree_map, tree_row
+    from krylovkit_tpu_torch.solvers import arnoldi as arn
+    from krylovkit_tpu_torch.solvers import biarnoldi as ba
+    from krylovkit_tpu_torch.solvers import bicgstab, cg, gmres, minres
+    from krylovkit_tpu_torch.solvers import blocklanczos as bl
+    from krylovkit_tpu_torch.solvers import expintegrator as ei
+    from krylovkit_tpu_torch.solvers import golubye as gy
+    from krylovkit_tpu_torch.solvers import lssolve as ls
+
+    quiet = {"verbosity": kt.SILENT}
+    f64 = torch.float64
+    rng = np.random.default_rng(207)
+
+    def mat(*shape):
+        return torch.from_numpy(rng.standard_normal(shape)).to(dev)
+
+    R, C, H, G = mat(40, 30), mat(20, 20), mat(20, 20), mat(20, 20)
+    H, Bm = (H + H.T) / 2, C @ C.T + 2 * torch.eye(20, dtype=f64, device=dev)
+    S = H @ H / 20 + torch.eye(20, dtype=f64, device=dev)  # symmetric positive definite
+    G = G / 20 ** 0.5 + 2 * torch.eye(20, dtype=f64, device=dev)  # nonsymmetric
+    X20, X40 = mat(P, 20), mat(P, 40)
+    U3 = [mat(P, 20) for _ in range(3)]
+    XB = mat(P, 3, 20)
+    tup, dic = _tree_of(torch, "tuple", 9), _tree_of(torch, "dict", 9)
+    cod, dom = _tree_of(torch, "dict", 17), _tree_of(torch, "tuple", 12)
+
+    def stacked(split, X):
+        """A ``(P, ...)`` stack cut into two leaves on its last axis."""
+        t = split(X.transpose(0, -1))
+        return tree_map(lambda l: l.transpose(0, -1), t)
+
+    def op_of(M, tree, adjoint=False):
+        return _tree_map_of(torch, kt, lambda v: M @ v, tree, tree, f64,
+                            (lambda v: M.T @ v) if adjoint else None)
+
+    ps = range(P) if one_problem else ()
+
+    def same(a, b):
+        la, lb = tree_leaves(a), tree_leaves(b)
+        return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+    def counts(info):
+        return [info.numops.tolist(), info.numiter.tolist(), info.converged.tolist()]
+
+    def flat(*ts):
+        out = []
+        for t in ts:
+            for l in tree_leaves(t):
+                l = l.detach().cpu()
+                out.append((torch.view_as_real(l) if l.is_complex() else l).reshape(-1).double())
+        return torch.cat(out)
+
+    def linear(M, tree, one, batched, alg, a0=0.5):
+        op = op_of(M, tree)
+        B = stacked(tree[0], X20)
+        Z = tree_map(torch.zeros_like, B)
+        x, info = batched(op, B, Z, a0, 1.0, alg)
+        bits = all(same(tree_row(x, p), one(op, tree_row(B, p), tree_row(Z, p), a0, 1.0,
+                                            alg)[0]) for p in ps)
+        return flat(x), counts(info), bits if one_problem else None
+
+    def schur(name):
+        op = op_of(G, tup)
+        X = stacked(tup[0], X20)
+        alg = kt.Arnoldi(krylovdim=20, tol=1e-10, maxiter=50, **quiet)
+        if name == "schursolve":
+            T, V, (re, im), info = kt.schursolve_batched(op, X, 3, "LM", alg)
+            ones = [arn.schursolve(op, tree_row(X, p), 3, "LM", alg) for p in ps]
+            bits = all(torch.equal(T[p], o[0]) and same(tree_row(V, p), o[1])
+                       and torch.equal(re[p], o[2][0]) for p, o in enumerate(ones))
+            return flat(re, im), counts(info), bits if one_problem else None
+        batched, one = ((kt.eigsolve_arnoldi_batched, arn.eigsolve_arnoldi)
+                        if name == "eigsolve_arnoldi"
+                        else (kt.realeigsolve_arnoldi_batched, arn.realeigsolve_arnoldi))
+        out = batched(op, X, 3, "LR", alg)
+        ones = [one(op, tree_row(X, p), 3, "LR", alg) for p in ps]
+        bits = all(torch.equal(out[0][p], o[0]) and same(tree_row(out[1], p), o[1])
+                   for p, o in enumerate(ones))
+        return flat(out[0]), counts(out[2]), bits if one_problem else None
+
+    def expint():
+        op = op_of(H / 4, dic)
+        us = tuple(stacked(dic[0], U) for U in U3)
+        alg = kt.Lanczos(krylovdim=10, tol=1e-10, **quiet)
+        y, info = kt.expintegrator_batched(op, 0.5, us, alg)
+        bits = all(same(tree_row(y, p), ei._expintegrator_core(
+            op, 0.5, tuple(tree_row(u, p) for u in us), alg, kt.STANDARD)[0]) for p in ps)
+        return flat(y), counts(info), bits if one_problem else None
+
+    def lsmr():
+        op = _tree_map_of(torch, kt, lambda v: R @ v, dom, cod, f64, lambda v: R.T @ v)
+        B = stacked(cod[0], X40)
+        alg = kt.LSMR(tol=1e-10, maxiter=400, **quiet)
+        x, info = kt.lssolve_lsmr_batched(op, B, alg, 0.5)
+        bits = all(same(tree_row(x, p), ls.lssolve_lsmr(op, tree_row(B, p), alg, 0.5)[0])
+                   for p in ps)
+        return flat(x), counts(info), bits if one_problem else None
+
+    def golub():
+        opA, opB = op_of(H, dic), op_of(Bm, dic)
+        X = stacked(dic[0], X20)
+        alg = kt.GolubYe(krylovdim=19, tol=1e-10, maxiter=50, **quiet)
+        vals, vecs, info = kt.geneigsolve_golubye_batched(opA, opB, X, 2, "SR", alg)
+        ones = [gy.geneigsolve_golubye(opA, opB, tree_row(X, p), 2, "SR", alg) for p in ps]
+        bits = all(torch.equal(vals[p], o[0]) and same(tree_row(vecs, p), o[1])
+                   for p, o in enumerate(ones))
+        return flat(vals), counts(info), bits if one_problem else None
+
+    def biarn():
+        op = op_of(G, tup, adjoint=True)
+        V0, W0 = stacked(tup[0], X20), stacked(tup[0], U3[0])
+        alg = kt.BiArnoldi(krylovdim=20, tol=1e-10, maxiter=50, **quiet)
+        vals, (V, W), (iV, _) = kt.bieigsolve_batched(op, V0, W0, 2, "LM", alg)
+        ones = [ba.bieigsolve_driver(as_operator(op), tree_row(V0, p), tree_row(W0, p), 2, "LM",
+                                     alg) for p in ps]
+        bits = all(torch.equal(vals[p], o[0]) and same(tree_row(V, p), o[1][0])
+                   and same(tree_row(W, p), o[1][1]) for p, o in enumerate(ones))
+        return flat(vals), counts(iV), bits if one_problem else None
+
+    def block():
+        op = op_of(H, dic)
+        X = stacked(dic[0], XB)
+        alg = kt.BlockLanczos(krylovdim=18, tol=1e-10, maxiter=100, **quiet)
+        vals, vecs, info = kt.eigsolve_blocklanczos_batched(op, X, 3, "LR", alg)
+        ones = [bl.eigsolve_blocklanczos(op, tree_row(X, p), 3, "LR", alg) for p in ps]
+        bits = all(torch.equal(vals[p], o[0]) and same(tree_row(vecs, p), o[1])
+                   for p, o in enumerate(ones))
+        return flat(vals), counts(info), bits if one_problem else None
+
+    def gm():
+        alg = kt.GMRES(krylovdim=8, tol=1e-10, maxiter=50, **quiet)
+        return linear(G, dic, gmres.linsolve_gmres, kt.linsolve_gmres_batched, alg)
+
+    return {
+        "gmres_dict": gm,
+        "cg_tuple": lambda: linear(S, tup, cg.linsolve_cg, kt.linsolve_cg_batched,
+                                   kt.CG(tol=1e-10, maxiter=200, **quiet)),
+        "minres_tuple": lambda: linear(H, tup, minres.linsolve_minres,
+                                       kt.linsolve_minres_batched,
+                                       kt.MINRES(tol=1e-10, maxiter=200, **quiet), a0=3.0),
+        "bicgstab_tuple": lambda: linear(G, tup, bicgstab.linsolve_bicgstab,
+                                         kt.linsolve_bicgstab_batched,
+                                         kt.BiCGStab(tol=1e-10, maxiter=200, **quiet)),
+        "schursolve_tuple": lambda: schur("schursolve"),
+        "eigsolve_arnoldi_tuple": lambda: schur("eigsolve_arnoldi"),
+        "realeigsolve_arnoldi_tuple": lambda: schur("realeigsolve_arnoldi"),
+        "expintegrator_three_dicts": expint,
+        "lssolve_lsmr_dict_tuple": lsmr,
+        "geneigsolve_golubye_dict": golub,
+        "bieigsolve_tuple_pair": biarn,
+        "eigsolve_blocklanczos_dict": block,
+    }
+
+
+def batched_pytree_phase(torch, np, kt, _build, svds, smi, rect=None, rect_adj=None, n=1 << 21,
+                         nx=1024, P=2, maxiter=8, dev="cuda"):
+    """Phase ``batched_pytree``: batched solves on pytree vectors, each
+    vector cut into two leaves by rows (phase 28's :func:`_tree_of`), the
+    operator a callable on the trees (:func:`_tree_map_of`), so every solve
+    takes the unfused lock-step and rotates each ``(kmax, R, 128)`` float32
+    leaf with one batched K2 launch.
+
+    (a) config 1 on a tuple: ``laplacian_1d(n)`` as two ``(R/2, 128)``
+    leaves, ``eigsolve_lanczos_batched`` with 4 "LM", krylovdim 30,
+    ``maxiter`` (8: phase ``main``'s 10 cut for the phase's 10 s), tol
+    1e-30, cgs2, for phase 30's first ``P`` starts.
+    (b) config 3's rectangular map (``rect``, ``rect_adj``; rows ``2·nx²``,
+    columns ``nx²``) from a dict domain to a tuple codomain (phase 28's
+    cuts), ``svdsolve_gkl_batched`` with 8 "LR", krylovdim 30, maxiter 3,
+    tol 1e-30 (phase 33's fixed work), phase 33's first ``P`` starts.
+    Each batched solve is driven once with the launch counts set to 0 just
+    before it and read just after; then each problem's one-problem tree
+    solve (``solvers/lanczos.py:eigsolve_lanczos``,
+    ``solvers/svdsolve.py:svdsolve_gkl``) with its launches.  Guards: each
+    problem's counts equal its one-problem tree solve's, its values, vectors
+    and residuals bit-identical to it; (a) values within 2e-2 of 4 at full
+    ``n``; on the card exactly the one-problem tree solve's K2 count as
+    ``transform_partial_batched`` (one launch per leaf per rotation) and no
+    one-problem kernel.  (c) the small float64 tree batches of
+    :func:`small_batched_pytree_cases` on the card against the CPU: values
+    within 1e-12 of the largest entry, counts equal, and on the card each
+    problem bit-identical to its one-problem tree solve.  Prints the
+    ms of each batch beside its one-problem solves, the launches and the
+    counts.  ``dev="cpu"`` with a small ``n`` and ``nx`` rehearses (a) and
+    (b) with the plain versions: no launch guard, no (c)."""
+    from krylovkit_tpu_torch.ops.vector import tree_leaves, tree_row
+    from krylovkit_tpu_torch.solvers import lanczos as lz
+
+    t0 = time.perf_counter()
+    card = dev != "cpu"
+    quiet = {"verbosity": kt.SILENT}
+    f32 = torch.float32
+    out = {"launches": {}}
+    one_problem = {"fused_step", "transform_partial", "banded_spmv", "laplacian_1d", "project",
+                   "unproject"}
+
+    def same(a, b):
+        la, lb = tree_leaves(a), tree_leaves(b)
+        return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+    def counts(info):
+        return [info.numops.tolist(), info.numiter.tolist(), info.converged.tolist()]
+
+    def check(path, batch, ones, counts_b, bits, launches, ones_launches, ms, one_ms, extra):
+        counts1 = [[o.numops for o in ones], [o.numiter for o in ones],
+                   [o.converged for o in ones]]
+        want = {"transform_partial_batched": ones_launches[0].get("transform_partial", 0)}
+        emit({"phase": "batched_pytree", "path": path, "P": P, **batch,
+              "numops": counts_b[0], "numiter": counts_b[1], "converged": counts_b[2],
+              "one_problem_counts": counts1, "bit_identical": bits, "launches": launches,
+              "expected_launches": want, "one_problem_launches": ones_launches,
+              "batched_ms": ms, "one_problem_ms": one_ms,
+              "batched_over_sum_of_one_problem": ms / sum(one_ms), "nvidia_smi": smi, **extra})
+        require(counts_b == counts1, f"batched_pytree {path}: each problem's counts equal its "
+                f"one-problem tree solve's ({counts_b} vs {counts1})")
+        require(all(bits), f"batched_pytree {path}: every problem bit-identical to its "
+                f"one-problem tree solve ({bits})")
+        if card:
+            require(all(l1 == ones_launches[0] for l1 in ones_launches),
+                    f"batched_pytree {path}: the one-problem tree solves launch alike "
+                    f"({ones_launches})")
+            require(launches == want and want["transform_partial_batched"] > 0,
+                    f"batched_pytree {path}: one batched K2 launch per leaf per rotation, as "
+                    f"many as the one-problem tree solve's K2 ({launches} vs {want})")
+            require(not one_problem & set(launches), f"batched_pytree {path}: no one-problem "
+                    f"launch ({launches})")
+        out["launches"][path] = launches
+
+    # (a) config 1 on a tuple of two (R/2, 128) leaves
+    R = n // 128
+    lap = kt.laplacian_1d(n, device=dev)
+    t1 = _tree_of(torch, "tuple", R // 2)
+    op1 = _tree_map_of(torch, kt, lap.normal, t1, t1, f32)
+    X = batched_starts(torch, np, R, P, dev)
+    Xt = (X[:, :R // 2], X[:, R // 2:])
+    alg = kt.Lanczos(krylovdim=KRYLOVDIM, maxiter=maxiter, tol=1e-30, **quiet)
+    (vals, vecs, info), ms, launches = _sync_ms(
+        torch, _build, lambda: kt.eigsolve_lanczos_batched(op1, Xt, 4, "LM", alg), dev)
+    ones, one_ms, one_l = [], [], []
+    for p in range(P):
+        o, ms1, l1 = _sync_ms(torch, _build, lambda p=p: lz.eigsolve_lanczos(
+            op1, tree_row(Xt, p), 4, "LM", alg), dev)
+        ones.append(o)
+        one_ms.append(ms1)
+        one_l.append(l1)
+    bits = [torch.equal(vals[p], o[0]) and same(tree_row(vecs, p), o[1])
+            and same(tree_row(info.residual, p), o[2].residual)
+            and torch.equal(info.normres[p], o[2].normres) for p, o in enumerate(ones)]
+    vh = vals.cpu()
+    check("config1_lanczos_tuple", {"n": n, "leaves": [tuple(l.shape) for l in vecs]},
+          [o[2] for o in ones], counts(info), bits, launches, one_l, ms, one_ms,
+          {"vals": vh.tolist(), "maxiter": maxiter})
+    require(all(tuple(l.shape) == (P, 4, R // 2, 128) and bool(torch.isfinite(l).all())
+                for l in vecs), "batched_pytree config 1: finite (P, 4, R/2, 128) leaves")
+    if n == 1 << 21:
+        require(bool((torch.abs(vh - 4.0) <= 2e-2).all()), f"batched_pytree config 1: vals ~ 4 "
+                f"(atol 2e-2): {vh.tolist()}")
+    del vals, vecs, info, ones
+
+    # (b) config 3's rectangular map, dict domain, tuple codomain
+    Rr = nx * nx // 128
+    if rect is None:
+        Cr = nx * nx // 2
+        wr = torch.from_numpy(np.linspace(1.0, 3.0, Cr, dtype=np.float32)
+                              .reshape(Cr // 128, 128)).to(dev)
+
+        def rect(x):
+            wx = wr * x
+            return torch.cat([wx, 0.5 * torch.roll(wx, 1, dims=0)], dim=0)
+
+        def rect_adj(y):
+            return wr * y[: Cr // 128] + 0.5 * wr * torch.roll(y[Cr // 128:], -1, dims=0)
+
+    cod, dom = _tree_of(torch, "tuple", Rr // 2), _tree_of(torch, "dict", Rr // 4)
+    op3 = _tree_map_of(torch, kt, rect, dom, cod, f32, rect_adj)
+    X3 = batched_starts(torch, np, Rr, P, dev)
+    X3[0] = torch.from_numpy(np.random.default_rng(2).standard_normal((Rr, 128))
+                             .astype(np.float32))
+    X3t = (X3[:, :Rr // 2], X3[:, Rr // 2:])
+    galg = kt.GKL(krylovdim=KRYLOVDIM, maxiter=3, tol=1e-30, **quiet)
+    (S, U, W, info), ms, launches = _sync_ms(
+        torch, _build, lambda: kt.svdsolve_gkl_batched(op3, X3t, 8, "LR", galg), dev)
+    ones, one_ms, one_l = [], [], []
+    for p in range(P):
+        o, ms1, l1 = _sync_ms(torch, _build, lambda p=p: svds.svdsolve_gkl(
+            op3, tree_row(X3t, p), 8, "LR", galg), dev)
+        ones.append(o)
+        one_ms.append(ms1)
+        one_l.append(l1)
+    bits = [torch.equal(S[p], o[0]) and same(tree_row(U, p), o[1]) and same(tree_row(W, p), o[2])
+            and same(tree_row(info.residual, p), o[3].residual) for p, o in enumerate(ones)]
+    Sh = S.cpu()
+    check("config3_svdsolve_rect_dict_tuple", {
+        "rows": 2 * Rr * 64, "cols": Rr * 64,
+        "leaves": {"codomain": [tuple(l.shape) for l in U], "domain":
+                   {k: tuple(W[k].shape) for k in W}}},
+        [o[3] for o in ones], counts(info), bits, launches, one_l, ms, one_ms,
+        {"svals": Sh.tolist()})
+    require(bool(torch.isfinite(Sh).all()) and bool((Sh[:, :-1] >= Sh[:, 1:]).all()),
+            "batched_pytree config 3: finite descending singular values")
+    del S, U, W, info, ones
+    if not card:
+        return out
+
+    # (c) the small float64 tree batches, card against CPU
+    small = []
+    for name in small_batched_pytree_cases(torch, np, kt, "cpu", P):
+        _build.reset_launches()
+        t1s = time.perf_counter()
+        vc, cc, bc = small_batched_pytree_cases(torch, np, kt, dev, P)[name]()
+        torch.cuda.synchronize()
+        ms_c = (time.perf_counter() - t1s) * 1e3
+        counted = {k: v for k, v in _build.launches.items() if v}
+        vh, ch, _ = small_batched_pytree_cases(torch, np, kt, "cpu", P, False)[name]()
+        err = float((vc - vh).abs().max()) / max(float(vh.abs().max()), 1.0)
+        small.append({"solve": name, "rel_err": err, "counts": cc, "counts_cpu": ch,
+                      "bit_identical_card": bc, "launches": counted,
+                      "ms_card_with_one_problem_solves": ms_c})
+        require(err <= SMALL_SHARDED_TOL, f"batched_pytree small {name}: card within "
+                f"{SMALL_SHARDED_TOL} of the CPU ({err})")
+        require(cc == ch, f"batched_pytree small {name}: counts equal ({cc} vs {ch})")
+        require(bc, f"batched_pytree small {name}: each problem bit-identical to its "
+                "one-problem tree solve on the card")
+    emit({"phase": "batched_pytree_small", "solves": small, "tolerance": SMALL_SHARDED_TOL,
+          "nvidia_smi": smi, "phase_seconds": time.perf_counter() - t0})
+    return out
+
+
 def mean(xs):
     return sum(xs) / len(xs)
 
@@ -6946,7 +7304,7 @@ def mean(xs):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one config-1 and one config-4 solve (phase 36)")
+                    help="also profile one config-1 and one config-4 solve (phase 37)")
     ap.add_argument("--parent", metavar="DIR",
                     help="an unpacked earlier tree: time its K1 and K2 on this card as parent_ms")
     ap.add_argument("--kernel-times", action="store_true",
@@ -7924,6 +8282,14 @@ def main():
 
     phase_done("batched_block_lanczos")
 
+    # 36. batched solves on pytree vectors: config 1 on a tuple of two
+    # leaves and config 3's rectangular map from a dict domain to a tuple
+    # codomain (batched K2 leaf by leaf), then small float64 tree batches
+    # through every other batched driver, card against CPU
+    batched_tree = batched_pytree_phase(torch, np, kt, _build, svds, smi, rect, rect_adj)
+
+    phase_done("batched_pytree")
+
     def slice11(name):
         """The launches per rank of ``name`` in phase 29's passes."""
         return {"launches_sharded_ad_per_rank": {
@@ -8020,6 +8386,8 @@ def main():
             **slice11("transform_partial"),
             **batched["kernels"]["transform_partial"],
             **batched_svd["kernels"]["transform_partial"],
+            **{f"launches_batched_pytree_{path}": L.get("transform_partial_batched", 0)
+               for path, L in batched_tree["launches"].items()},
         },
         {
             "name": "banded_spmv", "route": "cuda",

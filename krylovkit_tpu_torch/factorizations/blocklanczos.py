@@ -135,8 +135,8 @@ def block_qr(X: PyTree, qr_tol, space: VectorSpace = STANDARD
 
 
 def block_qr_batched(Xs, qr_tol, space: VectorSpace = STANDARD):
-    """:func:`block_qr` of each stacked block of ``Xs`` (``P`` tensors of
-    one shape), column by column for all of them: the input norms are one
+    """:func:`block_qr` of each stacked block of ``Xs`` (``P`` tensors or
+    trees of one structure and shape), column by column for all of them: the input norms are one
     ``bs.batch_inner_batched``, each of a column's two passes projects every
     block's column in one ``bs.project_batched`` call and its norms are one
     ``norm_batched``; the rest runs per block as :func:`block_qr` runs it.
@@ -169,8 +169,8 @@ def initialize(X0: PyTree, mcap: int, coeff_dtype, qr_tol,
 
 
 def initialize_batched(X0s, mcap: int, coeff_dtype, qr_tol, space: VectorSpace = STANDARD):
-    """:func:`initialize` of each start block of ``X0s`` (``P`` tensors of
-    one shape), the block QRs through :func:`block_qr_batched`.  Returns
+    """:func:`initialize` of each start block of ``X0s`` (``P`` tensors or
+    trees of one structure and shape), the block QRs through :func:`block_qr_batched`.  Returns
     the list of states, each with its own zeroed basis and its rank as a
     0-d device tensor."""
     b = bs.capacity(X0s[0])
@@ -276,9 +276,11 @@ def expand_batched(apply_stack, states: dict, qr_tol, space: VectorSpace = STAND
     b = bs.capacity(states[ps[0]].X)
     for p in ps:
         _commit(states[p], b)
-    Y = apply_stack(torch.cat([states[p].X for p in ps]), [p for p in ps for _ in range(b)])
+    Y = apply_stack(tree_map(lambda *ls: torch.cat(ls), *[states[p].X for p in ps]),
+                    [p for p in ps for _ in range(b)])
     Ws = _orthogonalize_batched([states[p] for p in ps],
-                                [Y[i * b:(i + 1) * b] for i in range(len(ps))], b, space)
+                                [tree_map(lambda l: l[i * b:(i + 1) * b], Y)
+                                 for i in range(len(ps))], b, space)
     Qs, Cs, ranks = block_qr_batched(Ws, qr_tol, space)
     return {p: _advanced(states[p], Q, C, r, b, verbosity)
             for p, Q, C, r in zip(ps, Qs, Cs, ranks)}

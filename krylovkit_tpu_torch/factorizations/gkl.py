@@ -35,7 +35,8 @@ from ..ops import basis as bs
 from ..ops import fused_lanczos as fl
 from ..ops import orthonormal as on
 from ..ops.operator import probe_adjoint
-from ..ops.vector import STANDARD, VectorSpace, astype, device_of, tree_map
+from ..ops.vector import (STANDARD, VectorSpace, alloc_batched, astype, device_of, tree_flatten,
+                          tree_map, tree_row)
 from . import krylov as kf
 
 __all__ = ["GKLState", "initialize", "expand", "fused_kernel_available", "fused_expansions",
@@ -157,23 +158,31 @@ def initialize_batched(ops, x0s, m: int, coeff_dtype, space: VectorSpace = STAND
     """:func:`initialize` of every problem ``p`` (operator ``ops[p]``, start
     ``x0s[p]``) on stacked bases: ``(U (P, m+1, ...), V (P, m+1, ...),
     [GKLState])``, problem ``p``'s state holding rows ``U[p]`` and ``V[p]``
-    and its own ``B (m+1, m+1)``.  The starts' norms are one ``norm_batched``
-    (:func:`~.krylov.normalized_batched`).  The problems' domain vectors must
-    share one shape and type."""
+    and its own ``B (m+1, m+1)``; a pytree vector's bases are trees of
+    stacks, each problem's rows views of them.  The starts' norms are one
+    ``norm_batched`` (:func:`~.krylov.normalized_batched`).  The problems'
+    domain vectors must share one structure, shapes and types."""
     u0s = kf.normalized_batched(x0s, space, vec_dtype, verbosity)
     doms = [probe_adjoint(o, u0) for o, u0 in zip(ops, u0s)]
     P, u0, v0 = len(x0s), u0s[0], doms[0]
-    Ub = torch.zeros((P, m + 1) + tuple(u0.shape), dtype=u0.dtype, device=u0.device)
-    Vb = torch.zeros((P, m + 1) + tuple(v0.shape), dtype=v0.dtype, device=u0.device)
+    dev = device_of(u0)
+    Ub = alloc_batched(u0, P, m + 1)
+    Vb = alloc_batched(v0, P, m + 1, device=dev)
+
+    def layout(v):
+        leaves, spec = tree_flatten(v)
+        return spec, [(tuple(l.shape), l.dtype) for l in leaves]
+
     states = []
     for p in range(P):
-        if doms[p].shape != v0.shape or doms[p].dtype != v0.dtype:
-            raise ValueError(f"problem {p}: its domain vectors {tuple(doms[p].shape)} "
-                             f"{doms[p].dtype} differ from problem 0's")
-        Ub[p, 0] = u0s[p]
-        B = torch.zeros((m + 1, m + 1), dtype=coeff_dtype, device=Ub.device)
-        beta = torch.ones((), dtype=coeff_dtype.to_real(), device=Ub.device)
-        states.append(GKLState(Ub[p], Vb[p], B, 0, beta))
+        if layout(doms[p]) != layout(v0):
+            raise ValueError(f"problem {p}: its domain vectors {layout(doms[p])[1]} differ "
+                             f"from problem 0's {layout(v0)[1]}")
+        Up, Vp = tree_row(Ub, p), tree_row(Vb, p)
+        bs.set(Up, 0, u0s[p])
+        B = torch.zeros((m + 1, m + 1), dtype=coeff_dtype, device=dev)
+        beta = torch.ones((), dtype=coeff_dtype.to_real(), device=dev)
+        states.append(GKLState(Up, Vp, B, 0, beta))
     return Ub, Vb, states
 
 

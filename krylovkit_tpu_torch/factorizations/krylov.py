@@ -93,16 +93,16 @@ def initialize(x0, m: int, coeff_dtype, space: VectorSpace = STANDARD,
 
 def normalized_batched(x0s, space: VectorSpace = STANDARD, vec_dtype=None,
                        verbosity: int = 0) -> list:
-    """``x0s[p]/‖x0s[p]‖`` for every start of a batch (tensors), each the
-    row 0 that :func:`initialize` makes of it, with its WARN line for a zero
-    norm, in order; the norms are one ``norm_batched`` (on a sharded space
-    one all-reduce for all)."""
+    """``x0s[p]/‖x0s[p]‖`` for every start of a batch (tensors or pytrees),
+    each the row 0 that :func:`initialize` makes of it, with its WARN line
+    for a zero norm, in order; the norms are one ``norm_batched`` (on a
+    sharded space one all-reduce for all)."""
     if vec_dtype is not None:
         x0s = [astype(x, vec_dtype) for x in x0s]
     out = []
     for x, nrm in zip(x0s, norm_batched(x0s, space)):
         warn_if(verbosity, nrm == 0, ZERO_START)
-        out.append(x / nrm.to(x.dtype))
+        out.append(tree_map(lambda l: l / nrm.to(l.dtype), x))
     return out
 
 
@@ -171,21 +171,22 @@ def _drift_sweep(orth: on.Orthogonalizer) -> on.Orthogonalizer:
 def _lanczos_front_batched(W: dict, states: dict, orth: on.Orthogonalizer,
                            space: VectorSpace, verbosity: int):
     """:func:`_lanczos_front` of every problem of ``W`` (``{p: w}``, tensor
-    vectors), each with its one-problem bits, the ``α`` of all from one
-    :func:`~..ops.vector.inner_batched` (one all-reduce on a sharded space).
-    Returns ``({p: w}, {p: α}, the drift sweep's orthogonalizer)``."""
+    or pytree vectors), each with its one-problem bits, the ``α`` of all
+    from one :func:`~..ops.vector.inner_batched` (one all-reduce on a
+    sharded space).  Returns ``({p: w}, {p: α}, the drift sweep's
+    orthogonalizer)``."""
     ps = list(W)
     vks = {p: bs.get(states[p].V, states[p].k) for p in ps}
     for p in ps:
         st = states[p]
         if st.k > 0:
-            W[p] = W[p] - st.beta.to(W[p].dtype) * bs.get(st.V, st.k - 1)
-    alphas = inner_batched(torch.stack([vks[p] for p in ps]), torch.stack([W[p] for p in ps]),
-                           space)
+            W[p] = tree_map(lambda a, b: a - st.beta.to(a.dtype) * b, W[p],
+                            bs.get(st.V, st.k - 1))
+    alphas = inner_batched([vks[p] for p in ps], [W[p] for p in ps], space)
     out_w, out_a = {}, {}
     for p, alpha in zip(ps, alphas):
         _check_hermitian(alpha, verbosity)
-        out_w[p] = W[p] - alpha.to(W[p].dtype) * vks[p]
+        out_w[p] = tree_map(lambda a, b: a - alpha.to(a.dtype) * b, W[p], vks[p])
         out_a[p] = alpha
     return out_w, out_a, _drift_sweep(orth)
 

@@ -413,12 +413,13 @@ def apply_shifted(op: LinearOperator, x, a0, a1):
     return tree_map(lambda lx, la: a0 * lx + a1 * la, x, op(x))
 
 
-def apply_shifted_batched(apply: Callable, X: torch.Tensor, a0, a1) -> torch.Tensor:
-    """``a0·X + a1·A(X)`` for a ``(P, ...)`` stack ``X``, where ``apply``
-    maps the stack to its rows' images (a batched operator apply); ``a0``
-    and ``a1`` are shared by the rows and enter as in
-    :func:`apply_shifted`, so each row is that function's result on it."""
-    return a0 * X + a1 * apply(X)
+def apply_shifted_batched(apply: Callable, X, a0, a1):
+    """``a0·X + a1·A(X)`` for a ``(P, ...)`` stack ``X`` (a tree of stacks
+    leaf by leaf), where ``apply`` maps the stack to its rows' images (a
+    batched operator apply); ``a0`` and ``a1`` are shared by the rows and
+    enter as in :func:`apply_shifted`, so each row is that function's
+    result on it."""
+    return tree_map(lambda lx, la: a0 * lx + a1 * la, X, apply(X))
 
 
 def probe_dtype(op: LinearOperator, x0) -> torch.dtype:

@@ -17,6 +17,10 @@ batched solve's problems with one.
 
 The tree helpers (``tree_map``, ``tree_leaves``, ``tree_flatten``,
 ``tree_unflatten``) are built on ``torch.utils._pytree`` and live here only.
+A batched solve holds the vectors of its ``P`` problems as a stack: a tree
+whose every leaf carries the problem axis first (``jax.vmap``'s layout);
+:func:`tree_row`, :func:`tree_rows`, :func:`tree_stack`, :func:`stack_size`
+and :func:`alloc_batched` take and make such stacks leaf by leaf.
 """
 
 from __future__ import annotations
@@ -49,6 +53,11 @@ __all__ = [
     "tree_leaves",
     "tree_flatten",
     "tree_unflatten",
+    "tree_row",
+    "tree_rows",
+    "tree_stack",
+    "stack_size",
+    "alloc_batched",
     "astype",
     "device_of",
     "psum",
@@ -79,6 +88,44 @@ def tree_map(fn: Callable, x: PyTree, *rest: PyTree) -> PyTree:
     if isinstance(x, torch.Tensor):
         return fn(x, *rest)
     return _pt.tree_map(fn, x, *rest)
+
+
+def tree_row(X: PyTree, i: int) -> PyTree:
+    """Row ``i`` of a stack: every leaf's ``l[i]``, a view, so an in-place
+    write to the row lands in the stack."""
+    return tree_map(lambda l: l[i], X)
+
+
+def tree_rows(X: PyTree) -> list:
+    """The rows of a stack (views), as a list of :func:`tree_row`."""
+    return [tree_row(X, i) for i in range(stack_size(X))]
+
+
+def tree_stack(xs) -> PyTree:
+    """The trees ``xs`` (one structure) stacked leaf by leaf along a new
+    leading axis: one tree whose leaves are ``(len(xs), ...)``."""
+    return tree_map(lambda *ls: torch.stack(ls), *xs)
+
+
+def stack_size(X: PyTree, name: str = "the vector") -> int:
+    """The leading (problem) axis every leaf of ``X`` carries; a
+    ``ValueError`` where a leaf has none or the leaves disagree, as
+    ``jax.vmap`` refuses inconsistent sizes."""
+    leaves = tree_leaves(X)
+    if not leaves or any(not isinstance(l, torch.Tensor) or l.ndim == 0 for l in leaves):
+        raise ValueError(f"{name} has no leading problem axis")
+    sizes = sorted({l.shape[0] for l in leaves})
+    if len(sizes) != 1:
+        raise ValueError(f"the leaves of {name} disagree on the problem count: {sizes}")
+    return sizes[0]
+
+
+def alloc_batched(template: PyTree, P: int, rows: int, dtype=None, device=None) -> PyTree:
+    """A zeroed ``(P, rows) + leaf.shape`` stack for every leaf of the
+    vector ``template`` (on ``device``, default the leaf's): the bases of
+    ``P`` problems, problem ``p``'s basis its :func:`tree_row`."""
+    return tree_map(lambda l: torch.zeros((P, rows) + tuple(l.shape), dtype=dtype or l.dtype,
+                                          device=device or l.device), template)
 
 
 def astype(x: PyTree, dtype: torch.dtype) -> PyTree:

@@ -58,9 +58,22 @@ residual norms) keeps its one-problem collectives.  A fusable stencil whose
 its reach, a grid row cut between ranks) raises
 (``factorizations/krylov.py:check_sharded_blocks``); the gate's other rules
 send a problem to the unfused lock-step, as on an unsharded space, never
-to a loop over problems.  Pytree vectors, ``eager`` (but in Block
-Lanczos), selective reorthogonalization and differentiation are not
-batched (``ValueError``).
+to a loop over problems.
+
+Vectors may be pytrees (tuples, lists, dicts, nested; a Block Lanczos start
+of them): an argument with ``in_dims`` ``0`` is a tree whose every leaf
+carries the problem axis first, and the outputs are trees of the input's
+structure with leaves ``(P, ...)``, as ``jax.vmap`` returns them.  Problem
+``p``'s vectors are views of row ``p`` of each leaf, and every operation
+runs leaf by leaf as in the one-problem tree solve, which each problem
+gives bit for bit on a shared operator.  A tree operator is a user
+callable, applied problem by problem; the fused gates refuse a tree, so a
+tree batch takes the unfused lock-step, and a restart rotates every leaf
+the K2 kernel takes (a ``(kmax, R, 128)`` float32/bfloat16 leaf) in one
+batched launch, any other leaf problem by problem.  Refused, each with a
+``ValueError`` that names it: ``eager`` (but in Block Lanczos), selective
+reorthogonalization, differentiation, and pytree vectors on a sharded
+space.
 """
 
 from __future__ import annotations
@@ -81,7 +94,9 @@ from ..ops.banded import BandedOperator
 from ..ops.operator import (LinearOperator, MatrixOperator, as_operator, probe_dtype,
                             require_adjoint)
 from ..ops.stencil_1d import Laplacian1DOperator
-from ..ops.vector import STANDARD, VectorSpace, add, astype, device_of, rounded, scalartype
+from ..ops.vector import (STANDARD, VectorSpace, add, alloc_batched, astype, device_of, rounded,
+                          scalartype, stack_size, tree_leaves, tree_map, tree_row, tree_rows,
+                          tree_stack)
 from .gmres import _qr_update
 from .lanczos import _LoopState, _arrowhead, _process, _restart_rotation
 
@@ -96,18 +111,14 @@ def _in_dims(in_dims, names):
     return dims
 
 
-def _tensors_only(what: str, vectors):
-    for v in vectors:
-        if not isinstance(v, torch.Tensor):
-            raise ValueError(f"{what}: pytree vectors are not batched; give tensors with a "
-                             "leading problem axis")
-
-
-def _refuse(what: str, vectors, ops, scalars=()):
-    """The pieces the batched drivers do not batch, each named: pytree
-    vectors and differentiation."""
-    _tensors_only(what, vectors)
-    tensors = list(vectors) + [t for op in ops for t in op.tensors()]
+def _refuse(what: str, vectors, ops, scalars=(), space: VectorSpace = STANDARD):
+    """The pieces the batched drivers do not batch, each named:
+    differentiation, and pytree vectors on a sharded space."""
+    if space.psum_axis is not None and any(not isinstance(v, torch.Tensor) for v in vectors):
+        raise ValueError(f"{what}: pytree vectors on a sharded space are not batched; give "
+                         "tensors, or solve on an unsharded space")
+    tensors = [l for v in vectors for l in tree_leaves(v)]
+    tensors += [t for op in ops for t in op.tensors()]
     tensors += [a for a in scalars if isinstance(a, torch.Tensor)]
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise ValueError(f"{what}: differentiation through a batched solve is not batched; "
@@ -203,8 +214,11 @@ class _Operators:
     def distinct(self):
         return list({id(o): o for o in self.ops}.values())
 
-    def _batches(self, x: torch.Tensor, adjoint: bool = False) -> bool:
-        """Whether vectors like ``x`` (one problem's) apply as a stack."""
+    def _batches(self, x, adjoint: bool = False) -> bool:
+        """Whether vectors like ``x`` (one problem's) apply as a stack (never
+        a pytree vector: its operator is a callable, applied per problem)."""
+        if not isinstance(x, torch.Tensor):
+            return False
         planes = self.adj_planes if adjoint else self.planes
         if planes is not None:
             return not torch.promote_types(planes.dtype, x.dtype).is_complex
@@ -217,42 +231,44 @@ class _Operators:
         o = self.ops[0]
         return o.adjoint_stack if adjoint else o.normal_stack
 
-    def _apply(self, X: torch.Tensor, ps, adjoint: bool) -> torch.Tensor:
-        if self.own_stack and self._own(adjoint) is not None:
-            return self._own(adjoint)(X)
-        planes = self.adj_planes if adjoint else self.planes
-        if planes is not None and self._batches(X[0], adjoint):
-            o0 = self.ops[0].adj if adjoint else self.ops[0]
-            dt = torch.promote_types(planes.dtype, X.dtype)
-            return bd.banded_spmv_batched(X.to(dt), planes.to(dt), o0.offsets, o0.n,
-                                          planes=None if self.shared else list(ps))
-        if self.laplacian:
-            if X[0].numel() != self.ops[0].n:
-                raise ValueError(f"vector of {X[0].numel()} entries for an "
-                                 f"n={self.ops[0].n} Laplacian")
-            return s1.laplacian_1d_flat_batched(X)
-        if self.stack is not None and X.ndim == 2:
-            stack = self.adj_stack if adjoint else self.stack
-            dt = torch.promote_types(stack.dtype, X.dtype)
-            # row i is column slot[i] of its problem's (n, c) block
-            slot, seen = [], {}
-            for p in ps:
-                slot.append(seen.get(p, 0))
-                seen[p] = slot[-1] + 1
-            full = torch.zeros((len(self.ops), X.shape[1], max(seen.values())), dtype=dt,
-                               device=X.device)
-            full[list(ps), :, slot] = X.to(dt)
-            return torch.matmul(stack.to(dt), full)[list(ps), :, slot]
+    def _apply(self, X, ps, adjoint: bool):
+        if isinstance(X, torch.Tensor):  # a tree stack applies problem by problem
+            if self.own_stack and self._own(adjoint) is not None:
+                return self._own(adjoint)(X)
+            planes = self.adj_planes if adjoint else self.planes
+            if planes is not None and self._batches(X[0], adjoint):
+                o0 = self.ops[0].adj if adjoint else self.ops[0]
+                dt = torch.promote_types(planes.dtype, X.dtype)
+                return bd.banded_spmv_batched(X.to(dt), planes.to(dt), o0.offsets, o0.n,
+                                              planes=None if self.shared else list(ps))
+            if self.laplacian:
+                if X[0].numel() != self.ops[0].n:
+                    raise ValueError(f"vector of {X[0].numel()} entries for an "
+                                     f"n={self.ops[0].n} Laplacian")
+                return s1.laplacian_1d_flat_batched(X)
+            if self.stack is not None and X.ndim == 2:
+                stack = self.adj_stack if adjoint else self.stack
+                dt = torch.promote_types(stack.dtype, X.dtype)
+                # row i is column slot[i] of its problem's (n, c) block
+                slot, seen = [], {}
+                for p in ps:
+                    slot.append(seen.get(p, 0))
+                    seen[p] = slot[-1] + 1
+                full = torch.zeros((len(self.ops), X.shape[1], max(seen.values())), dtype=dt,
+                                   device=X.device)
+                full[list(ps), :, slot] = X.to(dt)
+                return torch.matmul(stack.to(dt), full)[list(ps), :, slot]
+        rows = tree_rows(X)
         if adjoint:
-            return torch.stack([self.ops[p].apply_adjoint(x) for p, x in zip(ps, X)])
-        return torch.stack([self.ops[p].normal(x) for p, x in zip(ps, X)])
+            return tree_stack([self.ops[p].apply_adjoint(x) for p, x in zip(ps, rows)])
+        return tree_stack([self.ops[p].normal(x) for p, x in zip(ps, rows)])
 
-    def apply_stack(self, X: torch.Tensor, ps) -> torch.Tensor:
-        """``A_p X[i]`` for row ``i`` of the stack ``X``, the vector of
-        problem ``ps[i]``, as a stack."""
+    def apply_stack(self, X, ps):
+        """``A_p X[i]`` for row ``i`` of the stack ``X`` (a tensor, or a tree
+        of stacks), the vector of problem ``ps[i]``, as a stack."""
         return self._apply(X, ps, False)
 
-    def apply_adjoint_stack(self, X: torch.Tensor, ps) -> torch.Tensor:
+    def apply_adjoint_stack(self, X, ps):
         """``A_pᴴ X[i]`` for row ``i`` of the stack ``X``, the vector of
         problem ``ps[i]``, as a stack."""
         return self._apply(X, ps, True)
@@ -276,13 +292,23 @@ class _Operators:
         return self._map(xs, True)
 
 
-def _problems(x, dim, P):
-    return [x[p] if dim == 0 else x for p in range(P)]
+def _problems(x, dim, P, vector: bool = True):
+    """Each problem's argument: row ``p`` of a vector stack (views of every
+    leaf), entry ``p`` of a sequence (``vector=False``: operators, times),
+    or ``x`` itself where it is shared (``dim`` ``None``)."""
+    if dim is None:
+        return [x] * P
+    return [tree_row(x, p) if vector else x[p] for p in range(P)]
 
 
-def _count(x, dim, name):
+def _count(x, dim, name, vector: bool = True):
+    """The problem count an argument gives (``None`` where it is shared): a
+    vector's leaves' leading axis (a tuple is a pytree, never a list of
+    problems), a sequence's length (``vector=False``: operators, times)."""
     if dim is None:
         return None
+    if vector:
+        return stack_size(x, name)
     if not isinstance(x, (torch.Tensor, list, tuple)) or len(x) == 0:
         raise ValueError(f"{name} has no leading problem axis")
     return len(x)
@@ -296,22 +322,26 @@ def _batch_size(*sizes):
 
 
 def _rotate(Vb, Us: dict, m_out: int):
-    """``V[p, :m_out] ← (V[p] @ U_p)[:m_out]`` for each ``p`` of ``Us``: one
-    batched K2 launch where the one-problem rotation takes the kernel (a
-    real ``U`` on a ``(kmax, R, 128)`` float32/bfloat16 basis), else
-    ``bs.transform_partial`` per problem."""
+    """``V[p, :m_out] ← (V[p] @ U_p)[:m_out]`` for each ``p`` of ``Us``,
+    leaf by leaf as the one-problem ``bs.transform_partial`` decides: one
+    batched K2 launch for a leaf the kernel takes (a real ``U`` on a
+    ``(kmax, R, 128)`` float32/bfloat16 leaf), ``bs.transform_partial`` per
+    problem for any other."""
     ps = sorted(Us)
     U0 = Us[ps[0]]
-    if not torch.is_complex(U0) and bs._leaf_ok(Vb[0]):
-        none = torch.zeros_like(U0)
-        Ub = torch.stack([Us.get(p, none) for p in range(Vb.shape[0])])
-        bs.transform_partial_inplace_batched(Vb, Ub, m_out, ps)
-        return
-    for p in ps:
-        Vp = Vb[p]
-        Vnew = bs.transform_partial(Vp, Us[p], m_out)
-        if Vnew is not Vp:
-            Vp.copy_(Vnew)
+    Ub = None
+    for L in tree_leaves(Vb):
+        if not torch.is_complex(U0) and bs._leaf_ok(L[0]):
+            if Ub is None:
+                none = torch.zeros_like(U0)
+                Ub = torch.stack([Us.get(p, none) for p in range(L.shape[0])])
+            bs.transform_partial_inplace_batched(L, Ub, m_out, ps)
+            continue
+        for p in ps:
+            Lp = L[p]
+            Lnew = bs.transform_partial(Lp, Us[p], m_out)
+            if Lnew is not Lp:
+                Lp.copy_(Lnew)
 
 
 def _read(values) -> list:
@@ -346,10 +376,9 @@ def eigsolve_lanczos_batched(op, x0, howmany: int, which, alg: Lanczos,
         raise ValueError("eigsolve_lanczos_batched: Lanczos(reorth='selective') is not batched")
     if alg.eager:
         raise ValueError("eigsolve_lanczos_batched: Lanczos(eager=True) is not batched")
-    _tensors_only("eigsolve_lanczos_batched", [x0])
-    P = _batch_size(_count(op, op_dim, "op"), _count(x0, x_dim, "x0"))
+    P = _batch_size(_count(op, op_dim, "op", vector=False), _count(x0, x_dim, "x0"))
     ops = _Operators(op, P, op_dim == 0)
-    _refuse("eigsolve_lanczos_batched", [x0], ops.distinct())
+    _refuse("eigsolve_lanczos_batched", [x0], ops.distinct(), space=space)
     x0s = _problems(x0, x_dim, P)
     kf.check_sharded_blocks("eigsolve_lanczos_batched", ops.distinct(), x0s, space)
     cdt = coeff_dtype or functools.reduce(
@@ -362,13 +391,14 @@ def eigsolve_lanczos_batched(op, x0, howmany: int, which, alg: Lanczos,
     vdt = cdt if promote else scalartype(x0s[0])
 
     # one basis for all problems; each problem's factorization holds its row
-    Vb = torch.zeros((P, m + 1) + tuple(x0s[0].shape), dtype=vdt, device=dev)
+    Vb = alloc_batched(x0s[0], P, m + 1, vdt)
     st = {}
     for p in range(P):
         f0 = kf.initialize(x0s[p], 0, cdt, space, vec_dtype=cdt if promote else None,
                            verbosity=alg.verbosity)
-        Vb[p, 0] = f0.V[0]
-        fact = kf.KrylovState(Vb[p], torch.zeros((m + 1, m + 1), dtype=cdt, device=dev), 0,
+        bs.set(tree_row(Vb, p), 0, bs.get(f0.V, 0))
+        fact = kf.KrylovState(tree_row(Vb, p),
+                              torch.zeros((m + 1, m + 1), dtype=cdt, device=dev), 0,
                               f0.beta)
         st[p] = _LoopState(
             fact=fact, numiter=0, numops=0, nconv=0,
@@ -457,9 +487,10 @@ def eigsolve_lanczos_batched(op, x0, howmany: int, which, alg: Lanczos,
         vk = bs.unproject_bucketed(fact.V, s_.sc.L[:, k].to(cdt), k + 1)
         # residual vectors r_i = β·U[k-1,i]·V[k]
         s = fact.beta * s_.U[max(k - 1, 0)]
-        residuals.append(s[:howmany].reshape((howmany,) + (1,) * vk.ndim) * vk[None])
+        residuals.append(tree_map(
+            lambda l: s[:howmany].reshape((howmany,) + (1,) * l.ndim) * l[None], vk))
     _rotate(Vb, extract, howmany)
-    vecs = Vb[:, :howmany].clone()
+    vecs = tree_map(lambda l: l[:, :howmany].clone(), Vb)
     conv, iters = [], []
     for p in range(P):
         s_ = st[p]
@@ -481,7 +512,7 @@ def eigsolve_lanczos_batched(op, x0, howmany: int, which, alg: Lanczos,
     )
     info = ConvergenceInfo(
         converged=torch.tensor(conv, dtype=torch.int64, device=dev),
-        residual=torch.stack(residuals),
+        residual=tree_stack(residuals),
         normres=torch.stack([st[p].resnorms[:howmany] for p in range(P)]),
         numiter=torch.tensor(iters, dtype=torch.int64, device=dev),
         numops=torch.tensor([st[p].numops for p in range(P)], dtype=torch.int64, device=dev),
@@ -500,10 +531,10 @@ def linsolve_gmres_batched(op, b, x0, a0, a1, alg: GMRES, space: VectorSpace = S
     ends.  Returns ``(x (P, ...), info)`` with ``(P,)`` counts."""
     op_dim, b_dim, x_dim = _in_dims(in_dims, ("op", "b", "x0"))
     m = alg.krylovdim
-    _tensors_only("linsolve_gmres_batched", [b, x0])
-    P = _batch_size(_count(op, op_dim, "op"), _count(b, b_dim, "b"), _count(x0, x_dim, "x0"))
+    P = _batch_size(_count(op, op_dim, "op", vector=False), _count(b, b_dim, "b"),
+                    _count(x0, x_dim, "x0"))
     ops = _Operators(op, P, op_dim == 0)
-    _refuse("linsolve_gmres_batched", [b, x0], ops.distinct(), (a0, a1))
+    _refuse("linsolve_gmres_batched", [b, x0], ops.distinct(), (a0, a1), space)
     bs_, xs = _problems(b, b_dim, P), _problems(x0, x_dim, P)
     kf.check_sharded_blocks("linsolve_gmres_batched", ops.distinct(), bs_, space)
     dev = device_of(bs_[0])
@@ -518,7 +549,8 @@ def linsolve_gmres_batched(op, b, x0, a0, a1, alg: GMRES, space: VectorSpace = S
     def residuals(ps):
         """``b_p − (a0·x_p + a1·A_p x_p)`` for the problems ``ps``."""
         Ax = ops({p: x[p] for p in ps})
-        return {p: astype(add(bs_[p], a0c * x[p] + a1c * Ax[p], a=-1), cdt) for p in ps}
+        return {p: astype(add(bs_[p], tree_map(lambda lx, la: a0c * lx + a1c * la, x[p], Ax[p]),
+                              a=-1), cdt) for p in ps}
 
     def onehot(i: int):
         e = torch.zeros(m + 1, dtype=cdt, device=dev)
@@ -669,9 +701,9 @@ def linsolve_gmres_batched(op, b, x0, a0, a1, alg: GMRES, space: VectorSpace = S
     )
     info = ConvergenceInfo(
         converged=torch.tensor(conv, dtype=torch.int64, device=dev),
-        residual=torch.stack([r[p] for p in range(P)]),
+        residual=tree_stack([r[p] for p in range(P)]),
         normres=torch.stack([normr[p] for p in range(P)]),
         numiter=torch.tensor(numiter, dtype=torch.int64, device=dev),
         numops=torch.tensor(numops, dtype=torch.int64, device=dev),
     )
-    return torch.stack([x[p] for p in range(P)]), info
+    return tree_stack([x[p] for p in range(P)]), info

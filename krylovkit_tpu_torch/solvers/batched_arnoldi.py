@@ -31,8 +31,9 @@ design of ``solvers/batched.py``:
 
 ``in_dims``, the shared or per-problem operator, a sharded space (one
 all-reduce a lock-step for every stepping problem, the fused step's halos
-each problem's) and the refusals (pytree vectors, ``eager``,
-differentiation) are those of ``solvers/batched.py``.
+each problem's), pytree vectors (the unfused lock-step, the rotation leaf
+by leaf) and the refusals (``eager``, differentiation, pytree vectors on a
+sharded space) are those of ``solvers/batched.py``.
 """
 
 from __future__ import annotations
@@ -45,7 +46,9 @@ from ..algorithms import Arnoldi
 from ..factorizations import krylov as kf
 from ..info import ConvergenceInfo, warn_if
 from ..ops.operator import probe_dtype
-from ..ops.vector import STANDARD, VectorSpace, device_of, rounded
+from ..ops import basis as bs
+from ..ops.vector import (STANDARD, VectorSpace, alloc_batched, device_of, rounded, tree_row,
+                          tree_stack)
 from .arnoldi import (
     REALEIG_WARNING,
     _check,
@@ -70,7 +73,6 @@ from .batched import (
     _read,
     _refuse,
     _rotate,
-    _tensors_only,
 )
 
 __all__ = ["schursolve_batched", "eigsolve_arnoldi_batched", "realeigsolve_arnoldi_batched"]
@@ -83,10 +85,9 @@ def _setup(what: str, op, x0, howmany: int, alg: Arnoldi, space: VectorSpace, in
     _check(howmany, alg.krylovdim)
     if alg.eager:
         raise ValueError(f"{what}: Arnoldi(eager=True) is not batched")
-    _tensors_only(what, [x0])
-    P = _batch_size(_count(op, op_dim, "op"), _count(x0, x_dim, "x0"))
+    P = _batch_size(_count(op, op_dim, "op", vector=False), _count(x0, x_dim, "x0"))
     ops = _Operators(op, P, op_dim == 0)
-    _refuse(what, [x0], ops.distinct())
+    _refuse(what, [x0], ops.distinct(), space=space)
     x0s = _problems(x0, x_dim, P)
     kf.check_sharded_blocks(what, ops.distinct(), x0s, space)
     pdt = functools.reduce(torch.promote_types,
@@ -112,10 +113,11 @@ def _arnoldi_loop_batched(ops: _Operators, x0s, howmany: int, which, alg: Arnold
         f0 = kf.initialize(x0s[p], 0, cdt, space, vec_dtype=None if real else cdt,
                            verbosity=alg.verbosity)
         if Vb is None:
-            Vb = torch.zeros((P, m + 1) + tuple(f0.V.shape[1:]), dtype=f0.V.dtype, device=dev)
-        Vb[p, 0] = f0.V[0]
+            Vb = alloc_batched(bs.get(f0.V, 0), P, m + 1)
+        bs.set(tree_row(Vb, p), 0, bs.get(f0.V, 0))
         st[p] = _LoopState(
-            fact=kf.KrylovState(Vb[p], torch.zeros((m + 1, m + 1), dtype=cdt, device=dev), 0,
+            fact=kf.KrylovState(tree_row(Vb, p),
+                                torch.zeros((m + 1, m + 1), dtype=cdt, device=dev), 0,
                                 f0.beta),
             numiter=0, numops=0, nconv=0,
             T=torch.zeros((m + 1, m + 1), dtype=cdt, device=dev),
@@ -179,7 +181,7 @@ def _stack_infos(infos, dev) -> ConvergenceInfo:
 
     return ConvergenceInfo(
         converged=counts("converged"),
-        residual=torch.stack([i.residual for i in infos]),
+        residual=tree_stack([i.residual for i in infos]),
         normres=torch.stack([i.normres for i in infos]),
         numiter=counts("numiter"),
         numops=counts("numops"),
@@ -203,7 +205,7 @@ def schursolve_batched(op, x0, howmany: int, which, alg: Arnoldi,
     outs = [_extract_schur(s, howmany, real, cdt) for s in sts]
     vals = ((torch.stack([o[2][0] for o in outs]), torch.stack([o[2][1] for o in outs]))
             if real else torch.stack([o[2] for o in outs]))
-    return (torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs]), vals,
+    return (torch.stack([o[0] for o in outs]), tree_stack([o[1] for o in outs]), vals,
             _stack_infos([o[3] for o in outs], device_of(x0s[0])))
 
 
@@ -217,7 +219,7 @@ def eigsolve_arnoldi_batched(op, x0, howmany: int, which, alg: Arnoldi,
     cdt = torch.promote_types(pdt, torch.complex64)
     sts = _arnoldi_loop_batched(ops, x0s, howmany, which, alg, space, pdt if real else cdt, real)
     outs = [_extract_eig(s, howmany, real, cdt) for s in sts]
-    return (torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs]),
+    return (torch.stack([o[0] for o in outs]), tree_stack([o[1] for o in outs]),
             _stack_infos([o[2] for o in outs], device_of(x0s[0])))
 
 
@@ -234,5 +236,5 @@ def realeigsolve_arnoldi_batched(op, x0, howmany: int, which, alg: Arnoldi,
     outs = [_extract_realeig(s, howmany, pdt) for s in sts]
     maximag = torch.stack([o[3] for o in outs])
     warn_if(alg.verbosity, [o[3] > 0 for o in outs], REALEIG_WARNING, mi=[o[3] for o in outs])
-    return (torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs]),
+    return (torch.stack([o[0] for o in outs]), tree_stack([o[1] for o in outs]),
             _stack_infos([o[2] for o in outs], device_of(x0s[0])), maximag)

@@ -37,9 +37,11 @@ for all its stepping problems (the stack apply, the adjoint stack apply,
 each side's sweeps and norms, the two projections of ``M``), as are the
 starts' norms, ``M[0, 0]`` and the oblique correction's projections;
 ``_round`` keeps its two residual norms (four with a restart) per problem.
-Pytree vectors, ``BiArnoldi(eager=True)`` and differentiation are not
-batched (``ValueError``); an ``(f, fadjoint)`` tuple is one shared
-operator, never two problems.
+Pytree vectors are batched as in ``solvers/batched.py`` (a ``(v0, w0)``
+pair of trees of one structure); ``BiArnoldi(eager=True)``,
+differentiation, and pytree vectors on a sharded space are not
+(``ValueError``); an ``(f, fadjoint)`` tuple is one shared operator, never
+two problems.
 """
 
 from __future__ import annotations
@@ -53,7 +55,8 @@ from ..factorizations import krylov as kf
 from ..info import STARTSTOP, log_if, warn_if
 from ..ops import basis as bs
 from ..ops.operator import probe_dtype
-from ..ops.vector import STANDARD, VectorSpace, device_of, inner_batched, rounded
+from ..ops.vector import (STANDARD, VectorSpace, alloc_batched, device_of, inner_batched, rounded,
+                          tree_leaves, tree_row, tree_stack)
 from .batched import _batch_size, _count, _in_dims, _Operators, _problems, _read, _refuse
 from .batched_arnoldi import _stack_infos
 from .biarnoldi import _extract, _LoopState, _round
@@ -97,8 +100,9 @@ def bieigsolve_batched(op, v0, w0, howmany: int, which, alg: BiArnoldi,
         raise ValueError(f"howmany={howmany} exceeds krylovdim={m}")
     if alg.eager:
         raise ValueError(f"{what}: BiArnoldi(eager=True) is not batched")
-    _refuse(what, [v0, w0], [])
-    P = _batch_size(_count(op, op_dim, "op"), _count(v0, v_dim, "v0"), _count(w0, w_dim, "w0"))
+    _refuse(what, [v0, w0], [], space=space)
+    P = _batch_size(_count(op, op_dim, "op", vector=False), _count(v0, v_dim, "v0"),
+                    _count(w0, w_dim, "w0"))
     vs, ws = _problems(v0, v_dim, P), _problems(w0, w_dim, P)
     ops = _Operators(op, P, op_dim == 0, templates=vs)
     _refuse(what, [], ops.distinct())
@@ -115,11 +119,13 @@ def bieigsolve_batched(op, v0, w0, howmany: int, which, alg: BiArnoldi,
     # starts are normalised with one norm_batched for both sides and M[0, 0]
     # is one inner_batched
     starts = kf.normalized_batched(vs + ws, space, None if real else cdt)
-    Vb = torch.zeros((P, m1) + tuple(starts[0].shape), dtype=starts[0].dtype, device=dev)
-    Wb = torch.zeros((P, m1) + tuple(starts[P].shape), dtype=starts[P].dtype, device=dev)
-    Vb[:, 0] = torch.stack(starts[:P])
-    Wb[:, 0] = torch.stack(starts[P:])
-    M00 = inner_batched(Vb[:, 0], Wb[:, 0], space).conj().to(cdt)
+    Vb = alloc_batched(starts[0], P, m1)
+    Wb = alloc_batched(starts[P], P, m1)
+    for basis, S in ((Vb, tree_stack(starts[:P])), (Wb, tree_stack(starts[P:]))):
+        for lb, lS in zip(tree_leaves(basis), tree_leaves(S)):
+            lb[:, 0] = lS
+    M00 = inner_batched([bs.get(tree_row(Vb, p), 0) for p in range(P)],
+                        [bs.get(tree_row(Wb, p), 0) for p in range(P)], space).conj().to(cdt)
 
     def start(basis):
         return kf.KrylovState(basis, torch.zeros((m1, m1), dtype=cdt, device=dev), 0,
@@ -129,7 +135,7 @@ def bieigsolve_batched(op, v0, w0, howmany: int, which, alg: BiArnoldi,
     for p in range(P):
         M = torch.zeros((m1, m1), dtype=cdt, device=dev)
         M[0, 0] = M00[p]
-        st[p] = _LoopState(fV=start(Vb[p]), fW=start(Wb[p]), M=M)
+        st[p] = _LoopState(fV=start(tree_row(Vb, p)), fW=start(tree_row(Wb, p)), M=M)
 
     active = list(range(P))
     while active:
@@ -164,11 +170,12 @@ def bieigsolve_batched(op, v0, w0, howmany: int, which, alg: BiArnoldi,
                 finished.append(p)
             elif restart is not None:
                 keep, Vn, Wn, Hn, Kn, Mn = restart
-                Vb[p].copy_(Vn)
-                Wb[p].copy_(Wn)
+                for basis, new in ((Vb, Vn), (Wb, Wn)):
+                    for lb, ln in zip(tree_leaves(tree_row(basis, p)), tree_leaves(new)):
+                        lb.copy_(ln)
                 st[p].M = Mn
-                st[p].fV = kf.KrylovState(Vb[p], Hn, keep, st[p].fV.beta)
-                st[p].fW = kf.KrylovState(Wb[p], Kn, keep, st[p].fW.beta)
+                st[p].fV = kf.KrylovState(tree_row(Vb, p), Hn, keep, st[p].fV.beta)
+                st[p].fW = kf.KrylovState(tree_row(Wb, p), Kn, keep, st[p].fW.beta)
                 restarts[p] = keep
         if restarts:
             _update_M_batched(st, restarts, space)
@@ -189,5 +196,5 @@ def bieigsolve_batched(op, v0, w0, howmany: int, which, alg: BiArnoldi,
     )
     outs = [_extract(st[p], howmany, cdt, real) for p in range(P)]
     return (torch.stack([o[0] for o in outs]),
-            (torch.stack([o[1] for o in outs]), torch.stack([o[2] for o in outs])),
+            (tree_stack([o[1] for o in outs]), tree_stack([o[2] for o in outs])),
             (_stack_infos([o[3] for o in outs], dev), _stack_infos([o[4] for o in outs], dev)))

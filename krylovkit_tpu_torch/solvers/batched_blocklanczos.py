@@ -33,9 +33,12 @@ a sharded space (``solvers/batched.py``; a rank holds its batch row's
 ``(P_b, b, ...)`` blocks of rows) a lock-step is one all-reduce of each
 kind for all its stepping problems: the stack apply, each Gram pass, the
 block QRs' input norms, and each QR column's two projection passes and its
-norms; the dense round runs no collective.  Pytree vectors and
-differentiation are not batched (``ValueError``); an ``(f, fadjoint)``
-tuple is one shared operator, never two problems.
+norms; the dense round runs no collective.  A start of pytree vectors is a
+tree whose leaves are ``(P, b, ...)`` with ``in_dims`` ``0`` (a
+:class:`~..ops.block.Block` of trees, or its stacked tree, shared with
+``None``); its rows apply problem by problem.  Differentiation, and
+pytree vectors on a sharded space, are not batched (``ValueError``); an
+``(f, fadjoint)`` tuple is one shared operator, never two problems.
 """
 
 from __future__ import annotations
@@ -47,9 +50,10 @@ import torch
 from ..algorithms import BlockLanczos
 from ..factorizations import blocklanczos as bf
 from ..info import STARTSTOP, log_if, warn_if
+from ..ops import basis as bs
 from ..ops.block import Block
 from ..ops.operator import probe_dtype
-from ..ops.vector import STANDARD, VectorSpace, device_of, rounded
+from ..ops.vector import STANDARD, VectorSpace, astype, device_of, rounded, tree_stack
 from .batched import _batch_size, _count, _in_dims, _Operators, _problems, _read, _refuse
 from .batched_arnoldi import _stack_infos
 from .blocklanczos import _eps_pow, _extract, _restart, _round
@@ -66,8 +70,9 @@ def eigsolve_blocklanczos_batched(op, X0, howmany: int, which, alg: BlockLanczos
     ``in_dims = (op_dim, X0_dim)``: ``op_dim = 0`` takes ``op`` as a
     sequence of ``P`` operators (``None``: one shared operator; an ``(f,
     fadjoint)`` tuple is always one shared operator); ``X0_dim = 0`` takes a
-    ``(P, b, ...)`` tensor, one start block per problem (``None``: one
-    shared ``(b, ...)`` block or :class:`~..ops.block.Block`).  Returns
+    ``(P, b, ...)`` tensor, or a tree of such leaves, one start block per
+    problem (``None``: one shared ``(b, ...)`` block or
+    :class:`~..ops.block.Block`).  Returns
     ``(vals (P, howmany), vecs (P, howmany, ...), info)``; ``info``'s
     counts are ``(P,)`` int64 tensors, ``normres`` and ``residual`` carry
     the leading ``P``.  At ``WARN`` each unconverged problem prints its
@@ -80,22 +85,23 @@ def eigsolve_blocklanczos_batched(op, X0, howmany: int, which, alg: BlockLanczos
     if isinstance(X0, Block):
         if x_dim == 0:
             raise ValueError(f"{what}: a Block is one shared start block; give one block per "
-                             "problem as a (P, b, ...) tensor")
+                             "problem as a (P, b, ...) tensor or a tree of such leaves")
         X0 = X0.stacked
-    _refuse(what, [X0], [])
-    P = _batch_size(_count(op, op_dim, "op"), _count(X0, x_dim, "X0"))
+    _refuse(what, [X0], [], space=space)
+    P = _batch_size(_count(op, op_dim, "op", vector=False), _count(X0, x_dim, "X0"))
     ops = _Operators(op, P, op_dim == 0)
     _refuse(what, [], ops.distinct())
     X0s = _problems(X0, x_dim, P)
-    b = X0s[0].shape[0]
-    cdt = functools.reduce(torch.promote_types, [probe_dtype(o, X0s[0][0]) for o in ops.distinct()])
+    b = bs.capacity(X0s[0])
+    cdt = functools.reduce(torch.promote_types,
+                           [probe_dtype(o, bs.get(X0s[0], 0)) for o in ops.distinct()])
     rdt = cdt.to_real()
     tol = rounded(alg.tol, rdt)
     qr_tol = rounded(alg.qr_tol, rdt) if alg.qr_tol >= 0 else _eps_pow(rdt)
     btol = _eps_pow(rdt)
     dev = device_of(X0s[0])
 
-    st = bf.initialize_batched([x.to(cdt) for x in X0s], m, cdt, qr_tol, space)
+    st = bf.initialize_batched([astype(x, cdt) for x in X0s], m, cdt, qr_tol, space)
     for p, r in enumerate(_read([s.r for s in st])):
         st[p].r = int(r)
     beta = [1.0] * P
@@ -152,5 +158,5 @@ def eigsolve_blocklanczos_batched(op, X0, howmany: int, which, alg: BlockLanczos
     )
     outs = [_extract(st[p], rounds[p][0], rounds[p][1], rounds[p][2], conv[p],
                      max(numiter[p], 1), numops[p], howmany, b) for p in range(P)]
-    return (torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs]),
+    return (torch.stack([o[0] for o in outs]), tree_stack([o[1] for o in outs]),
             _stack_infos([o[2] for o in outs], dev))

@@ -22,8 +22,10 @@ together, as in ``solvers/batched.py``:
 
 ``t`` is shared or given per problem (``in_dims``).  A sharded space is
 batched as in ``solvers/batched.py`` (the fused step with each problem's
-halos, one all-reduce a lock-step).  Pytree vectors, ``eager`` and
-differentiation are not batched (``ValueError``).
+halos, one all-reduce a lock-step).  Pytree vectors (each of ``u₀, u₁,
+…`` a tree of one structure) take the unfused lock-step, leaf by leaf.
+``eager``, differentiation, and pytree vectors on a sharded space are not
+batched (``ValueError``).
 """
 
 from __future__ import annotations
@@ -36,8 +38,9 @@ from ..algorithms import Lanczos
 from ..factorizations import krylov as kf
 from ..info import STARTSTOP, ConvergenceInfo, log_if, warn_if
 from ..ops.operator import probe_dtype
-from ..ops.vector import STANDARD, VectorSpace, device_of, zerovector
-from .batched import _batch_size, _count, _Operators, _problems, _read, _refuse, _tensors_only
+from ..ops.vector import (STANDARD, VectorSpace, alloc_batched, device_of, tree_row, tree_stack,
+                          zerovector)
+from .batched import _batch_size, _count, _Operators, _problems, _read, _refuse
 from .expintegrator import WARNING, _host_t, _Integrator
 
 __all__ = ["expintegrator_batched", "exponentiate_batched"]
@@ -77,12 +80,11 @@ def expintegrator_batched(op, t, u: tuple, alg, space: VectorSpace = STANDARD, *
     what = "expintegrator_batched"
     if alg.eager:
         raise ValueError(f"{what}: eager=True is not batched")
-    _tensors_only(what, u)
-    P = _batch_size(_count(op, op_dim, "op"), _count(t, t_dim, "t"),
+    P = _batch_size(_count(op, op_dim, "op", vector=False), _count(t, t_dim, "t", vector=False),
                     *[_count(ui, d, "u") for ui, d in zip(u, u_dims)])
     ops = _Operators(op, P, op_dim == 0)
-    ts = _problems(t, t_dim, P)
-    _refuse(what, u, ops.distinct(), ts)
+    ts = _problems(t, t_dim, P, vector=False)
+    _refuse(what, u, ops.distinct(), ts, space)
     ts = [_host_t(tp) for tp in ts]
     us = [tuple(_problems(ui, d, P)[p] for ui, d in zip(u, u_dims)) for p in range(P)]
     if len(u) == 1:
@@ -93,8 +95,8 @@ def expintegrator_batched(op, t, u: tuple, alg, space: VectorSpace = STANDARD, *
         cdt = torch.promote_types(cdt, torch.complex64)
     m = alg.krylovdim
     dev = device_of(us[0][0])
-    Vb = torch.zeros((P, m + 1) + tuple(us[0][0].shape), dtype=cdt, device=dev)
-    ints = [_Integrator(ops.ops[p], ts[p], us[p], alg, space, cdt, basis=Vb[p])
+    Vb = alloc_batched(us[0][0], P, m + 1, cdt)
+    ints = [_Integrator(ops.ops[p], ts[p], us[p], alg, space, cdt, basis=tree_row(Vb, p))
             for p in range(P)]
     fused = ops.shared and ints[0].fused
     hermitian = isinstance(alg, Lanczos)
@@ -168,7 +170,7 @@ def expintegrator_batched(op, t, u: tuple, alg, space: VectorSpace = STANDARD, *
         numiter=torch.tensor([i.numiter for i in infos], dtype=torch.int64, device=dev),
         numops=torch.tensor([i.numops for i in infos], dtype=torch.int64, device=dev),
     )
-    return torch.stack([s.w[0] for s in ints]), info
+    return tree_stack([s.w[0] for s in ints]), info
 
 
 def exponentiate_batched(op, t, x, alg, space: VectorSpace = STANDARD, *,

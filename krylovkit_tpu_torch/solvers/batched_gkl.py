@@ -47,8 +47,11 @@ caller's pair).  On a sharded space (``solvers/batched.py``) both drivers
 step every problem of a rank's batch row in one all-reduce of each kind a
 lock-step (the stack apply, the adjoint stack apply, a sweep's
 coefficients, the norms); the fused GKL gate refuses such a space, so
-``svdsolve`` runs unfused there.  Pytree vectors, ``GKL(eager=True)`` and
-differentiation are not batched (``ValueError``).
+``svdsolve`` runs unfused there.  Pytree vectors are batched as in
+``solvers/batched.py`` (a domain tree may differ from the codomain tree:
+give ``(f, fadjoint)`` on the trees); ``GKL(eager=True)``,
+differentiation, and pytree vectors on a sharded space are not batched
+(``ValueError``).
 """
 
 from __future__ import annotations
@@ -62,8 +65,9 @@ from ..factorizations import gkl as gf
 from ..info import STARTSTOP, ConvergenceInfo, log_if, warn_if
 from ..ops import orthonormal as on
 from ..ops.operator import probe_adjoint
-from ..ops.vector import (STANDARD, VectorSpace, add, device_of, norm_batched, rounded,
-                          scalartype)
+from ..ops.vector import (STANDARD, VectorSpace, alloc_batched, device_of, norm_batched, rounded,
+                          scalartype, tree_leaves, tree_map, tree_row, tree_rows, tree_stack,
+                          zerovector)
 from . import svdsolve as sv
 from .batched import (
     _batch_size,
@@ -76,13 +80,14 @@ from .batched import (
     _rotate,
 )
 from .batched_arnoldi import _stack_infos
-from .batched_linsolve import _Active, _col
+from .batched_linsolve import _Active, _axpy, _col, _where
 from .lssolve import FINISHED, UNCONVERGED, _Rotations, _rotations, _start_rotations
 
 __all__ = ["svdsolve_gkl_batched", "lssolve_lsmr_batched"]
 
 
-def _setup(what: str, op, x, in_dims, names, scalars=(), check_space=None):
+def _setup(what: str, op, x, in_dims, names, scalars=(), check_space=None,
+           space: VectorSpace = STANDARD):
     """The problems of a batched call: ``(ops, vectors, probe dtype)``,
     after the refusals; every operator with its adjoint, a caller's
     ``(f, fadjoint)`` pair checked in ``check_space`` as the one-problem
@@ -91,8 +96,8 @@ def _setup(what: str, op, x, in_dims, names, scalars=(), check_space=None):
     the probes run on ``meta`` copies, which make none)."""
     op_dim, x_dim = _in_dims(in_dims, names)
     # the vectors first: the adjoint guard below runs in them
-    _refuse(what, [x], [], scalars)
-    P = _batch_size(_count(op, op_dim, names[0]), _count(x, x_dim, names[1]))
+    _refuse(what, [x], [], scalars, space)
+    P = _batch_size(_count(op, op_dim, names[0], vector=False), _count(x, x_dim, names[1]))
     xs = _problems(x, x_dim, P)
     ops = _Operators(op, P, op_dim == 0, templates=xs, check_space=check_space)
     _refuse(what, [], ops.distinct())
@@ -121,7 +126,7 @@ def svdsolve_gkl_batched(op, x0, howmany: int, which, alg: GKL, space: VectorSpa
     if alg.eager:
         raise ValueError("svdsolve_gkl_batched: GKL(eager=True) is not batched")
     # the pair's guard runs in the standard inner product, as svdsolve's does
-    ops, x0s, cdt = _setup("svdsolve_gkl_batched", op, x0, in_dims, ("op", "x0"))
+    ops, x0s, cdt = _setup("svdsolve_gkl_batched", op, x0, in_dims, ("op", "x0"), space=space)
     P = len(x0s)
     tol, btol = sv._tolerances(alg, cdt)
     dev = device_of(x0s[0])
@@ -168,7 +173,7 @@ def svdsolve_gkl_batched(op, x0, howmany: int, which, alg: GKL, space: VectorSpa
             rotU[p], rotV[p], fact = sv._restart_rotations(
                 fact, svals, Pm, Qm, fact.beta, keep, gate=restart_now,
                 scales=(scU[p].L, scV[p].L) if fused else None)
-            fact = gf.GKLState(Ub[p], Vb[p], fact.B, fact.k, fact.beta)
+            fact = gf.GKLState(tree_row(Ub, p), tree_row(Vb, p), fact.B, fact.k, fact.beta)
             if restart_now and fused:
                 scU[p], scV[p] = sv._reseeded(fact, m1, dev)
             st[p] = sv._LoopState(fact, numiter, numops[p], nconv, svals, Pm, Qm, res,
@@ -187,8 +192,8 @@ def svdsolve_gkl_batched(op, x0, howmany: int, which, alg: GKL, space: VectorSpa
     warn_if(alg.verbosity, [c < howmany for c in conv], sv._unconverged(howmany), nc=conv,
             it=[st[p].numiter for p in range(P)])
     outs = [sv._extract(st[p], howmany, cdt) for p in range(P)]
-    return (torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs]),
-            torch.stack([o[2] for o in outs]), _stack_infos([o[3] for o in outs], dev))
+    return (torch.stack([o[0] for o in outs]), tree_stack([o[1] for o in outs]),
+            tree_stack([o[2] for o in outs]), _stack_infos([o[3] for o in outs], dev))
 
 
 def _hypot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -202,8 +207,16 @@ def _hypot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.stack([torch.hypot(x, y) for x, y in zip(a, b)])
 
 
-def _where(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return torch.where(_col(mask, a), a, b)
+def _divided(X, s: torch.Tensor):
+    """Each row of the stack ``X`` divided by its entry of the ``(p,)``
+    ``s``, leaf by leaf."""
+    return tree_map(lambda l: l / _col(s, l), X)
+
+
+def _set_col(V, j: int, X) -> None:
+    """``V[:, j] = X`` leaf by leaf: row ``j`` of every problem's ring."""
+    for lV, lX in zip(tree_leaves(V), tree_leaves(X)):
+        lV[:, j] = lX
 
 
 def lssolve_lsmr_batched(op, b, alg: LSMR, lam=0.0, space: VectorSpace = STANDARD, *,
@@ -217,7 +230,7 @@ def lssolve_lsmr_batched(op, b, alg: LSMR, lam=0.0, space: VectorSpace = STANDAR
     at ``WARN`` each unconverged problem prints its one-problem line, in
     problem order."""
     ops, bs_, cdt = _setup("lssolve_lsmr_batched", op, b, in_dims, ("op", "b"), (lam,),
-                           check_space=space)
+                           check_space=space, space=space)
     P = len(bs_)
     K = alg.krylovdim
     rdt = cdt.to_real()
@@ -226,24 +239,25 @@ def lssolve_lsmr_batched(op, b, alg: LSMR, lam=0.0, space: VectorSpace = STANDAR
     lamr = torch.as_tensor(lam, device=dev).to(rdt)
     every = list(range(P))
 
-    u = torch.stack(bs_).to(cdt)
-    beta = norm_batched(u, space)
-    u = u / _col(torch.where(beta > 0, beta, torch.ones_like(beta)).to(cdt), u)
+    u = tree_map(lambda l: l.to(cdt), tree_stack(bs_))
+    beta = norm_batched(tree_rows(u), space)
+    u = _divided(u, torch.where(beta > 0, beta, torch.ones_like(beta)).to(cdt))
     v = ops.apply_adjoint_stack(u, every)
-    alpha = norm_batched(v, space)
-    v = v / _col(torch.where(alpha > 0, alpha, torch.ones_like(alpha)).to(cdt), v)
-    V = torch.zeros((P, K) + tuple(v.shape[1:]), dtype=v.dtype, device=dev)
-    V[:, 0] = v  # each problem's ring buffer of its last K v's
+    alpha = norm_batched(tree_rows(v), space)
+    v = _divided(v, torch.where(alpha > 0, alpha, torch.ones_like(alpha)).to(cdt))
+    V = alloc_batched(tree_row(v, 0), P, K)
+    _set_col(V, 0, v)  # each problem's ring buffer of its last K v's
 
     rot = _start_rotations(alpha, beta)
     normres = torch.abs(rot.zetabar)
-    x, r = torch.zeros_like(v), _col(beta.to(cdt), u) * u
+    x = zerovector(v)
+    r = tree_map(lambda l: _col(beta.to(cdt), l) * l, u)
     out = {"x": x, "r": r, "normres": normres.clone()}
     nr_host = _read([normres])[0]
     numiter, numops = [0] * P, [1] * P
     act = _Active([p for p in range(P) if not nr_host[p] <= tol], {
-        "x": x, "u": u, "v": v, "h": v, "hbar": torch.zeros_like(v), "r": r,
-        "Ah": torch.zeros_like(u), "Ahbar": torch.zeros_like(u), "V": V, "alpha": alpha,
+        "x": x, "u": u, "v": v, "h": v, "hbar": zerovector(v), "r": r,
+        "Ah": zerovector(u), "Ahbar": zerovector(u), "V": V, "alpha": alpha,
         "normres": normres, **rot._asdict()})
     it = 0
     while act.ps:
@@ -253,33 +267,33 @@ def lssolve_lsmr_batched(op, b, alg: LSMR, lam=0.0, space: VectorSpace = STANDAR
         alpha, v, Vr = s["alpha"], s["v"], s["V"]
         Av = ops.apply_stack(v, act.ps)
         # Ah_k = A v_k − (θ_k/ρ_{k−1}) Ah_{k−1}  (the h update of the last step)
-        Ah = add(Av, s["Ah"], a=_col(-(rot.theta / rot.rho).to(cdt), Av))
+        Ah = _axpy(Av, s["Ah"], -(rot.theta / rot.rho).to(cdt))
         # β_{k+1} u_{k+1} = A v_k − α_k u_k
-        u = add(Av, s["u"], a=_col(-alpha.to(cdt), Av))
-        beta = norm_batched(u, space)
+        u = _axpy(Av, s["u"], -alpha.to(cdt))
+        beta = norm_batched(tree_rows(u), space)
         bgood = beta > tol
-        u = _where(bgood, u / _col(beta.to(cdt), u), u)
+        u = _where(bgood, _divided(u, beta.to(cdt)), u)
         # α_{k+1} v_{k+1} = Aᴴ u_{k+1} − β_{k+1} v_k  (+ ring reorthogonalization)
-        w = add(ops.apply_adjoint_stack(u, act.ps), v, a=_col(-beta.to(cdt), v))
+        w = _axpy(ops.apply_adjoint_stack(u, act.ps), v, -beta.to(cdt))
         if K > 1:
-            swept = on.orthogonalize_batched(list(w), list(Vr), [min(K, it)] * len(act.ps),
-                                             alg.orth, space)
-            w = torch.stack([wp for wp, _ in swept])
-        alpha = torch.where(bgood, norm_batched(w, space), torch.zeros_like(beta))
+            swept = on.orthogonalize_batched(tree_rows(w), tree_rows(Vr),
+                                             [min(K, it)] * len(act.ps), alg.orth, space)
+            w = tree_stack([wp for wp, _ in swept])
+        alpha = torch.where(bgood, norm_batched(tree_rows(w), space), torch.zeros_like(beta))
         agood = alpha > tol
-        w = _where(agood, w / _col(alpha.to(cdt), w), w)
-        Vr[:, it % K] = _where(agood, w, Vr[:, it % K])
+        w = _where(agood, _divided(w, alpha.to(cdt)), w)
+        _set_col(Vr, it % K, _where(agood, w, tree_map(lambda l: l[:, it % K], Vr)))
         v = _where(bgood, w, v)
 
         rot, c1, c2 = _rotations(rot, alpha, beta, lamr, hypot=_hypot)
         # vector updates
         coef1 = c1.to(cdt)
-        hbar = add(s["h"], s["hbar"], a=_col(-coef1, v))
-        Ahbar = add(Ah, s["Ahbar"], a=_col(-coef1, Ah))
+        hbar = _axpy(s["h"], s["hbar"], -coef1)
+        Ahbar = _axpy(Ah, s["Ahbar"], -coef1)
         coef2 = c2.to(cdt)
-        x = add(s["x"], hbar, a=_col(coef2, v))
-        r = add(s["r"], Ahbar, a=_col(-coef2, Ah))
-        h = add(v, s["h"], a=_col(-(rot.theta / rot.rho).to(cdt), v))
+        x = _axpy(s["x"], hbar, coef2)
+        r = _axpy(s["r"], Ahbar, -coef2)
+        h = _axpy(v, s["h"], -(rot.theta / rot.rho).to(cdt))
         normres = torch.abs(rot.zetabar)
         act.s = {"x": x, "u": u, "v": v, "h": h, "hbar": hbar, "r": r, "Ah": Ah,
                  "Ahbar": Ahbar, "V": Vr, "alpha": alpha, "normres": normres, **rot._asdict()}

@@ -34,9 +34,10 @@ argument, as ``vmap``'s ``in_axes``.  On a sharded space
 operator (one halo all-reduce each) and every orthonormalization and
 norm one all-reduce for all its problems; ``_ritz`` (two Gram products,
 three row-wise products) and ``_restart`` (one norm) keep one all-reduce
-per problem a round.  Pytree vectors and differentiation are not batched
-(``ValueError``); an ``(f, fadjoint)`` tuple is one shared operator, never
-two problems.
+per problem a round.  Pytree vectors are batched as in
+``solvers/batched.py``; differentiation, and pytree vectors on a sharded
+space, are not (``ValueError``); an ``(f, fadjoint)`` tuple is one shared
+operator, never two problems.
 """
 
 from __future__ import annotations
@@ -51,11 +52,12 @@ from ..info import STARTSTOP, ConvergenceInfo, log_if, warn_if
 from ..ops import basis as bs
 from ..ops import orthonormal as on
 from ..ops.operator import probe_dtype
-from ..ops.vector import (STANDARD, VectorSpace, device_of, inner_batched, norm_batched,
-                          rounded, tree_map)
+from ..ops.vector import (STANDARD, VectorSpace, alloc_batched, astype, device_of, inner_batched,
+                          norm_batched, rounded, tree_leaves, tree_map, tree_row, tree_rows,
+                          tree_stack)
 from .batched import _batch_size, _count, _in_dims, _Operators, _problems, _read, _refuse
 from .batched_arnoldi import _stack_infos
-from .batched_linsolve import _col
+from .batched_linsolve import _scaled
 from .golubye import _restart, _ritz, _shifted
 
 __all__ = ["geneigsolve_golubye_batched"]
@@ -83,9 +85,9 @@ def geneigsolve_golubye_batched(opA, opB, x0, howmany: int, which, alg: GolubYe,
         raise ValueError("which=LI/SI invalid for Hermitian pencils (real spectrum)")
     if opB is None:
         b_dim = None
-    _refuse(what, [x0], [])
-    P = _batch_size(_count(opA, a_dim, "opA"), _count(opB, b_dim, "opB"),
-                    _count(x0, x_dim, "x0"))
+    _refuse(what, [x0], [], space=space)
+    P = _batch_size(_count(opA, a_dim, "opA", vector=False),
+                    _count(opB, b_dim, "opB", vector=False), _count(x0, x_dim, "x0"))
     opsA = _Operators(opA, P, a_dim == 0)
     opsB: Optional[_Operators] = None if opB is None else _Operators(opB, P, b_dim == 0)
     _refuse(what, [], opsA.distinct() + (opsB.distinct() if opsB else []))
@@ -107,28 +109,28 @@ def geneigsolve_golubye_batched(opA, opB, x0, howmany: int, which, alg: GolubYe,
         return (1 / torch.where(nrm > 0, nrm, torch.ones_like(nrm))).to(cdt)
 
     # the starts, normalised in the caller's space as the one-problem solve does
-    X0 = torch.stack([x.to(cdt) for x in x0s])
-    V0 = _col(inv_norm(norm_batched(X0, space)), X0) * X0
+    X0 = tree_stack([astype(x, cdt) for x in x0s])
+    V0 = _scaled(X0, inv_norm(norm_batched(tree_rows(X0), space)))
     every = list(range(P))
     AV0, BV0 = pencil(V0, every)
-    rho = list(torch.real(inner_batched(V0, AV0, space)) / torch.real(inner_batched(V0, BV0,
-                                                                                    space)))
-    Vb, AVb, BVb = (torch.zeros((P, mcap) + tuple(Y.shape[1:]), dtype=Y.dtype, device=dev)
-                    for Y in (V0, AV0, BV0))
+    rho = list(torch.real(inner_batched(tree_rows(V0), tree_rows(AV0), space))
+               / torch.real(inner_batched(tree_rows(V0), tree_rows(BV0), space)))
+    Vb, AVb, BVb = (alloc_batched(tree_row(Y, 0), P, mcap) for Y in (V0, AV0, BV0))
     for basis, Y in ((Vb, V0), (AVb, AV0), (BVb, BV0)):
-        basis[:, 0] = Y
+        for lb, lY in zip(tree_leaves(basis), tree_leaves(Y)):
+            lb[:, 0] = lY
 
     def orthonormalize(ws: dict, ks: dict):
         """Each ``ws[p]`` orthonormalized against ``V_p[:ks[p]]``, all in one
         batched call: ``{p: (v, β)}``."""
         ps = list(ws)
-        outs = on.orthonormalize_batched([ws[p] for p in ps], [Vb[p] for p in ps],
+        outs = on.orthonormalize_batched([ws[p] for p in ps], [tree_row(Vb, p) for p in ps],
                                          [ks[p] for p in ps], alg.orth, space)
         return {p: (v, b) for p, (v, b, _) in zip(ps, outs)}
 
     # each problem's residual direction and its norm, orthogonal to the start
-    resid = orthonormalize({p: _shifted(AV0[p], rho[p].to(cdt), BV0[p]) for p in every},
-                           dict.fromkeys(every, 1))
+    resid = orthonormalize({p: _shifted(tree_row(AV0, p), rho[p].to(cdt), tree_row(BV0, p))
+                            for p in every}, dict.fromkeys(every, 1))
     k, nconv, numiter, numops = [1] * P, [0] * P, [1] * P, [1] * P
     vold, cvecs, result = {}, {}, {}
 
@@ -138,13 +140,13 @@ def geneigsolve_golubye_batched(opA, opB, x0, howmany: int, which, alg: GolubYe,
         appended."""
         outs = orthonormalize(ws, {p: k[p] for p in ws})
         ps = list(outs)
-        X = torch.stack([outs[p][0] for p in ps])
+        X = tree_stack([outs[p][0] for p in ps])
         AX, BX = pencil(X, ps)
         kept = _read([outs[p][1] for p in ps])
         for i, p in enumerate(ps):
             if kept[i] > 0:
                 for basis, Y in ((Vb, X), (AVb, AX), (BVb, BX)):
-                    bs.set(basis[p], k[p], Y[i])
+                    bs.set(tree_row(basis, p), k[p], tree_row(Y, i))
                 k[p] += 1
             numops[p] += 1
 
@@ -159,12 +161,12 @@ def geneigsolve_golubye_batched(opA, opB, x0, howmany: int, which, alg: GolubYe,
             stepping = [p for p, b in zip(cand, betas) if b > tol]
             if not stepping:
                 break
-            X = torch.stack([resid[p][0] for p in stepping])
+            X = tree_stack([resid[p][0] for p in stepping])
             AX, BX = pencil(X, stepping)
             for i, p in enumerate(stepping):
                 for basis, Y in ((Vb, X), (AVb, AX), (BVb, BX)):
-                    bs.set(basis[p], k[p], Y[i])
-            resid.update(orthonormalize({p: _shifted(AX[i], shift[p], BX[i])
+                    bs.set(tree_row(basis, p), k[p], tree_row(Y, i))
+            resid.update(orthonormalize({p: _shifted(tree_row(AX, i), shift[p], tree_row(BX, i))
                                          for i, p in enumerate(stepping)},
                                         {p: k[p] + 1 for p in stepping}))
             for p in stepping:
@@ -181,14 +183,15 @@ def geneigsolve_golubye_batched(opA, opB, x0, howmany: int, which, alg: GolubYe,
         restarting, finished = {}, []
         for p in active:
             nconv[p], rhos, betas_p, Rv, Rav, Rbv, Rres = _ritz(
-                Vb[p], AVb[p], BVb[p], k[p], howmany, which, tol, space, cdt)
+                tree_row(Vb, p), tree_row(AVb, p), tree_row(BVb, p), k[p], howmany, which, tol,
+                space, cdt)
             result[p] = (rhos, betas_p, Rv, Rres)
             if nconv[p] >= howmany or numiter[p] >= alg.maxiter:
                 finished.append(p)
                 continue
             vold[p], rho[p], restarting[p] = _restart(
-                Vb[p], AVb[p], BVb[p], (Rv, Rav, Rbv, Rres), rhos, min(nconv[p], hm1 - 1), space,
-                cdt)
+                tree_row(Vb, p), tree_row(AVb, p), tree_row(BVb, p), (Rv, Rav, Rbv, Rres), rhos,
+                min(nconv[p], hm1 - 1), space, cdt)
             cvecs[p] = bs.prefix(Rv, howmany)
             k[p] = 1
             numiter[p] += 1
@@ -218,5 +221,5 @@ def geneigsolve_golubye_batched(opA, opB, x0, howmany: int, which, alg: GolubYe,
         numops=numops[p],
     ) for p in every]
     vals = torch.stack([result[p][0][:howmany] for p in every])
-    vecs = torch.stack([bs.prefix(result[p][2], howmany) for p in every])
+    vecs = tree_stack([bs.prefix(result[p][2], howmany) for p in every])
     return vals, vecs, _stack_infos(infos, dev)

@@ -32,8 +32,10 @@ every scalar of the recurrence a ``(P,)`` tensor, as under ``vmap``:
 a sharded space (``solvers/batched.py``) each rank runs its batch row's
 problems on its block of rows, and a step's inner products are one
 all-reduce of the ``(p,)`` partials each, its applies one stack apply of
-the shared sharded operator.  Pytree vectors and differentiation are not
-batched (``ValueError``).
+the shared sharded operator.  Pytree vectors are stacks of trees
+(``solvers/batched.py``): every stack operation runs leaf by leaf and each
+row's inner products are the one-problem tree inner.  Differentiation,
+and pytree vectors on a sharded space, are not batched (``ValueError``).
 """
 
 from __future__ import annotations
@@ -45,31 +47,52 @@ import torch
 from ..algorithms import CG, MINRES, BiCGStab
 from ..info import STARTSTOP, ConvergenceInfo, log_if, warn_if
 from ..ops.operator import apply_shifted_batched, probe_dtype
-from ..ops.vector import STANDARD, VectorSpace, add, inner_batched, norm_batched, rounded, scale
-from .batched import _batch_size, _count, _in_dims, _Operators, _read, _refuse, _tensors_only
+from ..ops.vector import (STANDARD, VectorSpace, add, astype, device_of, inner_batched,
+                          norm_batched, rounded, scalartype, scale, tree_leaves, tree_map,
+                          tree_row, tree_rows)
+from .batched import _batch_size, _count, _in_dims, _Operators, _read, _refuse
 
 __all__ = ["linsolve_cg_batched", "linsolve_minres_batched", "linsolve_bicgstab_batched"]
 
 
-def _sel(T: torch.Tensor, pos) -> torch.Tensor:
-    """Rows ``pos`` (sorted, distinct) of the stack ``T``; ``T`` itself when
-    they are all of its rows."""
-    if len(pos) == T.shape[0]:
+def _sel(T, pos):
+    """Rows ``pos`` (sorted, distinct) of the stack ``T`` (leaf by leaf);
+    ``T`` itself when they are all of its rows."""
+    if len(pos) == tree_leaves(T)[0].shape[0]:
         return T
-    return T.index_select(0, torch.tensor(pos, dtype=torch.int64, device=T.device))
+    return tree_map(
+        lambda l: l.index_select(0, torch.tensor(pos, dtype=torch.int64, device=l.device)), T)
 
 
-def _put(T: torch.Tensor, pos, V: torch.Tensor) -> torch.Tensor:
+def _put(T, pos, V):
     """``T`` with rows ``pos`` replaced by ``V``, as a new stack (``V``
     itself when they are all of its rows)."""
-    if len(pos) == T.shape[0]:
+    if len(pos) == tree_leaves(T)[0].shape[0]:
         return V
-    return T.index_copy(0, torch.tensor(pos, dtype=torch.int64, device=T.device), V)
+    return tree_map(
+        lambda l, v: l.index_copy(0, torch.tensor(pos, dtype=torch.int64, device=l.device), v),
+        T, V)
 
 
 def _col(s: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     """A ``(p,)`` scalar per row, shaped to broadcast over the stack ``X``."""
     return s.reshape((-1,) + (1,) * (X.ndim - 1))
+
+
+def _axpy(Y, X, s: torch.Tensor):
+    """``add(Y, X, a=s)`` of each row, ``s`` a ``(p,)`` scalar per row,
+    leaf by leaf."""
+    return tree_map(lambda ly, lx: add(ly, lx, a=_col(s, lx)), Y, X)
+
+
+def _scaled(X, s: torch.Tensor):
+    """``scale(X, s)`` of each row, leaf by leaf."""
+    return tree_map(lambda l: scale(l, _col(s, l)), X)
+
+
+def _where(mask: torch.Tensor, a, b):
+    """Row by row ``a`` where the ``(p,)`` ``mask`` holds, else ``b``."""
+    return tree_map(lambda la, lb: torch.where(_col(mask, la), la, lb), a, b)
 
 
 def _pick(half, a, b):
@@ -79,8 +102,7 @@ def _pick(half, a, b):
         return a
     if not any(half):
         return b
-    mask = torch.tensor(half, device=a.device)
-    return torch.where(_col(mask, a), a, b)
+    return _where(torch.tensor(half, device=tree_leaves(a)[0].device), a, b)
 
 
 class _Active:
@@ -95,10 +117,11 @@ class _Active:
         self.s = {k: _sel(v, self.ps) for k, v in state.items()}
 
     def retire(self, done, out: dict):
-        dev = next(iter(out.values())).device
+        dev = device_of(next(iter(out.values())))
         probs = torch.tensor([self.ps[i] for i in done], dtype=torch.int64, device=dev)
         for k, O in out.items():
-            O.index_copy_(0, probs, _sel(self.s[k], done))
+            for lO, lS in zip(tree_leaves(O), tree_leaves(_sel(self.s[k], done))):
+                lO.index_copy_(0, probs, lS)
         keep = [i for i in range(len(self.ps)) if i not in set(done)]
         self.s = {k: _sel(v, keep) for k, v in self.s.items()}
         self.ps = [self.ps[i] for i in keep]
@@ -111,29 +134,33 @@ class _Problem:
 
     def __init__(self, name, op, b, x0, a0, a1, space, in_dims):
         op_dim, b_dim, x_dim = _in_dims(in_dims, ("op", "b", "x0"))
-        _tensors_only(name, [b, x0])
-        self.P = _batch_size(_count(op, op_dim, "op"), _count(b, b_dim, "b"),
+        self.P = _batch_size(_count(op, op_dim, "op", vector=False), _count(b, b_dim, "b"),
                              _count(x0, x_dim, "x0"))
         self.ops = _Operators(op, self.P, op_dim == 0)
-        _refuse(name, [b, x0], self.ops.distinct(), (a0, a1))
+        _refuse(name, [b, x0], self.ops.distinct(), (a0, a1), space)
         P = self.P
-        self.B = b if b_dim == 0 else b.expand((P,) + tuple(b.shape))
-        self.X0 = x0 if x_dim == 0 else x0.expand((P,) + tuple(x0.shape))
+
+        def expand(l):
+            return l.expand((P,) + tuple(l.shape))
+
+        self.B = b if b_dim == 0 else tree_map(expand, b)
+        self.X0 = x0 if x_dim == 0 else tree_map(expand, x0)
         self.a0, self.a1 = a0, a1
-        self.dev = b.device
+        self.dev = device_of(b)
         self.every = list(range(P))
 
     def cdt(self) -> torch.dtype:
         """The problems' scalar type, as :func:`probe_dtype` gives it."""
         return functools.reduce(torch.promote_types,
-                                [probe_dtype(o, self.B[0]) for o in self.ops.distinct()])
+                                [probe_dtype(o, tree_row(self.B, 0))
+                                 for o in self.ops.distinct()])
 
-    def shifted(self, ps, X: torch.Tensor) -> torch.Tensor:
+    def shifted(self, ps, X):
         """``a0·X + a1·A_p X`` for the rows of ``X``, the vectors of the
         problems ``ps``: one batched apply."""
         return apply_shifted_batched(lambda Z: self.ops.apply_stack(Z, ps), X, self.a0, self.a1)
 
-    def true_residual(self, ps, X: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    def true_residual(self, ps, X, B):
         """``b_p − (a0·x_p + a1·A_p x_p)`` for the rows of ``X`` and ``B``."""
         return add(B, self.shifted(ps, X), a=-1)
 
@@ -160,27 +187,27 @@ def linsolve_cg_batched(op, b, x0, a0, a1, alg: CG, space: VectorSpace = STANDAR
     problem's ``x`` takes the type of its start and residual together."""
     pr = _Problem("linsolve_cg_batched", op, b, x0, a0, a1, space, in_dims)
     P = pr.P
-    tol = rounded(alg.tol, pr.B.dtype.to_real())
+    tol = rounded(alg.tol, scalartype(pr.B).to_real())
     R = pr.true_residual(pr.every, pr.X0, pr.B)
-    X = pr.X0.to(torch.promote_types(pr.X0.dtype, R.dtype)).clone()
-    rho = torch.real(inner_batched(R, R, space))
+    X = tree_map(lambda l, r: l.to(torch.promote_types(l.dtype, r.dtype)).clone(), pr.X0, R)
+    rho = torch.real(inner_batched(tree_rows(R), tree_rows(R), space))
     normr = torch.sqrt(rho)
     nr_host = _read([normr])[0]
     numiter, numops = [0] * P, [1] * P
     act = _Active([p for p in range(P) if not nr_host[p] <= tol],
                   {"x": X, "r": R, "p": R, "rho": rho, "b": pr.B})
-    out = {"x": X, "r": R.clone(), "normr": normr.clone()}
+    out = {"x": X, "r": tree_map(torch.clone, R), "normr": normr.clone()}
     while act.ps:
         s = act.s
         x, r, p, rho = s["x"], s["r"], s["p"], s["rho"]
         Ap = pr.shifted(act.ps, p)
-        pAp = torch.real(inner_batched(p, Ap, space))
+        pAp = torch.real(inner_batched(tree_rows(p), tree_rows(Ap), space))
         alpha = rho / torch.where(pAp != 0, pAp, 1)
-        x = add(x, p, a=_col(alpha, p))
-        r = add(r, Ap, a=_col(-alpha, Ap))
-        rho_new = torch.real(inner_batched(r, r, space))
+        x = _axpy(x, p, alpha)
+        r = _axpy(r, Ap, -alpha)
+        rho_new = torch.real(inner_batched(tree_rows(r), tree_rows(r), space))
         beta = rho_new / torch.where(rho != 0, rho, 1)
-        p = add(r, p, a=_col(beta, p))
+        p = _axpy(r, p, beta)
         rho = rho_new
         normr = torch.sqrt(rho)
         nrs = _read([normr])[0]
@@ -193,7 +220,7 @@ def linsolve_cg_batched(op, b, x0, a0, a1, alg: CG, space: VectorSpace = STANDAR
             # restart those recurrences from the true residual
             rt = pr.true_residual([act.ps[i] for i in verify], _sel(x, verify),
                                   _sel(s["b"], verify))
-            rho_t = torch.real(inner_batched(rt, rt, space))
+            rho_t = torch.real(inner_batched(tree_rows(rt), tree_rows(rt), space))
             r, p, rho = _put(r, verify, rt), _put(p, verify, rt), _put(rho, verify, rho_t)
             normr = torch.sqrt(rho)
             for i, v in zip(verify, _read([_sel(normr, verify)])[0]):
@@ -230,12 +257,12 @@ def linsolve_minres_batched(op, b, x0, a0, a1, alg: MINRES, space: VectorSpace =
     tol = rounded(alg.tol, rdt)
     eps = torch.finfo(rdt).eps
 
-    X = pr.X0.to(cdt).clone()
-    R0 = pr.true_residual(pr.every, X, pr.B).to(cdt)
-    beta1 = norm_batched(R0, space)
+    X = tree_map(torch.clone, astype(pr.X0, cdt))
+    R0 = astype(pr.true_residual(pr.every, X, pr.B), cdt)
+    beta1 = norm_batched(tree_rows(R0), space)
     beta1_h = _read([beta1])[0]
-    V = scale(R0, _col((1 / torch.where(beta1 > 0, beta1, 1)).to(cdt), R0))
-    zeros = torch.zeros_like(V)
+    V = _scaled(R0, (1 / torch.where(beta1 > 0, beta1, 1)).to(cdt))
+    zeros = tree_map(torch.zeros_like, V)
     one = torch.ones(P, dtype=rdt, device=dev)
     zero = torch.zeros(P, dtype=rdt, device=dev)
     nr_host = list(beta1_h)
@@ -250,11 +277,11 @@ def linsolve_minres_batched(op, b, x0, a0, a1, alg: MINRES, space: VectorSpace =
         s = act.s
         v, beta, eta, c1, s1, c2, s2 = (s[k] for k in ("v", "beta", "eta", "c1", "s1", "c2", "s2"))
         w = pr.shifted(act.ps, v)
-        w = add(w, s["v_prev"], a=_col(-beta.to(cdt), w))
-        alpha = torch.real(inner_batched(v, w, space))  # Hermitian → real
-        w = add(w, v, a=_col(-alpha.to(cdt), w))
-        beta_next = norm_batched(w, space)
-        v_next = scale(w, _col((1 / torch.where(beta_next > 0, beta_next, 1)).to(cdt), w))
+        w = _axpy(w, s["v_prev"], -beta.to(cdt))
+        alpha = torch.real(inner_batched(tree_rows(v), tree_rows(w), space))  # Hermitian → real
+        w = _axpy(w, v, -alpha.to(cdt))
+        beta_next = norm_batched(tree_rows(w), space)
+        v_next = _scaled(w, (1 / torch.where(beta_next > 0, beta_next, 1)).to(cdt))
 
         # QR update: rotate the new T column (β_k, α_k, β_{k+1}) by G_{k-2}, G_{k-1}
         eps_k = s2 * beta
@@ -269,10 +296,9 @@ def linsolve_minres_batched(op, b, x0, a0, a1, alg: MINRES, space: VectorSpace =
         eta_next = -s_new * eta
 
         # direction: d_k = (v_k − δ d_{k-1} − ε d_{k-2}) / γ
-        dk = add(add(v, s["d"], a=_col(-delta.to(cdt), v)), s["d_prev"],
-                 a=_col(-eps_k.to(cdt), v))
-        dk = scale(dk, _col((1 / safe_g).to(cdt), dk))
-        x = add(s["x"], dk, a=_col(tau.to(cdt), dk))
+        dk = _axpy(_axpy(v, s["d"], -delta.to(cdt)), s["d_prev"], -eps_k.to(cdt))
+        dk = _scaled(dk, (1 / safe_g).to(cdt))
+        x = _axpy(s["x"], dk, tau.to(cdt))
         normr = torch.abs(eta_next)
         for q in act.ps:
             numiter[q] += 1
@@ -283,7 +309,7 @@ def linsolve_minres_batched(op, b, x0, a0, a1, alg: MINRES, space: VectorSpace =
             # true-residual verification on apparent convergence
             rt = pr.true_residual([act.ps[i] for i in verify], _sel(x, verify),
                                   _sel(s["b"], verify))
-            normr = _put(normr, verify, norm_batched(rt, space))
+            normr = _put(normr, verify, norm_batched(tree_rows(rt), space))
             for i, nr in zip(verify, _read([_sel(normr, verify)])[0]):
                 nrs[i] = nr
                 numops[act.ps[i]] += 1
@@ -325,13 +351,13 @@ def linsolve_bicgstab_batched(op, b, x0, a0, a1, alg: BiCGStab, space: VectorSpa
     tol = rounded(alg.tol, rdt)
     eps_break = torch.finfo(rdt).eps ** 2
 
-    X = pr.X0.to(cdt).clone()
-    R = pr.true_residual(pr.every, X, pr.B).to(cdt)
-    normr0 = norm_batched(R, space)
+    X = tree_map(torch.clone, astype(pr.X0, cdt))
+    R = astype(pr.true_residual(pr.every, X, pr.B), cdt)
+    normr0 = norm_batched(tree_rows(R), space)
     # breakdown threshold, formed in the working type as the JAX package does
     thr = eps_break * normr0 * normr0
     one = torch.ones(P, dtype=cdt, device=dev)
-    zeros = torch.zeros_like(R)
+    zeros = tree_map(torch.zeros_like, R)
     nr_host = _read([normr0])[0]
     numiter, numops = [0] * P, [1] * P
     breakdown = [False] * P
@@ -340,37 +366,37 @@ def linsolve_bicgstab_batched(op, b, x0, a0, a1, alg: BiCGStab, space: VectorSpa
         "x": X, "r": R, "p": zeros, "v": zeros, "rs": R, "b": pr.B, "thr": thr,
         "rho": one, "alpha": one, "omega": one,
     })
-    out = {"x": X, "r": R.clone(), "normr": normr0.clone()}
+    out = {"x": X, "r": tree_map(torch.clone, R), "normr": normr0.clone()}
     while act.ps:
         s = act.s
         r, rs, rho, omega = s["r"], s["rs"], s["rho"], s["omega"]
-        rho_new = inner_batched(rs, r, space)
+        rho_new = inner_batched(tree_rows(rs), tree_rows(r), space)
         denom_w = torch.where(torch.abs(rho * omega) > 0, rho * omega, 1)
         beta = rho_new * s["alpha"] / denom_w  # β = (ρ_new/ρ)(α/ω)
         # p = r + β (p − ω v)
-        p = add(r, add(s["p"], s["v"], a=_col(-omega, r)), a=_col(beta, r))
+        p = _axpy(r, _axpy(s["p"], s["v"], -omega), beta)
         v = pr.shifted(act.ps, p)
-        sigma = inner_batched(rs, v, space)
+        sigma = inner_batched(tree_rows(rs), tree_rows(v), space)
         alpha = rho_new / torch.where(torch.abs(sigma) > 0, sigma, 1)
         # half step: s = r − α v, x_half = x + α p (bicgstab.jl:123-155)
-        sv = add(r, v, a=_col(-alpha, v))
-        norms = norm_batched(sv, space)
+        sv = _axpy(r, v, -alpha)
+        norms = norm_batched(tree_rows(sv), space)
         arho, asig, th, ns = _read([torch.abs(rho_new), torch.abs(sigma), s["thr"], norms])
         half = [nv <= tol for nv in ns]
-        xh = add(s["x"], p, a=_col(alpha, p))
+        xh = _axpy(s["x"], p, alpha)
         # the half step's true residual and the full step's t = A s: one apply
         sz = pr.shifted(act.ps, _pick(half, xh, sv))
         rh = nh = xf = rf = nf = omega_f = None
         if any(half):
             rh = add(s["b"], sz, a=-1)
-            nh = norm_batched(rh, space)
+            nh = norm_batched(tree_rows(rh), space)
         if not all(half):
             t = sz
-            tt = torch.real(inner_batched(t, t, space))
-            omega_f = inner_batched(t, sv, space) / torch.where(tt > 0, tt, 1)
-            xf = add(xh, sv, a=_col(omega_f, sv))
-            rf = add(sv, t, a=_col(-omega_f, t))
-            nf = norm_batched(rf, space)
+            tt = torch.real(inner_batched(tree_rows(t), tree_rows(t), space))
+            omega_f = inner_batched(tree_rows(t), tree_rows(sv), space) / torch.where(tt > 0, tt, 1)
+            xf = _axpy(xh, sv, omega_f)
+            rf = _axpy(sv, t, -omega_f)
+            nf = norm_batched(tree_rows(rf), space)
         x, r, normr = _pick(half, xh, xf), _pick(half, rh, rf), _pick(half, nh, nf)
         omega = omega if omega_f is None else _pick(half, omega, omega_f)
         for i, q in enumerate(act.ps):
@@ -383,7 +409,7 @@ def linsolve_bicgstab_batched(op, b, x0, a0, a1, alg: BiCGStab, space: VectorSpa
             rt = pr.true_residual([act.ps[i] for i in verify], _sel(x, verify),
                                   _sel(s["b"], verify))
             r = _put(r, verify, rt)
-            normr = _put(normr, verify, norm_batched(rt, space))
+            normr = _put(normr, verify, norm_batched(tree_rows(rt), space))
             for i, nr in zip(verify, _read([_sel(normr, verify)])[0]):
                 nrs[i] = nr
                 numops[act.ps[i]] += 1

@@ -50,7 +50,7 @@ from ..info import STARTSTOP, ConvergenceInfo, log_if, warn_if
 from ..ops import basis as bs
 from ..ops import orthonormal as on
 from ..ops.operator import LinearOperator, as_operator, probe_dtype
-from ..ops.vector import STANDARD, VectorSpace, add, astype, device_of, zerovector
+from ..ops.vector import STANDARD, VectorSpace, add, astype, device_of, tree_map, zerovector
 
 __all__ = ["expintegrator", "exponentiate"]
 
@@ -229,8 +229,8 @@ class _Integrator:
         m, cdt = self.m, self.cdt
         fact = kf.initialize(wp1, m if self.basis is None else 0, cdt, self.space, vec_dtype=cdt)
         if self.basis is not None:
-            self.basis.zero_()
-            self.basis[0] = fact.V[0]
+            tree_map(torch.Tensor.zero_, self.basis)
+            bs.set(self.basis, 0, bs.get(fact.V, 0))
             H = torch.zeros((m + 1, m + 1), dtype=cdt, device=self.dev)
             fact = kf.KrylovState(self.basis, H, 0, fact.beta)
         self.fact = fact

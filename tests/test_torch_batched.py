@@ -247,13 +247,17 @@ def test_warn_lines_of_a_batched_solve_match_jax_vmap():
 
 def test_batched_lanczos_refusals():
     """(h) each piece this slice does not batch raises ``ValueError`` with
-    its name.  A sharded
-    space is batched: on a one-rank axis, the unsharded bits."""
+    its name, pytree vectors on a sharded space among them.  A sharded
+    space is batched: on a one-rank axis, the unsharded bits.  Pytree
+    vectors are batched: each problem of a dict batch is its one-problem
+    dict solve, bit for bit."""
     top = kt.laplacian_1d(N, device="cpu")
     X = torch.from_numpy(_starts(2))
     alg = kt.Lanczos(krylovdim=10)
+    one = kt.VectorSpace(psum_axis=MeshAxis("vec", None, 1, 0))
     cases = [
-        (lambda: kt.eigsolve_lanczos_batched(top, {"a": X}, 1, "LM", alg), "pytree"),
+        (lambda: kt.eigsolve_lanczos_batched(top, {"a": X}, 1, "LM", alg, space=one),
+         "pytree vectors on a sharded space"),
         (lambda: kt.eigsolve_lanczos_batched(top, X, 1, "LM", kt.Lanczos(krylovdim=10, eager=True)),
          "eager"),
         (lambda: kt.eigsolve_lanczos_batched(
@@ -271,7 +275,12 @@ def test_batched_lanczos_refusals():
     # a sharded space is batched: on a one-rank axis (no collective) each
     # problem solves as on the unsharded space, bit for bit
     short = kt.Lanczos(krylovdim=10, maxiter=2)
-    one = kt.VectorSpace(psum_axis=MeshAxis("vec", None, 1, 0))
+    dict_op = kt.as_operator(lambda x: {"a": top.normal(x["a"])})
+    vals, vecs, info = kt.eigsolve_lanczos_batched(dict_op, {"a": X}, 1, "LM", short)
+    for p in range(2):
+        v1, w1, i1 = t_eigsolve_lanczos(dict_op, {"a": X[p]}, 1, "LM", short)
+        assert torch.equal(vals[p], v1) and torch.equal(vecs["a"][p], w1["a"])
+        assert int(info.numops[p]) == i1.numops and list(vecs) == ["a"]
     got = kt.eigsolve_lanczos_batched(top, X, 1, "LM", short, space=one)
     want = kt.eigsolve_lanczos_batched(top, X, 1, "LM", short)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

@@ -184,8 +184,10 @@ def test_batched_arnoldi_refusals():
     top = convert.stencil_from_arrays(*NONSYM, "cpu")
     X = chip_smoke.batched_starts(torch, np, 16, 2, "cpu")
     alg = kt.Arnoldi(krylovdim=10)
+    one = kt.VectorSpace(psum_axis=MeshAxis("vec", None, 1, 0))
     cases = [
-        (lambda: kt.schursolve_batched(top, {"a": X}, 1, "LM", alg), "pytree"),
+        (lambda: kt.schursolve_batched(top, {"a": X}, 1, "LM", alg, space=one),
+         "pytree vectors on a sharded space"),
         (lambda: kt.realeigsolve_arnoldi_batched(top, X, 1, "LM", kt.Arnoldi(krylovdim=10,
                                                                              eager=True)),
          "eager"),
@@ -204,7 +206,13 @@ def test_batched_arnoldi_refusals():
     # a sharded space is batched: on a one-rank axis (no collective) each
     # problem solves as on the unsharded space, bit for bit
     short = kt.Arnoldi(krylovdim=10, maxiter=2)
-    one = kt.VectorSpace(psum_axis=MeshAxis("vec", None, 1, 0))
+    # a dict batch: each problem is its one-problem dict Schur solve, bit for bit
+    dict_op = kt.as_operator(lambda x: {"a": top.normal(x["a"])})
+    T, V, (re_, im_), info = kt.schursolve_batched(dict_op, {"a": X}, 1, "LM", short)
+    for p in range(2):
+        T1, V1, (re1, im1), i1 = kt.schursolve(dict_op, {"a": X[p]}, 1, "LM", short)
+        assert torch.equal(T[p], T1) and torch.equal(V["a"][p], V1["a"])
+        assert torch.equal(re_[p], re1) and int(info.numops[p]) == i1.numops
     got = kt.eigsolve_arnoldi_batched(top, X, 1, "LM", short, space=one)
     want = kt.eigsolve_arnoldi_batched(top, X, 1, "LM", short)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

@@ -176,10 +176,12 @@ def test_warn_lines_are_the_one_problem_lines_in_problem_order():
 
 def test_batched_bieigsolve_refusals():
     """Each piece this slice does not batch raises ``ValueError`` with its
-    name: pytree vectors, ``BiArnoldi(eager=True)``, an input or an
-    operator tensor that requires grad, ``in_dims`` other than 0 or None,
-    an ``(f, fadjoint)`` tuple given as a batch; and the argument checks.
-    A sharded space is batched: on a one-rank axis, the unsharded bits."""
+    name: pytree vectors on a sharded space, ``BiArnoldi(eager=True)``, an
+    input or an operator tensor that requires grad, ``in_dims`` other than
+    0 or None, an ``(f, fadjoint)`` tuple given as a batch; and the argument
+    checks.  A sharded space is batched: on a one-rank axis, the unsharded
+    bits; so are pytree vectors: each problem of a pair of dict batches is
+    its one-problem dict solve, bit for bit."""
     As, _, _ = _stack(10)
     A = torch.from_numpy(As[0])
     Vt, Wt = torch.from_numpy(As[1, :P]), torch.from_numpy(As[2, :P])
@@ -187,7 +189,9 @@ def test_batched_bieigsolve_refusals():
     solve = kt.bieigsolve_batched
     pair = (lambda x: A @ x, lambda y: A.T @ y)
     cases = [
-        (lambda: solve(A, {"a": Vt}, Wt, 1, "LM", alg), "pytree"),
+        (lambda: solve(A, {"a": Vt}, {"a": Wt}, 1, "LM", alg,
+                       space=kt.VectorSpace(psum_axis=MeshAxis("vec", None, 1, 0))),
+         "pytree vectors on a sharded space"),
         (lambda: solve(A, Vt, Wt, 1, "LM", kt.BiArnoldi(krylovdim=12, eager=True)), "eager"),
         (lambda: solve(A, Vt.clone().requires_grad_(True), Wt, 1, "LM", alg), "differentiation"),
         (lambda: solve(A.clone().requires_grad_(True), Vt, Wt, 1, "LM", alg), "differentiation"),
@@ -206,6 +210,15 @@ def test_batched_bieigsolve_refusals():
     want = solve(A, Vt, Wt, 2, "LM", alg)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1][0], want[1][0])
     assert counts(got[2][0]) == counts(want[2][0])
+    # a (v0, w0) pair of dict batches: each problem is its one-problem dict
+    # solve, bit for bit
+    dpair = (lambda x: {"a": A @ x["a"]}, lambda y: {"a": A.T @ y["a"]})
+    vals, (V, W), (iV, _) = solve(dpair, {"a": Vt}, {"a": Wt}, 2, "LM", alg)
+    for p in range(P):
+        v1, (V1, W1), (i1, _) = t_bieig(as_operator(dpair), {"a": Vt[p]}, {"a": Wt[p]}, 2, "LM",
+                                        alg)
+        assert torch.equal(vals[p], v1) and torch.equal(V["a"][p], V1["a"])
+        assert torch.equal(W["a"][p], W1["a"]) and int(iV.numops[p]) == i1.numops
     # a pair given as one shared operator solves as the matrix does
     got = solve(pair, Vt, Wt, 2, "LM", alg)
     want = solve(A, Vt, Wt, 2, "LM", alg)

@@ -221,11 +221,13 @@ def test_warn_lines_are_the_one_problem_lines_in_problem_order():
 
 def test_batched_blocklanczos_refusals():
     """Each piece this slice does not batch raises ``ValueError`` with its
-    name: pytree vectors (a dict block, a ``Block`` of dicts), a start or
-    an operator tensor that requires grad, ``in_dims`` other than 0 or
-    None, an ``(f, fadjoint)`` tuple given as a batch, a ``Block`` given as
-    a batch; and the argument checks.  A sharded space is batched: on a
-    one-rank axis, the unsharded bits."""
+    name: pytree vectors on a sharded space, a start or an operator tensor
+    that requires grad, ``in_dims`` other than 0 or None, an ``(f,
+    fadjoint)`` tuple given as a batch, a ``Block`` given as a batch; and
+    the argument checks.  A sharded space is batched: on a one-rank axis,
+    the unsharded bits; so are pytree vectors (a dict block per problem, a
+    shared ``Block`` of dicts): each problem its one-problem dict solve,
+    bit for bit."""
     As, X0, Xs = _problems()
     A = torch.from_numpy(As[0])
     X = torch.from_numpy(Xs)
@@ -233,9 +235,9 @@ def test_batched_blocklanczos_refusals():
     solve = kt.eigsolve_blocklanczos_batched
     block = kt.Block([torch.from_numpy(x) for x in X0])
     cases = [
-        (lambda: solve(A, {"a": X}, 1, "LR", alg), "pytree"),
-        (lambda: solve([A] * P, kt.Block([{"a": x} for x in X[0]]), 1, "LR", alg,
-                       in_dims=(0, None)), "pytree"),
+        (lambda: solve(A, {"a": X}, 1, "LR", alg,
+                       space=kt.VectorSpace(psum_axis=MeshAxis("vec", None, 1, 0))),
+         "pytree vectors on a sharded space"),
         (lambda: solve(A, X.clone().requires_grad_(True), 1, "LR", alg), "differentiation"),
         (lambda: solve(A.clone().requires_grad_(True), X, 1, "LR", alg), "differentiation"),
         (lambda: solve(A, X, 1, "LR", alg, in_dims=(None, 1)), "in_dims"),
@@ -254,6 +256,19 @@ def test_batched_blocklanczos_refusals():
     want = solve(A, X, 2, "LR", alg)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert _counts(got[2]) == _counts(want[2])
+    # a (P, b, ...) dict batch, and a shared Block of dicts under P
+    # operators: each problem is its one-problem dict solve, bit for bit
+    dops = [as_operator(lambda x, A=torch.from_numpy(a): {"a": A @ x["a"]}) for a in As[:P]]
+    short = kt.BlockLanczos(**{**KW, "maxiter": 2})
+    for ops_, X0_, dims in ((dops[0], {"a": X}, (None, 0)),
+                            (dops, kt.Block([{"a": x} for x in X[0]]), (0, None))):
+        vals, vecs, info = solve(ops_, X0_, 2, "LR", short, in_dims=dims)
+        for p in range(P):
+            op1 = ops_[p] if dims[0] == 0 else ops_
+            X1 = X[0 if dims[1] is None else p]
+            v1, w1, i1 = t_blocklanczos(op1, {"a": X1}, 2, "LR", short)
+            assert torch.equal(vals[p], v1) and torch.equal(vecs["a"][p], w1["a"])
+            assert int(info.numops[p]) == i1.numops
     # a shared Block start is taken as its stacked tensor
     vals, _, info = solve(convert.matrices_from_numpy(As, "cpu"), block, 2, "LR", alg,
                           in_dims=(0, None))

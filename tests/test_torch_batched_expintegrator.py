@@ -213,8 +213,10 @@ def test_batched_expintegrator_refusals():
     top = convert.stencil_from_arrays(*NEG, "cpu")
     X = chip_smoke.batched_starts(torch, np, 16, 2, "cpu")
     alg = kt.Lanczos(krylovdim=10)
+    one = kt.VectorSpace(psum_axis=MeshAxis("vec", None, 1, 0))
     cases = [
-        (lambda: kt.exponentiate_batched(top, 0.1, {"a": X}, alg), "pytree"),
+        (lambda: kt.exponentiate_batched(top, 0.1, {"a": X}, alg, space=one),
+         "pytree vectors on a sharded space"),
         (lambda: kt.exponentiate_batched(top, 0.1, X, kt.Lanczos(krylovdim=10, eager=True)),
          "eager"),
         (lambda: kt.exponentiate_batched(top, 0.1, X.clone().requires_grad_(True), alg),
@@ -233,7 +235,12 @@ def test_batched_expintegrator_refusals():
             call()
     # a sharded space is batched: on a one-rank axis (no collective) each
     # problem integrates as on the unsharded space, bit for bit
-    one = kt.VectorSpace(psum_axis=MeshAxis("vec", None, 1, 0))
     got = kt.exponentiate_batched(top, 0.1, X, alg, space=one)
     want = kt.exponentiate_batched(top, 0.1, X, alg)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1].numops, want[1].numops)
+    # a dict batch: each problem is its one-problem dict integration, bit for bit
+    dict_op = kt.as_operator(lambda x: {"a": top.normal(x["a"])})
+    y, info = kt.exponentiate_batched(dict_op, 0.1, {"a": X}, alg)
+    for p in range(2):
+        y1, i1 = te._expintegrator_core(dict_op, 0.1, ({"a": X[p]},), alg, kt.STANDARD)
+        assert torch.equal(y["a"][p], y1["a"]) and int(info.numops[p]) == i1.numops

@@ -233,15 +233,18 @@ def test_repr_of_batched_info():
 
 def test_batched_svdsolve_refusals():
     """Each piece this slice does not batch raises ``ValueError`` with its
-    name: pytree vectors, ``GKL(eager=True)``, an input or an operator
-    tensor that requires grad; and the argument checks.  A sharded space is
-    batched: on a one-rank axis, the unsharded bits."""
+    name: pytree vectors on a sharded space, ``GKL(eager=True)``, an input
+    or an operator tensor that requires grad; and the argument checks.  A
+    sharded space is batched: on a one-rank axis, the unsharded bits; so
+    are pytree vectors: a dict batch gives each problem its one-problem
+    dict solve, bit for bit."""
     As, X = _problems("real", seed=10)
     A = torch.from_numpy(As[0])
     Xt = torch.from_numpy(X)
     alg = kt.GKL(krylovdim=8)
     cases = [
-        (lambda: kt.svdsolve_gkl_batched(A, {"a": Xt}, 1, "LR", alg), "pytree"),
+        (lambda: kt.svdsolve_gkl_batched(A, {"a": Xt}, 1, "LR", alg, space=kt.VectorSpace(
+            psum_axis=MeshAxis("vec", None, 1, 0))), "pytree vectors on a sharded space"),
         (lambda: kt.svdsolve_gkl_batched(A, Xt, 1, "LR", kt.GKL(krylovdim=8, eager=True)),
          "eager"),
         (lambda: kt.svdsolve_gkl_batched(A, Xt.clone().requires_grad_(True), 1, "LR", alg),
@@ -262,3 +265,9 @@ def test_batched_svdsolve_refusals():
     want = kt.svdsolve_gkl_batched(A, Xt, 1, "LR", alg)
     assert all(torch.equal(g, w) for g, w in zip(got[:3], want[:3]))
     assert torch.equal(got[3].numops, want[3].numops)
+    dpair = (lambda v: {"u": A @ v["v"]}, lambda u: {"v": A.T @ u["u"]})
+    S, U, V, info = kt.svdsolve_gkl_batched(dpair, {"u": Xt}, 1, "LR", alg)
+    for p in range(Xt.shape[0]):
+        S1, U1, V1, i1 = t_svdsolve_gkl(as_operator(dpair), {"u": Xt[p]}, 1, "LR", alg)
+        assert torch.equal(S[p], S1) and torch.equal(U["u"][p], U1["u"])
+        assert torch.equal(V["v"][p], V1["v"]) and int(info.numops[p]) == i1.numops

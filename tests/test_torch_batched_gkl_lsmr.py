@@ -245,15 +245,17 @@ def test_lsmr_warn_lines_match_one_problem_text_and_jax_vmap():
 
 
 def test_batched_lssolve_refusals():
-    """Pytree vectors, and a right-hand side, an operator tensor or a
-    ``lam`` that requires grad raise ``ValueError`` with the cause's name;
-    so do the argument checks.  A sharded space is batched: on a one-rank
-    axis, the unsharded bits."""
+    """Pytree vectors on a sharded space, and a right-hand side, an operator
+    tensor or a ``lam`` that requires grad raise ``ValueError`` with the
+    cause's name; so do the argument checks.  A sharded space is batched: on
+    a one-rank axis, the unsharded bits; so are pytree vectors: a dict batch
+    gives each problem its one-problem dict solve, bit for bit."""
     A = torch.from_numpy(np.random.default_rng(15).standard_normal((M, N)))
     B = torch.from_numpy(np.random.default_rng(16).standard_normal((P, M)))
     alg = kt.LSMR(tol=1e-8)
     cases = [
-        (lambda: kt.lssolve_lsmr_batched(A, {"b": B}, alg), "pytree"),
+        (lambda: kt.lssolve_lsmr_batched(A, {"b": B}, alg, space=kt.VectorSpace(
+            psum_axis=MeshAxis("vec", None, 1, 0))), "pytree vectors on a sharded space"),
         (lambda: kt.lssolve_lsmr_batched(A, B.clone().requires_grad_(True), alg),
          "differentiation"),
         (lambda: kt.lssolve_lsmr_batched(A.clone().requires_grad_(True), B, alg),
@@ -272,3 +274,8 @@ def test_batched_lssolve_refusals():
     got = kt.lssolve_lsmr_batched(A, B, alg, space=kt.VectorSpace(psum_axis=MeshAxis("vec", None, 1, 0)))
     want = kt.lssolve_lsmr_batched(A, B, alg)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1].numops, want[1].numops)
+    dpair = (lambda x: {"b": A @ x["x"]}, lambda y: {"x": A.T @ y["b"]})
+    x, info = kt.lssolve_lsmr_batched(dpair, {"b": B}, alg)
+    for p in range(P):
+        x1, i1 = t_lsmr(as_operator(dpair), {"b": B[p]}, alg)
+        assert torch.equal(x["x"][p], x1["x"]) and int(info.numops[p]) == i1.numops

@@ -175,14 +175,25 @@ def test_batched_gmres_warn_lines_match_jax_vmap():
 
 
 def test_batched_gmres_refusals():
-    """(h) pytree vectors, a shifted system whose shift requires grad, an
-    operator given no problem axis and problem counts that disagree raise
-    ``ValueError``."""
+    """(h) pytree vectors on a sharded space, a shifted system whose shift
+    requires grad, an operator given no problem axis and problem counts
+    that disagree raise ``ValueError``; pytree vectors are batched: each
+    problem of a dict batch is its one-problem dict solve, bit for bit."""
     A = torch.eye(8, dtype=torch.float64) * 2
     B = torch.ones(2, 8, dtype=torch.float64)
     alg = kt.GMRES(krylovdim=4)
-    with pytest.raises(ValueError, match="pytree"):
-        kt.linsolve_gmres_batched(A, {"b": B}, {"b": B}, 0.0, 1.0, alg)
+    from krylovkit_tpu_torch.ops.collectives import MeshAxis
+    with pytest.raises(ValueError, match="pytree vectors on a sharded space"):
+        kt.linsolve_gmres_batched(A, {"b": B}, {"b": B}, 0.0, 1.0, alg,
+                                  kt.VectorSpace(psum_axis=MeshAxis("vec", None, 1, 0)))
+    dict_op = kt.as_operator(lambda x: {"b": (A + torch.ones(8, 8, dtype=A.dtype)) @ x["b"]})
+    Bd = B * torch.arange(1, 3, dtype=B.dtype)[:, None]
+    x, info = kt.linsolve_gmres_batched(dict_op, {"b": Bd}, {"b": torch.zeros_like(B)}, 0.5,
+                                        1.0, alg)
+    for p in range(2):
+        x1, i1 = t_linsolve_gmres(dict_op, {"b": Bd[p]}, {"b": torch.zeros(8, dtype=B.dtype)},
+                                  0.5, 1.0, alg)
+        assert torch.equal(x["b"][p], x1["b"]) and int(info.numops[p]) == i1.numops
     with pytest.raises(ValueError, match="differentiation"):
         kt.linsolve_gmres_batched(A, B, torch.zeros_like(B),
                                   torch.tensor(0.5, dtype=torch.float64, requires_grad=True),

@@ -306,8 +306,8 @@ def test_warn_lines_are_the_one_problem_lines_in_problem_order():
 
 def test_batched_geneigsolve_refusals():
     """Each piece this slice does not batch raises ``ValueError`` with its
-    name: pytree vectors, an input or an operator tensor that requires
-    grad, ``in_dims`` other than 0 or None, an ``(f, fadjoint)`` tuple given
+    name: pytree vectors on a sharded space, an input or an operator
+    tensor that requires grad, ``in_dims`` other than 0 or None, an ``(f, fadjoint)`` tuple given
     as a batch; and the argument checks.  A sharded space is batched: on a
     one-rank axis, the unsharded bits."""
     As, Bs, x0 = _pencils()
@@ -317,7 +317,9 @@ def test_batched_geneigsolve_refusals():
     solve = kt.geneigsolve_golubye_batched
     grad_A = A.clone().requires_grad_(True)
     cases = [
-        (lambda: solve(A, B, {"a": X}, 1, "SR", alg), "pytree"),
+        (lambda: solve(A, B, {"a": X}, 1, "SR", alg,
+                       space=kt.VectorSpace(psum_axis=MeshAxis("vec", None, 1, 0))),
+         "pytree vectors on a sharded space"),
         (lambda: solve(A, B, X.clone().requires_grad_(True), 1, "SR", alg), "differentiation"),
         (lambda: solve(grad_A, B, X, 1, "SR", alg), "differentiation"),
         (lambda: solve(A, B, X, 1, "SR", alg, in_dims=(None, None, 1)), "in_dims"),
@@ -336,3 +338,11 @@ def test_batched_geneigsolve_refusals():
     want = solve(A, B, X, 1, "SR", alg)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert torch.equal(got[2].numops, want[2].numops)
+    # a dict batch: each problem is its one-problem dict solve, bit for bit
+    dA, dB = (as_operator(lambda x, M=M: {"a": M @ x["a"]}) for M in (A, B))
+    Xd = X + torch.arange(P, dtype=X.dtype)[:, None] / 10
+    vals, vecs, info = solve(dA, dB, {"a": Xd}, 1, "SR", alg)
+    for p in range(P):
+        v1, w1, i1 = t_golubye(dA, dB, {"a": Xd[p]}, 1, "SR", alg)
+        assert torch.equal(vals[p], v1) and torch.equal(vecs["a"][p], w1["a"])
+        assert int(info.numops[p]) == i1.numops

@@ -257,15 +257,27 @@ def test_batched_cg_warn_lines_match_jax_vmap():
 
 @pytest.mark.parametrize("driver", ["cg", "minres", "bicgstab"])
 def test_batched_linsolve_refusals(driver):
-    """Pytree vectors and an input that requires grad are refused with a
-    ``ValueError`` that names them; so are problem counts that disagree.  A
-    sharded space is batched (a one-rank axis: the unsharded bits)."""
+    """Pytree vectors on a sharded space and an input that requires grad
+    are refused with a ``ValueError`` that names them; so are problem counts
+    that disagree.  A sharded space is batched (a one-rank axis: the
+    unsharded bits), and so are pytree vectors (each problem of a dict batch
+    its one-problem dict solve, bit for bit)."""
     tbatched, tcls = DRIVERS[driver][3], DRIVERS[driver][4]
+    tone = {"cg": t_cg, "minres": t_minres, "bicgstab": t_bicgstab}[driver]
     A = torch.eye(8, dtype=torch.float64) * 2
     B = torch.ones(2, 8, dtype=torch.float64)
     alg = tcls()
-    with pytest.raises(ValueError, match="pytree"):
-        tbatched(A, {"b": B}, {"b": B}, 0.0, 1.0, alg)
+    with pytest.raises(ValueError, match="pytree vectors on a sharded space"):
+        tbatched(A, {"b": B}, {"b": B}, 0.0, 1.0, alg,
+                 kt.VectorSpace(psum_axis=MeshAxis("vec", None, 1, 0)))
+    M = A + torch.diag(torch.linspace(0, 1, 8, dtype=A.dtype))
+    dict_op = kt.as_operator(lambda x: {"b": M @ x["b"]})
+    Bd = B * torch.arange(1, 3, dtype=B.dtype)[:, None] + torch.linspace(0, 1, 8,
+                                                                           dtype=B.dtype)
+    x, info = tbatched(dict_op, {"b": Bd}, {"b": torch.zeros_like(B)}, 0.0, 1.0, alg)
+    for p in range(2):
+        x1, i1 = tone(dict_op, {"b": Bd[p]}, {"b": torch.zeros(8, dtype=B.dtype)}, 0.0, 1.0, alg)
+        assert torch.equal(x["b"][p], x1["b"]) and int(info.numops[p]) == i1.numops
     # a sharded space is batched: on a one-rank axis (no collective) each
     # problem solves as on the unsharded space, bit for bit
     got = tbatched(A, B, torch.zeros_like(B), 0.0, 1.0, alg,

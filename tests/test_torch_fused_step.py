@@ -315,6 +315,8 @@ def test_stepper_returns_projection_column(dgks):
     try:
         jc = jprime(jnp.asarray(V), jnp.int32(0), jkf.fused_scales_init(kmax))
         tc = tprime(torch.from_numpy(V.copy()), 0, tkf.fused_scales_init(kmax))
+        # one compiled JAX step for the six (op by op each call compiles anew)
+        jadvance = jax.jit(jadvance)
         for k in range(kmax - 2):
             jc, ja, jb, jh = jadvance(jc)
             tc, ta, tb, th = tadvance(tc)

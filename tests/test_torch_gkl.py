@@ -6,6 +6,7 @@ Float64 states agree to 1e-10; the fused float32 expansion (the JAX kernel in
 interpret mode, the port's plain fused step) to 1e-5 relative in ``B`` and
 the scales and 1e-4 in the bases."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -79,8 +80,10 @@ def test_gkl_factorization_contract_and_jax_state(dtype, orth):
     jst = jgf.initialize(jop, jnp.asarray(x0), 8, jnp.asarray(x0).dtype)
     tst = tgf.initialize(top, torch.from_numpy(x0), 8, cdt)
     assert tst.V.shape == (9, n) and tst.U.shape == (9, 2 * n) and tst.V.dtype == cdt
+    # one compiled JAX step for the six (op by op each call compiles its loops anew)
+    jexpand = jax.jit(lambda st: jgf.expand(jop, st, getattr(kk, orth)))
     for _ in range(6):
-        jst = jgf.expand(jop, jst, getattr(kk, orth))
+        jst = jexpand(jst)
         tst = tgf.expand(top, tst, getattr(kt, orth))
     k = tst.k
     assert k == int(jst.k) == 6

@@ -11,6 +11,7 @@ complex128; the same steps on the same inputs); bases are held to their
 invariants (orthonormality, ``A V = V H + r e'``), as the JAX test holds
 them."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -32,9 +33,13 @@ def _t(x):
 
 
 def _steps(it, k):
+    """``k`` expansions; a JAX iterator's step compiled once for the ``k``
+    (op by op each call compiles its loops anew)."""
+    jax_side = type(it).__module__.startswith("krylovkit_tpu.")
+    expand = jax.jit(it.expand) if jax_side else it.expand
     st = it.initialize()
     for _ in range(k):
-        st = it.expand(st)
+        st = expand(st)
     return st
 
 

@@ -171,11 +171,14 @@ def test_selective_step_matches_jax_step():
     omj = ompj = jnp.full((kd + 1,), eps)
     omt = ompt = torch.full((kd + 1,), eps, dtype=torch.float64)
     Aj, At = jnp.asarray(A), torch.from_numpy(A)
+    # the JAX step compiled once per force flag (op by op each call compiles
+    # its loops anew)
+    jstep = jax.jit(lambda s, o, op_, force: jkf.expand_hermitian_selective(
+        lambda v: Aj @ v, s, o, op_, kk.cgs2, force_sweep=force), static_argnums=3)
     swept = []
     for k in range(kd - 1):
         force = k == 5
-        sj, omj, ompj, swj = jkf.expand_hermitian_selective(
-            lambda v: Aj @ v, sj, omj, ompj, kk.cgs2, force_sweep=force)
+        sj, omj, ompj, swj = jstep(sj, omj, ompj, force)
         st, omt, ompt, swt = tkf.expand_hermitian_selective(
             lambda v: At @ v, st, omt, ompt, kt.cgs2, force_sweep=force)
         assert bool(swj) == swt

@@ -8,6 +8,7 @@ eigenvectors) and the eigenvalues to the JAX functions' and numpy's:
 float64 to 1e-10, float32 to 1e-4.  ``lanv2_rotation`` is scalar
 arithmetic and must match closely."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,6 +23,11 @@ from krylovkit_tpu_torch.algorithms import EigSorter
 torch.set_num_threads(2)
 
 M, K = 12, 8  # buffer size, active size
+
+# the JAX sort and its eigenvalues, compiled once per (which, k) for the
+# module's cases (op by op each call traces and compiles its loops anew)
+j_sort_schur_real = jax.jit(jd.sort_schur_real, static_argnums=(2, 3))
+j_real_schur_eigvals = jax.jit(jd.real_schur_eigvals, static_argnums=(1,))
 
 
 def rand_mat(rng, m, dtype):
@@ -278,8 +284,8 @@ def test_sort_schur_real_matches_jax(which):
     kl = _block_keys(re[:k] + 1j * im[:k], im, which, k)
     assert np.all(kl[:-1] <= kl[1:] + 1e-10)
     # the JAX sort of the same (T, Q): same schedule, same eigenvalue order
-    Tjs, Qjs = jd.sort_schur_real(jnp.asarray(T.numpy()), jnp.asarray(Q.numpy()), which, k)
-    rej, imj = (np.asarray(a) for a in jd.real_schur_eigvals(Tjs, k))
+    Tjs, Qjs = j_sort_schur_real(jnp.asarray(T.numpy()), jnp.asarray(Q.numpy()), which, k)
+    rej, imj = (np.asarray(a) for a in j_real_schur_eigvals(Tjs, k))
     np.testing.assert_allclose(re[:k], rej[:k], atol=1e-10)
     np.testing.assert_allclose(np.abs(im[:k]), np.abs(imj[:k]), atol=1e-10)
     np.testing.assert_allclose(Tsn, np.asarray(Tjs), atol=1e-9)
@@ -316,8 +322,8 @@ def test_sort_schur_real_stress(seed):
         match(lam, exact, 1e-6)
         kl = _block_keys(lam, im, which, k)
         assert np.all(kl[:-1] <= kl[1:] + 1e-9)
-        Tjs, _ = jd.sort_schur_real(jnp.asarray(T.numpy()), jnp.asarray(Q.numpy()), which, k)
-        rej, imj = (np.asarray(a) for a in jd.real_schur_eigvals(Tjs, k))
+        Tjs, _ = j_sort_schur_real(jnp.asarray(T.numpy()), jnp.asarray(Q.numpy()), which, k)
+        rej, imj = (np.asarray(a) for a in j_real_schur_eigvals(Tjs, k))
         np.testing.assert_allclose(re[:k], rej[:k], atol=1e-7)
         np.testing.assert_allclose(np.abs(im[:k]), np.abs(imj[:k]), atol=1e-7)
 

@@ -2,9 +2,10 @@
 distribution layer) against the JAX package's sharded solves on the CPU.
 
 One group of 4 gloo ranks on the CPU is spawned for the module
-(``chip_smoke.run_ranks``, a 120 s collective timeout) and runs every
-scenario of ``chip_smoke.sharded_cases`` here; each is its own test, and
-every rank must return the same bits.  The JAX side runs the same problems
+(``chip_smoke.start_ranks``, a 120 s collective timeout) and runs every
+scenario of ``chip_smoke.sharded_cases`` here, while the module's fixture
+computes the JAX side of every scenario (cached); each is its own test,
+and every rank must return the same bits.  The JAX side runs the same problems
 on 4 of the conftest's virtual CPU devices: GSPMD for the ELL and
 ``sharded_laplacian_1d`` solves (``tests/test_sharded_sparse.py``,
 ``tests/test_sparse_and_spaces.py:85,109,155``), ``shard_map`` with
@@ -21,7 +22,7 @@ space.  The differentiable routes on a sharded space are in
 ``tests/test_torch_sharded_ad.py``.
 """
 
-from functools import partial
+from functools import lru_cache, partial
 
 import numpy as np
 import pytest
@@ -47,8 +48,19 @@ POISSON = (((0, 0), (-1, 0), (1, 0), (0, -1), (0, 1)), (4.0, -1.0, -1.0, -1.0, -
 
 @pytest.fixture(scope="module")
 def ranks():
-    res = chip_smoke.run_ranks(WORLD, "sharded_cases", dev="cpu", timeout=400,
-                               names=SCENARIOS)
+    """The ranks' results; the JAX side of every scenario (cached) is
+    computed while they run."""
+    handle = chip_smoke.start_ranks(WORLD, "sharded_cases", dev="cpu", timeout=400,
+                                    names=SCENARIOS)
+    try:
+        for ref in (_jax_ell_eigsolve, _jax_lssolve, _jax_svdsolve, _jax_laplacian_eigsolve,
+                    _jax_laplacian_cg, _jax_real_arnoldi, _jax_batched_gmres, _jax_fused_gmres):
+            ref()
+        _jax_ell_eigsolve(zero_block=True)
+        for kind in ("chain_cgs", "chain_cgs2", "grid"):
+            _jax_sharded_fused(kind)
+    finally:
+        res = chip_smoke.collect_ranks(handle)
     return chip_smoke.same_on_every_rank(np, res)
 
 
@@ -56,11 +68,6 @@ def _case(ranks, name):
     out = ranks[name]
     assert "error" not in out, out.get("error")
     return out
-
-
-def _counts_equal(out, info):
-    assert (out["numops"], out["numiter"], out["converged"]) == (
-        int(info.numops), int(info.numiter), int(info.converged))
 
 
 def _mesh(D=WORLD, batch=1):
@@ -79,20 +86,33 @@ def _put(x, mesh, spec=("vec",)):
     return jax.device_put(jnp.asarray(x), NamedSharding(mesh, P(*spec)))
 
 
-def _jax_ell_eigsolve(x0, **kw):
+def _host(info):
+    """A JAX solve's counts as host ints."""
+    return tuple(int(c) for c in (info.numops, info.numiter, info.converged))
+
+
+@lru_cache(maxsize=None)
+def _jax_ell_eigsolve(zero_block=False):
+    """The ELL eigsolve of scenario ``eigsolve_ell`` (4 "LM"), or of
+    ``zero_block_x0`` (2 "LM", x0 zero on rank 0's block): ``(vals,
+    counts)``."""
     n = 104 * 8
     rows, cols, vals = jpar.banded_coo(n, halfband=4, seed=11, spd=True)
     mesh = _mesh()
     op = jpar.sharded_ell_from_coo(rows, cols, vals, (n, n), mesh)
-    return kk.eigsolve(op, _put(x0, mesh), kw.pop("howmany"), "LM", ishermitian=True, **kw)
+    x0 = np.random.default_rng(13 if zero_block else 12).standard_normal(n)
+    if zero_block:
+        x0[: n // WORLD] = 0.0
+    vals, _, info = kk.eigsolve(op, _put(x0, mesh), 2 if zero_block else 4, "LM",
+                                ishermitian=True, tol=1e-10, krylovdim=30, maxiter=200)
+    return np.asarray(vals), _host(info)
 
 
 def test_sharded_eigsolve_ell_matches_jax(ranks):
     out = _case(ranks, "eigsolve_ell")
-    x0 = np.random.default_rng(12).standard_normal(104 * 8)
-    vals, _, info = _jax_ell_eigsolve(x0, howmany=4, tol=1e-10, krylovdim=30, maxiter=200)
-    np.testing.assert_allclose(out["vals"], np.asarray(vals), rtol=0, atol=1e-10)
-    _counts_equal(out, info)
+    vals, counts = _jax_ell_eigsolve()
+    np.testing.assert_allclose(out["vals"], vals, rtol=0, atol=1e-10)
+    assert (out["numops"], out["numiter"], out["converged"]) == counts
     assert out["converged"] >= 4
 
 
@@ -100,44 +120,55 @@ def test_sharded_zero_block_start_solves_on_every_rank(ranks):
     """x0 is zero on rank 0's block: the zero-start guard reads the global
     norm, so no rank raises alone and the solve matches the JAX one."""
     out = _case(ranks, "zero_block_x0")
-    x0 = np.random.default_rng(13).standard_normal(104 * 8)
-    x0[: 104 * 8 // WORLD] = 0.0
-    vals, _, info = _jax_ell_eigsolve(x0, howmany=2, tol=1e-10, krylovdim=30, maxiter=200)
-    np.testing.assert_allclose(out["vals"], np.asarray(vals), rtol=0, atol=1e-10)
-    _counts_equal(out, info)
+    vals, counts = _jax_ell_eigsolve(zero_block=True)
+    np.testing.assert_allclose(out["vals"], vals, rtol=0, atol=1e-10)
+    assert (out["numops"], out["numiter"], out["converged"]) == counts
 
 
-def test_sharded_lssolve_lsmr_matches_jax(ranks):
-    out = _case(ranks, "lssolve_lsmr")
+@lru_cache(maxsize=None)
+def _jax_lssolve():
     m, n = 96 * 8, 48 * 8
     rows, cols, vals = jpar.rect_sparse_coo(m, n, nnz_per_row=6, seed=21)
     mesh = _mesh()
     op = jpar.sharded_ell_from_coo(rows, cols, vals, (m, n), mesh)
     b = np.random.default_rng(22).standard_normal(m)
     x, info = kk.lssolve(op, _put(b, mesh), tol=1e-12, maxiter=3 * n)
-    np.testing.assert_allclose(out["x"], np.asarray(x), rtol=0, atol=1e-10)
-    _counts_equal(out, info)
+    return np.asarray(x), _host(info), (rows, cols, vals, b)
+
+
+def test_sharded_lssolve_lsmr_matches_jax(ranks):
+    out = _case(ranks, "lssolve_lsmr")
+    m, n = 96 * 8, 48 * 8
+    x, counts, (rows, cols, vals, b) = _jax_lssolve()
+    np.testing.assert_allclose(out["x"], x, rtol=0, atol=1e-10)
+    assert (out["numops"], out["numiter"], out["converged"]) == counts
     A = np.zeros((m, n))
     A[rows, cols] = vals
     np.testing.assert_allclose(out["x"], np.linalg.lstsq(A, b, rcond=None)[0], rtol=0, atol=1e-7)
 
 
-def test_sharded_svdsolve_matches_jax(ranks):
-    """Unfused GKL on the sharded rectangular operator (both halo plans)."""
-    out = _case(ranks, "svdsolve_gkl")
+@lru_cache(maxsize=None)
+def _jax_svdsolve():
     m, n = 64 * 8, 40 * 8
     rows, cols, vals = jpar.rect_sparse_coo(m, n, nnz_per_row=5, seed=31)
     mesh = _mesh()
     op = jpar.sharded_ell_from_coo(rows, cols, vals, (m, n), mesh)
     x0 = np.random.default_rng(32).standard_normal(m)
     S, _, _, info = kk.svdsolve(op, _put(x0, mesh), 3, "LR", tol=1e-10, krylovdim=30, maxiter=100)
-    np.testing.assert_allclose(out["vals"], np.asarray(S), rtol=0, atol=1e-10)
-    _counts_equal(out, info)
+    return np.asarray(S), _host(info)
+
+
+def test_sharded_svdsolve_matches_jax(ranks):
+    """Unfused GKL on the sharded rectangular operator (both halo plans)."""
+    out = _case(ranks, "svdsolve_gkl")
+    S, counts = _jax_svdsolve()
+    np.testing.assert_allclose(out["vals"], S, rtol=0, atol=1e-10)
+    assert (out["numops"], out["numiter"], out["converged"]) == counts
     assert out["converged"] >= 3
 
 
-def test_sharded_laplacian_eigsolve_matches_jax(ranks):
-    out = _case(ranks, "eigsolve_laplacian")
+@lru_cache(maxsize=None)
+def _jax_laplacian_eigsolve():
     import jax.numpy as jnp
 
     n = 256
@@ -146,12 +177,18 @@ def test_sharded_laplacian_eigsolve_matches_jax(ranks):
     x0 = np.random.default_rng(105).standard_normal(n)
     vals, _, info = kk.eigsolve(op, _put(x0, mesh), 2, "LM", ishermitian=True, tol=1e-8,
                                 krylovdim=30, maxiter=300)
-    np.testing.assert_allclose(out["vals"], np.asarray(vals), rtol=0, atol=1e-10)
-    _counts_equal(out, info)
+    return np.asarray(vals), _host(info)
 
 
-def test_sharded_laplacian_cg_matches_jax(ranks):
-    out = _case(ranks, "cg_laplacian")
+def test_sharded_laplacian_eigsolve_matches_jax(ranks):
+    out = _case(ranks, "eigsolve_laplacian")
+    vals, counts = _jax_laplacian_eigsolve()
+    np.testing.assert_allclose(out["vals"], vals, rtol=0, atol=1e-10)
+    assert (out["numops"], out["numiter"], out["converged"]) == counts
+
+
+@lru_cache(maxsize=None)
+def _jax_laplacian_cg():
     import jax.numpy as jnp
 
     n = 512
@@ -159,16 +196,21 @@ def test_sharded_laplacian_cg_matches_jax(ranks):
     op = jpar.sharded_laplacian_1d(n, mesh, jnp.float64)
     b = np.random.default_rng(104).standard_normal(n)
     x, info = kk.linsolve(op, _put(b, mesh), alg=kk.CG(tol=1e-10, maxiter=3000))
-    np.testing.assert_allclose(out["x"], np.asarray(x), rtol=1e-10, atol=1e-10)
-    _counts_equal(out, info)
+    return np.asarray(x), _host(info), b
+
+
+def test_sharded_laplacian_cg_matches_jax(ranks):
+    out = _case(ranks, "cg_laplacian")
+    n = 512
+    x, counts, b = _jax_laplacian_cg()
+    np.testing.assert_allclose(out["x"], x, rtol=1e-10, atol=1e-10)
+    assert (out["numops"], out["numiter"], out["converged"]) == counts
     Ad = 2 * np.eye(n) - np.eye(n, k=1) - np.eye(n, k=-1)
     assert np.linalg.norm(Ad @ out["x"] - b) <= 1e-7
 
 
-def test_sharded_real_arnoldi_matches_jax(ranks):
-    """Real Schur Arnoldi on a non-normal triangular map; the port's rank
-    blocks apply it as a sharded ELL operator, JAX's closure under GSPMD."""
-    out = _case(ranks, "schursolve_real")
+@lru_cache(maxsize=None)
+def _jax_real_arnoldi():
     import jax
     import jax.numpy as jnp
 
@@ -191,11 +233,20 @@ def test_sharded_real_arnoldi_matches_jax(ranks):
     x0 = np.random.default_rng(106).standard_normal(n)
     _, _, (re, im), info = kk.schursolve((apply, apply_adj), _put(x0, mesh), howmany=2,
                                          which="LM", krylovdim=25, maxiter=150, tol=1e-9)
-    np.testing.assert_allclose(out["re"], np.asarray(re), rtol=0, atol=1e-10)
-    np.testing.assert_allclose(out["im"], np.asarray(im), rtol=0, atol=1e-10)
-    _counts_equal(out, info)
+    return np.asarray(re), np.asarray(im), _host(info)
 
 
+def test_sharded_real_arnoldi_matches_jax(ranks):
+    """Real Schur Arnoldi on a non-normal triangular map; the port's rank
+    blocks apply it as a sharded ELL operator, JAX's closure under GSPMD."""
+    out = _case(ranks, "schursolve_real")
+    re, im, counts = _jax_real_arnoldi()
+    np.testing.assert_allclose(out["re"], re, rtol=0, atol=1e-10)
+    np.testing.assert_allclose(out["im"], im, rtol=0, atol=1e-10)
+    assert (out["numops"], out["numiter"], out["converged"]) == counts
+
+
+@lru_cache(maxsize=None)
 def _jax_sharded_fused(kind):
     import jax
     import jax.numpy as jnp
@@ -229,7 +280,8 @@ def _jax_sharded_fused(kind):
     old = jkf.fused_interpret
     jkf.fused_interpret = True
     try:
-        return jax.jit(run)(_put(x.astype(np.float32), mesh, ("vec", None)))
+        return tuple(np.asarray(a) for a in
+                     jax.jit(run)(_put(x.astype(np.float32), mesh, ("vec", None))))
     finally:
         jkf.fused_interpret = old
 
@@ -259,10 +311,8 @@ def test_shard_local_stencil_equals_global_apply(ranks):
     np.testing.assert_allclose(out["z"], np.asarray(op.adjoint(jnp.asarray(x))), atol=1e-5)
 
 
-def test_sharded_batched_gmres_matches_jax(ranks):
-    """GMRES on ``(I + L) x = 1`` for 4 right-hand sides over a ``batch 2 ×
-    vec 2`` mesh (``__graft_entry__.dryrun_multichip``)."""
-    out = _case(ranks, "gmres_batched")
+@lru_cache(maxsize=None)
+def _jax_batched_gmres():
     import jax
     import jax.numpy as jnp
 
@@ -276,7 +326,16 @@ def test_sharded_batched_gmres_matches_jax(ranks):
     one = jnp.asarray(1, jnp.float64)
     X, infos = jax.jit(jax.vmap(
         lambda b: linsolve_gmres(op, b, jnp.zeros_like(b), one, one, galg)))(B)
-    np.testing.assert_allclose(out["X"], np.asarray(X), rtol=0, atol=1e-10)
+    return np.asarray(X), infos
+
+
+def test_sharded_batched_gmres_matches_jax(ranks):
+    """GMRES on ``(I + L) x = 1`` for 4 right-hand sides over a ``batch 2 ×
+    vec 2`` mesh (``__graft_entry__.dryrun_multichip``)."""
+    out = _case(ranks, "gmres_batched")
+    n3 = 32 * 2
+    X, infos = _jax_batched_gmres()
+    np.testing.assert_allclose(out["X"], X, rtol=0, atol=1e-10)
     for i, info in enumerate(out["infos"] * 2):
         assert (info["numops"], info["numiter"], info["converged"]) == (
             int(infos.numops[i]), int(infos.numiter[i]), int(infos.converged[i]))
@@ -284,11 +343,8 @@ def test_sharded_batched_gmres_matches_jax(ranks):
     assert max(np.linalg.norm(L @ x - 1) for x in out["X"]) < 1e-3
 
 
-def test_sharded_fused_gmres_matches_jax(ranks):
-    """The fused GMRES cycle on the sharded grid stencil: K1 per rank with
-    external halos, the stepper's one all-reduce a step."""
-    out = _case(ranks, "fused_gmres")
-    assert out["fused"]
+@lru_cache(maxsize=None)
+def _jax_fused_gmres():
     import jax
     import jax.numpy as jnp
     from jax.sharding import Mesh, PartitionSpec as P
@@ -316,7 +372,15 @@ def test_sharded_fused_gmres_matches_jax(ranks):
         x, numops, numiter, conv = jax.jit(run)(_put(b, mesh, ("vec", None)))
     finally:
         jkf.fused_interpret = old
-    x = np.asarray(x)
+    return np.asarray(x), numops, numiter, conv
+
+
+def test_sharded_fused_gmres_matches_jax(ranks):
+    """The fused GMRES cycle on the sharded grid stencil: K1 per rank with
+    external halos, the stepper's one all-reduce a step."""
+    out = _case(ranks, "fused_gmres")
+    assert out["fused"]
+    x, numops, numiter, conv = _jax_fused_gmres()
     assert (out["numops"], out["numiter"], out["converged"]) == (int(numops), int(numiter),
                                                                  int(conv))
     np.testing.assert_allclose(out["x"], x, rtol=0, atol=2e-4 * float(np.abs(x).max()))

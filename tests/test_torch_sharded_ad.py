@@ -7,8 +7,9 @@ derived adjoints, in ``test_torch_sharded_ad_derived.py``; the
 a minute on one worker).
 
 One group of 4 gloo ranks on the CPU is spawned for each file's module
-(``chip_smoke.run_ranks``) and runs the file's scenarios of
-``chip_smoke.sharded_ad_cases``; every rank must return the same bits.
+(``chip_smoke.start_ranks``) and runs the file's scenarios of
+``chip_smoke.sharded_ad_cases``, while the module's fixture computes the
+JAX side (cached); every rank must return the same bits.
 The JAX side runs the same problems (``chip_smoke.sharded_ad_problem``) on
 4 of the conftest's virtual CPU devices, float64:
 
@@ -55,16 +56,34 @@ TOL = 1e-10
 NAMES = ("linsolve", "psum_loss") + chip_smoke.SHARDED_AD_EIG
 
 
-def run_cases(names):
+def run_cases(names, meanwhile=()):
     """The scenarios ``names`` of ``chip_smoke.sharded_ad_cases`` on one
-    group of :data:`WORLD` CPU ranks, the same on every rank."""
-    res = chip_smoke.run_ranks(WORLD, "sharded_ad_cases", dev="cpu", timeout=600, names=names)
+    group of :data:`WORLD` CPU ranks, the same on every rank.  The calls
+    ``meanwhile`` (the JAX side, cached) run while the ranks do."""
+    handle = chip_smoke.start_ranks(WORLD, "sharded_ad_cases", dev="cpu", timeout=600,
+                                    names=names)
+    try:
+        for call in meanwhile:
+            call()
+    finally:
+        res = chip_smoke.collect_ranks(handle)
     return chip_smoke.same_on_every_rank(np, res)
+
+
+def spectral_refs(names, in_body):
+    """The JAX side of :func:`_check_spectral` for ``names``, as calls for
+    :func:`run_cases`' ``meanwhile``."""
+    return [partial(_jax_spectral, name, sharded=sharded) for name in names
+            for sharded in ((False, True) if in_body else (False,))]
 
 
 @pytest.fixture(scope="module")
 def ranks():
-    return run_cases(NAMES)
+    return run_cases(NAMES, [partial(_jax_linsolve, sharded=True),
+                             partial(_jax_linsolve, sharded=False)]
+                     + spectral_refs(("eigsolve_gmres", "eigsolve_sylvester_values",
+                                      "eigsolve_general"), True)
+                     + spectral_refs(("eigsolve_sylvester",), False))
 
 
 def _case(ranks, name):
@@ -163,6 +182,7 @@ def _counts_equal(out, counts):
 # --------------------------------------------------------------------------
 
 
+@lru_cache(maxsize=None)
 def _jax_linsolve(sharded):
     import jax
     import jax.numpy as jnp

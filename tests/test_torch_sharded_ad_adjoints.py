@@ -8,6 +8,8 @@ package's sharded ELL operator is a global-array operator): the gathered
 gradient is held against the JAX one.
 """
 
+from functools import lru_cache, partial
+
 import numpy as np
 import pytest
 
@@ -22,7 +24,8 @@ NAMES = ("ell_linsolve", "ell_eigsolve_derived", "collective_error") + \
 
 @pytest.fixture(scope="module")
 def ranks():
-    return run_cases(NAMES)
+    return run_cases(NAMES, [partial(_jax_ell, name) for name in ("ell_linsolve",
+                                                                  "ell_eigsolve_derived")])
 
 
 # --------------------------------------------------------------------------
@@ -30,6 +33,7 @@ def ranks():
 # --------------------------------------------------------------------------
 
 
+@lru_cache(maxsize=None)
 def _jax_ell(name):
     import jax
     import jax.numpy as jnp

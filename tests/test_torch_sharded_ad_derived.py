@@ -15,14 +15,14 @@ by far more than the 1e-10 they are held to.
 
 import pytest
 
-from test_torch_sharded_ad import _check_spectral, run_cases
+from test_torch_sharded_ad import _check_spectral, run_cases, spectral_refs
 
 NAMES = ("svdsolve_derived", "svdsolve_derived_scaled", "svdsolve_derived_rank1")
 
 
 @pytest.fixture(scope="module")
 def ranks():
-    return run_cases(NAMES)
+    return run_cases(NAMES, spectral_refs(NAMES, True))
 
 
 @pytest.mark.parametrize("name", NAMES)

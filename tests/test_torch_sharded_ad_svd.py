@@ -7,14 +7,14 @@ derived adjoints).
 
 import pytest
 
-from test_torch_sharded_ad import _check_spectral, run_cases
+from test_torch_sharded_ad import _check_spectral, run_cases, spectral_refs
 
 NAMES = ("svdsolve_gmres", "svdsolve_sylvester_values", "svdsolve_sylvester")
 
 
 @pytest.fixture(scope="module")
 def ranks():
-    return run_cases(NAMES)
+    return run_cases(NAMES, spectral_refs(NAMES[:2], True) + spectral_refs(NAMES[2:], False))
 
 
 @pytest.mark.parametrize("name", ["svdsolve_gmres", "svdsolve_sylvester_values"])

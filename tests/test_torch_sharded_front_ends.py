@@ -3,7 +3,7 @@
 on the CPU.
 
 One group of 4 gloo ranks on the CPU is spawned for the module
-(``chip_smoke.run_ranks``) and runs the solvers' scenarios of
+(``chip_smoke.start_ranks``) and runs the solvers' scenarios of
 ``chip_smoke.front_end_cases`` (``bieigsolve`` and the iterators are in
 ``tests/test_torch_sharded_iterators.py``); each is its own test, and every
 rank must return the same bits.  The JAX side runs the same problem (the same COO
@@ -20,7 +20,7 @@ Tolerances: float64 values within 1e-10 with ``numops``, ``numiter`` and
 matrices within 1e-10 after the same expansions.
 """
 
-from functools import partial
+from functools import lru_cache, partial
 
 import numpy as np
 import pytest
@@ -37,16 +37,23 @@ SOLVERS = ("minres", "bicgstab", "minres_tree", "exponentiate", "exponentiate_fu
            "expintegrator", "geneigsolve", "block_lanczos")
 
 
-def run_scenarios(names):
+def run_scenarios(names, meanwhile=()):
     """``chip_smoke.front_end_cases`` of ``names`` on :data:`WORLD` CPU
-    ranks, after checking that every rank returned the same bits."""
-    res = chip_smoke.run_ranks(WORLD, "front_end_cases", dev="cpu", timeout=400, names=names)
+    ranks, after checking that every rank returned the same bits; the
+    calls ``meanwhile`` (the JAX side, cached) run while the ranks do."""
+    handle = chip_smoke.start_ranks(WORLD, "front_end_cases", dev="cpu", timeout=400,
+                                    names=names)
+    try:
+        for call in meanwhile:
+            call()
+    finally:
+        res = chip_smoke.collect_ranks(handle)
     return chip_smoke.same_on_every_rank(np, res)
 
 
 @pytest.fixture(scope="module")
 def ranks():
-    return run_scenarios(SOLVERS)
+    return run_scenarios(SOLVERS, [partial(_jax_solve, name) for name in SOLVERS])
 
 
 def _case(ranks, name):
@@ -88,10 +95,49 @@ def _close(got, want, atol=TOL):
     np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=atol)
 
 
+def _host(tree):
+    """A JAX result as numpy arrays (its info as host ints)."""
+    import jax
+
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+@lru_cache(maxsize=None)
+def _jax_solve(name):
+    """The JAX package's solve of scenario ``name``, on the host."""
+    if name == "exponentiate_fused":
+        return _jax_fused_exponentiate()
+    prob, mesh, op, put = _jax_problem(name)
+    if name == "minres":
+        return _host(kk.linsolve(op, put(prob["x"]), alg=kk.MINRES(tol=TOL, maxiter=400)))
+    if name == "bicgstab":
+        return _host(kk.linsolve(op, put(prob["x"]), None, 1.0, 1.0,
+                                 alg=kk.BiCGStab(tol=TOL, maxiter=400)))
+    if name == "minres_tree":
+        def apply(v):
+            return {"p": op.normal(v["p"]) + 0.5 * v["q"],
+                    "q": op.normal(v["q"]) + 0.5 * v["p"]}
+
+        return _host(kk.linsolve(apply, {"p": put(prob["x"]), "q": put(prob["y"])},
+                                 alg=kk.MINRES(tol=TOL, maxiter=400)))
+    if name == "exponentiate":
+        return _host(kk.exponentiate(op, -0.05, put(prob["x"]), ishermitian=True, tol=TOL,
+                                     krylovdim=20))
+    if name == "expintegrator":
+        return _host(kk.expintegrator(op, 0.1, *(put(prob[k]) for k in ("x", "y", "z")),
+                                      ishermitian=True, tol=TOL, krylovdim=20))
+    if name == "geneigsolve":
+        opb = jpar.sharded_ell_from_coo(*prob["coo_b"], prob["shape"], mesh)
+        return _host(kk.geneigsolve((op, opb), put(prob["x"]), 2, "SR", krylovdim=25,
+                                    tol=1e-8, maxiter=200))
+    assert name == "block_lanczos"
+    return _host(kk.eigsolve(op, kk.Block([put(b) for b in prob["block"]]), 3, "LM",
+                             tol=TOL, krylovdim=30, maxiter=100))
+
+
 def test_sharded_minres_matches_jax(ranks):
     out = _case(ranks, "minres")
-    prob, _, op, put = _jax_problem("minres")
-    x, info = kk.linsolve(op, put(prob["x"]), alg=kk.MINRES(tol=TOL, maxiter=400))
+    x, info = _jax_solve("minres")
     _close(out["x"], x)
     _counts_equal(out, info)
     assert out["converged"] == 1
@@ -99,9 +145,7 @@ def test_sharded_minres_matches_jax(ranks):
 
 def test_sharded_bicgstab_matches_jax(ranks):
     out = _case(ranks, "bicgstab")
-    prob, _, op, put = _jax_problem("bicgstab")
-    x, info = kk.linsolve(op, put(prob["x"]), None, 1.0, 1.0,
-                          alg=kk.BiCGStab(tol=TOL, maxiter=400))
+    x, info = _jax_solve("bicgstab")
     _close(out["x"], x)
     _counts_equal(out, info)
     assert out["converged"] == 1
@@ -110,13 +154,7 @@ def test_sharded_bicgstab_matches_jax(ranks):
 def test_sharded_minres_on_a_dict_vector_matches_jax(ranks):
     """A dict vector whose two leaves are each sharded on their rows."""
     out = _case(ranks, "minres_tree")
-    prob, _, op, put = _jax_problem("minres_tree")
-
-    def apply(v):
-        return {"p": op.normal(v["p"]) + 0.5 * v["q"], "q": op.normal(v["q"]) + 0.5 * v["p"]}
-
-    x, info = kk.linsolve(apply, {"p": put(prob["x"]), "q": put(prob["y"])},
-                          alg=kk.MINRES(tol=TOL, maxiter=400))
+    x, info = _jax_solve("minres_tree")
     _close(out["p"], x["p"])
     _close(out["q"], x["q"])
     _counts_equal(out, info)
@@ -124,16 +162,14 @@ def test_sharded_minres_on_a_dict_vector_matches_jax(ranks):
 
 def test_sharded_exponentiate_matches_jax(ranks):
     out = _case(ranks, "exponentiate")
-    prob, _, op, put = _jax_problem("exponentiate")
-    y, info = kk.exponentiate(op, -0.05, put(prob["x"]), ishermitian=True, tol=TOL,
-                              krylovdim=20)
+    y, info = _jax_solve("exponentiate")
     _close(out["y"], y)
     _counts_equal(out, info)
 
 
-def test_sharded_fused_exponentiate_matches_jax(ranks):
-    """K1 per rank with external halos against the JAX package's sharded
-    fused solve inside ``shard_map`` (the kernel in interpret mode)."""
+def _jax_fused_exponentiate():
+    """The JAX package's sharded fused solve inside ``shard_map`` (the kernel
+    in interpret mode): ``(y, (converged, numiter, numops))``."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
@@ -141,8 +177,6 @@ def test_sharded_fused_exponentiate_matches_jax(ranks):
     from krylovkit_tpu.factorizations import krylov as jkf
     from krylovkit_tpu.ops.vector import VectorSpace
 
-    out = _case(ranks, "exponentiate_fused")
-    assert out["fused"]
     prob = chip_smoke.front_end_problem(np, jpar, "exponentiate_fused")
     if len(jax.devices()) < WORLD:
         pytest.skip(f"needs {WORLD} virtual devices")
@@ -162,10 +196,17 @@ def test_sharded_fused_exponentiate_matches_jax(ranks):
     jkf.fused_interpret = True
     try:
         x0 = jax.device_put(jnp.asarray(prob["x"]), NamedSharding(mesh, P("vec", None)))
-        y, (conv, numiter, numops) = jax.jit(run)(x0)
+        return _host(jax.jit(run)(x0))
     finally:
         jkf.fused_interpret = old
-    y = np.asarray(y)
+
+
+def test_sharded_fused_exponentiate_matches_jax(ranks):
+    """K1 per rank with external halos against the JAX package's sharded
+    fused solve inside ``shard_map`` (the kernel in interpret mode)."""
+    out = _case(ranks, "exponentiate_fused")
+    assert out["fused"]
+    y, (conv, numiter, numops) = _jax_solve("exponentiate_fused")
     np.testing.assert_allclose(out["y"], y, rtol=0, atol=2e-4 * np.abs(y).max())
     assert (out["numops"], out["numiter"], out["converged"]) == (
         int(numops), int(numiter), int(conv))
@@ -173,19 +214,14 @@ def test_sharded_fused_exponentiate_matches_jax(ranks):
 
 def test_sharded_expintegrator_matches_jax(ranks):
     out = _case(ranks, "expintegrator")
-    prob, _, op, put = _jax_problem("expintegrator")
-    y, info = kk.expintegrator(op, 0.1, *(put(prob[k]) for k in ("x", "y", "z")),
-                               ishermitian=True, tol=TOL, krylovdim=20)
+    y, info = _jax_solve("expintegrator")
     _close(out["y"], y)
     _counts_equal(out, info)
 
 
 def test_sharded_geneigsolve_matches_jax(ranks):
     out = _case(ranks, "geneigsolve")
-    prob, mesh, op, put = _jax_problem("geneigsolve")
-    opb = jpar.sharded_ell_from_coo(*prob["coo_b"], prob["shape"], mesh)
-    vals, vecs, info = kk.geneigsolve((op, opb), put(prob["x"]), 2, "SR", krylovdim=25,
-                                      tol=1e-8, maxiter=200)
+    vals, vecs, info = _jax_solve("geneigsolve")
     _close(out["vals"], vals)
     _counts_equal(out, info)
     assert out["converged"] == 2
@@ -195,9 +231,7 @@ def test_sharded_geneigsolve_matches_jax(ranks):
 
 def test_sharded_block_lanczos_matches_jax(ranks):
     out = _case(ranks, "block_lanczos")
-    prob, _, op, put = _jax_problem("block_lanczos")
-    vals, _, info = kk.eigsolve(op, kk.Block([put(b) for b in prob["block"]]), 3, "LM",
-                                tol=TOL, krylovdim=30, maxiter=100)
+    vals, _, info = _jax_solve("block_lanczos")
     _close(out["vals"], vals)
     _counts_equal(out, info)
     assert out["converged"] == 3
