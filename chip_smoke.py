@@ -107,7 +107,7 @@ without the final ``ok`` line:
    on the card against the CPU: within 1e-10, counts and sweeps equal;
 20. bieig — ``bieigsolve`` at config 4's width (the banded transport-
    diffusion tridiagonal, n = 2^20, float32, 4 "LM", krylovdim 30, maxiter
-   :data:`BIEIG_ITERS` = 4, cut from 8 for the script's time budget), the projection kernels off and on: K3 = ``numops`` (half on the
+   :data:`BIEIG_ITERS` = 2, cut from 8 for the script's time budget), the projection kernels off and on: K3 = ``numops`` (half on the
    adjoint's planes), with the flag K5 = 3·numops + 4·numiter − 2 and K6 =
    2·numops; then the ms of each dense round (two Schur decompositions, two
    sorts);
@@ -311,7 +311,23 @@ without the final ``ok`` line:
    through every other batched driver, card within 1e-12 of the CPU,
    counts equal, each problem bit-identical to its one-problem tree solve
    on the card;
-37. profile (only with ``--profile``) — one more config-1 solve and one
+37. batched_eager_selective — the batched drivers with ``eager=True`` and
+   ``Lanczos(reorth="selective")`` at full width, float32 ``(R, 128)``:
+   selective Lanczos (krylovdim 30, maxiter 10, tol 1e-5, 4 "SR") on phase
+   21's impurity operator for 4 starts, the projection flag off and on
+   (each problem's counts, sweeps and bits its one-problem ``eigsolve``'s;
+   one batched K3 a lock-step, one batched K2 a round and one for the
+   extraction, with the flag one batched K5 and K6 a sweeping lock-step),
+   eager Lanczos on it (batched K2 = restarting lock-steps + 1), eager
+   ``schursolve`` (krylovdim 5, maxiter 2) and one round of eager
+   BiArnoldi (krylovdim 4) on config 4's banded chain for 2 starts, eager
+   GKL (krylovdim 10, maxiter 2) on config 3's rect map for 2 starts, and
+   an eager ``exponentiate`` of config 4's chain for 4 starts against the
+   fused batch (1e-4): counts and bits per problem, the batched launches
+   predicted, no one-problem kernel and no K1; then small float64 eager and
+   selective batches card against CPU (phase 22's rank group also runs the
+   sharded eager and selective scenarios, ``SHARDED_BATCHED_EAGER``);
+38. profile (only with ``--profile``) — one more config-1 solve and one
    more fused config-4 solve under ``torch.profiler``: device busy time and idle share, device ops, host
    reads of device scalars, device time by kernel name.
 
@@ -329,7 +345,7 @@ printed as ``parent_ms`` beside ``ms`` (without it ``parent_ms`` is null).
 ``--root`` (default: this tree) and prints one JSON line.
 
 Each path (phases 5, 7, 9, 12, 13, 14, 15, 17, 18, 20, 21, 24, 25, 27,
-28, 29, 30, 31, 32, 33, 34, 35 and 36, one solve or iterator at a time, the forward and the backward of
+28, 29, 30, 31, 32, 33, 34, 35, 36 and 37, one solve or iterator at a time, the forward and the backward of
 a differentiable solve apart; in 24, 25, 27 and 29 in every rank) is
 driven with the launch counts set to 0 just before it and read just after.
 Then the kernel summary line, the ``nvidia-smi`` name/power line, and as
@@ -1499,18 +1515,24 @@ def impurity_wells(N):
     return [(i * N + j, d) for (i, j), d in zip(q, (-5.0, -6.0, -7.0, -8.0))]
 
 
+def counting_calls(module, name, keep=None):
+    """Wrap ``module.name`` to record each call (``keep(result)``, or
+    ``None``); returns ``(records, restore)``."""
+    records, inner = [], getattr(module, name)
+
+    def wrapped(*a, **kw):
+        res = inner(*a, **kw)
+        records.append(keep(res) if keep else None)
+        return res
+
+    setattr(module, name, wrapped)
+    return records, lambda: setattr(module, name, inner)
+
+
 def counting_sweeps(kf):
     """Wrap ``kf.expand_hermitian_selective`` to record each step's sweep
     decision; returns ``(flags, restore)``."""
-    flags, inner = [], kf.expand_hermitian_selective
-
-    def wrapped(*a, **kw):
-        out = inner(*a, **kw)
-        flags.append(out[3])
-        return out
-
-    kf.expand_hermitian_selective = wrapped
-    return flags, lambda: setattr(kf, "expand_hermitian_selective", inner)
+    return counting_calls(kf, "expand_hermitian_selective", lambda out: out[3])
 
 
 def counting_k3(bd, adj_diags):
@@ -1737,7 +1759,7 @@ def bieig_predicted_projections(numops, numiter):
 
 # iterations of phase 20's bieigsolve and of phase 27's (cut from 8 for the
 # script's time budget: a dense round costs ~0.3 s)
-BIEIG_ITERS = 4
+BIEIG_ITERS = 2  # cut from 8, then 4, for the script's time budget
 
 
 def bieig_full(torch, np, kt, _build, bd, bs, fl, pb, n=1 << 20, dev="cuda", smi=None):
@@ -1935,7 +1957,8 @@ def lanczos_variants(torch, np, kt, _build, bd, bs, fl, pb, N=1024, dev="cuda", 
        orthonormal to 1e-4, the factorization relation (as
        ``tests/test_factorize.py`` checks it) to 1e-4 relative.
 
-    Returns the launches of the selective solves and of the iterators."""
+    Returns the launches of the selective solves and of the iterators, and
+    the impurity operator (``operator``)."""
     from krylovkit_tpu_torch.factorizations import krylov as kf
 
     t_phase = time.perf_counter()
@@ -2091,7 +2114,7 @@ def lanczos_variants(torch, np, kt, _build, bd, bs, fl, pb, N=1024, dev="cuda", 
           "phase_seconds": time.perf_counter() - t_phase})
     return {"selective": out["lanczos_selective_impurity"]["launches"],
             "selective_proj": out["lanczos_selective_impurity_proj"]["launches"],
-            "iterators": iter_launches}
+            "iterators": iter_launches, "operator": op}
 
 
 def banded_csr(torch, D, offsets, n):
@@ -2851,11 +2874,24 @@ SMALL_SHARDED_BATCHED = ("lanczos_fused", "schursolve_fused", "exponentiate_fuse
 # problems and at caps that keep the phase short (gloo all-reduces of CUDA
 # tensors take ms: at four problems the five added 6.2-7.4 s to the card
 # ranks' time on an NVIDIA H100 80GB HBM3, 700.00 W)
-SMALL_SHARDED_BATCHED_SOLVES = ("gkl", "lsmr", "golubye", "biarnoldi", "blocklanczos")
+# and (phase batched_eager_selective) the eager and selective batches: the
+# same problems as lanczos_ell, bicgstab's tridiagonal, gkl, biarnoldi and
+# exponentiate_fused (SHARDED_BATCHED_BASE), eager=True or
+# reorth="selective"; no kernel (float64, or float32 unfused)
+SHARDED_BATCHED_EAGER = ("lanczos_selective", "lanczos_eager", "schursolve_eager", "gkl_eager",
+                         "biarnoldi_eager", "exponentiate_eager")
+SMALL_SHARDED_BATCHED_SOLVES = ("gkl", "lsmr", "golubye", "biarnoldi",
+                                "blocklanczos") + SHARDED_BATCHED_EAGER
 SMALL_SHARDED_BATCHED_P = 2
 SMALL_SHARDED_BATCHED_CAPS = {"gkl": {"maxiter": 1}, "lsmr": {"maxiter": 10},
                               "golubye": {"maxiter": 2}, "biarnoldi": {"maxiter": 1},
-                              "blocklanczos": {"maxiter": 1}}
+                              "blocklanczos": {"maxiter": 1},
+                              "lanczos_selective": {"maxiter": 1, "krylovdim": 6},
+                              "lanczos_eager": {"maxiter": 1, "krylovdim": 6},
+                              "schursolve_eager": {"maxiter": 1, "krylovdim": 4},
+                              "gkl_eager": {"maxiter": 1, "krylovdim": 6},
+                              "biarnoldi_eager": {"maxiter": 1, "krylovdim": 4},
+                              "exponentiate_eager": {"krylovdim": 6}}
 
 
 def small_sharded_batched(np, card, cpu, world=2, seconds=None):
@@ -3115,7 +3151,18 @@ SHARDED_BATCHED_ALGS = {  # the algorithms of the GKL, LSMR and pencil scenarios
     "golubye": dict(krylovdim=8, maxiter=40, tol=1e-10),
     "biarnoldi": dict(krylovdim=12, maxiter=100, tol=1e-10),
     "blocklanczos": dict(krylovdim=12, maxiter=40, tol=1e-10),
+    # the eager and selective ones at fixed work (each round a dense step)
+    "lanczos_selective": dict(krylovdim=20, maxiter=3, tol=1e-10, reorth="selective"),
+    "lanczos_eager": dict(krylovdim=20, maxiter=3, tol=1e-10, eager=True),
+    "schursolve_eager": dict(krylovdim=12, maxiter=3, tol=1e-8, eager=True),
+    "gkl_eager": dict(krylovdim=12, maxiter=3, tol=1e-10, eager=True),
+    "biarnoldi_eager": dict(krylovdim=12, maxiter=1, tol=1e-10, eager=True),
+    "exponentiate_eager": dict(krylovdim=20, tol=1e-5, eager=True),
 }
+# the eager and selective scenarios' problems: those of their base scenarios
+SHARDED_BATCHED_BASE = {"lanczos_selective": "lanczos_ell", "lanczos_eager": "lanczos_ell",
+                        "schursolve_eager": "bicgstab", "gkl_eager": "gkl",
+                        "biarnoldi_eager": "biarnoldi", "exponentiate_eager": "exponentiate_fused"}
 SHARDED_BATCHED_KERNELS = ("fused_step", "fused_step_batched", "transform_partial",
                            "transform_partial_batched", "project", "project_batched",
                            "unproject", "unproject_batched")
@@ -3125,7 +3172,9 @@ def sharded_batched_problem(np, name):
     """The global data of scenario ``name`` of :func:`sharded_batched_cases`
     (the same on every rank and on the JAX side of a comparison): the
     ``(P, ...)`` start vectors or right-hand sides ``X``, and for the ELL
-    scenarios the COO triplets ``coo`` of an ``n × n`` matrix."""
+    scenarios the COO triplets ``coo`` of an ``n × n`` matrix.  An eager or
+    selective scenario takes its base scenario's (:data:`SHARDED_BATCHED_BASE`)."""
+    name = SHARDED_BATCHED_BASE.get(name, name)
     rng = np.random.default_rng(sum(map(ord, name)))
     P = SHARDED_BATCHED_P
     if name in ("lanczos_fused", "schursolve_fused", "exponentiate_fused"):
@@ -3216,7 +3265,12 @@ def sharded_batched_cases(torch, np, kt, dev="cpu", names=None, one_problem=True
     blocks of :data:`SHARDED_BATCHED_BLOCK`; float64) take the algorithms
     of :data:`SHARDED_BATCHED_ALGS`; with ``small``, their first
     :data:`SMALL_SHARDED_BATCHED_P` problems only, at the caps of
-    :data:`SMALL_SHARDED_BATCHED_CAPS`.  Each returns
+    :data:`SMALL_SHARDED_BATCHED_CAPS`.  The eager and selective scenarios
+    (:data:`SHARDED_BATCHED_EAGER`) run selective and eager Lanczos on the
+    ELL operator of ``lanczos_ell``, eager ``schursolve`` on the sharded
+    tridiagonal of ``bicgstab``, eager GKL and BiArnoldi on the problems of
+    ``gkl`` and ``biarnoldi``, and an eager ``exponentiate`` (float32,
+    unfused) on the chain of ``exponentiate_fused``.  Each returns
     global values (gathered over both axes), per-problem counts, and per
     batch row the kernel launches and the collectives of the batched solve,
     or ``{"error": traceback}``; ``names`` picks some."""
@@ -3467,6 +3521,49 @@ def sharded_batched_cases(torch, np, kt, dev="cpu", names=None, one_problem=True
             lambda r: ((r[0], r[1]), r[2]))
         return {"vals": full(vals), **rec}
 
+    def eager_selective(name):
+        from krylovkit_tpu_torch.solvers import arnoldi as arn, biarnoldi as ba
+        from krylovkit_tpu_torch.solvers import svdsolve as svs
+        from krylovkit_tpu_torch.solvers.expintegrator import _expintegrator_core
+
+        prob = problem(name)
+        kw = alg_kw(name)
+        X = sv(prob["X"])
+        if name in ("lanczos_selective", "lanczos_eager"):
+            op, alg = ell(prob), kt.Lanczos(**kw)
+            (vals, _, _), rec = run(
+                lambda: kt.eigsolve_lanczos_batched(op, X, 2, "LM", alg, space),
+                lambda x: kt.eigsolve_lanczos(op, x, 2, "LM", alg, space=space), X,
+                lambda r: ((r[0], r[1]), r[2]))
+            return {"vals": full(vals), **rec}
+        if name == "schursolve_eager":
+            op, alg = ell(prob), kt.Arnoldi(**kw)
+            (_, _, (re, im), _), rec = run(
+                lambda: kt.schursolve_batched(op, X, 2, "LM", alg, space),
+                lambda x: arn.schursolve(op, x, 2, "LM", alg, space), X,
+                lambda r: ((r[0], r[1], r[2][0], r[2][1]), r[3]))
+            return {"vals": full(torch.stack([re, im], dim=1)), **rec}
+        if name == "gkl_eager":
+            op, alg = sparse(prob), kt.GKL(**kw)
+            (vals, _, _, _), rec = run(
+                lambda: kt.svdsolve_gkl_batched(op, X, 2, "LR", alg, space),
+                lambda x: svs.svdsolve_gkl(op, x, 2, "LR", alg, space), X,
+                lambda r: ((r[0], r[1], r[2]), r[3]))
+            return {"vals": full(vals), **rec}
+        if name == "biarnoldi_eager":
+            op, alg, W0 = sparse(prob), kt.BiArnoldi(**kw), sv(prob["Y"])
+            (vals, _, _), rec = run(
+                lambda: kt.bieigsolve_batched(op, X, W0, 2, "LM", alg, space),
+                lambda vw: ba.bieigsolve_driver(op, vw[0], vw[1], 2, "LM", alg, space),
+                list(zip(X, W0)), lambda r: ((r[0], r[1][0], r[1][1]), r[2][0]))
+            return {"vals": full(torch.stack([vals.real, vals.imag], dim=1)), **rec}
+        op = Pm.shard_local_stencil(kt.StencilOperator(*FRONT_END_NEG_LAP), axv)
+        alg = kt.Lanczos(**kw)
+        (y, _), rec = run(lambda: kt.exponentiate_batched(op, 0.1, X, alg, space),
+                          lambda x: _expintegrator_core(op, 0.1, (x,), alg, space), X,
+                          lambda r: ((r[0],), r[1]))
+        return {"y": full(y, 1), **rec}
+
     def stack_apply():
         # each sharded operator's stack apply against its one-vector apply,
         # row by row and bit for bit, and its collectives: one for all rows
@@ -3505,6 +3602,7 @@ def sharded_batched_cases(torch, np, kt, dev="cpu", names=None, one_problem=True
         "gkl": lambda: gkl("gkl"), "lsmr": lambda: gkl("lsmr"),
         "golubye": lambda: pencil("golubye"), "biarnoldi": lambda: pencil("biarnoldi"),
         "blocklanczos": lambda: pencil("blocklanczos"),
+        **{name: (lambda name=name: eager_selective(name)) for name in SHARDED_BATCHED_EAGER},
     }
     out = {}
     for name, fn in scenarios.items():
@@ -7123,6 +7221,130 @@ def small_batched_pytree_cases(torch, np, kt, dev, P=2, one_problem=True):
     }
 
 
+def small_batched_eager_cases(torch, np, kt, dev, P=2, one_problem=True):
+    """The small float64 batches of phase ``batched_eager_selective`` on
+    ``dev``, by name, each a function giving ``(values, counts, bits)`` as
+    :func:`small_batched_pytree_cases` does: the batch's values (a flat
+    float64 CPU tensor), its ``[numops, numiter, converged]`` lists, and
+    whether every problem is bit-identical to its one-problem solve on
+    ``dev`` (``None`` with ``one_problem=False``).  ``P`` problems each on
+    one shared operator: the seven entry points that take ``eager=True``
+    (``eigsolve_lanczos_batched``, the three Arnoldi drivers,
+    ``svdsolve_gkl_batched``, ``bieigsolve_batched``,
+    ``expintegrator_batched`` with two vectors, ``exponentiate_batched``),
+    and ``Lanczos(reorth="selective")`` on a 20 × 20 symmetric matrix and on
+    dict vectors of it."""
+    from krylovkit_tpu_torch.ops.vector import tree_leaves, tree_map, tree_row
+    from krylovkit_tpu_torch.solvers import arnoldi as arn
+    from krylovkit_tpu_torch.solvers import biarnoldi as ba
+    from krylovkit_tpu_torch.solvers import expintegrator as ei
+    from krylovkit_tpu_torch.solvers import lanczos as lz
+    from krylovkit_tpu_torch.solvers import svdsolve as sv
+
+    quiet = {"verbosity": kt.SILENT}
+    f64 = torch.float64
+    rng = np.random.default_rng(211)
+
+    def mat(*shape):
+        return torch.from_numpy(rng.standard_normal(shape)).to(dev)
+
+    H, G, R = mat(20, 20), mat(20, 20), mat(30, 20)
+    H = (H + H.T) / 2
+    # a real leading spectrum with a gap (3, then [0, 1]) and a small random
+    # part: the eager rounds (a dense Schur each step) end within a few steps
+    d = torch.linspace(0.0, 1.0, 20, dtype=f64, device=dev)
+    d[-2:] = torch.tensor([2.0, 3.0], dtype=f64)
+    G = G / 80 + torch.diag(d)
+    X20, X30, U20 = mat(P, 20), mat(P, 30), mat(P, 20)
+    dic = _tree_of(torch, "dict", 9)
+    ps = range(P) if one_problem else ()
+
+    def same(a, b):
+        la, lb = tree_leaves(a), tree_leaves(b)
+        return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+    def counts(info):
+        return [info.numops.tolist(), info.numiter.tolist(), info.converged.tolist()]
+
+    def flat(*ts):
+        out = []
+        for t in ts:
+            for l in tree_leaves(t):
+                l = l.detach().cpu()
+                out.append((torch.view_as_real(l) if l.is_complex() else l).reshape(-1).double())
+        return torch.cat(out)
+
+    def done(vals, info, outs, ones):
+        """``(values, counts, bits)``: ``outs`` the batch's outputs, ``ones``
+        each problem's one-problem outputs in the same order."""
+        bits = all(same(tree_row(o, p), o1) for p, one in zip(ps, ones)
+                   for o, o1 in zip(outs, one))
+        return flat(vals), counts(info), bits if one_problem else None
+
+    def lanczos(alg, tree=False):
+        op = kt.as_operator(_tree_map_of(torch, kt, lambda v: H @ v, dic, dic, f64) if tree
+                            else H)
+        # a dict stack: each (P, 20) row cut into two leaves
+        X = tree_map(lambda l: l.T, dic[0](X20.T)) if tree else X20
+        vals, vecs, info = kt.eigsolve_lanczos_batched(op, X, 2, "LR", alg)
+        ones = [lz.eigsolve_lanczos(op, tree_row(X, p), 2, "LR", alg) for p in ps]
+        return done(vals, info, (vals, vecs, info.residual),
+                    [(v, w, i.residual) for v, w, i in ones])
+
+    def arnoldi(name):
+        op = kt.as_operator(G)
+        alg = kt.Arnoldi(krylovdim=6, tol=1e-8, maxiter=100, eager=True, **quiet)
+        if name == "schursolve":
+            T, V, (re, im), info = kt.schursolve_batched(op, X20, 1, "LR", alg)
+            ones = [arn.schursolve(op, X20[p], 1, "LR", alg) for p in ps]
+            return done((re, im), info, (T, V, re, im, info.residual),
+                        [(o[0], o[1], o[2][0], o[2][1], o[3].residual) for o in ones])
+        one = arn.eigsolve_arnoldi if name == "eigsolve_arnoldi" else arn.realeigsolve_arnoldi
+        out = getattr(kt, f"{name}_batched")(op, X20, 1, "LR", alg)
+        ones = [one(op, X20[p], 1, "LR", alg) for p in ps]
+        return done(out[0], out[2], (out[0], out[1], out[2].residual),
+                    [(o[0], o[1], o[2].residual) for o in ones])
+
+    def gkl():
+        op = kt.as_operator(R)
+        alg = kt.GKL(krylovdim=8, tol=1e-10, maxiter=100, eager=True, **quiet)
+        S, U, V, info = kt.svdsolve_gkl_batched(op, X30, 2, "LR", alg)
+        ones = [sv.svdsolve_gkl(op, X30[p], 2, "LR", alg) for p in ps]
+        return done(S, info, (S, U, V, info.residual), [(o[0], o[1], o[2], o[3].residual)
+                                                         for o in ones])
+
+    def biarn():
+        op = kt.as_operator(G)
+        alg = kt.BiArnoldi(krylovdim=6, tol=1e-8, maxiter=100, eager=True, **quiet)
+        vals, (V, W), (iV, _) = kt.bieigsolve_batched(op, X20, U20, 1, "LR", alg)
+        ones = [ba.bieigsolve_driver(op, X20[p], U20[p], 1, "LR", alg) for p in ps]
+        return done(vals, iV, (vals, V, W), [(o[0], o[1][0], o[1][1]) for o in ones])
+
+    def expint(two):
+        op = kt.as_operator(H / 4)
+        alg = kt.Lanczos(krylovdim=8, tol=1e-10, eager=True, **quiet)
+        us = (X20, U20) if two else (X20,)
+        y, info = kt.expintegrator_batched(op, 0.5, us, alg)
+        ones = [ei._expintegrator_core(op, 0.5, tuple(u[p] for u in us), alg, kt.STANDARD)
+                for p in ps]
+        return done(y, info, (y, info.normres), [(o[0], o[1].normres) for o in ones])
+
+    eager = kt.Lanczos(krylovdim=8, tol=1e-10, maxiter=100, eager=True, **quiet)
+    sel = kt.Lanczos(krylovdim=10, tol=1e-10, maxiter=100, reorth="selective", **quiet)
+    return {
+        "lanczos_eager": lambda: lanczos(eager),
+        "lanczos_selective": lambda: lanczos(sel),
+        "lanczos_selective_dict": lambda: lanczos(sel, tree=True),
+        "schursolve_eager": lambda: arnoldi("schursolve"),
+        "eigsolve_arnoldi_eager": lambda: arnoldi("eigsolve_arnoldi"),
+        "realeigsolve_arnoldi_eager": lambda: arnoldi("realeigsolve_arnoldi"),
+        "svdsolve_gkl_eager": gkl,
+        "bieigsolve_eager": biarn,
+        "expintegrator_eager": lambda: expint(True),
+        "exponentiate_eager": lambda: expint(False),
+    }
+
+
 def batched_pytree_phase(torch, np, kt, _build, svds, smi, rect=None, rect_adj=None, n=1 << 21,
                          nx=1024, P=2, maxiter=8, dev="cuda"):
     """Phase ``batched_pytree``: batched solves on pytree vectors, each
@@ -7297,6 +7519,344 @@ def batched_pytree_phase(torch, np, kt, _build, svds, smi, rect=None, rect_adj=N
     return out
 
 
+def counting_rotations(modules):
+    """Wrap ``_rotate`` (``solvers/batched.py``) where each of ``modules``
+    calls it, to record the problems of every call that rotates some (one
+    batched K2 launch a leaf); returns ``(calls, restore)``."""
+    calls, inner = [], modules[0]._rotate
+
+    def wrapped(Vb, Us, m_out):
+        if Us:
+            calls.append(sorted(Us))
+        return inner(Vb, Us, m_out)
+
+    for m in modules:
+        m._rotate = wrapped
+    return calls, lambda: [setattr(m, "_rotate", inner) for m in modules]
+
+
+# the small batches phase 37 runs on the card: an eager Arnoldi or BiArnoldi
+# round at k <= 8 took 65-115 ms there (dense Schur steps on an NVIDIA H100
+# 80GB HBM3, 700.00 W), so those two run in the card tests and at full width
+BATCHED_EAGER_SMALL = ("lanczos_eager", "lanczos_selective_dict", "svdsolve_gkl_eager",
+                       "expintegrator_eager")
+
+
+def batched_eager_selective_phase(torch, np, kt, _build, bs, smi, impurity=None, tri=None,
+                                  rect=None, rect_adj=None, N=1024, n4=1 << 20, P=4, PA=2,
+                                  arnoldi_dims=(5, 2), gkl_dims=(10, 2), biarnoldi_dim=4,
+                                  dev="cuda"):
+    """Phase ``batched_eager_selective``: the batched drivers with
+    ``eager=True`` and ``Lanczos(reorth="selective")`` at full width, each
+    batch driven once with the launch counts set to 0 just before it and
+    read just after, then each problem's one-problem solve with its
+    launches; float32 ``(R, 128)`` vectors.
+
+    (a) ``eigsolve_lanczos_batched`` with ``Lanczos(krylovdim=30,
+    maxiter=10, tol=1e-5, reorth="selective")``, 4 "SR", on phase
+    ``lanczos_variants``' impurity operator (``impurity``: config 2's banded
+    Poisson plus the wells, ``N × N``, shared) for ``P`` starts
+    ``default_rng(6 + p)`` (problem 0 is phase 21's
+    ``lanczos_selective_impurity``), the projection flag off, then on:
+    each problem's counts, sweeps and bits its one-problem ``eigsolve``'s,
+    problem 0 within 1e-4 of ``IMPURITY_VALS``; one batched K3 launch a
+    lock-step, one batched K2 a round and one for the extraction, with the
+    flag one batched K5 and K6 in each lock-step where a problem sweeps.
+    (b) the same with ``Lanczos(krylovdim=30, maxiter=10, tol=1e-5,
+    eager=True)``: batched K2 = the lock-steps that restart + 1, as many
+    problem rotations as the one-problem solves' restarts; no K1.
+    (c) ``schursolve_batched`` with ``Arnoldi(eager=True)``, 4 "LM", tol
+    1e-30, on config 4's banded chain (``tri``, ``n4``) for ``PA`` starts
+    (phase 30's); ``krylovdim, maxiter = arnoldi_dims`` (5, 2: cut from
+    30, 8, each eager step being a dense Schur round of 65-115 ms on the
+    card).  (d)
+    ``svdsolve_gkl_batched`` with ``GKL(eager=True)``, 8 "LR", tol 1e-30,
+    on config 3's rect callables (``rect``, ``rect_adj``) for ``PA``
+    starts, ``gkl_dims`` (10, 2: cut from 30, 12).  (e)
+    ``bieigsolve_batched`` with ``BiArnoldi(eager=True)``, 4 "LM", one
+    round of ``krylovdim`` ``biarnoldi_dim`` (4), on ``tri`` (its adjoint
+    planes) for ``PA`` start pairs.  (f) ``exponentiate_batched`` of the
+    (1, −2, 1) chain, t = 0.1, tol 1e-4, ``Lanczos(krylovdim=30,
+    eager=True)``, ``P`` starts, against the same batch without ``eager``
+    (fused) within 1e-4.  (c)-(f): counts and bits per problem, (c)-(e)
+    batched K3 (both planes in (e)) a lock-step and batched K2 a rotating
+    lock-step (both stacks in (d)); no one-problem kernel and no K1 in any
+    eager or selective batch.  (g) the small float64 batches
+    :data:`BATCHED_EAGER_SMALL` of :func:`small_batched_eager_cases` on the
+    card against the CPU.  ``dev="cpu"`` with a small ``N`` and ``n4``
+    rehearses (a)-(f) with the plain versions: no launch guard, no (g)."""
+    from krylovkit_tpu_torch.factorizations import gkl as gf
+    from krylovkit_tpu_torch.factorizations import krylov as kf
+    from krylovkit_tpu_torch.ops.operator import TypedOperator
+    from krylovkit_tpu_torch.ops.vector import tree_leaves
+    from krylovkit_tpu_torch.solvers import arnoldi as arn
+    from krylovkit_tpu_torch.solvers import batched as bt
+    from krylovkit_tpu_torch.solvers import batched_arnoldi as bta
+    from krylovkit_tpu_torch.solvers import batched_gkl as btg
+    from krylovkit_tpu_torch.solvers import biarnoldi as ba
+    from krylovkit_tpu_torch.solvers import svdsolve as svs
+    from krylovkit_tpu_torch.solvers.expintegrator import _expintegrator_core
+
+    t0 = time.perf_counter()
+    card = dev != "cpu"
+    quiet = {"verbosity": kt.SILENT}
+    f32 = torch.float32
+    out = {"launches": {}}
+    one_problem = {"fused_step", "transform_partial", "banded_spmv", "laplacian_1d", "project",
+                   "unproject"}
+
+    def same(a, b):
+        la, lb = tree_leaves(a), tree_leaves(b)
+        return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+    def counts(info):
+        return [info.numops.tolist(), info.numiter.tolist(), info.converged.tolist()]
+
+    def ones_of(solve, n):
+        """Each problem's one-problem solve: ``[(result, ms, launches)]``."""
+        return [_sync_ms(torch, _build, lambda p=p: solve(p), dev) for p in range(n)]
+
+    def check(path, n, batch, ms, launches, ones, infos, bits, want, extra):
+        counts1 = [[i.numops for i in infos], [i.numiter for i in infos],
+                   [i.converged for i in infos]]
+        emit({"phase": "batched_eager_selective", "path": path, "P": n,
+              "numops": batch[0], "numiter": batch[1], "converged": batch[2],
+              "one_problem_counts": counts1, "bit_identical": bits, "launches": launches,
+              "expected_launches": want, "one_problem_launches": [o[2] for o in ones],
+              "batched_ms": ms, "one_problem_ms": [o[1] for o in ones],
+              "batched_over_sum_of_one_problem": ms / sum(o[1] for o in ones),
+              "part_seconds": time.perf_counter() - t_part, "nvidia_smi": smi, **extra})
+        require(batch == counts1, f"batched_eager_selective {path}: each problem's counts equal "
+                f"its one-problem solve's ({batch} vs {counts1})")
+        require(all(bits), f"batched_eager_selective {path}: every problem bit-identical to its "
+                f"one-problem solve ({bits})")
+        if card:
+            require(launches == want, f"batched_eager_selective {path}: launches {launches}, "
+                    f"predicted {want}")
+            require(not (one_problem | {"fused_step_batched"}) & set(launches),
+                    f"batched_eager_selective {path}: no one-problem launch and no K1 "
+                    f"({launches})")
+        out["launches"][path] = launches
+
+    R = N * N // 128
+    op = impurity if impurity is not None else impurity_banded(np, kt, N, dev)
+    X = torch.stack([torch.from_numpy(np.random.default_rng(6 + p).standard_normal((R, 128))
+                                      .astype(np.float32)) for p in range(P)]).to(dev)
+    want_vals = torch.tensor(IMPURITY_VALS, dtype=torch.float64)
+
+    # (a) selective Lanczos, the projection flag off and on
+    for flag in (False, True):
+        t_part = time.perf_counter()
+        path = "lanczos_selective_impurity" + ("_proj" if flag else "")
+        alg = kt.Lanczos(krylovdim=30, maxiter=10, tol=1e-5, reorth="selective", **quiet)
+        bs.use_pallas_projections = flag
+        try:
+            steps, restore = counting_calls(kf, "expand_hermitian_selective_batched",
+                                            lambda res: {p: o[3] for p, o in res.items()})
+            try:
+                (vals, vecs, info), ms, launches = _sync_ms(
+                    torch, _build, lambda: kt.eigsolve_lanczos_batched(op, X, 4, "SR", alg), dev)
+            finally:
+                restore()
+            ones, sweeps1 = [], []
+            for p in range(P):
+                flags, restore = counting_sweeps(kf)
+                try:
+                    ones += ones_of(lambda q: kt.eigsolve(op, X[p], 4, "SR", ishermitian=True,
+                                                           alg=alg), 1)
+                finally:
+                    restore()
+                sweeps1.append(flags)
+        finally:
+            bs.use_pallas_projections = False
+        sweeps = [[s[p] for s in steps if p in s] for p in range(P)]
+        bits = [torch.equal(vals[p], o[0][0]) and torch.equal(vecs[p], o[0][1])
+                and torch.equal(info.residual[p], o[0][2].residual)
+                and torch.equal(info.normres[p], o[0][2].normres) for p, o in enumerate(ones)]
+        want = {"banded_spmv_batched": len(steps),
+                "transform_partial_batched": max(info.numiter.tolist()) + 1}
+        if flag:
+            want["project_batched"] = want["unproject_batched"] = sum(any(s.values())
+                                                                      for s in steps)
+        vh = vals.cpu().double()
+        check(path, P, counts(info), ms, launches, ones, [o[0][2] for o in ones], bits, want,
+              {"sweeps": [sum(f) for f in sweeps], "one_problem_sweeps": [sum(f) for f in sweeps1],
+               "lock_steps": len(steps), "vals": vh.tolist()})
+        require(sweeps == sweeps1, f"batched_eager_selective {path}: each problem sweeps at "
+                "its one-problem solve's steps")
+        if N == 1024:
+            require(float((vh[0] - want_vals).abs().max()) <= 1e-4,
+                    f"batched_eager_selective {path}: problem 0 within 1e-4 of {IMPURITY_VALS}")
+        del vals, vecs, info, ones
+
+    # (b) eager Lanczos
+    t_part = time.perf_counter()
+    alg = kt.Lanczos(krylovdim=30, maxiter=10, tol=1e-5, eager=True, **quiet)
+    steps, restore_s = counting_calls(kf, "expand_batched")
+    rots, restore_r = counting_rotations([bt])
+    try:
+        (vals, vecs, info), ms, launches = _sync_ms(
+            torch, _build, lambda: kt.eigsolve_lanczos_batched(op, X, 4, "SR", alg), dev)
+    finally:
+        restore_s()
+        restore_r()
+    ones = ones_of(lambda p: kt.eigsolve(op, X[p], 4, "SR", ishermitian=True, alg=alg), P)
+    bits = [torch.equal(vals[p], o[0][0]) and torch.equal(vecs[p], o[0][1])
+            and torch.equal(info.residual[p], o[0][2].residual) for p, o in enumerate(ones)]
+    want = {"banded_spmv_batched": len(steps), "transform_partial_batched": len(rots)}
+    vh = vals.cpu().double()
+    check("lanczos_eager_impurity", P, counts(info), ms, launches, ones,
+          [o[0][2] for o in ones], bits, want,
+          {"lock_steps": len(steps), "restart_lock_steps": len(rots) - 1,
+           "problems_rotated": [len(r) for r in rots], "vals": vh.tolist()})
+    require(rots[-1] == list(range(P)), "batched_eager_selective lanczos_eager: the extraction "
+            "rotates every problem")
+    if card:
+        restarts1 = sum(o[2].get("transform_partial", 0) - 1 for o in ones)
+        require(sum(len(r) for r in rots[:-1]) == restarts1,
+                f"batched_eager_selective lanczos_eager: a problem rotates at its one-problem "
+                f"solve's restarts only ({[len(r) for r in rots]}, {restarts1})")
+    if N == 1024:
+        require(float((vh[0] - want_vals).abs().max()) <= 1e-4,
+                f"batched_eager_selective lanczos_eager: problem 0 within 1e-4 of {IMPURITY_VALS}")
+    del vals, vecs, info, ones
+
+    # (c) eager schursolve on config 4's banded chain
+    t_part = time.perf_counter()
+    R4 = n4 // 128
+    A4 = tri if tri is not None else kt.banded_from_coo(
+        *tridiagonal_coo(np, n4, -1.3, 2.0, -0.7, np.float32), n4, device=dev)
+    X4 = batched_starts(torch, np, R4, PA, dev)
+    kd, mi = arnoldi_dims
+    alg = kt.Arnoldi(krylovdim=kd, maxiter=mi, tol=1e-30, eager=True, **quiet)
+    steps, restore_s = counting_calls(kf, "expand_batched")
+    rots, restore_r = counting_rotations([bta])
+    try:
+        (T, V, (re, im), info), ms, launches = _sync_ms(
+            torch, _build, lambda: kt.schursolve_batched(A4, X4, 4, "LM", alg), dev)
+    finally:
+        restore_s()
+        restore_r()
+    ones = ones_of(lambda p: arn.schursolve(A4, X4[p], 4, "LM", alg), PA)
+    bits = [torch.equal(T[p], o[0][0]) and torch.equal(V[p], o[0][1])
+            and torch.equal(re[p], o[0][2][0]) and torch.equal(im[p], o[0][2][1])
+            and torch.equal(info.residual[p], o[0][3].residual) for p, o in enumerate(ones)]
+    want = {"banded_spmv_batched": len(steps), "transform_partial_batched": len(rots)}
+    check("schursolve_eager_config4", PA, counts(info), ms, launches, ones,
+          [o[0][3] for o in ones], bits, want,
+          {"n": n4, "krylovdim": kd, "maxiter": mi, "lock_steps": len(steps),
+           "problems_rotated": [len(r) for r in rots], "re": re.cpu().tolist()})
+    if card:
+        require(sum(map(len, rots)) == sum(o[2].get("transform_partial", 0) for o in ones) > 0,
+                "batched_eager_selective schursolve_eager: the one-problem restarts' rotations")
+    del T, V, info, ones
+
+    # (d) eager GKL on config 3's rect callables
+    t_part = time.perf_counter()
+    Rr = n4 // 128
+    if rect is None:
+        Cr = n4 // 2
+        wr = torch.from_numpy(np.linspace(1.0, 3.0, Cr, dtype=np.float32)
+                              .reshape(Cr // 128, 128)).to(dev)
+
+        def rect(x):
+            wx = wr * x
+            return torch.cat([wx, 0.5 * torch.roll(wx, 1, dims=0)], dim=0)
+
+        def rect_adj(y):
+            return wr * y[: Cr // 128] + 0.5 * wr * torch.roll(y[Cr // 128:], -1, dims=0)
+
+    pair = TypedOperator(rect, rect_adj, dtype=f32)
+    X3 = batched_starts(torch, np, Rr, PA, dev)
+    kd, mi = gkl_dims
+    alg = kt.GKL(krylovdim=kd, maxiter=mi, tol=1e-30, eager=True, **quiet)
+    steps, restore_s = counting_calls(gf, "expand_batched")
+    rots, restore_r = counting_rotations([btg])
+    try:
+        (S, U, W, info), ms, launches = _sync_ms(
+            torch, _build, lambda: kt.svdsolve_gkl_batched(pair, X3, 8, "LR", alg), dev)
+    finally:
+        restore_s()
+        restore_r()
+    ones = ones_of(lambda p: svs.svdsolve_gkl(pair, X3[p], 8, "LR", alg), PA)
+    bits = [torch.equal(S[p], o[0][0]) and torch.equal(U[p], o[0][1])
+            and torch.equal(W[p], o[0][2]) and torch.equal(info.residual[p], o[0][3].residual)
+            for p, o in enumerate(ones)]
+    want = {"transform_partial_batched": len(rots)}
+    check("svdsolve_gkl_eager_config3_rect", PA, counts(info), ms, launches, ones,
+          [o[0][3] for o in ones], bits, {k: v for k, v in want.items() if v},
+          {"rows": n4, "cols": n4 // 2, "krylovdim": kd, "maxiter": mi,
+           "lock_steps": len(steps), "problems_rotated": [len(r) for r in rots],
+           "svals": S.cpu().tolist()})
+    if card:
+        require(sum(map(len, rots)) == sum(o[2].get("transform_partial", 0) for o in ones) > 0,
+                "batched_eager_selective svdsolve_gkl_eager: the one-problem restarts' rotations")
+    del S, U, W, info, ones
+
+    # (e) eager BiArnoldi on config 4's tridiagonal, one round
+    t_part = time.perf_counter()
+    V0 = batched_starts(torch, np, R4, PA, dev)
+    W0 = batched_starts(torch, np, R4, PA, dev, seed=110)
+    alg = kt.BiArnoldi(krylovdim=biarnoldi_dim, maxiter=1, tol=1e-30, eager=True, **quiet)
+    steps, restore_s = counting_calls(kf, "expand_batched")
+    try:
+        (vals, (V, W), (iV, _)), ms, launches = _sync_ms(
+            torch, _build, lambda: kt.bieigsolve_batched(A4, V0, W0, 4, "LM", alg), dev)
+    finally:
+        restore_s()
+    ones = ones_of(lambda p: ba.bieigsolve_driver(A4, V0[p], W0[p], 4, "LM", alg), PA)
+    bits = [torch.equal(vals[p], o[0][0]) and torch.equal(V[p], o[0][1][0])
+            and torch.equal(W[p], o[0][1][1]) for p, o in enumerate(ones)]
+    # a lock-step: one expand_batched a side, one batched K3 each
+    check("bieigsolve_eager_config4", PA, counts(iV), ms, launches, ones,
+          [o[0][2][0] for o in ones], bits, {"banded_spmv_batched": len(steps)},
+          {"n": n4, "krylovdim": biarnoldi_dim, "lock_steps": len(steps) // 2,
+           "vals": torch.view_as_real(vals).cpu().tolist()})
+    del vals, V, W, iV, ones
+
+    # (f) eager exponentiate of the (1, -2, 1) chain, against the fused batch
+    t_part = time.perf_counter()
+    neg = kt.StencilOperator(*FRONT_END_NEG_LAP)
+    XE = batched_starts(torch, np, R4, P, dev)
+    alg = kt.Lanczos(krylovdim=30, tol=1e-4, eager=True, **quiet)
+    (y, info), ms, launches = _sync_ms(
+        torch, _build, lambda: kt.exponentiate_batched(neg, 0.1, XE, alg), dev)
+    ones = ones_of(lambda p: _expintegrator_core(neg, 0.1, (XE[p],), alg, kt.STANDARD), P)
+    bits = [torch.equal(y[p], o[0][0]) for p, o in enumerate(ones)]
+    yf, _ = kt.exponentiate_batched(neg, 0.1, XE, kt.Lanczos(krylovdim=30, tol=1e-4, **quiet))
+    diff = float((y - yf).abs().max() / yf.abs().max())
+    check("exponentiate_eager_config4", P, counts(info), ms, launches, ones,
+          [o[0][1] for o in ones], bits, {}, {"n": n4, "rel_diff_to_fused_batch": diff})
+    require(diff <= 1e-4, f"batched_eager_selective exponentiate_eager: within 1e-4 of the "
+            f"fused batch ({diff})")
+    del y, yf, ones
+    if not card:
+        return out
+
+    # (g) small float64 batches, card against CPU
+    small = []
+    for name in BATCHED_EAGER_SMALL:
+        _build.reset_launches()
+        t1s = time.perf_counter()
+        vc, cc, bc = small_batched_eager_cases(torch, np, kt, dev)[name]()
+        torch.cuda.synchronize()
+        ms_c = (time.perf_counter() - t1s) * 1e3
+        counted = {k: v for k, v in _build.launches.items() if v}
+        vh, ch, _ = small_batched_eager_cases(torch, np, kt, "cpu", one_problem=False)[name]()
+        err = float((vc - vh).abs().max()) / max(float(vh.abs().max()), 1.0)
+        small.append({"solve": name, "rel_err": err, "counts": cc, "counts_cpu": ch,
+                      "bit_identical_card": bc, "launches": counted,
+                      "ms_card_with_one_problem_solves": ms_c})
+        require(err <= SMALL_SHARDED_TOL, f"batched_eager_selective small {name}: card within "
+                f"{SMALL_SHARDED_TOL} of the CPU ({err})")
+        require(cc == ch, f"batched_eager_selective small {name}: counts equal ({cc} vs {ch})")
+        require(bc, f"batched_eager_selective small {name}: each problem bit-identical to its "
+                "one-problem solve on the card")
+    emit({"phase": "batched_eager_selective_small", "solves": small,
+          "tolerance": SMALL_SHARDED_TOL, "nvidia_smi": smi,
+          "phase_seconds": time.perf_counter() - t0})
+    return out
+
 def mean(xs):
     return sum(xs) / len(xs)
 
@@ -7304,7 +7864,7 @@ def mean(xs):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one config-1 and one config-4 solve (phase 37)")
+                    help="also profile one config-1 and one config-4 solve (phase 38)")
     ap.add_argument("--parent", metavar="DIR",
                     help="an unpacked earlier tree: time its K1 and K2 on this card as parent_ms")
     ap.add_argument("--kernel-times", action="store_true",
@@ -8205,6 +8765,7 @@ def main():
     bieig_l = bieig_full(torch, np, kt, _build, bd, bs, fl, pb, n=n4, smi=smi)
     phase_done("bieig")
     lanczos_l = lanczos_variants(torch, np, kt, _build, bd, bs, fl, pb, N=nx, smi=smi)
+    impurity = lanczos_l.pop("operator")
 
     phase_done("lanczos_variants")
 
@@ -8269,8 +8830,8 @@ def main():
     # batched K3 launches an apply) and batched BiArnoldi bieigsolve on
     # config 4's tridiagonal for 4 start pairs (batched K3 on the normal and
     # the adjoint planes), the projection kernels batched
-    batched_gb = batched_geneig_bieig_phase(torch, np, kt, _build, bd, bs, smi, q1_pencil,
-                                            bieig_l.pop("operator"))
+    tri4 = bieig_l.pop("operator")
+    batched_gb = batched_geneig_bieig_phase(torch, np, kt, _build, bd, bs, smi, q1_pencil, tri4)
 
     phase_done("batched_geneig_bieig")
 
@@ -8289,6 +8850,16 @@ def main():
     batched_tree = batched_pytree_phase(torch, np, kt, _build, svds, smi, rect, rect_adj)
 
     phase_done("batched_pytree")
+
+    # 37. batched eager and selective solves: selective and eager Lanczos on
+    # phase 21's impurity operator for 4 starts, eager schursolve, GKL,
+    # BiArnoldi and exponentiate on configs 4 and 3 (depth cut), then small
+    # float64 batches card against CPU
+    batched_es = batched_eager_selective_phase(torch, np, kt, _build, bs, smi, impurity, tri4,
+                                               rect, rect_adj)
+    del impurity, tri4
+
+    phase_done("batched_eager_selective")
 
     def slice11(name):
         """The launches per rank of ``name`` in phase 29's passes."""
@@ -8313,6 +8884,11 @@ def main():
                 "launches_lanczos_selective": lanczos_l["selective"].get(name, 0),
                 "launches_lanczos_selective_proj": lanczos_l["selective_proj"].get(name, 0),
                 "launches_iterators": lanczos_l["iterators"].get(name, 0)}
+
+    def slice21(name):
+        """The launches of ``name`` on the paths of phase 37."""
+        return {f"launches_batched_eager_selective_{path}": L[name]
+                for path, L in batched_es["launches"].items() if L.get(name)}
 
     if args.profile:
         emit(profile_solve(torch, "config 1 Lanczos eigsolve",
@@ -8388,6 +8964,7 @@ def main():
             **batched_svd["kernels"]["transform_partial"],
             **{f"launches_batched_pytree_{path}": L.get("transform_partial_batched", 0)
                for path, L in batched_tree["launches"].items()},
+            **slice21("transform_partial_batched"),
         },
         {
             "name": "banded_spmv", "route": "cuda",
@@ -8417,6 +8994,7 @@ def main():
             **batched_svd["kernels"]["banded_spmv"],
             **batched_gb["kernels"]["banded_spmv"],
             **batched_bl["kernels"]["banded_spmv"],
+            **slice21("banded_spmv_batched"),
         },
         {
             "name": "laplacian_1d", "route": "cuda",
@@ -8492,6 +9070,7 @@ def main():
             **batched_bl["kernels"][name],
             "launches_small_sharded_batched_per_rank":
                 sharded["small"].get(f"{name}_batched", 0),
+            **slice21(f"{name}_batched"),
             "bound_by": "bytes",
             "shapes": "mean per launch over P = 8 bases (31, 8192, 128) f32 at k = 18, 30 and "
                       "mixed k; launches: the config-4 banded eigsolve_arnoldi_batched, P = 4, "

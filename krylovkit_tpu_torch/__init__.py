@@ -31,7 +31,9 @@ in one host loop
 ``geneigsolve_golubye_batched``, ``bieigsolve_batched``,
 ``eigsolve_blocklanczos_batched``: ``jax.vmap`` of the JAX drivers, a
 banded or 1-D Laplacian operator applied to every problem in one batched
-launch), with
+launch; each takes what its one-problem driver takes, ``eager=True`` and
+``Lanczos(reorth="selective")`` among it, pytree vectors and a sharded
+space), with
 six hand-written CUDA kernels
 (``csrc/``): the fused one-stream expansion, the in-place restart rotation,
 the banded SpMV of :class:`BandedOperator`, the 1-D Laplacian of
@@ -126,6 +128,7 @@ from .solvers.linsolve import linsolve, reallinsolve  # noqa: E402
 from .solvers.lssolve import lssolve, reallssolve  # noqa: E402
 from .solvers.svdsolve import realsvdsolve, svdsolve, svdsolve_gkl  # noqa: E402
 from . import ad  # noqa: E402
+from . import dense  # noqa: E402
 from . import parallel  # noqa: E402
 
 __all__ = [
@@ -212,5 +215,6 @@ __all__ = [
     "exponentiate",
     "expintegrator",
     "ad",
+    "dense",
     "parallel",
 ]

@@ -45,6 +45,7 @@ __all__ = [
     "expand_hermitian",
     "expand_batched",
     "expand_hermitian_selective",
+    "expand_hermitian_selective_batched",
     "expand_3term",
     "fused_available",
     "fused_available_batched",
@@ -328,23 +329,36 @@ def expand_hermitian_selective(op_apply, state: KrylovState, omega: torch.Tensor
     ``(m+1,)`` tensors on the vectors' device.
 
     Returns ``(state, omega_new, omega, swept)``."""
-    V, H, k, beta_prev = state.V, state.H, state.k, state.beta
+    V, k = state.V, state.k
+    vk = bs.get(V, k)
+    w = _three_term(op_apply(vk), state)
+    alpha = space.inner(vk, w)
+    w = tree_map(lambda a, b: a - alpha.to(a.dtype) * b, w, vk)
+    om_new, test = _omega_step(state, omega, omega_prev, alpha, space.norm(w))
+    swept = bool(force_sweep) or bool(test)
+    if swept:
+        w, _ = on.orthogonalize(w, V, k + 1, on.cgs, space)
+    return _selective_append(state, w, space.norm(w), alpha, om_new, omega, swept)
+
+
+def _three_term(w, state: KrylovState):
+    """``w − β_{k−1}·v_{k−1}`` (``w`` itself at ``k = 0``)."""
+    if state.k == 0:
+        return w
+    beta_prev = state.beta
+    return tree_map(lambda a, b: a - beta_prev.to(a.dtype) * b, w, bs.get(state.V, state.k - 1))
+
+
+def _omega_step(state: KrylovState, omega, omega_prev, alpha, beta_raw):
+    """Simon's ω-recurrence for the would-be ``v_{k+1}`` against ``v_j``,
+    ``j <= k``: ``(ω_new, test)``, ``test`` the 0-d device flag
+    ``max_{j<k} ω_j > sqrt(eps)``."""
+    H, k, beta_prev = state.H, state.k, state.beta
     m1 = H.shape[0]
     rdt = omega.dtype
     dev = omega.device
     eps = torch.finfo(rdt).eps
-    thresh = eps ** 0.5
-
-    vk = bs.get(V, k)
-    w = op_apply(vk)
     bcoef = beta_prev.to(rdt) if k > 0 else torch.zeros((), dtype=rdt, device=dev)
-    if k > 0:
-        w = tree_map(lambda a, b: a - beta_prev.to(a.dtype) * b, w, bs.get(V, k - 1))
-    alpha = space.inner(vk, w)
-    w = tree_map(lambda a, b: a - alpha.to(a.dtype) * b, w, vk)
-    beta_raw = space.norm(w)
-
-    # ω-recurrence for the would-be v_{k+1} against v_j, j <= k
     alphas = torch.real(torch.diagonal(H)).to(rdt)  # α_j at [j, j]
     betas = torch.abs(torch.cat([torch.diagonal(H, -1), H.new_zeros(1)])).to(rdt)  # β_j at [j+1, j]
     a_k = torch.real(alpha).to(rdt)
@@ -363,26 +377,68 @@ def expand_hermitian_selective(op_apply, state: KrylovState, omega: torch.Tensor
     om_new = torch.where(idx == k, eps * scale_n / b_k, om_new)
     om_new = torch.where(idx == k + 1, torch.ones_like(om_new), om_new)
     om_new = torch.where(idx > k + 1, torch.zeros_like(om_new), om_new)
+    # (a sweep is also forced on the first expansion after a thick restart:
+    # the arrowhead spike gives A·v_keep components along every kept Ritz
+    # vector, which the 3-term recurrence does not remove and the
+    # ω-recurrence does not model)
+    test = torch.max(torch.where(idx < k, om_new, torch.zeros_like(om_new))) > eps ** 0.5
+    return om_new, test
 
-    # forced on the first expansion after a thick restart: the arrowhead
-    # spike gives A·v_keep components along every kept Ritz vector, which the
-    # 3-term recurrence does not remove and the ω-recurrence does not model
-    swept = bool(force_sweep) or bool(
-        torch.max(torch.where(idx < k, om_new, torch.zeros_like(om_new))) > thresh)
+
+def _selective_append(state: KrylovState, w, beta, alpha, om_new, omega, swept: bool):
+    """The end of a selective step: ``v_{k+1} = w/β`` and ``(α, β)`` into
+    ``H``; after a sweep the basis is orthogonal to the eps level again.
+    Returns ``(state, omega_new, omega, swept)``."""
+    V, H, k = state.V, state.H, state.k
     if swept:
-        w, _ = on.orthogonalize(w, V, k + 1, on.cgs, space)
-        # after a sweep the basis is orthogonal to the eps level again
+        eps = torch.finfo(omega.dtype).eps
+        idx = torch.arange(H.shape[0], device=omega.device)
         eps_row = torch.where(idx <= k, torch.full_like(omega, eps), torch.zeros_like(omega))
         om_out, om_cur = eps_row.clone(), eps_row
     else:
         om_out, om_cur = om_new, omega
     om_out[k + 1] = 1.0
-
-    beta = space.norm(w)
     bs.set(V, k + 1, _normalized(w, beta))
     H[k, k] = alpha.to(H.dtype)
     H[k + 1, k] = beta.to(H.dtype)
     return KrylovState(V, H, k + 1, beta), om_out, om_cur, swept
+
+
+def expand_hermitian_selective_batched(apply, states: dict, omegas: dict, force: dict,
+                                       space: VectorSpace = STANDARD) -> dict:
+    """:func:`expand_hermitian_selective` of every problem in ``states``
+    (``{p: KrylovState}``) at once, each at its own ``k`` with its own ω
+    state ``omegas[p] = (omega, omega_prev)`` and ``force[p]`` (its
+    ``force_sweep``).  ``apply({p: x_p})`` gives ``{p: A_p x_p}`` in one
+    call; the ``α`` and both norms of all problems are
+    :func:`~..ops.vector.inner_batched`/``norm_batched`` (each one
+    all-reduce on a sharded space), the ω-recurrence runs per problem on the
+    device, the sweep decisions of all are one host read, and the problems
+    that sweep go through one :func:`~..ops.orthonormal.orthogonalize_batched`
+    cgs call (one batched project and one batched unproject with the
+    projection flag on).  Each problem's ``(state, ω, ω_prev, swept)`` is
+    its one-problem step's, bit for bit.  Returns ``{p: (state, omega_new,
+    omega, swept)}``."""
+    ps = list(states)
+    vks = {p: bs.get(states[p].V, states[p].k) for p in ps}
+    W = apply(vks)
+    W = {p: _three_term(W[p], states[p]) for p in ps}
+    alphas = inner_batched([vks[p] for p in ps], [W[p] for p in ps], space)
+    for p, alpha in zip(ps, alphas):
+        W[p] = tree_map(lambda a, b: a - alpha.to(a.dtype) * b, W[p], vks[p])
+    raws = norm_batched([W[p] for p in ps], space)
+    steps = {p: _omega_step(states[p], *omegas[p], alpha, raw)
+             for p, alpha, raw in zip(ps, alphas, raws)}
+    tests = torch.stack([steps[p][1] for p in ps]).tolist()
+    swept = {p: bool(force[p]) or t for p, t in zip(ps, tests)}
+    sweeping = [p for p in ps if swept[p]]
+    if sweeping:
+        outs = on.orthogonalize_batched([W[p] for p in sweeping], [states[p].V for p in sweeping],
+                                        [states[p].k + 1 for p in sweeping], on.cgs, space)
+        W.update({p: w for p, (w, _) in zip(sweeping, outs)})
+    betas = norm_batched([W[p] for p in ps], space)
+    return {p: _selective_append(states[p], W[p], beta, alpha, steps[p][0], omegas[p][0], swept[p])
+            for p, alpha, beta in zip(ps, alphas, betas)}
 
 
 # --------------------------------------------------------------------------

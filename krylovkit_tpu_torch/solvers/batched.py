@@ -70,9 +70,19 @@ gives bit for bit on a shared operator.  A tree operator is a user
 callable, applied problem by problem; the fused gates refuse a tree, so a
 tree batch takes the unfused lock-step, and a restart rotates every leaf
 the K2 kernel takes (a ``(kmax, R, 128)`` float32/bfloat16 leaf) in one
-batched launch, any other leaf problem by problem.  Refused, each with a
-``ValueError`` that names it: ``eager`` (but in Block Lanczos), selective
-reorthogonalization, differentiation, and pytree vectors on a sharded
+batched launch, any other leaf problem by problem.
+
+``eager=True`` is batched in every driver that takes it: each problem
+processes after every step of its own, as its one-problem solve does, and
+a lock-step expands only the problems whose rounds go on.  A restart
+rotates only the problems that restart there (the eager one-problem solve
+runs no identity rotation).  ``Lanczos(reorth="selective")`` is batched
+in :func:`eigsolve_lanczos_batched` through
+``factorizations/krylov.py:expand_hermitian_selective_batched``: each
+problem keeps its own ω state, the sweep decisions of a lock-step are one
+host read, and the problems that sweep sweep together.  Refused, each with
+a ``ValueError`` that names it: selective with ``eager`` (as in the
+one-problem driver), differentiation, and pytree vectors on a sharded
 space.
 """
 
@@ -326,7 +336,9 @@ def _rotate(Vb, Us: dict, m_out: int):
     leaf by leaf as the one-problem ``bs.transform_partial`` decides: one
     batched K2 launch for a leaf the kernel takes (a real ``U`` on a
     ``(kmax, R, 128)`` float32/bfloat16 leaf), ``bs.transform_partial`` per
-    problem for any other."""
+    problem for any other.  No ``Us``, no launch."""
+    if not Us:
+        return
     ps = sorted(Us)
     U0 = Us[ps[0]]
     Ub = None
@@ -342,6 +354,14 @@ def _rotate(Vb, Us: dict, m_out: int):
             Lnew = bs.transform_partial(Lp, Us[p], m_out)
             if Lnew is not Lp:
                 Lp.copy_(Lnew)
+
+
+def _goes_on(alg, j: int, k: int, howmany: int) -> bool:
+    """Whether a problem whose round has made ``j`` expansions, at size
+    ``k``, takes another one (the one-problem loops' ``eager`` test): always
+    without ``eager``; with it, the round's first, then only while ``k <
+    howmany``."""
+    return not alg.eager or j == 0 or k < max(howmany, 1)
 
 
 def _read(values) -> list:
@@ -372,10 +392,11 @@ def eigsolve_lanczos_batched(op, x0, howmany: int, which, alg: Lanczos,
             "which=:LI/:SI invalid for Hermitian eigsolve (real spectrum) — "
             "reference src/eigsolve/eigsolve.jl:209-236"
         )
-    if getattr(alg, "reorth", "full") == "selective":
-        raise ValueError("eigsolve_lanczos_batched: Lanczos(reorth='selective') is not batched")
-    if alg.eager:
-        raise ValueError("eigsolve_lanczos_batched: Lanczos(eager=True) is not batched")
+    selective = getattr(alg, "reorth", "full") == "selective"
+    if selective and alg.eager:
+        raise ValueError(
+            "eigsolve_lanczos_batched: reorth='selective' is incompatible with eager=True (the "
+            "omega-recurrence state does not persist across eager processings)")
     P = _batch_size(_count(op, op_dim, "op", vector=False), _count(x0, x_dim, "x0"))
     ops = _Operators(op, P, op_dim == 0)
     _refuse("eigsolve_lanczos_batched", [x0], ops.distinct(), space=space)
@@ -411,6 +432,8 @@ def eigsolve_lanczos_batched(op, x0, howmany: int, which, alg: Lanczos,
     dgks = type(alg.orth) is on.ClassicalGramSchmidt2 and 2 * (m + 1) + 2 <= 128
     fused = (
         op_dim is None
+        and not alg.eager
+        and not selective
         and (type(alg.orth) is on.ClassicalGramSchmidt or dgks)
         and cdt == torch.float32
         and kf.fused_available_batched(ops.ops[0], x0s, space, kmax=m + 1)
@@ -428,17 +451,37 @@ def eigsolve_lanczos_batched(op, x0, howmany: int, which, alg: Lanczos,
             for p in active:
                 numops[p] += dops[p]
         else:
+            # j: each problem's expansions in this round; selective: its ω
+            # state, at the eps level after every restart
+            j = dict.fromkeys(active, 0)
+            if selective:
+                om = {}
+                for p in active:
+                    om[p] = torch.full((m + 1,), torch.finfo(rdt).eps, dtype=rdt, device=dev)
+                    om[p] = (om[p], om[p].clone())
             stepping = active
             while True:
                 cand = [p for p in stepping if facts[p].k < m]
                 betas = _read([facts[p].beta for p in cand])
-                stepping = [p for p, b in zip(cand, betas) if b > btol]
+                stepping = [p for p, b in zip(cand, betas)
+                             if b > btol and _goes_on(alg, j[p], facts[p].k, howmany)]
                 if not stepping:
                     break
-                facts.update(kf.expand_batched(ops, {p: facts[p] for p in stepping}, alg.orth,
-                                               space, alg.verbosity, hermitian=True))
+                if selective:
+                    # the first expansion after a restart sweeps
+                    outs = kf.expand_hermitian_selective_batched(
+                        ops, {p: facts[p] for p in stepping}, {p: om[p] for p in stepping},
+                        {p: j[p] == 0 and st[p].numiter > 0 for p in stepping}, space)
+                    for p in stepping:
+                        facts[p], om_new, om_cur, _ = outs[p]
+                        om[p] = (om_new, om_cur)
+                else:
+                    facts.update(kf.expand_batched(ops, {p: facts[p] for p in stepping},
+                                                   alg.orth, space, alg.verbosity,
+                                                   hermitian=True))
                 for p in stepping:
                     numops[p] += 1
+                    j[p] += 1
 
         rotations, finished = {}, []
         for p in active:
@@ -450,10 +493,15 @@ def eigsolve_lanczos_batched(op, x0, howmany: int, which, alg: Lanczos,
             done = nconv >= howmany or (full and numiter >= alg.maxiter) or stalled
             keep = min(max((3 * m + 2 * nconv) // 5, 1), max(fact.k - 1, 1))
             restart_now = not done and fact.k >= m
-            # every processing but the last restarts; the last one runs the
-            # identity rotation (the JAX package's masked restart)
-            rotations[p] = _restart_rotation(fact.H, fact.k, U, keep, gate=restart_now,
-                                             scales=scs[p].L if fused else None)
+            if alg.eager:
+                # eager processes every step: rotate only when a restart is due
+                if restart_now:
+                    rotations[p] = _restart_rotation(fact.H, fact.k, U, keep)
+            else:
+                # every processing but the last restarts; the last one runs
+                # the identity rotation (the JAX package's masked restart)
+                rotations[p] = _restart_rotation(fact.H, fact.k, U, keep, gate=restart_now,
+                                                 scales=scs[p].L if fused else None)
             sc = scs[p]
             if restart_now:
                 fact = kf.KrylovState(fact.V, _arrowhead(fact.H, fact.k, vals, U, fact.beta, keep),

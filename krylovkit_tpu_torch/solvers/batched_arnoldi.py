@@ -19,7 +19,9 @@ design of ``solvers/batched.py``:
   static ``m_out = keep_max + 1``: one batched K2 launch
   (``ops/basis.py:transform_partial_inplace_batched``) on a real
   ``(R, 128)`` float32 basis, a problem that does not restart taking the
-  identity, as the JAX package's masked restart does;
+  identity, as the JAX package's masked restart does; with ``eager=True``
+  a problem processes after every step of its own and only the problems
+  that restart rotate, as the eager one-problem solve does;
 * on a fusable stencil operator with ``(R, 128)`` float32 vectors, each
   step is one batched K1 launch in Arnoldi mode for the problems that step
   at one live-row count (``factorizations/krylov.py:fused_expansions_batched``;
@@ -32,8 +34,8 @@ design of ``solvers/batched.py``:
 ``in_dims``, the shared or per-problem operator, a sharded space (one
 all-reduce a lock-step for every stepping problem, the fused step's halos
 each problem's), pytree vectors (the unfused lock-step, the rotation leaf
-by leaf) and the refusals (``eager``, differentiation, pytree vectors on a
-sharded space) are those of ``solvers/batched.py``.
+by leaf) and the refusals (differentiation, pytree vectors on a sharded
+space) are those of ``solvers/batched.py``.
 """
 
 from __future__ import annotations
@@ -67,6 +69,7 @@ from .arnoldi import (
 from .batched import (
     _batch_size,
     _count,
+    _goes_on,
     _in_dims,
     _Operators,
     _problems,
@@ -83,8 +86,6 @@ def _setup(what: str, op, x0, howmany: int, alg: Arnoldi, space: VectorSpace, in
     the refusals."""
     op_dim, x_dim = _in_dims(in_dims, ("op", "x0"))
     _check(howmany, alg.krylovdim)
-    if alg.eager:
-        raise ValueError(f"{what}: Arnoldi(eager=True) is not batched")
     P = _batch_size(_count(op, op_dim, "op", vector=False), _count(x0, x_dim, "x0"))
     ops = _Operators(op, P, op_dim == 0)
     _refuse(what, [x0], ops.distinct(), space=space)
@@ -140,27 +141,35 @@ def _arnoldi_loop_batched(ops: _Operators, x0s, howmany: int, which, alg: Arnold
             for p in active:
                 numops[p] += dops[p]
         else:
+            j = dict.fromkeys(active, 0)  # each problem's expansions in this round
             stepping = active
             while True:
                 cand = [p for p in stepping if facts[p].k < m]
                 betas = _read([facts[p].beta for p in cand])
-                stepping = [p for p, b in zip(cand, betas) if b > btol]
+                stepping = [p for p, b in zip(cand, betas)
+                             if b > btol and _goes_on(alg, j[p], facts[p].k, howmany)]
                 if not stepping:
                     break
                 facts.update(kf.expand_batched(ops, {p: facts[p] for p in stepping}, alg.orth,
                                                space, alg.verbosity))
                 for p in stepping:
                     numops[p] += 1
+                    j[p] += 1
 
         rotations, finished = {}, []
         for p in active:
             nconv, T, Q, res, numiter, done, keep, restart_now = _round(
                 process, facts[p], st[p].numiter, which, tol, btol, howmany, alg, real)
-            # every processing but the last restarts; the last one runs the
-            # identity rotation (the JAX package's masked restart)
-            rotations[p], fact = _restart_rotation(facts[p], T, Q, facts[p].beta, keep,
-                                                   gate=restart_now,
-                                                   scales=scs[p].L if fused else None)
+            fact = facts[p]
+            if not alg.eager:
+                # every processing but the last restarts; the last one runs
+                # the identity rotation (the JAX package's masked restart)
+                rotations[p], fact = _restart_rotation(fact, T, Q, fact.beta, keep,
+                                                       gate=restart_now,
+                                                       scales=scs[p].L if fused else None)
+            elif restart_now:
+                # eager processes every step: rotate only when a restart is due
+                rotations[p], fact = _restart_rotation(fact, T, Q, fact.beta, keep)
             sc = scs[p]
             if restart_now:
                 sc = kf.fused_scales_init(m + 1, H=fact.H if fused else None, device=dev)

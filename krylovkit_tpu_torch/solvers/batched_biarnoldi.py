@@ -26,7 +26,9 @@ design of ``solvers/batched.py``:
   driver and the JAX package rotate: no K2) and the extraction run per
   problem through :mod:`.biarnoldi`'s ``_round`` and ``_extract``, the
   functions the one-problem driver calls.  Problems restart at their own
-  ``keep``, so they go on expanding at different ``k``.
+  ``keep``, so they go on expanding at different ``k``; with
+  ``eager=True`` each problem runs its round after every step of its own,
+  as the eager one-problem solve does.
 
 ``in_dims = (op_dim, v0_dim, w0_dim)`` takes ``0`` or ``None`` per
 argument.  Every operator gets its adjoint through ``require_adjoint``:
@@ -38,10 +40,9 @@ each side's sweeps and norms, the two projections of ``M``), as are the
 starts' norms, ``M[0, 0]`` and the oblique correction's projections;
 ``_round`` keeps its two residual norms (four with a restart) per problem.
 Pytree vectors are batched as in ``solvers/batched.py`` (a ``(v0, w0)``
-pair of trees of one structure); ``BiArnoldi(eager=True)``,
-differentiation, and pytree vectors on a sharded space are not
-(``ValueError``); an ``(f, fadjoint)`` tuple is one shared operator, never
-two problems.
+pair of trees of one structure); differentiation and pytree vectors on a
+sharded space are not (``ValueError``); an ``(f, fadjoint)`` tuple is one
+shared operator, never two problems.
 """
 
 from __future__ import annotations
@@ -57,7 +58,8 @@ from ..ops import basis as bs
 from ..ops.operator import probe_dtype
 from ..ops.vector import (STANDARD, VectorSpace, alloc_batched, device_of, inner_batched, rounded,
                           tree_leaves, tree_row, tree_stack)
-from .batched import _batch_size, _count, _in_dims, _Operators, _problems, _read, _refuse
+from .batched import (_batch_size, _count, _goes_on, _in_dims, _Operators, _problems, _read,
+                      _refuse)
 from .batched_arnoldi import _stack_infos
 from .biarnoldi import _extract, _LoopState, _round
 
@@ -98,8 +100,6 @@ def bieigsolve_batched(op, v0, w0, howmany: int, which, alg: BiArnoldi,
     m = alg.krylovdim
     if howmany > m:
         raise ValueError(f"howmany={howmany} exceeds krylovdim={m}")
-    if alg.eager:
-        raise ValueError(f"{what}: BiArnoldi(eager=True) is not batched")
     _refuse(what, [v0, w0], [], space=space)
     P = _batch_size(_count(op, op_dim, "op", vector=False), _count(v0, v_dim, "v0"),
                     _count(w0, w_dim, "w0"))
@@ -141,11 +141,13 @@ def bieigsolve_batched(op, v0, w0, howmany: int, which, alg: BiArnoldi,
     while active:
         # lock-step expansion, each problem at its own k (do-while: at least
         # one step where possible)
+        j = dict.fromkeys(active, 0)  # each problem's expansions in this round
         stepping = active
         while True:
             cand = [p for p in stepping if st[p].fV.k < m]
             betas = _read([torch.stack([st[p].fV.beta, st[p].fW.beta]) for p in cand])
-            stepping = [p for p, (bv, bw) in zip(cand, betas) if bv > btol and bw > btol]
+            stepping = [p for p, (bv, bw) in zip(cand, betas)
+                        if bv > btol and bw > btol and _goes_on(alg, j[p], st[p].fV.k, howmany)]
             if not stepping:
                 break
             fVs = kf.expand_batched(ops, {p: st[p].fV for p in stepping}, alg.orth, space,
@@ -155,6 +157,7 @@ def bieigsolve_batched(op, v0, w0, howmany: int, which, alg: BiArnoldi,
             for p in stepping:
                 st[p].fV, st[p].fW = fVs[p], fWs[p]
                 st[p].numops += 2
+                j[p] += 1
             _update_M_batched(st, {p: st[p].fV.k for p in stepping}, space)
 
         # the oblique correction's projections, then each problem's round

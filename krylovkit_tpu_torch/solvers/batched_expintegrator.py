@@ -24,8 +24,10 @@ together, as in ``solvers/batched.py``:
 batched as in ``solvers/batched.py`` (the fused step with each problem's
 halos, one all-reduce a lock-step).  Pytree vectors (each of ``u₀, u₁,
 …`` a tree of one structure) take the unfused lock-step, leaf by leaf.
-``eager``, differentiation, and pytree vectors on a sharded space are not
-batched (``ValueError``).
+``eager=True`` takes the unfused lock-step: each problem of a cycle makes
+one step and then attempts the remaining interval, as its one-problem
+integration does.  Differentiation and pytree vectors on a sharded space
+are not batched (``ValueError``).
 """
 
 from __future__ import annotations
@@ -78,8 +80,6 @@ def expintegrator_batched(op, t, u: tuple, alg, space: VectorSpace = STANDARD, *
         u = (u,)
     op_dim, t_dim, u_dims = _dims(in_dims, len(u))
     what = "expintegrator_batched"
-    if alg.eager:
-        raise ValueError(f"{what}: eager=True is not batched")
     P = _batch_size(_count(op, op_dim, "op", vector=False), _count(t, t_dim, "t", vector=False),
                     *[_count(ui, d, "u") for ui, d in zip(u, u_dims)])
     ops = _Operators(op, P, op_dim == 0)
@@ -134,7 +134,8 @@ def expintegrator_batched(op, t, u: tuple, alg, space: VectorSpace = STANDARD, *
                     ints[p].numops += dops[p]
         else:
             # the one-problem pair: a first step where k < m and β > 0, then
-            # steps while β > eps and β exceeds the remaining budget (:237)
+            # steps while β > eps and β exceeds the remaining budget (:237);
+            # eager: the first step only
             stepping, cand = first, active
             while stepping:
                 facts = kf.expand_batched(ops, {p: ints[p].fact for p in stepping}, alg.orth,
@@ -142,7 +143,8 @@ def expintegrator_batched(op, t, u: tuple, alg, space: VectorSpace = STANDARD, *
                 for p in stepping:
                     ints[p].fact = facts[p]
                     ints[p].numops += 1
-                cand = [p for p in cand if ints[p].fact.k < m]
+                cand = [p for p in cand
+                        if ints[p].fact.k < m and not (alg.eager and ints[p].fact.k >= 1)]
                 bs_ = _read([ints[p].fact.beta for p in cand])
                 cand = stepping = [p for p, b in zip(cand, bs_) if b > eps and not b <= rem[p]]
         restart = [p for p in active if ints[p].after_expansion(rem[p])]

@@ -17,7 +17,10 @@ problem axis, on the design of ``solvers/batched_arnoldi.py``:
 * every round ends in one rotation of each stack at the static ``m_out =
   keep_max + 1``: one batched K2 launch
   (``ops/basis.py:transform_partial_inplace_batched``) on a real ``(R,
-  128)`` float32 basis, a problem that does not restart taking the identity;
+  128)`` float32 basis, a problem that does not restart taking the
+  identity; with ``eager=True`` a problem processes after every step of its
+  own and only the problems that restart rotate, as the eager one-problem
+  solve does;
 * on a square fusable stencil with ``(R, 128)`` float32 vectors, each step
   is two batched K1 half-steps, the normal spec over the V stack and the
   adjoint spec over the U stack, one launch each per distinct live-row
@@ -49,9 +52,8 @@ lock-step (the stack apply, the adjoint stack apply, a sweep's
 coefficients, the norms); the fused GKL gate refuses such a space, so
 ``svdsolve`` runs unfused there.  Pytree vectors are batched as in
 ``solvers/batched.py`` (a domain tree may differ from the codomain tree:
-give ``(f, fadjoint)`` on the trees); ``GKL(eager=True)``,
-differentiation, and pytree vectors on a sharded space are not batched
-(``ValueError``).
+give ``(f, fadjoint)`` on the trees); differentiation and pytree vectors on
+a sharded space are not batched (``ValueError``).
 """
 
 from __future__ import annotations
@@ -72,6 +74,7 @@ from . import svdsolve as sv
 from .batched import (
     _batch_size,
     _count,
+    _goes_on,
     _in_dims,
     _Operators,
     _problems,
@@ -123,8 +126,6 @@ def svdsolve_gkl_batched(op, x0, howmany: int, which, alg: GKL, space: VectorSpa
     problem order."""
     m = alg.krylovdim
     sv._check(howmany, m, which)
-    if alg.eager:
-        raise ValueError("svdsolve_gkl_batched: GKL(eager=True) is not batched")
     # the pair's guard runs in the standard inner product, as svdsolve's does
     ops, x0s, cdt = _setup("svdsolve_gkl_batched", op, x0, in_dims, ("op", "x0"), space=space)
     P = len(x0s)
@@ -151,28 +152,36 @@ def svdsolve_gkl_batched(op, x0, howmany: int, which, alg: GKL, space: VectorSpa
             for p in active:
                 numops[p] += dops[p]
         else:
+            j = dict.fromkeys(active, 0)  # each problem's expansions in this round
             stepping = active
             while True:
                 cand = [p for p in stepping if facts[p].k < m]
                 betas = _read([facts[p].beta for p in cand])
-                stepping = [p for p, b in zip(cand, betas) if b > btol]
+                stepping = [p for p, b in zip(cand, betas)
+                             if b > btol and _goes_on(alg, j[p], facts[p].k, howmany)]
                 if not stepping:
                     break
                 facts.update(gf.expand_batched(ops, {p: facts[p] for p in stepping}, alg.orth,
                                                space, alg.verbosity))
                 for p in stepping:
                     numops[p] += 2
+                    j[p] += 1
 
         rotU, rotV, finished = {}, {}, []
         for p in active:
             fact = facts[p]
             nconv, svals, Pm, Qm, res, numiter, done, keep, restart_now = sv._round(
                 fact, st[p].numiter, which, tol, btol, howmany, alg)
-            # every processing but the last restarts; the last one runs the
-            # identity rotations (the JAX package's masked restart)
-            rotU[p], rotV[p], fact = sv._restart_rotations(
-                fact, svals, Pm, Qm, fact.beta, keep, gate=restart_now,
-                scales=(scU[p].L, scV[p].L) if fused else None)
+            if not alg.eager:
+                # every processing but the last restarts; the last one runs
+                # the identity rotations (the JAX package's masked restart)
+                rotU[p], rotV[p], fact = sv._restart_rotations(
+                    fact, svals, Pm, Qm, fact.beta, keep, gate=restart_now,
+                    scales=(scU[p].L, scV[p].L) if fused else None)
+            elif restart_now:
+                # eager processes every step: rotate only when a restart is due
+                rotU[p], rotV[p], fact = sv._restart_rotations(fact, svals, Pm, Qm, fact.beta,
+                                                               keep)
             fact = gf.GKLState(tree_row(Ub, p), tree_row(Vb, p), fact.B, fact.k, fact.beta)
             if restart_now and fused:
                 scU[p], scV[p] = sv._reseeded(fact, m1, dev)

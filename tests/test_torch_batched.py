@@ -247,10 +247,11 @@ def test_warn_lines_of_a_batched_solve_match_jax_vmap():
 
 def test_batched_lanczos_refusals():
     """(h) each piece this slice does not batch raises ``ValueError`` with
-    its name, pytree vectors on a sharded space among them.  A sharded
-    space is batched: on a one-rank axis, the unsharded bits.  Pytree
-    vectors are batched: each problem of a dict batch is its one-problem
-    dict solve, bit for bit."""
+    its name, pytree vectors on a sharded space among them, and selective
+    with eager as the one-problem driver refuses it.  A sharded space is
+    batched: on a one-rank axis, the unsharded bits.  Pytree vectors are
+    batched: each problem of a dict batch is its one-problem dict solve,
+    bit for bit; so are ``eager=True`` and selective reorthogonalization."""
     top = kt.laplacian_1d(N, device="cpu")
     X = torch.from_numpy(_starts(2))
     alg = kt.Lanczos(krylovdim=10)
@@ -258,10 +259,9 @@ def test_batched_lanczos_refusals():
     cases = [
         (lambda: kt.eigsolve_lanczos_batched(top, {"a": X}, 1, "LM", alg, space=one),
          "pytree vectors on a sharded space"),
-        (lambda: kt.eigsolve_lanczos_batched(top, X, 1, "LM", kt.Lanczos(krylovdim=10, eager=True)),
-         "eager"),
         (lambda: kt.eigsolve_lanczos_batched(
-            top, X, 1, "LM", kt.Lanczos(krylovdim=10, reorth="selective")), "selective"),
+            top, X, 1, "LM", kt.Lanczos(krylovdim=10, eager=True, reorth="selective")),
+         "selective.*incompatible with eager"),
         (lambda: kt.eigsolve_lanczos_batched(top, X.clone().requires_grad_(True), 1, "LM", alg),
          "differentiation"),
         (lambda: kt.eigsolve_lanczos_batched(top, X, 1, "LM", alg, in_dims=(None, None)),
@@ -285,6 +285,14 @@ def test_batched_lanczos_refusals():
     want = kt.eigsolve_lanczos_batched(top, X, 1, "LM", short)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert torch.equal(got[2].numops, want[2].numops)
+    # eager and selective batches run: each problem its one-problem solve
+    for alg in (kt.Lanczos(krylovdim=10, maxiter=2, eager=True),
+                kt.Lanczos(krylovdim=10, maxiter=2, reorth="selective")):
+        vals, vecs, info = kt.eigsolve_lanczos_batched(top, X, 1, "LM", alg)
+        for p in range(2):
+            v1, w1, i1 = t_eigsolve_lanczos(top, X[p], 1, "LM", alg)
+            assert torch.equal(vals[p], v1) and torch.equal(vecs[p], w1)
+            assert int(info.numops[p]) == i1.numops
 
 
 def test_parametric_probe_makes_no_data_apply():

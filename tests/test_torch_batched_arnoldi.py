@@ -29,6 +29,7 @@ import chip_smoke
 import krylovkit_tpu_torch as kt
 from krylovkit_tpu_torch import convert
 from krylovkit_tpu_torch.ops.collectives import MeshAxis
+from krylovkit_tpu_torch.solvers import arnoldi as tarn
 
 torch.set_num_threads(2)
 
@@ -179,8 +180,9 @@ def test_realeigsolve_warn_lines_match_jax_vmap():
 
 def test_batched_arnoldi_refusals():
     """Each piece this slice does not batch raises ``ValueError`` with its
-    name.  A sharded
-    space is batched: on a one-rank axis, the unsharded bits."""
+    name.  A sharded space is batched: on a one-rank axis, the unsharded
+    bits; so is ``Arnoldi(eager=True)``: each problem its one-problem eager
+    solve, bit for bit."""
     top = convert.stencil_from_arrays(*NONSYM, "cpu")
     X = chip_smoke.batched_starts(torch, np, 16, 2, "cpu")
     alg = kt.Arnoldi(krylovdim=10)
@@ -188,9 +190,6 @@ def test_batched_arnoldi_refusals():
     cases = [
         (lambda: kt.schursolve_batched(top, {"a": X}, 1, "LM", alg, space=one),
          "pytree vectors on a sharded space"),
-        (lambda: kt.realeigsolve_arnoldi_batched(top, X, 1, "LM", kt.Arnoldi(krylovdim=10,
-                                                                             eager=True)),
-         "eager"),
         (lambda: kt.schursolve_batched(top, X.clone().requires_grad_(True), 1, "LM", alg),
          "differentiation"),
         (lambda: kt.eigsolve_arnoldi_batched(top, X, 1, "LM", alg, in_dims=(None, None)),
@@ -213,6 +212,12 @@ def test_batched_arnoldi_refusals():
         T1, V1, (re1, im1), i1 = kt.schursolve(dict_op, {"a": X[p]}, 1, "LM", short)
         assert torch.equal(T[p], T1) and torch.equal(V["a"][p], V1["a"])
         assert torch.equal(re_[p], re1) and int(info.numops[p]) == i1.numops
+    eager = kt.Arnoldi(krylovdim=10, maxiter=2, eager=True)
+    vals, vecs, info = kt.realeigsolve_arnoldi_batched(top, X, 1, "LM", eager)[:3]
+    for p in range(2):
+        v1, w1, i1 = tarn.realeigsolve_arnoldi(top, X[p], 1, "LM", eager)[:3]
+        assert torch.equal(vals[p], v1) and torch.equal(vecs[p], w1)
+        assert int(info.numops[p]) == i1.numops
     got = kt.eigsolve_arnoldi_batched(top, X, 1, "LM", short, space=one)
     want = kt.eigsolve_arnoldi_batched(top, X, 1, "LM", short)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

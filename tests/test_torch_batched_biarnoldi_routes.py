@@ -176,12 +176,12 @@ def test_warn_lines_are_the_one_problem_lines_in_problem_order():
 
 def test_batched_bieigsolve_refusals():
     """Each piece this slice does not batch raises ``ValueError`` with its
-    name: pytree vectors on a sharded space, ``BiArnoldi(eager=True)``, an
-    input or an operator tensor that requires grad, ``in_dims`` other than
-    0 or None, an ``(f, fadjoint)`` tuple given as a batch; and the argument
-    checks.  A sharded space is batched: on a one-rank axis, the unsharded
-    bits; so are pytree vectors: each problem of a pair of dict batches is
-    its one-problem dict solve, bit for bit."""
+    name: pytree vectors on a sharded space, an input or an operator tensor
+    that requires grad, ``in_dims`` other than 0 or None, an ``(f,
+    fadjoint)`` tuple given as a batch; and the argument checks.  A sharded
+    space is batched: on a one-rank axis, the unsharded bits; so are pytree
+    vectors: each problem of a pair of dict batches is its one-problem dict
+    solve, bit for bit; so is ``BiArnoldi(eager=True)``."""
     As, _, _ = _stack(10)
     A = torch.from_numpy(As[0])
     Vt, Wt = torch.from_numpy(As[1, :P]), torch.from_numpy(As[2, :P])
@@ -192,7 +192,6 @@ def test_batched_bieigsolve_refusals():
         (lambda: solve(A, {"a": Vt}, {"a": Wt}, 1, "LM", alg,
                        space=kt.VectorSpace(psum_axis=MeshAxis("vec", None, 1, 0))),
          "pytree vectors on a sharded space"),
-        (lambda: solve(A, Vt, Wt, 1, "LM", kt.BiArnoldi(krylovdim=12, eager=True)), "eager"),
         (lambda: solve(A, Vt.clone().requires_grad_(True), Wt, 1, "LM", alg), "differentiation"),
         (lambda: solve(A.clone().requires_grad_(True), Vt, Wt, 1, "LM", alg), "differentiation"),
         (lambda: solve(A, Vt, Wt, 1, "LM", alg, in_dims=(None, 0, 1)), "in_dims"),
@@ -204,6 +203,12 @@ def test_batched_bieigsolve_refusals():
     for call, match in cases:
         with pytest.raises(ValueError, match=match):
             call()
+    # an eager batch: each problem its one-problem eager solve, bit for bit
+    eager = kt.BiArnoldi(krylovdim=8, maxiter=1, eager=True)
+    vals, _, (iV, _) = solve(A, Vt[:2], Wt[:2], 1, "LM", eager)
+    for p in range(2):
+        v1, _, (i1, _) = t_bieig(as_operator(A), Vt[p], Wt[p], 1, "LM", eager)
+        assert torch.equal(vals[p], v1) and int(iV.numops[p]) == i1.numops
     # a sharded space is batched: on a one-rank axis (no collective) each
     # problem solves as on the unsharded space, bit for bit
     got = solve(A, Vt, Wt, 2, "LM", alg, space=kt.VectorSpace(psum_axis=MeshAxis("vec", None, 1, 0)))

@@ -208,8 +208,9 @@ def test_warn_lines_match_jax_vmap():
 
 def test_batched_expintegrator_refusals():
     """Each piece this slice does not batch raises ``ValueError`` with its
-    name.  A sharded
-    space is batched: on a one-rank axis, the unsharded bits."""
+    name.  A sharded space is batched: on a one-rank axis, the unsharded
+    bits; so is ``eager=True``: each problem its one-problem eager
+    integration, bit for bit."""
     top = convert.stencil_from_arrays(*NEG, "cpu")
     X = chip_smoke.batched_starts(torch, np, 16, 2, "cpu")
     alg = kt.Lanczos(krylovdim=10)
@@ -217,8 +218,6 @@ def test_batched_expintegrator_refusals():
     cases = [
         (lambda: kt.exponentiate_batched(top, 0.1, {"a": X}, alg, space=one),
          "pytree vectors on a sharded space"),
-        (lambda: kt.exponentiate_batched(top, 0.1, X, kt.Lanczos(krylovdim=10, eager=True)),
-         "eager"),
         (lambda: kt.exponentiate_batched(top, 0.1, X.clone().requires_grad_(True), alg),
          "differentiation"),
         (lambda: kt.exponentiate_batched(top, torch.tensor([0.1, 0.2], requires_grad=True), X,
@@ -235,6 +234,11 @@ def test_batched_expintegrator_refusals():
             call()
     # a sharded space is batched: on a one-rank axis (no collective) each
     # problem integrates as on the unsharded space, bit for bit
+    eager = kt.Lanczos(krylovdim=10, eager=True)
+    y, info = kt.exponentiate_batched(top, 0.1, X, eager)
+    for p in range(2):
+        y1, i1 = te._expintegrator_core(top, 0.1, (X[p],), eager, kt.STANDARD)
+        assert torch.equal(y[p], y1) and int(info.numops[p]) == i1.numops
     got = kt.exponentiate_batched(top, 0.1, X, alg, space=one)
     want = kt.exponentiate_batched(top, 0.1, X, alg)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1].numops, want[1].numops)

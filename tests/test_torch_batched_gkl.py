@@ -233,11 +233,11 @@ def test_repr_of_batched_info():
 
 def test_batched_svdsolve_refusals():
     """Each piece this slice does not batch raises ``ValueError`` with its
-    name: pytree vectors on a sharded space, ``GKL(eager=True)``, an input
-    or an operator tensor that requires grad; and the argument checks.  A
-    sharded space is batched: on a one-rank axis, the unsharded bits; so
-    are pytree vectors: a dict batch gives each problem its one-problem
-    dict solve, bit for bit."""
+    name: pytree vectors on a sharded space, an input or an operator tensor
+    that requires grad; and the argument checks.  A sharded space is
+    batched: on a one-rank axis, the unsharded bits; so are pytree vectors:
+    a dict batch gives each problem its one-problem dict solve, bit for
+    bit; so does ``GKL(eager=True)``."""
     As, X = _problems("real", seed=10)
     A = torch.from_numpy(As[0])
     Xt = torch.from_numpy(X)
@@ -245,8 +245,6 @@ def test_batched_svdsolve_refusals():
     cases = [
         (lambda: kt.svdsolve_gkl_batched(A, {"a": Xt}, 1, "LR", alg, space=kt.VectorSpace(
             psum_axis=MeshAxis("vec", None, 1, 0))), "pytree vectors on a sharded space"),
-        (lambda: kt.svdsolve_gkl_batched(A, Xt, 1, "LR", kt.GKL(krylovdim=8, eager=True)),
-         "eager"),
         (lambda: kt.svdsolve_gkl_batched(A, Xt.clone().requires_grad_(True), 1, "LR", alg),
          "differentiation"),
         (lambda: kt.svdsolve_gkl_batched(A.clone().requires_grad_(True), Xt, 1, "LR", alg),
@@ -261,6 +259,12 @@ def test_batched_svdsolve_refusals():
             call()
     # a sharded space is batched: on a one-rank axis (no collective) each
     # problem solves as on the unsharded space, bit for bit
+    eager = kt.GKL(krylovdim=8, eager=True)
+    S, U, V, info = kt.svdsolve_gkl_batched(A, Xt, 1, "LR", eager)
+    for p in range(Xt.shape[0]):
+        S1, U1, V1, i1 = t_svdsolve_gkl(as_operator(A), Xt[p], 1, "LR", eager)
+        assert torch.equal(S[p], S1) and torch.equal(U[p], U1) and torch.equal(V[p], V1)
+        assert int(info.numops[p]) == i1.numops
     got = kt.svdsolve_gkl_batched(A, Xt, 1, "LR", alg, space=kt.VectorSpace(psum_axis=MeshAxis("vec", None, 1, 0)))
     want = kt.svdsolve_gkl_batched(A, Xt, 1, "LR", alg)
     assert all(torch.equal(g, w) for g, w in zip(got[:3], want[:3]))

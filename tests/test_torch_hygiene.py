@@ -124,3 +124,14 @@ def test_port_module_exports_what_the_jax_module_does(rel):
     missing = sorted(set(want) - set(getattr(mod, "__all__", ())))
     assert not missing, f"{name} lacks {missing} of the JAX module's __all__"
     assert all(hasattr(mod, n) for n in want)
+
+
+def test_dense_is_an_attribute_of_the_package():
+    """``kt.dense`` resolves right after ``import krylovkit_tpu_torch`` in a
+    fresh interpreter, as the JAX package imports its ``dense`` by name."""
+    code = ("import krylovkit_tpu_torch as kt, sys;"
+            "sys.exit(0 if kt.dense is sys.modules['krylovkit_tpu_torch.dense']"
+            " and 'dense' in kt.__all__ else 1)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr

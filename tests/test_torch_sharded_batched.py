@@ -378,21 +378,24 @@ def _sharded_call(driver, A, X, space, eager=False):
 def test_drivers_on_a_sharded_space_refuse_what_they_do_not_batch(driver):
     """The GKL, LSMR, Golub-Ye, BiArnoldi and Block Lanczos batched drivers
     take a sharded space and still refuse, each naming itself, a pytree
-    start, a start that requires grad and (GKL, BiArnoldi) ``eager=True``;
-    on a one-rank axis a sharded solve is the unsharded one, bit for bit."""
+    start and a start that requires grad; on a one-rank axis a sharded
+    solve is the unsharded one, bit for bit, and (GKL, BiArnoldi) so is an
+    ``eager=True`` solve."""
     space = VectorSpace(psum_axis=MeshAxis("vec", None, 1, 0))
     A = torch.diag(torch.linspace(1.0, 2.0, 8, dtype=torch.float64))
     X = torch.ones((2, 8), dtype=torch.float64)
     cases = [({"a": X}, {}, "pytree vectors"), (X.clone().requires_grad_(True), {},
                                                  "differentiation")]
-    if driver in ("svdsolve_gkl_batched", "bieigsolve_batched"):
-        cases.append((X, {"eager": True}, "eager=True"))
     for X0, kw, why in cases:
         with pytest.raises(ValueError, match=f"{driver}.*{why}"):
             _sharded_call(driver, A, X0, space, **kw)
     got = _sharded_call(driver, A, X, space)
     want = _sharded_call(driver, A, X, VectorSpace())
     assert torch.equal(got[0], want[0])
+    if driver in ("svdsolve_gkl_batched", "bieigsolve_batched"):
+        got = _sharded_call(driver, A, X, space, eager=True)
+        want = _sharded_call(driver, A, X, VectorSpace(), eager=True)
+        assert torch.equal(got[0], want[0])
 
 
 _UNFIT_BLOCKS = {
