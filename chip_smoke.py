@@ -135,7 +135,9 @@ without the final ``ok`` line:
    halos) and batched K5/K6 on every card rank, no one-problem launch;
    and the batched GKL ``svdsolve``, LSMR, Golub-Ye, BiArnoldi and Block
    Lanczos (``SMALL_SHARDED_BATCHED_SOLVES``, float64, two problems,
-   capped by ``SMALL_SHARDED_BATCHED_CAPS``), each problem bit-identical to
+   capped by ``SMALL_SHARDED_BATCHED_CAPS``), the eager and selective
+   batches and the tree batches (CG, GMRES, Lanczos on ``(p, q)`` tuples,
+   ``SHARDED_BATCHED_TREE``, capped alike), each problem bit-identical to
    its one-problem sharded solve on the card ranks too;
 23. nccl_mesh1 — one rank over NCCL, ``make_mesh(1)``: the halo plan is
    communication-free and the sharded ELL apply equals ``sparse.from_coo``'s
@@ -160,6 +162,13 @@ without the final ``ok`` line:
    phase main's; its all-reduces beside four one-problem solves'), then the
    batched K1 with halos at a rank's width (P = 4, B = 4, 16, 29) against
    its plain version and one-problem launches with halos, ms and bound;
+   then phase 36's config-1 tree batch on the same ranks (2 starts, each
+   rank's block a tuple of two row leaves, maxiter
+   :data:`SHARDED_TREE_ITERS` = 2, cut from phase 36's 8 for the phase's
+   time) against each problem's one-problem sharded tree solve: the same
+   bits and counts, the space's all-reduces kind by kind one problem's (and
+   a norm a start), the tree map's halo rounds the problems' sum, batched
+   K2 only;
 26. small_front_ends — the front-ends of ``front_end_cases`` on a sharded
    space (MINRES, BiCGStab, ``exponentiate`` unfused and fused,
    ``expintegrator``, ``geneigsolve``, ``bieigsolve``, Block Lanczos,
@@ -327,7 +336,26 @@ without the final ``ok`` line:
    predicted, no one-problem kernel and no K1; then small float64 eager and
    selective batches card against CPU (phase 22's rank group also runs the
    sharded eager and selective scenarios, ``SHARDED_BATCHED_EAGER``);
-38. profile (only with ``--profile``) — one more config-1 solve and one
+38. batched_ad — gradients through batched solves (``ad/batched.py``) at
+   config 2's width (n = 2^20, float32 ``(8192, 128)``): the wells of
+   phase 17 with their depths scaled by 1, 1.1, 1.2, 1.3, a banded
+   operator a problem with ``g_p`` on its main plane (batched K3 with a
+   plane set per problem in the forward), through
+   ``eigsolve_lanczos_batched`` (4 "SR") and the gradient of the sum of
+   the values by the GMRES rule (the 16 bordered systems in one batched
+   GMRES, one-problem K3 a backward apply) and by the Sylvester rule (4
+   eigensolves on ``(w, x)`` tuples in one batched Arnoldi): per problem
+   phase 17's guards and within 1e-4 of its one-problem ``eigsolve``
+   gradient; phase 18's system for 4 right-hand sides through
+   ``linsolve_cg_batched`` (``b_p.grad`` and the shared ``g.grad`` against
+   independent solves; one batched K3 a lock-step forward and backward);
+   small float64 batches (the GMRES, MINRES and BiCGStab rules, the
+   general Sylvester rule, both GKL rules) card against CPU within 1e-8,
+   counts equal.  Phase 25 also runs phase 36's config-1 tree batch on the
+   two ranks (``SHARDED_TREE_ITERS``) against each problem's one-problem
+   sharded tree solve, and phase 22 the small sharded tree batches
+   (``SHARDED_BATCHED_TREE``);
+39. profile (only with ``--profile``) — one more config-1 solve and one
    more fused config-4 solve under ``torch.profiler``: device busy time and idle share, device ops, host
    reads of device scalars, device time by kernel name.
 
@@ -345,7 +373,7 @@ printed as ``parent_ms`` beside ``ms`` (without it ``parent_ms`` is null).
 ``--root`` (default: this tree) and prints one JSON line.
 
 Each path (phases 5, 7, 9, 12, 13, 14, 15, 17, 18, 20, 21, 24, 25, 27,
-28, 29, 30, 31, 32, 33, 34, 35, 36 and 37, one solve or iterator at a time, the forward and the backward of
+28, 29, 30, 31, 32, 33, 34, 35, 36, 37 and 38, one solve or iterator at a time, the forward and the backward of
 a differentiable solve apart; in 24, 25, 27 and 29 in every rank) is
 driven with the launch counts set to 0 just before it and read just after.
 Then the kernel summary line, the ``nvidia-smi`` name/power line, and as
@@ -2880,8 +2908,17 @@ SMALL_SHARDED_BATCHED = ("lanczos_fused", "schursolve_fused", "exponentiate_fuse
 # reorth="selective"; no kernel (float64, or float32 unfused)
 SHARDED_BATCHED_EAGER = ("lanczos_selective", "lanczos_eager", "schursolve_eager", "gkl_eager",
                          "biarnoldi_eager", "exponentiate_eager")
+# and (phase batched_ad) pytree vectors on a sharded space: a (p, q) tuple a
+# problem, the coupled map (p, q) -> (L p + q/2, L q + p/2) of
+# sharded_laplacian_1d(n), whose applies make their own collectives one
+# problem at a time (float64, no kernel)
+SHARDED_BATCHED_TREE = ("tree_cg", "tree_gmres", "tree_lanczos")
+SHARDED_BATCHED_TREE_N = 256
+SHARDED_BATCHED_TREE_ALGS = {"tree_cg": {"tol": 1e-10, "maxiter": 400},
+                             "tree_gmres": {"krylovdim": 16, "maxiter": 50, "tol": 1e-9},
+                             "tree_lanczos": {"krylovdim": 20, "maxiter": 4, "tol": 1e-10}}
 SMALL_SHARDED_BATCHED_SOLVES = ("gkl", "lsmr", "golubye", "biarnoldi",
-                                "blocklanczos") + SHARDED_BATCHED_EAGER
+                                "blocklanczos") + SHARDED_BATCHED_EAGER + SHARDED_BATCHED_TREE
 SMALL_SHARDED_BATCHED_P = 2
 SMALL_SHARDED_BATCHED_CAPS = {"gkl": {"maxiter": 1}, "lsmr": {"maxiter": 10},
                               "golubye": {"maxiter": 2}, "biarnoldi": {"maxiter": 1},
@@ -2891,7 +2928,9 @@ SMALL_SHARDED_BATCHED_CAPS = {"gkl": {"maxiter": 1}, "lsmr": {"maxiter": 10},
                               "schursolve_eager": {"maxiter": 1, "krylovdim": 4},
                               "gkl_eager": {"maxiter": 1, "krylovdim": 6},
                               "biarnoldi_eager": {"maxiter": 1, "krylovdim": 4},
-                              "exponentiate_eager": {"krylovdim": 6}}
+                              "exponentiate_eager": {"krylovdim": 6},
+                              "tree_cg": {"maxiter": 12}, "tree_gmres": {"maxiter": 1},
+                              "tree_lanczos": {"maxiter": 1, "krylovdim": 8}}
 
 
 def small_sharded_batched(np, card, cpu, world=2, seconds=None):
@@ -3139,6 +3178,7 @@ def front_end_cases(torch, np, kt, dev="cpu", names=None):
 # ---------------------------------------------------------------------------
 
 SHARDED_BATCHED_P = 4  # problems of every scenario, split over the batch axis
+SHARDED_TREE_ITERS = 2  # phase 25's config-1 tree batch: maxiter, for the phase's time
 SHARDED_BATCHED_N32 = 1 << 13  # float32 chains: (64, 128) vectors, 32 rows a rank
 SHARDED_BATCHED_ARNOLDI_N = 1 << 11  # the flag's K5 takes (8, 128) blocks a rank
 SHARDED_BATCHED_GRID = (32, 256)  # fused GMRES: 64 layout rows, whole grid rows a rank
@@ -3187,6 +3227,9 @@ def sharded_batched_problem(np, name):
     if name in ("gmres", "cg"):
         n = 64 if name == "gmres" else 256
         return {"n": n, "X": rng.standard_normal((P, n))}
+    if name in SHARDED_BATCHED_TREE:
+        n = SHARDED_BATCHED_TREE_N
+        return {"n": n, "X": rng.standard_normal((P, n)), "Y": rng.standard_normal((P, n))}
     if name == "arnoldi_flag":
         n = SHARDED_BATCHED_ARNOLDI_N
         i = np.arange(n)
@@ -3564,6 +3607,35 @@ def sharded_batched_cases(torch, np, kt, dev="cpu", names=None, one_problem=True
                           lambda r: ((r[0],), r[1]))
         return {"y": full(y, 1), **rec}
 
+    def tree(name):
+        # a (p, q) tuple a problem through the coupled tree map
+        from krylovkit_tpu_torch.ops.vector import tree_rows
+        from krylovkit_tpu_torch.solvers import cg, gmres as gm
+
+        prob = problem(name)
+        lap = Pm.sharded_laplacian_1d(prob["n"], mesh)
+        op = kt.as_operator(lambda v: (lap.normal(v[0]) + 0.5 * v[1],
+                                       lap.normal(v[1]) + 0.5 * v[0]))
+        X = (sv(prob["X"]), sv(prob["Y"]))
+        kw = {**SHARDED_BATCHED_TREE_ALGS[name],
+              **(SMALL_SHARDED_BATCHED_CAPS[name] if small else {})}
+        if name == "tree_lanczos":
+            alg = kt.Lanczos(**kw)
+            (vals, vecs, _), rec = run(
+                lambda: kt.eigsolve_lanczos_batched(op, X, 2, "SR", alg, space),
+                lambda x: kt.eigsolve_lanczos(op, x, 2, "SR", alg, space=space), tree_rows(X),
+                lambda r: ((r[0], *r[1]), r[2]))
+            return {"vals": full(vals), **rec}
+        batched, one, alg = ((kt.linsolve_cg_batched, cg.linsolve_cg, kt.CG(**kw))
+                             if name == "tree_cg" else
+                             (kt.linsolve_gmres_batched, gm.linsolve_gmres, kt.GMRES(**kw)))
+        Z = (torch.zeros_like(X[0]), torch.zeros_like(X[1]))
+        (x, _), rec = run(lambda: batched(op, X, Z, 1.0, 1.0, alg, space),
+                          lambda b: one(op, b, (torch.zeros_like(b[0]), torch.zeros_like(b[1])),
+                                        1.0, 1.0, alg, space), tree_rows(X),
+                          lambda r: (tuple(r[0]), r[1]))
+        return {"X": full(x[0], 1), "Y": full(x[1], 1), **rec}
+
     def stack_apply():
         # each sharded operator's stack apply against its one-vector apply,
         # row by row and bit for bit, and its collectives: one for all rows
@@ -3603,6 +3675,7 @@ def sharded_batched_cases(torch, np, kt, dev="cpu", names=None, one_problem=True
         "golubye": lambda: pencil("golubye"), "biarnoldi": lambda: pencil("biarnoldi"),
         "blocklanczos": lambda: pencil("blocklanczos"),
         **{name: (lambda name=name: eager_selective(name)) for name in SHARDED_BATCHED_EAGER},
+        **{name: (lambda name=name: tree(name)) for name in SHARDED_BATCHED_TREE},
     }
     out = {}
     for name, fn in scenarios.items():
@@ -4030,15 +4103,19 @@ def rank_solve(torch, ax, solve, warm=True):
                  "collective_ms_by_rank": [r[1] for r in per_rank]}
 
 
-def sharded_fused_rank(torch, np, kt, dev="cuda", n1=1 << 21, nx=1024, batched_p=4):
+def sharded_fused_rank(torch, np, kt, dev="cuda", n1=1 << 21, nx=1024, batched_p=4, tree_p=2,
+                       tree_maxiter=SHARDED_TREE_ITERS):
     """Phase ``sharded_fused`` on this rank: config 1 (the main path's
     Lanczos eigsolve) on ``shard_local_stencil(laplacian_1d(n1))``, the same
     for ``batched_p`` starts through ``eigsolve_lanczos_batched`` (batched K1
-    with every problem's halos), and config 2's ``gmres30_poisson_2d`` on the
-    sharded grid stencil, float32 ``(R/D, 128)`` blocks of
-    ``VectorSpace(psum_axis=...)``: K1 per rank with the neighbours' edge rows
-    as external halos."""
-    from krylovkit_tpu_torch.ops.vector import VectorSpace
+    with every problem's halos), phase 36's config-1 tree batch (``tree_p``
+    starts, each block cut into two row leaves of a tuple, the tree map
+    applying the sharded stencil one problem at a time; ``tree_maxiter``)
+    beside each problem's one-problem sharded tree solve, and config 2's
+    ``gmres30_poisson_2d`` on the sharded grid stencil, float32 ``(R/D,
+    128)`` blocks of ``VectorSpace(psum_axis=...)``: K1 per rank with the
+    neighbours' edge rows as external halos."""
+    from krylovkit_tpu_torch.ops.vector import VectorSpace, tree_leaves, tree_row
 
     P = kt.parallel
     mesh = P.make_mesh(device=dev)
@@ -4067,6 +4144,29 @@ def sharded_fused_rank(torch, np, kt, dev="cuda", n1=1 << 21, nx=1024, batched_p
         "comm_per_step": f"1 all-reduce of (raw | 2 x 2 x h x 128) floats for each of the "
                          f"{batched_p} problems", **brec}
     del X, bvecs
+    # the tree batch: the space's reductions shared, the map's halo rounds a
+    # problem's (collectives by kind beside each one-problem solve's)
+    Rl = x0.shape[0]
+    cut = _tree_of(torch, "tuple", Rl // 2)
+    top = _tree_map_of(torch, kt, op.normal, cut, cut, torch.float32)
+    Xs = P.shard_vector(batched_starts(torch, np, n1 // 128, tree_p, "cpu"), mesh, batched=True)
+    Xt = (Xs[:, :Rl // 2], Xs[:, Rl // 2:])
+    talg = kt.Lanczos(krylovdim=KRYLOVDIM, maxiter=tree_maxiter, tol=1e-30, verbosity=kt.SILENT)
+    (tvals, tvecs, tinfo), trec = rank_solve(
+        torch, ax, lambda: kt.eigsolve_lanczos_batched(top, Xt, 4, "LM", talg, space), warm=False)
+    ones, bits = [], []
+    for p in range(tree_p):
+        (v1, w1, i1), rec1 = rank_solve(torch, ax, lambda p=p: kt.eigsolve_lanczos(
+            top, tree_row(Xt, p), 4, "LM", talg, space=space), warm=False)
+        ones.append({"counts": [i1.numops, i1.numiter, i1.converged], **rec1})
+        bits.append(bool(torch.equal(tvals[p], v1)) and all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(tree_row(tvecs, p)), tree_leaves(w1))))
+    out["config1_tree_batched"] = {
+        "vals": tvals.cpu().numpy(), "numops": tinfo.numops.tolist(),
+        "numiter": tinfo.numiter.tolist(), "converged": tinfo.converged.tolist(),
+        "leaves": [list(l.shape) for l in tvecs], "one_problem": ones,
+        "bit_identical": bits, **trec}
+    del Xs, Xt, tvecs
     grid = P.shard_local_stencil(kt.poisson_2d(nx, nx, device=dev), ax)
     b = P.shard_vector(torch.ones((nx * nx // 128, 128), dtype=torch.float32), mesh)
     alg2 = kt.GMRES(krylovdim=30, tol=1e-4, maxiter=14, verbosity=kt.SILENT)
@@ -4275,6 +4375,7 @@ def distribution_phases(torch, np, kt, _build, fl, pb, smi, config1_vals, config
     require(err <= 1e-4, f"sharded config 1: values within 1e-4 of phase main's ({err})")
     require(abs(rec["vec0_norm"] - 1) < 1e-3, "sharded config 1: unit eigenvector")
     batched1 = sharded_batched_config1(torch, np, kt, fl, sf, rec, config1_vals, card, smi)
+    tree1 = sharded_tree_config1(np, sf, card, smi)
     grid, b2, x2 = config2
     res1 = float(torch.linalg.vector_norm(b2 - grid.normal(x2)))
     rec2 = _agree_on_counts(sf, "gmres30_poisson_2d")
@@ -4289,7 +4390,68 @@ def distribution_phases(torch, np, kt, _build, fl, pb, smi, config1_vals, config
     emit({"phase": "sharded_fused", "seconds": time.perf_counter() - t0})
     return {"small": small, "config5": c5_launches,
             "fused_config1": rec["launches_per_rank"], "fused_gmres": rec2["launches_per_rank"],
-            "batched_config1": batched1}
+            "batched_config1": batched1, "tree_config1": tree1}
+
+
+def sharded_tree_config1(np, sf, card, smi, dev="cuda"):
+    """Phase 25's tree batch (``sharded_fused_rank``'s
+    ``config1_tree_batched``): config 1 for 2 starts, each rank's block a
+    tuple of two row leaves, through ``eigsolve_lanczos_batched`` on two
+    gloo ranks of ``vec 2``.  Guards: every rank the same values; each
+    problem bit-identical to its one-problem sharded tree solve on the same
+    ranks, with its counts; the space's all-reduces, kind by kind, those of
+    one problem's solve (they do not grow with ``P``; but each start's
+    norm, one a problem before the lock-steps), the tree map's own
+    (``apply``: its halo rounds) the sum of the problems'; batched K2 only
+    (``transform_partial_batched`` as many as one problem's
+    ``transform_partial``, one a leaf a rotation), no one-problem K2 and
+    no K1 (on the card; ``dev="cpu"`` rehearses the rest).  Returns the
+    launches per rank."""
+    t0 = time.perf_counter()
+    recs = [r["config1_tree_batched"] for r in sf]
+    rec = recs[0]
+    P = len(rec["numops"])
+    require(all(np.array_equal(r["vals"], rec["vals"]) for r in recs),
+            "sharded tree config 1: every rank the same values")
+    ones = rec["one_problem"]
+    counts = [list(c) for c in zip(rec["numops"], rec["numiter"], rec["converged"])]
+    kinds, kinds1 = rec["collectives_by_kind"], [o["collectives_by_kind"] for o in ones]
+    space = {k: v for k, v in kinds.items() if k != "apply"}
+    launches, launches1 = rec["launches_per_rank"], [o["launches_per_rank"] for o in ones]
+    emit({"phase": "sharded_tree_config1", "ranks": 2, "P": P, "leaves": rec["leaves"],
+          "vals": rec["vals"].tolist(), "counts": counts,
+          "one_problem_counts": [o["counts"] for o in ones],
+          "bit_identical": [all(r["bit_identical"][p] for r in recs) for p in range(P)],
+          "collectives_by_kind": kinds, "one_problem_collectives_by_kind": kinds1,
+          "collectives_per_solve": rec["collectives_per_solve"],
+          "one_problem_collectives": [o["collectives_per_solve"] for o in ones],
+          "launches_per_rank": launches, "one_problem_launches_per_rank": launches1,
+          "ms_by_rank": rec["ms_per_solve_by_rank"],
+          "one_problem_ms_by_rank": [o["ms_per_solve_by_rank"] for o in ones],
+          "collective_ms_by_rank": rec["collective_ms_by_rank"], "device": card,
+          "nvidia_smi": smi, "seconds": time.perf_counter() - t0})
+    require(all(all(r["bit_identical"]) for r in recs),
+            "sharded tree config 1: each problem bit-identical to its one-problem sharded "
+            "tree solve on every rank")
+    require(counts == [o["counts"] for o in ones],
+            f"sharded tree config 1: the one-problem counts ({counts})")
+    # each start's norm is one all-reduce a problem (kf.initialize), before
+    # the lock-steps
+    starts = {"inner_norm": P - 1}
+    require(all({k: v + starts.get(k, 0) for k, v in k1.items() if k != "apply"} == space
+                for k1 in kinds1),
+            f"sharded tree config 1: the space's all-reduces, kind by kind, one problem's "
+            f"(and a norm a start) ({kinds} vs {kinds1})")
+    require(kinds.get("apply", 0) == sum(k1.get("apply", 0) for k1 in kinds1) > 0,
+            f"sharded tree config 1: the tree map's halo rounds a problem's ({kinds} vs "
+            f"{kinds1})")
+    k2 = launches1[0].get("transform_partial", 0)
+    require(dev == "cpu" or all(l1 == launches1[0] for l1 in launches1)
+            and launches == {"transform_partial_batched": k2} and k2 > 0,
+            f"sharded tree config 1: batched K2 only, as many as one problem's K2 "
+            f"({launches} vs {launches1})")
+    return {"launches_sharded_tree_config1_per_rank": launches.get("transform_partial_batched",
+                                                                    0)}
 
 
 def sharded_batched_config1(torch, np, kt, fl, sf, rec1, config1_vals, card, smi, P=4):
@@ -7857,6 +8019,309 @@ def batched_eager_selective_phase(torch, np, kt, _build, bs, smi, impurity=None,
           "phase_seconds": time.perf_counter() - t0})
     return out
 
+# ---------------------------------------------------------------------------
+# gradients through batched solves (twenty-second slice)
+# ---------------------------------------------------------------------------
+
+BATCHED_AD_SCALES = (1.0, 1.1, 1.2, 1.3)  # phase 38's well depths, a problem each
+BATCHED_AD_TOL_ONE = 1e-4  # float32: a batched gradient against its one-problem one
+
+
+def banded_with_main(torch, kt, base, g):
+    """``base`` (a kernel-backed ``BandedOperator`` with its adjoint) plus
+    ``diag(g)``: the main plane of the operator and of its adjoint carry
+    ``g`` (``(R, 128)``), so the planes require grad where ``g`` does."""
+    def planes(op):
+        main = op.offsets.index(0)
+        return torch.stack([op.diags[i] + g if i == main else op.diags[i]
+                            for i in range(len(op.offsets))])
+
+    adj = kt.BandedOperator(base.adj.offsets, planes(base.adj), base.n, nnz=base.adj.nnz)
+    return kt.BandedOperator(base.offsets, planes(base), base.n, adj=adj, nnz=base.nnz)
+
+
+def small_batched_ad_routes(np, kt, torch, n=12, P=2):
+    """``{label: run}`` of phase 38's small float64 batches: ``run(dev)``
+    differentiates one batched solve of ``P`` problems built from numpy
+    seeds on ``dev`` and returns ``(gradients, infos)``: the GMRES, MINRES
+    and BiCGStab rules of ``linsolve`` (``P`` matrices, a shared one, a
+    shared matrix with a tuple ``b``), the general Sylvester rule of the
+    Arnoldi eigsolve and both GKL rules of ``svdsolve``."""
+    routes = {}
+
+    def on(dev, a, grad=False):
+        t = torch.as_tensor(np.asarray(a), device=dev)
+        return t.requires_grad_(True) if grad else t
+
+    def linear(driver, alg, shared, tree, seed):
+        def run(dev):
+            rng = np.random.default_rng(seed)
+            As = np.stack([(lambda B: B @ B.T / n + np.eye(n))(rng.standard_normal((n, n)))
+                           for _ in range(P)])
+            B, C = rng.standard_normal((P, n)), rng.standard_normal((P, n))
+            S, Bt = on(dev, As[0] if shared else As, True), on(dev, B, True)
+            a0, a1 = on(dev, np.float64(0.4), True), on(dev, np.float64(1.3), True)
+            if tree:
+                op = kt.ParametricOperator(lambda m, v: (m @ v[0], m @ v[1]), S)
+                b = (Bt, 0.5 * Bt)
+            else:
+                op = S if shared else [kt.MatrixOperator(S[p]) for p in range(P)]
+                b = Bt
+            x0 = tuple(torch.zeros_like(l) for l in b) if tree else torch.zeros_like(Bt)
+            X, info = driver(op, b, x0, a0, a1, alg, in_dims=(None if shared else 0, 0, 0))
+            Xs = X[0] + X[1] if tree else X
+            torch.sum(Xs * on(dev, C)).backward()
+            return [S.grad, Bt.grad, a0.grad, a1.grad], [info]
+
+        return run
+
+    quiet = {"verbosity": kt.SILENT}
+    routes["linsolve GMRES rule, P matrices"] = linear(
+        kt.linsolve_gmres_batched, kt.GMRES(tol=1e-12, krylovdim=n, **quiet), False, False, 90)
+    routes["linsolve MINRES rule, shared matrix"] = linear(
+        kt.linsolve_minres_batched, kt.MINRES(tol=1e-12, maxiter=100, **quiet), True, False, 91)
+    routes["linsolve BiCGStab rule, shared matrix, tuple b"] = linear(
+        kt.linsolve_bicgstab_batched, kt.BiCGStab(tol=1e-12, maxiter=100, **quiet), True,
+        True, 92)
+
+    def spectral(kind, rr, seed):
+        def run(dev):
+            rng = np.random.default_rng(seed)
+            if kind == "arnoldi":
+                As = np.stack([rng.standard_normal((n, n)) / 4 + np.diag(np.linspace(1, 2, n))
+                               for _ in range(P)])
+                X0 = rng.standard_normal((P, n))
+            else:
+                As = np.stack([rng.standard_normal((2 * n, n)) for _ in range(P)])
+                X0 = rng.standard_normal((P, 2 * n))
+            S = on(dev, As, True)
+            ops = [kt.MatrixOperator(S[p]) for p in range(P)]
+            if kind == "arnoldi":
+                vals, vecs, info = kt.eigsolve_arnoldi_batched(
+                    ops, on(dev, X0), 1, "LR", kt.Arnoldi(tol=1e-12, krylovdim=n, **quiet),
+                    in_dims=(0, 0), alg_rrule=rr)
+                loss = (torch.real(vals[:, 0]) + 0.7 * torch.imag(vals[:, 0])
+                        + torch.abs(vecs[:, 0, 0]) ** 2).sum()
+            else:
+                s, U, V, info = kt.svdsolve_gkl_batched(
+                    ops, on(dev, X0), 2, "LR", kt.GKL(tol=1e-12, krylovdim=n, maxiter=100,
+                                                      **quiet), in_dims=(0, 0), alg_rrule=rr)
+                loss = s.sum() + (U[:, 0, 0] * V[:, 0, 1]).sum()
+            loss.backward()
+            return [S.grad], [info]
+
+        return run
+
+    routes["eigsolve Arnoldi, general Sylvester rule"] = spectral(
+        "arnoldi", kt.Arnoldi(tol=1e-12, krylovdim=30, maxiter=100, **quiet), 93)
+    routes["svdsolve GKL, GMRES rule"] = spectral("gkl", None, 94)
+    routes["svdsolve GKL, Sylvester rule"] = spectral(
+        "gkl", kt.Arnoldi(tol=1e-12, krylovdim=40, maxiter=200, **quiet), 95)
+    return routes
+
+
+def _batch_counts(info):
+    return [info.numops.tolist(), info.numiter.tolist(), info.converged.tolist()]
+
+
+def batched_ad_phase(torch, np, kt, _build, smi=None, N=1024, P=4, dev="cuda", small=True):
+    """Phase ``batched_ad``: gradients through batched solves
+    (``ad/batched.py``) at config 2's width, ``N × N`` grid, float32 ``(N²/128,
+    128)`` vectors; each forward and each backward driven with the launch
+    counts set to 0 just before it and read just after.
+
+    (a) the wells of phase ``ad_impurity`` (:func:`_impurity_op`), their
+    depths scaled by :data:`BATCHED_AD_SCALES` a problem: ``P`` banded
+    operators, config 2's Poisson planes with ``g_p`` on the main plane
+    (:func:`banded_with_main`), so the forward's lock-steps are batched K3
+    launches with a plane set per problem; ``eigsolve_lanczos_batched``
+    (krylovdim 30, maxiter 10, tol 1e-5, 4 "SR", the shared start of phase
+    ``ad_impurity``) and the gradient of the sum over the problems of the
+    four lowest values through the GMRES rule (the ``P × 4`` bordered
+    systems in one ``linsolve_gmres_batched``, each a per-problem callable
+    whose adjoint apply is a one-problem K3 launch).  Guards per problem,
+    phase ``ad_impurity``'s: four converged values ascending, distinct,
+    below 0; ``g_p.grad`` within 1e-3 of Hellmann–Feynman ``Σᵢ v_{p,i}²``,
+    its sum within 1e-3 of 4; and within :data:`BATCHED_AD_TOL_ONE` of its
+    one-problem ``eigsolve`` gradient (the bits reported).  Launches: the
+    forward batched K3 and K2 only, the backward one-problem K3 as many as
+    its inner solves' applies.
+    (b) the same batch through the Sylvester rule (an ``Arnoldi``
+    ``alg_rrule``: ``P`` eigensolves on ``(w, x)`` tuples in one
+    ``eigsolve_arnoldi_batched``), under the same guards.
+    (c) phase ``ad_potential``'s system ``(0.5 + P + diag g) x_p = b_p`` for
+    ``P`` right-hand sides ``default_rng(7 + p)`` and the shared ``g``
+    through ``linsolve_cg_batched`` (tol 5e-5·‖b₀‖) and the gradient of
+    ``Σ_p ⟨c_p, x_p⟩`` (``c_p`` from ``default_rng(20 + p)``): ``b_p.grad``
+    within 1e-3 of ``w_p``, an independent one-problem solve for ``c_p``,
+    the shared ``g.grad`` within 1e-3 of ``−Σ_p w_p ⊙ x_p``; the adjoint
+    solves one batched K3 launch a lock-step on the adjoint planes.
+    (d) the small float64 batches of :func:`small_batched_ad_routes` on the
+    card against the CPU: gradients within :data:`AD_TOL`, counts equal.
+    Prints per part the forward's and the backward's launches, ms, and the
+    sum of the ``P`` one-problem gradients' ms.  ``dev="cpu"`` with a small
+    ``N`` rehearses (a)–(c) (no launch guard); ``small`` runs (d)."""
+    from krylovkit_tpu_torch.solvers import batched as sb
+    from krylovkit_tpu_torch.solvers import batched_arnoldi as sba
+    from krylovkit_tpu_torch.solvers import batched_linsolve as sbl
+
+    t0 = time.perf_counter()
+    card = dev != "cpu"
+    n = N * N
+    R = n // 128
+    base = kt.banded_from_coo(*poisson_coo(np, N, np.float32), n, device=dev)
+    wells = np.zeros(n, np.float32)
+    for site, depth in impurity_wells(N):
+        wells[site] = depth
+    wells = wells.reshape(R, 128)
+    x0 = torch.as_tensor(np.random.default_rng(6).standard_normal((R, 128)).astype(np.float32),
+                         device=dev)
+    scales = BATCHED_AD_SCALES[:P]
+    alg = kt.Lanczos(krylovdim=30, maxiter=10, tol=1e-5)
+    out = {"launches": {}}
+    one_problem = {"banded_spmv", "transform_partial"}
+
+    def wells_batch(rr):
+        gs = [torch.as_tensor(wells * sc, device=dev).requires_grad_(True) for sc in scales]
+        ops = [banded_with_main(torch, kt, base, g) for g in gs]
+        (vals, vecs, info), fwd_ms, fwd_l = _sync_ms(
+            torch, _build, lambda: kt.eigsolve_lanczos_batched(
+                ops, x0, 4, "SR", alg, in_dims=(0, None), alg_rrule=rr), dev)
+        # the infos of the rule's batched inner solves
+        records, restore = (counting_calls(sba, "eigsolve_arnoldi_batched", lambda r: r[-1])
+                            if rr is not None else
+                            counting_calls(sb, "linsolve_gmres_batched", lambda r: r[-1]))
+        try:
+            _, bwd_ms, bwd_l = _sync_ms(torch, _build, lambda: vals.sum().backward(), dev)
+        finally:
+            restore()
+        inner = records[-1]
+        one_ms, bits, rel = [], [], []
+        for p, g in enumerate(gs):
+            g1 = g.detach().clone().requires_grad_(True)
+            op1 = banded_with_main(torch, kt, base, g1)
+
+            def one():
+                v1, _, _ = kt.eigsolve(op1, x0, 4, "SR", ishermitian=True, krylovdim=30,
+                                       maxiter=10, tol=1e-5, alg_rrule=rr)
+                v1.sum().backward()
+                return v1
+
+            v1, ms1, _ = _sync_ms(torch, _build, one, dev)
+            one_ms.append(ms1)
+            bits.append(bool(torch.equal(g.grad, g1.grad)) and bool(torch.equal(vals[p], v1)))
+            rel.append(float((g.grad - g1.grad).abs().max() / g1.grad.abs().max()))
+        vh = vals.detach().cpu().double()
+        hf = [(vecs[p].detach().double() ** 2).sum(0) for p in range(P)]
+        hf_err = [float((g.grad.double() - h).abs().max() / h.abs().max())
+                  for g, h in zip(gs, hf)]
+        sums = [float(g.grad.double().sum()) for g in gs]
+        k3_back = int(inner.numops.sum())
+        rec = {"phase": "batched_ad", "part": "wells_gmres" if rr is None else "wells_sylvester",
+               "n": n, "P": P, "scales": list(scales), "vals": vh.tolist(),
+               "counts": _batch_counts(info), "inner_counts": _batch_counts(inner),
+               "forward_ms": fwd_ms, "backward_ms": bwd_ms,
+               "one_problem_forward_backward_ms": one_ms,
+               "sum_one_problem_ms": sum(one_ms), "launches_forward": fwd_l,
+               "launches_backward": bwd_l, "predicted_backward_banded_spmv": k3_back,
+               "hellmann_feynman_rel_err": hf_err, "grad_sums": sums,
+               "one_problem_rel_diff": rel, "one_problem_bit_identical": bits,
+               "tolerance_one_problem": BATCHED_AD_TOL_ONE, "nvidia_smi": smi}
+        emit(rec)
+        tag = f"batched_ad {rec['part']}"
+        for p in range(P):
+            require(int(info.converged[p]) >= 4, f"{tag}: problem {p} 4 values converged")
+            require(bool((vh[p, 1:] > vh[p, :-1]).all()) and float(vh[p, -1]) < 0,
+                    f"{tag}: problem {p} values ascending, distinct, below 0 ({vh[p].tolist()})")
+            require(hf_err[p] <= 1e-3, f"{tag}: problem {p} g.grad within 1e-3 of sum v_i^2 "
+                    f"({hf_err[p]})")
+            require(abs(sums[p] - 4) <= 1e-3, f"{tag}: problem {p} g.grad sums to 4 ({sums[p]})")
+            require(rel[p] <= BATCHED_AD_TOL_ONE, f"{tag}: problem {p} within "
+                    f"{BATCHED_AD_TOL_ONE} of its one-problem gradient ({rel[p]})")
+        for launches in (fwd_l, bwd_l):
+            require(not {"fused_step", "project", "unproject", "fused_step_batched",
+                         "project_batched", "unproject_batched"} & set(launches),
+                    f"{tag}: no K1, K5 or K6 launch ({launches})")
+        if card:
+            require(fwd_l.get("banded_spmv_batched", 0) > 0
+                    and fwd_l.get("transform_partial_batched", 0) > 0
+                    and not one_problem & set(fwd_l),
+                    f"{tag}: the forward batched K3 and K2 only ({fwd_l})")
+            require(bwd_l.get("banded_spmv", 0) == k3_back,
+                    f"{tag}: one one-problem K3 a backward apply ({bwd_l}, {k3_back})")
+        out["launches"][rec["part"]] = {"forward": fwd_l, "backward": bwd_l}
+
+    # (a) the GMRES rule, (b) the Sylvester rule
+    wells_batch(None)
+    wells_batch(kt.Arnoldi(tol=1e-5, krylovdim=30, maxiter=10))
+
+    # (c) the CG rule: P right-hand sides, the shared potential
+    g = torch.as_tensor(0.5 * np.random.default_rng(7).uniform(size=(R, 128)).astype(np.float32),
+                        device=dev).requires_grad_(True)
+    B = torch.as_tensor(np.stack([np.random.default_rng(7 + p).standard_normal((R, 128))
+                                  for p in range(P)]).astype(np.float32),
+                        device=dev).requires_grad_(True)
+    C = torch.as_tensor(np.stack([np.random.default_rng(20 + p).standard_normal((R, 128))
+                                  for p in range(P)]).astype(np.float32), device=dev)
+    tol = 5e-5 * float(torch.linalg.vector_norm(B[0].detach()))
+    cg = kt.CG(maxiter=400, tol=tol)
+    op = banded_with_main(torch, kt, base, g)
+    (X, info), fwd_ms, fwd_l = _sync_ms(
+        torch, _build, lambda: kt.linsolve_cg_batched(op, B, torch.zeros_like(B), 0.5, 1.0, cg),
+        dev)
+    records, restore = counting_calls(sbl, "linsolve_cg_batched", lambda r: r[-1])
+    try:
+        _, bwd_ms, bwd_l = _sync_ms(torch, _build, lambda: torch.sum(C * X).backward(), dev)
+    finally:
+        restore()
+    back = records[-1]
+    with torch.no_grad():
+        opd = banded_with_main(torch, kt, base, g.detach())
+        one_ms, ws, errs_b = [], [], []
+        for p in range(P):
+            (w, _), ms1, _ = _sync_ms(torch, _build, lambda p=p: kt.linsolve(
+                opd, C[p], a0=0.5, alg=cg), dev)
+            one_ms.append(ms1)
+            ws.append(w)
+            errs_b.append(float((B.grad[p] - w).abs().max()) / float(w.abs().max()))
+        gw = -sum(w * x for w, x in zip(ws, X.detach()))
+        err_g = float((g.grad - gw).abs().max()) / float(gw.abs().max())
+    rec = {"phase": "batched_ad", "part": "potential_cg", "n": n, "P": P, "tol": tol,
+           "counts": _batch_counts(info), "inner_counts": _batch_counts(back),
+           "forward_ms": fwd_ms, "backward_ms": bwd_ms,
+           "independent_solves_ms": one_ms, "sum_one_problem_ms": sum(one_ms),
+           "launches_forward": fwd_l, "launches_backward": bwd_l,
+           "b_grad_rel_err": errs_b, "g_grad_rel_err": err_g, "nvidia_smi": smi}
+    emit(rec)
+    require(all(int(c) == 1 for c in info.converged) and all(int(c) == 1 for c in back.converged),
+            "batched_ad potential_cg: the forward and adjoint solves converge")
+    require(max(errs_b) <= 1e-3, f"batched_ad potential_cg: b_p.grad within 1e-3 of w_p ({errs_b})")
+    require(err_g <= 1e-3, f"batched_ad potential_cg: g.grad within 1e-3 of -sum w_p*x_p ({err_g})")
+    if card:
+        for side, launches, info_ in (("forward", fwd_l, info), ("backward", bwd_l, back)):
+            require(set(launches) == {"banded_spmv_batched"}
+                    and launches["banded_spmv_batched"] == int(info_.numops.max()),
+                    f"batched_ad potential_cg: the {side} one batched K3 a lock-step "
+                    f"({launches}, {info_.numops.tolist()})")
+    out["launches"]["potential_cg"] = {"forward": fwd_l, "backward": bwd_l}
+
+    # (d) the small float64 batches, card against CPU
+    if small:
+        cases = []
+        for label, run in small_batched_ad_routes(np, kt, torch).items():
+            gc, ic = run(dev)
+            gh, ih = run("cpu")
+            err = max(_rel_err(torch, a, b) for a, b in zip(gc, gh))
+            cc, ch = [_batch_counts(i) for i in ic], [_batch_counts(i) for i in ih]
+            cases.append({"route": label, "max_rel_err": err, "counts": cc})
+            require(err <= AD_TOL, f"batched_ad small {label}: card vs CPU within {AD_TOL} "
+                    f"({err})")
+            require(cc == ch, f"batched_ad small {label}: counts equal ({cc}, {ch})")
+        emit({"phase": "batched_ad_small", "tolerance": AD_TOL, "routes": cases})
+    emit({"phase": "batched_ad_seconds", "seconds": time.perf_counter() - t0})
+    return out
+
+
 def mean(xs):
     return sum(xs) / len(xs)
 
@@ -7864,7 +8329,7 @@ def mean(xs):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one config-1 and one config-4 solve (phase 38)")
+                    help="also profile one config-1 and one config-4 solve (phase 39)")
     ap.add_argument("--parent", metavar="DIR",
                     help="an unpacked earlier tree: time its K1 and K2 on this card as parent_ms")
     ap.add_argument("--kernel-times", action="store_true",
@@ -8861,6 +9326,13 @@ def main():
 
     phase_done("batched_eager_selective")
 
+    # 38. gradients through batched solves: the wells of phase 17 for 4
+    # depths by both eigsolve rules, phase 18's system for 4 right-hand
+    # sides by the CG rule, then small float64 batches card against CPU
+    batched_ad = batched_ad_phase(torch, np, kt, _build, smi, N=nx)
+
+    phase_done("batched_ad")
+
     def slice11(name):
         """The launches per rank of ``name`` in phase 29's passes."""
         return {"launches_sharded_ad_per_rank": {
@@ -8889,6 +9361,13 @@ def main():
         """The launches of ``name`` on the paths of phase 37."""
         return {f"launches_batched_eager_selective_{path}": L[name]
                 for path, L in batched_es["launches"].items() if L.get(name)}
+
+    def slice22(*names):
+        """The launches of ``names`` on the forward and backward paths of
+        phase 38."""
+        return {f"launches_batched_ad_{part}_{side}_{name}": L[name]
+                for part, sides in batched_ad["launches"].items()
+                for side, L in sides.items() for name in names if L.get(name)}
 
     if args.profile:
         emit(profile_solve(torch, "config 1 Lanczos eigsolve",
@@ -8965,6 +9444,8 @@ def main():
             **{f"launches_batched_pytree_{path}": L.get("transform_partial_batched", 0)
                for path, L in batched_tree["launches"].items()},
             **slice21("transform_partial_batched"),
+            **sharded["tree_config1"],
+            **slice22("transform_partial_batched", "transform_partial"),
         },
         {
             "name": "banded_spmv", "route": "cuda",
@@ -8995,6 +9476,7 @@ def main():
             **batched_gb["kernels"]["banded_spmv"],
             **batched_bl["kernels"]["banded_spmv"],
             **slice21("banded_spmv_batched"),
+            **slice22("banded_spmv_batched", "banded_spmv"),
         },
         {
             "name": "laplacian_1d", "route": "cuda",

@@ -33,7 +33,10 @@ in one host loop
 banded or 1-D Laplacian operator applied to every problem in one batched
 launch; each takes what its one-problem driver takes, ``eager=True`` and
 ``Lanczos(reorth="selective")`` among it, pytree vectors and a sharded
-space), with
+space, trees on a sharded space too; the batched Lanczos, Arnoldi, GMRES,
+CG, MINRES, BiCGStab and GKL drivers differentiate by their front-ends'
+rules, ``alg_rrule`` included, on an unsharded space: ``ad/batched.py``,
+``jax.grad`` over ``jax.vmap``), with
 six hand-written CUDA kernels
 (``csrc/``): the fused one-stream expansion, the in-place restart rotation,
 the banded SpMV of :class:`BandedOperator`, the 1-D Laplacian of

@@ -10,6 +10,11 @@ start or right-hand-side vectors, the shifts of ``linsolve`` and the
 tensors the operator holds (``LinearOperator.tensors``).  Forward and
 backward solves record no autograd graph.
 
+The batched drivers of ``solvers/batched*.py`` differentiate by the same
+rules (``ad/batched.py``): each problem's inner solves are built as its
+one-problem rule builds them (``route``, ``_common.Inner``), and all
+problems' are solved in one batched call.
+
 Convention: torch's cotangents are conjugate-Wirtinger derivatives, the
 conjugates of JAX's (for a real loss, ``t.grad == conj(jax.grad)``); they
 are ChainRules' "adjoint" cotangents, so the reference's formulas apply

@@ -30,8 +30,8 @@ import torch
 from ..ops.collectives import strict_collectives
 from ..ops.vector import STANDARD, VectorSpace, tree_leaves
 
-__all__ = ["Call", "needs_grad", "refuse_grad", "detached", "operator_cotangent", "real_safe",
-           "row", "euclidean"]
+__all__ = ["Call", "Inner", "needs_grad", "refuse_grad", "detached", "operator_cotangent",
+           "adjoint_operator", "solve_inner", "real_safe", "row", "euclidean"]
 
 
 class Call:
@@ -45,15 +45,17 @@ class Call:
 
 
 def _requires_grad(op, vectors) -> bool:
-    tensors = list(op.tensors() if op is not None else ())
+    ops = op if isinstance(op, list) else [op] if op is not None else []
+    tensors = [t for o in ops for t in o.tensors()]
     tensors += [l for v in vectors for l in tree_leaves(v)]
     return any(isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
 
 
 def needs_grad(op, *vectors) -> bool:
-    """True when gradients are enabled and a tensor of ``op`` or a leaf of
-    one of ``vectors`` requires grad: the solve then goes through its
-    ``torch.autograd.Function``."""
+    """True when gradients are enabled and a tensor of ``op`` (an operator,
+    or a list of them: a batch's operators) or a leaf of one of ``vectors``
+    (vectors, stacks of them, shift scalars) requires grad: the solve then
+    goes through its ``torch.autograd.Function``."""
     return torch.is_grad_enabled() and _requires_grad(op, vectors)
 
 
@@ -135,3 +137,54 @@ def row(stacked, i: int):
     from ..ops.vector import tree_map
 
     return tree_map(lambda l: l[i], stacked)
+
+
+def adjoint_operator(op, dtype: torch.dtype):
+    """``Aᴴ`` as the operator of an adjoint solve in ``dtype``: the adjoint
+    planes of a banded operator, the self-adjoint 1-D Laplacian, the
+    conjugate transpose of a matrix (operators that a batched driver applies
+    to a stack in one launch or one product), else ``op``'s adjoint as a
+    typed callable.  Each applies as ``op.apply_adjoint`` does."""
+    from ..ops.banded import BandedOperator
+    from ..ops.operator import MatrixOperator, TypedOperator
+    from ..ops.stencil_1d import Laplacian1DOperator
+
+    if type(op) is BandedOperator and op.adj is not None:
+        return op.adj
+    if type(op) is Laplacian1DOperator:
+        return op
+    if type(op) is MatrixOperator:
+        return MatrixOperator(op.A.conj().T)
+    return TypedOperator(op.apply_adjoint, op.normal, dtype=dtype)
+
+
+class Inner:
+    """The Krylov solves of one problem's pullback, and what the rule makes
+    of them.  ``kind`` ``"linsolve"``: ``problems`` are ``(operator, rhs,
+    x0)`` of ``(a0 + a1·A) x = rhs`` (the shifts ``shifts = (a0, a1)``);
+    ``"eigsolve"``: ``(operator, w0, howmany, which)`` Arnoldi eigsolves,
+    whose eigenvectors the rule takes.  ``alg`` solves them all, and
+    ``finish(solutions)`` gives the operator-cotangent terms
+    (:func:`operator_cotangent`).  The one-problem rules solve them one by
+    one (:func:`solve_inner`), a batched rule all problems' at once
+    (``ad/batched.py``)."""
+
+    def __init__(self, kind: str, alg, problems, finish, shifts=None):
+        self.kind, self.alg, self.problems, self.finish = kind, alg, problems, finish
+        self.shifts = shifts
+
+
+def solve_inner(inner: Inner, space):
+    """The terms of one problem's pullback, its solves one by one."""
+    if inner.kind == "linsolve":
+        from ..solvers.linsolve import _linsolve_impl
+
+        a0, a1 = inner.shifts
+        sols = [_linsolve_impl(A, rhs, x0, a0, a1, inner.alg, space)[0]
+                for A, rhs, x0 in inner.problems]
+    else:
+        from ..solvers.arnoldi import eigsolve_arnoldi
+
+        sols = [eigsolve_arnoldi(A, w0, n, which, inner.alg, space)[1]
+                for A, w0, n, which in inner.problems]
+    return inner.finish(sols)

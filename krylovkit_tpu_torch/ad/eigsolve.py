@@ -35,10 +35,11 @@ from ..algorithms import GMRES
 from ..ops import basis as bs
 from ..ops.operator import TypedOperator
 from ..ops.vector import tree_flatten, tree_leaves, tree_map, tree_unflatten, zerovector
-from ._common import Call, detached, euclidean, operator_cotangent, real_safe, row
+from ._common import (Call, Inner, detached, euclidean, operator_cotangent, real_safe, row,
+                      solve_inner)
 from .gauge import warn_gauge_eager
 
-__all__ = ["eigsolve_vjp"]
+__all__ = ["eigsolve_vjp", "route"]
 
 
 def _default_rrule_alg(alg):
@@ -89,13 +90,13 @@ def _nearest_sorter(valsc):
                      .values, rev=False)
 
 
-def _bwd_gmres(howmany, alg, alg_rrule, space, op, vals, vecs, gvals, gvecs):
-    from ..solvers.linsolve import _linsolve_impl
-
+def _gmres_inner(howmany, alg, alg_rrule, space, op, vals, vecs, gvals, gvecs) -> Inner:
+    """The GMRES rule: one bordered system per eigenpair, ``w_i`` the
+    vector part of each solution."""
     rrule_alg = alg_rrule or _default_rrule_alg(alg)
     cdt = tree_leaves(vecs)[0].dtype
     dev = vals.device
-    ws = []
+    systems = []
     for i in range(howmany):
         lam = vals[i]
         v = row(vecs, i)
@@ -120,13 +121,13 @@ def _bwd_gmres(howmany, alg, alg_rrule, space, op, vals, vecs, gvals, gvecs):
 
         rhs = (dv, dlam)
         zero = (zerovector(dv), torch.zeros((), dtype=cdt, device=dev))
-        (w, _delta), _ = _linsolve_impl(
-            TypedOperator(opb, None, dtype=cdt), rhs, zero,
-            torch.zeros((), dtype=cdt, device=dev), torch.ones((), dtype=cdt, device=dev),
-            rrule_alg, space,
-        )
-        ws.append(w)
-    return [("normal", row(vecs, i), ws[i]) for i in range(howmany)]
+        systems.append((TypedOperator(opb, None, dtype=cdt), rhs, zero))
+
+    def finish(sols):
+        return [("normal", row(vecs, i), w) for i, (w, _delta) in enumerate(sols)]
+
+    shifts = (torch.zeros((), dtype=cdt, device=dev), torch.ones((), dtype=cdt, device=dev))
+    return Inner("linsolve", rrule_alg, systems, finish, shifts)
 
 
 def _sylvester_tail(Ws, n: int, vecs, Z0, overlap):
@@ -141,20 +142,18 @@ def _sylvester_tail(Ws, n: int, vecs, Z0, overlap):
     return _sub(Z0, _mix(tree_map(lambda l: l[:n], Wq), Zinv))
 
 
-def _bwd_sylvester(howmany, which, alg, alg_rrule, space, op, vals, vecs, gvals, gvecs):
+def _sylvester_inner(howmany, which, alg, alg_rrule, space, op, vals, vecs, gvals,
+                     gvecs) -> Inner:
     """Subspace-aware pullback of a Hermitian primal (reference
     ``ext/.../eigsolve.jl:318-419``): the subspace components come from the
     antihermitian part of ``VᴴΔV`` divided by eigenvalue gaps (robust for
     degenerate eigenvalues), the orthogonal-complement components from the
     Sylvester problem ``(Aᴴ(1−P) + shift·P) W − W Λ = ΔV_perp``, solved as
     one eigenproblem on ``(w, x)`` pytrees with ``alg_rrule``."""
-    from ..solvers.arnoldi import eigsolve_arnoldi
-
     n = howmany
     cdt = tree_leaves(vecs)[0].dtype
     rdt = cdt.to_real()
     tol = alg.tol
-    dev = vals.device
     dvals = gvals[:n].to(cdt)
     dvecs = tree_map(lambda l: l[:n], gvecs)
 
@@ -184,31 +183,28 @@ def _bwd_sylvester(howmany, which, alg, alg_rrule, space, op, vals, vecs, gvals,
         wp = _sub(wp, _contract(x, Dperp))
         return wp, valsc * x
 
-    w0 = (tree_map(lambda l: torch.zeros_like(l[0]), vecs), torch.ones(n, dtype=cdt, device=dev))
-    _, Ws, _ = eigsolve_arnoldi(TypedOperator(block_op, None, dtype=cdt), w0, n,
-                                _nearest_sorter(valsc), alg_rrule, space)
-    ws = _sylvester_tail(Ws, n, vecs, Z0, lambda W: bs.gram(vecs, W, gspace))
-    if not cdt.is_complex:
-        # a real Hermitian primal: the inner solve ran in complex arithmetic,
-        # but a consistent cotangent has vanishing imaginary part
-        ws = tree_map(lambda l: torch.real(l).to(cdt), ws)
-    return [("normal", row(vecs, i), row(ws, i)) for i in range(n)]
+    def finish(sols):
+        ws = _sylvester_tail(sols[0], n, vecs, Z0, lambda W: bs.gram(vecs, W, gspace))
+        if not cdt.is_complex:
+            # a real Hermitian primal: the inner solve ran in complex
+            # arithmetic, but a consistent cotangent has vanishing imaginary part
+            ws = tree_map(lambda l: torch.real(l).to(cdt), ws)
+        return [("normal", row(vecs, i), row(ws, i)) for i in range(n)]
+
+    return _sylvester_problem(block_op, vecs, n, valsc, alg_rrule, finish)
 
 
-def _bwd_sylvester_general(howmany, which, alg, alg_rrule, space, op, vals, vecs, gvals,
-                           gvecs):
+def _sylvester_general_inner(howmany, which, alg, alg_rrule, space, op, vals, vecs, gvals,
+                             gvecs) -> Inner:
     """Sylvester pullback of a general (Arnoldi) primal (reference
-    ``ext/.../eigsolve.jl:182-310``): as :func:`_bwd_sylvester`, but the
+    ``ext/.../eigsolve.jl:182-310``): as :func:`_sylvester_inner`, but the
     eigenvectors are not orthonormal, so projections go through the Gram
     matrix ``G = VᴴV``, and the subspace coefficients use the raw
     gauge-projected ``VᴴΔV``."""
-    from ..solvers.arnoldi import eigsolve_arnoldi
-
     n = howmany
     cdt = tree_leaves(vecs)[0].dtype
     rdt = cdt.to_real()
     tol = alg.tol
-    dev = vals.device
     dvals = gvals[:n].to(cdt)
     dvecs = tree_map(lambda l: l[:n], gvecs)
 
@@ -249,27 +245,37 @@ def _bwd_sylvester_general(howmany, which, alg, alg_rrule, space, op, vals, vecs
         wp = _sub(wp, _contract(x, Dperp))
         return wp, torch.conj(valsc) * x
 
-    w0 = (tree_map(lambda l: torch.zeros_like(l[0]), vecs), torch.ones(n, dtype=cdt, device=dev))
-    _, Ws, _ = eigsolve_arnoldi(TypedOperator(block_op, None, dtype=cdt), w0, n,
-                                _nearest_sorter(valsc), alg_rrule, space)
-    ws = _sylvester_tail(Ws, n, vecs, Z0,
-                         lambda W: torch.linalg.solve(G, bs.gram(vecs, W, gspace)[:n, :].to(cdt)))
-    if not cdt.is_complex:
-        ws = tree_map(lambda l: torch.real(l).to(cdt), ws)
-    return [("normal", row(vecs, i), row(ws, i)) for i in range(n)]
+    def finish(sols):
+        ws = _sylvester_tail(sols[0], n, vecs, Z0, lambda W: torch.linalg.solve(
+            G, bs.gram(vecs, W, gspace)[:n, :].to(cdt)))
+        if not cdt.is_complex:
+            ws = tree_map(lambda l: torch.real(l).to(cdt), ws)
+        return [("normal", row(vecs, i), row(ws, i)) for i in range(n)]
+
+    return _sylvester_problem(block_op, vecs, n, valsc, alg_rrule, finish)
 
 
-def _bwd(howmany, which, alg, alg_rrule, space, op, vals, vecs, gvals, gvecs):
-    """The operator-cotangent terms of the route the JAX package's ``_bwd``
-    picks."""
+def _sylvester_problem(block_op, vecs, n: int, valsc, alg_rrule, finish) -> Inner:
+    """The one Arnoldi eigsolve of a Sylvester rule on ``(w, x)`` pytrees,
+    from ``(0, 1)``, its ``n`` values nearest ``conj(valsc)``."""
+    cdt = valsc.dtype
+    w0 = (tree_map(lambda l: torch.zeros_like(l[0]), vecs),
+          torch.ones(n, dtype=cdt, device=valsc.device))
+    problem = (TypedOperator(block_op, None, dtype=cdt), w0, n, _nearest_sorter(valsc))
+    return Inner("eigsolve", alg_rrule, [problem], finish)
+
+
+def route(howmany, which, alg, alg_rrule, space, op, vals, vecs, gvals, gvecs) -> Inner:
+    """The inner solves of the rule the JAX package's ``_bwd`` picks, for
+    one problem."""
     from ..algorithms import Arnoldi, Lanczos
 
     args = (howmany, which, alg, alg_rrule, space, op, vals, vecs, gvals, gvecs)
     if isinstance(alg_rrule, Arnoldi):
         if isinstance(alg, Lanczos):
-            return _bwd_sylvester(*args)
-        return _bwd_sylvester_general(*args)
-    return _bwd_gmres(howmany, alg, alg_rrule, space, op, vals, vecs, gvals, gvecs)
+            return _sylvester_inner(*args)
+        return _sylvester_general_inner(*args)
+    return _gmres_inner(howmany, alg, alg_rrule, space, op, vals, vecs, gvals, gvecs)
 
 
 class _Eigsolve(torch.autograd.Function):
@@ -296,8 +302,8 @@ class _Eigsolve(torch.autograd.Function):
         nx = call.nx
         grads = [None] * (len(call.dtypes))
         if any(ctx.needs_input_grad[1 + nx:]):
-            terms = _bwd(call.howmany, call.which, call.alg, call.alg_rrule, call.space, op,
-                         vals, vecs, gvals, gvecs)
+            terms = solve_inner(route(call.howmany, call.which, call.alg, call.alg_rrule,
+                                      call.space, op, vals, vecs, gvals, gvecs), call.space)
             grads[nx:] = operator_cotangent(call.op, terms)
         return (None,) + tuple(
             real_safe(g, dt) if g is not None else None for g, dt in zip(grads, call.dtypes)

@@ -21,11 +21,10 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.operator import TypedOperator
 from ..ops.vector import scalartype, tree_flatten, tree_leaves, tree_map, tree_unflatten, zerovector
-from ._common import Call, detached, operator_cotangent, real_safe
+from ._common import Call, adjoint_operator, detached, operator_cotangent, real_safe
 
-__all__ = ["linsolve_vjp", "dot", "dotu"]
+__all__ = ["linsolve_vjp", "dot", "dotu", "shift_cotangents", "operator_terms"]
 
 
 def dot(x, y) -> torch.Tensor:
@@ -74,22 +73,32 @@ class _Linsolve(torch.autograd.Function):
         x = tree_unflatten([t.detach() for t in ctx.saved_tensors], call.spec_x)
         g = tree_unflatten(list(gx), call.spec_x)
         # u = M⁻ᴴ x̄: the adjoint system, solved with alg_rrule
-        adj = TypedOperator(op.apply_adjoint, op.normal, dtype=scalartype(x))
-        u, _ = _linsolve_impl(adj, g, zerovector(g), torch.conj(a0), torch.conj(a1),
-                              call.alg_rrule, call.space)
+        u, _ = _linsolve_impl(adjoint_operator(op, scalartype(x)), g, zerovector(g),
+                              torch.conj(a0), torch.conj(a1), call.alg_rrule, call.space)
         grads = [None] * len(need)
         if any(need[:nb]):
             grads[:nb] = tree_leaves(u)
-        if need[nb + nx]:
-            grads[nb + nx] = -dot(x, u)
-        if need[nb + nx + 1]:
-            grads[nb + nx + 1] = -dot(op.normal(x), u)
+        grads[nb + nx], grads[nb + nx + 1] = shift_cotangents(op, x, u, need[nb + nx],
+                                                              need[nb + nx + 1])
         if any(need[nb + nx + 2:]):
-            cot = tree_map(lambda l: -torch.conj(a1).to(l.dtype) * l, u)
-            grads[nb + nx + 2:] = operator_cotangent(call.op, [("normal", x, cot)])
+            grads[nb + nx + 2:] = operator_cotangent(call.op, operator_terms(x, u, a1))
         return (None,) + tuple(
             real_safe(gr, dt) if gr is not None else None for gr, dt in zip(grads, call.dtypes)
         )
+
+
+def shift_cotangents(op, x, u, need0: bool, need1: bool):
+    """``(ā0, ā1) = (−⟨x, u⟩, −⟨A x, u⟩)`` of one system, each ``None``
+    where it is not needed."""
+    return (-dot(x, u) if need0 else None), (-dot(op.normal(x), u) if need1 else None)
+
+
+def operator_terms(x, u, a1):
+    """The operator cotangent of one system, as :func:`operator_cotangent`
+    takes it: the vector-Jacobian product of ``t ↦ A_t x`` at ``−conj(a1)·u``."""
+    if not isinstance(a1, torch.Tensor):  # a Python shift, exact in float64/complex128
+        a1 = torch.tensor(a1, dtype=torch.complex128 if isinstance(a1, complex) else torch.float64)
+    return [("normal", x, tree_map(lambda l: -torch.conj(a1).to(l.dtype) * l, u))]
 
 
 def linsolve_vjp(alg, alg_rrule, space, op, b, x0, a0, a1):

@@ -31,11 +31,12 @@ from ..algorithms import GMRES
 from ..ops import basis as bs
 from ..ops.operator import TypedOperator
 from ..ops.vector import tree_flatten, tree_leaves, tree_map, tree_unflatten, zerovector
-from ._common import Call, detached, euclidean, operator_cotangent, real_safe, row
+from ._common import (Call, Inner, detached, euclidean, operator_cotangent, real_safe, row,
+                      solve_inner)
 from .eigsolve import _contract, _mix, _sub
 from .gauge import warn_gauge_eager
 
-__all__ = ["svdsolve_vjp"]
+__all__ = ["svdsolve_vjp", "route"]
 
 
 def _axpy(y, x, a):
@@ -43,14 +44,13 @@ def _axpy(y, x, a):
     return tree_map(lambda ly, lx: ly + real_safe(a, ly.dtype) * lx, y, x)
 
 
-def _bwd_gmres(howmany, alg, alg_rrule, space, op, vals, lvecs, rvecs, gs, gu, gv):
-    from ..solvers.linsolve import _linsolve_impl
-
+def _gmres_inner(howmany, alg, alg_rrule, space, op, vals, lvecs, rvecs, gs, gu, gv) -> Inner:
+    """The GMRES rule: one coupled ``(x, y)`` system per triplet."""
     rrule_alg = alg_rrule or GMRES(tol=alg.tol, krylovdim=alg.krylovdim, maxiter=alg.maxiter,
                                    orth=alg.orth)
     cdt = tree_leaves(lvecs)[0].dtype
     dev = vals.device
-    terms = []
+    systems, shifts = [], []
     for i in range(howmany):
         sig = vals[i].to(cdt.to_real())
         u, v = row(lvecs, i), row(rvecs, i)
@@ -66,7 +66,7 @@ def _bwd_gmres(howmany, alg, alg_rrule, space, op, vals, lvecs, rvecs, gs, gu, g
             ds = torch.real(gs[i]) + 1j * torch.imag(uddu - vddv) / (2 * sig)
         else:
             ds = torch.real(gs[i])
-        ds = ds.to(cdt)
+        shifts.append(ds.to(cdt))
         bu, bv = _axpy(du, u, -uddu), _axpy(dv, v, -vddv)
 
         def opb(xy, sig=sig, u=u, v=v):
@@ -75,24 +75,28 @@ def _bwd_gmres(howmany, alg, alg_rrule, space, op, vals, lvecs, rvecs, gs, gu, g
             yp = tree_map(lambda ly, lax_: sig.to(ly.dtype) * ly - lax_, y, op.apply_adjoint(x))
             return _axpy(xp, u, -space.inner(u, xp)), _axpy(yp, v, -space.inner(v, yp))
 
-        (x, y), _ = _linsolve_impl(
-            TypedOperator(opb, None, dtype=cdt), (bu, bv), (zerovector(bu), zerovector(bv)),
-            torch.zeros((), dtype=cdt, device=dev), torch.ones((), dtype=cdt, device=dev),
-            rrule_alg, space,
-        )
-        terms += [("normal", v, _axpy(x, u, ds / 2)),
-                  ("adjoint", u, _axpy(y, v, torch.conj(ds) / 2))]
-    return terms
+        systems.append((TypedOperator(opb, None, dtype=cdt), (bu, bv),
+                        (zerovector(bu), zerovector(bv))))
+
+    def finish(sols):
+        terms = []
+        for i, ((x, y), ds) in enumerate(zip(sols, shifts)):
+            u, v = row(lvecs, i), row(rvecs, i)
+            terms += [("normal", v, _axpy(x, u, ds / 2)),
+                      ("adjoint", u, _axpy(y, v, torch.conj(ds) / 2))]
+        return terms
+
+    return Inner("linsolve", rrule_alg, systems, finish,
+                 (torch.zeros((), dtype=cdt, device=dev), torch.ones((), dtype=cdt, device=dev)))
 
 
-def _bwd_sylvester(howmany, alg, alg_rrule, space, op, vals, lvecs, rvecs, gs, gu, gv):
+def _sylvester_inner(howmany, alg, alg_rrule, space, op, vals, lvecs, rvecs, gs, gu,
+                     gv) -> Inner:
     """Coupled ``(x, y, z)`` eigenproblem pullback (reference
     ``ext/.../svdsolve.jl:160-273``, ``which == "LR"``): every triplet's
     cotangents through one eigsolve of
 
         (x, y, z) ↦ (Q_U(A y) − Σᵢ ΔUᵢ zᵢ, Q_V(Aᴴ x) − Σᵢ ΔVᵢ zᵢ, Σ·z)."""
-    from ..solvers.arnoldi import eigsolve_arnoldi
-
     n = howmany
     cdt = tree_leaves(lvecs)[0].dtype
     rdt = cdt.to_real()
@@ -140,19 +144,39 @@ def _bwd_sylvester(howmany, alg, alg_rrule, space, op, vals, lvecs, rvecs, gs, g
     w0 = (tree_map(lambda l: torch.zeros_like(l[0]), lvecs),
           tree_map(lambda l: torch.zeros_like(l[0]), rvecs),
           torch.ones(n, dtype=cdt, device=dev))
-    _, Ws, _ = eigsolve_arnoldi(TypedOperator(block_op, None, dtype=cdt), w0, n, "LR",
-                                alg_rrule, space)
-    Wx, Wy, Wz = Ws
-    Zinv = torch.linalg.pinv(Wz.T[:n, :n], rtol=1e-10)
-    xs = _sub(xs0, _mix(tree_map(lambda l: l[:n], Wx), Zinv))
-    ys = _sub(ys0, _mix(tree_map(lambda l: l[:n], Wy), Zinv))
-    if not cdt.is_complex:
-        xs = tree_map(lambda l: torch.real(l).to(cdt), xs)
-        ys = tree_map(lambda l: torch.real(l).to(cdt), ys)
-    terms = []
-    for i in range(n):
-        terms += [("normal", row(rvecs, i), row(xs, i)), ("adjoint", row(lvecs, i), row(ys, i))]
-    return terms
+
+    def finish(sols):
+        Wx, Wy, Wz = sols[0]
+        Zinv = torch.linalg.pinv(Wz.T[:n, :n], rtol=1e-10)
+        xs = _sub(xs0, _mix(tree_map(lambda l: l[:n], Wx), Zinv))
+        ys = _sub(ys0, _mix(tree_map(lambda l: l[:n], Wy), Zinv))
+        if not cdt.is_complex:
+            xs = tree_map(lambda l: torch.real(l).to(cdt), xs)
+            ys = tree_map(lambda l: torch.real(l).to(cdt), ys)
+        terms = []
+        for i in range(n):
+            terms += [("normal", row(rvecs, i), row(xs, i)),
+                      ("adjoint", row(lvecs, i), row(ys, i))]
+        return terms
+
+    return Inner("eigsolve", alg_rrule, [(TypedOperator(block_op, None, dtype=cdt), w0, n, "LR")],
+                 finish)
+
+
+def route(howmany, which, alg, alg_rrule, space, op, vals, lvecs, rvecs, gs, gu, gv) -> Inner:
+    """The inner solves of the rule ``alg_rrule`` picks, for one problem."""
+    from ..algorithms import Arnoldi
+
+    args = (howmany, alg, alg_rrule, space, op, vals, lvecs, rvecs, gs, gu, gv)
+    if isinstance(alg_rrule, Arnoldi):
+        w = which.upper() if isinstance(which, str) else which
+        if w != "LR":
+            raise NotImplementedError(
+                "Arnoldi-path svdsolve pullback only for which='LR' "
+                "(reference ext/.../svdsolve.jl:166)"
+            )
+        return _sylvester_inner(*args)
+    return _gmres_inner(*args)
 
 
 class _Svdsolve(torch.autograd.Function):
@@ -174,8 +198,6 @@ class _Svdsolve(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gs, *guv):
-        from ..algorithms import Arnoldi
-
         call, op = ctx.call, ctx.op
         nu, nx = call.nu, call.nx
         saved = [t.detach() for t in ctx.saved_tensors]
@@ -186,18 +208,8 @@ class _Svdsolve(torch.autograd.Function):
         gv = tree_unflatten(list(guv[nu:]), call.spec_v)
         grads = [None] * len(call.dtypes)
         if any(ctx.needs_input_grad[1 + nx:]):
-            args = (call.howmany, call.alg, call.alg_rrule, call.space, op, vals, lvecs, rvecs,
-                    gs, gu, gv)
-            if isinstance(call.alg_rrule, Arnoldi):
-                w = call.which.upper() if isinstance(call.which, str) else call.which
-                if w != "LR":
-                    raise NotImplementedError(
-                        "Arnoldi-path svdsolve pullback only for which='LR' "
-                        "(reference ext/.../svdsolve.jl:166)"
-                    )
-                terms = _bwd_sylvester(*args)
-            else:
-                terms = _bwd_gmres(*args)
+            terms = solve_inner(route(call.howmany, call.which, call.alg, call.alg_rrule,
+                                      call.space, op, vals, lvecs, rvecs, gs, gu, gv), call.space)
             grads[nx:] = operator_cotangent(call.op, terms)
         return (None,) + tuple(
             real_safe(g, dt) if g is not None else None for g, dt in zip(grads, call.dtypes)

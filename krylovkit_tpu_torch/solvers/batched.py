@@ -72,6 +72,13 @@ tree batch takes the unfused lock-step, and a restart rotates every leaf
 the K2 kernel takes (a ``(kmax, R, 128)`` float32/bfloat16 leaf) in one
 batched launch, any other leaf problem by problem.
 
+Tree stacks run on a sharded space as tensors do: a row's local partial
+of each reduction (``inner_batched``, ``project_batched``, a cgs sweep's
+coefficients, ``gram_batched``) is the one-problem tree partial, summed
+over the leaves, so a lock-step still all-reduces once of each kind for
+every problem and leaf, and a tree operator makes its own collectives, one
+problem at a time.
+
 ``eager=True`` is batched in every driver that takes it: each problem
 processes after every step of its own, as its one-problem solve does, and
 a lock-step expands only the problems whose rounds go on.  A restart
@@ -80,10 +87,15 @@ runs no identity rotation).  ``Lanczos(reorth="selective")`` is batched
 in :func:`eigsolve_lanczos_batched` through
 ``factorizations/krylov.py:expand_hermitian_selective_batched``: each
 problem keeps its own ω state, the sweep decisions of a lock-step are one
-host read, and the problems that sweep sweep together.  Refused, each with
-a ``ValueError`` that names it: selective with ``eager`` (as in the
-one-problem driver), differentiation, and pytree vectors on a sharded
-space.
+host read, and the problems that sweep sweep together.
+
+The drivers whose one-problem front-end has a differentiation rule (the
+two here, the CG, MINRES and BiCGStab drivers, the Arnoldi eigsolve and
+the GKL svdsolve) differentiate by that rule, for the algorithm they are
+given (``alg_rrule``; ``ad/batched.py``), on an unsharded space.  Refused,
+each with a ``ValueError`` that names it (:func:`_differentiated`):
+selective with ``eager`` (as in the one-problem driver), differentiation
+through a driver with no rule, and differentiation on a sharded space.
 """
 
 from __future__ import annotations
@@ -92,6 +104,7 @@ import functools
 
 import torch
 
+from ..ad._common import needs_grad
 from ..algorithms import GMRES, Lanczos
 from ..dense.triangular import solve_upper_active
 from ..factorizations import krylov as kf
@@ -121,18 +134,25 @@ def _in_dims(in_dims, names):
     return dims
 
 
-def _refuse(what: str, vectors, ops, scalars=(), space: VectorSpace = STANDARD):
-    """The pieces the batched drivers do not batch, each named:
-    differentiation, and pytree vectors on a sharded space."""
-    if space.psum_axis is not None and any(not isinstance(v, torch.Tensor) for v in vectors):
-        raise ValueError(f"{what}: pytree vectors on a sharded space are not batched; give "
-                         "tensors, or solve on an unsharded space")
-    tensors = [l for v in vectors for l in tree_leaves(v)]
-    tensors += [t for op in ops for t in op.tensors()]
-    tensors += [a for a in scalars if isinstance(a, torch.Tensor)]
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise ValueError(f"{what}: differentiation through a batched solve is not batched; "
-                         "solve the problems one by one")
+def _differentiated(what: str, vectors, ops, scalars=(), space: VectorSpace = STANDARD,
+                    rule: bool = False) -> bool:
+    """Whether a batched call differentiates: gradients are on and a leaf of
+    ``vectors``, a tensor of ``scalars`` or a tensor of one of ``ops``
+    requires grad.  A driver whose one-problem front-end has a rule
+    (``rule``) then goes through ``ad/batched.py``; one whose front-end has
+    none raises, as does every driver on a sharded space, each a
+    ``ValueError`` that names it."""
+    if not needs_grad(list(ops), *vectors, *scalars):
+        return False
+    if space.psum_axis is not None:
+        raise ValueError(f"{what}: differentiation through a batched solve is not yet batched "
+                         "on a sharded space; solve the problems one by one, or on an "
+                         "unsharded space")
+    if not rule:
+        raise ValueError(f"{what}: differentiation has no rule here (nor has the JAX "
+                         "package's: its lax.while_loop has no transpose); differentiate a "
+                         "batched linsolve, eigsolve or svdsolve driver, or detach the inputs")
+    return True
 
 
 def _kernel_banded(o) -> bool:
@@ -371,7 +391,7 @@ def _read(values) -> list:
 
 def eigsolve_lanczos_batched(op, x0, howmany: int, which, alg: Lanczos,
                              space: VectorSpace = STANDARD, coeff_dtype=None, *,
-                             in_dims=(None, 0)):
+                             in_dims=(None, 0), alg_rrule=None):
     """Hermitian eigsolves of ``P`` problems, each as
     :func:`~.lanczos.eigsolve_lanczos` solves it, in one host loop.
 
@@ -382,7 +402,12 @@ def eigsolve_lanczos_batched(op, x0, howmany: int, which, alg: Lanczos,
     howmany, ...), info)``; ``info``'s ``converged``, ``numiter`` and
     ``numops`` are ``(P,)`` int64 tensors and ``normres``/``residual`` carry
     the leading ``P``, as ``jax.vmap`` returns them.  At ``WARN`` each
-    unconverged problem prints its one-problem line, in problem order."""
+    unconverged problem prints its one-problem line, in problem order.
+
+    Differentiable in ``x0`` (zero gradient) and in the tensors of the
+    operators, as ``eigsolve`` is (``ad/batched.py``): the backward takes
+    the rule ``alg_rrule`` picks, all problems' inner solves in one batched
+    call."""
     op_dim, x_dim = _in_dims(in_dims, ("op", "x0"))
     m = alg.krylovdim
     if howmany > m:
@@ -399,7 +424,11 @@ def eigsolve_lanczos_batched(op, x0, howmany: int, which, alg: Lanczos,
             "omega-recurrence state does not persist across eager processings)")
     P = _batch_size(_count(op, op_dim, "op", vector=False), _count(x0, x_dim, "x0"))
     ops = _Operators(op, P, op_dim == 0)
-    _refuse("eigsolve_lanczos_batched", [x0], ops.distinct(), space=space)
+    if _differentiated("eigsolve_lanczos_batched", [x0], ops.distinct(), space=space, rule=True):
+        from ..ad.batched import eigsolve_batched_vjp
+
+        return eigsolve_batched_vjp(eigsolve_lanczos_batched, ops.ops, x0, howmany, which, alg,
+                                    alg_rrule, space, (op_dim, x_dim), coeff_dtype=coeff_dtype)
     x0s = _problems(x0, x_dim, P)
     kf.check_sharded_blocks("eigsolve_lanczos_batched", ops.distinct(), x0s, space)
     cdt = coeff_dtype or functools.reduce(
@@ -569,20 +598,30 @@ def eigsolve_lanczos_batched(op, x0, howmany: int, which, alg: Lanczos,
 
 
 def linsolve_gmres_batched(op, b, x0, a0, a1, alg: GMRES, space: VectorSpace = STANDARD, *,
-                           in_dims=(None, 0, 0)):
+                           in_dims=(None, 0, 0), alg_rrule=None):
     """Restarted GMRES(m) solves of ``P`` systems ``(a0 + a1·A_p) x_p =
     b_p``, each as :func:`~.gmres.linsolve_gmres` solves it, in one host
     loop.  ``in_dims = (op_dim, b_dim, x0_dim)`` as in
     :func:`eigsolve_lanczos_batched`; ``a0`` and ``a1`` are shared.  Every
     problem starts a cycle at ``k = 0``, so the problems of a cycle step
     together, and a problem leaves the cycle's launches when its own cycle
-    ends.  Returns ``(x (P, ...), info)`` with ``(P,)`` counts."""
+    ends.  Returns ``(x (P, ...), info)`` with ``(P,)`` counts.
+
+    Differentiable in ``b``, ``a0``, ``a1`` and the tensors of the
+    operators, as ``linsolve`` is (``x0`` gets no gradient): the backward
+    solves the ``P`` adjoint systems with ``alg_rrule`` (default ``alg``) in
+    one batched call (``ad/batched.py``)."""
     op_dim, b_dim, x_dim = _in_dims(in_dims, ("op", "b", "x0"))
     m = alg.krylovdim
     P = _batch_size(_count(op, op_dim, "op", vector=False), _count(b, b_dim, "b"),
                     _count(x0, x_dim, "x0"))
     ops = _Operators(op, P, op_dim == 0)
-    _refuse("linsolve_gmres_batched", [b, x0], ops.distinct(), (a0, a1), space)
+    if _differentiated("linsolve_gmres_batched", [b, x0], ops.distinct(), (a0, a1), space,
+                       rule=True):
+        from ..ad.batched import linsolve_batched_vjp
+
+        return linsolve_batched_vjp(linsolve_gmres_batched, ops.ops, b, x0, a0, a1, alg,
+                                    alg_rrule, space, (op_dim, b_dim, x_dim))
     bs_, xs = _problems(b, b_dim, P), _problems(x0, x_dim, P)
     kf.check_sharded_blocks("linsolve_gmres_batched", ops.distinct(), bs_, space)
     dev = device_of(bs_[0])

@@ -34,8 +34,10 @@ design of ``solvers/batched.py``:
 ``in_dims``, the shared or per-problem operator, a sharded space (one
 all-reduce a lock-step for every stepping problem, the fused step's halos
 each problem's), pytree vectors (the unfused lock-step, the rotation leaf
-by leaf) and the refusals (differentiation, pytree vectors on a sharded
-space) are those of ``solvers/batched.py``.
+by leaf, also on a sharded space) and differentiation are those of
+``solvers/batched.py``: :func:`eigsolve_arnoldi_batched` takes the rules
+of ``eigsolve`` (``alg_rrule``, ``ad/batched.py``), the Schur and real
+drivers refuse it, as their front-ends do.
 """
 
 from __future__ import annotations
@@ -69,26 +71,29 @@ from .arnoldi import (
 from .batched import (
     _batch_size,
     _count,
+    _differentiated,
     _goes_on,
     _in_dims,
     _Operators,
     _problems,
     _read,
-    _refuse,
     _rotate,
 )
 
 __all__ = ["schursolve_batched", "eigsolve_arnoldi_batched", "realeigsolve_arnoldi_batched"]
 
 
-def _setup(what: str, op, x0, howmany: int, alg: Arnoldi, space: VectorSpace, in_dims):
+def _setup(what: str, op, x0, howmany: int, alg: Arnoldi, space: VectorSpace, in_dims,
+           rule: bool = False):
     """The problems of a batched call: ``(ops, x0s, probe dtype)``, after
-    the refusals."""
+    the refusals; ``(ops, None, None)`` where the call differentiates
+    through its rule (``rule``)."""
     op_dim, x_dim = _in_dims(in_dims, ("op", "x0"))
     _check(howmany, alg.krylovdim)
     P = _batch_size(_count(op, op_dim, "op", vector=False), _count(x0, x_dim, "x0"))
     ops = _Operators(op, P, op_dim == 0)
-    _refuse(what, [x0], ops.distinct(), space=space)
+    if _differentiated(what, [x0], ops.distinct(), space=space, rule=rule):
+        return ops, None, None
     x0s = _problems(x0, x_dim, P)
     kf.check_sharded_blocks(what, ops.distinct(), x0s, space)
     pdt = functools.reduce(torch.promote_types,
@@ -159,7 +164,8 @@ def _arnoldi_loop_batched(ops: _Operators, x0s, howmany: int, which, alg: Arnold
         rotations, finished = {}, []
         for p in active:
             nconv, T, Q, res, numiter, done, keep, restart_now = _round(
-                process, facts[p], st[p].numiter, which, tol, btol, howmany, alg, real)
+                process, facts[p], st[p].numiter, which[p] if isinstance(which, list) else which,
+                tol, btol, howmany, alg, real)
             fact = facts[p]
             if not alg.eager:
                 # every processing but the last restarts; the last one runs
@@ -219,11 +225,22 @@ def schursolve_batched(op, x0, howmany: int, which, alg: Arnoldi,
 
 
 def eigsolve_arnoldi_batched(op, x0, howmany: int, which, alg: Arnoldi,
-                             space: VectorSpace = STANDARD, *, in_dims=(None, 0)):
+                             space: VectorSpace = STANDARD, *, in_dims=(None, 0),
+                             alg_rrule=None):
     """General eigsolves of ``P`` problems, each as
     :func:`~.arnoldi.eigsolve_arnoldi` solves it, in one host loop.  Returns
-    ``(vals (P, howmany), vecs (P, howmany, ...), info)``."""
-    ops, x0s, pdt = _setup("eigsolve_arnoldi_batched", op, x0, howmany, alg, space, in_dims)
+    ``(vals (P, howmany), vecs (P, howmany, ...), info)``.  ``which`` is one
+    selector, or a list of ``P`` (one a problem).
+
+    Differentiable in ``x0`` (zero gradient) and in the tensors of the
+    operators, as ``eigsolve`` is (``ad/batched.py``, ``alg_rrule``)."""
+    ops, x0s, pdt = _setup("eigsolve_arnoldi_batched", op, x0, howmany, alg, space, in_dims,
+                           rule=True)
+    if x0s is None:
+        from ..ad.batched import eigsolve_batched_vjp
+
+        return eigsolve_batched_vjp(eigsolve_arnoldi_batched, ops.ops, x0, howmany, which, alg,
+                                    alg_rrule, space, tuple(in_dims))
     real = not pdt.is_complex
     cdt = torch.promote_types(pdt, torch.complex64)
     sts = _arnoldi_loop_batched(ops, x0s, howmany, which, alg, space, pdt if real else cdt, real)

@@ -40,9 +40,10 @@ each side's sweeps and norms, the two projections of ``M``), as are the
 starts' norms, ``M[0, 0]`` and the oblique correction's projections;
 ``_round`` keeps its two residual norms (four with a restart) per problem.
 Pytree vectors are batched as in ``solvers/batched.py`` (a ``(v0, w0)``
-pair of trees of one structure); differentiation and pytree vectors on a
-sharded space are not (``ValueError``); an ``(f, fadjoint)`` tuple is one
-shared operator, never two problems.
+pair of trees of one structure), also on a sharded space; differentiation
+is refused (``ValueError``), as ``bieigsolve`` has no rule in either
+package; an ``(f, fadjoint)`` tuple is one shared operator, never two
+problems.
 """
 
 from __future__ import annotations
@@ -58,8 +59,8 @@ from ..ops import basis as bs
 from ..ops.operator import probe_dtype
 from ..ops.vector import (STANDARD, VectorSpace, alloc_batched, device_of, inner_batched, rounded,
                           tree_leaves, tree_row, tree_stack)
-from .batched import (_batch_size, _count, _goes_on, _in_dims, _Operators, _problems, _read,
-                      _refuse)
+from .batched import (_batch_size, _count, _differentiated, _goes_on, _in_dims, _Operators,
+                      _problems, _read)
 from .batched_arnoldi import _stack_infos
 from .biarnoldi import _extract, _LoopState, _round
 
@@ -100,12 +101,12 @@ def bieigsolve_batched(op, v0, w0, howmany: int, which, alg: BiArnoldi,
     m = alg.krylovdim
     if howmany > m:
         raise ValueError(f"howmany={howmany} exceeds krylovdim={m}")
-    _refuse(what, [v0, w0], [], space=space)
+    _differentiated(what, [v0, w0], [], space=space)
     P = _batch_size(_count(op, op_dim, "op", vector=False), _count(v0, v_dim, "v0"),
                     _count(w0, w_dim, "w0"))
     vs, ws = _problems(v0, v_dim, P), _problems(w0, w_dim, P)
     ops = _Operators(op, P, op_dim == 0, templates=vs)
-    _refuse(what, [], ops.distinct())
+    _differentiated(what, [], ops.distinct(), space=space)
     pdt = functools.reduce(torch.promote_types, [probe_dtype(o, vs[0]) for o in ops.distinct()])
     real = not pdt.is_complex and isinstance(which, str)
     cdt = pdt if real else torch.promote_types(pdt, torch.complex64)

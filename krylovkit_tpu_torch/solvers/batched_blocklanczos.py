@@ -36,9 +36,10 @@ block QRs' input norms, and each QR column's two projection passes and its
 norms; the dense round runs no collective.  A start of pytree vectors is a
 tree whose leaves are ``(P, b, ...)`` with ``in_dims`` ``0`` (a
 :class:`~..ops.block.Block` of trees, or its stacked tree, shared with
-``None``); its rows apply problem by problem.  Differentiation, and
-pytree vectors on a sharded space, are not batched (``ValueError``); an
-``(f, fadjoint)`` tuple is one shared operator, never two problems.
+``None``); its rows apply problem by problem.  Pytree vectors
+run on a sharded space too; differentiation is refused (``ValueError``),
+as a Block start has no rule in either package; an ``(f, fadjoint)``
+tuple is one shared operator, never two problems.
 """
 
 from __future__ import annotations
@@ -54,7 +55,7 @@ from ..ops import basis as bs
 from ..ops.block import Block
 from ..ops.operator import probe_dtype
 from ..ops.vector import STANDARD, VectorSpace, astype, device_of, rounded, tree_stack
-from .batched import _batch_size, _count, _in_dims, _Operators, _problems, _read, _refuse
+from .batched import _batch_size, _count, _differentiated, _in_dims, _Operators, _problems, _read
 from .batched_arnoldi import _stack_infos
 from .blocklanczos import _eps_pow, _extract, _restart, _round
 
@@ -87,10 +88,10 @@ def eigsolve_blocklanczos_batched(op, X0, howmany: int, which, alg: BlockLanczos
             raise ValueError(f"{what}: a Block is one shared start block; give one block per "
                              "problem as a (P, b, ...) tensor or a tree of such leaves")
         X0 = X0.stacked
-    _refuse(what, [X0], [], space=space)
+    _differentiated(what, [X0], [], space=space)
     P = _batch_size(_count(op, op_dim, "op", vector=False), _count(X0, x_dim, "X0"))
     ops = _Operators(op, P, op_dim == 0)
-    _refuse(what, [], ops.distinct())
+    _differentiated(what, [], ops.distinct(), space=space)
     X0s = _problems(X0, x_dim, P)
     b = bs.capacity(X0s[0])
     cdt = functools.reduce(torch.promote_types,

@@ -26,8 +26,9 @@ halos, one all-reduce a lock-step).  Pytree vectors (each of ``u₀, u₁,
 …`` a tree of one structure) take the unfused lock-step, leaf by leaf.
 ``eager=True`` takes the unfused lock-step: each problem of a cycle makes
 one step and then attempts the remaining interval, as its one-problem
-integration does.  Differentiation and pytree vectors on a sharded space
-are not batched (``ValueError``).
+integration does.  Pytree vectors run
+on a sharded space too; differentiation is refused (``ValueError``), as
+``exponentiate`` and ``expintegrator`` have no rule in either package.
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ from ..info import STARTSTOP, ConvergenceInfo, log_if, warn_if
 from ..ops.operator import probe_dtype
 from ..ops.vector import (STANDARD, VectorSpace, alloc_batched, device_of, tree_row, tree_stack,
                           zerovector)
-from .batched import _batch_size, _count, _Operators, _problems, _read, _refuse
+from .batched import _batch_size, _count, _differentiated, _Operators, _problems, _read
 from .expintegrator import WARNING, _host_t, _Integrator
 
 __all__ = ["expintegrator_batched", "exponentiate_batched"]
@@ -84,7 +85,7 @@ def expintegrator_batched(op, t, u: tuple, alg, space: VectorSpace = STANDARD, *
                     *[_count(ui, d, "u") for ui, d in zip(u, u_dims)])
     ops = _Operators(op, P, op_dim == 0)
     ts = _problems(t, t_dim, P, vector=False)
-    _refuse(what, u, ops.distinct(), ts, space)
+    _differentiated(what, u, ops.distinct(), ts, space)
     ts = [_host_t(tp) for tp in ts]
     us = [tuple(_problems(ui, d, P)[p] for ui, d in zip(u, u_dims)) for p in range(P)]
     if len(u) == 1:

@@ -52,8 +52,10 @@ lock-step (the stack apply, the adjoint stack apply, a sweep's
 coefficients, the norms); the fused GKL gate refuses such a space, so
 ``svdsolve`` runs unfused there.  Pytree vectors are batched as in
 ``solvers/batched.py`` (a domain tree may differ from the codomain tree:
-give ``(f, fadjoint)`` on the trees); differentiation and pytree vectors on
-a sharded space are not batched (``ValueError``).
+give ``(f, fadjoint)`` on the trees), also on a sharded space.
+:func:`svdsolve_gkl_batched` is differentiable as ``svdsolve`` is
+(``alg_rrule``, ``ad/batched.py``) on an unsharded space; LSMR refuses
+differentiation, as ``lssolve`` does (``ValueError``).
 """
 
 from __future__ import annotations
@@ -74,12 +76,12 @@ from . import svdsolve as sv
 from .batched import (
     _batch_size,
     _count,
+    _differentiated,
     _goes_on,
     _in_dims,
     _Operators,
     _problems,
     _read,
-    _refuse,
     _rotate,
 )
 from .batched_arnoldi import _stack_infos
@@ -90,20 +92,21 @@ __all__ = ["svdsolve_gkl_batched", "lssolve_lsmr_batched"]
 
 
 def _setup(what: str, op, x, in_dims, names, scalars=(), check_space=None,
-           space: VectorSpace = STANDARD):
+           space: VectorSpace = STANDARD, rule: bool = False):
     """The problems of a batched call: ``(ops, vectors, probe dtype)``,
-    after the refusals; every operator with its adjoint, a caller's
+    after the refusals (``(ops, None, None)`` where the call differentiates
+    through its rule, ``rule``); every operator with its adjoint, a caller's
     ``(f, fadjoint)`` pair checked in ``check_space`` as the one-problem
     front-end checks it.  On a sharded space every rank runs the same
     probes and guard on its own block (the guard's applies are collective;
     the probes run on ``meta`` copies, which make none)."""
     op_dim, x_dim = _in_dims(in_dims, names)
-    # the vectors first: the adjoint guard below runs in them
-    _refuse(what, [x], [], scalars, space)
     P = _batch_size(_count(op, op_dim, names[0], vector=False), _count(x, x_dim, names[1]))
-    xs = _problems(x, x_dim, P)
+    # the adjoint guard runs in the vectors, detached
+    xs = _problems(tree_map(torch.Tensor.detach, x), x_dim, P)
     ops = _Operators(op, P, op_dim == 0, templates=xs, check_space=check_space)
-    _refuse(what, [], ops.distinct())
+    if _differentiated(what, [x], ops.distinct(), scalars, space, rule):
+        return ops, None, None
     # the vectors live in the codomain: the scalar type comes through the adjoint
     cdt = functools.reduce(torch.promote_types,
                            [scalartype(probe_adjoint(o, xs[0]), xs[0]) for o in ops.distinct()])
@@ -111,7 +114,7 @@ def _setup(what: str, op, x, in_dims, names, scalars=(), check_space=None,
 
 
 def svdsolve_gkl_batched(op, x0, howmany: int, which, alg: GKL, space: VectorSpace = STANDARD,
-                         *, in_dims=(None, 0)):
+                         *, in_dims=(None, 0), alg_rrule=None):
     """Partial SVDs of ``P`` problems, each as
     :func:`~.svdsolve.svdsolve_gkl` computes it, in one host loop (module
     docstring).
@@ -123,11 +126,20 @@ def svdsolve_gkl_batched(op, x0, howmany: int, which, alg: GKL, space: VectorSpa
     codomain).  Returns ``(vals (P, howmany), lvecs (P, howmany, ...), rvecs
     (P, howmany, ...), info)``; ``info``'s counts are ``(P,)`` int64 tensors.
     At ``WARN`` each unconverged problem prints its one-problem line, in
-    problem order."""
+    problem order.
+
+    Differentiable in ``x0`` (zero gradient) and in the tensors of the
+    operators, as ``svdsolve`` is (``ad/batched.py``, ``alg_rrule``)."""
     m = alg.krylovdim
     sv._check(howmany, m, which)
     # the pair's guard runs in the standard inner product, as svdsolve's does
-    ops, x0s, cdt = _setup("svdsolve_gkl_batched", op, x0, in_dims, ("op", "x0"), space=space)
+    ops, x0s, cdt = _setup("svdsolve_gkl_batched", op, x0, in_dims, ("op", "x0"), space=space,
+                           rule=True)
+    if x0s is None:
+        from ..ad.batched import svdsolve_batched_vjp
+
+        return svdsolve_batched_vjp(svdsolve_gkl_batched, ops.ops, x0, howmany, which, alg,
+                                    alg_rrule, space, tuple(in_dims))
     P = len(x0s)
     tol, btol = sv._tolerances(alg, cdt)
     dev = device_of(x0s[0])

@@ -35,9 +35,10 @@ operator (one halo all-reduce each) and every orthonormalization and
 norm one all-reduce for all its problems; ``_ritz`` (two Gram products,
 three row-wise products) and ``_restart`` (one norm) keep one all-reduce
 per problem a round.  Pytree vectors are batched as in
-``solvers/batched.py``; differentiation, and pytree vectors on a sharded
-space, are not (``ValueError``); an ``(f, fadjoint)`` tuple is one shared
-operator, never two problems.
+``solvers/batched.py``; pytree vectors
+run on a sharded space too; differentiation is refused (``ValueError``),
+as ``geneigsolve`` has no rule in either package; an ``(f, fadjoint)``
+tuple is one shared operator, never two problems.
 """
 
 from __future__ import annotations
@@ -55,7 +56,7 @@ from ..ops.operator import probe_dtype
 from ..ops.vector import (STANDARD, VectorSpace, alloc_batched, astype, device_of, inner_batched,
                           norm_batched, rounded, tree_leaves, tree_map, tree_row, tree_rows,
                           tree_stack)
-from .batched import _batch_size, _count, _in_dims, _Operators, _problems, _read, _refuse
+from .batched import _batch_size, _count, _differentiated, _in_dims, _Operators, _problems, _read
 from .batched_arnoldi import _stack_infos
 from .batched_linsolve import _scaled
 from .golubye import _restart, _ritz, _shifted
@@ -85,12 +86,12 @@ def geneigsolve_golubye_batched(opA, opB, x0, howmany: int, which, alg: GolubYe,
         raise ValueError("which=LI/SI invalid for Hermitian pencils (real spectrum)")
     if opB is None:
         b_dim = None
-    _refuse(what, [x0], [], space=space)
+    _differentiated(what, [x0], [], space=space)
     P = _batch_size(_count(opA, a_dim, "opA", vector=False),
                     _count(opB, b_dim, "opB", vector=False), _count(x0, x_dim, "x0"))
     opsA = _Operators(opA, P, a_dim == 0)
     opsB: Optional[_Operators] = None if opB is None else _Operators(opB, P, b_dim == 0)
-    _refuse(what, [], opsA.distinct() + (opsB.distinct() if opsB else []))
+    _differentiated(what, [], opsA.distinct() + (opsB.distinct() if opsB else []), space=space)
     x0s = _problems(x0, x_dim, P)
     cdt = functools.reduce(torch.promote_types,
                            [probe_dtype(o, x0s[0]) for o in opsA.distinct()])

@@ -34,8 +34,10 @@ problems on its block of rows, and a step's inner products are one
 all-reduce of the ``(p,)`` partials each, its applies one stack apply of
 the shared sharded operator.  Pytree vectors are stacks of trees
 (``solvers/batched.py``): every stack operation runs leaf by leaf and each
-row's inner products are the one-problem tree inner.  Differentiation,
-and pytree vectors on a sharded space, are not batched (``ValueError``).
+row's inner products are the one-problem tree inner, also on a sharded
+space.  Each driver is differentiable as ``linsolve`` is (``alg_rrule``;
+``ad/batched.py``: the ``P`` adjoint systems in one batched solve of
+``alg_rrule``'s family), on an unsharded space.
 """
 
 from __future__ import annotations
@@ -50,7 +52,7 @@ from ..ops.operator import apply_shifted_batched, probe_dtype
 from ..ops.vector import (STANDARD, VectorSpace, add, astype, device_of, inner_batched,
                           norm_batched, rounded, scalartype, scale, tree_leaves, tree_map,
                           tree_row, tree_rows)
-from .batched import _batch_size, _count, _in_dims, _Operators, _read, _refuse
+from .batched import _batch_size, _count, _differentiated, _in_dims, _Operators, _read
 
 __all__ = ["linsolve_cg_batched", "linsolve_minres_batched", "linsolve_bicgstab_batched"]
 
@@ -137,7 +139,9 @@ class _Problem:
         self.P = _batch_size(_count(op, op_dim, "op", vector=False), _count(b, b_dim, "b"),
                              _count(x0, x_dim, "x0"))
         self.ops = _Operators(op, self.P, op_dim == 0)
-        _refuse(name, [b, x0], self.ops.distinct(), (a0, a1), space)
+        self.args = (b, x0, a0, a1, space, (op_dim, b_dim, x_dim))
+        self.grad = _differentiated(name, [b, x0], self.ops.distinct(), (a0, a1), space,
+                                    rule=True)
         P = self.P
 
         def expand(l):
@@ -148,6 +152,14 @@ class _Problem:
         self.a0, self.a1 = a0, a1
         self.dev = device_of(b)
         self.every = list(range(P))
+
+    def vjp(self, driver, alg, alg_rrule):
+        """``driver`` on these problems through ``ad/batched.py``: its
+        backward solves the adjoint systems with ``alg_rrule``."""
+        from ..ad.batched import linsolve_batched_vjp
+
+        return linsolve_batched_vjp(driver, self.ops.ops, *self.args[:4], alg, alg_rrule,
+                                    *self.args[4:])
 
     def cdt(self) -> torch.dtype:
         """The problems' scalar type, as :func:`probe_dtype` gives it."""
@@ -180,12 +192,14 @@ class _Problem:
 
 
 def linsolve_cg_batched(op, b, x0, a0, a1, alg: CG, space: VectorSpace = STANDARD, *,
-                        in_dims=(None, 0, 0)):
+                        in_dims=(None, 0, 0), alg_rrule=None):
     """Conjugate-gradient solves of ``P`` systems, each as
     :func:`~.cg.linsolve_cg` solves it, in one host loop (module
     docstring).  Returns ``(x (P, ...), info)`` with ``(P,)`` counts; a
     problem's ``x`` takes the type of its start and residual together."""
     pr = _Problem("linsolve_cg_batched", op, b, x0, a0, a1, space, in_dims)
+    if pr.grad:
+        return pr.vjp(linsolve_cg_batched, alg, alg_rrule)
     P = pr.P
     tol = rounded(alg.tol, scalartype(pr.B).to_real())
     R = pr.true_residual(pr.every, pr.X0, pr.B)
@@ -245,12 +259,14 @@ def linsolve_cg_batched(op, b, x0, a0, a1, alg: CG, space: VectorSpace = STANDAR
 
 
 def linsolve_minres_batched(op, b, x0, a0, a1, alg: MINRES, space: VectorSpace = STANDARD, *,
-                            in_dims=(None, 0, 0)):
+                            in_dims=(None, 0, 0), alg_rrule=None):
     """MINRES solves of ``P`` Hermitian systems, each as
     :func:`~.minres.linsolve_minres` solves it, in one host loop (module
     docstring).  Returns ``(x (P, ...), info)`` with ``(P,)`` counts; the
     final true residuals are one more batched apply of every problem."""
     pr = _Problem("linsolve_minres_batched", op, b, x0, a0, a1, space, in_dims)
+    if pr.grad:
+        return pr.vjp(linsolve_minres_batched, alg, alg_rrule)
     P, dev = pr.P, pr.dev
     cdt = pr.cdt()
     rdt = cdt.to_real()
@@ -338,13 +354,15 @@ def linsolve_minres_batched(op, b, x0, a0, a1, alg: MINRES, space: VectorSpace =
 
 
 def linsolve_bicgstab_batched(op, b, x0, a0, a1, alg: BiCGStab, space: VectorSpace = STANDARD,
-                              *, in_dims=(None, 0, 0)):
+                              *, in_dims=(None, 0, 0), alg_rrule=None):
     """BiCGStab solves of ``P`` systems, each as
     :func:`~.bicgstab.linsolve_bicgstab` solves it, in one host loop (module
     docstring): the shadow residual, the half and full steps and their
     verifications, and the breakdown test against ``eps²·‖r₀‖²`` per
     problem.  Returns ``(x (P, ...), info)`` with ``(P,)`` counts."""
     pr = _Problem("linsolve_bicgstab_batched", op, b, x0, a0, a1, space, in_dims)
+    if pr.grad:
+        return pr.vjp(linsolve_bicgstab_batched, alg, alg_rrule)
     P, dev = pr.P, pr.dev
     cdt = pr.cdt()
     rdt = cdt.to_real()

@@ -247,23 +247,24 @@ def test_warn_lines_of_a_batched_solve_match_jax_vmap():
 
 def test_batched_lanczos_refusals():
     """(h) each piece this slice does not batch raises ``ValueError`` with
-    its name, pytree vectors on a sharded space among them, and selective
-    with eager as the one-problem driver refuses it.  A sharded space is
-    batched: on a one-rank axis, the unsharded bits.  Pytree vectors are
-    batched: each problem of a dict batch is its one-problem dict solve,
-    bit for bit; so are ``eager=True`` and selective reorthogonalization."""
+    its name: selective with eager, as the one-problem driver refuses it,
+    and differentiation on a sharded space.  A sharded space is batched: on
+    a one-rank axis, the unsharded bits, pytree vectors too.  Pytree vectors
+    are batched: each problem of a dict batch is its one-problem dict solve,
+    bit for bit; so are ``eager=True`` and selective reorthogonalization.
+    A start that requires grad is differentiated (``ad/batched.py``): it
+    gets no gradient, as ``eigsolve``'s ``x0`` gets none."""
     top = kt.laplacian_1d(N, device="cpu")
     X = torch.from_numpy(_starts(2))
     alg = kt.Lanczos(krylovdim=10)
     one = kt.VectorSpace(psum_axis=MeshAxis("vec", None, 1, 0))
     cases = [
-        (lambda: kt.eigsolve_lanczos_batched(top, {"a": X}, 1, "LM", alg, space=one),
-         "pytree vectors on a sharded space"),
         (lambda: kt.eigsolve_lanczos_batched(
             top, X, 1, "LM", kt.Lanczos(krylovdim=10, eager=True, reorth="selective")),
          "selective.*incompatible with eager"),
-        (lambda: kt.eigsolve_lanczos_batched(top, X.clone().requires_grad_(True), 1, "LM", alg),
-         "differentiation"),
+        (lambda: kt.eigsolve_lanczos_batched(top, X.clone().requires_grad_(True), 1, "LM", alg,
+                                             space=one),
+         "eigsolve_lanczos_batched: differentiation.*not yet batched on a sharded space"),
         (lambda: kt.eigsolve_lanczos_batched(top, X, 1, "LM", alg, in_dims=(None, None)),
          "in_dims"),
         (lambda: kt.eigsolve_lanczos_batched([top], X, 1, "LM", alg, in_dims=(0, 0)),
@@ -281,6 +282,16 @@ def test_batched_lanczos_refusals():
         v1, w1, i1 = t_eigsolve_lanczos(dict_op, {"a": X[p]}, 1, "LM", short)
         assert torch.equal(vals[p], v1) and torch.equal(vecs["a"][p], w1["a"])
         assert int(info.numops[p]) == i1.numops and list(vecs) == ["a"]
+    # the dict batch on a one-rank sharded space: the unsharded bits
+    vals1, vecs1, info1 = kt.eigsolve_lanczos_batched(dict_op, {"a": X}, 1, "LM", short, one)
+    assert torch.equal(vals1, vals) and torch.equal(vecs1["a"], vecs["a"])
+    assert torch.equal(info1.numops, info.numops)
+    # a start that requires grad: the solve's bits, no gradient to the start
+    Xg = X.clone().requires_grad_(True)
+    vals_g, _, _ = kt.eigsolve_lanczos_batched(top, Xg, 1, "LM", short)
+    vals_g.sum().backward()
+    assert vals_g.requires_grad and Xg.grad is None
+    assert torch.equal(vals_g.detach(), kt.eigsolve_lanczos_batched(top, X, 1, "LM", short)[0])
     got = kt.eigsolve_lanczos_batched(top, X, 1, "LM", short, space=one)
     want = kt.eigsolve_lanczos_batched(top, X, 1, "LM", short)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

@@ -180,18 +180,17 @@ def test_realeigsolve_warn_lines_match_jax_vmap():
 
 def test_batched_arnoldi_refusals():
     """Each piece this slice does not batch raises ``ValueError`` with its
-    name.  A sharded space is batched: on a one-rank axis, the unsharded
-    bits; so is ``Arnoldi(eager=True)``: each problem its one-problem eager
+    name: differentiation of ``schursolve``, which has no rule.  A sharded
+    space is batched: on a one-rank axis, the unsharded bits, a dict batch
+    too; so is ``Arnoldi(eager=True)``: each problem its one-problem eager
     solve, bit for bit."""
     top = convert.stencil_from_arrays(*NONSYM, "cpu")
     X = chip_smoke.batched_starts(torch, np, 16, 2, "cpu")
     alg = kt.Arnoldi(krylovdim=10)
     one = kt.VectorSpace(psum_axis=MeshAxis("vec", None, 1, 0))
     cases = [
-        (lambda: kt.schursolve_batched(top, {"a": X}, 1, "LM", alg, space=one),
-         "pytree vectors on a sharded space"),
         (lambda: kt.schursolve_batched(top, X.clone().requires_grad_(True), 1, "LM", alg),
-         "differentiation"),
+         "schursolve_batched: differentiation has no rule"),
         (lambda: kt.eigsolve_arnoldi_batched(top, X, 1, "LM", alg, in_dims=(None, None)),
          "in_dims"),
         (lambda: kt.schursolve_batched([top], X, 1, "LM", alg, in_dims=(0, 0)), "disagree"),
@@ -212,6 +211,9 @@ def test_batched_arnoldi_refusals():
         T1, V1, (re1, im1), i1 = kt.schursolve(dict_op, {"a": X[p]}, 1, "LM", short)
         assert torch.equal(T[p], T1) and torch.equal(V["a"][p], V1["a"])
         assert torch.equal(re_[p], re1) and int(info.numops[p]) == i1.numops
+    T1, V1, (re1, _), info1 = kt.schursolve_batched(dict_op, {"a": X}, 1, "LM", short, one)
+    assert torch.equal(T1, T) and torch.equal(V1["a"], V["a"]) and torch.equal(re1, re_)
+    assert torch.equal(info1.numops, info.numops)
     eager = kt.Arnoldi(krylovdim=10, maxiter=2, eager=True)
     vals, vecs, info = kt.realeigsolve_arnoldi_batched(top, X, 1, "LM", eager)[:3]
     for p in range(2):

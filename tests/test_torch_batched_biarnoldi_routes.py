@@ -176,12 +176,13 @@ def test_warn_lines_are_the_one_problem_lines_in_problem_order():
 
 def test_batched_bieigsolve_refusals():
     """Each piece this slice does not batch raises ``ValueError`` with its
-    name: pytree vectors on a sharded space, an input or an operator tensor
-    that requires grad, ``in_dims`` other than 0 or None, an ``(f,
-    fadjoint)`` tuple given as a batch; and the argument checks.  A sharded
-    space is batched: on a one-rank axis, the unsharded bits; so are pytree
-    vectors: each problem of a pair of dict batches is its one-problem dict
-    solve, bit for bit; so is ``BiArnoldi(eager=True)``."""
+    name: an input or an operator tensor that requires grad (``bieigsolve``
+    has no rule), ``in_dims`` other than 0 or None, an ``(f, fadjoint)``
+    tuple given as a batch; and the argument checks.  A sharded space is
+    batched: on a one-rank axis, the unsharded bits, a pair of dict batches
+    too; so are pytree vectors: each problem of a pair of dict batches is
+    its one-problem dict solve, bit for bit; so is
+    ``BiArnoldi(eager=True)``."""
     As, _, _ = _stack(10)
     A = torch.from_numpy(As[0])
     Vt, Wt = torch.from_numpy(As[1, :P]), torch.from_numpy(As[2, :P])
@@ -189,10 +190,8 @@ def test_batched_bieigsolve_refusals():
     solve = kt.bieigsolve_batched
     pair = (lambda x: A @ x, lambda y: A.T @ y)
     cases = [
-        (lambda: solve(A, {"a": Vt}, {"a": Wt}, 1, "LM", alg,
-                       space=kt.VectorSpace(psum_axis=MeshAxis("vec", None, 1, 0))),
-         "pytree vectors on a sharded space"),
-        (lambda: solve(A, Vt.clone().requires_grad_(True), Wt, 1, "LM", alg), "differentiation"),
+        (lambda: solve(A, Vt.clone().requires_grad_(True), Wt, 1, "LM", alg),
+         "bieigsolve_batched: differentiation has no rule"),
         (lambda: solve(A.clone().requires_grad_(True), Vt, Wt, 1, "LM", alg), "differentiation"),
         (lambda: solve(A, Vt, Wt, 1, "LM", alg, in_dims=(None, 0, 1)), "in_dims"),
         (lambda: solve(pair, Vt[:2], Wt[:2], 1, "LM", alg, in_dims=(0, 0, 0)),
@@ -224,6 +223,10 @@ def test_batched_bieigsolve_refusals():
                                         alg)
         assert torch.equal(vals[p], v1) and torch.equal(V["a"][p], V1["a"])
         assert torch.equal(W["a"][p], W1["a"]) and int(iV.numops[p]) == i1.numops
+    got = solve(dpair, {"a": Vt}, {"a": Wt}, 2, "LM", alg,
+                space=kt.VectorSpace(psum_axis=MeshAxis("vec", None, 1, 0)))
+    assert torch.equal(got[0], vals) and torch.equal(got[1][0]["a"], V["a"])
+    assert torch.equal(got[1][1]["a"], W["a"]) and counts(got[2][0]) == counts(iV)
     # a pair given as one shared operator solves as the matrix does
     got = solve(pair, Vt, Wt, 2, "LM", alg)
     want = solve(A, Vt, Wt, 2, "LM", alg)

@@ -221,13 +221,13 @@ def test_warn_lines_are_the_one_problem_lines_in_problem_order():
 
 def test_batched_blocklanczos_refusals():
     """Each piece this slice does not batch raises ``ValueError`` with its
-    name: pytree vectors on a sharded space, a start or an operator tensor
-    that requires grad, ``in_dims`` other than 0 or None, an ``(f,
-    fadjoint)`` tuple given as a batch, a ``Block`` given as a batch; and
-    the argument checks.  A sharded space is batched: on a one-rank axis,
-    the unsharded bits; so are pytree vectors (a dict block per problem, a
-    shared ``Block`` of dicts): each problem its one-problem dict solve,
-    bit for bit."""
+    name: a start or an operator tensor that requires grad (a Block start
+    has no rule), ``in_dims`` other than 0 or None, an ``(f, fadjoint)``
+    tuple given as a batch, a ``Block`` given as a batch; and the argument
+    checks.  A sharded space is batched: on a one-rank axis, the unsharded
+    bits, a dict batch too; so are pytree vectors (a dict block per
+    problem, a shared ``Block`` of dicts): each problem its one-problem dict
+    solve, bit for bit."""
     As, X0, Xs = _problems()
     A = torch.from_numpy(As[0])
     X = torch.from_numpy(Xs)
@@ -235,10 +235,8 @@ def test_batched_blocklanczos_refusals():
     solve = kt.eigsolve_blocklanczos_batched
     block = kt.Block([torch.from_numpy(x) for x in X0])
     cases = [
-        (lambda: solve(A, {"a": X}, 1, "LR", alg,
-                       space=kt.VectorSpace(psum_axis=MeshAxis("vec", None, 1, 0))),
-         "pytree vectors on a sharded space"),
-        (lambda: solve(A, X.clone().requires_grad_(True), 1, "LR", alg), "differentiation"),
+        (lambda: solve(A, X.clone().requires_grad_(True), 1, "LR", alg),
+         "eigsolve_blocklanczos_batched: differentiation has no rule"),
         (lambda: solve(A.clone().requires_grad_(True), X, 1, "LR", alg), "differentiation"),
         (lambda: solve(A, X, 1, "LR", alg, in_dims=(None, 1)), "in_dims"),
         (lambda: solve((lambda x: A @ x, lambda x: A @ x), X[:2], 1, "LR", alg, in_dims=(0, 0)),
@@ -269,6 +267,10 @@ def test_batched_blocklanczos_refusals():
             v1, w1, i1 = t_blocklanczos(op1, {"a": X1}, 2, "LR", short)
             assert torch.equal(vals[p], v1) and torch.equal(vecs["a"][p], w1["a"])
             assert int(info.numops[p]) == i1.numops
+        got = solve(ops_, X0_, 2, "LR", short, kt.VectorSpace(
+            psum_axis=MeshAxis("vec", None, 1, 0)), in_dims=dims)
+        assert torch.equal(got[0], vals) and torch.equal(got[1]["a"], vecs["a"])
+        assert torch.equal(got[2].numops, info.numops)
     # a shared Block start is taken as its stacked tensor
     vals, _, info = solve(convert.matrices_from_numpy(As, "cpu"), block, 2, "LR", alg,
                           in_dims=(0, None))

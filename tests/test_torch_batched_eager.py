@@ -124,14 +124,17 @@ def test_batched_eager_lanczos_on_tuples_matches_jax_vmap():
 @pytest.mark.parametrize("driver", ["eigsolve_lanczos_batched", "svdsolve_gkl_batched",
                                     "exponentiate_batched"])
 def test_batched_eager_refusals_that_remain(driver):
-    """An eager batch still refuses differentiation and pytree vectors on a
-    sharded space, naming itself; on a one-rank sharded axis it is the
-    unsharded batch, bit for bit."""
+    """An eager batch on a sharded space still refuses differentiation,
+    and ``exponentiate`` everywhere (it has no rule), naming itself; an
+    eager Lanczos or GKL batch differentiates; on a one-rank sharded axis a
+    batch is the unsharded batch, bit for bit, a dict batch too."""
     A = torch.diag(torch.linspace(1.0, 2.0, 8, dtype=torch.float64))
     X = torch.ones((2, 8), dtype=torch.float64) + torch.arange(8.0, dtype=torch.float64) / 8
     one = kt.VectorSpace(psum_axis=MeshAxis("vec", None, 1, 0))
 
-    def call(X0, space=kt.STANDARD):
+    def call(X0, space=kt.STANDARD, A=A):
+        if isinstance(X0, dict):  # a dict batch: the map on dicts, with its adjoint
+            A = (lambda x, A=A: {"a": A @ x["a"]}, lambda y, A=A: {"a": A.T @ y["a"]})
         if driver == "eigsolve_lanczos_batched":
             return kt.eigsolve_lanczos_batched(A, X0, 1, "LR", kt.Lanczos(krylovdim=4, eager=True),
                                                space)
@@ -139,13 +142,23 @@ def test_batched_eager_refusals_that_remain(driver):
             return kt.svdsolve_gkl_batched(A, X0, 1, "LR", kt.GKL(krylovdim=4, eager=True), space)
         return kt.exponentiate_batched(A, 0.1, X0, kt.Lanczos(krylovdim=4, eager=True), space)
 
-    for X0, space, why in (({"a": X}, one, "pytree vectors on a sharded space"),
-                           (X.clone().requires_grad_(True), kt.STANDARD, "differentiation")):
-        with pytest.raises(ValueError, match=f"{driver.replace('exponentiate', 'expintegrator')}"
-                                             f".*{why}"):
-            call(X0, space)
+    named = driver.replace("exponentiate", "expintegrator")
+    refused = [(A.clone().requires_grad_(True), one, "differentiation.*not yet batched on a "
+                                                      "sharded space")]
+    if driver == "exponentiate_batched":
+        refused.append((A.clone().requires_grad_(True), kt.STANDARD,
+                        "differentiation has no rule"))
+    for A0, space, why in refused:
+        with pytest.raises(ValueError, match=f"{named}: {why}"):
+            call(X, space, A0)
+    if driver != "exponentiate_batched":
+        Ag = A.clone().requires_grad_(True)
+        call(X, kt.STANDARD, Ag)[0].sum().backward()
+        assert Ag.grad is not None and bool(torch.isfinite(Ag.grad).all())
     got, want = call(X, one), call(X)
     assert torch.equal(got[0], want[0])
+    got, want = call({"a": X}, one), call({"a": X})
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(got[0]), tree_leaves(want[0])))
 
 
 @pytest.mark.cuda

@@ -208,18 +208,17 @@ def test_warn_lines_match_jax_vmap():
 
 def test_batched_expintegrator_refusals():
     """Each piece this slice does not batch raises ``ValueError`` with its
-    name.  A sharded space is batched: on a one-rank axis, the unsharded
-    bits; so is ``eager=True``: each problem its one-problem eager
-    integration, bit for bit."""
+    name: differentiation (no rule in either package).  A sharded space is
+    batched: on a one-rank axis, the unsharded bits, a dict batch too; so
+    is ``eager=True``: each problem its one-problem eager integration, bit
+    for bit."""
     top = convert.stencil_from_arrays(*NEG, "cpu")
     X = chip_smoke.batched_starts(torch, np, 16, 2, "cpu")
     alg = kt.Lanczos(krylovdim=10)
     one = kt.VectorSpace(psum_axis=MeshAxis("vec", None, 1, 0))
     cases = [
-        (lambda: kt.exponentiate_batched(top, 0.1, {"a": X}, alg, space=one),
-         "pytree vectors on a sharded space"),
         (lambda: kt.exponentiate_batched(top, 0.1, X.clone().requires_grad_(True), alg),
-         "differentiation"),
+         "expintegrator_batched: differentiation has no rule"),
         (lambda: kt.exponentiate_batched(top, torch.tensor([0.1, 0.2], requires_grad=True), X,
                                          alg, in_dims=(None, 0, 0)), "differentiation"),
         (lambda: kt.exponentiate_batched(top, 0.1, X, alg, in_dims=(None, None, None)),
@@ -248,3 +247,5 @@ def test_batched_expintegrator_refusals():
     for p in range(2):
         y1, i1 = te._expintegrator_core(dict_op, 0.1, ({"a": X[p]},), alg, kt.STANDARD)
         assert torch.equal(y["a"][p], y1["a"]) and int(info.numops[p]) == i1.numops
+    y1, info1 = kt.exponentiate_batched(dict_op, 0.1, {"a": X}, alg, space=one)
+    assert torch.equal(y1["a"], y["a"]) and torch.equal(info1.numops, info.numops)

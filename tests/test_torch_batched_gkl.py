@@ -233,21 +233,21 @@ def test_repr_of_batched_info():
 
 def test_batched_svdsolve_refusals():
     """Each piece this slice does not batch raises ``ValueError`` with its
-    name: pytree vectors on a sharded space, an input or an operator tensor
-    that requires grad; and the argument checks.  A sharded space is
-    batched: on a one-rank axis, the unsharded bits; so are pytree vectors:
-    a dict batch gives each problem its one-problem dict solve, bit for
-    bit; so does ``GKL(eager=True)``."""
+    name: an input or an operator tensor that requires grad on a sharded
+    space; and the argument checks.  A sharded space is batched: on a
+    one-rank axis, the unsharded bits, a dict batch too; so are pytree
+    vectors: a dict batch gives each problem its one-problem dict solve,
+    bit for bit; so does ``GKL(eager=True)``.  Unsharded, a start or an
+    operator that requires grad is differentiated (``ad/batched.py``)."""
     As, X = _problems("real", seed=10)
     A = torch.from_numpy(As[0])
     Xt = torch.from_numpy(X)
     alg = kt.GKL(krylovdim=8)
+    one = kt.VectorSpace(psum_axis=MeshAxis("vec", None, 1, 0))
     cases = [
-        (lambda: kt.svdsolve_gkl_batched(A, {"a": Xt}, 1, "LR", alg, space=kt.VectorSpace(
-            psum_axis=MeshAxis("vec", None, 1, 0))), "pytree vectors on a sharded space"),
-        (lambda: kt.svdsolve_gkl_batched(A, Xt.clone().requires_grad_(True), 1, "LR", alg),
-         "differentiation"),
-        (lambda: kt.svdsolve_gkl_batched(A.clone().requires_grad_(True), Xt, 1, "LR", alg),
+        (lambda: kt.svdsolve_gkl_batched(A, Xt.clone().requires_grad_(True), 1, "LR", alg, one),
+         "svdsolve_gkl_batched: differentiation.*not yet batched on a sharded space"),
+        (lambda: kt.svdsolve_gkl_batched(A.clone().requires_grad_(True), Xt, 1, "LR", alg, one),
          "differentiation"),
         (lambda: kt.svdsolve_gkl_batched(A, Xt, 1, "LM", alg), "which"),
         (lambda: kt.svdsolve_gkl_batched(A, Xt, 9, "LR", alg), "krylovdim"),
@@ -275,3 +275,13 @@ def test_batched_svdsolve_refusals():
         S1, U1, V1, i1 = t_svdsolve_gkl(as_operator(dpair), {"u": Xt[p]}, 1, "LR", alg)
         assert torch.equal(S[p], S1) and torch.equal(U["u"][p], U1["u"])
         assert torch.equal(V["v"][p], V1["v"]) and int(info.numops[p]) == i1.numops
+    got = kt.svdsolve_gkl_batched(dpair, {"u": Xt}, 1, "LR", alg, one)
+    assert torch.equal(got[0], S) and torch.equal(got[1]["u"], U["u"])
+    assert torch.equal(got[2]["v"], V["v"]) and torch.equal(got[3].numops, info.numops)
+    # unsharded, a start and an operator that require grad are differentiated:
+    # the start gets no gradient, the operator its one
+    Ag, Xg = A.clone().requires_grad_(True), Xt.clone().requires_grad_(True)
+    Sg = kt.svdsolve_gkl_batched(Ag, Xg, 1, "LR", alg)[0]
+    Sg.sum().backward()
+    assert torch.equal(Sg.detach(), kt.svdsolve_gkl_batched(A, Xt, 1, "LR", alg)[0])
+    assert Xg.grad is None and bool(torch.isfinite(Ag.grad).all())

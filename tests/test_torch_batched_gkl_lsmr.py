@@ -245,19 +245,18 @@ def test_lsmr_warn_lines_match_one_problem_text_and_jax_vmap():
 
 
 def test_batched_lssolve_refusals():
-    """Pytree vectors on a sharded space, and a right-hand side, an operator
-    tensor or a ``lam`` that requires grad raise ``ValueError`` with the
-    cause's name; so do the argument checks.  A sharded space is batched: on
-    a one-rank axis, the unsharded bits; so are pytree vectors: a dict batch
-    gives each problem its one-problem dict solve, bit for bit."""
+    """A right-hand side, an operator tensor or a ``lam`` that requires grad
+    raise ``ValueError`` with the cause's name (``lssolve`` has no rule);
+    so do the argument checks.  A sharded space is batched: on a one-rank
+    axis, the unsharded bits, a dict batch too; so are pytree vectors: a
+    dict batch gives each problem its one-problem dict solve, bit for
+    bit."""
     A = torch.from_numpy(np.random.default_rng(15).standard_normal((M, N)))
     B = torch.from_numpy(np.random.default_rng(16).standard_normal((P, M)))
     alg = kt.LSMR(tol=1e-8)
     cases = [
-        (lambda: kt.lssolve_lsmr_batched(A, {"b": B}, alg, space=kt.VectorSpace(
-            psum_axis=MeshAxis("vec", None, 1, 0))), "pytree vectors on a sharded space"),
         (lambda: kt.lssolve_lsmr_batched(A, B.clone().requires_grad_(True), alg),
-         "differentiation"),
+         "lssolve_lsmr_batched: differentiation has no rule"),
         (lambda: kt.lssolve_lsmr_batched(A.clone().requires_grad_(True), B, alg),
          "differentiation"),
         (lambda: kt.lssolve_lsmr_batched(A, B, alg, torch.tensor(0.5, dtype=torch.float64,
@@ -279,3 +278,6 @@ def test_batched_lssolve_refusals():
     for p in range(P):
         x1, i1 = t_lsmr(as_operator(dpair), {"b": B[p]}, alg)
         assert torch.equal(x["x"][p], x1["x"]) and int(info.numops[p]) == i1.numops
+    x1, info1 = kt.lssolve_lsmr_batched(dpair, {"b": B}, alg, space=kt.VectorSpace(
+        psum_axis=MeshAxis("vec", None, 1, 0)))
+    assert torch.equal(x1["x"], x["x"]) and torch.equal(info1.numops, info.numops)

@@ -175,17 +175,17 @@ def test_batched_gmres_warn_lines_match_jax_vmap():
 
 
 def test_batched_gmres_refusals():
-    """(h) pytree vectors on a sharded space, a shifted system whose shift
-    requires grad, an operator given no problem axis and problem counts
-    that disagree raise ``ValueError``; pytree vectors are batched: each
-    problem of a dict batch is its one-problem dict solve, bit for bit."""
+    """(h) a shifted system whose shift requires grad on a sharded space,
+    an operator given no problem axis and problem counts that disagree
+    raise ``ValueError``; pytree vectors are batched: each problem of a
+    dict batch is its one-problem dict solve, bit for bit, and so on a
+    one-rank sharded axis.  Unsharded, the shift's gradient is the sum of
+    the one-problem gradients."""
     A = torch.eye(8, dtype=torch.float64) * 2
     B = torch.ones(2, 8, dtype=torch.float64)
     alg = kt.GMRES(krylovdim=4)
     from krylovkit_tpu_torch.ops.collectives import MeshAxis
-    with pytest.raises(ValueError, match="pytree vectors on a sharded space"):
-        kt.linsolve_gmres_batched(A, {"b": B}, {"b": B}, 0.0, 1.0, alg,
-                                  kt.VectorSpace(psum_axis=MeshAxis("vec", None, 1, 0)))
+    one = kt.VectorSpace(psum_axis=MeshAxis("vec", None, 1, 0))
     dict_op = kt.as_operator(lambda x: {"b": (A + torch.ones(8, 8, dtype=A.dtype)) @ x["b"]})
     Bd = B * torch.arange(1, 3, dtype=B.dtype)[:, None]
     x, info = kt.linsolve_gmres_batched(dict_op, {"b": Bd}, {"b": torch.zeros_like(B)}, 0.5,
@@ -194,10 +194,22 @@ def test_batched_gmres_refusals():
         x1, i1 = t_linsolve_gmres(dict_op, {"b": Bd[p]}, {"b": torch.zeros(8, dtype=B.dtype)},
                                   0.5, 1.0, alg)
         assert torch.equal(x["b"][p], x1["b"]) and int(info.numops[p]) == i1.numops
-    with pytest.raises(ValueError, match="differentiation"):
+    xs, infos = kt.linsolve_gmres_batched(dict_op, {"b": Bd}, {"b": torch.zeros_like(B)}, 0.5,
+                                          1.0, alg, one)
+    assert torch.equal(xs["b"], x["b"]) and torch.equal(infos.numops, info.numops)
+    with pytest.raises(ValueError, match="linsolve_gmres_batched: differentiation.*not yet "
+                                         "batched on a sharded space"):
         kt.linsolve_gmres_batched(A, B, torch.zeros_like(B),
                                   torch.tensor(0.5, dtype=torch.float64, requires_grad=True),
-                                  1.0, alg)
+                                  1.0, alg, one)
+    a0 = torch.tensor(0.5, dtype=torch.float64, requires_grad=True)
+    kt.linsolve_gmres_batched(A, B, torch.zeros_like(B), a0, 1.0, alg)[0].sum().backward()
+    want = 0.0
+    for p in range(2):
+        a01 = torch.tensor(0.5, dtype=torch.float64, requires_grad=True)
+        kt.linsolve(A, B[p], torch.zeros_like(B[p]), a01, 1.0, alg=alg)[0].sum().backward()
+        want = want + a01.grad
+    assert torch.allclose(a0.grad, want, rtol=1e-14, atol=0)
     with pytest.raises(ValueError, match="no leading problem axis"):
         kt.linsolve_gmres_batched(kt.MatrixOperator(A), B, torch.zeros_like(B), 0.0, 1.0, alg,
                                   in_dims=(0, 0, 0))

@@ -306,10 +306,10 @@ def test_warn_lines_are_the_one_problem_lines_in_problem_order():
 
 def test_batched_geneigsolve_refusals():
     """Each piece this slice does not batch raises ``ValueError`` with its
-    name: pytree vectors on a sharded space, an input or an operator
-    tensor that requires grad, ``in_dims`` other than 0 or None, an ``(f, fadjoint)`` tuple given
-    as a batch; and the argument checks.  A sharded space is batched: on a
-    one-rank axis, the unsharded bits."""
+    name: an input or an operator tensor that requires grad (``geneigsolve``
+    has no rule), ``in_dims`` other than 0 or None, an ``(f, fadjoint)``
+    tuple given as a batch; and the argument checks.  A sharded space is
+    batched: on a one-rank axis, the unsharded bits, a dict batch too."""
     As, Bs, x0 = _pencils()
     A, B = torch.from_numpy(As[0]), torch.from_numpy(Bs[0])
     X = torch.from_numpy(np.stack([x0] * P))
@@ -317,10 +317,8 @@ def test_batched_geneigsolve_refusals():
     solve = kt.geneigsolve_golubye_batched
     grad_A = A.clone().requires_grad_(True)
     cases = [
-        (lambda: solve(A, B, {"a": X}, 1, "SR", alg,
-                       space=kt.VectorSpace(psum_axis=MeshAxis("vec", None, 1, 0))),
-         "pytree vectors on a sharded space"),
-        (lambda: solve(A, B, X.clone().requires_grad_(True), 1, "SR", alg), "differentiation"),
+        (lambda: solve(A, B, X.clone().requires_grad_(True), 1, "SR", alg),
+         "geneigsolve_golubye_batched: differentiation has no rule"),
         (lambda: solve(grad_A, B, X, 1, "SR", alg), "differentiation"),
         (lambda: solve(A, B, X, 1, "SR", alg, in_dims=(None, None, 1)), "in_dims"),
         (lambda: solve((lambda x: A @ x, lambda x: A @ x), B, X[:2], 1, "SR", alg,
@@ -346,3 +344,7 @@ def test_batched_geneigsolve_refusals():
         v1, w1, i1 = t_golubye(dA, dB, {"a": Xd[p]}, 1, "SR", alg)
         assert torch.equal(vals[p], v1) and torch.equal(vecs["a"][p], w1["a"])
         assert int(info.numops[p]) == i1.numops
+    got = solve(dA, dB, {"a": Xd}, 1, "SR", alg,
+                space=kt.VectorSpace(psum_axis=MeshAxis("vec", None, 1, 0)))
+    assert torch.equal(got[0], vals) and torch.equal(got[1]["a"], vecs["a"])
+    assert torch.equal(got[2].numops, info.numops)

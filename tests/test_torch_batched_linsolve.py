@@ -257,19 +257,19 @@ def test_batched_cg_warn_lines_match_jax_vmap():
 
 @pytest.mark.parametrize("driver", ["cg", "minres", "bicgstab"])
 def test_batched_linsolve_refusals(driver):
-    """Pytree vectors on a sharded space and an input that requires grad
-    are refused with a ``ValueError`` that names them; so are problem counts
-    that disagree.  A sharded space is batched (a one-rank axis: the
-    unsharded bits), and so are pytree vectors (each problem of a dict batch
-    its one-problem dict solve, bit for bit)."""
+    """An input that requires grad on a sharded space is refused with a
+    ``ValueError`` that names the driver; so are problem counts that
+    disagree.  A sharded space is batched (a one-rank axis: the unsharded
+    bits, a dict batch too), and so are pytree vectors (each problem of a
+    dict batch its one-problem dict solve, bit for bit).  Unsharded, ``b``
+    and the shift differentiate: each problem's ``b`` gradient its
+    one-problem one, bit for bit."""
     tbatched, tcls = DRIVERS[driver][3], DRIVERS[driver][4]
     tone = {"cg": t_cg, "minres": t_minres, "bicgstab": t_bicgstab}[driver]
     A = torch.eye(8, dtype=torch.float64) * 2
     B = torch.ones(2, 8, dtype=torch.float64)
     alg = tcls()
-    with pytest.raises(ValueError, match="pytree vectors on a sharded space"):
-        tbatched(A, {"b": B}, {"b": B}, 0.0, 1.0, alg,
-                 kt.VectorSpace(psum_axis=MeshAxis("vec", None, 1, 0)))
+    one = kt.VectorSpace(psum_axis=MeshAxis("vec", None, 1, 0))
     M = A + torch.diag(torch.linspace(0, 1, 8, dtype=A.dtype))
     dict_op = kt.as_operator(lambda x: {"b": M @ x["b"]})
     Bd = B * torch.arange(1, 3, dtype=B.dtype)[:, None] + torch.linspace(0, 1, 8,
@@ -278,16 +278,24 @@ def test_batched_linsolve_refusals(driver):
     for p in range(2):
         x1, i1 = tone(dict_op, {"b": Bd[p]}, {"b": torch.zeros(8, dtype=B.dtype)}, 0.0, 1.0, alg)
         assert torch.equal(x["b"][p], x1["b"]) and int(info.numops[p]) == i1.numops
+    xs, infos = tbatched(dict_op, {"b": Bd}, {"b": torch.zeros_like(B)}, 0.0, 1.0, alg, one)
+    assert torch.equal(xs["b"], x["b"]) and torch.equal(infos.numops, info.numops)
     # a sharded space is batched: on a one-rank axis (no collective) each
     # problem solves as on the unsharded space, bit for bit
-    got = tbatched(A, B, torch.zeros_like(B), 0.0, 1.0, alg,
-                   kt.VectorSpace(psum_axis=MeshAxis("vec", None, 1, 0)))
+    got = tbatched(A, B, torch.zeros_like(B), 0.0, 1.0, alg, one)
     want = tbatched(A, B, torch.zeros_like(B), 0.0, 1.0, alg)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1].numops, want[1].numops)
-    with pytest.raises(ValueError, match="differentiation"):
-        tbatched(A, B.clone().requires_grad_(True), torch.zeros_like(B), 0.0, 1.0, alg)
+    with pytest.raises(ValueError, match=f"{driver}_batched: differentiation.*not yet batched on "
+                                         "a sharded space"):
+        tbatched(A, B.clone().requires_grad_(True), torch.zeros_like(B), 0.0, 1.0, alg, one)
     with pytest.raises(ValueError, match="differentiation"):
         tbatched(A, B, torch.zeros_like(B), torch.tensor(0.5, dtype=torch.float64,
-                                                          requires_grad=True), 1.0, alg)
+                                                          requires_grad=True), 1.0, alg, one)
+    Bg = Bd.clone().requires_grad_(True)
+    tbatched(M, Bg, torch.zeros_like(B), 0.0, 1.0, alg)[0].sum().backward()
+    for p in range(2):
+        b1 = Bd[p].clone().requires_grad_(True)
+        kt.linsolve(M, b1, torch.zeros(8, dtype=B.dtype), 0.0, 1.0, alg=alg)[0].sum().backward()
+        assert torch.equal(Bg.grad[p], b1.grad)
     with pytest.raises(ValueError, match="disagree"):
         tbatched([A], B, torch.zeros_like(B), 0.0, 1.0, alg, in_dims=(0, 0, 0))

@@ -12,8 +12,8 @@ structure and leaf shapes equal.  MINRES, BiCGStab, ``expintegrator`` and
 LSMR are held against the port's one-problem tree solves, bit for bit
 (``torch.equal`` leaf by leaf); those are held against the JAX package in
 ``tests/test_torch_pytree*.py``.  Then the refusals: leaves that disagree on
-the problem count, a tuple read as a pytree and not as a list of problems,
-and pytree vectors on a sharded space.
+the problem count, a tuple read as a pytree and not as a list of problems;
+and pytree vectors on a one-rank sharded space, the unsharded bits.
 """
 
 import jax
@@ -207,9 +207,10 @@ def test_batched_tree_refusals():
     """Leaves that disagree on the problem count raise a ``ValueError``
     (``jax.vmap`` refuses inconsistent sizes); a tuple vector is a pytree,
     its leaves' leading axis the problem count, never a list of problems;
-    pytree vectors on a sharded space are refused with their name."""
+    pytree vectors run on a sharded space: on a one-rank axis, the
+    unsharded bits."""
     A, B = _system(spd=True)
-    _, (ft, _) = maps(A, ("tuple", 12), ("tuple", 12))
+    _, (ft, fta) = maps(A, ("tuple", 12), ("tuple", 12))
     Bt = tt(B, "tuple", 12)
     bad = (Bt[0], Bt[1][:2])
     with pytest.raises(ValueError, match="disagree on the problem count"):
@@ -222,7 +223,8 @@ def test_batched_tree_refusals():
         kt.linsolve_cg_batched([as_operator(ft)] * 2, Bt, Bt, 0.0, 1.0, kt.CG(),
                                in_dims=(0, 0, 0))
     one = kt.VectorSpace(psum_axis=MeshAxis("vec", None, 1, 0))
-    for call in (lambda: kt.linsolve_cg_batched(ft, Bt, Bt, 0.0, 1.0, kt.CG(), one),
-                 lambda: kt.lssolve_lsmr_batched(ft, Bt, kt.LSMR(), space=one)):
-        with pytest.raises(ValueError, match="pytree vectors on a sharded space"):
-            call()
+    for call in (lambda s: kt.linsolve_cg_batched(ft, Bt, Bt, 0.0, 1.0, kt.CG(), s),
+                 lambda s: kt.lssolve_lsmr_batched((ft, fta), Bt, kt.LSMR(), space=s)):
+        (got, gi), (want, wi) = call(one), call(kt.STANDARD)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert torch.equal(gi.numops, wi.numops)

@@ -1395,3 +1395,21 @@ def test_batched_fused_step_halos_are_checked_on_card():
     with pytest.raises(ValueError, match="16-byte"):
         fl.fused_step_batched(V, y, g, 1, 1, spec, Vext=odd, yext=yext)
     assert _build.launches["fused_step_batched"] == before
+
+
+def test_batched_gradients_on_the_card_match_cpu():
+    """The small float64 batches of ``chip_smoke.py``'s phase ``batched_ad``
+    (the GMRES, MINRES and BiCGStab rules of the batched linear drivers,
+    the general Sylvester rule of the batched Arnoldi eigsolve, both rules
+    of the batched GKL svdsolve) on the card against the CPU: gradients
+    within ``chip_smoke.AD_TOL`` (relative to the largest entry), counts
+    equal."""
+    import chip_smoke
+
+    for label, run in chip_smoke.small_batched_ad_routes(np, kt, torch).items():
+        gc, ic = run("cuda")
+        gh, ih = run("cpu")
+        err = max(chip_smoke._rel_err(torch, a, b) for a, b in zip(gc, gh))
+        assert err <= chip_smoke.AD_TOL, (label, err)
+        assert ([chip_smoke._batch_counts(i) for i in ic]
+                == [chip_smoke._batch_counts(i) for i in ih]), label

@@ -32,6 +32,12 @@ eigenvector or singular-vector cotangents (ROADMAP queue 3); the
 ``_values`` scenarios, whose cotangents touch the values only, hold the
 Sylvester routes against the in-body ones.
 
+The scenarios that differ only in data share one compiled JAX program
+(:data:`SHARED_GROUPS`): a ``_values`` scenario is its full one with the
+vector cotangent scaled by 0, and the three ``svdsolve_derived`` maps are
+one map whose pick rides in its parameters (each term the scenario's, the
+others multiplied by an exact 0).
+
 Tolerances: gradients within 1e-10 (relative to the largest entry of the
 reference), ``numops``, ``numiter`` and ``converged`` of the forward equal,
 and the applies of the backward's inner solves equal to the JAX package's
@@ -106,25 +112,33 @@ def _mesh():
     return Mesh(np.array(jax.devices()[:WORLD]), ("vec",))
 
 
+# the numops of every inner solve that ran, appended by the compiled
+# programs' callbacks (a cached program keeps the callback it was traced with)
+_SEEN = []
+
+
 class _InnerSolves:
     """The applies of the backward's inner solves of the JAX package (its
     pullbacks' ``_linsolve_impl`` and ``eigsolve_arnoldi``, which they
     import at call time): each solve's ``numops``, read by a
-    ``jax.debug.callback`` once per device.  Inside, the two are wrapped;
-    :attr:`numops` sums what ran."""
+    ``jax.debug.callback`` once per device into :data:`_SEEN`.  Inside, the
+    two are wrapped (for a program traced there); :attr:`numops` sums what
+    ran inside."""
 
     def __init__(self, devices):
-        self.devices, self.seen = devices, []
+        self.devices, self.seen = devices, _SEEN
 
     def __enter__(self):
         import jax
         import krylovkit_tpu.solvers.arnoldi as jarn
         import krylovkit_tpu.solvers.linsolve as jlin
 
+        _SEEN.clear()
+
         def counted(fn):
             def solve(*a, **kw):
                 out = fn(*a, **kw)
-                jax.debug.callback(lambda n: self.seen.append(int(n)), out[-1].numops)
+                jax.debug.callback(lambda n: _SEEN.append(int(n)), out[-1].numops)
                 return out
 
             return solve
@@ -242,27 +256,65 @@ def test_sharded_linsolve_gradient_matches_jax_in_body(ranks):
 # --------------------------------------------------------------------------
 
 
+def _group(name):
+    """The scenarios that share one compiled JAX program: a ``_values``
+    scenario its full one's (the cotangent on the vectors scaled by 0), the
+    three ``svdsolve_derived`` maps one (:func:`_derived_map`)."""
+    return "svdsolve_derived" if "_derived" in name else name.replace("_values", "")
+
+
+def _weights(name):
+    """The data that picks scenario ``name`` in its group's program: the
+    vector cotangent's scale, and the ``_scaled`` and ``_rank1`` terms'."""
+    return (0.0 if name.endswith("_values") else 1.0,
+            1.0 if name.endswith("_scaled") else 0.0,
+            1.0 if name.endswith("_rank1") else 0.0)
+
+
+def _derived_map(A, inner):
+    """``chip_smoke.sharded_ad_map``'s three ``svdsolve_derived`` maps as one,
+    the pick ``(w_s, w_r)`` in the parameters ``(g, s, mask, d, w)``: each
+    term the scenario's, in its order, the others multiplied by 0 (exact)."""
+
+    def apply(p, x):
+        g, s, mask, d, w = p
+        ws, wr = w[1], w[2]
+        return (((1 + ws * g) * A.normal(x) + (1 - ws) * g * x)
+                + ((1 - wr) * s * mask) * x + (wr * s * inner(mask, x)) * d)
+
+    return apply, None
+
+
+# the groups of more than one scenario: each compiles once (jax.jit); a
+# group of one runs op by op, as each scenario did alone
+SHARED_GROUPS = ("eigsolve_sylvester", "svdsolve_sylvester", "svdsolve_derived")
+
+
 @lru_cache(maxsize=None)
-def _jax_spectral(name, sharded):
-    """``(vals, ḡ, s̄, counts, the backward's applies)`` of scenario
-    ``name``; ``s̄`` per device when ``sharded``."""
+def _jax_program(group, sharded):
+    """The JAX side of the scenarios of ``group``, on the 4 devices in the
+    body (``sharded``) or on one: a function of ``(g, mask, x0, c, d, s,
+    w)`` returning ``(vals, numops, numiter, converged, ḡ, s̄)``, compiled
+    once for a group of :data:`SHARED_GROUPS`."""
     import jax
     import jax.numpy as jnp
 
-    prob = chip_smoke.sharded_ad_problem(np, name)
-    svd = name.startswith("svdsolve")
-    alg, rrule = chip_smoke.sharded_ad_algs(kk, name)
+    svd = group.startswith("svdsolve")
+    alg, rrule = chip_smoke.sharded_ad_algs(kk, group)
     A = (kk.StencilOperator(*chip_smoke.SHARDED_AD_CHAIN) if svd
-         else jpar.laplacian_1d(prob["n"], jnp.float64))
-    values_only = name.endswith("_values")
+         else jpar.laplacian_1d(chip_smoke.sharded_ad_problem(np, group)["n"], jnp.float64))
 
-    def fn(g, mask, x0, c, d, s, space, A, psum):
-        # mask and d ride in the parameters: a jitted solve cannot close
+    def fn(g, mask, x0, c, d, s, w, space, A, psum):
+        # mask, d and w ride in the parameters: a jitted solve cannot close
         # over a shard_map value
-        apply, adj = chip_smoke.sharded_ad_map(name, A, space.inner)
+        if group == "svdsolve_derived":
+            apply, adj = _derived_map(A, space.inner)
+        else:
+            apply, adj = chip_smoke.sharded_ad_map(group, A, space.inner)
 
         def f(g, s):
-            op = kk.ParametricOperator(apply, (g, s, mask, d), adj)
+            op = kk.ParametricOperator(apply, (g, s, mask, d) + ((w,) if adj is None else ()),
+                                       adj)
             if svd:
                 vals, U, V, info = kk.svdsolve(op, x0, 2, "LR", alg=alg, alg_rrule=rrule,
                                                space=space)
@@ -277,30 +329,37 @@ def _jax_spectral(name, sharded):
             U, V = outs[1], outs[2]
             cu = psum(jnp.sum(c[None] * U, axis=(1, 2)))
             dv = psum(jnp.sum(d[None] * V, axis=(1, 2)))
-            gU, gV = dv[:, None, None] * c[None], cu[:, None, None] * d[None]
-            if values_only:
-                gU, gV = jnp.zeros_like(gU), jnp.zeros_like(gV)
+            gU, gV = w[0] * dv[:, None, None] * c[None], w[0] * cu[:, None, None] * d[None]
             gb, sb = vjp((ones, gU, gV))
         else:
             vecs = outs[1]
             cv = psum(jnp.sum(c[None] * vecs, axis=(1, 2)))
-            gv = 2 * cv[:, None, None] * c[None]
-            if values_only:
-                gv = jnp.zeros_like(gv)
-            gb, sb = vjp((ones, gv))
+            gb, sb = vjp((ones, w[0] * 2 * cv[:, None, None] * c[None]))
         return (vals,) + info + (gb, sb)
 
+    if sharded:
+        run = _in_body(lambda *a: fn(*a, kk.VectorSpace(psum_axis="vec"),
+                                     jpar.shard_local_stencil(A, "vec"),
+                                     partial(jax.lax.psum, axis_name="vec")), 5, 4, 2)
+    else:
+        def run(*a):
+            return fn(*a, kk.VectorSpace(), A, lambda t: t)
+    return jax.jit(run) if group in SHARED_GROUPS else run
+
+
+@lru_cache(maxsize=None)
+def _jax_spectral(name, sharded):
+    """``(vals, ḡ, s̄, counts, the backward's applies)`` of scenario
+    ``name``; ``s̄`` per device when ``sharded``."""
+    import jax.numpy as jnp
+
+    prob = chip_smoke.sharded_ad_problem(np, name)
     args = tuple(jnp.asarray(prob[k]) for k in ("g", "mask", "x0", "c", "d")) + (
-        jnp.float64(prob["s"]),)
+        jnp.float64(prob["s"]), jnp.asarray(_weights(name), jnp.float64))
     with _InnerSolves(WORLD if sharded else 1) as inner:
-        if sharded:
-            run = _in_body(lambda *a: fn(*a, kk.VectorSpace(psum_axis="vec"),
-                                         jpar.shard_local_stencil(A, "vec"),
-                                         partial(jax.lax.psum, axis_name="vec")), 5, 4, 2)
-            vals, *counts, gb, sb = run(*args)
-        else:
-            vals, *counts, gb, sb = fn(*args, kk.VectorSpace(), A, lambda t: t)
-    return vals, gb, sb, counts, inner.numops
+        vals, *counts, gb, sb = _jax_program(_group(name), sharded)(*args)
+        vals = np.asarray(vals)  # the run has ended: its callbacks have fired
+    return vals, np.asarray(gb), np.asarray(sb), [int(c) for c in counts], inner.numops
 
 
 def _check_spectral(ranks, name, in_body):

@@ -27,6 +27,9 @@ pencil drivers' parity on a sharded space is in
 ``tests/test_torch_sharded_batched_gkl.py`` and ``..._pencil.py``.
 """
 
+from functools import lru_cache
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -44,13 +47,20 @@ from krylovkit_tpu_torch.parallel.mesh import MeshAxis
 
 WORLD = 4
 TOL = 1e-10
-SCENARIOS = ("gmres", "cg", "minres", "bicgstab", "stack_apply")
+SCENARIOS = ("gmres", "cg", "minres", "bicgstab", "stack_apply") + chip_smoke.SHARDED_BATCHED_TREE
 
 
 @pytest.fixture(scope="module")
 def ranks():
-    res = chip_smoke.run_ranks(WORLD, "sharded_batched_cases", dev="cpu", timeout=400,
-                               names=SCENARIOS)
+    # the JAX side (cached) runs while the ranks do
+    handle = chip_smoke.start_ranks(WORLD, "sharded_batched_cases", dev="cpu", timeout=400,
+                                    names=SCENARIOS)
+    try:
+        for name in SCENARIOS:
+            if name != "stack_apply":
+                _jax_solve(name)
+    finally:
+        res = chip_smoke.collect_ranks(handle)
     return chip_smoke.same_on_every_rank(np, res)
 
 
@@ -97,24 +107,84 @@ def _ell(name, mesh, tile=None):
     return prob, jpar.sharded_ell_from_coo(*coo, (n, n), mesh, tile=tile)
 
 
+@lru_cache(maxsize=None)
+def _jax_solve(name):
+    """``jax.jit(jax.vmap(...))`` of the GSPMD solve of scenario ``name`` on
+    the 4 virtual devices: its results (``X``, ``Y`` or ``vals``) and
+    counts as host arrays."""
+    import jax
+    import jax.numpy as jnp
+
+    from krylovkit_tpu.ops.operator import as_operator
+    from krylovkit_tpu.solvers import bicgstab, cg, gmres, lanczos, minres
+
+    mesh = _mesh()
+    prob = chip_smoke.sharded_batched_problem(np, name)
+    one = jnp.asarray(1, jnp.float64)
+    if name in chip_smoke.SHARDED_BATCHED_TREE:
+        lap = jpar.sharded_laplacian_1d(prob["n"], mesh, jnp.float64)
+        op = as_operator(lambda v: (lap.normal(v[0]) + 0.5 * v[1],
+                                    lap.normal(v[1]) + 0.5 * v[0]))
+        kw = chip_smoke.SHARDED_BATCHED_TREE_ALGS[name]
+        X, Y = _put(prob["X"], mesh), _put(prob["Y"], mesh)
+        if name == "tree_lanczos":
+            vals, _, info = jax.jit(jax.vmap(lambda p, q: lanczos.eigsolve_lanczos(
+                op, (p, q), 2, "SR", kk.Lanczos(**kw))))(X, Y)
+            out = {"vals": vals}
+        else:
+            solve, alg = ((cg.linsolve_cg, kk.CG(**kw)) if name == "tree_cg" else
+                          (gmres.linsolve_gmres, kk.GMRES(**kw)))
+            (xp, xq), info = jax.jit(jax.vmap(lambda p, q: solve(
+                op, (p, q), (jnp.zeros_like(p), jnp.zeros_like(q)), one, one, alg)))(X, Y)
+            out = {"X": xp, "Y": xq}
+    else:
+        if name == "gmres":
+            op = jpar.sharded_laplacian_1d(prob["n"], mesh, jnp.float64)
+            solve, alg, a0 = (gmres.linsolve_gmres, kk.GMRES(krylovdim=16, maxiter=50, tol=1e-9),
+                              1.0)
+        elif name == "cg":
+            op = jpar.sharded_laplacian_1d(prob["n"], mesh, jnp.float64)
+            solve, alg, a0 = cg.linsolve_cg, kk.CG(tol=1e-10, maxiter=3000), 0.5
+        elif name == "minres":
+            op = _ell(name, mesh)[1]
+            solve, alg, a0 = minres.linsolve_minres, kk.MINRES(tol=1e-10, maxiter=3000), 0.0
+        else:
+            op = _ell(name, mesh)[1]
+            solve, alg, a0 = (bicgstab.linsolve_bicgstab,
+                              kk.BiCGStab(tol=1e-10, maxiter=3000), 1.0)
+        a0 = jnp.asarray(a0, jnp.float64)
+        X, info = jax.jit(jax.vmap(lambda b: solve(op, b, jnp.zeros_like(b), a0, one, alg)))(
+            _put(prob["X"], mesh))
+        out = {"X": X}
+    out = {k: np.asarray(v) for k, v in out.items()}
+    return out, SimpleNamespace(**{k: np.asarray(getattr(info, k))
+                                   for k in ("numops", "numiter", "converged")})
+
+
 def test_sharded_batched_gmres_matches_jax_vmap(ranks):
     """GMRES on ``(I + L) x = b`` for 4 right-hand sides, the graft entry's
     problem, through ``linsolve_gmres_batched``."""
     out = _case(ranks, "gmres")
-    import jax
-    import jax.numpy as jnp
+    want, info = _jax_solve("gmres")
+    np.testing.assert_allclose(out["X"], want["X"], rtol=0, atol=TOL)
+    _counts_equal(out, info)
+    _against_one_problem(out)
+    assert out["collectives"][0] < out["one_problem_collectives"][0]
 
-    from krylovkit_tpu.solvers.gmres import linsolve_gmres
 
-    mesh = _mesh()
-    prob = chip_smoke.sharded_batched_problem(np, "gmres")
-    op = jpar.sharded_laplacian_1d(prob["n"], mesh, jnp.float64)
-    alg = kk.GMRES(krylovdim=16, maxiter=50, tol=1e-9)
-    one = jnp.asarray(1, jnp.float64)
-    X, info = jax.jit(jax.vmap(
-        lambda b: linsolve_gmres(op, b, jnp.zeros_like(b), one, one, alg)))(
-        _put(prob["X"], mesh))
-    np.testing.assert_allclose(out["X"], np.asarray(X), rtol=0, atol=TOL)
+@pytest.mark.parametrize("name", chip_smoke.SHARDED_BATCHED_TREE)
+def test_sharded_batched_tree_matches_jax_vmap(ranks, name):
+    """Pytree vectors on a sharded space: a ``(p, q)`` tuple a problem and
+    the coupled map ``(p, q) ↦ (L p + q/2, L q + p/2)`` of
+    ``sharded_laplacian_1d``, through batched CG, GMRES and Lanczos, against
+    ``jax.vmap`` of the GSPMD tree solve; each problem its one-problem
+    sharded tree solve bit for bit, and the batch's all-reduces fewer than
+    the one-problem loop's (the space's reductions are shared, the map's
+    halo rounds are each problem's)."""
+    out = _case(ranks, name)
+    want, info = _jax_solve(name)
+    for key, w in want.items():
+        np.testing.assert_allclose(out[key], w, rtol=0, atol=TOL)
     _counts_equal(out, info)
     _against_one_problem(out)
     assert out["collectives"][0] < out["one_problem_collectives"][0]
@@ -126,26 +196,8 @@ def test_sharded_batched_linear_matches_jax_vmap(ranks, name):
     sharded ELL SPD matrix, BiCGStab on ``(1 + T) x = b`` with ``T`` the
     sharded non-symmetric tridiagonal."""
     out = _case(ranks, name)
-    import jax
-    import jax.numpy as jnp
-
-    from krylovkit_tpu.solvers import bicgstab, cg, minres
-
-    mesh = _mesh()
-    prob = chip_smoke.sharded_batched_problem(np, name)
-    if name == "cg":
-        op = jpar.sharded_laplacian_1d(prob["n"], mesh, jnp.float64)
-        solve, alg, a0 = cg.linsolve_cg, kk.CG(tol=1e-10, maxiter=3000), 0.5
-    elif name == "minres":
-        op = _ell(name, mesh)[1]
-        solve, alg, a0 = minres.linsolve_minres, kk.MINRES(tol=1e-10, maxiter=3000), 0.0
-    else:
-        op = _ell(name, mesh)[1]
-        solve, alg, a0 = bicgstab.linsolve_bicgstab, kk.BiCGStab(tol=1e-10, maxiter=3000), 1.0
-    a0, a1 = jnp.asarray(a0, jnp.float64), jnp.asarray(1.0, jnp.float64)
-    X, info = jax.jit(jax.vmap(lambda b: solve(op, b, jnp.zeros_like(b), a0, a1, alg)))(
-        _put(prob["X"], mesh))
-    np.testing.assert_allclose(out["X"], np.asarray(X), rtol=0, atol=TOL)
+    want, info = _jax_solve(name)
+    np.testing.assert_allclose(out["X"], want["X"], rtol=0, atol=TOL)
     _counts_equal(out, info)
     _against_one_problem(out)
 
@@ -341,6 +393,36 @@ def test_unfused_lock_step_collectives_do_not_grow_with_problems(fake_collective
     assert made[1] == made[3] == (4 if orth == "cgs2" else 3)
 
 
+def test_tree_lock_step_all_reduces_once_a_kind_for_all_problems_and_leaves(fake_collectives):
+    """An unfused batched Lanczos lock-step on ``(p, q)`` tuple vectors on a
+    sharded space (the cgs2 sweeps, the 3-term ``α``, the norms) makes, kind
+    by kind, as many all-reduces for three problems of two leaves as for
+    one problem of one tensor leaf: each reduction sums a row's leaf
+    partials before its one all-reduce for all rows.  The tree map here is
+    local, so every all-reduce counted is the space's."""
+    from krylovkit_tpu_torch.solvers.batched import _Operators
+
+    space = _two_rank_space()
+    made = {}
+    for key, Pn, tree in (("tensor", 1, False), ("tree_one", 1, True), ("tree", 3, True)):
+        if tree:
+            op = kt.as_operator(lambda v: (2.0 * v[0] + 0.5 * v[1], 3.0 * v[1] + 0.5 * v[0]))
+        else:
+            op = kt.as_operator(lambda v: 2.0 * v)
+        ops = _Operators(op, Pn, False)
+        gen = torch.Generator().manual_seed(7)
+        states = {}
+        for p in range(Pn):
+            x = torch.randn(128, generator=gen, dtype=torch.float64)
+            x = (x, torch.randn(128, generator=gen, dtype=torch.float64)) if tree else x
+            st = tkf.initialize(x, 5, torch.float64, space)
+            states[p] = tkf.expand_hermitian(op.normal, st, ton.cgs, space)
+        with chip_smoke.CollectiveKinds() as kinds:
+            tkf.expand_batched(ops, states, ton.cgs2, space, hermitian=True)
+        made[key] = kinds.counts
+    assert made["tree"] == made["tree_one"] == made["tensor"] and sum(made["tree"].values()) > 0
+
+
 def test_edges_carry_a_stack_in_one_all_reduce(fake_collectives):
     """``MeshAxis.edges`` of a ``(P, h, 128)`` payload is one all-reduce of
     a ``(size, 2, P, h, 128)`` buffer."""
@@ -353,23 +435,41 @@ def test_edges_carry_a_stack_in_one_all_reduce(fake_collectives):
     assert torch.equal(above, torch.zeros_like(above))  # rank 0: nothing above it
 
 
-def _sharded_call(driver, A, X, space, eager=False):
+def _one_problem_call(driver, A, x, space, maxiter):
+    """The one-problem front-end of ``driver`` on one problem's start."""
+    if driver == "svdsolve_gkl_batched":
+        return kt.svdsolve(A, x, 1, "LR", alg=kt.GKL(krylovdim=4, maxiter=maxiter), space=space)
+    if driver == "lssolve_lsmr_batched":
+        return kt.lssolve(A, x, alg=kt.LSMR(maxiter=maxiter), space=space)
+    if driver == "geneigsolve_golubye_batched":
+        return kt.geneigsolve((A, None), x, 1, "SR", alg=kt.GolubYe(krylovdim=4, maxiter=maxiter),
+                              space=space)
+    if driver == "bieigsolve_batched":
+        return kt.bieigsolve(A, x, x, 1, "LM", alg=kt.BiArnoldi(krylovdim=4, maxiter=maxiter),
+                             space=space)
+    return kt.eigsolve(A, kt.Block([x]), 1, "LR",
+                       alg=kt.BlockLanczos(krylovdim=4, maxiter=maxiter), space=space)
+
+
+def _sharded_call(driver, A, X, space, eager=False, maxiter=None):
     """``driver`` on the operator ``A`` and the starts ``X`` (``(P, n)``; a
     block driver takes ``X[:, None]``, the two-sided one ``X`` on both
-    sides) in ``space``."""
+    sides) in ``space``; ``maxiter`` fixes the work where given."""
+    kw = {} if maxiter is None else {"maxiter": maxiter}
     if driver == "svdsolve_gkl_batched":
-        return kt.svdsolve_gkl_batched(A, X, 1, "LR", kt.GKL(krylovdim=4, eager=eager), space)
+        return kt.svdsolve_gkl_batched(A, X, 1, "LR", kt.GKL(krylovdim=4, eager=eager, **kw),
+                                       space)
     if driver == "lssolve_lsmr_batched":
-        return kt.lssolve_lsmr_batched(A, X, kt.LSMR(), 0.0, space)
+        return kt.lssolve_lsmr_batched(A, X, kt.LSMR(**kw), 0.0, space)
     if driver == "geneigsolve_golubye_batched":
-        return kt.geneigsolve_golubye_batched(A, None, X, 1, "SR", kt.GolubYe(krylovdim=4),
+        return kt.geneigsolve_golubye_batched(A, None, X, 1, "SR", kt.GolubYe(krylovdim=4, **kw),
                                               space)
     if driver == "bieigsolve_batched":
-        return kt.bieigsolve_batched(A, X, X, 1, "LM", kt.BiArnoldi(krylovdim=4, eager=eager),
-                                     space)
+        return kt.bieigsolve_batched(A, X, X, 1, "LM",
+                                     kt.BiArnoldi(krylovdim=4, eager=eager, **kw), space)
     blocks = X[:, None] if isinstance(X, torch.Tensor) else {k: v[:, None] for k, v in X.items()}
-    return kt.eigsolve_blocklanczos_batched(A, blocks, 1, "LR", kt.BlockLanczos(krylovdim=4),
-                                            space)
+    return kt.eigsolve_blocklanczos_batched(A, blocks, 1, "LR",
+                                            kt.BlockLanczos(krylovdim=4, **kw), space)
 
 
 @pytest.mark.parametrize("driver", ["svdsolve_gkl_batched", "lssolve_lsmr_batched",
@@ -377,21 +477,29 @@ def _sharded_call(driver, A, X, space, eager=False):
                                     "eigsolve_blocklanczos_batched"])
 def test_drivers_on_a_sharded_space_refuse_what_they_do_not_batch(driver):
     """The GKL, LSMR, Golub-Ye, BiArnoldi and Block Lanczos batched drivers
-    take a sharded space and still refuse, each naming itself, a pytree
-    start and a start that requires grad; on a one-rank axis a sharded
-    solve is the unsharded one, bit for bit, and (GKL, BiArnoldi) so is an
+    take a sharded space and still refuse, each naming itself, a start that
+    requires grad; on a one-rank axis a sharded solve is the unsharded
+    one, bit for bit, and so is each problem of a dict batch its
+    one-problem sharded dict solve; (GKL, BiArnoldi) so is an
     ``eager=True`` solve."""
+    from krylovkit_tpu_torch.ops.vector import tree_leaves, tree_row
+
     space = VectorSpace(psum_axis=MeshAxis("vec", None, 1, 0))
     A = torch.diag(torch.linspace(1.0, 2.0, 8, dtype=torch.float64))
-    X = torch.ones((2, 8), dtype=torch.float64)
-    cases = [({"a": X}, {}, "pytree vectors"), (X.clone().requires_grad_(True), {},
-                                                 "differentiation")]
-    for X0, kw, why in cases:
-        with pytest.raises(ValueError, match=f"{driver}.*{why}"):
-            _sharded_call(driver, A, X0, space, **kw)
+    X = torch.ones((2, 8), dtype=torch.float64) + torch.arange(8.0, dtype=torch.float64) / 8
+    with pytest.raises(ValueError, match=f"{driver}: differentiation"):
+        _sharded_call(driver, A, X.clone().requires_grad_(True), space)
     got = _sharded_call(driver, A, X, space)
     want = _sharded_call(driver, A, X, VectorSpace())
     assert torch.equal(got[0], want[0])
+    # a dict batch: each problem its one-problem sharded dict solve (two
+    # iterations: fixed work)
+    dpair = (lambda x: {"a": A @ x["a"]}, lambda y: {"a": A.T @ y["a"]})
+    got = _sharded_call(driver, dpair, {"a": X}, space, maxiter=2)
+    for p in range(2):
+        one = _one_problem_call(driver, dpair, {"a": X[p]}, space, 2)
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(tree_row(got[0], p)),
+                                                      tree_leaves(one[0])))
     if driver in ("svdsolve_gkl_batched", "bieigsolve_batched"):
         got = _sharded_call(driver, A, X, space, eager=True)
         want = _sharded_call(driver, A, X, VectorSpace(), eager=True)
