@@ -3706,6 +3706,14 @@ SHARDED_AD_EIG = ("eigsolve_gmres", "eigsolve_sylvester", "eigsolve_sylvester_va
 SHARDED_AD_SVD = ("svdsolve_gmres", "svdsolve_sylvester", "svdsolve_sylvester_values",
                   "svdsolve_derived", "svdsolve_derived_scaled", "svdsolve_derived_rank1")
 SHARDED_AD_DOT = ("chain", "grid", "ell", "psum")
+# batched scenarios: P problems of a one-problem scenario's data, problem 0
+# that scenario itself (each problem's g scaled, SHARDED_AD_SCALES)
+SHARDED_AD_BATCHED = ("batched_linsolve", "batched_eigsolve_gmres", "batched_eigsolve_sylvester",
+                      "batched_eigsolve_sylvester_values", "batched_svdsolve_gmres")
+# every scale keeps the third eigenvalue (singular value) of each scenario
+# at least 2e-3 from the wanted two; at 0.9 it came within 1.9e-4 in
+# eigsolve_sylvester, where the gradient's conditioning (tol / gap) is 5e-9
+SHARDED_AD_SCALES = (1.0, 1.1, 1.2)
 
 
 def sharded_ad_problem(np, name):
@@ -3726,6 +3734,23 @@ def sharded_ad_problem(np, name):
     out["mask"] = (rng.random(shape) < 0.3).astype(np.float64)
     for key in ("x0", "b", "c", "d"):
         out[key] = rng.standard_normal(shape)
+    return out
+
+
+def sharded_ad_batch(np, name):
+    """The global data of batched scenario ``name`` of
+    :func:`sharded_ad_cases`: its one-problem scenario's
+    (:func:`sharded_ad_problem`) and ``P = len(SHARDED_AD_SCALES)``
+    problems stacked on a leading axis, problem 0 the one-problem scenario
+    itself: ``G[p] = scale_p·g``, and for the linsolve ``B[p] = b + p/2·d``
+    (right-hand sides) and ``C[p] = c + p/2·g`` (the cotangents of
+    ``x``)."""
+    out = sharded_ad_problem(np, name[len("batched_"):])
+    scales = np.asarray(SHARDED_AD_SCALES)
+    half = (np.arange(len(scales)) / 2)[:, None, None]
+    out["G"] = scales[:, None, None] * out["g"][None]
+    out["B"] = out["b"][None] + half * out["d"][None]
+    out["C"] = out["c"][None] + half * out["g"][None]
     return out
 
 
@@ -3780,12 +3805,19 @@ def sharded_ad_cases(torch, np, kt, dev="cpu", names=None):
     itself.  Each returns global values: sharded gradients gathered, and
     the partials of a replicated input by rank (``s``, ``a0``, ``a1``), with
     the forward's counts and the backward's adjoint applies; ``names``
-    picks some."""
+    picks some.  The ``batched_`` scenarios (:data:`SHARDED_AD_BATCHED`,
+    :func:`sharded_ad_batch`) differentiate the batched drivers on the
+    space: ``linsolve_gmres_batched`` on the shared sharded stencil with
+    shared ``a0``, ``a1``, and ``eigsolve_lanczos_batched`` or
+    ``svdsolve_gkl_batched`` on one ``ParametricOperator`` a problem (its
+    row of ``G``, a shared ``s``); each returns the stacks gathered, counts
+    and the backward's applies per problem."""
     import traceback
 
     import torch.distributed as dist
 
     from krylovkit_tpu_torch.ops.vector import VectorSpace
+    from krylovkit_tpu_torch.solvers import batched as bt
 
     P = kt.parallel
     mesh = P.make_mesh(device=dev)
@@ -3799,6 +3831,13 @@ def sharded_ad_cases(torch, np, kt, dev="cpu", names=None):
     def host(t):
         return gather(torch, ax, t.detach()).cpu().numpy()
 
+    def svb(a):
+        return P.shard_vector(torch.as_tensor(np.asarray(a, dtype=np.float64)), mesh,
+                              batched=True)
+
+    def host_b(t):
+        return gather(torch, ax, t.detach(), dim=1).cpu().numpy()
+
     def by_rank(t):
         return gather(torch, ax, t.detach().reshape(1)).cpu().numpy()
 
@@ -3810,10 +3849,10 @@ def sharded_ad_cases(torch, np, kt, dev="cpu", names=None):
 
     counts = {"adjoint": 0}
 
-    def counted(fn):
+    def counted(fn, key="adjoint"):
         def apply(*a):
             if a[-1].device.type != "meta":
-                counts["adjoint"] += 1
+                counts[key] = counts.get(key, 0) + 1
             return fn(*a)
 
         return apply
@@ -3866,6 +3905,65 @@ def sharded_ad_cases(torch, np, kt, dev="cpu", names=None):
         if "_derived" not in name:
             out["adjoint_applies"] = counts["adjoint"]
         return out
+
+    def batched_infos(info):
+        return {k: getattr(info, k).tolist() for k in ("numops", "numiter", "converged")}
+
+    def batched_spectral(name):
+        """One ``ParametricOperator`` a problem (:func:`sharded_ad_map` with
+        its row of ``G``), the cotangents of :func:`eig_case` /
+        :func:`svd_case` problem by problem."""
+        prob = sharded_ad_batch(np, name)
+        one = name[len("batched_"):]
+        svd = one.startswith("svdsolve")
+        if svd:
+            A = P.shard_local_stencil(kt.StencilOperator(*SHARDED_AD_CHAIN), ax)
+        else:
+            A = P.shard_local_stencil(kt.laplacian_1d(prob["n"], device=dev), ax)
+        G, s = svb(prob["G"]).requires_grad_(True), scalar(prob["s"])
+        apply, adjoint = sharded_ad_map(one, A, space.inner)
+        fixed = (sv(prob["mask"]), sv(prob["d"]))
+        Pb = G.shape[0]
+        ops = [kt.ParametricOperator(apply, (G[p], s) + fixed, counted(adjoint, p))
+               for p in range(Pb)]
+        alg, rrule = sharded_ad_algs(kt, one)
+        c, x0 = sv(prob["c"]), sv(prob["x0"])
+        if svd:
+            vals, U, V, info = kt.svdsolve_gkl_batched(ops, x0, 2, "LR", alg, space,
+                                                       in_dims=(0, None), alg_rrule=rrule)
+            d = fixed[1]
+            cu, dv = gsum((c * U).sum((2, 3))), gsum((d * V).sum((2, 3)))
+            outs = [vals, U, V]
+            cots = [dv[..., None, None] * c, cu[..., None, None] * d]
+        else:
+            vals, vecs, info = kt.eigsolve_lanczos_batched(ops, x0, 2, "SR", alg, space,
+                                                           in_dims=(0, None), alg_rrule=rrule)
+            cv = gsum((c * vecs).sum((2, 3)))
+            outs, cots = [vals, vecs], [2 * cv[..., None, None] * c]
+        if name.endswith("_values"):
+            cots = [torch.zeros_like(t) for t in cots]
+        for p in range(Pb):
+            counts[p] = 0
+        torch.autograd.backward(outs, [torch.ones_like(vals)] + cots)
+        return {"vals": vals.detach().cpu().numpy(), "g": host_b(G.grad), "s": by_rank(s.grad),
+                "adjoint_applies": [counts[p] for p in range(Pb)], **batched_infos(info)}
+
+    def batched_linsolve():
+        """``linsolve_gmres_batched`` on the shared sharded stencil (its
+        stack applies), ``b`` batched, ``a0`` and ``a1`` shared; the
+        backward's applies are the adjoint solve's, per problem."""
+        prob = sharded_ad_batch(np, "batched_linsolve")
+        A = P.shard_local_stencil(kt.laplacian_1d(prob["n"], device=dev), ax)
+        B = svb(prob["B"]).requires_grad_(True)
+        a0, a1 = scalar(prob["a0"]), scalar(prob["a1"])
+        alg = kt.GMRES(tol=SHARDED_AD_TOL, krylovdim=30, maxiter=200, verbosity=kt.SILENT)
+        X, info = kt.linsolve_gmres_batched(A, B, torch.zeros_like(B), a0, a1, alg, space)
+        with ApplyRecorder(bt) as rec:
+            torch.autograd.backward(X, svb(prob["C"]))
+        return {"x": host_b(X), "b": host_b(B.grad), "a0": by_rank(a0.grad),
+                "a1": by_rank(a1.grad),
+                "adjoint_applies": [rec.per_problem.get(p, 0) for p in range(B.shape[0])],
+                **batched_infos(info)}
 
     def linsolve_case():
         prob = sharded_ad_problem(np, "linsolve")
@@ -3972,6 +4070,9 @@ def sharded_ad_cases(torch, np, kt, dev="cpu", names=None):
                  "collective_error": collective_error, "psum_loss": psum_loss,
                  **{name: (lambda name=name: eig_case(name)) for name in SHARDED_AD_EIG},
                  **{name: (lambda name=name: svd_case(name)) for name in SHARDED_AD_SVD},
+                 "batched_linsolve": batched_linsolve,
+                 **{name: (lambda name=name: batched_spectral(name))
+                    for name in SHARDED_AD_BATCHED[1:]},
                  **{"dot_" + k: (lambda k=k: dot_case(k)) for k in SHARDED_AD_DOT}}
     out = {}
     for name, fn in scenarios.items():
@@ -4007,11 +4108,21 @@ def nccl_mesh1(torch, np, kt, dev="cuda", n=1 << 16):
 # problem in a batched solve
 ROUND_COLLECTIVES = (("golubye.py", "_ritz"), ("golubye.py", "_restart"),
                      ("biarnoldi.py", "_round"))
+MAP_COLLECTIVES = (("eigsolve.py", "block_op"), ("svdsolve.py", "block_op"),
+                   ("_common.py", "split_normal"), ("_common.py", "split_apply_batched"))
+ROUTE_COLLECTIVES = tuple((f, fn) for f, fns in (
+    ("eigsolve.py", ("_gmres_inner", "_sylvester_inner", "_sylvester_general_inner", "finish")),
+    ("svdsolve.py", ("_gmres_inner", "_sylvester_inner", "finish"))) for fn in fns)
 # kinds named by a function on the all-reduce's stack, the first that
 # matches (its name, or its (file, name)); else "inner_norm"
 COLLECTIVE_KINDS = (
     ("round_per_problem", ROUND_COLLECTIVES),
     ("apply", ("_spmv", "_swap")),
+    # a pullback's per-problem maps (the bordered systems, the Sylvester
+    # operators: their inner products and projections) and its route's own
+    # reductions (the cotangents' inner products and Gram matrices)
+    ("map_per_problem", MAP_COLLECTIVES),
+    ("route_per_problem", ROUTE_COLLECTIVES),
     ("gram", ("gram_batched", "gram")),
     ("block_qr", ("block_qr_batched", "block_qr")),
     ("sweep", ("_cgs_sweep_batched", "_cgs_sweep", "_mgs_sweep")),
@@ -4039,15 +4150,32 @@ def _collective_kind(sys_mod):
     return "inner_norm"
 
 
+class _KindPending:
+    """An all-reduce in flight whose timed seconds (``collectives.stats``,
+    taken at its wait) go to its kind in ``seconds``."""
+
+    def __init__(self, pending, kind, kinds):
+        self.pending, self.kind, self.kinds = pending, kind, kinds
+
+    def wait(self):
+        stats = self.kinds.pc.stats
+        before = stats["seconds"]
+        out = self.pending.wait()
+        secs = self.kinds.seconds
+        secs[self.kind] = secs.get(self.kind, 0.0) + stats["seconds"] - before
+        return out
+
+
 class CollectiveKinds:
     """Inside, every all-reduce of ``ops/collectives.py`` is also counted by
-    kind (:func:`_collective_kind`) in ``counts``; a walk up the Python
-    stack per all-reduce, microseconds against its milliseconds."""
+    kind (:func:`_collective_kind`) in ``counts``, and its seconds (with
+    ``time_collectives`` on) summed by kind in ``seconds``; a walk up the
+    Python stack per all-reduce, microseconds against its milliseconds."""
 
     def __init__(self):
         from krylovkit_tpu_torch.ops import collectives as pc
 
-        self.pc, self.counts = pc, {}
+        self.pc, self.counts, self.seconds = pc, {}, {}
 
     def __enter__(self):
         real = self.real = self.pc._all_reduce_start
@@ -4055,7 +4183,7 @@ class CollectiveKinds:
         def counted(t, group):
             kind = _collective_kind(sys)
             self.counts[kind] = self.counts.get(kind, 0) + 1
-            return real(t, group)
+            return _KindPending(real(t, group), kind, self)
 
         self.pc._all_reduce_start = counted
         return self
@@ -4617,9 +4745,14 @@ def small_sharded_ad(torch, np, world=2, names=SMALL_SHARDED_AD):
 SHARDED_AD_CYCLES = 2  # GMRES(30) cycles of the full-width linsolve (tol 1e-30: fixed work)
 SHARDED_AD_A0 = 0.5  # config 2's shifted system
 SHARDED_AD_PASSES = ("eig_gmres", "eig_sylvester_proj", "linsolve")
+# the batched passes: P problems of the passes above, problem 0 theirs (the
+# wells scaled, a second right-hand side)
+SHARDED_AD_BATCHED_PASSES = ("eig_gmres_batched", "eig_sylvester_proj_batched",
+                             "linsolve_batched")
+SHARDED_AD_BATCH_SCALES = (1.0, 1.1)
 
 
-def sharded_ad_width(torch, np, kt, L, N, space, put, dev):
+def sharded_ad_width(torch, np, kt, L, N, space, put, dev, put_b):
     """The passes of phase ``sharded_ad`` on the operator ``L`` (config 2's
     ``N × N`` Poisson stencil, sharded or not) in ``space``; ``put`` gives
     this rank's block of a global ``(N²/128, 128)`` array on ``dev``.  Each
@@ -4630,10 +4763,19 @@ def sharded_ad_width(torch, np, kt, L, N, space, put, dev):
     with the projection kernels on and an Arnoldi ``alg_rrule`` (the
     Sylvester rule); ``linsolve`` fused GMRES(30) on ``(0.5 + L) x = 1``
     (:data:`SHARDED_AD_CYCLES` cycles) and the gradient of ``⟨c, x⟩`` with
-    respect to ``b`` and ``a0``.  Then the adjoint derived across the ranks
-    (no ``adjoint_fn``) against the explicit one.  Returns ``(results,
-    records)``: this rank's blocks and partials, and per pass its ms,
-    launches and collectives."""
+    respect to ``b`` and ``a0``.  Then their batched twins
+    (:data:`SHARDED_AD_BATCHED_PASSES`, ``put_b`` giving this rank's
+    block of each problem's rows of a ``(P, N²/128, 128)`` stack): the two
+    eigenvalue passes through ``eigsolve_lanczos_batched`` on one
+    ``ParametricOperator`` a problem (the wells scaled by
+    :data:`SHARDED_AD_BATCH_SCALES`), the linsolve through
+    ``linsolve_gmres_batched`` on the shared stencil (``b_0 = 1``, ``b_1``
+    seeded, the shared ``a0``), ``Σ_p ⟨c, x_p⟩``; each with whether
+    problem 0 is its one-problem pass bit for bit.  Then the adjoint
+    derived across the ranks (no ``adjoint_fn``) against the explicit one.
+    Returns ``(results, records)``: this rank's blocks and partials, and
+    per pass its ms, launches and collectives (by kind,
+    :class:`CollectiveKinds`)."""
     from krylovkit_tpu_torch import _build
     from krylovkit_tpu_torch.ops import basis as bs
     from krylovkit_tpu_torch.ops import collectives as pc
@@ -4662,14 +4804,17 @@ def sharded_ad_width(torch, np, kt, L, N, space, put, dev):
         pc.reset_stats()
         pc.time_collectives = True
         try:
-            t0 = time.perf_counter()
-            out = fn()
-            sync()
-            ms = (time.perf_counter() - t0) * 1e3
+            with CollectiveKinds() as kinds:
+                t0 = time.perf_counter()
+                out = fn()
+                sync()
+                ms = (time.perf_counter() - t0) * 1e3
         finally:
             pc.time_collectives = False
         return out, {"ms": ms, "launches": {k: v for k, v in _build.launches.items() if v},
                      "collectives": pc.stats["collectives"],
+                     "collectives_by_kind": dict(sorted(kinds.counts.items())),
+                     "collective_ms_by_kind": {k: v * 1e3 for k, v in sorted(kinds.seconds.items())},
                      "collective_ms": pc.stats["seconds"] * 1e3}
 
     res, recs = {}, {}
@@ -4712,6 +4857,61 @@ def sharded_ad_width(torch, np, kt, L, N, space, put, dev):
                        "numiter": int(info.numiter)}
     recs["linsolve"] = {"forward": fwd, "backward": bwd}
 
+    # the batched twins: problem 0 the pass above
+    t_b = time.perf_counter()
+    Pb = len(SHARDED_AD_BATCH_SCALES)
+    G = put_b(np.stack([sc * gn for sc in SHARDED_AD_BATCH_SCALES]).reshape(
+        Pb, n // 128, 128)).requires_grad_(True)
+    lz = kt.Lanczos(krylovdim=30, maxiter=10, tol=1e-5, verbosity=kt.SILENT)
+
+    def counts_of(info):
+        return {k: getattr(info, k).tolist() for k in ("numops", "numiter", "converged")}
+
+    def p0_bits(name, one):
+        got = res[name]
+        return {"vals": bool(np.array_equal(got["vals"][0], res[one]["vals"])),
+                "grad": bool(np.array_equal(got["grad"][0], res[one]["grad"])),
+                "counts": all(got[k][0] == res[one][k] for k in ("numops", "numiter",
+                                                                   "converged"))}
+
+    def eig_batched(name, one, alg_rrule=None, proj=False):
+        G.grad = None
+        old = bs.use_pallas_projections
+        bs.use_pallas_projections = proj
+        try:
+            ops = [kt.ParametricOperator(apply, G[p], adjoint) for p in range(Pb)]
+            (vals, vecs, info), fwd = timed(lambda: kt.eigsolve_lanczos_batched(
+                ops, x0, 4, "SR", lz, space, in_dims=(0, None), alg_rrule=alg_rrule))
+            _, bwd = timed(lambda: vals.sum().backward())
+        finally:
+            bs.use_pallas_projections = old
+        res[name] = {"vals": vals.detach().cpu().double().numpy(),
+                     "grad": G.grad.detach().cpu().double().numpy(),
+                     "hellmann_feynman": (vecs.detach().double() ** 2).sum(1).cpu().numpy(),
+                     **counts_of(info)}
+        res[name]["p0_bit_equal"] = p0_bits(name, one)
+        recs[name] = {"forward": fwd, "backward": bwd}
+
+    eig_batched("eig_gmres_batched", "eig_gmres")
+    eig_batched("eig_sylvester_proj_batched", "eig_sylvester_proj", arnoldi, proj=True)
+
+    B = put_b(np.stack([np.ones((n // 128, 128), np.float32),
+                        np.random.default_rng(13).standard_normal((n // 128, 128)).astype(
+                            np.float32)])[:Pb]).requires_grad_(True)
+    a0b = torch.tensor(SHARDED_AD_A0, dtype=torch.float32, device=dev, requires_grad=True)
+    (X, info), fwd = timed(lambda: kt.linsolve_gmres_batched(L, B, torch.zeros_like(B), a0b, 1.0,
+                                                             alg, space))
+    _, bwd = timed(lambda: torch.autograd.backward(X, c.expand_as(X)))
+    res["linsolve_batched"] = {"b_grad": B.grad.detach().cpu().double().numpy(),
+                               "a0_grad": float(a0b.grad), **counts_of(info)}
+    res["linsolve_batched"]["p0_bit_equal"] = {
+        "b_grad": bool(np.array_equal(res["linsolve_batched"]["b_grad"][0],
+                                      res["linsolve"]["b_grad"])),
+        "counts": all(res["linsolve_batched"][k][0] == res["linsolve"][k]
+                      for k in ("numops", "numiter"))}
+    recs["linsolve_batched"] = {"forward": fwd, "backward": bwd}
+    recs["batched_seconds"] = time.perf_counter() - t_b
+
     # the adjoint derived across the ranks against the explicit one
     y = put(np.random.default_rng(12).standard_normal((n // 128, 128)).astype(np.float32))
     gd = g.detach()
@@ -4738,7 +4938,8 @@ def sharded_ad_rank(torch, np, kt, dev="cuda", N=1024):
     ax = mesh.axis(P.VECTOR_AXIS)
     L = P.shard_local_stencil(kt.poisson_2d(N, N, device=dev), ax)
     res, recs = sharded_ad_width(torch, np, kt, L, N, VectorSpace(psum_axis=ax),
-                                 lambda a: P.shard_vector(torch.as_tensor(a), mesh), dev)
+                                 lambda a: P.shard_vector(torch.as_tensor(a), mesh), dev,
+                                 lambda a: P.shard_vector(torch.as_tensor(a), mesh, batched=True))
     return {"results": res, "records": recs, "rank": ax.index}
 
 
@@ -4762,8 +4963,8 @@ def sharded_ad(torch, np, kt, _build, smi, world=2, N=1024, dev="cuda"):
     t0 = time.perf_counter()
     card = dev != "cpu"
     L1 = kt.poisson_2d(N, N, device=dev)
-    one, one_recs = sharded_ad_width(torch, np, kt, L1, N, kt.VectorSpace(),
-                                     lambda a: torch.as_tensor(a, device=dev), dev)
+    put = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    one, one_recs = sharded_ad_width(torch, np, kt, L1, N, kt.VectorSpace(), put, dev, put)
     t_one = time.perf_counter() - t0
     ranks = run_ranks(world, "sharded_ad_rank", dev=dev, threads=2, timeout=600, N=N)
     ranks = sorted(ranks, key=lambda r: r["rank"])
@@ -4859,6 +5060,8 @@ def sharded_ad(torch, np, kt, _build, smi, world=2, N=1024, dev="cuda"):
                         f"({fl_}, {one_fl})")
             else:
                 require(not proj & set(fl_), f"sharded_ad {key}: flag off, no K5/K6 ({fl_})")
+    batched = sharded_ad_batched_lines(np, one, one_recs, ranks, lines, world, N, card, smi,
+                                       torch.cuda.get_device_name(0) if card else "cpu")
     gaps = [r["derived_adjoint"]["rel_gap"] for r in res]
     dms = [r["records"]["derived_adjoint"] for r in ranks]
     emit({"phase": "sharded_ad", "pass": "derived_adjoint", "rel_gap": max(gaps),
@@ -4869,8 +5072,120 @@ def sharded_ad(torch, np, kt, _build, smi, world=2, N=1024, dev="cuda"):
           "one_rank_rel_gap": one["derived_adjoint"]["rel_gap"], "nvidia_smi": smi})
     require(max(gaps) <= 1e-5,
             f"sharded_ad: the derived adjoint within 1e-5 of the explicit one ({gaps})")
-    emit({"phase": "sharded_ad", "seconds": time.perf_counter() - t0, "one_rank_seconds": t_one})
-    return {key: lines[key]["launches_per_rank"] for key in SHARDED_AD_PASSES}
+    emit({"phase": "sharded_ad", "seconds": time.perf_counter() - t0, "one_rank_seconds": t_one,
+          "batched_seconds_by_rank": [r["records"]["batched_seconds"] for r in ranks],
+          "batched_seconds_one_rank": one_recs["batched_seconds"]})
+    return {key: lines[key]["launches_per_rank"] for key in SHARDED_AD_PASSES} | batched
+
+
+def sharded_ad_batched_lines(np, one, one_recs, ranks, lines, world, N, card, smi, device):
+    """Phase ``sharded_ad``'s batched passes (:data:`SHARDED_AD_BATCHED_PASSES`):
+    one line each, and the guards.  Hellmann–Feynman per rank and per
+    problem within 1e-3, each problem's blocks joined within 1e-3 of the
+    one-rank batch's gradient and its values within 1e-4; the linsolve's
+    ``b̄`` joined within 1e-4 of one rank's, ``ā0`` summed over the ranks
+    within 1e-4; counts per problem equal on every rank and to the one-rank
+    batch's; on the card, per rank, ``fused_step_batched`` in the
+    linsolve's forward and ``project_batched``/``unproject_batched`` in
+    the flag-on forward as many as one rank launches, and no one-problem
+    K1, K5 or K6 in a batched forward.  Whether problem 0 is the
+    one-problem pass's bits on each rank is printed, not guarded.  Returns
+    the launches per rank of each pass."""
+    res = [r["results"] for r in ranks]
+
+    def rel(a, b):
+        return float(np.max(np.abs(a - b)) / max(float(np.max(np.abs(b))), 1e-300))
+
+    def slowest(key, side):
+        return max(r["records"][key][side]["ms"] for r in ranks)
+
+    out = {}
+    for key in SHARDED_AD_BATCHED_PASSES:
+        single = key[:-len("_batched")]
+        got = [r[key] for r in res]
+        counts = {k: got[0][k] for k in ("numops", "numiter", "converged") if k in got[0]}
+        require(all({k: g[k] for k in counts} == counts for g in got),
+                f"sharded_ad {key}: counts equal on every rank ({[g['numops'] for g in got]})")
+        recs = [r["records"][key] for r in ranks]
+        line = {"phase": "sharded_ad", "pass": key, "ranks": world, "N": N,
+                "problems": len(SHARDED_AD_BATCH_SCALES), **counts,
+                "one_rank_counts": {k: one[key][k] for k in counts},
+                "forward_ms_slowest_rank": slowest(key, "forward"),
+                "backward_ms_slowest_rank": slowest(key, "backward"),
+                "one_rank_forward_ms": one_recs[key]["forward"]["ms"],
+                "one_rank_backward_ms": one_recs[key]["backward"]["ms"],
+                "one_problem_forward_ms_slowest_rank": lines[single]["forward_ms_slowest_rank"],
+                "one_problem_backward_ms_slowest_rank": lines[single]["backward_ms_slowest_rank"],
+                "collectives_per_pass": {side: recs[0][side]["collectives"]
+                                         for side in ("forward", "backward")},
+                "collectives_by_kind": {side: recs[0][side]["collectives_by_kind"]
+                                        for side in ("forward", "backward")},
+                "collective_ms_by_kind_by_rank": {
+                    side: [rc[side]["collective_ms_by_kind"] for rc in recs]
+                    for side in ("forward", "backward")},
+                "collective_ms_by_rank": {side: [rc[side]["collective_ms"] for rc in recs]
+                                          for side in ("forward", "backward")},
+                "launches_per_rank": {side: recs[0][side]["launches"]
+                                      for side in ("forward", "backward")},
+                "one_rank_launches": {side: one_recs[key][side]["launches"]
+                                      for side in ("forward", "backward")},
+                "p0_bit_equal_to_one_problem_by_rank": [g["p0_bit_equal"] for g in got],
+                "device": device, "nvidia_smi": smi}
+        if key == "linsolve_batched":
+            joined = np.concatenate([g["b_grad"] for g in got], axis=1)
+            a0_sum = sum(g["a0_grad"] for g in got)
+            line.update(b_grad_rel_err=rel(joined, one[key]["b_grad"]),
+                        a0_grad_by_rank=[g["a0_grad"] for g in got], a0_grad_sum=a0_sum,
+                        a0_grad_one_rank=one[key]["a0_grad"],
+                        a0_grad_rel_err=abs(a0_sum - one[key]["a0_grad"])
+                        / abs(one[key]["a0_grad"]))
+        else:
+            joined = np.concatenate([g["grad"] for g in got], axis=1)
+            line.update(hellmann_feynman_rel_err_by_rank=[
+                            [rel(g["grad"][p], g["hellmann_feynman"][p])
+                             for p in range(len(g["grad"]))] for g in got],
+                        grad_rel_err_vs_one_rank=[rel(joined[p], one[key]["grad"][p])
+                                                  for p in range(len(joined))],
+                        vals=got[0]["vals"].tolist(),
+                        vals_rel_err_vs_one_rank=rel(got[0]["vals"], one[key]["vals"]))
+        emit(line)
+        require(counts == line["one_rank_counts"],
+                f"sharded_ad {key}: counts equal to the one-rank batch's ({counts}, "
+                f"{line['one_rank_counts']})")
+        fl_, one_fl = line["launches_per_rank"]["forward"], line["one_rank_launches"]["forward"]
+        require(not {"fused_step", "project", "unproject"} & set(fl_),
+                f"sharded_ad {key}: no one-problem K1, K5 or K6 in the batched forward ({fl_})")
+        if key == "linsolve_batched":
+            require(line["b_grad_rel_err"] <= 1e-4,
+                    f"sharded_ad {key}: b.grad joined within 1e-4 of one rank's "
+                    f"({line['b_grad_rel_err']})")
+            require(line["a0_grad_rel_err"] <= 1e-4,
+                    f"sharded_ad {key}: a0.grad summed within 1e-4 of one rank's "
+                    f"({line['a0_grad_rel_err']})")
+            k1 = one_fl.get("fused_step_batched", 0)
+            require(not card or fl_.get("fused_step_batched", 0) == k1 > 0,
+                    f"sharded_ad {key}: fused_step_batched per rank in the forward = one "
+                    f"rank's ({fl_}, {one_fl})")
+        else:
+            hf = max(max(h) for h in line["hellmann_feynman_rel_err_by_rank"])
+            require(hf <= 1e-3, f"sharded_ad {key}: G.grad within 1e-3 of each rank's block of "
+                                f"sum v_i^2, each problem ({hf})")
+            require(max(line["grad_rel_err_vs_one_rank"]) <= 1e-3,
+                    f"sharded_ad {key}: each problem's blocks joined within 1e-3 of the "
+                    f"one-rank gradient ({line['grad_rel_err_vs_one_rank']})")
+            require(line["vals_rel_err_vs_one_rank"] <= 1e-4,
+                    f"sharded_ad {key}: values within 1e-4 of one rank's "
+                    f"({line['vals_rel_err_vs_one_rank']})")
+            proj = ("project_batched", "unproject_batched")
+            if key == "eig_sylvester_proj_batched":
+                require(not card or all(fl_.get(k, 0) == one_fl.get(k, 0) > 0 for k in proj),
+                        f"sharded_ad {key}: batched K5/K6 per rank in the forward = one rank's "
+                        f"({fl_}, {one_fl})")
+            else:
+                require(not set(proj) & set(fl_), f"sharded_ad {key}: flag off, no K5/K6 "
+                                                  f"({fl_})")
+        out[key] = line["launches_per_rank"]
+    return out
 
 
 def front_ends_data(np, n, n4):

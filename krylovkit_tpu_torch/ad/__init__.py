@@ -13,7 +13,8 @@ backward solves record no autograd graph.
 The batched drivers of ``solvers/batched*.py`` differentiate by the same
 rules (``ad/batched.py``): each problem's inner solves are built as its
 one-problem rule builds them (``route``, ``_common.Inner``), and all
-problems' are solved in one batched call.
+problems' are solved in one batched call, on a sharded space too (each
+rank's cotangents the one-problem sharded rule's, problem by problem).
 
 Convention: torch's cotangents are conjugate-Wirtinger derivatives, the
 conjugates of JAX's (for a real loss, ``t.grad == conj(jax.grad)``); they

@@ -25,13 +25,18 @@ over the ranks (``MeshAxis.psum``), so ``D`` times.
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Any, Callable
+
 import torch
 
 from ..ops.collectives import strict_collectives
-from ..ops.vector import STANDARD, VectorSpace, tree_leaves
+from ..ops.operator import TypedOperator
+from ..ops.vector import STANDARD, VectorSpace, psum, tree_leaves
 
-__all__ = ["Call", "Inner", "needs_grad", "refuse_grad", "detached", "operator_cotangent",
-           "adjoint_operator", "solve_inner", "real_safe", "row", "euclidean"]
+__all__ = ["Call", "Inner", "SplitOperator", "split_operator", "split_apply_batched",
+           "needs_grad", "refuse_grad", "detached", "operator_cotangent", "adjoint_operator",
+           "solve_inner", "real_safe", "row", "euclidean"]
 
 
 class Call:
@@ -42,6 +47,44 @@ class Call:
 
     def __init__(self, **kw):
         self.__dict__.update(kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitOperator(TypedOperator):
+    """A pullback's map whose apply ends in inner products of ``space`` (the
+    bordered systems' ``⟨v, x⟩``, the coupled SVD system's projections):
+    ``local(x)`` gives the image before them and their local partials
+    (``space.local_inner``, a list), ``finish(y, sums)`` the image from the
+    partials' sums over the ranks.  One apply sums each partial in one
+    all-reduce, as ``space.inner`` would; a batched driver's stack apply of
+    several (``solvers/batched.py:_Operators``) sums every problem's
+    partials in one all-reduce."""
+
+    local: Callable = None
+    finish: Callable = None
+    space: Any = None
+
+
+def split_operator(local, finish, space, dtype) -> SplitOperator:
+    """The :class:`SplitOperator` of ``local`` and ``finish`` in ``space``."""
+    def split_normal(x):
+        y, parts = local(x)
+        return finish(y, [space.finish_inner(psum(p, space.psum_axis)) for p in parts])
+
+    return SplitOperator(split_normal, None, dtype=dtype, local=local, finish=finish,
+                         space=space)
+
+
+def split_apply_batched(ops, rows):
+    """``[o.normal(x) for o, x in zip(ops, rows)]`` for :class:`SplitOperator`
+    maps of one sharded space: every row's partials summed in one
+    all-reduce (each a copy: a row of an all-reduced stack enters no
+    product as a view)."""
+    locs = [o.local(x) for o, x in zip(ops, rows)]
+    space = ops[0].space
+    sums = psum(torch.stack([torch.stack(parts) for _, parts in locs]), space.psum_axis)
+    return [o.finish(y, [space.finish_inner(s.clone()) for s in row])
+            for o, (y, _), row in zip(ops, locs, sums)]
 
 
 def _requires_grad(op, vectors) -> bool:
@@ -144,7 +187,10 @@ def adjoint_operator(op, dtype: torch.dtype):
     planes of a banded operator, the self-adjoint 1-D Laplacian, the
     conjugate transpose of a matrix (operators that a batched driver applies
     to a stack in one launch or one product), else ``op``'s adjoint as a
-    typed callable.  Each applies as ``op.apply_adjoint`` does."""
+    typed callable, which keeps a sharded operator's stack applies swapped
+    (``adjoint_stack`` as its ``normal_stack``: one halo all-reduce for all
+    rows of a batched adjoint solve).  Each applies as ``op.apply_adjoint``
+    does."""
     from ..ops.banded import BandedOperator
     from ..ops.operator import MatrixOperator, TypedOperator
     from ..ops.stencil_1d import Laplacian1DOperator
@@ -155,7 +201,8 @@ def adjoint_operator(op, dtype: torch.dtype):
         return op
     if type(op) is MatrixOperator:
         return MatrixOperator(op.A.conj().T)
-    return TypedOperator(op.apply_adjoint, op.normal, dtype=dtype)
+    return TypedOperator(op.apply_adjoint, op.normal, op.adjoint_stack, op.normal_stack,
+                         dtype=dtype)
 
 
 class Inner:

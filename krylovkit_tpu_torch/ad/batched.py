@@ -28,8 +28,24 @@ does the same with the batched drivers:
   ``u_p``.  ``x0`` gets no gradient.
 
 Each problem's gradient is its one-problem front-end's, to rounding (the
-bits, where the batched drivers keep them).  On a sharded space the
-drivers refuse differentiation (``solvers/batched.py:_differentiated``).
+bits, where the batched drivers keep them).
+
+On a sharded space (``VectorSpace(psum_axis=...)``) the rules run as the
+one-problem sharded rules do (``ad/_common.py``), every rank alike: the
+inner solves are one batched call on the space, whose lock-steps
+all-reduce once of each kind for every problem; the adjoint of a shared
+sharded operator keeps its stack applies (``_common.adjoint_operator``:
+one halo all-reduce for all rows); a per-problem callable (a
+``ParametricOperator``, the bordered and Sylvester maps) makes its own
+collectives, problem by problem, and so do each problem's route
+reductions (``space.inner`` and the Gram matrices of ``euclidean``).  A
+replicated leaf of a tuple vector (the bordered systems' scalar) is
+summed with the other leaves' local partials before the row's one
+all-reduce, as the one-problem inner product sums it.  Each rank's
+cotangent of a sharded input is its block, of a replicated one (``a0``,
+``a1``, a shared operator's tensor) its partial; a sum over the problems
+(``shift_cotangents``, a shared ``b``, a shared operator) is a sum of the
+problems' local partials, which the caller sums over the ranks once.
 """
 
 from __future__ import annotations

@@ -36,7 +36,7 @@ from ..ops import basis as bs
 from ..ops.operator import TypedOperator
 from ..ops.vector import tree_flatten, tree_leaves, tree_map, tree_unflatten, zerovector
 from ._common import (Call, Inner, detached, euclidean, operator_cotangent, real_safe, row,
-                      solve_inner)
+                      solve_inner, split_operator)
 from .gauge import warn_gauge_eager
 
 __all__ = ["eigsolve_vjp", "route"]
@@ -117,11 +117,14 @@ def _gmres_inner(howmany, alg, alg_rrule, space, op, vals, vecs, gvals, gvecs) -
                 lambda ax, xx, vv: torch.conj(lam).to(xx.dtype) * xx - ax + x2.to(vv.dtype) * vv,
                 op.apply_adjoint(x1), x1, v,
             )
-            return y1, space.inner(v, x1)
+            return y1, [space.local_inner(v, x1)]
 
         rhs = (dv, dlam)
         zero = (zerovector(dv), torch.zeros((), dtype=cdt, device=dev))
-        systems.append((TypedOperator(opb, None, dtype=cdt), rhs, zero))
+        # the bordered row ⟨v, x₁⟩ is split off: a batch sums every
+        # system's in one all-reduce
+        systems.append((split_operator(opb, lambda y1, sums: (y1, sums[0]), space, cdt), rhs,
+                        zero))
 
     def finish(sols):
         return [("normal", row(vecs, i), w) for i, (w, _delta) in enumerate(sols)]

@@ -32,7 +32,7 @@ from ..ops import basis as bs
 from ..ops.operator import TypedOperator
 from ..ops.vector import tree_flatten, tree_leaves, tree_map, tree_unflatten, zerovector
 from ._common import (Call, Inner, detached, euclidean, operator_cotangent, real_safe, row,
-                      solve_inner)
+                      solve_inner, split_operator)
 from .eigsolve import _contract, _mix, _sub
 from .gauge import warn_gauge_eager
 
@@ -73,9 +73,15 @@ def _gmres_inner(howmany, alg, alg_rrule, space, op, vals, lvecs, rvecs, gs, gu,
             x, y = xy
             xp = tree_map(lambda lx, lay: real_safe(sig, lx.dtype) * lx - lay, x, op.normal(y))
             yp = tree_map(lambda ly, lax_: sig.to(ly.dtype) * ly - lax_, y, op.apply_adjoint(x))
-            return _axpy(xp, u, -space.inner(u, xp)), _axpy(yp, v, -space.inner(v, yp))
+            return (xp, yp), [space.local_inner(u, xp), space.local_inner(v, yp)]
 
-        systems.append((TypedOperator(opb, None, dtype=cdt), (bu, bv),
+        def project(xpyp, sums, u=u, v=v):
+            xp, yp = xpyp
+            return _axpy(xp, u, -sums[0]), _axpy(yp, v, -sums[1])
+
+        # the projections' inner products are split off: a batch sums every
+        # system's in one all-reduce
+        systems.append((split_operator(opb, project, space, cdt), (bu, bv),
                         (zerovector(bu), zerovector(bv))))
 
     def finish(sols):

@@ -123,6 +123,8 @@ class MeshAxis:
         partials."""
         if self.size == 1 or t.device.type == "meta":
             return t
+        if _untracked(t):
+            return self._sum(t)
         return _Psum.apply(t, self)
 
     def _sum(self, t: torch.Tensor) -> torch.Tensor:
@@ -136,6 +138,8 @@ class MeshAxis:
         The payload may have any shape: a ``(P, h, ...)`` stack of the edge
         rows of ``P`` problems goes in the same one all-reduce.
         Differentiable: the backward is the transposed exchange."""
+        if _untracked(first, last):
+            return self._swap(first, last)
         return _Edges.apply(first, last, self)
 
     def _swap(self, to_left: torch.Tensor, to_right: torch.Tensor):
@@ -151,6 +155,15 @@ class MeshAxis:
             slots[self.index - 1, 1] = to_left
         got = self.psum_start(slots).wait()[self.index]
         return got[0], got[1]
+
+
+def _untracked(*ts) -> bool:
+    """Whether no derivative can be taken through a collective of ``ts``
+    (none requires grad where gradients are on, no ``torch.func`` transform
+    is active): it then runs without its ``torch.autograd.Function``, whose
+    every ``apply`` binds its arguments by ``inspect.signature``."""
+    return (not (torch.is_grad_enabled() and any(t.requires_grad for t in ts))
+            and not torch._C._are_functorch_transforms_active())
 
 
 class _Psum(torch.autograd.Function):

@@ -67,9 +67,13 @@ PyTree = Any
 
 
 def tree_leaves(x: PyTree) -> list:
-    """The tensors of ``x`` in flattening order (``[x]`` for a tensor)."""
+    """The tensors of ``x`` in flattening order (``[x]`` for a tensor; a
+    plain tuple leaf by leaf here, without ``torch.utils._pytree``'s
+    per-call cost, in the same order)."""
     if isinstance(x, torch.Tensor):
         return [x]
+    if type(x) is tuple:
+        return [l for e in x for l in tree_leaves(e)]
     return _pt.tree_leaves(x)
 
 
@@ -84,9 +88,13 @@ def tree_unflatten(leaves, spec) -> PyTree:
 
 def tree_map(fn: Callable, x: PyTree, *rest: PyTree) -> PyTree:
     """``fn`` leaf by leaf over ``x`` and trees of its structure; a tensor
-    ``x`` is one call of ``fn``."""
+    ``x`` is one call of ``fn``, a plain tuple (the pullbacks' ``(vector,
+    scalar)`` and ``(w, x)`` vectors) mapped element by element here, as
+    ``torch.utils._pytree`` maps it, without its per-call cost."""
     if isinstance(x, torch.Tensor):
         return fn(x, *rest)
+    if type(x) is tuple and all(type(r) is tuple and len(r) == len(x) for r in rest):
+        return tuple(tree_map(fn, *args) for args in zip(x, *rest))
     return _pt.tree_map(fn, x, *rest)
 
 
@@ -163,11 +171,15 @@ class VectorSpace:
             object.__setattr__(self, "psum_axis", as_axis(self.psum_axis))
 
     def inner(self, x: PyTree, y: PyTree) -> torch.Tensor:
-        ip = self.inner_fn(x, y) if self.inner_fn is not None else _tree_inner(x, y)
-        ip = psum(ip, self.psum_axis)
-        if self.real_inner:
-            ip = torch.real(ip)
-        return ip
+        return self.finish_inner(psum(self.local_inner(x, y), self.psum_axis))
+
+    def local_inner(self, x: PyTree, y: PyTree) -> torch.Tensor:
+        """This rank's partial of :meth:`inner` (all of it unsharded)."""
+        return self.inner_fn(x, y) if self.inner_fn is not None else _tree_inner(x, y)
+
+    def finish_inner(self, ip: torch.Tensor) -> torch.Tensor:
+        """:meth:`inner` from the partials' sum over the ranks."""
+        return torch.real(ip) if self.real_inner else ip
 
     def norm(self, x: PyTree) -> torch.Tensor:
         nrm2 = torch.real(self.inner(x, x))

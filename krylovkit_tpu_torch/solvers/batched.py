@@ -92,10 +92,12 @@ host read, and the problems that sweep sweep together.
 The drivers whose one-problem front-end has a differentiation rule (the
 two here, the CG, MINRES and BiCGStab drivers, the Arnoldi eigsolve and
 the GKL svdsolve) differentiate by that rule, for the algorithm they are
-given (``alg_rrule``; ``ad/batched.py``), on an unsharded space.  Refused,
-each with a ``ValueError`` that names it (:func:`_differentiated`):
-selective with ``eager`` (as in the one-problem driver), differentiation
-through a driver with no rule, and differentiation on a sharded space.
+given (``alg_rrule``; ``ad/batched.py``), on a sharded space as on an
+unsharded one: each rank's cotangents are the one-problem sharded rule's,
+problem by problem.  Refused, each with a ``ValueError`` that names it
+(:func:`_differentiated`): selective with ``eager`` (as in the one-problem
+driver) and differentiation through a driver with no rule, on any
+space.
 """
 
 from __future__ import annotations
@@ -104,7 +106,7 @@ import functools
 
 import torch
 
-from ..ad._common import needs_grad
+from ..ad._common import SplitOperator, needs_grad, split_apply_batched
 from ..algorithms import GMRES, Lanczos
 from ..dense.triangular import solve_upper_active
 from ..factorizations import krylov as kf
@@ -134,20 +136,14 @@ def _in_dims(in_dims, names):
     return dims
 
 
-def _differentiated(what: str, vectors, ops, scalars=(), space: VectorSpace = STANDARD,
-                    rule: bool = False) -> bool:
+def _differentiated(what: str, vectors, ops, scalars=(), rule: bool = False) -> bool:
     """Whether a batched call differentiates: gradients are on and a leaf of
     ``vectors``, a tensor of ``scalars`` or a tensor of one of ``ops``
     requires grad.  A driver whose one-problem front-end has a rule
-    (``rule``) then goes through ``ad/batched.py``; one whose front-end has
-    none raises, as does every driver on a sharded space, each a
-    ``ValueError`` that names it."""
+    (``rule``) then goes through ``ad/batched.py``, on any ``space``; one
+    whose front-end has none raises a ``ValueError`` that names it."""
     if not needs_grad(list(ops), *vectors, *scalars):
         return False
-    if space.psum_axis is not None:
-        raise ValueError(f"{what}: differentiation through a batched solve is not yet batched "
-                         "on a sharded space; solve the problems one by one, or on an "
-                         "unsharded space")
     if not rule:
         raise ValueError(f"{what}: differentiation has no rule here (nor has the JAX "
                          "package's: its lax.while_loop has no transpose); differentiate a "
@@ -291,7 +287,17 @@ class _Operators:
         rows = tree_rows(X)
         if adjoint:
             return tree_stack([self.ops[p].apply_adjoint(x) for p, x in zip(ps, rows)])
-        return tree_stack([self.ops[p].normal(x) for p, x in zip(ps, rows)])
+        return tree_stack(self._normals(ps, rows))
+
+    def _normals(self, ps, xs) -> list:
+        """``A_p x`` for the vectors ``xs`` of the problems ``ps``, one by one;
+        a pullback's :class:`~..ad._common.SplitOperator` maps on a sharded
+        space sum every problem's partials in one all-reduce."""
+        ops = [self.ops[p] for p in ps]
+        if all(isinstance(o, SplitOperator) for o in ops) and ops[0].space.psum_axis is not None \
+                and all(o.space.psum_axis is ops[0].space.psum_axis for o in ops):
+            return split_apply_batched(ops, xs)
+        return [o.normal(x) for o, x in zip(ops, xs)]
 
     def apply_stack(self, X, ps):
         """``A_p X[i]`` for row ``i`` of the stack ``X`` (a tensor, or a tree
@@ -308,7 +314,7 @@ class _Operators:
         if not self._batches(xs[ps[0]], adjoint):
             if adjoint:
                 return {p: self.ops[p].apply_adjoint(x) for p, x in xs.items()}
-            return {p: self.ops[p].normal(x) for p, x in xs.items()}
+            return dict(zip(ps, self._normals(ps, list(xs.values()))))
         X = torch.stack([xs[p] for p in ps])
         Y = self.apply_adjoint_stack(X, ps) if adjoint else self.apply_stack(X, ps)
         return {p: Y[i] for i, p in enumerate(ps)}
@@ -424,7 +430,7 @@ def eigsolve_lanczos_batched(op, x0, howmany: int, which, alg: Lanczos,
             "omega-recurrence state does not persist across eager processings)")
     P = _batch_size(_count(op, op_dim, "op", vector=False), _count(x0, x_dim, "x0"))
     ops = _Operators(op, P, op_dim == 0)
-    if _differentiated("eigsolve_lanczos_batched", [x0], ops.distinct(), space=space, rule=True):
+    if _differentiated("eigsolve_lanczos_batched", [x0], ops.distinct(), rule=True):
         from ..ad.batched import eigsolve_batched_vjp
 
         return eigsolve_batched_vjp(eigsolve_lanczos_batched, ops.ops, x0, howmany, which, alg,
@@ -616,8 +622,7 @@ def linsolve_gmres_batched(op, b, x0, a0, a1, alg: GMRES, space: VectorSpace = S
     P = _batch_size(_count(op, op_dim, "op", vector=False), _count(b, b_dim, "b"),
                     _count(x0, x_dim, "x0"))
     ops = _Operators(op, P, op_dim == 0)
-    if _differentiated("linsolve_gmres_batched", [b, x0], ops.distinct(), (a0, a1), space,
-                       rule=True):
+    if _differentiated("linsolve_gmres_batched", [b, x0], ops.distinct(), (a0, a1), rule=True):
         from ..ad.batched import linsolve_batched_vjp
 
         return linsolve_batched_vjp(linsolve_gmres_batched, ops.ops, b, x0, a0, a1, alg,

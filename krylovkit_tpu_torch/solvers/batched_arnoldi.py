@@ -92,7 +92,7 @@ def _setup(what: str, op, x0, howmany: int, alg: Arnoldi, space: VectorSpace, in
     _check(howmany, alg.krylovdim)
     P = _batch_size(_count(op, op_dim, "op", vector=False), _count(x0, x_dim, "x0"))
     ops = _Operators(op, P, op_dim == 0)
-    if _differentiated(what, [x0], ops.distinct(), space=space, rule=rule):
+    if _differentiated(what, [x0], ops.distinct(), rule=rule):
         return ops, None, None
     x0s = _problems(x0, x_dim, P)
     kf.check_sharded_blocks(what, ops.distinct(), x0s, space)

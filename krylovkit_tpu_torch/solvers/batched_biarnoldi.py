@@ -101,12 +101,12 @@ def bieigsolve_batched(op, v0, w0, howmany: int, which, alg: BiArnoldi,
     m = alg.krylovdim
     if howmany > m:
         raise ValueError(f"howmany={howmany} exceeds krylovdim={m}")
-    _differentiated(what, [v0, w0], [], space=space)
+    _differentiated(what, [v0, w0], [])
     P = _batch_size(_count(op, op_dim, "op", vector=False), _count(v0, v_dim, "v0"),
                     _count(w0, w_dim, "w0"))
     vs, ws = _problems(v0, v_dim, P), _problems(w0, w_dim, P)
     ops = _Operators(op, P, op_dim == 0, templates=vs)
-    _differentiated(what, [], ops.distinct(), space=space)
+    _differentiated(what, [], ops.distinct())
     pdt = functools.reduce(torch.promote_types, [probe_dtype(o, vs[0]) for o in ops.distinct()])
     real = not pdt.is_complex and isinstance(which, str)
     cdt = pdt if real else torch.promote_types(pdt, torch.complex64)

@@ -88,10 +88,10 @@ def eigsolve_blocklanczos_batched(op, X0, howmany: int, which, alg: BlockLanczos
             raise ValueError(f"{what}: a Block is one shared start block; give one block per "
                              "problem as a (P, b, ...) tensor or a tree of such leaves")
         X0 = X0.stacked
-    _differentiated(what, [X0], [], space=space)
+    _differentiated(what, [X0], [])
     P = _batch_size(_count(op, op_dim, "op", vector=False), _count(X0, x_dim, "X0"))
     ops = _Operators(op, P, op_dim == 0)
-    _differentiated(what, [], ops.distinct(), space=space)
+    _differentiated(what, [], ops.distinct())
     X0s = _problems(X0, x_dim, P)
     b = bs.capacity(X0s[0])
     cdt = functools.reduce(torch.promote_types,

@@ -85,7 +85,7 @@ def expintegrator_batched(op, t, u: tuple, alg, space: VectorSpace = STANDARD, *
                     *[_count(ui, d, "u") for ui, d in zip(u, u_dims)])
     ops = _Operators(op, P, op_dim == 0)
     ts = _problems(t, t_dim, P, vector=False)
-    _differentiated(what, u, ops.distinct(), ts, space)
+    _differentiated(what, u, ops.distinct(), ts)
     ts = [_host_t(tp) for tp in ts]
     us = [tuple(_problems(ui, d, P)[p] for ui, d in zip(u, u_dims)) for p in range(P)]
     if len(u) == 1:

@@ -54,7 +54,7 @@ coefficients, the norms); the fused GKL gate refuses such a space, so
 ``solvers/batched.py`` (a domain tree may differ from the codomain tree:
 give ``(f, fadjoint)`` on the trees), also on a sharded space.
 :func:`svdsolve_gkl_batched` is differentiable as ``svdsolve`` is
-(``alg_rrule``, ``ad/batched.py``) on an unsharded space; LSMR refuses
+(``alg_rrule``, ``ad/batched.py``), on a sharded space too; LSMR refuses
 differentiation, as ``lssolve`` does (``ValueError``).
 """
 
@@ -105,7 +105,7 @@ def _setup(what: str, op, x, in_dims, names, scalars=(), check_space=None,
     # the adjoint guard runs in the vectors, detached
     xs = _problems(tree_map(torch.Tensor.detach, x), x_dim, P)
     ops = _Operators(op, P, op_dim == 0, templates=xs, check_space=check_space)
-    if _differentiated(what, [x], ops.distinct(), scalars, space, rule):
+    if _differentiated(what, [x], ops.distinct(), scalars, rule):
         return ops, None, None
     # the vectors live in the codomain: the scalar type comes through the adjoint
     cdt = functools.reduce(torch.promote_types,

@@ -86,12 +86,12 @@ def geneigsolve_golubye_batched(opA, opB, x0, howmany: int, which, alg: GolubYe,
         raise ValueError("which=LI/SI invalid for Hermitian pencils (real spectrum)")
     if opB is None:
         b_dim = None
-    _differentiated(what, [x0], [], space=space)
+    _differentiated(what, [x0], [])
     P = _batch_size(_count(opA, a_dim, "opA", vector=False),
                     _count(opB, b_dim, "opB", vector=False), _count(x0, x_dim, "x0"))
     opsA = _Operators(opA, P, a_dim == 0)
     opsB: Optional[_Operators] = None if opB is None else _Operators(opB, P, b_dim == 0)
-    _differentiated(what, [], opsA.distinct() + (opsB.distinct() if opsB else []), space=space)
+    _differentiated(what, [], opsA.distinct() + (opsB.distinct() if opsB else []))
     x0s = _problems(x0, x_dim, P)
     cdt = functools.reduce(torch.promote_types,
                            [probe_dtype(o, x0s[0]) for o in opsA.distinct()])

@@ -37,7 +37,7 @@ the shared sharded operator.  Pytree vectors are stacks of trees
 row's inner products are the one-problem tree inner, also on a sharded
 space.  Each driver is differentiable as ``linsolve`` is (``alg_rrule``;
 ``ad/batched.py``: the ``P`` adjoint systems in one batched solve of
-``alg_rrule``'s family), on an unsharded space.
+``alg_rrule``'s family), on a sharded space too.
 """
 
 from __future__ import annotations
@@ -140,8 +140,7 @@ class _Problem:
                              _count(x0, x_dim, "x0"))
         self.ops = _Operators(op, self.P, op_dim == 0)
         self.args = (b, x0, a0, a1, space, (op_dim, b_dim, x_dim))
-        self.grad = _differentiated(name, [b, x0], self.ops.distinct(), (a0, a1), space,
-                                    rule=True)
+        self.grad = _differentiated(name, [b, x0], self.ops.distinct(), (a0, a1), rule=True)
         P = self.P
 
         def expand(l):

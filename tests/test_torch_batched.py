@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from batched_grad_specs import check_one_rank_axis
 from krylovkit_tpu import Lanczos as JLanczos
 from krylovkit_tpu.factorizations import krylov as jkf
 from krylovkit_tpu.ops.operator import MatrixOperator as JMatrixOperator
@@ -247,9 +248,12 @@ def test_warn_lines_of_a_batched_solve_match_jax_vmap():
 
 def test_batched_lanczos_refusals():
     """(h) each piece this slice does not batch raises ``ValueError`` with
-    its name: selective with eager, as the one-problem driver refuses it,
-    and differentiation on a sharded space.  A sharded space is batched: on
-    a one-rank axis, the unsharded bits, pytree vectors too.  Pytree vectors
+    its name: selective with eager, as the one-problem driver refuses it.
+    A sharded space is batched: on a one-rank axis, the unsharded bits,
+    pytree vectors too, and so is differentiation there (the Lanczos
+    eigsolve by the GMRES rule, Arnoldi by the Sylvester rule: the
+    unsharded batched gradient, each problem its one-problem sharded
+    gradient, bit for bit).  Pytree vectors
     are batched: each problem of a dict batch is its one-problem dict solve,
     bit for bit; so are ``eager=True`` and selective reorthogonalization.
     A start that requires grad is differentiated (``ad/batched.py``): it
@@ -262,9 +266,6 @@ def test_batched_lanczos_refusals():
         (lambda: kt.eigsolve_lanczos_batched(
             top, X, 1, "LM", kt.Lanczos(krylovdim=10, eager=True, reorth="selective")),
          "selective.*incompatible with eager"),
-        (lambda: kt.eigsolve_lanczos_batched(top, X.clone().requires_grad_(True), 1, "LM", alg,
-                                             space=one),
-         "eigsolve_lanczos_batched: differentiation.*not yet batched on a sharded space"),
         (lambda: kt.eigsolve_lanczos_batched(top, X, 1, "LM", alg, in_dims=(None, None)),
          "in_dims"),
         (lambda: kt.eigsolve_lanczos_batched([top], X, 1, "LM", alg, in_dims=(0, 0)),
@@ -273,6 +274,11 @@ def test_batched_lanczos_refusals():
     for call, word in cases:
         with pytest.raises(ValueError, match=word):
             call()
+    # differentiation on a sharded space: on a one-rank axis the unsharded
+    # batched gradient, each problem its one-problem sharded one (the GMRES
+    # rule of Lanczos, the general Sylvester rule of Arnoldi)
+    check_one_rank_axis("eigsolve_lanczos_batched")
+    check_one_rank_axis("eigsolve_arnoldi_batched", "arnoldi")
     # a sharded space is batched: on a one-rank axis (no collective) each
     # problem solves as on the unsharded space, bit for bit
     short = kt.Lanczos(krylovdim=10, maxiter=2)

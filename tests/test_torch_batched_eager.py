@@ -23,6 +23,7 @@ import torch
 
 import krylovkit_tpu_torch as kt
 from batched_eager_specs import check_against_jax, counts
+from batched_grad_specs import check_one_rank_axis
 from chip_smoke import SMALL_SHARDED_TOL, small_batched_eager_cases
 from krylovkit_tpu_torch.ops.collectives import MeshAxis
 from krylovkit_tpu_torch.ops.vector import tree_leaves, tree_row
@@ -124,10 +125,12 @@ def test_batched_eager_lanczos_on_tuples_matches_jax_vmap():
 @pytest.mark.parametrize("driver", ["eigsolve_lanczos_batched", "svdsolve_gkl_batched",
                                     "exponentiate_batched"])
 def test_batched_eager_refusals_that_remain(driver):
-    """An eager batch on a sharded space still refuses differentiation,
-    and ``exponentiate`` everywhere (it has no rule), naming itself; an
-    eager Lanczos or GKL batch differentiates; on a one-rank sharded axis a
-    batch is the unsharded batch, bit for bit, a dict batch too."""
+    """``exponentiate`` refuses differentiation on every space (it has no
+    rule), naming itself; an eager Lanczos or GKL batch differentiates, on
+    a sharded space too: on a one-rank axis the unsharded batched gradient,
+    each problem its one-problem eager sharded gradient, bit for bit; on a
+    one-rank sharded axis a batch is the unsharded batch, bit for bit, a
+    dict batch too."""
     A = torch.diag(torch.linspace(1.0, 2.0, 8, dtype=torch.float64))
     X = torch.ones((2, 8), dtype=torch.float64) + torch.arange(8.0, dtype=torch.float64) / 8
     one = kt.VectorSpace(psum_axis=MeshAxis("vec", None, 1, 0))
@@ -143,18 +146,15 @@ def test_batched_eager_refusals_that_remain(driver):
         return kt.exponentiate_batched(A, 0.1, X0, kt.Lanczos(krylovdim=4, eager=True), space)
 
     named = driver.replace("exponentiate", "expintegrator")
-    refused = [(A.clone().requires_grad_(True), one, "differentiation.*not yet batched on a "
-                                                      "sharded space")]
     if driver == "exponentiate_batched":
-        refused.append((A.clone().requires_grad_(True), kt.STANDARD,
-                        "differentiation has no rule"))
-    for A0, space, why in refused:
-        with pytest.raises(ValueError, match=f"{named}: {why}"):
-            call(X, space, A0)
-    if driver != "exponentiate_batched":
+        for space in (one, kt.STANDARD):
+            with pytest.raises(ValueError, match=f"{named}: differentiation has no rule"):
+                call(X, space, A.clone().requires_grad_(True))
+    else:
         Ag = A.clone().requires_grad_(True)
         call(X, kt.STANDARD, Ag)[0].sum().backward()
         assert Ag.grad is not None and bool(torch.isfinite(Ag.grad).all())
+        check_one_rank_axis(driver, eager=True)
     got, want = call(X, one), call(X)
     assert torch.equal(got[0], want[0])
     got, want = call({"a": X}, one), call({"a": X})

@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from batched_grad_specs import check_one_rank_axis
 from krylovkit_tpu import GKL as JGKL
 from krylovkit_tpu.ops.operator import MatrixOperator as JMatrixOperator
 from krylovkit_tpu.solvers.svdsolve import svdsolve_gkl as j_svdsolve_gkl
@@ -232,10 +233,11 @@ def test_repr_of_batched_info():
 
 
 def test_batched_svdsolve_refusals():
-    """Each piece this slice does not batch raises ``ValueError`` with its
-    name: an input or an operator tensor that requires grad on a sharded
-    space; and the argument checks.  A sharded space is batched: on a
-    one-rank axis, the unsharded bits, a dict batch too; so are pytree
+    """The argument checks raise ``ValueError`` with the driver's name.  A
+    sharded space is batched: on a one-rank axis, the unsharded bits, a
+    dict batch too, and the gradient by the Sylvester rule (the unsharded
+    batched gradient, each problem its one-problem sharded one, bit for
+    bit; the GMRES rule in ``test_torch_batched_eager.py``); so are pytree
     vectors: a dict batch gives each problem its one-problem dict solve,
     bit for bit; so does ``GKL(eager=True)``.  Unsharded, a start or an
     operator that requires grad is differentiated (``ad/batched.py``)."""
@@ -245,10 +247,6 @@ def test_batched_svdsolve_refusals():
     alg = kt.GKL(krylovdim=8)
     one = kt.VectorSpace(psum_axis=MeshAxis("vec", None, 1, 0))
     cases = [
-        (lambda: kt.svdsolve_gkl_batched(A, Xt.clone().requires_grad_(True), 1, "LR", alg, one),
-         "svdsolve_gkl_batched: differentiation.*not yet batched on a sharded space"),
-        (lambda: kt.svdsolve_gkl_batched(A.clone().requires_grad_(True), Xt, 1, "LR", alg, one),
-         "differentiation"),
         (lambda: kt.svdsolve_gkl_batched(A, Xt, 1, "LM", alg), "which"),
         (lambda: kt.svdsolve_gkl_batched(A, Xt, 9, "LR", alg), "krylovdim"),
         (lambda: kt.svdsolve_gkl_batched(A, Xt, 1, "LR", alg, in_dims=(None, None)), "in_dims"),
@@ -257,6 +255,7 @@ def test_batched_svdsolve_refusals():
     for call, word in cases:
         with pytest.raises(ValueError, match=word):
             call()
+    check_one_rank_axis("svdsolve_gkl_batched", "arnoldi")
     # a sharded space is batched: on a one-rank axis (no collective) each
     # problem solves as on the unsharded space, bit for bit
     eager = kt.GKL(krylovdim=8, eager=True)

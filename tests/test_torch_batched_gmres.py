@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from batched_grad_specs import check_one_rank_axis
 from krylovkit_tpu import GMRES as JGMRES
 from krylovkit_tpu.factorizations import krylov as jkf
 from krylovkit_tpu.ops.operator import MatrixOperator as JMatrixOperator
@@ -175,12 +176,13 @@ def test_batched_gmres_warn_lines_match_jax_vmap():
 
 
 def test_batched_gmres_refusals():
-    """(h) a shifted system whose shift requires grad on a sharded space,
-    an operator given no problem axis and problem counts that disagree
-    raise ``ValueError``; pytree vectors are batched: each problem of a
-    dict batch is its one-problem dict solve, bit for bit, and so on a
+    """(h) an operator given no problem axis and problem counts that
+    disagree raise ``ValueError``; pytree vectors are batched: each problem
+    of a dict batch is its one-problem dict solve, bit for bit, and so on a
     one-rank sharded axis.  Unsharded, the shift's gradient is the sum of
-    the one-problem gradients."""
+    the one-problem gradients; on a one-rank sharded axis the gradients of
+    the shift, ``b`` and the operators are the unsharded batch's, each
+    problem's its one-problem sharded solve's, bit for bit."""
     A = torch.eye(8, dtype=torch.float64) * 2
     B = torch.ones(2, 8, dtype=torch.float64)
     alg = kt.GMRES(krylovdim=4)
@@ -197,11 +199,7 @@ def test_batched_gmres_refusals():
     xs, infos = kt.linsolve_gmres_batched(dict_op, {"b": Bd}, {"b": torch.zeros_like(B)}, 0.5,
                                           1.0, alg, one)
     assert torch.equal(xs["b"], x["b"]) and torch.equal(infos.numops, info.numops)
-    with pytest.raises(ValueError, match="linsolve_gmres_batched: differentiation.*not yet "
-                                         "batched on a sharded space"):
-        kt.linsolve_gmres_batched(A, B, torch.zeros_like(B),
-                                  torch.tensor(0.5, dtype=torch.float64, requires_grad=True),
-                                  1.0, alg, one)
+    check_one_rank_axis("linsolve_gmres_batched")
     a0 = torch.tensor(0.5, dtype=torch.float64, requires_grad=True)
     kt.linsolve_gmres_batched(A, B, torch.zeros_like(B), a0, 1.0, alg)[0].sum().backward()
     want = 0.0

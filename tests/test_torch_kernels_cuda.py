@@ -796,12 +796,15 @@ def test_sharded_ad_small_width_on_card():
     one rank (Hellmann–Feynman and the joined gradients within 1e-3, the
     linsolve's within 1e-4, counts equal), K1 per rank in the linsolve's
     forward and K5/K6 in the flag-on forward as one rank launches them,
-    none on the backward's tuple solves."""
+    none on the backward's tuple solves; their batched twins with the
+    batched K1 and K5/K6 launches."""
     from chip_smoke import sharded_ad
 
     launches = sharded_ad(torch, np, kt, _build, "card test", N=256)
     assert launches["linsolve"]["forward"].get("fused_step", 0) > 0
     assert launches["eig_sylvester_proj"]["forward"].get("project", 0) > 0
+    assert launches["linsolve_batched"]["forward"].get("fused_step_batched", 0) > 0
+    assert launches["eig_sylvester_proj_batched"]["forward"].get("project_batched", 0) > 0
 
 
 # batched K1: (kind, B, with_drift) at equal B = kp1 for every problem

@@ -1,6 +1,7 @@
 """PyTorch port: gradients of sharded solves (``VectorSpace(psum_axis=...)``)
-against the JAX package on the CPU: linsolve, eigsolve and the psum's
-cotangent here; svdsolve in ``test_torch_sharded_ad_svd.py`` and, with
+against the JAX package on the CPU: linsolve, eigsolve, their batched
+drivers and the psum's cotangent here; svdsolve (and its batched driver)
+in ``test_torch_sharded_ad_svd.py`` and, with
 derived adjoints, in ``test_torch_sharded_ad_derived.py``; the
 ``ShardedELLOperator``, the adjoint identities and the phase rehearsal in
 ``test_torch_sharded_ad_adjoints.py`` (four files, so that each stays near
@@ -32,11 +33,25 @@ eigenvector or singular-vector cotangents (ROADMAP queue 3); the
 ``_values`` scenarios, whose cotangents touch the values only, hold the
 Sylvester routes against the in-body ones.
 
+The ``batched_`` scenarios (``chip_smoke.SHARDED_AD_BATCHED``) differentiate
+the batched drivers on the sharded space, ``P`` problems of a one-problem
+scenario's data (``chip_smoke.sharded_ad_batch``: problem 0 is that
+scenario, the others scale its ``g``), against ``jax.vmap`` of the
+front-end in the body of ``shard_map`` (the Sylvester route with
+eigenvector cotangents against ``jax.vmap`` unsharded): each problem's
+blocks, counts and backward applies its own, a shared input's partials the
+sums over the problems.  A group with a batched scenario has one
+reference program, that ``jax.vmap`` (``axis_name`` :data:`PROBLEM`), so a
+one-problem scenario and its batched one share one run: the one-problem
+reference is its problem 0; a group without one calls the front-end once.
+
 The scenarios that differ only in data share one compiled JAX program
-(:data:`SHARED_GROUPS`): a ``_values`` scenario is its full one with the
-vector cotangent scaled by 0, and the three ``svdsolve_derived`` maps are
-one map whose pick rides in its parameters (each term the scenario's, the
-others multiplied by an exact 0).
+(:func:`_program`, one a group, in the body and unsharded): a ``_values``
+scenario is its full one with the vector cotangent scaled by 0, and the
+three ``svdsolve_derived`` maps are one map whose pick rides in its
+parameters (each term the scenario's, the others multiplied by an exact
+0).  The JAX side runs on :data:`JAX_THREADS` threads while the ranks run:
+one program traces at a time, the others compile meanwhile.
 
 Tolerances: gradients within 1e-10 (relative to the largest entry of the
 reference), ``numops``, ``numiter`` and ``converged`` of the forward equal,
@@ -46,6 +61,8 @@ eigsolve and svdsolve: the port counts its adjoint's applies, the JAX side
 the ``numops`` of its pullbacks' inner solves).
 """
 
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from functools import lru_cache, partial
 
 import numpy as np
@@ -59,18 +76,26 @@ WORLD = 4
 TOL = 1e-10
 
 
-NAMES = ("linsolve", "psum_loss") + chip_smoke.SHARDED_AD_EIG
+NAMES = ("linsolve", "psum_loss") + chip_smoke.SHARDED_AD_EIG + tuple(
+    name for name in chip_smoke.SHARDED_AD_BATCHED if "svdsolve" not in name)
+
+
+# threads of the JAX side: a program compiles (without the GIL) while the
+# next one traces
+JAX_THREADS = 3
 
 
 def run_cases(names, meanwhile=()):
     """The scenarios ``names`` of ``chip_smoke.sharded_ad_cases`` on one
     group of :data:`WORLD` CPU ranks, the same on every rank.  The calls
-    ``meanwhile`` (the JAX side, cached) run while the ranks do."""
+    ``meanwhile`` (the JAX side, cached) run while the ranks do, on
+    :data:`JAX_THREADS` threads."""
     handle = chip_smoke.start_ranks(WORLD, "sharded_ad_cases", dev="cpu", timeout=600,
                                     names=names)
     try:
-        for call in meanwhile:
-            call()
+        with ThreadPoolExecutor(JAX_THREADS) as pool:
+            for done in [pool.submit(call) for call in meanwhile]:
+                done.result()
     finally:
         res = chip_smoke.collect_ranks(handle)
     return chip_smoke.same_on_every_rank(np, res)
@@ -89,7 +114,9 @@ def ranks():
                              partial(_jax_linsolve, sharded=False)]
                      + spectral_refs(("eigsolve_gmres", "eigsolve_sylvester_values",
                                       "eigsolve_general"), True)
-                     + spectral_refs(("eigsolve_sylvester",), False))
+                     + spectral_refs(("eigsolve_sylvester",), False)
+                     # the in-body Gram under jax.vmap (queue 3)
+                     + [partial(_jax_spectral, "batched_eigsolve_sylvester", sharded=True)])
 
 
 def _case(ranks, name):
@@ -112,72 +139,125 @@ def _mesh():
     return Mesh(np.array(jax.devices()[:WORLD]), ("vec",))
 
 
-# the numops of every inner solve that ran, appended by the compiled
-# programs' callbacks (a cached program keeps the callback it was traced with)
-_SEEN = []
+# the axis name of the problems in a reference program of several
+# (jax.vmap); whether the program traced now has it
+PROBLEM = "problem"
+_VMAPPED = False
+# one program traces at a time (the JAX package's inner solves are wrapped
+# meanwhile); the list its inner solves' callbacks append to
+_TRACING = threading.Lock()
+_TARGET = []
 
 
-class _InnerSolves:
-    """The applies of the backward's inner solves of the JAX package (its
-    pullbacks' ``_linsolve_impl`` and ``eigsolve_arnoldi``, which they
-    import at call time): each solve's ``numops``, read by a
-    ``jax.debug.callback`` once per device into :data:`_SEEN`.  Inside, the
-    two are wrapped (for a program traced there); :attr:`numops` sums what
-    ran inside."""
+def _over_problems(solve, P):
+    """``solve`` over the leading axis of its arguments: ``jax.vmap`` with
+    the axis :data:`PROBLEM` for several problems, for one a direct call
+    (``jax.vmap`` of one problem compiles and runs more slowly), its
+    outputs given the axis of one."""
+    import jax
 
-    def __init__(self, devices):
-        self.devices, self.seen = devices, _SEEN
+    global _VMAPPED
+    _VMAPPED = P > 1
+    if P > 1:
+        return jax.vmap(solve, axis_name=PROBLEM)
 
-    def __enter__(self):
+    def one(*args):
+        return jax.tree.map(lambda l: l[None], solve(*(a[0] for a in args)))
+
+    return one
+
+
+def _counted(fn):
+    """The JAX package's inner solve ``fn`` (its pullbacks'
+    ``_linsolve_impl`` and ``eigsolve_arnoldi``, which they import at call
+    time), each solve's ``(problem, numops)`` read by a
+    ``jax.debug.callback`` (once per device; under ``jax.vmap`` once a
+    problem, in no set order) into the list of the program being traced."""
+    import jax
+
+    def solve(*a, **kw):
+        out = fn(*a, **kw)
+        seen = _TARGET[-1]
+        problem = jax.lax.axis_index(PROBLEM) if _VMAPPED else 0
+        jax.debug.callback(lambda p, n: seen.append((int(p), int(n))), problem,
+                           out[-1].numops)
+        return out
+
+    return solve
+
+
+class _Program:
+    """A reference program, traced with the inner solves counted
+    (:func:`_counted`) and compiled once; its runs one at a time, each
+    with the applies of its inner solves per problem."""
+
+    def __init__(self, fn, args, devices):
         import jax
         import krylovkit_tpu.solvers.arnoldi as jarn
         import krylovkit_tpu.solvers.linsolve as jlin
 
-        _SEEN.clear()
+        self.seen, self.devices, self.lock = [], devices, threading.Lock()
+        with _TRACING:
+            saved = (jlin._linsolve_impl, jarn.eigsolve_arnoldi)
+            jlin._linsolve_impl, jarn.eigsolve_arnoldi = map(_counted, saved)
+            _TARGET.append(self.seen)
+            try:
+                lowered = jax.jit(fn).lower(*args)
+            finally:
+                _TARGET.pop()
+                jlin._linsolve_impl, jarn.eigsolve_arnoldi = saved
+        self.compiled = lowered.compile()
 
-        def counted(fn):
-            def solve(*a, **kw):
-                out = fn(*a, **kw)
-                jax.debug.callback(lambda n: _SEEN.append(int(n)), out[-1].numops)
-                return out
-
-            return solve
-
-        self.saved = (jlin._linsolve_impl, jarn.eigsolve_arnoldi)
-        jlin._linsolve_impl = counted(jlin._linsolve_impl)
-        jarn.eigsolve_arnoldi = counted(jarn.eigsolve_arnoldi)
-        return self
-
-    def __exit__(self, *exc):
+    def __call__(self, args, problems):
+        """The outputs as numpy arrays, and each problem's applies."""
         import jax
-        import krylovkit_tpu.solvers.arnoldi as jarn
-        import krylovkit_tpu.solvers.linsolve as jlin
 
-        jax.effects_barrier()  # every callback of the (asynchronous) runs has fired
-        jlin._linsolve_impl, jarn.eigsolve_arnoldi = self.saved
+        with self.lock:
+            self.seen.clear()
+            out = [np.asarray(o) for o in self.compiled(*args)]
+            jax.effects_barrier()  # every callback of the (asynchronous) run has fired
+            applies = [0] * problems
+            for p, n in self.seen:
+                applies[p] += n
+        return out, np.asarray([n // self.devices for n in applies])
 
-    @property
-    def numops(self):
-        return sum(self.seen) // self.devices
+
+_PROGRAMS, _PROGRAMS_LOCK = {}, threading.Lock()
 
 
-def _in_body(fn, sharded_in, n_rep_out, n_dev_out):
-    """``fn`` inside ``shard_map`` over the 4 devices: its first
-    ``sharded_in`` arguments are split on their rows, the rest replicated;
-    its outputs are ``n_rep_out`` replicated values, then ``n_dev_out``
-    per-device ones (blocks, or scalars stacked by device)."""
+def _program(key, build, args, devices):
+    """The :class:`_Program` of ``key``, built from ``build()`` on first use
+    (one thread builds it, the others wait)."""
+    with _PROGRAMS_LOCK:
+        entry = _PROGRAMS.setdefault(key, [threading.Lock(), None])
+    with entry[0]:
+        if entry[1] is None:
+            entry[1] = _Program(build(), args, devices)
+    return entry[1]
+
+
+# the blocks of an in-body program's arguments and outputs (_in_body): a
+# replicated value, a vector's rows, the rows of each problem's vector of a
+# (P, ...) stack, a per-device value (stacked by device on a new axis)
+REP, VEC, STACK, DEV = "rep", "vec", "stack", "dev"
+
+
+def _in_body(fn, specs_in, specs_out):
+    """``fn`` inside ``shard_map`` over the 4 devices, its arguments and
+    outputs laid out as ``specs_in`` and ``specs_out`` say (:data:`REP`,
+    :data:`VEC`, :data:`STACK`, :data:`DEV`)."""
     import jax
     from jax.sharding import PartitionSpec as P
 
+    spec = {REP: P(), VEC: P("vec"), STACK: P(None, "vec"), DEV: P("vec")}
+
     def body(*args):
         out = fn(*args)
-        return out[:n_rep_out] + tuple(
-            o.reshape((1,)) if o.ndim == 0 else o for o in out[n_rep_out:])
+        return tuple(o[None] if k == DEV else o for o, k in zip(out, specs_out))
 
     def run(*args):
-        specs = tuple(P("vec") if i < sharded_in else P() for i in range(len(args)))
-        return jax.shard_map(body, mesh=_mesh(), in_specs=specs,
-                             out_specs=(P(),) * n_rep_out + (P("vec"),) * n_dev_out,
+        return jax.shard_map(body, mesh=_mesh(), in_specs=tuple(spec[k] for k in specs_in),
+                             out_specs=tuple(spec[k] for k in specs_out),
                              check_vma=False)(*args)
 
     return run
@@ -191,6 +271,34 @@ def _counts_equal(out, counts):
     assert (out["numops"], out["numiter"], out["converged"]) == tuple(int(c) for c in counts)
 
 
+def _batched(name):
+    return name.startswith("batched_")
+
+
+def _problems(group):
+    """The problems of ``group``'s reference program: those of its batched
+    scenario (:func:`chip_smoke.sharded_ad_batch`), of which the
+    one-problem scenario is problem 0; one where it has none."""
+    return (len(chip_smoke.SHARDED_AD_SCALES)
+            if "batched_" + group in chip_smoke.SHARDED_AD_BATCHED else 1)
+
+
+def _pick(name, ref, keys=()):
+    """Scenario ``name``'s part of a reference of its group's problems:
+    problem 0's for a one-problem scenario, all of them for a batched one,
+    where the entries ``keys`` (a shared input's gradients: a sum over the
+    problems) are summed over them."""
+    if _batched(name):
+        return {k: (np.sum(v, axis=-1) if k in keys else v) for k, v in ref.items()}
+    return {k: v[..., 0] if k in keys else v[0] for k, v in ref.items()}
+
+
+def _counts_equal_batched(name, out, ref):
+    got = [np.atleast_1d(out[k]).tolist() for k in ("numops", "numiter", "converged")]
+    want = [np.atleast_1d(ref[k]).tolist() for k in ("numops", "numiter", "converged")]
+    assert got == want, (name, got, want)
+
+
 # --------------------------------------------------------------------------
 # linsolve on the sharded 1-D Laplacian: b, a0, a1
 # --------------------------------------------------------------------------
@@ -198,35 +306,46 @@ def _counts_equal(out, counts):
 
 @lru_cache(maxsize=None)
 def _jax_linsolve(sharded):
+    """The JAX side of ``linsolve`` and ``batched_linsolve``: ``jax.vmap``
+    of the solve over the batched scenario's problems (a shift each, equal:
+    its gradient is then each problem's), ``b̄``, ``ā0`` and ``ā1`` in the
+    body on the 4 devices (``sharded``) or on one."""
     import jax
     import jax.numpy as jnp
 
-    prob = chip_smoke.sharded_ad_problem(np, "linsolve")
+    prob = chip_smoke.sharded_ad_batch(np, "batched_linsolve")
     L = jpar.laplacian_1d(prob["n"], jnp.float64)
     alg = kk.GMRES(tol=chip_smoke.SHARDED_AD_TOL, krylovdim=30, maxiter=200, verbosity=kk.SILENT)
+    P = _problems("linsolve")
 
-    def fn(b, c, a0, a1, space, A):
+    def fn(B, C, a0, a1, space, A):
         op = kk.LinearOperator(A.normal, A.apply_adjoint)
 
-        def f(b, a0, a1):
+        def solve(b, a0, a1):
             x, info = kk.linsolve(op, b, None, a0, a1, alg=alg, space=space)
             return x, _jinfo(info)
 
-        x, vjp, info = jax.vjp(f, b, a0, a1, has_aux=True)
-        bb, a0b, a1b = vjp(c)
-        return info + (x, bb, a0b, a1b)
+        def f(B, a0, a1):
+            return _over_problems(solve, P)(B, a0, a1)
 
-    args = (jnp.asarray(prob["b"]), jnp.asarray(prob["c"]), jnp.float64(prob["a0"]),
-            jnp.float64(prob["a1"]))
-    with _InnerSolves(WORLD if sharded else 1) as inner:
+        X, vjp, info = jax.vjp(f, B, a0, a1, has_aux=True)
+        bb, a0b, a1b = vjp(C)
+        return info + (X, bb, a0b, a1b)
+
+    def build():
         if sharded:
-            run = _in_body(lambda b, c, a0, a1: fn(b, c, a0, a1, kk.VectorSpace(psum_axis="vec"),
-                                                  jpar.shard_local_stencil(L, "vec")), 2, 3, 4)
-            out = run(*args)
-        else:
-            out = fn(*args, kk.VectorSpace(), L)
+            return _in_body(lambda B, C, a0, a1: fn(B, C, a0, a1, kk.VectorSpace(psum_axis="vec"),
+                                                   jpar.shard_local_stencil(L, "vec")),
+                            (STACK, STACK, REP, REP), (REP,) * 3 + (STACK, STACK, DEV, DEV))
+        return lambda *a: fn(*a, kk.VectorSpace(), L)
+
+    args = (jnp.asarray(prob["B"]), jnp.asarray(prob["C"]), jnp.full(P, prob["a0"]),
+            jnp.full(P, prob["a1"]))
+    out, applies = _program(("linsolve", sharded), build, args, WORLD if sharded else 1)(args, P)
+    ref = dict(zip(("numops", "numiter", "converged", "x", "b", "a0", "a1"), out))
     # the forward solve is an _linsolve_impl too
-    return out, inner.numops - int(out[0])
+    ref["adjoint_applies"] = applies - ref["numops"]
+    return ref
 
 
 def _jinfo(info):
@@ -237,18 +356,29 @@ def test_sharded_linsolve_gradient_matches_jax_in_body(ranks):
     """``b̄`` is each rank's block of the JAX device's; ``ā0``, ``ā1`` are
     each rank's partial, equal to its device's, and their sum over the
     ranks is the unsharded gradient."""
-    out = _case(ranks, "linsolve")
-    (*counts, x, bb, a0b, a1b), applies = _jax_linsolve(sharded=True)
-    _counts_equal(out, counts)
-    assert out["adjoint_applies"] == applies
-    _close(out["x"], x)
-    _close(out["b"], bb)
-    _close(out["a0"], a0b)
-    _close(out["a1"], a1b)
-    (*_, xu, bu, a0u, a1u), _ = _jax_linsolve(sharded=False)
-    _close(out["b"], bu)
-    _close(out["a0"].sum(), a0u)
-    _close(out["a1"].sum(), a1u)
+    _check_linsolve(ranks, "linsolve")
+
+
+def test_sharded_batched_linsolve_gradient_matches_jax_in_body(ranks):
+    """``linsolve_gmres_batched`` on the shared sharded stencil: ``b̄`` each
+    problem's, the shared shifts' partials the sums over the problems, and
+    each problem's counts and backward applies those of ``jax.vmap`` in the
+    body."""
+    _check_linsolve(ranks, "batched_linsolve")
+
+
+def _check_linsolve(ranks, name):
+    out = _case(ranks, name)
+    ref = _pick(name, _jax_linsolve(sharded=True), ("a0", "a1"))
+    _counts_equal_batched(name, out, ref)
+    assert np.atleast_1d(out["adjoint_applies"]).tolist() == \
+        np.atleast_1d(ref["adjoint_applies"]).tolist()
+    for key in ("x", "b", "a0", "a1"):
+        _close(out[key], ref[key])
+    unsharded = _pick(name, _jax_linsolve(sharded=False), ("a0", "a1"))
+    _close(out["b"], unsharded["b"])
+    _close(out["a0"].sum(), unsharded["a0"])
+    _close(out["a1"].sum(), unsharded["a1"])
 
 
 # --------------------------------------------------------------------------
@@ -257,9 +387,11 @@ def test_sharded_linsolve_gradient_matches_jax_in_body(ranks):
 
 
 def _group(name):
-    """The scenarios that share one compiled JAX program: a ``_values``
-    scenario its full one's (the cotangent on the vectors scaled by 0), the
-    three ``svdsolve_derived`` maps one (:func:`_derived_map`)."""
+    """The scenarios that share one compiled JAX program: a batched
+    scenario its one-problem scenario's, a ``_values`` scenario its full
+    one's (the cotangent on the vectors scaled by 0), the three
+    ``svdsolve_derived`` maps one (:func:`_derived_map`)."""
+    name = name.replace("batched_", "")
     return "svdsolve_derived" if "_derived" in name else name.replace("_values", "")
 
 
@@ -285,17 +417,12 @@ def _derived_map(A, inner):
     return apply, None
 
 
-# the groups of more than one scenario: each compiles once (jax.jit); a
-# group of one runs op by op, as each scenario did alone
-SHARED_GROUPS = ("eigsolve_sylvester", "svdsolve_sylvester", "svdsolve_derived")
-
-
-@lru_cache(maxsize=None)
 def _jax_program(group, sharded):
     """The JAX side of the scenarios of ``group``, on the 4 devices in the
-    body (``sharded``) or on one: a function of ``(g, mask, x0, c, d, s,
-    w)`` returning ``(vals, numops, numiter, converged, ḡ, s̄)``, compiled
-    once for a group of :data:`SHARED_GROUPS`."""
+    body (``sharded``) or on one: a function of ``(G, mask, x0, c, d, S,
+    w)`` returning ``(vals, numops, numiter, converged, Ḡ, S̄)``, ``jax.vmap``
+    over the problems' ``G`` and ``S`` (:func:`_problems`; a shift each,
+    equal: its gradient is then each problem's)."""
     import jax
     import jax.numpy as jnp
 
@@ -304,7 +431,7 @@ def _jax_program(group, sharded):
     A = (kk.StencilOperator(*chip_smoke.SHARDED_AD_CHAIN) if svd
          else jpar.laplacian_1d(chip_smoke.sharded_ad_problem(np, group)["n"], jnp.float64))
 
-    def fn(g, mask, x0, c, d, s, w, space, A, psum):
+    def fn(G, mask, x0, c, d, S, w, space, A, psum):
         # mask, d and w ride in the parameters: a jitted solve cannot close
         # over a shard_map value
         if group == "svdsolve_derived":
@@ -312,7 +439,7 @@ def _jax_program(group, sharded):
         else:
             apply, adj = chip_smoke.sharded_ad_map(group, A, space.inner)
 
-        def f(g, s):
+        def solve(g, s):
             op = kk.ParametricOperator(apply, (g, s, mask, d) + ((w,) if adj is None else ()),
                                        adj)
             if svd:
@@ -322,85 +449,119 @@ def _jax_program(group, sharded):
             vals, vecs, info = kk.eigsolve(op, x0, 2, "SR", alg=alg, alg_rrule=rrule, space=space)
             return (vals, vecs), _jinfo(info)
 
-        outs, vjp, info = jax.vjp(f, g, s, has_aux=True)
+        def f(G, S):
+            return _over_problems(solve, _problems(group))(G, S)
+
+        outs, vjp, info = jax.vjp(f, G, S, has_aux=True)
         vals = outs[0]
         ones = jnp.ones_like(vals)
         if svd:
             U, V = outs[1], outs[2]
-            cu = psum(jnp.sum(c[None] * U, axis=(1, 2)))
-            dv = psum(jnp.sum(d[None] * V, axis=(1, 2)))
-            gU, gV = w[0] * dv[:, None, None] * c[None], w[0] * cu[:, None, None] * d[None]
+            cu = psum(jnp.sum(c * U, axis=(2, 3)))
+            dv = psum(jnp.sum(d * V, axis=(2, 3)))
+            gU, gV = w[0] * dv[..., None, None] * c, w[0] * cu[..., None, None] * d
             gb, sb = vjp((ones, gU, gV))
         else:
             vecs = outs[1]
-            cv = psum(jnp.sum(c[None] * vecs, axis=(1, 2)))
-            gb, sb = vjp((ones, w[0] * 2 * cv[:, None, None] * c[None]))
+            cv = psum(jnp.sum(c * vecs, axis=(2, 3)))
+            gb, sb = vjp((ones, w[0] * 2 * cv[..., None, None] * c))
         return (vals,) + info + (gb, sb)
 
     if sharded:
         run = _in_body(lambda *a: fn(*a, kk.VectorSpace(psum_axis="vec"),
                                      jpar.shard_local_stencil(A, "vec"),
-                                     partial(jax.lax.psum, axis_name="vec")), 5, 4, 2)
+                                     partial(jax.lax.psum, axis_name="vec")),
+                       (STACK,) + (VEC,) * 4 + (REP, REP), (REP,) * 4 + (STACK, DEV))
     else:
         def run(*a):
             return fn(*a, kk.VectorSpace(), A, lambda t: t)
-    return jax.jit(run) if group in SHARED_GROUPS else run
+    return run
+
+
+def _jax_spectral(name, sharded):
+    """The reference of the problems of scenario ``name``'s group, with the
+    data that picks ``name`` in it: ``vals``, ``g`` (``Ḡ``), ``s`` (``S̄``,
+    per device when ``sharded``), the counts and the backward's applies,
+    each per problem (:func:`_pick` takes the scenario's part).  A
+    one-problem scenario and its batched one share it: its problem 0 is
+    the one-problem scenario."""
+    return _jax_run(name.replace("batched_", ""), sharded)
 
 
 @lru_cache(maxsize=None)
-def _jax_spectral(name, sharded):
-    """``(vals, ḡ, s̄, counts, the backward's applies)`` of scenario
-    ``name``; ``s̄`` per device when ``sharded``."""
+def _jax_run(name, sharded):
     import jax.numpy as jnp
 
-    prob = chip_smoke.sharded_ad_problem(np, name)
-    args = tuple(jnp.asarray(prob[k]) for k in ("g", "mask", "x0", "c", "d")) + (
-        jnp.float64(prob["s"]), jnp.asarray(_weights(name), jnp.float64))
-    with _InnerSolves(WORLD if sharded else 1) as inner:
-        vals, *counts, gb, sb = _jax_program(_group(name), sharded)(*args)
-        vals = np.asarray(vals)  # the run has ended: its callbacks have fired
-    return vals, np.asarray(gb), np.asarray(sb), [int(c) for c in counts], inner.numops
+    group = _group(name)
+    P = _problems(group)
+    prob = chip_smoke.sharded_ad_batch(np, "batched_" + name)
+    args = ((jnp.asarray(prob["G"][:P]),)
+            + tuple(jnp.asarray(prob[k]) for k in ("mask", "x0", "c", "d"))
+            + (jnp.full(P, prob["s"]), jnp.asarray(_weights(name), jnp.float64)))
+    program = _program(("spectral", group, sharded), partial(_jax_program, group, sharded), args,
+                       WORLD if sharded else 1)
+    out, applies = program(args, P)
+    ref = dict(zip(("vals", "numops", "numiter", "converged", "g", "s"), out))
+    ref["vals"] = np.real(ref["vals"])
+    ref["adjoint_applies"] = applies
+    return ref
 
 
 def _check_spectral(ranks, name, in_body):
+    """Scenario ``name`` against the JAX reference in the body
+    (``in_body``) or unsharded; a batched scenario problem by problem, its
+    shared ``s``'s partials against the sums over the problems."""
     out = _case(ranks, name)
-    vals_u, g_u, s_u, counts_u, applies_u = _jax_spectral(name, sharded=False)
+    unsharded = _pick(name, _jax_spectral(name, sharded=False), ("s",))
+    ref = _pick(name, _jax_spectral(name, sharded=True), ("s",)) if in_body else unsharded
     if in_body:
-        vals, g, s, counts, applies = _jax_spectral(name, sharded=True)
-        _close(out["s"], s)
-    else:
-        vals, g, counts, applies = vals_u, g_u, counts_u, applies_u
-    _counts_equal(out, counts)
-    _close(out["vals"], np.real(np.asarray(vals)))
-    _close(out["g"], g)
-    _close(out["g"], g_u)
-    _close(out["s"].sum(), s_u)
+        _close(out["s"], ref["s"])
+    _counts_equal_batched(name, out, ref)
+    _close(out["vals"], ref["vals"])
+    _close(out["g"], ref["g"])
+    _close(out["g"], unsharded["g"])
+    _close(out["s"].sum(), np.sum(unsharded["s"]))
     if in_body and "adjoint_applies" in out:
         # svdsolve's operator cotangent applies the adjoint once more a
         # triplet (its terms on the left vectors); the JAX side counts the
         # inner solves only
-        extra = 2 if name.startswith("svdsolve") else 0
-        assert out["adjoint_applies"] == applies + extra
+        extra = 2 if "svdsolve" in name else 0
+        gap = np.abs(np.atleast_1d(out["adjoint_applies"])
+                     - np.atleast_1d(ref["adjoint_applies"]) - extra)
+        # a batch's all-reduces sum a stack of problems: over 4 gloo ranks
+        # a row's sum may round otherwise than one problem's alone, which
+        # can end a bordered system (one a pair, 2 a problem) an iteration
+        # sooner or later than in the JAX package; one problem is exact
+        assert gap.max() <= (2 if _batched(name) else 0), (name, out["adjoint_applies"],
+                                                           ref["adjoint_applies"])
     return out
 
 
-@pytest.mark.parametrize("name", ["eigsolve_gmres", "eigsolve_sylvester_values"])
+@pytest.mark.parametrize("name", ["eigsolve_gmres", "eigsolve_sylvester_values",
+                                  "batched_eigsolve_gmres", "batched_eigsolve_sylvester_values"])
 def test_sharded_eigsolve_gradient_matches_jax_in_body(ranks, name):
     """The GMRES rule (bordered systems on ``(vector, scalar)`` tuples whose
     replicated scalar leaf the all-reduced inner product weighs ``D`` times,
     as the JAX package's) and the Sylvester rule with a cotangent on the
     values: each rank's ``ḡ`` and ``s̄`` are its device's, with equal
-    counts."""
+    counts.  The ``batched_`` scenarios differentiate
+    ``eigsolve_lanczos_batched`` on one ``ParametricOperator`` a problem,
+    against ``jax.vmap`` in the body: each problem's ``ḡ`` block, counts
+    and backward applies its device's, ``s̄`` (shared) the sum over the
+    problems."""
     _check_spectral(ranks, name, in_body=True)
 
 
-@pytest.mark.parametrize("name", ["eigsolve_sylvester", "eigsolve_general"])
+@pytest.mark.parametrize("name", ["eigsolve_sylvester", "eigsolve_general",
+                                  "batched_eigsolve_sylvester"])
 def test_sharded_eigsolve_sylvester_gradient_matches_unsharded_jax(ranks, name):
     """The Sylvester rules with eigenvector cotangents (and the general
     rule, whose Gram matrix ``G = VᴴV`` enters even a values-only
     cotangent): the port all-reduces the Gram matrices, so its gradient is
-    the unsharded one; the JAX package's in-body one is not (queue 3).  The
-    backward's applies are not compared here: the inner eigensolve starts
+    the unsharded one; the JAX package's in-body one reads a device's Gram
+    rows (queue 3), which breaks the general rule and here moves the
+    Lanczos primal's by less than 1e-10 (the two tests below).  The
+    backward's applies are not compared here: the inner eigsolve starts
     from ``(0, ones)``, whose Krylov space turns with the signs of the
     eigenvectors, and torch's and JAX's small eigensolvers pick the signs
     each their own way (198 against 174 applies here, on one device too)."""
@@ -412,9 +573,19 @@ def test_jax_in_body_sylvester_gram_is_local():
     Sylvester pullback reads a device's Gram rows only, so its eigenvector
     cotangent misses the unsharded gradient by far more than the port's
     1e-10."""
-    _, g, _, _, _ = _jax_spectral("eigsolve_general", sharded=True)
-    _, g_u, _, _, _ = _jax_spectral("eigsolve_general", sharded=False)
-    assert not np.allclose(np.asarray(g), np.asarray(g_u), rtol=0, atol=1e-6)
+    g = _pick("eigsolve_general", _jax_spectral("eigsolve_general", sharded=True))["g"]
+    g_u = _pick("eigsolve_general", _jax_spectral("eigsolve_general", sharded=False))["g"]
+    assert not np.allclose(g, g_u, rtol=0, atol=1e-6)
+
+
+def test_jax_in_body_vmapped_lanczos_sylvester_matches_unsharded():
+    """Under ``jax.vmap`` in the body the fault does not show in the
+    Lanczos primal's Sylvester route here: the JAX package's in-body
+    gradient of ``batched_eigsolve_sylvester``'s problems (eigenvector
+    cotangents) is its unsharded one within 1e-10, as the port's is; the
+    general route breaks (the test above, one problem)."""
+    name = "batched_eigsolve_sylvester"
+    _close(_jax_spectral(name, sharded=True)["g"], _jax_spectral(name, sharded=False)["g"])
 
 
 # --------------------------------------------------------------------------
@@ -434,7 +605,7 @@ def test_psum_cotangent_is_summed_over_ranks(ranks):
 
     prob = chip_smoke.sharded_ad_problem(np, "psum_loss")
     space = kk.VectorSpace(psum_axis="vec")
-    run = _in_body(lambda c, b: (jax.grad(lambda b: space.inner(c, b))(b),), 2, 0, 1)
+    run = _in_body(lambda c, b: (jax.grad(lambda b: space.inner(c, b))(b),), (VEC, VEC), (VEC,))
     want = run(jnp.asarray(prob["c"]), jnp.asarray(prob["b"]))[0]
     _close(_case(ranks, "psum_loss")["b"], want)
     _close(_case(ranks, "psum_loss")["b"], WORLD * prob["c"])

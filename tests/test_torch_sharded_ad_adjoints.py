@@ -117,14 +117,16 @@ def test_sharded_ad_phase_on_cpu_ranks():
     """Phase ``sharded_ad`` of ``chip_smoke.py`` on two CPU ranks at N = 128
     (the kernels' plain versions; float32): the fused GMRES forward on
     ``shard_local_stencil`` and its unfused adjoint solve, the eigenvalue
-    gradients by the GMRES and Sylvester rules and the derived adjoint,
-    each against one rank (the phase's guards: Hellmann–Feynman and the
-    joined gradients within 1e-3, values and the linsolve's gradients
-    within 1e-4, counts equal)."""
+    gradients by the GMRES and Sylvester rules, their batched twins
+    (``eigsolve_lanczos_batched``, ``linsolve_gmres_batched``, two
+    problems) and the derived adjoint, each against one rank (the phase's
+    guards: Hellmann–Feynman and the joined gradients within 1e-3, values
+    and the linsolve's gradients within 1e-4, counts equal)."""
     import torch
 
     import krylovkit_tpu_torch as kt
     from krylovkit_tpu_torch import _build
 
     launches = chip_smoke.sharded_ad(torch, np, kt, _build, "cpu", N=128, dev="cpu")
-    assert set(launches) == set(chip_smoke.SHARDED_AD_PASSES)
+    assert set(launches) == set(chip_smoke.SHARDED_AD_PASSES
+                                + chip_smoke.SHARDED_AD_BATCHED_PASSES)

@@ -477,18 +477,28 @@ def _sharded_call(driver, A, X, space, eager=False, maxiter=None):
                                     "eigsolve_blocklanczos_batched"])
 def test_drivers_on_a_sharded_space_refuse_what_they_do_not_batch(driver):
     """The GKL, LSMR, Golub-Ye, BiArnoldi and Block Lanczos batched drivers
-    take a sharded space and still refuse, each naming itself, a start that
-    requires grad; on a one-rank axis a sharded solve is the unsharded
-    one, bit for bit, and so is each problem of a dict batch its
-    one-problem sharded dict solve; (GKL, BiArnoldi) so is an
-    ``eager=True`` solve."""
+    take a sharded space; those with no differentiation rule refuse, each
+    naming itself, a start that requires grad there with the message they
+    give on an unsharded space, and GKL differentiates (a start that
+    requires grad: no gradient to it, the solve's bits); on a one-rank axis
+    a sharded solve is the unsharded one, bit for bit, and so is each
+    problem of a dict batch its one-problem sharded dict solve; (GKL,
+    BiArnoldi) so is an ``eager=True`` solve."""
     from krylovkit_tpu_torch.ops.vector import tree_leaves, tree_row
 
     space = VectorSpace(psum_axis=MeshAxis("vec", None, 1, 0))
     A = torch.diag(torch.linspace(1.0, 2.0, 8, dtype=torch.float64))
     X = torch.ones((2, 8), dtype=torch.float64) + torch.arange(8.0, dtype=torch.float64) / 8
-    with pytest.raises(ValueError, match=f"{driver}: differentiation"):
-        _sharded_call(driver, A, X.clone().requires_grad_(True), space)
+    if driver == "svdsolve_gkl_batched":
+        Xg = X.clone().requires_grad_(True)
+        got = _sharded_call(driver, A, Xg, space)
+        got[0].sum().backward()
+        assert got[0].requires_grad and Xg.grad is None
+        assert torch.equal(got[0].detach(), _sharded_call(driver, A, X, VectorSpace())[0])
+    else:
+        for sp in (space, VectorSpace()):
+            with pytest.raises(ValueError, match=f"{driver}: differentiation has no rule"):
+                _sharded_call(driver, A, X.clone().requires_grad_(True), sp)
     got = _sharded_call(driver, A, X, space)
     want = _sharded_call(driver, A, X, VectorSpace())
     assert torch.equal(got[0], want[0])
